@@ -1,0 +1,123 @@
+"""A minimal bucketed inference engine: the port of
+se3_transformer_tpu/inference/engine.py's serving surface.
+
+Requests are padded to fixed bucket lengths (so a deployment sees a small,
+known set of shapes), parameters are placed on the device once at
+construction, and every call ends in a device synchronize so the recorded
+latencies are the device's. Ahead-of-time capture, quantization, meshes and
+telemetry are not ported yet.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils.helpers import resolve_device
+
+
+def pad_to_bucket(feat_seqs, coord_seqs, bucket_len: int,
+                  batch_size: Optional[int] = None):
+    """Ragged (feats [n_i, d], coords [n_i, 3]) sequences -> feats
+    [B, bucket_len, d] / coords [B, bucket_len, 3] float32 zero-padded, and
+    mask [B, bucket_len]; sequences longer than the bucket are truncated,
+    and all-padding rows fill the batch up to `batch_size`."""
+    count = len(feat_seqs)
+    B = count if batch_size is None else batch_size
+    if count > B:
+        raise ValueError(f'{count} sequences do not fit a batch of {B}')
+    d = np.asarray(feat_seqs[0]).shape[-1]
+    feats = np.zeros((B, bucket_len, d), np.float32)
+    coords = np.zeros((B, bucket_len, 3), np.float32)
+    mask = np.zeros((B, bucket_len), bool)
+    for i, (f, c) in enumerate(zip(feat_seqs, coord_seqs)):
+        f = np.asarray(f, np.float32)[:bucket_len]
+        c = np.asarray(c, np.float32).reshape(-1, 3)[:bucket_len]
+        feats[i, :len(f)] = f
+        coords[i, :len(c)] = c
+        mask[i, :len(f)] = True
+    return feats, coords, mask
+
+
+class InferenceEngine:
+    """Answer fixed-shape padded batches with a model placed on one device.
+
+        engine = InferenceEngine(flagship_fast(), buckets=(256, 1024))
+        out = engine.predict(feats, coords)            # one request
+        out = engine.run(1024, feats, coords, mask)    # a padded batch
+    """
+
+    def __init__(self, module: torch.nn.Module, *,
+                 buckets: Sequence[int] = (64, 128, 256, 512),
+                 batch_size: int = 1, device='cuda'):
+        self.device = resolve_device(device)
+        self.module = module.to(self.device).eval()
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        if not self.buckets:
+            raise ValueError('no buckets')
+        self.batch_size = int(batch_size)
+        self.batches_served = {b: 0 for b in self.buckets}
+        self.rows_served = {b: 0 for b in self.buckets}
+        # the most recent latencies per bucket (bounded for long runs)
+        self.latency_s = {b: deque(maxlen=4096) for b in self.buckets}
+
+    def bucket_for(self, length: int) -> Optional[int]:
+        return next((b for b in self.buckets if b >= length), None)
+
+    def run(self, bucket: int, feats, coords, mask) -> torch.Tensor:
+        """One padded batch: feats [B, bucket, d], coords [B, bucket, 3],
+        mask [B, bucket] -> [B, bucket, d_out] on the engine's device.
+        Returns after the device has finished; the recorded latency runs
+        from the host-to-device copies to that synchronize."""
+        if bucket not in self.buckets:
+            raise ValueError(f'{bucket} is not a configured bucket')
+        expect = (self.batch_size, bucket)
+        t0 = time.perf_counter()
+        feats = torch.as_tensor(feats, dtype=torch.float32,
+                                device=self.device)
+        coords = torch.as_tensor(coords, dtype=torch.float32,
+                                 device=self.device)
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+        for name, t in (('feats', feats), ('coords', coords), ('mask', mask)):
+            if tuple(t.shape[:2]) != expect:
+                raise ValueError(f'{name} has shape {tuple(t.shape)}; the '
+                                 f'bucket takes {expect}')
+        with torch.inference_mode():
+            out = self.module(feats, coords, mask)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        self.latency_s[bucket].append(time.perf_counter() - t0)
+        self.batches_served[bucket] += 1
+        self.rows_served[bucket] += int(mask.any(-1).sum())
+        return out
+
+    def predict(self, feats, coords) -> np.ndarray:
+        """One request end to end: pad to the smallest fitting bucket, run,
+        return only the real rows as a numpy array."""
+        length = len(feats)
+        bucket = self.bucket_for(length)
+        if bucket is None:
+            raise ValueError(f'request of {length} nodes exceeds the largest '
+                             f'bucket ({self.buckets[-1]})')
+        f, c, m = pad_to_bucket([feats], [coords], bucket,
+                                batch_size=self.batch_size)
+        out = self.run(bucket, f, c, m)
+        return out[0, :length].float().cpu().numpy()
+
+    def stats(self) -> dict:
+        def ms(values, q):
+            return float(np.percentile(list(values), q) * 1e3) if values \
+                else None
+        return dict(
+            device=str(self.device), buckets=list(self.buckets),
+            batch_size=self.batch_size,
+            batches_served={str(b): n for b, n in self.batches_served.items()
+                            if n},
+            rows_served={str(b): n for b, n in self.rows_served.items() if n},
+            latency_ms_p50={str(b): ms(v, 50) for b, v in
+                            self.latency_s.items() if v},
+            latency_ms_max={str(b): ms(v, 100) for b, v in
+                            self.latency_s.items() if v})

@@ -1,0 +1,3 @@
+from .helpers import (
+    batched_index_select, masked_mean, resolve_device, safe_norm, to_order,
+)

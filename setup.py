@@ -18,5 +18,7 @@ setup(
     extras_require={
         'test': ['pytest', 'orbax-checkpoint'],
         'checkpoint': ['orbax-checkpoint'],
+        # the PyTorch/CUDA port (se3_transformer_torch)
+        'torch': ['torch'],
     },
 )

@@ -132,6 +132,18 @@ def _store_cached_qj(J, d_in, d_out, Q):
         pass  # best effort: a miss only costs a recompute
 
 
+@lru_cache(maxsize=None)
+def _qj_tensor(J: int, d_in: int, d_out: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """Q_J as a tensor on `device`, made once: a copy per forward would
+    block the host until the device caught up. Made outside inference
+    mode, so that a constant first built while serving can later be used
+    under autograd."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(basis_transformation_Q_J(J, d_in, d_out),
+                               dtype=dtype, device=device)
+
+
 def safe_normalize(vec: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Unit vectors, with the norm clamped at eps at the origin."""
     sq = (vec * vec).sum(dim=-1, keepdim=True)
@@ -160,8 +172,7 @@ def get_basis(rel_pos: torch.Tensor, max_degree: int,
     for d_in, d_out in product(range(max_degree + 1), repeat=2):
         Ks = []
         for J in range(abs(d_in - d_out), d_in + d_out + 1):
-            Q = torch.as_tensor(basis_transformation_Q_J(J, d_in, d_out),
-                                dtype=rel_pos.dtype, device=rel_pos.device)
+            Q = _qj_tensor(J, d_in, d_out, rel_pos.dtype, rel_pos.device)
             K_flat = (Ys[J][..., None, :] * Q).sum(-1)
             Ks.append(K_flat.reshape(*K_flat.shape[:-1],
                                      2 * d_out + 1, 2 * d_in + 1))

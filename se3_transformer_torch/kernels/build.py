@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The one source, `csrc/pairwise_bxf.cu`, is compiled by `nvcc` for Hopper
-(`sm_90a`) into a shared library with a plain C interface that `ctypes`
-loads. The build happens at first use, never at import, into
-`kernels/build/` beside this file (listed in .gitignore). The library's
-file name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale library is never loaded.
+Each source under `csrc/` (`pairwise_bxf.cu`, the forward;
+`pairwise_bwd.cu`, the backward) is compiled by its own `nvcc -c` for
+Hopper (`sm_90a`), all started together, and the objects are linked into
+one shared library with a plain C interface that `ctypes` loads. The build
+happens at first use, never at import, into `kernels/build/` beside this
+file (listed in .gitignore). The library's file name carries a hash of
+every source, header and flag, so an edited source is rebuilt and a stale
+library is never loaded.
 """
 from __future__ import annotations
 
@@ -19,12 +21,14 @@ from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, 'csrc')
-SOURCE = os.path.join(CSRC_DIR, 'pairwise_bxf.cu')
+SOURCES = tuple(os.path.join(CSRC_DIR, f)
+                for f in ('pairwise_bxf.cu', 'pairwise_bwd.cu'))
+HEADERS = (os.path.join(CSRC_DIR, 'common.cuh'),)
 BUILD_DIR = os.path.join(_HERE, 'build')
 
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-lineinfo',
-              '-shared')
+COMPILE_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+                 '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-lineinfo')
+LINK_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-shared')
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -33,9 +37,10 @@ build_log = ''
 
 
 def _fingerprint() -> str:
-    digest = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
-    with open(SOURCE, 'rb') as fh:
-        digest.update(fh.read())
+    digest = hashlib.sha1(' '.join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for path in SOURCES + HEADERS:
+        with open(path, 'rb') as fh:
+            digest.update(fh.read())
     return digest.hexdigest()[:16]
 
 
@@ -53,6 +58,29 @@ def find_nvcc() -> str:
                        '/usr/local/cuda)')
 
 
+def _run_all(cmds, timeout=900):
+    """Start every command at once; raise with its output if any fails.
+    Returns the commands' combined stdout and stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs, failed = [], []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=timeout)
+            outs.append(out)
+            if proc.returncode != 0:
+                failed.append(f'{" ".join(cmd)}\n{out}')
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
+    return ''.join(outs)
+
+
 def library_path() -> str:
     """Build (if needed) and return the path of the kernels' library."""
     global build_log
@@ -60,12 +88,19 @@ def library_path() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{lib}.{os.getpid()}.tmp'
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, SOURCE, '-o', tmp],
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f'kernel build failed:\n{proc.stdout}{proc.stderr}')
-    build_log = proc.stdout + proc.stderr
+    nvcc, tag = find_nvcc(), f'{os.getpid()}.tmp'
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f'.{tag}.o')
+            for src in SOURCES]
+    try:
+        log = _run_all([[nvcc, *COMPILE_FLAGS, '-c', src, '-o', obj]
+                        for src, obj in zip(SOURCES, objs)])
+        tmp = f'{lib}.{tag}'
+        log += _run_all([[nvcc, *LINK_FLAGS, *objs, '-o', tmp]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_log = log
     os.replace(tmp, lib)
     return lib
 
@@ -80,6 +115,13 @@ def load_library() -> ctypes.CDLL:
             # (h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream)
             lib.se3_pairwise_bxf.argtypes = [vp, vp, vp, vp, vp, vp,
                                              ci, ci, ci, ci, ci, ci, vp]
-            lib.se3_pairwise_bxf.restype = ci
+            # (h, w3, b3, v2, g, dv2, work, dw3, db3, E, IF, P, splits,
+            #  h_is_bf16, stream)
+            lib.se3_pairwise_bwd_a.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+            # (w3, v2, g, dh, E, IF, P, w3_is_bf16, stream)
+            lib.se3_pairwise_bwd_b.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+            for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bwd_a,
+                       lib.se3_pairwise_bwd_b):
+                fn.restype = ci
             _lib = lib
         return _lib

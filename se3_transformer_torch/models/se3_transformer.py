@@ -4,12 +4,14 @@ restricted to the fields the `flagship_fast` recipe uses.
 The forward is the JAX module's kNN path, step for step: self-excluded
 pairwise geometry -> fixed-K neighbor selection -> the flat 'pfq_flat'
 basis -> conv_in -> trunk -> conv_out -> norm_out (on with reversible)
--> the degree-0 output [b, n, dim].
+-> linear_out (reduce_dim_out) -> the degree-1 Cartesian permutation ->
+the output of `return_type`, with the JAX conventions.
 
 Every other JAX field is accepted only at its JAX default: any other value
 raises NotImplementedError, so nothing is silently ignored. The branches
 the port does not implement (shared_radial_hidden=False, fuse_basis=False,
-attend_self=False, input/output degrees other than 1) raise likewise.
+attend_self=False, input_degrees other than 1, output_degrees other than
+1 or 2) raise likewise.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from torch import nn
 
 from ..basis import get_basis
 from ..ops.conv import ConvSE3
-from ..ops.core import NormSE3
+from ..ops.core import LinearSE3, NormSE3
 from ..ops.fiber import Fiber
 from ..ops.neighbors import exclude_self_indices, remove_self, select_neighbors
 from ..ops.trunk import SequentialTrunk
@@ -31,7 +33,7 @@ from ..utils.helpers import resolve_device
 # JAX SE3TransformerModule fields this port does not implement, with the
 # JAX defaults they must keep
 _JAX_ONLY_DEFAULTS = dict(
-    reduce_dim_out=False, num_tokens=None, num_positions=None,
+    num_tokens=None, num_positions=None,
     num_edge_tokens=None, edge_dim=None, use_null_kv=False,
     differentiable_coors=False, fourier_encode_dist=False,
     rel_dist_num_fourier_features=4, attend_sparse_neighbors=False,
@@ -49,6 +51,11 @@ _JAX_ONLY_DEFAULTS = dict(
     matmul_precision=None, edge_chunks=None, sequence_parallel=None,
     mesh=None, ring_overlap=True, ring_exchange=True, attention_mode='knn',
     global_materialize=False)
+
+
+# degree-1 features are in the irrep order (y, z, x) of the real spherical
+# harmonics; the output is permuted back to Cartesian (x, y, z)
+_IRREP_TO_CART = (2, 0, 1)
 
 
 def _truncated_normal_(t: torch.Tensor, std: float,
@@ -100,7 +107,8 @@ class SE3TransformerModule(nn.Module):
                  attend_self: bool = False,
                  num_neighbors=float('inf'),
                  shared_radial_hidden: bool = False, fuse_basis: bool = False,
-                 radial_bf16: bool = False, *, device='cuda',
+                 radial_bf16: bool = False, reduce_dim_out: bool = False, *,
+                 device='cuda',
                  generator: Optional[torch.Generator] = None, **jax_fields):
         super().__init__()
         device = resolve_device(device)
@@ -115,17 +123,13 @@ class SE3TransformerModule(nn.Module):
                          (fuse_basis, 'fuse_basis=False'),
                          (attend_self, 'attend_self=False'),
                          (input_degrees == 1, f'input_degrees={input_degrees}'),
-                         (output_degrees == 1,
+                         (output_degrees in (1, 2),
                           f'output_degrees={output_degrees}'),
                          (num_degrees is not None, 'num_degrees=None')):
             if not ok:
                 raise NotImplementedError(f'{what} is not ported')
-        if remat_policy not in (None, 'save_conv_outputs'):
-            raise ValueError(f'unknown remat_policy {remat_policy!r}')
-        if remat_policy is not None and not reversible:
-            raise ValueError(f'remat_policy={remat_policy!r} requires '
-                             f'reversible=True')
         self.num_degrees = num_degrees
+        self.output_degrees = output_degrees
         self.valid_radius = valid_radius
         self.num_neighbors = num_neighbors
         # reversible blocks imply the output norm (JAX _body)
@@ -133,25 +137,36 @@ class SE3TransformerModule(nn.Module):
 
         fiber_in = Fiber.create(1, dim)
         fiber_hidden = Fiber.create(num_degrees, dim)
-        fiber_out = Fiber.create(1, dim)
+        fiber_out = Fiber.create(output_degrees, dim)
         self.conv_in = ConvSE3(fiber_in, fiber_hidden,
                                radial_bf16=radial_bf16)
         self.trunk = SequentialTrunk(fiber_hidden, depth=depth, heads=heads,
                                      dim_head=dim_head,
-                                     radial_bf16=radial_bf16)
+                                     radial_bf16=radial_bf16,
+                                     reversible=reversible,
+                                     remat_policy=remat_policy)
         self.conv_out = ConvSE3(fiber_hidden, fiber_out,
                                 radial_bf16=radial_bf16)
         if self.apply_norm_out:
             self.norm_out = NormSE3(fiber_out, nonlin=lambda t: t)
+        self.linear_out = LinearSE3(fiber_out, fiber_out.to(1)) \
+            if reduce_dim_out else None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_parameters(self, generator)
         self.to(device)
 
     def forward(self, feats: torch.Tensor, coors: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """feats [b, n, dim], coors [b, n, 3], mask [b, n] bool ->
-        the degree-0 output [b, n, dim] (return_type=0)."""
+                mask: Optional[torch.Tensor] = None,
+                return_type: Optional[int] = None):
+        """feats [b, n, dim], coors [b, n, 3], mask [b, n] bool -> the
+        output of degree `return_type`, or the dict of every output degree
+        when it is None; output_degrees == 1 forces return_type 0.
+        Degree 0 is [b, n, dim] ([b, n] with reduce_dim_out); degree 1 is
+        [b, n, dim, 3] ([b, n, 3] with reduce_dim_out), in Cartesian
+        order."""
+        if self.output_degrees == 1:
+            return_type = 0
         b, n = feats.shape[0], feats.shape[1]
         num_neighbors = int(min(self.num_neighbors, n - 1))
         if num_neighbors <= 0:
@@ -177,4 +192,12 @@ class SE3TransformerModule(nn.Module):
         x = self.conv_out(x, edge_info, hood.rel_dist, basis)
         if self.apply_norm_out:
             x = self.norm_out(x)
-        return x['0'][..., 0]
+        if self.linear_out is not None:
+            x = {d: t[..., 0, :] for d, t in self.linear_out(x).items()}
+        if '1' in x:
+            # slices, not an index list: that would be copied to the device
+            x['1'] = torch.stack([x['1'][..., k] for k in _IRREP_TO_CART], -1)
+        x['0'] = x['0'][..., 0]
+        if return_type is not None:
+            return x[str(return_type)]
+        return x

@@ -3,10 +3,13 @@ on its `shared_radial_hidden=True, fuse_basis=True` branch.
 
 One radial trunk (Dense -> LayerNorm -> GELU, twice) is shared by every
 (d_in, d_out) pair of a ConvSE3; each pair then makes one call of
-kernels.pairwise.fused_pairwise_conv_bxf with its own grouped parameters
+kernels.pairwise.pairwise_contract_bxf (the differentiable form of
+fused_pairwise_conv_bxf) with its own grouped parameters
 w3_{d_in}_{d_out} [mid, c_in*F, c_out] and b3_{d_in}_{d_out} [c_in*F, c_out],
 contracting the flat (p, f, q) basis with the gathered neighbor features
-inside the kernel.
+inside the kernel. Under autograd the backward runs the fused backward
+kernels; gradients reach w3 through its cast to the radial dtype, b3, the
+shared radial trunk and the gathered features.
 
 radial_bf16 runs the trunk and the radial operands (h, w3) in bfloat16; the
 bias and every accumulation stay float32, and LayerNorm statistics are
@@ -19,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.pairwise import fused_pairwise_conv_bxf
+from ..kernels.pairwise import pairwise_contract_bxf
 from ..utils.helpers import batched_index_select, masked_mean, to_order
 from .core import LinearSE3, gelu, residual_se3
 from .fiber import Fiber
@@ -112,12 +115,12 @@ class ConvSE3(nn.Module):
                 b3 = getattr(self, f'b3_{d_in}_{d_out}')
                 # the kernel takes contiguous rows; a gather from an
                 # einsum's permuted output can keep the source's strides
-                y = fused_pairwise_conv_bxf(
-                    h, w3,
+                y = pairwise_contract_bxf(
+                    h, w3, b3,
                     basis[f'{d_in},{d_out}'].reshape(E, P * F * Q)
                     .contiguous(),
                     gathered[str(d_in)].reshape(E, m_in, Q).contiguous(),
-                    (P, Q, F), b3)
+                    (P, Q, F))
                 acc = y if acc is None else acc + y
             acc = acc.reshape(b, n, k, P, m_out).transpose(-1, -2)
             if self.pool:

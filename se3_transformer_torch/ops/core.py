@@ -24,9 +24,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax's nn.gelu, the tanh approximation, evaluated op by op in x's
     dtype with its constants in that dtype — for bfloat16 that is the
     rounding after every op that the JAX package's bf16 radial trunk has
-    (one fused F.gelu rounds once and differs in ~40% of the elements)."""
+    (one fused F.gelu rounds once and differs in ~40% of the elements).
+    The constants are 0-dim CPU tensors: rounded to x's dtype, and passed
+    to a CUDA kernel as scalars, with no host-to-device copy that would
+    block the host."""
     def const(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+        return torch.tensor(v, dtype=x.dtype)
     inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * x * x))
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 

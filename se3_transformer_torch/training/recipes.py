@@ -10,9 +10,10 @@ def flagship_fast(dim: int = 64, num_neighbors: int = 32,
                   **overrides) -> SE3TransformerModule:
     """n-node kNN (k=32) SE(3)-transformer, 4 degrees, 8 heads, with the
     shared radial trunk, the basis-fused pairwise kernel and the bf16
-    radial trunk. `overrides` are extra SE3TransformerModule fields,
-    including `device` (default 'cuda', which raises without CUDA) and
-    `generator` for the random weights."""
+    radial trunk. `overrides` are extra SE3TransformerModule fields:
+    `output_degrees=2, reduce_dim_out=True` give the vector head of the
+    denoise training step, `device` defaults to 'cuda' (which raises
+    without CUDA) and `generator` draws the random weights."""
     overrides.setdefault('reversible', True)
     overrides.setdefault('edge_chunks', None)
     if overrides['reversible']:

@@ -153,7 +153,7 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize('field,value', [
     ('causal', True), ('num_tokens', 4), ('shared_radial_hidden', False),
-    ('fuse_basis', False), ('attend_self', False), ('output_degrees', 2),
+    ('fuse_basis', False), ('attend_self', False), ('output_degrees', 3),
     ('norm_out', True)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError):

@@ -9,24 +9,30 @@ failure:
   1. device   require CUDA; print the card's name and power limit; TF32 off.
   2. build    compile every kernel of the port from csrc/ with nvcc (sm_90a),
               one nvcc per source, all started together.
-  3. kernels  hold the forward kernel against its plain PyTorch version on
-              the card, at the shapes the forward gives it, and time both.
+  3. kernels  hold each forward kernel against its plain PyTorch version on
+              the card and time both: the basis-fused kernel (bxf) at the 16
+              flagship_fast pairs, the V2-given kernel (fwd) at the four
+              grouped output degrees of a flagship hidden conv, E = 4096 (one
+              node chunk) and 32768, float32 and bf16.
   4. backward hold backward kernels A (dV2, dW3, dB3) and B (dH) against
-              their plain versions at the training step's shapes, time each,
-              and require dW3/dB3 to be bit-identical across two runs.
-  5. serve    the flagship_fast forward (dim=64, depth=6, 4 degrees, 8 heads,
-              k=32, random seeded weights) served by InferenceEngine at
-              bucket 1024: finite outputs, exactly 200 kernel launches per
-              request, rotation invariance of the scalar output.
-  6. train    the flagship_fast denoise training step (the vector head:
-              output_degrees=2, reduce_dim_out=True; reversible with
-              save_conv_outputs) at n=1024 with Adam: finite decreasing
-              losses, finite gradients, exactly 204 forward and 204 + 204
-              backward launches per step (396 forward under remat_policy
-              None), step time, nodes*steps/s, peak memory and a profile.
-  7. reference  small models on the card (kernel path) against the same
-              weights on the CPU (plain path): the forward, and one training
-              step's loss and every gradient.
+              their plain versions at both recipes' training shapes, time
+              each, and require dW3/dB3 to be bit-identical across two runs.
+  5. serve    each recipe's forward (dim=64, depth=DEPTH, 4 degrees, 8
+              heads, k=32, random seeded weights) served by InferenceEngine
+              at bucket 1024: finite outputs, exactly the counted kernel
+              launches per request (flagship_fast: 200 bxf; flagship: 424
+              fwd, no bxf), rotation invariance of the scalar output.
+  6. train    each recipe's denoise training step (the vector head:
+              output_degrees=2, reduce_dim_out=True) at n=1024 with Adam:
+              finite decreasing losses, finite gradients, exactly the
+              counted launches per step (flagship_fast, save_conv_outputs:
+              204 forward, 200 + 200 backward, 396 forward under
+              remat_policy None; flagship, no policy: 816 forward, 424 + 424
+              backward, 432 forward under save_conv_outputs), step time,
+              nodes*steps/s, peak memory and a profile.
+  7. reference  small models of both recipes on the card (kernel path)
+              against the same weights on the CPU (plain path): the forward,
+              and one training step's loss and every gradient.
 
 Prints per-shape, per-request and per-step lines, then the nvidia-smi line,
 a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}.
@@ -62,16 +68,31 @@ REF_RTOL_BF16 = 1e-3
 # which the backward passes through every bf16 op of the radial trunk)
 REF_GRAD_RTOL_F32 = 1e-3
 REF_GRAD_RTOL_BF16 = 5e-2
+# both recipes at full width and depth (dim 64, DEPTH blocks of 2 convs)
+DEPTH = 6
+TRUNK_CONVS = 2 * DEPTH
 # forward launches of one flagship_fast(output_degrees=2) forward: conv_in
-# 1x4 pairs, 6 blocks x 2 convs x 4x4 pairs, conv_out 4x2 pairs. The
+# 1x4 pairs, DEPTH blocks x 2 convs x 4x4 pairs, conv_out 4x2 pairs. The
 # backward launches kernels A and B once per pair that the loss reaches:
 # return_type=1 reads only the degree-1 head, so conv_out's 4 pairs into
 # degree 0 get no cotangent and autograd runs no backward for them.
-# remat_policy=None replays the 192 trunk pairs.
-TRAIN_LAUNCHES = 4 + 192 + 8
-TRAIN_BWD_LAUNCHES = 4 + 192 + 4
-REPLAY_LAUNCHES = 192
+# remat_policy=None replays the trunk's pairs.
+REPLAY_LAUNCHES = TRUNK_CONVS * 16
+TRAIN_LAUNCHES = 4 + REPLAY_LAUNCHES + 8
+TRAIN_BWD_LAUNCHES = 4 + REPLAY_LAUNCHES + 4
 TRAIN_STEPS = 5
+# the conservative flagship: one fused_pairwise_conv launch per output
+# degree of each ConvSE3, per node chunk (edge_chunks=8). Serving: conv_in
+# 4 degrees, DEPTH blocks x 2 convs x 4, conv_out 1, each x 8. The
+# training forward's conv_out has 2 degrees; the whole-block replay (no
+# remat policy) runs the trunk's contractions again; kernels A and B run
+# once per chunk of every contraction the loss reaches (not conv_out's
+# degree-0 head).
+CHUNKS = 8
+FLAGSHIP_REPLAY_LAUNCHES = TRUNK_CONVS * 4 * CHUNKS
+FLAGSHIP_SERVE_LAUNCHES = 4 * CHUNKS + FLAGSHIP_REPLAY_LAUNCHES + CHUNKS
+FLAGSHIP_TRAIN_LAUNCHES = FLAGSHIP_SERVE_LAUNCHES + CHUNKS
+FLAGSHIP_BWD_LAUNCHES = FLAGSHIP_SERVE_LAUNCHES
 
 # published dense peaks by card (NVIDIA data sheets): bf16 tensor core,
 # float32 CUDA core (FLOP/s), device memory bandwidth (bytes/s)
@@ -80,6 +101,10 @@ PEAKS = {
     'H100': (989e12, 67e12, 3.35e12),
     'H200': (989e12, 67e12, 4.8e12),
 }
+
+# the forward kernels' names in a profile (the i-split reduce included)
+FORWARD_KERNELS = ('pairwise_bxf_kernel', 'pairwise_fwd_kernel',
+                   'fwd_reduce_kernel')
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -178,6 +203,84 @@ def phase_kernels(st, peaks):
     return rows, worst
 
 
+def grouped_if(d_out, C=64, degrees=4):
+    """IF of one output degree of a hidden ConvSE3: every input degree's
+    C * F concatenated."""
+    return C * sum(2 * min(d_in, d_out) + 1 for d_in in range(degrees))
+
+
+def fwd_cost(E, mid, IF, O, P, h_bytes, peaks):
+    """(bound_ms, bound_by, flops) of one fused_pairwise_conv call (V2
+    given): each input read once, the output written once. The apply runs
+    at the float32 CUDA-core rate; with bf16 h the radial product runs on
+    the tensor cores at the same time, and the operations take the longer
+    of the two pipes; with float32 h both share the CUDA cores."""
+    bf16_peak, f32_peak, mem = peaks
+    radial = 2.0 * E * mid * IF * O
+    apply = 2.0 * E * P * IF * O
+    ops_s = max(radial / bf16_peak, apply / f32_peak) if h_bytes == 2 \
+        else (radial + apply) / f32_peak
+    nbytes = (E * mid * h_bytes + mid * IF * O * h_bytes + IF * O * 4
+              + E * P * IF * 4 + E * P * O * 4)
+    bytes_s = nbytes / mem
+    return max(ops_s, bytes_s) * 1e3, \
+        'operations' if ops_s >= bytes_s else 'bytes', radial + apply
+
+
+def phase_fwd(kp, peaks):
+    """fused_pairwise_conv against its plain version for the four output
+    degrees of a hidden ConvSE3 (IF = 256, 640, 896, 1024; P = 1..7), at
+    the flagship's per-chunk E = 4096 and unchunked E = 32768, in float32
+    (the recipe's dtype) and bf16, and bit-identity across two runs."""
+    gen = torch.Generator(device='cuda').manual_seed(8)
+    dev = 'cuda'
+    mid, O = 128, 64
+    rows, worst = [], 0.0
+    for E in (4096, 32768):
+        for hdt in (torch.float32, torch.bfloat16):
+            for do in range(4):
+                P, IF = 2 * do + 1, grouped_if(do)
+                h = torch.randn(E, mid, device=dev, generator=gen).to(hdt)
+                w3 = (torch.randn(mid, IF, O, device=dev, generator=gen)
+                      * mid ** -0.5).to(hdt)
+                v2 = torch.randn(E, P, IF, device=dev, generator=gen)
+                b3 = torch.randn(IF, O, device=dev, generator=gen) * 0.1
+                args = (h, w3, v2, b3)
+                out = kp.fused_pairwise_conv(*args)
+                again = kp.fused_pairwise_conv(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f'fused_pairwise_conv d_out={do} '
+                                         f'E={E} {hdt}: two runs differ')
+                ref = kp.fused_pairwise_conv_plain(*args)
+                err = float((out - ref).abs().max())
+                scale = float(ref.abs().max())
+                if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
+                    raise AssertionError(
+                        f'fused_pairwise_conv d_out={do} E={E} {hdt}: '
+                        f'max_abs_err {err} > {KERNEL_RTOL} * max|plain| '
+                        f'{scale}')
+                worst = max(worst, err)
+                del out, again, ref
+                ms = cuda_ms(lambda: kp.fused_pairwise_conv(*args), reps=10)
+                plain_ms = cuda_ms(lambda: kp.fused_pairwise_conv_plain(*args),
+                                   reps=3)
+                bound_ms, bound_by, flops = fwd_cost(
+                    E, mid, IF, O, P, 2 if hdt == torch.bfloat16 else 4,
+                    peaks)
+                row = dict(d_out=do, P=P, IF=IF, E=E,
+                           h_dtype=str(hdt).split('.')[-1],
+                           i_per_split=kp.i_per_split(E, IF, O),
+                           max_abs_err=err, max_abs_plain=scale, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, tflops=flops / ms / 1e9)
+                rows.append(row)
+                log('fwd', json.dumps(row))
+                del args, h, w3, v2, b3
+                torch.cuda.empty_cache()
+    return rows, worst
+
+
 def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks):
     """(bound_ms, bound_by) of backward kernel 'a' (R recompute, dV2, dR,
     dW3, dB3) or 'b' (dR, dH) as the kernels do the work: each input read
@@ -209,19 +312,36 @@ def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks):
 
 def phase_backward(kp, peaks):
     """Kernels A and B against their plain versions at every pair shape of
-    the training step (E = 32768 edges of n=1024, k=32; the 16 hidden
-    (d_in, d_out) pairs, which include conv_in's (0, d_out) and conv_out's
-    (d_in, 0/1) shapes), a ragged E and a float32 h/w3 case."""
-    gen = torch.Generator(device='cuda').manual_seed(3)
+    the flagship_fast training step (E = 32768 edges of n=1024, k=32; the
+    16 hidden (d_in, d_out) pairs, which include conv_in's (0, d_out) and
+    conv_out's (d_in, 0/1) shapes), a ragged E and a float32 h/w3 case."""
+    E, C, bf16 = 32768, 64, torch.bfloat16
+
+    def case(di, do, e=E, hdt=bf16):
+        return (dict(pair=[di, do]), e, 2 * do + 1,
+                C * (2 * min(di, do) + 1), hdt)
+    cases = [case(di, do) for di in range(4) for do in range(4)]
+    cases += [case(2, 1, e=E - 37), case(3, 3, hdt=torch.float32)]
+    return check_backward(kp, peaks, cases, seed=3)
+
+
+def phase_backward_grouped(kp, peaks):
+    """Kernels A and B at the conservative flagship's grouped shapes: the
+    four output degrees of a hidden ConvSE3 (IF = 256 .. 1024), float32,
+    at the per-chunk E = 4096 and unchunked E = 32768."""
+    cases = [(dict(d_out=do), E, 2 * do + 1, grouped_if(do), torch.float32)
+             for E in (4096, 32768) for do in range(4)]
+    return check_backward(kp, peaks, cases, seed=9)
+
+
+def check_backward(kp, peaks, cases, seed):
+    """Each case (label, E, P, IF, h dtype): kernels A and B against their
+    plain versions, dW3/dB3 bit-identical across two runs, and the times."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
-    E, mid, C, O = 32768, 128, 64, 64
-    cases = [(di, do, E, torch.bfloat16) for di in range(4)
-             for do in range(4)]
-    cases += [(2, 1, E - 37, torch.bfloat16), (3, 3, E, torch.float32)]
+    mid, O = 128, 64
     rows, worst = [], {'a': 0.0, 'b': 0.0}
-    for di, do, e, hdt in cases:
-        P, F = 2 * do + 1, 2 * min(di, do) + 1
-        IF = C * F
+    for label, e, P, IF, hdt in cases:
         h = torch.randn(e, mid, device=dev, generator=gen).to(hdt)
         w3 = (torch.randn(mid, IF, O, device=dev, generator=gen)
               * mid ** -0.5).to(hdt)
@@ -234,8 +354,8 @@ def phase_backward(kp, peaks):
         dw3_2, _, db3_2 = kp._launch_bwd_a(h, w3, v2, g, b3, *shape)
         torch.cuda.synchronize()
         if not (torch.equal(dw3, dw3_2) and torch.equal(db3, db3_2)):
-            raise AssertionError(f'backward ({di},{do}) E={e}: dW3/dB3 '
-                                 f'differ between two runs')
+            raise AssertionError(f'backward {label} E={e}: dW3/dB3 differ '
+                                 f'between two runs')
         errs = {}
         ref_w3, ref_v2, ref_b3 = kp.fused_pairwise_conv_bwd_a_plain(
             h, w3, v2, g, b3)
@@ -246,15 +366,16 @@ def phase_backward(kp, peaks):
             scale = float(ref.abs().max())
             if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
                 raise AssertionError(
-                    f'backward ({di},{do}) E={e} {hdt} {name}: max_abs_err '
+                    f'backward {label} E={e} {hdt} {name}: max_abs_err '
                     f'{err} > {KERNEL_RTOL} * max|plain| {scale}')
             errs[name] = (err, scale)
         worst['a'] = max(worst['a'], *(errs[k][0] for k in
                                        ('dw3', 'dv2', 'db3')))
         worst['b'] = max(worst['b'], errs['dh'][0])
         del ref_w3, ref_v2, ref_b3, ref_h, dw3_2, db3_2
+        torch.cuda.empty_cache()
         hb = 2 if hdt == torch.bfloat16 else 4
-        row = dict(pair=[di, do], E=e, h_dtype=str(hdt).split('.')[-1],
+        row = dict(label, E=e, P=P, IF=IF, h_dtype=str(hdt).split('.')[-1],
                    max_abs_err={k: v[0] for k, v in errs.items()},
                    max_abs_plain={k: v[1] for k, v in errs.items()},
                    ms_a=cuda_ms(lambda: kp._launch_bwd_a(h, w3, v2, g, b3,
@@ -271,7 +392,7 @@ def phase_backward(kp, peaks):
         rows.append(row)
         log('backward', json.dumps(row))
         del h, w3, v2, g, b3, dw3, dv2, db3, dh
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return rows, worst
 
 
@@ -304,11 +425,16 @@ def condition_weights(model, power=-0.5):
     return model
 
 
-def phase_serve(st, kp):
+def phase_serve(st, kp, recipe, want):
+    """A recipe's forward at full size (dim=64, depth=6, 4 degrees, 8 heads,
+    k=32, random seeded weights, conditioned) served by InferenceEngine at
+    bucket 1024: finite outputs, exactly `want` launches (forward kernels
+    bxf and fwd, backward A and B) per request, rotation invariance of the
+    scalar output, a profile. Returns the launches of the whole phase."""
     from se3_transformer_torch.so3 import rot
     rng = np.random.RandomState(0)
-    model = condition_weights(st.flagship_fast(
-        generator=torch.Generator().manual_seed(0)))
+    model = condition_weights(getattr(st, recipe)(
+        depth=DEPTH, generator=torch.Generator().manual_seed(0)))
     engine = st.InferenceEngine(model, buckets=(1024,))
     requests = [(rng.normal(size=(n, 64)).astype(np.float32),
                  chain_coords(rng, n)) for n in (1024, 1000, 700)]
@@ -319,21 +445,22 @@ def phase_serve(st, kp):
     forwards = 1
     results = []
     for i, (feats, coords) in enumerate(requests):
-        before = kp.fused_pairwise_conv_bxf.launches
+        before = counts(kp)
         t0 = time.perf_counter()
         out = engine.predict(feats, coords)
         dt = time.perf_counter() - t0
         forwards += 1
-        launched = kp.fused_pairwise_conv_bxf.launches - before
+        launched = tuple(a - b for a, b in zip(counts(kp), before))
         n = len(feats)
         if out.shape != (n, 64) or not np.isfinite(out).all():
-            raise AssertionError(f'request {i}: shape {out.shape} or '
-                                 f'non-finite output')
-        if launched != 200:
-            raise AssertionError(f'request {i}: {launched} kernel launches, '
-                                 f'want 200')
-        row = dict(request=i, n=n, bucket=1024, latency_ms=dt * 1e3,
-                   nodes_per_s=n / dt, launches=launched)
+            raise AssertionError(f'{recipe} request {i}: shape {out.shape} '
+                                 f'or non-finite output')
+        if launched != want:
+            raise AssertionError(f'{recipe} request {i}: launches (bxf, fwd, '
+                                 f'A, B) = {launched}, want {want}')
+        row = dict(recipe=recipe, request=i, n=n, bucket=1024,
+                   latency_ms=dt * 1e3, nodes_per_s=n / dt,
+                   launches=launched)
         results.append((out, row))
         log('serve', json.dumps(row))
     # rotation invariance of the scalar output (rotation in float64)
@@ -349,7 +476,7 @@ def phase_serve(st, kp):
         engine, requests[0])
     forwards += 2
     log('profile', json.dumps(dict(
-        request_wall_ms=wall_ms, device_busy_ms=device_ms,
+        recipe=recipe, request_wall_ms=wall_ms, device_busy_ms=device_ms,
         pairwise_kernel_ms=kernel_ms, host_syncs_per_forward=syncs,
         top_device_ops=top)))
     # the flax-scheme weights (conditioning undone): chaotic at depth 6,
@@ -358,21 +485,22 @@ def phase_serve(st, kp):
     raw, raw_r = (engine.predict(feats, c) for c in (coords, coords_r))
     forwards += 2
     log('serve', json.dumps(dict(
-        flax_scheme_weights=True, max_abs_out=float(np.abs(raw).max()),
+        recipe=recipe, flax_scheme_weights=True,
+        max_abs_out=float(np.abs(raw).max()),
         rotation_max_abs_diff=float(np.abs(raw_r - raw).max()))))
-    launches = kp.fused_pairwise_conv_bxf.launches
-    if launches != 200 * forwards:
-        raise AssertionError(f'{launches} launches for {forwards} forwards')
-    if counts(kp)[1:] != (0, 0):
-        raise AssertionError(f'serving launched backward kernels: '
-                             f'{counts(kp)}')
+    launches = counts(kp)
+    if launches != tuple(w * forwards for w in want):
+        raise AssertionError(f'{recipe}: launches {launches} for {forwards} '
+                             f'forwards')
     if inv > ROTATION_RTOL * scale:
-        raise AssertionError(f'rotation invariance {inv} > {ROTATION_RTOL} '
-                             f'* max|out| {scale}')
-    log('serve', json.dumps(dict(rotation_max_abs_diff=inv,
+        raise AssertionError(f'{recipe}: rotation invariance {inv} > '
+                             f'{ROTATION_RTOL} * max|out| {scale}')
+    log('serve', json.dumps(dict(recipe=recipe, rotation_max_abs_diff=inv,
                                  max_abs_out=scale, forwards=forwards,
                                  launches=launches,
                                  stats=engine.stats())))
+    del engine, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -430,7 +558,7 @@ def profile_request(engine, request):
     events = device_events(prof)
     device_ms = sum(dev_us(e) for e in events) / 1e3
     kernel_ms = sum(dev_us(e) for e in events
-                    if 'pairwise_bxf_kernel' in e.key) / 1e3
+                    if any(k in e.key for k in FORWARD_KERNELS)) / 1e3
     top = [dict(op=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3)
            for e in events[:12]]
     return top, kernel_ms, device_ms, wall_ms, syncs
@@ -460,7 +588,7 @@ def profile_step(trainer, batch, noise):
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     return dict(step_wall_ms=wall_ms, host_syncs_per_step=syncs,
                 device_busy_ms=sum(dev_us(e) for e in events) / 1e3,
-                forward_kernel_ms=kernel_ms('pairwise_bxf_kernel'),
+                forward_kernel_ms=kernel_ms(*FORWARD_KERNELS),
                 kernel_a_ms=kernel_ms('bwd_a_kernel', 'bwd_reduce_kernel'),
                 kernel_b_ms=kernel_ms('bwd_b_'),
                 top_device_ops=[dict(op=e.key[:90], calls=e.count,
@@ -473,23 +601,29 @@ def profile_step(trainer, batch, noise):
 
 
 def counts(kp):
+    """Launches so far: forward kernels bxf and fwd, backward A and B."""
     return (kp.fused_pairwise_conv_bxf.launches,
+            kp.fused_pairwise_conv.launches,
             kp.fused_pairwise_conv_bwd.launches_a,
             kp.fused_pairwise_conv_bwd.launches_b)
 
 
 def reset_counts(kp):
     kp.fused_pairwise_conv_bxf.launches = 0
+    kp.fused_pairwise_conv.launches = 0
     kp.fused_pairwise_conv_bwd.launches_a = 0
     kp.fused_pairwise_conv_bwd.launches_b = 0
 
 
-def phase_train(st, kp):
-    """The flagship_fast denoise step at n=1024: one warm-up step, then
-    TRAIN_STEPS timed ones, one profiled, one under remat_policy=None."""
+def phase_train(st, kp, recipe, want, other_policy, want_other):
+    """A recipe's denoise step (the vector head: output_degrees=2,
+    reduce_dim_out=True) at n=1024 with Adam: one warm-up step, then
+    TRAIN_STEPS timed ones, each with exactly `want` launches (bxf, fwd, A,
+    B); one profiled step; one step under `other_policy` with `want_other`
+    launches. Returns the launches of the warm-up and timed steps."""
     n, dim = 1024, 64
-    model = condition_weights(st.flagship_fast(
-        dim=dim, output_degrees=2, reduce_dim_out=True,
+    model = condition_weights(getattr(st, recipe)(
+        dim=dim, depth=DEPTH, output_degrees=2, reduce_dim_out=True,
         generator=torch.Generator().manual_seed(4)))
     trainer = st.DenoiseTrainer(model, lr=1e-4)
     batch = trainer.to_device(st.flagship_batch(np.random.RandomState(0), 1,
@@ -509,53 +643,68 @@ def phase_train(st, kp):
         dt = time.perf_counter() - t0
         launched = tuple(a - b for a, b in zip(counts(kp), before))
         losses.append(float(loss))
-        want = (TRAIN_LAUNCHES, TRAIN_BWD_LAUNCHES, TRAIN_BWD_LAUNCHES)
         if launched != want:
-            raise AssertionError(f'train step {step}: launches (forward, A, '
-                                 f'B) = {launched}, want {want}')
+            raise AssertionError(f'{recipe} train step {step}: launches '
+                                 f'(bxf, fwd, A, B) = {launched}, want '
+                                 f'{want}')
         if step:
             step_ms.append(dt * 1e3)
-        log('train', json.dumps(dict(step=step, warmup=step == 0,
-                                     loss=losses[-1], step_ms=dt * 1e3,
-                                     launches=launched)))
+        log('train', json.dumps(dict(recipe=recipe, step=step,
+                                     warmup=step == 0, loss=losses[-1],
+                                     step_ms=dt * 1e3, launches=launched)))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = counts(kp)
     bad = [name for name, p in model.named_parameters()
            if p.grad is not None and not torch.isfinite(p.grad).all()]
     if not np.isfinite(losses).all() or losses[-1] >= losses[0] or bad:
-        raise AssertionError(f'train: losses {losses}, non-finite gradients '
-                             f'in {bad}')
+        raise AssertionError(f'{recipe} train: losses {losses}, non-finite '
+                             f'gradients in {bad}')
     ms = float(np.median(step_ms))
     log('train', json.dumps(dict(
-        n=n, steps=TRAIN_STEPS, step_ms_median=ms, step_ms=step_ms,
+        recipe=recipe, n=n, steps=TRAIN_STEPS, step_ms_median=ms,
+        step_ms=step_ms,
         nodes_steps_per_s=n * TRAIN_STEPS / (sum(step_ms) / 1e3),
         max_memory_allocated_gb=peak_gb, first_loss=losses[0],
         last_loss=losses[-1], launches=launches)))
-    log('train_profile', json.dumps(profile_step(trainer, batch, noise)))
+    log('train_profile', json.dumps(dict(
+        recipe=recipe, **profile_step(trainer, batch, noise))))
 
-    # remat_policy=None replays the trunk's pairs in the backward
-    replay = st.DenoiseTrainer(condition_weights(st.flagship_fast(
-        dim=dim, output_degrees=2, reduce_dim_out=True, remat_policy=None,
+    other = st.DenoiseTrainer(condition_weights(getattr(st, recipe)(
+        dim=dim, depth=DEPTH, output_degrees=2, reduce_dim_out=True,
+        remat_policy=other_policy,
         generator=torch.Generator().manual_seed(4))), lr=1e-4)
     del trainer, model
     torch.cuda.empty_cache()
     before = counts(kp)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    replay.train_step(batch, noise=noise)
+    other.train_step(batch, noise=noise)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launched = tuple(a - b for a, b in zip(counts(kp), before))
-    want = (TRAIN_LAUNCHES + REPLAY_LAUNCHES, TRAIN_BWD_LAUNCHES,
-            TRAIN_BWD_LAUNCHES)
-    log('train', json.dumps(dict(remat_policy=None, step_ms=dt * 1e3,
-                                 launches=launched,
+    log('train', json.dumps(dict(recipe=recipe, remat_policy=other_policy,
+                                 step_ms=dt * 1e3, launches=launched,
                                  max_memory_allocated_gb=(
                                      torch.cuda.max_memory_allocated() / 1e9))))
-    if launched != want:
-        raise AssertionError(f'remat_policy=None step: launches {launched}, '
-                             f'want {want}')
+    if launched != want_other:
+        raise AssertionError(f'{recipe} remat_policy={other_policy} step: '
+                             f'launches {launched}, want {want_other}')
+    del other
+    torch.cuda.empty_cache()
     return launches
+
+
+# the small models that the reference phases run on the card and the CPU:
+# flagship_fast's fields (float32 and bf16 radial trunk) and flagship's
+# (grouped convs, float32, 64 nodes in 3 padded node chunks)
+SMALL = dict(dim=64, depth=1, num_degrees=4, heads=8, dim_head=8,
+             attend_self=True, num_neighbors=16, shared_radial_hidden=True,
+             reversible=True)
+SMALL_FAST = dict(SMALL, fuse_basis=True, remat_policy='save_conv_outputs')
+SMALL_CASES = (
+    ('flagship_fast', dict(SMALL_FAST, radial_bf16=False), False),
+    ('flagship_fast', dict(SMALL_FAST, radial_bf16=True), True),
+    ('flagship', dict(SMALL, edge_chunks=3), False))
 
 
 def phase_train_reference(st):
@@ -569,13 +718,9 @@ def phase_train_reference(st):
                  masks=np.ones((1, n), bool))
     batch['masks'][0, -5:] = False
     noise = rng.normal(size=(1, n, 3)).astype(np.float32)
-    for bf16, tol in ((False, REF_GRAD_RTOL_F32), (True, REF_GRAD_RTOL_BF16)):
-        cfg = dict(dim=64, depth=1, num_degrees=4, heads=8, dim_head=8,
-                   attend_self=True, num_neighbors=16,
-                   shared_radial_hidden=True, fuse_basis=True,
-                   radial_bf16=bf16, reversible=True,
-                   remat_policy='save_conv_outputs', output_degrees=2,
-                   reduce_dim_out=True)
+    for recipe, fields, bf16 in SMALL_CASES:
+        tol = REF_GRAD_RTOL_BF16 if bf16 else REF_GRAD_RTOL_F32
+        cfg = dict(fields, output_degrees=2, reduce_dim_out=True)
         results = []
         for device in ('cuda', 'cpu'):
             model = st.SE3TransformerModule(
@@ -600,11 +745,12 @@ def phase_train_reference(st):
                 worst, worst_key = rel, key
         loss_rel = abs(loss_c - loss_h) / abs(loss_h)
         log('train_reference', json.dumps(dict(
-            radial_bf16=bf16, loss_card=loss_c, loss_cpu=loss_h,
+            recipe=recipe, radial_bf16=bf16, loss_card=loss_c, loss_cpu=loss_h,
             loss_rel_err=loss_rel, worst_grad_rel_err=worst,
             worst_grad=worst_key, leaves=len(grads_h), rtol=tol)))
         if loss_rel > tol or worst > tol:
-            raise AssertionError(f'train card vs CPU (radial_bf16={bf16}): '
+            raise AssertionError(f'train card vs CPU ({recipe}, '
+                                 f'radial_bf16={bf16}): '
                                  f'loss {loss_rel}, gradient {worst_key} '
                                  f'{worst} > {tol}')
 
@@ -617,11 +763,8 @@ def phase_reference(st):
     coords = chain_coords(rng, n)[None]
     mask = np.ones((1, n), bool)
     mask[0, -5:] = False
-    for bf16, tol in ((False, REF_RTOL_F32), (True, REF_RTOL_BF16)):
-        cfg = dict(dim=64, depth=1, num_degrees=4, heads=8, dim_head=8,
-                   attend_self=True, num_neighbors=16,
-                   shared_radial_hidden=True, fuse_basis=True,
-                   radial_bf16=bf16, reversible=True)
+    for recipe, cfg, bf16 in SMALL_CASES:
+        tol = REF_RTOL_BF16 if bf16 else REF_RTOL_F32
         outs = []
         for device in ('cuda', 'cpu'):
             model = st.SE3TransformerModule(
@@ -633,11 +776,12 @@ def phase_reference(st):
                 outs.append(model(*args).float().cpu().numpy())
         err = float(np.abs(outs[0] - outs[1]).max())
         scale = float(np.abs(outs[1]).max())
-        log('reference', json.dumps(dict(radial_bf16=bf16, max_abs_err=err,
-                                         max_abs_cpu=scale, rtol=tol)))
+        log('reference', json.dumps(dict(recipe=recipe, radial_bf16=bf16,
+                                         max_abs_err=err, max_abs_cpu=scale,
+                                         rtol=tol)))
         if not (np.isfinite(outs[0]).all() and err <= tol * scale):
-            raise AssertionError(f'card vs CPU (radial_bf16={bf16}): {err} '
-                                 f'> {tol} * {scale}')
+            raise AssertionError(f'card vs CPU ({recipe}, radial_bf16='
+                                 f'{bf16}): {err} > {tol} * {scale}')
 
 
 def main() -> int:
@@ -673,25 +817,39 @@ def main() -> int:
         elif 'registers' in line or 'spill' in line and ' 0 bytes' not in line:
             log('ptxas:', entry[:60], line.split(':', 1)[-1].strip())
 
-    # 3. forward kernel vs plain
+    # 3. forward kernels vs plain: bxf at the flagship_fast pairs, fwd at
+    # the flagship's grouped output degrees
     rows, worst = phase_kernels(st, peaks)
+    fwd_rows, fwd_worst = phase_fwd(kp, peaks)
 
-    # 4. backward kernels vs plain
+    # 4. backward kernels vs plain, at both recipes' shapes
     bwd_rows, bwd_worst = phase_backward(kp, peaks)
+    grouped_rows, grouped_worst = phase_backward_grouped(kp, peaks)
 
-    # 5. serve: the first main path, counts reset just before, read after
-    serve_launches = phase_serve(st, kp)
+    # 5-8. the main paths, each with the counts reset just before and read
+    # just after: (bxf, fwd, A, B) launches
+    fast_serve = phase_serve(st, kp, 'flagship_fast',
+                             (4 + REPLAY_LAUNCHES + 4, 0, 0, 0))
+    fast_train = phase_train(
+        st, kp, 'flagship_fast', (TRAIN_LAUNCHES, 0, TRAIN_BWD_LAUNCHES,
+                                  TRAIN_BWD_LAUNCHES),
+        None, (TRAIN_LAUNCHES + REPLAY_LAUNCHES, 0, TRAIN_BWD_LAUNCHES,
+               TRAIN_BWD_LAUNCHES))
+    flag_serve = phase_serve(st, kp, 'flagship',
+                             (0, FLAGSHIP_SERVE_LAUNCHES, 0, 0))
+    flag_bwd = (FLAGSHIP_BWD_LAUNCHES, FLAGSHIP_BWD_LAUNCHES)
+    flag_train = phase_train(
+        st, kp, 'flagship',
+        (0, FLAGSHIP_TRAIN_LAUNCHES + FLAGSHIP_REPLAY_LAUNCHES, *flag_bwd),
+        'save_conv_outputs', (0, FLAGSHIP_TRAIN_LAUNCHES, *flag_bwd))
 
-    # 6. train: the second main path, counts reset just before, read after
-    train_launches = phase_train(st, kp)
-
-    # 7. references on small inputs
+    # 9. references on small inputs
     phase_reference(st)
     phase_train_reference(st)
 
-    def flagship(table):
+    def unchunked(table, dtype):
         return [r for r in table
-                if r['E'] == 32768 and r['h_dtype'] == 'bfloat16']
+                if r['E'] == 32768 and r['h_dtype'] == dtype]
 
     def bound_by(table, key):
         total = sum(r[f'bound_ms{key}'] for r in table)
@@ -699,27 +857,32 @@ def main() -> int:
                   if r[f'bound_by{key}'] == 'operations')
         return 'operations' if ops * 2 >= total else 'bytes'
 
+    def entry(name, source, line, launches, err, table, key=''):
+        """One kernel's line: times and bounds summed over one hidden
+        ConvSE3's launches at E = 32768 (table)."""
+        return dict(name=name, route='cuda', source=src + source,
+                    replaces=f'{pallas}:{line}', launches=launches,
+                    max_abs_err=err,
+                    ms=sum(r[f'ms{key}'] for r in table),
+                    plain_ms=sum(r[f'plain_ms{key}'] for r in table),
+                    bound_ms=sum(r[f'bound_ms{key}'] for r in table),
+                    bound_by=bound_by(table, key), library_ms=None)
+
     src = 'se3_transformer_torch/kernels/csrc/'
     pallas = 'se3_transformer_tpu/kernels/pallas_pairwise.py'
-    fwd, bwd = flagship(rows), flagship(bwd_rows)
-    kernels = [dict(
-        name='fused_pairwise_conv_bxf', route='cuda',
-        source=src + 'pairwise_bxf.cu', replaces=f'{pallas}:593',
-        launches=serve_launches + train_launches[0], max_abs_err=worst,
-        ms=sum(r['ms'] for r in fwd),
-        plain_ms=sum(r['plain_ms'] for r in fwd),
-        bound_ms=sum(r['bound_ms'] for r in fwd),
-        bound_by=bound_by(fwd, ''), library_ms=None)]
-    for k, line in (('a', 861), ('b', 907)):
-        kernels.append(dict(
-            name=f'fused_pairwise_conv_bwd_{k}', route='cuda',
-            source=src + 'pairwise_bwd.cu', replaces=f'{pallas}:{line}',
-            launches=train_launches[1 if k == 'a' else 2],
-            max_abs_err=bwd_worst[k],
-            ms=sum(r[f'ms_{k}'] for r in bwd),
-            plain_ms=sum(r[f'plain_ms_{k}'] for r in bwd),
-            bound_ms=sum(r[f'bound_ms_{k}'] for r in bwd),
-            bound_by=bound_by(bwd, f'_{k}'), library_ms=None))
+    bwd = unchunked(bwd_rows, 'bfloat16')
+    kernels = [
+        entry('fused_pairwise_conv_bxf', 'pairwise_bxf.cu', 593,
+              fast_serve[0] + fast_train[0], worst,
+              unchunked(rows, 'bfloat16')),
+        entry('fused_pairwise_conv', 'pairwise_fwd.cu', 254,
+              flag_serve[1] + flag_train[1], fwd_worst,
+              unchunked(fwd_rows, 'float32'))]
+    for i, (k, line) in enumerate((('a', 861), ('b', 907))):
+        kernels.append(entry(
+            f'fused_pairwise_conv_bwd_{k}', 'pairwise_bwd.cu', line,
+            fast_train[2 + i] + flag_train[2 + i],
+            max(bwd_worst[k], grouped_worst[k]), bwd, f'_{k}'))
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

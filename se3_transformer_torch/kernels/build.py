@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source under `csrc/` (`pairwise_bxf.cu`, the forward;
-`pairwise_bwd.cu`, the backward) is compiled by its own `nvcc -c` for
+Each source under `csrc/` (`pairwise_bxf.cu` and `pairwise_fwd.cu`, the
+forwards; `pairwise_bwd.cu`, the backward) is compiled by its own `nvcc -c` for
 Hopper (`sm_90a`), all started together, and the objects are linked into
 one shared library with a plain C interface that `ctypes` loads. The build
 happens at first use, never at import, into `kernels/build/` beside this
@@ -22,7 +22,8 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, 'csrc')
 SOURCES = tuple(os.path.join(CSRC_DIR, f)
-                for f in ('pairwise_bxf.cu', 'pairwise_bwd.cu'))
+                for f in ('pairwise_bxf.cu', 'pairwise_fwd.cu',
+                          'pairwise_bwd.cu'))
 HEADERS = (os.path.join(CSRC_DIR, 'common.cuh'),)
 BUILD_DIR = os.path.join(_HERE, 'build')
 
@@ -115,13 +116,17 @@ def load_library() -> ctypes.CDLL:
             # (h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream)
             lib.se3_pairwise_bxf.argtypes = [vp, vp, vp, vp, vp, vp,
                                              ci, ci, ci, ci, ci, ci, vp]
+            # (h, w3, b3, v2, out, work, E, IF, O, P, i_per_split,
+            #  h_is_bf16, stream)
+            lib.se3_pairwise_fwd.argtypes = [vp] * 6 + [ci] * 6 + [vp]
             # (h, w3, b3, v2, g, dv2, work, dw3, db3, E, IF, P, splits,
             #  h_is_bf16, stream)
             lib.se3_pairwise_bwd_a.argtypes = [vp] * 9 + [ci] * 5 + [vp]
-            # (w3, v2, g, dh, E, IF, P, w3_is_bf16, stream)
-            lib.se3_pairwise_bwd_b.argtypes = [vp] * 4 + [ci] * 4 + [vp]
-            for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bwd_a,
-                       lib.se3_pairwise_bwd_b):
+            # (w3, v2, g, dh, work, E, IF, P, i_per_split, w3_is_bf16,
+            #  stream)
+            lib.se3_pairwise_bwd_b.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+            for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_fwd,
+                       lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_b):
                 fn.restype = ci
             _lib = lib
         return _lib

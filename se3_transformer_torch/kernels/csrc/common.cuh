@@ -1,5 +1,6 @@
 // Tile constants and mma.sync helpers shared by the pairwise kernels
-// (pairwise_bxf.cu, the forward; pairwise_bwd.cu, the backward).
+// (pairwise_bxf.cu and pairwise_fwd.cu, the forwards; pairwise_bwd.cu, the
+// backward).
 //
 // Both kernels tile edges by BE = 64 and output channels by BO = 64 with
 // 8 warps (4 along edges x 2 along O), and both compute the radial tile
@@ -35,6 +36,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
                "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {

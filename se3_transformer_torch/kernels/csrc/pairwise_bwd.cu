@@ -47,13 +47,17 @@
 //    order. So each edge split writes its partial [mid, IF, O] and [IF, O]
 //    to a workspace, and bwd_reduce_kernel sums the partials in split
 //    order: no float atomics, bit-identical from run to run.
-// Kernel B (grid: 64-edge tiles).
-//  * A CTA stages its g rows once, then loops over i: it stages V2[tile, :,
-//    i] and W3[:, i, :] (a cp.async double buffer for bf16), rebuilds
-//    dR[e, i, :] in shared memory (bf16 hi + lo, or float32), and adds
-//    dR . W3[:, i, :]^T into register accumulators: a 16 x 64 mma tile per
-//    warp for bf16, a 4 x 8 FMA block per thread for float32. dH is
-//    written once; no atomics.
+// Kernel B (grid: 64-edge tiles x i splits).
+//  * A CTA stages its g rows once, then loops over its range of i: it
+//    stages V2[tile, :, i] and W3[:, i, :] (a cp.async double buffer for
+//    bf16), rebuilds dR[e, i, :] in shared memory (bf16 hi + lo, or
+//    float32), and adds dR . W3[:, i, :]^T into register accumulators: a
+//    16 x 64 mma tile per warp for bf16, a 4 x 8 FMA block per thread for
+//    float32. dH (or the split's partial) is written once; no atomics.
+//  * A node chunk of the conservative recipe has 4096 edges: 64 tiles for
+//    132 SMs. As in pairwise_fwd.cu, the i range is then split across
+//    grid.y (i_per_split in kernels/pairwise.py) and bwd_reduce_kernel sums
+//    the partial dH in split order.
 // Left for later: wgmma, TMA, more than one CTA per SM, and whatever holds
 // kernel A at ~5 us per 64-edge tile when its mma work is a few hundred
 // cycles (prefetching the next tile's h did not move it).
@@ -347,7 +351,8 @@ bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3,
   }
 }
 
-// dW3 and dB3: the splits' partials summed in split order (deterministic).
+// dW3 and dB3 (or kernel B's dH, with n_b = 0): the splits' partials summed
+// in split order (deterministic).
 __global__ void bwd_reduce_kernel(const float* __restrict__ part, int splits,
                                   size_t n_w, size_t n_b, float* __restrict__ dw3,
                                   float* __restrict__ db3) {
@@ -369,7 +374,8 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ part, int splits,
 template <int P>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_b_f32_kernel(const float* __restrict__ w3, const float* __restrict__ v2,
-                 const float* __restrict__ g, float* __restrict__ dh, int E, int IF) {
+                 const float* __restrict__ g, float* __restrict__ dh, int E, int IF,
+                 int i_per_split) {
   constexpr int GS = P * BO + 1;  // g row stride: column reads hit 32 banks
   constexpr int WTS = MID + 4;    // W3[:, i, :]^T row stride
   constexpr int DTS = BE + 4;     // dR^T row stride
@@ -383,6 +389,7 @@ bwd_b_f32_kernel(const float* __restrict__ w3, const float* __restrict__ v2,
   const int tid = threadIdx.x;
   const int te = tid & 15, tm = tid >> 4;  // dH block: e = te*4.., m = tm*8..
   const int e0 = blockIdx.x * BE, rows = min(BE, E - e0);
+  const int i_lo = blockIdx.y * i_per_split, i_hi = min(IF, i_lo + i_per_split);
 
   for (int idx = tid; idx < BE * P * BO; idx += NTHREADS) {
     const int r = idx / (P * BO), c = idx - r * (P * BO);
@@ -395,7 +402,7 @@ bwd_b_f32_kernel(const float* __restrict__ w3, const float* __restrict__ v2,
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
 
-  for (int i = 0; i < IF; ++i) {
+  for (int i = i_lo; i < i_hi; ++i) {
     for (int idx = tid; idx < MID * BO; idx += NTHREADS) {
       const int m = idx / BO, o = idx - m * BO;
       sWt[o * WTS + m] = w3[((size_t)m * IF + i) * BO + o];
@@ -434,7 +441,7 @@ bwd_b_f32_kernel(const float* __restrict__ w3, const float* __restrict__ v2,
   for (int r = 0; r < 4; ++r) {
     const int e = te * 4 + r;
     if (e >= rows) continue;
-    float* dst = dh + (size_t)(e0 + e) * MID + tm * 8;
+    float* dst = dh + ((size_t)blockIdx.y * E + e0 + e) * MID + tm * 8;
     *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
   }
@@ -447,7 +454,8 @@ bwd_b_f32_kernel(const float* __restrict__ w3, const float* __restrict__ v2,
 template <int P>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_b_mma_kernel(const __nv_bfloat16* __restrict__ w3, const float* __restrict__ v2,
-                 const float* __restrict__ g, float* __restrict__ dh, int E, int IF) {
+                 const float* __restrict__ g, float* __restrict__ dh, int E, int IF,
+                 int i_per_split) {
   using T = __nv_bfloat16;
   constexpr int WS = Tile<T>::WS;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -461,8 +469,9 @@ bwd_b_mma_kernel(const __nv_bfloat16* __restrict__ w3, const float* __restrict__
   const int we = warp & 3, wn = warp >> 2;
   const int t = lane & 3, j = lane >> 3, rr = lane & 7;
   const int e0 = blockIdx.x * BE, rows = min(BE, E - e0);
+  const int i_lo = blockIdx.y * i_per_split, i_hi = min(IF, i_lo + i_per_split);
 
-  load_w(sW, w3, 0, IF, BO, 0, tid);
+  load_w(sW, w3, i_lo, IF, BO, 0, tid);
   cp_async_commit();
   for (int idx = tid; idx < BE * P * BO / 4; idx += NTHREADS) {
     const int r = idx / (P * BO / 4);
@@ -477,13 +486,13 @@ bwd_b_mma_kernel(const __nv_bfloat16* __restrict__ w3, const float* __restrict__
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
 
-  for (int i = 0; i < IF; ++i) {
+  for (int i = i_lo; i < i_hi; ++i) {
     for (int idx = tid; idx < P * BE; idx += NTHREADS) {
       const int p = idx / BE, e = idx - p * BE;
       sV[idx] = e < rows ? __ldg(v2 + ((size_t)(e0 + e) * P + p) * IF + i) : 0.f;
     }
-    if (i + 1 < IF) {
-      load_w(sW + ((i + 1) & 1) * MID * WS, w3, i + 1, IF, BO, 0, tid);
+    if (i + 1 < i_hi) {
+      load_w(sW + ((i + 1 - i_lo) & 1) * MID * WS, w3, i + 1, IF, BO, 0, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -507,7 +516,7 @@ bwd_b_mma_kernel(const __nv_bfloat16* __restrict__ w3, const float* __restrict__
           __floats2bfloat162_rn(d0 - __low2float(hi), d1 - __high2float(hi));
     }
     __syncthreads();
-    const T* sw = sW + (i & 1) * MID * WS;
+    const T* sw = sW + ((i - i_lo) & 1) * MID * WS;
     // one i's product in a fresh register tile, added to the running sum
     // with float32 adds (the tensor cores' accumulation is not
     // round-to-nearest; see kernel A)
@@ -540,14 +549,15 @@ bwd_b_mma_kernel(const __nv_bfloat16* __restrict__ w3, const float* __restrict__
   }
 
   const int e_lo = we * 16 + (lane >> 2), e_hi = e_lo + 8;
+  float* dst = dh + (size_t)blockIdx.y * E * MID;  // this split's dH
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     const int m = wn * 64 + nt * 8 + 2 * t;
     if (e_lo < rows)
-      *reinterpret_cast<float2*>(dh + (size_t)(e0 + e_lo) * MID + m) =
+      *reinterpret_cast<float2*>(dst + (size_t)(e0 + e_lo) * MID + m) =
           make_float2(acc[nt][0], acc[nt][1]);
     if (e_hi < rows)
-      *reinterpret_cast<float2*>(dh + (size_t)(e0 + e_hi) * MID + m) =
+      *reinterpret_cast<float2*>(dst + (size_t)(e0 + e_hi) * MID + m) =
           make_float2(acc[nt][2], acc[nt][3]);
   }
 }
@@ -581,15 +591,15 @@ cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* 
 }
 
 template <typename T, int P>
-cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, int E, int IF,
-                     cudaStream_t stream) {
+cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, void* work,
+                     int E, int IF, int i_per_split, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr size_t smem =
       kBf16 ? sizeof(float) * (size_t)(BE * P * BO + P * BE) +
                   sizeof(T) * (size_t)(2 * MID * Tile<T>::WS + 2 * BE * DSB)
             : sizeof(float) * (size_t)(BE * (P * BO + 1) + BO * (MID + 4) + BO * (BE + 4) +
                                        P * BE);
-  void (*kern)(const T*, const float*, const float*, float*, int, int);
+  void (*kern)(const T*, const float*, const float*, float*, int, int, int);
   if constexpr (kBf16)
     kern = bwd_b_mma_kernel<P>;
   else
@@ -597,9 +607,18 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, in
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<(E + BE - 1) / BE, NTHREADS, smem, stream>>>(
+  const int splits = (IF + i_per_split - 1) / i_per_split;
+  dim3 grid((E + BE - 1) / BE, splits);
+  kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(w3), static_cast<const float*>(v2), static_cast<const float*>(g),
-      static_cast<float*>(dh), E, IF);
+      static_cast<float*>(splits > 1 ? work : dh), E, IF, i_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t n = (size_t)E * MID;
+  size_t blocks = (n + NTHREADS - 1) / NTHREADS;
+  if (blocks > 4096) blocks = 4096;
+  bwd_reduce_kernel<<<(unsigned)blocks, NTHREADS, 0, stream>>>(
+      static_cast<const float*>(work), splits, n, 0, static_cast<float*>(dh), nullptr);
   return cudaGetLastError();
 }
 
@@ -631,15 +650,19 @@ extern "C" int se3_pairwise_bwd_a(const void* h, const void* w3, const void* b3,
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel B: dh [E, 128].
+// Kernel B: dh [E, 128]. With more than one split (ceil(IF / i_per_split))
+// work holds that many [E, 128] float partials; it is not read otherwise.
 extern "C" int se3_pairwise_bwd_b(const void* w3, const void* v2, const void* g, void* dh,
-                                  int E, int IF, int P, int w3_is_bf16, void* stream) {
-  if (E <= 0 || IF <= 0) return (int)cudaErrorInvalidValue;
+                                  void* work, int E, int IF, int P, int i_per_split,
+                                  int w3_is_bf16, void* stream) {
+  if (E <= 0 || IF <= 0 || i_per_split <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SE3_B(PP)                                                            \
-  if (P == PP)                                                               \
-    return (int)(w3_is_bf16 ? launch_b<__nv_bfloat16, PP>(w3, v2, g, dh, E, IF, s) \
-                            : launch_b<float, PP>(w3, v2, g, dh, E, IF, s));
+#define SE3_B(PP)                                                                     \
+  if (P == PP)                                                                        \
+    return (int)(w3_is_bf16                                                           \
+                     ? launch_b<__nv_bfloat16, PP>(w3, v2, g, dh, work, E, IF,        \
+                                                   i_per_split, s)                    \
+                     : launch_b<float, PP>(w3, v2, g, dh, work, E, IF, i_per_split, s));
   SE3_B(1) SE3_B(3) SE3_B(5) SE3_B(7)
 #undef SE3_B
   return (int)cudaErrorInvalidValue;

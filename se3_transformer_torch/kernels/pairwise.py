@@ -1,24 +1,30 @@
-"""The basis-fused pairwise convolution and its backward: wrappers, plain
-versions, dispatch, and the differentiable op.
+"""The pairwise convolutions and their backward: wrappers, plain versions,
+dispatch, and the differentiable ops.
 
-    out[e, p, o] = sum_{c, f} V2[e, p, c, f] * (h[e] . W3[:, (c, f), o] + b3[(c, f), o])
-    V2[e, p, c, f] = sum_q B[e, (p, f, q)] * x[e, c, q]
+    out[e, p, o] = sum_i V2[e, p, i] * (h[e] . W3[:, i, o] + b3[i, o])
+    V2[e, p, c, f] = sum_q B[e, (p, f, q)] * x[e, c, q]      (i = c*F + f)
 
-Port of se3_transformer_tpu/kernels/pallas_pairwise.py::fused_pairwise_conv_bxf
-and ::fused_pairwise_conv_bwd with the same signatures and row-major
-layouts: h [E, mid], w3 [mid, C*F, O] (i = c*F + f, c-major), basis_flat
-[E, P*F*Q] in (p, f, q) order, x [E, C, Q], b3 [C*F, O] -> out [E, P, O]
-float32; the backward takes v2 [E, P, C*F] and g [E, P, O].
+Port of se3_transformer_tpu/kernels/pallas_pairwise.py::fused_pairwise_conv
+(V2 given), ::fused_pairwise_conv_bxf (V2 built from the flat basis and x
+inside the kernel) and ::fused_pairwise_conv_bwd (the backward of both),
+with the same signatures and row-major layouts: h [E, mid], w3 [mid, IF, O]
+(i = c*F + f, c-major; the V2-given form takes the pairs of one output
+degree concatenated along i), v2 [E, P, IF], basis_flat [E, P*F*Q] in (p,
+f, q) order, x [E, C, Q], b3 [IF, O] -> out [E, P, O] float32; the backward
+takes v2 and g [E, P, O].
 
 A CPU tensor takes the plain PyTorch version. A CUDA tensor launches the
-hand-written Hopper kernels (csrc/pairwise_bxf.cu, csrc/pairwise_bwd.cu) or
-raises; nothing falls back. `fused_pairwise_conv_bxf.launches` and
+hand-written Hopper kernels (csrc/pairwise_fwd.cu, csrc/pairwise_bxf.cu,
+csrc/pairwise_bwd.cu) or raises; nothing falls back.
+`fused_pairwise_conv.launches`, `fused_pairwise_conv_bxf.launches` and
 `fused_pairwise_conv_bwd.launches_a` / `.launches_b` count kernel launches.
 
-`pairwise_contract_bxf` is the differentiable form (the port of
-se3_transformer_tpu/ops/conv.py::_pairwise_contract_pallas_bxf and its
-custom_vjp): a torch.library custom op, so that a selective activation
-checkpoint policy sees the forward as one op and can save its output.
+`pairwise_contract` and `pairwise_contract_bxf` are the differentiable
+forms (the ports of se3_transformer_tpu/ops/conv.py::_pairwise_contract_pallas
+and ::_pairwise_contract_pallas_bxf with their custom_vjps): torch.library
+custom ops, so that a selective activation checkpoint policy sees each
+forward as one op and can save its output. The int8/fp8 `w3_scale`
+epilogue of the JAX fused_pairwise_conv (quantized serving) is not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +36,9 @@ MID = 128          # the radial hidden width the kernel is built for
 O_TILE = 64        # output channels per CTA: O must be a multiple
 EDGE_TILE = 64     # edges per CTA
 ORDERS = (1, 3, 5, 7)   # P and Q the kernel is instantiated for (degree <= 3)
+# the i-range split of the V2-given forward kernel and of backward kernel B
+SPLIT_TARGET_CTAS = 132  # one CTA per SM of an H100 (both run one per SM)
+SPLIT_MIN_I = 64         # the fewest i values a split takes
 
 
 def fused_pairwise_conv_bxf_plain(h: torch.Tensor, w3: torch.Tensor,
@@ -117,6 +126,100 @@ def fused_pairwise_conv_bxf(h: torch.Tensor, w3: torch.Tensor,
 
 
 fused_pairwise_conv_bxf.launches = 0
+
+
+# ---------------------------------------------------------------------- #
+# the forward with V2 given
+# ---------------------------------------------------------------------- #
+def fused_pairwise_conv_plain(h: torch.Tensor, w3: torch.Tensor,
+                              v2: torch.Tensor,
+                              b3: torch.Tensor = None) -> torch.Tensor:
+    """The same function in plain PyTorch: R = h.W3 + b3 with float32
+    accumulation (bf16 products are exact in float32), then the per-edge
+    apply. Materializes R [E, IF, O]."""
+    E, mid = h.shape
+    _, IF, O = w3.shape
+    R = torch.matmul(h.float(), w3.float().reshape(mid, IF * O))
+    R = R.reshape(E, IF, O)
+    if b3 is not None:
+        R = R + b3.float()
+    return torch.bmm(v2.float(), R)
+
+
+def _check_fwd(h, w3, v2, b3):
+    dev = h.device
+    for name, t in (('w3', w3), ('v2', v2), ('b3', b3)):
+        if t.device != dev:
+            raise ValueError(f'{name} is on {t.device}, h on {dev}')
+    if h.dtype not in (torch.bfloat16, torch.float32) or w3.dtype != h.dtype:
+        raise TypeError(f'h/w3 must both be bfloat16 or float32, got '
+                        f'{h.dtype}/{w3.dtype}')
+    for name, t in (('v2', v2), ('b3', b3)):
+        if t.dtype != torch.float32:
+            raise TypeError(f'{name} must be float32, got {t.dtype}')
+    if h.ndim != 2 or h.shape[1] != MID:
+        raise ValueError(f'h must be [E, {MID}], got {tuple(h.shape)}')
+    E = h.shape[0]
+    if w3.ndim != 3 or w3.shape[0] != MID or w3.shape[1] == 0 \
+            or w3.shape[2] % O_TILE != 0 or w3.shape[2] == 0:
+        raise ValueError(f'w3 must be [{MID}, IF, k*{O_TILE}], got '
+                         f'{tuple(w3.shape)}')
+    _, IF, O = w3.shape
+    if v2.ndim != 3 or v2.shape[0] != E or v2.shape[1] not in ORDERS \
+            or v2.shape[2] != IF:
+        raise ValueError(f'v2 must be [{E}, P, {IF}] with P in {ORDERS}, got '
+                         f'{tuple(v2.shape)}')
+    if tuple(b3.shape) != (IF, O):
+        raise ValueError(f'b3 must be [{IF}, {O}], got {tuple(b3.shape)}')
+    for name, t in (('h', h), ('w3', w3), ('v2', v2), ('b3', b3)):
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    return E, IF, O, v2.shape[1]
+
+
+def i_per_split(E: int, IF: int, O: int = O_TILE) -> int:
+    """How many i values each CTA of the forward kernel (csrc/pairwise_fwd.cu)
+    or of backward kernel B contracts: the whole of IF when the edge and O
+    tiles alone fill the card, else IF split so that they do (each split
+    at least SPLIT_MIN_I values). A function of the shapes only, so the
+    partial sums and their reduce order (and so the output, bit for bit)
+    are the same on every run."""
+    tiles = -(-E // EDGE_TILE) * (O // O_TILE)
+    splits = max(1, min(SPLIT_TARGET_CTAS // tiles, -(-IF // SPLIT_MIN_I)))
+    return -(-IF // splits)
+
+
+def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
+                        b3: torch.Tensor = None) -> torch.Tensor:
+    """h [E, mid], w3 [mid, IF, O], v2 [E, P, IF], b3 [IF, O] (zeros when
+    None) -> out [E, P, O] float32: out = v2 . (h@w3 + b3)."""
+    if h.device.type == 'cpu':
+        return fused_pairwise_conv_plain(h, w3, v2, b3)
+    if h.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {h.device}')
+    if b3 is None:
+        b3 = torch.zeros(w3.shape[1:], dtype=torch.float32, device=h.device)
+    E, IF, O, P = _check_fwd(h, w3, v2, b3)
+    out = torch.empty(E, P, O, dtype=torch.float32, device=h.device)
+    if E == 0:
+        return out
+    per = i_per_split(E, IF, O)
+    splits = -(-IF // per)
+    work = out if splits == 1 else torch.empty(
+        splits * E * P * O, dtype=torch.float32, device=h.device)
+    from .build import load_library
+    with torch.cuda.device(h.device):
+        rc = load_library().se3_pairwise_fwd(
+            h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
+            out.data_ptr(), work.data_ptr(), E, IF, O, P, per,
+            int(h.dtype == torch.bfloat16), _stream(h))
+    if rc != 0:
+        raise RuntimeError(f'se3_pairwise_fwd launch failed: CUDA error {rc}')
+    fused_pairwise_conv.launches += 1
+    return out
+
+
+fused_pairwise_conv.launches = 0
 
 
 # ---------------------------------------------------------------------- #
@@ -233,14 +336,20 @@ def _launch_bwd_a(h, w3, v2, g, b3, E, IF, P):
 
 
 def _launch_bwd_b(w3, v2, g, E, IF, P):
-    """Kernel B on operands that passed _check_bwd, E > 0 -> dh; counts
-    one kernel-B launch."""
+    """Kernel B (and, with its i range split, the partials' reduce) on
+    operands that passed _check_bwd, E > 0 -> dh; counts one kernel-B
+    launch."""
     dh = torch.empty(E, MID, dtype=torch.float32, device=w3.device)
+    per = i_per_split(E, IF)
+    splits = -(-IF // per)
+    work = dh if splits == 1 else torch.empty(
+        splits * E * MID, dtype=torch.float32, device=w3.device)
     from .build import load_library
     with torch.cuda.device(w3.device):
         rc = load_library().se3_pairwise_bwd_b(
-            w3.data_ptr(), v2.data_ptr(), g.data_ptr(), dh.data_ptr(), E, IF,
-            P, int(w3.dtype == torch.bfloat16), _stream(w3))
+            w3.data_ptr(), v2.data_ptr(), g.data_ptr(), dh.data_ptr(),
+            work.data_ptr(), E, IF, P, per, int(w3.dtype == torch.bfloat16),
+            _stream(w3))
     if rc != 0:
         raise RuntimeError(f'se3_pairwise_bwd_b launch failed: CUDA error '
                            f'{rc}')
@@ -251,9 +360,10 @@ def _launch_bwd_b(w3, v2, g, E, IF, P):
 def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
                             v2: torch.Tensor, g: torch.Tensor,
                             b3: torch.Tensor = None):
-    """Backward of fused_pairwise_conv_bxf (given V2): h [E, mid], w3
-    [mid, IF, O], v2 [E, P, IF], g [E, P, O], b3 [IF, O] (zeros when None)
-    -> (dh [E, mid], dw3 [mid, IF, O], dv2 [E, P, IF], db3 [IF, O]), all
+    """Backward of fused_pairwise_conv and fused_pairwise_conv_bxf (V2
+    given): h [E, mid], w3 [mid, IF, O], v2 [E, P, IF], g [E, P, O], b3
+    [IF, O] (zeros when None) -> (dh [E, mid], dw3 [mid, IF, O], dv2 [E, P,
+    IF], db3 [IF, O]), all
     float32. On a card: kernel A (dV2, dW3, dB3, with its deterministic
     edge reduce) then kernel B (dH); mid = 128 and O = 64 there."""
     if b3 is None:
@@ -321,8 +431,37 @@ def _pc_backward(ctx, g):
 
 _pairwise_contract_op.register_autograd(_pc_backward, setup_context=_pc_setup)
 
-# the op's overload, as a checkpoint policy sees it
-PAIRWISE_CONTRACT_OP = torch.ops.se3_torch.pairwise_contract_bxf.default
+
+@torch.library.custom_op('se3_torch::pairwise_contract', mutates_args=(),
+                         device_types='cpu')
+def _contract_op(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                 v2: torch.Tensor) -> torch.Tensor:
+    return fused_pairwise_conv_plain(h, w3, v2, b3)
+
+
+@_contract_op.register_kernel('cuda')
+def _(h, w3, b3, v2):
+    return fused_pairwise_conv(h, w3, v2, b3)
+
+
+def _contract_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _contract_backward(ctx, g):
+    """The port of ops/conv.py::_pc_bwd: the fused backward on the saved
+    operands; dh and dw3 in the dtypes of h and w3, dv2 to V2, whose own
+    einsum carries it on to the basis and the features under autograd."""
+    h, w3, b3, v2 = ctx.saved_tensors
+    dh, dw3, dv2, db3 = fused_pairwise_conv_bwd(h, w3, v2, g.contiguous(), b3)
+    return dh.to(h.dtype), dw3.to(w3.dtype), db3.to(b3.dtype), dv2.to(v2.dtype)
+
+
+_contract_op.register_autograd(_contract_backward, setup_context=_contract_setup)
+
+# the ops' overloads, as a checkpoint policy sees them
+PAIRWISE_CONTRACT_OPS = (torch.ops.se3_torch.pairwise_contract_bxf.default,
+                         torch.ops.se3_torch.pairwise_contract.default)
 
 
 def pairwise_contract_bxf(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
@@ -332,3 +471,11 @@ def pairwise_contract_bxf(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     in the JAX custom_vjp); gradients flow to h, w3, b3, basis_flat and x."""
     P, Q, F = (int(v) for v in pqf)
     return _pairwise_contract_op(h, w3, b3, basis_flat, x, P, Q, F)
+
+
+def pairwise_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                      v2: torch.Tensor) -> torch.Tensor:
+    """Differentiable fused_pairwise_conv (b3 third as in the JAX
+    custom_vjp); gradients flow to h, w3, b3 and v2. Saves only its
+    operands for the backward: R never outlives the call."""
+    return _contract_op(h, w3, b3, v2)

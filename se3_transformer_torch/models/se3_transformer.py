@@ -1,15 +1,18 @@
 """SE3TransformerModule: the port of se3_transformer_tpu/models/se3_transformer.py
-restricted to the fields the `flagship_fast` recipe uses.
+restricted to the fields the `flagship_fast` and `flagship` recipes use.
 
 The forward is the JAX module's kNN path, step for step: self-excluded
-pairwise geometry -> fixed-K neighbor selection -> the flat 'pfq_flat'
-basis -> conv_in -> trunk -> conv_out -> norm_out (on with reversible)
--> linear_out (reduce_dim_out) -> the degree-1 Cartesian permutation ->
-the output of `return_type`, with the JAX conventions.
+pairwise geometry -> fixed-K neighbor selection -> the basis (the flat
+'pfq_flat' layout with fuse_basis, the structured 'pqf' one without, as
+the JAX module picks it on the kernel path) -> conv_in -> trunk ->
+conv_out -> norm_out (on with reversible) -> linear_out (reduce_dim_out)
+-> the degree-1 Cartesian permutation -> the output of `return_type`, with
+the JAX conventions. edge_chunks streams every ConvSE3's contraction over
+that many node chunks.
 
 Every other JAX field is accepted only at its JAX default: any other value
 raises NotImplementedError, so nothing is silently ignored. The branches
-the port does not implement (shared_radial_hidden=False, fuse_basis=False,
+the port does not implement (shared_radial_hidden=False,
 attend_self=False, input_degrees other than 1, output_degrees other than
 1 or 2) raise likewise.
 """
@@ -48,7 +51,7 @@ _JAX_ONLY_DEFAULTS = dict(
     conv_backend='dense', fuse_pairwise=False, flash_interpret=False,
     pallas=None, conv_bf16=False, pallas_interpret=False,
     pallas_attention=None, pallas_attention_interpret=False,
-    matmul_precision=None, edge_chunks=None, sequence_parallel=None,
+    matmul_precision=None, sequence_parallel=None,
     mesh=None, ring_overlap=True, ring_exchange=True, attention_mode='knn',
     global_materialize=False)
 
@@ -107,8 +110,8 @@ class SE3TransformerModule(nn.Module):
                  attend_self: bool = False,
                  num_neighbors=float('inf'),
                  shared_radial_hidden: bool = False, fuse_basis: bool = False,
-                 radial_bf16: bool = False, reduce_dim_out: bool = False, *,
-                 device='cuda',
+                 radial_bf16: bool = False, reduce_dim_out: bool = False,
+                 edge_chunks: Optional[int] = None, *, device='cuda',
                  generator: Optional[torch.Generator] = None, **jax_fields):
         super().__init__()
         device = resolve_device(device)
@@ -119,8 +122,12 @@ class SE3TransformerModule(nn.Module):
                 raise NotImplementedError(
                     f'{key}={value!r} is not ported (only the JAX default '
                     f'{_JAX_ONLY_DEFAULTS[key]!r})')
+        if edge_chunks is not None and (isinstance(edge_chunks, bool) or
+                                        not isinstance(edge_chunks, int) or
+                                        edge_chunks < 1):
+            raise ValueError(f'edge_chunks must be None or a positive int, '
+                             f'got {edge_chunks!r}')
         for ok, what in ((shared_radial_hidden, 'shared_radial_hidden=False'),
-                         (fuse_basis, 'fuse_basis=False'),
                          (attend_self, 'attend_self=False'),
                          (input_degrees == 1, f'input_degrees={input_degrees}'),
                          (output_degrees in (1, 2),
@@ -134,19 +141,21 @@ class SE3TransformerModule(nn.Module):
         self.num_neighbors = num_neighbors
         # reversible blocks imply the output norm (JAX _body)
         self.apply_norm_out = reversible
+        # the basis layout the convs take (the JAX module's choice on the
+        # kernel path)
+        self.basis_layout = 'pfq_flat' if fuse_basis else 'pqf'
 
         fiber_in = Fiber.create(1, dim)
         fiber_hidden = Fiber.create(num_degrees, dim)
         fiber_out = Fiber.create(output_degrees, dim)
-        self.conv_in = ConvSE3(fiber_in, fiber_hidden,
-                               radial_bf16=radial_bf16)
+        conv_kwargs = dict(radial_bf16=radial_bf16, fuse_basis=fuse_basis,
+                           edge_chunks=edge_chunks)
+        self.conv_in = ConvSE3(fiber_in, fiber_hidden, **conv_kwargs)
         self.trunk = SequentialTrunk(fiber_hidden, depth=depth, heads=heads,
                                      dim_head=dim_head,
-                                     radial_bf16=radial_bf16,
                                      reversible=reversible,
-                                     remat_policy=remat_policy)
-        self.conv_out = ConvSE3(fiber_hidden, fiber_out,
-                                radial_bf16=radial_bf16)
+                                     remat_policy=remat_policy, **conv_kwargs)
+        self.conv_out = ConvSE3(fiber_hidden, fiber_out, **conv_kwargs)
         if self.apply_norm_out:
             self.norm_out = NormSE3(fiber_out, nonlin=lambda t: t)
         self.linear_out = LinearSE3(fiber_out, fiber_out.to(1)) \
@@ -183,7 +192,7 @@ class SE3TransformerModule(nn.Module):
         hood, _ = select_neighbors(rel_pos, indices, num_neighbors,
                                    self.valid_radius, pair_mask=pair_mask)
         basis = get_basis(hood.rel_pos, self.num_degrees - 1,
-                          layout='pfq_flat')
+                          layout=self.basis_layout)
         edge_info = (hood.indices, hood.mask)
 
         x = {'0': feats[..., None]}

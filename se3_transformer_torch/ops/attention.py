@@ -9,7 +9,7 @@ with the finite float32 minimum.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,13 +25,15 @@ Features = Dict[str, torch.Tensor]
 
 class AttentionSE3(nn.Module):
     def __init__(self, fiber: Fiber, dim_head: int = 64, heads: int = 8,
-                 radial_bf16: bool = False):
+                 radial_bf16: bool = False, fuse_basis: bool = False,
+                 edge_chunks: Optional[int] = None):
         super().__init__()
         self.fiber, self.dim_head, self.heads = fiber, dim_head, heads
         hidden_fiber = fiber.to(dim_head * heads)
         self.to_q = LinearSE3(fiber, hidden_fiber)
         conv_kwargs = dict(pool=False, self_interaction=False,
-                           radial_bf16=radial_bf16)
+                           radial_bf16=radial_bf16, fuse_basis=fuse_basis,
+                           edge_chunks=edge_chunks)
         self.to_v = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         self.to_k = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         self.to_self_k = LinearSE3(fiber, hidden_fiber)
@@ -88,11 +90,14 @@ class AttentionBlockSE3(nn.Module):
     """Prenorm + attention + residual."""
 
     def __init__(self, fiber: Fiber, dim_head: int = 24, heads: int = 8,
-                 radial_bf16: bool = False):
+                 radial_bf16: bool = False, fuse_basis: bool = False,
+                 edge_chunks: Optional[int] = None):
         super().__init__()
         self.prenorm = NormSE3(fiber)
         self.attn = AttentionSE3(fiber, dim_head=dim_head, heads=heads,
-                                 radial_bf16=radial_bf16)
+                                 radial_bf16=radial_bf16,
+                                 fuse_basis=fuse_basis,
+                                 edge_chunks=edge_chunks)
 
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]

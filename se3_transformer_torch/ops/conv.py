@@ -1,15 +1,23 @@
 """Tensor-field-network convolution: the port of se3_transformer_tpu/ops/conv.py
-on its `shared_radial_hidden=True, fuse_basis=True` branch.
+on its `shared_radial_hidden=True` branches.
 
 One radial trunk (Dense -> LayerNorm -> GELU, twice) is shared by every
-(d_in, d_out) pair of a ConvSE3; each pair then makes one call of
-kernels.pairwise.pairwise_contract_bxf (the differentiable form of
-fused_pairwise_conv_bxf) with its own grouped parameters
-w3_{d_in}_{d_out} [mid, c_in*F, c_out] and b3_{d_in}_{d_out} [c_in*F, c_out],
-contracting the flat (p, f, q) basis with the gathered neighbor features
-inside the kernel. Under autograd the backward runs the fused backward
-kernels; gradients reach w3 through its cast to the radial dtype, b3, the
-shared radial trunk and the gathered features.
+(d_in, d_out) pair of a ConvSE3, each pair with its own grouped parameters
+w3_{d_in}_{d_out} [mid, c_in*F, c_out] and b3_{d_in}_{d_out} [c_in*F, c_out].
+
+  * fuse_basis=True: one call of kernels.pairwise.pairwise_contract_bxf per
+    pair, contracting the flat (p, f, q) basis with the gathered neighbor
+    features inside the kernel.
+  * fuse_basis=False: per pair, V2 = basis . x by einsum from the
+    structured (P, Q, F) basis; the pairs of one output degree are
+    concatenated along the contracted axis (V2, w3 and b3 alike) and make
+    one call of kernels.pairwise.pairwise_contract per output degree.
+
+edge_chunks streams the node axis through either contraction in that many
+chunks, zero-padding it to a multiple (_stream_node_chunks). Under
+autograd the backward runs the fused backward kernels; gradients reach w3
+through its cast to the radial dtype, b3, the shared radial trunk and the
+gathered features.
 
 radial_bf16 runs the trunk and the radial operands (h, w3) in bfloat16; the
 bias and every accumulation stay float32, and LayerNorm statistics are
@@ -17,12 +25,13 @@ float32 as in flax.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F_
 from torch import nn
 
-from ..kernels.pairwise import pairwise_contract_bxf
+from ..kernels.pairwise import pairwise_contract, pairwise_contract_bxf
 from ..utils.helpers import batched_index_select, masked_mean, to_order
 from .core import LinearSE3, gelu, residual_se3
 from .fiber import Fiber
@@ -53,12 +62,104 @@ def layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
     return ((x32 - mean) * mul + layer.bias).to(x.dtype)
 
 
+def unflatten_basis(basis_flat: torch.Tensor, P: int, Q: int,
+                    F: int) -> torch.Tensor:
+    """[..., P*F*Q] (p, f, q)-ordered flat basis -> the structured
+    [..., P, Q, F] form."""
+    b = basis_flat.reshape(*basis_flat.shape[:-1], P, F, Q)
+    return b.transpose(-1, -2)
+
+
+def _basis_is_flat(basis: torch.Tensor, x: torch.Tensor) -> bool:
+    """get_basis(layout='pfq_flat') entries are [..., P*F*Q]: one axis
+    fewer than the neighbor features x [..., C, Q]; the structured form
+    has one more."""
+    return basis.ndim == x.ndim - 1
+
+
+def _stream_node_chunks(contract: Callable, operands: Sequence[torch.Tensor],
+                        edge_chunks: Optional[int]) -> torch.Tensor:
+    """contract(*operands) over the node axis (axis 1) in `edge_chunks`
+    chunks (None: in one call), one contraction per chunk. When n is not
+    a multiple of the
+    chunk count the node axis is zero-padded up to one and the pad rows
+    are sliced off the result; every operand is per node, so the pad rows
+    add nothing, and under autograd their cotangents are zero.
+
+    The JAX package wraps each chunk in jax.checkpoint so that the XLA
+    path's materialized R is not kept for the backward. Here each chunk's
+    contraction is one custom op whose autograd saves only its operands
+    (the chunk's slices), so R lives only inside the call, on the CPU's
+    plain path as well; the backward reruns no forward."""
+    if edge_chunks is None:
+        return contract(*operands)
+    n = operands[0].shape[1]
+    c = min(edge_chunks, n)
+    n_pad = -(-n // c) * c
+
+    def split(a):
+        if n_pad != n:
+            a = F_.pad(a, (0, 0) * (a.ndim - 2) + (0, n_pad - n))
+        return a.reshape(a.shape[0], c, n_pad // c, *a.shape[2:]).unbind(1)
+
+    out = torch.stack([contract(*chunk) for chunk in
+                       zip(*(split(a) for a in operands))], dim=1)
+    out = out.reshape(out.shape[0], n_pad, *out.shape[3:])
+    return out[:, :n] if n_pad != n else out
+
+
+def _radial_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                     v2: torch.Tensor,
+                     edge_chunks: Optional[int]) -> torch.Tensor:
+    """h [b,n,k,mid], w3 [mid,IF,O], b3 [IF,O], v2 [b,n,k,P,IF] ->
+    [b,n,k,P,O] through pairwise_contract, optionally streaming the node
+    axis in `edge_chunks` chunks."""
+    P, IF = v2.shape[-2:]
+    O = w3.shape[-1]
+    w3c = w3.to(h.dtype)
+
+    def contract(h_c, v2_c):
+        lead = h_c.shape[:-1]
+        E = lead.numel()
+        out = pairwise_contract(h_c.reshape(E, h_c.shape[-1]).contiguous(),
+                                w3c, b3, v2_c.reshape(E, P, IF).contiguous())
+        return out.reshape(*lead, P, O)
+
+    return _stream_node_chunks(contract, (h, v2), edge_chunks)
+
+
+def _radial_contract_bx(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                        basis: torch.Tensor, x: torch.Tensor,
+                        pqf: Tuple[int, int, int],
+                        edge_chunks: Optional[int]) -> torch.Tensor:
+    """Basis-fused: h [b,n,k,mid], w3 [mid,C*F,O], b3 [C*F,O], the flat
+    basis [b,n,k,P*F*Q], x [b,n,k,C,Q] -> [b,n,k,P,O] through
+    pairwise_contract_bxf, optionally streaming the node axis."""
+    P, Q, F = pqf
+    C, O = x.shape[-2], w3.shape[-1]
+    w3c = w3.to(h.dtype)
+
+    def contract(h_c, basis_c, x_c):
+        lead = h_c.shape[:-1]
+        E = lead.numel()
+        # the kernel takes contiguous rows; a gather from an einsum's
+        # permuted output can keep the source's strides
+        out = pairwise_contract_bxf(
+            h_c.reshape(E, h_c.shape[-1]).contiguous(), w3c, b3,
+            basis_c.reshape(E, P * F * Q).contiguous(),
+            x_c.reshape(E, C, Q).contiguous(), pqf)
+        return out.reshape(*lead, P, O)
+
+    return _stream_node_chunks(contract, (h, basis, x), edge_chunks)
+
+
 class ConvSE3(nn.Module):
     """Graph TFN convolution over precomputed neighborhoods."""
 
     def __init__(self, fiber_in: Fiber, fiber_out: Fiber,
                  self_interaction: bool = True, pool: bool = True,
-                 radial_bf16: bool = False):
+                 radial_bf16: bool = False, fuse_basis: bool = False,
+                 edge_chunks: Optional[int] = None):
         super().__init__()
         if self_interaction and not pool:
             raise ValueError('must pool edges if followed with self '
@@ -66,6 +167,8 @@ class ConvSE3(nn.Module):
         self.fiber_in, self.fiber_out = fiber_in, fiber_out
         self.pool = pool
         self.radial_dtype = torch.bfloat16 if radial_bf16 else None
+        self.fuse_basis = fuse_basis
+        self.edge_chunks = edge_chunks
         mid = DEFAULT_MID_DIM
         # the shared radial trunk, under the flax module's names
         self.Dense_0 = nn.Linear(1, mid)
@@ -94,35 +197,47 @@ class ConvSE3(nn.Module):
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
                 ) -> Features:
         """inp {d: [b, n, c, 2d+1]}; rel_dist [b, n, k]; basis
-        {'d_in,d_out': [b, n, k, P*F*Q]} (layout 'pfq_flat').
+        {'d_in,d_out': [b, n, k, P*F*Q] (layout 'pfq_flat') or [b, n, k,
+        P, Q, F] ('pqf')}; fuse_basis takes the flat layout only.
         Pooled: {d: [b, n, c_out, 2d+1]}; else [b, n, k, c_out, 2d+1]."""
         neighbor_indices, neighbor_mask = edge_info
-        b, n, k = neighbor_indices.shape
-        E = b * n * k
         gathered = {str(d): batched_index_select(inp[str(d)],
                                                  neighbor_indices, dim=1)
                     for d, _ in self.fiber_in}       # [b, n, k, c_in, Q]
-        hidden = self.radial_hidden(rel_dist[..., None])
-        h = hidden.reshape(E, DEFAULT_MID_DIM)
+        hidden = self.radial_hidden(rel_dist[..., None])   # [b, n, k, mid]
 
         outputs = {}
         for d_out, m_out in self.fiber_out:
             P = to_order(d_out)
-            acc = None
+            acc, v2s, w3s, b3s = None, [], [], []
             for d_in, m_in in self.fiber_in:
                 Q, F = to_order(d_in), to_order(min(d_in, d_out))
-                w3 = getattr(self, f'w3_{d_in}_{d_out}').to(h.dtype)
+                w3 = getattr(self, f'w3_{d_in}_{d_out}')
                 b3 = getattr(self, f'b3_{d_in}_{d_out}')
-                # the kernel takes contiguous rows; a gather from an
-                # einsum's permuted output can keep the source's strides
-                y = pairwise_contract_bxf(
-                    h, w3, b3,
-                    basis[f'{d_in},{d_out}'].reshape(E, P * F * Q)
-                    .contiguous(),
-                    gathered[str(d_in)].reshape(E, m_in, Q).contiguous(),
-                    (P, Q, F))
-                acc = y if acc is None else acc + y
-            acc = acc.reshape(b, n, k, P, m_out).transpose(-1, -2)
+                x = gathered[str(d_in)]
+                basis_pair = basis[f'{d_in},{d_out}']
+                if self.fuse_basis:
+                    if not _basis_is_flat(basis_pair, x):
+                        raise ValueError(
+                            'fuse_basis takes the pfq_flat basis layout (the '
+                            'structured one is the unported bx kernel)')
+                    y = _radial_contract_bx(hidden, w3, b3, basis_pair, x,
+                                            (P, Q, F), self.edge_chunks)
+                    acc = y if acc is None else acc + y
+                    continue
+                if _basis_is_flat(basis_pair, x):
+                    basis_pair = unflatten_basis(basis_pair, P, Q, F)
+                # V2[..., p, (c, f)] = sum_q B[..., p, q, f] x[..., c, q]
+                v2 = torch.einsum('...pqf,...cq->...pcf', basis_pair, x)
+                v2s.append(v2.reshape(*v2.shape[:-2], m_in * F))
+                w3s.append(w3)
+                b3s.append(b3)
+            if not self.fuse_basis:
+                acc = _radial_contract(hidden, torch.cat(w3s, dim=1),
+                                       torch.cat(b3s, dim=0),
+                                       torch.cat(v2s, dim=-1),
+                                       self.edge_chunks)
+            acc = acc.transpose(-1, -2)               # [b, n, k, c_out, P]
             if self.pool:
                 acc = masked_mean(acc, neighbor_mask, dim=2)
             outputs[str(d_out)] = acc

@@ -7,7 +7,7 @@ block's activations are dropped after the forward and recomputed in the
 backward. remat_policy='save_conv_outputs' (the JAX
 save_only_these_names('conv_out')) keeps the pairwise contractions'
 outputs through a selective checkpoint policy that marks the
-kernels.pairwise custom op MUST_SAVE, so the replay launches no forward
+kernels.pairwise custom ops MUST_SAVE, so the replay launches no forward
 kernel; remat_policy=None replays everything. Neither changes the forward,
 and without autograd (serving) the blocks run as a plain loop.
 """
@@ -22,7 +22,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from ..kernels.pairwise import PAIRWISE_CONTRACT_OP
+from ..kernels.pairwise import PAIRWISE_CONTRACT_OPS
 from .attention import AttentionBlockSE3
 from .conv import EdgeInfo
 from .core import FeedForwardBlockSE3
@@ -32,7 +32,7 @@ Features = Dict[str, torch.Tensor]
 
 
 def _save_conv_outputs(ctx, op, *args, **kwargs):
-    if op is PAIRWISE_CONTRACT_OP:
+    if op in PAIRWISE_CONTRACT_OPS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -53,7 +53,9 @@ class SequentialTrunk(nn.Module):
     def __init__(self, fiber: Fiber, depth: int, heads: int = 8,
                  dim_head: int = 24, radial_bf16: bool = False,
                  reversible: bool = False,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None,
+                 fuse_basis: bool = False,
+                 edge_chunks: Optional[int] = None):
         super().__init__()
         if remat_policy is not None and not reversible:
             raise ValueError(f'remat_policy={remat_policy!r} requires '
@@ -64,7 +66,8 @@ class SequentialTrunk(nn.Module):
         for i in range(depth):
             self.add_module(f'attn_block{i}', AttentionBlockSE3(
                 fiber, dim_head=dim_head, heads=heads,
-                radial_bf16=radial_bf16))
+                radial_bf16=radial_bf16, fuse_basis=fuse_basis,
+                edge_chunks=edge_chunks))
             self.add_module(f'ff_block{i}', FeedForwardBlockSE3(fiber))
 
     def _run(self, block: nn.Module, *args):

@@ -199,3 +199,126 @@ def test_cuda_backward_dw3_db3_are_bit_identical(cuda_card, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------- #
+# the forward with V2 given (fused_pairwise_conv)
+# ---------------------------------------------------------------------- #
+def _fwd_args(P=5, IF=70, e=96, dtype=torch.bfloat16, seed=5):
+    """Forward operands at the kernel's widths (mid 128, O 64); IF is the
+    concatenated (c, f) axis of one output degree's pairs."""
+    rng = np.random.RandomState(seed)
+    h = torch.from_numpy(rng.normal(size=(e, kp.MID)).astype(np.float32))
+    w3 = torch.from_numpy((rng.normal(size=(kp.MID, IF, kp.O_TILE))
+                           / np.sqrt(kp.MID)).astype(np.float32))
+    return [h.to(dtype), w3.to(dtype),
+            torch.from_numpy(rng.normal(size=(e, P, IF)).astype(np.float32)),
+            torch.from_numpy(0.1 * rng.normal(size=(IF, kp.O_TILE))
+                             .astype(np.float32))]
+
+
+def test_cpu_forward_never_counts_a_launch():
+    before = kp.fused_pairwise_conv.launches
+    out = kp.fused_pairwise_conv(*_fwd_args(e=70))
+    assert tuple(out.shape) == (70, 5, kp.O_TILE)
+    assert out.dtype == torch.float32
+    assert kp.fused_pairwise_conv.launches == before
+
+
+@pytest.mark.parametrize('bad', [
+    'h_dtype', 'mixed_hw3', 'v2_dtype', 'b3_dtype', 'mid', 'o_tile', 'p',
+    'v2_if', 'v2_edges', 'b3_shape', 'noncontig_v2'])
+def test_fwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    args = _fwd_args()
+    assert kp._check_fwd(*args) == (96, 70, kp.O_TILE, 5)
+    if bad == 'h_dtype':
+        args[0] = args[0].half()
+    elif bad == 'mixed_hw3':
+        args[1] = args[1].float()
+    elif bad == 'v2_dtype':
+        args[2] = args[2].double()
+    elif bad == 'b3_dtype':
+        args[3] = args[3].double()
+    elif bad == 'mid':
+        args[0] = args[0][:, :64].contiguous()
+    elif bad == 'o_tile':
+        args[1] = args[1][..., :32].contiguous()
+        args[3] = args[3][:, :32].contiguous()
+    elif bad == 'p':
+        args[2] = args[2][:, :4].contiguous()
+    elif bad == 'v2_if':
+        args[2] = args[2][..., :-1].contiguous()
+    elif bad == 'v2_edges':
+        args[2] = args[2][:-1]
+    elif bad == 'b3_shape':
+        args[3] = args[3][:-1]
+    elif bad == 'noncontig_v2':
+        args[2] = args[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises((TypeError, ValueError)):
+        kp._check_fwd(*args)
+
+
+@pytest.mark.parametrize('E,IF,O', [(1, 1, 64), (70, 20, 64), (4096, 64, 64),
+                                    (4096, 1024, 64), (4096, 256, 128),
+                                    (32768, 1024, 64), (1000, 896, 64)])
+def test_i_splits_cover_IF(E, IF, O):
+    """The i splits of the forward kernel and kernel B: none empty,
+    together all of IF, no more
+    CTAs than one per SM unless the edge tiles alone need more, and no
+    split under SPLIT_MIN_I values of i unless IF is."""
+    per = kp.i_per_split(E, IF, O)
+    splits = -(-IF // per)
+    assert 1 <= per <= IF
+    assert (splits - 1) * per < IF <= splits * per
+    tiles = -(-E // kp.EDGE_TILE) * (O // kp.O_TILE)
+    assert splits * tiles <= max(tiles, kp.SPLIT_TARGET_CTAS)
+    assert per >= min(IF, kp.SPLIT_MIN_I)
+    assert splits > 1 or tiles * 2 > kp.SPLIT_TARGET_CTAS \
+        or IF < 2 * kp.SPLIT_MIN_I
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('P,IF,e', [(1, 20, 64), (3, 35, 200), (5, 70, 1000),
+                                    (7, 80, 77), (7, 1024, 4096),
+                                    (3, 640, 4133)])
+def test_cuda_fwd_kernel_matches_plain(cuda_card, P, IF, e, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() for a in _fwd_args(P, IF, e, dtype)]
+    before = kp.fused_pairwise_conv.launches
+    out = kp.fused_pairwise_conv(*args)
+    torch.cuda.synchronize()
+    assert kp.fused_pairwise_conv.launches == before + 1
+    ref = kp.fused_pairwise_conv_plain(*args)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_cuda_fwd_split_sums_are_bit_identical(cuda_card, dtype):
+    """The i splits' partials are reduced in a fixed order: two runs agree
+    bit for bit."""
+    args = [a.cuda() for a in _fwd_args(7, 1024, 4096, dtype)]
+    assert kp.i_per_split(4096, 1024, kp.O_TILE) < 1024
+    first = kp.fused_pairwise_conv(*args)
+    second = kp.fused_pairwise_conv(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_cuda_backward_b_split_matches_plain_and_is_bit_identical(cuda_card,
+                                                                  dtype):
+    """Kernel B with its i range split (4096 edges, IF = 448): dH against
+    the plain version, and the same bits from two runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() for a in _bwd_args(3, 3, 4096, c=64, dtype=dtype)]
+    assert kp.i_per_split(4096, 448) < 448
+    first = kp.fused_pairwise_conv_bwd(*args)
+    second = kp.fused_pairwise_conv_bwd(*args)
+    torch.cuda.synchronize()
+    ref = kp.fused_pairwise_conv_bwd_b_plain(args[1], args[2], args[3])
+    assert (first[0] - ref).abs().max() <= 1e-4 * ref.abs().max()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

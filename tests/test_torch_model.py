@@ -13,7 +13,7 @@ import torch
 
 from se3_transformer_tpu import SE3TransformerModule as JaxModule
 from se3_transformer_torch import (
-    InferenceEngine, SE3TransformerModule, convert_flax_params,
+    InferenceEngine, SE3TransformerModule, convert_flax_params, flagship,
     flagship_fast, pad_to_bucket,
 )
 from se3_transformer_torch.kernels import pairwise as kp
@@ -146,6 +146,8 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError):
         flagship_fast()
     with pytest.raises(RuntimeError):
+        flagship()
+    with pytest.raises(RuntimeError):
         SE3TransformerModule(**TWIN)
     with pytest.raises(RuntimeError):
         InferenceEngine(SE3TransformerModule(**TWIN, device='cpu'))
@@ -153,7 +155,7 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize('field,value', [
     ('causal', True), ('num_tokens', 4), ('shared_radial_hidden', False),
-    ('fuse_basis', False), ('attend_self', False), ('output_degrees', 3),
+    ('conv_bf16', True), ('attend_self', False), ('output_degrees', 3),
     ('norm_out', True)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError):

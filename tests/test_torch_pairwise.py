@@ -1,6 +1,7 @@
 """The port's pairwise kernel module (se3_transformer_torch.kernels.pairwise)
-against the JAX package's fused_pairwise_conv_bxf, fused_pairwise_conv_bwd
-and the custom_vjp around them (ops/conv.py::_pairwise_contract_pallas_bxf).
+against the JAX package's fused_pairwise_conv, fused_pairwise_conv_bxf,
+fused_pairwise_conv_bwd and the custom_vjps around them
+(ops/conv.py::_pairwise_contract_pallas and ::_pairwise_contract_pallas_bxf).
 
 On the CPU the wrappers run their plain PyTorch versions; the JAX side runs
 the Pallas kernel bodies in interpret mode. Inputs are made from a seed with
@@ -14,10 +15,13 @@ import pytest
 import torch
 
 from se3_transformer_tpu.kernels.pallas_pairwise import (
+    fused_pairwise_conv as jax_fwd,
     fused_pairwise_conv_bwd as jax_bwd,
     fused_pairwise_conv_bxf as jax_bxf,
 )
-from se3_transformer_tpu.ops.conv import _pairwise_contract_pallas_bxf
+from se3_transformer_tpu.ops.conv import (
+    _pairwise_contract_pallas, _pairwise_contract_pallas_bxf,
+)
 from se3_transformer_torch.kernels import pairwise as kp
 
 PAIRS = [(di, do) for di in range(4) for do in range(4)]
@@ -126,6 +130,74 @@ def test_differentiable_op_matches_jax_vjp(di, do, dtype):
     kp.pairwise_contract_bxf(h, w3, b3, torch.from_numpy(a['basis']), x,
                              a['pqf']).backward(torch.from_numpy(g))
     for name, leaf, ref in zip(('dh', 'dw3', 'db3', 'dx'), leaves, refs):
+        ref = np.asarray(ref.astype(jnp.float32))
+        assert leaf.grad.dtype == leaf.dtype, name
+        tol = BF16_GRAD_RTOL if leaf.dtype == torch.bfloat16 else RTOL
+        err = np.abs(leaf.grad.float().numpy() - ref).max()
+        assert err <= tol * np.abs(ref).max(), name
+
+
+# ---------------------------------------------------------------------- #
+# the forward with V2 given (fused_pairwise_conv) and its custom op
+# ---------------------------------------------------------------------- #
+def _grouped_operands(do, n_in, seed, e=E, mid=MID, c=C, o=O):
+    """Operands of one output degree's grouped contraction: the pairs
+    d_in = 0 .. n_in-1 concatenated along IF, as ConvSE3 builds them."""
+    rng = np.random.RandomState(seed)
+    P = 2 * do + 1
+    IF = c * sum(2 * min(di, do) + 1 for di in range(n_in))
+    return dict(
+        h=rng.normal(size=(e, mid)).astype(np.float32),
+        w3=(rng.normal(size=(mid, IF, o)) / np.sqrt(mid)).astype(np.float32),
+        v2=rng.normal(size=(e, P, IF)).astype(np.float32),
+        b3=rng.normal(size=(IF, o)).astype(np.float32))
+
+
+GROUPED = [(0, 2), (1, 3), (2, 4), (3, 4), (3, 2)]
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('do,n_in', GROUPED)
+def test_grouped_plain_matches_jax_interpret_kernel(do, n_in, dtype):
+    """fused_pairwise_conv_plain against the JAX fused_pairwise_conv
+    (the _fwd_kernel body in interpret mode) at grouped shapes: P = 1, 3,
+    5, 7 and IF from two to four concatenated pairs."""
+    a = _grouped_operands(do, n_in, seed=300 + 10 * do + n_in)
+    ref = np.asarray(jax_fwd(jnp.asarray(a['h'], dtype),
+                             jnp.asarray(a['w3'], dtype), a['v2'],
+                             b3=a['b3'], interpret=True))
+    tdt = getattr(torch, dtype)
+    out = kp.fused_pairwise_conv(
+        torch.from_numpy(a['h']).to(tdt), torch.from_numpy(a['w3']).to(tdt),
+        torch.from_numpy(a['v2']), torch.from_numpy(a['b3'])).numpy()
+    assert out.shape == ref.shape == (E, 2 * do + 1, O)
+    assert np.abs(out - ref).max() <= RTOL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize('do,n_in,dtype', [(1, 3, 'float32'),
+                                           (3, 2, 'bfloat16')])
+def test_contract_op_matches_jax_vjp(do, n_in, dtype):
+    """pairwise_contract's autograd against jax.vjp of the JAX custom_vjp
+    _pairwise_contract_pallas (_pc_fwd/_pc_bwd, kernels in interpret
+    mode): dh and dw3 in the dtypes of h and w3, db3 and dv2 in float32."""
+    a = _grouped_operands(do, n_in, seed=400 + 10 * do + n_in)
+    P = 2 * do + 1
+    g = np.random.RandomState(8).normal(size=(E, P, O)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+
+    def f(h, w3, b3, v2):
+        return _pairwise_contract_pallas(h, w3, b3, v2, True, None)
+    _, vjp = jax.vjp(f, jnp.asarray(a['h'], jdt), jnp.asarray(a['w3'], jdt),
+                     jnp.asarray(a['b3']), jnp.asarray(a['v2']))
+    refs = vjp(jnp.asarray(g))
+
+    tdt = getattr(torch, dtype)
+    leaves = [torch.from_numpy(a['h']).to(tdt).requires_grad_(),
+              torch.from_numpy(a['w3']).to(tdt).requires_grad_(),
+              torch.from_numpy(a['b3']).requires_grad_(),
+              torch.from_numpy(a['v2']).requires_grad_()]
+    kp.pairwise_contract(*leaves).backward(torch.from_numpy(g))
+    for name, leaf, ref in zip(('dh', 'dw3', 'db3', 'dv2'), leaves, refs):
         ref = np.asarray(ref.astype(jnp.float32))
         assert leaf.grad.dtype == leaf.dtype, name
         tol = BF16_GRAD_RTOL if leaf.dtype == torch.bfloat16 else RTOL

@@ -17,22 +17,38 @@ failure:
   4. backward hold backward kernels A (dV2, dW3, dB3) and B (dH) against
               their plain versions at both recipes' training shapes, time
               each, and require dW3/dB3 to be bit-identical across two runs.
-  5. serve    each recipe's forward (dim=64, depth=DEPTH, 4 degrees, 8
+  5. attention  the fused attention kernels (#5 forward, #6 backward)
+              against their plain versions at the flagship's four per-degree
+              shapes (B*h 8, n 1024, J 33, D 8..56, masked), the backward's
+              bits over two runs, and the time of the one PyTorch call that
+              computes the same function (scaled_dot_product_attention,
+              query length 1, boolean mask; forward, and its backward),
+              timed only; the streaming kNN attention kernel (#7) against
+              its plain version at the four flagship_fast output degrees.
+  6. serve    each path's forward (dim=64, depth=DEPTH, 4 degrees, 8
               heads, k=32, random seeded weights) served by InferenceEngine
               at bucket 1024: finite outputs, exactly the counted kernel
-              launches per request (flagship_fast: 200 bxf; flagship: 424
-              fwd, no bxf), rotation invariance of the scalar output.
-  6. train    each recipe's denoise training step (the vector head:
-              output_degrees=2, reduce_dim_out=True) at n=1024 with Adam:
-              finite decreasing losses, finite gradients, exactly the
-              counted launches per step (flagship_fast, save_conv_outputs:
-              204 forward, 200 + 200 backward, 396 forward under
-              remat_policy None; flagship, no policy: 816 forward, 424 + 424
-              backward, 432 forward under save_conv_outputs), step time,
-              nodes*steps/s, peak memory and a profile.
-  7. reference  small models of both recipes on the card (kernel path)
-              against the same weights on the CPU (plain path): the forward,
-              and one training step's loss and every gradient.
+              launches per request (flagship_fast: 200 bxf; with
+              pallas_attention=True also 24 fused-attention forwards; with
+              fuse_pairwise=True 8 bxf and 24 streaming attentions;
+              flagship: 424 fwd, no bxf), rotation invariance of the scalar
+              output.
+  7. train    the denoise training step (the vector head: output_degrees=2,
+              reduce_dim_out=True) at n=1024 with Adam, for flagship_fast,
+              flagship_fast(pallas_attention=True) and flagship: finite
+              decreasing losses, finite gradients, exactly the counted
+              launches per step (flagship_fast, save_conv_outputs: 204
+              forward, 200 + 200 backward, 396 forward under remat_policy
+              None, and with pallas_attention 48 attention forwards (the
+              checkpoint replay recomputes them) and 24 backwards;
+              flagship, no policy: 816 forward, 424 + 424 backward, 432
+              forward under save_conv_outputs), step time, nodes*steps/s,
+              peak memory and a profile.
+  8. reference  small models of both recipes and both attention knobs on
+              the card (kernel path) against the same weights on the CPU
+              (plain path): the forward, and one training step's loss and
+              every gradient (the fuse_pairwise step runs the streaming
+              attention's recompute backward on the card).
 
 Prints per-shape, per-request and per-step lines, then the nvidia-smi line,
 a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}.
@@ -93,6 +109,17 @@ FLAGSHIP_REPLAY_LAUNCHES = TRUNK_CONVS * 4 * CHUNKS
 FLAGSHIP_SERVE_LAUNCHES = 4 * CHUNKS + FLAGSHIP_REPLAY_LAUNCHES + CHUNKS
 FLAGSHIP_TRAIN_LAUNCHES = FLAGSHIP_SERVE_LAUNCHES + CHUNKS
 FLAGSHIP_BWD_LAUNCHES = FLAGSHIP_SERVE_LAUNCHES
+# the attention kernels: one launch per block and degree. With
+# pallas_attention=True a training step's checkpoint replay runs each block's
+# forward again (save_conv_outputs saves only the pairwise convs), so the
+# forward kernel launches twice per step and the backward once. With
+# fuse_pairwise=True the streaming kernel replaces both kv convs of every
+# block: bxf runs only for conv_in (1 x 4 pairs) and conv_out (4 x 1).
+ATTN_LAUNCHES = DEPTH * 4
+FLASH_BXF_LAUNCHES = 4 + 4
+
+# the launch counters, in the order of every launch tuple below
+COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash')
 
 # published dense peaks by card (NVIDIA data sheets): bf16 tensor core,
 # float32 CUDA core (FLOP/s), device memory bandwidth (bytes/s)
@@ -105,6 +132,9 @@ PEAKS = {
 # the forward kernels' names in a profile (the i-split reduce included)
 FORWARD_KERNELS = ('pairwise_bxf_kernel', 'pairwise_fwd_kernel',
                    'fwd_reduce_kernel')
+# the attention kernels' names in a profile
+ATTENTION_KERNELS = ('attention_fwd_kernel', 'attention_bwd_kernel',
+                     'flash_fwd_kernel')
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -396,6 +426,196 @@ def check_backward(kp, peaks, cases, seed):
     return rows, worst
 
 
+# the flagship's per-degree attention shapes: B*h = 8 rows of n = 1024
+# nodes, J = 33 slots (self + 32 neighbors), D = dim_head * (2d + 1)
+ATTN_SHAPES = tuple((8, 1024, 33, 8 * (2 * d + 1)) for d in range(4))
+
+
+def attention_cost(BH, n, J, D, bwd, peaks):
+    """(bound_ms, bound_by) of the fused attention forward or backward at
+    group 1 and batch 1: each input read once (q, k, v, the [1, n, J]
+    mask; g in the backward), each output written once (out; dq, dk, dv).
+    The operations (scores, softmax, weighted sum; their derivatives) run
+    at the float32 CUDA-core rate."""
+    _, f32_peak, mem = peaks
+    rows = BH * n
+    if bwd:
+        nbytes = 4 * rows * (3 * D + 4 * J * D) + n * J
+        ops = rows * (8 * J * D + 12 * J)
+    else:
+        nbytes = 4 * rows * (2 * D + 2 * J * D) + n * J
+        ops = rows * (4 * J * D + 5 * J)
+    ops_s, bytes_s = ops / f32_peak, nbytes / mem
+    return max(ops_s, bytes_s) * 1e3, \
+        'operations' if ops_s >= bytes_s else 'bytes'
+
+
+def phase_attention(peaks):
+    """Kernels #5 and #6 against their plain versions at the four flagship
+    per-degree shapes (masked: the self slot always valid, about a tenth of
+    the neighbors masked), the backward's outputs bit-identical over two
+    runs, and the one PyTorch call that computes the same function:
+    scaled_dot_product_attention over a batch of B*h*n rows of query length
+    1 with a boolean mask (its forward, and the backward of its autograd
+    graph), timed only."""
+    import torch.nn.functional as F
+    from se3_transformer_torch.kernels import attention as ka
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    rows, worst = [], {'fwd': 0.0, 'bwd': 0.0}
+    for BH, n, J, D in ATTN_SHAPES:
+        def rand(*shape):
+            return torch.randn(*shape, device='cuda', generator=gen)
+        q, g = rand(BH, n, D), rand(BH, n, D)
+        k, v = rand(BH, n, J, D), rand(BH, n, J, D)
+        mask = torch.rand(1, n, J, device='cuda', generator=gen) > 0.1
+        mask[..., 0] = True
+        scale = 8 ** -0.5
+        args = (q, k, v, mask, BH, scale)
+        out = ka.fused_attention_fwd(*args)
+        grads = ka.fused_attention_bwd(q, k, v, mask, g, BH, scale)
+        again = ka.fused_attention_bwd(q, k, v, mask, g, BH, scale)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f'attention backward D={D}: two runs differ')
+        errs = {}
+        refs = (ka.fused_attention_plain(*args),
+                *ka.fused_attention_bwd_plain(q, k, v, mask, g, BH, scale))
+        for name, got, ref in zip(('out', 'dq', 'dk', 'dv'), (out, *grads),
+                                  refs):
+            err = float((got - ref).abs().max())
+            scale_ref = float(ref.abs().max())
+            if not (np.isfinite(err) and err <= KERNEL_RTOL * scale_ref):
+                raise AssertionError(f'attention D={D} {name}: max_abs_err '
+                                     f'{err} > {KERNEL_RTOL} * max|plain| '
+                                     f'{scale_ref}')
+            errs[name] = err
+        worst['fwd'] = max(worst['fwd'], errs['out'])
+        worst['bwd'] = max(worst['bwd'], errs['dq'], errs['dk'], errs['dv'])
+        # the library yardstick: one query row per (b*h, node)
+        qs, gs = q.reshape(BH * n, 1, D), g.reshape(BH * n, 1, D)
+        ks, vs = k.reshape(BH * n, J, D), v.reshape(BH * n, J, D)
+        ms = mask.expand(BH, n, J).reshape(BH * n, 1, J)
+
+        def sdpa(a, b, c):
+            return F.scaled_dot_product_attention(a, b, c, attn_mask=ms,
+                                                  scale=scale)
+        sdpa_err = float((sdpa(qs, ks, vs).reshape(BH, n, D)
+                          - refs[0]).abs().max())
+        leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+        graph = sdpa(*leaves)
+        row = dict(
+            BH=BH, n=n, J=J, D=D, max_abs_err=errs, sdpa_max_abs_err=sdpa_err,
+            ms_fwd=cuda_ms(lambda: ka.fused_attention_fwd(*args), reps=20),
+            ms_bwd=cuda_ms(lambda: ka.fused_attention_bwd(
+                q, k, v, mask, g, BH, scale), reps=20),
+            plain_ms_fwd=cuda_ms(lambda: ka.fused_attention_plain(*args),
+                                 reps=10),
+            plain_ms_bwd=cuda_ms(lambda: ka.fused_attention_bwd_plain(
+                q, k, v, mask, g, BH, scale), reps=10),
+            library_ms_fwd=cuda_ms(lambda: sdpa(qs, ks, vs), reps=10),
+            library_ms_bwd=cuda_ms(lambda: torch.autograd.grad(
+                graph, leaves, gs, retain_graph=True), reps=10))
+        for key, bwd in (('fwd', False), ('bwd', True)):
+            row[f'bound_ms_{key}'], row[f'bound_by_{key}'] = attention_cost(
+                BH, n, J, D, bwd, peaks)
+        rows.append(row)
+        log('attention', json.dumps(row))
+        del graph, leaves, out, grads, again, refs
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks):
+    """(bound_ms, bound_by, flops) of one flash_attention call: each input
+    read once (q, the node features, idx, the mask, h_k and h_v, both
+    convs' w3 and b3, the SH stack, the prefix slots), the output written
+    once. The operations: the basis and V2 once, the radial products and
+    applies of k and v, the attention; all float32 on the CUDA cores."""
+    _, f32_peak, mem = peaks
+    E, mid, O, P = n * K, 128, 64, 2 * d_out + 1
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    basis = v2 = 0.0
+    for d, c in pairs:
+        Q, lo = 2 * d + 1, abs(d - d_out)
+        for J in range(lo, d + d_out + 1):
+            basis += 2.0 * E * P * Q * (2 * J + 1)
+            v2 += 2.0 * E * P * c * Q
+    radial = 2 * 2.0 * E * mid * IF * O
+    apply = 2 * 2.0 * E * P * IF * O
+    attn = 4.0 * n * heads * (S0 + K) * Dh
+    flops = basis + v2 + radial + apply + attn
+    nbytes = (2 * n * heads * Dh * 4 + sum(n * c * (2 * d + 1) * 4
+                                           for d, c in pairs)
+              + E * 8 + E + 2 * E * mid * h_bytes + 2 * (mid + 1) * IF * O * 4
+              + E * S * 4 + 2 * n * S0 * heads * Dh * 4)
+    ops_s, bytes_s = flops / f32_peak, nbytes / mem
+    return max(ops_s, bytes_s) * 1e3, \
+        'operations' if ops_s >= bytes_s else 'bytes', flops
+
+
+def phase_flash(peaks):
+    """Kernel #7 against its plain version (the chunked stream) at the
+    four flagship_fast output degrees: n 1024, K 32, the self slot as the
+    one prefix slot, four input degrees of 64 channels, bf16 h, float32
+    w3 scaled to keep k and v O(1); relative error, times and bound."""
+    from se3_transformer_torch.kernels import flash as kf
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    n, K, heads, mid = 1024, 32, 8, 128
+    pairs = tuple((d, 64) for d in range(4))
+    idx = torch.randint(0, n, (1, n, K), device='cuda', generator=gen)
+    nmask = torch.rand(1, n, K, device='cuda', generator=gen) > 0.05
+    rel = torch.randn(1, n, K, 3, device='cuda', generator=gen)
+    sh = kf.flash_sh_payload(rel, 3)
+    xs = tuple(torch.randn(1, n, c, 2 * d + 1, device='cuda', generator=gen)
+               for d, c in pairs)
+    h_v, h_k = (torch.randn(1, n, K, mid, device='cuda', generator=gen)
+                .to(torch.bfloat16) for _ in range(2))
+    rows, worst = [], 0.0
+    for d_out in range(4):
+        P = 2 * d_out + 1
+        Dh = 8 * P
+        IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+        w = (mid * IF) ** -0.5
+
+        def rand(*shape, s=1.0):
+            return torch.randn(*shape, device='cuda', generator=gen) * s
+        ops = dict(q=rand(1, n, heads, Dh), xs=xs, idx=idx, nmask=nmask,
+                   h_v=h_v, h_k=h_k, wv=rand(mid, IF, 64, s=w),
+                   wk=rand(mid, IF, 64, s=w), bv=rand(IF, 64, s=0.1),
+                   bk=rand(IF, 64, s=0.1), sh=sh,
+                   prefix_k=rand(1, n, 1, heads * Dh),
+                   prefix_v=rand(1, n, 1, heads * Dh))
+        cfg = kf.FlashConfig(pairs=pairs, d_out=d_out, heads=heads,
+                             kv_heads=heads, scale=8 ** -0.5, prefix=1)
+        out = kf.flash_attention_fwd(cfg, ops)
+        again = kf.flash_attention_fwd(cfg, ops)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f'flash d_out={d_out}: two runs differ')
+        ref = kf.flash_attention_plain(cfg, ops)
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
+            raise AssertionError(f'flash d_out={d_out}: max_abs_err {err} > '
+                                 f'{KERNEL_RTOL} * max|plain| {scale}')
+        worst = max(worst, err)
+        del out, again, ref
+        ms = cuda_ms(lambda: kf.flash_attention_fwd(cfg, ops), reps=5)
+        plain_ms = cuda_ms(lambda: kf.flash_attention_plain(cfg, ops),
+                           reps=2)
+        bound_ms, bound_by, flops = flash_cost(
+            n, K, pairs, d_out, heads, Dh, sh.shape[-1], 1, 2, peaks)
+        row = dict(d_out=d_out, P=P, IF=IF, n=n, K=K, max_abs_err=err,
+                   max_abs_plain=scale, rel_err=err / scale, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        log('flash', json.dumps(row))
+        del ops
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def chain_coords(rng, n):
     """A random-walk chain of 3.8-unit steps (a protein backbone's shape)."""
     steps = rng.normal(size=(n, 3))
@@ -425,39 +645,41 @@ def condition_weights(model, power=-0.5):
     return model
 
 
-def phase_serve(st, kp, recipe, want):
+def phase_serve(st, recipe, want, label=None, **fields):
     """A recipe's forward at full size (dim=64, depth=6, 4 degrees, 8 heads,
-    k=32, random seeded weights, conditioned) served by InferenceEngine at
-    bucket 1024: finite outputs, exactly `want` launches (forward kernels
-    bxf and fwd, backward A and B) per request, rotation invariance of the
-    scalar output, a profile. Returns the launches of the whole phase."""
+    k=32, random seeded weights, conditioned; `fields` are extra model
+    fields) served by InferenceEngine at bucket 1024: finite outputs,
+    exactly `want` launches (COUNT_NAMES order) per request, rotation
+    invariance of the scalar output, a profile. Returns the launches of the
+    whole phase."""
     from se3_transformer_torch.so3 import rot
+    recipe, name = label or recipe, recipe
     rng = np.random.RandomState(0)
-    model = condition_weights(getattr(st, recipe)(
-        depth=DEPTH, generator=torch.Generator().manual_seed(0)))
+    model = condition_weights(getattr(st, name)(
+        depth=DEPTH, generator=torch.Generator().manual_seed(0), **fields))
     engine = st.InferenceEngine(model, buckets=(1024,))
     requests = [(rng.normal(size=(n, 64)).astype(np.float32),
                  chain_coords(rng, n)) for n in (1024, 1000, 700)]
     R = rot(0.31, -1.2, 0.7)
 
-    reset_counts(kp)
+    reset_counts()
     engine.predict(*requests[0])    # warm-up: allocator, cuBLAS handles
     forwards = 1
     results = []
     for i, (feats, coords) in enumerate(requests):
-        before = counts(kp)
+        before = counts()
         t0 = time.perf_counter()
         out = engine.predict(feats, coords)
         dt = time.perf_counter() - t0
         forwards += 1
-        launched = tuple(a - b for a, b in zip(counts(kp), before))
+        launched = tuple(a - b for a, b in zip(counts(), before))
         n = len(feats)
         if out.shape != (n, 64) or not np.isfinite(out).all():
             raise AssertionError(f'{recipe} request {i}: shape {out.shape} '
                                  f'or non-finite output')
         if launched != want:
-            raise AssertionError(f'{recipe} request {i}: launches (bxf, fwd, '
-                                 f'A, B) = {launched}, want {want}')
+            raise AssertionError(f'{recipe} request {i}: launches '
+                                 f'{COUNT_NAMES} = {launched}, want {want}')
         row = dict(recipe=recipe, request=i, n=n, bucket=1024,
                    latency_ms=dt * 1e3, nodes_per_s=n / dt,
                    launches=launched)
@@ -472,13 +694,13 @@ def phase_serve(st, kp, recipe, want):
     inv = float(np.abs(out_r - out0).max())
     scale = float(np.abs(out0).max())
     # where the time goes: one more request under the profiler
-    top, kernel_ms, device_ms, wall_ms, syncs = profile_request(
+    top, kernel_ms, attn_ms, device_ms, wall_ms, syncs = profile_request(
         engine, requests[0])
     forwards += 2
     log('profile', json.dumps(dict(
         recipe=recipe, request_wall_ms=wall_ms, device_busy_ms=device_ms,
-        pairwise_kernel_ms=kernel_ms, host_syncs_per_forward=syncs,
-        top_device_ops=top)))
+        pairwise_kernel_ms=kernel_ms, attention_kernel_ms=attn_ms,
+        host_syncs_per_forward=syncs, top_device_ops=top)))
     # the flax-scheme weights (conditioning undone): chaotic at depth 6,
     # reported, not asserted
     condition_weights(model, power=0.5)
@@ -488,7 +710,7 @@ def phase_serve(st, kp, recipe, want):
         recipe=recipe, flax_scheme_weights=True,
         max_abs_out=float(np.abs(raw).max()),
         rotation_max_abs_diff=float(np.abs(raw_r - raw).max()))))
-    launches = counts(kp)
+    launches = counts()
     if launches != tuple(w * forwards for w in want):
         raise AssertionError(f'{recipe}: launches {launches} for {forwards} '
                              f'forwards')
@@ -536,8 +758,8 @@ def device_events(prof):
 
 def profile_request(engine, request):
     """Device time by op for one request (torch.profiler, CUDA activity):
-    the top ops, the pairwise kernel's total, the device's busy time and
-    the request's wall time, in ms."""
+    the top ops, the pairwise and attention kernels' totals, the device's
+    busy time and the request's wall time, in ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -557,11 +779,12 @@ def profile_request(engine, request):
 
     events = device_events(prof)
     device_ms = sum(dev_us(e) for e in events) / 1e3
-    kernel_ms = sum(dev_us(e) for e in events
-                    if any(k in e.key for k in FORWARD_KERNELS)) / 1e3
+    kernel_ms, attn_ms = (sum(dev_us(e) for e in events
+                              if any(k in e.key for k in names)) / 1e3
+                          for names in (FORWARD_KERNELS, ATTENTION_KERNELS))
     top = [dict(op=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3)
            for e in events[:12]]
-    return top, kernel_ms, device_ms, wall_ms, syncs
+    return top, kernel_ms, attn_ms, device_ms, wall_ms, syncs
 
 
 def profile_step(trainer, batch, noise):
@@ -589,6 +812,7 @@ def profile_step(trainer, batch, noise):
     return dict(step_wall_ms=wall_ms, host_syncs_per_step=syncs,
                 device_busy_ms=sum(dev_us(e) for e in events) / 1e3,
                 forward_kernel_ms=kernel_ms(*FORWARD_KERNELS),
+                attention_kernel_ms=kernel_ms(*ATTENTION_KERNELS),
                 kernel_a_ms=kernel_ms('bwd_a_kernel', 'bwd_reduce_kernel'),
                 kernel_b_ms=kernel_ms('bwd_b_'),
                 top_device_ops=[dict(op=e.key[:90], calls=e.count,
@@ -600,52 +824,66 @@ def profile_step(trainer, batch, noise):
                               for e in host[:10]])
 
 
-def counts(kp):
-    """Launches so far: forward kernels bxf and fwd, backward A and B."""
-    return (kp.fused_pairwise_conv_bxf.launches,
-            kp.fused_pairwise_conv.launches,
-            kp.fused_pairwise_conv_bwd.launches_a,
-            kp.fused_pairwise_conv_bwd.launches_b)
+def counters():
+    """(wrapper, attribute) of every launch counter, in COUNT_NAMES order:
+    the pairwise forwards bxf and fwd, backward kernels A and B, the fused
+    attention forward and backward, the streaming attention."""
+    from se3_transformer_torch.kernels import attention as ka
+    from se3_transformer_torch.kernels import flash as kf
+    from se3_transformer_torch.kernels import pairwise as kp
+    return ((kp.fused_pairwise_conv_bxf, 'launches'),
+            (kp.fused_pairwise_conv, 'launches'),
+            (kp.fused_pairwise_conv_bwd, 'launches_a'),
+            (kp.fused_pairwise_conv_bwd, 'launches_b'),
+            (ka.fused_attention_fwd, 'launches'),
+            (ka.fused_attention_bwd, 'launches'),
+            (kf.flash_attention_fwd, 'launches'))
 
 
-def reset_counts(kp):
-    kp.fused_pairwise_conv_bxf.launches = 0
-    kp.fused_pairwise_conv.launches = 0
-    kp.fused_pairwise_conv_bwd.launches_a = 0
-    kp.fused_pairwise_conv_bwd.launches_b = 0
+def counts():
+    """Launches so far, in COUNT_NAMES order."""
+    return tuple(getattr(fn, attr) for fn, attr in counters())
 
 
-def phase_train(st, kp, recipe, want, other_policy, want_other):
+def reset_counts():
+    for fn, attr in counters():
+        setattr(fn, attr, 0)
+
+
+def phase_train(st, recipe, want, other_policy, want_other, label=None,
+                **fields):
     """A recipe's denoise step (the vector head: output_degrees=2,
-    reduce_dim_out=True) at n=1024 with Adam: one warm-up step, then
-    TRAIN_STEPS timed ones, each with exactly `want` launches (bxf, fwd, A,
-    B); one profiled step; one step under `other_policy` with `want_other`
-    launches. Returns the launches of the warm-up and timed steps."""
+    reduce_dim_out=True; `fields` are extra model fields) at n=1024 with
+    Adam: one warm-up step, then TRAIN_STEPS timed ones, each with exactly
+    `want` launches (COUNT_NAMES order); one profiled step; one step under
+    `other_policy` with `want_other` launches. Returns the launches of the
+    warm-up and timed steps."""
+    recipe, name = label or recipe, recipe
     n, dim = 1024, 64
-    model = condition_weights(getattr(st, recipe)(
+    model = condition_weights(getattr(st, name)(
         dim=dim, depth=DEPTH, output_degrees=2, reduce_dim_out=True,
-        generator=torch.Generator().manual_seed(4)))
+        generator=torch.Generator().manual_seed(4), **fields))
     trainer = st.DenoiseTrainer(model, lr=1e-4)
     batch = trainer.to_device(st.flagship_batch(np.random.RandomState(0), 1,
                                                 n, dim))
     noise = torch.randn(batch['coords'].shape, device='cuda',
                         generator=torch.Generator('cuda').manual_seed(5))
 
-    reset_counts(kp)
+    reset_counts()
     losses, step_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     for step in range(1 + TRAIN_STEPS):
-        before = counts(kp)
+        before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = trainer.train_step(batch, noise=noise)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launched = tuple(a - b for a, b in zip(counts(kp), before))
+        launched = tuple(a - b for a, b in zip(counts(), before))
         losses.append(float(loss))
         if launched != want:
             raise AssertionError(f'{recipe} train step {step}: launches '
-                                 f'(bxf, fwd, A, B) = {launched}, want '
+                                 f'{COUNT_NAMES} = {launched}, want '
                                  f'{want}')
         if step:
             step_ms.append(dt * 1e3)
@@ -653,7 +891,7 @@ def phase_train(st, kp, recipe, want, other_policy, want_other):
                                      warmup=step == 0, loss=losses[-1],
                                      step_ms=dt * 1e3, launches=launched)))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = counts(kp)
+    launches = counts()
     bad = [name for name, p in model.named_parameters()
            if p.grad is not None and not torch.isfinite(p.grad).all()]
     if not np.isfinite(losses).all() or losses[-1] >= losses[0] or bad:
@@ -669,19 +907,19 @@ def phase_train(st, kp, recipe, want, other_policy, want_other):
     log('train_profile', json.dumps(dict(
         recipe=recipe, **profile_step(trainer, batch, noise))))
 
-    other = st.DenoiseTrainer(condition_weights(getattr(st, recipe)(
+    other = st.DenoiseTrainer(condition_weights(getattr(st, name)(
         dim=dim, depth=DEPTH, output_degrees=2, reduce_dim_out=True,
         remat_policy=other_policy,
-        generator=torch.Generator().manual_seed(4))), lr=1e-4)
+        generator=torch.Generator().manual_seed(4), **fields)), lr=1e-4)
     del trainer, model
     torch.cuda.empty_cache()
-    before = counts(kp)
+    before = counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     other.train_step(batch, noise=noise)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launched = tuple(a - b for a, b in zip(counts(kp), before))
+    launched = tuple(a - b for a, b in zip(counts(), before))
     log('train', json.dumps(dict(recipe=recipe, remat_policy=other_policy,
                                  step_ms=dt * 1e3, launches=launched,
                                  max_memory_allocated_gb=(
@@ -695,8 +933,9 @@ def phase_train(st, kp, recipe, want, other_policy, want_other):
 
 
 # the small models that the reference phases run on the card and the CPU:
-# flagship_fast's fields (float32 and bf16 radial trunk) and flagship's
-# (grouped convs, float32, 64 nodes in 3 padded node chunks)
+# flagship_fast's fields (float32 and bf16 radial trunk; with the fused
+# attention; with the streaming attention in float32 and bf16) and
+# flagship's (grouped convs, float32, 64 nodes in 3 padded node chunks)
 SMALL = dict(dim=64, depth=1, num_degrees=4, heads=8, dim_head=8,
              attend_self=True, num_neighbors=16, shared_radial_hidden=True,
              reversible=True)
@@ -704,6 +943,12 @@ SMALL_FAST = dict(SMALL, fuse_basis=True, remat_policy='save_conv_outputs')
 SMALL_CASES = (
     ('flagship_fast', dict(SMALL_FAST, radial_bf16=False), False),
     ('flagship_fast', dict(SMALL_FAST, radial_bf16=True), True),
+    ('flagship_fast+pallas_attention',
+     dict(SMALL_FAST, radial_bf16=False, pallas_attention=True), False),
+    ('flagship_fast+fuse_pairwise',
+     dict(SMALL_FAST, radial_bf16=False, fuse_pairwise=True), False),
+    ('flagship_fast+fuse_pairwise',
+     dict(SMALL_FAST, radial_bf16=True, fuse_pairwise=True), True),
     ('flagship', dict(SMALL, edge_chunks=3), False))
 
 
@@ -806,7 +1051,7 @@ def main() -> int:
         f'{torch.version.cuda} | peaks of {peak_key}')
 
     # 2. build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = build.library_path()
     build.load_library()
     log(f'build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, HERE)}')
@@ -826,63 +1071,107 @@ def main() -> int:
     bwd_rows, bwd_worst = phase_backward(kp, peaks)
     grouped_rows, grouped_worst = phase_backward_grouped(kp, peaks)
 
-    # 5-8. the main paths, each with the counts reset just before and read
-    # just after: (bxf, fwd, A, B) launches
-    fast_serve = phase_serve(st, kp, 'flagship_fast',
-                             (4 + REPLAY_LAUNCHES + 4, 0, 0, 0))
-    fast_train = phase_train(
-        st, kp, 'flagship_fast', (TRAIN_LAUNCHES, 0, TRAIN_BWD_LAUNCHES,
-                                  TRAIN_BWD_LAUNCHES),
-        None, (TRAIN_LAUNCHES + REPLAY_LAUNCHES, 0, TRAIN_BWD_LAUNCHES,
-               TRAIN_BWD_LAUNCHES))
-    flag_serve = phase_serve(st, kp, 'flagship',
-                             (0, FLAGSHIP_SERVE_LAUNCHES, 0, 0))
-    flag_bwd = (FLAGSHIP_BWD_LAUNCHES, FLAGSHIP_BWD_LAUNCHES)
-    flag_train = phase_train(
-        st, kp, 'flagship',
-        (0, FLAGSHIP_TRAIN_LAUNCHES + FLAGSHIP_REPLAY_LAUNCHES, *flag_bwd),
-        'save_conv_outputs', (0, FLAGSHIP_TRAIN_LAUNCHES, *flag_bwd))
+    # 5. the attention kernels vs plain, with the library yardstick
+    attn_rows, attn_worst = phase_attention(peaks)
+    flash_rows, flash_worst = phase_flash(peaks)
+    log(f'phase: kernels done at {time.perf_counter() - t_start:.0f} s')
 
-    # 9. references on small inputs
+    # 6-7. the main paths, each with the counts reset just before and read
+    # just after; launch tuples in COUNT_NAMES order
+    def launches(bxf=0, fwd=0, a=0, b=0, attn_fwd=0, attn_bwd=0, flash=0):
+        return (bxf, fwd, a, b, attn_fwd, attn_bwd, flash)
+    fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
+    paths = [
+        phase_serve(st, 'flagship_fast',
+                    launches(bxf=4 + REPLAY_LAUNCHES + 4)),
+        phase_train(st, 'flagship_fast',
+                    launches(bxf=TRAIN_LAUNCHES, **fast_bwd), None,
+                    launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
+                             **fast_bwd)),
+        phase_serve(st, 'flagship_fast',
+                    launches(bxf=4 + REPLAY_LAUNCHES + 4,
+                             attn_fwd=ATTN_LAUNCHES),
+                    label='flagship_fast+pallas_attention',
+                    pallas_attention=True),
+        phase_train(st, 'flagship_fast',
+                    launches(bxf=TRAIN_LAUNCHES, attn_fwd=2 * ATTN_LAUNCHES,
+                             attn_bwd=ATTN_LAUNCHES, **fast_bwd), None,
+                    launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
+                             attn_fwd=2 * ATTN_LAUNCHES,
+                             attn_bwd=ATTN_LAUNCHES, **fast_bwd),
+                    label='flagship_fast+pallas_attention',
+                    pallas_attention=True),
+        phase_serve(st, 'flagship_fast',
+                    launches(bxf=FLASH_BXF_LAUNCHES, flash=ATTN_LAUNCHES),
+                    label='flagship_fast+fuse_pairwise', fuse_pairwise=True),
+        phase_serve(st, 'flagship', launches(fwd=FLAGSHIP_SERVE_LAUNCHES)),
+        phase_train(st, 'flagship',
+                    launches(fwd=FLAGSHIP_TRAIN_LAUNCHES
+                             + FLAGSHIP_REPLAY_LAUNCHES,
+                             a=FLAGSHIP_BWD_LAUNCHES,
+                             b=FLAGSHIP_BWD_LAUNCHES),
+                    'save_conv_outputs',
+                    launches(fwd=FLAGSHIP_TRAIN_LAUNCHES,
+                             a=FLAGSHIP_BWD_LAUNCHES,
+                             b=FLAGSHIP_BWD_LAUNCHES))]
+    total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
+    log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
+
+    # 8. references on small inputs
     phase_reference(st)
     phase_train_reference(st)
+    log(f'phase: references done at {time.perf_counter() - t_start:.0f} s')
 
     def unchunked(table, dtype):
         return [r for r in table
                 if r['E'] == 32768 and r['h_dtype'] == dtype]
 
     def bound_by(table, key):
-        total = sum(r[f'bound_ms{key}'] for r in table)
+        total_ms = sum(r[f'bound_ms{key}'] for r in table)
         ops = sum(r[f'bound_ms{key}'] for r in table
                   if r[f'bound_by{key}'] == 'operations')
-        return 'operations' if ops * 2 >= total else 'bytes'
+        return 'operations' if ops * 2 >= total_ms else 'bytes'
 
-    def entry(name, source, line, launches, err, table, key=''):
-        """One kernel's line: times and bounds summed over one hidden
-        ConvSE3's launches at E = 32768 (table)."""
+    def entry(name, source, replaces, launched, err, table, key=''):
+        """One kernel's line: times and bounds summed over the table's rows
+        (one hidden ConvSE3's launches at E = 32768, or one attention
+        block's four degrees)."""
+        library = [r.get(f'library_ms{key}') for r in table]
         return dict(name=name, route='cuda', source=src + source,
-                    replaces=f'{pallas}:{line}', launches=launches,
-                    max_abs_err=err,
+                    replaces=replaces, launches=launched, max_abs_err=err,
                     ms=sum(r[f'ms{key}'] for r in table),
                     plain_ms=sum(r[f'plain_ms{key}'] for r in table),
                     bound_ms=sum(r[f'bound_ms{key}'] for r in table),
-                    bound_by=bound_by(table, key), library_ms=None)
+                    bound_by=bound_by(table, key),
+                    library_ms=None if None in library else sum(library))
 
     src = 'se3_transformer_torch/kernels/csrc/'
-    pallas = 'se3_transformer_tpu/kernels/pallas_pairwise.py'
+    tpu = 'se3_transformer_tpu/kernels/'
+    pallas = tpu + 'pallas_pairwise.py:'
     bwd = unchunked(bwd_rows, 'bfloat16')
     kernels = [
-        entry('fused_pairwise_conv_bxf', 'pairwise_bxf.cu', 593,
-              fast_serve[0] + fast_train[0], worst,
-              unchunked(rows, 'bfloat16')),
-        entry('fused_pairwise_conv', 'pairwise_fwd.cu', 254,
-              flag_serve[1] + flag_train[1], fwd_worst,
-              unchunked(fwd_rows, 'float32'))]
+        entry('fused_pairwise_conv_bxf', 'pairwise_bxf.cu', pallas + '593',
+              total[0], worst, unchunked(rows, 'bfloat16')),
+        entry('fused_pairwise_conv', 'pairwise_fwd.cu', pallas + '254',
+              total[1], fwd_worst, unchunked(fwd_rows, 'float32'))]
     for i, (k, line) in enumerate((('a', 861), ('b', 907))):
         kernels.append(entry(
-            f'fused_pairwise_conv_bwd_{k}', 'pairwise_bwd.cu', line,
-            fast_train[2 + i] + flag_train[2 + i],
+            f'fused_pairwise_conv_bwd_{k}', 'pairwise_bwd.cu',
+            f'{pallas}{line}', total[2 + i],
             max(bwd_worst[k], grouped_worst[k]), bwd, f'_{k}'))
+    kernels += [
+        entry('fused_attention_fwd', 'attention.cu',
+              tpu + 'pallas_attention.py:74', total[4], attn_worst['fwd'],
+              attn_rows, '_fwd'),
+        entry('fused_attention_bwd', 'attention.cu',
+              tpu + 'pallas_attention.py:267', total[5], attn_worst['bwd'],
+              attn_rows, '_bwd'),
+        entry('flash_attention', 'flash_fwd.cu', tpu + 'pallas_flash.py:699',
+              total[6], flash_worst, flash_rows)]
+    missing = [k['name'] for k in kernels if not k['launches']]
+    if missing:
+        raise AssertionError(f'kernels never launched on a main path: '
+                             f'{missing}')
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

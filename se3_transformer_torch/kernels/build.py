@@ -1,7 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source under `csrc/` (`pairwise_bxf.cu` and `pairwise_fwd.cu`, the
-forwards; `pairwise_bwd.cu`, the backward) is compiled by its own `nvcc -c` for
+pairwise forwards; `pairwise_bwd.cu`, their backward; `attention.cu`, the
+fused attention and its backward; `flash_fwd.cu`, the streaming kNN
+attention) is compiled by its own `nvcc -c` for
 Hopper (`sm_90a`), all started together, and the objects are linked into
 one shared library with a plain C interface that `ctypes` loads. The build
 happens at first use, never at import, into `kernels/build/` beside this
@@ -23,7 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, 'csrc')
 SOURCES = tuple(os.path.join(CSRC_DIR, f)
                 for f in ('pairwise_bxf.cu', 'pairwise_fwd.cu',
-                          'pairwise_bwd.cu'))
+                          'pairwise_bwd.cu', 'attention.cu', 'flash_fwd.cu'))
 HEADERS = (os.path.join(CSRC_DIR, 'common.cuh'),)
 BUILD_DIR = os.path.join(_HERE, 'build')
 
@@ -112,7 +114,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(library_path())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             # (h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream)
             lib.se3_pairwise_bxf.argtypes = [vp, vp, vp, vp, vp, vp,
                                              ci, ci, ci, ci, ci, ci, vp]
@@ -125,8 +127,20 @@ def load_library() -> ctypes.CDLL:
             # (w3, v2, g, dh, work, E, IF, P, i_per_split, w3_is_bf16,
             #  stream)
             lib.se3_pairwise_bwd_b.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+            # (q, k, v, mask, out, BH, BKV, n, J, D, heads, scale, stream)
+            lib.se3_attention_fwd.argtypes = [vp] * 5 + [ci] * 6 + [cf, vp]
+            # (q, k, v, mask, g, dq, dk, dv, BH, BKV, n, J, D, heads, scale,
+            #  stream)
+            lib.se3_attention_bwd.argtypes = [vp] * 8 + [ci] * 6 + [cf, vp]
+            # (q, x0..x3, idx, nmask, h_v, h_k, wv, wk, bv, bk, sh,
+            #  prefix_k, prefix_v, cg, out, pair_d[4], pair_c[4], cg_off[4],
+            #  n_pairs, B, n, K, S, S0, heads, IF, P, h_is_bf16, scale,
+            #  stream)
+            lib.se3_flash_fwd.argtypes = [vp] * 18 + [ci] * 22 + [cf, vp]
             for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_fwd,
-                       lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_b):
+                       lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_b,
+                       lib.se3_attention_fwd, lib.se3_attention_bwd,
+                       lib.se3_flash_fwd):
                 fn.restype = ci
             _lib = lib
         return _lib

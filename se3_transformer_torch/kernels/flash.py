@@ -1,0 +1,537 @@
+"""Streaming (flash-style) equivariant kNN attention with the pairwise
+contraction rebuilt per edge: plain version, wrapper, and the
+differentiable op.
+
+Port of se3_transformer_tpu/kernels/pallas_flash.py::flash_attention in kNN
+mode with the dense contraction arm. For one output degree d_out, per node
+i and neighbor slot s (j = idx[i, s]):
+
+    basis[p, q, f] = sum_m Y_J[i, s, m] Q_J[(p, q), m]      (J = |d_in - d_out| + f)
+    z[p, (c, f)]   = sum_q basis[p, q, f] x_{d_in}[j, c, q]  (every input degree,
+                                                           concatenated along i)
+    kv[o, p]       = sum_i z[p, i] (h[i, s] . W3[:, i, o] + b3[i, o])
+
+for the keys (h_k, wk, bk) and the values (h_v, wv, bv), then attention of
+q over [prefix slots, neighbor slots] with the unfused path's semantics:
+masked slots take the finite float32 minimum (a fully masked row is the
+uniform average), the prefix slots (here the self slot) are always valid.
+The per-edge basis, the gathered features, k, v and the scores never exist
+in device memory on the kernel path.
+
+Layouts as in JAX: q [B, n, h, Dh] (Dh = dim_head * (2 d_out + 1),
+(dim_head, m)-major); xs one [B, n, C, 2 d_in + 1] per input degree (the
+`pairs` order); idx [B, n, K]; nmask [B, n, K] bool or None; h_v, h_k
+[B, n, K, mid] (bf16 with the bf16 radial trunk); wv, wk [mid, IF, O] and
+bv, bk [IF, O] float32, O = kv_heads * dim_head; sh the flash_sh_payload
+stack [B, n, K, S]; prefix_k, prefix_v [B, n, S0, kv_heads * Dh] or None
+-> out [B, n, h, Dh] float32. The radial product is float32: bf16-valued h
+times float32 W3, as the JAX einsum promotes it.
+
+A CPU tensor takes the plain PyTorch version (`flash_attention_plain`, the
+port of the JAX XLA stream `_flash_stream`: node chunks, n // 16 of them). A
+CUDA tensor launches the hand-written Hopper kernel of csrc/flash_fwd.cu
+(`flash_attention_fwd`, whose `.launches` counts launches) or raises.
+`flash_attention` is the differentiable form, the torch.library custom op
+`se3_torch::flash_attention`: it saves only its inputs, and its backward
+replays the plain chunked stream under autograd, one node chunk at a time
+(the port of `_flash_core_bwd`, which JAX runs in XLA too).
+
+Not ported (NotImplementedError): global mode, the so2 arm, tied keys and
+values, the quantized `wv_scale`/`wk_scale` epilogue.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..basis import basis_transformation_Q_J, safe_normalize
+from ..so3.spherical_harmonics import real_spherical_harmonics_all
+from ..utils.helpers import batched_index_select
+from .pairwise import _stream
+
+# the finite float32 minimum (pallas_flash.py::NEG_INF)
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+# what csrc/flash_fwd.cu is built for
+MID = 128            # radial hidden width
+O_WIDTH = 64         # kv_heads * dim_head: one 64-wide output tile
+MAX_SLOTS = 32       # neighbors per node (one 32-row slot block)
+MAX_PREFIX = 4       # always-valid prefix slots
+MAX_PAIRS = 4        # input degrees
+MAX_DEGREE = 3       # d_in and d_out
+MAX_HEADS = 8
+MAX_SH = (2 * 2 * MAX_DEGREE + 1) ** 2
+# node rows per chunk of the plain stream (pallas_flash.py::_pick_stream_chunks
+# with no measured table: n // 16 chunks)
+STREAM_ROWS = 16
+
+
+class FlashConfig(NamedTuple):
+    """Static configuration of one call: kNN mode, dense arm, untied
+    keys and values (pallas_flash.py::FlashConfig's other fields are not
+    ported)."""
+    pairs: Tuple[Tuple[int, int], ...]  # (d_in, channels) per input degree
+    d_out: int
+    heads: int
+    kv_heads: int
+    scale: float
+    prefix: int = 0                     # always-valid leading kv slots
+
+
+@lru_cache(maxsize=None)
+def _pair_cg(d_in: int, d_out: int) -> np.ndarray:
+    """Contraction constants turning the per-edge SH stack into the
+    pairwise basis: T[s, p, q, f], s indexing the stack's rows of degrees
+    lo..hi (degree J at rows J^2 - lo^2 .. (J+1)^2 - lo^2), so
+    basis[.., p, q, f] = sum_s Y[.., lo^2 + s] T[s, p, q, f] is get_basis's
+    Q_J contraction (pallas_flash.py::_pair_cg)."""
+    lo, hi = abs(d_in - d_out), d_in + d_out
+    P, Q = 2 * d_out + 1, 2 * d_in + 1
+    F = 2 * min(d_in, d_out) + 1
+    T = np.zeros(((hi + 1) ** 2 - lo ** 2, P, Q, F))
+    for fi, J in enumerate(range(lo, hi + 1)):
+        QJ = basis_transformation_Q_J(J, d_in, d_out)  # [(P*Q), 2J+1]
+        T[J * J - lo * lo:(J + 1) * (J + 1) - lo * lo, :, :, fi] = \
+            QJ.reshape(P, Q, 2 * J + 1).transpose(2, 0, 1)
+    return T
+
+
+@lru_cache(maxsize=None)
+def _pair_cg_tensor(d_in: int, d_out: int,
+                    device: torch.device) -> torch.Tensor:
+    """_pair_cg as a float32 tensor on `device`, made once (outside
+    inference mode, so that it serves autograd later too)."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_pair_cg(d_in, d_out), dtype=torch.float32,
+                               device=device)
+
+
+def flash_sh_payload(rel_pos: torch.Tensor, max_degree: int,
+                     differentiable: bool = False) -> torch.Tensor:
+    """The dense arm's per-edge payload: real spherical harmonics
+    J = 0..2*max_degree of the unit offsets stacked to
+    [..., (2*max_degree + 1)^2], detached unless `differentiable`
+    (pallas_flash.py::flash_sh_payload)."""
+    Ys = real_spherical_harmonics_all(2 * max_degree, safe_normalize(rel_pos))
+    out = torch.cat(Ys, dim=-1)
+    return out if differentiable else out.detach()
+
+
+# --------------------------------------------------------------------- #
+# the plain version (the JAX XLA stream)
+# --------------------------------------------------------------------- #
+def _kv_block(pairs, d_out: int, xg, h, sh, w3, b3) -> torch.Tensor:
+    """One slot block's keyed features by the dense arm
+    (pallas_flash.py::_kv_block): xg one gathered [..., C, Q] per input
+    degree, h [..., mid], sh [..., S], w3 [mid, IF, O], b3 [IF, O] ->
+    [..., O, P]. The same parameters and concatenation order as ConvSE3's
+    grouped shared-radial contraction."""
+    segs = []
+    for (d_in, _), x in zip(pairs, xg):
+        lo, hi = abs(d_in - d_out), d_in + d_out
+        T = _pair_cg_tensor(d_in, d_out, x.device)
+        y = sh[..., lo * lo:(hi + 1) * (hi + 1)]
+        basis = torch.einsum('...s,spqf->...pqf', y, T)
+        v2 = torch.einsum('...pqf,...cq->...pcf', basis, x)
+        segs.append(v2.reshape(*v2.shape[:-2], -1))
+    z = torch.cat(segs, dim=-1)
+    R = torch.einsum('...m,mio->...io', h.float(), w3) + b3
+    return torch.einsum('...pi,...io->...po', z, R).transpose(-1, -2)
+
+
+def _attend_block(qr, kblk, vblk, maskblk, m, l, acc, scale, inbounds=None):
+    """Fold one kv slot block into the online-softmax state
+    (pallas_flash.py::_attend_block): qr [..., kv, g, D]; k/v
+    [..., j, kv, D]; maskblk [..., j] or None (finite NEG_INF fill);
+    inbounds [j] marks the slots that exist, the others get exactly zero
+    weight; m/l [..., kv, g]; acc [..., kv, g, D]."""
+    sim = torch.einsum('...kgd,...jkd->...kgj', qr, kblk) * scale
+    if maskblk is not None:
+        sim = sim.masked_fill(~maskblk[..., None, None, :], NEG_INF)
+    if inbounds is not None:
+        sim = sim.masked_fill(~inbounds, NEG_INF)
+    m_new = torch.maximum(m, sim.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(sim - m_new[..., None])
+    if inbounds is not None:
+        p = p * inbounds.to(p.dtype)
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + \
+        torch.einsum('...kgj,...jkd->...kgd', p, vblk)
+    return m_new, l_new, acc_new
+
+
+def _init_state(qr, prefix_k, prefix_v, scale, Dh):
+    """The online-softmax state after the always-valid prefix slots
+    (pallas_flash.py::_init_state); NEG_INF / 0 / 0 without a prefix."""
+    lead = qr.shape[:-1]
+    m0 = torch.full(lead, NEG_INF, dtype=torch.float32, device=qr.device)
+    l0 = torch.zeros(lead, dtype=torch.float32, device=qr.device)
+    acc0 = torch.zeros((*lead, Dh), dtype=torch.float32, device=qr.device)
+    if prefix_k is None:
+        return m0, l0, acc0
+    return _attend_block(qr, prefix_k, prefix_v, None, m0, l0, acc0, scale)
+
+
+def _row_attention(cfg: FlashConfig, q, kf, vf, mask_full):
+    """Full-row attention of one node chunk (q [..., h, D]; kf/vf
+    [..., J, kv, D]; mask [..., J] or None): the online softmax's limit
+    with one block, and the unfused einsum-softmax path's function
+    (pallas_flash.py::_row_attention)."""
+    group = cfg.heads // cfg.kv_heads
+    qr = q.reshape(*q.shape[:-2], cfg.kv_heads, group, q.shape[-1])
+    sim = torch.einsum('...kgd,...jkd->...kgj', qr, kf) * cfg.scale
+    if mask_full is not None:
+        sim = sim.masked_fill(~mask_full[..., None, None, :], NEG_INF)
+    attn = sim.softmax(dim=-1)
+    out = torch.einsum('...kgj,...jkd->...kgd', attn, vf)
+    return out.reshape(q.shape)
+
+
+# operands along the node axis (sliced into chunks) and node-level ones
+_CHUNKED = ('q', 'idx', 'nmask', 'h_v', 'h_k', 'sh', 'prefix_k', 'prefix_v')
+_FULL = ('xs', 'wv', 'bv', 'wk', 'bk')
+
+
+def _chunk_body(cfg: FlashConfig, chunk: dict, full: dict) -> torch.Tensor:
+    """One node chunk of the stream (pallas_flash.py::_chunk_body, kNN
+    mode): gather, k and v by the dense arm, the prefix slots first, the
+    row attention."""
+    q = chunk['q']                                    # [B, nc, h, Dh]
+    Dh, kv_h = q.shape[-1], cfg.kv_heads
+    xg = tuple(batched_index_select(x, chunk['idx'], dim=1)
+               for x in full['xs'])
+    kv = []
+    for h, w3, b3 in ((chunk['h_k'], full['wk'], full['bk']),
+                      (chunk['h_v'], full['wv'], full['bv'])):
+        t = _kv_block(cfg.pairs, cfg.d_out, xg, h, chunk['sh'], w3, b3)
+        kv.append(t.reshape(*t.shape[:-2], kv_h, Dh))
+    kv_k, kv_v = kv
+    nmask = chunk.get('nmask')
+    if cfg.prefix:
+        shape = (*q.shape[:-2], cfg.prefix, kv_h, Dh)
+        kv_k = torch.cat((chunk['prefix_k'].reshape(shape), kv_k), dim=-3)
+        kv_v = torch.cat((chunk['prefix_v'].reshape(shape), kv_v), dim=-3)
+        if nmask is not None:
+            ones = torch.ones((*nmask.shape[:-1], cfg.prefix),
+                              dtype=torch.bool, device=nmask.device)
+            nmask = torch.cat((ones, nmask), dim=-1)
+    return _row_attention(cfg, q, kv_k, kv_v, nmask)
+
+
+def _chunk_rows(n: int) -> int:
+    """Node rows per chunk: n // 16 chunks of the node axis (at least one
+    row each), the last one ragged."""
+    return -(-n // max(1, n // STREAM_ROWS))
+
+
+def _slice(ops: dict, s: int, e: int) -> dict:
+    return {k: ops[k][:, s:e] for k in _CHUNKED if ops.get(k) is not None}
+
+
+def flash_attention_plain(cfg: FlashConfig, ops: dict) -> torch.Tensor:
+    """The plain PyTorch version: the stream over node chunks
+    (pallas_flash.py::_flash_stream), each chunk's per-edge tensors made
+    and dropped in turn. `ops` holds the operands under the names of the
+    module docstring."""
+    n = ops['q'].shape[1]
+    rows = _chunk_rows(n)
+    full = {k: ops[k] for k in _FULL}
+    return torch.cat([_chunk_body(cfg, _slice(ops, s, min(s + rows, n)), full)
+                      for s in range(0, n, rows)], dim=1)
+
+
+# --------------------------------------------------------------------- #
+# the kernel wrapper
+# --------------------------------------------------------------------- #
+@lru_cache(maxsize=None)
+def _cg_buffer(d_ins: Tuple[int, ...], d_out: int, device: torch.device):
+    """The kernel's basis constants for the pairs into d_out: for each pair
+    and each J = lo..hi, Q_J [(P*Q), 2J+1] row-major, concatenated; and
+    each pair's offset into the buffer."""
+    blocks, offsets, total = [], [], 0
+    for d_in in d_ins:
+        offsets.append(total)
+        for J in range(abs(d_in - d_out), d_in + d_out + 1):
+            QJ = basis_transformation_Q_J(J, d_in, d_out).ravel()
+            blocks.append(QJ)
+            total += QJ.size
+    with torch.inference_mode(False):
+        buf = torch.as_tensor(np.concatenate(blocks), dtype=torch.float32,
+                              device=device)
+    return buf, tuple(offsets)
+
+
+def _check(cfg: FlashConfig, ops: dict):
+    """Shapes, dtypes, devices and contiguity the kernel takes; returns
+    (B, n, K, S, S0, IF, h_is_bf16)."""
+    q = ops['q']
+    dev = q.device
+    if q.dtype != torch.float32 or q.ndim != 4:
+        raise TypeError(f'q must be float32 [B, n, h, Dh], got {q.dtype} '
+                        f'{tuple(q.shape)}')
+    B, n, H, Dh = q.shape
+    P = 2 * cfg.d_out + 1
+    if not 0 <= cfg.d_out <= MAX_DEGREE:
+        raise ValueError(f'd_out = {cfg.d_out} is past the kernel limit of '
+                         f'{MAX_DEGREE}')
+    if H != cfg.heads or cfg.heads != cfg.kv_heads or H > MAX_HEADS \
+            or O_WIDTH % H or Dh != (O_WIDTH // H) * P:
+        raise ValueError(f'the kernel takes heads == kv_heads <= {MAX_HEADS} '
+                         f'with heads * dim_head = {O_WIDTH}; got q '
+                         f'{tuple(q.shape)}, heads {cfg.heads}, kv_heads '
+                         f'{cfg.kv_heads}, d_out {cfg.d_out}')
+    if not 1 <= len(cfg.pairs) <= MAX_PAIRS or len(ops['xs']) != len(cfg.pairs):
+        raise ValueError(f'the kernel takes 1 to {MAX_PAIRS} input degrees, '
+                         f'got pairs {cfg.pairs} and {len(ops["xs"])} xs')
+    IF = 0
+    for (d_in, c), x in zip(cfg.pairs, ops['xs']):
+        if not 0 <= d_in <= MAX_DEGREE or x.dtype != torch.float32 \
+                or tuple(x.shape) != (B, n, c, 2 * d_in + 1):
+            raise ValueError(f'x of degree {d_in} must be float32 [{B}, {n}, '
+                             f'{c}, {2 * d_in + 1}] (degree <= {MAX_DEGREE}), '
+                             f'got {x.dtype} {tuple(x.shape)}')
+        IF += c * (2 * min(d_in, cfg.d_out) + 1)
+    idx = ops['idx']
+    if idx.dtype != torch.int64 or idx.ndim != 3 or idx.shape[:2] != (B, n):
+        raise ValueError(f'idx must be int64 [{B}, {n}, K], got {idx.dtype} '
+                         f'{tuple(idx.shape)}')
+    K = idx.shape[2]
+    if not 1 <= K <= MAX_SLOTS:
+        raise ValueError(f'K = {K} neighbors is past the kernel limit of '
+                         f'{MAX_SLOTS}')
+    nmask = ops.get('nmask')
+    if nmask is not None and (nmask.dtype != torch.bool
+                              or tuple(nmask.shape) != (B, n, K)):
+        raise ValueError(f'nmask must be bool [{B}, {n}, {K}], got '
+                         f'{nmask.dtype} {tuple(nmask.shape)}')
+    h_v, h_k = ops['h_v'], ops['h_k']
+    if h_v.dtype not in (torch.bfloat16, torch.float32) \
+            or h_k.dtype != h_v.dtype:
+        raise TypeError(f'h_v/h_k must both be bfloat16 or float32, got '
+                        f'{h_v.dtype}/{h_k.dtype}')
+    for name in ('h_v', 'h_k'):
+        if tuple(ops[name].shape) != (B, n, K, MID):
+            raise ValueError(f'{name} must be [{B}, {n}, {K}, {MID}], got '
+                             f'{tuple(ops[name].shape)}')
+    for w, b in (('wv', 'bv'), ('wk', 'bk')):
+        if ops[w].dtype != torch.float32 or ops[b].dtype != torch.float32 \
+                or tuple(ops[w].shape) != (MID, IF, O_WIDTH) \
+                or tuple(ops[b].shape) != (IF, O_WIDTH):
+            raise ValueError(f'{w}/{b} must be float32 [{MID}, {IF}, '
+                             f'{O_WIDTH}] / [{IF}, {O_WIDTH}], got '
+                             f'{tuple(ops[w].shape)} / {tuple(ops[b].shape)}')
+    sh = ops['sh']
+    S = sh.shape[-1]
+    need = (max(d for d, _ in cfg.pairs) + cfg.d_out + 1) ** 2
+    if sh.dtype != torch.float32 or tuple(sh.shape[:3]) != (B, n, K) \
+            or sh.ndim != 4 or not need <= S <= MAX_SH:
+        raise ValueError(f'sh must be float32 [{B}, {n}, {K}, S] with {need} '
+                         f'<= S <= {MAX_SH}, got {sh.dtype} {tuple(sh.shape)}')
+    S0 = cfg.prefix
+    if S0 > MAX_PREFIX:
+        raise ValueError(f'{S0} prefix slots is past the kernel limit of '
+                         f'{MAX_PREFIX}')
+    for name in ('prefix_k', 'prefix_v') if S0 else ():
+        t = ops[name]
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, n, S0, H * Dh):
+            raise ValueError(f'{name} must be float32 [{B}, {n}, {S0}, '
+                             f'{H * Dh}], got {t.dtype} {tuple(t.shape)}')
+    tensors = [q, idx, h_v, h_k, sh, *ops['xs']] + \
+        [ops[k] for k in ('wv', 'bv', 'wk', 'bk')] + \
+        [t for t in (nmask, ops.get('prefix_k'), ops.get('prefix_v'))
+         if t is not None]
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f'an operand is on {t.device}, q on {dev}')
+        if not t.is_contiguous():
+            raise ValueError(f'operand of shape {tuple(t.shape)} must be '
+                             f'contiguous')
+    return B, n, K, S, S0, IF, h_v.dtype == torch.bfloat16
+
+
+def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
+    """The forward on `ops` (the module docstring's operands): the kernel on
+    a card, the plain version on the CPU -> out [B, n, h, Dh] float32."""
+    q = ops['q']
+    if q.device.type == 'cpu':
+        return flash_attention_plain(cfg, ops)
+    if q.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {q.device}')
+    B, n, K, S, S0, IF, bf16 = _check(cfg, ops)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    cg, offsets = _cg_buffer(tuple(d for d, _ in cfg.pairs), cfg.d_out,
+                             q.device)
+    npairs = len(cfg.pairs)
+    pad = MAX_PAIRS - npairs
+    xs = [x.data_ptr() for x in ops['xs']] + [None] * pad
+    ds = [d for d, _ in cfg.pairs] + [0] * pad
+    cs = [c for _, c in cfg.pairs] + [0] * pad
+    offs = list(offsets) + [0] * pad
+
+    def ptr(name):
+        t = ops.get(name)
+        return None if t is None else t.data_ptr()
+    from .build import load_library
+    with torch.cuda.device(q.device):
+        rc = load_library().se3_flash_fwd(
+            q.data_ptr(), *xs, ptr('idx'), ptr('nmask'), ptr('h_v'),
+            ptr('h_k'), ptr('wv'), ptr('wk'), ptr('bv'), ptr('bk'), ptr('sh'),
+            ptr('prefix_k'), ptr('prefix_v'), cg.data_ptr(), out.data_ptr(),
+            *ds, *cs, *offs, npairs, B, n, K, S, S0, cfg.heads, IF,
+            2 * cfg.d_out + 1, int(bf16), float(cfg.scale), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f'se3_flash_fwd launch failed: CUDA error {rc}')
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# the differentiable op
+# --------------------------------------------------------------------- #
+def _ops(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v):
+    return dict(q=q, xs=tuple(xs), idx=idx, nmask=nmask, h_v=h_v, h_k=h_k,
+                wv=wv, bv=bv, wk=wk, bk=bk, sh=sh, prefix_k=prefix_k,
+                prefix_v=prefix_v)
+
+
+def _config(pairs, d_out, heads, kv_heads, scale, prefix_k):
+    return FlashConfig(
+        pairs=tuple((pairs[i], pairs[i + 1]) for i in range(0, len(pairs), 2)),
+        d_out=d_out, heads=heads, kv_heads=kv_heads, scale=scale,
+        prefix=0 if prefix_k is None else prefix_k.shape[2])
+
+
+@torch.library.custom_op('se3_torch::flash_attention', mutates_args=(),
+                         device_types='cpu')
+def _flash_op(q: torch.Tensor, xs: List[torch.Tensor], idx: torch.Tensor,
+              nmask: Optional[torch.Tensor], h_v: torch.Tensor,
+              h_k: torch.Tensor, wv: torch.Tensor, bv: torch.Tensor,
+              wk: torch.Tensor, bk: torch.Tensor, sh: torch.Tensor,
+              prefix_k: Optional[torch.Tensor],
+              prefix_v: Optional[torch.Tensor], pairs: List[int], d_out: int,
+              heads: int, kv_heads: int, scale: float) -> torch.Tensor:
+    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k)
+    return flash_attention_plain(cfg, _ops(q, xs, idx, nmask, h_v, h_k, wv,
+                                           bv, wk, bk, sh, prefix_k, prefix_v))
+
+
+@_flash_op.register_kernel('cuda')
+def _(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v,
+      pairs, d_out, heads, kv_heads, scale):
+    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k)
+    return flash_attention_fwd(cfg, _ops(q, xs, idx, nmask, h_v, h_k, wv, bv,
+                                         wk, bk, sh, prefix_k, prefix_v))
+
+
+_TENSOR_ARGS = ('q', 'xs', 'idx', 'nmask', 'h_v', 'h_k', 'wv', 'bv', 'wk',
+                'bk', 'sh', 'prefix_k', 'prefix_v')
+
+
+def _flash_setup(ctx, inputs, output):
+    (q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v,
+     pairs, d_out, heads, kv_heads, scale) = inputs
+    ctx.save_for_backward(q, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh,
+                          prefix_k, prefix_v, *xs)
+    ctx.cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k)
+
+
+def _flash_backward(ctx, g):
+    """The port of pallas_flash.py::_flash_core_bwd: replay the plain
+    chunked stream under autograd, one node chunk at a time, so that only
+    one chunk's per-edge tensors exist at once; the chunk cotangents land
+    in their slices, the node-level operands' are summed over the chunks
+    in order."""
+    (q, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v,
+     *xs) = ctx.saved_tensors
+    ops = _ops(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k,
+               prefix_v)
+    needs = dict(zip(_TENSOR_ARGS, ctx.needs_input_grad))
+    g = g.contiguous()
+    grads = {}
+    with torch.enable_grad():
+        full = {}
+        for k in _FULL:
+            want = needs[k] if k != 'xs' else list(needs['xs'])
+            if k == 'xs':
+                full[k] = tuple(x.detach().requires_grad_(w)
+                                for x, w in zip(ops[k], want))
+            else:
+                full[k] = ops[k].detach().requires_grad_(want)
+        n = q.shape[1]
+        rows = _chunk_rows(n)
+        for s in range(0, n, rows):
+            e = min(s + rows, n)
+            chunk = {k: t.detach().requires_grad_(
+                needs[k] and t.is_floating_point())
+                for k, t in _slice(ops, s, e).items()}
+            leaves = [(k, t) for k, t in chunk.items() if t.requires_grad]
+            leaves += [(k, t) for k, t in full.items()
+                       if k != 'xs' and t.requires_grad]
+            leaves += [(('xs', i), x) for i, x in enumerate(full['xs'])
+                       if x.requires_grad]
+            if not leaves:
+                break
+            out = _chunk_body(ctx.cfg, chunk, full)
+            got = torch.autograd.grad(out, [t for _, t in leaves], g[:, s:e],
+                                      allow_unused=True)
+            for (key, t), d in zip(leaves, got):
+                if d is None:
+                    continue
+                if key in _CHUNKED:
+                    grads.setdefault(key, torch.zeros_like(ops[key]))
+                    grads[key][:, s:e] = d
+                elif key in grads:
+                    grads[key] = grads[key] + d
+                else:
+                    grads[key] = d
+    dxs = [grads.get(('xs', i)) for i in range(len(xs))]
+    return (grads.get('q'), dxs, None, None, grads.get('h_v'),
+            grads.get('h_k'), grads.get('wv'), grads.get('bv'),
+            grads.get('wk'), grads.get('bk'), grads.get('sh'),
+            grads.get('prefix_k'), grads.get('prefix_v'),
+            None, None, None, None, None)
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def flash_attention(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
+                    kv_heads, scale, arm_v='dense', arm_k=None, h_k=None,
+                    wk=None, bk=None, sh=None, frames=None, prefix_k=None,
+                    prefix_v=None, wv_scale=None, wk_scale=None
+                    ) -> torch.Tensor:
+    """Streaming kNN equivariant attention for ONE output degree, with the
+    signature of pallas_flash.py::flash_attention (operands in the module
+    docstring, any strides); differentiable in q, xs, h_v, h_k, wv, bv, wk, bk, sh and
+    the prefix slots. h_k defaults to h_v. The JAX options this port does
+    not take raise NotImplementedError."""
+    arm_k = arm_v if arm_k is None else arm_k
+    if arm_v != 'dense' or arm_k != 'dense' or frames is not None:
+        raise NotImplementedError(f'only the dense contraction arm is ported '
+                                  f'(arm_v={arm_v!r}, arm_k={arm_k!r})')
+    if wk is None:
+        raise NotImplementedError('tied keys and values (no wk) are not '
+                                  'ported')
+    if wv_scale is not None or wk_scale is not None:
+        raise NotImplementedError('the quantized w3_scale epilogue is not '
+                                  'ported')
+    if sh is None:
+        raise ValueError('the dense arm needs the sh payload')
+    if (prefix_k is None) != (prefix_v is None):
+        raise ValueError('prefix_k and prefix_v come together')
+    def c(t):
+        return None if t is None else t.contiguous()
+    flat = [int(v) for pair in pairs for v in pair]
+    return _flash_op(c(q), [c(x) for x in xs], c(idx), c(nmask), c(h_v),
+                     c(h_v if h_k is None else h_k), c(wv), c(bv), c(wk),
+                     c(bk), c(sh), c(prefix_k), c(prefix_v), flat, int(d_out),
+                     int(heads), int(kv_heads), float(scale))

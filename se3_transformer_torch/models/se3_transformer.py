@@ -8,7 +8,11 @@ the JAX module picks it on the kernel path) -> conv_in -> trunk ->
 conv_out -> norm_out (on with reversible) -> linear_out (reduce_dim_out)
 -> the degree-1 Cartesian permutation -> the output of `return_type`, with
 the JAX conventions. edge_chunks streams every ConvSE3's contraction over
-that many node chunks.
+that many node chunks. pallas_attention=True runs every unfused attention
+block's core through the fused attention kernel; fuse_pairwise (a bool, or
+first-match-wins (pattern, 'flash' | 'xla') rules on 'attn_block{i}')
+routes the chosen blocks through the streaming attention kernel, which
+reads the SH stack basis['flash_sh'] instead of the per-pair basis.
 
 Every other JAX field is accepted only at its JAX default: any other value
 raises NotImplementedError, so nothing is silently ignored. The branches
@@ -26,6 +30,7 @@ import torch
 from torch import nn
 
 from ..basis import get_basis
+from ..kernels.flash import flash_sh_payload
 from ..ops.conv import ConvSE3
 from ..ops.core import LinearSE3, NormSE3
 from ..ops.fiber import Fiber
@@ -48,12 +53,34 @@ _JAX_ONLY_DEFAULTS = dict(
     rotary_position=False, rotary_rel_dist=False, norm_gated_scale=False,
     use_egnn=False, egnn_hidden_dim=32, egnn_weights_clamp_value=None,
     egnn_feedforward=False, hidden_fiber_dict=None, out_fiber_dict=None,
-    conv_backend='dense', fuse_pairwise=False, flash_interpret=False,
+    conv_backend='dense', flash_interpret=False,
     pallas=None, conv_bf16=False, pallas_interpret=False,
-    pallas_attention=None, pallas_attention_interpret=False,
+    pallas_attention_interpret=False,
     matmul_precision=None, sequence_parallel=None,
     mesh=None, ring_overlap=True, ring_exchange=True, attention_mode='knn',
     global_materialize=False)
+
+
+# fields the JAX module refuses beside fuse_pairwise (its _forward asserts)
+_NOT_WITH_FUSE_PAIRWISE = ('sequence_parallel', 'rotary_position',
+                           'rotary_rel_dist', 'linear_proj_keys', 'conv_bf16')
+
+
+def resolve_fused_attention(spec, depth: int) -> tuple:
+    """One fuse_pairwise flag per attention block from a bool, or from
+    first-match-wins (pattern, 'flash' | 'xla') rules on 'attn_block{i}'
+    (the JAX module's _attention_fused; no match means 'xla')."""
+    if isinstance(spec, bool):
+        return (spec,) * depth
+    out = []
+    for i in range(depth):
+        val = next((v for pat, v in spec if re.search(pat, f'attn_block{i}')),
+                   'xla')
+        if val not in ('flash', 'xla'):
+            raise ValueError(f'fuse_pairwise rule value {val!r} (want flash|'
+                             f'xla)')
+        out.append(val == 'flash')
+    return tuple(out)
 
 
 # degree-1 features are in the irrep order (y, z, x) of the real spherical
@@ -111,10 +138,22 @@ class SE3TransformerModule(nn.Module):
                  num_neighbors=float('inf'),
                  shared_radial_hidden: bool = False, fuse_basis: bool = False,
                  radial_bf16: bool = False, reduce_dim_out: bool = False,
-                 edge_chunks: Optional[int] = None, *, device='cuda',
+                 edge_chunks: Optional[int] = None,
+                 pallas_attention: Optional[bool] = None,
+                 fuse_pairwise=False, *, device='cuda',
                  generator: Optional[torch.Generator] = None, **jax_fields):
         super().__init__()
         device = resolve_device(device)
+        if pallas_attention not in (None, False, True):
+            raise ValueError(f'pallas_attention must be None, False or True, '
+                             f'got {pallas_attention!r}')
+        self.fused_attention = resolve_fused_attention(fuse_pairwise, depth)
+        if any(self.fused_attention):
+            for key in _NOT_WITH_FUSE_PAIRWISE:
+                if jax_fields.get(key, _JAX_ONLY_DEFAULTS[key]) != \
+                        _JAX_ONLY_DEFAULTS[key]:
+                    raise ValueError(f'fuse_pairwise does not compose with '
+                                     f'{key}={jax_fields[key]!r}')
         for key, value in jax_fields.items():
             if key not in _JAX_ONLY_DEFAULTS:
                 raise TypeError(f'unknown field {key!r}')
@@ -154,7 +193,10 @@ class SE3TransformerModule(nn.Module):
         self.trunk = SequentialTrunk(fiber_hidden, depth=depth, heads=heads,
                                      dim_head=dim_head,
                                      reversible=reversible,
-                                     remat_policy=remat_policy, **conv_kwargs)
+                                     remat_policy=remat_policy,
+                                     pallas_attention=pallas_attention,
+                                     fused_attention=self.fused_attention,
+                                     **conv_kwargs)
         self.conv_out = ConvSE3(fiber_hidden, fiber_out, **conv_kwargs)
         if self.apply_norm_out:
             self.norm_out = NormSE3(fiber_out, nonlin=lambda t: t)
@@ -191,8 +233,13 @@ class SE3TransformerModule(nn.Module):
                                     self_excl)
         hood, _ = select_neighbors(rel_pos, indices, num_neighbors,
                                    self.valid_radius, pair_mask=pair_mask)
+        # conv_in and conv_out always take the per-pair basis; the fused
+        # attention blocks take the SH stack
         basis = get_basis(hood.rel_pos, self.num_degrees - 1,
                           layout=self.basis_layout)
+        if any(self.fused_attention):
+            basis['flash_sh'] = flash_sh_payload(hood.rel_pos,
+                                                 self.num_degrees - 1)
         edge_info = (hood.indices, hood.mask)
 
         x = {'0': feats[..., None]}

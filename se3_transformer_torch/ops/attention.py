@@ -1,11 +1,20 @@
 """Multi-degree SE(3)-equivariant attention over kNN neighborhoods: the port
-of se3_transformer_tpu/ops/attention.py's unfused kNN path (AttentionSE3
-with kv_heads == heads, and AttentionBlockSE3).
+of se3_transformer_tpu/ops/attention.py's kNN paths (AttentionSE3 with
+kv_heads == heads, and AttentionBlockSE3).
 
-The attention core is plain einsums, as in the JAX package's default. KV
-slot order along the neighbor axis is [self, neighbors]; the neighbor mask
-is left-padded with True over the self slot, and masked logits are filled
-with the finite float32 minimum.
+KV slot order along the neighbor axis is [self, neighbors]; the neighbor
+mask is left-padded with True over the self slot, and masked logits are
+filled with the finite float32 minimum. Three attention cores, one
+function:
+
+  * the einsums (the JAX default, pallas_attention None or False);
+  * pallas_attention=True: kernels.attention.fused_attention per degree,
+    (dim_head, m) flattened into one feature axis and the heads folded into
+    the batch;
+  * fuse_pairwise=True: the kv convs in program mode and
+    kernels.flash.flash_attention per degree (the JAX `_flash_call`): the
+    per-edge basis, the gathered features, k, v and the scores stay inside
+    the kernel. Same parameters as the unfused path.
 """
 from __future__ import annotations
 
@@ -15,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attention import fused_attention
+from ..kernels.flash import flash_attention
 from ..utils.helpers import to_order
 from .conv import ConvSE3, EdgeInfo
 from .core import LinearSE3, NormSE3, residual_se3
@@ -26,14 +37,20 @@ Features = Dict[str, torch.Tensor]
 class AttentionSE3(nn.Module):
     def __init__(self, fiber: Fiber, dim_head: int = 64, heads: int = 8,
                  radial_bf16: bool = False, fuse_basis: bool = False,
-                 edge_chunks: Optional[int] = None):
+                 edge_chunks: Optional[int] = None,
+                 pallas_attention: Optional[bool] = None,
+                 fuse_pairwise: bool = False):
         super().__init__()
         self.fiber, self.dim_head, self.heads = fiber, dim_head, heads
+        self.pallas_attention = bool(pallas_attention)
+        self.fuse_pairwise = fuse_pairwise
         hidden_fiber = fiber.to(dim_head * heads)
         self.to_q = LinearSE3(fiber, hidden_fiber)
         conv_kwargs = dict(pool=False, self_interaction=False,
-                           radial_bf16=radial_bf16, fuse_basis=fuse_basis,
-                           edge_chunks=edge_chunks)
+                           radial_bf16=radial_bf16)
+        conv_kwargs.update(dict(fuse_pairwise=True) if fuse_pairwise else
+                           dict(fuse_basis=fuse_basis,
+                                edge_chunks=edge_chunks))
         self.to_v = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         self.to_k = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         self.to_self_k = LinearSE3(fiber, hidden_fiber)
@@ -45,6 +62,15 @@ class AttentionSE3(nn.Module):
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
                 ) -> Features:
+        if self.fuse_pairwise:
+            outputs = self._flash_call(features, edge_info, rel_dist, basis)
+        else:
+            outputs = self._unfused_call(features, edge_info, rel_dist, basis)
+        if self.to_out is not None:
+            outputs = self.to_out(outputs)
+        return outputs
+
+    def _unfused_call(self, features, edge_info, rel_dist, basis) -> Features:
         h, dh = self.heads, self.dim_head
         neighbor_mask = edge_info[1]
         queries = self.to_q(features)
@@ -68,21 +94,69 @@ class AttentionSE3(nn.Module):
                         for t in (self_keys[degree], self_values[degree])]
             k = torch.cat((s_k, k), dim=3)
             v = torch.cat((s_v, v), dim=3)
-
-            sim = torch.einsum('bhidm,bhijdm->bhij', q, k) * dh ** -0.5
+            J = k.shape[3]
+            padded = None
             if neighbor_mask is not None:
-                padded = F.pad(neighbor_mask,
-                               (k.shape[3] - neighbor_mask.shape[-1], 0),
+                padded = F.pad(neighbor_mask, (J - neighbor_mask.shape[-1], 0),
                                value=True)
-                sim = sim.masked_fill(~padded[:, None],
-                                      torch.finfo(sim.dtype).min)
-            attn = sim.softmax(dim=-1)
-            out = torch.einsum('bhij,bhijdm->bhidm', attn, v)
+
+            if self.pallas_attention:
+                # (dim_head, m) flattened into one feature axis (the logits
+                # reduce over both), the heads folded into the batch
+                out = fused_attention(
+                    q.reshape(b * h, n, dh * m),
+                    k.reshape(b * h, n, J, dh * m),
+                    v.reshape(b * h, n, J, dh * m), padded, h,
+                    dh ** -0.5).reshape(b, h, n, dh, m)
+            else:
+                sim = torch.einsum('bhidm,bhijdm->bhij', q, k) * dh ** -0.5
+                if padded is not None:
+                    sim = sim.masked_fill(~padded[:, None],
+                                          torch.finfo(sim.dtype).min)
+                attn = sim.softmax(dim=-1)
+                out = torch.einsum('bhij,bhijdm->bhidm', attn, v)
             outputs[degree] = out.permute(0, 2, 1, 3, 4).reshape(
                 b, n, h * dh, m)
+        return outputs
 
-        if self.to_out is not None:
-            outputs = self.to_out(outputs)
+    def _prefix_slots(self, degree: str, self_keys: Features,
+                      self_values: Features):
+        """The always-valid kv slots left of the neighbor axis
+        (pallas_flash's prefix_k/prefix_v [b, n, S0, kv_h * Dh]): here the
+        self slot only."""
+        return tuple(t[degree].reshape(*t[degree].shape[:2], 1, -1)
+                     for t in (self_keys, self_values))
+
+    def _flash_call(self, features, edge_info, rel_dist, basis) -> Features:
+        """The streaming path (JAX AttentionSE3._flash_call): the kv convs
+        return their radial hidden and grouped w3/b3, and the kernel builds
+        k and v per edge from the node features and the SH stack."""
+        h = self.heads
+        neighbor_indices, neighbor_mask = edge_info
+        queries = self.to_q(features)
+        v_prog = self.to_v(features, edge_info, rel_dist, basis)
+        k_prog = self.to_k(features, edge_info, rel_dist, basis)
+        self_keys = self.to_self_k(features)
+        self_values = self.to_self_v(features)
+
+        outputs = {}
+        for degree in features.keys():
+            m = to_order(int(degree))
+            Dh = self.dim_head * m
+            b, n = features[degree].shape[:2]
+            prefix_k, prefix_v = self._prefix_slots(degree, self_keys,
+                                                    self_values)
+            out = flash_attention(
+                queries[degree].reshape(b, n, h, Dh),
+                tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
+                neighbor_indices, neighbor_mask, v_prog['h'],
+                v_prog['w3'][degree], v_prog['b3'][degree],
+                pairs=v_prog['pairs'], d_out=int(degree), heads=h,
+                kv_heads=h, scale=self.dim_head ** -0.5,
+                arm_v=v_prog['arm'], arm_k=k_prog['arm'], h_k=k_prog['h'],
+                wk=k_prog['w3'][degree], bk=k_prog['b3'][degree],
+                sh=basis['flash_sh'], prefix_k=prefix_k, prefix_v=prefix_v)
+            outputs[degree] = out.reshape(b, n, h * self.dim_head, m)
         return outputs
 
 
@@ -91,13 +165,17 @@ class AttentionBlockSE3(nn.Module):
 
     def __init__(self, fiber: Fiber, dim_head: int = 24, heads: int = 8,
                  radial_bf16: bool = False, fuse_basis: bool = False,
-                 edge_chunks: Optional[int] = None):
+                 edge_chunks: Optional[int] = None,
+                 pallas_attention: Optional[bool] = None,
+                 fuse_pairwise: bool = False):
         super().__init__()
         self.prenorm = NormSE3(fiber)
         self.attn = AttentionSE3(fiber, dim_head=dim_head, heads=heads,
                                  radial_bf16=radial_bf16,
                                  fuse_basis=fuse_basis,
-                                 edge_chunks=edge_chunks)
+                                 edge_chunks=edge_chunks,
+                                 pallas_attention=pallas_attention,
+                                 fuse_pairwise=fuse_pairwise)
 
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]

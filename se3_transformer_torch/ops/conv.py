@@ -13,6 +13,12 @@ w3_{d_in}_{d_out} [mid, c_in*F, c_out] and b3_{d_in}_{d_out} [c_in*F, c_out].
     concatenated along the contracted axis (V2, w3 and b3 alike) and make
     one call of kernels.pairwise.pairwise_contract per output degree.
 
+  * fuse_pairwise=True (program mode, for the streaming attention of
+    kernels.flash): the radial trunk only. forward returns {'h', 'pairs',
+    'arm', 'w3', 'b3'}, the grouped w3/b3 of each output degree
+    concatenated along IF as the fuse_basis=False branch does, and gathers
+    nothing; the per-edge contraction runs inside the attention kernel.
+
 edge_chunks streams the node axis through either contraction in that many
 chunks, zero-padding it to a multiple (_stream_node_chunks). Under
 autograd the backward runs the fused backward kernels; gradients reach w3
@@ -159,16 +165,21 @@ class ConvSE3(nn.Module):
     def __init__(self, fiber_in: Fiber, fiber_out: Fiber,
                  self_interaction: bool = True, pool: bool = True,
                  radial_bf16: bool = False, fuse_basis: bool = False,
-                 edge_chunks: Optional[int] = None):
+                 edge_chunks: Optional[int] = None,
+                 fuse_pairwise: bool = False):
         super().__init__()
         if self_interaction and not pool:
             raise ValueError('must pool edges if followed with self '
                              'interaction')
+        if fuse_pairwise and pool:
+            raise ValueError('fuse_pairwise serves the attention kv path '
+                             '(pool=False)')
         self.fiber_in, self.fiber_out = fiber_in, fiber_out
         self.pool = pool
         self.radial_dtype = torch.bfloat16 if radial_bf16 else None
         self.fuse_basis = fuse_basis
         self.edge_chunks = edge_chunks
+        self.fuse_pairwise = fuse_pairwise
         mid = DEFAULT_MID_DIM
         # the shared radial trunk, under the flax module's names
         self.Dense_0 = nn.Linear(1, mid)
@@ -193,13 +204,31 @@ class ConvSE3(nn.Module):
         x = gelu(layer_norm(dense(x, self.Dense_0, dt), self.LayerNorm_0))
         return gelu(layer_norm(dense(x, self.Dense_1, dt), self.LayerNorm_1))
 
+    def _program(self, rel_dist: torch.Tensor) -> dict:
+        """The pairwise program of JAX ConvSE3(fuse_pairwise=True): the
+        radial hidden [b, n, k, mid] and, per output degree, the pairs'
+        w3 [mid, IF, c_out] and b3 [IF, c_out] concatenated along IF in
+        fiber_in order."""
+        w3s, b3s = {}, {}
+        for d_out, _ in self.fiber_out:
+            w3s[str(d_out)] = torch.cat([getattr(self, f'w3_{d_in}_{d_out}')
+                                         for d_in, _ in self.fiber_in], dim=1)
+            b3s[str(d_out)] = torch.cat([getattr(self, f'b3_{d_in}_{d_out}')
+                                         for d_in, _ in self.fiber_in], dim=0)
+        return dict(h=self.radial_hidden(rel_dist[..., None]),
+                    pairs=tuple((d, c) for d, c in self.fiber_in),
+                    arm='dense', w3=w3s, b3=b3s)
+
     def forward(self, inp: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
                 ) -> Features:
         """inp {d: [b, n, c, 2d+1]}; rel_dist [b, n, k]; basis
         {'d_in,d_out': [b, n, k, P*F*Q] (layout 'pfq_flat') or [b, n, k,
         P, Q, F] ('pqf')}; fuse_basis takes the flat layout only.
-        Pooled: {d: [b, n, c_out, 2d+1]}; else [b, n, k, c_out, 2d+1]."""
+        Pooled: {d: [b, n, c_out, 2d+1]}; else [b, n, k, c_out, 2d+1];
+        with fuse_pairwise the program dict (module docstring)."""
+        if self.fuse_pairwise:
+            return self._program(rel_dist)
         neighbor_indices, neighbor_mask = edge_info
         gathered = {str(d): batched_index_select(inp[str(d)],
                                                  neighbor_indices, dim=1)

@@ -7,14 +7,19 @@ block's activations are dropped after the forward and recomputed in the
 backward. remat_policy='save_conv_outputs' (the JAX
 save_only_these_names('conv_out')) keeps the pairwise contractions'
 outputs through a selective checkpoint policy that marks the
-kernels.pairwise custom ops MUST_SAVE, so the replay launches no forward
-kernel; remat_policy=None replays everything. Neither changes the forward,
+kernels.pairwise custom ops MUST_SAVE, so the replay launches no pairwise
+forward kernel; the attention ops (kernels.attention.fused_attention,
+kernels.flash.flash_attention) are recomputed, as JAX's policy saves
+neither. remat_policy=None replays everything. Neither changes the forward,
 and without autograd (serving) the blocks run as a plain loop.
+
+`pallas_attention` reaches every attention block; `fused_attention` holds
+one fuse_pairwise flag per block (the model resolves its rules).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -55,7 +60,9 @@ class SequentialTrunk(nn.Module):
                  reversible: bool = False,
                  remat_policy: Optional[str] = None,
                  fuse_basis: bool = False,
-                 edge_chunks: Optional[int] = None):
+                 edge_chunks: Optional[int] = None,
+                 pallas_attention: Optional[bool] = None,
+                 fused_attention: Optional[Sequence[bool]] = None):
         super().__init__()
         if remat_policy is not None and not reversible:
             raise ValueError(f'remat_policy={remat_policy!r} requires '
@@ -67,7 +74,8 @@ class SequentialTrunk(nn.Module):
             self.add_module(f'attn_block{i}', AttentionBlockSE3(
                 fiber, dim_head=dim_head, heads=heads,
                 radial_bf16=radial_bf16, fuse_basis=fuse_basis,
-                edge_chunks=edge_chunks))
+                edge_chunks=edge_chunks, pallas_attention=pallas_attention,
+                fuse_pairwise=bool(fused_attention and fused_attention[i])))
             self.add_module(f'ff_block{i}', FeedForwardBlockSE3(fiber))
 
     def _run(self, block: nn.Module, *args):

@@ -322,3 +322,199 @@ def test_cuda_backward_b_split_matches_plain_and_is_bit_identical(cuda_card,
     assert (first[0] - ref).abs().max() <= 1e-4 * ref.abs().max()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------- #
+# the fused attention (kernels/attention.py)
+# ---------------------------------------------------------------------- #
+from se3_transformer_torch.kernels import attention as ka  # noqa: E402
+from se3_transformer_torch.kernels import flash as kf  # noqa: E402
+
+
+def _attn_args(BH=4, BKV=2, n=10, J=5, D=6, heads=2, masked=True,
+               full_row=True, seed=6):
+    """q, k, v, mask, g, heads, scale; with `full_row` one row of the
+    mask is all False (the uniform-average case)."""
+    rng = np.random.RandomState(seed)
+    t = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+         for s in ((BH, n, D), (BKV, n, J, D), (BKV, n, J, D), (BH, n, D))]
+    mask = None
+    if masked:
+        m = rng.rand(BH // heads, n, J) > 0.3
+        if full_row:
+            m[0, min(3, n - 1)] = False
+        mask = torch.from_numpy(m)
+    return t[0], t[1], t[2], mask, t[3], heads, D ** -0.5
+
+
+def test_cpu_attention_never_counts_a_launch():
+    q, k, v, mask, g, heads, scale = _attn_args()
+    before = (ka.fused_attention_fwd.launches, ka.fused_attention_bwd.launches)
+    out = ka.fused_attention_fwd(q, k, v, mask, heads, scale)
+    dq, dk, dv = ka.fused_attention_bwd(q, k, v, mask, g, heads, scale)
+    assert out.shape == q.shape and dq.shape == q.shape
+    assert dk.shape == k.shape and dv.shape == v.shape
+    assert (ka.fused_attention_fwd.launches,
+            ka.fused_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize('bad', ['dtype', 'slots', 'features', 'mask_shape',
+                                 'mask_dtype', 'group', 'noncontig', 'g'])
+def test_attention_wrapper_rejects_what_the_kernels_do_not_take(bad):
+    q, k, v, mask, g, heads, scale = _attn_args()
+    assert ka._check(q, k, v, mask, heads, g=g) == (4, 2, 10, 5, 6)
+    if bad == 'dtype':
+        q = q.double()
+    elif bad == 'slots':
+        J = ka.MAX_SLOTS + 1
+        k = torch.zeros(2, 10, J, 6)
+        v = torch.zeros(2, 10, J, 6)
+        mask = torch.ones(2, 10, J, dtype=torch.bool)
+    elif bad == 'features':
+        D = ka.MAX_FEATURES + 1
+        q, g = torch.zeros(4, 10, D), torch.zeros(4, 10, D)
+        k, v = torch.zeros(2, 10, 5, D), torch.zeros(2, 10, 5, D)
+    elif bad == 'mask_shape':
+        mask = mask[:, :, :-1].contiguous()
+    elif bad == 'mask_dtype':
+        mask = mask.to(torch.uint8)
+    elif bad == 'group':
+        k, v = k[:1].repeat(3, 1, 1, 1), v[:1].repeat(3, 1, 1, 1)
+    elif bad == 'noncontig':
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == 'g':
+        g = g[:, :-1]
+    with pytest.raises((TypeError, ValueError)):
+        ka._check(q, k, v, mask, heads, g=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('BH,BKV,n,J,D,heads,masked', [
+    (4, 2, 10, 5, 6, 2, True), (8, 8, 1024, 33, 56, 8, True),
+    (8, 8, 1000, 33, 8, 8, False), (6, 3, 77, 40, 24, 3, True),
+    (2, 1, 33, 128, 256, 2, True)])
+def test_cuda_attention_kernels_match_plain(cuda_card, BH, BKV, n, J, D,
+                                            heads, masked):
+    """Forward and backward kernels against their plain versions (group
+    1, 2 and 3, with and without a mask, a fully masked row, the limits),
+    and the backward's group sums the same bits on two runs."""
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in
+            _attn_args(BH, BKV, n, J, D, heads, masked)]
+    q, k, v, mask, g, heads, scale = args
+    before = (ka.fused_attention_fwd.launches, ka.fused_attention_bwd.launches)
+    out = ka.fused_attention_fwd(q, k, v, mask, heads, scale)
+    grads = ka.fused_attention_bwd(q, k, v, mask, g, heads, scale)
+    again = ka.fused_attention_bwd(q, k, v, mask, g, heads, scale)
+    torch.cuda.synchronize()
+    assert (ka.fused_attention_fwd.launches,
+            ka.fused_attention_bwd.launches) == (before[0] + 1, before[1] + 2)
+    ref = ka.fused_attention_plain(q, k, v, mask, heads, scale)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    refs = ka.fused_attention_bwd_plain(q, k, v, mask, g, heads, scale)
+    for name, got, want, rerun in zip(('dq', 'dk', 'dv'), grads, refs, again):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max(), name
+        assert torch.equal(got, rerun), name
+
+
+# ---------------------------------------------------------------------- #
+# the streaming kNN attention (kernels/flash.py)
+# ---------------------------------------------------------------------- #
+def _flash_case(d_out=2, n=13, K=6, prefix=1, masked=True, h_dtype=torch.float32,
+                pairs=((0, 5), (1, 3), (2, 4), (3, 2)), heads=8, seed=7):
+    """(cfg, ops) at the kernel's widths (mid 128, O 64), with one node's
+    neighbors all masked."""
+    rng = np.random.RandomState(seed)
+    P = 2 * d_out + 1
+    dim_head = kf.O_WIDTH // heads
+    Dh = dim_head * P
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape))
+                                .astype(np.float32))
+    rel = f32(1, n, K, 3)
+    ops = dict(q=f32(1, n, heads, Dh),
+               xs=tuple(f32(1, n, c, 2 * d + 1) for d, c in pairs),
+               idx=torch.from_numpy(rng.randint(0, n, (1, n, K))),
+               nmask=None, h_v=f32(1, n, K, kf.MID).to(h_dtype),
+               h_k=f32(1, n, K, kf.MID).to(h_dtype),
+               wv=f32(kf.MID, IF, kf.O_WIDTH, scale=kf.MID ** -0.5),
+               wk=f32(kf.MID, IF, kf.O_WIDTH, scale=kf.MID ** -0.5),
+               bv=f32(IF, kf.O_WIDTH, scale=0.1),
+               bk=f32(IF, kf.O_WIDTH, scale=0.1),
+               sh=kf.flash_sh_payload(rel, 3), prefix_k=None, prefix_v=None)
+    if masked:
+        m = rng.rand(1, n, K) > 0.3
+        m[0, 2] = False
+        ops['nmask'] = torch.from_numpy(m)
+    if prefix:
+        ops['prefix_k'] = f32(1, n, prefix, heads * Dh)
+        ops['prefix_v'] = f32(1, n, prefix, heads * Dh)
+    cfg = kf.FlashConfig(pairs=pairs, d_out=d_out, heads=heads,
+                         kv_heads=heads, scale=dim_head ** -0.5,
+                         prefix=prefix)
+    return cfg, ops
+
+
+def test_cpu_flash_never_counts_a_launch():
+    cfg, ops = _flash_case()
+    before = kf.flash_attention_fwd.launches
+    out = kf.flash_attention_fwd(cfg, ops)
+    assert out.shape == ops['q'].shape and out.dtype == torch.float32
+    assert kf.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize('bad', ['q_dtype', 'kv_heads', 'slots', 'x_shape',
+                                 'idx_dtype', 'h_dtype', 'w_shape', 'sh',
+                                 'prefix', 'noncontig', 'degree'])
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    cfg, ops = _flash_case()
+    assert kf._check(cfg, ops)[:5] == (1, 13, 6, 49, 1)
+    if bad == 'q_dtype':
+        ops['q'] = ops['q'].double()
+    elif bad == 'kv_heads':
+        cfg = cfg._replace(kv_heads=4)
+    elif bad == 'slots':
+        K = kf.MAX_SLOTS + 1
+        ops['idx'] = torch.zeros(1, 13, K, dtype=torch.int64)
+    elif bad == 'x_shape':
+        ops['xs'] = ops['xs'][:3] + (ops['xs'][3][..., :-1].contiguous(),)
+    elif bad == 'idx_dtype':
+        ops['idx'] = ops['idx'].int()
+    elif bad == 'h_dtype':
+        ops['h_k'] = ops['h_k'].to(torch.bfloat16)
+    elif bad == 'w_shape':
+        ops['wk'] = ops['wk'][:, :-1].contiguous()
+    elif bad == 'sh':
+        ops['sh'] = ops['sh'][..., :16].contiguous()
+    elif bad == 'prefix':
+        cfg = cfg._replace(prefix=kf.MAX_PREFIX + 1)
+    elif bad == 'noncontig':
+        ops['q'] = ops['q'].transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == 'degree':
+        cfg = cfg._replace(d_out=4)
+    with pytest.raises((TypeError, ValueError)):
+        kf._check(cfg, ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('d_out,n,K,prefix,masked', [
+    (0, 13, 6, 1, True), (1, 40, 32, 1, True), (2, 13, 6, 0, True),
+    (3, 33, 32, 2, False), (3, 7, 16, 1, True)])
+def test_cuda_flash_kernel_matches_plain(cuda_card, h_dtype, d_out, n, K,
+                                         prefix, masked):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ops = _flash_case(d_out, n, K, prefix, masked, h_dtype)
+    ops = {k: (tuple(x.cuda() for x in v) if k == 'xs' else
+               None if v is None else v.cuda()) for k, v in ops.items()}
+    before = kf.flash_attention_fwd.launches
+    out = kf.flash_attention_fwd(cfg, ops)
+    torch.cuda.synchronize()
+    assert kf.flash_attention_fwd.launches == before + 1
+    # the kernel and the plain version sum the same float32 products in
+    # other orders; the scores (O(10) here) carry their ~1e-6 relative
+    # differences through the softmax's exponent, as in the other kernels'
+    # 1e-4 bound
+    ref = kf.flash_attention_plain(cfg, ops)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()

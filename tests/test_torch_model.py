@@ -194,7 +194,9 @@ def test_convert_is_total():
 
 def test_import_leaves_jax_out():
     code = ('import sys, se3_transformer_torch, se3_transformer_torch.kernels.'
-            'build; bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "flax", "se3_transformer_tpu")]; assert not bad, bad')
+            'build, se3_transformer_torch.kernels.attention, '
+            'se3_transformer_torch.kernels.flash; bad = [m for m in '
+            'sys.modules if m.split(".")[0] in ("jax", "flax", '
+            '"se3_transformer_tpu")]; assert not bad, bad')
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,
                    timeout=120)

@@ -24,7 +24,21 @@ failure:
               computes the same function (scaled_dot_product_attention,
               query length 1, boolean mask; forward, and its backward),
               timed only; the streaming kNN attention kernel (#7) against
-              its plain version at the four flagship_fast output degrees.
+              its plain version at the four flagship_fast output degrees;
+              the global attention kernel (7g) against its plain stream at
+              the assembly model's served shapes (n 4096, the last 57
+              nodes masked, two prefix slots, d_out 0 and 1).
+  bx          kernel #2's path: a hidden ConvSE3 of flagship_fast given
+              the structured basis at E = 32768, exactly 16 launches of #2;
+              the conv against the flat basis through #1 (the same bits),
+              its 16 pair contractions and one backward against their
+              plain versions.
+  global serve  the assembly model (attention_mode='global', seeded and
+              conditioned weights) served by InferenceEngine at bucket
+              4096 with return_type=1 on requests of 4096, 4039 and 3000
+              nodes: per request latency, device busy and idle share, host
+              syncs, peak memory, exactly 2 launches of 7g and none of any
+              other kernel; rotation equivariance of the vector output.
   6. serve    each path's forward (dim=64, depth=DEPTH, 4 degrees, 8
               heads, k=32, random seeded weights) served by InferenceEngine
               at bucket 1024: finite outputs, exactly the counted kernel
@@ -48,7 +62,9 @@ failure:
               the card (kernel path) against the same weights on the CPU
               (plain path): the forward, and one training step's loss and
               every gradient (the fuse_pairwise step runs the streaming
-              attention's recompute backward on the card).
+              attention's recompute backward on the card); the assembly
+              model at n 64 on the card against the CPU, forward and one
+              backward through the replay.
 
 Prints per-shape, per-request and per-step lines, then the nvidia-smi line,
 a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}.
@@ -69,6 +85,9 @@ import torch
 # per-kernel check tolerance: kernel and plain version sum the same exact
 # products in float32 and differ only in summation order
 KERNEL_RTOL = 1e-4
+# the float32 kernels #2 (float32 trunk) and 7g: the same float32 products
+# in other orders (7g's online softmax against the stream's row softmax)
+F32_RTOL = 1e-5
 # scalar-output invariance under rotation at full size (conditioned random
 # weights, see condition_weights): float32 rounding of the rotated
 # geometry, carried through 6 blocks; a distance that a rotation moves
@@ -119,7 +138,8 @@ ATTN_LAUNCHES = DEPTH * 4
 FLASH_BXF_LAUNCHES = 4 + 4
 
 # the launch counters, in the order of every launch tuple below
-COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash')
+COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
+               'global')
 
 # published dense peaks by card (NVIDIA data sheets): bf16 tensor core,
 # float32 CUDA core (FLOP/s), device memory bandwidth (bytes/s)
@@ -134,7 +154,7 @@ FORWARD_KERNELS = ('pairwise_bxf_kernel', 'pairwise_fwd_kernel',
                    'fwd_reduce_kernel')
 # the attention kernels' names in a profile
 ATTENTION_KERNELS = ('attention_fwd_kernel', 'attention_bwd_kernel',
-                     'flash_fwd_kernel')
+                     'flash_fwd_kernel', 'flash_global_kernel')
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -616,6 +636,371 @@ def phase_flash(peaks):
     return rows, worst
 
 
+def phase_bx(st, peaks):
+    """Kernel #2 on its path: one hidden ConvSE3 of flagship_fast (4
+    degrees of 64 channels, bf16 radial trunk, fuse_basis, conditioned
+    weights) given get_basis's structured 'pqf' basis at n 1024, k 32 (E =
+    32768), with the counts reset just before and read just after: 16
+    launches of #2 and none of any other kernel. The conv is held against
+    the same conv given the flat basis (kernel #1: the same tile, so the
+    same bits), each of its 16 pair contractions against the plain version
+    (bf16 trunk, and one pair in float32 at 1e-5), and one backward
+    through the custom op against autograd through the plain version.
+    Returns (rows, worst error, the path's launches)."""
+    from se3_transformer_torch.kernels import pairwise as kp
+    from se3_transformer_torch.models.se3_transformer import init_parameters
+    from se3_transformer_torch.utils.helpers import batched_index_select
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    n, k, C, mid = 1024, 32, 64, 128
+    fiber = st.Fiber.create(4, C)
+    conv = st.ConvSE3(fiber, fiber, fuse_basis=True, radial_bf16=True)
+    init_parameters(conv, torch.Generator().manual_seed(13))
+    conv = condition_weights(conv.cuda())
+    feats = {str(d): torch.randn(1, n, C, 2 * d + 1, device='cuda',
+                                 generator=gen) for d in range(4)}
+    idx = torch.randint(0, n, (1, n, k), device='cuda', generator=gen)
+    mask = torch.rand(1, n, k, device='cuda', generator=gen) > 0.05
+    rel = torch.randn(1, n, k, 3, device='cuda', generator=gen) * 4.0
+    rel_dist = rel.norm(dim=-1)
+    basis, flat = (st.get_basis(rel, 3, layout=lay)
+                   for lay in ('pqf', 'pfq_flat'))
+
+    def forward(b):
+        with torch.inference_mode():
+            return conv(feats, (idx, mask), rel_dist, b)
+    reset_counts()
+    out = forward(basis)
+    torch.cuda.synchronize()
+    launched = counts()
+    want = tuple(16 if name == 'bx' else 0 for name in COUNT_NAMES)
+    if launched != want:
+        raise AssertionError(f'bx conv: launches {COUNT_NAMES} = {launched}, '
+                             f'want {want}')
+    out_flat = forward(flat)
+    conv_ms = cuda_ms(lambda: forward(basis), reps=5)
+    torch.cuda.synchronize()
+    flat_err = max(float((out[d] - out_flat[d]).abs().max()) for d in out)
+    scale = max(float(out_flat[d].abs().max()) for d in out)
+    if not flat_err <= KERNEL_RTOL * scale:
+        raise AssertionError(f'bx conv vs the flat basis: {flat_err} > '
+                             f'{KERNEL_RTOL} * {scale}')
+
+    # the 16 pair contractions on the conv's own operands
+    with torch.inference_mode():
+        hidden = conv.radial_hidden(rel_dist[..., None]).reshape(-1, mid)
+    E = hidden.shape[0]
+    rows, worst = [], 0.0
+    cases = [(di, do, torch.bfloat16) for di in range(4) for do in range(4)]
+    cases.append((3, 3, torch.float32))
+    for di, do, hdt in cases:
+        P, Q, F = 2 * do + 1, 2 * di + 1, 2 * min(di, do) + 1
+        h = hidden.float().to(hdt).contiguous()
+        w3 = getattr(conv, f'w3_{di}_{do}').detach().to(hdt).contiguous()
+        b3 = getattr(conv, f'b3_{di}_{do}').detach()
+        bp = basis[f'{di},{do}'].reshape(E, P, Q, F).contiguous()
+        x = batched_index_select(feats[str(di)], idx, dim=1).reshape(
+            E, C, Q).contiguous()
+        args = (h, w3, bp, x, b3)
+        got = kp.fused_pairwise_conv_bx(*args)
+        torch.cuda.synchronize()
+        ref = kp.fused_pairwise_conv_bx_plain(*args)
+        err = float((got - ref).abs().max())
+        ref_max = float(ref.abs().max())
+        tol = KERNEL_RTOL if hdt == torch.bfloat16 else F32_RTOL
+        if not (np.isfinite(err) and err <= tol * ref_max):
+            raise AssertionError(f'bx ({di},{do}) {hdt}: max_abs_err {err} > '
+                                 f'{tol} * max|plain| {ref_max}')
+        worst = max(worst, err)
+        bound_ms, bound_by, flops = pairwise_cost(
+            E, mid, C, 64, P, Q, F, 2 if hdt == torch.bfloat16 else 4, peaks)
+        ms = cuda_ms(lambda: kp.fused_pairwise_conv_bx(*args), reps=10)
+        row = dict(pair=[di, do], E=E, h_dtype=str(hdt).split('.')[-1],
+                   max_abs_err=err, max_abs_plain=ref_max, ms=ms,
+                   plain_ms=cuda_ms(lambda: kp.fused_pairwise_conv_bx_plain(
+                       *args), reps=3),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        log('bx', json.dumps(row))
+        del got, ref, args
+    # one backward: kernels A and B and the einsums against autograd
+    # through the plain version, float32 h/w3, the (2, 1) pair
+    P, Q, F = 3, 5, 3
+    leaves = [hidden.float().detach(),
+              conv.w3_2_1.detach().float(), conv.b3_2_1.detach(),
+              basis['2,1'].reshape(E, P, Q, F).contiguous(),
+              batched_index_select(feats['2'], idx, dim=1).reshape(E, C, Q)
+              .contiguous()]
+    g = torch.randn(E, P, 64, device='cuda', generator=gen)
+    grads = []
+    for fn in (kp.pairwise_contract_bx,
+               lambda h, w3, b3, b, x: kp.fused_pairwise_conv_bx_plain(
+                   h, w3, b, x, b3)):
+        ls = [t.clone().requires_grad_() for t in leaves]
+        torch.autograd.backward(fn(*ls), g)
+        grads.append([t.grad for t in ls])
+    bwd_err = {}
+    for name, got, ref in zip(('dh', 'dw3', 'db3', 'dbasis', 'dx'), *grads):
+        err = float((got - ref).abs().max())
+        ref_max = float(ref.abs().max())
+        bwd_err[name] = err / ref_max
+        if not err <= KERNEL_RTOL * ref_max:
+            raise AssertionError(f'bx backward {name}: {err} > {KERNEL_RTOL} '
+                                 f'* {ref_max}')
+    conv_rows = [r for r in rows if r['h_dtype'] == 'bfloat16']
+    log('bx', json.dumps(dict(
+        conv='hidden 4x64 -> 4x64, pqf basis', E=E, launches=launched,
+        conv_forward_ms=conv_ms, flat_basis_max_abs_diff=flat_err,
+        ms=sum(r['ms'] for r in conv_rows),
+        plain_ms=sum(r['plain_ms'] for r in conv_rows),
+        bound_ms=sum(r['bound_ms'] for r in conv_rows),
+        backward_rel_err=bwd_err)))
+    del conv, feats, basis, flat, hidden, leaves, grads
+    torch.cuda.empty_cache()
+    return rows, worst, launched
+
+
+# the assembly model (the JAX package's global configuration,
+# tests/test_assembly.py / scripts/assembly_smoke.py) and its bucket
+ASSEMBLY = dict(num_tokens=24, dim=8, depth=1, num_degrees=2,
+                output_degrees=2, reduce_dim_out=True, attend_self=True,
+                use_null_kv=True, heads=2, dim_head=8,
+                attention_mode='global')
+GLOBAL_BUCKET = 4096
+GLOBAL_PAIRS = ((0, 8), (1, 8))
+
+
+def global_cost(n, pairs, d_out, heads, dim_head, S0, peaks):
+    """(bound_ms, bound_by, flops) of one flash_global_attention call over
+    all n^2 pairs: each input read once (q, the node features, the
+    coordinates and mask, both trunks' parameters, both convs' w3 and b3,
+    the prefix slots), the output written once. The operations, all
+    float32 on the CUDA cores: per pair both trunks' Dense_1 (2 * 2 * 128
+    * 128), the basis and V2, the k and v radial products and applies,
+    the scores and the weighted sum."""
+    _, f32_peak, mem = peaks
+    mid, P = 128, 2 * d_out + 1
+    O = heads * dim_head
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    per_pair = 2 * 2.0 * mid * mid
+    for d, c in pairs:
+        Q, lo = 2 * d + 1, abs(d - d_out)
+        for J in range(lo, d + d_out + 1):
+            per_pair += 2.0 * P * Q * (2 * J + 1) + 2.0 * P * c * Q
+    per_pair += 2 * (2.0 * mid * IF * O + 2.0 * P * IF * O)
+    per_pair += 4.0 * O * P
+    flops = per_pair * n * n
+    Dh = dim_head * P
+    nbytes = 4 * (2 * n * heads * Dh + sum(n * c * (2 * d + 1)
+                                           for d, c in pairs)
+                  + 3 * n + 2 * (7 * mid + mid * mid)
+                  + 2 * (mid + 1) * IF * O + 2 * n * S0 * heads * Dh) + n
+    ops_s, bytes_s = flops / f32_peak, nbytes / mem
+    return max(ops_s, bytes_s) * 1e3, \
+        'operations' if ops_s >= bytes_s else 'bytes', flops
+
+
+def phase_flash_global(peaks):
+    """Kernel 7g against its plain version (the chunked stream) at the
+    served shapes: n 4096 of random-walk coordinates, the last 57 nodes
+    padded at the origin and masked, the [null, self] prefix slots, the
+    assembly model's two input degrees of 8 channels, d_out 0 and 1;
+    relative error, times, bound and TFLOP/s."""
+    from se3_transformer_torch.kernels import flash as kf
+    gen = torch.Generator(device='cuda').manual_seed(14)
+    n, heads, dim_head, mid, pad = GLOBAL_BUCKET, 2, 8, 128, 57
+
+    def rand(*shape, s=1.0):
+        return torch.randn(*shape, device='cuda', generator=gen) * s
+
+    def trunk():
+        return (rand(1, mid), rand(1, mid, s=0.1), 1 + rand(1, mid, s=0.1),
+                rand(1, mid, s=0.1), rand(mid, mid, s=mid ** -0.5),
+                rand(1, mid, s=0.1), 1 + rand(1, mid, s=0.1),
+                rand(1, mid, s=0.1))
+    coords = torch.cumsum(rand(1, n, 3), dim=1)
+    coords[:, n - pad:] = 0.
+    node_mask = (torch.arange(n, device='cuda') < n - pad)[None]
+    xs = tuple(rand(1, n, c, 2 * d + 1) for d, c in GLOBAL_PAIRS)
+    rp_v, rp_k = trunk(), trunk()
+    rows, worst = [], 0.0
+    for d_out in (0, 1):
+        P = 2 * d_out + 1
+        O = heads * dim_head
+        IF = sum(c * (2 * min(d, d_out) + 1) for d, c in GLOBAL_PAIRS)
+        w = (mid * IF) ** -0.5
+        ops = dict(q=rand(1, n, heads, dim_head * P), xs=xs, coords=coords,
+                   rp_v=rp_v, rp_k=rp_k, wv=rand(mid, IF, O, s=w),
+                   bv=rand(IF, O, s=0.1), wk=rand(mid, IF, O, s=w),
+                   bk=rand(IF, O, s=0.1), node_mask=node_mask,
+                   prefix_k=rand(1, n, 2, O * P),
+                   prefix_v=rand(1, n, 2, O * P))
+        cfg = kf.FlashConfig(pairs=GLOBAL_PAIRS, d_out=d_out, heads=heads,
+                             kv_heads=heads, scale=dim_head ** -0.5,
+                             prefix=2, mode='global', exclude_self=True)
+        out = kf.flash_global_attention_fwd(cfg, ops)
+        again = kf.flash_global_attention_fwd(cfg, ops)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f'flash_global d_out={d_out}: two runs '
+                                 f'differ')
+        t0 = time.perf_counter()
+        ref = kf.flash_global_plain(cfg, ops)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (torch.isfinite(out).all() and err <= F32_RTOL * scale):
+            raise AssertionError(f'flash_global d_out={d_out}: max_abs_err '
+                                 f'{err} > {F32_RTOL} * max|plain| {scale}')
+        worst = max(worst, err)
+        del out, again, ref
+        ms = cuda_ms(lambda: kf.flash_global_attention_fwd(cfg, ops), reps=3)
+        bound_ms, bound_by, flops = global_cost(n, GLOBAL_PAIRS, d_out,
+                                                heads, dim_head, 2, peaks)
+        row = dict(d_out=d_out, P=P, IF=IF, n=n, masked=pad,
+                   max_abs_err=err, max_abs_plain=scale, rel_err=err / scale,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, tflop=flops / 1e12,
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        log('flash_global', json.dumps(row))
+        del ops
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_global_serve(st, want):
+    """The assembly model (seeded weights, conditioned) served through
+    InferenceEngine(buckets=(4096,)) with return_type=1 on requests of
+    4096, 4039 and 3000 nodes (token sequences on random-walk chains):
+    per request the latency, exactly `want` launches (COUNT_NAMES order),
+    peak memory, and a profiled run's device busy time, idle share and
+    host syncs; rotation equivariance of the vector output on the
+    4039-node request. Returns the launches of the whole phase."""
+    from se3_transformer_torch.so3 import rot
+    rng = np.random.RandomState(15)
+    model = condition_weights(st.SE3TransformerModule(
+        **ASSEMBLY, generator=torch.Generator().manual_seed(15)))
+    engine = st.InferenceEngine(model, buckets=(GLOBAL_BUCKET,),
+                                return_type=1)
+    requests = [(rng.randint(0, 24, n), chain_coords(rng, n))
+                for n in (4096, 4039, 3000)]
+
+    reset_counts()
+    engine.predict(*requests[1])    # warm-up: allocator, cuBLAS handles
+    forwards = 1
+    outs, rows = [], []
+    for i, (tokens, coords) in enumerate(requests):
+        before = counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = engine.predict(tokens, coords)
+        dt = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        forwards += 1
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        n = len(tokens)
+        if out.shape != (n, 3) or not np.isfinite(out).all():
+            raise AssertionError(f'global request {i}: shape {out.shape} or '
+                                 f'non-finite output')
+        if launched != want:
+            raise AssertionError(f'global request {i}: launches '
+                                 f'{COUNT_NAMES} = {launched}, want {want}')
+        outs.append(out)
+        rows.append(dict(request=i, n=n, bucket=GLOBAL_BUCKET,
+                         latency_ms=dt * 1e3, nodes_per_s=n / dt,
+                         launches=launched, max_memory_allocated_gb=peak_gb))
+    # where the time goes: each request once more under the profiler,
+    # after the timed ones. A request right after a profiler session takes
+    # ~300 ms more host time (device time unchanged): one unmeasured
+    # request absorbs it before the next measurement.
+    settle_ms = []
+    for row, request in zip(rows, requests):
+        _, _, attn_ms, device_ms, wall_ms, syncs = profile_request(
+            engine, request)
+        t0 = time.perf_counter()
+        engine.predict(*request)
+        settle_ms.append((time.perf_counter() - t0) * 1e3)
+        forwards += 3
+        log('global_serve', json.dumps(dict(
+            row, profiled_wall_ms=wall_ms, device_busy_ms=device_ms,
+            global_kernel_ms=attn_ms, idle_share=1 - device_ms / wall_ms,
+            host_syncs_per_forward=syncs)))
+    # rotation equivariance of the vector output (rotation in float64)
+    R = rot(0.37, 1.12, -0.64)
+    tokens, coords = requests[1]
+    out_r = engine.predict(tokens, (coords.astype(np.float64) @ R)
+                           .astype(np.float32))
+    forwards += 1
+    err = float(np.sqrt(((out_r.astype(np.float64)
+                          - outs[1].astype(np.float64) @ R) ** 2)
+                        .sum(-1)).max())
+    scale = float(np.abs(outs[1]).max())
+    launches = counts()
+    if launches != tuple(w * forwards for w in want):
+        raise AssertionError(f'global serve: launches {launches} for '
+                             f'{forwards} forwards')
+    log('global_serve', json.dumps(dict(
+        equivariance_l2=err, max_abs_out=scale, rtol=ROTATION_RTOL,
+        latency_ms_after_profiler=settle_ms, forwards=forwards, launches=launches, stats=engine.stats())))
+    if not err <= ROTATION_RTOL * scale:
+        raise AssertionError(f'global serve: equivariance {err} > '
+                             f'{ROTATION_RTOL} * max|out| {scale}')
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_global_reference(st):
+    """The assembly model at n = 64 (5 padded) on the card (kernel 7g)
+    and on the CPU (the plain stream) from the same weights: the vector
+    output, then one backward (the replay of the plain stream, on the
+    card's cuBLAS) and every parameter's gradient."""
+    rng = np.random.RandomState(16)
+    n = 64
+    tokens = rng.randint(0, 24, (1, n))
+    coords = chain_coords(rng, n)[None]
+    mask = np.arange(n)[None] < n - 5
+    target = rng.normal(size=(1, n, 3)).astype(np.float32)
+    results = []
+    for device in ('cuda', 'cpu'):
+        model = condition_weights(st.SE3TransformerModule(
+            **ASSEMBLY, device=device,
+            generator=torch.Generator().manual_seed(17)))
+        args = [torch.as_tensor(a, device=device)
+                for a in (tokens, coords, mask)]
+        out = model(*args, return_type=1)
+        ((out - torch.as_tensor(target, device=device)) ** 2).sum().backward()
+        results.append((out.detach().cpu().numpy(),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()
+                         if p.grad is not None}))
+    (out_c, grads_c), (out_h, grads_h) = results
+    err = float(np.abs(out_c - out_h).max())
+    scale = float(np.abs(out_h).max())
+    worst, worst_key = 0.0, None
+    if set(grads_c) != set(grads_h):
+        raise AssertionError('global reference: card and CPU differ in which '
+                             'parameters have gradients')
+    for key, ref in grads_h.items():
+        rel = float((grads_c[key] - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        if not np.isfinite(rel):
+            raise AssertionError(f'global reference: {key} not finite')
+        if rel > worst:
+            worst, worst_key = rel, key
+    log('global_reference', json.dumps(dict(
+        n=n, max_abs_err=err, max_abs_cpu=scale, rtol=REF_RTOL_F32,
+        worst_grad_rel_err=worst, worst_grad=worst_key, leaves=len(grads_h),
+        grad_rtol=REF_GRAD_RTOL_F32)))
+    if not (np.isfinite(out_c).all() and err <= REF_RTOL_F32 * scale):
+        raise AssertionError(f'global card vs CPU: {err} > {REF_RTOL_F32} * '
+                             f'{scale}')
+    if worst > REF_GRAD_RTOL_F32:
+        raise AssertionError(f'global card vs CPU gradient {worst_key}: '
+                             f'{worst} > {REF_GRAD_RTOL_F32}')
+
+
 def chain_coords(rng, n):
     """A random-walk chain of 3.8-unit steps (a protein backbone's shape)."""
     steps = rng.normal(size=(n, 3))
@@ -827,7 +1212,8 @@ def profile_step(trainer, batch, noise):
 def counters():
     """(wrapper, attribute) of every launch counter, in COUNT_NAMES order:
     the pairwise forwards bxf and fwd, backward kernels A and B, the fused
-    attention forward and backward, the streaming attention."""
+    attention forward and backward, the streaming attention, the
+    structured-basis forward bx, the global attention."""
     from se3_transformer_torch.kernels import attention as ka
     from se3_transformer_torch.kernels import flash as kf
     from se3_transformer_torch.kernels import pairwise as kp
@@ -837,7 +1223,9 @@ def counters():
             (kp.fused_pairwise_conv_bwd, 'launches_b'),
             (ka.fused_attention_fwd, 'launches'),
             (ka.fused_attention_bwd, 'launches'),
-            (kf.flash_attention_fwd, 'launches'))
+            (kf.flash_attention_fwd, 'launches'),
+            (kp.fused_pairwise_conv_bx, 'launches'),
+            (kf.flash_global_attention_fwd, 'launches'))
 
 
 def counts():
@@ -1074,14 +1462,20 @@ def main() -> int:
     # 5. the attention kernels vs plain, with the library yardstick
     attn_rows, attn_worst = phase_attention(peaks)
     flash_rows, flash_worst = phase_flash(peaks)
+    gflash_rows, gflash_worst = phase_flash_global(peaks)
     log(f'phase: kernels done at {time.perf_counter() - t_start:.0f} s')
 
     # 6-7. the main paths, each with the counts reset just before and read
     # just after; launch tuples in COUNT_NAMES order
-    def launches(bxf=0, fwd=0, a=0, b=0, attn_fwd=0, attn_bwd=0, flash=0):
-        return (bxf, fwd, a, b, attn_fwd, attn_bwd, flash)
+    def launches(bxf=0, fwd=0, a=0, b=0, attn_fwd=0, attn_bwd=0, flash=0,
+                 bx=0, glob=0):
+        return (bxf, fwd, a, b, attn_fwd, attn_bwd, flash, bx, glob)
     fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
+    bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
     paths = [
+        bx_launches,
+        # the assembly model: one 7g launch per output degree (2)
+        phase_global_serve(st, launches(glob=2)),
         phase_serve(st, 'flagship_fast',
                     launches(bxf=4 + REPLAY_LAUNCHES + 4)),
         phase_train(st, 'flagship_fast',
@@ -1120,6 +1514,7 @@ def main() -> int:
     # 8. references on small inputs
     phase_reference(st)
     phase_train_reference(st)
+    phase_global_reference(st)
     log(f'phase: references done at {time.perf_counter() - t_start:.0f} s')
 
     def unchunked(table, dtype):
@@ -1167,7 +1562,13 @@ def main() -> int:
               tpu + 'pallas_attention.py:267', total[5], attn_worst['bwd'],
               attn_rows, '_bwd'),
         entry('flash_attention', 'flash_fwd.cu', tpu + 'pallas_flash.py:699',
-              total[6], flash_worst, flash_rows)]
+              total[6], flash_worst, flash_rows),
+        entry('fused_pairwise_conv_bx', 'pairwise_bxf.cu', pallas + '794',
+              total[7], bx_worst, [r for r in bx_rows
+                                   if r['h_dtype'] == 'bfloat16']),
+        entry('flash_global_attention', 'flash_global.cu',
+              tpu + 'pallas_flash.py:1073', total[8], gflash_worst,
+              gflash_rows)]
     missing = [k['name'] for k in kernels if not k['launches']]
     if missing:
         raise AssertionError(f'kernels never launched on a main path: '

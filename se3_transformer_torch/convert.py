@@ -1,13 +1,14 @@
 """flax -> torch parameter conversion.
 
 The port's modules name their parameters after the flax ones, so a flax
-path maps to a state_dict key by joining with '.', except for the two layer
-kinds whose torch holders differ:
+path maps to a state_dict key by joining with '.', except for the three
+layer kinds whose torch holders differ:
 
     <path>/Dense_k/kernel [in, out]  ->  <path>.Dense_k.weight [out, in]
     <path>/Dense_k/bias              ->  <path>.Dense_k.bias
     <path>/LayerNorm_k/scale         ->  <path>.LayerNorm_k.weight
     <path>/LayerNorm_k/bias          ->  <path>.LayerNorm_k.bias
+    <path>/embedding (nn.Embed)      ->  <path>.weight (nn.Embedding)
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ def convert_flax_params(params: Mapping, model: torch.nn.Module
         if re.fullmatch(r'Dense_\d+', layer) and name == 'kernel':
             arr, name = arr.T, 'weight'
         elif re.fullmatch(r'LayerNorm_\d+', layer) and name == 'scale':
+            name = 'weight'
+        elif name == 'embedding':
             name = 'weight'
         key = '.'.join(p for p in (*head, layer, name) if p)
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))

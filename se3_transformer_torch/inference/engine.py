@@ -24,17 +24,21 @@ def pad_to_bucket(feat_seqs, coord_seqs, bucket_len: int,
     """Ragged (feats [n_i, d], coords [n_i, 3]) sequences -> feats
     [B, bucket_len, d] / coords [B, bucket_len, 3] float32 zero-padded, and
     mask [B, bucket_len]; sequences longer than the bucket are truncated,
-    and all-padding rows fill the batch up to `batch_size`."""
+    and all-padding rows fill the batch up to `batch_size`. Integer token
+    sequences [n_i] (a num_tokens model) pad to tokens [B, bucket_len]
+    int64 with token 0, as the JAX package pads them."""
     count = len(feat_seqs)
     B = count if batch_size is None else batch_size
     if count > B:
         raise ValueError(f'{count} sequences do not fit a batch of {B}')
-    d = np.asarray(feat_seqs[0]).shape[-1]
-    feats = np.zeros((B, bucket_len, d), np.float32)
+    first = np.asarray(feat_seqs[0])
+    tokens = first.ndim == 1 and np.issubdtype(first.dtype, np.integer)
+    dtype = np.int64 if tokens else np.float32
+    feats = np.zeros((B, bucket_len) + first.shape[1:], dtype)
     coords = np.zeros((B, bucket_len, 3), np.float32)
     mask = np.zeros((B, bucket_len), bool)
     for i, (f, c) in enumerate(zip(feat_seqs, coord_seqs)):
-        f = np.asarray(f, np.float32)[:bucket_len]
+        f = np.asarray(f, dtype)[:bucket_len]
         c = np.asarray(c, np.float32).reshape(-1, 3)[:bucket_len]
         feats[i, :len(f)] = f
         coords[i, :len(c)] = c
@@ -48,12 +52,18 @@ class InferenceEngine:
         engine = InferenceEngine(flagship_fast(), buckets=(256, 1024))
         out = engine.predict(feats, coords)            # one request
         out = engine.run(1024, feats, coords, mask)    # a padded batch
+
+    feats are float features [n, d], or integer tokens [n] for a
+    num_tokens model. `return_type` is the output degree the module
+    returns (1 by default, as in the JAX engine; a module with one output
+    degree returns degree 0 whatever it is).
     """
 
     def __init__(self, module: torch.nn.Module, *,
                  buckets: Sequence[int] = (64, 128, 256, 512),
-                 batch_size: int = 1, device='cuda'):
+                 batch_size: int = 1, return_type: int = 1, device='cuda'):
         self.device = resolve_device(device)
+        self.return_type = return_type
         self.module = module.to(self.device).eval()
         self.buckets = tuple(sorted(int(b) for b in buckets))
         if not self.buckets:
@@ -68,16 +78,18 @@ class InferenceEngine:
         return next((b for b in self.buckets if b >= length), None)
 
     def run(self, bucket: int, feats, coords, mask) -> torch.Tensor:
-        """One padded batch: feats [B, bucket, d], coords [B, bucket, 3],
-        mask [B, bucket] -> [B, bucket, d_out] on the engine's device.
+        """One padded batch: feats [B, bucket, d] (or tokens [B, bucket]),
+        coords [B, bucket, 3], mask [B, bucket] -> the module's output of
+        degree `return_type` on the engine's device.
         Returns after the device has finished; the recorded latency runs
         from the host-to-device copies to that synchronize."""
         if bucket not in self.buckets:
             raise ValueError(f'{bucket} is not a configured bucket')
         expect = (self.batch_size, bucket)
         t0 = time.perf_counter()
-        feats = torch.as_tensor(feats, dtype=torch.float32,
-                                device=self.device)
+        feats = torch.as_tensor(feats)
+        feats = feats.to(self.device, torch.float32 if
+                         feats.is_floating_point() else torch.int64)
         coords = torch.as_tensor(coords, dtype=torch.float32,
                                  device=self.device)
         mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
@@ -86,7 +98,8 @@ class InferenceEngine:
                 raise ValueError(f'{name} has shape {tuple(t.shape)}; the '
                                  f'bucket takes {expect}')
         with torch.inference_mode():
-            out = self.module(feats, coords, mask)
+            out = self.module(feats, coords, mask,
+                              return_type=self.return_type)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self.latency_s[bucket].append(time.perf_counter() - t0)

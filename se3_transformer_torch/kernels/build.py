@@ -3,7 +3,7 @@
 Each source under `csrc/` (`pairwise_bxf.cu` and `pairwise_fwd.cu`, the
 pairwise forwards; `pairwise_bwd.cu`, their backward; `attention.cu`, the
 fused attention and its backward; `flash_fwd.cu`, the streaming kNN
-attention) is compiled by its own `nvcc -c` for
+attention; `flash_global.cu`, the global attention) is compiled by its own `nvcc -c` for
 Hopper (`sm_90a`), all started together, and the objects are linked into
 one shared library with a plain C interface that `ctypes` loads. The build
 happens at first use, never at import, into `kernels/build/` beside this
@@ -25,7 +25,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, 'csrc')
 SOURCES = tuple(os.path.join(CSRC_DIR, f)
                 for f in ('pairwise_bxf.cu', 'pairwise_fwd.cu',
-                          'pairwise_bwd.cu', 'attention.cu', 'flash_fwd.cu'))
+                          'pairwise_bwd.cu', 'attention.cu', 'flash_fwd.cu',
+                          'flash_global.cu'))
 HEADERS = (os.path.join(CSRC_DIR, 'common.cuh'),)
 BUILD_DIR = os.path.join(_HERE, 'build')
 
@@ -115,9 +116,10 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(library_path())
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # (h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream)
-            lib.se3_pairwise_bxf.argtypes = [vp, vp, vp, vp, vp, vp,
-                                             ci, ci, ci, ci, ci, ci, vp]
+            # (h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream),
+            # the flat basis (bxf) or the structured one (bx)
+            for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx):
+                fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
             # (h, w3, b3, v2, out, work, E, IF, O, P, i_per_split,
             #  h_is_bf16, stream)
             lib.se3_pairwise_fwd.argtypes = [vp] * 6 + [ci] * 6 + [vp]
@@ -137,7 +139,13 @@ def load_library() -> ctypes.CDLL:
             #  n_pairs, B, n, K, S, S0, heads, IF, P, h_is_bf16, scale,
             #  stream)
             lib.se3_flash_fwd.argtypes = [vp] * 18 + [ci] * 22 + [cf, vp]
-            for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_fwd,
+            # (q, x0..x3, coords, nodemask, rp, wk, wv, bk, bv, prefix_k,
+            #  prefix_v, cg, shk, out, pair_d[4], pair_c[4], cg_off[4],
+            #  n_pairs, B, n, S0, heads, IF, P, L, exclude_self, scale,
+            #  stream)
+            lib.se3_flash_global.argtypes = [vp] * 17 + [ci] * 21 + [cf, vp]
+            for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx,
+                       lib.se3_flash_global, lib.se3_pairwise_fwd,
                        lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_b,
                        lib.se3_attention_fwd, lib.se3_attention_bwd,
                        lib.se3_flash_fwd):

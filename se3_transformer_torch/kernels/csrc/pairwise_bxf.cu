@@ -4,9 +4,13 @@
 //   R[e, i, o]   = sum_m h[e, m] * W3[m, i, o] + b3[i, o]      (i = c*F + f)
 //   V2[e, p, c, f] = sum_q B[e, (p, f, q)] * x[e, c, q]
 //
-// Replaces se3_transformer_tpu/kernels/pallas_pairwise.py::_fwd_bx_kernel
-// (driven by fused_pairwise_conv_bxf). As there, neither V2 nor R is ever
-// written to device memory.
+// Replaces se3_transformer_tpu/kernels/pallas_pairwise.py::_fwd_bx_kernel,
+// driven by fused_pairwise_conv_bxf (the flat basis B[e, (p, f, q)], entry
+// point se3_pairwise_bxf) and by fused_pairwise_conv_bx (the structured
+// basis B[e, p, q, f] of get_basis's default layout, se3_pairwise_bx): one
+// tile, templated on the basis layout, which only changes how the V2 build
+// indexes the staged basis rows. As there, neither V2 nor R is ever written
+// to device memory.
 //
 // What bounds it on this card: the radial product R = h.W3 is the work.
 // At the flagship shape (E = 32768 edges, mid = 128, C = O = 64) the (3,3)
@@ -39,7 +43,7 @@ namespace {
 
 using namespace se3;
 
-template <typename T, int P, int Q>
+template <typename T, int P, int Q, bool kPQF>
 __global__ void __launch_bounds__(NTHREADS, 1)
 pairwise_bxf_kernel(const T* __restrict__ h, const T* __restrict__ w3,
                     const float* __restrict__ b3, const float* __restrict__ basis,
@@ -69,7 +73,7 @@ pairwise_bxf_kernel(const T* __restrict__ h, const T* __restrict__ w3,
   load_h(sH, h, e0, rows, tid);
   load_w(sW, w3, 0, CF, O, o0, tid);
   cp_async_commit();
-  // basis tile: the CTA's rows are contiguous in memory
+  // basis tile: the CTA's rows are contiguous in memory (either layout)
   for (int idx = tid; idx < BE * PFQ; idx += NTHREADS)
     sB[idx] = idx < rows * PFQ ? __ldg(basis + (size_t)e0 * PFQ + idx) : 0.f;
 
@@ -95,11 +99,19 @@ pairwise_bxf_kernel(const T* __restrict__ h, const T* __restrict__ w3,
       __syncthreads();
       for (int idx = tid; idx < BE * PF; idx += NTHREADS) {
         const int r = idx / PF, pf = idx - r * PF;
-        const float* brow = sB + r * PFQ + pf * Q;
         const float* xr = sX + r * Q;
         float v = 0.f;
+        if constexpr (kPQF) {
+          // B[e, p, q, f]: the q run of (p, f) has stride F
+          const int p = pf / F, ff = pf - p * F;
+          const float* bcol = sB + r * PFQ + p * Q * F + ff;
 #pragma unroll
-        for (int q = 0; q < Q; ++q) v = fmaf(brow[q], xr[q], v);
+          for (int q = 0; q < Q; ++q) v = fmaf(bcol[q * F], xr[q], v);
+        } else {
+          const float* brow = sB + r * PFQ + pf * Q;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) v = fmaf(brow[q], xr[q], v);
+        }
         sV[idx] = v;
       }
     }
@@ -163,14 +175,14 @@ pairwise_bxf_kernel(const T* __restrict__ h, const T* __restrict__ w3,
     }
 }
 
-template <typename T, int P, int Q>
+template <typename T, int P, int Q, bool kPQF>
 cudaError_t launch(const void* h, const void* w3, const void* b3, const void* basis,
                    const void* x, void* out, int E, int C, int O, cudaStream_t stream) {
   constexpr int F = P < Q ? P : Q;
   constexpr size_t smem =
       sizeof(T) * (size_t)(BE * Tile<T>::HS + 2 * MID * Tile<T>::WS) +
       sizeof(float) * (size_t)(BE * P * F * Q + BE * Q + BE * P * F);
-  auto kern = pairwise_bxf_kernel<T, P, Q>;
+  auto kern = pairwise_bxf_kernel<T, P, Q, kPQF>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -182,12 +194,12 @@ cudaError_t launch(const void* h, const void* w3, const void* b3, const void* ba
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPQF>
 cudaError_t dispatch(int P, int Q, const void* h, const void* w3, const void* b3,
                      const void* basis, const void* x, void* out, int E, int C, int O,
                      cudaStream_t s) {
 #define SE3_PQ(PP, QQ) \
-  if (P == PP && Q == QQ) return launch<T, PP, QQ>(h, w3, b3, basis, x, out, E, C, O, s);
+  if (P == PP && Q == QQ) return launch<T, PP, QQ, kPQF>(h, w3, b3, basis, x, out, E, C, O, s);
 #define SE3_P(PP) SE3_PQ(PP, 1) SE3_PQ(PP, 3) SE3_PQ(PP, 5) SE3_PQ(PP, 7)
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
 #undef SE3_P
@@ -195,21 +207,36 @@ cudaError_t dispatch(int P, int Q, const void* h, const void* w3, const void* b3
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes). Returns the launch status
-// (cudaGetLastError() right after the launch); 0 is success. Pointers are
-// device pointers to contiguous tensors; the caller checks shapes: mid ==
-// 128, O % 64 == 0, P and Q in {1, 3, 5, 7}, h/w3 bf16 or f32, the rest f32.
-extern "C" int se3_pairwise_bxf(const void* h, const void* w3, const void* b3,
-                                const void* basis, const void* x, void* out, int E,
-                                int C, int O, int P, int Q, int h_is_bf16,
-                                void* stream) {
+template <bool kPQF>
+int entry(const void* h, const void* w3, const void* b3, const void* basis, const void* x,
+          void* out, int E, int C, int O, int P, int Q, int h_is_bf16, void* stream) {
   if (E <= 0) return 0;
   if (O <= 0 || O % BO != 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      h_is_bf16 ? dispatch<__nv_bfloat16>(P, Q, h, w3, b3, basis, x, out, E, C, O, s)
-                : dispatch<float>(P, Q, h, w3, b3, basis, x, out, E, C, O, s);
+      h_is_bf16 ? dispatch<__nv_bfloat16, kPQF>(P, Q, h, w3, b3, basis, x, out, E, C, O, s)
+                : dispatch<float, kPQF>(P, Q, h, w3, b3, basis, x, out, E, C, O, s);
   return (int)err;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each returns the launch status
+// (cudaGetLastError() right after the launch); 0 is success. Pointers are
+// device pointers to contiguous tensors; the caller checks shapes: mid ==
+// 128, O % 64 == 0, P and Q in {1, 3, 5, 7}, h/w3 bf16 or f32, the rest f32.
+// se3_pairwise_bxf takes the flat basis [E, P*F*Q] in (p, f, q) order,
+// se3_pairwise_bx the structured basis [E, P, Q, F].
+extern "C" int se3_pairwise_bxf(const void* h, const void* w3, const void* b3,
+                                const void* basis, const void* x, void* out, int E,
+                                int C, int O, int P, int Q, int h_is_bf16,
+                                void* stream) {
+  return entry<false>(h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream);
+}
+
+extern "C" int se3_pairwise_bx(const void* h, const void* w3, const void* b3,
+                               const void* basis, const void* x, void* out, int E,
+                               int C, int O, int P, int Q, int h_is_bf16,
+                               void* stream) {
+  return entry<true>(h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream);
 }

@@ -36,11 +36,23 @@ CUDA tensor launches the hand-written Hopper kernel of csrc/flash_fwd.cu
 replays the plain chunked stream under autograd, one node chunk at a time
 (the port of `_flash_core_bwd`, which JAX runs in XLA too).
 
-Not ported (NotImplementedError): global mode, the so2 arm, tied keys and
-values, the quantized `wv_scale`/`wk_scale` epilogue.
+Global mode (`flash_global_attention`, the port of pallas_flash.py::
+flash_global_attention with the dense arm): no neighbor list; every node
+attends to the prefix slots and to every other node, the pair payload
+(distance, the inlined radial trunk of `_radial_apply`, the SH stack)
+rebuilt from the coordinates [B, n, 3]. The plain version
+(`flash_global_plain`, the JAX XLA stream in global mode) streams query-row
+chunks, n // 16 of them; a CUDA tensor launches csrc/flash_global.cu
+(`flash_global_attention_fwd`, with its own `.launches`). Its custom op
+`se3_torch::flash_global_attention` saves only its inputs and replays the
+plain stream in its backward.
+
+Not ported (NotImplementedError): the so2 arm, tied keys and values, the
+quantized `wv_scale`/`wk_scale` epilogue.
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -70,15 +82,17 @@ STREAM_ROWS = 16
 
 
 class FlashConfig(NamedTuple):
-    """Static configuration of one call: kNN mode, dense arm, untied
-    keys and values (pallas_flash.py::FlashConfig's other fields are not
-    ported)."""
+    """Static configuration of one call: kNN or global mode, dense arm,
+    untied keys and values (pallas_flash.py::FlashConfig's other fields
+    are not ported)."""
     pairs: Tuple[Tuple[int, int], ...]  # (d_in, channels) per input degree
     d_out: int
     heads: int
     kv_heads: int
     scale: float
     prefix: int = 0                     # always-valid leading kv slots
+    mode: str = 'knn'                   # 'knn' | 'global'
+    exclude_self: bool = False          # global mode: mask the j == i slot
 
 
 @lru_cache(maxsize=None)
@@ -265,6 +279,67 @@ def _cg_buffer(d_ins: Tuple[int, ...], d_out: int, device: torch.device):
     return buf, tuple(offsets)
 
 
+def _check_xs(cfg: FlashConfig, xs, B: int, n: int) -> int:
+    """The node features both kernels take: one float32 [B, n, C, 2 d + 1]
+    per input degree (1 to MAX_PAIRS of them, degree <= MAX_DEGREE);
+    returns IF, the pairs' C * F summed."""
+    if not 1 <= len(cfg.pairs) <= MAX_PAIRS or len(xs) != len(cfg.pairs):
+        raise ValueError(f'the kernel takes 1 to {MAX_PAIRS} input degrees, '
+                         f'got pairs {cfg.pairs} and {len(xs)} xs')
+    IF = 0
+    for (d_in, c), x in zip(cfg.pairs, xs):
+        if not 0 <= d_in <= MAX_DEGREE or x.dtype != torch.float32 \
+                or tuple(x.shape) != (B, n, c, 2 * d_in + 1):
+            raise ValueError(f'x of degree {d_in} must be float32 [{B}, {n}, '
+                             f'{c}, {2 * d_in + 1}] (degree <= {MAX_DEGREE}), '
+                             f'got {x.dtype} {tuple(x.shape)}')
+        IF += c * (2 * min(d_in, cfg.d_out) + 1)
+    return IF
+
+
+def _check_prefix(cfg: FlashConfig, ops: dict, B: int, n: int, width: int):
+    """cfg.prefix <= MAX_PREFIX slots of float32 [B, n, S0, width]."""
+    S0 = cfg.prefix
+    if S0 > MAX_PREFIX:
+        raise ValueError(f'{S0} prefix slots is past the kernel limit of '
+                         f'{MAX_PREFIX}')
+    for name in ('prefix_k', 'prefix_v') if S0 else ():
+        t = ops[name]
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, n, S0, width):
+            raise ValueError(f'{name} must be float32 [{B}, {n}, {S0}, '
+                             f'{width}], got {t.dtype} {tuple(t.shape)}')
+
+
+def _check_placement(tensors, dev: torch.device):
+    """Every operand on `dev` and contiguous."""
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f'an operand is on {t.device}, q on {dev}')
+        if not t.is_contiguous():
+            raise ValueError(f'operand of shape {tuple(t.shape)} must be '
+                             f'contiguous')
+
+
+def _pointers(ops: dict):
+    """name -> the operand's device pointer, None for an absent one."""
+    def ptr(name):
+        t = ops.get(name)
+        return None if t is None else t.data_ptr()
+    return ptr
+
+
+def _pair_args(cfg: FlashConfig, xs, device: torch.device):
+    """The pairs as the kernels' C interfaces take them: the Q_J constants
+    buffer, then the x pointers, degrees, channels and constant offsets,
+    each padded to MAX_PAIRS."""
+    cg, offsets = _cg_buffer(tuple(d for d, _ in cfg.pairs), cfg.d_out,
+                             device)
+    pad = MAX_PAIRS - len(cfg.pairs)
+    return (cg, [x.data_ptr() for x in xs] + [None] * pad,
+            [d for d, _ in cfg.pairs] + [0] * pad,
+            [c for _, c in cfg.pairs] + [0] * pad, list(offsets) + [0] * pad)
+
+
 def _check(cfg: FlashConfig, ops: dict):
     """Shapes, dtypes, devices and contiguity the kernel takes; returns
     (B, n, K, S, S0, IF, h_is_bf16)."""
@@ -284,17 +359,7 @@ def _check(cfg: FlashConfig, ops: dict):
                          f'with heads * dim_head = {O_WIDTH}; got q '
                          f'{tuple(q.shape)}, heads {cfg.heads}, kv_heads '
                          f'{cfg.kv_heads}, d_out {cfg.d_out}')
-    if not 1 <= len(cfg.pairs) <= MAX_PAIRS or len(ops['xs']) != len(cfg.pairs):
-        raise ValueError(f'the kernel takes 1 to {MAX_PAIRS} input degrees, '
-                         f'got pairs {cfg.pairs} and {len(ops["xs"])} xs')
-    IF = 0
-    for (d_in, c), x in zip(cfg.pairs, ops['xs']):
-        if not 0 <= d_in <= MAX_DEGREE or x.dtype != torch.float32 \
-                or tuple(x.shape) != (B, n, c, 2 * d_in + 1):
-            raise ValueError(f'x of degree {d_in} must be float32 [{B}, {n}, '
-                             f'{c}, {2 * d_in + 1}] (degree <= {MAX_DEGREE}), '
-                             f'got {x.dtype} {tuple(x.shape)}')
-        IF += c * (2 * min(d_in, cfg.d_out) + 1)
+    IF = _check_xs(cfg, ops['xs'], B, n)
     idx = ops['idx']
     if idx.dtype != torch.int64 or idx.ndim != 3 or idx.shape[:2] != (B, n):
         raise ValueError(f'idx must be int64 [{B}, {n}, K], got {idx.dtype} '
@@ -331,26 +396,13 @@ def _check(cfg: FlashConfig, ops: dict):
             or sh.ndim != 4 or not need <= S <= MAX_SH:
         raise ValueError(f'sh must be float32 [{B}, {n}, {K}, S] with {need} '
                          f'<= S <= {MAX_SH}, got {sh.dtype} {tuple(sh.shape)}')
-    S0 = cfg.prefix
-    if S0 > MAX_PREFIX:
-        raise ValueError(f'{S0} prefix slots is past the kernel limit of '
-                         f'{MAX_PREFIX}')
-    for name in ('prefix_k', 'prefix_v') if S0 else ():
-        t = ops[name]
-        if t.dtype != torch.float32 or tuple(t.shape) != (B, n, S0, H * Dh):
-            raise ValueError(f'{name} must be float32 [{B}, {n}, {S0}, '
-                             f'{H * Dh}], got {t.dtype} {tuple(t.shape)}')
-    tensors = [q, idx, h_v, h_k, sh, *ops['xs']] + \
-        [ops[k] for k in ('wv', 'bv', 'wk', 'bk')] + \
-        [t for t in (nmask, ops.get('prefix_k'), ops.get('prefix_v'))
-         if t is not None]
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f'an operand is on {t.device}, q on {dev}')
-        if not t.is_contiguous():
-            raise ValueError(f'operand of shape {tuple(t.shape)} must be '
-                             f'contiguous')
-    return B, n, K, S, S0, IF, h_v.dtype == torch.bfloat16
+    _check_prefix(cfg, ops, B, n, H * Dh)
+    _check_placement([q, idx, h_v, h_k, sh, *ops['xs']]
+                     + [ops[k] for k in ('wv', 'bv', 'wk', 'bk')]
+                     + [t for t in (nmask, ops.get('prefix_k'),
+                                    ops.get('prefix_v')) if t is not None],
+                     dev)
+    return B, n, K, S, cfg.prefix, IF, h_v.dtype == torch.bfloat16
 
 
 def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
@@ -365,25 +417,16 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    cg, offsets = _cg_buffer(tuple(d for d, _ in cfg.pairs), cfg.d_out,
-                             q.device)
-    npairs = len(cfg.pairs)
-    pad = MAX_PAIRS - npairs
-    xs = [x.data_ptr() for x in ops['xs']] + [None] * pad
-    ds = [d for d, _ in cfg.pairs] + [0] * pad
-    cs = [c for _, c in cfg.pairs] + [0] * pad
-    offs = list(offsets) + [0] * pad
+    cg, xs, ds, cs, offs = _pair_args(cfg, ops['xs'], q.device)
 
-    def ptr(name):
-        t = ops.get(name)
-        return None if t is None else t.data_ptr()
+    ptr = _pointers(ops)
     from .build import load_library
     with torch.cuda.device(q.device):
         rc = load_library().se3_flash_fwd(
             q.data_ptr(), *xs, ptr('idx'), ptr('nmask'), ptr('h_v'),
             ptr('h_k'), ptr('wv'), ptr('wk'), ptr('bv'), ptr('bk'), ptr('sh'),
             ptr('prefix_k'), ptr('prefix_v'), cg.data_ptr(), out.data_ptr(),
-            *ds, *cs, *offs, npairs, B, n, K, S, S0, cfg.heads, IF,
+            *ds, *cs, *offs, len(cfg.pairs), B, n, K, S, S0, cfg.heads, IF,
             2 * cfg.d_out + 1, int(bf16), float(cfg.scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f'se3_flash_fwd launch failed: CUDA error {rc}')
@@ -535,3 +578,386 @@ def flash_attention(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
                      c(h_v if h_k is None else h_k), c(wv), c(bv), c(wk),
                      c(bk), c(sh), c(prefix_k), c(prefix_v), flat, int(d_out),
                      int(heads), int(kv_heads), float(scale))
+
+
+# --------------------------------------------------------------------- #
+# global mode: every node attends to every node, the pair payload rebuilt
+# from coordinates (pallas_flash.py::flash_global_attention)
+# --------------------------------------------------------------------- #
+# what csrc/flash_global.cu is built for
+GLOBAL_O_WIDTH = 16   # kv_heads * dim_head
+GLOBAL_MAX_PIF = 256  # P * IF: the V2 tile of 64 pairs held in shared memory
+GLOBAL_MAX_HEADS = 16
+
+
+def _safe_dist(rel: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """|rel| with the square clamped at eps^2 (pallas_flash.py::_safe_dist):
+    finite, with a zero gradient, at rel = 0."""
+    return torch.sqrt(torch.clamp((rel ** 2).sum(-1), min=eps ** 2))
+
+
+def _gelu_tanh(t: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default, the tanh approximation."""
+    return 0.5 * t * (1 + torch.tanh(math.sqrt(2 / math.pi)
+                                     * (t + 0.044715 * t ** 3)))
+
+
+def _radial_ln(t: torch.Tensor, s: torch.Tensor, o: torch.Tensor):
+    """_radial_apply's LayerNorm: the two-pass variance, eps 1e-6 (not
+    flax's one-pass nn.LayerNorm)."""
+    mu = t.mean(-1, keepdim=True)
+    var = ((t - mu) ** 2).mean(-1, keepdim=True)
+    return (t - mu) * torch.rsqrt(var + 1e-6) * s + o
+
+
+def _radial_apply(x: torch.Tensor, rp) -> torch.Tensor:
+    """The inlined radial trunk of the global tile, Dense -> LN -> GELU
+    twice (pallas_flash.py::_radial_apply): x [..., 1], rp the 8-tuple
+    (w1 [1, mid], b1, s1, o1, w2 [mid, mid] (in, out), b2, s2, o2), every
+    1-D parameter [1, mid]."""
+    w1, b1, s1, o1, w2, b2, s2, o2 = rp
+    t = _gelu_tanh(_radial_ln(torch.matmul(x, w1) + b1, s1, o1))
+    t = torch.matmul(t, w2) + b2
+    return _gelu_tanh(_radial_ln(t, s2, o2))
+
+
+def _sh_degree(cfg: FlashConfig) -> int:
+    """The SH stack's degree: flash_sh_payload stacks J = 0..2*degree, and
+    every pair needs J up to d_in + d_out (pallas_flash.py::_sh_degree)."""
+    max_j = max(d_in + cfg.d_out for d_in, _ in cfg.pairs)
+    return (max_j + 1) // 2
+
+
+def _global_edge_payload(cfg: FlashConfig, rel, rp_v, rp_k):
+    """The radial hiddens through the inlined trunk and the SH stack of a
+    [..., 3] rel block (pallas_flash.py::_global_edge_payload, dense arm)."""
+    ef = _safe_dist(rel)[..., None]
+    h_v = _radial_apply(ef, rp_v)
+    h_k = _radial_apply(ef, rp_k)
+    sh = flash_sh_payload(rel, _sh_degree(cfg), differentiable=True)
+    return h_v, h_k, sh
+
+
+# operands of the global stream along the query axis (sliced into chunks)
+_GLOBAL_CHUNKED = ('q', 'prefix_k', 'prefix_v')
+
+
+def _global_chunk_body(cfg: FlashConfig, rows: slice, ops: dict):
+    """The query rows `rows` of the global stream (pallas_flash.py::
+    _chunk_body, global branch): rel from the coordinates, the payload, k
+    and v by the dense arm against every node, the column mask (node mask,
+    and i != j by absolute ids), the prefix slots first, the row
+    attention."""
+    q = ops['q'][:, rows]                             # [B, nc, h, Dh]
+    Dh, kv_h = q.shape[-1], cfg.kv_heads
+    coords = ops['coords']                            # [B, n, 3]
+    n = coords.shape[1]
+    rel = coords[:, rows, None, :] - coords[:, None, :, :]
+    h_v, h_k, sh = _global_edge_payload(cfg, rel, ops['rp_v'], ops['rp_k'])
+    xg = tuple(x[:, None].expand(x.shape[0], q.shape[1], *x.shape[1:])
+               for x in ops['xs'])
+    kv = []
+    for h, w3, b3 in ((h_k, ops['wk'], ops['bk']),
+                      (h_v, ops['wv'], ops['bv'])):
+        t = _kv_block(cfg.pairs, cfg.d_out, xg, h, sh, w3, b3)
+        kv.append(t.reshape(*t.shape[:-2], kv_h, Dh))
+    kv_k, kv_v = kv
+    nmask = None
+    if ops.get('node_mask') is not None:
+        nmask = ops['node_mask'][:, None, :]
+    if cfg.exclude_self:
+        ids = torch.arange(n, device=q.device)
+        notself = (ids[rows][:, None] != ids[None, :])[None]
+        nmask = notself if nmask is None else nmask & notself
+    if nmask is not None:
+        nmask = nmask.expand(*q.shape[:2], n)
+    if cfg.prefix:
+        shape = (*q.shape[:-2], cfg.prefix, kv_h, Dh)
+        kv_k = torch.cat((ops['prefix_k'][:, rows].reshape(shape), kv_k),
+                         dim=-3)
+        kv_v = torch.cat((ops['prefix_v'][:, rows].reshape(shape), kv_v),
+                         dim=-3)
+        if nmask is not None:
+            nmask = torch.cat((nmask.new_ones(*q.shape[:2], cfg.prefix),
+                               nmask), dim=-1)
+    return _row_attention(cfg, q, kv_k, kv_v, nmask)
+
+
+def flash_global_plain(cfg: FlashConfig, ops: dict,
+                       rows: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of the global kernel: the stream over
+    query-row chunks (pallas_flash.py::_flash_stream in global mode, n //
+    16 chunks), each chunk's [rows, n] pair tensors made and dropped in
+    turn; rows = n is the materialized control arm. `ops` holds q, xs,
+    coords, rp_v, rp_k (8-tuples), wv, bv, wk, bk, node_mask, prefix_k and
+    prefix_v under the names of flash_global_attention."""
+    n = ops['q'].shape[1]
+    rows = rows or _chunk_rows(n)
+    return torch.cat([_global_chunk_body(cfg, slice(s, min(s + rows, n)),
+                                         ops)
+                      for s in range(0, n, rows)], dim=1)
+
+
+@lru_cache(maxsize=None)
+def _sh_norm_table(device: torch.device) -> torch.Tensor:
+    """The real SH normalization constants K_lm (l, m <= 6, sqrt(2) in for
+    m > 0) as float32 [7 * 7], l-major, for the kernel's in-tile SH."""
+    from ..so3.spherical_harmonics import _norm_const
+    table = np.zeros((7, 7))
+    for l in range(7):
+        for m in range(l + 1):
+            table[l, m] = _norm_const(l, m)
+    with torch.inference_mode(False):
+        return torch.as_tensor(table.ravel(), dtype=torch.float32,
+                               device=device)
+
+
+def _check_global(cfg: FlashConfig, ops: dict):
+    """Shapes, dtypes, devices and contiguity csrc/flash_global.cu takes;
+    returns (B, n, S0, IF)."""
+    q = ops['q']
+    if q.dtype != torch.float32 or q.ndim != 4:
+        raise TypeError(f'q must be float32 [B, n, h, Dh], got {q.dtype} '
+                        f'{tuple(q.shape)}')
+    B, n, H, Dh = q.shape
+    P = 2 * cfg.d_out + 1
+    if not 0 <= cfg.d_out <= MAX_DEGREE:
+        raise ValueError(f'd_out = {cfg.d_out} is past the kernel limit of '
+                         f'{MAX_DEGREE}')
+    if H != cfg.heads or cfg.heads != cfg.kv_heads \
+            or H > GLOBAL_MAX_HEADS or GLOBAL_O_WIDTH % H \
+            or Dh != (GLOBAL_O_WIDTH // H) * P:
+        raise ValueError(f'the global kernel takes heads == kv_heads with '
+                         f'heads * dim_head = {GLOBAL_O_WIDTH}; got q '
+                         f'{tuple(q.shape)}, heads {cfg.heads}, kv_heads '
+                         f'{cfg.kv_heads}, d_out {cfg.d_out}')
+    if cfg.mode != 'global':
+        raise ValueError(f'the global kernel runs global mode, not '
+                         f'{cfg.mode!r}')
+    IF = _check_xs(cfg, ops['xs'], B, n)
+    if P * IF > GLOBAL_MAX_PIF:
+        raise ValueError(f'P * IF = {P * IF} is past the kernel limit of '
+                         f'{GLOBAL_MAX_PIF}')
+    coords = ops['coords']
+    if coords.dtype != torch.float32 or tuple(coords.shape) != (B, n, 3):
+        raise ValueError(f'coords must be float32 [{B}, {n}, 3], got '
+                         f'{coords.dtype} {tuple(coords.shape)}')
+    shapes = ((1, MID),) * 4 + ((MID, MID),) + ((1, MID),) * 3
+    for name in ('rp_v', 'rp_k'):
+        rp = ops[name]
+        if len(rp) != 8 or any(t.dtype != torch.float32
+                               or tuple(t.shape) != s
+                               for t, s in zip(rp, shapes)):
+            raise ValueError(f'{name} must be the 8-tuple of float32 trunk '
+                             f'parameters of shapes {shapes}')
+    for w, b in (('wv', 'bv'), ('wk', 'bk')):
+        if ops[w].dtype != torch.float32 or ops[b].dtype != torch.float32 \
+                or tuple(ops[w].shape) != (MID, IF, GLOBAL_O_WIDTH) \
+                or tuple(ops[b].shape) != (IF, GLOBAL_O_WIDTH):
+            raise ValueError(f'{w}/{b} must be float32 [{MID}, {IF}, '
+                             f'{GLOBAL_O_WIDTH}] / [{IF}, {GLOBAL_O_WIDTH}], '
+                             f'got {tuple(ops[w].shape)} / '
+                             f'{tuple(ops[b].shape)}')
+    node_mask = ops.get('node_mask')
+    if node_mask is not None and (node_mask.dtype != torch.bool
+                                  or tuple(node_mask.shape) != (B, n)):
+        raise ValueError(f'node_mask must be bool [{B}, {n}], got '
+                         f'{node_mask.dtype} {tuple(node_mask.shape)}')
+    _check_prefix(cfg, ops, B, n, H * Dh)
+    _check_placement([q, coords, *ops['xs'], *ops['rp_v'], *ops['rp_k']]
+                     + [ops[k] for k in ('wv', 'bv', 'wk', 'bk')]
+                     + [t for t in (node_mask, ops.get('prefix_k'),
+                                    ops.get('prefix_v')) if t is not None],
+                     q.device)
+    return B, n, cfg.prefix, IF
+
+
+def _pack_trunks(rp_k, rp_v) -> torch.Tensor:
+    """Both trunks' parameters as the kernel reads them: per trunk (keys,
+    then values) the seven [mid] vectors w1, b1, s1, o1, b2, s2, o2, then
+    w2 [mid, mid] (in, out), float32."""
+    parts = []
+    for w1, b1, s1, o1, w2, b2, s2, o2 in (rp_k, rp_v):
+        parts += [w1, b1, s1, o1, b2, s2, o2, w2]
+    return torch.cat([t.reshape(-1) for t in parts])
+
+
+def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
+    """The global forward on `ops` (flash_global_plain's operands): the
+    kernel of csrc/flash_global.cu on a card, the plain stream on the CPU
+    -> out [B, n, h, Dh] float32."""
+    q = ops['q']
+    if q.device.type == 'cpu':
+        return flash_global_plain(cfg, ops)
+    if q.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {q.device}')
+    B, n, S0, IF = _check_global(cfg, ops)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    cg, xs, ds, cs, offs = _pair_args(cfg, ops['xs'], q.device)
+    rp = _pack_trunks(ops['rp_k'], ops['rp_v'])
+
+    ptr = _pointers(ops)
+    from .build import load_library
+    with torch.cuda.device(q.device):
+        rc = load_library().se3_flash_global(
+            q.data_ptr(), *xs, ptr('coords'), ptr('node_mask'), rp.data_ptr(),
+            ptr('wk'), ptr('wv'), ptr('bk'), ptr('bv'), ptr('prefix_k'),
+            ptr('prefix_v'), cg.data_ptr(), _sh_norm_table(q.device).data_ptr(),
+            out.data_ptr(), *ds, *cs, *offs, len(cfg.pairs), B, n, S0,
+            cfg.heads, IF, 2 * cfg.d_out + 1, 2 * _sh_degree(cfg),
+            int(cfg.exclude_self), float(cfg.scale), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f'se3_flash_global launch failed: CUDA error {rc}')
+    flash_global_attention_fwd.launches += 1
+    return out
+
+
+flash_global_attention_fwd.launches = 0
+
+
+def _global_ops(q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask,
+                prefix_k, prefix_v):
+    return dict(q=q, xs=tuple(xs), coords=coords, rp_v=tuple(rp_v), wv=wv,
+                bv=bv, rp_k=tuple(rp_k), wk=wk, bk=bk, node_mask=node_mask,
+                prefix_k=prefix_k, prefix_v=prefix_v)
+
+
+def _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
+                   exclude_self):
+    return _config(pairs, d_out, heads, kv_heads, scale, prefix_k)._replace(
+        mode='global', exclude_self=bool(exclude_self))
+
+
+@torch.library.custom_op('se3_torch::flash_global_attention', mutates_args=(),
+                         device_types='cpu')
+def _global_op(q: torch.Tensor, xs: List[torch.Tensor], coords: torch.Tensor,
+               rp_v: List[torch.Tensor], wv: torch.Tensor, bv: torch.Tensor,
+               rp_k: List[torch.Tensor], wk: torch.Tensor, bk: torch.Tensor,
+               node_mask: Optional[torch.Tensor],
+               prefix_k: Optional[torch.Tensor],
+               prefix_v: Optional[torch.Tensor], pairs: List[int],
+               d_out: int, heads: int, kv_heads: int, scale: float,
+               exclude_self: bool) -> torch.Tensor:
+    cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
+                         exclude_self)
+    return flash_global_plain(cfg, _global_ops(
+        q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
+        prefix_v))
+
+
+@_global_op.register_kernel('cuda')
+def _(q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
+      prefix_v, pairs, d_out, heads, kv_heads, scale, exclude_self):
+    cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
+                         exclude_self)
+    return flash_global_attention_fwd(cfg, _global_ops(
+        q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
+        prefix_v))
+
+
+def _global_setup(ctx, inputs, output):
+    (q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
+     prefix_v, pairs, d_out, heads, kv_heads, scale, exclude_self) = inputs
+    ctx.save_for_backward(q, coords, wv, bv, wk, bk, node_mask, prefix_k,
+                          prefix_v, *xs, *rp_v, *rp_k)
+    ctx.n_xs = len(xs)
+    ctx.cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
+                             exclude_self)
+
+
+def _global_backward(ctx, g):
+    """The port of pallas_flash.py::_flash_core_bwd in global mode: replay
+    the plain stream under autograd, one query-row chunk at a time, so
+    that only one chunk's [rows, n] pair tensors exist at once; each
+    chunk's gradients are added to the leaves' in chunk order."""
+    (q, coords, wv, bv, wk, bk, node_mask, prefix_k, prefix_v,
+     *rest) = ctx.saved_tensors
+    xs, rp_v, rp_k = (rest[:ctx.n_xs], rest[ctx.n_xs:ctx.n_xs + 8],
+                      rest[ctx.n_xs + 8:])
+    (nq, nxs, ncoords, nrp_v, nwv, nbv, nrp_k, nwk, nbk, _, npk,
+     npv) = ctx.needs_input_grad[:12]
+
+    def leaf(t, want):
+        return None if t is None else t.detach().requires_grad_(bool(want))
+    ops = _global_ops(leaf(q, nq), [leaf(x, w) for x, w in zip(xs, nxs)],
+                      leaf(coords, ncoords),
+                      [leaf(t, w) for t, w in zip(rp_v, nrp_v)],
+                      leaf(wv, nwv), leaf(bv, nbv),
+                      [leaf(t, w) for t, w in zip(rp_k, nrp_k)],
+                      leaf(wk, nwk), leaf(bk, nbk), node_mask,
+                      leaf(prefix_k, npk), leaf(prefix_v, npv))
+    leaves = [t for k, v in ops.items() if k != 'node_mask'
+              for t in (v if isinstance(v, tuple) else (v,))
+              if t is not None and t.requires_grad]
+    g = g.contiguous()
+    n = q.shape[1]
+    rows = _chunk_rows(n)
+    if leaves:
+        with torch.enable_grad():
+            for s in range(0, n, rows):
+                e = min(s + rows, n)
+                out = _global_chunk_body(ctx.cfg, slice(s, e), ops)
+                torch.autograd.backward(out, g[:, s:e], inputs=leaves)
+
+    def grad(t):
+        return None if t is None else t.grad
+    return (grad(ops['q']), [grad(x) for x in ops['xs']],
+            grad(ops['coords']), [grad(t) for t in ops['rp_v']],
+            grad(ops['wv']), grad(ops['bv']),
+            [grad(t) for t in ops['rp_k']], grad(ops['wk']),
+            grad(ops['bk']), None, grad(ops['prefix_k']),
+            grad(ops['prefix_v']), None, None, None, None, None, None)
+
+
+_global_op.register_autograd(_global_backward, setup_context=_global_setup)
+
+
+def flash_global_attention(q, xs, coords, rp_v, wv, bv, *, pairs, d_out,
+                           heads, kv_heads, scale, arm='dense', rp_k=None,
+                           wk=None, bk=None, node_mask=None, prefix_k=None,
+                           prefix_v=None, exclude_self=True,
+                           materialize=False) -> torch.Tensor:
+    """kNN-free global equivariant attention for ONE output degree, with
+    the signature of pallas_flash.py::flash_global_attention: q [B, n, h,
+    Dh]; xs one [B, n, C, 2 d_in + 1] per input degree (`pairs` order);
+    coords [B, n, 3]; rp_v / rp_k the trunks' 8-tuples (1-D leaves taken as
+    [1, mid]); wv, wk [mid, IF, O] and bv, bk [IF, O]; node_mask [B, n]
+    bool (masks columns) or None; prefix_k / prefix_v [B, n, S0, kv_heads
+    * Dh] or None -> out [B, n, h, Dh] float32. Every node attends to the
+    prefix slots and every other node (every node with exclude_self
+    False). Differentiable in every floating operand; saves only its
+    inputs, and its backward replays the plain stream chunk by chunk.
+
+    materialize=True is the control arm: the plain stream as one chunk
+    (every [B, n, n, ...] pair tensor at once), differentiated by plain
+    autograd. The so2 arm and tied keys (no wk) raise
+    NotImplementedError."""
+    if arm != 'dense':
+        raise NotImplementedError(f'only the dense contraction arm is ported '
+                                  f'(arm={arm!r})')
+    if wk is None:
+        raise NotImplementedError('tied keys and values (no wk) are not '
+                                  'ported')
+    if rp_k is None:
+        raise ValueError('untied keys need their radial params')
+    if (prefix_k is None) != (prefix_v is None):
+        raise ValueError('prefix_k and prefix_v come together')
+
+    def c(t):
+        return None if t is None else t.contiguous()
+
+    def trunk(rp):
+        return [c(p.reshape(1, -1) if p.ndim == 1 else p) for p in rp]
+    flat = [int(v) for pair in pairs for v in pair]
+    args = (c(q), [c(x) for x in xs], c(coords), trunk(rp_v), c(wv), c(bv),
+            trunk(rp_k), c(wk), c(bk), c(node_mask), c(prefix_k),
+            c(prefix_v))
+    if materialize:
+        cfg = _global_config(flat, d_out, heads, kv_heads, scale, prefix_k,
+                             exclude_self)
+        return flash_global_plain(cfg, _global_ops(*args),
+                                  rows=q.shape[1])
+    return _global_op(*args, flat, int(d_out), int(heads), int(kv_heads),
+                      float(scale), bool(exclude_self))

@@ -6,7 +6,8 @@ dispatch, and the differentiable ops.
 
 Port of se3_transformer_tpu/kernels/pallas_pairwise.py::fused_pairwise_conv
 (V2 given), ::fused_pairwise_conv_bxf (V2 built from the flat basis and x
-inside the kernel) and ::fused_pairwise_conv_bwd (the backward of both),
+inside the kernel), ::fused_pairwise_conv_bx (the same from the structured
+basis [E, P, Q, F]) and ::fused_pairwise_conv_bwd (the backward of all),
 with the same signatures and row-major layouts: h [E, mid], w3 [mid, IF, O]
 (i = c*F + f, c-major; the V2-given form takes the pairs of one output
 degree concatenated along i), v2 [E, P, IF], basis_flat [E, P*F*Q] in (p,
@@ -16,12 +17,15 @@ takes v2 and g [E, P, O].
 A CPU tensor takes the plain PyTorch version. A CUDA tensor launches the
 hand-written Hopper kernels (csrc/pairwise_fwd.cu, csrc/pairwise_bxf.cu,
 csrc/pairwise_bwd.cu) or raises; nothing falls back.
-`fused_pairwise_conv.launches`, `fused_pairwise_conv_bxf.launches` and
-`fused_pairwise_conv_bwd.launches_a` / `.launches_b` count kernel launches.
+`fused_pairwise_conv.launches`, `fused_pairwise_conv_bxf.launches`,
+`fused_pairwise_conv_bx.launches` and `fused_pairwise_conv_bwd.launches_a`
+/ `.launches_b` count kernel launches.
 
-`pairwise_contract` and `pairwise_contract_bxf` are the differentiable
-forms (the ports of se3_transformer_tpu/ops/conv.py::_pairwise_contract_pallas
-and ::_pairwise_contract_pallas_bxf with their custom_vjps): torch.library
+`pairwise_contract`, `pairwise_contract_bxf` and `pairwise_contract_bx`
+are the differentiable forms (the ports of
+se3_transformer_tpu/ops/conv.py::_pairwise_contract_pallas,
+::_pairwise_contract_pallas_bxf and ::_pairwise_contract_pallas_bx with
+their custom_vjps): torch.library
 custom ops, so that a selective activation checkpoint policy sees each
 forward as one op and can save its output. The int8/fp8 `w3_scale`
 epilogue of the JAX fused_pairwise_conv (quantized serving) is not ported.
@@ -58,7 +62,10 @@ def fused_pairwise_conv_bxf_plain(h: torch.Tensor, w3: torch.Tensor,
     return torch.bmm(v2, R)
 
 
-def _check(h, w3, basis_flat, x, pqf, b3):
+def _check(h, w3, basis_flat, x, pqf, b3, structured=False):
+    """The operands kernel #1 takes (kernel #2 with `structured`: the
+    basis [E, P, Q, F] in place of the flat [E, P*F*Q]); returns
+    (E, C, O)."""
     P, Q, F = pqf
     E = h.shape[0]
     dev = h.device
@@ -86,8 +93,9 @@ def _check(h, w3, basis_flat, x, pqf, b3):
     O = w3.shape[2]
     if tuple(b3.shape) != (C * F, O):
         raise ValueError(f'b3 must be [{C * F}, {O}], got {tuple(b3.shape)}')
-    if tuple(basis_flat.shape) != (E, P * F * Q):
-        raise ValueError(f'basis_flat must be [{E}, {P * F * Q}], got '
+    want = (E, P, Q, F) if structured else (E, P * F * Q)
+    if tuple(basis_flat.shape) != want:
+        raise ValueError(f'the basis must be {list(want)}, got '
                          f'{tuple(basis_flat.shape)}')
     for name, t in (('h', h), ('w3', w3), ('basis_flat', basis_flat),
                     ('x', x), ('b3', b3)):
@@ -126,6 +134,66 @@ def fused_pairwise_conv_bxf(h: torch.Tensor, w3: torch.Tensor,
 
 
 fused_pairwise_conv_bxf.launches = 0
+
+
+# ---------------------------------------------------------------------- #
+# the basis-fused forward with the structured basis
+# ---------------------------------------------------------------------- #
+def fused_pairwise_conv_bx_plain(h: torch.Tensor, w3: torch.Tensor,
+                                 basis: torch.Tensor, x: torch.Tensor,
+                                 b3: torch.Tensor) -> torch.Tensor:
+    """fused_pairwise_conv_bx in plain PyTorch: V2 by einsum from the
+    structured basis, R = h.W3 + b3 with float32 accumulation, then the
+    per-edge apply. Materializes V2 and R."""
+    E, P, Q, F = basis.shape
+    mid = h.shape[1]
+    C = x.shape[1]
+    O = w3.shape[-1]
+    v2 = torch.einsum('epqf,ecq->epcf', basis.float(),
+                      x.float()).reshape(E, P, C * F)
+    R = torch.matmul(h.float(), w3.float().reshape(mid, C * F * O))
+    R = R.reshape(E, C * F, O) + b3.float()
+    return torch.bmm(v2, R)
+
+
+def _check_bx(h, w3, basis, x, b3):
+    """What kernel #2 takes: kernel #1's operands with the basis [E, P, Q,
+    F]; returns (E, C, O, (P, Q, F))."""
+    if basis.ndim != 4:
+        raise ValueError(f'basis must be [E, P, Q, F], got '
+                         f'{tuple(basis.shape)}')
+    pqf = tuple(basis.shape[1:])
+    return (*_check(h, w3, basis, x, pqf, b3, structured=True), pqf)
+
+
+def fused_pairwise_conv_bx(h: torch.Tensor, w3: torch.Tensor,
+                           basis: torch.Tensor, x: torch.Tensor,
+                           b3: torch.Tensor) -> torch.Tensor:
+    """h [E, mid], w3 [mid, C*F, O], basis [E, P, Q, F] (get_basis's
+    'pqf' layout), x [E, C, Q], b3 [C*F, O] -> [E, P, O] float32: the
+    structured-basis form of fused_pairwise_conv_bxf, computed by the same
+    tile (csrc/pairwise_bxf.cu) with [E, P, Q, F] indexing."""
+    if h.device.type == 'cpu':
+        return fused_pairwise_conv_bx_plain(h, w3, basis, x, b3)
+    if h.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {h.device}')
+    E, C, O, (P, Q, _) = _check_bx(h, w3, basis, x, b3)
+    out = torch.empty(E, P, O, dtype=torch.float32, device=h.device)
+    if E == 0:
+        return out
+    from .build import load_library
+    with torch.cuda.device(h.device):
+        rc = load_library().se3_pairwise_bx(
+            h.data_ptr(), w3.data_ptr(), b3.data_ptr(), basis.data_ptr(),
+            x.data_ptr(), out.data_ptr(), E, C, O, P, Q,
+            int(h.dtype == torch.bfloat16), _stream(h))
+    if rc != 0:
+        raise RuntimeError(f'se3_pairwise_bx launch failed: CUDA error {rc}')
+    fused_pairwise_conv_bx.launches += 1
+    return out
+
+
+fused_pairwise_conv_bx.launches = 0
 
 
 # ---------------------------------------------------------------------- #
@@ -459,9 +527,46 @@ def _contract_backward(ctx, g):
 
 _contract_op.register_autograd(_contract_backward, setup_context=_contract_setup)
 
+
+@torch.library.custom_op('se3_torch::pairwise_contract_bx', mutates_args=(),
+                         device_types='cpu')
+def _contract_bx_op(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                    basis: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return fused_pairwise_conv_bx_plain(h, w3, basis, x, b3)
+
+
+@_contract_bx_op.register_kernel('cuda')
+def _(h, w3, b3, basis, x):
+    return fused_pairwise_conv_bx(h, w3, basis, x, b3)
+
+
+def _contract_bx_backward(ctx, g):
+    """The port of ops/conv.py::_pc_bx_bwd: V2 rebuilt in float32 from the
+    structured basis, the fused backward (kernels A and B on a card), then
+    dV2 folded back into dx and dbasis by einsums; dh and dw3 in the
+    dtypes of h and w3."""
+    h, w3, b3, basis, x = ctx.saved_tensors
+    E, P, Q, F = basis.shape
+    C = x.shape[1]
+    b32, x32 = basis.float(), x.float()
+    v2 = torch.einsum('epqf,ecq->epcf', b32, x32).reshape(E, P, C * F)
+    dh, dw3, dv2, db3 = fused_pairwise_conv_bwd(h, w3, v2, g.contiguous(), b3)
+    dv2 = dv2.reshape(E, P, C, F)
+    dbasis = dx = None
+    if ctx.needs_input_grad[3]:
+        dbasis = torch.einsum('ecq,epcf->epqf', x32, dv2).to(basis.dtype)
+    if ctx.needs_input_grad[4]:
+        dx = torch.einsum('epqf,epcf->ecq', b32, dv2).to(x.dtype)
+    return dh.to(h.dtype), dw3.to(w3.dtype), db3.to(b3.dtype), dbasis, dx
+
+
+_contract_bx_op.register_autograd(_contract_bx_backward,
+                                  setup_context=_contract_setup)
+
 # the ops' overloads, as a checkpoint policy sees them
 PAIRWISE_CONTRACT_OPS = (torch.ops.se3_torch.pairwise_contract_bxf.default,
-                         torch.ops.se3_torch.pairwise_contract.default)
+                         torch.ops.se3_torch.pairwise_contract.default,
+                         torch.ops.se3_torch.pairwise_contract_bx.default)
 
 
 def pairwise_contract_bxf(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
@@ -471,6 +576,15 @@ def pairwise_contract_bxf(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     in the JAX custom_vjp); gradients flow to h, w3, b3, basis_flat and x."""
     P, Q, F = (int(v) for v in pqf)
     return _pairwise_contract_op(h, w3, b3, basis_flat, x, P, Q, F)
+
+
+def pairwise_contract_bx(h: torch.Tensor, w3: torch.Tensor,
+                         b3: torch.Tensor, basis: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Differentiable fused_pairwise_conv_bx (b3 third, as in the JAX
+    custom_vjp _pairwise_contract_pallas_bx); gradients flow to h, w3, b3,
+    the structured basis and x. Saves only its operands."""
+    return _contract_bx_op(h, w3, b3, basis, x)
 
 
 def pairwise_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Multi-degree SE(3)-equivariant attention over kNN neighborhoods: the port
-of se3_transformer_tpu/ops/attention.py's kNN paths (AttentionSE3 with
-kv_heads == heads, and AttentionBlockSE3).
+"""Multi-degree SE(3)-equivariant attention: the port of
+se3_transformer_tpu/ops/attention.py's kNN paths and its kNN-free global
+mode (AttentionSE3 with kv_heads == heads, and AttentionBlockSE3).
 
 KV slot order along the neighbor axis is [self, neighbors]; the neighbor
 mask is left-padded with True over the self slot, and masked logits are
@@ -15,6 +15,15 @@ function:
     kernels.flash.flash_attention per degree (the JAX `_flash_call`): the
     per-edge basis, the gathered features, k, v and the scores stay inside
     the kernel. Same parameters as the unfused path.
+
+attention_mode='global' (the JAX `_global_call`) takes no neighborhoods:
+every node attends to every other node through
+kernels.flash.flash_global_attention per degree, the kv convs in
+global_radial program mode, the pair payload rebuilt from the coordinates
+in basis['global_coords'] (columns masked by basis['global_mask']). The
+always-valid prefix slots are [null, self] with use_null_kv (the null_k{d}
+/ null_v{d} parameters, zeros at init), else [self]. Global features are
+not ported.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import fused_attention
-from ..kernels.flash import flash_attention
+from ..kernels.flash import flash_attention, flash_global_attention
 from ..utils.helpers import to_order
 from .conv import ConvSE3, EdgeInfo
 from .core import LinearSE3, NormSE3, residual_se3
@@ -39,22 +48,42 @@ class AttentionSE3(nn.Module):
                  radial_bf16: bool = False, fuse_basis: bool = False,
                  edge_chunks: Optional[int] = None,
                  pallas_attention: Optional[bool] = None,
-                 fuse_pairwise: bool = False):
+                 fuse_pairwise: bool = False, attention_mode: str = 'knn',
+                 global_materialize: bool = False,
+                 use_null_kv: bool = False):
         super().__init__()
+        if attention_mode not in ('knn', 'global'):
+            raise ValueError(f"unknown attention_mode {attention_mode!r} "
+                             f"(want 'knn' or 'global')")
+        if use_null_kv and attention_mode != 'global':
+            raise NotImplementedError("use_null_kv is ported for "
+                                      "attention_mode='global' only")
         self.fiber, self.dim_head, self.heads = fiber, dim_head, heads
         self.pallas_attention = bool(pallas_attention)
         self.fuse_pairwise = fuse_pairwise
+        self.attention_mode = attention_mode
+        self.global_materialize = global_materialize
+        self.use_null_kv = use_null_kv
         hidden_fiber = fiber.to(dim_head * heads)
         self.to_q = LinearSE3(fiber, hidden_fiber)
         conv_kwargs = dict(pool=False, self_interaction=False,
                            radial_bf16=radial_bf16)
-        conv_kwargs.update(dict(fuse_pairwise=True) if fuse_pairwise else
-                           dict(fuse_basis=fuse_basis,
-                                edge_chunks=edge_chunks))
+        if attention_mode == 'global':
+            conv_kwargs.update(global_radial=True)
+        elif fuse_pairwise:
+            conv_kwargs.update(fuse_pairwise=True)
+        else:
+            conv_kwargs.update(fuse_basis=fuse_basis, edge_chunks=edge_chunks)
         self.to_v = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         self.to_k = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         self.to_self_k = LinearSE3(fiber, hidden_fiber)
         self.to_self_v = LinearSE3(fiber, hidden_fiber)
+        if use_null_kv:
+            for degree, _ in fiber:
+                for name in ('null_k', 'null_v'):
+                    self.register_parameter(
+                        f'{name}{degree}', nn.Parameter(torch.zeros(
+                            heads, dim_head, 2 * degree + 1)))
         project_out = not (heads == 1 and len(fiber.dims) == 1
                            and dim_head == fiber.dims[0])
         self.to_out = LinearSE3(hidden_fiber, fiber) if project_out else None
@@ -62,7 +91,9 @@ class AttentionSE3(nn.Module):
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
                 ) -> Features:
-        if self.fuse_pairwise:
+        if self.attention_mode == 'global':
+            outputs = self._global_call(features, basis)
+        elif self.fuse_pairwise:
             outputs = self._flash_call(features, edge_info, rel_dist, basis)
         else:
             outputs = self._unfused_call(features, edge_info, rel_dist, basis)
@@ -122,10 +153,53 @@ class AttentionSE3(nn.Module):
     def _prefix_slots(self, degree: str, self_keys: Features,
                       self_values: Features):
         """The always-valid kv slots left of the neighbor axis
-        (pallas_flash's prefix_k/prefix_v [b, n, S0, kv_h * Dh]): here the
-        self slot only."""
-        return tuple(t[degree].reshape(*t[degree].shape[:2], 1, -1)
-                     for t in (self_keys, self_values))
+        (pallas_flash's prefix_k/prefix_v [b, n, S0, kv_h * Dh]) in the
+        unfused concat order: [null, self] with use_null_kv, else [self]."""
+        b, n = self_keys[degree].shape[:2]
+        pre_k, pre_v = [], []
+        if self.use_null_kv:
+            for name, dst in (('null_k', pre_k), ('null_v', pre_v)):
+                t = getattr(self, f'{name}{degree}')
+                dst.append(t.reshape(1, 1, 1, -1).expand(b, n, 1, -1))
+        for t, dst in ((self_keys, pre_k), (self_values, pre_v)):
+            dst.append(t[degree].reshape(b, n, 1, -1))
+        return torch.cat(pre_k, dim=2), torch.cat(pre_v, dim=2)
+
+    def _global_call(self, features, basis) -> Features:
+        """The kNN-free path (JAX AttentionSE3._global_call): the same
+        parameters as the kNN paths, the kv convs returning their trunk's
+        raw parameters and grouped w3/b3, and no edge_info, rel_dist or
+        per-pair basis: the kernel rebuilds the pair payload from the
+        coordinates per tile."""
+        h = self.heads
+        coords = basis['global_coords']
+        node_mask = basis.get('global_mask')
+        queries = self.to_q(features)
+        v_prog = self.to_v(features, None, None, basis)
+        k_prog = self.to_k(features, None, None, basis)
+        self_keys = self.to_self_k(features)
+        self_values = self.to_self_v(features)
+
+        outputs = {}
+        for degree in features.keys():
+            m = to_order(int(degree))
+            Dh = self.dim_head * m
+            b, n = features[degree].shape[:2]
+            prefix_k, prefix_v = self._prefix_slots(degree, self_keys,
+                                                    self_values)
+            out = flash_global_attention(
+                queries[degree].reshape(b, n, h, Dh),
+                tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
+                coords, v_prog['rp'], v_prog['w3'][degree],
+                v_prog['b3'][degree], pairs=v_prog['pairs'],
+                d_out=int(degree), heads=h, kv_heads=h,
+                scale=self.dim_head ** -0.5, arm=v_prog['arm'],
+                rp_k=k_prog['rp'], wk=k_prog['w3'][degree],
+                bk=k_prog['b3'][degree], node_mask=node_mask,
+                prefix_k=prefix_k, prefix_v=prefix_v, exclude_self=True,
+                materialize=self.global_materialize)
+            outputs[degree] = out.reshape(b, n, h * self.dim_head, m)
+        return outputs
 
     def _flash_call(self, features, edge_info, rel_dist, basis) -> Features:
         """The streaming path (JAX AttentionSE3._flash_call): the kv convs
@@ -167,7 +241,9 @@ class AttentionBlockSE3(nn.Module):
                  radial_bf16: bool = False, fuse_basis: bool = False,
                  edge_chunks: Optional[int] = None,
                  pallas_attention: Optional[bool] = None,
-                 fuse_pairwise: bool = False):
+                 fuse_pairwise: bool = False, attention_mode: str = 'knn',
+                 global_materialize: bool = False,
+                 use_null_kv: bool = False):
         super().__init__()
         self.prenorm = NormSE3(fiber)
         self.attn = AttentionSE3(fiber, dim_head=dim_head, heads=heads,
@@ -175,7 +251,10 @@ class AttentionBlockSE3(nn.Module):
                                  fuse_basis=fuse_basis,
                                  edge_chunks=edge_chunks,
                                  pallas_attention=pallas_attention,
-                                 fuse_pairwise=fuse_pairwise)
+                                 fuse_pairwise=fuse_pairwise,
+                                 attention_mode=attention_mode,
+                                 global_materialize=global_materialize,
+                                 use_null_kv=use_null_kv)
 
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]

@@ -5,9 +5,12 @@ One radial trunk (Dense -> LayerNorm -> GELU, twice) is shared by every
 (d_in, d_out) pair of a ConvSE3, each pair with its own grouped parameters
 w3_{d_in}_{d_out} [mid, c_in*F, c_out] and b3_{d_in}_{d_out} [c_in*F, c_out].
 
-  * fuse_basis=True: one call of kernels.pairwise.pairwise_contract_bxf per
-    pair, contracting the flat (p, f, q) basis with the gathered neighbor
-    features inside the kernel.
+  * fuse_basis=True: one basis-fused call per pair, contracting the basis
+    with the gathered neighbor features inside the kernel:
+    kernels.pairwise.pairwise_contract_bxf for the flat (p, f, q) basis
+    (get_basis layout 'pfq_flat', kernel #1) and
+    kernels.pairwise.pairwise_contract_bx for the structured [P, Q, F] one
+    (get_basis's default 'pqf', kernel #2), as the JAX ConvSE3 takes both.
   * fuse_basis=False: per pair, V2 = basis . x by einsum from the
     structured (P, Q, F) basis; the pairs of one output degree are
     concatenated along the contracted axis (V2, w3 and b3 alike) and make
@@ -18,6 +21,12 @@ w3_{d_in}_{d_out} [mid, c_in*F, c_out] and b3_{d_in}_{d_out} [c_in*F, c_out].
     'arm', 'w3', 'b3'}, the grouped w3/b3 of each output degree
     concatenated along IF as the fuse_basis=False branch does, and gathers
     nothing; the per-edge contraction runs inside the attention kernel.
+  * global_radial=True (program mode of the kNN-free global attention):
+    not even the trunk runs. forward returns {'rp', 'pairs', 'arm', 'w3',
+    'b3'}, rp the trunk's raw parameters as the 8-tuple (w1 [1, mid], b1,
+    ln1 scale, ln1 bias, w2 [mid, mid] (in, out), b2, ln2 scale, ln2 bias)
+    of kernels.flash's global mode, which rebuilds distances, the trunk
+    and the harmonics per tile from coordinates.
 
 edge_chunks streams the node axis through either contraction in that many
 chunks, zero-padding it to a multiple (_stream_node_chunks). Under
@@ -37,7 +46,9 @@ import torch
 import torch.nn.functional as F_
 from torch import nn
 
-from ..kernels.pairwise import pairwise_contract, pairwise_contract_bxf
+from ..kernels.pairwise import (
+    pairwise_contract, pairwise_contract_bx, pairwise_contract_bxf,
+)
 from ..utils.helpers import batched_index_select, masked_mean, to_order
 from .core import LinearSE3, gelu, residual_se3
 from .fiber import Fiber
@@ -139,21 +150,27 @@ def _radial_contract_bx(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
                         pqf: Tuple[int, int, int],
                         edge_chunks: Optional[int]) -> torch.Tensor:
     """Basis-fused: h [b,n,k,mid], w3 [mid,C*F,O], b3 [C*F,O], the flat
-    basis [b,n,k,P*F*Q], x [b,n,k,C,Q] -> [b,n,k,P,O] through
-    pairwise_contract_bxf, optionally streaming the node axis."""
+    basis [b,n,k,P*F*Q] (through pairwise_contract_bxf) or the structured
+    one [b,n,k,P,Q,F] (through pairwise_contract_bx), x [b,n,k,C,Q] ->
+    [b,n,k,P,O], optionally streaming the node axis."""
     P, Q, F = pqf
     C, O = x.shape[-2], w3.shape[-1]
     w3c = w3.to(h.dtype)
+    flat = _basis_is_flat(basis, x)
 
     def contract(h_c, basis_c, x_c):
         lead = h_c.shape[:-1]
         E = lead.numel()
         # the kernel takes contiguous rows; a gather from an einsum's
         # permuted output can keep the source's strides
-        out = pairwise_contract_bxf(
-            h_c.reshape(E, h_c.shape[-1]).contiguous(), w3c, b3,
-            basis_c.reshape(E, P * F * Q).contiguous(),
-            x_c.reshape(E, C, Q).contiguous(), pqf)
+        args = (h_c.reshape(E, h_c.shape[-1]).contiguous(), w3c, b3)
+        x2 = x_c.reshape(E, C, Q).contiguous()
+        if flat:
+            out = pairwise_contract_bxf(
+                *args, basis_c.reshape(E, P * F * Q).contiguous(), x2, pqf)
+        else:
+            out = pairwise_contract_bx(
+                *args, basis_c.reshape(E, P, Q, F).contiguous(), x2)
         return out.reshape(*lead, P, O)
 
     return _stream_node_chunks(contract, (h, basis, x), edge_chunks)
@@ -166,20 +183,21 @@ class ConvSE3(nn.Module):
                  self_interaction: bool = True, pool: bool = True,
                  radial_bf16: bool = False, fuse_basis: bool = False,
                  edge_chunks: Optional[int] = None,
-                 fuse_pairwise: bool = False):
+                 fuse_pairwise: bool = False, global_radial: bool = False):
         super().__init__()
         if self_interaction and not pool:
             raise ValueError('must pool edges if followed with self '
                              'interaction')
-        if fuse_pairwise and pool:
-            raise ValueError('fuse_pairwise serves the attention kv path '
-                             '(pool=False)')
+        if (fuse_pairwise or global_radial) and pool:
+            raise ValueError('fuse_pairwise and global_radial serve the '
+                             'attention kv path (pool=False)')
         self.fiber_in, self.fiber_out = fiber_in, fiber_out
         self.pool = pool
         self.radial_dtype = torch.bfloat16 if radial_bf16 else None
         self.fuse_basis = fuse_basis
         self.edge_chunks = edge_chunks
         self.fuse_pairwise = fuse_pairwise
+        self.global_radial = global_radial
         mid = DEFAULT_MID_DIM
         # the shared radial trunk, under the flax module's names
         self.Dense_0 = nn.Linear(1, mid)
@@ -204,19 +222,35 @@ class ConvSE3(nn.Module):
         x = gelu(layer_norm(dense(x, self.Dense_0, dt), self.LayerNorm_0))
         return gelu(layer_norm(dense(x, self.Dense_1, dt), self.LayerNorm_1))
 
-    def _program(self, rel_dist: torch.Tensor) -> dict:
-        """The pairwise program of JAX ConvSE3(fuse_pairwise=True): the
-        radial hidden [b, n, k, mid] and, per output degree, the pairs'
-        w3 [mid, IF, c_out] and b3 [IF, c_out] concatenated along IF in
-        fiber_in order."""
+    def _grouped(self):
+        """Per output degree, the pairs' w3 [mid, IF, c_out] and b3 [IF,
+        c_out] concatenated along IF in fiber_in order."""
         w3s, b3s = {}, {}
         for d_out, _ in self.fiber_out:
             w3s[str(d_out)] = torch.cat([getattr(self, f'w3_{d_in}_{d_out}')
                                          for d_in, _ in self.fiber_in], dim=1)
             b3s[str(d_out)] = torch.cat([getattr(self, f'b3_{d_in}_{d_out}')
                                          for d_in, _ in self.fiber_in], dim=0)
+        return w3s, b3s
+
+    def _program(self, rel_dist: torch.Tensor) -> dict:
+        """The pairwise program of JAX ConvSE3(fuse_pairwise=True): the
+        radial hidden [b, n, k, mid] and the grouped w3/b3."""
+        w3s, b3s = self._grouped()
         return dict(h=self.radial_hidden(rel_dist[..., None]),
                     pairs=tuple((d, c) for d, c in self.fiber_in),
+                    arm='dense', w3=w3s, b3=b3s)
+
+    def _global_program(self) -> dict:
+        """The program of JAX ConvSE3(global_radial=True): the trunk's raw
+        parameters in flax orientation (Dense kernels [in, out]) and the
+        grouped w3/b3."""
+        w3s, b3s = self._grouped()
+        rp = (self.Dense_0.weight.t(), self.Dense_0.bias,
+              self.LayerNorm_0.weight, self.LayerNorm_0.bias,
+              self.Dense_1.weight.t(), self.Dense_1.bias,
+              self.LayerNorm_1.weight, self.LayerNorm_1.bias)
+        return dict(rp=rp, pairs=tuple((d, c) for d, c in self.fiber_in),
                     arm='dense', w3=w3s, b3=b3s)
 
     def forward(self, inp: Features, edge_info: EdgeInfo,
@@ -224,9 +258,12 @@ class ConvSE3(nn.Module):
                 ) -> Features:
         """inp {d: [b, n, c, 2d+1]}; rel_dist [b, n, k]; basis
         {'d_in,d_out': [b, n, k, P*F*Q] (layout 'pfq_flat') or [b, n, k,
-        P, Q, F] ('pqf')}; fuse_basis takes the flat layout only.
+        P, Q, F] ('pqf')}, either with fuse_basis or without.
         Pooled: {d: [b, n, c_out, 2d+1]}; else [b, n, k, c_out, 2d+1];
-        with fuse_pairwise the program dict (module docstring)."""
+        with fuse_pairwise or global_radial the program dict (module
+        docstring; global_radial reads none of the arguments)."""
+        if self.global_radial:
+            return self._global_program()
         if self.fuse_pairwise:
             return self._program(rel_dist)
         neighbor_indices, neighbor_mask = edge_info
@@ -246,10 +283,6 @@ class ConvSE3(nn.Module):
                 x = gathered[str(d_in)]
                 basis_pair = basis[f'{d_in},{d_out}']
                 if self.fuse_basis:
-                    if not _basis_is_flat(basis_pair, x):
-                        raise ValueError(
-                            'fuse_basis takes the pfq_flat basis layout (the '
-                            'structured one is the unported bx kernel)')
                     y = _radial_contract_bx(hidden, w3, b3, basis_pair, x,
                                             (P, Q, F), self.edge_chunks)
                     acc = y if acc is None else acc + y

@@ -15,6 +15,9 @@ and without autograd (serving) the blocks run as a plain loop.
 
 `pallas_attention` reaches every attention block; `fused_attention` holds
 one fuse_pairwise flag per block (the model resolves its rules).
+attention_mode='global' makes every block the kNN-free global attention
+(with `global_materialize` and `use_null_kv`); its blocks get no
+rel_dist.
 """
 from __future__ import annotations
 
@@ -62,20 +65,27 @@ class SequentialTrunk(nn.Module):
                  fuse_basis: bool = False,
                  edge_chunks: Optional[int] = None,
                  pallas_attention: Optional[bool] = None,
-                 fused_attention: Optional[Sequence[bool]] = None):
+                 fused_attention: Optional[Sequence[bool]] = None,
+                 attention_mode: str = 'knn',
+                 global_materialize: bool = False,
+                 use_null_kv: bool = False):
         super().__init__()
         if remat_policy is not None and not reversible:
             raise ValueError(f'remat_policy={remat_policy!r} requires '
                              f'reversible=True')
         self.depth = depth
         self.reversible = reversible
+        self.attention_mode = attention_mode
         self._context_fn = _resolve_remat_policy(remat_policy)
         for i in range(depth):
             self.add_module(f'attn_block{i}', AttentionBlockSE3(
                 fiber, dim_head=dim_head, heads=heads,
                 radial_bf16=radial_bf16, fuse_basis=fuse_basis,
                 edge_chunks=edge_chunks, pallas_attention=pallas_attention,
-                fuse_pairwise=bool(fused_attention and fused_attention[i])))
+                fuse_pairwise=bool(fused_attention and fused_attention[i]),
+                attention_mode=attention_mode,
+                global_materialize=global_materialize,
+                use_null_kv=use_null_kv))
             self.add_module(f'ff_block{i}', FeedForwardBlockSE3(fiber))
 
     def _run(self, block: nn.Module, *args):
@@ -88,6 +98,8 @@ class SequentialTrunk(nn.Module):
     def forward(self, x: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
                 ) -> Features:
+        if self.attention_mode == 'global':
+            rel_dist = None
         for i in range(self.depth):
             x = self._run(getattr(self, f'attn_block{i}'), x, edge_info,
                           rel_dist, basis)

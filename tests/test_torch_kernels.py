@@ -518,3 +518,174 @@ def test_cuda_flash_kernel_matches_plain(cuda_card, h_dtype, d_out, n, K,
     # 1e-4 bound
     ref = kf.flash_attention_plain(cfg, ops)
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+# ---------------------------------------------------------------------- #
+# kernel #2: the basis-fused forward with the structured basis
+# ---------------------------------------------------------------------- #
+def _bx_args(di=1, do=2, e=96, dtype=torch.bfloat16):
+    """Kernel #1's operands with the basis in get_basis's [E, P, Q, F]
+    layout, and the same basis flat, for the bxf yardstick."""
+    args = _kernel_args(di, do, e, dtype)
+    P, Q, F = args[4]
+    structured = args[2].reshape(e, P, F, Q).transpose(2, 3).contiguous()
+    return [args[0], args[1], structured, args[3], args[5]], args
+
+
+def test_cpu_bx_never_counts_a_launch():
+    args, flat = _bx_args(e=70)
+    before = kp.fused_pairwise_conv_bx.launches
+    out = kp.fused_pairwise_conv_bx(*args)
+    assert kp.fused_pairwise_conv_bx.launches == before
+    assert torch.equal(out, kp.fused_pairwise_conv_bxf(*flat))
+
+
+@pytest.mark.parametrize('bad', ['basis_ndim', 'basis_dtype', 'basis_pqf',
+                                 'basis_rows', 'noncontig', 'o_tile'])
+def test_bx_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    args, _ = _bx_args()
+    E_, C_ = args[0].shape[0], args[3].shape[1]
+    assert kp._check_bx(*args) == (E_, C_, kp.O_TILE, (5, 3, 3))
+    if bad == 'basis_ndim':
+        args[2] = args[2].reshape(args[2].shape[0], -1)
+    elif bad == 'basis_dtype':
+        args[2] = args[2].double()
+    elif bad == 'basis_pqf':
+        args[2] = args[2][:, :, :, :1].contiguous()
+    elif bad == 'basis_rows':
+        args[2] = args[2][:-1]
+    elif bad == 'noncontig':
+        args[2] = args[2].transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == 'o_tile':
+        args[1] = args[1][..., :32].contiguous()
+        args[4] = args[4][:, :32].contiguous()
+    with pytest.raises((TypeError, ValueError)):
+        kp._check_bx(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('di,do,e', [(0, 0, 64), (3, 3, 200), (2, 1, 1000),
+                                     (1, 3, 77)])
+def test_cuda_bx_kernel_matches_plain_and_bxf(cuda_card, di, do, e, dtype):
+    """Kernel #2 against its plain version, and against kernel #1 on the
+    same basis flattened: the one tile with two indexings, bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, flat = _bx_args(di, do, e, dtype)
+    args = [a.cuda() for a in args]
+    flat = [a.cuda() if isinstance(a, torch.Tensor) else a for a in flat]
+    before = kp.fused_pairwise_conv_bx.launches
+    out = kp.fused_pairwise_conv_bx(*args)
+    torch.cuda.synchronize()
+    assert kp.fused_pairwise_conv_bx.launches == before + 1
+    ref = kp.fused_pairwise_conv_bx_plain(*args)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(out, kp.fused_pairwise_conv_bxf(*flat))
+
+
+# ---------------------------------------------------------------------- #
+# kernel 7g: the global attention
+# ---------------------------------------------------------------------- #
+def _global_case(d_out=1, n=37, prefix=2, masked=True, heads=2,
+                 exclude_self=True, pairs=((0, 8), (1, 8)), seed=5):
+    """Operands at the global kernel's widths (mid 128, kv_heads *
+    dim_head = 16), random-walk coordinates with the last 5 nodes padded
+    at the origin, weights scaled to keep k and v O(1)."""
+    rng = np.random.RandomState(seed)
+    mid, O, P = kf.MID, kf.GLOBAL_O_WIDTH, 2 * d_out + 1
+    dim_head = O // heads
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+
+    def f(*shape, s=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * s)
+                                .astype(np.float32))
+
+    def trunk():
+        return (f(1, mid), f(1, mid, s=0.1), 1 + f(1, mid, s=0.1),
+                f(1, mid, s=0.1), f(mid, mid, s=mid ** -0.5),
+                f(1, mid, s=0.1), 1 + f(1, mid, s=0.1), f(1, mid, s=0.1))
+    coords = torch.cumsum(f(1, n, 3), dim=1)
+    coords[:, n - 5:] = 0.
+    w = (mid * IF) ** -0.5
+    ops = dict(q=f(1, n, heads, dim_head * P),
+               xs=tuple(f(1, n, c, 2 * d + 1) for d, c in pairs),
+               coords=coords, rp_v=trunk(), rp_k=trunk(),
+               wv=f(mid, IF, O, s=w), bv=f(IF, O, s=0.1),
+               wk=f(mid, IF, O, s=w), bk=f(IF, O, s=0.1),
+               node_mask=torch.arange(n)[None] < n - 5 if masked else None,
+               prefix_k=f(1, n, prefix, O * P) if prefix else None,
+               prefix_v=f(1, n, prefix, O * P) if prefix else None)
+    cfg = kf.FlashConfig(pairs=pairs, d_out=d_out, heads=heads,
+                         kv_heads=heads, scale=dim_head ** -0.5,
+                         prefix=prefix, mode='global',
+                         exclude_self=exclude_self)
+    return cfg, ops
+
+
+def test_cpu_flash_global_never_counts_a_launch():
+    cfg, ops = _global_case()
+    before = kf.flash_global_attention_fwd.launches
+    out = kf.flash_global_attention_fwd(cfg, ops)
+    assert out.shape == ops['q'].shape and torch.isfinite(out).all()
+    assert kf.flash_global_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize('bad', ['q_dtype', 'kv_heads', 'width', 'x_shape',
+                                 'coords', 'rp', 'w_shape', 'mask_dtype',
+                                 'prefix', 'noncontig', 'degree', 'pif',
+                                 'mode'])
+def test_flash_global_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    cfg, ops = _global_case()
+    assert kf._check_global(cfg, ops) == (1, 37, 2, 32)
+    if bad == 'q_dtype':
+        ops['q'] = ops['q'].double()
+    elif bad == 'kv_heads':
+        cfg = cfg._replace(kv_heads=1)
+    elif bad == 'width':
+        ops['q'] = torch.zeros(1, 37, 2, 48)
+    elif bad == 'x_shape':
+        ops['xs'] = (ops['xs'][0], ops['xs'][1][..., :-1].contiguous())
+    elif bad == 'coords':
+        ops['coords'] = ops['coords'][..., :2].contiguous()
+    elif bad == 'rp':
+        ops['rp_k'] = ops['rp_k'][:4] + (ops['rp_k'][4][:64],) \
+            + ops['rp_k'][5:]
+    elif bad == 'w_shape':
+        ops['wk'] = ops['wk'][:, :-1].contiguous()
+    elif bad == 'mask_dtype':
+        ops['node_mask'] = ops['node_mask'].float()
+    elif bad == 'prefix':
+        cfg = cfg._replace(prefix=kf.MAX_PREFIX + 1)
+    elif bad == 'noncontig':
+        ops['q'] = ops['q'].transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == 'degree':
+        cfg = cfg._replace(d_out=4)
+    elif bad == 'pif':
+        cfg, ops = _global_case(pairs=((0, 8), (1, 48)))
+    elif bad == 'mode':
+        cfg = cfg._replace(mode='knn')
+    with pytest.raises((TypeError, ValueError)):
+        kf._check_global(cfg, ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', [
+    dict(d_out=0), dict(d_out=1), dict(d_out=1, n=100, prefix=0),
+    dict(d_out=1, masked=False, exclude_self=False, heads=4),
+    dict(d_out=2, n=21, pairs=((0, 4), (1, 4), (2, 4)), prefix=1),
+    dict(d_out=3, n=19, pairs=((3, 2), (1, 3)), heads=1)])
+def test_cuda_flash_global_kernel_matches_plain(cuda_card, case):
+    """The kernel's online softmax over kv blocks of 16 (the last one
+    ragged) against the plain stream's row softmax: float32 throughout,
+    the same products in other orders."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ops = _global_case(**case)
+    ops = {k: (tuple(x.cuda() for x in v) if isinstance(v, tuple) else
+               None if v is None else v.cuda()) for k, v in ops.items()}
+    before = kf.flash_global_attention_fwd.launches
+    out = kf.flash_global_attention_fwd(cfg, ops)
+    torch.cuda.synchronize()
+    assert kf.flash_global_attention_fwd.launches == before + 1
+    ref = kf.flash_global_plain(cfg, ops)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()

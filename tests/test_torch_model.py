@@ -154,9 +154,9 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize('field,value', [
-    ('causal', True), ('num_tokens', 4), ('shared_radial_hidden', False),
+    ('causal', True), ('num_positions', 4), ('shared_radial_hidden', False),
     ('conv_bf16', True), ('attend_self', False), ('output_degrees', 3),
-    ('norm_out', True)])
+    ('use_null_kv', True)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError):
         SE3TransformerModule(**dict(TWIN, **{field: value}), device='cpu')

@@ -194,14 +194,24 @@ def test_unflatten_basis_is_the_structured_layout():
 
 
 def test_fused_branch_refuses_the_structured_basis():
+    """The fused branch used to refuse the structured basis (kernel #2 was
+    unported); as the JAX ConvSE3 it now takes it, and gives the flat
+    basis's output."""
     fiber = Fiber.create(2, 3)
     feats, idx, mask, rel_pos = graph_inputs(fiber, seed=1)
     conv = ConvSE3(fiber, fiber, fuse_basis=True)
+    with torch.no_grad():
+        for i, p in enumerate(conv.parameters()):
+            p.copy_(torch.from_numpy(np.random.RandomState(i).normal(
+                size=tuple(p.shape)).astype(np.float32)) * 0.3)
     rel = torch.from_numpy(rel_pos)
-    with pytest.raises(ValueError, match='pfq_flat'):
-        conv({k: torch.from_numpy(v) for k, v in feats.items()},
-             (torch.from_numpy(idx).long(), torch.from_numpy(mask)),
-             rel.norm(dim=-1), get_basis(rel, 1, layout='pqf'))
+    outs = [conv({k: torch.from_numpy(v) for k, v in feats.items()},
+                 (torch.from_numpy(idx).long(), torch.from_numpy(mask)),
+                 rel.norm(dim=-1), get_basis(rel, 1, layout=layout))
+            for layout in ('pqf', 'pfq_flat')]
+    for d in outs[1]:
+        scale = outs[1][d].abs().max()
+        assert (outs[0][d] - outs[1][d]).abs().max() <= 1e-6 * scale, d
 
 
 @pytest.mark.parametrize('fuse_basis', [False, True])

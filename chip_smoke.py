@@ -58,6 +58,17 @@ failure:
               flagship, no policy: 816 forward, 424 + 424 backward, 432
               forward under save_conv_outputs), step time, nodes*steps/s,
               peak memory and a profile.
+  route       C1's repair: models past the kernels' limits (the JAX
+              DenoiseConfig widths, dim 8, heads 2, dim_head 8, two
+              degrees; and with fuse_pairwise, heads * dim_head = 16)
+              served on the card: every pairwise (and streaming attention)
+              call routed to its plain version, counted in the wrappers'
+              .routed, warned, no kernel launched, and the output within
+              REF_RTOL_F32 of the same model on the CPU. A ConvSE3 of
+              128 channels (O = 128, past kernels A and B only): without
+              grad it launches #1 / #3 and routes nothing; with grad only
+              its backward routes; card vs CPU. Every main path above and
+              below shows .routed == 0.
   8. reference  small models of both recipes and both attention knobs on
               the card (kernel path) against the same weights on the CPU
               (plain path): the forward, and one training step's loss and
@@ -140,6 +151,10 @@ FLASH_BXF_LAUNCHES = 4 + 4
 # the launch counters, in the order of every launch tuple below
 COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
                'global')
+# the wrappers' counts of calls routed past the kernel to its plain
+# version: the forwards by their layer, kernels A and B together ('A') by
+# the pairwise ops' backward
+ROUTE_NAMES = ('bxf', 'fwd', 'A', 'attn_fwd', 'flash', 'bx', 'global')
 
 # published dense peaks by card (NVIDIA data sheets): bf16 tensor core,
 # float32 CUDA core (FLOP/s), device memory bandwidth (bytes/s)
@@ -149,9 +164,10 @@ PEAKS = {
     'H200': (989e12, 67e12, 4.8e12),
 }
 
-# the forward kernels' names in a profile (the i-split reduce included)
+# the forward kernels' names in a profile (kernel #3's W3 split and
+# i-split reduce included)
 FORWARD_KERNELS = ('pairwise_bxf_kernel', 'pairwise_fwd_kernel',
-                   'fwd_reduce_kernel')
+                   'fwd_reduce_kernel', 'fwd_w3_split_kernel')
 # the attention kernels' names in a profile
 ATTENTION_KERNELS = ('attention_fwd_kernel', 'attention_bwd_kernel',
                      'flash_fwd_kernel', 'flash_global_kernel')
@@ -260,21 +276,27 @@ def grouped_if(d_out, C=64, degrees=4):
 
 
 def fwd_cost(E, mid, IF, O, P, h_bytes, peaks):
-    """(bound_ms, bound_by, flops) of one fused_pairwise_conv call (V2
-    given): each input read once, the output written once. The apply runs
-    at the float32 CUDA-core rate; with bf16 h the radial product runs on
-    the tensor cores at the same time, and the operations take the longer
-    of the two pipes; with float32 h both share the CUDA cores."""
+    """(bound_ms, bound_by, flops, bound_ms_fma) of one fused_pairwise_conv
+    call (V2 given) as the kernel does the work: each input read once, the
+    output written once. The radial product runs on the tensor cores, one
+    bf16 pass for bf16 h/w3 and three (hi.hi, hi.lo, lo.hi of the operands
+    split into bf16 hi + lo) for float32, while the apply runs on the
+    float32 CUDA cores at the same time: the operations take the longer of
+    the two pipes. bound_ms_fma is the float32 bound of the FMA tile the
+    kernel replaced (product and apply both on the CUDA cores), for
+    comparison. flops counts the product once."""
     bf16_peak, f32_peak, mem = peaks
     radial = 2.0 * E * mid * IF * O
     apply = 2.0 * E * P * IF * O
-    ops_s = max(radial / bf16_peak, apply / f32_peak) if h_bytes == 2 \
-        else (radial + apply) / f32_peak
+    passes = 1 if h_bytes == 2 else 3
+    ops_s = max(passes * radial / bf16_peak, apply / f32_peak)
+    fma_s = ops_s if h_bytes == 2 else (radial + apply) / f32_peak
     nbytes = (E * mid * h_bytes + mid * IF * O * h_bytes + IF * O * 4
               + E * P * IF * 4 + E * P * O * 4)
     bytes_s = nbytes / mem
     return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes', radial + apply
+        'operations' if ops_s >= bytes_s else 'bytes', radial + apply, \
+        max(fma_s, bytes_s) * 1e3
 
 
 def phase_fwd(kp, peaks):
@@ -315,7 +337,7 @@ def phase_fwd(kp, peaks):
                 ms = cuda_ms(lambda: kp.fused_pairwise_conv(*args), reps=10)
                 plain_ms = cuda_ms(lambda: kp.fused_pairwise_conv_plain(*args),
                                    reps=3)
-                bound_ms, bound_by, flops = fwd_cost(
+                bound_ms, bound_by, flops, bound_ms_fma = fwd_cost(
                     E, mid, IF, O, P, 2 if hdt == torch.bfloat16 else 4,
                     peaks)
                 row = dict(d_out=do, P=P, IF=IF, E=E,
@@ -323,11 +345,19 @@ def phase_fwd(kp, peaks):
                            i_per_split=kp.i_per_split(E, IF, O),
                            max_abs_err=err, max_abs_plain=scale, ms=ms,
                            plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, tflops=flops / ms / 1e9)
+                           bound_by=bound_by, bound_ms_fma=bound_ms_fma,
+                           tflops=flops / ms / 1e9)
                 rows.append(row)
                 log('fwd', json.dumps(row))
                 del args, h, w3, v2, b3
                 torch.cuda.empty_cache()
+    for E in (4096, 32768):
+        for dtype in ('float32', 'bfloat16'):
+            conv = [r for r in rows if r['E'] == E and r['h_dtype'] == dtype]
+            log('fwd', json.dumps(dict(
+                conv='hidden 4x64 -> 4x64, four launches', E=E, h_dtype=dtype,
+                **{k: sum(r[k] for r in conv) for k in (
+                    'ms', 'plain_ms', 'bound_ms', 'bound_ms_fma')})))
     return rows, worst
 
 
@@ -1233,9 +1263,169 @@ def counts():
     return tuple(getattr(fn, attr) for fn, attr in counters())
 
 
+def route_counters():
+    """The wrappers whose .routed counts calls sent past the kernel, in
+    ROUTE_NAMES order."""
+    wrappers = dict(zip(COUNT_NAMES, (fn for fn, _ in counters())))
+    return tuple(wrappers[name] for name in ROUTE_NAMES)
+
+
+def routed():
+    """Routed calls so far, in ROUTE_NAMES order."""
+    return tuple(fn.routed for fn in route_counters())
+
+
 def reset_counts():
     for fn, attr in counters():
         setattr(fn, attr, 0)
+    for fn in route_counters():
+        fn.routed = 0
+
+
+def not_routed(label, launches):
+    """A main path's launches, after checking that none of its calls was
+    routed past a kernel (the flagship widths never are)."""
+    if any(routed()):
+        raise AssertionError(f'{label}: routed calls {ROUTE_NAMES} = '
+                             f'{routed()}, want none')
+    return launches
+
+
+# C1's routing phase: the JAX DenoiseConfig widths (se3_transformer_tpu/
+# training/denoise.py: dim 8, heads 2, dim_head 8), two degrees, the
+# basis-fused kNN convs, float32 trunk; with fuse_pairwise the streaming
+# attention is past #7's heads * dim_head = 64 as well
+ROUTE_MODEL = dict(dim=8, heads=2, dim_head=8, depth=1, num_degrees=2,
+                   fuse_basis=True, shared_radial_hidden=True,
+                   num_neighbors=16, output_degrees=2, reduce_dim_out=True)
+ROUTE_CASES = (('denoise widths', dict(), ('bxf',)),
+               ('denoise widths + fuse_pairwise', dict(fuse_pairwise=True),
+                ('bxf', 'flash')))
+
+
+def phase_route(st):
+    """Models past the kernels' limits served by InferenceEngine on the
+    card and on the CPU from the same weights (return_type=1): on the
+    card every pairwise (and streaming attention) call is routed to its
+    plain version, counted and warned, and no kernel launches; the vector
+    outputs agree within REF_RTOL_F32."""
+    rng = np.random.RandomState(18)
+    n = 60
+    feats = rng.normal(size=(n, 8)).astype(np.float32)
+    coords = chain_coords(rng, n)
+    for label, fields, want in ROUTE_CASES:
+        outs = []
+        for device in ('cuda', 'cpu'):
+            model = st.SE3TransformerModule(
+                **ROUTE_MODEL, **fields, device=device,
+                generator=torch.Generator().manual_seed(19))
+            engine = st.InferenceEngine(model, buckets=(64,), device=device,
+                                        return_type=1)
+            reset_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                outs.append(engine.predict(feats, coords))
+            if device == 'cuda':
+                launched, got = counts(), routed()
+                texts = sorted({str(w.message) for w in caught
+                                if 'using the plain path' in str(w.message)})
+        err = float(np.abs(outs[0] - outs[1]).max())
+        scale = float(np.abs(outs[1]).max())
+        log('route', json.dumps(dict(
+            model=label, n=n, routed=dict(zip(ROUTE_NAMES, got)),
+            launches=dict(zip(COUNT_NAMES, launched)), warnings=texts,
+            max_abs_err=err, max_abs_cpu=scale, rtol=REF_RTOL_F32)))
+        if any(launched):
+            raise AssertionError(f'route {label}: kernels launched '
+                                 f'{launched} past their limits')
+        if not all(got[ROUTE_NAMES.index(name)] > 0 for name in want):
+            raise AssertionError(f'route {label}: routed {got}, want '
+                                 f'{want} > 0')
+        if not texts:
+            raise AssertionError(f'route {label}: no routing warning')
+        if not (np.isfinite(outs[0]).all() and err <= REF_RTOL_F32 * scale):
+            raise AssertionError(f'route {label}: card vs CPU {err} > '
+                                 f'{REF_RTOL_F32} * {scale}')
+    reset_counts()
+
+
+def phase_route_wide(st):
+    """A ConvSE3 of 128 channels, degrees 0 and 1 (O = 128: two O tiles of
+    #1 and #3, past kernels A and B's O = 64), on the card and on the CPU
+    from the same weights, basis-fused (#1) and grouped (#3). Without grad
+    its forward launches the kernel and routes nothing; with grad the
+    forward launches again and only the backward routes (counted under
+    'A', no launch of A or B). Output within REF_RTOL_F32 of the CPU,
+    gradients within REF_GRAD_RTOL_F32."""
+    from se3_transformer_torch.models.se3_transformer import init_parameters
+    gen = torch.Generator().manual_seed(21)
+    n, k, C = 64, 16, 128
+    fiber = st.Fiber.create(2, C)
+    feats = {str(d): torch.randn(1, n, C, 2 * d + 1, generator=gen)
+             for d in range(2)}
+    idx = torch.randint(0, n, (1, n, k), generator=gen)
+    mask = torch.rand(1, n, k, generator=gen) > 0.05
+    rel = torch.randn(1, n, k, 3, generator=gen) * 4.0
+    for fuse_basis, kernel, pairs in ((True, 'bxf', 4), (False, 'fwd', 2)):
+        conv = st.ConvSE3(fiber, fiber, fuse_basis=fuse_basis)
+        init_parameters(conv, torch.Generator().manual_seed(22))
+        results = {}
+        for device in ('cuda', 'cpu'):
+            conv = conv.to(device)
+            xs = {d: v.to(device).requires_grad_() for d, v in feats.items()}
+            r = rel.to(device)
+            basis = st.get_basis(r, 1, layout='pfq_flat' if fuse_basis
+                                 else 'pqf')
+            args = (xs, (idx.to(device), mask.to(device)), r.norm(dim=-1),
+                    basis)
+            reset_counts()
+            with torch.no_grad():
+                conv(*args)
+            if device == 'cuda':
+                nograd = (counts(), routed())
+            reset_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                out = conv(*args)
+                loss = sum((o ** 2).sum() for o in out.values())
+                grads = torch.autograd.grad(loss, [xs['0'], xs['1']]
+                                            + list(conv.parameters()))
+            if device == 'cuda':
+                torch.cuda.synchronize()
+                grad = (counts(), routed())
+                texts = sorted({str(w.message) for w in caught
+                                if 'using the plain path' in str(w.message)})
+            results[device] = ([o.detach().cpu() for o in out.values()],
+                               [g.cpu() for g in grads])
+        out_err = max(float((a - b).abs().max()) for a, b in
+                      zip(results['cuda'][0], results['cpu'][0]))
+        out_max = max(float(b.abs().max()) for b in results['cpu'][0])
+        grad_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in
+                       zip(results['cuda'][1], results['cpu'][1]))
+        log('route', json.dumps(dict(
+            model=f'ConvSE3 O=128 {kernel}', n=n, k=k,
+            nograd=dict(launches=dict(zip(COUNT_NAMES, nograd[0])),
+                        routed=dict(zip(ROUTE_NAMES, nograd[1]))),
+            grad=dict(launches=dict(zip(COUNT_NAMES, grad[0])),
+                      routed=dict(zip(ROUTE_NAMES, grad[1]))),
+            warnings=texts, max_abs_err=out_err, max_abs_cpu=out_max,
+            grad_rel_err=grad_rel)))
+        want = tuple(pairs if name == kernel else 0 for name in COUNT_NAMES)
+        want_routed = tuple(pairs if name == 'A' else 0
+                            for name in ROUTE_NAMES)
+        if nograd != (want, (0,) * len(ROUTE_NAMES)):
+            raise AssertionError(f'route wide {kernel} without grad: '
+                                 f'{nograd}, want {want} and no route')
+        if grad != (want, want_routed):
+            raise AssertionError(f'route wide {kernel} with grad: {grad}, '
+                                 f'want {want} and {want_routed}')
+        if not texts:
+            raise AssertionError(f'route wide {kernel}: no routing warning')
+        if not (out_err <= REF_RTOL_F32 * out_max
+                and grad_rel <= REF_GRAD_RTOL_F32):
+            raise AssertionError(f'route wide {kernel}: card vs CPU {out_err}'
+                                 f' of {out_max}, gradients {grad_rel}')
+    reset_counts()
 
 
 def phase_train(st, recipe, want, other_policy, want_other, label=None,
@@ -1473,43 +1663,47 @@ def main() -> int:
     fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
     bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
     paths = [
-        bx_launches,
+        not_routed('bx', bx_launches),
         # the assembly model: one 7g launch per output degree (2)
-        phase_global_serve(st, launches(glob=2)),
-        phase_serve(st, 'flagship_fast',
-                    launches(bxf=4 + REPLAY_LAUNCHES + 4)),
-        phase_train(st, 'flagship_fast',
-                    launches(bxf=TRAIN_LAUNCHES, **fast_bwd), None,
-                    launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
-                             **fast_bwd)),
-        phase_serve(st, 'flagship_fast',
-                    launches(bxf=4 + REPLAY_LAUNCHES + 4,
-                             attn_fwd=ATTN_LAUNCHES),
-                    label='flagship_fast+pallas_attention',
-                    pallas_attention=True),
-        phase_train(st, 'flagship_fast',
-                    launches(bxf=TRAIN_LAUNCHES, attn_fwd=2 * ATTN_LAUNCHES,
-                             attn_bwd=ATTN_LAUNCHES, **fast_bwd), None,
-                    launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
-                             attn_fwd=2 * ATTN_LAUNCHES,
-                             attn_bwd=ATTN_LAUNCHES, **fast_bwd),
-                    label='flagship_fast+pallas_attention',
-                    pallas_attention=True),
-        phase_serve(st, 'flagship_fast',
-                    launches(bxf=FLASH_BXF_LAUNCHES, flash=ATTN_LAUNCHES),
-                    label='flagship_fast+fuse_pairwise', fuse_pairwise=True),
-        phase_serve(st, 'flagship', launches(fwd=FLAGSHIP_SERVE_LAUNCHES)),
-        phase_train(st, 'flagship',
-                    launches(fwd=FLAGSHIP_TRAIN_LAUNCHES
-                             + FLAGSHIP_REPLAY_LAUNCHES,
-                             a=FLAGSHIP_BWD_LAUNCHES,
-                             b=FLAGSHIP_BWD_LAUNCHES),
-                    'save_conv_outputs',
-                    launches(fwd=FLAGSHIP_TRAIN_LAUNCHES,
-                             a=FLAGSHIP_BWD_LAUNCHES,
-                             b=FLAGSHIP_BWD_LAUNCHES))]
+        not_routed('global serve', phase_global_serve(st, launches(glob=2))),
+        not_routed('flagship_fast serve', phase_serve(
+            st, 'flagship_fast', launches(bxf=4 + REPLAY_LAUNCHES + 4))),
+        not_routed('flagship_fast train', phase_train(
+            st, 'flagship_fast', launches(bxf=TRAIN_LAUNCHES, **fast_bwd),
+            None, launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
+                           **fast_bwd))),
+        not_routed('flagship_fast+pallas_attention serve', phase_serve(
+            st, 'flagship_fast', launches(bxf=4 + REPLAY_LAUNCHES + 4,
+                                          attn_fwd=ATTN_LAUNCHES),
+            label='flagship_fast+pallas_attention', pallas_attention=True)),
+        not_routed('flagship_fast+pallas_attention train', phase_train(
+            st, 'flagship_fast',
+            launches(bxf=TRAIN_LAUNCHES, attn_fwd=2 * ATTN_LAUNCHES,
+                     attn_bwd=ATTN_LAUNCHES, **fast_bwd), None,
+            launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
+                     attn_fwd=2 * ATTN_LAUNCHES, attn_bwd=ATTN_LAUNCHES,
+                     **fast_bwd),
+            label='flagship_fast+pallas_attention', pallas_attention=True)),
+        not_routed('flagship_fast+fuse_pairwise serve', phase_serve(
+            st, 'flagship_fast',
+            launches(bxf=FLASH_BXF_LAUNCHES, flash=ATTN_LAUNCHES),
+            label='flagship_fast+fuse_pairwise', fuse_pairwise=True)),
+        not_routed('flagship serve', phase_serve(
+            st, 'flagship', launches(fwd=FLAGSHIP_SERVE_LAUNCHES))),
+        not_routed('flagship train', phase_train(
+            st, 'flagship',
+            launches(fwd=FLAGSHIP_TRAIN_LAUNCHES + FLAGSHIP_REPLAY_LAUNCHES,
+                     a=FLAGSHIP_BWD_LAUNCHES, b=FLAGSHIP_BWD_LAUNCHES),
+            'save_conv_outputs',
+            launches(fwd=FLAGSHIP_TRAIN_LAUNCHES, a=FLAGSHIP_BWD_LAUNCHES,
+                     b=FLAGSHIP_BWD_LAUNCHES)))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
+
+    # C1: models past the kernels' limits route to the plain versions
+    phase_route(st)
+    phase_route_wide(st)
+    log(f'phase: route done at {time.perf_counter() - t_start:.0f} s')
 
     # 8. references on small inputs
     phase_reference(st)

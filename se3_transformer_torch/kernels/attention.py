@@ -15,10 +15,12 @@ uniform average of its slots, as the XLA softmax does.
 
 A CPU tensor takes the plain PyTorch version. A CUDA tensor launches the
 hand-written Hopper kernels of csrc/attention.cu or raises; nothing falls
-back. Past the kernels' limits (J <= MAX_SLOTS, D <= MAX_FEATURES) the
-wrappers raise, where the JAX module warns and runs XLA.
-`fused_attention_fwd.launches` and `fused_attention_bwd.launches` count
-kernel launches.
+back. `attention_limit`, the kernels' fits predicate, says whether they
+take J slots of D features (J <= MAX_SLOTS, D <= MAX_FEATURES); past them
+the wrappers raise, and the attention layer (ops/attention.py), like the
+JAX module, warns and runs the plain version instead, counted in
+`fused_attention_fwd.routed` (routing.route). `fused_attention_fwd.launches` and
+`fused_attention_bwd.launches` count kernel launches.
 
 `fused_attention` is the differentiable form: the torch.library custom op
 `se3_torch::fused_attention`, whose autograd runs the backward kernel (the
@@ -37,6 +39,16 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 # the kernels' per-row shared-memory arrays (csrc/attention.cu)
 MAX_SLOTS = 128
 MAX_FEATURES = 256
+
+
+def attention_limit(J: int, D: int) -> Optional[str]:
+    """None when kernels #5 and #6 take rows of J slots and D features,
+    else the limit the call exceeds: the port's fused_attention_fits."""
+    if J > MAX_SLOTS:
+        return f'J = {J} slots exceeds the kernel limit of {MAX_SLOTS}'
+    if D > MAX_FEATURES:
+        return f'D = {D} features exceeds the kernel limit of {MAX_FEATURES}'
+    return None
 
 
 def _expand(q, k, v, mask):
@@ -108,12 +120,9 @@ def _check(q, k, v, mask, heads, g=None):
                          f'{tuple(q.shape)}')
     if g is not None and g.shape != q.shape:
         raise ValueError(f'g must be {tuple(q.shape)}, got {tuple(g.shape)}')
-    if J > MAX_SLOTS:
-        raise ValueError(f'J = {J} slots is past the kernel limit of '
-                         f'{MAX_SLOTS}')
-    if D > MAX_FEATURES:
-        raise ValueError(f'D = {D} features is past the kernel limit of '
-                         f'{MAX_FEATURES}')
+    limit = attention_limit(J, D)
+    if limit is not None:
+        raise ValueError(limit)
     if mask is not None:
         if mask.dtype != torch.bool or not mask.is_contiguous() \
                 or BH % heads or tuple(mask.shape) != (BH // heads, n, J):
@@ -153,6 +162,7 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention_fwd.launches = 0
+fused_attention_fwd.routed = 0
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

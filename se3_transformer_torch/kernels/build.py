@@ -120,9 +120,9 @@ def load_library() -> ctypes.CDLL:
             # the flat basis (bxf) or the structured one (bx)
             for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx):
                 fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
-            # (h, w3, b3, v2, out, work, E, IF, O, P, i_per_split,
-            #  h_is_bf16, stream)
-            lib.se3_pairwise_fwd.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+            # (h, w3, b3, v2, out, work, w3_split, E, IF, O, P,
+            #  i_per_split, h_is_bf16, stream)
+            lib.se3_pairwise_fwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
             # (h, w3, b3, v2, g, dv2, work, dw3, db3, E, IF, P, splits,
             #  h_is_bf16, stream)
             lib.se3_pairwise_bwd_a.argtypes = [vp] * 9 + [ci] * 5 + [vp]

@@ -14,30 +14,67 @@
 // What bounds it on this card. At the flagship shape one hidden->hidden
 // ConvSE3 (four launches, IF = 256, 640, 896, 1024; E = 32768 edges,
 // mid = 128, O = 64) is 1.51 TFLOP of radial product against ~1.8 GB of
-// V2: compute-bound. The conservative recipe runs it in float32, on the
-// CUDA cores (no TF32): 22.6 ms at 67 TFLOP/s. In bf16 the product runs on
-// the tensor cores.
+// V2. The conservative recipe runs it in float32. On fp32 FMAs that is
+// 22.6 ms at the 67 TFLOP/s CUDA-core peak, and an FMA tile that reads
+// shared memory every few FMAs reaches a third of it. So the float32
+// product runs on the tensor cores as three bf16 passes: each float32
+// operand x splits exactly into hi = bf16(x) and lo = bf16(x - hi)
+// (together within 2^-16 of x, relative), and
+//     h.W3 ~ h_hi.W_hi + h_hi.W_lo + h_lo.W_hi
+// drops only h_lo.W_lo (~2^-16 of each product); the tensor cores'
+// products are exact and their sums float32. Three passes are
+// 3 x 1.51 TFLOP = 4.5 TFLOP at 989 TFLOP/s: 4.6 ms per hidden conv, plus
+// the float32 epilogue (2 * E * sum(P * IF) * O = 58 GFLOP, 0.9 ms at the
+// FMA peak) and ~1.8 GB of V2 (0.55 ms at 3.35 TB/s). bf16 h/W3 take one
+// pass on the same tile.
 //
 // What the design does about it:
-//  * The structure of pairwise_bxf.cu: a CTA owns 64 edges x 64 output
-//    channels; the [edge, P, O-tile] accumulator stays in registers over
-//    its loop over i; R = h . W3[:, i, O-tile] is one bf16 mma.sync tile
-//    (h's fragments loaded once) or one fp32-FMA tile, with W3 slices
-//    streamed through a cp.async double buffer; the epilogue (R + b3) x V2
-//    runs on the accumulator registers.
-//  * V2[tile, :, i] is read from device memory in chunks of KI values of
-//    i, each staged by 4-byte cp.async into a second double buffer, one
-//    chunk ahead of its use.
-//  * Filling the card. The recipe streams E in 8 node chunks, so a launch
-//    has 4096 edges: 64 edge tiles for 132 SMs. The i range is then split
-//    across grid.z (i_per_split in kernels/pairwise.py, a function of the
-//    shapes): each split writes a partial [E, P, O] to a
+//  * A CTA owns 64 edges x 64 output channels with 8 warps (4 along edges
+//    x 2 along O); the [edge, P, O-tile] accumulator stays in registers
+//    over the loop over i, and the epilogue (R + b3) x V2 runs on the
+//    mma.sync m16n8k16 accumulator registers, so R never leaves them.
+//  * mma.sync, not wgmma. The P-deep accumulator is 16 * P registers a
+//    thread (112 at P = 7), and h's hi and lo A fragments stay loaded for
+//    the whole i loop (64 more): a 64 x N wgmma accumulator does not fit
+//    beside them. The warp tile's A fragments match wgmma's register-A
+//    layout, so a later wgmma tile keeps this epilogue.
+//  * h is split into hi/lo bf16 as its tile is staged (once per CTA, from
+//    float32 rows) and its fragments are loaded before the loop; the h
+//    tiles borrow the ring's shared memory until then. W3 is split by
+//    fwd_w3_split_kernel, once per call, into a bf16 hi array and a lo
+//    array in scratch that the wrapper allocates; each i's [128 x 64] hi
+//    and lo slices stream through a ring of STAGES (cp.async, 16 bytes a
+//    thread), STAGES - 1 slices in flight while one is multiplied.
+//  * Per kk (16 of mid) and per 8-column group the passes are issued in a
+//    fixed order (hi.hi, hi.lo, lo.hi) into one accumulator: the same bits
+//    on every run.
+//  * V2[tile, :, i] is read in chunks of KI values of i by 16-byte
+//    cp.async (rows are contiguous along i; 4-byte copies only when IF is
+//    not a multiple of 4), double-buffered one chunk ahead; the ragged
+//    tail of a chunk is zero-filled.
+//  * Each CTA walks its i range in chunk order starting at a chunk set by
+//    its edge tile, so that the CTAs on the card at one time fetch
+//    different W3 slices rather than all the same one (faster in bf16 in
+//    an A/B of both orders on an H100).
+//  * Filling the card. Where the accumulator leaves room (P = 1, and bf16
+//    P = 3) the tile is held to 128 registers and ~100 KB of shared memory
+//    so that two CTAs share an SM and hide each other's barriers and
+//    fetches (faster at those P in the same A/B). Elsewhere one CTA runs
+//    per SM. The recipe streams E in 8 node chunks, so a launch has 4096
+//    edges: 64 edge tiles. The i range is then split across grid.z
+//    (i_per_split in kernels/pairwise.py, a function of the shapes, each
+//    split a multiple of KI): each split writes a partial [E, P, O] to a
 //    workspace and fwd_reduce_kernel sums the partials in split order. No
 //    atomics: the result is the same bit for bit on every run.
 //  * Ragged edge tails are masked: rows past E load zeros, store nothing.
-// Left for later: wgmma, TMA, a larger per-thread fp32 tile (the FMA tile
-// reads shared memory once per 2.7 FMAs), a bf16 hi/lo split of the float32
-// product onto the tensor cores.
+// Where it stands (PERF.md, row #3): float32 runs at about 3.4x the
+// speed of the FMA tile it replaced and under the FMA bound, ~4x its
+// three-pass bound. The four edge-warps each read every W3 fragment with
+// ldmatrix (~1 KB per 3 mma), and mma.sync issues from registers at well
+// under the wgmma rate: the next step is wgmma with W3 read from shared
+// memory by the hardware once per warpgroup, TMA (and a cluster
+// multicast) for the W3 ring, and an epilogue that does not keep the
+// P-deep accumulator beside two sets of A fragments.
 
 #include "common.cuh"
 
@@ -45,38 +82,139 @@ namespace {
 
 using namespace se3;
 
+using bf16 = __nv_bfloat16;
 constexpr int KI = 16;  // i values of V2 staged per chunk
+constexpr int HS = Tile<bf16>::HS, WS = Tile<bf16>::WS;
+constexpr int W_SLICE = MID * WS;  // one staged [MID][BO] bf16 slice
+
+// The tile's shape by h's type T and P. BLOCKS CTAs share an SM where
+// the P-deep accumulator leaves room: at most 128 registers a thread and
+// ~113 KB of shared memory each (their barriers and fetch latencies then
+// overlap). The ring holds STAGES x (hi, lo) W3 slices for float32,
+// STAGES x hi for bf16.
+template <typename T, int P>
+struct Cfg {
+  static constexpr bool kSplit = sizeof(T) == 4;
+  static constexpr int BLOCKS = (P == 1 || (!kSplit && P == 3)) ? 2 : 1;
+  static constexpr int STAGES = BLOCKS == 2 ? (kSplit ? 2 : 3) : (kSplit ? 3 : 6);
+  static constexpr int SLICES = kSplit ? 2 : 1;
+  static constexpr size_t SMEM = sizeof(bf16) * (size_t)STAGES * SLICES * W_SLICE +
+                                 sizeof(float) * (size_t)2 * BE * (P * KI + 4);
+};
 
 // V2[e0 .. e0+BE, :, c0 .. c0+nk] -> a [BE][P*KI + 4] float tile (the row
-// stride puts the 8 rows that a warp's epilogue reads on distinct banks).
+// stride puts the 8 rows that a warp's epilogue reads on distinct banks);
+// zeros past the tile's rows and past nk.
 template <int P>
 __device__ __forceinline__ void load_v(float* sv, const float* __restrict__ v2, int e0,
-                                       int rows, int IF, int c0, int nk, int tid) {
+                                       int rows, int IF, int c0, int nk, bool vec,
+                                       int tid) {
   constexpr int VS = P * KI + 4;
-  for (int idx = tid; idx < BE * P * KI; idx += NTHREADS) {
-    const int r = idx / (P * KI), rest = idx - r * (P * KI);
-    const int p = rest / KI, k = rest - p * KI;
-    float* dst = sv + r * VS + p * KI + k;
-    if (r < rows && k < nk)
-      cp_async4(dst, v2 + ((size_t)(e0 + r) * P + p) * IF + c0 + k);
-    else
-      *dst = 0.f;
+  if (vec) {  // IF % 4 == 0, c0 % 4 == 0 and nk % 4 == 0: 16-byte copies
+    constexpr int Q4 = KI / 4;
+    for (int idx = tid; idx < BE * P * Q4; idx += NTHREADS) {
+      const int r = idx / (P * Q4), rest = idx - r * (P * Q4);
+      const int p = rest / Q4, k = (rest - p * Q4) * 4;
+      float* dst = sv + r * VS + p * KI + k;
+      if (r < rows && k < nk)
+        cp_async16(dst, v2 + ((size_t)(e0 + r) * P + p) * IF + c0 + k);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int idx = tid; idx < BE * P * KI; idx += NTHREADS) {
+      const int r = idx / (P * KI), rest = idx - r * (P * KI);
+      const int p = rest / KI, k = rest - p * KI;
+      float* dst = sv + r * VS + p * KI + k;
+      if (r < rows && k < nk)
+        cp_async4(dst, v2 + ((size_t)(e0 + r) * P + p) * IF + c0 + k);
+      else
+        *dst = 0.f;
+    }
   }
 }
 
+// The CTA's float32 h rows split into bf16 hi and lo tiles [BE][HS]
+// (zeros past E); plain loads, once per CTA.
+__device__ __forceinline__ void split_h(bf16* shi, bf16* slo, const float* __restrict__ h,
+                                        int e0, int rows, int tid) {
+  constexpr int C4 = MID / 4;
+  for (int idx = tid; idx < BE * C4; idx += NTHREADS) {
+    const int r = idx / C4, c = (idx - r * C4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) x = __ldg(reinterpret_cast<const float4*>(h + (size_t)(e0 + r) * MID + c));
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(x.x, x.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(x.z, x.w);
+    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+    const __nv_bfloat162 l01 = __floats2bfloat162_rn(x.x - f01.x, x.y - f01.y);
+    const __nv_bfloat162 l23 = __floats2bfloat162_rn(x.z - f23.x, x.w - f23.y);
+    __nv_bfloat162* dh = reinterpret_cast<__nv_bfloat162*>(shi + r * HS + c);
+    __nv_bfloat162* dl = reinterpret_cast<__nv_bfloat162*>(slo + r * HS + c);
+    dh[0] = h01;
+    dh[1] = h23;
+    dl[0] = l01;
+    dl[1] = l23;
+  }
+}
+
+// R tile of one warp for one i: one bf16 pass, or the three split passes
+// (hi.hi, hi.lo, lo.hi per kk and column group, in that order).
+template <bool kSplit>
+__device__ __forceinline__ void radial_tile_split(float (&rs)[4][4], const uint32_t (&ahi)[8][4],
+                                                  const uint32_t (&alo)[8][4], const bf16* swh,
+                                                  const bf16* swl, int wo, int lane) {
+  const int j = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < MID / 16; ++kk) {
+#pragma unroll
+    for (int nb2 = 0; nb2 < 2; ++nb2) {
+      const int off = (kk * 16 + (j & 1) * 8 + rr) * WS + wo * 32 + nb2 * 16 + (j >> 1) * 8;
+      uint32_t bh[4];
+      ldmatrix_x4_trans(bh, swh + off);
+      mma_bf16(rs[nb2 * 2 + 0], ahi[kk], bh[0], bh[1]);
+      mma_bf16(rs[nb2 * 2 + 1], ahi[kk], bh[2], bh[3]);
+      if constexpr (kSplit) {
+        uint32_t bl[4];
+        ldmatrix_x4_trans(bl, swl + off);
+        mma_bf16(rs[nb2 * 2 + 0], ahi[kk], bl[0], bl[1]);
+        mma_bf16(rs[nb2 * 2 + 1], ahi[kk], bl[2], bl[3]);
+        mma_bf16(rs[nb2 * 2 + 0], alo[kk], bh[0], bh[1]);
+        mma_bf16(rs[nb2 * 2 + 1], alo[kk], bh[2], bh[3]);
+      }
+    }
+  }
+}
+
+// Stage slice i of the (hi[, lo]) W3 arrays into one ring stage.
+template <bool kSplit>
+__device__ __forceinline__ void load_slices(bf16* stage, const bf16* __restrict__ whi,
+                                            const bf16* __restrict__ wlo, int i, int IF,
+                                            int O, int o0, int tid) {
+  load_w(stage, whi, i, IF, O, o0, tid);
+  if constexpr (kSplit) load_w(stage + W_SLICE, wlo, i, IF, O, o0, tid);
+}
+
+// T is h's type: float (split into hi/lo here, W3 given as its split
+// arrays) or bf16 (W3 given as itself; wlo is unused).
 template <typename T, int P>
-__global__ void __launch_bounds__(NTHREADS, 1)
-pairwise_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3,
-                    const float* __restrict__ b3, const float* __restrict__ v2,
-                    float* __restrict__ out, int E, int IF, int O, int i_per_split) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int HS = Tile<T>::HS, WS = Tile<T>::WS;
+__global__ void __launch_bounds__(NTHREADS, (Cfg<T, P>::BLOCKS))
+pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
+                    const bf16* __restrict__ wlo, const float* __restrict__ b3,
+                    const float* __restrict__ v2, float* __restrict__ out, int E, int IF,
+                    int O, int i_per_split, bool vec) {
+  constexpr bool kSplit = Cfg<T, P>::kSplit;
+  constexpr int STAGES = Cfg<T, P>::STAGES;
+  constexpr int STAGE = Cfg<T, P>::SLICES * W_SLICE;
   constexpr int VS = P * KI + 4;
+  static_assert((kSplit ? 2 : 1) * BE * HS <= STAGES * STAGE, "h tiles fit the ring");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sH = reinterpret_cast<T*>(smem);                       // [BE][HS]
-  T* sW = sH + BE * HS;                                     // 2 x [MID][WS]
-  float* sV = reinterpret_cast<float*>(sW + 2 * MID * WS);  // 2 x [BE][VS]
+  bf16* sW = reinterpret_cast<bf16*>(smem);                   // STAGES x STAGE
+  float* sV = reinterpret_cast<float*>(sW + STAGES * STAGE);  // 2 x [BE][VS]
+  // the h tiles [BE][HS] (hi, and lo when split) take the ring's space
+  // until their fragments are in registers
+  bf16* sHh = sW;
+  bf16* sHl = sW + BE * HS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int we = warp & 3, wo = warp >> 2;
@@ -86,12 +224,43 @@ pairwise_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3,
   // this split's i range; the wrapper leaves no split empty
   const int i_lo = blockIdx.z * i_per_split;
   const int n_i = min(IF, i_lo + i_per_split) - i_lo;
+  // The range is walked in chunks of KI, starting at chunk `rot` (a
+  // function of the edge tile), so that the CTAs resident at one time
+  // fetch different W3 slices. Positions past n_i (in the last, partial
+  // chunk) only keep the pipeline's count.
+  const int n_ch = (n_i + KI - 1) / KI;
+  const int rot = (int)(blockIdx.x % n_ch);
+  const int n_pos = n_ch * KI;
+  auto chunk_of = [&](int j) { return j + rot < n_ch ? j + rot : j + rot - n_ch; };
+  auto local_i = [&](int pos) { return chunk_of(pos / KI) * KI + pos % KI; };
 
-  // h tile, the first W3 slice and the first V2 chunk: one cp.async group
-  load_h(sH, h, e0, rows, tid);
-  load_w(sW, w3, i_lo, IF, O, o0, tid);
-  load_v<P>(sV, v2, e0, rows, IF, i_lo, min(KI, n_i), tid);
-  cp_async_commit();
+  // h's A fragments, loaded once: from the float32 rows split into hi and
+  // lo, or from the bf16 rows
+  uint32_t ahi[8][4], alo[8][4];
+  if constexpr (kSplit) {
+    split_h(sHh, sHl, h, e0, rows, tid);
+  } else {
+    load_h(sHh, h, e0, rows, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  load_afrag(ahi, sHh, we, lane);
+  if constexpr (kSplit) load_afrag(alo, sHl, we, lane);
+  __syncthreads();  // the ring takes the h tiles' space from here
+
+  // the ring's first STAGES - 1 slices, one cp.async group each; the
+  // first V2 chunk rides in the first group
+  {
+    const int c = chunk_of(0);
+    load_v<P>(sV, v2, e0, rows, IF, i_lo + c * KI, min(KI, n_i - c * KI), vec, tid);
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_pos && local_i(s) < n_i)
+      load_slices<kSplit>(sW + s * STAGE, whi, wlo, i_lo + local_i(s), IF, O, o0, tid);
+    cp_async_commit();
+  }
 
   float acc[P][4][4];
 #pragma unroll
@@ -101,41 +270,40 @@ pairwise_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3,
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[p][nb][v] = 0.f;
 
-  uint32_t afrag[8][4];
   const int e_lo = we * 16 + g, e_hi = e_lo + 8;
 
-  for (int n = 0; n < n_i; ++n) {
-    const int i = i_lo + n;
-    const int chunk = n / KI, k = n - chunk * KI;
-    if (n + 1 < n_i) {
-      // the next W3 slice and, at a chunk's first i, the next V2 chunk
-      load_w(sW + ((n + 1) & 1) * MID * WS, w3, i + 1, IF, O, o0, tid);
-      const int c1 = (chunk + 1) * KI;
-      if (k == 0 && c1 < n_i)
-        load_v<P>(sV + ((chunk + 1) & 1) * BE * VS, v2, e0, rows, IF, i_lo + c1,
-                  min(KI, n_i - c1), tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int n = 0; n < n_pos; ++n) {
+    const int j = n / KI, k = n - j * KI;
+    const int il = local_i(n);
+    // slice n has landed (each iteration commits one group), and every
+    // thread is done with iteration n - 1's stage and V2 buffer
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
+    // refill the stage freed by iteration n - 1 and, at a chunk's first
+    // position, the V2 buffer freed by the previous chunk
+    const int nxt = n + STAGES - 1;
+    if (nxt < n_pos && local_i(nxt) < n_i)
+      load_slices<kSplit>(sW + (nxt % STAGES) * STAGE, whi, wlo, i_lo + local_i(nxt), IF, O,
+                          o0, tid);
+    if (k == 0 && j + 1 < n_ch) {
+      const int c = chunk_of(j + 1);
+      load_v<P>(sV + ((j + 1) & 1) * BE * VS, v2, e0, rows, IF, i_lo + c * KI,
+                min(KI, n_i - c * KI), vec, tid);
+    }
+    cp_async_commit();
+    if (il >= n_i) continue;
+    const int i = i_lo + il;
 
-    const T* sw = sW + (n & 1) * MID * WS;
+    const bf16* sw = sW + (n % STAGES) * STAGE;
     float r[4][4];
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
       for (int v = 0; v < 4; ++v) r[nb][v] = 0.f;
-    if constexpr (kBf16) {
-      if (n == 0) load_afrag(afrag, sH, we, lane);
-      radial_tile(r, afrag, sw, wo, lane);
-    } else {
-      radial_tile_f32(r, sH, sw, e_lo, wo, t);
-    }
+    radial_tile_split<kSplit>(r, ahi, alo, sw, sw + W_SLICE, wo, lane);
 
     // epilogue: acc[p] += V2[e, p, i] * (R + b3)
-    const float* sv = sV + (chunk & 1) * BE * VS + k;
+    const float* sv = sV + (j & 1) * BE * VS + k;
     float vl[P], vh[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
@@ -156,8 +324,8 @@ pairwise_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3,
         acc[p][nb][3] = fmaf(vh[p], r3, acc[p][nb][3]);
       }
     }
-    __syncthreads();  // sW[n & 1] and the V2 buffers are rewritten next
   }
+  cp_async_wait<0>();
 
   // this split's [E, P, O] (the output itself when there is one split)
   float* dst = out + (size_t)blockIdx.z * E * P * O;
@@ -173,6 +341,24 @@ pairwise_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3,
         *reinterpret_cast<float2*>(dst + ((size_t)(e0 + e_hi) * P + p) * O + col) =
             make_float2(acc[p][nb][2], acc[p][nb][3]);
     }
+}
+
+// float32 W3 -> its bf16 hi and lo arrays (hi = bf16(w), lo = bf16(w - hi)).
+__global__ void fwd_w3_split_kernel(const float4* __restrict__ w, size_t n4,
+                                    uint2* __restrict__ hi, uint2* __restrict__ lo) {
+  for (size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x; j < n4;
+       j += (size_t)gridDim.x * blockDim.x) {
+    const float4 x = w[j];
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(x.x, x.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(x.z, x.w);
+    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+    const __nv_bfloat162 l01 = __floats2bfloat162_rn(x.x - f01.x, x.y - f01.y);
+    const __nv_bfloat162 l23 = __floats2bfloat162_rn(x.z - f23.x, x.w - f23.y);
+    hi[j] = make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
+                       *reinterpret_cast<const uint32_t*>(&h23));
+    lo[j] = make_uint2(*reinterpret_cast<const uint32_t*>(&l01),
+                       *reinterpret_cast<const uint32_t*>(&l23));
+  }
 }
 
 // out = the splits' partials summed in split order (deterministic).
@@ -192,28 +378,48 @@ __global__ void fwd_reduce_kernel(const float4* __restrict__ part, int splits, s
   }
 }
 
+unsigned grid_for(size_t n4) {
+  const size_t blocks = (n4 + NTHREADS - 1) / NTHREADS;
+  return (unsigned)(blocks > 4096 ? 4096 : blocks);
+}
+
 template <typename T, int P>
 cudaError_t launch(const void* h, const void* w3, const void* b3, const void* v2, void* out,
-                   void* work, int E, int IF, int O, int i_per_split, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(T) * (size_t)(BE * Tile<T>::HS + 2 * MID * Tile<T>::WS) +
-      sizeof(float) * (size_t)(2 * BE * (P * KI + 4));
+                   void* work, void* w3_split, int E, int IF, int O, int i_per_split,
+                   cudaStream_t stream) {
+  constexpr bool kSplit = Cfg<T, P>::kSplit;
+  constexpr size_t smem = Cfg<T, P>::SMEM;
+  const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
+  cudaError_t err;
+  if constexpr (kSplit) {
+    // W3 [MID, IF, O] is a whole number of float4s (O % 64 == 0)
+    const size_t n4 = (size_t)MID * IF * O / 4;
+    uint2* hi = static_cast<uint2*>(w3_split);
+    fwd_w3_split_kernel<<<grid_for(n4), NTHREADS, 0, stream>>>(
+        static_cast<const float4*>(w3), n4, hi, hi + n4);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    whi = static_cast<const bf16*>(w3_split);
+    wlo = whi + (size_t)MID * IF * O;
+  }
   auto kern = pairwise_fwd_kernel<T, P>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const int splits = (IF + i_per_split - 1) / i_per_split;
+  // 16-byte V2 copies need every row and chunk start on 16 bytes
+  const bool vec = IF % 4 == 0 && i_per_split % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(v2) % 16 == 0;
   dim3 grid((E + BE - 1) / BE, O / BO, splits);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w3), static_cast<const float*>(b3),
+      static_cast<const T*>(h), whi, wlo, static_cast<const float*>(b3),
       static_cast<const float*>(v2), static_cast<float*>(splits > 1 ? work : out), E, IF, O,
-      i_per_split);
+      i_per_split, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t n4 = (size_t)E * P * O / 4;  // O is a multiple of 64
-  size_t blocks = (n4 + NTHREADS - 1) / NTHREADS;
-  if (blocks > 4096) blocks = 4096;
-  fwd_reduce_kernel<<<(unsigned)blocks, NTHREADS, 0, stream>>>(
+  fwd_reduce_kernel<<<grid_for(n4), NTHREADS, 0, stream>>>(
       static_cast<const float4*>(work), splits, n4, static_cast<float4*>(out));
   return cudaGetLastError();
 }
@@ -226,19 +432,21 @@ cudaError_t launch(const void* h, const void* w3, const void* b3, const void* v2
 // 128], w3 [128, IF, O] with O % 64 == 0, b3 [IF, O], v2 [E, P, IF] with P
 // in {1, 3, 5, 7}, out [E, P, O]; h/w3 bf16 or f32, the rest f32. With
 // more than one split (ceil(IF / i_per_split)) work holds that many
-// [E, P, O] float partials; it is not read otherwise.
+// [E, P, O] float partials; it is not read otherwise. With float32 h/w3,
+// w3_split holds 2 * 128 * IF * O bf16 (W3's hi array, then its lo array);
+// it is not read otherwise.
 extern "C" int se3_pairwise_fwd(const void* h, const void* w3, const void* b3, const void* v2,
-                                void* out, void* work, int E, int IF, int O, int P,
-                                int i_per_split, int h_is_bf16, void* stream) {
+                                void* out, void* work, void* w3_split, int E, int IF, int O,
+                                int P, int i_per_split, int h_is_bf16, void* stream) {
   if (E <= 0) return 0;
   if (O <= 0 || O % BO != 0 || IF <= 0 || i_per_split <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SE3_F(PP)                                                                          \
-  if (P == PP)                                                                             \
-    return (int)(h_is_bf16 ? launch<__nv_bfloat16, PP>(h, w3, b3, v2, out, work, E, IF, O, \
-                                                       i_per_split, s)                     \
-                           : launch<float, PP>(h, w3, b3, v2, out, work, E, IF, O,         \
-                                               i_per_split, s));
+#define SE3_F(PP)                                                                      \
+  if (P == PP)                                                                         \
+    return (int)(h_is_bf16 ? launch<bf16, PP>(h, w3, b3, v2, out, work, w3_split, E,   \
+                                              IF, O, i_per_split, s)                   \
+                           : launch<float, PP>(h, w3, b3, v2, out, work, w3_split, E,  \
+                                               IF, O, i_per_split, s));
   SE3_F(1) SE3_F(3) SE3_F(5) SE3_F(7)
 #undef SE3_F
   return (int)cudaErrorInvalidValue;

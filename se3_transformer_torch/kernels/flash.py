@@ -31,6 +31,12 @@ A CPU tensor takes the plain PyTorch version (`flash_attention_plain`, the
 port of the JAX XLA stream `_flash_stream`: node chunks, n // 16 of them). A
 CUDA tensor launches the hand-written Hopper kernel of csrc/flash_fwd.cu
 (`flash_attention_fwd`, whose `.launches` counts launches) or raises.
+`flash_limit` (and `global_limit` for the global kernel), the fits
+predicates, say from the configuration alone whether the kernel takes a
+call, the counterpart of JAX's flash_admissible_blocks; past them the
+attention layer runs the plain stream under autograd on the operands that
+`flash_operands` (`flash_global_operands`) prepare, and counts the call in
+the wrapper's `.routed` (routing.route).
 `flash_attention` is the differentiable form, the torch.library custom op
 `se3_torch::flash_attention`: it saves only its inputs, and its backward
 replays the plain chunked stream under autograd, one node chunk at a time
@@ -279,30 +285,62 @@ def _cg_buffer(d_ins: Tuple[int, ...], d_out: int, device: torch.device):
     return buf, tuple(offsets)
 
 
+def _pairs_limit(pairs, d_out: int, prefix: int) -> Optional[str]:
+    """The limits both kernels share: 1 to MAX_PAIRS input degrees, every
+    degree <= MAX_DEGREE, at most MAX_PREFIX prefix slots."""
+    if not 1 <= len(pairs) <= MAX_PAIRS:
+        return (f'{len(pairs)} input degrees exceeds the kernel limit of 1 '
+                f'to {MAX_PAIRS}')
+    degree = max([d for d, _ in pairs] + [d_out])
+    if degree > MAX_DEGREE:
+        return f'degree {degree} exceeds the kernel limit of {MAX_DEGREE}'
+    if prefix > MAX_PREFIX:
+        return (f'{prefix} prefix slots exceeds the kernel limit of '
+                f'{MAX_PREFIX}')
+    return None
+
+
+def flash_limit(pairs, d_out: int, heads: int, kv_heads: int, dim_head: int,
+                K: int, prefix: int, mid: int = MID,
+                h_dtype: torch.dtype = torch.float32) -> Optional[str]:
+    """None when kernel #7 (csrc/flash_fwd.cu) takes a kNN call of this
+    configuration, else the limit it exceeds: `pairs` (d_in, channels),
+    K neighbor slots, the radial width mid and dtype of h."""
+    limit = _pairs_limit(pairs, d_out, prefix)
+    if limit is not None:
+        return limit
+    if heads != kv_heads or heads > MAX_HEADS \
+            or heads * dim_head != O_WIDTH:
+        return (f'heads {heads}, kv_heads {kv_heads}, dim_head {dim_head} '
+                f'exceeds the built heads == kv_heads <= {MAX_HEADS} with '
+                f'heads * dim_head = {O_WIDTH}')
+    if not 1 <= K <= MAX_SLOTS:
+        return f'K = {K} neighbors exceeds the kernel limit of {MAX_SLOTS}'
+    if mid != MID or h_dtype not in (torch.bfloat16, torch.float32):
+        return (f'h of width {mid} and dtype {h_dtype} exceeds the built '
+                f'width {MID} in bfloat16 or float32')
+    return None
+
+
 def _check_xs(cfg: FlashConfig, xs, B: int, n: int) -> int:
     """The node features both kernels take: one float32 [B, n, C, 2 d + 1]
-    per input degree (1 to MAX_PAIRS of them, degree <= MAX_DEGREE);
-    returns IF, the pairs' C * F summed."""
-    if not 1 <= len(cfg.pairs) <= MAX_PAIRS or len(xs) != len(cfg.pairs):
-        raise ValueError(f'the kernel takes 1 to {MAX_PAIRS} input degrees, '
-                         f'got pairs {cfg.pairs} and {len(xs)} xs')
+    per input degree; returns IF, the pairs' C * F summed."""
+    if len(xs) != len(cfg.pairs):
+        raise ValueError(f'got pairs {cfg.pairs} and {len(xs)} xs')
     IF = 0
     for (d_in, c), x in zip(cfg.pairs, xs):
-        if not 0 <= d_in <= MAX_DEGREE or x.dtype != torch.float32 \
+        if x.dtype != torch.float32 \
                 or tuple(x.shape) != (B, n, c, 2 * d_in + 1):
             raise ValueError(f'x of degree {d_in} must be float32 [{B}, {n}, '
-                             f'{c}, {2 * d_in + 1}] (degree <= {MAX_DEGREE}), '
-                             f'got {x.dtype} {tuple(x.shape)}')
+                             f'{c}, {2 * d_in + 1}], got {x.dtype} '
+                             f'{tuple(x.shape)}')
         IF += c * (2 * min(d_in, cfg.d_out) + 1)
     return IF
 
 
 def _check_prefix(cfg: FlashConfig, ops: dict, B: int, n: int, width: int):
-    """cfg.prefix <= MAX_PREFIX slots of float32 [B, n, S0, width]."""
+    """cfg.prefix slots of float32 [B, n, S0, width]."""
     S0 = cfg.prefix
-    if S0 > MAX_PREFIX:
-        raise ValueError(f'{S0} prefix slots is past the kernel limit of '
-                         f'{MAX_PREFIX}')
     for name in ('prefix_k', 'prefix_v') if S0 else ():
         t = ops[name]
         if t.dtype != torch.float32 or tuple(t.shape) != (B, n, S0, width):
@@ -350,34 +388,28 @@ def _check(cfg: FlashConfig, ops: dict):
                         f'{tuple(q.shape)}')
     B, n, H, Dh = q.shape
     P = 2 * cfg.d_out + 1
-    if not 0 <= cfg.d_out <= MAX_DEGREE:
-        raise ValueError(f'd_out = {cfg.d_out} is past the kernel limit of '
-                         f'{MAX_DEGREE}')
-    if H != cfg.heads or cfg.heads != cfg.kv_heads or H > MAX_HEADS \
-            or O_WIDTH % H or Dh != (O_WIDTH // H) * P:
-        raise ValueError(f'the kernel takes heads == kv_heads <= {MAX_HEADS} '
-                         f'with heads * dim_head = {O_WIDTH}; got q '
-                         f'{tuple(q.shape)}, heads {cfg.heads}, kv_heads '
-                         f'{cfg.kv_heads}, d_out {cfg.d_out}')
-    IF = _check_xs(cfg, ops['xs'], B, n)
+    if H != cfg.heads or Dh % P:
+        raise ValueError(f'q must be [B, n, {cfg.heads}, dim_head * {P}], '
+                         f'got {tuple(q.shape)}')
     idx = ops['idx']
     if idx.dtype != torch.int64 or idx.ndim != 3 or idx.shape[:2] != (B, n):
         raise ValueError(f'idx must be int64 [{B}, {n}, K], got {idx.dtype} '
                          f'{tuple(idx.shape)}')
     K = idx.shape[2]
-    if not 1 <= K <= MAX_SLOTS:
-        raise ValueError(f'K = {K} neighbors is past the kernel limit of '
-                         f'{MAX_SLOTS}')
+    h_v, h_k = ops['h_v'], ops['h_k']
+    if h_k.dtype != h_v.dtype:
+        raise TypeError(f'h_v/h_k must have one dtype, got '
+                        f'{h_v.dtype}/{h_k.dtype}')
+    limit = flash_limit(cfg.pairs, cfg.d_out, cfg.heads, cfg.kv_heads,
+                        Dh // P, K, cfg.prefix, h_v.shape[-1], h_v.dtype)
+    if limit is not None:
+        raise ValueError(limit)
+    IF = _check_xs(cfg, ops['xs'], B, n)
     nmask = ops.get('nmask')
     if nmask is not None and (nmask.dtype != torch.bool
                               or tuple(nmask.shape) != (B, n, K)):
         raise ValueError(f'nmask must be bool [{B}, {n}, {K}], got '
                          f'{nmask.dtype} {tuple(nmask.shape)}')
-    h_v, h_k = ops['h_v'], ops['h_k']
-    if h_v.dtype not in (torch.bfloat16, torch.float32) \
-            or h_k.dtype != h_v.dtype:
-        raise TypeError(f'h_v/h_k must both be bfloat16 or float32, got '
-                        f'{h_v.dtype}/{h_k.dtype}')
     for name in ('h_v', 'h_k'):
         if tuple(ops[name].shape) != (B, n, K, MID):
             raise ValueError(f'{name} must be [{B}, {n}, {K}, {MID}], got '
@@ -435,6 +467,7 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routed = 0
 
 
 # --------------------------------------------------------------------- #
@@ -547,16 +580,15 @@ def _flash_backward(ctx, g):
 _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
-def flash_attention(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
-                    kv_heads, scale, arm_v='dense', arm_k=None, h_k=None,
-                    wk=None, bk=None, sh=None, frames=None, prefix_k=None,
-                    prefix_v=None, wv_scale=None, wk_scale=None
-                    ) -> torch.Tensor:
-    """Streaming kNN equivariant attention for ONE output degree, with the
-    signature of pallas_flash.py::flash_attention (operands in the module
-    docstring, any strides); differentiable in q, xs, h_v, h_k, wv, bv, wk, bk, sh and
-    the prefix slots. h_k defaults to h_v. The JAX options this port does
-    not take raise NotImplementedError."""
+def flash_operands(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
+                   kv_heads, scale, arm_v='dense', arm_k=None, h_k=None,
+                   wk=None, bk=None, sh=None, frames=None, prefix_k=None,
+                   prefix_v=None, wv_scale=None, wk_scale=None):
+    """flash_attention's arguments as the plain stream and the kernel take
+    them: (FlashConfig, ops), every operand contiguous; the JAX options
+    this port does not take raise NotImplementedError.
+    flash_attention_plain(*flash_operands(...)) is the plain stream under
+    autograd, the route of a configuration past flash_limit."""
     arm_k = arm_v if arm_k is None else arm_k
     if arm_v != 'dense' or arm_k != 'dense' or frames is not None:
         raise NotImplementedError(f'only the dense contraction arm is ported '
@@ -571,13 +603,28 @@ def flash_attention(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
         raise ValueError('the dense arm needs the sh payload')
     if (prefix_k is None) != (prefix_v is None):
         raise ValueError('prefix_k and prefix_v come together')
+
     def c(t):
         return None if t is None else t.contiguous()
     flat = [int(v) for pair in pairs for v in pair]
-    return _flash_op(c(q), [c(x) for x in xs], c(idx), c(nmask), c(h_v),
+    cfg = _config(flat, int(d_out), int(heads), int(kv_heads), float(scale),
+                  prefix_k)
+    return cfg, _ops(c(q), [c(x) for x in xs], c(idx), c(nmask), c(h_v),
                      c(h_v if h_k is None else h_k), c(wv), c(bv), c(wk),
-                     c(bk), c(sh), c(prefix_k), c(prefix_v), flat, int(d_out),
-                     int(heads), int(kv_heads), float(scale))
+                     c(bk), c(sh), c(prefix_k), c(prefix_v))
+
+
+def flash_attention(q, xs, idx, nmask, h_v, wv, bv, **config) -> torch.Tensor:
+    """Streaming kNN equivariant attention for ONE output degree, with the
+    signature of pallas_flash.py::flash_attention (operands in the module
+    docstring, any strides; the keywords of flash_operands); differentiable
+    in q, xs, h_v, h_k, wv, bv, wk, bk, sh and the prefix slots. h_k
+    defaults to h_v."""
+    cfg, ops = flash_operands(q, xs, idx, nmask, h_v, wv, bv, **config)
+    return _flash_op(*(list(ops[k]) if k == 'xs' else ops[k]
+                       for k in _TENSOR_ARGS),
+                     [v for pair in cfg.pairs for v in pair], cfg.d_out,
+                     cfg.heads, cfg.kv_heads, cfg.scale)
 
 
 # --------------------------------------------------------------------- #
@@ -712,6 +759,25 @@ def _sh_norm_table(device: torch.device) -> torch.Tensor:
                                device=device)
 
 
+def global_limit(pairs, d_out: int, heads: int, kv_heads: int,
+                 dim_head: int, prefix: int) -> Optional[str]:
+    """None when kernel 7g (csrc/flash_global.cu) takes a global call of
+    this configuration, else the limit it exceeds."""
+    limit = _pairs_limit(pairs, d_out, prefix)
+    if limit is not None:
+        return limit
+    if heads != kv_heads or heads > GLOBAL_MAX_HEADS \
+            or heads * dim_head != GLOBAL_O_WIDTH:
+        return (f'heads {heads}, kv_heads {kv_heads}, dim_head {dim_head} '
+                f'exceeds the built heads == kv_heads <= {GLOBAL_MAX_HEADS} '
+                f'with heads * dim_head = {GLOBAL_O_WIDTH}')
+    P = 2 * d_out + 1
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    if P * IF > GLOBAL_MAX_PIF:
+        return f'P * IF = {P * IF} exceeds the kernel limit of {GLOBAL_MAX_PIF}'
+    return None
+
+
 def _check_global(cfg: FlashConfig, ops: dict):
     """Shapes, dtypes, devices and contiguity csrc/flash_global.cu takes;
     returns (B, n, S0, IF)."""
@@ -721,23 +787,17 @@ def _check_global(cfg: FlashConfig, ops: dict):
                         f'{tuple(q.shape)}')
     B, n, H, Dh = q.shape
     P = 2 * cfg.d_out + 1
-    if not 0 <= cfg.d_out <= MAX_DEGREE:
-        raise ValueError(f'd_out = {cfg.d_out} is past the kernel limit of '
-                         f'{MAX_DEGREE}')
-    if H != cfg.heads or cfg.heads != cfg.kv_heads \
-            or H > GLOBAL_MAX_HEADS or GLOBAL_O_WIDTH % H \
-            or Dh != (GLOBAL_O_WIDTH // H) * P:
-        raise ValueError(f'the global kernel takes heads == kv_heads with '
-                         f'heads * dim_head = {GLOBAL_O_WIDTH}; got q '
-                         f'{tuple(q.shape)}, heads {cfg.heads}, kv_heads '
-                         f'{cfg.kv_heads}, d_out {cfg.d_out}')
+    if H != cfg.heads or Dh % P:
+        raise ValueError(f'q must be [B, n, {cfg.heads}, dim_head * {P}], '
+                         f'got {tuple(q.shape)}')
     if cfg.mode != 'global':
         raise ValueError(f'the global kernel runs global mode, not '
                          f'{cfg.mode!r}')
+    limit = global_limit(cfg.pairs, cfg.d_out, cfg.heads, cfg.kv_heads,
+                         Dh // P, cfg.prefix)
+    if limit is not None:
+        raise ValueError(limit)
     IF = _check_xs(cfg, ops['xs'], B, n)
-    if P * IF > GLOBAL_MAX_PIF:
-        raise ValueError(f'P * IF = {P * IF} is past the kernel limit of '
-                         f'{GLOBAL_MAX_PIF}')
     coords = ops['coords']
     if coords.dtype != torch.float32 or tuple(coords.shape) != (B, n, 3):
         raise ValueError(f'coords must be float32 [{B}, {n}, 3], got '
@@ -815,6 +875,7 @@ def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
 
 
 flash_global_attention_fwd.launches = 0
+flash_global_attention_fwd.routed = 0
 
 
 def _global_ops(q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask,
@@ -914,26 +975,16 @@ def _global_backward(ctx, g):
 _global_op.register_autograd(_global_backward, setup_context=_global_setup)
 
 
-def flash_global_attention(q, xs, coords, rp_v, wv, bv, *, pairs, d_out,
-                           heads, kv_heads, scale, arm='dense', rp_k=None,
-                           wk=None, bk=None, node_mask=None, prefix_k=None,
-                           prefix_v=None, exclude_self=True,
-                           materialize=False) -> torch.Tensor:
-    """kNN-free global equivariant attention for ONE output degree, with
-    the signature of pallas_flash.py::flash_global_attention: q [B, n, h,
-    Dh]; xs one [B, n, C, 2 d_in + 1] per input degree (`pairs` order);
-    coords [B, n, 3]; rp_v / rp_k the trunks' 8-tuples (1-D leaves taken as
-    [1, mid]); wv, wk [mid, IF, O] and bv, bk [IF, O]; node_mask [B, n]
-    bool (masks columns) or None; prefix_k / prefix_v [B, n, S0, kv_heads
-    * Dh] or None -> out [B, n, h, Dh] float32. Every node attends to the
-    prefix slots and every other node (every node with exclude_self
-    False). Differentiable in every floating operand; saves only its
-    inputs, and its backward replays the plain stream chunk by chunk.
-
-    materialize=True is the control arm: the plain stream as one chunk
-    (every [B, n, n, ...] pair tensor at once), differentiated by plain
-    autograd. The so2 arm and tied keys (no wk) raise
-    NotImplementedError."""
+def flash_global_operands(q, xs, coords, rp_v, wv, bv, *, pairs, d_out,
+                          heads, kv_heads, scale, arm='dense', rp_k=None,
+                          wk=None, bk=None, node_mask=None, prefix_k=None,
+                          prefix_v=None, exclude_self=True):
+    """flash_global_attention's arguments as the plain stream and the
+    kernel take them: (FlashConfig, ops), every operand contiguous, the
+    trunks' 1-D leaves as [1, mid]; the so2 arm and tied keys (no wk) raise
+    NotImplementedError. flash_global_plain(*flash_global_operands(...))
+    is the plain stream in its row chunks under autograd, the route of a
+    configuration past global_limit."""
     if arm != 'dense':
         raise NotImplementedError(f'only the dense contraction arm is ported '
                                   f'(arm={arm!r})')
@@ -951,13 +1002,34 @@ def flash_global_attention(q, xs, coords, rp_v, wv, bv, *, pairs, d_out,
     def trunk(rp):
         return [c(p.reshape(1, -1) if p.ndim == 1 else p) for p in rp]
     flat = [int(v) for pair in pairs for v in pair]
-    args = (c(q), [c(x) for x in xs], c(coords), trunk(rp_v), c(wv), c(bv),
-            trunk(rp_k), c(wk), c(bk), c(node_mask), c(prefix_k),
-            c(prefix_v))
+    cfg = _global_config(flat, int(d_out), int(heads), int(kv_heads),
+                         float(scale), prefix_k, exclude_self)
+    return cfg, _global_ops(c(q), [c(x) for x in xs], c(coords), trunk(rp_v),
+                            c(wv), c(bv), trunk(rp_k), c(wk), c(bk),
+                            c(node_mask), c(prefix_k), c(prefix_v))
+
+
+def flash_global_attention(q, xs, coords, rp_v, wv, bv,
+                           materialize=False, **config) -> torch.Tensor:
+    """kNN-free global equivariant attention for ONE output degree, with
+    the signature of pallas_flash.py::flash_global_attention (the keywords
+    of flash_global_operands): q [B, n, h, Dh]; xs one [B, n, C, 2 d_in +
+    1] per input degree (`pairs` order); coords [B, n, 3]; rp_v / rp_k the
+    trunks' 8-tuples (1-D leaves taken as [1, mid]); wv, wk [mid, IF, O]
+    and bv, bk [IF, O]; node_mask [B, n] bool (masks columns) or None;
+    prefix_k / prefix_v [B, n, S0, kv_heads * Dh] or None -> out [B, n, h,
+    Dh] float32. Every node attends to the prefix slots and every other
+    node (every node with exclude_self False). Differentiable in every
+    floating operand; saves only its inputs, and its backward replays the
+    plain stream chunk by chunk.
+
+    materialize=True is the control arm: the plain stream as one chunk
+    (every [B, n, n, ...] pair tensor at once), differentiated by plain
+    autograd."""
+    cfg, ops = flash_global_operands(q, xs, coords, rp_v, wv, bv, **config)
     if materialize:
-        cfg = _global_config(flat, d_out, heads, kv_heads, scale, prefix_k,
-                             exclude_self)
-        return flash_global_plain(cfg, _global_ops(*args),
-                                  rows=q.shape[1])
-    return _global_op(*args, flat, int(d_out), int(heads), int(kv_heads),
-                      float(scale), bool(exclude_self))
+        return flash_global_plain(cfg, ops, rows=q.shape[1])
+    return _global_op(*(list(v) if isinstance(v, tuple) else v
+                        for v in ops.values()),
+                      [v for pair in cfg.pairs for v in pair], cfg.d_out,
+                      cfg.heads, cfg.kv_heads, cfg.scale, cfg.exclude_self)

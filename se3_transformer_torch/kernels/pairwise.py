@@ -21,6 +21,14 @@ csrc/pairwise_bwd.cu) or raises; nothing falls back.
 `fused_pairwise_conv_bx.launches` and `fused_pairwise_conv_bwd.launches_a`
 / `.launches_b` count kernel launches.
 
+`pairwise_limit` is the kernels' fits predicate: from the widths alone it
+says whether a built kernel takes a call; the wrappers' checks are built on
+it. Past a forward kernel's limits on a card, the conv layer (ops/conv.py)
+sends the call to the plain version itself; past kernels A and B's (O = 64
+only), the ops' backward takes the plain backward. Both ask
+routing.route, which counts the call in the wrapper's `.routed` and
+warns once per (kernel, shape).
+
 `pairwise_contract`, `pairwise_contract_bxf` and `pairwise_contract_bx`
 are the differentiable forms (the ports of
 se3_transformer_tpu/ops/conv.py::_pairwise_contract_pallas,
@@ -33,8 +41,11 @@ epilogue of the JAX fused_pairwise_conv (quantized serving) is not ported.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+
+from . import routing
 
 MID = 128          # the radial hidden width the kernel is built for
 O_TILE = 64        # output channels per CTA: O must be a multiple
@@ -43,6 +54,31 @@ ORDERS = (1, 3, 5, 7)   # P and Q the kernel is instantiated for (degree <= 3)
 # the i-range split of the V2-given forward kernel and of backward kernel B
 SPLIT_TARGET_CTAS = 132  # one CTA per SM of an H100 (both run one per SM)
 SPLIT_MIN_I = 64         # the fewest i values a split takes
+FWD_I_CHUNK = 16         # V2's i chunk in csrc/pairwise_fwd.cu: splits start on one
+DTYPES = (torch.bfloat16, torch.float32)   # h and w3 types the kernels take
+
+
+def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
+                   dtype: torch.dtype = torch.float32) -> Optional[str]:
+    """None when the built `kernel` takes a call of these widths, else the
+    limit the call exceeds. `kernel` is 'bxf' or 'bx' (#1 and #2, which
+    also read Q), 'fwd' (#3) or 'bwd' (kernels A and B); `dtype` is h's
+    (and w3's). A function of widths and dtype alone, the counterpart of
+    the JAX package's fused_attention_fits: the kernels' fits predicate."""
+    if dtype not in DTYPES:
+        return f'h dtype {dtype} exceeds the built dtypes (bfloat16, float32)'
+    if mid != MID:
+        return f'mid = {mid} exceeds the built mid = {MID}'
+    if kernel == 'bwd':
+        if O != O_TILE:
+            return f'O = {O} exceeds the built O = {O_TILE}'
+    elif O <= 0 or O % O_TILE:
+        return f'O = {O} exceeds the built O: a multiple of {O_TILE}'
+    if P not in ORDERS:
+        return f'P = {P} exceeds the built orders {ORDERS} (degree <= 3)'
+    if kernel in ('bxf', 'bx') and Q not in ORDERS:
+        return f'Q = {Q} exceeds the built orders {ORDERS} (degree <= 3)'
+    return None
 
 
 def fused_pairwise_conv_bxf_plain(h: torch.Tensor, w3: torch.Tensor,
@@ -73,22 +109,26 @@ def _check(h, w3, basis_flat, x, pqf, b3, structured=False):
                     ('b3', b3)):
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, h on {dev}')
-    if h.dtype not in (torch.bfloat16, torch.float32) or w3.dtype != h.dtype:
-        raise TypeError(f'h/w3 must both be bfloat16 or float32, got '
-                        f'{h.dtype}/{w3.dtype}')
+    if w3.dtype != h.dtype:
+        raise TypeError(f'h/w3 must have one dtype, got {h.dtype}/{w3.dtype}')
     for name, t in (('basis_flat', basis_flat), ('x', x), ('b3', b3)):
         if t.dtype != torch.float32:
             raise TypeError(f'{name} must be float32, got {t.dtype}')
-    if P not in ORDERS or Q not in ORDERS or F != min(P, Q):
+    if h.ndim != 2 or w3.ndim != 3 or x.ndim != 3:
+        raise ValueError(f'h, w3 and x must be [E, mid], [mid, C*F, O] and '
+                         f'[E, C, Q], got {tuple(h.shape)}, '
+                         f'{tuple(w3.shape)}, {tuple(x.shape)}')
+    limit = pairwise_limit('bx' if structured else 'bxf', h.shape[1],
+                           w3.shape[2], P, Q, h.dtype)
+    if limit is not None:
+        raise ValueError(limit)
+    if F != min(P, Q):
         raise ValueError(f'unsupported (P, Q, F) = {pqf}')
-    if h.ndim != 2 or h.shape[1] != MID:
-        raise ValueError(f'h must be [E, {MID}], got {tuple(h.shape)}')
-    if x.ndim != 3 or x.shape[0] != E or x.shape[2] != Q:
+    if x.shape[0] != E or x.shape[2] != Q:
         raise ValueError(f'x must be [E, C, {Q}], got {tuple(x.shape)}')
     C = x.shape[1]
-    if w3.ndim != 3 or w3.shape[:2] != (MID, C * F) \
-            or w3.shape[2] % O_TILE != 0 or w3.shape[2] == 0:
-        raise ValueError(f'w3 must be [{MID}, {C * F}, k*{O_TILE}], got '
+    if w3.shape[:2] != (MID, C * F):
+        raise ValueError(f'w3 must be [{MID}, {C * F}, O], got '
                          f'{tuple(w3.shape)}')
     O = w3.shape[2]
     if tuple(b3.shape) != (C * F, O):
@@ -134,6 +174,7 @@ def fused_pairwise_conv_bxf(h: torch.Tensor, w3: torch.Tensor,
 
 
 fused_pairwise_conv_bxf.launches = 0
+fused_pairwise_conv_bxf.routed = 0
 
 
 # ---------------------------------------------------------------------- #
@@ -194,6 +235,7 @@ def fused_pairwise_conv_bx(h: torch.Tensor, w3: torch.Tensor,
 
 
 fused_pairwise_conv_bx.launches = 0
+fused_pairwise_conv_bx.routed = 0
 
 
 # ---------------------------------------------------------------------- #
@@ -219,24 +261,25 @@ def _check_fwd(h, w3, v2, b3):
     for name, t in (('w3', w3), ('v2', v2), ('b3', b3)):
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, h on {dev}')
-    if h.dtype not in (torch.bfloat16, torch.float32) or w3.dtype != h.dtype:
-        raise TypeError(f'h/w3 must both be bfloat16 or float32, got '
-                        f'{h.dtype}/{w3.dtype}')
+    if w3.dtype != h.dtype:
+        raise TypeError(f'h/w3 must have one dtype, got {h.dtype}/{w3.dtype}')
     for name, t in (('v2', v2), ('b3', b3)):
         if t.dtype != torch.float32:
             raise TypeError(f'{name} must be float32, got {t.dtype}')
-    if h.ndim != 2 or h.shape[1] != MID:
-        raise ValueError(f'h must be [E, {MID}], got {tuple(h.shape)}')
+    if h.ndim != 2 or w3.ndim != 3 or v2.ndim != 3:
+        raise ValueError(f'h, w3 and v2 must be [E, mid], [mid, IF, O] and '
+                         f'[E, P, IF], got {tuple(h.shape)}, '
+                         f'{tuple(w3.shape)}, {tuple(v2.shape)}')
+    limit = pairwise_limit('fwd', h.shape[1], w3.shape[2], v2.shape[1],
+                           dtype=h.dtype)
+    if limit is not None:
+        raise ValueError(limit)
     E = h.shape[0]
-    if w3.ndim != 3 or w3.shape[0] != MID or w3.shape[1] == 0 \
-            or w3.shape[2] % O_TILE != 0 or w3.shape[2] == 0:
-        raise ValueError(f'w3 must be [{MID}, IF, k*{O_TILE}], got '
-                         f'{tuple(w3.shape)}')
+    if w3.shape[0] != MID or w3.shape[1] == 0:
+        raise ValueError(f'w3 must be [{MID}, IF, O], got {tuple(w3.shape)}')
     _, IF, O = w3.shape
-    if v2.ndim != 3 or v2.shape[0] != E or v2.shape[1] not in ORDERS \
-            or v2.shape[2] != IF:
-        raise ValueError(f'v2 must be [{E}, P, {IF}] with P in {ORDERS}, got '
-                         f'{tuple(v2.shape)}')
+    if v2.shape[0] != E or v2.shape[2] != IF:
+        raise ValueError(f'v2 must be [{E}, P, {IF}], got {tuple(v2.shape)}')
     if tuple(b3.shape) != (IF, O):
         raise ValueError(f'b3 must be [{IF}, {O}], got {tuple(b3.shape)}')
     for name, t in (('h', h), ('w3', w3), ('v2', v2), ('b3', b3)):
@@ -246,15 +289,19 @@ def _check_fwd(h, w3, v2, b3):
 
 
 def i_per_split(E: int, IF: int, O: int = O_TILE) -> int:
-    """How many i values each CTA of the forward kernel (csrc/pairwise_fwd.cu)
-    or of backward kernel B contracts: the whole of IF when the edge and O
-    tiles alone fill the card, else IF split so that they do (each split
-    at least SPLIT_MIN_I values). A function of the shapes only, so the
-    partial sums and their reduce order (and so the output, bit for bit)
-    are the same on every run."""
+    """How many i values each CTA of the forward kernel (csrc/pairwise_fwd.cu,
+    one CTA per SM) or of backward kernel B contracts: the whole of IF when
+    the edge and O tiles alone fill the card, else IF split so that they do
+    (each split at least SPLIT_MIN_I values, and a multiple of FWD_I_CHUNK
+    so that every split starts on one of the forward's 16-byte V2 chunks).
+    A function of the shapes only, so the partial sums and their reduce
+    order (and so the output, bit for bit) are the same on every run."""
     tiles = -(-E // EDGE_TILE) * (O // O_TILE)
     splits = max(1, min(SPLIT_TARGET_CTAS // tiles, -(-IF // SPLIT_MIN_I)))
-    return -(-IF // splits)
+    if splits == 1:
+        return IF
+    per = -(-IF // splits)
+    return -(-per // FWD_I_CHUNK) * FWD_I_CHUNK
 
 
 def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
@@ -275,12 +322,17 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
     splits = -(-IF // per)
     work = out if splits == 1 else torch.empty(
         splits * E * P * O, dtype=torch.float32, device=h.device)
+    # float32 w3 is split into its bf16 hi and lo arrays by the kernel's
+    # own split pass, into this scratch
+    bf16 = h.dtype == torch.bfloat16
+    w3_split = w3 if bf16 else torch.empty(
+        2 * w3.numel(), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
     with torch.cuda.device(h.device):
         rc = load_library().se3_pairwise_fwd(
             h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
-            out.data_ptr(), work.data_ptr(), E, IF, O, P, per,
-            int(h.dtype == torch.bfloat16), _stream(h))
+            out.data_ptr(), work.data_ptr(), w3_split.data_ptr(), E, IF, O,
+            P, per, int(bf16), _stream(h))
     if rc != 0:
         raise RuntimeError(f'se3_pairwise_fwd launch failed: CUDA error {rc}')
     fused_pairwise_conv.launches += 1
@@ -288,6 +340,7 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
 
 
 fused_pairwise_conv.launches = 0
+fused_pairwise_conv.routed = 0
 
 
 # ---------------------------------------------------------------------- #
@@ -333,24 +386,26 @@ def _check_bwd(h, w3, v2, g, b3):
     for name, t in (('w3', w3), ('v2', v2), ('g', g), ('b3', b3)):
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, h on {dev}')
-    if h.dtype not in (torch.bfloat16, torch.float32) or w3.dtype != h.dtype:
-        raise TypeError(f'h/w3 must both be bfloat16 or float32, got '
-                        f'{h.dtype}/{w3.dtype}')
+    if w3.dtype != h.dtype:
+        raise TypeError(f'h/w3 must have one dtype, got {h.dtype}/{w3.dtype}')
     for name, t in (('v2', v2), ('g', g), ('b3', b3)):
         if t.dtype != torch.float32:
             raise TypeError(f'{name} must be float32, got {t.dtype}')
-    if h.ndim != 2 or h.shape[1] != MID:
-        raise ValueError(f'h must be [E, {MID}], got {tuple(h.shape)}')
+    if h.ndim != 2 or w3.ndim != 3 or v2.ndim != 3:
+        raise ValueError(f'h, w3 and v2 must be [E, mid], [mid, IF, O] and '
+                         f'[E, P, IF], got {tuple(h.shape)}, '
+                         f'{tuple(w3.shape)}, {tuple(v2.shape)}')
+    limit = pairwise_limit('bwd', h.shape[1], w3.shape[2], v2.shape[1],
+                           dtype=h.dtype)
+    if limit is not None:
+        raise ValueError(limit)
     E = h.shape[0]
-    if w3.ndim != 3 or w3.shape[0] != MID or w3.shape[2] != O_TILE \
-            or w3.shape[1] == 0:
+    if w3.shape[0] != MID or w3.shape[1] == 0:
         raise ValueError(f'w3 must be [{MID}, IF, {O_TILE}], got '
                          f'{tuple(w3.shape)}')
     IF = w3.shape[1]
-    if v2.ndim != 3 or v2.shape[0] != E or v2.shape[1] not in ORDERS \
-            or v2.shape[2] != IF:
-        raise ValueError(f'v2 must be [{E}, P, {IF}] with P in {ORDERS}, got '
-                         f'{tuple(v2.shape)}')
+    if v2.shape[0] != E or v2.shape[2] != IF:
+        raise ValueError(f'v2 must be [{E}, P, {IF}], got {tuple(v2.shape)}')
     P = v2.shape[1]
     if tuple(g.shape) != (E, P, O_TILE):
         raise ValueError(f'g must be [{E}, {P}, {O_TILE}], got '
@@ -451,6 +506,19 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
 
 fused_pairwise_conv_bwd.launches_a = 0
 fused_pairwise_conv_bwd.launches_b = 0
+fused_pairwise_conv_bwd.routed = 0
+
+
+def _contract_bwd(h, w3, v2, g, b3):
+    """The ops' backward: kernels A and B, or on a card past their limits
+    (O = 64 only, where the forwards take any multiple of 64) the plain
+    backward, decided from the widths before any launch."""
+    limit = pairwise_limit('bwd', h.shape[1], w3.shape[2], v2.shape[1],
+                           dtype=h.dtype)
+    if routing.route(fused_pairwise_conv_bwd, h.device.type, limit,
+                     (h.shape[1], w3.shape[1], w3.shape[2], v2.shape[1])):
+        return fused_pairwise_conv_bwd_plain(h, w3, v2, g, b3)
+    return fused_pairwise_conv_bwd(h, w3, v2, g, b3)
 
 
 # ---------------------------------------------------------------------- #
@@ -485,7 +553,7 @@ def _pc_backward(ctx, g):
     b4 = basis_flat.float().reshape(E, P, F, Q)
     x32 = x.float()
     v2 = torch.einsum('epfq,ecq->epcf', b4, x32).reshape(E, P, C * F)
-    dh, dw3, dv2, db3 = fused_pairwise_conv_bwd(h, w3, v2, g.contiguous(), b3)
+    dh, dw3, dv2, db3 = _contract_bwd(h, w3, v2, g.contiguous(), b3)
     dv2 = dv2.reshape(E, P, C, F)
     dbasis = dx = None
     if ctx.needs_input_grad[3]:
@@ -521,7 +589,7 @@ def _contract_backward(ctx, g):
     operands; dh and dw3 in the dtypes of h and w3, dv2 to V2, whose own
     einsum carries it on to the basis and the features under autograd."""
     h, w3, b3, v2 = ctx.saved_tensors
-    dh, dw3, dv2, db3 = fused_pairwise_conv_bwd(h, w3, v2, g.contiguous(), b3)
+    dh, dw3, dv2, db3 = _contract_bwd(h, w3, v2, g.contiguous(), b3)
     return dh.to(h.dtype), dw3.to(w3.dtype), db3.to(b3.dtype), dv2.to(v2.dtype)
 
 
@@ -550,7 +618,7 @@ def _contract_bx_backward(ctx, g):
     C = x.shape[1]
     b32, x32 = basis.float(), x.float()
     v2 = torch.einsum('epqf,ecq->epcf', b32, x32).reshape(E, P, C * F)
-    dh, dw3, dv2, db3 = fused_pairwise_conv_bwd(h, w3, v2, g.contiguous(), b3)
+    dh, dw3, dv2, db3 = _contract_bwd(h, w3, v2, g.contiguous(), b3)
     dv2 = dv2.reshape(E, P, C, F)
     dbasis = dx = None
     if ctx.needs_input_grad[3]:

@@ -164,7 +164,7 @@ class SE3TransformerModule(nn.Module):
                  num_degrees: Optional[int] = None, output_degrees: int = 1,
                  valid_radius: float = 1e5, reversible: bool = False,
                  remat_policy: Optional[str] = None,
-                 attend_self: bool = False,
+                 attend_self: bool = True,
                  num_neighbors=float('inf'),
                  shared_radial_hidden: bool = False, fuse_basis: bool = False,
                  radial_bf16: bool = False, reduce_dim_out: bool = False,

@@ -33,6 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import attention as ka
+from ..kernels import flash as kf
+from ..kernels import routing
 from ..kernels.attention import fused_attention
 from ..kernels.flash import flash_attention, flash_global_attention
 from ..utils.helpers import to_order
@@ -133,12 +136,18 @@ class AttentionSE3(nn.Module):
 
             if self.pallas_attention:
                 # (dim_head, m) flattened into one feature axis (the logits
-                # reduce over both), the heads folded into the batch
-                out = fused_attention(
-                    q.reshape(b * h, n, dh * m),
-                    k.reshape(b * h, n, J, dh * m),
-                    v.reshape(b * h, n, J, dh * m), padded, h,
-                    dh ** -0.5).reshape(b, h, n, dh, m)
+                # reduce over both), the heads folded into the batch; past
+                # the kernels' limits on a card, their plain version
+                args = (q.reshape(b * h, n, dh * m),
+                        k.reshape(b * h, n, J, dh * m),
+                        v.reshape(b * h, n, J, dh * m), padded, h,
+                        dh ** -0.5)
+                if routing.route(ka.fused_attention_fwd, q.device.type,
+                                 ka.attention_limit(J, dh * m), (J, dh * m)):
+                    out = ka.fused_attention_plain(*args)
+                else:
+                    out = fused_attention(*args)
+                out = out.reshape(b, h, n, dh, m)
             else:
                 sim = torch.einsum('bhidm,bhijdm->bhij', q, k) * dh ** -0.5
                 if padded is not None:
@@ -187,17 +196,27 @@ class AttentionSE3(nn.Module):
             b, n = features[degree].shape[:2]
             prefix_k, prefix_v = self._prefix_slots(degree, self_keys,
                                                     self_values)
-            out = flash_global_attention(
-                queries[degree].reshape(b, n, h, Dh),
-                tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
-                coords, v_prog['rp'], v_prog['w3'][degree],
-                v_prog['b3'][degree], pairs=v_prog['pairs'],
-                d_out=int(degree), heads=h, kv_heads=h,
-                scale=self.dim_head ** -0.5, arm=v_prog['arm'],
-                rp_k=k_prog['rp'], wk=k_prog['w3'][degree],
-                bk=k_prog['b3'][degree], node_mask=node_mask,
-                prefix_k=prefix_k, prefix_v=prefix_v, exclude_self=True,
-                materialize=self.global_materialize)
+            args = (queries[degree].reshape(b, n, h, Dh),
+                    tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
+                    coords, v_prog['rp'], v_prog['w3'][degree],
+                    v_prog['b3'][degree])
+            config = dict(pairs=v_prog['pairs'], d_out=int(degree), heads=h,
+                          kv_heads=h, scale=self.dim_head ** -0.5,
+                          arm=v_prog['arm'], rp_k=k_prog['rp'],
+                          wk=k_prog['w3'][degree], bk=k_prog['b3'][degree],
+                          node_mask=node_mask, prefix_k=prefix_k,
+                          prefix_v=prefix_v, exclude_self=True)
+            limit = kf.global_limit(v_prog['pairs'], int(degree), h, h,
+                                    self.dim_head, prefix_k.shape[2])
+            # materialize runs the plain stream as one chunk anyway
+            if not self.global_materialize and routing.route(
+                    kf.flash_global_attention_fwd, coords.device.type, limit,
+                    (v_prog['pairs'], int(degree), h, self.dim_head)):
+                out = kf.flash_global_plain(
+                    *kf.flash_global_operands(*args, **config))
+            else:
+                out = flash_global_attention(
+                    *args, materialize=self.global_materialize, **config)
             outputs[degree] = out.reshape(b, n, h * self.dim_head, m)
         return outputs
 
@@ -220,16 +239,27 @@ class AttentionSE3(nn.Module):
             b, n = features[degree].shape[:2]
             prefix_k, prefix_v = self._prefix_slots(degree, self_keys,
                                                     self_values)
-            out = flash_attention(
-                queries[degree].reshape(b, n, h, Dh),
-                tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
-                neighbor_indices, neighbor_mask, v_prog['h'],
-                v_prog['w3'][degree], v_prog['b3'][degree],
-                pairs=v_prog['pairs'], d_out=int(degree), heads=h,
-                kv_heads=h, scale=self.dim_head ** -0.5,
-                arm_v=v_prog['arm'], arm_k=k_prog['arm'], h_k=k_prog['h'],
-                wk=k_prog['w3'][degree], bk=k_prog['b3'][degree],
-                sh=basis['flash_sh'], prefix_k=prefix_k, prefix_v=prefix_v)
+            h_v, K = v_prog['h'], neighbor_indices.shape[-1]
+            args = (queries[degree].reshape(b, n, h, Dh),
+                    tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
+                    neighbor_indices, neighbor_mask, h_v,
+                    v_prog['w3'][degree], v_prog['b3'][degree])
+            config = dict(pairs=v_prog['pairs'], d_out=int(degree), heads=h,
+                          kv_heads=h, scale=self.dim_head ** -0.5,
+                          arm_v=v_prog['arm'], arm_k=k_prog['arm'],
+                          h_k=k_prog['h'], wk=k_prog['w3'][degree],
+                          bk=k_prog['b3'][degree], sh=basis['flash_sh'],
+                          prefix_k=prefix_k, prefix_v=prefix_v)
+            limit = kf.flash_limit(v_prog['pairs'], int(degree), h, h,
+                                   self.dim_head, K, prefix_k.shape[2],
+                                   h_v.shape[-1], h_v.dtype)
+            if routing.route(kf.flash_attention_fwd, h_v.device.type, limit,
+                             (v_prog['pairs'], int(degree), h,
+                              self.dim_head, K)):
+                out = kf.flash_attention_plain(
+                    *kf.flash_operands(*args, **config))
+            else:
+                out = flash_attention(*args, **config)
             outputs[degree] = out.reshape(b, n, h * self.dim_head, m)
         return outputs
 

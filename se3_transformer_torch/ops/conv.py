@@ -34,6 +34,15 @@ autograd the backward runs the fused backward kernels; gradients reach w3
 through its cast to the radial dtype, b3, the shared radial trunk and the
 gathered features.
 
+On a CUDA tensor each contraction launches its kernel, unless its widths
+are past what the kernel is built for (kernels.pairwise.pairwise_limit):
+such a call runs the kernel's plain version under autograd instead, warns
+once per (kernel, widths) and counts in the wrapper's `.routed`
+(kernels.routing.route). The decision is made here, from the widths alone,
+before any launch; the backward of a call that launched decides for
+kernels A and B in the same way (kernels.pairwise._contract_bwd). The
+flagship recipes' widths never route.
+
 radial_bf16 runs the trunk and the radial operands (h, w3) in bfloat16; the
 bias and every accumulation stay float32, and LayerNorm statistics are
 float32 as in flax.
@@ -46,6 +55,8 @@ import torch
 import torch.nn.functional as F_
 from torch import nn
 
+from ..kernels import pairwise as kp
+from ..kernels import routing
 from ..kernels.pairwise import (
     pairwise_contract, pairwise_contract_bx, pairwise_contract_bxf,
 )
@@ -129,17 +140,24 @@ def _radial_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
                      v2: torch.Tensor,
                      edge_chunks: Optional[int]) -> torch.Tensor:
     """h [b,n,k,mid], w3 [mid,IF,O], b3 [IF,O], v2 [b,n,k,P,IF] ->
-    [b,n,k,P,O] through pairwise_contract, optionally streaming the node
-    axis in `edge_chunks` chunks."""
+    [b,n,k,P,O] through pairwise_contract (or, past the kernels' limits on
+    a card, its plain version), optionally streaming the node axis in
+    `edge_chunks` chunks."""
     P, IF = v2.shape[-2:]
-    O = w3.shape[-1]
+    mid, O = h.shape[-1], w3.shape[-1]
     w3c = w3.to(h.dtype)
+    limit = kp.pairwise_limit('fwd', mid, O, P, dtype=h.dtype)
 
     def contract(h_c, v2_c):
         lead = h_c.shape[:-1]
         E = lead.numel()
-        out = pairwise_contract(h_c.reshape(E, h_c.shape[-1]).contiguous(),
-                                w3c, b3, v2_c.reshape(E, P, IF).contiguous())
+        h2 = h_c.reshape(E, mid).contiguous()
+        v2_2 = v2_c.reshape(E, P, IF).contiguous()
+        if routing.route(kp.fused_pairwise_conv, h2.device.type, limit,
+                         (mid, IF, O, P)):
+            out = kp.fused_pairwise_conv_plain(h2, w3c, v2_2, b3)
+        else:
+            out = pairwise_contract(h2, w3c, b3, v2_2)
         return out.reshape(*lead, P, O)
 
     return _stream_node_chunks(contract, (h, v2), edge_chunks)
@@ -154,23 +172,33 @@ def _radial_contract_bx(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     one [b,n,k,P,Q,F] (through pairwise_contract_bx), x [b,n,k,C,Q] ->
     [b,n,k,P,O], optionally streaming the node axis."""
     P, Q, F = pqf
-    C, O = x.shape[-2], w3.shape[-1]
+    C, O, mid = x.shape[-2], w3.shape[-1], h.shape[-1]
     w3c = w3.to(h.dtype)
     flat = _basis_is_flat(basis, x)
+    limit = kp.pairwise_limit('bxf' if flat else 'bx', mid, O, P, Q, h.dtype)
 
     def contract(h_c, basis_c, x_c):
         lead = h_c.shape[:-1]
         E = lead.numel()
         # the kernel takes contiguous rows; a gather from an einsum's
         # permuted output can keep the source's strides
-        args = (h_c.reshape(E, h_c.shape[-1]).contiguous(), w3c, b3)
+        h2 = h_c.reshape(E, mid).contiguous()
         x2 = x_c.reshape(E, C, Q).contiguous()
         if flat:
-            out = pairwise_contract_bxf(
-                *args, basis_c.reshape(E, P * F * Q).contiguous(), x2, pqf)
+            b2 = basis_c.reshape(E, P * F * Q).contiguous()
+            if routing.route(kp.fused_pairwise_conv_bxf, h2.device.type,
+                             limit, (mid, C, O, P, Q)):
+                out = kp.fused_pairwise_conv_bxf_plain(h2, w3c, b2, x2, pqf,
+                                                       b3)
+            else:
+                out = pairwise_contract_bxf(h2, w3c, b3, b2, x2, pqf)
         else:
-            out = pairwise_contract_bx(
-                *args, basis_c.reshape(E, P, Q, F).contiguous(), x2)
+            b2 = basis_c.reshape(E, P, Q, F).contiguous()
+            if routing.route(kp.fused_pairwise_conv_bx, h2.device.type,
+                             limit, (mid, C, O, P, Q)):
+                out = kp.fused_pairwise_conv_bx_plain(h2, w3c, b2, x2, b3)
+            else:
+                out = pairwise_contract_bx(h2, w3c, b3, b2, x2)
         return out.reshape(*lead, P, O)
 
     return _stream_node_chunks(contract, (h, basis, x), edge_chunks)

@@ -18,6 +18,10 @@ from se3_transformer_torch import (
 )
 from se3_transformer_torch.kernels import attention as ka
 
+# one intra-op thread: these models are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
+
 # plain version vs JAX: the same float32 products in other orders
 RTOL = 1e-5
 

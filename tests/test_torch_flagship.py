@@ -21,6 +21,10 @@ from se3_transformer_torch import (
 from se3_transformer_torch.kernels import pairwise as kp
 from se3_transformer_torch.so3 import rot
 
+# one intra-op thread: these models are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
+
 # flagship's fields with the denoise vector head, at reduced width and
 # depth; 14 nodes in 3 chunks pad the node axis to 15
 TWIN = dict(dim=8, depth=1, num_degrees=4, heads=8, dim_head=8,
@@ -166,7 +170,9 @@ def test_call_counts_per_training_step(monkeypatch):
     runs the trunk's once more; save_conv_outputs saves them instead. The
     backward runs once per chunk of each contraction the loss reaches:
     not conv_out's degree-0 head. Gradients agree across the policies and
-    with the model run without checkpointing. No call counts a launch."""
+    with the model run without checkpointing. No call counts a launch.
+    Two hidden degrees suffice for the counts: the rule is per output
+    degree."""
     fwd, bwd = [], []
     plain_fwd, plain_bwd = kp.fused_pairwise_conv_plain, \
         kp.fused_pairwise_conv_bwd_plain
@@ -176,7 +182,7 @@ def test_call_counts_per_training_step(monkeypatch):
                         lambda *a: bwd.append(1) or plain_bwd(*a))
     batch, noise = _batch(seed=3)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    depth, chunks, degrees = 2, 3, TWIN['num_degrees']
+    depth, chunks, degrees = 2, 3, 2
     trunk = depth * 2 * degrees
     forward = (degrees + trunk + 2) * chunks
     backward = (degrees + trunk + 1) * chunks
@@ -188,7 +194,8 @@ def test_call_counts_per_training_step(monkeypatch):
             (None, True, forward + trunk * chunks),
             ('save_conv_outputs', True, forward), (None, False, forward)):
         model = SE3TransformerModule(
-            **dict(TWIN, depth=depth, remat_policy=policy), device='cpu',
+            **dict(TWIN, depth=depth, num_degrees=degrees,
+                   remat_policy=policy), device='cpu',
             generator=torch.Generator().manual_seed(4))
         model.trunk.reversible = checkpointed
         fwd.clear()

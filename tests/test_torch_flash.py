@@ -19,6 +19,10 @@ from se3_transformer_torch import (
 )
 from se3_transformer_torch.kernels import flash as kf
 
+# one intra-op thread: these models are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
+
 # the plain stream vs the JAX one: the same float32 products in other orders
 RTOL = 1e-5
 
@@ -194,7 +198,7 @@ def test_recompute_backward_matches_jax_grad():
     names = ('q', 'x0', 'h_v', 'wv', 'bk', 'prefix_k')
     vals = [ops['q'], ops['xs'][0], ops['h_v'], ops['wv'], ops['bk'],
             ops['prefix_k']]
-    ref = jax.grad(loss_jax, argnums=tuple(range(6)))(
+    ref = jax.jit(jax.grad(loss_jax, argnums=tuple(range(6))))(
         *map(jnp.asarray, vals))
     t = _torch_ops(ops, h_dtype=torch.float32)
     leaves = [torch.from_numpy(v).requires_grad_() for v in vals]
@@ -342,9 +346,9 @@ def test_rule_tuple_fuses_block0_only(monkeypatch):
     params = _random_params(jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), batch['feats'], batch['coords'],
         mask=batch['masks'], return_type=1))['params'], seed=5)
-    ref = np.asarray(jm.apply({'params': params}, batch['feats'],
-                              batch['coords'], mask=batch['masks'],
-                              return_type=1))
+    ref = np.asarray(jax.jit(lambda p: jm.apply(
+        {'params': p}, batch['feats'], batch['coords'], mask=batch['masks'],
+        return_type=1))(params))
     tm = SE3TransformerModule(**cfg, device='cpu')
     tm.load_state_dict(convert_flax_params(params, tm))
     assert tm.fused_attention == (True, False)

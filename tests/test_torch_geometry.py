@@ -13,6 +13,10 @@ from se3_transformer_torch import basis as t_basis
 from se3_transformer_torch.ops import neighbors as t_nb
 from se3_transformer_torch.so3 import spherical_harmonics as t_sh
 
+# one intra-op thread: these models are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
+
 # float32 evaluations of the same polynomials / contractions in different
 # summation orders: a few float32 ulps of the O(1) values
 F32_TOL = 2e-6

@@ -22,6 +22,10 @@ from se3_transformer_torch import (
 from se3_transformer_torch.kernels import flash as kf
 from se3_transformer_torch.so3 import rot
 
+# one intra-op thread: these models are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
+
 # the plain stream vs the JAX one: the same float32 products in other orders
 RTOL = 1e-5
 # the model and its gradients: relative to the largest magnitude
@@ -141,7 +145,7 @@ def test_replay_backward_matches_jax_grad():
         return (out ** 2).sum()
     vals = [ops['q'], ops['xs'][1], ops['coords'], ops['rp_v'][4],
             ops['wv'], ops['bk'], ops['prefix_k']]
-    ref = jax.grad(loss_jax, argnums=tuple(range(7)))(
+    ref = jax.jit(jax.grad(loss_jax, argnums=tuple(range(7))))(
         *map(jnp.asarray, vals))
     t = _torch(ops)
     leaves = [torch.from_numpy(v.copy()).requires_grad_() for v in vals]
@@ -220,8 +224,8 @@ def test_global_twin_matches_jax(materialize):
     converted weights; the streaming arm and global_materialize=True."""
     batch = _batch()
     jm, params = _jax_model(batch)
-    ref = np.asarray(jm.apply({'params': params}, *batch[:2], mask=batch[2],
-                              return_type=1))
+    ref = np.asarray(jax.jit(lambda p: jm.apply(
+        {'params': p}, *batch[:2], mask=batch[2], return_type=1))(params))
     tm = _port_model(params, global_materialize=materialize)
     assert tm.fused_attention == (False,)
     with torch.no_grad():
@@ -242,7 +246,7 @@ def test_global_twin_gradients_match_jax():
         out = jm.apply({'params': p}, *batch[:2], mask=batch[2],
                        return_type=1)
         return ((out - target) ** 2).sum()
-    ref = jax.grad(loss)(params)
+    ref = jax.jit(jax.grad(loss))(params)
     tm = _port_model(params)
     out = tm(*(torch.from_numpy(a) for a in batch), return_type=1)
     ((out - torch.from_numpy(target)) ** 2).sum().backward()

@@ -6,11 +6,18 @@ This file imports no JAX, so the card's machine runs it as
 `python -m pytest --noconftest tests/test_torch_kernels.py`; the
 `cuda`-marked tests skip on a host without one.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 from se3_transformer_torch.kernels import pairwise as kp
+from se3_transformer_torch.kernels import routing
+
+# one intra-op thread: these operands are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
 
 
 def _operands(di, do, seed, e, mid, c, o):
@@ -275,6 +282,9 @@ def test_i_splits_cover_IF(E, IF, O):
     assert per >= min(IF, kp.SPLIT_MIN_I)
     assert splits > 1 or tiles * 2 > kp.SPLIT_TARGET_CTAS \
         or IF < 2 * kp.SPLIT_MIN_I
+    # every split but a lone one starts on a 16-wide V2 chunk of the
+    # forward kernel
+    assert splits == 1 or per % kp.FWD_I_CHUNK == 0
 
 
 @pytest.mark.cuda
@@ -291,6 +301,27 @@ def test_cuda_fwd_kernel_matches_plain(cuda_card, P, IF, e, dtype):
     assert kp.fused_pairwise_conv.launches == before + 1
     ref = kp.fused_pairwise_conv_plain(*args)
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('P,IF,e', [(7, 1000, 4133), (7, 1001, 300),
+                                    (1, 37, 64), (3, 24, 4096),
+                                    (5, 1024, 4095)])
+def test_cuda_fwd_tile_edges_match_plain_and_repeat(cuda_card, P, IF, e,
+                                                    dtype):
+    """The tile's edge cases: ragged E, IF not a multiple of the 16-wide i
+    chunk (a partial chunk in the rotated walk; odd IF takes 4-byte V2
+    copies), i splits, P = 7 and the two-CTA configurations (P = 1, bf16
+    P = 3): within 1e-4 of max|plain| and the same bits on two runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() for a in _fwd_args(P, IF, e, dtype)]
+    first = kp.fused_pairwise_conv(*args)
+    second = kp.fused_pairwise_conv(*args)
+    torch.cuda.synchronize()
+    ref = kp.fused_pairwise_conv_plain(*args)
+    assert (first - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -689,3 +720,254 @@ def test_cuda_flash_global_kernel_matches_plain(cuda_card, case):
     ref = kf.flash_global_plain(cfg, ops)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# ---------------------------------------------------------------------- #
+# the fits predicates: at, just inside and just past every limit
+# ---------------------------------------------------------------------- #
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize('kernel', ['bxf', 'bx', 'fwd', 'bwd'])
+@pytest.mark.parametrize('widths,fits', [
+    (dict(), True),
+    (dict(dtype=BF16), True), (dict(dtype=torch.float16), False),
+    (dict(mid=127), False), (dict(mid=129), False),
+    (dict(O=63), False), (dict(O=65), False), (dict(O=0), False),
+    (dict(P=7), True), (dict(P=9), False), (dict(P=2), False),
+    (dict(Q=7), True), (dict(Q=9), None)])
+def test_pairwise_fits_at_each_limit(kernel, widths, fits):
+    """mid = 128, O a multiple of 64 (exactly 64 for kernels A and B),
+    P and Q in (1, 3, 5, 7), h in bf16 or float32; Q is read by the
+    basis-fused kernels only (fits None: True for 'fwd' and 'bwd')."""
+    args = dict(dict(mid=128, O=64, P=3, Q=5, dtype=F32), **widths)
+    if fits is None:
+        fits = kernel in ('fwd', 'bwd')
+    limit = kp.pairwise_limit(kernel, **args)
+    assert (limit is None) is fits
+    if not fits:
+        assert 'exceeds' in limit
+
+
+@pytest.mark.parametrize('kernel,fits', [('bxf', True), ('bx', True),
+                                         ('fwd', True), ('bwd', False)])
+def test_pairwise_fits_wider_o_in_the_forwards_only(kernel, fits):
+    """O = 128 is two O tiles of the forwards; kernels A and B are built
+    for O = 64 alone."""
+    assert (kp.pairwise_limit(kernel, 128, 128, 3, 3, F32) is None) is fits
+
+
+@pytest.mark.parametrize('O,P,ok', [(64, 7, True), (128, 1, True),
+                                    (32, 3, False), (64, 9, False)])
+def test_pairwise_checks_follow_the_predicates(O, P, ok):
+    """The forward wrapper's check raises exactly where pairwise_limit
+    finds a limit, and raises that limit's text."""
+    rng = np.random.RandomState(0)
+    h = torch.from_numpy(rng.normal(size=(5, kp.MID)).astype(np.float32))
+    w3 = torch.zeros(kp.MID, 12, O)
+    v2, b3 = torch.zeros(5, P, 12), torch.zeros(12, O)
+    limit = kp.pairwise_limit('fwd', kp.MID, O, P)
+    assert (limit is None) is ok
+    if ok:
+        assert kp._check_fwd(h, w3, v2, b3) == (5, 12, O, P)
+    else:
+        with pytest.raises(ValueError, match=limit.split(' exceeds')[0]):
+            kp._check_fwd(h, w3, v2, b3)
+
+
+@pytest.mark.parametrize('J,D,fits', [
+    (ka.MAX_SLOTS, ka.MAX_FEATURES, True), (ka.MAX_SLOTS - 1, 8, True),
+    (ka.MAX_SLOTS + 1, 8, False), (33, ka.MAX_FEATURES + 1, False)])
+def test_attention_fits_at_each_limit(J, D, fits):
+    assert (ka.attention_limit(J, D) is None) is fits
+    q = torch.zeros(2, 3, D)
+    kv = torch.zeros(2, 3, J, D)
+    if fits:
+        assert ka._check(q, kv, kv, None, 2) == (2, 2, 3, J, D)
+    else:
+        with pytest.raises(ValueError, match='exceeds'):
+            ka._check(q, kv, kv, None, 2)
+
+
+FLASH_OK = dict(pairs=((0, 64), (1, 64), (2, 64), (3, 64)), d_out=3,
+                heads=8, kv_heads=8, dim_head=8, K=32, prefix=4)
+
+
+@pytest.mark.parametrize('over,fits', [
+    (dict(), True), (dict(K=1), True), (dict(K=33), False), (dict(K=0), False),
+    (dict(heads=4, kv_heads=4, dim_head=16), True),
+    (dict(heads=16, kv_heads=16, dim_head=4), False),
+    (dict(dim_head=4), False), (dict(dim_head=9), False),
+    (dict(kv_heads=4), False), (dict(prefix=5), False),
+    (dict(d_out=4), False), (dict(pairs=((4, 8),)), False),
+    (dict(pairs=((0, 8),) * 5), False), (dict(pairs=()), False),
+    (dict(mid=64), False), (dict(h_dtype=BF16), True),
+    (dict(h_dtype=torch.float16), False)])
+def test_flash_fits_at_each_limit(over, fits):
+    args = dict(FLASH_OK, **over)
+    assert (kf.flash_limit(**args) is None) is fits
+
+
+GLOBAL_OK = dict(pairs=((0, 8), (1, 8)), d_out=1, heads=2, kv_heads=2,
+                 dim_head=8, prefix=2)
+
+
+@pytest.mark.parametrize('over,fits', [
+    (dict(), True), (dict(heads=16, kv_heads=16, dim_head=1), True),
+    (dict(heads=1, kv_heads=1, dim_head=16), True),
+    (dict(dim_head=16), False), (dict(dim_head=4), False),
+    (dict(kv_heads=1), False), (dict(prefix=4), True), (dict(prefix=5), False),
+    # P * IF: 3 * (8 + 3 * 24) = 240 inside, 3 * (8 + 3 * 28) = 276 past,
+    # 1 * (8 * 32) = 256 at the limit
+    (dict(pairs=((0, 8), (1, 24))), True),
+    (dict(pairs=((0, 8), (1, 28))), False),
+    (dict(pairs=((0, 256),), d_out=0), True),
+    (dict(pairs=((0, 257),), d_out=0), False),
+    (dict(d_out=4), False)])
+def test_global_fits_at_each_limit(over, fits):
+    args = dict(GLOBAL_OK, **over)
+    assert (kf.global_limit(**args) is None) is fits
+
+
+@pytest.mark.parametrize('device_type,limit,routes', [
+    ('cuda', 'O = 16 exceeds the built O: a multiple of 64', True),
+    ('cuda', None, False), ('cpu', 'O = 16 exceeds', False),
+    ('meta', 'O = 16 exceeds', False)])
+def test_route_decides_by_device_type_and_limit(monkeypatch, device_type,
+                                                limit, routes):
+    """route: a call routes only on a 'cuda' device past a limit; only
+    such a call counts."""
+    monkeypatch.setattr(routing, '_WARNED', set())
+    monkeypatch.setattr(kp.fused_pairwise_conv, 'routed', 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        assert routing.route(kp.fused_pairwise_conv, device_type, limit,
+                             (128, 24, 16, 3)) is routes
+    assert kp.fused_pairwise_conv.routed == int(routes)
+    assert len(caught) == int(routes)
+
+
+def test_route_counts_and_warns_once_per_shape(monkeypatch):
+    """route: one .routed per call, one warning per (kernel, shape) that
+    names the kernel and the limit, worded as the JAX fallbacks are."""
+    monkeypatch.setattr(routing, '_WARNED', set())
+    monkeypatch.setattr(kp.fused_pairwise_conv, 'routed', 0)
+    limit = kp.pairwise_limit('fwd', 128, 16, 3)
+    with pytest.warns(UserWarning) as caught:
+        for shape in ((128, 24, 16, 3), (128, 24, 16, 3), (128, 48, 16, 3)):
+            assert routing.route(kp.fused_pairwise_conv, 'cuda', limit, shape)
+    assert kp.fused_pairwise_conv.routed == 3
+    texts = [str(w.message) for w in caught]
+    assert len(texts) == 2
+    assert texts[0] == ('fused_pairwise_conv kernel: O = 16 exceeds the built '
+                        'O: a multiple of 64 (shape (128, 24, 16, 3)); using '
+                        'the plain path')
+
+
+def _force_cuda_route(monkeypatch):
+    """Take every route decision as for a CUDA tensor, so that the CPU
+    runs the routed branch; fresh warnings and counts."""
+    real = routing.route
+    monkeypatch.setattr(routing, 'route', lambda wrapper, device_type, limit,
+                        shape: real(wrapper, 'cuda', limit, shape))
+    monkeypatch.setattr(routing, '_WARNED', set())
+    monkeypatch.setattr(kp.fused_pairwise_conv_bwd, 'routed', 0)
+
+
+@pytest.mark.parametrize('op', ['fwd', 'bxf', 'bx'])
+@pytest.mark.parametrize('O,routed', [(64, 0), (128, 1)])
+def test_contract_backward_routes_past_kernels_a_and_b(monkeypatch, op, O,
+                                                       routed):
+    """The ops' backward decides for kernels A and B (O = 64 only) by the
+    widths, as on a card: O = 128, which the forwards take, runs the plain
+    backward, counted once in fused_pairwise_conv_bwd.routed; either way
+    the gradients are the plain version's under autograd."""
+    di, do, e = 1, 2, 40
+    a = _operands(di, do, seed=5, e=e, mid=kp.MID, c=3, o=O)
+    P, Q, F = a['pqf']
+    t = {k: torch.from_numpy(a[k]) for k in ('h', 'w3', 'basis', 'x', 'b3')}
+    basis = t['basis'].reshape(e, P, F, Q)
+    v2 = torch.einsum('epfq,ecq->epcf', basis, t['x']).reshape(e, P, 3 * F)
+
+    def run(contract):
+        leaves = {k: v.clone().requires_grad_() for k, v in t.items()}
+        lv = leaves
+        if op == 'fwd':
+            lv2 = v2.clone().requires_grad_()
+            out = contract(lv['h'], lv['w3'], lv['b3'], lv2)
+            grads_of = [lv['h'], lv['w3'], lv['b3'], lv2]
+        elif op == 'bxf':
+            out = contract(lv['h'], lv['w3'], lv['b3'], lv['basis'], lv['x'],
+                           a['pqf'])
+            grads_of = [lv['h'], lv['w3'], lv['b3'], lv['basis'], lv['x']]
+        else:
+            pqf_basis = basis.permute(0, 1, 3, 2).contiguous()
+            lb = pqf_basis.clone().requires_grad_()
+            out = contract(lv['h'], lv['w3'], lv['b3'], lb, lv['x'])
+            grads_of = [lv['h'], lv['w3'], lv['b3'], lb, lv['x']]
+        return torch.autograd.grad((out ** 2).sum(), grads_of)
+
+    plain = dict(
+        fwd=lambda h, w3, b3, v2_: kp.fused_pairwise_conv_plain(h, w3, v2_,
+                                                                 b3),
+        bxf=lambda h, w3, b3, bf, x, pqf: kp.fused_pairwise_conv_bxf_plain(
+            h, w3, bf, x, pqf, b3),
+        bx=lambda h, w3, b3, bb, x: kp.fused_pairwise_conv_bx_plain(
+            h, w3, bb, x, b3))[op]
+    ref = run(plain)
+    _force_cuda_route(monkeypatch)
+    got = run(dict(fwd=kp.pairwise_contract, bxf=kp.pairwise_contract_bxf,
+                   bx=kp.pairwise_contract_bx)[op])
+    assert kp.fused_pairwise_conv_bwd.routed == routed
+    for g, r in zip(got, ref):
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fuse_basis', [True, False])
+def test_cuda_wide_conv_launches_forward_and_routes_backward(cuda_card,
+                                                             fuse_basis):
+    """A ConvSE3 of 128 channels (O = 128: two O tiles of #1 and #3, past
+    kernels A and B) on the card: without grad it launches its forward
+    kernel and routes nothing; with grad the forward still launches and
+    the backward routes to the plain backward, within 1e-4 of the CPU."""
+    from se3_transformer_torch import ConvSE3, Fiber, get_basis
+    from se3_transformer_torch.models.se3_transformer import init_parameters
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fwd = kp.fused_pairwise_conv_bxf if fuse_basis else kp.fused_pairwise_conv
+    gen = torch.Generator().manual_seed(7)
+    n, k = 24, 8
+    fiber = Fiber.create(2, 128)
+    feats = {str(d): torch.randn(1, n, 128, 2 * d + 1, generator=gen)
+             for d in range(2)}
+    idx = torch.randint(0, n, (1, n, k), generator=gen)
+    mask = torch.ones(1, n, k, dtype=torch.bool)
+    rel = torch.randn(1, n, k, 3, generator=gen) * 3.0
+    conv = ConvSE3(fiber, fiber, fuse_basis=fuse_basis)
+    init_parameters(conv, torch.Generator().manual_seed(0))
+    results = {}
+    for device in ('cpu', 'cuda'):
+        c = conv.to(device)
+        xs = {d: v.to(device).requires_grad_() for d, v in feats.items()}
+        r = rel.to(device)
+        basis = get_basis(r, 1, layout='pfq_flat' if fuse_basis else 'pqf')
+        args = (xs, (idx.to(device), mask.to(device)), r.norm(dim=-1), basis)
+        launches, fwd_routes = fwd.launches, fwd.routed
+        routes = kp.fused_pairwise_conv_bwd.routed
+        with torch.no_grad():
+            c(*args)
+        torch.cuda.synchronize()
+        if device == 'cuda':
+            assert fwd.launches > launches
+            assert fwd.routed == fwd_routes
+            assert kp.fused_pairwise_conv_bwd.routed == routes
+        out = c(*args)
+        loss = sum((o ** 2).sum() for o in out.values())
+        grads = torch.autograd.grad(loss, [xs['0'], xs['1']]
+                                    + list(c.parameters()))
+        if device == 'cuda':
+            assert kp.fused_pairwise_conv_bwd.routed > routes
+        results[device] = [o.detach().cpu() for o in out.values()] + \
+            [g.cpu() for g in grads]
+    for got, ref in zip(results['cuda'], results['cpu']):
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()

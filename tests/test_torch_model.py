@@ -2,6 +2,7 @@
 JAX SE3TransformerModule on converted parameters, the port's equivariance,
 its serving engine, its parameter converter, and its import boundary.
 Parameters and inputs are made from a seed with numpy."""
+import inspect
 import os
 import subprocess
 import sys
@@ -18,6 +19,10 @@ from se3_transformer_torch import (
 )
 from se3_transformer_torch.kernels import pairwise as kp
 from se3_transformer_torch.so3 import rot
+
+# one intra-op thread: these models are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -110,6 +115,34 @@ def test_slice_rotation_invariant(bf16):
     assert (out - out_r).abs().max() < 1e-4
 
 
+# the call that raised before attend_self defaulted to True: every other
+# field at its default on both sides
+DEFAULTS_CALL = dict(dim=8, heads=2, dim_head=4, depth=1, num_degrees=2,
+                     shared_radial_hidden=True, num_neighbors=4)
+
+
+def test_attend_self_defaults_to_true_as_in_jax():
+    """SE3TransformerModule's attend_self default is JAX's (True), so the
+    same call builds the same model: JAX's module built with its own
+    defaults, the port's from converted weights, outputs within RTOL_F32."""
+    assert inspect.signature(SE3TransformerModule).parameters[
+        'attend_self'].default is True
+    assert JaxModule.attend_self is True
+    feats, coors, mask = _inputs(seed=4)
+    jm = JaxModule(**DEFAULTS_CALL)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), feats, coors, mask=mask))['params']
+    params = _random_params(shapes, seed=5)
+    ref = np.asarray(jax.jit(lambda p: jm.apply(
+        {'params': p}, feats, coors, mask=mask))(params))
+    tm = SE3TransformerModule(**DEFAULTS_CALL, device='cpu')
+    tm.load_state_dict(convert_flax_params(params, tm))
+    with torch.no_grad():
+        out = tm(*(torch.from_numpy(a) for a in (feats, coors, mask))).numpy()
+    assert out.shape == ref.shape == (1, N, 8)
+    assert np.abs(out - ref).max() <= RTOL_F32 * np.abs(ref).max()
+
+
 def test_cpu_forward_counts_no_launch():
     feats, coors, mask = _inputs()
     tm = SE3TransformerModule(**TWIN, device='cpu')
@@ -195,7 +228,8 @@ def test_convert_is_total():
 def test_import_leaves_jax_out():
     code = ('import sys, se3_transformer_torch, se3_transformer_torch.kernels.'
             'build, se3_transformer_torch.kernels.attention, '
-            'se3_transformer_torch.kernels.flash; bad = [m for m in '
+            'se3_transformer_torch.kernels.flash, '
+            'se3_transformer_torch.kernels.routing; bad = [m for m in '
             'sys.modules if m.split(".")[0] in ("jax", "flax", '
             '"se3_transformer_tpu")]; assert not bad, bad')
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,

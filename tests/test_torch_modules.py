@@ -3,6 +3,8 @@ converted parameters (convert_flax_params), on the basis-fused branch and
 on the grouped branch (fuse_basis=False, with and without edge_chunks), and
 the ConvSE3's own equivariance. Parameters and inputs are made from a seed
 with numpy."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,11 +15,21 @@ from se3_transformer_tpu.basis import get_basis as jax_get_basis
 from se3_transformer_tpu.ops.attention import AttentionBlockSE3 as JAttnBlock
 from se3_transformer_tpu.ops.conv import ConvSE3 as JConv
 from se3_transformer_tpu.ops.fiber import Fiber as JFiber
-from se3_transformer_torch import convert_flax_params
+from se3_transformer_torch import (
+    SE3TransformerModule, convert_flax_params, flagship, flagship_fast,
+)
 from se3_transformer_torch.basis import get_basis
+from se3_transformer_torch.kernels import attention as ka
+from se3_transformer_torch.kernels import flash as kf
+from se3_transformer_torch.kernels import pairwise as kp
+from se3_transformer_torch.kernels import routing
 from se3_transformer_torch.ops import AttentionBlockSE3, ConvSE3, Fiber
 from se3_transformer_torch.ops.conv import _basis_is_flat, unflatten_basis
 from se3_transformer_torch.so3 import rot, wigner_d_from_rotation
+
+# one intra-op thread: these modules are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
 
 # float32 throughout (radial_bf16=False): the two sides differ only in
 # summation order — relative to the output's largest magnitude
@@ -241,3 +253,182 @@ def test_edge_chunks_leave_the_conv_and_its_gradients_unchanged(fuse_basis):
         for key in ref:
             scale = ref[key].abs().max()
             assert (got[key] - ref[key]).abs().max() <= 1e-5 * scale, key
+
+
+# ---------------------------------------------------------------------- #
+# routing past a kernel's limits (decided in the layer, before a launch)
+# ---------------------------------------------------------------------- #
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize('device_type', ['cuda', 'cpu'])
+def test_conv_route_decision_is_a_function_of_widths(monkeypatch,
+                                                     device_type):
+    """On 'cuda' the flagship widths (mid 128, O 64, degrees <= 3, either
+    dtype) take the kernels and the DenoiseConfig widths (O 8 or 16) route;
+    O = 128 takes the forward kernels and routes only the backward (kernels
+    A and B are built for O = 64). Any other device never routes (its
+    tensors take the plain versions)."""
+    monkeypatch.setattr(routing, '_WARNED', set())
+    on_card = device_type == 'cuda'
+
+    def routes(kernel, *widths):
+        return routing.route(ROUTED[kernel], device_type,
+                             kp.pairwise_limit(kernel, *widths), widths)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        for kernel in ('bxf', 'bx', 'fwd', 'bwd'):
+            for P in (1, 3, 5, 7):
+                for dtype in (F32, BF16):
+                    assert not routes(kernel, 128, 64, P, 7, dtype)
+            for O in (8, 16):
+                assert routes(kernel, 128, O, 3, 3) is on_card
+                assert kp.pairwise_limit(kernel, 128, O, 3, 3) == (
+                    f'O = {O} exceeds the built O = 64' if kernel == 'bwd'
+                    else f'O = {O} exceeds the built O: a multiple of 64')
+            assert routes(kernel, 128, 128, 3, 3) is (on_card
+                                                      and kernel == 'bwd')
+
+
+def _kernel_widths(model):
+    """Every kernel call's widths in a model: (kernel, mid, O, P, Q) of
+    each ConvSE3 pair, the fused attention's (J, D) per degree."""
+    calls = []
+    for conv in model.modules():
+        if isinstance(conv, ConvSE3) and not (conv.fuse_pairwise
+                                              or conv.global_radial):
+            for d_out, c_out in conv.fiber_out:
+                for d_in, _ in conv.fiber_in:
+                    calls.append(('bxf' if conv.fuse_basis else 'fwd', 128,
+                                  c_out, 2 * d_out + 1, 2 * d_in + 1))
+    return calls
+
+
+@pytest.mark.parametrize('recipe', [flagship_fast, flagship])
+def test_flagship_widths_never_route(recipe):
+    """Both recipes at full width: no conv, attention or flash call of
+    theirs is past a kernel's limits, so a card runs every one of them on
+    its kernel."""
+    model = recipe(depth=1, output_degrees=2, reduce_dim_out=True,
+                   device='cpu')
+    dtype = BF16 if model.conv_in.radial_dtype else F32
+    calls = _kernel_widths(model)
+    assert len(calls) == 4 + 2 * 16 + 8      # conv_in, one block, conv_out
+    for kernel, mid, O, P, Q in calls:
+        assert kp.pairwise_limit(kernel, mid, O, P, Q, dtype) is None
+        assert kp.pairwise_limit('bwd', mid, O, P, Q, dtype) is None
+    for d in range(4):
+        assert ka.attention_limit(33, 8 * (2 * d + 1)) is None
+        assert kf.flash_limit(tuple((e, 64) for e in range(4)), d, 8, 8, 8,
+                              32, 1, 128, dtype) is None
+    assert kf.global_limit(((0, 8), (1, 8)), 1, 2, 2, 8, 2) is None
+
+
+def _on_a_card(monkeypatch):
+    """Take every route decision as for a CUDA tensor, so that the CPU
+    runs the routed branch; fresh warnings and counts."""
+    real = routing.route
+    monkeypatch.setattr(routing, 'route', lambda wrapper, device_type, limit,
+                        shape: real(wrapper, 'cuda', limit, shape))
+    monkeypatch.setattr(routing, '_WARNED', set())
+    for wrapper in ROUTED.values():
+        monkeypatch.setattr(wrapper, 'routed', 0)
+
+
+ROUTED = dict(bxf=kp.fused_pairwise_conv_bxf, bx=kp.fused_pairwise_conv_bx,
+              fwd=kp.fused_pairwise_conv, bwd=kp.fused_pairwise_conv_bwd,
+              attn=ka.fused_attention_fwd,
+              flash=kf.flash_attention_fwd,
+              glob=kf.flash_global_attention_fwd)
+
+
+def _value_and_grads(model, inputs):
+    out = model(*inputs)
+    (out ** 2).sum().backward()
+    return out.detach(), {k: p.grad.clone() for k, p in
+                          model.named_parameters() if p.grad is not None}
+
+
+# the DenoiseConfig widths (dim 8, heads 2, dim_head 8, two degrees), and
+# beside them the attention knobs at widths past their kernels' limits
+DENOISE = dict(dim=8, heads=2, dim_head=8, depth=1, num_degrees=2,
+               shared_radial_hidden=True, num_neighbors=4)
+
+
+@pytest.mark.parametrize('fields,routed', [
+    # conv_in 2 pairs, the kv convs 2 x 4, conv_out 2; grouped: one call
+    # per output degree and node chunk
+    (dict(fuse_basis=True), dict(bxf=12)),
+    (dict(fuse_basis=False, edge_chunks=2), dict(fwd=(2 + 2 * 2 + 1) * 2)),
+    # D = 64 * 5 = 320 features at degree 2 exceed #5's 256; degrees 0 and
+    # 1 fit it; the kv convs' O = 128 takes #1 but exceeds kernels A and B,
+    # so their 2 x 9 pairs route in the backward alone
+    (dict(fuse_basis=True, num_degrees=3, dim_head=64,
+          pallas_attention=True), dict(bxf=3 + 3, attn=1, bwd=2 * 9)),
+    (dict(fuse_basis=True, fuse_pairwise=True), dict(bxf=4, flash=2)),
+    (dict(num_tokens=5, attention_mode='global', use_null_kv=True,
+          dim_head=16), dict(glob=2))])
+def test_routed_model_runs_the_plain_bodies(monkeypatch, fields, routed):
+    """A model past its kernels' limits, its route decided as on a card:
+    each routed call is counted in its wrapper's .routed and warned once
+    per (kernel, shape) with the limit, and the plain bodies under
+    autograd give the unrouted CPU model's output and gradients."""
+    cfg = dict(DENOISE, **fields)
+    rng = np.random.RandomState(0)
+    n = 10
+    feats = rng.randint(0, 5, (1, n)) if 'num_tokens' in cfg else \
+        rng.normal(size=(1, n, 8)).astype(np.float32)
+    inputs = [torch.from_numpy(feats),
+              torch.from_numpy(rng.normal(size=(1, n, 3)).astype(np.float32)),
+              torch.from_numpy(np.arange(n)[None] < n - 2)]
+    models = [SE3TransformerModule(**cfg, device='cpu',
+                                   generator=torch.Generator().manual_seed(1))
+              for _ in range(2)]
+    ref_out, ref_grads = _value_and_grads(models[0], inputs)
+    _on_a_card(monkeypatch)
+    with pytest.warns(UserWarning) as caught:
+        out, grads = _value_and_grads(models[1], inputs)
+    assert {k: w.routed for k, w in ROUTED.items() if w.routed} == routed
+    texts = [str(w.message) for w in caught
+             if 'using the plain path' in str(w.message)]
+    assert texts and all(' kernel: ' in t and ' exceeds ' in t for t in texts)
+    assert len(texts) == len(set(texts))
+    assert torch.equal(out, ref_out)
+    assert set(grads) == set(ref_grads)
+    for key, ref in ref_grads.items():
+        assert (grads[key] - ref).abs().max() <= 1e-5 * ref.abs().max(), key
+
+
+@pytest.mark.parametrize('fuse_basis,layout,kernel', [
+    (True, 'pfq_flat', 'bxf'), (True, 'pqf', 'bx'), (False, 'pqf', 'fwd')])
+def test_routed_conv_runs_the_plain_body(monkeypatch, fuse_basis, layout,
+                                         kernel):
+    """One ConvSE3 (8 channels, degrees 0..2) routed past its kernel: the
+    plain body's output and gradients, one .routed per pair (or per output
+    degree on the grouped branch)."""
+    fiber = Fiber.create(3, 8)
+    feats, idx, mask, rel_pos = graph_inputs(fiber, seed=3)
+    rel = torch.from_numpy(rel_pos)
+    basis = get_basis(rel, 2, layout=layout)
+    results = []
+    for routed in (False, True):
+        torch.manual_seed(0)
+        conv = ConvSE3(fiber, fiber, fuse_basis=fuse_basis)
+        with torch.no_grad():
+            for p in conv.parameters():
+                p.normal_(0, 0.3)
+        if routed:
+            _on_a_card(monkeypatch)
+        xs = {k: torch.from_numpy(v).requires_grad_() for k, v in
+              feats.items()}
+        out = conv(xs, (torch.from_numpy(idx).long(),
+                        torch.from_numpy(mask)), rel.norm(dim=-1), basis)
+        sum((o ** 2).sum() for o in out.values()).backward()
+        results.append(([out[k].detach() for k in sorted(out)],
+                        [xs[k].grad for k in sorted(xs)]
+                        + [p.grad for p in conv.parameters()]))
+    assert ROUTED[kernel].routed == (9 if fuse_basis else 3)
+    for a, b in zip(results[0][0], results[1][0]):
+        assert torch.equal(a, b)
+    for a, b in zip(results[0][1], results[1][1]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()

@@ -34,6 +34,10 @@ from se3_transformer_torch.basis import get_basis
 from se3_transformer_torch.kernels import pairwise as kp
 from se3_transformer_torch.ops import ConvSE3, Fiber
 
+# one intra-op thread: these operands are small, and pytest-xdist's
+# workers would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
+
 PAIRS = [(di, do) for di in range(4) for do in range(4)]
 # E = 70 is not a multiple of the CUDA kernel's 64-edge tile (ragged tail)
 E, MID, C, O = 70, 16, 3, 4
@@ -182,6 +186,54 @@ def test_grouped_plain_matches_jax_interpret_kernel(do, n_in, dtype):
         torch.from_numpy(a['v2']), torch.from_numpy(a['b3'])).numpy()
     assert out.shape == ref.shape == (E, 2 * do + 1, O)
     assert np.abs(out - ref).max() <= RTOL * np.abs(ref).max()
+
+
+# chip_smoke.py's bar for a kernel against its plain version
+KERNEL_RTOL = 1e-4
+
+
+def _bf16_split(x):
+    """x = hi + lo + O(2^-16 x): hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_product(h, w3, v2, b3, passes=3):
+    """The float32 arithmetic of csrc/pairwise_fwd.cu, emulated in torch:
+    h and W3 split into bf16 hi and lo, R = h_hi.W_hi + h_hi.W_lo +
+    h_lo.W_hi (passes=3; products of bf16 values are exact in float32,
+    sums float32), or h_hi.W_hi alone (passes=1), then the float32 apply
+    with b3."""
+    E, mid = h.shape
+    _, IF, O = w3.shape
+    hh, hl = _bf16_split(h)
+    wh, wl = (t.reshape(mid, IF * O) for t in _bf16_split(w3))
+    R = hh @ wh
+    if passes == 3:
+        R = R + hh @ wl + hl @ wh
+    return torch.bmm(v2, R.reshape(E, IF, O) + b3)
+
+
+def test_three_bf16_passes_meet_the_kernel_bar():
+    """At the flagship's widths (mid 128, IF 1024, O 64, P 7) on a few
+    hundred edges, the three-pass split product is within KERNEL_RTOL of
+    max|plain| of both the float32 plain version and the JAX kernel
+    (interpret mode), so the card's float32 kernel has its error budget
+    before it runs; one bf16 pass is not."""
+    a = _grouped_operands(3, 4, seed=41, e=300, mid=kp.MID, c=64, o=64)
+    assert a['w3'].shape == (128, 1024, 64)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    plain = kp.fused_pairwise_conv_plain(t['h'], t['w3'], t['v2'], t['b3'])
+    ref = torch.from_numpy(np.asarray(jax_fwd(
+        jnp.asarray(a['h']), jnp.asarray(a['w3']), a['v2'], b3=a['b3'],
+        interpret=True)))
+    split = _split_product(t['h'], t['w3'], t['v2'], t['b3'])
+    scale = plain.abs().max()
+    for other in (plain, ref):
+        err = (split - other).abs().max()
+        assert 0 < err <= KERNEL_RTOL * scale
+    one_pass = _split_product(t['h'], t['w3'], t['v2'], t['b3'], passes=1)
+    assert (one_pass - plain).abs().max() > KERNEL_RTOL * scale
 
 
 @pytest.mark.parametrize('do,n_in,dtype', [(1, 3, 'float32'),

@@ -22,6 +22,10 @@ from se3_transformer_torch import (
 from se3_transformer_torch.kernels import pairwise as kp
 from se3_transformer_torch.so3 import rot
 
+# one intra-op thread: these models are tiny, and pytest-xdist's workers
+# would otherwise oversubscribe the CPU with spinning thread pools
+torch.set_num_threads(1)
+
 # flagship_fast's fields with the denoise vector head, at reduced width and
 # depth
 TWIN = dict(dim=8, depth=1, num_degrees=4, heads=8, dim_head=8,
@@ -83,12 +87,19 @@ def _jax_loss(jm):
     return loss_fn
 
 
+_SHAPES = {}
+
+
 def _jax_twin(cfg, batch, seed=1):
+    """The JAX module and seeded params; each configuration's param shapes
+    are traced once per module (they depend on the batch's shape only)."""
     jm = JaxModule(**cfg)
-    shapes = jax.eval_shape(lambda: jm.init(
-        jax.random.PRNGKey(0), batch['feats'], batch['coords'],
-        mask=batch['masks'], return_type=1))['params']
-    return jm, _random_params(shapes, seed)
+    key = tuple(sorted(cfg.items())) + (batch['feats'].shape,)
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(lambda: jm.init(
+            jax.random.PRNGKey(0), batch['feats'], batch['coords'],
+            mask=batch['masks'], return_type=1))['params']
+    return jm, _random_params(_SHAPES[key], seed)
 
 
 def _port(cfg, params):

@@ -13,10 +13,15 @@ failure:
               the card and time both: the basis-fused kernel (bxf) at the 16
               flagship_fast pairs, the V2-given kernel (fwd) at the four
               grouped output degrees of a flagship hidden conv, E = 4096 (one
-              node chunk) and 32768, float32 and bf16.
+              node chunk) and 32768, float32 and bf16; beside each, the time
+              of the one PyTorch call that computes the same conv from V2
+              (einsum('em,mio,epi->epo') with b3 as a row of W3), timed
+              only.
   4. backward hold backward kernels A (dV2, dW3, dB3) and B (dH) against
               their plain versions at both recipes' training shapes, time
-              each, and require dW3/dB3 to be bit-identical across two runs.
+              each (and the autograd backward of the same einsum, timed
+              only), and require dW3/dB3 to be bit-identical across two
+              runs.
   5. attention  the fused attention kernels (#5 forward, #6 backward)
               against their plain versions at the flagship's four per-degree
               shapes (B*h 8, n 1024, J 33, D 8..56, masked), the backward's
@@ -202,6 +207,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
+def radial_library(h, w3, b3):
+    """The operands of the one PyTorch call that computes a pairwise conv
+    from V2 (timed only; the port never calls it): h with a ones column and
+    W3 with a b3 row, float32, so that
+    einsum('em,mio,epi->epo', h_aug, w3_aug, v2) = V2 . (h.W3 + b3). The
+    operands are in the order the contraction runs (R first, then the
+    per-edge apply)."""
+    ones = torch.ones(h.shape[0], 1, device=h.device)
+    return (torch.cat([h.float(), ones], 1),
+            torch.cat([w3.float(), b3.float()[None]], 0))
+
+
+def library_conv(h_aug, w3_aug, v2):
+    return torch.einsum('em,mio,epi->epo', h_aug, w3_aug, v2)
+
+
 def pairwise_cost(E, mid, C, O, P, Q, F, h_bytes, peaks):
     """(bound_ms, bound_by, flops) of one fused_pairwise_conv_bxf call:
     each input read once, the output written once. The V2 build and apply
@@ -257,11 +278,17 @@ def phase_kernels(st, peaks):
         ms = cuda_ms(lambda: fused_pairwise_conv_bxf(*args), reps=10)
         plain_ms = cuda_ms(lambda: fused_pairwise_conv_bxf_plain(*args),
                            reps=3)
+        v2 = torch.einsum('epfq,ecq->epcf', bf.reshape(e, P, F, Q),
+                          x).reshape(e, P, C * F)
+        lib = (*radial_library(h, w3, b3), v2)
+        library_ms = cuda_ms(lambda: library_conv(*lib), reps=3)
+        del v2, lib
         bound_ms, bound_by, flops = pairwise_cost(
             e, mid, C, O, P, Q, F, 2 if hdt == torch.bfloat16 else 4, peaks)
         row = dict(pair=[di, do], E=e, h_dtype=str(hdt).split('.')[-1],
                    max_abs_err=err, max_abs_plain=scale, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
                    tflops=flops / ms / 1e9)
         rows.append(row)
         log('kernel', json.dumps(row))
@@ -337,6 +364,9 @@ def phase_fwd(kp, peaks):
                 ms = cuda_ms(lambda: kp.fused_pairwise_conv(*args), reps=10)
                 plain_ms = cuda_ms(lambda: kp.fused_pairwise_conv_plain(*args),
                                    reps=3)
+                lib = (*radial_library(h, w3, b3), v2)
+                library_ms = cuda_ms(lambda: library_conv(*lib), reps=3)
+                del lib
                 bound_ms, bound_by, flops, bound_ms_fma = fwd_cost(
                     E, mid, IF, O, P, 2 if hdt == torch.bfloat16 else 4,
                     peaks)
@@ -344,8 +374,9 @@ def phase_fwd(kp, peaks):
                            h_dtype=str(hdt).split('.')[-1],
                            i_per_split=kp.i_per_split(E, IF, O),
                            max_abs_err=err, max_abs_plain=scale, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, bound_ms_fma=bound_ms_fma,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bound_ms_fma=bound_ms_fma,
                            tflops=flops / ms / 1e9)
                 rows.append(row)
                 log('fwd', json.dumps(row))
@@ -357,37 +388,45 @@ def phase_fwd(kp, peaks):
             log('fwd', json.dumps(dict(
                 conv='hidden 4x64 -> 4x64, four launches', E=E, h_dtype=dtype,
                 **{k: sum(r[k] for r in conv) for k in (
-                    'ms', 'plain_ms', 'bound_ms', 'bound_ms_fma')})))
+                    'ms', 'plain_ms', 'library_ms', 'bound_ms',
+                    'bound_ms_fma')})))
     return rows, worst
 
 
 def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks):
-    """(bound_ms, bound_by) of backward kernel 'a' (R recompute, dV2, dR,
-    dW3, dB3) or 'b' (dR, dH) as the kernels do the work: each input read
-    once, each output written once. With bf16 h/w3 the R recompute is one
-    tensor-core pass and dW3 and dH two each (dR split into bf16 hi and
-    lo), at the bf16 rate, while the P-contractions and dB3 run on the
-    float32 CUDA cores at the same time: the operations take the longer of
-    the two pipes. With float32 h/w3 everything shares the CUDA cores."""
+    """(bound_ms, bound_by, bound_ms_fma) of backward kernel 'a' (R
+    recompute, dV2, dR, dW3, dB3) or 'b' (dR, dH) as the kernels do the
+    work: each input read once, each output written once. The products run
+    on the tensor cores at the bf16 rate while the P-contractions and dB3
+    run on the float32 CUDA cores at the same time: the operations take the
+    longer of the two pipes. Kernel A: with bf16 h/w3 the R recompute is
+    one pass and dW3 two (dR split into bf16 hi and lo); with float32 h/w3
+    both are three (hi.hi, hi.lo, lo.hi of the operands split into bf16 hi
+    + lo). Kernel B: dH is two passes with bf16 w3; float32 w3 runs all of
+    kernel B on the CUDA cores. bound_ms_fma is the bound of every product
+    on fp32 FMAs beside the P-contractions (the float32 kernel A before PR
+    9, and kernel B's float32 arm), for comparison."""
     bf16_peak, f32_peak, mem = peaks
     radial = 2.0 * E * mid * IF * O
     pcontract = 2.0 * E * P * IF * O
     if kernel == 'a':
-        tensor, cuda = 3 * radial, 2 * pcontract + E * IF * O
-        f32_ops = radial * 2 + cuda
+        passes = 3 if h_bytes == 2 else 6
+        cuda = 2 * pcontract + E * IF * O
+        fma_ops = radial * 2 + cuda
         nbytes = (E * mid * h_bytes + mid * IF * O * h_bytes + IF * O * 4
                   + 2 * E * P * IF * 4 + E * P * O * 4 + mid * IF * O * 4
                   + IF * O * 4)
     else:
-        tensor, cuda = 2 * radial, pcontract
-        f32_ops = radial + cuda
+        passes = 2 if h_bytes == 2 else 0
+        cuda = pcontract if h_bytes == 2 else radial + pcontract
+        fma_ops = radial + pcontract
         nbytes = (mid * IF * O * h_bytes + E * P * IF * 4 + E * P * O * 4
                   + E * mid * 4)
-    ops_s = max(tensor / bf16_peak, cuda / f32_peak) if h_bytes == 2 \
-        else f32_ops / f32_peak
+    ops_s = max(passes * radial / bf16_peak, cuda / f32_peak)
     bytes_s = nbytes / mem
     return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes'
+        'operations' if ops_s >= bytes_s else 'bytes', \
+        max(fma_ops / f32_peak, bytes_s) * 1e3
 
 
 def phase_backward(kp, peaks):
@@ -416,7 +455,9 @@ def phase_backward_grouped(kp, peaks):
 
 def check_backward(kp, peaks, cases, seed):
     """Each case (label, E, P, IF, h dtype): kernels A and B against their
-    plain versions, dW3/dB3 bit-identical across two runs, and the times."""
+    plain versions, dW3/dB3 bit-identical across two runs, and the times:
+    kernel, plain version, and the library yardstick (torch.autograd.grad
+    of the einsum that computes the forward)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
     mid, O = 128, 64
@@ -455,6 +496,18 @@ def check_backward(kp, peaks, cases, seed):
         del ref_w3, ref_v2, ref_b3, ref_h, dw3_2, db3_2
         torch.cuda.empty_cache()
         hb = 2 if hdt == torch.bfloat16 else 4
+        # the library yardstick: autograd of the one einsum that computes
+        # the forward, its graph built outside the timed calls; kernel A's
+        # outputs are the gradients of W3 (with its b3 row) and V2, kernel
+        # B's that of h
+        leaves = [t.detach().requires_grad_()
+                  for t in (*radial_library(h, w3, b3), v2)]
+        graph = library_conv(*leaves)
+        library = {k: cuda_ms(lambda: torch.autograd.grad(
+            graph, wrt, g, retain_graph=True), reps=3)
+            for k, wrt in (('a', leaves[1:]), ('b', leaves[:1]))}
+        del graph, leaves
+        torch.cuda.empty_cache()
         row = dict(label, E=e, P=P, IF=IF, h_dtype=str(hdt).split('.')[-1],
                    max_abs_err={k: v[0] for k, v in errs.items()},
                    max_abs_plain={k: v[1] for k, v in errs.items()},
@@ -465,9 +518,11 @@ def check_backward(kp, peaks, cases, seed):
                    plain_ms_a=cuda_ms(lambda: kp.fused_pairwise_conv_bwd_a_plain(
                        h, w3, v2, g, b3), reps=3),
                    plain_ms_b=cuda_ms(lambda: kp.fused_pairwise_conv_bwd_b_plain(
-                       w3, v2, g), reps=3))
+                       w3, v2, g), reps=3),
+                   library_ms_a=library['a'], library_ms_b=library['b'])
         for k in ('a', 'b'):
-            row[f'bound_ms_{k}'], row[f'bound_by_{k}'] = pairwise_bwd_cost(
+            (row[f'bound_ms_{k}'], row[f'bound_by_{k}'],
+             row[f'bound_ms_fma_{k}']) = pairwise_bwd_cost(
                 k, e, mid, IF, O, P, hb, peaks)
         rows.append(row)
         log('backward', json.dumps(row))
@@ -744,10 +799,14 @@ def phase_bx(st, peaks):
         bound_ms, bound_by, flops = pairwise_cost(
             E, mid, C, 64, P, Q, F, 2 if hdt == torch.bfloat16 else 4, peaks)
         ms = cuda_ms(lambda: kp.fused_pairwise_conv_bx(*args), reps=10)
+        lib = (*radial_library(h, w3, b3), torch.einsum(
+            'epqf,ecq->epcf', bp, x).reshape(E, P, C * F))
+        library_ms = cuda_ms(lambda: library_conv(*lib), reps=3)
+        del lib
         row = dict(pair=[di, do], E=E, h_dtype=str(hdt).split('.')[-1],
                    max_abs_err=err, max_abs_plain=ref_max, ms=ms,
                    plain_ms=cuda_ms(lambda: kp.fused_pairwise_conv_bx_plain(
-                       *args), reps=3),
+                       *args), reps=3), library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    tflops=flops / ms / 1e9)
         rows.append(row)
@@ -783,6 +842,7 @@ def phase_bx(st, peaks):
         conv_forward_ms=conv_ms, flat_basis_max_abs_diff=flat_err,
         ms=sum(r['ms'] for r in conv_rows),
         plain_ms=sum(r['plain_ms'] for r in conv_rows),
+        library_ms=sum(r['library_ms'] for r in conv_rows),
         bound_ms=sum(r['bound_ms'] for r in conv_rows),
         backward_rel_err=bwd_err)))
     del conv, feats, basis, flat, hidden, leaves, grads

@@ -123,9 +123,9 @@ def load_library() -> ctypes.CDLL:
             # (h, w3, b3, v2, out, work, w3_split, E, IF, O, P,
             #  i_per_split, h_is_bf16, stream)
             lib.se3_pairwise_fwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
-            # (h, w3, b3, v2, g, dv2, work, dw3, db3, E, IF, P, splits,
-            #  h_is_bf16, stream)
-            lib.se3_pairwise_bwd_a.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+            # (h, w3, b3, v2, g, dv2, work, split, dw3, db3, E, IF, P,
+            #  splits, h_is_bf16, stream)
+            lib.se3_pairwise_bwd_a.argtypes = [vp] * 10 + [ci] * 5 + [vp]
             # (w3, v2, g, dh, work, E, IF, P, i_per_split, w3_is_bf16,
             #  stream)
             lib.se3_pairwise_bwd_b.argtypes = [vp] * 5 + [ci] * 5 + [vp]

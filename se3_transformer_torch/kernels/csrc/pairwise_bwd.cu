@@ -20,33 +20,54 @@
 // E = 32768, mid = 128, C = O = 64) the backward is three radial-sized
 // products of 1.51 TFLOP each (the R recompute, dW3 and dH), ~0.17 TFLOP
 // of P-contractions (dV2, and dR once in each kernel) and ~5 GB of V2 and
-// dV2 traffic: compute-bound. With bf16 h/W3 all three products run on the
-// tensor cores (mma.sync m16n8k16, fp32 accumulate). The R recompute's
-// products are exact. dW3 = h^T.dR and dH = dR.W3^T multiply the float32
-// dR, which one bf16 pass would round to 2^-9 relative and miss the 1e-4
-// tolerance; so dR is split into bf16 hi + lo (hi = bf16(dR), lo =
-// bf16(dR - hi), together within 2^-17 of dR) and each product runs as two
-// mma.sync passes, one per half, on exact bf16 partners. That keeps ~16
-// mantissa bits at tensor-core rate. What is left on the CUDA cores is the
-// P-contractions. With float32 h/W3, which are not exact in bf16, every
-// product runs on fp32 FMAs (no TF32).
+// dV2 traffic: compute-bound. The products run on the tensor cores
+// (mma.sync m16n8k16, fp32 accumulate) on exact bf16 operands. dW3 =
+// h^T.dR and dH = dR.W3^T multiply the float32 dR, which one bf16 pass
+// would round to 2^-9 relative and miss the 1e-4 tolerance; so dR is split
+// into bf16 hi + lo (hi = bf16(dR), lo = bf16(dR - hi), together within
+// 2^-17 of dR) and each product runs as one mma.sync pass per half. Kernel
+// A splits float32 h and W3 the same way (split_bf16_kernel, once per
+// launch) and runs each float32 product x.y as the passes x_hi.y_hi +
+// x_hi.y_lo + x_lo.y_hi, as pairwise_fwd.cu does. Kernel B with float32 W3
+// still runs on fp32 FMAs (no TF32). The P-contractions run on the CUDA
+// cores.
 //
-// Kernel A (grid: i-chunks of BI = 2 x edge splits).
-//  * A CTA owns BI values of i and a contiguous range of 64-edge tiles.
-//    Its W3[:, i, :] slices are staged once; per tile it stages h and
-//    recomputes R = h . W3 + b3 in the forward's register layout, then
-//    forms dV2 (a register sum over o, then across the 4 lanes and the 2
-//    O-warps, in a fixed order) and dR (a sum over p) on the same
-//    fragments, and keeps a per-thread column sum of dR for dB3.
-//  * dR goes to shared memory (bf16 hi and lo, or float32), and dW3 +=
-//    h^T . dR runs over the tile into accumulators held in registers
-//    across all the CTA's tiles (bf16: a 32 x 32 mma tile per warp and i;
-//    float32: an 8 x 4 FMA block per thread and i).
+// Kernel A (grid: ceil(IF / 2) CTAs along i x edge splits, bwd_splits in
+// kernels/pairwise.py; 8 warps, one CTA per SM).
+//  * What held the previous version back (PERF.md, PR 9: timing-only
+//    variants of it on an H100). Every CTA read each g row from L2 once per
+//    value of i, in dependent __ldg chains at 8 warps per SM: g from a
+//    constant made the bf16 kernel 34-38% faster, and with g, V2 and the
+//    dV2 stores all off the path it ran in a third to a half of the time.
+//    The float32 kernel spent 71% of its time in its two fp32-FMA products.
+//  * A CTA owns 2 values of i and a contiguous range of 64-edge tiles. Its
+//    W3[:, i, :] slices are staged once; h and V2[tile, :, i0 .. i0 + 1]
+//    are staged a tile ahead (16- and 8-byte cp.async, two buffers). Per
+//    tile it recomputes R = h . W3 + b3 for both values of i (per kk, h's
+//    A fragments once for both), then walks g's P slices in p order: each
+//    staged g value feeds dV2 (a register sum over o, then across the 4
+//    lanes and the 2 O-warps, in a fixed order) and dR (a sum over p) of
+//    both values of i, and a per-thread column sum of dR for dB3.
+//  * g streams through a ring of slices g[tile, p, :], S - 1 ahead (6
+//    stages for bf16; 2 for float32, whose h and W3 take twice the room).
+//    A warp reads only its own 16 x 32 block of a slice, so it copies that
+//    block itself (swizzled: conflict-free float2 reads) and waits on its
+//    own copies: no barrier of the whole CTA per slice.
+//  * dR goes to shared memory as bf16 hi and lo, and dW3 += h^T . dR runs
+//    over the tile (2 passes for bf16 h, 3 for float32) into a fresh
+//    register tile that is added, with float32 adds, to accumulators held
+//    across all the CTA's tiles (a 32 x 32 mma tile per warp and i).
 //  * dW3 and dB3 are sums over all E edges. The TPU kernel revisits one
 //    output block along a sequential edge axis; Hopper's blocks run in no
 //    order. So each edge split writes its partial [mid, IF, O] and [IF, O]
 //    to a workspace, and bwd_reduce_kernel sums the partials in split
 //    order: no float atomics, bit-identical from run to run.
+//  * Tried on the card and dropped (PERF.md, PR 9): a cluster of 4 CTAs
+//    along i sharing each g slice through multicast bulk copies issued by
+//    a producer warp (1.5-1.8x slower than the same kernel with clusters
+//    of 1, and clusters of 4 keep only 120 CTAs resident; its 9 warps held
+//    it to 168 registers, with spills), and one value of i per float32 CTA
+//    with a 6-stage ring (the waits on g shrank, the per-i work grew more).
 // Kernel B (grid: 64-edge tiles x i splits).
 //  * A CTA stages its g rows once, then loops over its range of i: it
 //    stages V2[tile, :, i] and W3[:, i, :] (a cp.async double buffer for
@@ -58,9 +79,12 @@
 //    132 SMs. As in pairwise_fwd.cu, the i range is then split across
 //    grid.y (i_per_split in kernels/pairwise.py) and bwd_reduce_kernel sums
 //    the partial dH in split order.
-// Left for later: wgmma, TMA, more than one CTA per SM, and whatever holds
-// kernel A at ~5 us per 64-edge tile when its mma work is a few hundred
-// cycles (prefetching the next tile's h did not move it).
+// Left for later. Kernel A: every edge-warp reads each W3 fragment from
+// shared memory (wgmma would read it once per warpgroup), the float32
+// ring's 2 stages still leave the P = 7 tile waiting on g, and one CTA of 8
+// warps per SM hides little latency between its barriers. Kernel B: its
+// float32 arm is still on fp32 FMAs (the three split passes carry over),
+// and it stages V2 and W3 once per i.
 
 #include "common.cuh"
 
@@ -68,53 +92,132 @@ namespace {
 
 using namespace se3;
 
-constexpr int BI = 2;        // i values per kernel-A CTA
-constexpr int DS = BO + 4;   // row stride of a float32 dR tile (floats)
-constexpr int DSB = BO + 8;  // row stride of a bf16 dR tile: conflict-free ldmatrix
-// bytes of kernel A's staged dR: hi + lo bf16 halves, or float32
-template <typename T>
-constexpr int DR_BYTES = sizeof(T) == 2 ? 2 * BI * BE * DSB * 2 : BI * BE * DS * 4;
+using bf16 = __nv_bfloat16;
 
-template <typename T, int P>
+constexpr int BI = 2;                      // i values per kernel-A CTA
+constexpr int DSB = BO + 8;                // row stride of a bf16 dR tile: conflict-free ldmatrix
+constexpr int WG = 16 * 32;                // one warp's g block per ring stage: 16 rows x 32 floats
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// Kernel A's shared memory by h's kind (bf16, or float32 given as bf16 hi +
+// lo halves) and P, as byte offsets. The g ring is as deep as what is left
+// allows: 6 stages for bf16, 2 for float32, whose h and W3 take two halves.
+template <bool kSplit, int P>
+struct ACfg {
+  static constexpr int NS = kSplit ? 2 : 1;  // bf16 halves of h and W3
+  static constexpr int STAGES = kSplit ? 2 : 6;
+  static constexpr int WS = Tile<bf16>::WS, HS = Tile<bf16>::HS;
+  static constexpr size_t W = 0;                                   // [BI][NS][MID][WS] bf16
+  static constexpr size_t H = W + 2ull * BI * NS * MID * WS;       // [2][NS][BE][HS] bf16
+  static constexpr size_t DR = H + 2ull * 2 * NS * BE * HS;        // [BI][hi, lo][BE][DSB] bf16
+  static constexpr size_t G = DR + 2ull * BI * 2 * BE * DSB;       // [STAGES][8 warps][WG] float
+  static constexpr size_t V = G + 4ull * STAGES * 8 * WG;          // [2][BE][P][BI] float
+  static constexpr size_t PP = V + 4ull * 2 * BE * P * BI;         // [BI][2][BE][P] float
+  static constexpr size_t SMEM = PP + 4ull * BI * 2 * BE * P;
+  static_assert(SMEM <= 232448, "kernel A's tile fits one SM's shared memory");
+  static_assert(4ull * 4 * BI * BO <= G - DR, "dB3's reduction fits the dR tiles");
+};
+
+// Kernel A: a CTA owns BI values of i and a range of 64-edge tiles, with
+// 8 warps (4 along edges x 2 along O). g streams through a ring of slices
+// g[tile, p, :], each read once by the CTA for all of its i; each warp
+// loads and reads only its own 16 x 32 block of a slice, so a slice needs
+// no barrier of the whole CTA.
+template <bool kSplit, int P>
 __global__ void __launch_bounds__(NTHREADS, 1)
-bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3,
+bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
+             const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
              const float* __restrict__ b3, const float* __restrict__ v2,
              const float* __restrict__ g, float* __restrict__ dv2,
-             float* __restrict__ part, int E, int IF, int tiles_per_split) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int HS = Tile<T>::HS, WS = Tile<T>::WS;
+             float* __restrict__ part, int E, int IF, int tiles_per_split, int v2_pairs) {
+  using C = ACfg<kSplit, P>;
+  constexpr int S = C::STAGES, NS = C::NS, WS = C::WS, HS = C::HS;
+  static_assert(BI == 2, "a row's BI values of V2 and dV2 move as one float2");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sW = reinterpret_cast<T*>(smem);  // BI x [MID][WS]
-  T* sH = sW + BI * MID * WS;          // [BE][HS]
-  // dR of the tile: bf16 hi and lo halves BI x [BE][DSB] each, or float32
-  // BI x [BE][DS]
-  unsigned char* sDR = reinterpret_cast<unsigned char*>(sH + BE * HS);
-  __nv_bfloat16* sDh = reinterpret_cast<__nv_bfloat16*>(sDR);
-  __nv_bfloat16* sDl = sDh + BI * BE * DSB;
-  float* sD = reinterpret_cast<float*>(sDR);
-  float* sP = reinterpret_cast<float*>(sDR + DR_BYTES<T>);  // BI x 2 x [BE][P]
-  float* sB = sP + BI * 2 * BE * P;                          // 4 x BI x [BO]
+  bf16* sW = reinterpret_cast<bf16*>(smem + C::W);
+  bf16* sH = reinterpret_cast<bf16*>(smem + C::H);
+  bf16* sDR = reinterpret_cast<bf16*>(smem + C::DR);
+  float* sG = reinterpret_cast<float*>(smem + C::G);
+  float* sV = reinterpret_cast<float*>(smem + C::V);
+  float* sP = reinterpret_cast<float*>(smem + C::PP);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int we = warp & 3, wo = warp >> 2;
   const int t = lane & 3, j = lane >> 3, rr = lane & 7;
   const int e_lo = we * 16 + (lane >> 2), e_hi = e_lo + 8;
   const int i0 = blockIdx.x * BI;
-  const int nI = min(BI, IF - i0);
+  const int nI = min(BI, IF - i0);  // 1 or 2: the grid stops at IF
   const int n_tiles = (E + BE - 1) / BE;
   const int tile_lo = blockIdx.y * tiles_per_split;
   const int tile_hi = min(n_tiles, tile_lo + tiles_per_split);
+  // The CTA walks slices n = (tile - tile_lo) * P + p in order; slice n
+  // lands in ring stage n % S by 16-byte cp.async, one group per slice,
+  // S - 1 slices ahead of the one in use. A warp's block row r holds its
+  // 16-byte chunk c at c ^ 2(r % 4) (the float2 reads of 4 rows then hit
+  // 32 distinct banks). Rows past E are not copied (and read as zeros).
+  const int n_slices = max(0, tile_hi - tile_lo) * P;
+  float* sGw = sG + warp * WG;  // this warp's block of stage 0
+  auto stage_g = [&](int n) {
+    if (n >= n_slices) return;
+    const int tile = tile_lo + n / P, p = n % P;
+    const int rows = min(BE, E - tile * BE) - we * 16;
+    const float* src = g + ((size_t)(tile * BE + we * 16) * P + p) * BO + wo * 32;
+    float* dst = sGw + (n % S) * 8 * WG;
+#pragma unroll
+    for (int k = lane; k < 16 * 8; k += 32) {
+      const int r = k >> 3, c = k & 7;
+      if (r < rows)
+        cp_async16(dst + r * 32 + ((c ^ ((r & 3) << 1)) << 2), src + (size_t)r * P * BO + c * 4);
+    }
+  };
+  // h (hi[, lo]) and V2[tile, :, i0 .. i0 + BI] of a tile into buffer buf
+  auto stage_tile = [&](int tile, int buf) {
+    const int e0 = tile * BE, rows = min(BE, E - e0);
+#pragma unroll
+    for (int half = 0; half < NS; ++half)
+      load_h(sH + (buf * NS + half) * BE * HS, half ? hlo : hhi, e0, rows, tid);
+    float* sv = sV + buf * BE * P * BI;
+    for (int idx = tid; idx < BE * P; idx += NTHREADS) {
+      const int e = idx / P;
+      float* dst = sv + idx * BI;
+      const float* src = v2 + ((size_t)e0 * P + idx) * IF + i0;
+      if (e < rows && v2_pairs) {
+        cp_async8(dst, src);
+      } else {
+#pragma unroll
+        for (int ii = 0; ii < BI; ++ii)
+          if (e < rows && ii < nI)
+            cp_async4(dst + ii, src + ii);
+          else
+            dst[ii] = 0.f;
+      }
+    }
+  };
 
+  // W3[:, i, :] of the CTA's i values (the last valid i past IF's end:
+  // those outputs are not stored), the first tile, then the ring's first
+  // S - 1 slices
 #pragma unroll
   for (int ii = 0; ii < BI; ++ii)
-    if (ii < nI) load_w(sW + ii * MID * WS, w3, i0 + ii, IF, BO, 0, tid);
+#pragma unroll
+    for (int half = 0; half < NS; ++half)
+      load_w(sW + (ii * NS + half) * MID * WS, half ? wlo : whi, min(i0 + ii, IF - 1), IF, BO,
+             0, tid);
+  if (tile_lo < tile_hi) stage_tile(tile_lo, 0);
   cp_async_commit();
+#pragma unroll
+  for (int n = 0; n < S - 1; ++n) {
+    stage_g(n);
+    cp_async_commit();
+  }
 
-  // dW3 accumulators, per i. bf16: the mma.sync layout of a 32 (m) x 32
-  // (o) warp tile, m = (warp & 3)*32 + mt*16 + {g, g+8}, o = (warp >> 2)*32
-  // + nt*8 + 2t + {0, 1} at [mt*4 + nt][..]. float32: an 8 (m) x 4 (o)
-  // thread block, m = (tid >> 4)*8 + a, o = (tid & 15)*4 + c at [a][c].
+  // dW3 accumulators, per i: the mma.sync layout of a 32 (m) x 32 (o)
+  // warp tile, m = (warp & 3)*32 + mt*16 + {g, g+8}, o = (warp >> 2)*32 +
+  // nt*8 + 2t + {0, 1} at [mt*4 + nt][..]
   float acc[BI][8][4];
   // dB3: this thread's dR columns summed over its rows (both halves)
   float dbias[BI][4][2];
@@ -129,180 +232,222 @@ bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3,
   }
 
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    const int it = tile - tile_lo, buf = it & 1;
     const int e0 = tile * BE, rows = min(BE, E - e0);
     const bool lo_ok = e_lo < rows, hi_ok = e_hi < rows;
-    load_h(sH, h, e0, rows, tid);
-    cp_async_commit();
+    // this tile's h, V2 and first S - 1 slices have landed, and every warp
+    // is done with the previous tile (its h/V2 buffer, the ring stage of
+    // its last slice, the dR tiles and the dV2 partials)
     cp_async_wait<0>();
     __syncthreads();
+    if (tile + 1 < tile_hi) stage_tile(tile + 1, buf ^ 1);
+    cp_async_commit();
 
-    uint32_t afrag[MID / 16][4];
-    if constexpr (kBf16) load_afrag(afrag, sH, we, lane);
-
+    // R = h . W3 for the CTA's i values: per kk, h's A fragments once
+    // for every i; float32 as three passes (hi.hi, hi.lo, lo.hi)
+    const bf16* sh = sH + buf * NS * BE * HS;
+    float r[BI][4][4];
+#pragma unroll
+    for (int ii = 0; ii < BI; ++ii)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) r[ii][nb][v] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MID / 16; ++kk) {
+      const int aoff = (we * 16 + (j & 1) * 8 + rr) * HS + kk * 16 + (j >> 1) * 8;
+      uint32_t ah[4], al[4];
+      ldmatrix_x4(ah, sh + aoff);
+      if constexpr (kSplit) ldmatrix_x4(al, sh + BE * HS + aoff);
+#pragma unroll
+      for (int ii = 0; ii < BI; ++ii) {
+        const bf16* sw = sW + ii * NS * MID * WS;
+#pragma unroll
+        for (int nb2 = 0; nb2 < 2; ++nb2) {
+          const int boff = (kk * 16 + (j & 1) * 8 + rr) * WS + wo * 32 + nb2 * 16 + (j >> 1) * 8;
+          uint32_t bh[4];
+          ldmatrix_x4_trans(bh, sw + boff);
+          mma_bf16(r[ii][nb2 * 2 + 0], ah, bh[0], bh[1]);
+          mma_bf16(r[ii][nb2 * 2 + 1], ah, bh[2], bh[3]);
+          if constexpr (kSplit) {
+            uint32_t bl[4];
+            ldmatrix_x4_trans(bl, sw + MID * WS + boff);
+            mma_bf16(r[ii][nb2 * 2 + 0], ah, bl[0], bl[1]);
+            mma_bf16(r[ii][nb2 * 2 + 1], ah, bl[2], bl[3]);
+            mma_bf16(r[ii][nb2 * 2 + 0], al, bh[0], bh[1]);
+            mma_bf16(r[ii][nb2 * 2 + 1], al, bh[2], bh[3]);
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int ii = 0; ii < BI; ++ii) {
-      if (ii >= nI) continue;
-      const int i = i0 + ii;
-      const T* sw = sW + ii * MID * WS;
-      float r[4][4];
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) r[nb][v] = 0.f;
-      if constexpr (kBf16)
-        radial_tile(r, afrag, sw, wo, lane);
-      else
-        radial_tile_f32(r, sH, sw, e_lo, wo, t);
+      const float* bi = b3 + (size_t)min(i0 + ii, IF - 1) * BO;
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
-        const int col = wo * 32 + nb * 8 + 2 * t;
-        const float2 bb = __ldg(reinterpret_cast<const float2*>(b3 + (size_t)i * BO + col));
-        r[nb][0] += bb.x;
-        r[nb][1] += bb.y;
-        r[nb][2] += bb.x;
-        r[nb][3] += bb.y;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(bi + wo * 32 + nb * 8 + 2 * t));
+        r[ii][nb][0] += bb.x;
+        r[ii][nb][1] += bb.y;
+        r[ii][nb][2] += bb.x;
+        r[ii][nb][3] += bb.y;
       }
+    }
 
-      float dr[4][4];
+    // the P-contractions, slice by slice in p order, every i on each
+    // slice: dV2 partials (a sum over the warp's 32 columns) and dR
+    float dr[BI][4][4];
+#pragma unroll
+    for (int ii = 0; ii < BI; ++ii)
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-        for (int v = 0; v < 4; ++v) dr[nb][v] = 0.f;
+        for (int v = 0; v < 4; ++v) dr[ii][nb][v] = 0.f;
+    const float* sv = sV + buf * BE * P * BI;
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const size_t row_lo = (size_t)(e0 + e_lo) * P + p;
-        const size_t row_hi = (size_t)(e0 + e_hi) * P + p;
-        const float vl = lo_ok ? __ldg(v2 + row_lo * IF + i) : 0.f;
-        const float vh = hi_ok ? __ldg(v2 + row_hi * IF + i) : 0.f;
-        float sl = 0.f, sh = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int n = it * P + p;
+      if (p > 0) {
+        // slice n has landed, and this warp is done with slice n - 1
+        cp_async_wait<S - 2>();
+        __syncwarp();
+      }
+      // refill the stage of slice n - 1
+      stage_g(n + S - 1);
+      cp_async_commit();
+      const float* sg = sGw + (n % S) * 8 * WG;
+      const int gr = lane >> 2, sw = (gr & 3) << 1;
+      const float2 vl = *reinterpret_cast<const float2*>(sv + (e_lo * P + p) * BI);
+      const float2 vh = *reinterpret_cast<const float2*>(sv + (e_hi * P + p) * BI);
+      const float vlo[BI] = {vl.x, vl.y}, vhi[BI] = {vh.x, vh.y};
+      float sl[BI], su[BI];
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-          const int col = wo * 32 + nb * 8 + 2 * t;
-          const float2 a = lo_ok ? __ldg(reinterpret_cast<const float2*>(g + row_lo * BO + col))
-                                 : make_float2(0.f, 0.f);
-          const float2 b = hi_ok ? __ldg(reinterpret_cast<const float2*>(g + row_hi * BO + col))
-                                 : make_float2(0.f, 0.f);
-          sl = fmaf(a.x, r[nb][0], fmaf(a.y, r[nb][1], sl));
-          sh = fmaf(b.x, r[nb][2], fmaf(b.y, r[nb][3], sh));
-          dr[nb][0] = fmaf(vl, a.x, dr[nb][0]);
-          dr[nb][1] = fmaf(vl, a.y, dr[nb][1]);
-          dr[nb][2] = fmaf(vh, b.x, dr[nb][2]);
-          dr[nb][3] = fmaf(vh, b.y, dr[nb][3]);
-        }
-        // sum over the warp's 32 columns: the 4 lanes of one row
-        sl += __shfl_xor_sync(0xffffffffu, sl, 1);
-        sl += __shfl_xor_sync(0xffffffffu, sl, 2);
-        sh += __shfl_xor_sync(0xffffffffu, sh, 1);
-        sh += __shfl_xor_sync(0xffffffffu, sh, 2);
-        if (t == 0) {
-          sP[((ii * 2 + wo) * BE + e_lo) * P + p] = sl;
-          sP[((ii * 2 + wo) * BE + e_hi) * P + p] = sh;
+      for (int ii = 0; ii < BI; ++ii) sl[ii] = su[ii] = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int col = (((nb * 2 + (t >> 1)) ^ sw) << 2) + (t & 1) * 2;
+        float2 a = *reinterpret_cast<const float2*>(sg + gr * 32 + col);
+        float2 b = *reinterpret_cast<const float2*>(sg + (gr + 8) * 32 + col);
+        if (!lo_ok) a = make_float2(0.f, 0.f);
+        if (!hi_ok) b = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int ii = 0; ii < BI; ++ii) {
+          sl[ii] = fmaf(a.x, r[ii][nb][0], fmaf(a.y, r[ii][nb][1], sl[ii]));
+          su[ii] = fmaf(b.x, r[ii][nb][2], fmaf(b.y, r[ii][nb][3], su[ii]));
+          dr[ii][nb][0] = fmaf(vlo[ii], a.x, dr[ii][nb][0]);
+          dr[ii][nb][1] = fmaf(vlo[ii], a.y, dr[ii][nb][1]);
+          dr[ii][nb][2] = fmaf(vhi[ii], b.x, dr[ii][nb][2]);
+          dr[ii][nb][3] = fmaf(vhi[ii], b.y, dr[ii][nb][3]);
         }
       }
 #pragma unroll
+      for (int ii = 0; ii < BI; ++ii) {
+        float a = sl[ii], b = su[ii];
+        a += __shfl_xor_sync(0xffffffffu, a, 1);
+        a += __shfl_xor_sync(0xffffffffu, a, 2);
+        b += __shfl_xor_sync(0xffffffffu, b, 1);
+        b += __shfl_xor_sync(0xffffffffu, b, 2);
+        if (t == 0) {
+          sP[((ii * 2 + wo) * BE + e_lo) * P + p] = a;
+          sP[((ii * 2 + wo) * BE + e_hi) * P + p] = b;
+        }
+      }
+    }
+
+    // dB3 partial sums; dR into shared memory as bf16 hi + lo halves
+#pragma unroll
+    for (int ii = 0; ii < BI; ++ii) {
+      bf16* dh_ = sDR + (ii * 2 + 0) * BE * DSB;
+      bf16* dl_ = sDR + (ii * 2 + 1) * BE * DSB;
+#pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
         const int col = wo * 32 + nb * 8 + 2 * t;
-        dbias[ii][nb][0] += dr[nb][0] + dr[nb][2];
-        dbias[ii][nb][1] += dr[nb][1] + dr[nb][3];
-        if constexpr (kBf16) {
-          __nv_bfloat16* dh_ = sDh + ii * BE * DSB;
-          __nv_bfloat16* dl_ = sDl + ii * BE * DSB;
-          const __nv_bfloat162 hl = __floats2bfloat162_rn(dr[nb][0], dr[nb][1]);
-          const __nv_bfloat162 hh = __floats2bfloat162_rn(dr[nb][2], dr[nb][3]);
-          *reinterpret_cast<__nv_bfloat162*>(dh_ + e_lo * DSB + col) = hl;
-          *reinterpret_cast<__nv_bfloat162*>(dh_ + e_hi * DSB + col) = hh;
-          *reinterpret_cast<__nv_bfloat162*>(dl_ + e_lo * DSB + col) = __floats2bfloat162_rn(
-              dr[nb][0] - __low2float(hl), dr[nb][1] - __high2float(hl));
-          *reinterpret_cast<__nv_bfloat162*>(dl_ + e_hi * DSB + col) = __floats2bfloat162_rn(
-              dr[nb][2] - __low2float(hh), dr[nb][3] - __high2float(hh));
-        } else {
-          float* sd = sD + ii * BE * DS;
-          *reinterpret_cast<float2*>(sd + e_lo * DS + col) = make_float2(dr[nb][0], dr[nb][1]);
-          *reinterpret_cast<float2*>(sd + e_hi * DS + col) = make_float2(dr[nb][2], dr[nb][3]);
-        }
+        dbias[ii][nb][0] += dr[ii][nb][0] + dr[ii][nb][2];
+        dbias[ii][nb][1] += dr[ii][nb][1] + dr[ii][nb][3];
+        const __nv_bfloat162 hl = __floats2bfloat162_rn(dr[ii][nb][0], dr[ii][nb][1]);
+        const __nv_bfloat162 hh = __floats2bfloat162_rn(dr[ii][nb][2], dr[ii][nb][3]);
+        *reinterpret_cast<__nv_bfloat162*>(dh_ + e_lo * DSB + col) = hl;
+        *reinterpret_cast<__nv_bfloat162*>(dh_ + e_hi * DSB + col) = hh;
+        *reinterpret_cast<__nv_bfloat162*>(dl_ + e_lo * DSB + col) = __floats2bfloat162_rn(
+            dr[ii][nb][0] - __low2float(hl), dr[ii][nb][1] - __high2float(hl));
+        *reinterpret_cast<__nv_bfloat162*>(dl_ + e_hi * DSB + col) = __floats2bfloat162_rn(
+            dr[ii][nb][2] - __low2float(hh), dr[ii][nb][3] - __high2float(hh));
       }
     }
     __syncthreads();
 
-    // dV2 of the tile: the two O-halves added in a fixed order
-    for (int idx = tid; idx < rows * P * nI; idx += NTHREADS) {
-      const int ii = idx % nI, rest = idx / nI;
-      const int p = rest % P, e = rest / P;
-      dv2[((size_t)(e0 + e) * P + p) * IF + i0 + ii] =
-          sP[((ii * 2 + 0) * BE + e) * P + p] + sP[((ii * 2 + 1) * BE + e) * P + p];
+    // dV2 of the tile: the two O-halves added in a fixed order, the CTA's
+    // BI values of a row as one 8-byte store
+    for (int idx = tid; idx < rows * P; idx += NTHREADS) {
+      const int e = idx / P, p = idx - e * P;
+      float d[BI];
+#pragma unroll
+      for (int ii = 0; ii < BI; ++ii)
+        d[ii] = sP[((ii * 2 + 0) * BE + e) * P + p] + sP[((ii * 2 + 1) * BE + e) * P + p];
+      float* dst = dv2 + ((size_t)e0 * P + idx) * IF + i0;
+      if (v2_pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(d[0], d[1]);
+      } else {
+#pragma unroll
+        for (int ii = 0; ii < BI; ++ii)
+          if (ii < nI) dst[ii] = d[ii];
+      }
     }
-    // dW3 += h^T . dR over the tile (rows past E are 0)
-    if constexpr (kBf16) {
-      // two mma.sync passes, dR's hi and lo halves: h is exact in bf16. The
-      // tensor cores' fp32 accumulation is not round-to-nearest, and over a
-      // chain of ~16k edges its error grew to ~5e-5 of dW3; so each tile's
-      // product is accumulated in a fresh register tile and added to the
-      // running sum with ordinary float32 adds.
-      const int wm = warp & 3, wn = warp >> 2;
+
+    // dW3 += h^T . dR over the tile (rows past E are 0): dR's hi and lo
+    // halves on h (bf16), or hi.hi, hi.lo, lo.hi (float32 h split). The
+    // tensor cores' fp32 accumulation is not round-to-nearest, and over a
+    // chain of ~16k edges its error grew to ~5e-5 of dW3; so each tile's
+    // product is accumulated in a fresh register tile and added to the
+    // running sum with ordinary float32 adds.
+    const int wm = warp & 3, wn = warp >> 2;
 #pragma unroll
-      for (int ii = 0; ii < BI; ++ii) {
-        if (ii >= nI) continue;
-        float tile_acc[8][4];
+    for (int ii = 0; ii < BI; ++ii) {
+      float tacc[8][4];
 #pragma unroll
-        for (int a = 0; a < 8; ++a)
+      for (int a = 0; a < 8; ++a)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) tile_acc[a][c] = 0.f;
+        for (int c = 0; c < 4; ++c) tacc[a][c] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < BE / 16; ++kk) {
-          uint32_t a[2][4];
+      for (int kk = 0; kk < BE / 16; ++kk) {
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            ldmatrix_x4_trans(a[mt], sH + (kk * 16 + (j >> 1) * 8 + rr) * HS + wm * 32 +
-                                         mt * 16 + (j & 1) * 8);
+        for (int mt = 0; mt < 2; ++mt) {
+          const int off = (kk * 16 + (j >> 1) * 8 + rr) * HS + wm * 32 + mt * 16 + (j & 1) * 8;
+          ldmatrix_x4_trans(ah[mt], sh + off);
+          if constexpr (kSplit) ldmatrix_x4_trans(al[mt], sh + BE * HS + off);
+        }
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const __nv_bfloat16* sd = (half ? sDl : sDh) + ii * BE * DSB;
+        for (int half = 0; half < 2; ++half) {
+          const bf16* sd = sDR + (ii * 2 + half) * BE * DSB;
 #pragma unroll
-            for (int nb2 = 0; nb2 < 2; ++nb2) {
-              uint32_t b[4];
-              ldmatrix_x4_trans(b, sd + (kk * 16 + (j & 1) * 8 + rr) * DSB + wn * 32 +
-                                       nb2 * 16 + (j >> 1) * 8);
+          for (int nb2 = 0; nb2 < 2; ++nb2) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, sd + (kk * 16 + (j & 1) * 8 + rr) * DSB + wn * 32 + nb2 * 16 +
+                                     (j >> 1) * 8);
 #pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                mma_bf16(tile_acc[mt * 4 + nb2 * 2 + 0], a[mt], b[0], b[1]);
-                mma_bf16(tile_acc[mt * 4 + nb2 * 2 + 1], a[mt], b[2], b[3]);
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(tacc[mt * 4 + nb2 * 2 + 0], ah[mt], b[0], b[1]);
+              mma_bf16(tacc[mt * 4 + nb2 * 2 + 1], ah[mt], b[2], b[3]);
+              if (kSplit && half == 0) {
+                mma_bf16(tacc[mt * 4 + nb2 * 2 + 0], al[mt], b[0], b[1]);
+                mma_bf16(tacc[mt * 4 + nb2 * 2 + 1], al[mt], b[2], b[3]);
               }
             }
           }
         }
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[ii][a][c] += tile_acc[a][c];
       }
-    } else {
-      // fp32 FMAs (float32 h; no TF32)
-      const int tm = tid >> 4, to = tid & 15;
-      for (int e = 0; e < BE; ++e) {
-        const float* hrow = reinterpret_cast<const float*>(sH) + e * HS + tm * 8;
-        const float4 h0 = *reinterpret_cast<const float4*>(hrow);
-        const float4 h1 = *reinterpret_cast<const float4*>(hrow + 4);
-        const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
 #pragma unroll
-        for (int ii = 0; ii < BI; ++ii) {
-          if (ii >= nI) continue;
-          const float4 d = *reinterpret_cast<const float4*>(sD + ii * BE * DS + e * DS + to * 4);
+      for (int a = 0; a < 8; ++a)
 #pragma unroll
-          for (int a = 0; a < 8; ++a) {
-            acc[ii][a][0] = fmaf(hv[a], d.x, acc[ii][a][0]);
-            acc[ii][a][1] = fmaf(hv[a], d.y, acc[ii][a][1]);
-            acc[ii][a][2] = fmaf(hv[a], d.z, acc[ii][a][2]);
-            acc[ii][a][3] = fmaf(hv[a], d.w, acc[ii][a][3]);
-          }
-        }
-      }
+        for (int c = 0; c < 4; ++c) acc[ii][a][c] += tacc[a][c];
     }
-    __syncthreads();  // sH, the dR tile and sP are rewritten by the next tile
   }
   cp_async_wait<0>();
+  __syncthreads();  // the last tile's dR tiles are read: dB3 takes their space
 
   // dB3: over the 8 row groups of a warp (lanes that share t), then over
   // the 4 edge warps in order
+  float* sB = reinterpret_cast<float*>(smem + C::DR);  // [4][BI][BO]
 #pragma unroll
   for (int ii = 0; ii < BI; ++ii)
 #pragma unroll
@@ -325,30 +470,45 @@ bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3,
         ((sB[(0 * BI + ii) * BO + o] + sB[(1 * BI + ii) * BO + o]) +
          sB[(2 * BI + ii) * BO + o]) + sB[(3 * BI + ii) * BO + o];
   }
+  const int wm = warp & 3, wn = warp >> 2, gq = lane >> 2;
 #pragma unroll
   for (int ii = 0; ii < BI; ++ii) {
     if (ii >= nI) continue;
     const int i = i0 + ii;
-    if constexpr (kBf16) {
-      const int wm = warp & 3, wn = warp >> 2, gq = lane >> 2;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int m = wm * 32 + mt * 16 + gq, o = wn * 32 + nt * 8 + 2 * t;
-          *reinterpret_cast<float2*>(pw + ((size_t)m * IF + i) * BO + o) =
-              make_float2(acc[ii][mt * 4 + nt][0], acc[ii][mt * 4 + nt][1]);
-          *reinterpret_cast<float2*>(pw + ((size_t)(m + 8) * IF + i) * BO + o) =
-              make_float2(acc[ii][mt * 4 + nt][2], acc[ii][mt * 4 + nt][3]);
-        }
-    } else {
-      const int tm = tid >> 4, to = tid & 15;
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-        *reinterpret_cast<float4*>(pw + ((size_t)(tm * 8 + a) * IF + i) * BO + to * 4) =
-            make_float4(acc[ii][a][0], acc[ii][a][1], acc[ii][a][2], acc[ii][a][3]);
-    }
+      for (int nt = 0; nt < 4; ++nt) {
+        const int m = wm * 32 + mt * 16 + gq, o = wn * 32 + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(pw + ((size_t)m * IF + i) * BO + o) =
+            make_float2(acc[ii][mt * 4 + nt][0], acc[ii][mt * 4 + nt][1]);
+        *reinterpret_cast<float2*>(pw + ((size_t)(m + 8) * IF + i) * BO + o) =
+            make_float2(acc[ii][mt * 4 + nt][2], acc[ii][mt * 4 + nt][3]);
+      }
   }
+}
+
+// float32 -> its bf16 hi and lo arrays (hi = bf16(x), lo = bf16(x - hi))
+__global__ void split_bf16_kernel(const float4* __restrict__ x, size_t n4,
+                                  uint2* __restrict__ hi, uint2* __restrict__ lo) {
+  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n4;
+       k += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = x[k];
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
+    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+    const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
+    const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
+    hi[k] = make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
+                       *reinterpret_cast<const uint32_t*>(&h23));
+    lo[k] = make_uint2(*reinterpret_cast<const uint32_t*>(&l01),
+                       *reinterpret_cast<const uint32_t*>(&l23));
+  }
+}
+
+unsigned grid_for(size_t n) {
+  const size_t blocks = (n + NTHREADS - 1) / NTHREADS;
+  return (unsigned)(blocks > 4096 ? 4096 : blocks);
 }
 
 // dW3 and dB3 (or kernel B's dH, with n_b = 0): the splits' partials summed
@@ -562,29 +722,48 @@ bwd_b_mma_kernel(const __nv_bfloat16* __restrict__ w3, const float* __restrict__
   }
 }
 
-template <typename T, int P>
+template <bool kSplit, int P>
 cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* v2,
-                     const void* g, void* dv2, void* work, void* dw3, void* db3, int E,
-                     int IF, int splits, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(T) * (size_t)(BI * MID * Tile<T>::WS + BE * Tile<T>::HS) +
-                          DR_BYTES<T> + sizeof(float) * (size_t)(BI * 2 * BE * P + 4 * BI * BO);
-  auto kern = bwd_a_kernel<T, P>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                     const void* g, void* dv2, void* work, void* split, void* dw3, void* db3,
+                     int E, int IF, int splits, cudaStream_t stream) {
+  using C = ACfg<kSplit, P>;
+  const int groups = (IF + BI - 1) / BI;
+  const bf16 *hhi = static_cast<const bf16*>(h), *whi = static_cast<const bf16*>(w3);
+  const bf16 *hlo = nullptr, *wlo = nullptr;
+  cudaError_t err;
+  if constexpr (kSplit) {
+    // float32 h and W3 into their bf16 hi and lo arrays (h [E, MID] and W3
+    // [MID, IF, BO] are whole numbers of float4s)
+    const size_t nh = (size_t)E * MID, nw = (size_t)MID * IF * BO;
+    bf16* sp = static_cast<bf16*>(split);
+    split_bf16_kernel<<<grid_for(nh / 4), NTHREADS, 0, stream>>>(
+        static_cast<const float4*>(h), nh / 4, reinterpret_cast<uint2*>(sp),
+        reinterpret_cast<uint2*>(sp + nh));
+    split_bf16_kernel<<<grid_for(nw / 4), NTHREADS, 0, stream>>>(
+        static_cast<const float4*>(w3), nw / 4, reinterpret_cast<uint2*>(sp + 2 * nh),
+        reinterpret_cast<uint2*>(sp + 2 * nh + nw));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    hhi = sp;
+    hlo = sp + nh;
+    whi = sp + 2 * nh;
+    wlo = sp + 2 * nh + nw;
+  }
+  auto kern = bwd_a_kernel<kSplit, P>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int n_tiles = (E + BE - 1) / BE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  dim3 grid((IF + BI - 1) / BI, splits);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w3), static_cast<const float*>(b3),
-      static_cast<const float*>(v2), static_cast<const float*>(g), static_cast<float*>(dv2),
-      static_cast<float*>(work), E, IF, tiles_per_split);
+  // a row's two V2 (and dV2) values move as one 8-byte copy when IF is even
+  const int v2_pairs = IF % 2 == 0 && reinterpret_cast<uintptr_t>(v2) % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(dv2) % 8 == 0;
+  kern<<<dim3(groups, splits), NTHREADS, C::SMEM, stream>>>(
+      hhi, hlo, whi, wlo, static_cast<const float*>(b3), static_cast<const float*>(v2),
+      static_cast<const float*>(g), static_cast<float*>(dv2), static_cast<float*>(work), E, IF,
+      tiles_per_split, v2_pairs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n_w = (size_t)MID * IF * BO, n_b = (size_t)IF * BO;
-  size_t blocks = (n_w + n_b + NTHREADS - 1) / NTHREADS;
-  if (blocks > 4096) blocks = 4096;
-  bwd_reduce_kernel<<<(unsigned)blocks, NTHREADS, 0, stream>>>(
+  bwd_reduce_kernel<<<grid_for(n_w + n_b), NTHREADS, 0, stream>>>(
       static_cast<const float*>(work), splits, n_w, n_b, static_cast<float*>(dw3),
       static_cast<float*>(db3));
   return cudaGetLastError();
@@ -631,20 +810,21 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
 
 // Kernel A and its reduce: dv2 [E, P, IF], dw3 [128, IF, 64], db3 [IF, 64].
 // work holds splits x (128*IF*64 + IF*64) floats; every split must own at
-// least one 64-edge tile.
+// least one 64-edge tile. h, w3 and g start on 16 bytes. With float32 h/w3, split
+// holds 2 * (E*128 + 128*IF*64) bf16 (h's hi and lo arrays, then W3's); it
+// is not read otherwise.
 extern "C" int se3_pairwise_bwd_a(const void* h, const void* w3, const void* b3,
                                   const void* v2, const void* g, void* dv2, void* work,
-                                  void* dw3, void* db3, int E, int IF, int P, int splits,
-                                  int h_is_bf16, void* stream) {
+                                  void* split, void* dw3, void* db3, int E, int IF, int P,
+                                  int splits, int h_is_bf16, void* stream) {
   if (E <= 0 || IF <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SE3_A(PP)                                                                         \
-  if (P == PP)                                                                            \
-    return (int)(h_is_bf16                                                                \
-                     ? launch_a<__nv_bfloat16, PP>(h, w3, b3, v2, g, dv2, work, dw3, db3, \
-                                                   E, IF, splits, s)                      \
-                     : launch_a<float, PP>(h, w3, b3, v2, g, dv2, work, dw3, db3, E, IF,  \
-                                           splits, s));
+#define SE3_A(PP)                                                                   \
+  if (P == PP)                                                                      \
+    return (int)(h_is_bf16 ? launch_a<false, PP>(h, w3, b3, v2, g, dv2, work, split, \
+                                                 dw3, db3, E, IF, splits, s) \
+                           : launch_a<true, PP>(h, w3, b3, v2, g, dv2, work, split,  \
+                                                dw3, db3, E, IF, splits, s));
   SE3_A(1) SE3_A(3) SE3_A(5) SE3_A(7)
 #undef SE3_A
   return (int)cudaErrorInvalidValue;

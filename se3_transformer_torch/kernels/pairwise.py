@@ -41,6 +41,7 @@ epilogue of the JAX fused_pairwise_conv (quantized serving) is not ported.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -347,7 +348,6 @@ fused_pairwise_conv.routed = 0
 # backward
 # ---------------------------------------------------------------------- #
 BWD_I_CHUNK = 2      # i = (c, f) values per kernel-A CTA (csrc/pairwise_bwd.cu)
-BWD_TARGET_CTAS = 264  # kernel A's grid: about two CTAs per SM of an H100
 
 
 def fused_pairwise_conv_bwd_a_plain(h, w3, v2, g, b3):
@@ -419,14 +419,21 @@ def _check_bwd(h, w3, v2, g, b3):
     return E, IF, P
 
 
+@functools.lru_cache(maxsize=None)
 def bwd_splits(E: int, IF: int) -> int:
-    """How many edge ranges kernel A splits E into: enough CTAs to fill
-    the card, each range at least one 64-edge tile. A function of the
-    shapes only, so the partial sums and their reduce order (and so dW3
-    and dB3, bit for bit) are the same on every run."""
+    """How many edge ranges kernel A splits E into: the count that finishes
+    soonest with one CTA per SM of an H100 (whole waves of equal ranges,
+    each split's partial dW3 written and reduced at about IF/128 tiles'
+    time), each range at least one 64-edge tile. A function of the shapes
+    only, so the partial sums and their reduce order (and so dW3 and dB3,
+    bit for bit) are the same on every run."""
     n_tiles = -(-E // EDGE_TILE)
-    n_chunks = -(-IF // BWD_I_CHUNK)
-    splits = max(1, min(n_tiles, -(-BWD_TARGET_CTAS // n_chunks)))
+    groups = -(-IF // BWD_I_CHUNK)
+
+    def cost(s):
+        return (-(-groups * s // SPLIT_TARGET_CTAS) * -(-n_tiles // s)
+                + s * IF / 128)
+    splits = min(range(1, min(n_tiles, 64) + 1), key=cost)
     per_split = -(-n_tiles // splits)
     return -(-n_tiles // per_split)
 
@@ -435,22 +442,35 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it that starts on 16 bytes (kernel A's 16-byte
+    copies of h, W3 and g need that)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_bwd_a(h, w3, v2, g, b3, E, IF, P):
     """Kernel A and its edge reduce on operands that passed _check_bwd,
     E > 0 -> (dw3, dv2, db3); counts one kernel-A launch."""
     f32 = dict(dtype=torch.float32, device=h.device)
+    h, w3, g = _aligned(h), _aligned(w3), _aligned(g)
     dv2 = torch.empty(E, P, IF, **f32)
     dw3 = torch.empty(MID, IF, O_TILE, **f32)
     db3 = torch.empty(IF, O_TILE, **f32)
     splits = bwd_splits(E, IF)
     work = torch.empty(splits * (MID + 1) * IF * O_TILE, **f32)
+    # float32 h and w3 are split into bf16 hi and lo arrays by the kernel's
+    # own split pass, into this scratch
+    bf16 = h.dtype == torch.bfloat16
+    split = work if bf16 else torch.empty(
+        2 * (E * MID + MID * IF * O_TILE), dtype=torch.bfloat16,
+        device=h.device)
     from .build import load_library
     with torch.cuda.device(h.device):
         rc = load_library().se3_pairwise_bwd_a(
             h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
-            g.data_ptr(), dv2.data_ptr(), work.data_ptr(), dw3.data_ptr(),
-            db3.data_ptr(), E, IF, P, splits,
-            int(h.dtype == torch.bfloat16), _stream(h))
+            g.data_ptr(), dv2.data_ptr(), work.data_ptr(), split.data_ptr(),
+            dw3.data_ptr(), db3.data_ptr(), E, IF, P, splits, int(bf16),
+            _stream(h))
     if rc != 0:
         raise RuntimeError(f'se3_pairwise_bwd_a launch failed: CUDA error '
                            f'{rc}')

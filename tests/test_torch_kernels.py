@@ -198,6 +198,24 @@ def test_cuda_backward_kernels_match_plain(cuda_card, di, do, e, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('di,do,e', [(0, 0, 77), (1, 1, 1000), (2, 3, 130),
+                                     (3, 3, 4100)])
+def test_cuda_backward_a_even_if_matches_plain(cuda_card, di, do, e, dtype):
+    """Kernel A where IF is even (c = 4): a row's two values of V2 and dV2
+    move as one 8-byte copy; ragged E, every P."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() for a in _bwd_args(di, do, e, c=4, dtype=dtype)]
+    assert args[2].shape[2] % 2 == 0
+    shape = kp._check_bwd(*args)
+    outs = kp._launch_bwd_a(*args, *shape)
+    torch.cuda.synchronize()
+    refs = kp.fused_pairwise_conv_bwd_a_plain(*args)
+    for name, out, ref in zip(('dw3', 'dv2', 'db3'), outs, refs):
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_cuda_backward_dw3_db3_are_bit_identical(cuda_card, dtype):
     """The edge reduction uses no atomics: two runs agree bit for bit."""
     args = [a.cuda() for a in _bwd_args(3, 3, 5000, dtype=dtype)]

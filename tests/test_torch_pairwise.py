@@ -236,6 +236,84 @@ def test_three_bf16_passes_meet_the_kernel_bar():
     assert (one_pass - plain).abs().max() > KERNEL_RTOL * scale
 
 
+def _bwd_a_split(h, w3, v2, g, b3, passes=3, tile=kp.EDGE_TILE):
+    """The float32 arithmetic of kernel A (csrc/pairwise_bwd.cu), emulated
+    in torch: R = h_hi.W_hi + h_hi.W_lo + h_lo.W_hi + b3 (passes=3; bf16
+    products are exact in float32, sums float32), dV2 = g.R^T and dR =
+    V2^T.g in float32, dR split into bf16 hi + lo, and dW3 summed over
+    64-edge tiles, each tile's h_hi^T.dR_hi + h_hi^T.dR_lo + h_lo^T.dR_hi
+    in a fresh sum added to the running one; passes=1 keeps h_hi.W_hi and
+    h_hi^T.dR_hi alone. -> (dw3, dv2, db3)."""
+    E, mid = h.shape
+    _, IF, O = w3.shape
+    hh, hl = _bf16_split(h)
+    wh, wl = (t.reshape(mid, IF * O) for t in _bf16_split(w3))
+    R = hh @ wh
+    if passes == 3:
+        R = R + hh @ wl + hl @ wh
+    R = R.reshape(E, IF, O) + b3
+    dv2 = torch.bmm(g, R.transpose(1, 2))
+    dR = torch.bmm(v2.transpose(1, 2), g).reshape(E, IF * O)
+    dh_, dl_ = _bf16_split(dR)
+    dw3 = torch.zeros(mid, IF * O)
+    for e0 in range(0, E, tile):
+        a_hi, a_lo = hh[e0:e0 + tile].t(), hl[e0:e0 + tile].t()
+        d_hi, d_lo = dh_[e0:e0 + tile], dl_[e0:e0 + tile]
+        part = a_hi @ d_hi
+        if passes == 3:
+            part = part + a_hi @ d_lo + a_lo @ d_hi
+        dw3 = dw3 + part
+    return dw3.reshape(mid, IF, O), dv2, dR.reshape(E, IF, O).sum(0)
+
+
+def test_kernel_a_float32_passes_meet_the_kernel_bar():
+    """Kernel A's float32 arithmetic on the tensor cores (three bf16
+    passes for R and for dW3, dR as bf16 hi + lo, per-tile sums) on a few
+    hundred edges at the flagship's largest grouped shape (mid 128, IF
+    1024, O 64, P 7) is within KERNEL_RTOL of max|plain| of
+    fused_pairwise_conv_bwd_a_plain for dW3, dV2 and dB3, so the card's
+    kernel has its error budget before it runs; one pass is not."""
+    a = _grouped_operands(3, 4, seed=43, e=300, mid=kp.MID, c=64, o=64)
+    assert a['w3'].shape == (128, 1024, 64)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    g = torch.from_numpy(np.random.RandomState(44).normal(
+        size=(300, 7, 64)).astype(np.float32))
+    plain = kp.fused_pairwise_conv_bwd_a_plain(t['h'], t['w3'], t['v2'], g,
+                                               t['b3'])
+    split = _bwd_a_split(t['h'], t['w3'], t['v2'], g, t['b3'])
+    for name, got, ref in zip(('dw3', 'dv2', 'db3'), split, plain):
+        assert got.shape == ref.shape, name
+        assert (got - ref).abs().max() <= KERNEL_RTOL * ref.abs().max(), name
+    assert (split[0] - plain[0]).abs().max() > 0
+    one_pass = _bwd_a_split(t['h'], t['w3'], t['v2'], g, t['b3'], passes=1)
+    assert (one_pass[0] - plain[0]).abs().max() \
+        > KERNEL_RTOL * plain[0].abs().max()
+
+
+# every (E, IF) at which chip_smoke.py runs kernel A: the flagship_fast
+# pairs (IF = 64 F, whole and ragged E) and the flagship's grouped output
+# degrees (per node chunk and unchunked)
+SMOKE_A_SHAPES = ([(E_, 64 * F) for E_ in (32768, 32731) for F in (1, 3, 5, 7)]
+                  + [(E_, IF) for E_ in (4096, 32768)
+                     for IF in (256, 640, 896, 1024)])
+
+
+@pytest.mark.parametrize('E_,IF', SMOKE_A_SHAPES)
+def test_kernel_a_grid_is_a_function_of_the_shapes(E_, IF):
+    """Kernel A's grid (ceil(IF / 2) CTAs along i times bwd_splits edge
+    ranges) depends on E and IF alone, so its partial sums and their
+    reduce order, and so dW3 and dB3 bit for bit, are the same on every
+    run: recomputed from scratch it is the same, and the edge ranges cover
+    every 64-edge tile, each at least one."""
+    splits = kp.bwd_splits(E_, IF)
+    kp.bwd_splits.cache_clear()
+    assert kp.bwd_splits(E_, IF) == splits
+    n_tiles = -(-E_ // kp.EDGE_TILE)
+    per_split = -(-n_tiles // splits)
+    assert 1 <= splits <= n_tiles
+    assert (splits - 1) * per_split < n_tiles <= splits * per_split
+
+
 @pytest.mark.parametrize('do,n_in,dtype', [(1, 3, 'float32'),
                                            (3, 2, 'bfloat16')])
 def test_contract_op_matches_jax_vjp(do, n_in, dtype):

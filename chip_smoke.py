@@ -402,10 +402,11 @@ def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks):
     longer of the two pipes. Kernel A: with bf16 h/w3 the R recompute is
     one pass and dW3 two (dR split into bf16 hi and lo); with float32 h/w3
     both are three (hi.hi, hi.lo, lo.hi of the operands split into bf16 hi
-    + lo). Kernel B: dH is two passes with bf16 w3; float32 w3 runs all of
-    kernel B on the CUDA cores. bound_ms_fma is the bound of every product
-    on fp32 FMAs beside the P-contractions (the float32 kernel A before PR
-    9, and kernel B's float32 arm), for comparison."""
+    + lo). Kernel B: dH is two passes with bf16 w3 (dR split into bf16 hi
+    and lo) and three with float32 w3 (dR_hi.W_hi, dR_lo.W_hi, dR_hi.W_lo).
+    bound_ms_fma is the bound of every product on fp32 FMAs beside the
+    P-contractions (the float32 kernels A and B as they first ran), for
+    comparison."""
     bf16_peak, f32_peak, mem = peaks
     radial = 2.0 * E * mid * IF * O
     pcontract = 2.0 * E * P * IF * O
@@ -417,8 +418,8 @@ def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks):
                   + 2 * E * P * IF * 4 + E * P * O * 4 + mid * IF * O * 4
                   + IF * O * 4)
     else:
-        passes = 2 if h_bytes == 2 else 0
-        cuda = pcontract if h_bytes == 2 else radial + pcontract
+        passes = 2 if h_bytes == 2 else 3
+        cuda = pcontract
         fma_ops = radial + pcontract
         nbytes = (mid * IF * O * h_bytes + E * P * IF * 4 + E * P * O * 4
                   + E * mid * 4)
@@ -455,7 +456,8 @@ def phase_backward_grouped(kp, peaks):
 
 def check_backward(kp, peaks, cases, seed):
     """Each case (label, E, P, IF, h dtype): kernels A and B against their
-    plain versions, dW3/dB3 bit-identical across two runs, and the times:
+    plain versions, dW3/dB3 and dH bit-identical across two runs (E = 4096
+    splits kernel B's i range: its partials' reduce), and the times:
     kernel, plain version, and the library yardstick (torch.autograd.grad
     of the einsum that computes the forward)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
@@ -473,9 +475,13 @@ def check_backward(kp, peaks, cases, seed):
         dw3, dv2, db3 = kp._launch_bwd_a(h, w3, v2, g, b3, *shape)
         dh = kp._launch_bwd_b(w3, v2, g, *shape)
         dw3_2, _, db3_2 = kp._launch_bwd_a(h, w3, v2, g, b3, *shape)
+        dh_2 = kp._launch_bwd_b(w3, v2, g, *shape)
         torch.cuda.synchronize()
         if not (torch.equal(dw3, dw3_2) and torch.equal(db3, db3_2)):
             raise AssertionError(f'backward {label} E={e}: dW3/dB3 differ '
+                                 f'between two runs')
+        if not torch.equal(dh, dh_2):
+            raise AssertionError(f'backward {label} E={e}: dH differs '
                                  f'between two runs')
         errs = {}
         ref_w3, ref_v2, ref_b3 = kp.fused_pairwise_conv_bwd_a_plain(
@@ -493,7 +499,7 @@ def check_backward(kp, peaks, cases, seed):
         worst['a'] = max(worst['a'], *(errs[k][0] for k in
                                        ('dw3', 'dv2', 'db3')))
         worst['b'] = max(worst['b'], errs['dh'][0])
-        del ref_w3, ref_v2, ref_b3, ref_h, dw3_2, db3_2
+        del ref_w3, ref_v2, ref_b3, ref_h, dw3_2, db3_2, dh_2
         torch.cuda.empty_cache()
         hb = 2 if hdt == torch.bfloat16 else 4
         # the library yardstick: autograd of the one einsum that computes
@@ -509,6 +515,7 @@ def check_backward(kp, peaks, cases, seed):
         del graph, leaves
         torch.cuda.empty_cache()
         row = dict(label, E=e, P=P, IF=IF, h_dtype=str(hdt).split('.')[-1],
+                   b_i_per_split=kp.i_per_split(e, IF),
                    max_abs_err={k: v[0] for k, v in errs.items()},
                    max_abs_plain={k: v[1] for k, v in errs.items()},
                    ms_a=cuda_ms(lambda: kp._launch_bwd_a(h, w3, v2, g, b3,

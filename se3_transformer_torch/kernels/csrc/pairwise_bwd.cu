@@ -25,12 +25,11 @@
 // h^T.dR and dH = dR.W3^T multiply the float32 dR, which one bf16 pass
 // would round to 2^-9 relative and miss the 1e-4 tolerance; so dR is split
 // into bf16 hi + lo (hi = bf16(dR), lo = bf16(dR - hi), together within
-// 2^-17 of dR) and each product runs as one mma.sync pass per half. Kernel
-// A splits float32 h and W3 the same way (split_bf16_kernel, once per
-// launch) and runs each float32 product x.y as the passes x_hi.y_hi +
-// x_hi.y_lo + x_lo.y_hi, as pairwise_fwd.cu does. Kernel B with float32 W3
-// still runs on fp32 FMAs (no TF32). The P-contractions run on the CUDA
-// cores.
+// 2^-17 of dR) and each product runs as one mma.sync pass per half. Both
+// kernels split float32 h and W3 the same way (split_bf16_kernel, once per
+// launch) and run each float32 product x.y as the passes x_hi.y_hi +
+// x_hi.y_lo + x_lo.y_hi, as pairwise_fwd.cu does: no product of either
+// kernel runs on fp32 FMAs. The P-contractions run on the CUDA cores.
 //
 // Kernel A (grid: ceil(IF / 2) CTAs along i x edge splits, bwd_splits in
 // kernels/pairwise.py; 8 warps, one CTA per SM).
@@ -68,23 +67,55 @@
 //    of 1, and clusters of 4 keep only 120 CTAs resident; its 9 warps held
 //    it to 168 registers, with spills), and one value of i per float32 CTA
 //    with a 6-stage ring (the waits on g shrank, the per-i work grew more).
-// Kernel B (grid: 64-edge tiles x i splits).
-//  * A CTA stages its g rows once, then loops over its range of i: it
-//    stages V2[tile, :, i] and W3[:, i, :] (a cp.async double buffer for
-//    bf16), rebuilds dR[e, i, :] in shared memory (bf16 hi + lo, or
-//    float32), and adds dR . W3[:, i, :]^T into register accumulators: a
-//    16 x 64 mma tile per warp for bf16, a 4 x 8 FMA block per thread for
-//    float32. dH (or the split's partial) is written once; no atomics.
-//  * A node chunk of the conservative recipe has 4096 edges: 64 tiles for
-//    132 SMs. As in pairwise_fwd.cu, the i range is then split across
-//    grid.y (i_per_split in kernels/pairwise.py) and bwd_reduce_kernel sums
-//    the partial dH in split order.
+// Kernel B (grid: 64-edge tiles x i splits; 8 warps, one CTA per SM).
+//  * What held the previous version back (PERF.md, section 6: timing-only
+//    variants of it on an H100). bf16: rebuilding dR from a g tile re-read
+//    from shared memory for every i (37-40% of its time, g's re-reads
+//    alone 19-25%) and V2 gathered one float at a time with __ldg, all
+//    landing before a barrier (20-33%); its three barriers per i cost only
+//    2-5%. float32: W3[:, i, :] staged per i by synchronous scalar loads
+//    with 4-way conflicted transposed stores, its 29-33.5 MB re-read by
+//    every tile falling out of L2 at IF >= 896 (29-45%), and the fp32-FMA
+//    product (36-48%).
+//  * A CTA owns one 64-edge tile and a range of i. Each thread holds its
+//    16 columns of its g row for every p in registers (16 P floats), so g
+//    is read once per CTA and feeds the dR of every i. i is walked in
+//    chunks of CI = 2 (K = 128 per barrier, one barrier per chunk): after
+//    the barrier a step runs chunk k - 1's dH += dR . W3^T (8 warps of 32 x
+//    32 mma tiles; float32 as dR_hi.W_hi + dR_lo.W_hi + dR_hi.W_lo, bf16 as
+//    dR_hi.W + dR_lo.W) and then rebuilds chunk k's dR (float32 sums over
+//    p, stored as bf16 hi + lo) into the other of two dR buffers. W3 goes
+//    through a 2-stage ring of chunks (float32 W3 split into bf16 hi + lo
+//    by split_bf16_kernel inside B's launch), its copies issued one per
+//    k-step of the product, so that they queue behind the mma.sync stream
+//    rather than stall every warp in one burst after the barrier; V2 goes
+//    through a 2-stage ring of 4-i stages, one 16-byte cp.async a row. All
+//    shared tiles are swizzled (16-byte chunk ^ row % 8): no padding, no
+//    bank conflicts.
+//  * Each chunk's product goes into a fresh register tile that is added to
+//    the running dH with float32 adds; with the i range split
+//    (i_per_split, kernel #3's rule: splits start on 16-wide i chunks, so
+//    on B's chunks too) bwd_reduce_kernel sums the partials in split order:
+//    dH is the same bits on every run.
+//  * What bounds it now (PERF.md, section 6): the mma.sync stream. With the
+//    ldmatrix loads replaced by constants the kernel still takes 56-70% of
+//    its time (at float32 d_out 3, 2.2 clocks per m16n8k16 per SM: 45% of
+//    the bf16 tensor-core peak); with the mma removed it takes 41-52%.
+//  * Tried on the card and dropped (PERF.md, section 6): the W3 chunk
+//    issued in one burst after the barrier and V2 by 8-byte copies of 2 i
+//    (12-20% slower in float32); the next k-step's fragments loaded before
+//    this one's mma (0-4% slower, and 80-120 bytes of spills at P = 7,
+//    where g takes 112 registers); the mma in pass-major order (within
+//    1%); the next chunk's dR rebuilt in quarters between the k-steps of
+//    this one's product, so that its FMAs issue beside the mma (2-9%
+//    slower).
 // Left for later. Kernel A: every edge-warp reads each W3 fragment from
 // shared memory (wgmma would read it once per warpgroup), the float32
 // ring's 2 stages still leave the P = 7 tile waiting on g, and one CTA of 8
-// warps per SM hides little latency between its barriers. Kernel B: its
-// float32 arm is still on fp32 FMAs (the three split passes carry over),
-// and it stages V2 and W3 once per i.
+// warps per SM hides little latency between its barriers. Kernel B: wgmma,
+// whose peak is about twice the rate mma.sync reaches here and which reads
+// W3 from shared memory once per warpgroup; W3 re-read from L2 by every
+// 64-edge tile (64 KB per float32 chunk; a cluster could multicast it).
 
 #include "common.cuh"
 
@@ -528,198 +559,259 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ part, int splits,
   }
 }
 
-// Kernel B for float32 W3, on fp32 FMAs: per i, dR[e, i, :] is rebuilt in
-// shared memory and dR . W3[:, i, :]^T added into a 4 (e) x 8 (m) register
-// block per thread.
-template <int P>
-__global__ void __launch_bounds__(NTHREADS, 1)
-bwd_b_f32_kernel(const float* __restrict__ w3, const float* __restrict__ v2,
-                 const float* __restrict__ g, float* __restrict__ dh, int E, int IF,
-                 int i_per_split) {
-  constexpr int GS = P * BO + 1;  // g row stride: column reads hit 32 banks
-  constexpr int WTS = MID + 4;    // W3[:, i, :]^T row stride
-  constexpr int DTS = BE + 4;     // dR^T row stride
+// Kernel B's shared memory by W3's kind (bf16, or float32 given as bf16 hi
+// + lo halves) and P, as byte offsets. Every tile is bf16 with 64-element
+// (128-byte) rows whose 16-byte chunks sit at chunk ^ (row % 8): ldmatrix
+// and the 16-byte stores of dR hit 8 distinct chunks of each 8 rows.
+template <bool kSplit, int P>
+struct BCfg {
+  static constexpr int NS = kSplit ? 2 : 1;  // bf16 halves of W3
+  static constexpr int CI = 2;               // i values per chunk: K = 128 per barrier
+  static constexpr int VI = 2 * CI;          // i values per V2 stage: 16 bytes a row
+  static constexpr size_t WSL = 2ull * MID * BO;   // bytes of one W3[:, i, :] half
+  static constexpr size_t DSL = 2ull * BE * BO;    // bytes of one dR[tile, i, :] half
+  static constexpr size_t W = 0;                   // [2 stages][CI][NS][MID][BO] bf16
+  static constexpr size_t DR = W + 2 * CI * NS * WSL;  // [2 buffers][CI][hi, lo][BE][BO] bf16
+  static constexpr size_t V = DR + 2 * CI * 2 * DSL;   // [2 stages][BE][P][VI] float
+  static constexpr size_t SMEM = V + 4ull * 2 * BE * P * VI;
+  static_assert(SMEM <= 232448, "kernel B's tile fits one SM's shared memory");
+};
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sG = reinterpret_cast<float*>(smem);  // [BE][GS]
-  float* sWt = sG + BE * GS;                   // [BO][WTS]
-  float* sDt = sWt + BO * WTS;                 // [BO][DTS]
-  float* sV = sDt + BO * DTS;                  // [P][BE]
-
-  const int tid = threadIdx.x;
-  const int te = tid & 15, tm = tid >> 4;  // dH block: e = te*4.., m = tm*8..
-  const int e0 = blockIdx.x * BE, rows = min(BE, E - e0);
-  const int i_lo = blockIdx.y * i_per_split, i_hi = min(IF, i_lo + i_per_split);
-
-  for (int idx = tid; idx < BE * P * BO; idx += NTHREADS) {
-    const int r = idx / (P * BO), c = idx - r * (P * BO);
-    sG[r * GS + c] = r < rows ? __ldg(g + (size_t)e0 * P * BO + idx) : 0.f;
-  }
-
-  float acc[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  for (int i = i_lo; i < i_hi; ++i) {
-    for (int idx = tid; idx < MID * BO; idx += NTHREADS) {
-      const int m = idx / BO, o = idx - m * BO;
-      sWt[o * WTS + m] = w3[((size_t)m * IF + i) * BO + o];
-    }
-    for (int idx = tid; idx < P * BE; idx += NTHREADS) {
-      const int p = idx / BE, e = idx - p * BE;
-      sV[idx] = e < rows ? __ldg(v2 + ((size_t)(e0 + e) * P + p) * IF + i) : 0.f;
-    }
-    __syncthreads();
-    // dR[e, i, o] = sum_p V2[e, p, i] g[e, p, o], stored transposed
-    for (int idx = tid; idx < BE * BO; idx += NTHREADS) {
-      const int e = idx % BE, o = idx / BE;
-      float d = 0.f;
-#pragma unroll
-      for (int p = 0; p < P; ++p) d = fmaf(sV[p * BE + e], sG[e * GS + p * BO + o], d);
-      sDt[o * DTS + e] = d;
-    }
-    __syncthreads();
-    // dH[e, m] += sum_o dR[e, i, o] W3[m, i, o]
-#pragma unroll 4
-    for (int o = 0; o < BO; ++o) {
-      const float4 d = *reinterpret_cast<const float4*>(sDt + o * DTS + te * 4);
-      const float4 wa = *reinterpret_cast<const float4*>(sWt + o * WTS + tm * 8);
-      const float4 wb = *reinterpret_cast<const float4*>(sWt + o * WTS + tm * 8 + 4);
-      const float dv[4] = {d.x, d.y, d.z, d.w};
-      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(dv[r], wv[c], acc[r][c]);
-    }
-    __syncthreads();  // sWt, sV and sDt are rewritten for the next i
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int e = te * 4 + r;
-    if (e >= rows) continue;
-    float* dst = dh + ((size_t)blockIdx.y * E + e0 + e) * MID + tm * 8;
-    *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-  }
+// element (r, c) of a swizzled [rows][BO] bf16 tile
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * BO + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
 }
 
-// Kernel B for bf16 W3: per i, dR[e, i, :] is rebuilt in float32, split
-// into bf16 hi + lo halves in shared memory, and dH += dR . W3[:, i, :]^T
-// runs as two mma.sync passes (W3 is exact in bf16). Warps: 4 along edges
-// (16 rows each) x 2 along mid (64 columns each).
-template <int P>
+// Kernel B: a CTA owns one 64-edge tile and a range of i, walked in chunks
+// of CI values. Its thread (row re, quarter q) holds g[tile row re, :, 16q
+// .. 16q + 16] in registers for the whole kernel, so each g value feeds the
+// dR of every i. Step k, after one barrier: dH += dR . W3^T runs for chunk
+// k - 1 on the tensor cores (8 warps: 2 along edges x 4 along mid, 32 x 32
+// each) while chunk k's W3 is issued behind it (cp.async), then chunk k's
+// dR is rebuilt into the other dR buffer; V2 is issued two chunks at a time.
+template <bool kSplit, int P>
 __global__ void __launch_bounds__(NTHREADS, 1)
-bwd_b_mma_kernel(const __nv_bfloat16* __restrict__ w3, const float* __restrict__ v2,
-                 const float* __restrict__ g, float* __restrict__ dh, int E, int IF,
-                 int i_per_split) {
-  using T = __nv_bfloat16;
-  constexpr int WS = Tile<T>::WS;
+bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
+             const float* __restrict__ v2, const float* __restrict__ g,
+             float* __restrict__ dh, int E, int IF, int i_per_split, int v2_quads) {
+  using C = BCfg<kSplit, P>;
+  constexpr int CI = C::CI, NS = C::NS;
+  constexpr int VI = C::VI;
+  static_assert(CI == 2, "a row's CI values of V2 are read as one float2");
+
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sG = reinterpret_cast<float*>(smem);  // [BE][P*BO]
-  T* sW = reinterpret_cast<T*>(sG + BE * P * BO);  // 2 x [MID][WS]: W3[:, i, :]
-  T* sDh = sW + 2 * MID * WS;                  // [BE][DSB]: dR hi
-  T* sDl = sDh + BE * DSB;                     // [BE][DSB]: dR lo
-  float* sV = reinterpret_cast<float*>(sDl + BE * DSB);  // [P][BE]
+  bf16* sW = reinterpret_cast<bf16*>(smem + C::W);
+  bf16* sDR = reinterpret_cast<bf16*>(smem + C::DR);
+  float* sV = reinterpret_cast<float*>(smem + C::V);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int we = warp & 3, wn = warp >> 2;
-  const int t = lane & 3, j = lane >> 3, rr = lane & 7;
   const int e0 = blockIdx.x * BE, rows = min(BE, E - e0);
   const int i_lo = blockIdx.y * i_per_split, i_hi = min(IF, i_lo + i_per_split);
+  const int n_chunks = (i_hi - i_lo + CI - 1) / CI;
 
-  load_w(sW, w3, i_lo, IF, BO, 0, tid);
+  // W3[:, chunk c, :] (hi[, lo]) goes into ring stage c % 2 as MID x CI x 8
+  // 16-byte cp.async per half, 8 a thread; this is the thread's r-th (r <
+  // 8 NS). i past IF's end reads the last i (its dR is 0).
+  static_assert(MID * CI * 8 == 8 * NTHREADS, "a W3 half is 8 copies a thread");
+  auto stage_w = [&](int c, int r) {
+    const int f = tid + (r & 7) * NTHREADS, half = r >> 3;
+    const int ch = f & 7, ii = (f >> 3) & (CI - 1), m = f >> 4;
+    const int i = min(i_lo + c * CI + ii, IF - 1);
+    cp_async16(sW + ((size_t)((c & 1) * CI + ii) * NS + half) * MID * BO + swz(m, ch * 8),
+               (half ? wlo : whi) + ((size_t)m * IF + i) * BO + ch * 8);
+  };
+  // V2[tile, :, VI i from i_lo + s VI] into stage s % 2 (chunks 2s and 2s +
+  // 1): one 16-byte copy a row where IF allows, else 4-byte copies; zeros
+  // past E and past the i range
+  auto stage_v = [&](int s) {
+    const int i0 = i_lo + s * VI;
+    if (i0 >= i_hi) return;
+    float* dst = sV + (s & 1) * BE * P * VI;
+    for (int idx = tid; idx < BE * P; idx += NTHREADS) {
+      const int e = idx / P;
+      const float* src = v2 + ((size_t)e0 * P + idx) * IF + i0;
+      float* d = dst + idx * VI;
+      if (e < rows && v2_quads) {
+        cp_async16(d, src);
+      } else {
+#pragma unroll
+        for (int ii = 0; ii < VI; ++ii)
+          if (e < rows && i0 + ii < i_hi)
+            cp_async4(d + ii, src + ii);
+          else
+            d[ii] = 0.f;
+      }
+    }
+  };
+
+  stage_v(0);
   cp_async_commit();
-  for (int idx = tid; idx < BE * P * BO / 4; idx += NTHREADS) {
-    const int r = idx / (P * BO / 4);
-    reinterpret_cast<float4*>(sG)[idx] =
-        r < rows ? __ldg(reinterpret_cast<const float4*>(g + (size_t)e0 * P * BO) + idx)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
 
-  float acc[8][4];
+  // this thread's g values: row re of the tile, columns 16q .. 16q + 16
+  const int re = tid >> 2, q = tid & 3;
+  float gr[P][16];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+    for (int k = 0; k < 4; ++k) {
+      const float4 x =
+          re < rows
+              ? __ldg(reinterpret_cast<const float4*>(g + ((size_t)(e0 + re) * P + p) * BO +
+                                                      q * 16) + k)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+      gr[p][4 * k + 0] = x.x;
+      gr[p][4 * k + 1] = x.y;
+      gr[p][4 * k + 2] = x.z;
+      gr[p][4 * k + 3] = x.w;
+    }
 
-  for (int i = i_lo; i < i_hi; ++i) {
-    for (int idx = tid; idx < P * BE; idx += NTHREADS) {
-      const int p = idx / BE, e = idx - p * BE;
-      sV[idx] = e < rows ? __ldg(v2 + ((size_t)(e0 + e) * P + p) * IF + i) : 0.f;
-    }
-    if (i + 1 < i_hi) {
-      load_w(sW + ((i + 1 - i_lo) & 1) * MID * WS, w3, i + 1, IF, BO, 0, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // dR[e, i, o] = sum_p V2[e, p, i] g[e, p, o], two columns per step
-    for (int idx = tid; idx < BE * BO / 2; idx += NTHREADS) {
-      const int e = idx / (BO / 2), o = (idx % (BO / 2)) * 2;
-      float d0 = 0.f, d1 = 0.f;
+  // dR[re, i, 16q ..] = sum_p V2[re, p, i] g[re, p, ..] for the chunk's i,
+  // as bf16 hi + lo into dR buffer c % 2
+  auto rebuild = [&](int c) {
+    const float* sv = sV + ((c >> 1) & 1) * BE * P * VI + re * P * VI + (c & 1) * CI;
+    bf16* sd = sDR + (size_t)(c & 1) * CI * 2 * BE * BO;
+    float2 vv[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) vv[p] = *reinterpret_cast<const float2*>(sv + p * VI);
+#pragma unroll
+    for (int ii = 0; ii < CI; ++ii) {
+      float d[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) d[k] = 0.f;
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        const float v = sV[p * BE + e];
-        const float2 gg = *reinterpret_cast<const float2*>(sG + (e * P + p) * BO + o);
-        d0 = fmaf(v, gg.x, d0);
-        d1 = fmaf(v, gg.y, d1);
+        const float v = ii ? vv[p].y : vv[p].x;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) d[k] = fmaf(v, gr[p][k], d[k]);
       }
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(d0, d1);
-      *reinterpret_cast<__nv_bfloat162*>(sDh + e * DSB + o) = hi;
-      *reinterpret_cast<__nv_bfloat162*>(sDl + e * DSB + o) =
-          __floats2bfloat162_rn(d0 - __low2float(hi), d1 - __high2float(hi));
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float a = d[s * 8 + 2 * k], b = d[s * 8 + 2 * k + 1];
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+          const __nv_bfloat162 l2 =
+              __floats2bfloat162_rn(a - __low2float(h2), b - __high2float(h2));
+          hi[k] = *reinterpret_cast<const uint32_t*>(&h2);
+          lo[k] = *reinterpret_cast<const uint32_t*>(&l2);
+        }
+        const int off = swz(re, (2 * q + s) * 8);
+        *reinterpret_cast<uint4*>(sd + (ii * 2 + 0) * BE * BO + off) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(sd + (ii * 2 + 1) * BE * BO + off) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
     }
+  };
+
+  // dH accumulators: the mma.sync layout of a 32 (e) x 32 (m) warp tile,
+  // e = (warp & 1)*32 + mt*16 + {g, g+8}, m = (warp >> 1)*32 + nt*8 + 2t +
+  // {0, 1} at [mt][nt][..]
+  const int we = warp & 1, wm = warp >> 1, j = lane >> 3, rr = lane & 7;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
+
+  // one chunk's dR . W3^T (K = CI x 64) into a fresh register tile, added
+  // to the running sum with float32 adds (the tensor cores' accumulation is
+  // not round-to-nearest; see kernel A). bf16 W3: dR_hi.W + dR_lo.W; float32
+  // W3: dR_hi.W_hi + dR_lo.W_hi + dR_hi.W_lo.
+  auto product = [&](int c, bool issue_next) {
+    const bf16* sw = sW + (size_t)(c & 1) * CI * NS * MID * BO;
+    const bf16* sd = sDR + (size_t)(c & 1) * CI * 2 * BE * BO;
+    float tacc[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) tacc[mt][nt][v] = 0.f;
+#pragma unroll
+    for (int ii = 0; ii < CI; ++ii) {
+#pragma unroll
+      for (int kk = 0; kk < BO / 16; ++kk) {
+        static_assert(CI * BO / 16 == 8, "one W3 copy per k-step");
+        // chunk c + 1's W3, one copy (each half) a k-step: the copies queue
+        // behind the products instead of stalling the warp in one burst
+        if (issue_next) {
+#pragma unroll
+          for (int half = 0; half < NS; ++half) stage_w(c + 1, half * 8 + ii * 4 + kk);
+        }
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int off = swz(we * 32 + mt * 16 + (j & 1) * 8 + rr, kk * 16 + (j >> 1) * 8);
+          ldmatrix_x4(ah[mt], sd + (ii * 2 + 0) * BE * BO + off);
+          ldmatrix_x4(al[mt], sd + (ii * 2 + 1) * BE * BO + off);
+        }
+#pragma unroll
+        for (int nb2 = 0; nb2 < 2; ++nb2) {
+          const int off = swz(wm * 32 + nb2 * 16 + (j >> 1) * 8 + rr, kk * 16 + (j & 1) * 8);
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4(bh, sw + (size_t)(ii * NS + 0) * MID * BO + off);
+          if constexpr (kSplit) ldmatrix_x4(bl, sw + (size_t)(ii * NS + 1) * MID * BO + off);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            float(&t0)[4] = tacc[mt][nb2 * 2 + 0];
+            float(&t1)[4] = tacc[mt][nb2 * 2 + 1];
+            mma_bf16(t0, ah[mt], bh[0], bh[1]);
+            mma_bf16(t1, ah[mt], bh[2], bh[3]);
+            mma_bf16(t0, al[mt], bh[0], bh[1]);
+            mma_bf16(t1, al[mt], bh[2], bh[3]);
+            if constexpr (kSplit) {
+              mma_bf16(t0, ah[mt], bl[0], bl[1]);
+              mma_bf16(t1, ah[mt], bl[2], bl[3]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[mt][nt][v] += tacc[mt][nt][v];
+  };
+
+  // Step k: the product of chunk k - 1 and the dR of chunk k, behind one
+  // barrier. Everything issued in step k - 1 (chunk k - 1's W3; V2 of
+  // chunks k and k + 1 when k - 1 is odd) has landed, chunk k - 1's dR is
+  // written, and every warp is done with step k - 1: chunk k - 2's W3 stage
+  // and dR buffer, and (k odd) the V2 stage of chunks k - 3 and k - 2.
+  for (int k = 0; k <= n_chunks; ++k) {
+    cp_async_wait<0>();
     __syncthreads();
-    const T* sw = sW + ((i - i_lo) & 1) * MID * WS;
-    // one i's product in a fresh register tile, added to the running sum
-    // with float32 adds (the tensor cores' accumulation is not
-    // round-to-nearest; see kernel A)
-    float part_acc[8][4];
+    if (k & 1) stage_v((k + 1) >> 1);
+    if (k == 0) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) part_acc[nt][v] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BO / 16; ++kk) {
-      uint32_t ah[4], al[4];
-      ldmatrix_x4(ah, sDh + (we * 16 + (j & 1) * 8 + rr) * DSB + kk * 16 + (j >> 1) * 8);
-      ldmatrix_x4(al, sDl + (we * 16 + (j & 1) * 8 + rr) * DSB + kk * 16 + (j >> 1) * 8);
-#pragma unroll
-      for (int nb2 = 0; nb2 < 4; ++nb2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sw + (wn * 64 + nb2 * 16 + (j >> 1) * 8 + rr) * WS + kk * 16 +
-                           (j & 1) * 8);
-        mma_bf16(part_acc[nb2 * 2 + 0], ah, b[0], b[1]);
-        mma_bf16(part_acc[nb2 * 2 + 0], al, b[0], b[1]);
-        mma_bf16(part_acc[nb2 * 2 + 1], ah, b[2], b[3]);
-        mma_bf16(part_acc[nb2 * 2 + 1], al, b[2], b[3]);
-      }
+      for (int r = 0; r < 8 * NS; ++r) stage_w(0, r);
+    } else {
+      product(k - 1, k < n_chunks);
     }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[nt][v] += part_acc[nt][v];
-    __syncthreads();  // sV, the dR halves and this W3 buffer are rewritten
+    cp_async_commit();
+    if (k < n_chunks) rebuild(k);
   }
 
-  const int e_lo = we * 16 + (lane >> 2), e_hi = e_lo + 8;
+  const int gq = lane >> 2, t = lane & 3;
   float* dst = dh + (size_t)blockIdx.y * E * MID;  // this split's dH
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int m = wn * 64 + nt * 8 + 2 * t;
-    if (e_lo < rows)
-      *reinterpret_cast<float2*>(dst + (size_t)(e0 + e_lo) * MID + m) =
-          make_float2(acc[nt][0], acc[nt][1]);
-    if (e_hi < rows)
-      *reinterpret_cast<float2*>(dst + (size_t)(e0 + e_hi) * MID + m) =
-          make_float2(acc[nt][2], acc[nt][3]);
-  }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int e = we * 32 + mt * 16 + gq, m = wm * 32 + nt * 8 + 2 * t;
+      if (e < rows)
+        *reinterpret_cast<float2*>(dst + (size_t)(e0 + e) * MID + m) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      if (e + 8 < rows)
+        *reinterpret_cast<float2*>(dst + (size_t)(e0 + e + 8) * MID + m) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
 }
 
 template <bool kSplit, int P>
@@ -769,34 +861,39 @@ cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* 
   return cudaGetLastError();
 }
 
-template <typename T, int P>
+template <bool kSplit, int P>
 cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, void* work,
-                     int E, int IF, int i_per_split, cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr size_t smem =
-      kBf16 ? sizeof(float) * (size_t)(BE * P * BO + P * BE) +
-                  sizeof(T) * (size_t)(2 * MID * Tile<T>::WS + 2 * BE * DSB)
-            : sizeof(float) * (size_t)(BE * (P * BO + 1) + BO * (MID + 4) + BO * (BE + 4) +
-                                       P * BE);
-  void (*kern)(const T*, const float*, const float*, float*, int, int, int);
-  if constexpr (kBf16)
-    kern = bwd_b_mma_kernel<P>;
-  else
-    kern = bwd_b_f32_kernel<P>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                     void* split, int E, int IF, int i_per_split, cudaStream_t stream) {
+  using C = BCfg<kSplit, P>;
+  const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
+  cudaError_t err;
+  if constexpr (kSplit) {
+    // float32 W3 [MID, IF, BO] (a whole number of float4s) into its bf16
+    // hi and lo arrays
+    const size_t nw = (size_t)MID * IF * BO;
+    bf16* sp = static_cast<bf16*>(split);
+    split_bf16_kernel<<<grid_for(nw / 4), NTHREADS, 0, stream>>>(
+        static_cast<const float4*>(w3), nw / 4, reinterpret_cast<uint2*>(sp),
+        reinterpret_cast<uint2*>(sp + nw));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    whi = sp;
+    wlo = sp + nw;
+  }
+  auto kern = bwd_b_kernel<kSplit, P>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int splits = (IF + i_per_split - 1) / i_per_split;
-  dim3 grid((E + BE - 1) / BE, splits);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(w3), static_cast<const float*>(v2), static_cast<const float*>(g),
-      static_cast<float*>(splits > 1 ? work : dh), E, IF, i_per_split);
+  // a row's VI values of V2 move as one 16-byte copy when every stage is
+  // whole and starts on 16 bytes
+  const int v2_quads = IF % C::VI == 0 && i_per_split % C::VI == 0 &&
+                       reinterpret_cast<uintptr_t>(v2) % 16 == 0;
+  kern<<<dim3((E + BE - 1) / BE, splits), NTHREADS, C::SMEM, stream>>>(
+      whi, wlo, static_cast<const float*>(v2), static_cast<const float*>(g),
+      static_cast<float*>(splits > 1 ? work : dh), E, IF, i_per_split, v2_quads);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t n = (size_t)E * MID;
-  size_t blocks = (n + NTHREADS - 1) / NTHREADS;
-  if (blocks > 4096) blocks = 4096;
-  bwd_reduce_kernel<<<(unsigned)blocks, NTHREADS, 0, stream>>>(
+  bwd_reduce_kernel<<<grid_for(n), NTHREADS, 0, stream>>>(
       static_cast<const float*>(work), splits, n, 0, static_cast<float*>(dh), nullptr);
   return cudaGetLastError();
 }
@@ -832,17 +929,18 @@ extern "C" int se3_pairwise_bwd_a(const void* h, const void* w3, const void* b3,
 
 // Kernel B: dh [E, 128]. With more than one split (ceil(IF / i_per_split))
 // work holds that many [E, 128] float partials; it is not read otherwise.
+// w3 and g start on 16 bytes. With float32 w3, split holds 2 * 128*IF*64
+// bf16 (W3's hi and lo arrays); it is not read otherwise.
 extern "C" int se3_pairwise_bwd_b(const void* w3, const void* v2, const void* g, void* dh,
-                                  void* work, int E, int IF, int P, int i_per_split,
-                                  int w3_is_bf16, void* stream) {
+                                  void* work, void* split, int E, int IF, int P,
+                                  int i_per_split, int w3_is_bf16, void* stream) {
   if (E <= 0 || IF <= 0 || i_per_split <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SE3_B(PP)                                                                     \
-  if (P == PP)                                                                        \
-    return (int)(w3_is_bf16                                                           \
-                     ? launch_b<__nv_bfloat16, PP>(w3, v2, g, dh, work, E, IF,        \
-                                                   i_per_split, s)                    \
-                     : launch_b<float, PP>(w3, v2, g, dh, work, E, IF, i_per_split, s));
+#define SE3_B(PP)                                                                       \
+  if (P == PP)                                                                          \
+    return (int)(w3_is_bf16                                                             \
+                     ? launch_b<false, PP>(w3, v2, g, dh, work, split, E, IF, i_per_split, s) \
+                     : launch_b<true, PP>(w3, v2, g, dh, work, split, E, IF, i_per_split, s));
   SE3_B(1) SE3_B(3) SE3_B(5) SE3_B(7)
 #undef SE3_B
   return (int)cudaErrorInvalidValue;

@@ -483,15 +483,21 @@ def _launch_bwd_b(w3, v2, g, E, IF, P):
     operands that passed _check_bwd, E > 0 -> dh; counts one kernel-B
     launch."""
     dh = torch.empty(E, MID, dtype=torch.float32, device=w3.device)
+    w3, g = _aligned(w3), _aligned(g)
     per = i_per_split(E, IF)
     splits = -(-IF // per)
     work = dh if splits == 1 else torch.empty(
         splits * E * MID, dtype=torch.float32, device=w3.device)
+    # float32 w3 is split into bf16 hi and lo arrays by the kernel's own
+    # split pass, into this scratch
+    bf16 = w3.dtype == torch.bfloat16
+    split = dh if bf16 else torch.empty(
+        2 * w3.numel(), dtype=torch.bfloat16, device=w3.device)
     from .build import load_library
     with torch.cuda.device(w3.device):
         rc = load_library().se3_pairwise_bwd_b(
             w3.data_ptr(), v2.data_ptr(), g.data_ptr(), dh.data_ptr(),
-            work.data_ptr(), E, IF, P, per, int(w3.dtype == torch.bfloat16),
+            work.data_ptr(), split.data_ptr(), E, IF, P, per, int(bf16),
             _stream(w3))
     if rc != 0:
         raise RuntimeError(f'se3_pairwise_bwd_b launch failed: CUDA error '

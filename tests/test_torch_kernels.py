@@ -357,13 +357,24 @@ def test_cuda_fwd_split_sums_are_bit_identical(cuda_card, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_cuda_backward_b_split_matches_plain_and_is_bit_identical(cuda_card,
-                                                                  dtype):
-    """Kernel B with its i range split (4096 edges, IF = 448): dH against
-    the plain version, and the same bits from two runs."""
+@pytest.mark.parametrize('di,do,e,c,split', [
+    (3, 3, 4096, 64, True),     # P 7, IF 448: the i range split in two
+    (0, 0, 4096, 64, False),    # P 1, IF 64: one split
+    (1, 2, 4133, 64, True),     # P 5, IF 192, ragged E (65 tiles)
+    (2, 3, 4096, 64, True),     # P 7, IF 320
+    (2, 1, 300, 5, False),      # P 3, IF 15: odd, 4-byte V2 copies
+    (3, 3, 77, 3, False),       # P 7, IF 21: odd, one ragged tile
+    (1, 1, 1000, 2, False),     # P 3, IF 6: even, not 16-byte V2 rows
+    (3, 2, 4095, 30, True)])    # P 5, IF 150: split, 4-byte V2 copies
+def test_cuda_backward_b_split_matches_plain_and_is_bit_identical(
+        cuda_card, di, do, e, c, split, dtype):
+    """Kernel B at even and odd IF, ragged E, every P, with and without its
+    i range split: dH against the plain version, and the same bits from
+    two runs (of every output of the backward)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = [a.cuda() for a in _bwd_args(3, 3, 4096, c=64, dtype=dtype)]
-    assert kp.i_per_split(4096, 448) < 448
+    args = [a.cuda() for a in _bwd_args(di, do, e, c=c, dtype=dtype)]
+    IF = args[1].shape[1]
+    assert (kp.i_per_split(e, IF) < IF) == split
     first = kp.fused_pairwise_conv_bwd(*args)
     second = kp.fused_pairwise_conv_bwd(*args)
     torch.cuda.synchronize()

@@ -314,6 +314,50 @@ def test_kernel_a_grid_is_a_function_of_the_shapes(E_, IF):
     assert (splits - 1) * per_split < n_tiles <= splits * per_split
 
 
+def _bwd_b_split(w3, v2, g, passes=3, chunk=2):
+    """The float32 arithmetic of kernel B (csrc/pairwise_bwd.cu), emulated
+    in torch: dR = V2^T.g in float32, dR and W3 split into bf16 hi + lo,
+    and dH summed over chunks of `chunk` values of i (K = chunk x O, the
+    kernel's CI), each chunk's dR_hi.W_hi^T + dR_lo.W_hi^T + dR_hi.W_lo^T
+    (passes=3; bf16 products are exact in float32, sums float32) in a fresh
+    sum added to the running one; passes=1 keeps dR_hi.W_hi^T alone."""
+    mid, IF, O = w3.shape
+    E = v2.shape[0]
+    d_hi, d_lo = _bf16_split(torch.bmm(v2.transpose(1, 2), g))
+    w_hi, w_lo = _bf16_split(w3)
+    dh = torch.zeros(E, mid)
+    for i0 in range(0, IF, chunk):
+        a_hi, a_lo = (t[:, i0:i0 + chunk].reshape(E, -1) for t in (d_hi, d_lo))
+        b_hi, b_lo = (t[:, i0:i0 + chunk].reshape(mid, -1).t()
+                      for t in (w_hi, w_lo))
+        part = a_hi @ b_hi
+        if passes == 3:
+            part = part + a_lo @ b_hi + a_hi @ b_lo
+        dh = dh + part
+    return dh
+
+
+def test_kernel_b_float32_passes_meet_the_kernel_bar():
+    """Kernel B's float32 arithmetic on the tensor cores (dR and W3 as bf16
+    hi + lo, three passes, a fresh sum per chunk of 2 i) on a few hundred
+    edges at the flagship's largest grouped shape (mid 128, IF 1024, O 64,
+    P 7) is within KERNEL_RTOL of max|plain| of
+    fused_pairwise_conv_bwd_b_plain, so the card's kernel has its error
+    budget before it runs; one pass is not."""
+    a = _grouped_operands(3, 4, seed=45, e=300, mid=kp.MID, c=64, o=64)
+    assert a['w3'].shape == (128, 1024, 64)
+    w3, v2 = torch.from_numpy(a['w3']), torch.from_numpy(a['v2'])
+    g = torch.from_numpy(np.random.RandomState(46).normal(
+        size=(300, 7, 64)).astype(np.float32))
+    plain = kp.fused_pairwise_conv_bwd_b_plain(w3, v2, g)
+    split = _bwd_b_split(w3, v2, g)
+    assert split.shape == plain.shape == (300, 128)
+    scale = plain.abs().max()
+    assert 0 < (split - plain).abs().max() <= KERNEL_RTOL * scale
+    one_pass = _bwd_b_split(w3, v2, g, passes=1)
+    assert (one_pass - plain).abs().max() > KERNEL_RTOL * scale
+
+
 @pytest.mark.parametrize('do,n_in,dtype', [(1, 3, 'float32'),
                                            (3, 2, 'bfloat16')])
 def test_contract_op_matches_jax_vjp(do, n_in, dtype):

@@ -151,10 +151,12 @@ def safe_normalize(vec: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 
 def get_basis(rel_pos: torch.Tensor, max_degree: int,
-              layout: str = 'pqf') -> dict:
+              differentiable: bool = False, layout: str = 'pqf') -> dict:
     """Pairwise equivariant kernel bases for all degree pairs.
 
-    rel_pos: [..., 3] relative offsets (need not be normalized).
+    rel_pos: [..., 3] relative offsets (need not be normalized). Unless
+    `differentiable`, the bases carry no gradient to rel_pos (the JAX
+    get_basis's stop_gradient on its output).
     layout='pqf': {f'{d_in},{d_out}': [..., 2*d_out+1, 2*d_in+1, n_freq]}.
     layout='pfq_flat': the same values flattened per edge to
     [..., P*F*Q] in (p, f, q) order — the operand layout of
@@ -165,6 +167,8 @@ def get_basis(rel_pos: torch.Tensor, max_degree: int,
     """
     if layout not in ('pqf', 'pfq_flat'):
         raise ValueError(f'unknown basis layout {layout!r}')
+    if not differentiable:
+        rel_pos = rel_pos.detach()
     rhat = safe_normalize(rel_pos)
     Ys = real_spherical_harmonics_all(2 * max_degree, rhat)
 

@@ -116,10 +116,11 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(library_path())
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # (h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream),
-            # the flat basis (bxf) or the structured one (bx)
+            # (h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk,
+            #  stage_c, h_is_bf16, stream), the flat basis (bxf) or the
+            #  structured one (bx)
             for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx):
-                fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+                fn.argtypes = [vp] * 7 + [ci] * 8 + [vp]
             # (h, w3, b3, v2, out, work, w3_split, E, IF, O, P,
             #  i_per_split, h_is_bf16, stream)
             lib.se3_pairwise_fwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]

@@ -1,6 +1,6 @@
-// Tile constants and mma.sync helpers shared by the pairwise kernels
-// (pairwise_bxf.cu and pairwise_fwd.cu, the forwards; pairwise_bwd.cu, the
-// backward).
+// Tile constants, mma.sync helpers and the float32 split shared by the
+// pairwise kernels (pairwise_bxf.cu and pairwise_fwd.cu, the forwards;
+// pairwise_bwd.cu, the backward).
 //
 // Both kernels tile edges by BE = 64 and output channels by BO = 64 with
 // 8 warps (4 along edges x 2 along O), and both compute the radial tile
@@ -108,24 +108,6 @@ __device__ __forceinline__ void load_afrag(uint32_t (&a)[MID / 16][4],
                            kk * 16 + (j >> 1) * 8);
 }
 
-// R tile of one warp for one i (bf16 operands, fp32 accumulate).
-__device__ __forceinline__ void radial_tile(float (&r)[4][4], const uint32_t (&a)[8][4],
-                                            const __nv_bfloat16* sw, int wo, int lane) {
-  const int j = lane >> 3, rr = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < MID / 16; ++kk) {
-#pragma unroll
-    for (int nb2 = 0; nb2 < 2; ++nb2) {
-      uint32_t b[4];
-      const int k = kk * 16 + (j & 1) * 8 + rr;
-      const int n = wo * 32 + nb2 * 16 + (j >> 1) * 8;
-      ldmatrix_x4_trans(b, sw + k * Tile<__nv_bfloat16>::WS + n);
-      mma_bf16(r[nb2 * 2 + 0], a[kk], b[0], b[1]);
-      mma_bf16(r[nb2 * 2 + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
 // The same tile with fp32 FMAs (float32 h/W3; no TF32), in the same layout.
 __device__ __forceinline__ void radial_tile_f32(float (&r)[4][4], const float* sh,
                                                 const float* sw, int e_lo, int wo,
@@ -145,6 +127,32 @@ __device__ __forceinline__ void radial_tile_f32(float (&r)[4][4], const float* s
       r[nb][2] = fmaf(a1, w.x, r[nb][2]);
       r[nb][3] = fmaf(a1, w.y, r[nb][3]);
     }
+  }
+}
+
+// element (r, c) of a swizzled [rows][BO] bf16 tile: the 16-byte chunk
+// c / 8 of row r sits at chunk (c / 8) ^ (r % 8), so ldmatrix and 16-byte
+// stores hit 8 distinct chunks of any 8 rows with no padding
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * BO + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// float32 -> its bf16 hi and lo arrays (hi = bf16(x), lo = bf16(x - hi));
+// hi + lo is within 2^-17 of x, relative. One copy per source file.
+static __global__ void split_bf16_kernel(const float4* __restrict__ x, size_t n4,
+                                         uint2* __restrict__ hi, uint2* __restrict__ lo) {
+  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n4;
+       k += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = x[k];
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
+    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+    const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
+    const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
+    hi[k] = make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
+                       *reinterpret_cast<const uint32_t*>(&h23));
+    lo[k] = make_uint2(*reinterpret_cast<const uint32_t*>(&l01),
+                       *reinterpret_cast<const uint32_t*>(&l23));
   }
 }
 

@@ -519,24 +519,6 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
   }
 }
 
-// float32 -> its bf16 hi and lo arrays (hi = bf16(x), lo = bf16(x - hi))
-__global__ void split_bf16_kernel(const float4* __restrict__ x, size_t n4,
-                                  uint2* __restrict__ hi, uint2* __restrict__ lo) {
-  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n4;
-       k += (size_t)gridDim.x * blockDim.x) {
-    const float4 v = x[k];
-    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
-    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
-    const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
-    const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
-    hi[k] = make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
-                       *reinterpret_cast<const uint32_t*>(&h23));
-    lo[k] = make_uint2(*reinterpret_cast<const uint32_t*>(&l01),
-                       *reinterpret_cast<const uint32_t*>(&l23));
-  }
-}
-
 unsigned grid_for(size_t n) {
   const size_t blocks = (n + NTHREADS - 1) / NTHREADS;
   return (unsigned)(blocks > 4096 ? 4096 : blocks);
@@ -576,11 +558,6 @@ struct BCfg {
   static constexpr size_t SMEM = V + 4ull * 2 * BE * P * VI;
   static_assert(SMEM <= 232448, "kernel B's tile fits one SM's shared memory");
 };
-
-// element (r, c) of a swizzled [rows][BO] bf16 tile
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * BO + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
-}
 
 // Kernel B: a CTA owns one 64-edge tile and a range of i, walked in chunks
 // of CI values. Its thread (row re, quarter q) holds g[tile row re, :, 16q

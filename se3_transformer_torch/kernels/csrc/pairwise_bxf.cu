@@ -12,30 +12,71 @@
 // indexes the staged basis rows. As there, neither V2 nor R is ever written
 // to device memory.
 //
-// What bounds it on this card: the radial product R = h.W3 is the work.
-// At the flagship shape (E = 32768 edges, mid = 128, C = O = 64) the (3,3)
-// degree pair alone is 2*E*mid*(C*F)*O = 240 GFLOP against ~170 MB of
-// operands (the basis and the gathered features dominate), i.e. >1000
-// FLOP/byte: compute-bound on the tensor cores, far right of the ridge.
+// What bounds it on this card. The radial product R = h.W3 is the work:
+// at the flagship shape (E = 32768 edges, mid = 128, C = O = 64) the (3,3)
+// degree pair alone is 2*E*mid*(C*F)*O = 240 GFLOP, 0.24 ms at the bf16
+// tensor-core peak, beside 13 GFLOP of float32 epilogue (0.20 ms on the
+// FMA pipe, which runs beside the tensor cores) and ~80 MB of operands:
+// compute-bound. Two things cap it below that on this tile: mma.sync reads
+// every W3 fragment from shared memory once per edge-warp (256 B per
+// m16n8k16, so about 2 clocks per mma per SM), and every 64-edge tile
+// re-reads all of W3 from L2 (16 KB per i; 3.7 GB per (3,3) launch).
+//
+// What held the previous version back (PERF.md, section 6: timing-only
+// variants of it on an H100): the global loads inside its loop over i,
+// 43-53% of its bf16 time. W3's 16 KB slice was issued as one burst per i
+// right before the barrier (23-30%), and V2 was built per c from x rows
+// read by scalar __ldg, a barrier, then two shared loads per FMA (8-24%).
+// Its barriers cost 1-9%, a deeper W3 ring 0-2%. In float32 its fp32-FMA
+// product took 75% of the time.
 //
 // What the design does about it:
-//  * One CTA owns a tile of 64 edges x 64 output channels; the [edge, P,
-//    O-tile] accumulator lives in registers for the whole loop over
-//    i = (c, f) and is written once — no atomics, a deterministic result.
-//    O is embarrassingly parallel, so wider O adds CTAs along grid.y.
-//  * The radial product runs on the tensor cores: bf16 mma.sync m16n8k16
-//    with fp32 accumulation (h's A fragments are loaded once per CTA and
-//    stay in registers; each W3[:, i, O-tile] slice is a 128 x 64 bf16 B
-//    operand streamed through a cp.async double buffer in shared memory).
-//    For float32 h/W3 the same tile is computed with fp32 FMAs (no TF32).
-//  * The accumulator layout of mma.sync is known, so the apply epilogue
-//    (R + b3, times V2, summed into out) runs on the fragment registers
-//    directly: R never leaves the registers either.
-//  * V2 for one channel c (all p, f of the tile's edges) is built once per
-//    c into shared memory from the CTA's basis tile (staged once) and the
-//    x rows of that c, in fp32.
-//  * Ragged edge tails are masked: rows past E load zeros, store nothing.
-// Left for later: wgmma, TMA, warp specialisation, clusters (W3 multicast).
+//  * A CTA owns 64 edges x 64 output channels with 8 warps (4 along edges
+//    x 2 along O); the [edge, P, O-tile] accumulator lives in registers for
+//    the whole loop over i and is written once: no atomics, the same bits
+//    on every run. h's A fragments come straight from device memory into
+//    registers once per CTA (float32 h split there into bf16 hi + lo).
+//  * i is walked in chunks of CI (2 for bf16, K = 256 per barrier; 1 for
+//    float32, whose three passes make a chunk as long), one barrier each.
+//    W3[:, chunk, O-tile] (bf16, or float32 split into bf16 hi + lo by
+//    split_bf16_kernel once per launch) and b3[chunk] go through a 3-stage
+//    ring of swizzled tiles, issued in one burst right after the barrier
+//    two chunks ahead, so a chunk's copies have two chunks of products to
+//    land in.
+//  * V2 is built per stage of GC channels c (a whole number of chunks, at
+//    least 3) at the stage's first chunk, behind a second barrier, from x
+//    rows that arrived by cp.async during the previous stage. Each thread
+//    builds one edge row, reading each basis value once per stage for all
+//    GC channels. V2 is stored [edge][i][p] (p padded to 4) so the epilogue
+//    reads a row's P values with float4 loads.
+//  * The radial tiles R = h.W3[:, i, O-tile] of a chunk's CI values of i run
+//    on the tensor cores with their k-steps interleaved (4 CI independent
+//    accumulators a warp), as mma.sync m16n8k16 bf16 with fp32
+//    accumulation; float32 runs as three passes h_hi.W_hi + h_hi.W_lo +
+//    h_lo.W_hi in a fixed order, as pairwise_fwd.cu does, so no product
+//    runs on fp32 FMAs. The epilogue acc[p] += V2[e, p, i] * (R + b3) runs
+//    on the accumulator registers.
+//  * Ragged edge tails are masked: rows past E load zeros, store nothing;
+//    a chunk past the last i reads the last W3 slice against a V2 of 0.
+// Where it stands (PERF.md, section 6): 1.2-1.6x the parent's speed in bf16
+// and ~4x in float32, which now beats the library call. Its variants
+// name no single bound: W3's delivery from L2 (every 64-edge tile re-reads
+// all of it), the V2 build and the epilogue each cost ~20% at (3,3), the
+// mma.sync stream and its B-fragment loads the rest, and little overlaps at
+// 8 warps per SM with the P-deep accumulator (112 registers at P = 7).
+// Tried on the card and dropped (PERF.md, section 6): the next chunk's copies
+// issued one per k-step (kernel B's rule in pairwise_bwd.cu; here it exposed their
+// latency at the barrier, 7-17% slower than a burst), a 2-stage ring with
+// V2 double-buffered and built without the extra barrier, an L2 prefetch
+// hint on the copies, the accumulators started from b3, two CTAs per SM
+// (spills), and wgmma: m64n32k16 per warpgroup with A from registers and
+// W3 in the no-swizzle core-matrix layout (LBO the K-group stride, SBO the
+// N-group stride), the epilogue of chunk k - 1 overlapped with chunk k's
+// product. It was right but 1.5-2x slower, serialized by ptxas at first
+// and still slower once the pipeline was peeled.
+// Left for later: W3 shared by two edge tiles (a cluster multicast, or a
+// 128-edge tile where P <= 3 leaves registers) to halve its L2 traffic;
+// wgmma with a swizzled W3 layout and a wider N.
 
 #include "common.cuh"
 
@@ -43,24 +84,57 @@ namespace {
 
 using namespace se3;
 
+using bf16 = __nv_bfloat16;
+
+// The tile's shape by W3's kind (bf16, or float32 given as bf16 hi + lo)
+// and (P, Q): the chunk and stage sizes, and shared memory as byte offsets.
+template <bool kSplit, int P, int Q>
+struct BxfCfg {
+  static constexpr int F = P < Q ? P : Q;
+  static constexpr int NS = kSplit ? 2 : 1;  // bf16 halves of W3
+  static constexpr int CI = kSplit ? 1 : 2;  // i values per chunk (one barrier each)
+  static constexpr int RING = 3;             // W3 ring stages: copies issued 2 chunks ahead
+  // channels c per V2 stage: a whole number of chunks, at least 3 (a
+  // stage's x copies, issued in the previous stage's first chunk, must
+  // land before its first chunk)
+  static constexpr int GC = F == 1 ? 3 * CI : CI;
+  static constexpr int SI = GC * F;    // i values per stage
+  static constexpr int CPS = SI / CI;  // chunks per stage
+  static constexpr int PP = P == 1 ? 1 : (P + 3) / 4 * 4;  // V2 values per (row, i)
+  static constexpr int RS = SI * PP + (PP == 1 ? 1 : 4);  // sV row stride in floats
+  static constexpr int XS = GC * Q + 1;                   // sX row stride in floats
+  static constexpr int PFQ = P * F * Q;
+  static constexpr size_t WSL = 2ull * MID * BO;        // bytes of one W3 slice (bf16)
+  static constexpr size_t W = 0;                        // [RING][CI][NS] W3 slices
+  static constexpr size_t B3 = W + RING * CI * NS * WSL;  // [RING][CI][BO] float
+  static constexpr size_t BS = B3 + 4ull * RING * CI * BO;  // [BE][PFQ] float: the basis rows
+  static constexpr size_t X = BS + 4ull * BE * PFQ;      // [BE][XS] float
+  static constexpr size_t V = X + 4ull * BE * XS;        // [BE][RS] float
+  static constexpr size_t SMEM = V + 4ull * BE * RS;
+  static_assert(SI % CI == 0 && CPS >= 3, "a V2 stage is at least 3 whole chunks");
+  static_assert(SMEM <= 232448, "the tile fits one SM's shared memory");
+};
+
+// T is h's type: bf16, or float (split into bf16 hi + lo here; W3 given as
+// its split arrays whi and wlo).
 template <typename T, int P, int Q, bool kPQF>
 __global__ void __launch_bounds__(NTHREADS, 1)
-pairwise_bxf_kernel(const T* __restrict__ h, const T* __restrict__ w3,
-                    const float* __restrict__ b3, const float* __restrict__ basis,
-                    const float* __restrict__ x, float* __restrict__ out,
-                    int E, int C, int O) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int F = P < Q ? P : Q;
-  constexpr int PF = P * F;
-  constexpr int PFQ = PF * Q;
-  constexpr int HS = Tile<T>::HS, WS = Tile<T>::WS;
+pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
+                    const bf16* __restrict__ wlo, const float* __restrict__ b3,
+                    const float* __restrict__ basis, const float* __restrict__ x,
+                    float* __restrict__ out, int E, int C, int O, int basis_quads) {
+  constexpr bool kSplit = sizeof(T) == 4;
+  using Cfg = BxfCfg<kSplit, P, Q>;
+  constexpr int F = Cfg::F, NS = Cfg::NS, CI = Cfg::CI, GC = Cfg::GC, CPS = Cfg::CPS;
+  constexpr int RING = Cfg::RING;
+  constexpr int PP = Cfg::PP, RS = Cfg::RS, XS = Cfg::XS, PFQ = Cfg::PFQ;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sH = reinterpret_cast<T*>(smem);                     // [BE][HS]
-  T* sW = sH + BE * HS;                                   // 2 x [MID][WS]
-  float* sB = reinterpret_cast<float*>(sW + 2 * MID * WS);  // [BE][PFQ]
-  float* sX = sB + BE * PFQ;                              // [BE][Q]
-  float* sV = sX + BE * Q;                                // [BE][PF]
+  bf16* sW = reinterpret_cast<bf16*>(smem + Cfg::W);
+  float* sb3 = reinterpret_cast<float*>(smem + Cfg::B3);
+  float* sB = reinterpret_cast<float*>(smem + Cfg::BS);
+  float* sX = reinterpret_cast<float*>(smem + Cfg::X);
+  float* sV = reinterpret_cast<float*>(smem + Cfg::V);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int we = warp & 3, wo = warp >> 2;
@@ -68,14 +142,129 @@ pairwise_bxf_kernel(const T* __restrict__ h, const T* __restrict__ w3,
   const int e0 = blockIdx.x * BE, o0 = blockIdx.y * BO;
   const int rows = min(BE, E - e0);
   const int CF = C * F;
+  const int n_chunks = (CF + CI - 1) / CI;
+  const int n_stages = (C + GC - 1) / GC;
 
-  // h tile (zeros past E) and the first W3 slice: one cp.async group
-  load_h(sH, h, e0, rows, tid);
-  load_w(sW, w3, 0, CF, O, o0, tid);
+  // Chunk k's W3 (hi[, lo]) and b3 into ring stage k % RING, in one burst
+  // of 16-byte cp.async (CI NS 4 a thread for W3). i past CF reads slice
+  // CF - 1 (its V2 is 0).
+  auto stage_w = [&](int k) {
+    const int kb = k % RING;
+#pragma unroll
+    for (int r = 0; r < CI * NS * 4; ++r) {
+      const int half = r / (CI * 4), f = tid + (r % (CI * 4)) * NTHREADS;
+      const int ch = f & 7, ii = (f >> 3) % CI, m = (f >> 3) / CI;
+      const int i = min(k * CI + ii, CF - 1);
+      cp_async16(sW + ((size_t)(kb * CI + ii) * NS + half) * MID * BO + swz(m, ch * 8),
+                 (half ? wlo : whi) + ((size_t)m * CF + i) * O + o0 + ch * 8);
+    }
+    if (tid < CI * BO / 4) {
+      const int ii = tid / (BO / 4), part = tid % (BO / 4);
+      const int i = min(k * CI + ii, CF - 1);
+      cp_async16(sb3 + (kb * CI + ii) * BO + part * 4, b3 + (size_t)i * O + o0 + part * 4);
+    }
+  };
+  // x[tile, the GC channels of stage s, :] into sX (zeros past E and past
+  // C); a row's GC Q values are contiguous in memory
+  auto stage_x = [&](int s) {
+    float* dst = sX;
+    const int c0 = s * GC;
+    for (int idx = tid; idx < BE * GC * Q; idx += NTHREADS) {
+      const int r = idx / (GC * Q), j = idx - r * (GC * Q);
+      if (r < rows && c0 * Q + j < C * Q)
+        cp_async4(dst + r * XS + j, x + ((size_t)(e0 + r) * C + c0) * Q + j);
+      else
+        dst[r * XS + j] = 0.f;
+    }
+  };
+  // V2 of the staged x's stage into sV, as [row][i - stage start][p]:
+  // thread (row tid / 4, tid % 4) takes every 4th (p, f), reads its Q basis
+  // values once and contracts them with the GC staged x rows
+  auto build = [&]() {
+    const int r = tid >> 2;
+    const float* xr = sX + r * XS;
+    float xv[GC][Q];
+#pragma unroll
+    for (int cc = 0; cc < GC; ++cc)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) xv[cc][q] = xr[cc * Q + q];
+    const float* br = sB + r * PFQ;
+    float* vr = sV + r * RS;
+#pragma unroll
+    for (int pf = tid & 3; pf < P * F; pf += 4) {
+      const int p = pf / F, f = pf - p * F;
+      float b[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) b[q] = kPQF ? br[(p * Q + q) * F + f] : br[pf * Q + q];
+#pragma unroll
+      for (int cc = 0; cc < GC; ++cc) {
+        float v = 0.f;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) v = fmaf(b[q], xv[cc][q], v);
+        vr[(cc * F + f) * PP + p] = v;
+      }
+    }
+  };
+
+  // prologue, two cp.async groups: chunk 0's W3 and b3, the tile's basis
+  // rows (contiguous in either layout) and stage 0's x; chunk 1's W3 and b3
+  stage_w(0);
+  {
+    const float* src = basis + (size_t)e0 * PFQ;
+    const int n = rows * PFQ;
+    for (int idx = tid; idx < BE * PFQ / 4; idx += NTHREADS) {
+      const int j = idx * 4;
+      if (basis_quads && j + 4 <= n) {
+        cp_async16(sB + j, src + j);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (j + u < n)
+            cp_async4(sB + j + u, src + j + u);
+          else
+            sB[j + u] = 0.f;
+      }
+    }
+  }
+  stage_x(0);
   cp_async_commit();
-  // basis tile: the CTA's rows are contiguous in memory (either layout)
-  for (int idx = tid; idx < BE * PFQ; idx += NTHREADS)
-    sB[idx] = idx < rows * PFQ ? __ldg(basis + (size_t)e0 * PFQ + idx) : 0.f;
+  if (n_chunks > 1) stage_w(1);
+  cp_async_commit();
+
+  // h's A fragments (mma.sync m16n8k16 row-major A: rows e_lo, e_hi =
+  // we*16 + g (+8), columns kk*16 + 2t (+1) and + 8), straight from device
+  // memory while the copies fly; zeros past E
+  const int e_lo = we * 16 + g, e_hi = e_lo + 8;
+  uint32_t ahi[MID / 16][4], alo[kSplit ? MID / 16 : 1][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? e_hi : e_lo;
+    const bool live = row < rows;
+#pragma unroll
+    for (int kk = 0; kk < MID / 16; ++kk)
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+        const int col = kk * 16 + hc * 8 + 2 * t;
+        uint32_t& dh = ahi[kk][half + 2 * hc];
+        if constexpr (kSplit) {
+          const float2 v = live ? __ldg(reinterpret_cast<const float2*>(
+                                      h + (size_t)(e0 + row) * MID + col))
+                                : make_float2(0.f, 0.f);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v.x, v.y);
+          const __nv_bfloat162 lo =
+              __floats2bfloat162_rn(v.x - __low2float(hi), v.y - __high2float(hi));
+          dh = *reinterpret_cast<const uint32_t*>(&hi);
+          alo[kk][half + 2 * hc] = *reinterpret_cast<const uint32_t*>(&lo);
+        } else {
+          dh = live ? __ldg(reinterpret_cast<const uint32_t*>(h + (size_t)(e0 + row) * MID + col))
+                    : 0u;
+        }
+      }
+  }
+
+  cp_async_wait<1>();
+  __syncthreads();
+  build();
 
   float acc[P][4][4];
 #pragma unroll
@@ -85,81 +274,93 @@ pairwise_bxf_kernel(const T* __restrict__ h, const T* __restrict__ w3,
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[p][nb][v] = 0.f;
 
-  uint32_t afrag[8][4];
-  const int e_lo = we * 16 + g, e_hi = e_lo + 8;
+  const int j8 = lane >> 3, rr = lane & 7;
 
-  for (int i = 0; i < CF; ++i) {
-    const int c = i / F, f = i - c * F;
-    if (f == 0) {
-      // V2[e, p, c, f] for this c, all p and f, into sV
-      for (int idx = tid; idx < BE * Q; idx += NTHREADS) {
-        const int r = idx / Q, q = idx - r * Q;
-        sX[idx] = r < rows ? __ldg(x + ((size_t)(e0 + r) * C + c) * Q + q) : 0.f;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < BE * PF; idx += NTHREADS) {
-        const int r = idx / PF, pf = idx - r * PF;
-        const float* xr = sX + r * Q;
-        float v = 0.f;
-        if constexpr (kPQF) {
-          // B[e, p, q, f]: the q run of (p, f) has stride F
-          const int p = pf / F, ff = pf - p * F;
-          const float* bcol = sB + r * PFQ + p * Q * F + ff;
-#pragma unroll
-          for (int q = 0; q < Q; ++q) v = fmaf(bcol[q * F], xr[q], v);
-        } else {
-          const float* brow = sB + r * PFQ + pf * Q;
-#pragma unroll
-          for (int q = 0; q < Q; ++q) v = fmaf(brow[q], xr[q], v);
-        }
-        sV[idx] = v;
-      }
-    }
-    if (i + 1 < CF) {
-      load_w(sW + ((i + 1) & 1) * MID * WS, w3, i + 1, CF, O, o0, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  // Chunk k, behind one barrier: chunk k's W3 and b3 (issued two chunks
+  // ago) have landed, and every warp is done with chunk k - 1, whose ring
+  // stage chunk k + 2's copies now refill. At a stage's first chunk the
+  // stage's V2 is built first (its x issued in the previous stage's first
+  // chunk), behind a second barrier, and the next stage's x is issued.
+  for (int k = 0; k < n_chunks; ++k) {
+    cp_async_wait<1>();
     __syncthreads();
-
-    const T* sw = sW + (i & 1) * MID * WS;
-    float r[4][4];
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) r[nb][v] = 0.f;
-    if constexpr (kBf16) {
-      if (i == 0) load_afrag(afrag, sH, we, lane);
-      radial_tile(r, afrag, sw, wo, lane);
-    } else {
-      radial_tile_f32(r, sH, sw, e_lo, wo, t);
+    const int s = k / CPS, kin = k - s * CPS;
+    if (kin == 0 && k > 0) {
+      build();
+      __syncthreads();
     }
+    if (kin == 0 && s + 1 < n_stages) stage_x(s + 1);
+    if (k + 2 < n_chunks) stage_w(k + 2);
+    cp_async_commit();
+
+    // R = h.W3 for the chunk's CI values of i, their k-steps interleaved
+    const bf16* sw = sW + (size_t)(k % RING) * CI * NS * MID * BO;
+    float r[CI][4][4];
+#pragma unroll
+    for (int ii = 0; ii < CI; ++ii)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) r[ii][nb][v] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MID / 16; ++kk)
+#pragma unroll
+      for (int ii = 0; ii < CI; ++ii)
+#pragma unroll
+        for (int nb2 = 0; nb2 < 2; ++nb2) {
+          const bf16* swh = sw + (size_t)ii * NS * MID * BO;
+          const int off = swz(kk * 16 + (j8 & 1) * 8 + rr, wo * 32 + nb2 * 16 + (j8 >> 1) * 8);
+          float(&r0)[4] = r[ii][nb2 * 2 + 0];
+          float(&r1)[4] = r[ii][nb2 * 2 + 1];
+          uint32_t bh[4];
+          ldmatrix_x4_trans(bh, swh + off);
+          mma_bf16(r0, ahi[kk], bh[0], bh[1]);
+          mma_bf16(r1, ahi[kk], bh[2], bh[3]);
+          if constexpr (kSplit) {
+            uint32_t bl[4];
+            ldmatrix_x4_trans(bl, swh + MID * BO + off);
+            mma_bf16(r0, ahi[kk], bl[0], bl[1]);
+            mma_bf16(r1, ahi[kk], bl[2], bl[3]);
+            mma_bf16(r0, alo[kk], bh[0], bh[1]);
+            mma_bf16(r1, alo[kk], bh[2], bh[3]);
+          }
+        }
 
     // epilogue: acc[p] += V2[e, p, i] * (R + b3)
-    float vl[P], vh[P];
+    const float* sbb = sb3 + (k % RING) * CI * BO + wo * 32 + 2 * t;
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      vl[p] = sV[e_lo * PF + p * F + f];
-      vh[p] = sV[e_hi * PF + p * F + f];
-    }
+    for (int ii = 0; ii < CI; ++ii) {
+      float vl[PP], vh[PP];
+      const float* svl = sV + e_lo * RS + (kin * CI + ii) * PP;
+      const float* svh = svl + 8 * RS;
+      if constexpr (PP == 1) {
+        vl[0] = svl[0];
+        vh[0] = svh[0];
+      } else {
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const int col = o0 + wo * 32 + nb * 8 + 2 * t;
-      const float2 bb = __ldg(reinterpret_cast<const float2*>(b3 + (size_t)i * O + col));
-      const float r0 = r[nb][0] + bb.x, r1 = r[nb][1] + bb.y;
-      const float r2 = r[nb][2] + bb.x, r3 = r[nb][3] + bb.y;
+        for (int u = 0; u < PP / 4; ++u) {
+          const float4 a = *reinterpret_cast<const float4*>(svl + 4 * u);
+          const float4 b = *reinterpret_cast<const float4*>(svh + 4 * u);
+          vl[4 * u] = a.x, vl[4 * u + 1] = a.y, vl[4 * u + 2] = a.z, vl[4 * u + 3] = a.w;
+          vh[4 * u] = b.x, vh[4 * u + 1] = b.y, vh[4 * u + 2] = b.z, vh[4 * u + 3] = b.w;
+        }
+      }
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        acc[p][nb][0] = fmaf(vl[p], r0, acc[p][nb][0]);
-        acc[p][nb][1] = fmaf(vl[p], r1, acc[p][nb][1]);
-        acc[p][nb][2] = fmaf(vh[p], r2, acc[p][nb][2]);
-        acc[p][nb][3] = fmaf(vh[p], r3, acc[p][nb][3]);
+      for (int nb = 0; nb < 4; ++nb) {
+        const float2 bb = *reinterpret_cast<const float2*>(sbb + ii * BO + nb * 8);
+        const float r0 = r[ii][nb][0] + bb.x, r1 = r[ii][nb][1] + bb.y;
+        const float r2 = r[ii][nb][2] + bb.x, r3 = r[ii][nb][3] + bb.y;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          acc[p][nb][0] = fmaf(vl[p], r0, acc[p][nb][0]);
+          acc[p][nb][1] = fmaf(vl[p], r1, acc[p][nb][1]);
+          acc[p][nb][2] = fmaf(vh[p], r2, acc[p][nb][2]);
+          acc[p][nb][3] = fmaf(vh[p], r3, acc[p][nb][3]);
+        }
       }
     }
-    __syncthreads();  // sW[i & 1] and sV are rewritten next
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int p = 0; p < P; ++p)
@@ -177,29 +378,50 @@ pairwise_bxf_kernel(const T* __restrict__ h, const T* __restrict__ w3,
 
 template <typename T, int P, int Q, bool kPQF>
 cudaError_t launch(const void* h, const void* w3, const void* b3, const void* basis,
-                   const void* x, void* out, int E, int C, int O, cudaStream_t stream) {
-  constexpr int F = P < Q ? P : Q;
-  constexpr size_t smem =
-      sizeof(T) * (size_t)(BE * Tile<T>::HS + 2 * MID * Tile<T>::WS) +
-      sizeof(float) * (size_t)(BE * P * F * Q + BE * Q + BE * P * F);
+                   const void* x, void* out, void* w3_split, int E, int C, int O, int chunk,
+                   int stage_c, cudaStream_t stream) {
+  constexpr bool kSplit = sizeof(T) == 4;
+  using Cfg = BxfCfg<kSplit, P, Q>;
+  // the caller's chunk and stage sizes (kernels/pairwise.py::bxf_tiles)
+  // must be the tile's own
+  if (chunk != Cfg::CI || stage_c != Cfg::GC) return cudaErrorInvalidValue;
+  const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
+  cudaError_t err;
+  if constexpr (kSplit) {
+    // float32 W3 [MID, C*F, O] (a whole number of float4s) into its bf16
+    // hi and lo arrays
+    const size_t n4 = (size_t)MID * C * Cfg::F * O / 4;
+    const size_t need = (n4 + NTHREADS - 1) / NTHREADS;
+    const unsigned blocks = (unsigned)(need < 4096 ? need : 4096);
+    uint2* hi = static_cast<uint2*>(w3_split);
+    split_bf16_kernel<<<blocks, NTHREADS, 0, stream>>>(static_cast<const float4*>(w3), n4, hi,
+                                                        hi + n4);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    whi = static_cast<const bf16*>(w3_split);
+    wlo = whi + 4 * n4;
+  }
   auto kern = pairwise_bxf_kernel<T, P, Q, kPQF>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
   if (err != cudaSuccess) return err;
+  // 16-byte basis copies need the tile's rows to start on 16 bytes (a
+  // tile is 64 rows, so every tile does when the first does)
+  const int basis_quads = reinterpret_cast<uintptr_t>(basis) % 16 == 0;
   dim3 grid((E + BE - 1) / BE, O / BO);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w3), static_cast<const float*>(b3),
+  kern<<<grid, NTHREADS, Cfg::SMEM, stream>>>(
+      static_cast<const T*>(h), whi, wlo, static_cast<const float*>(b3),
       static_cast<const float*>(basis), static_cast<const float*>(x),
-      static_cast<float*>(out), E, C, O);
+      static_cast<float*>(out), E, C, O, basis_quads);
   return cudaGetLastError();
 }
 
 template <typename T, bool kPQF>
 cudaError_t dispatch(int P, int Q, const void* h, const void* w3, const void* b3,
-                     const void* basis, const void* x, void* out, int E, int C, int O,
-                     cudaStream_t s) {
-#define SE3_PQ(PP, QQ) \
-  if (P == PP && Q == QQ) return launch<T, PP, QQ, kPQF>(h, w3, b3, basis, x, out, E, C, O, s);
+                     const void* basis, const void* x, void* out, void* w3_split, int E,
+                     int C, int O, int chunk, int stage_c, cudaStream_t s) {
+#define SE3_PQ(PP, QQ)                                                                    \
+  if (P == PP && Q == QQ)                                                                 \
+    return launch<T, PP, QQ, kPQF>(h, w3, b3, basis, x, out, w3_split, E, C, O, chunk,   \
+                                   stage_c, s);
 #define SE3_P(PP) SE3_PQ(PP, 1) SE3_PQ(PP, 3) SE3_PQ(PP, 5) SE3_PQ(PP, 7)
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
 #undef SE3_P
@@ -209,34 +431,42 @@ cudaError_t dispatch(int P, int Q, const void* h, const void* w3, const void* b3
 
 template <bool kPQF>
 int entry(const void* h, const void* w3, const void* b3, const void* basis, const void* x,
-          void* out, int E, int C, int O, int P, int Q, int h_is_bf16, void* stream) {
+          void* out, void* w3_split, int E, int C, int O, int P, int Q, int chunk,
+          int stage_c, int h_is_bf16, void* stream) {
   if (E <= 0) return 0;
   if (O <= 0 || O % BO != 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      h_is_bf16 ? dispatch<__nv_bfloat16, kPQF>(P, Q, h, w3, b3, basis, x, out, E, C, O, s)
-                : dispatch<float, kPQF>(P, Q, h, w3, b3, basis, x, out, E, C, O, s);
+      h_is_bf16 ? dispatch<bf16, kPQF>(P, Q, h, w3, b3, basis, x, out, w3_split, E, C, O, chunk,
+                                       stage_c, s)
+                : dispatch<float, kPQF>(P, Q, h, w3, b3, basis, x, out, w3_split, E, C, O,
+                                        chunk, stage_c, s);
   return (int)err;
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns the launch status
-// (cudaGetLastError() right after the launch); 0 is success. Pointers are
-// device pointers to contiguous tensors; the caller checks shapes: mid ==
-// 128, O % 64 == 0, P and Q in {1, 3, 5, 7}, h/w3 bf16 or f32, the rest f32.
-// se3_pairwise_bxf takes the flat basis [E, P*F*Q] in (p, f, q) order,
-// se3_pairwise_bx the structured basis [E, P, Q, F].
+// (cudaGetLastError() right after the launches); 0 is success. Pointers are
+// device pointers to contiguous tensors, h, w3 and b3 starting on 16 bytes;
+// the caller checks shapes: mid == 128, O % 64 == 0, P and Q in {1, 3, 5,
+// 7}, h/w3 bf16 or f32, the rest f32. se3_pairwise_bxf takes the flat basis
+// [E, P*F*Q] in (p, f, q) order, se3_pairwise_bx the structured basis
+// [E, P, Q, F]. chunk and stage_c are bxf_tiles' (checked). With float32
+// h/w3, w3_split holds 2 * 128 * C*F * O bf16 (W3's hi array, then its lo
+// array); it is not read otherwise.
 extern "C" int se3_pairwise_bxf(const void* h, const void* w3, const void* b3,
-                                const void* basis, const void* x, void* out, int E,
-                                int C, int O, int P, int Q, int h_is_bf16,
-                                void* stream) {
-  return entry<false>(h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream);
+                                const void* basis, const void* x, void* out, void* w3_split,
+                                int E, int C, int O, int P, int Q, int chunk, int stage_c,
+                                int h_is_bf16, void* stream) {
+  return entry<false>(h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk, stage_c,
+                      h_is_bf16, stream);
 }
 
 extern "C" int se3_pairwise_bx(const void* h, const void* w3, const void* b3,
-                               const void* basis, const void* x, void* out, int E,
-                               int C, int O, int P, int Q, int h_is_bf16,
-                               void* stream) {
-  return entry<true>(h, w3, b3, basis, x, out, E, C, O, P, Q, h_is_bf16, stream);
+                               const void* basis, const void* x, void* out, void* w3_split,
+                               int E, int C, int O, int P, int Q, int chunk, int stage_c,
+                               int h_is_bf16, void* stream) {
+  return entry<true>(h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk, stage_c,
+                     h_is_bf16, stream);
 }

@@ -145,6 +145,40 @@ def _check(h, w3, basis_flat, x, pqf, b3, structured=False):
     return E, C, O
 
 
+def bxf_tiles(P: int, Q: int, dtype: torch.dtype):
+    """(chunk, stage_c) of kernels #1 and #2 (csrc/pairwise_bxf.cu): the
+    values of i = (c, f) walked behind one barrier (2 for bf16 h/w3; 1 for
+    float32, whose three bf16 passes make a chunk as long), and the channels
+    c whose V2 one stage builds: a whole number of chunks, at least 3, so
+    that a stage's x rows land before its build. A function of (P, Q, dtype)
+    alone; the kernel refuses a launch whose values are not its own."""
+    F = min(P, Q)
+    chunk = 2 if dtype == torch.bfloat16 else 1
+    return chunk, 3 * chunk if F == 1 else chunk
+
+
+def _launch_bxf(fn, h, w3, b3, basis, x, P, Q, C, O):
+    """Launch kernel #1 (fn = se3_pairwise_bxf) or #2 (se3_pairwise_bx);
+    float32 w3 is split into its bf16 hi and lo arrays by the launch's own
+    split pass, into scratch allocated here."""
+    E = h.shape[0]
+    out = torch.empty(E, P, O, dtype=torch.float32, device=h.device)
+    if E == 0:
+        return out
+    h, w3, b3 = _aligned(h), _aligned(w3), _aligned(b3)
+    bf16 = h.dtype == torch.bfloat16
+    w3_split = w3 if bf16 else torch.empty(
+        2 * w3.numel(), dtype=torch.bfloat16, device=h.device)
+    chunk, stage_c = bxf_tiles(P, Q, h.dtype)
+    with torch.cuda.device(h.device):
+        rc = fn(h.data_ptr(), w3.data_ptr(), b3.data_ptr(), basis.data_ptr(),
+                x.data_ptr(), out.data_ptr(), w3_split.data_ptr(), E, C, O, P,
+                Q, chunk, stage_c, int(bf16), _stream(h))
+    if rc != 0:
+        raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {rc}')
+    return out
+
+
 def fused_pairwise_conv_bxf(h: torch.Tensor, w3: torch.Tensor,
                             basis_flat: torch.Tensor, x: torch.Tensor,
                             pqf, b3: torch.Tensor) -> torch.Tensor:
@@ -156,21 +190,11 @@ def fused_pairwise_conv_bxf(h: torch.Tensor, w3: torch.Tensor,
     if h.device.type != 'cuda':
         raise ValueError(f'no kernel for device {h.device}')
     E, C, O = _check(h, w3, basis_flat, x, pqf, b3)
-    P, Q, _ = pqf
-    out = torch.empty(E, P, O, dtype=torch.float32, device=h.device)
-    if E == 0:
-        return out
     from .build import load_library
-    lib = load_library()
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = lib.se3_pairwise_bxf(
-            h.data_ptr(), w3.data_ptr(), b3.data_ptr(), basis_flat.data_ptr(),
-            x.data_ptr(), out.data_ptr(), E, C, O, P, Q,
-            int(h.dtype == torch.bfloat16), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f'se3_pairwise_bxf launch failed: CUDA error {rc}')
-    fused_pairwise_conv_bxf.launches += 1
+    out = _launch_bxf(load_library().se3_pairwise_bxf, h, w3, b3, basis_flat,
+                      x, pqf[0], pqf[1], C, O)
+    if E:
+        fused_pairwise_conv_bxf.launches += 1
     return out
 
 
@@ -220,18 +244,11 @@ def fused_pairwise_conv_bx(h: torch.Tensor, w3: torch.Tensor,
     if h.device.type != 'cuda':
         raise ValueError(f'no kernel for device {h.device}')
     E, C, O, (P, Q, _) = _check_bx(h, w3, basis, x, b3)
-    out = torch.empty(E, P, O, dtype=torch.float32, device=h.device)
-    if E == 0:
-        return out
     from .build import load_library
-    with torch.cuda.device(h.device):
-        rc = load_library().se3_pairwise_bx(
-            h.data_ptr(), w3.data_ptr(), b3.data_ptr(), basis.data_ptr(),
-            x.data_ptr(), out.data_ptr(), E, C, O, P, Q,
-            int(h.dtype == torch.bfloat16), _stream(h))
-    if rc != 0:
-        raise RuntimeError(f'se3_pairwise_bx launch failed: CUDA error {rc}')
-    fused_pairwise_conv_bx.launches += 1
+    out = _launch_bxf(load_library().se3_pairwise_bx, h, w3, b3, basis, x, P,
+                      Q, C, O)
+    if E:
+        fused_pairwise_conv_bx.launches += 1
     return out
 
 
@@ -443,8 +460,8 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, or a copy of it that starts on 16 bytes (kernel A's 16-byte
-    copies of h, W3 and g need that)."""
+    """t, or a copy of it that starts on 16 bytes (the kernels' 16-byte
+    copies and vector loads need that)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

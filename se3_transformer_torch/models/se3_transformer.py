@@ -238,6 +238,9 @@ class SE3TransformerModule(nn.Module):
                 raise NotImplementedError(f'{what} is not ported')
         self.num_degrees = num_degrees
         self.output_degrees = output_degrees
+        # always False: differentiable_coors=True is refused above
+        self.differentiable_coors = jax_fields.get('differentiable_coors',
+                                                   False)
         self.valid_radius = valid_radius
         self.num_neighbors = num_neighbors
         # reversible blocks imply the output norm (JAX _body)
@@ -313,6 +316,7 @@ class SE3TransformerModule(nn.Module):
         # conv_in and conv_out always take the per-pair basis; the fused
         # attention blocks take the SH stack
         basis = get_basis(hood.rel_pos, self.num_degrees - 1,
+                          differentiable=self.differentiable_coors,
                           layout=self.basis_layout)
         if any(self.fused_attention):
             basis['flash_sh'] = flash_sh_payload(hood.rel_pos,

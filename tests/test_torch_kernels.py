@@ -41,8 +41,8 @@ def test_cpu_tensors_never_count_a_launch():
     assert kp.fused_pairwise_conv_bxf.launches == before
 
 
-def _kernel_args(di=1, do=2, e=96, dtype=torch.bfloat16):
-    a = _operands(di, do, seed=3, e=e, mid=kp.MID, c=5, o=kp.O_TILE)
+def _kernel_args(di=1, do=2, e=96, dtype=torch.bfloat16, c=5):
+    a = _operands(di, do, seed=3, e=e, mid=kp.MID, c=c, o=kp.O_TILE)
     t = {k: torch.from_numpy(a[k]) for k in ('h', 'w3', 'basis', 'x', 'b3')}
     return [t['h'].to(dtype), t['w3'].to(dtype), t['basis'], t['x'],
             a['pqf'], t['b3']]
@@ -88,20 +88,31 @@ def cuda_card():
         pytest.skip('needs a CUDA card (the kernel has no CPU mode)')
 
 
+# kernels #1 and #2 on the card: every (P, Q) at a ragged E with C = 5
+# (an odd C*F: a last chunk half past the last i, a ragged last V2 stage),
+# and the flagship's C = 64 (many stages) at whole and ragged E
+BXF_CASES = ([(di, do, 61 + 13 * (4 * di + do), 5)
+              for di in range(4) for do in range(4)]
+             + [(0, 0, 1000, 64), (3, 3, 200, 64), (2, 1, 1024, 64),
+                (1, 3, 77, 64), (3, 0, 131, 64), (0, 3, 64, 64)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('di,do,e', [(0, 0, 64), (3, 3, 200), (2, 1, 1000),
-                                     (1, 3, 77)])
-def test_cuda_kernel_matches_plain(cuda_card, di, do, e, dtype):
+@pytest.mark.parametrize('di,do,e,c', BXF_CASES)
+def test_cuda_kernel_matches_plain(cuda_card, di, do, e, c, dtype):
+    """Kernel #1 against its plain version within 1e-4 of max|plain|, and
+    the same bits on a repeat."""
     torch.backends.cuda.matmul.allow_tf32 = False
     args = [a.cuda() if isinstance(a, torch.Tensor) else a
-            for a in _kernel_args(di, do, e, dtype)]
+            for a in _kernel_args(di, do, e, dtype, c)]
     before = kp.fused_pairwise_conv_bxf.launches
     out = kp.fused_pairwise_conv_bxf(*args)
     torch.cuda.synchronize()
     assert kp.fused_pairwise_conv_bxf.launches == before + 1
     ref = kp.fused_pairwise_conv_bxf_plain(*args)
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(out, kp.fused_pairwise_conv_bxf(*args))
 
 
 def _bwd_args(di=1, do=2, e=96, c=5, dtype=torch.bfloat16, seed=4):
@@ -583,10 +594,10 @@ def test_cuda_flash_kernel_matches_plain(cuda_card, h_dtype, d_out, n, K,
 # ---------------------------------------------------------------------- #
 # kernel #2: the basis-fused forward with the structured basis
 # ---------------------------------------------------------------------- #
-def _bx_args(di=1, do=2, e=96, dtype=torch.bfloat16):
+def _bx_args(di=1, do=2, e=96, dtype=torch.bfloat16, c=5):
     """Kernel #1's operands with the basis in get_basis's [E, P, Q, F]
     layout, and the same basis flat, for the bxf yardstick."""
-    args = _kernel_args(di, do, e, dtype)
+    args = _kernel_args(di, do, e, dtype, c)
     P, Q, F = args[4]
     structured = args[2].reshape(e, P, F, Q).transpose(2, 3).contiguous()
     return [args[0], args[1], structured, args[3], args[5]], args
@@ -625,13 +636,12 @@ def test_bx_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('di,do,e', [(0, 0, 64), (3, 3, 200), (2, 1, 1000),
-                                     (1, 3, 77)])
-def test_cuda_bx_kernel_matches_plain_and_bxf(cuda_card, di, do, e, dtype):
+@pytest.mark.parametrize('di,do,e,c', BXF_CASES)
+def test_cuda_bx_kernel_matches_plain_and_bxf(cuda_card, di, do, e, c, dtype):
     """Kernel #2 against its plain version, and against kernel #1 on the
     same basis flattened: the one tile with two indexings, bit for bit."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    args, flat = _bx_args(di, do, e, dtype)
+    args, flat = _bx_args(di, do, e, dtype, c)
     args = [a.cuda() for a in args]
     flat = [a.cuda() if isinstance(a, torch.Tensor) else a for a in flat]
     before = kp.fused_pairwise_conv_bx.launches

@@ -15,7 +15,7 @@ import torch
 from se3_transformer_tpu import SE3TransformerModule as JaxModule
 from se3_transformer_torch import (
     InferenceEngine, SE3TransformerModule, convert_flax_params, flagship,
-    flagship_fast, pad_to_bucket,
+    flagship_fast, get_basis, pad_to_bucket,
 )
 from se3_transformer_torch.kernels import pairwise as kp
 from se3_transformer_torch.so3 import rot
@@ -115,6 +115,60 @@ def test_slice_rotation_invariant(bf16):
     assert (out - out_r).abs().max() < 1e-4
 
 
+# the kNN paths that take the per-pair basis: flat basis (kernel #1's
+# layout), structured basis (#2's), and fuse_pairwise, whose conv_in and
+# conv_out take the per-pair basis and whose attention takes the SH stack
+COORS_GRAD_CASES = {'fuse_basis': dict(),
+                    'structured basis': dict(fuse_basis=False),
+                    'fuse_pairwise': dict(fuse_pairwise=True)}
+
+
+@pytest.mark.parametrize('case', list(COORS_GRAD_CASES))
+def test_coordinate_gradient_matches_jax_grad(case):
+    """With differentiable_coors=False the basis takes no gradient (JAX's
+    stop_gradient), and only the radial distances carry one to the
+    coordinates: the port's gradient of the summed output with respect to
+    the coordinates matches jax.grad within RTOL_F32 of its largest value
+    (float32 trunk)."""
+    cfg = dict(TWIN, radial_bf16=False, **COORS_GRAD_CASES[case])
+    feats, coors, mask = _inputs()
+    jm = JaxModule(**cfg)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), feats, coors, mask=mask,
+        return_type=0))['params']
+    params = _random_params(shapes, seed=1)
+    ref = np.asarray(jax.jit(jax.grad(lambda c: jm.apply(
+        {'params': params}, feats, c, mask=mask, return_type=0).sum()))(
+            coors))
+    tm = SE3TransformerModule(**cfg, device='cpu')
+    tm.load_state_dict(convert_flax_params(params, tm))
+    tc = torch.from_numpy(coors).requires_grad_()
+    tm(torch.from_numpy(feats), tc, torch.from_numpy(mask)).sum().backward()
+    got = tc.grad.numpy()
+    assert got.shape == ref.shape == (1, N, 3)
+    assert np.isfinite(got).all() and np.abs(ref).max() > 0
+    assert np.abs(got - ref).max() <= RTOL_F32 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize('layout', ['pqf', 'pfq_flat'])
+def test_basis_takes_no_gradient_unless_differentiable(layout):
+    """get_basis(..., differentiable=False), the default, returns tensors
+    with no grad path to rel_pos; differentiable=True keeps the path."""
+    rel = torch.from_numpy(np.random.RandomState(6).normal(
+        size=(5, 3)).astype(np.float32)).requires_grad_()
+    for differentiable in (False, True):
+        basis = get_basis(rel, 2, differentiable=differentiable,
+                          layout=layout)
+        # the (0, 0) basis is a constant either way
+        assert [k for k, v in basis.items() if v.requires_grad] == (
+            [k for k in basis if k != '0,0'] if differentiable else [])
+    assert all(v.grad_fn is None for v in
+               get_basis(rel, 2, layout=layout).values())
+    outs = [v for k, v in basis.items() if k != '0,0']
+    torch.autograd.backward(outs, [torch.ones_like(v) for v in outs])
+    assert rel.grad is not None and torch.isfinite(rel.grad).all()
+
+
 # the call that raised before attend_self defaulted to True: every other
 # field at its default on both sides
 DEFAULTS_CALL = dict(dim=8, heads=2, dim_head=4, depth=1, num_degrees=2,
@@ -189,7 +243,7 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize('field,value', [
     ('causal', True), ('num_positions', 4), ('shared_radial_hidden', False),
     ('conv_bf16', True), ('attend_self', False), ('output_degrees', 3),
-    ('use_null_kv', True)])
+    ('use_null_kv', True), ('differentiable_coors', True)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError):
         SE3TransformerModule(**dict(TWIN, **{field: value}), device='cpu')

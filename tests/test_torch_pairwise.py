@@ -358,6 +358,64 @@ def test_kernel_b_float32_passes_meet_the_kernel_bar():
     assert (one_pass - plain).abs().max() > KERNEL_RTOL * scale
 
 
+def _bxf_split(h, w3, basis_flat, x, pqf, b3, passes=3):
+    """The float32 arithmetic of kernels #1 and #2 (csrc/pairwise_bxf.cu),
+    emulated in torch: V2 in float32, h and W3 split into bf16 hi and lo, R
+    = h_hi.W_hi + h_hi.W_lo + h_lo.W_hi (passes=3; products of bf16 values
+    are exact in float32, sums float32) or h_hi.W_hi alone (passes=1), plus
+    b3, then the float32 apply."""
+    P, Q, F = pqf
+    E, mid = h.shape
+    C = x.shape[1]
+    O = w3.shape[-1]
+    v2 = torch.einsum('epfq,ecq->epcf', basis_flat.reshape(E, P, F, Q),
+                      x).reshape(E, P, C * F)
+    hh, hl = _bf16_split(h)
+    wh, wl = (t.reshape(mid, C * F * O) for t in _bf16_split(w3))
+    R = hh @ wh
+    if passes == 3:
+        R = R + hh @ wl + hl @ wh
+    return torch.bmm(v2, R.reshape(E, C * F, O) + b3)
+
+
+def test_bxf_float32_passes_meet_the_kernel_bar():
+    """Kernel #1's float32 arithmetic on the tensor cores (three bf16
+    passes over h and W3 split into hi + lo) on a few hundred edges at the
+    flagship's (3,3) pair (mid 128, C 64, O 64, P = Q = F = 7) is within
+    KERNEL_RTOL of max|plain| of fused_pairwise_conv_bxf_plain, so the
+    card's float32 kernel has its error budget before it runs; one bf16
+    pass is not."""
+    a = _operands(3, 3, seed=47, e=300, mid=kp.MID, c=64, o=64)
+    assert a['w3'].shape == (128, 448, 64)
+    t = {k: torch.from_numpy(a[k]) for k in ('h', 'w3', 'basis', 'x', 'b3')}
+    args = (t['h'], t['w3'], t['basis'], t['x'], a['pqf'], t['b3'])
+    plain = kp.fused_pairwise_conv_bxf_plain(*args)
+    split = _bxf_split(*args)
+    assert split.shape == plain.shape == (300, 7, 64)
+    scale = plain.abs().max()
+    assert 0 < (split - plain).abs().max() <= KERNEL_RTOL * scale
+    one_pass = _bxf_split(*args, passes=1)
+    assert (one_pass - plain).abs().max() > KERNEL_RTOL * scale
+
+
+@pytest.mark.parametrize('dtype', kp.DTYPES)
+@pytest.mark.parametrize('P,Q', [(P_, Q_) for P_ in kp.ORDERS
+                                 for Q_ in kp.ORDERS])
+def test_bxf_tiles_are_a_function_of_the_shapes(P, Q, dtype):
+    """Kernels #1 and #2 take their chunk of i (one barrier each) and their
+    V2 stage from (P, Q, dtype) alone, so their sums, and so their output
+    bit for bit, are the same on every run and for both basis layouts; a
+    stage is a whole number of chunks, at least 3 (its x rows, issued in
+    the previous stage's first chunk, land before its first chunk), and the
+    float32 chunk is one i (its three bf16 passes make it as long)."""
+    chunk, stage_c = kp.bxf_tiles(P, Q, dtype)
+    assert kp.bxf_tiles(P, Q, dtype) == (chunk, stage_c)
+    F = min(P, Q)
+    assert chunk == (2 if dtype == torch.bfloat16 else 1)
+    assert (stage_c * F) % chunk == 0 and stage_c * F // chunk >= 3
+    assert stage_c in (chunk, 3 * chunk)
+
+
 @pytest.mark.parametrize('do,n_in,dtype', [(1, 3, 'float32'),
                                            (3, 2, 'bfloat16')])
 def test_contract_op_matches_jax_vjp(do, n_in, dtype):

@@ -687,12 +687,17 @@ def phase_attention(peaks):
 
 
 def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks):
-    """(bound_ms, bound_by, flops) of one flash_attention call: each input
-    read once (q, the node features, idx, the mask, h_k and h_v, both
-    convs' w3 and b3, the SH stack, the prefix slots), the output written
-    once. The operations: the basis and V2 once, the radial products and
-    applies of k and v, the attention; all float32 on the CUDA cores."""
-    _, f32_peak, mem = peaks
+    """(bound_ms, bound_by, flops, bound_ms_fma) of one flash_attention
+    call: each input read once (q, the node features, idx, the mask, h_k
+    and h_v, both convs' w3 and b3, the SH stack, the prefix slots), the
+    output written once. The operations: the radial products of k and v on
+    the tensor cores as bf16 passes over W3 split into hi + lo (two with
+    bf16 h, three with float32 h: the kernel's h.W_hi + h.W_lo [+
+    h_lo.W_hi]), beside the float32 work on the CUDA cores (the basis and
+    V2 once, the applies of k and v, the attention); the operations take
+    the longer of the two pipes. bound_ms_fma is the bound with all of it
+    on fp32 FMAs (what the kernel's earlier version ran)."""
+    bf16_peak, f32_peak, mem = peaks
     E, mid, O, P = n * K, 128, 64, 2 * d_out + 1
     IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
     basis = v2 = 0.0
@@ -705,72 +710,94 @@ def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks):
     apply = 2 * 2.0 * E * P * IF * O
     attn = 4.0 * n * heads * (S0 + K) * Dh
     flops = basis + v2 + radial + apply + attn
+    passes = 2 if h_bytes == 2 else 3
     nbytes = (2 * n * heads * Dh * 4 + sum(n * c * (2 * d + 1) * 4
                                            for d, c in pairs)
               + E * 8 + E + 2 * E * mid * h_bytes + 2 * (mid + 1) * IF * O * 4
               + E * S * 4 + 2 * n * S0 * heads * Dh * 4)
-    ops_s, bytes_s = flops / f32_peak, nbytes / mem
+    ops_s = max(passes * radial / bf16_peak,
+                (basis + v2 + apply + attn) / f32_peak)
+    bytes_s = nbytes / mem
+    fma_s = max(flops / f32_peak, bytes_s)
     return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes', flops
+        'operations' if ops_s >= bytes_s else 'bytes', flops, fma_s * 1e3
+
+
+def flash_operands(gen, n, K, d_out, h_dtype, prefix, heads=8, mid=128):
+    """(cfg, ops) of one flash_attention call at the flagship_fast widths:
+    four input degrees of 64 channels, the self slot as the prefix, float32
+    w3 scaled to keep k and v O(1), a 5% neighbor mask."""
+    from se3_transformer_torch.kernels import flash as kf
+    pairs = tuple((d, 64) for d in range(4))
+    Dh = 8 * (2 * d_out + 1)
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    w = (mid * IF) ** -0.5
+
+    def rand(*shape, s=1.0):
+        return torch.randn(*shape, device='cuda', generator=gen) * s
+    ops = dict(q=rand(1, n, heads, Dh),
+               xs=tuple(rand(1, n, c, 2 * d + 1) for d, c in pairs),
+               idx=torch.randint(0, n, (1, n, K), device='cuda',
+                                 generator=gen),
+               nmask=torch.rand(1, n, K, device='cuda', generator=gen) > 0.05,
+               h_v=rand(1, n, K, mid).to(h_dtype),
+               h_k=rand(1, n, K, mid).to(h_dtype),
+               wv=rand(mid, IF, 64, s=w), wk=rand(mid, IF, 64, s=w),
+               bv=rand(IF, 64, s=0.1), bk=rand(IF, 64, s=0.1),
+               sh=kf.flash_sh_payload(rand(1, n, K, 3), 3),
+               prefix_k=rand(1, n, prefix, heads * Dh) if prefix else None,
+               prefix_v=rand(1, n, prefix, heads * Dh) if prefix else None)
+    cfg = kf.FlashConfig(pairs=pairs, d_out=d_out, heads=heads,
+                         kv_heads=heads, scale=8 ** -0.5, prefix=prefix)
+    return cfg, ops
 
 
 def phase_flash(peaks):
     """Kernel #7 against its plain version (the chunked stream) at the
-    four flagship_fast output degrees: n 1024, K 32, the self slot as the
-    one prefix slot, four input degrees of 64 channels, bf16 h, float32
-    w3 scaled to keep k and v O(1); relative error, times and bound."""
+    four flagship_fast output degrees (n 1024, K 32, the self slot as the
+    one prefix slot, four input degrees of 64 channels, bf16 h), then with
+    float32 h at d_out 3 and on a ragged call (n 1023, K 30, no prefix,
+    bf16 h, d_out 2): each within KERNEL_RTOL of max|plain| and the same
+    bits on a repeat; times and bounds. The block's rows (the four
+    degrees) are returned for the kernels line, the other two logged."""
     from se3_transformer_torch.kernels import flash as kf
     gen = torch.Generator(device='cuda').manual_seed(12)
-    n, K, heads, mid = 1024, 32, 8, 128
-    pairs = tuple((d, 64) for d in range(4))
-    idx = torch.randint(0, n, (1, n, K), device='cuda', generator=gen)
-    nmask = torch.rand(1, n, K, device='cuda', generator=gen) > 0.05
-    rel = torch.randn(1, n, K, 3, device='cuda', generator=gen)
-    sh = kf.flash_sh_payload(rel, 3)
-    xs = tuple(torch.randn(1, n, c, 2 * d + 1, device='cuda', generator=gen)
-               for d, c in pairs)
-    h_v, h_k = (torch.randn(1, n, K, mid, device='cuda', generator=gen)
-                .to(torch.bfloat16) for _ in range(2))
+    cases = [(1024, 32, d_out, torch.bfloat16, 1) for d_out in range(4)]
+    cases += [(1024, 32, 3, torch.float32, 1), (1023, 30, 2, torch.bfloat16, 0)]
     rows, worst = [], 0.0
-    for d_out in range(4):
-        P = 2 * d_out + 1
-        Dh = 8 * P
-        IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
-        w = (mid * IF) ** -0.5
-
-        def rand(*shape, s=1.0):
-            return torch.randn(*shape, device='cuda', generator=gen) * s
-        ops = dict(q=rand(1, n, heads, Dh), xs=xs, idx=idx, nmask=nmask,
-                   h_v=h_v, h_k=h_k, wv=rand(mid, IF, 64, s=w),
-                   wk=rand(mid, IF, 64, s=w), bv=rand(IF, 64, s=0.1),
-                   bk=rand(IF, 64, s=0.1), sh=sh,
-                   prefix_k=rand(1, n, 1, heads * Dh),
-                   prefix_v=rand(1, n, 1, heads * Dh))
-        cfg = kf.FlashConfig(pairs=pairs, d_out=d_out, heads=heads,
-                             kv_heads=heads, scale=8 ** -0.5, prefix=1)
+    for n, K, d_out, h_dtype, prefix in cases:
+        cfg, ops = flash_operands(gen, n, K, d_out, h_dtype, prefix)
+        label = (f'flash d_out={d_out} n={n} K={K} '
+                 f'{str(h_dtype).split(".")[-1]}')
         out = kf.flash_attention_fwd(cfg, ops)
         again = kf.flash_attention_fwd(cfg, ops)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
-            raise AssertionError(f'flash d_out={d_out}: two runs differ')
+            raise AssertionError(f'{label}: two runs differ')
         ref = kf.flash_attention_plain(cfg, ops)
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
         if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
-            raise AssertionError(f'flash d_out={d_out}: max_abs_err {err} > '
+            raise AssertionError(f'{label}: max_abs_err {err} > '
                                  f'{KERNEL_RTOL} * max|plain| {scale}')
         worst = max(worst, err)
         del out, again, ref
         ms = cuda_ms(lambda: kf.flash_attention_fwd(cfg, ops), reps=5)
         plain_ms = cuda_ms(lambda: kf.flash_attention_plain(cfg, ops),
                            reps=2)
-        bound_ms, bound_by, flops = flash_cost(
-            n, K, pairs, d_out, heads, Dh, sh.shape[-1], 1, 2, peaks)
-        row = dict(d_out=d_out, P=P, IF=IF, n=n, K=K, max_abs_err=err,
-                   max_abs_plain=scale, rel_err=err / scale, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        P, Dh = 2 * d_out + 1, 8 * (2 * d_out + 1)
+        h_bytes = 2 if h_dtype == torch.bfloat16 else 4
+        bound_ms, bound_by, flops, bound_ms_fma = flash_cost(
+            n, K, cfg.pairs, d_out, cfg.heads, Dh, ops['sh'].shape[-1],
+            prefix, h_bytes, peaks)
+        row = dict(d_out=d_out, P=P, IF=ops['wk'].shape[1], n=n, K=K,
+                   prefix=prefix, h_dtype=str(h_dtype).split('.')[-1],
+                   max_abs_err=err, max_abs_plain=scale, rel_err=err / scale,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bound_ms_fma=bound_ms_fma,
                    tflops=flops / ms / 1e9)
-        rows.append(row)
+        if (n, K, h_dtype) == (1024, 32, torch.bfloat16):
+            rows.append(row)
         log('flash', json.dumps(row))
         del ops
         torch.cuda.empty_cache()

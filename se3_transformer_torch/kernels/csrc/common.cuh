@@ -1,9 +1,9 @@
 // Tile constants, mma.sync helpers and the float32 split shared by the
 // pairwise kernels (pairwise_bxf.cu and pairwise_fwd.cu, the forwards;
-// pairwise_bwd.cu, the backward).
+// pairwise_bwd.cu, the backward) and the streaming attention (flash_fwd.cu).
 //
-// Both kernels tile edges by BE = 64 and output channels by BO = 64 with
-// 8 warps (4 along edges x 2 along O), and both compute the radial tile
+// They tile edges by BE = 64 and output channels by BO = 64 with
+// 8 warps (4 along edges x 2 along O), and compute the radial tile
 // R = h . W3[:, i, O-tile] in the mma.sync m16n8k16 accumulator layout:
 // rows we*16 + {g, g+8}, columns wo*32 + nb*8 + 2t + {0, 1} for nb = 0..3
 // (g = lane / 4, t = lane % 4).
@@ -108,33 +108,117 @@ __device__ __forceinline__ void load_afrag(uint32_t (&a)[MID / 16][4],
                            kk * 16 + (j >> 1) * 8);
 }
 
-// The same tile with fp32 FMAs (float32 h/W3; no TF32), in the same layout.
-__device__ __forceinline__ void radial_tile_f32(float (&r)[4][4], const float* sh,
-                                                const float* sw, int e_lo, int wo,
-                                                int t) {
-  const float* hlo = sh + e_lo * Tile<float>::HS;
-  const float* hhi = hlo + 8 * Tile<float>::HS;
-  const float* wcol = sw + wo * 32 + 2 * t;
-#pragma unroll 4
-  for (int m = 0; m < MID; ++m) {
-    const float a0 = hlo[m], a1 = hhi[m];
-    const float* wrow = wcol + m * Tile<float>::WS;
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const float2 w = *reinterpret_cast<const float2*>(wrow + nb * 8);
-      r[nb][0] = fmaf(a0, w.x, r[nb][0]);
-      r[nb][1] = fmaf(a0, w.y, r[nb][1]);
-      r[nb][2] = fmaf(a1, w.x, r[nb][2]);
-      r[nb][3] = fmaf(a1, w.y, r[nb][3]);
-    }
-  }
-}
-
 // element (r, c) of a swizzled [rows][BO] bf16 tile: the 16-byte chunk
 // c / 8 of row r sits at chunk (c / 8) ^ (r % 8), so ldmatrix and 16-byte
 // stores hit 8 distinct chunks of any 8 rows with no padding
 __device__ __forceinline__ int swz(int r, int c) {
   return r * BO + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// The pieces of the basis-fused tile that kernels #1/#2 (pairwise_bxf.cu)
+// and #7 (flash_fwd.cu) share: 64 edge rows x 64 output channels, 8 warps,
+// h's A fragments in registers, the radial tile R in mma.sync's
+// accumulator layout (#1 computes it on mma.sync, #7 on wgmma), the
+// [edge, P, O] accumulator in registers, V2 stored [edge][i][p] with p
+// padded to PP.
+
+// h's A fragments (mma.sync m16n8k16 row-major A: rows e_lo, e_hi of the
+// warp, columns kk*16 + 2t (+1) and + 8) straight from device memory; a
+// null row is zeros. float32 h is split into bf16 hi (ahi) and lo (alo).
+template <typename T>
+__device__ __forceinline__ void load_afrag_global(uint32_t (&ahi)[MID / 16][4],
+                                                  uint32_t (&alo)[sizeof(T) == 4 ? MID / 16 : 1][4],
+                                                  const T* row_lo, const T* row_hi, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const T* row = half ? row_hi : row_lo;
+#pragma unroll
+    for (int kk = 0; kk < MID / 16; ++kk)
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+        const int col = kk * 16 + hc * 8 + 2 * t;
+        uint32_t& dh = ahi[kk][half + 2 * hc];
+        if constexpr (sizeof(T) == 4) {
+          const float2 v = row ? __ldg(reinterpret_cast<const float2*>(row + col))
+                               : make_float2(0.f, 0.f);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v.x, v.y);
+          const __nv_bfloat162 lo =
+              __floats2bfloat162_rn(v.x - __low2float(hi), v.y - __high2float(hi));
+          dh = *reinterpret_cast<const uint32_t*>(&hi);
+          alo[kk][half + 2 * hc] = *reinterpret_cast<const uint32_t*>(&lo);
+        } else {
+          dh = row ? __ldg(reinterpret_cast<const uint32_t*>(row + col)) : 0u;
+        }
+      }
+  }
+}
+
+// The epilogue of one i: acc[p] += V2[e, p, i] * (R + b3) on the
+// accumulator registers. svl is V2 row e_lo at this i (PP values; row e_hi
+// sits 8 rows of RS floats below), sbb b3[i] at the thread's columns.
+template <int P, int PP, int RS>
+__device__ __forceinline__ void apply_v2(float (&acc)[P][4][4], const float (&r)[4][4],
+                                         const float* svl, const float* sbb) {
+  float vl[PP], vh[PP];
+  const float* svh = svl + 8 * RS;
+  if constexpr (PP == 1) {
+    vl[0] = svl[0];
+    vh[0] = svh[0];
+  } else {
+#pragma unroll
+    for (int u = 0; u < PP / 4; ++u) {
+      const float4 a = *reinterpret_cast<const float4*>(svl + 4 * u);
+      const float4 b = *reinterpret_cast<const float4*>(svh + 4 * u);
+      vl[4 * u] = a.x, vl[4 * u + 1] = a.y, vl[4 * u + 2] = a.z, vl[4 * u + 3] = a.w;
+      vh[4 * u] = b.x, vh[4 * u + 1] = b.y, vh[4 * u + 2] = b.z, vh[4 * u + 3] = b.w;
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    const float2 bb = *reinterpret_cast<const float2*>(sbb + nb * 8);
+    const float r0 = r[nb][0] + bb.x, r1 = r[nb][1] + bb.y;
+    const float r2 = r[nb][2] + bb.x, r3 = r[nb][3] + bb.y;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      acc[p][nb][0] = fmaf(vl[p], r0, acc[p][nb][0]);
+      acc[p][nb][1] = fmaf(vl[p], r1, acc[p][nb][1]);
+      acc[p][nb][2] = fmaf(vh[p], r2, acc[p][nb][2]);
+      acc[p][nb][3] = fmaf(vh[p], r3, acc[p][nb][3]);
+    }
+  }
+}
+
+// V2 of one stage of GC channels into sV, as [row][cc * F + f][p] (row
+// stride RS): thread (row tid / 4, tid % 4) takes every 4th (p, f), reads
+// its Q basis values once (sB row stride PFQ: (p, f, q)-ordered, or (p, q,
+// f) with kPQF) and contracts them with the GC staged x rows (sX row
+// stride XS, a row's GC Q values contiguous).
+template <int P, int Q, int GC, int PP, int RS, int XS, int PFQ, bool kPQF>
+__device__ __forceinline__ void build_v2(float* sV, const float* sX, const float* sB, int tid) {
+  constexpr int F = P < Q ? P : Q;
+  const int r = tid >> 2;
+  const float* xr = sX + r * XS;
+  float xv[GC][Q];
+#pragma unroll
+  for (int cc = 0; cc < GC; ++cc)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) xv[cc][q] = xr[cc * Q + q];
+  const float* br = sB + r * PFQ;
+  float* vr = sV + r * RS;
+#pragma unroll
+  for (int pf = tid & 3; pf < P * F; pf += 4) {
+    const int p = pf / F, f = pf - p * F;
+    float b[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) b[q] = kPQF ? br[(p * Q + q) * F + f] : br[pf * Q + q];
+#pragma unroll
+    for (int cc = 0; cc < GC; ++cc) {
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) v = fmaf(b[q], xv[cc][q], v);
+      vr[(cc * F + f) * PP + p] = v;
+    }
+  }
 }
 
 // float32 -> its bf16 hi and lo arrays (hi = bf16(x), lo = bf16(x - hi));

@@ -19,34 +19,69 @@
 // What bounds it on this card: the radial products. Each output degree runs
 // two of them (k and v) over every edge: 2 * 2 * E * mid * IF * O flops,
 // ~3.0 TFLOP per attention block at the flagship (E = 32768 edges, mid 128,
-// O 64, IF = 256 + 640 + 896 + 1024), against ~0.1 GB of operands. They are
-// float32 (bf16-valued h times the float32 W3, as the JAX einsum promotes
-// them), so they run on the CUDA cores: ~45 ms per block at 67 TFLOP/s.
+// O 64, IF = 256 + 640 + 896 + 1024). They are float32 (bf16-valued h times
+// the float32 W3, as the JAX einsum promotes them). With W3 split into bf16
+// hi + lo, bf16 h takes them exactly in two bf16 passes (h.W_hi + h.W_lo),
+// 6.0 TFLOP or ~6.1 ms at the tensor cores' peak, float32 h in three; the
+// float32 apply (R + b3) x V2 runs beside them on the FMA pipe. Every
+// 64-edge tile reads all of W3's hi and lo from L2: ~94 GB per block.
 //
-// What the design does about it:
+// What held the previous version back (PERF.md, section 6: timing-only
+// variants of it on an H100): the radial product on fp32 FMAs, 75% of the
+// block at every degree; behind it W3 staged one slice per i (a cp.async
+// double buffer, a barrier per i), 7%, and 18 of the remaining 38 ms once
+// the product was gone; the V2 build and the x gather, 5% and 2%. The
+// basis build, the epilogue and the attention tail were 1% each.
+//
+// What the design does about it (kernel #1's tile, common.cuh):
 //  * A CTA owns 2 nodes x 32 slot rows = 64 edges and all 64 output
-//    channels, the tile of kernels #1 and #3 (common.cuh): the [edge, P, O]
-//    accumulator stays in registers over the loop over i, R = h . W3[:, i,
-//    O] is the fp32-FMA register tile with W3 slices streamed through a
-//    cp.async double buffer, and the apply (R + b3) x V2 runs on the
-//    accumulator registers.
-//  * The basis is rebuilt per degree pair into shared memory from the
-//    CTA's SH rows (staged once) and the pair's Q_J constants (one small
-//    buffer, read through the cache): only degree J's Q_J feeds f = J - lo,
-//    at most P * Q * (2J+1) constants per f instead of the dense T tensor.
-//    V2 for one channel c is built from it and the gathered x rows of c,
-//    as kernel #1 builds it from the flat basis.
-//  * The gather: every degree's node features (4 MB at n = 1024) stay in
-//    L2; each CTA reads its neighbors' rows by index.
+//    channels, 8 warps (4 along edges x 2 along O: two warpgroups of 64
+//    edges x 32 channels), one CTA per SM; the [edge, P, O] accumulator
+//    lives in registers over the loop over i. h's A fragments come from
+//    device memory into registers once per pass (float32 h split into
+//    bf16 hi + lo there).
+//  * W_k and W_v are split into bf16 hi + lo by split_bf16_kernel in the
+//    launch, into scratch the wrapper allocates. i walks the pairs'
+//    concatenated (c, f) axis one value a chunk, behind one barrier; W3's
+//    hi and lo tiles and b3 go through a 3-stage ring of swizzled tiles,
+//    issued in one burst right after the barrier two chunks ahead.
+//  * R = h.W3[:, i, :] runs on the tensor cores as wgmma m64n32k16 with
+//    fp32 accumulation, h from registers and W3 read by the tensor cores
+//    straight from the ring tile (its swizzle is wgmma's 128-byte one), so
+//    each W3 element leaves shared memory once per warpgroup, not once
+//    per warp as with mma.sync and ldmatrix: h.W_hi + h.W_lo for bf16 h,
+//    plus h_lo.W_hi for float32 h, in that fixed order, waited for before
+//    the epilogue. No product runs on fp32 FMAs.
+//  * V2 is built per stage of channels (3 at F = 1, else 1: at least 3
+//    chunks) at the stage's first chunk behind a second barrier, from the
+//    neighbors' x rows gathered by idx with cp.async during the previous
+//    stage; each basis value is read once a stage; V2 is stored
+//    [edge][i][p] (p padded to 4) so the epilogue reads a row's P values as
+//    float4s. A pair's basis is rebuilt from the CTA's SH rows (staged once)
+//    and its Q_J constants at the pair's first chunk, behind its own
+//    barrier (the copies are all waited for there: a pair's last stage may
+//    be one chunk long).
 //  * k and v do not both fit in shared memory (2 x 64 x 7 x 64 floats). The
-//    k pass writes its tile over the W3 / basis buffers, folds it into the
-//    scores against q at once and leaves only the softmax weights
+//    k pass writes its tile over the ring and basis buffers, folds it into
+//    the scores against q at once and leaves only the softmax weights
 //    ([2 nodes, heads, prefix + 32 slots]); the v pass then builds v the
 //    same way and folds it into the weighted sum. With K <= 32 a node's
 //    slots are one block, so the online softmax reduces to one softmax
-//    over the prefix slots (first) and the neighbor slots.
-// Left for later: the float32 product as bf16 hi + lo mma.sync passes on
-// the tensor cores (h is exact in bf16, W3 would split), wgmma and TMA.
+//    over the prefix slots (first) and the neighbor slots. No atomics: the
+//    same bits on every run.
+// Where it stands (PERF.md, section 6): 5.9x the previous version's speed
+// over a bf16 block and 4.8x in float32, 4.2x its tensor-core bound. The
+// variants of its mma.sync form named no single bound: the products about
+// half the time, W3's delivery from L2 (every 64-edge tile reads all of
+// W_k and W_v, ~94 GB a block) 14%, the epilogue 11%, the V2 build, x
+// gather and basis 20% (the k and v passes rebuild the same V2).
+// Tried on the card: mma.sync with ldmatrix (16 x 32 warp tiles, and
+// 32 x 16 for bf16 h; wgmma took 10% less time in bf16, 29% in float32);
+// separate accumulators for the W_lo pass (no gain); chunk i - 1's
+// epilogue run while chunk i's wgmma is in flight (no gain at P <= 5,
+// spills at P = 7).
+// Left for later: W3 shared by two edge tiles (a cluster) to halve its L2
+// reads; V2 built once for both passes.
 
 #include <float.h>
 
@@ -56,6 +91,8 @@ namespace {
 
 using namespace se3;
 
+using bf16 = __nv_bfloat16;
+
 constexpr int NODES = 2;       // nodes per CTA
 constexpr int SLOTS = 32;      // slot rows per node (K <= 32)
 static_assert(NODES * SLOTS == BE, "a CTA's edge rows are its nodes' slots");
@@ -64,8 +101,8 @@ constexpr int MAX_PREFIX = 4;
 constexpr int MAX_HEADS = 8;
 constexpr int MAX_S = 49;      // SH stack rows: degrees 0 .. 6
 constexpr int QMAX = 7;        // input degree <= 3
-constexpr int XS = 8;          // row stride of the gathered x of one channel
 constexpr int AS = MAX_PREFIX + SLOTS;  // row stride of the softmax weights
+constexpr int RING = 3;        // W3 ring stages: copies issued 2 chunks ahead
 constexpr float NEG_INF = -FLT_MAX;
 
 struct Pairs {
@@ -81,7 +118,8 @@ struct Args {
   const long long* idx;       // [B, n, K]
   const uint8_t* nmask;       // [B, n, K] or null
   const void* h[2];           // h_k, h_v [B, n, K, MID]
-  const float* w3[2];         // wk, wv [MID, IF, BO]
+  const bf16* whi[2];         // W_k, W_v [MID, IF, BO]: bf16 hi
+  const bf16* wlo[2];         //   and lo halves
   const float* b3[2];         // bk, bv [IF, BO]
   const float* sh;            // [B, n, K, S]
   const float* prefix[2];     // prefix_k, prefix_v [B, n, S0, H * Dh] or null
@@ -91,85 +129,218 @@ struct Args {
   float scale;
 };
 
-// The fp32-FMA R tile (common.cuh's radial_tile_f32) with bf16 h upcast.
-__device__ __forceinline__ void radial_tile_f32_h16(float (&r)[4][4], const __nv_bfloat16* sh,
-                                                    const float* sw, int e_lo, int wo, int t) {
-  constexpr int HS = Tile<__nv_bfloat16>::HS;
-  const __nv_bfloat16* hlo = sh + e_lo * HS;
-  const __nv_bfloat16* hhi = hlo + 8 * HS;
-  const float* wcol = sw + wo * 32 + 2 * t;
-#pragma unroll 4
-  for (int m = 0; m < MID; ++m) {
-    const float a0 = __bfloat162float(hlo[m]), a1 = __bfloat162float(hhi[m]);
-    const float* wrow = wcol + m * Tile<float>::WS;
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const float2 w = *reinterpret_cast<const float2*>(wrow + nb * 8);
-      r[nb][0] = fmaf(a0, w.x, r[nb][0]);
-      r[nb][1] = fmaf(a0, w.y, r[nb][1]);
-      r[nb][2] = fmaf(a1, w.x, r[nb][2]);
-      r[nb][3] = fmaf(a1, w.y, r[nb][3]);
-    }
-  }
+// One (d_in, d_out) pair's V2 stage: F values of f, GC channels a stage
+// (a whole stage is at least 3 chunks of one i), x rows of GC * Q floats.
+template <int P, int Q>
+struct PairCfg {
+  static constexpr int F = P < Q ? P : Q;
+  static constexpr int GC = F == 1 ? 3 : 1;
+  static constexpr int XS = GC * Q + 1;  // sX row stride
+  static constexpr int PFQ = P * F * Q;  // sB row stride
+};
+
+// Shared memory by P, as byte offsets; the k / v tile [BE][P][BO] reuses
+// the ring and basis region once a pass's products are done.
+template <int P>
+struct Smem {
+  static constexpr int PP = P == 1 ? 1 : (P + 3) / 4 * 4;  // V2 values per (row, i)
+  static constexpr int SI = P > 3 ? P : 3;                 // i values of the longest stage
+  static constexpr int RS = SI * PP + (PP == 1 ? 1 : 4);   // sV row stride in floats
+  static constexpr int XS = 3 * QMAX + 1;                  // the widest sX row
+  static constexpr int PFQ = P * P * QMAX;                 // the widest basis row
+  static constexpr size_t WT = 2ull * MID * BO;            // bytes of one bf16 W3 tile
+  static constexpr size_t W = 0;                           // [RING][hi, lo] W3 tiles
+  static constexpr size_t B3 = W + RING * 2 * WT;          // [RING][BO] float
+  static constexpr size_t BS = B3 + 4ull * RING * BO;      // [BE][PFQ] float: the basis
+  static constexpr size_t KV_END = 4ull * BE * P * BO;
+  static constexpr size_t REGION = BS + 4ull * BE * PFQ > KV_END ? BS + 4ull * BE * PFQ : KV_END;
+  static constexpr size_t Y = REGION;                      // [BE][MAX_S] float: SH rows
+  static constexpr size_t X = Y + 4ull * BE * MAX_S;       // [BE][XS] float
+  static constexpr size_t V = X + 4ull * BE * XS;          // [BE][RS] float
+  static constexpr size_t A = V + 4ull * BE * RS;          // softmax weights
+  static constexpr size_t SRC = A + 4ull * NODES * MAX_HEADS * AS;
+  static constexpr size_t OK = SRC + 4ull * BE;
+  static constexpr size_t BYTES = OK + 4ull * BE;
+  static_assert(BYTES <= 232448, "the tile fits one SM's shared memory");
+};
+
+// The radial products on wgmma: a warpgroup (warps 4 wo .. 4 wo + 3)
+// computes R for the 64 edges x its 32 channels as m64n32k16 steps, A (h)
+// from registers in mma.sync's m16n8k16 fragment layout (warp w of the
+// group holds rows 16 w .. 16 w + 15), B a [16][32] slice of a ring tile
+// read by the tensor cores straight from shared memory, once per
+// warpgroup. The tile is [MID][BO] bf16 with 128-byte rows swizzled as
+// swz() lays them out, which is wgmma's 128-byte-swizzle layout for an
+// MN-major B: a descriptor of the slice's start address, 1024 bytes (8
+// rows) between 8-row groups, swizzle mode 1. The accumulator comes back
+// in mma.sync's [nb][4] layout for the warp's rows.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
 
-template <typename T, int P>
-struct Smem {
-  static constexpr int PFQ = P * P * QMAX;  // basis row, the largest pair
-  static constexpr int PF = P * P;          // V2 row of one channel
-  static constexpr size_t W_BYTES = 2 * MID * Tile<float>::WS * sizeof(float);
-  static constexpr size_t B_BYTES = BE * PFQ * sizeof(float);
-  static constexpr size_t KV_BYTES = BE * P * BO * sizeof(float);
-  // the W3 double buffer and the basis tile; the k / v tile reuses them
-  static constexpr size_t REGION = W_BYTES + B_BYTES > KV_BYTES ? W_BYTES + B_BYTES : KV_BYTES;
-  static constexpr size_t H_OFF = REGION;
-  static constexpr size_t Y_OFF = H_OFF + BE * Tile<T>::HS * sizeof(T);
-  static constexpr size_t V_OFF = Y_OFF + BE * MAX_S * sizeof(float);
-  static constexpr size_t X_OFF = V_OFF + BE * PF * sizeof(float);
-  static constexpr size_t A_OFF = X_OFF + BE * XS * sizeof(float);
-  static constexpr size_t SRC_OFF = A_OFF + NODES * MAX_HEADS * AS * sizeof(float);
-  static constexpr size_t OK_OFF = SRC_OFF + BE * sizeof(int);
-  static constexpr size_t BYTES = OK_OFF + BE * sizeof(int);
-};
+__device__ __forceinline__ void wgmma_k16(float (&d)[4][4], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// keeps the compiler from moving the accumulator's uses across the wgmma
+// fence, commit and wait
+__device__ __forceinline__ void fence_acc(float (&d)[4][4]) {
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(d[nb][v])::"memory");
+}
+
+// R = h.W3[:, i, the warpgroup's 32 channels] from ring stage sw (W_hi,
+// then W_lo MID x BO elements later): per k-step h.W_hi, h.W_lo and, with
+// float32 h (kLo), h_lo.W_hi, in that fixed order; synchronous.
+template <bool kLo>
+__device__ __forceinline__ void radial_wgmma(float (&r)[4][4], const uint32_t (&ahi)[MID / 16][4],
+                                             const uint32_t (&alo)[kLo ? MID / 16 : 1][4],
+                                             const bf16* sw) {
+  const uint64_t dhi = sw128_desc(sw), dlo = sw128_desc(sw + MID * BO);
+  fence_acc(r);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < MID / 16; ++kk) {
+    const uint64_t step = kk * 16 * BO * sizeof(bf16) / 16;  // 16 rows, in 16-byte units
+    wgmma_k16(r, ahi[kk], dhi + step);
+    wgmma_k16(r, ahi[kk], dlo + step);
+    if constexpr (kLo) wgmma_k16(r, alo[kk], dhi + step);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(r);
+}
+
+// V2 of the stage staged in sX (pair degree d_in) into sV.
+template <int P>
+__device__ __forceinline__ void build_stage(int d_in, float* sV, const float* sX,
+                                            const float* sB, int tid) {
+  using S = Smem<P>;
+#define SE3_Q(QQ)                                                                          \
+  build_v2<P, QQ, PairCfg<P, QQ>::GC, S::PP, S::RS, PairCfg<P, QQ>::XS, PairCfg<P, QQ>::PFQ, \
+           false>(sV, sX, sB, tid)
+  switch (d_in) {
+    case 0: SE3_Q(1); break;
+    case 1: SE3_Q(3); break;
+    case 2: SE3_Q(5); break;
+    default: SE3_Q(7); break;
+  }
+#undef SE3_Q
+}
 
 // One radial contraction (cv = 0: keys, 1: values) of the CTA's 64 edges
 // into the k / v tile sKV[e][p][o] in shared memory.
 template <typename T, int P>
 __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int cv, int b,
                                           int node0, unsigned char* smem) {
-  using S = Smem<T, P>;
-  constexpr int HS = Tile<T>::HS, WS = Tile<float>::WS;
-  float* sW = reinterpret_cast<float*>(smem);
-  float* sB = reinterpret_cast<float*>(smem + S::W_BYTES);
-  T* sH = reinterpret_cast<T*>(smem + S::H_OFF);
-  const float* sY = reinterpret_cast<const float*>(smem + S::Y_OFF);
-  float* sV = reinterpret_cast<float*>(smem + S::V_OFF);
-  float* sX = reinterpret_cast<float*>(smem + S::X_OFF);
-  const int* sSrc = reinterpret_cast<const int*>(smem + S::SRC_OFF);
+  using S = Smem<P>;
+  constexpr bool kLo = sizeof(T) == 4;  // float32 h: the third pass h_lo.W_hi
+  bf16* sW = reinterpret_cast<bf16*>(smem + S::W);
+  float* sb3 = reinterpret_cast<float*>(smem + S::B3);
+  float* sB = reinterpret_cast<float*>(smem + S::BS);
+  const float* sY = reinterpret_cast<const float*>(smem + S::Y);
+  float* sX = reinterpret_cast<float*>(smem + S::X);
+  float* sV = reinterpret_cast<float*>(smem + S::V);
+  const int* sSrc = reinterpret_cast<const int*>(smem + S::SRC);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int we = warp & 3, wo = warp >> 2;
+  const int we = warp & 3, wo = warp >> 2;  // wo: the warpgroup
   const int g = lane >> 2, t = lane & 3;
-  const int e_lo = we * 16 + g, e_hi = e_lo + 8;
+  const int e_lo = we * 16 + g;       // the thread's first row
+  const int col0 = wo * 32 + 2 * t;   // and first column
   const int n = a.n, K = a.K, IF = a.IF;
   const int d_out = (P - 1) / 2;
   const T* h = static_cast<const T*>(a.h[cv]);
-  const float* w3 = a.w3[cv];
+  const bf16* whi = a.whi[cv];
+  const bf16* wlo = a.wlo[cv];
   const float* b3 = a.b3[cv];
 
-  // the edge rows' h (zeros where no edge) and the first W3 slice
-  constexpr int VEC = 16 / sizeof(T), CHUNKS = MID / VEC;
-  for (int k = tid; k < BE * CHUNKS; k += NTHREADS) {
-    const int r = k / CHUNKS, ch = k - r * CHUNKS;
-    const int node = node0 + r / SLOTS, s = r % SLOTS;
-    T* dst = sH + r * HS + ch * VEC;
-    if (node < n && s < K)
-      cp_async16(dst, h + (((size_t)b * n + node) * K + s) * MID + ch * VEC);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  }
-  load_w(sW, w3, 0, IF, BO, 0, tid);
+  // i's W3 hi and lo tiles and b3[i] into ring stage i % RING, in one burst
+  // of 16-byte cp.async (8 a thread for W3)
+  auto stage_w = [&](int i) {
+    const int kb = i % RING;
+#pragma unroll
+    for (int r = 0; r < 2 * 4; ++r) {
+      const int half = r / 4, f = tid + (r % 4) * NTHREADS;
+      const int ch = f & 7, m = f >> 3;
+      cp_async16(sW + (size_t)(kb * 2 + half) * MID * BO + swz(m, ch * 8),
+                 (half ? wlo : whi) + ((size_t)m * IF + i) * BO + ch * 8);
+    }
+    if (tid < BO / 4) cp_async16(sb3 + kb * BO + tid * 4, b3 + (size_t)i * BO + tid * 4);
+  };
+  auto stage_c = [&](int pi) {  // channels per V2 stage of pair pi
+    return min(P, 2 * pairs.d[pi] + 1) == 1 ? 3 : 1;
+  };
+  // the neighbors' x rows of pair pi's channels c0 .. c0 + GC into sX
+  // (zeros where no edge and past C); a row's GC Q values are contiguous
+  auto stage_x = [&](int pi, int c0) {
+    const int C = pairs.c[pi], Q = 2 * pairs.d[pi] + 1;
+    const int W = stage_c(pi) * Q, XS = W + 1;
+    const float* x = pairs.x[pi];
+    for (int k = tid; k < BE * W; k += NTHREADS) {
+      const int r = k / W, j = k - r * W;
+      const int src = sSrc[r];
+      if (src >= 0 && c0 * Q + j < C * Q)
+        cp_async4(sX + r * XS + j, x + (((size_t)b * n + src) * C + c0) * Q + j);
+      else
+        sX[r * XS + j] = 0.f;
+    }
+  };
+  // pair pi's basis, (p, f, q)-ordered rows: sum over m of Y_J Q_J
+  auto build_basis = [&](int pi) {
+    const int d_in = pairs.d[pi], Q = 2 * d_in + 1;
+    const int F = P < Q ? P : Q, PFQ = P * F * Q;
+    const int lo = d_in > d_out ? d_in - d_out : d_out - d_in;
+    const float* cg = a.cg + pairs.cg_off[pi];
+    for (int k = tid; k < BE * PFQ; k += NTHREADS) {
+      const int e = k / PFQ, rest = k - e * PFQ;
+      const int pf = rest / Q, qq = rest - pf * Q;
+      const int p = pf / F, f = pf - p * F, J = lo + f, M = 2 * J + 1;
+      const float* qj = cg + P * Q * (J * J - lo * lo) + (p * Q + qq) * M;
+      const float* y = sY + e * MAX_S + J * J;
+      float s = 0.f;
+      for (int m = 0; m < M; ++m) s = fmaf(y[m], __ldg(qj + m), s);
+      sB[e * PFQ + rest] = s;
+    }
+  };
+
+  // prologue, two cp.async groups: i = 0's W3 and b3 with pair 0's first x
+  // stage; i = 1's W3 and b3
+  stage_w(0);
+  stage_x(0, 0);
   cp_async_commit();
+  if (IF > 1) stage_w(1);
+  cp_async_commit();
+
+  // h's A fragments straight from device memory while the copies fly;
+  // zeros where no edge
+  auto h_row = [&](int e) -> const T* {
+    const int node = node0 + e / SLOTS, s = e % SLOTS;
+    return node < n && s < K ? h + (((size_t)b * n + node) * K + s) * MID : nullptr;
+  };
+  uint32_t ahi[MID / 16][4], alo[kLo ? MID / 16 : 1][4];
+  load_afrag_global<T>(ahi, alo, h_row(e_lo), h_row(e_lo + 8), t);
+
+  build_basis(0);
+  cp_async_wait<1>();
+  __syncthreads();
+  build_stage<P>(pairs.d[0], sV, sX, sB, tid);
 
   float acc[P][4][4];
 #pragma unroll
@@ -179,97 +350,68 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[p][nb][v] = 0.f;
 
-  int i = 0;
-  for (int pi = 0; pi < pairs.count; ++pi) {
-    const int d_in = pairs.d[pi], C = pairs.c[pi], Q = 2 * d_in + 1;
-    const int F = P < Q ? P : Q, PFQ = P * F * Q, PF = P * F;
-    const int lo = d_in > d_out ? d_in - d_out : d_out - d_in;
-    const float* x = pairs.x[pi];
-    const float* cg = a.cg + pairs.cg_off[pi];
-    // the pair's basis, (p, f, q)-ordered rows: sum over m of Y_J Q_J
-    for (int k = tid; k < BE * PFQ; k += NTHREADS) {
-      const int e = k / PFQ, rest = k - e * PFQ;
-      const int pf = rest / Q, qq = rest - pf * Q;
-      const int p = pf / F, f = pf - p * F, J = lo + f, M = 2 * J + 1;
-      const float* qj = cg + P * Q * (J * J - lo * lo) + (p * Q + qq) * M;
-      const float* y = sY + e * MAX_S + J * J;
-      float s = 0.f;
-      for (int m = 0; m < M; ++m) s = fmaf(y[m], __ldg(qj + m), s);
-      sB[e * S::PFQ + rest] = s;
-    }
-    for (int c = 0; c < C; ++c) {
-      // the neighbors' features of channel c
-      for (int k = tid; k < BE * Q; k += NTHREADS) {
-        const int e = k / Q, qq = k - e * Q;
-        const int src = sSrc[e];
-        sX[e * XS + qq] = src >= 0 ? __ldg(x + (((size_t)b * n + src) * C + c) * Q + qq) : 0.f;
-      }
-      __syncthreads();
-      // V2[e, p, c, f] for this c
-      for (int k = tid; k < BE * PF; k += NTHREADS) {
-        const int e = k / PF, pf = k - e * PF;
-        const float* brow = sB + e * S::PFQ + pf * Q;
-        const float* xr = sX + e * XS;
-        float v = 0.f;
-        for (int qq = 0; qq < Q; ++qq) v = fmaf(brow[qq], xr[qq], v);
-        sV[e * S::PF + pf] = v;
-      }
-      for (int f = 0; f < F; ++f, ++i) {
-        if (i + 1 < IF) {
-          load_w(sW + ((i + 1) & 1) * MID * WS, w3, i + 1, IF, BO, 0, tid);
-          cp_async_commit();
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
+  // Chunk i, behind one barrier: i's W3 and b3 (issued two chunks ago)
+  // have landed, and every warp is done with i - 1, whose ring stage
+  // i + 2's copies now refill. At a stage's first chunk the stage's V2 is
+  // built first (at a pair's first chunk after the pair's basis), behind a
+  // barrier each, and the next stage's x is issued.
+  int pi = 0, c0 = 0, kin = 0;
+  int slen = min(stage_c(0), pairs.c[0]) * min(P, 2 * pairs.d[0] + 1);
+  for (int i = 0; i < IF; ++i) {
+    if (i > 0 && kin == 0 && c0 == 0)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();
+    // the ring's cp.async writes, before the tensor cores read them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (kin == 0) {
+      if (i > 0) {
+        if (c0 == 0) {
+          build_basis(pi);
+          __syncthreads();
         }
+        build_stage<P>(pairs.d[pi], sV, sX, sB, tid);
         __syncthreads();
-
-        float r[4][4];
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) r[nb][v] = 0.f;
-        if constexpr (sizeof(T) == 2)
-          radial_tile_f32_h16(r, sH, sW + (i & 1) * MID * WS, e_lo, wo, t);
-        else
-          se3::radial_tile_f32(r, sH, sW + (i & 1) * MID * WS, e_lo, wo, t);
-
-        // epilogue: acc[p] += V2[e, p, i] * (R + b3)
-        float vl[P], vh[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          vl[p] = sV[e_lo * S::PF + p * F + f];
-          vh[p] = sV[e_hi * S::PF + p * F + f];
-        }
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-          const int col = wo * 32 + nb * 8 + 2 * t;
-          const float2 bb = __ldg(reinterpret_cast<const float2*>(b3 + (size_t)i * BO + col));
-          const float r0 = r[nb][0] + bb.x, r1 = r[nb][1] + bb.y;
-          const float r2 = r[nb][2] + bb.x, r3 = r[nb][3] + bb.y;
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            acc[p][nb][0] = fmaf(vl[p], r0, acc[p][nb][0]);
-            acc[p][nb][1] = fmaf(vl[p], r1, acc[p][nb][1]);
-            acc[p][nb][2] = fmaf(vh[p], r2, acc[p][nb][2]);
-            acc[p][nb][3] = fmaf(vh[p], r3, acc[p][nb][3]);
-          }
-        }
-        __syncthreads();  // sW[i & 1], sV, sX and sB are rewritten next
       }
+      int npi = pi, nc0 = c0 + stage_c(pi);
+      if (nc0 >= pairs.c[pi]) ++npi, nc0 = 0;
+      if (npi < pairs.count) stage_x(npi, nc0);
+    }
+    if (i + 2 < IF) stage_w(i + 2);
+    cp_async_commit();
+
+    float r[4][4];
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) r[nb][v] = 0.f;
+    radial_wgmma<kLo>(r, ahi, alo, sW + (size_t)(i % RING) * 2 * MID * BO + wo * 32);
+    // epilogue: acc[p] += V2[e, p, i] * (R + b3)
+    apply_v2<P, S::PP, S::RS>(acc, r, sV + e_lo * S::RS + kin * S::PP,
+                              sb3 + (i % RING) * BO + col0);
+
+    if (++kin == slen) {
+      kin = 0;
+      c0 += stage_c(pi);
+      if (c0 >= pairs.c[pi]) ++pi, c0 = 0;
+      if (pi < pairs.count)
+        slen = min(stage_c(pi), pairs.c[pi] - c0) * min(P, 2 * pairs.d[pi] + 1);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring and the basis are rewritten as the tile
 
-  // the k / v tile [e][p][o] over the (now idle) W3 and basis buffers
-  float* sKV = sW;
+  // the k / v tile [e][p][o] over the ring and basis buffers
+  float* sKV = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb) {
-      const int col = wo * 32 + nb * 8 + 2 * t;
+      const int col = col0 + nb * 8;
       *reinterpret_cast<float2*>(sKV + (e_lo * P + p) * BO + col) =
           make_float2(acc[p][nb][0], acc[p][nb][1]);
-      *reinterpret_cast<float2*>(sKV + (e_hi * P + p) * BO + col) =
+      *reinterpret_cast<float2*>(sKV + ((e_lo + 8) * P + p) * BO + col) =
           make_float2(acc[p][nb][2], acc[p][nb][3]);
     }
   __syncthreads();
@@ -278,13 +420,15 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
 template <typename T, int P>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const Args a, const Pairs pairs) {
-  using S = Smem<T, P>;
-  extern __shared__ __align__(16) unsigned char smem[];
+  using S = Smem<P>;
+  // the ring's tiles start the region: wgmma's 128-byte swizzle reads them
+  // as 1024-byte-aligned 8-row groups
+  extern __shared__ __align__(1024) unsigned char smem[];
   const float* sKV = reinterpret_cast<const float*>(smem);
-  float* sY = reinterpret_cast<float*>(smem + S::Y_OFF);
-  float* sA = reinterpret_cast<float*>(smem + S::A_OFF);
-  int* sSrc = reinterpret_cast<int*>(smem + S::SRC_OFF);
-  int* sOk = reinterpret_cast<int*>(smem + S::OK_OFF);
+  float* sY = reinterpret_cast<float*>(smem + S::Y);
+  float* sA = reinterpret_cast<float*>(smem + S::A);
+  int* sSrc = reinterpret_cast<int*>(smem + S::SRC);
+  int* sOk = reinterpret_cast<int*>(smem + S::OK);
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y, node0 = blockIdx.x * NODES;
@@ -372,7 +516,7 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
 
 template <typename T, int P>
 cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream) {
-  constexpr size_t smem = Smem<T, P>::BYTES;
+  constexpr size_t smem = Smem<P>::BYTES;
   auto kern = flash_fwd_kernel<T, P>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -385,24 +529,26 @@ cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Returns the launch status
-// (cudaGetLastError() right after the launch); 0 is success. Pointers are
+// (cudaGetLastError() right after the launches); 0 is success. Pointers are
 // device pointers to contiguous tensors (the caller, kernels/flash.py,
-// checks every shape): q [B, n, H, Dh] with H * dim_head = 64 and Dh =
-// dim_head * P; x0..x3 the node features [B, n, C_k, 2 d_k + 1] of the
-// n_pairs input degrees (d_k <= 3); idx int64 [B, n, K], K <= 32; nmask
-// bool [B, n, K] or null; h_v, h_k [B, n, K, 128] (bf16 when h_is_bf16, else
-// float32); wv, wk [128, IF, 64]; bv, bk [IF, 64]; sh [B, n, K, S], S <= 49;
-// prefix_k, prefix_v [B, n, S0, H * Dh] (S0 <= 4; null when S0 = 0); cg the
-// Q_J constants, pair k's from cg_off_k; out [B, n, H, Dh].
+// checks every shape; h, wv, wk, bv and bk start on 16 bytes): q [B, n, H,
+// Dh] with H * dim_head = 64 and Dh = dim_head * P; x0..x3 the node
+// features [B, n, C_k, 2 d_k + 1] of the n_pairs input degrees (d_k <= 3);
+// idx int64 [B, n, K], K <= 32; nmask bool [B, n, K] or null; h_v, h_k [B,
+// n, K, 128] (bf16 when h_is_bf16, else float32); wv, wk [128, IF, 64]
+// float32; bv, bk [IF, 64]; sh [B, n, K, S], S <= 49; prefix_k, prefix_v
+// [B, n, S0, H * Dh] (S0 <= 4; null when S0 = 0); cg the Q_J constants,
+// pair k's from cg_off_k; out [B, n, H, Dh]; w_split scratch of 4 * 128 *
+// IF * 64 bf16 (W_k's hi and lo arrays, then W_v's).
 extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, const void* x2,
                              const void* x3, const void* idx, const void* nmask,
                              const void* h_v, const void* h_k, const void* wv, const void* wk,
                              const void* bv, const void* bk, const void* sh,
                              const void* prefix_k, const void* prefix_v, const void* cg,
-                             void* out, int d0, int d1, int d2, int d3, int c0, int c1, int c2,
-                             int c3, int off0, int off1, int off2, int off3, int n_pairs, int B,
-                             int n, int K, int S, int S0, int H, int IF, int P, int h_is_bf16,
-                             float scale, void* stream) {
+                             void* out, void* w_split, int d0, int d1, int d2, int d3, int c0,
+                             int c1, int c2, int c3, int off0, int off1, int off2, int off3,
+                             int n_pairs, int B, int n, int K, int S, int S0, int H, int IF,
+                             int P, int h_is_bf16, float scale, void* stream) {
   if (B <= 0 || n <= 0) return 0;
   if (n_pairs < 1 || n_pairs > MAX_PAIRS || K < 1 || K > SLOTS || S < 1 || S > MAX_S ||
       S0 < 0 || S0 > MAX_PREFIX || H < 1 || H > MAX_HEADS || BO % H || IF < 1)
@@ -420,14 +566,30 @@ extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, cons
     pairs.cg_off[k] = offs[k];
   }
   pairs.count = n_pairs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // W_k and W_v [MID, IF, BO] float32 (a whole number of float4s) into
+  // their bf16 hi and lo arrays
+  const size_t nw = (size_t)MID * IF * BO;
+  const size_t need = (nw / 4 + NTHREADS - 1) / NTHREADS;
+  const unsigned blocks = (unsigned)(need < 4096 ? need : 4096);
+  bf16* ws = static_cast<bf16*>(w_split);
+  const void* w3s[2] = {wk, wv};
   Args a;
+  for (int cv = 0; cv < 2; ++cv) {
+    bf16* hi = ws + 2 * cv * nw;
+    split_bf16_kernel<<<blocks, NTHREADS, 0, s>>>(static_cast<const float4*>(w3s[cv]), nw / 4,
+                                                  reinterpret_cast<uint2*>(hi),
+                                                  reinterpret_cast<uint2*>(hi + nw));
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    a.whi[cv] = hi;
+    a.wlo[cv] = hi + nw;
+  }
   a.q = static_cast<const float*>(q);
   a.idx = static_cast<const long long*>(idx);
   a.nmask = static_cast<const uint8_t*>(nmask);
   a.h[0] = h_k;
   a.h[1] = h_v;
-  a.w3[0] = static_cast<const float*>(wk);
-  a.w3[1] = static_cast<const float*>(wv);
   a.b3[0] = static_cast<const float*>(bk);
   a.b3[1] = static_cast<const float*>(bv);
   a.sh = static_cast<const float*>(sh);
@@ -442,10 +604,9 @@ extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, cons
   a.H = H;
   a.IF = IF;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SE3_P(PP)                                                                      \
   if (P == PP)                                                                         \
-    return (int)(h_is_bf16 ? launch<__nv_bfloat16, PP>(a, pairs, B, s)                \
+    return (int)(h_is_bf16 ? launch<bf16, PP>(a, pairs, B, s)                          \
                            : launch<float, PP>(a, pairs, B, s));
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
 #undef SE3_P

@@ -177,34 +177,8 @@ pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
         dst[r * XS + j] = 0.f;
     }
   };
-  // V2 of the staged x's stage into sV, as [row][i - stage start][p]:
-  // thread (row tid / 4, tid % 4) takes every 4th (p, f), reads its Q basis
-  // values once and contracts them with the GC staged x rows
-  auto build = [&]() {
-    const int r = tid >> 2;
-    const float* xr = sX + r * XS;
-    float xv[GC][Q];
-#pragma unroll
-    for (int cc = 0; cc < GC; ++cc)
-#pragma unroll
-      for (int q = 0; q < Q; ++q) xv[cc][q] = xr[cc * Q + q];
-    const float* br = sB + r * PFQ;
-    float* vr = sV + r * RS;
-#pragma unroll
-    for (int pf = tid & 3; pf < P * F; pf += 4) {
-      const int p = pf / F, f = pf - p * F;
-      float b[Q];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) b[q] = kPQF ? br[(p * Q + q) * F + f] : br[pf * Q + q];
-#pragma unroll
-      for (int cc = 0; cc < GC; ++cc) {
-        float v = 0.f;
-#pragma unroll
-        for (int q = 0; q < Q; ++q) v = fmaf(b[q], xv[cc][q], v);
-        vr[(cc * F + f) * PP + p] = v;
-      }
-    }
-  };
+  // V2 of the staged x's stage into sV, as [row][i - stage start][p]
+  auto build = [&]() { build_v2<P, Q, GC, PP, RS, XS, PFQ, kPQF>(sV, sX, sB, tid); };
 
   // prologue, two cp.async groups: chunk 0's W3 and b3, the tile's basis
   // rows (contiguous in either layout) and stage 0's x; chunk 1's W3 and b3
@@ -231,36 +205,12 @@ pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
   if (n_chunks > 1) stage_w(1);
   cp_async_commit();
 
-  // h's A fragments (mma.sync m16n8k16 row-major A: rows e_lo, e_hi =
-  // we*16 + g (+8), columns kk*16 + 2t (+1) and + 8), straight from device
-  // memory while the copies fly; zeros past E
+  // h's A fragments straight from device memory while the copies fly;
+  // zeros past E
   const int e_lo = we * 16 + g, e_hi = e_lo + 8;
   uint32_t ahi[MID / 16][4], alo[kSplit ? MID / 16 : 1][4];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? e_hi : e_lo;
-    const bool live = row < rows;
-#pragma unroll
-    for (int kk = 0; kk < MID / 16; ++kk)
-#pragma unroll
-      for (int hc = 0; hc < 2; ++hc) {
-        const int col = kk * 16 + hc * 8 + 2 * t;
-        uint32_t& dh = ahi[kk][half + 2 * hc];
-        if constexpr (kSplit) {
-          const float2 v = live ? __ldg(reinterpret_cast<const float2*>(
-                                      h + (size_t)(e0 + row) * MID + col))
-                                : make_float2(0.f, 0.f);
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(v.x, v.y);
-          const __nv_bfloat162 lo =
-              __floats2bfloat162_rn(v.x - __low2float(hi), v.y - __high2float(hi));
-          dh = *reinterpret_cast<const uint32_t*>(&hi);
-          alo[kk][half + 2 * hc] = *reinterpret_cast<const uint32_t*>(&lo);
-        } else {
-          dh = live ? __ldg(reinterpret_cast<const uint32_t*>(h + (size_t)(e0 + row) * MID + col))
-                    : 0u;
-        }
-      }
-  }
+  load_afrag_global<T>(ahi, alo, e_lo < rows ? h + (size_t)(e0 + e_lo) * MID : nullptr,
+                       e_hi < rows ? h + (size_t)(e0 + e_hi) * MID : nullptr, t);
 
   cp_async_wait<1>();
   __syncthreads();
@@ -329,36 +279,9 @@ pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
     // epilogue: acc[p] += V2[e, p, i] * (R + b3)
     const float* sbb = sb3 + (k % RING) * CI * BO + wo * 32 + 2 * t;
 #pragma unroll
-    for (int ii = 0; ii < CI; ++ii) {
-      float vl[PP], vh[PP];
-      const float* svl = sV + e_lo * RS + (kin * CI + ii) * PP;
-      const float* svh = svl + 8 * RS;
-      if constexpr (PP == 1) {
-        vl[0] = svl[0];
-        vh[0] = svh[0];
-      } else {
-#pragma unroll
-        for (int u = 0; u < PP / 4; ++u) {
-          const float4 a = *reinterpret_cast<const float4*>(svl + 4 * u);
-          const float4 b = *reinterpret_cast<const float4*>(svh + 4 * u);
-          vl[4 * u] = a.x, vl[4 * u + 1] = a.y, vl[4 * u + 2] = a.z, vl[4 * u + 3] = a.w;
-          vh[4 * u] = b.x, vh[4 * u + 1] = b.y, vh[4 * u + 2] = b.z, vh[4 * u + 3] = b.w;
-        }
-      }
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        const float2 bb = *reinterpret_cast<const float2*>(sbb + ii * BO + nb * 8);
-        const float r0 = r[ii][nb][0] + bb.x, r1 = r[ii][nb][1] + bb.y;
-        const float r2 = r[ii][nb][2] + bb.x, r3 = r[ii][nb][3] + bb.y;
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          acc[p][nb][0] = fmaf(vl[p], r0, acc[p][nb][0]);
-          acc[p][nb][1] = fmaf(vl[p], r1, acc[p][nb][1]);
-          acc[p][nb][2] = fmaf(vh[p], r2, acc[p][nb][2]);
-          acc[p][nb][3] = fmaf(vh[p], r3, acc[p][nb][3]);
-        }
-      }
-    }
+    for (int ii = 0; ii < CI; ++ii)
+      apply_v2<P, PP, RS>(acc, r[ii], sV + e_lo * RS + (kin * CI + ii) * PP,
+                          sbb + ii * BO);
   }
   cp_async_wait<0>();
 

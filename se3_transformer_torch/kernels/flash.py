@@ -68,7 +68,7 @@ import torch
 from ..basis import basis_transformation_Q_J, safe_normalize
 from ..so3.spherical_harmonics import real_spherical_harmonics_all
 from ..utils.helpers import batched_index_select
-from .pairwise import _stream
+from .pairwise import _aligned, _stream
 
 # the finite float32 minimum (pallas_flash.py::NEG_INF)
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -450,6 +450,12 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     if out.numel() == 0:
         return out
     cg, xs, ds, cs, offs = _pair_args(cfg, ops['xs'], q.device)
+    # the kernel's 16-byte copies of h, W3 and b3
+    ops = dict(ops, **{k: _aligned(ops[k])
+                       for k in ('h_v', 'h_k', 'wv', 'wk', 'bv', 'bk')})
+    # W_k's and W_v's bf16 hi and lo halves, split in the launch
+    w_split = torch.empty(4 * MID * IF * O_WIDTH, dtype=torch.bfloat16,
+                          device=q.device)
 
     ptr = _pointers(ops)
     from .build import load_library
@@ -458,8 +464,9 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
             q.data_ptr(), *xs, ptr('idx'), ptr('nmask'), ptr('h_v'),
             ptr('h_k'), ptr('wv'), ptr('wk'), ptr('bv'), ptr('bk'), ptr('sh'),
             ptr('prefix_k'), ptr('prefix_v'), cg.data_ptr(), out.data_ptr(),
-            *ds, *cs, *offs, len(cfg.pairs), B, n, K, S, S0, cfg.heads, IF,
-            2 * cfg.d_out + 1, int(bf16), float(cfg.scale), _stream(q))
+            w_split.data_ptr(), *ds, *cs, *offs, len(cfg.pairs), B, n, K, S,
+            S0, cfg.heads, IF, 2 * cfg.d_out + 1, int(bf16),
+            float(cfg.scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f'se3_flash_fwd launch failed: CUDA error {rc}')
     flash_attention_fwd.launches += 1

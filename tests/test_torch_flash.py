@@ -118,6 +118,67 @@ def test_pair_cg_matches_jax():
             assert np.abs(out - ref).max() <= 1e-6, (d_in, d_out)
 
 
+# kernel #7's radial product (csrc/flash_fwd.cu) at d_out 3's widths (mid
+# 128, IF = 64 * (1 + 3 + 5 + 7), O 64) for one CTA's 64 edges: W3 split
+# into bf16 hi + lo, each pass a product of bf16 values (exact in float32)
+# summed in float32, against the float32 product of _kv_block's einsum
+RADIAL_E, RADIAL_MID, RADIAL_IF, RADIAL_O = 64, 128, 1024, 64
+# the passes against the float32 product, relative to its largest value
+RADIAL_RTOL = 1e-4
+
+
+def _bf16_split(t):
+    """t as bf16 hi + lo (hi = bf16(t), lo = bf16(t - hi)), in float32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _radial_case(h_dtype):
+    """h [E, mid] (bf16 values for 'bfloat16'), W3 [mid, IF, O] and the
+    JAX product einsum('...m,mio->...io', h, w3) in float32."""
+    rng = np.random.RandomState(3)
+    hj = jnp.asarray(rng.normal(size=(RADIAL_E, RADIAL_MID)), jnp.float32)
+    if h_dtype == 'bfloat16':
+        hj = hj.astype(jnp.bfloat16)
+    w3 = (rng.normal(size=(RADIAL_MID, RADIAL_IF, RADIAL_O))
+          * RADIAL_MID ** -0.5).astype(np.float32)
+    ref = np.asarray(jnp.einsum('...m,mio->...io', hj, jnp.asarray(w3),
+                                preferred_element_type=jnp.float32))
+    h = torch.from_numpy(np.array(hj.astype(jnp.float32)))
+    return h, torch.from_numpy(w3).reshape(RADIAL_MID, -1), ref
+
+
+def _passes_error(terms, ref):
+    """max |sum of the passes h_part . w_part - ref| over max |ref|."""
+    out = sum(torch.matmul(hp, wp) for hp, wp in terms)
+    out = out.reshape(RADIAL_E, RADIAL_IF, RADIAL_O).numpy()
+    return np.abs(out - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize('h_dtype', ['bfloat16', 'float32'])
+def test_kernel_radial_passes_match_the_float32_product(h_dtype):
+    """Two bf16 passes (h.W_hi + h.W_lo) with bf16 h, three (h_hi.W_hi +
+    h_hi.W_lo + h_lo.W_hi) with float32 h: what the kernel's mma.sync
+    passes compute."""
+    h, w3, ref = _radial_case(h_dtype)
+    w_hi, w_lo = _bf16_split(w3)
+    if h_dtype == 'bfloat16':
+        assert torch.equal(h.to(torch.bfloat16).float(), h)
+        terms = [(h, w_hi), (h, w_lo)]
+    else:
+        h_hi, h_lo = _bf16_split(h)
+        terms = [(h_hi, w_hi), (h_hi, w_lo), (h_lo, w_hi)]
+    assert _passes_error(terms, ref) <= RADIAL_RTOL
+
+
+def test_one_bf16_pass_misses_the_float32_product():
+    """W_hi alone (bf16 W3) is not within the tolerance: the lo pass is
+    needed."""
+    h, w3, ref = _radial_case('bfloat16')
+    w_hi, _ = _bf16_split(w3)
+    assert _passes_error([(h, w_hi)], ref) > RADIAL_RTOL
+
+
 @pytest.mark.parametrize('case', [
     dict(), dict(prefix=0), dict(prefix=2, n=37), dict(masked=False)])
 def test_plain_matches_jax_stream(case):

@@ -491,14 +491,16 @@ def test_cuda_attention_kernels_match_plain(cuda_card, BH, BKV, n, J, D,
 # the streaming kNN attention (kernels/flash.py)
 # ---------------------------------------------------------------------- #
 def _flash_case(d_out=2, n=13, K=6, prefix=1, masked=True, h_dtype=torch.float32,
-                pairs=((0, 5), (1, 3), (2, 4), (3, 2)), heads=8, seed=7):
+                pairs=((0, 5), (1, 3), (2, 4), (3, 2)), heads=8, seed=7,
+                w_scale=None):
     """(cfg, ops) at the kernel's widths (mid 128, O 64), with one node's
-    neighbors all masked."""
+    neighbors all masked; W3 drawn at w_scale (default mid^-1/2)."""
     rng = np.random.RandomState(seed)
     P = 2 * d_out + 1
     dim_head = kf.O_WIDTH // heads
     Dh = dim_head * P
     IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    w_scale = kf.MID ** -0.5 if w_scale is None else w_scale
 
     def f32(*shape, scale=1.0):
         return torch.from_numpy((scale * rng.normal(size=shape))
@@ -509,8 +511,8 @@ def _flash_case(d_out=2, n=13, K=6, prefix=1, masked=True, h_dtype=torch.float32
                idx=torch.from_numpy(rng.randint(0, n, (1, n, K))),
                nmask=None, h_v=f32(1, n, K, kf.MID).to(h_dtype),
                h_k=f32(1, n, K, kf.MID).to(h_dtype),
-               wv=f32(kf.MID, IF, kf.O_WIDTH, scale=kf.MID ** -0.5),
-               wk=f32(kf.MID, IF, kf.O_WIDTH, scale=kf.MID ** -0.5),
+               wv=f32(kf.MID, IF, kf.O_WIDTH, scale=w_scale),
+               wk=f32(kf.MID, IF, kf.O_WIDTH, scale=w_scale),
                bv=f32(IF, kf.O_WIDTH, scale=0.1),
                bk=f32(IF, kf.O_WIDTH, scale=0.1),
                sh=kf.flash_sh_payload(rel, 3), prefix_k=None, prefix_v=None)
@@ -568,21 +570,36 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
         kf._check(cfg, ops)
 
 
+# the flagship's widths: 64 channels in each of degrees 0-3
+FLAGSHIP_PAIRS = tuple((d, 64) for d in range(4))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('h_dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('d_out,n,K,prefix,masked', [
-    (0, 13, 6, 1, True), (1, 40, 32, 1, True), (2, 13, 6, 0, True),
-    (3, 33, 32, 2, False), (3, 7, 16, 1, True)])
+@pytest.mark.parametrize('d_out,n,K,prefix,masked,wide', [
+    (0, 13, 6, 1, True, False), (1, 40, 32, 1, True, False),
+    (2, 13, 6, 0, True, False), (3, 33, 32, 2, False, False),
+    (3, 7, 16, 1, True, False), (0, 40, 32, 1, True, True),
+    (1, 40, 32, 1, True, True), (2, 37, 30, 0, True, True),
+    (3, 40, 32, 1, True, True)])
 def test_cuda_flash_kernel_matches_plain(cuda_card, h_dtype, d_out, n, K,
-                                         prefix, masked):
+                                         prefix, masked, wide):
+    """The kernel against its plain version, at small widths and at the
+    flagship's (64 channels per degree, W3 scaled to keep k and v O(1)),
+    and the same bits from a repeated launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, ops = _flash_case(d_out, n, K, prefix, masked, h_dtype)
+    pairs = FLAGSHIP_PAIRS if wide else ((0, 5), (1, 3), (2, 4), (3, 2))
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    cfg, ops = _flash_case(d_out, n, K, prefix, masked, h_dtype, pairs=pairs,
+                           w_scale=(kf.MID * IF) ** -0.5 if wide else None)
     ops = {k: (tuple(x.cuda() for x in v) if k == 'xs' else
                None if v is None else v.cuda()) for k, v in ops.items()}
     before = kf.flash_attention_fwd.launches
     out = kf.flash_attention_fwd(cfg, ops)
+    again = kf.flash_attention_fwd(cfg, ops)
     torch.cuda.synchronize()
-    assert kf.flash_attention_fwd.launches == before + 1
+    assert kf.flash_attention_fwd.launches == before + 2
+    assert torch.equal(out, again)
     # the kernel and the plain version sum the same float32 products in
     # other orders; the scores (O(10) here) carry their ~1e-6 relative
     # differences through the softmax's exponent, as in the other kernels'

@@ -942,34 +942,65 @@ GLOBAL_BUCKET = 4096
 GLOBAL_PAIRS = ((0, 8), (1, 8))
 
 
-def global_cost(n, pairs, d_out, heads, dim_head, S0, peaks):
-    """(bound_ms, bound_by, flops) of one flash_global_attention call over
-    all n^2 pairs: each input read once (q, the node features, the
-    coordinates and mask, both trunks' parameters, both convs' w3 and b3,
-    the prefix slots), the output written once. The operations, all
-    float32 on the CUDA cores: per pair both trunks' Dense_1 (2 * 2 * 128
-    * 128), the basis and V2, the k and v radial products and applies,
-    the scores and the weighted sum."""
-    _, f32_peak, mem = peaks
+# the trunk's LayerNorm and GELU, counted per element on the CUDA cores:
+# LN 7 (the mean 1, the centered square 3, the normalization 3) and GELU 9
+# (its cubic and scale 5, tanh counted as 1, the product 3)
+LN_GELU_OPS = 16
+
+
+def global_cost(n, pairs, d_out, heads, dim_head, S0, peaks, nodes=8,
+                cluster=2):
+    """(bound_ms, bound_by, flops, bound_ms_fma, w_l2_gb) of one
+    flash_global_attention call over all n^2 pairs: each input read once
+    (q, the node features, the coordinates and mask, both trunks'
+    parameters, both convs' w3 and b3, the prefix slots), the output
+    written once. The operations run on two pipes and take the longer:
+    the tensor cores, both trunks' Dense_1 (2 * 2 * 128 * 128 per pair) and
+    the k and v radial products (2 * 2 * 128 * IF * O) as three bf16 passes
+    each over float32 operands split into hi + lo (the kernel's h_hi.W_hi
+    + h_hi.W_lo + h_lo.W_hi); the CUDA cores in float32, both trunks'
+    Dense_0 (2 * 2 * 128), LayerNorms and GELUs (2 * 2 * 128 elements at
+    LN_GELU_OPS each), the basis and V2, the k and v applies, the scores
+    and the weighted sum. flops counts every product once.
+    bound_ms_fma: the bound with Dense_1, the basis, V2, the radial
+    products, the applies and the attention all on fp32 FMAs (the
+    kernel's earlier version). w_l2_gb: the bytes of W2 and W3 (both
+    trunks, bf16 hi + lo, W3's i padded to 4 a stage) and b3 that the
+    kernel reads from L2: once per block of 16 kv nodes for each cluster
+    of `cluster` CTAs of `nodes` query nodes (a tile of 128 pairs a CTA,
+    each stage multicast to the cluster)."""
+    bf16_peak, f32_peak, mem = peaks
     mid, P = 128, 2 * d_out + 1
     O = heads * dim_head
     IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
-    per_pair = 2 * 2.0 * mid * mid
+    dense1 = 2 * 2.0 * mid * mid
+    radial = 2 * 2.0 * mid * IF * O
+    basis_v2 = 0.0
     for d, c in pairs:
         Q, lo = 2 * d + 1, abs(d - d_out)
         for J in range(lo, d + d_out + 1):
-            per_pair += 2.0 * P * Q * (2 * J + 1) + 2.0 * P * c * Q
-    per_pair += 2 * (2.0 * mid * IF * O + 2.0 * P * IF * O)
-    per_pair += 4.0 * O * P
-    flops = per_pair * n * n
+            basis_v2 += 2.0 * P * Q * (2 * J + 1) + 2.0 * P * c * Q
+    apply = 2 * 2.0 * P * IF * O
+    attn = 4.0 * O * P
+    trunk = 2 * 2.0 * mid + 2 * 2 * mid * LN_GELU_OPS
+    pairs_n = float(n) * n
+    fma_flops = (dense1 + basis_v2 + radial + apply + attn) * pairs_n
+    flops = fma_flops + trunk * pairs_n
     Dh = dim_head * P
     nbytes = 4 * (2 * n * heads * Dh + sum(n * c * (2 * d + 1)
                                            for d, c in pairs)
                   + 3 * n + 2 * (7 * mid + mid * mid)
                   + 2 * (mid + 1) * IF * O + 2 * n * S0 * heads * Dh) + n
-    ops_s, bytes_s = flops / f32_peak, nbytes / mem
+    bytes_s = nbytes / mem
+    ops_s = max(3 * (dense1 + radial) * pairs_n / bf16_peak,
+                (basis_v2 + apply + attn + trunk) * pairs_n / f32_peak)
+    fma_s = max(fma_flops / f32_peak, bytes_s)
+    IF4 = -(-IF // 4) * 4
+    tiles = -(-n // (nodes * cluster)) * -(-n // 16)
+    w_l2_gb = tiles * (2 * 2 * mid * (mid + IF4 * O) * 2 + 2 * IF4 * O * 4) / 1e9
     return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes', flops
+        'operations' if ops_s >= bytes_s else 'bytes', flops, fma_s * 1e3, \
+        w_l2_gb
 
 
 def phase_flash_global(peaks):
@@ -977,7 +1008,9 @@ def phase_flash_global(peaks):
     served shapes: n 4096 of random-walk coordinates, the last 57 nodes
     padded at the origin and masked, the [null, self] prefix slots, the
     assembly model's two input degrees of 8 channels, d_out 0 and 1;
-    relative error, times, bound and TFLOP/s."""
+    relative error (within F32_RTOL, the same bits on a repeat), times,
+    the bound (and the all-FMA one), the weights' L2 bytes and rate, and
+    TFLOP/s."""
     from se3_transformer_torch.kernels import flash as kf
     gen = torch.Generator(device='cuda').manual_seed(14)
     n, heads, dim_head, mid, pad = GLOBAL_BUCKET, 2, 8, 128, 57
@@ -1028,13 +1061,14 @@ def phase_flash_global(peaks):
         worst = max(worst, err)
         del out, again, ref
         ms = cuda_ms(lambda: kf.flash_global_attention_fwd(cfg, ops), reps=3)
-        bound_ms, bound_by, flops = global_cost(n, GLOBAL_PAIRS, d_out,
-                                                heads, dim_head, 2, peaks)
+        bound_ms, bound_by, flops, bound_ms_fma, w_l2_gb = global_cost(
+            n, GLOBAL_PAIRS, d_out, heads, dim_head, 2, peaks)
         row = dict(d_out=d_out, P=P, IF=IF, n=n, masked=pad,
                    max_abs_err=err, max_abs_plain=scale, rel_err=err / scale,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, tflop=flops / 1e12,
-                   tflops=flops / ms / 1e9)
+                   bound_by=bound_by, bound_ms_fma=bound_ms_fma,
+                   w_l2_gb=w_l2_gb, w_l2_tb_s=w_l2_gb / ms,
+                   tflop=flops / 1e12, tflops=flops / ms / 1e9)
         rows.append(row)
         log('flash_global', json.dumps(row))
         del ops
@@ -1780,7 +1814,7 @@ def main() -> int:
         if 'Compiling entry function' in line:
             entry = line.split("'")[1]
         elif 'registers' in line or 'spill' in line and ' 0 bytes' not in line:
-            log('ptxas:', entry[:60], line.split(':', 1)[-1].strip())
+            log('ptxas:', entry[-64:], line.split(':', 1)[-1].strip())
 
     # 3. forward kernels vs plain: bxf at the flagship_fast pairs, fwd at
     # the flagship's grouped output degrees

@@ -141,10 +141,10 @@ def load_library() -> ctypes.CDLL:
             #  scale, stream)
             lib.se3_flash_fwd.argtypes = [vp] * 19 + [ci] * 22 + [cf, vp]
             # (q, x0..x3, coords, nodemask, rp, wk, wv, bk, bv, prefix_k,
-            #  prefix_v, cg, shk, out, pair_d[4], pair_c[4], cg_off[4],
-            #  n_pairs, B, n, S0, heads, IF, P, L, exclude_self, scale,
-            #  stream)
-            lib.se3_flash_global.argtypes = [vp] * 17 + [ci] * 21 + [cf, vp]
+            #  prefix_v, cg, shk, out, w_split, pair_d[4], pair_c[4],
+            #  cg_off[4], n_pairs, B, n, S0, heads, IF, P, L, exclude_self,
+            #  scale, stream)
+            lib.se3_flash_global.argtypes = [vp] * 18 + [ci] * 21 + [cf, vp]
             for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx,
                        lib.se3_flash_global, lib.se3_pairwise_fwd,
                        lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_b,

@@ -1,6 +1,8 @@
-// Tile constants, mma.sync helpers and the float32 split shared by the
-// pairwise kernels (pairwise_bxf.cu and pairwise_fwd.cu, the forwards;
-// pairwise_bwd.cu, the backward) and the streaming attention (flash_fwd.cu).
+// Tile constants, mma.sync and wgmma helpers and the float32 split shared
+// by the pairwise kernels (pairwise_bxf.cu and pairwise_fwd.cu, the
+// forwards; pairwise_bwd.cu, the backward) and the attention kernels
+// (flash_fwd.cu, the streaming kNN attention; flash_global.cu, the global
+// attention).
 //
 // They tile edges by BE = 64 and output channels by BO = 64 with
 // 8 warps (4 along edges x 2 along O), and compute the radial tile
@@ -219,6 +221,26 @@ __device__ __forceinline__ void build_v2(float* sV, const float* sX, const float
       vr[(cc * F + f) * PP + p] = v;
     }
   }
+}
+
+// wgmma's B operand from a [rows][64] bf16 tile whose 128-byte rows are
+// swizzled as swz() lays them out: that is wgmma's 128-byte-swizzle layout
+// for an MN-major B, a descriptor of the slice's start address (1024-byte
+// aligned 8-row groups), 1024 bytes (8 rows) between 8-row groups, swizzle
+// mode 1. A k-step of 16 rows advances it by 2048 bytes (128 units).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// keeps the compiler from moving an accumulator's uses across the wgmma
+// fence, commit and wait
+template <int NB>
+__device__ __forceinline__ void fence_acc(float (&d)[NB][4]) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(d[nb][v])::"memory");
 }
 
 // float32 -> its bf16 hi and lo arrays (hi = bf16(x), lo = bf16(x - hi));

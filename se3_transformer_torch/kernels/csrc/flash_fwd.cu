@@ -169,16 +169,8 @@ struct Smem {
 // from registers in mma.sync's m16n8k16 fragment layout (warp w of the
 // group holds rows 16 w .. 16 w + 15), B a [16][32] slice of a ring tile
 // read by the tensor cores straight from shared memory, once per
-// warpgroup. The tile is [MID][BO] bf16 with 128-byte rows swizzled as
-// swz() lays them out, which is wgmma's 128-byte-swizzle layout for an
-// MN-major B: a descriptor of the slice's start address, 1024 bytes (8
-// rows) between 8-row groups, swizzle mode 1. The accumulator comes back
+// warpgroup, through sw128_desc (common.cuh). The accumulator comes back
 // in mma.sync's [nb][4] layout for the warp's rows.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
 __device__ __forceinline__ void wgmma_k16(float (&d)[4][4], const uint32_t (&a)[4],
                                           uint64_t desc) {
   asm volatile(
@@ -194,15 +186,6 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[4][4], const uint32_t (&a)[
         "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
         "+f"(d[3][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// keeps the compiler from moving the accumulator's uses across the wgmma
-// fence, commit and wait
-__device__ __forceinline__ void fence_acc(float (&d)[4][4]) {
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(d[nb][v])::"memory");
 }
 
 // R = h.W3[:, i, the warpgroup's 32 channels] from ring stage sw (W_hi,

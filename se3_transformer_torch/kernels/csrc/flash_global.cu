@@ -25,38 +25,72 @@
 // _attend_block. As there, no per-pair tensor of any kind reaches device
 // memory: activation memory is O(n), compute O(n^2).
 //
-// What bounds it on this card: the float32 products on the CUDA cores.
-// Per pair and output degree: two trunks' 128 x 128 Dense_1 (2 x 32.8 K
-// flops) and the k and v radial products 2 * 2 * 128 * IF * O (O = 16;
-// IF = 16 at d_out 0, 32 at d_out 1 for the assembly model: 131 K and
-// 262 K flops). At n = 4096 that is ~3.3 and ~5.5 TFLOP per launch, ~131
-// ms per request at 67 TFLOP/s, against under 2 MB of operands.
+// What bounds it on this card: the float32 products. Per pair and output
+// degree: two trunks' 128 x 128 Dense_1 and the k and v radial products,
+// 2 * 2 * 128 * IF * 16 flops (IF = 16 at d_out 0, 32 at d_out 1 for the
+// assembly model): ~3.3 and ~5.5 TFLOP per launch at n = 4096. The trunk
+// is float32, so each product runs as three bf16 passes over operands
+// split into hi + lo (h_hi.W_hi + h_hi.W_lo + h_lo.W_hi, in that order per
+// k-step): ~27 ms a request at the tensor cores' peak. Beside them, on the
+// CUDA cores, both trunks' LayerNorms and exact tanh GELUs, 4 x 128 per
+// pair, the basis, V2, the applies and the attention.
+//
+// What held the previous version back (PERF.md, section 6: timing-only
+// variants of it on an H100): both products on fp32 FMAs, 65% of a
+// request; behind them W2 and W3 staged per stage behind two barriers
+// (14%), LN + GELU (14%) and the V2 build (14%: each V2 element rebuilt
+// its pair's basis for every channel).
 //
 // What the design does about it:
-//  * A CTA owns BN = 4 query nodes and walks the kv nodes in blocks of
-//    BJ = 16: a tile of 64 pairs. The online-softmax state (running max,
-//    sum and accumulator per node and head) lives in shared memory across
-//    the blocks and is divided out once, at the end.
-//  * Per tile the pairs' distances, unit vectors and harmonics are made by
-//    one thread each; V2 for every (i, p) of the 64 pairs is built once
-//    into shared memory (from the harmonics, the Q_J constants and the kv
-//    nodes' x rows, read through the cache) and serves k and v alike.
-//  * The trunk: Dense_0 and both LayerNorms run on register tiles of 4
-//    pairs x 8 columns (row statistics by half-warp shuffles); Dense_1 is a
-//    64 x 128 x 128 fp32-FMA product with W2 streamed through a cp.async
-//    double buffer, and h is kept transposed, [m][pair], so that one
-//    float4 load feeds 4 pairs.
-//  * The radial product and its apply: four groups of 64 threads each
-//    take one i at a time (W3[:, i, :] slices, 8 KB, four per cp.async
-//    stage), a thread a 4-pair x 4-channel register tile; the apply (R +
-//    b3) x V2 accumulates [P][4][4] in registers over the group's i, and
-//    the groups' partial sums are added in group order (deterministic).
-//  * Column masks and the absolute-id self mask are applied to the scores;
-//    columns past n get no weight at all. Pairs at distance zero (the self
-//    pair, padded nodes at the origin) have a finite payload: dist and the
-//    normalization clamp at 1e-8.
-// Left for later: sharing the trunk across output degrees (~12% of the
-// flops), the float32 products on the tensor cores, wgmma and TMA.
+//  * A CTA owns BN = 8 query nodes and walks the kv nodes in blocks of
+//    BJ = 16: a tile of 128 pairs, two warpgroups of 64 pair rows (a warp:
+//    one query node x 16 kv nodes), one CTA per SM. Widths whose V2 does
+//    not fit beside the ring run a 64-pair tile of one warpgroup (BN = 4).
+//    The online-softmax state lives in shared memory across the blocks.
+//  * The trunk lives in registers. Dense_0, LN1 and GELU are made straight
+//    in the register-A fragment layout of Dense_1 (row statistics by quad
+//    shuffles), split into bf16 hi + lo; Dense_1 runs on wgmma m64n64k16
+//    (two 64-column halves, h from registers); its accumulator fragments
+//    take b2, LN2 and GELU in place and, split, are the A fragments of the
+//    radial product (an mma's C layout is the next one's A layout). h goes
+//    through no shared memory.
+//  * The weights reach shared memory as one stream of 32 KB stages (a W2
+//    half, or W3 for 4 consecutive i with their b3, as bf16 hi and lo
+//    [128][64] tiles in wgmma's 128-byte swizzle): per tile the keys'
+//    stages, then the values'. pack_stream_kernel writes the stream in
+//    that layout in the launch (W2, W_k and W_v split into hi + lo there),
+//    so a stage is two bulk copies, each multicast to both CTAs of a
+//    cluster of two (hi from one, lo and b3 from the other): every weight
+//    byte leaves L2 once per 256 pairs. A 3-stage ring of full and empty
+//    mbarriers; thread 0 refills a slot, two stages ahead, once every warp
+//    of both CTAs is done with it. Fetched per CTA by cp.async, without
+//    the cluster, the stream cost 27% of the kernel (W from a constant
+//    saved that, a deeper ring nothing); now 4%.
+//  * The radial product of 4 i a stage is one m64n64k16 per k-step and
+//    pass; in its C layout a thread holds the same four o columns for every
+//    i, so the apply (R + b3) x V2 accumulates [2 rows][P][4] in registers
+//    with no cross-thread sum. V2 for every (i, p) of the tile is built
+//    once into shared memory, a thread per (pair, p) building its basis
+//    values once for all channels, and serves k and v.
+//  * k (then v) goes to shared memory as [pair][p][o] for the scores, the
+//    online-softmax fold (a row's 16 columns on 16 lanes, max and sum by
+//    shuffles) and the weighted sum. Column masks and the absolute-id self
+//    mask are applied to the scores; columns past n get no weight. Pairs at
+//    distance zero have a finite payload. No atomics: the same bits on
+//    every run.
+// Where it stands (PERF.md, section 6): ~4.7x the previous version over a
+// request, 3.2x its tensor-core bound. Its variants: the products 36%, the
+// trunk's two elementwise layers 23% (GELU 15%), V2 5%, the geometry and
+// the tail 4% each, the weight stream 4%.
+// Tried on the card: the next pass's first layer made in the shadow of the
+// radial stages' wgmma (255 registers with spills, within 1% of the same
+// work after the wait); a producer warp with the two warpgroups decoupled
+// (per-warp release, named barriers), 4% slower, 7% with a 4-stage ring;
+// the refill issued after a stage's products (one stage ahead), 22%
+// slower; GELU through expf and an IEEE division, 27% slower.
+// Left for later: overlapping the trunk's LayerNorms and GELUs with the
+// tensor cores (registers and shared memory are spent); sharing the trunk
+// across output degrees.
 
 #include <float.h>
 
@@ -66,22 +100,23 @@ namespace {
 
 using namespace se3;
 
-constexpr int BN = 4;                 // query nodes per CTA
+using bf16 = __nv_bfloat16;
+
 constexpr int BJ = 16;                // kv nodes per block
-constexpr int ET = BN * BJ;           // pairs per tile
 constexpr int OW = 16;                // kv_heads * dim_head
-constexpr int GROUPS = NTHREADS / 64; // i values in flight in the radial product
-constexpr int HT = ET + 4;            // row stride of the transposed h tile
-constexpr int STAGE = GROUPS * MID * OW;  // floats per cp.async stage (32 KB)
-constexpr int W2_ROWS = STAGE / MID;  // Dense_1 rows per stage
-constexpr int RP_STRIDE = 7 * MID + MID * MID;  // one trunk's packed parameters
+constexpr int WN = 64;                // columns of a weight stage
+constexpr int IW = WN / OW;           // i values per W3 stage
+constexpr int RING = 3;               // weight stages: copies issued 2 stages ahead
+constexpr int CLUSTER = 2;            // CTAs that share each weight stage
+constexpr size_t TILE_BYTES = (size_t)MID * WN * 2;  // one bf16 [MID][WN] tile
+constexpr int NPAR = 7;               // a trunk's [MID] vectors: w1 b1 s1 o1 b2 s2 o2
+constexpr int RP_STRIDE = NPAR * MID + MID * MID;  // one trunk's packed parameters
 constexpr int MAX_PAIRS = 4;
 constexpr int MAX_PREFIX = 4;
 constexpr int MAX_HEADS = 16;
 constexpr int MAX_L = 6;              // harmonics' degree
 constexpr int QMAX = 7;               // input degree <= 3
 constexpr float NEG_INF = -FLT_MAX;
-static_assert(MID % W2_ROWS == 0, "W2 streams in whole stages");
 
 struct Pairs {
   const float* x[MAX_PAIRS];  // node features [B, n, C, 2 d + 1]
@@ -96,8 +131,8 @@ struct Args {
   const float* coords;        // [B, n, 3]
   const uint8_t* nodemask;    // [B, n] or null
   const float* rp;            // [2][RP_STRIDE]: keys' trunk, values' trunk
-  const float* w3[2];         // wk, wv [MID, IF, OW]
-  const float* b3[2];         // bk, bv [IF, OW]
+  const bf16* wpack;          // the weight stream's stages (pack_stream_kernel)
+  const float* b3pack;        // [2][NC][WN]: b3 of each W3 stage, zeros past IF
   const float* prefix[2];     // prefix_k, prefix_v [B, n, S0, H * Dh] or null
   const float* cg;            // Q_J constants
   const float* shk;           // SH normalization K_lm [7 * 7]
@@ -106,31 +141,57 @@ struct Args {
   float scale;
 };
 
-// Shared-memory layout in floats (P, IF and L are per launch).
+// A tile of 64 WG pairs: WG warpgroups, BN = 4 WG query nodes x BJ.
+template <int WG>
+struct GTile {
+  static constexpr int NT = 128 * WG;  // threads
+  static constexpr int BN = 4 * WG;    // query nodes
+  static constexpr int ET = 64 * WG;   // pairs
+};
+
+// Shared memory in bytes (P, IF and L per launch); the ring starts it, at
+// 1024 bytes, as wgmma's swizzle wants.
+template <int P, int WG>
 struct Layout {
-  int h, w, v2, kv, y, q, s, acc, m, l, alpha, dist, ok, total;
-  __host__ __device__ Layout(int P, int IF, int L) {
+  static constexpr int BN = GTile<WG>::BN, ET = GTile<WG>::ET;
+  static constexpr size_t STAGE = 2ull * MID * WN * sizeof(bf16);  // hi + lo tiles
+  size_t b3, par, v2, kv, y, q, s, acc, m, l, alpha, dist, ok, bar, total;
+  __host__ __device__ Layout(int IF, int L) {
     const int S = (L + 1) * (L + 1);
-    h = 0;                            // [MID][HT]: the trunk's activations, transposed
-    w = h + MID * HT;                 // 2 stages of W3 slices or W2 rows
-    v2 = w + 2 * STAGE;               // [IF][P][ET]
-    kv = v2 + IF * P * ET;            // [ET][P][OW]: the k or v tile
-    y = kv + ET * P * OW;             // [ET][S]: the harmonics
-    q = y + ET * S;                   // [BN][OW * P]
-    s = q + BN * OW * P;              // [BN][MAX_HEADS][BJ]: scores, then weights
-    acc = s + BN * MAX_HEADS * BJ;    // [BN][OW * P]
-    m = acc + BN * OW * P;            // [BN][MAX_HEADS] running max
-    l = m + BN * MAX_HEADS;           // [BN][MAX_HEADS] running sum
-    alpha = l + BN * MAX_HEADS;       // [BN][MAX_HEADS] this block's rescale
-    dist = alpha + BN * MAX_HEADS;    // [ET]
-    ok = dist + ET;                   // [ET] ints: 1 valid, 0 masked, -1 no column
-    total = ok + ET;
+    b3 = RING * STAGE;                          // [RING][IW][OW]
+    par = b3 + 4ull * RING * WN;                // [2][NPAR][MID] trunk vectors
+    v2 = par + 4ull * 2 * NPAR * MID;           // [IF][P][ET]
+    kv = v2 + 4ull * IF * P * ET;               // [ET][P][OW]: the k or v tile
+    y = kv + 4ull * ET * P * OW;                // [ET][S]: the harmonics
+    q = y + 4ull * ET * S;                      // [BN][OW * P]
+    s = q + 4ull * BN * OW * P;                 // [BN][MAX_HEADS][BJ]: scores, then weights
+    acc = s + 4ull * BN * MAX_HEADS * BJ;       // [BN][OW * P]
+    m = acc + 4ull * BN * OW * P;               // [BN][MAX_HEADS] running max
+    l = m + 4ull * BN * MAX_HEADS;              // [BN][MAX_HEADS] running sum
+    alpha = l + 4ull * BN * MAX_HEADS;          // [BN][MAX_HEADS] this block's rescale
+    dist = alpha + 4ull * BN * MAX_HEADS;       // [ET]
+    ok = dist + 4ull * ET;                      // [ET] ints: 1 valid, 0 masked, -1 no column
+    bar = ok + 4ull * ET;                       // mbarriers: [RING] full, then [RING] empty
+    total = bar + 16ull * RING;
   }
 };
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
   return 0.5f * x * (1.f + tanhf(inner));
+}
+
+// (x, y) as packed bf16 hi and lo halves: hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Real spherical harmonics of degrees 0..L at the unit vector (x, y, z),
@@ -165,244 +226,396 @@ __device__ void spherical_harmonics(float x, float y, float z, int L,
   }
 }
 
-// LayerNorm (two-pass variance, eps 1e-6) and GELU of a [4 pairs][8 cols]
-// register tile whose rows are spread over the 16 lanes of a half-warp,
-// then its transposed store into sH[col][pair].
-__device__ __forceinline__ void ln_gelu_store(float (&u)[4][8], const float* __restrict__ s,
-                                              const float* __restrict__ o, const int (&col)[8],
-                                              int eg, float* sH) {
+// mbarriers and the cluster (sm_90)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// one arrival on this CTA's barrier and on the same barrier of CTA `peer`
+__device__ __forceinline__ void mbar_arrive_both(uint32_t bar, uint32_t peer) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(peer));
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+// wait for the completion of the barrier's phase of this parity; a wait
+// that cannot end (a fault in the stream) traps rather than hang the card
+template <bool kCluster>
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    if constexpr (kCluster)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 36)) __trap();
+  }
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// bytes [src, src + bytes) to shared offset dst of every CTA of the cluster,
+// each CTA's barrier at offset bar counting them
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                               uint32_t bar) {
+  const uint16_t mask = (1u << CLUSTER) - 1;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// The weight stream in device memory as the ring holds it: stage u of a
+// tile's T = 2 (2 + NC) stages is, for trunk tr = u / (2 + NC) and v = u %
+// (2 + NC), W2's columns 64 v .. (v < 2) or W3 for i = IW (v - 2) .. + IW -
+// 1 (zeros past IF), as a bf16 hi tile and a bf16 lo tile [MID][WN] in the
+// swizzled layout (hi = bf16(w), lo = bf16(w - hi)); then b3 of every W3
+// stage, [2][NC][WN] floats.
+__global__ void pack_stream_kernel(const float* __restrict__ rp, const float* __restrict__ wk,
+                                   const float* __restrict__ wv, const float* __restrict__ bk,
+                                   const float* __restrict__ bv, bf16* __restrict__ wpack,
+                                   float* __restrict__ b3pack, int IF, int NC) {
+  const int HALF = 2 + NC, T = 2 * HALF, chunks = T * MID * 8;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < chunks + 2 * NC * WN;
+       k += gridDim.x * blockDim.x) {
+    if (k >= chunks) {
+      const int q = k - chunks, tr = q / (NC * WN), col = q % WN;
+      const int i = (q / WN - tr * NC) * IW + col / OW;
+      b3pack[q] = i < IF ? __ldg((tr ? bv : bk) + i * OW + col % OW) : 0.f;
+      continue;
+    }
+    const int u = k / (MID * 8), m = (k >> 3) & (MID - 1), ch = k & 7;
+    const int tr = u / HALF, v = u - tr * HALF;
+    float x[8];
+    if (v < 2) {
+      const float* w2 = rp + (size_t)tr * RP_STRIDE + NPAR * MID + (size_t)m * MID + v * WN + ch * 8;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < 8; ++e) x[e] = __ldg(w2 + e);
+    } else {
+      const int i = (v - 2) * IW + ch / 2;
+      const float* w3 = (tr ? wv : wk) + ((size_t)m * IF + i) * OW + (ch & 1) * 8;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = i < IF ? __ldg(w3 + e) : 0.f;
+    }
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split2(x[2 * e], x[2 * e + 1], hi[e], lo[e]);
+    bf16* dst = wpack + (size_t)u * 2 * MID * WN + swz(m, ch * 8);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(dst + MID * WN) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// One m64n64k16 step of a warpgroup: d (the warp's rows 16 w + g and + 8,
+// columns 8 nb + 2 t, + 1) += A (registers, mma.sync's m16n8k16 A layout)
+// . B (a [16][64] slice of a swizzled ring tile).
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d = A . W over MID for one ring stage (W_hi, then W_lo MID x WN elements
+// later): per k-step h_hi.W_hi, h_hi.W_lo, h_lo.W_hi, in that fixed order;
+// synchronous.
+__device__ __forceinline__ void stage_product(float (&d)[8][4], const uint32_t (&ahi)[8][4],
+                                              const uint32_t (&alo)[8][4], const bf16* sw) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) d[nb][v] = 0.f;
+  const uint64_t dhi = sw128_desc(sw), dlo = sw128_desc(sw + MID * WN);
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < MID / 16; ++kk) {
+    const uint64_t step = kk * 16 * WN * sizeof(bf16) / 16;  // 16 rows, in 16-byte units
+    wgmma_n64(d, ahi[kk], dhi + step);
+    wgmma_n64(d, ahi[kk], dlo + step);
+    wgmma_n64(d, alo[kk], dhi + step);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(d);
+}
+
+// Dense_0, LN1 and GELU of the thread's rows (distances d[0], d[1]) as
+// Dense_1's A fragments, split into bf16 hi + lo: fragment kk holds
+// columns 16 kk + 2 t (+1) and + 8 of rows g, g + 8. par: the trunk's
+// [NPAR][MID] vectors.
+__device__ __forceinline__ void first_layer(uint32_t (&ahi)[8][4], uint32_t (&alo)[8][4],
+                                            const float* par, const float (&d)[2], int t) {
+  const float* w1 = par;
+  const float* b1 = par + MID;
+  const float* s1 = par + 2 * MID;
+  const float* o1 = par + 3 * MID;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float u[8][2][2];  // the row's 32 columns: [kk][hc][pair of columns]
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) sum += u[e][c];
+    for (int kk = 0; kk < MID / 16; ++kk)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float mu = sum * (1.f / MID);
+      for (int hc = 0; hc < 2; ++hc) {
+        const int col = kk * 16 + hc * 8 + 2 * t;
+        const float2 w = *reinterpret_cast<const float2*>(w1 + col);
+        const float2 b = *reinterpret_cast<const float2*>(b1 + col);
+        u[kk][hc][0] = fmaf(d[r], w.x, b.x);
+        u[kk][hc][1] = fmaf(d[r], w.y, b.y);
+        sum += u[kk][hc][0] + u[kk][hc][1];
+      }
+    const float mu = quad_sum(sum) * (1.f / MID);
     float sq = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float d = u[e][c] - mu;
-      sq += d * d;
-    }
+    for (int kk = 0; kk < MID / 16; ++kk)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float inv = 1.f / sqrtf(sq * (1.f / MID) + 1e-6f);
+      for (int hc = 0; hc < 2; ++hc)
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      u[e][c] = gelu_tanh((u[e][c] - mu) * inv * __ldg(s + col[c]) + __ldg(o + col[c]));
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    *reinterpret_cast<float4*>(sH + col[c] * HT + 4 * eg) =
-        make_float4(u[0][c], u[1][c], u[2][c], u[3][c]);
-}
-
-// Stage W2 rows [r0, r0 + W2_ROWS) as a [W2_ROWS][MID] tile.
-__device__ __forceinline__ void stage_w2(float* sw, const float* __restrict__ w2, int r0,
-                                         int tid) {
-  constexpr int CH = MID / 4;
-  for (int k = tid; k < W2_ROWS * CH; k += NTHREADS)
-    cp_async16(sw + k * 4, w2 + (size_t)r0 * MID + k * 4);
-}
-
-// h^T [MID][pair] of the tile's pairs through trunk `tr` (0 keys, 1 values).
-__device__ void trunk(const Args& a, int tr, const float* sDist, float* sH, float* sW,
-                      int tid) {
-  const float* rp = a.rp + (size_t)tr * RP_STRIDE;
-  const float* w1 = rp;
-  const float* b1 = rp + MID;
-  const float* s1 = rp + 2 * MID;
-  const float* o1 = rp + 3 * MID;
-  const float* b2 = rp + 4 * MID;
-  const float* s2 = rp + 5 * MID;
-  const float* o2 = rp + 6 * MID;
-  const float* w2 = rp + 7 * MID;
-  stage_w2(sW, w2, 0, tid);
-  cp_async_commit();
-
-  // pairs 4eg .. 4eg+3; columns 4mg .. 4mg+3 and 64 + 4mg .. 64 + 4mg+3
-  const int eg = tid >> 4, mg = tid & 15;
-  int col[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) col[c] = (c < 4 ? 4 * mg : 64 + 4 * mg - 4) + c;
-  float u[4][8];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float d = sDist[4 * eg + e];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) u[e][c] = d * __ldg(w1 + col[c]) + __ldg(b1 + col[c]);
-  }
-  ln_gelu_store(u, s1, o1, col, eg, sH);
-
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) u[e][c] = 0.f;
-  constexpr int CHUNKS = MID / W2_ROWS;
-  for (int k = 0; k < CHUNKS; ++k) {
-    if (k + 1 < CHUNKS) {
-      stage_w2(sW + ((k + 1) & 1) * STAGE, w2, (k + 1) * W2_ROWS, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // the staged rows, and (k = 0) the Dense_0 tile
-    const float* sw = sW + (k & 1) * STAGE;
-#pragma unroll 4
-    for (int r = 0; r < W2_ROWS; ++r) {
-      const float4 hv = *reinterpret_cast<const float4*>(sH + (k * W2_ROWS + r) * HT + 4 * eg);
-      const float4 wa = *reinterpret_cast<const float4*>(sw + r * MID + 4 * mg);
-      const float4 wb = *reinterpret_cast<const float4*>(sw + r * MID + 64 + 4 * mg);
-      const float hh[4] = {hv.x, hv.y, hv.z, hv.w};
-      const float ww[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) u[e][c] = fmaf(hh[e], ww[c], u[e][c]);
-    }
-    __syncthreads();  // the stage is restaged next; sH is rewritten below
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) u[e][c] += __ldg(b2 + col[c]);
-  ln_gelu_store(u, s2, o2, col, eg, sH);
-  __syncthreads();
-}
-
-// Stage W3[:, i0 .. i0 + GROUPS, :] as GROUPS [MID][OW] tiles.
-__device__ __forceinline__ void stage_w3(float* sw, const float* __restrict__ w3, int i0,
-                                         int IF, int tid) {
-  constexpr int CH = OW / 4;
-  for (int k = tid; k < GROUPS * MID * CH; k += NTHREADS) {
-    const int g = k / (MID * CH), rest = k - g * MID * CH;
-    const int m = rest / CH, ch = rest - m * CH;
-    if (i0 + g < IF)
-      cp_async16(sw + (g * MID + m) * OW + ch * 4,
-                 w3 + ((size_t)m * IF + i0 + g) * OW + ch * 4);
-  }
-}
-
-// One radial contraction (cv = 0: keys, 1: values) of the tile's pairs into
-// sKV[pair][p][o].
-template <int P>
-__device__ void conv_pass(const Args& a, int cv, const float* sH, const float* sV2, float* sW,
-                          float* sKV, int tid) {
-  const float* w3 = a.w3[cv];
-  const float* b3 = a.b3[cv];
-  const int IF = a.IF;
-  const int g = tid >> 6, lt = tid & 63, eg = lt >> 2, og = lt & 3;
-  float acc[P][4][4];
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int o = 0; o < 4; ++o) acc[p][e][o] = 0.f;
-
-  const int steps = (IF + GROUPS - 1) / GROUPS;
-  stage_w3(sW, w3, 0, IF, tid);
-  cp_async_commit();
-  for (int st = 0; st < steps; ++st) {
-    if (st + 1 < steps) {
-      stage_w3(sW + ((st + 1) & 1) * STAGE, w3, (st + 1) * GROUPS, IF, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int i = st * GROUPS + g;
-    if (i < IF) {
-      const float* sw = sW + (st & 1) * STAGE + g * MID * OW;
-      float r[4][4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int o = 0; o < 4; ++o) r[e][o] = 0.f;
-#pragma unroll 8
-      for (int m = 0; m < MID; ++m) {
-        const float4 hv = *reinterpret_cast<const float4*>(sH + m * HT + 4 * eg);
-        const float4 wv = *reinterpret_cast<const float4*>(sw + m * OW + 4 * og);
-        const float hh[4] = {hv.x, hv.y, hv.z, hv.w};
-        const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int o = 0; o < 4; ++o) r[e][o] = fmaf(hh[e], ww[o], r[e][o]);
-      }
-      const float4 bb = __ldg(reinterpret_cast<const float4*>(b3 + (size_t)i * OW + 4 * og));
-      const float bbs[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float4 v = *reinterpret_cast<const float4*>(sV2 + (i * P + p) * ET + 4 * eg);
-        const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int o = 0; o < 4; ++o) acc[p][e][o] = fmaf(vv[e], r[e][o] + bbs[o], acc[p][e][o]);
-      }
-    }
-    __syncthreads();  // the stage is restaged next
-  }
-  // the groups' partial sums, added in group order
-  for (int gg = 0; gg < GROUPS; ++gg) {
-    if (g == gg) {
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float4* dst = reinterpret_cast<float4*>(sKV + ((4 * eg + e) * P + p) * OW + 4 * og);
-          float4 t = make_float4(acc[p][e][0], acc[p][e][1], acc[p][e][2], acc[p][e][3]);
-          if (gg > 0) {
-            const float4 prev = *dst;
-            t.x += prev.x;
-            t.y += prev.y;
-            t.z += prev.z;
-            t.w += prev.w;
-          }
-          *dst = t;
+        for (int v = 0; v < 2; ++v) {
+          u[kk][hc][v] -= mu;
+          sq += u[kk][hc][v] * u[kk][hc][v];
         }
-    }
-    __syncthreads();
+    const float inv = 1.f / sqrtf(quad_sum(sq) * (1.f / MID) + 1e-6f);
+#pragma unroll
+    for (int kk = 0; kk < MID / 16; ++kk)
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+        const int col = kk * 16 + hc * 8 + 2 * t;
+        const float2 s = *reinterpret_cast<const float2*>(s1 + col);
+        const float2 o = *reinterpret_cast<const float2*>(o1 + col);
+        split2(gelu_tanh(u[kk][hc][0] * inv * s.x + o.x),
+               gelu_tanh(u[kk][hc][1] * inv * s.y + o.y), ahi[kk][r + 2 * hc],
+               alo[kk][r + 2 * hc]);
+      }
   }
 }
 
-template <int P>
-__global__ void __launch_bounds__(NTHREADS, 1)
+// b2, LN2 and GELU on Dense_1's accumulators (c[hf]: columns 64 hf + 8 nb
+// + 2 t (+1); [nb][0..1] row g, [nb][2..3] row g + 8), split into the A
+// fragments of the radial product: column 64 hf + 8 nb is fragment 4 hf +
+// nb / 2, half nb % 2.
+__device__ __forceinline__ void second_layer(uint32_t (&ahi)[8][4], uint32_t (&alo)[8][4],
+                                             float (&c)[2][8][4], const float* par, int t) {
+  const float* b2 = par + 4 * MID;
+  const float* s2 = par + 5 * MID;
+  const float* o2 = par + 6 * MID;
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const float2 b = *reinterpret_cast<const float2*>(b2 + hf * 64 + nb * 8 + 2 * t);
+      c[hf][nb][0] += b.x;
+      c[hf][nb][1] += b.y;
+      c[hf][nb][2] += b.x;
+      c[hf][nb][3] += b.y;
+      sum[0] += c[hf][nb][0] + c[hf][nb][1];
+      sum[1] += c[hf][nb][2] + c[hf][nb][3];
+    }
+  const float mu[2] = {quad_sum(sum[0]) * (1.f / MID), quad_sum(sum[1]) * (1.f / MID)};
+  float sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float u = c[hf][nb][v] - mu[v >> 1];
+        sq[v >> 1] += u * u;
+      }
+  const float inv[2] = {1.f / sqrtf(quad_sum(sq[0]) * (1.f / MID) + 1e-6f),
+                        1.f / sqrtf(quad_sum(sq[1]) * (1.f / MID) + 1e-6f)};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int col = hf * 64 + nb * 8 + 2 * t;
+      const float2 s = *reinterpret_cast<const float2*>(s2 + col);
+      const float2 o = *reinterpret_cast<const float2*>(o2 + col);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float v0 = gelu_tanh((c[hf][nb][2 * r] - mu[r]) * inv[r] * s.x + o.x);
+        const float v1 = gelu_tanh((c[hf][nb][2 * r + 1] - mu[r]) * inv[r] * s.y + o.y);
+        split2(v0, v1, ahi[4 * hf + nb / 2][r + 2 * (nb & 1)],
+               alo[4 * hf + nb / 2][r + 2 * (nb & 1)]);
+      }
+    }
+}
+
+// V2 of one degree pair (input degree (Q - 1) / 2, its i from off) into
+// sV2 [i][p][pair]: a thread takes one (pair row, p), builds its F x Q
+// basis values once from the harmonics and the pair's Q_J constants (J =
+// lo + f known at compile time), and contracts them with the C channels'
+// x rows of the pair's kv node (zeros past n).
+template <int P, int Q, int ET, int NT>
+__device__ __forceinline__ void build_v2(float* sV2, const float* sY, int S,
+                                         const float* __restrict__ cg,
+                                         const float* __restrict__ x, int C, int off, int j0,
+                                         int n, int b, int tid) {
+  constexpr int F = P < Q ? P : Q;
+  constexpr int d_in = (Q - 1) / 2, d_out = (P - 1) / 2;
+  constexpr int lo = d_in > d_out ? d_in - d_out : d_out - d_in;
+  for (int k = tid; k < ET * P; k += NT) {
+    const int e = k % ET, p = k / ET;
+    const int j = j0 + e % BJ;
+    const float* y = sY + e * S;
+    float bs[F][Q];
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int J = lo + f, M = 2 * J + 1;
+      const float* qj = cg + P * Q * (J * J - lo * lo) + p * Q * M;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        float v = 0.f;
+#pragma unroll
+        for (int m = 0; m < M; ++m) v = fmaf(y[J * J + m], __ldg(qj + q * M + m), v);
+        bs[f][q] = v;
+      }
+    }
+    const float* xr = x + ((size_t)b * n + (j < n ? j : 0)) * C * Q;
+    float* dst = sV2 + ((size_t)off * P + p) * ET + e;
+    for (int c = 0; c < C; ++c) {
+      float xv[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) xv[q] = j < n ? __ldg(xr + c * Q + q) : 0.f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        float v = 0.f;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) v = fmaf(bs[f][q], xv[q], v);
+        dst[(size_t)(c * F + f) * P * ET] = v;
+      }
+    }
+  }
+}
+
+template <int P, int WG>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(GTile<WG>::NT, 1)
 flash_global_kernel(const Args a, const Pairs pairs) {
-  extern __shared__ __align__(16) float smem[];
-  const Layout lay(P, a.IF, a.L);
-  float* sH = smem + lay.h;
-  float* sW = smem + lay.w;
-  float* sV2 = smem + lay.v2;
-  float* sKV = smem + lay.kv;
-  float* sY = smem + lay.y;
-  float* sQ = smem + lay.q;
-  float* sS = smem + lay.s;
-  float* sAcc = smem + lay.acc;
-  float* sM = smem + lay.m;
-  float* sL = smem + lay.l;
-  float* sAlpha = smem + lay.alpha;
-  float* sDist = smem + lay.dist;
+  constexpr int NT = GTile<WG>::NT, BN = GTile<WG>::BN, ET = GTile<WG>::ET;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const Layout<P, WG> lay(a.IF, a.L);
+  bf16* sW = reinterpret_cast<bf16*>(smem);
+  float* sB3 = reinterpret_cast<float*>(smem + lay.b3);
+  float* sPar = reinterpret_cast<float*>(smem + lay.par);
+  float* sV2 = reinterpret_cast<float*>(smem + lay.v2);
+  float* sKV = reinterpret_cast<float*>(smem + lay.kv);
+  float* sY = reinterpret_cast<float*>(smem + lay.y);
+  float* sQ = reinterpret_cast<float*>(smem + lay.q);
+  float* sS = reinterpret_cast<float*>(smem + lay.s);
+  float* sAcc = reinterpret_cast<float*>(smem + lay.acc);
+  float* sM = reinterpret_cast<float*>(smem + lay.m);
+  float* sL = reinterpret_cast<float*>(smem + lay.l);
+  float* sAlpha = reinterpret_cast<float*>(smem + lay.alpha);
+  float* sDist = reinterpret_cast<float*>(smem + lay.dist);
   int* sOk = reinterpret_cast<int*>(smem + lay.ok);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int e0 = warp * 16 + g;  // the thread's pair rows e0 and e0 + 8
   const int b = blockIdx.y, node0 = blockIdx.x * BN;
   const int n = a.n, S0 = a.S0, H = a.H, IF = a.IF;
   const int S = (a.L + 1) * (a.L + 1);
   const int dim_head = OW / H, Dh = dim_head * P, HD = OW * P;
-  const int d_out = (P - 1) / 2;
 
-  // the query rows and the state after the prefix slots (_init_state)
-  for (int k = tid; k < BN * HD; k += NTHREADS) {
+  // The weight stream: per tile T stages, the keys' trunk (W2's two
+  // halves, then W3's NC chunks of IW values of i), then the values'. The
+  // two CTAs of a cluster run the same stages in the same order; each
+  // stage's hi tile comes from CTA 0 and its lo tile and b3 from CTA 1, one
+  // bulk copy each, multicast to both.
+  const int NC = (IF + IW - 1) / IW, HALF = 2 + NC, T = 2 * HALF;
+  const int total = ((n + BJ - 1) / BJ) * T;
+  uint32_t rank;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  const uint32_t full0 = smem_addr(smem + lay.bar), empty0 = full0 + 8 * RING;
+  auto issue = [&](int gs) {  // by thread 0
+    if (gs >= total) return;
+    const int u = gs % T, slot = gs % RING, v = u % HALF;
+    const uint32_t bar = full0 + 8 * slot;
+    mbar_expect(bar, 2 * TILE_BYTES + (v >= 2 ? WN * 4 : 0));
+    bulk_multicast(smem_addr(sW + (size_t)slot * 2 * MID * WN) + rank * TILE_BYTES,
+                   a.wpack + (size_t)u * 2 * MID * WN + rank * MID * WN, TILE_BYTES, bar);
+    if (v >= 2 && rank == 1)
+      bulk_multicast(smem_addr(sB3 + slot * WN), a.b3pack + (size_t)((u / HALF) * NC + v - 2) * WN,
+                     WN * 4, bar);
+  };
+  int gs = 0;  // the next stage to consume
+  // Stage gs has landed and every warp is done with stage gs - 1; once both
+  // CTAs are (its slot's empty barrier), stage gs + RING - 1 refills it.
+  auto next_stage = [&]() -> int {
+    const int slot = gs % RING;
+    mbar_wait<false>(full0 + 8 * slot, (gs / RING) & 1);
+    __syncthreads();
+    if (tid == 0) {
+      if (gs > 0) {
+        const uint32_t e = empty0 + 8 * ((gs - 1) % RING);
+        mbar_arrive_both(e, rank ^ 1);
+        mbar_wait<true>(e, ((gs - 1) / RING) & 1);
+      }
+      issue(gs + RING - 1);
+    }
+    ++gs;
+    return slot;
+  };
+  if (tid == 0) {
+    for (int k = 0; k < RING; ++k) {
+      mbar_init(full0 + 8 * k, 1);
+      mbar_init(empty0 + 8 * k, CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+  if (tid == 0)
+    for (int k = 0; k < RING - 1; ++k) issue(k);
+
+  // both trunks' vectors, the query rows and the state after the prefix
+  // slots (_init_state)
+  for (int k = tid; k < 2 * NPAR * MID; k += NT) {
+    const int tr = k / (NPAR * MID);
+    sPar[k] = __ldg(a.rp + (size_t)tr * RP_STRIDE + (k - tr * NPAR * MID));
+  }
+  for (int k = tid; k < BN * HD; k += NT) {
     const int il = k / HD, node = node0 + il;
     sQ[k] = node < n ? __ldg(a.q + ((size_t)b * n + node) * HD + (k - il * HD)) : 0.f;
   }
   __syncthreads();
-  for (int k = tid; k < BN * H; k += NTHREADS) {
+  for (int k = tid; k < BN * H; k += NT) {
     const int il = k / H, hd = k - il * H, node = node0 + il;
     float mx = NEG_INF;
     for (int j = 0; j < S0 && node < n; ++j) {
@@ -423,7 +636,7 @@ flash_global_kernel(const Args a, const Pairs pairs) {
     sL[il * MAX_HEADS + hd] = l;
   }
   __syncthreads();
-  for (int k = tid; k < BN * HD; k += NTHREADS) {
+  for (int k = tid; k < BN * HD; k += NT) {
     const int il = k / HD, rest = k - il * HD, hd = rest / Dh, node = node0 + il;
     float o = 0.f;
     for (int j = 0; j < S0 && node < n; ++j)
@@ -433,9 +646,9 @@ flash_global_kernel(const Args a, const Pairs pairs) {
   }
 
   for (int j0 = 0; j0 < n; j0 += BJ) {
-    __syncthreads();  // the last block's state update is done with the tile
-    // the pairs: distance, unit vector, harmonics, column mask
-    for (int e = tid; e < ET; e += NTHREADS) {
+    // the pairs: distance, unit vector, harmonics, column mask (every
+    // reader of the last tile's has passed a barrier since)
+    for (int e = tid; e < ET; e += NT) {
       const int il = e / BJ, jl = e - il * BJ;
       const int i = node0 + il, j = j0 + jl;
       float rx = 0.f, ry = 0.f, rz = 0.f;
@@ -461,137 +674,196 @@ flash_global_kernel(const Args a, const Pairs pairs) {
       sOk[e] = ok;
     }
     __syncthreads();
-    // V2[i][p][pair] for every i of every degree pair
-    for (int k = tid; k < IF * P * ET; k += NTHREADS) {
-      const int e = k % ET, ip = k / ET, p = ip % P, i = ip / P;
-      const int j = j0 + e % BJ;
-      int pi = 0, off = 0;
-      int C = pairs.c[0], d_in = pairs.d[0];
-      int F = 2 * min(d_in, d_out) + 1;
-      while (i >= off + C * F) {
-        off += C * F;
-        ++pi;
-        C = pairs.c[pi];
-        d_in = pairs.d[pi];
-        F = 2 * min(d_in, d_out) + 1;
+    // V2[i][p][pair] for every i of every degree pair (read from the first
+    // radial stage on, behind its barrier)
+    for (int pi = 0, off = 0; pi < pairs.count; ++pi) {
+      const int C = pairs.c[pi];
+      const float* cg = a.cg + pairs.cg_off[pi];
+#define SE3_Q(QQ) \
+  build_v2<P, QQ, ET, NT>(sV2, sY, S, cg, pairs.x[pi], C, off, j0, n, b, tid)
+      switch (pairs.d[pi]) {
+        case 0: SE3_Q(1); break;
+        case 1: SE3_Q(3); break;
+        case 2: SE3_Q(5); break;
+        default: SE3_Q(7); break;
       }
-      const int c = (i - off) / F, f = i - off - c * F;
-      const int Q = 2 * d_in + 1, lo = d_in > d_out ? d_in - d_out : d_out - d_in;
-      const int J = lo + f, M = 2 * J + 1;
-      float v = 0.f;
-      if (j < n) {
-        const float* xr = pairs.x[pi] + (((size_t)b * n + j) * C + c) * Q;
-        const float* qj = a.cg + pairs.cg_off[pi] + P * Q * (J * J - lo * lo) + p * Q * M;
-        const float* y = sY + e * S + J * J;
-        for (int q = 0; q < Q; ++q) {
-          float bs = 0.f;
-          for (int m = 0; m < M; ++m) bs = fmaf(y[m], __ldg(qj + q * M + m), bs);
-          v = fmaf(bs, __ldg(xr + q), v);
+#undef SE3_Q
+      off += C * min(P, 2 * pairs.d[pi] + 1);
+    }
+
+    // the keys' pass (tr = 0), then the values' (tr = 1)
+    for (int tr = 0; tr < 2; ++tr) {
+      const float* par = sPar + tr * NPAR * MID;
+      uint32_t ahi[8][4], alo[8][4];
+      {
+        const float d[2] = {sDist[e0], sDist[e0 + 8]};
+        first_layer(ahi, alo, par, d, t);
+      }
+      float c[2][8][4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int slot = next_stage();
+        stage_product(c[hf], ahi, alo, sW + (size_t)slot * 2 * MID * WN);
+      }
+      second_layer(ahi, alo, c, par, t);
+
+      // the radial product, IW values of i a stage, and its apply:
+      // column 8 nb + 2 t (+1) of a stage is i = IW st + nb / 2, o = 8 (nb
+      // % 2) + 2 t (+1)
+      float kv[2][P][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) kv[r][p][v] = 0.f;
+      for (int st = 0; st < NC; ++st) {
+        const int slot = next_stage();
+        float rr[8][4];
+        stage_product(rr, ahi, alo, sW + (size_t)slot * 2 * MID * WN);
+        const float* bb = sB3 + slot * WN + 2 * t;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int i = st * IW + nb / 2;
+          if (i < IF) {
+            const float2 b3v = *reinterpret_cast<const float2*>(bb + nb * 8);
+            const float r0 = rr[nb][0] + b3v.x, r1 = rr[nb][1] + b3v.y;
+            const float r2 = rr[nb][2] + b3v.x, r3 = rr[nb][3] + b3v.y;
+            const float* v2 = sV2 + i * P * ET + e0;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              const float v0 = v2[p * ET], v1 = v2[p * ET + 8];
+              const int q4 = 2 * (nb & 1);
+              kv[0][p][q4] = fmaf(v0, r0, kv[0][p][q4]);
+              kv[0][p][q4 + 1] = fmaf(v0, r1, kv[0][p][q4 + 1]);
+              kv[1][p][q4] = fmaf(v1, r2, kv[1][p][q4]);
+              kv[1][p][q4 + 1] = fmaf(v1, r3, kv[1][p][q4 + 1]);
+            }
+          }
         }
       }
-      sV2[ip * ET + e] = v;
-    }
-    __syncthreads();
+      // the k / v tile [pair][p][o]
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(sKV + ((e0 + 8 * r) * P + p) * OW + 8 * hh + 2 * t) =
+                make_float2(kv[r][p][2 * hh], kv[r][p][2 * hh + 1]);
+      __syncthreads();
 
-    // keys: the tile, then the scores and the online-softmax fold
-    trunk(a, 0, sDist, sH, sW, tid);
-    conv_pass<P>(a, 0, sH, sV2, sW, sKV, tid);
-    for (int k = tid; k < BN * H * BJ; k += NTHREADS) {
-      const int il = k / (H * BJ), rest = k - il * H * BJ;
-      const int hd = rest / BJ, jl = rest - hd * BJ, e = il * BJ + jl;
-      float s = NEG_INF;
-      if (sOk[e] > 0) {
-        const float* qh = sQ + il * HD + hd * Dh;
-        const float* kr = sKV + e * P * OW + hd * dim_head;
-        s = 0.f;
-        for (int dh = 0; dh < dim_head; ++dh)
-          for (int p = 0; p < P; ++p) s = fmaf(qh[dh * P + p], kr[p * OW + dh], s);
-        s *= a.scale;
+      if (tr == 0) {
+        // the scores and the online-softmax fold: a (node, head) row's BJ
+        // columns on 16 consecutive lanes (whole warps: BN * BJ is a
+        // multiple of 32), its max and sum by shuffles
+        for (int k = tid; k < BN * H * BJ; k += NT) {
+          const int row = k / BJ, jl = k - row * BJ, il = row / H, hd = row - il * H;
+          const int e = il * BJ + jl, ok = sOk[e];
+          float s = NEG_INF;
+          if (ok > 0) {
+            const float* qh = sQ + il * HD + hd * Dh;
+            const float* kr = sKV + e * P * OW + hd * dim_head;
+            s = 0.f;
+            for (int dh = 0; dh < dim_head; ++dh)
+              for (int p = 0; p < P; ++p) s = fmaf(qh[dh * P + p], kr[p * OW + dh], s);
+            s *= a.scale;
+          }
+          const float m_old = sM[il * MAX_HEADS + hd];
+          float mx = fmaxf(m_old, s);
+#pragma unroll
+          for (int o = BJ / 2; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float pw = ok >= 0 ? expf(s - mx) : 0.f;
+          float l = pw;
+#pragma unroll
+          for (int o = BJ / 2; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+          sS[(il * MAX_HEADS + hd) * BJ + jl] = pw;
+          if (jl == 0) {
+            const float alpha = expf(m_old - mx);
+            sM[il * MAX_HEADS + hd] = mx;
+            sL[il * MAX_HEADS + hd] = sL[il * MAX_HEADS + hd] * alpha + l;
+            sAlpha[il * MAX_HEADS + hd] = alpha;
+          }
+        }
+        // (the values' first stage barrier comes before sKV is rewritten)
+      } else {
+        // the weighted sum
+        for (int k = tid; k < BN * HD; k += NT) {
+          const int il = k / HD, rest = k - il * HD;
+          const int hd = rest / Dh, d = rest - hd * Dh, dh = d / P, p = d - dh * P;
+          const float* w = sS + (il * MAX_HEADS + hd) * BJ;
+          const float* vr = sKV + (il * BJ * P + p) * OW + hd * dim_head + dh;
+          float o = sAcc[k] * sAlpha[il * MAX_HEADS + hd];
+          for (int jl = 0; jl < BJ; ++jl) o = fmaf(w[jl], vr[jl * P * OW], o);
+          sAcc[k] = o;
+        }
       }
-      sS[(il * MAX_HEADS + hd) * BJ + jl] = s;
-    }
-    __syncthreads();
-    for (int k = tid; k < BN * H; k += NTHREADS) {
-      const int il = k / H, hd = k - il * H;
-      float* row = sS + (il * MAX_HEADS + hd) * BJ;
-      const int* ok = sOk + il * BJ;
-      const float m_old = sM[il * MAX_HEADS + hd];
-      float mx = m_old;
-      for (int jl = 0; jl < BJ; ++jl) mx = fmaxf(mx, row[jl]);
-      const float alpha = expf(m_old - mx);
-      float l = sL[il * MAX_HEADS + hd] * alpha;
-      for (int jl = 0; jl < BJ; ++jl) {
-        const float p = ok[jl] >= 0 ? expf(row[jl] - mx) : 0.f;
-        row[jl] = p;
-        l += p;
-      }
-      sM[il * MAX_HEADS + hd] = mx;
-      sL[il * MAX_HEADS + hd] = l;
-      sAlpha[il * MAX_HEADS + hd] = alpha;
-    }
-    // (trunk() syncs before it overwrites anything the fold reads)
-
-    // values: the tile, then the weighted sum
-    trunk(a, 1, sDist, sH, sW, tid);
-    conv_pass<P>(a, 1, sH, sV2, sW, sKV, tid);
-    for (int k = tid; k < BN * HD; k += NTHREADS) {
-      const int il = k / HD, rest = k - il * HD;
-      const int hd = rest / Dh, d = rest - hd * Dh, dh = d / P, p = d - dh * P;
-      const float* w = sS + (il * MAX_HEADS + hd) * BJ;
-      const float* vr = sKV + (il * BJ * P + p) * OW + hd * dim_head + dh;
-      float o = sAcc[k] * sAlpha[il * MAX_HEADS + hd];
-      for (int jl = 0; jl < BJ; ++jl) o = fmaf(w[jl], vr[jl * P * OW], o);
-      sAcc[k] = o;
     }
   }
   __syncthreads();
-  for (int k = tid; k < BN * HD; k += NTHREADS) {
+  for (int k = tid; k < BN * HD; k += NT) {
     const int il = k / HD, rest = k - il * HD, hd = rest / Dh, node = node0 + il;
     if (node < n)
       a.out[((size_t)b * n + node) * HD + rest] = sAcc[k] / sL[il * MAX_HEADS + hd];
   }
+  cluster_sync();  // the peer's last arrivals on this CTA's barriers are in
 }
 
+template <int P, int WG>
+cudaError_t launch_tile(const Args& a, const Pairs& pairs, int B, size_t smem,
+                        cudaStream_t stream) {
+  auto kern = flash_global_kernel<P, WG>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // a whole number of clusters: a CTA past the last query node runs the
+  // stream with its partner and writes nothing
+  const int ctas = (a.n + GTile<WG>::BN - 1) / GTile<WG>::BN;
+  kern<<<dim3((ctas + CLUSTER - 1) / CLUSTER * CLUSTER, B), GTile<WG>::NT, smem, stream>>>(a,
+                                                                                         pairs);
+  return cudaGetLastError();
+}
+
+// the tile of 128 pairs where its shared memory fits, else of 64
 template <int P>
 cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)Layout(P, a.IF, a.L).total;
   int max_smem = 0, dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  auto kern = flash_global_kernel<P>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.n + BN - 1) / BN, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(a, pairs);
-  return cudaGetLastError();
+  const size_t smem2 = Layout<P, 2>(a.IF, a.L).total, smem1 = Layout<P, 1>(a.IF, a.L).total;
+  if (smem2 <= (size_t)max_smem) return launch_tile<P, 2>(a, pairs, B, smem2, stream);
+  if (smem1 <= (size_t)max_smem) return launch_tile<P, 1>(a, pairs, B, smem1, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Returns the launch status
-// (cudaGetLastError() right after the launch); 0 is success. Pointers are
+// (cudaGetLastError() right after the launches); 0 is success. Pointers are
 // device pointers to contiguous float32 tensors (the caller,
-// kernels/flash.py, checks every shape): q [B, n, H, Dh] with H * dim_head
-// = 16 and Dh = dim_head * P; x0..x3 the node features [B, n, C_k, 2 d_k
-// + 1] of the n_pairs input degrees (d_k <= 3); coords [B, n, 3];
-// nodemask bool [B, n] or null; rp both trunks' packed parameters (per
-// trunk, keys first: w1, b1, s1, o1, b2, s2, o2 [128] each, then w2 [128,
-// 128] (in, out)); wk, wv [128, IF, 16]; bk, bv [IF, 16]; prefix_k,
-// prefix_v [B, n, S0, H * Dh] (S0 <= 4; null when S0 = 0); cg the Q_J
-// constants, pair k's from cg_off_k; shk the SH constants K_lm [7 * 7];
-// out [B, n, H, Dh]; L the harmonics' degree (<= 6).
+// kernels/flash.py, checks every shape; rp, wk, wv, bk and bv start on 16
+// bytes): q [B, n, H, Dh] with H * dim_head = 16 and Dh = dim_head * P;
+// x0..x3 the node features [B, n, C_k, 2 d_k + 1] of the n_pairs input
+// degrees (d_k <= 3); coords [B, n, 3]; nodemask bool [B, n] or null; rp
+// both trunks' packed parameters (per trunk, keys first: w1, b1, s1, o1,
+// b2, s2, o2 [128] each, then w2 [128, 128] (in, out)); wk, wv [128, IF,
+// 16]; bk, bv [IF, 16]; prefix_k, prefix_v [B, n, S0, H * Dh] (S0 <= 4;
+// null when S0 = 0); cg the Q_J constants, pair k's from cg_off_k; shk the
+// SH constants K_lm [7 * 7]; out [B, n, H, Dh]; w_split scratch of 2 (2 +
+// NC) * 32768 + 2 NC * 256 bytes, NC = ceil(IF / 4), on 16 bytes (the
+// weight stream, packed here); L the harmonics' degree (<= 6).
 extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, const void* x2,
                                 const void* x3, const void* coords, const void* nodemask,
                                 const void* rp, const void* wk, const void* wv, const void* bk,
                                 const void* bv, const void* prefix_k, const void* prefix_v,
-                                const void* cg, const void* shk, void* out, int d0, int d1,
-                                int d2, int d3, int c0, int c1, int c2, int c3, int off0,
-                                int off1, int off2, int off3, int n_pairs, int B, int n, int S0,
-                                int H, int IF, int P, int L, int exclude_self, float scale,
-                                void* stream) {
+                                const void* cg, const void* shk, void* out, void* w_split,
+                                int d0, int d1, int d2, int d3, int c0, int c1, int c2, int c3,
+                                int off0, int off1, int off2, int off3, int n_pairs, int B, int n,
+                                int S0, int H, int IF, int P, int L, int exclude_self,
+                                float scale, void* stream) {
   if (B <= 0 || n <= 0) return 0;
   if (n_pairs < 1 || n_pairs > MAX_PAIRS || S0 < 0 || S0 > MAX_PREFIX || S0 > BJ || H < 1 ||
       H > MAX_HEADS || OW % H || IF < 1 || L < 0 || L > MAX_L)
@@ -614,15 +886,24 @@ extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, c
   }
   if (total_if != IF) return (int)cudaErrorInvalidValue;
   pairs.count = n_pairs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // both trunks' W2, W_k, W_v and b3 as the weight stream's stages
   Args a;
+  const int NC = (IF + IW - 1) / IW, T = 2 * (2 + NC);
+  bf16* wpack = static_cast<bf16*>(w_split);
+  float* b3pack = reinterpret_cast<float*>(wpack + (size_t)T * 2 * MID * WN);
+  const int work = T * MID * 8 + 2 * NC * WN;
+  pack_stream_kernel<<<(work + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(rp), static_cast<const float*>(wk), static_cast<const float*>(wv),
+      static_cast<const float*>(bk), static_cast<const float*>(bv), wpack, b3pack, IF, NC);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  a.wpack = wpack;
+  a.b3pack = b3pack;
   a.q = static_cast<const float*>(q);
   a.coords = static_cast<const float*>(coords);
   a.nodemask = static_cast<const uint8_t*>(nodemask);
   a.rp = static_cast<const float*>(rp);
-  a.w3[0] = static_cast<const float*>(wk);
-  a.w3[1] = static_cast<const float*>(wv);
-  a.b3[0] = static_cast<const float*>(bk);
-  a.b3[1] = static_cast<const float*>(bv);
   a.prefix[0] = static_cast<const float*>(prefix_k);
   a.prefix[1] = static_cast<const float*>(prefix_v);
   a.cg = static_cast<const float*>(cg);
@@ -635,7 +916,6 @@ extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, c
   a.L = L;
   a.exclude_self = exclude_self;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SE3_P(PP) \
   if (P == PP) return (int)launch<PP>(a, pairs, B, s);
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)

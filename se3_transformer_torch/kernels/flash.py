@@ -640,7 +640,7 @@ def flash_attention(q, xs, idx, nmask, h_v, wv, bv, **config) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # what csrc/flash_global.cu is built for
 GLOBAL_O_WIDTH = 16   # kv_heads * dim_head
-GLOBAL_MAX_PIF = 256  # P * IF: the V2 tile of 64 pairs held in shared memory
+GLOBAL_MAX_PIF = 256  # P * IF: V2 of a 64-pair tile beside the weight ring
 GLOBAL_MAX_HEADS = 16
 
 
@@ -864,6 +864,12 @@ def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
         return out
     cg, xs, ds, cs, offs = _pair_args(cfg, ops['xs'], q.device)
     rp = _pack_trunks(ops['rp_k'], ops['rp_v'])
+    # the weight stream, packed in the launch: per stage one trunk's W2
+    # half or 4 values of i of W_k or W_v, as bf16 hi + lo [128][64] tiles
+    # (32768 bytes); then b3 of each W3 stage (256 bytes)
+    nc = -(-IF // 4)
+    w_split = torch.empty(2 * (2 + nc) * 32768 + 2 * nc * 256,
+                          dtype=torch.uint8, device=q.device)
 
     ptr = _pointers(ops)
     from .build import load_library
@@ -872,7 +878,8 @@ def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
             q.data_ptr(), *xs, ptr('coords'), ptr('node_mask'), rp.data_ptr(),
             ptr('wk'), ptr('wv'), ptr('bk'), ptr('bv'), ptr('prefix_k'),
             ptr('prefix_v'), cg.data_ptr(), _sh_norm_table(q.device).data_ptr(),
-            out.data_ptr(), *ds, *cs, *offs, len(cfg.pairs), B, n, S0,
+            out.data_ptr(), w_split.data_ptr(), *ds, *cs, *offs,
+            len(cfg.pairs), B, n, S0,
             cfg.heads, IF, 2 * cfg.d_out + 1, 2 * _sh_degree(cfg),
             int(cfg.exclude_self), float(cfg.scale), _stream(q))
     if rc != 0:

@@ -159,6 +159,75 @@ def test_replay_backward_matches_jax_grad():
         _close(leaf.grad, want, MODEL_RTOL)
 
 
+# kernel 7g's products (csrc/flash_global.cu): both trunks' Dense_1 and
+# the k/v radial products run on the tensor cores as bf16 passes over
+# operands split into hi + lo (hi = bf16(t), lo = bf16(t - hi)), each pass a
+# product of bf16 values (exact in float32) summed in float32
+def _bf16_split(t):
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _passes(a, b, passes):
+    """a @ b as the kernel's bf16 passes: a_hi.b_hi + a_hi.b_lo + a_lo.b_hi
+    (passes=3), or a_hi.b_hi alone (passes=1)."""
+    (a_hi, a_lo), (b_hi, b_lo) = _bf16_split(a), _bf16_split(b)
+    terms = ((a_hi, b_hi), (a_hi, b_lo), (a_lo, b_hi))[:passes]
+    return sum(torch.matmul(x, y) for x, y in terms)
+
+
+def _kernel_stream(monkeypatch, t, d_out, passes):
+    """The plain stream with Dense_1 and the radial products replaced by
+    their bf16 passes: the kernel's arithmetic, on the CPU."""
+    def radial_apply(x, rp):
+        w1, b1, s1, o1, w2, b2, s2, o2 = rp
+        h = kf._gelu_tanh(kf._radial_ln(torch.matmul(x, w1) + b1, s1, o1))
+        h = _passes(h, w2, passes) + b2
+        return kf._gelu_tanh(kf._radial_ln(h, s2, o2))
+
+    def kv_block(pairs, d_out, xg, h, sh, w3, b3):
+        segs = []
+        for (d_in, _), x in zip(pairs, xg):
+            lo, hi = abs(d_in - d_out), d_in + d_out
+            T = kf._pair_cg_tensor(d_in, d_out, x.device)
+            y = sh[..., lo * lo:(hi + 1) * (hi + 1)]
+            basis = torch.einsum('...s,spqf->...pqf', y, T)
+            v2 = torch.einsum('...pqf,...cq->...pcf', basis, x)
+            segs.append(v2.reshape(*v2.shape[:-2], -1))
+        z = torch.cat(segs, dim=-1)
+        R = _passes(h.float(), w3.reshape(w3.shape[0], -1), passes)
+        R = R.reshape(*R.shape[:-1], *w3.shape[1:]) + b3
+        return torch.einsum('...pi,...io->...po', z, R).transpose(-1, -2)
+
+    with monkeypatch.context() as m:
+        m.setattr(kf, '_radial_apply', radial_apply)
+        m.setattr(kf, '_kv_block', kv_block)
+        return _run_port(t, d_out)
+
+
+@pytest.mark.parametrize('d_out', [0, 1])
+def test_kernel_bf16_passes_match_float32_and_jax(monkeypatch, d_out):
+    """Three bf16 passes for Dense_1 and three for the radial products,
+    chained through LayerNorm, GELU and the online softmax, at the assembly
+    widths (n = 64, 5 padded): within RTOL of max|plain| of the float32
+    plain stream and of the JAX XLA stream."""
+    ops = _inputs(d_out, n=64, seed=9)
+    t = _torch(ops)
+    out = _kernel_stream(monkeypatch, t, d_out, passes=3).numpy()
+    _close(out, _run_port(t, d_out).numpy())
+    _close(out, _run_jax(ops, d_out, pallas=False))
+
+
+def test_one_bf16_pass_misses_the_float32_stream(monkeypatch):
+    """bf16 hi operands alone (one pass) are not within RTOL: the lo
+    passes are needed."""
+    d_out = 1
+    t = _torch(_inputs(d_out, n=64, seed=9))
+    out = _kernel_stream(monkeypatch, t, d_out, passes=1).numpy()
+    ref = _run_port(t, d_out).numpy()
+    assert np.abs(out - ref).max() > RTOL * np.abs(ref).max()
+
+
 def test_unported_options_raise():
     t = _torch(_inputs(0))
     with pytest.raises(NotImplementedError):

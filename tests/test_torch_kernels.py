@@ -760,19 +760,27 @@ def test_flash_global_wrapper_rejects_what_the_kernel_does_not_take(bad):
     dict(d_out=0), dict(d_out=1), dict(d_out=1, n=100, prefix=0),
     dict(d_out=1, masked=False, exclude_self=False, heads=4),
     dict(d_out=2, n=21, pairs=((0, 4), (1, 4), (2, 4)), prefix=1),
-    dict(d_out=3, n=19, pairs=((3, 2), (1, 3)), heads=1)])
+    dict(d_out=3, n=19, pairs=((3, 2), (1, 3)), heads=1),
+    # n not a multiple of the tile (8 query x 16 kv nodes) on either axis
+    dict(d_out=0, n=203), dict(d_out=1, n=131, prefix=1),
+    # P * IF = 256 (the 64-pair tile), P = 7, 16 heads of width 1
+    dict(d_out=0, n=70, pairs=((0, 128), (1, 128))),
+    dict(d_out=3, n=45, pairs=((3, 3), (1, 4)), heads=2),
+    dict(d_out=1, n=50, heads=16)])
 def test_cuda_flash_global_kernel_matches_plain(cuda_card, case):
     """The kernel's online softmax over kv blocks of 16 (the last one
-    ragged) against the plain stream's row softmax: float32 throughout,
-    the same products in other orders."""
+    ragged) against the plain stream's row softmax: float32 products as
+    three bf16 passes, in other orders; the same bits on a repeat."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, ops = _global_case(**case)
     ops = {k: (tuple(x.cuda() for x in v) if isinstance(v, tuple) else
                None if v is None else v.cuda()) for k, v in ops.items()}
     before = kf.flash_global_attention_fwd.launches
     out = kf.flash_global_attention_fwd(cfg, ops)
+    again = kf.flash_global_attention_fwd(cfg, ops)
     torch.cuda.synchronize()
-    assert kf.flash_global_attention_fwd.launches == before + 1
+    assert kf.flash_global_attention_fwd.launches == before + 2
+    assert torch.equal(out, again)
     ref = kf.flash_global_plain(cfg, ops)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()

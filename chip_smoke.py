@@ -28,7 +28,9 @@ failure:
               bits over two runs, and the time of the one PyTorch call that
               computes the same function (scaled_dot_product_attention,
               query length 1, boolean mask; forward, and its backward),
-              timed only; the streaming kNN attention kernel (#7) against
+              timed only; all of these by device time per launch over a
+              run of launches on operand sets cold in L2 (run_ms), beside
+              one call's time (call_ms_*); the streaming kNN attention kernel (#7) against
               its plain version at the four flagship_fast output degrees;
               the global attention kernel (7g) against its plain stream at
               the assembly model's served shapes (n 4096, the last 57
@@ -206,6 +208,57 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# the run over which run_ms times a kernel, in launches, and its repeats;
+# a plain version or library call launches ~10-25 kernels a call, and the
+# device's launch queue holds ~1000, so their runs are shorter
+RUN_LAUNCHES = 60
+RUN_CALLS = 20
+RUN_REPEATS = 3
+
+
+def run_ms(calls, launches: int = RUN_LAUNCHES,
+           repeats: int = RUN_REPEATS) -> float:
+    """Device time per launch, for a kernel of a few microseconds: one pair
+    of CUDA events around a run of `launches` calls queued back to back,
+    divided by the count; the median of `repeats` runs. The calls rotate
+    over `calls` (one per operand set, enough sets that each launch finds
+    its operands cold in L2). A spin kernel (torch.cuda._sleep) holds the
+    device while the host queues the run, so that the events time the
+    kernels and not the host's Python and ctypes between them; it is
+    lengthened until it outlasts the queueing, which fails for a call that
+    waits for the device, or for a run of more kernels than the device's
+    launch queue holds."""
+    def queue():
+        for i in range(launches):
+            calls[i % len(calls)]()
+    queue()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    queue()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    times = []
+    for _ in range(repeats + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # cycles at 2 GHz, above the card's clock: the spin lasts longer
+        torch.cuda._sleep(int(2 * host_s * 2e9) + 1000)
+        t0 = time.perf_counter()
+        start.record()
+        queue()
+        end.record()
+        queued_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued_s > 1.5 * host_s:    # the spin may have ended first
+            host_s = queued_s
+            continue
+        times.append(start.elapsed_time(end) / launches)
+        if len(times) == repeats:
+            return float(np.median(times))
+    raise AssertionError(f'run_ms: the host kept outlasting the spin '
+                         f'({queued_s * 1e3:.1f} ms to queue a run)')
 
 
 def radial_library(h, w3, b3):
@@ -611,6 +664,13 @@ def attention_cost(BH, n, J, D, bwd, peaks):
         'operations' if ops_s >= bytes_s else 'bytes'
 
 
+# operand sets of the attention rows: k and v across the sets fill the
+# 50 MB L2 more than twice over, so that each launch of a run finds its k
+# and v cold, as the path does (the mask, [1, n, J], stays shared and hot,
+# as it is on the path)
+COLD_BYTES = 128e6
+
+
 def phase_attention(peaks):
     """Kernels #5 and #6 against their plain versions at the four flagship
     per-degree shapes (masked: the self slot always valid, about a tenth of
@@ -618,7 +678,10 @@ def phase_attention(peaks):
     runs, and the one PyTorch call that computes the same function:
     scaled_dot_product_attention over a batch of B*h*n rows of query length
     1 with a boolean mask (its forward, and the backward of its autograd
-    graph), timed only."""
+    graph), timed only. ms_*, plain_ms_* and library_ms_* are device times
+    per launch by run_ms over runs that rotate among cold operand sets;
+    call_ms_* time one call between two events (the host's wrapper and
+    ctypes included, the operands hot in L2)."""
     import torch.nn.functional as F
     from se3_transformer_torch.kernels import attention as ka
     gen = torch.Generator(device='cuda').manual_seed(11)
@@ -626,11 +689,13 @@ def phase_attention(peaks):
     for BH, n, J, D in ATTN_SHAPES:
         def rand(*shape):
             return torch.randn(*shape, device='cuda', generator=gen)
-        q, g = rand(BH, n, D), rand(BH, n, D)
-        k, v = rand(BH, n, J, D), rand(BH, n, J, D)
         mask = torch.rand(1, n, J, device='cuda', generator=gen) > 0.1
         mask[..., 0] = True
         scale = 8 ** -0.5
+        count = max(2, -(-int(COLD_BYTES) // (2 * BH * n * J * D * 4)))
+        sets = [(rand(BH, n, D), rand(BH, n, J, D), rand(BH, n, J, D),
+                 rand(BH, n, D)) for _ in range(count)]
+        q, k, v, g = sets[0]
         args = (q, k, v, mask, BH, scale)
         out = ka.fused_attention_fwd(*args)
         grads = ka.fused_attention_bwd(q, k, v, mask, g, BH, scale)
@@ -653,35 +718,54 @@ def phase_attention(peaks):
         worst['fwd'] = max(worst['fwd'], errs['out'])
         worst['bwd'] = max(worst['bwd'], errs['dq'], errs['dk'], errs['dv'])
         # the library yardstick: one query row per (b*h, node)
-        qs, gs = q.reshape(BH * n, 1, D), g.reshape(BH * n, 1, D)
-        ks, vs = k.reshape(BH * n, J, D), v.reshape(BH * n, J, D)
         ms = mask.expand(BH, n, J).reshape(BH * n, 1, J)
 
         def sdpa(a, b, c):
             return F.scaled_dot_product_attention(a, b, c, attn_mask=ms,
                                                   scale=scale)
-        sdpa_err = float((sdpa(qs, ks, vs).reshape(BH, n, D)
+        flat = [(sq.reshape(BH * n, 1, D), sk.reshape(BH * n, J, D),
+                 sv.reshape(BH * n, J, D), sg.reshape(BH * n, 1, D))
+                for sq, sk, sv, sg in sets]
+        sdpa_err = float((sdpa(*flat[0][:3]).reshape(BH, n, D)
                           - refs[0]).abs().max())
-        leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
-        graph = sdpa(*leaves)
+        graphs = []
+        for fq, fk, fv, fg in flat:
+            leaves = [t.detach().requires_grad_() for t in (fq, fk, fv)]
+            graphs.append((sdpa(*leaves), leaves, fg))
+
+        def each(fn):
+            return [lambda s=s: fn(*s) for s in sets]
         row = dict(
-            BH=BH, n=n, J=J, D=D, max_abs_err=errs, sdpa_max_abs_err=sdpa_err,
-            ms_fwd=cuda_ms(lambda: ka.fused_attention_fwd(*args), reps=20),
-            ms_bwd=cuda_ms(lambda: ka.fused_attention_bwd(
-                q, k, v, mask, g, BH, scale), reps=20),
-            plain_ms_fwd=cuda_ms(lambda: ka.fused_attention_plain(*args),
-                                 reps=10),
-            plain_ms_bwd=cuda_ms(lambda: ka.fused_attention_bwd_plain(
-                q, k, v, mask, g, BH, scale), reps=10),
-            library_ms_fwd=cuda_ms(lambda: sdpa(qs, ks, vs), reps=10),
-            library_ms_bwd=cuda_ms(lambda: torch.autograd.grad(
-                graph, leaves, gs, retain_graph=True), reps=10))
+            BH=BH, n=n, J=J, D=D, operand_sets=count, max_abs_err=errs,
+            sdpa_max_abs_err=sdpa_err,
+            ms_fwd=run_ms(each(lambda q, k, v, g: ka.fused_attention_fwd(
+                q, k, v, mask, BH, scale))),
+            ms_bwd=run_ms(each(lambda q, k, v, g: ka.fused_attention_bwd(
+                q, k, v, mask, g, BH, scale))),
+            plain_ms_fwd=run_ms(each(lambda q, k, v, g:
+                                     ka.fused_attention_plain(
+                                         q, k, v, mask, BH, scale)),
+                                RUN_CALLS),
+            plain_ms_bwd=run_ms(each(lambda q, k, v, g:
+                                     ka.fused_attention_bwd_plain(
+                                         q, k, v, mask, g, BH, scale)),
+                                RUN_CALLS),
+            library_ms_fwd=run_ms([lambda f=f: sdpa(*f[:3]) for f in flat],
+                                  RUN_CALLS),
+            library_ms_bwd=run_ms([
+                lambda t=t: torch.autograd.grad(t[0], t[1], t[2],
+                                                retain_graph=True)
+                for t in graphs], RUN_CALLS),
+            call_ms_fwd=cuda_ms(lambda: ka.fused_attention_fwd(*args),
+                                reps=20),
+            call_ms_bwd=cuda_ms(lambda: ka.fused_attention_bwd(
+                q, k, v, mask, g, BH, scale), reps=20))
         for key, bwd in (('fwd', False), ('bwd', True)):
             row[f'bound_ms_{key}'], row[f'bound_by_{key}'] = attention_cost(
                 BH, n, J, D, bwd, peaks)
         rows.append(row)
         log('attention', json.dumps(row))
-        del graph, leaves, out, grads, again, refs
+        del graphs, flat, sets, out, grads, again, refs
         torch.cuda.empty_cache()
     return rows, worst
 
@@ -1123,7 +1207,7 @@ def phase_global_serve(st, want):
     # request absorbs it before the next measurement.
     settle_ms = []
     for row, request in zip(rows, requests):
-        _, _, attn_ms, device_ms, wall_ms, syncs = profile_request(
+        _, _, attn_ms, device_ms, wall_ms, syncs, _ = profile_request(
             engine, request)
         t0 = time.perf_counter()
         engine.predict(*request)
@@ -1285,13 +1369,14 @@ def phase_serve(st, recipe, want, label=None, **fields):
     inv = float(np.abs(out_r - out0).max())
     scale = float(np.abs(out0).max())
     # where the time goes: one more request under the profiler
-    top, kernel_ms, attn_ms, device_ms, wall_ms, syncs = profile_request(
-        engine, requests[0])
+    top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, us = \
+        profile_request(engine, requests[0])
     forwards += 2
     log('profile', json.dumps(dict(
         recipe=recipe, request_wall_ms=wall_ms, device_busy_ms=device_ms,
         pairwise_kernel_ms=kernel_ms, attention_kernel_ms=attn_ms,
-        host_syncs_per_forward=syncs, top_device_ops=top)))
+        attention_us_per_launch=us, host_syncs_per_forward=syncs,
+        top_device_ops=top)))
     # the flax-scheme weights (conditioning undone): chaotic at depth 6,
     # reported, not asserted
     condition_weights(model, power=0.5)
@@ -1347,6 +1432,18 @@ def device_events(prof):
     return sorted(events, key=dev_us, reverse=True)
 
 
+def per_launch_us(events):
+    """Device microseconds per launch of kernels #5 and #6 in a profile
+    (None where the profile launched none): the in-path times."""
+    out = {}
+    for key, name in (('attn_fwd', 'attention_fwd_kernel'),
+                      ('attn_bwd', 'attention_bwd_kernel')):
+        hits = [e for e in events if name in e.key]
+        calls = sum(e.count for e in hits)
+        out[key] = sum(dev_us(e) for e in hits) / calls if calls else None
+    return out
+
+
 def profile_request(engine, request):
     """Device time by op for one request (torch.profiler, CUDA activity):
     the top ops, the pairwise and attention kernels' totals, the device's
@@ -1375,7 +1472,8 @@ def profile_request(engine, request):
                           for names in (FORWARD_KERNELS, ATTENTION_KERNELS))
     top = [dict(op=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3)
            for e in events[:12]]
-    return top, kernel_ms, attn_ms, device_ms, wall_ms, syncs
+    return top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, \
+        per_launch_us(events)
 
 
 def profile_step(trainer, batch, noise):
@@ -1404,6 +1502,7 @@ def profile_step(trainer, batch, noise):
                 device_busy_ms=sum(dev_us(e) for e in events) / 1e3,
                 forward_kernel_ms=kernel_ms(*FORWARD_KERNELS),
                 attention_kernel_ms=kernel_ms(*ATTENTION_KERNELS),
+                attention_us_per_launch=per_launch_us(events),
                 kernel_a_ms=kernel_ms('bwd_a_kernel', 'bwd_reduce_kernel'),
                 kernel_b_ms=kernel_ms('bwd_b_'),
                 top_device_ops=[dict(op=e.key[:90], calls=e.count,

@@ -36,7 +36,8 @@ from .pairwise import _stream
 
 # the finite float32 minimum (pallas_attention.py::NEG_INF)
 NEG_INF = float(torch.finfo(torch.float32).min)
-# the kernels' per-row shared-memory arrays (csrc/attention.cu)
+# the kernels' limits (csrc/attention.cu MAX_J: a lane holds the softmax
+# weights of J / 32 slots; MAX_D)
 MAX_SLOTS = 128
 MAX_FEATURES = 256
 
@@ -51,15 +52,21 @@ def attention_limit(J: int, D: int) -> Optional[str]:
     return None
 
 
+def _repeat(t, times):
+    """t with each row of dim 0 repeated `times` times in a row
+    (repeat_interleave's result without its device-to-host sync)."""
+    if times == 1:
+        return t
+    return t[:, None].expand(t.shape[0], times, *t.shape[1:]).reshape(
+        t.shape[0] * times, *t.shape[1:])
+
+
 def _expand(q, k, v, mask):
     """k, v repeated over each kv head's query-head group, the mask over
     the heads: the operands of one query head per row."""
     group = q.shape[0] // k.shape[0]
-    kq = k.repeat_interleave(group, dim=0)
-    vq = v.repeat_interleave(group, dim=0)
-    mq = None if mask is None else \
-        mask.repeat_interleave(q.shape[0] // mask.shape[0], dim=0)
-    return kq, vq, mq
+    mq = None if mask is None else _repeat(mask, q.shape[0] // mask.shape[0])
+    return _repeat(k, group), _repeat(v, group), mq
 
 
 def _softmax_rows(q, kq, mq, scale):

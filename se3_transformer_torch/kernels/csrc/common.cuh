@@ -1,8 +1,9 @@
-// Tile constants, mma.sync and wgmma helpers and the float32 split shared
-// by the pairwise kernels (pairwise_bxf.cu and pairwise_fwd.cu, the
-// forwards; pairwise_bwd.cu, the backward) and the attention kernels
-// (flash_fwd.cu, the streaming kNN attention; flash_global.cu, the global
-// attention).
+// Tile constants, mma.sync and wgmma helpers, the float32 split and the
+// mbarrier and bulk-copy helpers shared by the pairwise kernels
+// (pairwise_bxf.cu and pairwise_fwd.cu, the forwards; pairwise_bwd.cu,
+// the backward) and the attention kernels (attention.cu, the fused
+// attention; flash_fwd.cu, the streaming kNN attention; flash_global.cu,
+// the global attention).
 //
 // They tile edges by BE = 64 and output channels by BO = 64 with
 // 8 warps (4 along edges x 2 along O), and compute the radial tile
@@ -241,6 +242,58 @@ __device__ __forceinline__ void fence_acc(float (&d)[NB][4]) {
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(d[nb][v])::"memory");
+}
+
+// mbarriers and bulk copies (sm_90), shared by flash_global.cu's weight
+// stream and attention.cu's row ring
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// wait for the completion of the barrier's phase of this parity; a wait
+// that cannot end (a fault in the stream) traps rather than hang the card
+template <bool kCluster>
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    if constexpr (kCluster)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 36)) __trap();
+  }
+}
+// bytes [src, src + bytes) to this CTA's shared offset dst (both 16-byte
+// aligned, bytes a multiple of 16), counted by the barrier at offset bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// orders this thread's earlier generic accesses to shared memory before
+// the async proxy's later ones (a bulk copy that overwrites what was read)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // float32 -> its bf16 hi and lo arrays (hi = bf16(x), lo = bf16(x - hi));

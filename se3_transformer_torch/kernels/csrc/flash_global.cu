@@ -226,15 +226,8 @@ __device__ void spherical_harmonics(float x, float y, float z, int L,
   }
 }
 
-// mbarriers and the cluster (sm_90)
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
+// the cluster's mbarriers (sm_90; mbar_init, mbar_expect and mbar_wait are
+// in common.cuh)
 // one arrival on this CTA's barrier and on the same barrier of CTA `peer`
 __device__ __forceinline__ void mbar_arrive_both(uint32_t bar, uint32_t peer) {
   uint32_t remote;
@@ -242,33 +235,6 @@ __device__ __forceinline__ void mbar_arrive_both(uint32_t bar, uint32_t peer) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
                : "memory");
-}
-// wait for the completion of the barrier's phase of this parity; a wait
-// that cannot end (a fault in the stream) traps rather than hang the card
-template <bool kCluster>
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (true) {
-    if constexpr (kCluster)
-      asm volatile(
-          "{\n.reg .pred p;\n"
-          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(bar), "r"(parity)
-          : "memory");
-    else
-      asm volatile(
-          "{\n.reg .pred p;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(bar), "r"(parity)
-          : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 36)) __trap();
-  }
 }
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");

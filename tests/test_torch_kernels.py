@@ -459,19 +459,10 @@ def test_attention_wrapper_rejects_what_the_kernels_do_not_take(bad):
         ka._check(q, k, v, mask, heads, g=g)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('BH,BKV,n,J,D,heads,masked', [
-    (4, 2, 10, 5, 6, 2, True), (8, 8, 1024, 33, 56, 8, True),
-    (8, 8, 1000, 33, 8, 8, False), (6, 3, 77, 40, 24, 3, True),
-    (2, 1, 33, 128, 256, 2, True)])
-def test_cuda_attention_kernels_match_plain(cuda_card, BH, BKV, n, J, D,
-                                            heads, masked):
-    """Forward and backward kernels against their plain versions (group
-    1, 2 and 3, with and without a mask, a fully masked row, the limits),
-    and the backward's group sums the same bits on two runs."""
-    args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in
-            _attn_args(BH, BKV, n, J, D, heads, masked)]
-    q, k, v, mask, g, heads, scale = args
+def _check_attention_kernels(q, k, v, mask, g, heads, scale):
+    """Forward and backward kernels against their plain versions within
+    1e-5 of max|plain|, each launched and counted, and the backward the
+    same bits on two runs."""
     before = (ka.fused_attention_fwd.launches, ka.fused_attention_bwd.launches)
     out = ka.fused_attention_fwd(q, k, v, mask, heads, scale)
     grads = ka.fused_attention_bwd(q, k, v, mask, g, heads, scale)
@@ -485,6 +476,52 @@ def test_cuda_attention_kernels_match_plain(cuda_card, BH, BKV, n, J, D,
     for name, got, want, rerun in zip(('dq', 'dk', 'dv'), grads, refs, again):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max(), name
         assert torch.equal(got, rerun), name
+
+
+# kernels #5 and #6: the compiled widths D = 8, 24, 40, 56 (staged by bulk
+# copies) and runtime ones (6, 12, 256: read from device memory), J = 1 ..
+# 128, n off any CTA's rows, groups 1 .. 16 (past 8 the query heads go in
+# passes, from device memory), masks with a fully masked row, and the
+# limits J = 128, D = 256
+ATTENTION_CASES = [
+    (4, 2, 10, 5, 6, 2, True), (8, 8, 1024, 33, 56, 8, True),
+    (8, 8, 1000, 33, 8, 8, False), (6, 3, 77, 40, 24, 3, True),
+    (2, 1, 33, 128, 256, 2, True),
+    (8, 8, 1024, 33, 8, 8, True), (8, 8, 1024, 33, 24, 8, True),
+    (8, 8, 1024, 33, 40, 8, True), (3, 3, 77, 1, 8, 3, True),
+    (6, 2, 1000, 33, 40, 6, True), (8, 1, 77, 33, 56, 8, True),
+    (8, 1, 77, 33, 56, 8, False), (16, 1, 50, 20, 8, 16, True),
+    (4, 4, 100, 128, 56, 4, True), (4, 4, 1000, 40, 12, 2, True),
+    (2, 2, 64, 128, 256, 2, False), (8, 1, 1000, 33, 6, 8, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('BH,BKV,n,J,D,heads,masked', ATTENTION_CASES)
+def test_cuda_attention_kernels_match_plain(cuda_card, BH, BKV, n, J, D,
+                                            heads, masked):
+    """Forward and backward kernels against their plain versions (see
+    ATTENTION_CASES), and the backward's group sums the same bits on two
+    runs."""
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in
+            _attn_args(BH, BKV, n, J, D, heads, masked)]
+    _check_attention_kernels(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [8, 24])
+def test_cuda_attention_kernels_take_misaligned_operands(cuda_card, D):
+    """Operands 4 bytes off a 16-byte boundary (contiguous views at an odd
+    storage offset) cannot be staged by bulk copies: the kernels read them
+    from device memory, and still match."""
+    q, k, v, mask, g, heads, scale = _attn_args(8, 4, 300, 33, D, 4, True)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device='cuda')
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    _check_attention_kernels(shifted(q), shifted(k), shifted(v), mask.cuda(),
+                             shifted(g), heads, scale)
 
 
 # ---------------------------------------------------------------------- #

@@ -18,10 +18,11 @@ failure:
               (einsum('em,mio,epi->epo') with b3 as a row of W3), timed
               only.
   4. backward hold backward kernels A (dV2, dW3, dB3) and B (dH) against
-              their plain versions at both recipes' training shapes, time
-              each (and the autograd backward of the same einsum, timed
-              only), and require dW3/dB3 to be bit-identical across two
-              runs.
+              their plain versions at both flagship recipes' training shapes
+              and af2_refinement's (O = 192: three O tiles, each O-tile
+              design held and timed), time each (and the autograd backward
+              of the same einsum, timed only), and require dW3/dB3 to be
+              bit-identical across two runs.
   5. attention  the fused attention kernels (#5 forward, #6 backward)
               against their plain versions at the flagship's four per-degree
               shapes (B*h 8, n 1024, J 33, D 8..56, masked), the backward's
@@ -53,7 +54,10 @@ failure:
               pallas_attention=True also 24 fused-attention forwards; with
               fuse_pairwise=True 8 bxf and 24 streaming attentions;
               flagship: 424 fwd, no bxf), rotation invariance of the scalar
-              output.
+              output; af2_refinement (dim 32, depth 2, degrees 0 and 1, k 12,
+              a radial trunk per pair) on requests of 32 features: 16 fwd
+              and exactly 6 routed (conv_in's and conv_out's O = 32 pairs)
+              per request, equivariance of its vector output.
   7. train    the denoise training step (the vector head: output_degrees=2,
               reduce_dim_out=True) at n=1024 with Adam, for flagship_fast,
               flagship_fast(pallas_attention=True) and flagship: finite
@@ -63,8 +67,9 @@ failure:
               None, and with pallas_attention 48 attention forwards (the
               checkpoint replay recomputes them) and 24 backwards;
               flagship, no policy: 816 forward, 424 + 424 backward, 432
-              forward under save_conv_outputs), step time, nodes*steps/s,
-              peak memory and a profile.
+              forward under save_conv_outputs; af2_refinement: 16 fwd, 16 +
+              16 backward, exactly 6 routed), step time, nodes*steps/s, peak
+              memory and a profile.
   route       C1's repair: models past the kernels' limits (the JAX
               DenoiseConfig widths, dim 8, heads 2, dim_head 8, two
               degrees; and with fuse_pairwise, heads * dim_head = 16)
@@ -72,12 +77,13 @@ failure:
               call routed to its plain version, counted in the wrappers'
               .routed, warned, no kernel launched, and the output within
               REF_RTOL_F32 of the same model on the CPU. A ConvSE3 of
-              128 channels (O = 128, past kernels A and B only): without
-              grad it launches #1 / #3 and routes nothing; with grad only
-              its backward routes; card vs CPU. Every main path above and
-              below shows .routed == 0.
-  8. reference  small models of both recipes and both attention knobs on
-              the card (kernel path) against the same weights on the CPU
+              128 channels (O = 128, two O tiles): without grad it launches
+              #1 / #3, with grad kernels A and B too, routing nothing; card
+              vs CPU. Every main path above and below shows .routed == 0
+              but af2_refinement's, which routes exactly its O = 32 pairs.
+  8. reference  small models of both flagship recipes, both attention knobs
+              and af2_refinement's fields on the card (kernel path) against
+              the same weights on the CPU
               (plain path): the forward, and one training step's loss and
               every gradient (the fuse_pairwise step runs the streaming
               attention's recompute backward on the card); the assembly
@@ -160,9 +166,22 @@ FLASH_BXF_LAUNCHES = 4 + 4
 COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
                'global')
 # the wrappers' counts of calls routed past the kernel to its plain
-# version: the forwards by their layer, kernels A and B together ('A') by
-# the pairwise ops' backward
-ROUTE_NAMES = ('bxf', 'fwd', 'A', 'attn_fwd', 'flash', 'bx', 'global')
+# version, by the layer that calls them (kernels A and B take every width
+# the pairwise forwards take, so the backward of a launched call runs
+# them, and a routed call's backward is its plain version's autograd)
+ROUTE_NAMES = ('bxf', 'fwd', 'attn_fwd', 'flash', 'bx', 'global')
+NO_ROUTES = (0,) * len(ROUTE_NAMES)
+# af2_refinement (the JAX default model surface: a radial trunk per degree
+# pair, float32) at its full width and depth: dim 32, depth 2, degrees 0
+# and 1, k = 12, 8 heads of 24. A request launches #3 once per pair of
+# every kv conv (2 blocks x to_k, to_v x 4 pairs, O = 192); conv_in (2
+# pairs) and conv_out (4) have O = 32, which #3 does not take: they route
+# to its plain version. A training step runs the same forward, and
+# kernels A and B once per launched pair; a routed pair's backward is its
+# plain version's autograd, so nothing routes in the backward.
+AF2_DIM, AF2_O, AF2_E = 32, 8 * 24, 1024 * 12
+AF2_LAUNCHES = 2 * 2 * 4
+AF2_ROUTED = 2 + 4
 
 # published dense peaks by card (NVIDIA data sheets): bf16 tensor core,
 # float32 CUDA core (FLOP/s), device memory bandwidth (bytes/s)
@@ -541,7 +560,7 @@ def phase_backward(kp, peaks):
 
     def case(di, do, e=E, hdt=bf16):
         return (dict(pair=[di, do]), e, 2 * do + 1,
-                C * (2 * min(di, do) + 1), hdt)
+                C * (2 * min(di, do) + 1), hdt, 64)
     cases = [case(di, do) for di in range(4) for do in range(4)]
     cases += [case(2, 1, e=E - 37), case(3, 3, hdt=torch.float32)]
     return check_backward(kp, peaks, cases, seed=3)
@@ -551,22 +570,33 @@ def phase_backward_grouped(kp, peaks):
     """Kernels A and B at the conservative flagship's grouped shapes: the
     four output degrees of a hidden ConvSE3 (IF = 256 .. 1024), float32,
     at the per-chunk E = 4096 and unchunked E = 32768."""
-    cases = [(dict(d_out=do), E, 2 * do + 1, grouped_if(do), torch.float32)
-             for E in (4096, 32768) for do in range(4)]
+    cases = [(dict(d_out=do), E, 2 * do + 1, grouped_if(do), torch.float32,
+              64) for E in (4096, 32768) for do in range(4)]
     return check_backward(kp, peaks, cases, seed=9)
 
 
+def phase_backward_af2(kp, peaks):
+    """Kernels A and B at af2_refinement's training shapes: the four (d_in,
+    d_out) pairs of a kv conv (E = 12288 edges of n = 1024, k = 12; C = 32,
+    so IF = 32 or 96; P = 1 or 3; O = heads * dim_head = 192, three O
+    tiles; float32 h and W3), held against the plain versions and timed."""
+    cases = [(dict(pair=[di, do], recipe='af2_refinement'), AF2_E,
+              2 * do + 1, AF2_DIM * (2 * min(di, do) + 1), torch.float32,
+              AF2_O) for di in range(2) for do in range(2)]
+    return check_backward(kp, peaks, cases, seed=23)
+
+
 def check_backward(kp, peaks, cases, seed):
-    """Each case (label, E, P, IF, h dtype): kernels A and B against their
-    plain versions, dW3/dB3 and dH bit-identical across two runs (E = 4096
-    splits kernel B's i range: its partials' reduce), and the times:
+    """Each case (label, E, P, IF, h dtype, O): kernels A and B against
+    their plain versions, dW3/dB3 and dH bit-identical across two runs (E =
+    4096 splits kernel B's i range: its partials' reduce), and the times:
     kernel, plain version, and the library yardstick (torch.autograd.grad
     of the einsum that computes the forward)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
-    mid, O = 128, 64
+    mid = 128
     rows, worst = [], {'a': 0.0, 'b': 0.0}
-    for label, e, P, IF, hdt in cases:
+    for label, e, P, IF, hdt, O in cases:
         h = torch.randn(e, mid, device=dev, generator=gen).to(hdt)
         w3 = (torch.randn(mid, IF, O, device=dev, generator=gen)
               * mid ** -0.5).to(hdt)
@@ -595,7 +625,7 @@ def check_backward(kp, peaks, cases, seed):
             scale = float(ref.abs().max())
             if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
                 raise AssertionError(
-                    f'backward {label} E={e} {hdt} {name}: max_abs_err '
+                    f'backward {label} E={e} {hdt} O={O} {name}: max_abs_err '
                     f'{err} > {KERNEL_RTOL} * max|plain| {scale}')
             errs[name] = (err, scale)
         worst['a'] = max(worst['a'], *(errs[k][0] for k in
@@ -616,8 +646,9 @@ def check_backward(kp, peaks, cases, seed):
             for k, wrt in (('a', leaves[1:]), ('b', leaves[:1]))}
         del graph, leaves
         torch.cuda.empty_cache()
-        row = dict(label, E=e, P=P, IF=IF, h_dtype=str(hdt).split('.')[-1],
-                   b_i_per_split=kp.i_per_split(e, IF),
+        row = dict(label, E=e, P=P, IF=IF, O=O,
+                   h_dtype=str(hdt).split('.')[-1],
+                   b_i_per_split=kp.i_per_split(e, IF, O),
                    max_abs_err={k: v[0] for k, v in errs.items()},
                    max_abs_plain={k: v[1] for k, v in errs.items()},
                    ms_a=cuda_ms(lambda: kp._launch_bwd_a(h, w3, v2, g, b3,
@@ -905,7 +936,8 @@ def phase_bx(st, peaks):
     gen = torch.Generator(device='cuda').manual_seed(13)
     n, k, C, mid = 1024, 32, 64, 128
     fiber = st.Fiber.create(4, C)
-    conv = st.ConvSE3(fiber, fiber, fuse_basis=True, radial_bf16=True)
+    conv = st.ConvSE3(fiber, fiber, fuse_basis=True, radial_bf16=True,
+                      shared_radial_hidden=True)
     init_parameters(conv, torch.Generator().manual_seed(13))
     conv = condition_weights(conv.cuda())
     feats = {str(d): torch.randn(1, n, C, 2 * d + 1, device='cuda',
@@ -1291,16 +1323,28 @@ def phase_global_reference(st):
                              f'{worst} > {REF_GRAD_RTOL_F32}')
 
 
-def chain_coords(rng, n):
-    """A random-walk chain of 3.8-unit steps (a protein backbone's shape)."""
+def chain_coords(rng, n, bonds=(3.8,)):
+    """A random-walk chain whose steps cycle through `bonds` in length:
+    3.8-unit steps (a CA trace's shape), or the N-CA, CA-C and C-N bonds of
+    an N/CA/C backbone (BACKBONE_BONDS). With one step length every node
+    has its two chain neighbors at the same distance, so a neighbor count
+    that cuts between them (k = 12 can) picks one by rounding, and a
+    rotation may pick the other."""
     steps = rng.normal(size=(n, 3))
-    steps *= 3.8 / np.linalg.norm(steps, axis=-1, keepdims=True)
+    lengths = np.resize(np.asarray(bonds, np.float64), n)[:, None]
+    steps *= lengths / np.linalg.norm(steps, axis=-1, keepdims=True)
     return np.cumsum(steps, axis=0).astype(np.float32)
 
 
+# an N/CA/C protein backbone's bond lengths (N-CA, CA-C, C-N), in the
+# units of chain_coords
+BACKBONE_BONDS = (1.458, 1.525, 1.329)
+
+
 def condition_weights(model, power=-0.5):
-    """Scale every ConvSE3's w3_{d_in}_{d_out} by 1/sqrt(sum over d_in of
-    c_in * F): the contraction sums that many O(1) terms, so with the
+    """Scale every ConvSE3's w3_{d_in}_{d_out} (or its pair_{d_in}_{d_out}'s
+    w3, without the shared trunk) by 1/sqrt(sum over d_in of c_in * F): the
+    contraction sums that many O(1) terms, so with the
     flax-scheme init each conv multiplies the residual stream by ~20 and a
     depth-6 model is chaotic (float32 rounding differences between two
     rotations of the input grow to ~10% of the output). Conditioned, the
@@ -1316,57 +1360,74 @@ def condition_weights(model, power=-0.5):
                 fan = sum(c * to_order(min(d_in, d_out))
                           for d_in, c in conv.fiber_in)
                 for d_in, _ in conv.fiber_in:
-                    getattr(conv, f'w3_{d_in}_{d_out}').mul_(fan ** power)
+                    w3 = getattr(conv, f'w3_{d_in}_{d_out}') \
+                        if conv.shared_radial_hidden \
+                        else getattr(conv, f'pair_{d_in}_{d_out}').w3
+                    w3.mul_(fan ** power)
     return model
 
 
-def phase_serve(st, recipe, want, label=None, **fields):
+def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
+                want_routed=None, vector=False, bonds=(3.8,), **fields):
     """A recipe's forward at full size (dim=64, depth=6, 4 degrees, 8 heads,
-    k=32, random seeded weights, conditioned; `fields` are extra model
-    fields) served by InferenceEngine at bucket 1024: finite outputs,
-    exactly `want` launches (COUNT_NAMES order) per request, rotation
-    invariance of the scalar output, a profile. Returns the launches of the
-    whole phase."""
+    k=32 for the flagship recipes; `dim`, `depth` and `fields` set or add
+    model fields; random seeded weights, conditioned) served by
+    InferenceEngine at bucket 1024 on chain_coords of `bonds`: finite
+    outputs, exactly `want`
+    launches (COUNT_NAMES order) and `want_routed` routed calls
+    (ROUTE_NAMES order; none by default) per request, rotation invariance
+    of the scalar output (with `vector`, equivariance of the vector
+    output), a profile. Returns the launches of the whole phase."""
     from se3_transformer_torch.so3 import rot
     recipe, name = label or recipe, recipe
+    want_routed = want_routed or NO_ROUTES
     rng = np.random.RandomState(0)
     model = condition_weights(getattr(st, name)(
-        depth=DEPTH, generator=torch.Generator().manual_seed(0), **fields))
+        dim=dim, depth=depth, generator=torch.Generator().manual_seed(0),
+        **fields))
     engine = st.InferenceEngine(model, buckets=(1024,))
-    requests = [(rng.normal(size=(n, 64)).astype(np.float32),
-                 chain_coords(rng, n)) for n in (1024, 1000, 700)]
+    requests = [(rng.normal(size=(n, dim)).astype(np.float32),
+                 chain_coords(rng, n, bonds)) for n in (1024, 1000, 700)]
     R = rot(0.31, -1.2, 0.7)
+
+    def rotated(out):
+        return out.astype(np.float64) @ R.T if vector else out
 
     reset_counts()
     engine.predict(*requests[0])    # warm-up: allocator, cuBLAS handles
     forwards = 1
     results = []
     for i, (feats, coords) in enumerate(requests):
-        before = counts()
+        before, routed_before = counts(), routed()
         t0 = time.perf_counter()
         out = engine.predict(feats, coords)
         dt = time.perf_counter() - t0
         forwards += 1
         launched = tuple(a - b for a, b in zip(counts(), before))
+        routes = tuple(a - b for a, b in zip(routed(), routed_before))
         n = len(feats)
-        if out.shape != (n, 64) or not np.isfinite(out).all():
+        if out.shape != (n, 3 if vector else dim) or \
+                not np.isfinite(out).all():
             raise AssertionError(f'{recipe} request {i}: shape {out.shape} '
                                  f'or non-finite output')
-        if launched != want:
+        if launched != want or routes != want_routed:
             raise AssertionError(f'{recipe} request {i}: launches '
-                                 f'{COUNT_NAMES} = {launched}, want {want}')
+                                 f'{COUNT_NAMES} = {launched}, want {want}; '
+                                 f'routed {ROUTE_NAMES} = {routes}, want '
+                                 f'{want_routed}')
         row = dict(recipe=recipe, request=i, n=n, bucket=1024,
                    latency_ms=dt * 1e3, nodes_per_s=n / dt,
-                   launches=launched)
+                   launches=launched, routed=routes)
         results.append((out, row))
         log('serve', json.dumps(row))
-    # rotation invariance of the scalar output (rotation in float64)
+    # rotation invariance of the scalar output, or equivariance of the
+    # vector one (rotation in float64)
     feats, coords = requests[0]
     coords_r = (coords.astype(np.float64) @ R.T).astype(np.float32)
     out_r = engine.predict(feats, coords_r)
     forwards += 1
     out0 = results[0][0]
-    inv = float(np.abs(out_r - out0).max())
+    inv = float(np.abs(out_r - rotated(out0)).max())
     scale = float(np.abs(out0).max())
     # where the time goes: one more request under the profiler
     top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, us = \
@@ -1385,11 +1446,12 @@ def phase_serve(st, recipe, want, label=None, **fields):
     log('serve', json.dumps(dict(
         recipe=recipe, flax_scheme_weights=True,
         max_abs_out=float(np.abs(raw).max()),
-        rotation_max_abs_diff=float(np.abs(raw_r - raw).max()))))
+        rotation_max_abs_diff=float(np.abs(raw_r - rotated(raw)).max()))))
     launches = counts()
     if launches != tuple(w * forwards for w in want):
         raise AssertionError(f'{recipe}: launches {launches} for {forwards} '
                              f'forwards')
+    routed_exactly(recipe, tuple(w * forwards for w in want_routed))
     if inv > ROTATION_RTOL * scale:
         raise AssertionError(f'{recipe}: rotation invariance {inv} > '
                              f'{ROTATION_RTOL} * max|out| {scale}')
@@ -1550,6 +1612,11 @@ def routed():
     return tuple(fn.routed for fn in route_counters())
 
 
+def routes(**kw):
+    """A routed-calls tuple in ROUTE_NAMES order."""
+    return tuple(kw.get(name, 0) for name in ROUTE_NAMES)
+
+
 def reset_counts():
     for fn, attr in counters():
         setattr(fn, attr, 0)
@@ -1560,10 +1627,16 @@ def reset_counts():
 def not_routed(label, launches):
     """A main path's launches, after checking that none of its calls was
     routed past a kernel (the flagship widths never are)."""
-    if any(routed()):
-        raise AssertionError(f'{label}: routed calls {ROUTE_NAMES} = '
-                             f'{routed()}, want none')
+    routed_exactly(label, NO_ROUTES)
     return launches
+
+
+def routed_exactly(label, want):
+    """Check that exactly `want` calls (ROUTE_NAMES order) were routed past
+    a kernel since the counts were last reset."""
+    if routed() != tuple(want):
+        raise AssertionError(f'{label}: routed calls {ROUTE_NAMES} = '
+                             f'{routed()}, want {tuple(want)}')
 
 
 # C1's routing phase: the JAX DenoiseConfig widths (se3_transformer_tpu/
@@ -1626,12 +1699,12 @@ def phase_route(st):
 
 def phase_route_wide(st):
     """A ConvSE3 of 128 channels, degrees 0 and 1 (O = 128: two O tiles of
-    #1 and #3, past kernels A and B's O = 64), on the card and on the CPU
-    from the same weights, basis-fused (#1) and grouped (#3). Without grad
-    its forward launches the kernel and routes nothing; with grad the
-    forward launches again and only the backward routes (counted under
-    'A', no launch of A or B). Output within REF_RTOL_F32 of the CPU,
-    gradients within REF_GRAD_RTOL_F32."""
+    #1, #3 and kernels A and B), on the card and on the CPU from the same
+    weights, basis-fused (#1) and grouped (#3). Without grad its forward
+    launches the kernel and routes nothing; with grad the forward launches
+    again and the backward launches kernels A and B once per contraction,
+    routing nothing. Output within REF_RTOL_F32 of the CPU, gradients
+    within REF_GRAD_RTOL_F32."""
     from se3_transformer_torch.models.se3_transformer import init_parameters
     gen = torch.Generator().manual_seed(21)
     n, k, C = 64, 16, 128
@@ -1642,7 +1715,8 @@ def phase_route_wide(st):
     mask = torch.rand(1, n, k, generator=gen) > 0.05
     rel = torch.randn(1, n, k, 3, generator=gen) * 4.0
     for fuse_basis, kernel, pairs in ((True, 'bxf', 4), (False, 'fwd', 2)):
-        conv = st.ConvSE3(fiber, fiber, fuse_basis=fuse_basis)
+        conv = st.ConvSE3(fiber, fiber, fuse_basis=fuse_basis,
+                          shared_radial_hidden=True)
         init_parameters(conv, torch.Generator().manual_seed(22))
         results = {}
         for device in ('cuda', 'cpu'):
@@ -1686,16 +1760,18 @@ def phase_route_wide(st):
             warnings=texts, max_abs_err=out_err, max_abs_cpu=out_max,
             grad_rel_err=grad_rel)))
         want = tuple(pairs if name == kernel else 0 for name in COUNT_NAMES)
-        want_routed = tuple(pairs if name == 'A' else 0
-                            for name in ROUTE_NAMES)
-        if nograd != (want, (0,) * len(ROUTE_NAMES)):
+        want_grad = tuple(pairs if name in (kernel, 'A', 'B') else 0
+                          for name in COUNT_NAMES)
+        no_route = (0,) * len(ROUTE_NAMES)
+        if nograd != (want, no_route):
             raise AssertionError(f'route wide {kernel} without grad: '
                                  f'{nograd}, want {want} and no route')
-        if grad != (want, want_routed):
+        if grad != (want_grad, no_route):
             raise AssertionError(f'route wide {kernel} with grad: {grad}, '
-                                 f'want {want} and {want_routed}')
-        if not texts:
-            raise AssertionError(f'route wide {kernel}: no routing warning')
+                                 f'want {want_grad} and no route')
+        if texts:
+            raise AssertionError(f'route wide {kernel}: routing warnings '
+                                 f'{texts}')
         if not (out_err <= REF_RTOL_F32 * out_max
                 and grad_rel <= REF_GRAD_RTOL_F32):
             raise AssertionError(f'route wide {kernel}: card vs CPU {out_err}'
@@ -1704,17 +1780,20 @@ def phase_route_wide(st):
 
 
 def phase_train(st, recipe, want, other_policy, want_other, label=None,
-                **fields):
+                dim=64, depth=DEPTH, want_routed=None, **fields):
     """A recipe's denoise step (the vector head: output_degrees=2,
-    reduce_dim_out=True; `fields` are extra model fields) at n=1024 with
-    Adam: one warm-up step, then TRAIN_STEPS timed ones, each with exactly
-    `want` launches (COUNT_NAMES order); one profiled step; one step under
+    reduce_dim_out=True; `dim`, `depth` and `fields` set or add model
+    fields) at n=1024 with Adam: one warm-up step, then TRAIN_STEPS timed
+    ones, each with exactly `want` launches (COUNT_NAMES order) and
+    `want_routed` routed calls (ROUTE_NAMES order; none by default); one
+    profiled step; unless `want_other` is None, one step under
     `other_policy` with `want_other` launches. Returns the launches of the
     warm-up and timed steps."""
     recipe, name = label or recipe, recipe
-    n, dim = 1024, 64
+    want_routed = want_routed or NO_ROUTES
+    n = 1024
     model = condition_weights(getattr(st, name)(
-        dim=dim, depth=DEPTH, output_degrees=2, reduce_dim_out=True,
+        dim=dim, depth=depth, output_degrees=2, reduce_dim_out=True,
         generator=torch.Generator().manual_seed(4), **fields))
     trainer = st.DenoiseTrainer(model, lr=1e-4)
     batch = trainer.to_device(st.flagship_batch(np.random.RandomState(0), 1,
@@ -1726,25 +1805,29 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
     losses, step_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     for step in range(1 + TRAIN_STEPS):
-        before = counts()
+        before, routed_before = counts(), routed()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = trainer.train_step(batch, noise=noise)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launched = tuple(a - b for a, b in zip(counts(), before))
+        routes = tuple(a - b for a, b in zip(routed(), routed_before))
         losses.append(float(loss))
-        if launched != want:
+        if launched != want or routes != want_routed:
             raise AssertionError(f'{recipe} train step {step}: launches '
                                  f'{COUNT_NAMES} = {launched}, want '
-                                 f'{want}')
+                                 f'{want}; routed {ROUTE_NAMES} = {routes}, '
+                                 f'want {want_routed}')
         if step:
             step_ms.append(dt * 1e3)
         log('train', json.dumps(dict(recipe=recipe, step=step,
                                      warmup=step == 0, loss=losses[-1],
-                                     step_ms=dt * 1e3, launches=launched)))
+                                     step_ms=dt * 1e3, launches=launched,
+                                     routed=routes)))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = counts()
+    routed_exactly(recipe, tuple(w * (1 + TRAIN_STEPS) for w in want_routed))
     bad = [name for name, p in model.named_parameters()
            if p.grad is not None and not torch.isfinite(p.grad).all()]
     if not np.isfinite(losses).all() or losses[-1] >= losses[0] or bad:
@@ -1759,9 +1842,13 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
         last_loss=losses[-1], launches=launches)))
     log('train_profile', json.dumps(dict(
         recipe=recipe, **profile_step(trainer, batch, noise))))
+    if want_other is None:
+        del trainer, model
+        torch.cuda.empty_cache()
+        return launches
 
     other = st.DenoiseTrainer(condition_weights(getattr(st, name)(
-        dim=dim, depth=DEPTH, output_degrees=2, reduce_dim_out=True,
+        dim=dim, depth=depth, output_degrees=2, reduce_dim_out=True,
         remat_policy=other_policy,
         generator=torch.Generator().manual_seed(4), **fields)), lr=1e-4)
     del trainer, model
@@ -1802,7 +1889,13 @@ SMALL_CASES = (
      dict(SMALL_FAST, radial_bf16=False, fuse_pairwise=True), False),
     ('flagship_fast+fuse_pairwise',
      dict(SMALL_FAST, radial_bf16=True, fuse_pairwise=True), True),
-    ('flagship', dict(SMALL, edge_chunks=3), False))
+    ('flagship', dict(SMALL, edge_chunks=3), False),
+    # af2_refinement's fields (a radial trunk per pair, coordinate
+    # gradients) at dim 64: the kv convs' O = 192 takes #3 and kernels A
+    # and B with three O tiles
+    ('af2_refinement', dict(dim=64, depth=1, num_degrees=2, attend_self=True,
+                            num_neighbors=16, differentiable_coors=True),
+     False))
 
 
 def phase_train_reference(st):
@@ -1923,6 +2016,7 @@ def main() -> int:
     # 4. backward kernels vs plain, at both recipes' shapes
     bwd_rows, bwd_worst = phase_backward(kp, peaks)
     grouped_rows, grouped_worst = phase_backward_grouped(kp, peaks)
+    af2_rows, af2_worst = phase_backward_af2(kp, peaks)
 
     # 5. the attention kernels vs plain, with the library yardstick
     attn_rows, attn_worst = phase_attention(peaks)
@@ -1971,7 +2065,16 @@ def main() -> int:
                      a=FLAGSHIP_BWD_LAUNCHES, b=FLAGSHIP_BWD_LAUNCHES),
             'save_conv_outputs',
             launches(fwd=FLAGSHIP_TRAIN_LAUNCHES, a=FLAGSHIP_BWD_LAUNCHES,
-                     b=FLAGSHIP_BWD_LAUNCHES)))]
+                     b=FLAGSHIP_BWD_LAUNCHES))),
+        # af2_refinement: each phase holds its routed calls to exactly the
+        # O = 32 pairs of conv_in and conv_out, per request and per step
+        phase_serve(st, 'af2_refinement', launches(fwd=AF2_LAUNCHES),
+                    dim=AF2_DIM, depth=2, want_routed=routes(fwd=AF2_ROUTED),
+                    vector=True, bonds=BACKBONE_BONDS),
+        phase_train(st, 'af2_refinement',
+                    launches(fwd=AF2_LAUNCHES, a=AF2_LAUNCHES,
+                             b=AF2_LAUNCHES), None, None, dim=AF2_DIM,
+                    depth=2, want_routed=routes(fwd=AF2_ROUTED))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
 
@@ -2022,7 +2125,8 @@ def main() -> int:
         kernels.append(entry(
             f'fused_pairwise_conv_bwd_{k}', 'pairwise_bwd.cu',
             f'{pallas}{line}', total[2 + i],
-            max(bwd_worst[k], grouped_worst[k]), bwd, f'_{k}'))
+            max(bwd_worst[k], grouped_worst[k], af2_worst[k]), bwd,
+            f'_{k}'))
     kernels += [
         entry('fused_attention_fwd', 'attention.cu',
               tpu + 'pallas_attention.py:74', total[4], attn_worst['fwd'],

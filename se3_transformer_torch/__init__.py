@@ -18,8 +18,9 @@ from .kernels.pairwise import (
 from .models import SE3TransformerModule
 from .ops import (
     AttentionBlockSE3, AttentionSE3, ConvSE3, FeedForwardBlockSE3,
-    FeedForwardSE3, Fiber, LinearSE3, NormSE3,
+    FeedForwardSE3, Fiber, LinearSE3, NormSE3, PairwiseConvSE3,
 )
 from .training import (
-    DenoiseTrainer, denoise_loss, flagship, flagship_batch, flagship_fast,
+    DenoiseTrainer, af2_refinement, denoise_loss, flagship, flagship_batch,
+    flagship_fast,
 )

@@ -31,7 +31,8 @@ def _flatten(tree: Mapping, prefix=()):
 def convert_flax_params(params: Mapping, model: torch.nn.Module
                         ) -> Dict[str, torch.Tensor]:
     """Nested dicts of arrays keyed on flax paths (e.g.
-    'conv_in/Dense_0/kernel', 'conv_in/w3_0_1',
+    'conv_in/Dense_0/kernel', 'conv_in/w3_0_1', 'conv_in/pair_0_1/w3',
+    'preconv0/pair_1_1/Dense_0/bias',
     'trunk/attn_block0/attn/to_k/LayerNorm_1/scale') -> a state_dict of
     float32 CPU tensors for `model`.
 

@@ -124,12 +124,12 @@ def load_library() -> ctypes.CDLL:
             # (h, w3, b3, v2, out, work, w3_split, E, IF, O, P,
             #  i_per_split, h_is_bf16, stream)
             lib.se3_pairwise_fwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
-            # (h, w3, b3, v2, g, dv2, work, split, dw3, db3, E, IF, P,
-            #  splits, h_is_bf16, stream)
-            lib.se3_pairwise_bwd_a.argtypes = [vp] * 10 + [ci] * 5 + [vp]
-            # (w3, v2, g, dh, work, split, E, IF, P, i_per_split,
+            # (h, w3, b3, v2, g, dv2, dv2_work, work, split, dw3, db3, E,
+            #  IF, O, P, splits, h_is_bf16, stream)
+            lib.se3_pairwise_bwd_a.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+            # (w3, v2, g, dh, work, split, E, IF, O, P, i_per_split,
             #  w3_is_bf16, stream)
-            lib.se3_pairwise_bwd_b.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+            lib.se3_pairwise_bwd_b.argtypes = [vp] * 6 + [ci] * 6 + [vp]
             # (q, k, v, mask, out, BH, BKV, n, J, D, heads, scale, stream)
             lib.se3_attention_fwd.argtypes = [vp] * 5 + [ci] * 6 + [cf, vp]
             # (q, k, v, mask, g, dq, dk, dv, BH, BKV, n, J, D, heads, scale,

@@ -109,6 +109,15 @@
 //    1%); the next chunk's dR rebuilt in quarters between the k-steps of
 //    this one's product, so that its FMAs issue beside the mma (2-9%
 //    slower).
+// Any O that is a multiple of 64 (the TPU kernels take any O). Both kernels
+// tile O by BO = 64 as before, one CTA per O tile along the grid's z; the
+// sums over o (dV2 in A, dH in B) span the O tiles, so each z slot writes
+// dV2 (A) and dH (B) partials that bwd_reduce_kernel sums in slot order:
+// every output is the same bits on every run. dW3 and dB3 are per o and
+// need no sum over O tiles: each tile writes its own columns of the
+// split's partial. At O = 64 this is the old kernel. One CTA walking every
+// O tile, carrying those sums across them, was built and timed beside the
+// grid and dropped: B 6-9% slower, A within 1% (PERF.md, section 6).
 // Left for later. Kernel A: every edge-warp reads each W3 fragment from
 // shared memory (wgmma would read it once per warpgroup), the float32
 // ring's 2 stages still leave the P = 7 tile waiting on g, and one CTA of 8
@@ -157,16 +166,21 @@ struct ACfg {
 // g[tile, p, :], each read once by the CTA for all of its i; each warp
 // loads and reads only its own 16 x 32 block of a slice, so a slice needs
 // no barrier of the whole CTA.
-template <bool kSplit, int P>
+template <bool kSplit, int P, bool kWide>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
              const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
              const float* __restrict__ b3, const float* __restrict__ v2,
              const float* __restrict__ g, float* __restrict__ dv2,
-             float* __restrict__ part, int E, int IF, int tiles_per_split, int v2_pairs) {
+             float* __restrict__ part, int E, int IF, int O, int tiles_per_split, int v2_pairs) {
   using C = ACfg<kSplit, P>;
   constexpr int S = C::STAGES, NS = C::NS, WS = C::WS, HS = C::HS;
   static_assert(BI == 2, "a row's BI values of V2 and dV2 move as one float2");
+  // O is the constant BO, and the O tile the first, unless the kernel is
+  // built for wider O (kWide): with O and the tile runtime values the
+  // compiler allocated registers differently and the O = 64 kernel ran up
+  // to 4% slower at bf16 P = 3 and 7 (timing-only variants)
+  if constexpr (!kWide) O = BO;
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sW = reinterpret_cast<bf16*>(smem + C::W);
@@ -191,18 +205,22 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
   // 16-byte chunk c at c ^ 2(r % 4) (the float2 reads of 4 rows then hit
   // 32 distinct banks). Rows past E are not copied (and read as zeros).
   const int n_slices = max(0, tile_hi - tile_lo) * P;
+  // the CTA's O tile, blockIdx.z; its dV2 goes to slot blockIdx.z of dv2
+  // (the launch sums the slots when there are several)
+  const int o0 = kWide ? blockIdx.z * BO : 0;
+  float* dv2z = kWide ? dv2 + (size_t)blockIdx.z * E * P * IF : dv2;
   float* sGw = sG + warp * WG;  // this warp's block of stage 0
   auto stage_g = [&](int n) {
     if (n >= n_slices) return;
     const int tile = tile_lo + n / P, p = n % P;
     const int rows = min(BE, E - tile * BE) - we * 16;
-    const float* src = g + ((size_t)(tile * BE + we * 16) * P + p) * BO + wo * 32;
+    const float* src = g + ((size_t)(tile * BE + we * 16) * P + p) * O + o0 + wo * 32;
     float* dst = sGw + (n % S) * 8 * WG;
 #pragma unroll
     for (int k = lane; k < 16 * 8; k += 32) {
       const int r = k >> 3, c = k & 7;
       if (r < rows)
-        cp_async16(dst + r * 32 + ((c ^ ((r & 3) << 1)) << 2), src + (size_t)r * P * BO + c * 4);
+        cp_async16(dst + r * 32 + ((c ^ ((r & 3) << 1)) << 2), src + (size_t)r * P * O + c * 4);
     }
   };
   // h (hi[, lo]) and V2[tile, :, i0 .. i0 + BI] of a tile into buffer buf
@@ -229,15 +247,15 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
     }
   };
 
-  // W3[:, i, :] of the CTA's i values (the last valid i past IF's end:
-  // those outputs are not stored), the first tile, then the ring's first
-  // S - 1 slices
+  // W3[:, i, O tile] of the CTA's i values (the last valid i past IF's
+  // end: those outputs are not stored), the first tile, then the ring's
+  // first S - 1 slices.
 #pragma unroll
   for (int ii = 0; ii < BI; ++ii)
 #pragma unroll
     for (int half = 0; half < NS; ++half)
-      load_w(sW + (ii * NS + half) * MID * WS, half ? wlo : whi, min(i0 + ii, IF - 1), IF, BO,
-             0, tid);
+      load_w(sW + (ii * NS + half) * MID * WS, half ? wlo : whi, min(i0 + ii, IF - 1), IF, O,
+             o0, tid);
   if (tile_lo < tile_hi) stage_tile(tile_lo, 0);
   cp_async_commit();
 #pragma unroll
@@ -313,7 +331,7 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
     }
 #pragma unroll
     for (int ii = 0; ii < BI; ++ii) {
-      const float* bi = b3 + (size_t)min(i0 + ii, IF - 1) * BO;
+      const float* bi = b3 + (size_t)min(i0 + ii, IF - 1) * O + o0;
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
         const float2 bb = __ldg(reinterpret_cast<const float2*>(bi + wo * 32 + nb * 8 + 2 * t));
@@ -414,7 +432,7 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
 #pragma unroll
       for (int ii = 0; ii < BI; ++ii)
         d[ii] = sP[((ii * 2 + 0) * BE + e) * P + p] + sP[((ii * 2 + 1) * BE + e) * P + p];
-      float* dst = dv2 + ((size_t)e0 * P + idx) * IF + i0;
+      float* dst = dv2z + ((size_t)e0 * P + idx) * IF + i0;
       if (v2_pairs) {
         *reinterpret_cast<float2*>(dst) = make_float2(d[0], d[1]);
       } else {
@@ -493,11 +511,12 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
       }
   __syncthreads();
 
-  // this split's partial sums: [MID][IF][BO] then [IF][BO]
-  float* pw = part + (size_t)blockIdx.y * ((size_t)MID * IF * BO + (size_t)IF * BO);
+  // this split's partial sums, the O tile's columns: [MID][IF][O] then
+  // [IF][O]
+  float* pw = part + (size_t)blockIdx.y * ((size_t)MID * IF * O + (size_t)IF * O);
   for (int idx = tid; idx < nI * BO; idx += NTHREADS) {
     const int ii = idx / BO, o = idx % BO;
-    pw[(size_t)MID * IF * BO + (size_t)(i0 + ii) * BO + o] =
+    pw[(size_t)MID * IF * O + (size_t)(i0 + ii) * O + o0 + o] =
         ((sB[(0 * BI + ii) * BO + o] + sB[(1 * BI + ii) * BO + o]) +
          sB[(2 * BI + ii) * BO + o]) + sB[(3 * BI + ii) * BO + o];
   }
@@ -510,10 +529,10 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        const int m = wm * 32 + mt * 16 + gq, o = wn * 32 + nt * 8 + 2 * t;
-        *reinterpret_cast<float2*>(pw + ((size_t)m * IF + i) * BO + o) =
+        const int m = wm * 32 + mt * 16 + gq, o = o0 + wn * 32 + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(pw + ((size_t)m * IF + i) * O + o) =
             make_float2(acc[ii][mt * 4 + nt][0], acc[ii][mt * 4 + nt][1]);
-        *reinterpret_cast<float2*>(pw + ((size_t)(m + 8) * IF + i) * BO + o) =
+        *reinterpret_cast<float2*>(pw + ((size_t)(m + 8) * IF + i) * O + o) =
             make_float2(acc[ii][mt * 4 + nt][2], acc[ii][mt * 4 + nt][3]);
       }
   }
@@ -566,11 +585,11 @@ struct BCfg {
 // k - 1 on the tensor cores (8 warps: 2 along edges x 4 along mid, 32 x 32
 // each) while chunk k's W3 is issued behind it (cp.async), then chunk k's
 // dR is rebuilt into the other dR buffer; V2 is issued two chunks at a time.
-template <bool kSplit, int P>
+template <bool kSplit, int P, bool kWide>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
              const float* __restrict__ v2, const float* __restrict__ g,
-             float* __restrict__ dh, int E, int IF, int i_per_split, int v2_quads) {
+             float* __restrict__ dh, int E, int IF, int O, int i_per_split, int v2_quads) {
   using C = BCfg<kSplit, P>;
   constexpr int CI = C::CI, NS = C::NS;
   constexpr int VI = C::VI;
@@ -585,6 +604,12 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
   const int e0 = blockIdx.x * BE, rows = min(BE, E - e0);
   const int i_lo = blockIdx.y * i_per_split, i_hi = min(IF, i_lo + i_per_split);
   const int n_chunks = (i_hi - i_lo + CI - 1) / CI;
+  // O is the constant BO unless the kernel is built for wider O (kWide):
+  // with O a runtime value, kernel B ran 13% slower at P = 1 (the stride
+  // of g's loads, by timing-only variants; likely g reloaded in the chunk
+  // loop rather than held in registers)
+  if constexpr (!kWide) O = BO;
+  const int o0 = kWide ? blockIdx.z * BO : 0;  // the CTA's O tile
 
   // W3[:, chunk c, :] (hi[, lo]) goes into ring stage c % 2 as MID x CI x 8
   // 16-byte cp.async per half, 8 a thread; this is the thread's r-th (r <
@@ -595,7 +620,7 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
     const int ch = f & 7, ii = (f >> 3) & (CI - 1), m = f >> 4;
     const int i = min(i_lo + c * CI + ii, IF - 1);
     cp_async16(sW + ((size_t)((c & 1) * CI + ii) * NS + half) * MID * BO + swz(m, ch * 8),
-               (half ? wlo : whi) + ((size_t)m * IF + i) * BO + ch * 8);
+               (half ? wlo : whi) + ((size_t)m * IF + i) * O + o0 + ch * 8);
   };
   // V2[tile, :, VI i from i_lo + s VI] into stage s % 2 (chunks 2s and 2s +
   // 1): one 16-byte copy a row where IF allows, else 4-byte copies; zeros
@@ -624,7 +649,7 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
   stage_v(0);
   cp_async_commit();
 
-  // this thread's g values: row re of the tile, columns 16q .. 16q + 16
+  // this thread's g values: row re of the tile, columns o0 + 16q .. + 16
   const int re = tid >> 2, q = tid & 3;
   float gr[P][16];
 #pragma unroll
@@ -633,7 +658,7 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
     for (int k = 0; k < 4; ++k) {
       const float4 x =
           re < rows
-              ? __ldg(reinterpret_cast<const float4*>(g + ((size_t)(e0 + re) * P + p) * BO +
+              ? __ldg(reinterpret_cast<const float4*>(g + ((size_t)(e0 + re) * P + p) * O + o0 +
                                                       q * 16) + k)
               : make_float4(0.f, 0.f, 0.f, 0.f);
       gr[p][4 * k + 0] = x.x;
@@ -776,7 +801,8 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
   }
 
   const int gq = lane >> 2, t = lane & 3;
-  float* dst = dh + (size_t)blockIdx.y * E * MID;  // this split's dH
+  // this (O tile, i range) slot's dH
+  float* dst = dh + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * E * MID;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -793,17 +819,19 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
 
 template <bool kSplit, int P>
 cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* v2,
-                     const void* g, void* dv2, void* work, void* split, void* dw3, void* db3,
-                     int E, int IF, int splits, cudaStream_t stream) {
+                     const void* g, void* dv2, void* dv2_work, void* work, void* split,
+                     void* dw3, void* db3, int E, int IF, int O, int splits,
+                     cudaStream_t stream) {
   using C = ACfg<kSplit, P>;
   const int groups = (IF + BI - 1) / BI;
+  const int slots = O / BO;  // CTAs along O, each with its dV2 slot
   const bf16 *hhi = static_cast<const bf16*>(h), *whi = static_cast<const bf16*>(w3);
   const bf16 *hlo = nullptr, *wlo = nullptr;
   cudaError_t err;
   if constexpr (kSplit) {
     // float32 h and W3 into their bf16 hi and lo arrays (h [E, MID] and W3
-    // [MID, IF, BO] are whole numbers of float4s)
-    const size_t nh = (size_t)E * MID, nw = (size_t)MID * IF * BO;
+    // [MID, IF, O] are whole numbers of float4s)
+    const size_t nh = (size_t)E * MID, nw = (size_t)MID * IF * O;
     bf16* sp = static_cast<bf16*>(split);
     split_bf16_kernel<<<grid_for(nh / 4), NTHREADS, 0, stream>>>(
         static_cast<const float4*>(h), nh / 4, reinterpret_cast<uint2*>(sp),
@@ -817,37 +845,44 @@ cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* 
     whi = sp + 2 * nh;
     wlo = sp + 2 * nh + nw;
   }
-  auto kern = bwd_a_kernel<kSplit, P>;
+  auto kern = O > BO ? bwd_a_kernel<kSplit, P, true> : bwd_a_kernel<kSplit, P, false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int n_tiles = (E + BE - 1) / BE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  float* dv2_out = static_cast<float*>(slots > 1 ? dv2_work : dv2);
   // a row's two V2 (and dV2) values move as one 8-byte copy when IF is even
   const int v2_pairs = IF % 2 == 0 && reinterpret_cast<uintptr_t>(v2) % 8 == 0 &&
-                       reinterpret_cast<uintptr_t>(dv2) % 8 == 0;
-  kern<<<dim3(groups, splits), NTHREADS, C::SMEM, stream>>>(
+                       reinterpret_cast<uintptr_t>(dv2_out) % 8 == 0;
+  kern<<<dim3(groups, splits, slots), NTHREADS, C::SMEM, stream>>>(
       hhi, hlo, whi, wlo, static_cast<const float*>(b3), static_cast<const float*>(v2),
-      static_cast<const float*>(g), static_cast<float*>(dv2), static_cast<float*>(work), E, IF,
+      static_cast<const float*>(g), dv2_out, static_cast<float*>(work), E, IF, O,
       tiles_per_split, v2_pairs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t n_w = (size_t)MID * IF * BO, n_b = (size_t)IF * BO;
+  const size_t n_w = (size_t)MID * IF * O, n_b = (size_t)IF * O;
   bwd_reduce_kernel<<<grid_for(n_w + n_b), NTHREADS, 0, stream>>>(
       static_cast<const float*>(work), splits, n_w, n_b, static_cast<float*>(dw3),
       static_cast<float*>(db3));
+  if ((err = cudaGetLastError()) != cudaSuccess || slots == 1) return err;
+  // dV2: the O slots' partials summed in slot order
+  const size_t n_v = (size_t)E * P * IF;
+  bwd_reduce_kernel<<<grid_for(n_v), NTHREADS, 0, stream>>>(
+      static_cast<const float*>(dv2_work), slots, n_v, 0, static_cast<float*>(dv2), nullptr);
   return cudaGetLastError();
 }
 
 template <bool kSplit, int P>
 cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, void* work,
-                     void* split, int E, int IF, int i_per_split, cudaStream_t stream) {
+                     void* split, int E, int IF, int O, int i_per_split,
+                     cudaStream_t stream) {
   using C = BCfg<kSplit, P>;
   const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
   cudaError_t err;
   if constexpr (kSplit) {
-    // float32 W3 [MID, IF, BO] (a whole number of float4s) into its bf16
+    // float32 W3 [MID, IF, O] (a whole number of float4s) into its bf16
     // hi and lo arrays
-    const size_t nw = (size_t)MID * IF * BO;
+    const size_t nw = (size_t)MID * IF * O;
     bf16* sp = static_cast<bf16*>(split);
     split_bf16_kernel<<<grid_for(nw / 4), NTHREADS, 0, stream>>>(
         static_cast<const float4*>(w3), nw / 4, reinterpret_cast<uint2*>(sp),
@@ -856,22 +891,24 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
     whi = sp;
     wlo = sp + nw;
   }
-  auto kern = bwd_b_kernel<kSplit, P>;
+  auto kern = O > BO ? bwd_b_kernel<kSplit, P, true> : bwd_b_kernel<kSplit, P, false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int splits = (IF + i_per_split - 1) / i_per_split;
+  const int slots = O / BO;  // CTAs along O
+  const int partials = splits * slots;
   // a row's VI values of V2 move as one 16-byte copy when every stage is
   // whole and starts on 16 bytes
   const int v2_quads = IF % C::VI == 0 && i_per_split % C::VI == 0 &&
                        reinterpret_cast<uintptr_t>(v2) % 16 == 0;
-  kern<<<dim3((E + BE - 1) / BE, splits), NTHREADS, C::SMEM, stream>>>(
+  kern<<<dim3((E + BE - 1) / BE, splits, slots), NTHREADS, C::SMEM, stream>>>(
       whi, wlo, static_cast<const float*>(v2), static_cast<const float*>(g),
-      static_cast<float*>(splits > 1 ? work : dh), E, IF, i_per_split, v2_quads);
+      static_cast<float*>(partials > 1 ? work : dh), E, IF, O, i_per_split, v2_quads);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
+  if (err != cudaSuccess || partials == 1) return err;
   const size_t n = (size_t)E * MID;
   bwd_reduce_kernel<<<grid_for(n), NTHREADS, 0, stream>>>(
-      static_cast<const float*>(work), splits, n, 0, static_cast<float*>(dh), nullptr);
+      static_cast<const float*>(work), partials, n, 0, static_cast<float*>(dh), nullptr);
   return cudaGetLastError();
 }
 
@@ -880,44 +917,52 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
 // Plain C entry points (bound with ctypes). Each returns the launch status
 // (cudaGetLastError() right after its launches); 0 is success. Pointers are
 // device pointers to contiguous tensors; the caller checks shapes: mid ==
-// 128, O == 64, P in {1, 3, 5, 7}, h/w3 bf16 or f32, the rest f32.
+// 128, O a multiple of 64, P in {1, 3, 5, 7}, h/w3 bf16 or f32, the rest
+// f32. Each 64-wide O tile is one CTA along the grid's z; their dV2
+// (kernel A) and dH (kernel B) partials are summed in order by the reduce.
 
-// Kernel A and its reduce: dv2 [E, P, IF], dw3 [128, IF, 64], db3 [IF, 64].
-// work holds splits x (128*IF*64 + IF*64) floats; every split must own at
-// least one 64-edge tile. h, w3 and g start on 16 bytes. With float32 h/w3, split
-// holds 2 * (E*128 + 128*IF*64) bf16 (h's hi and lo arrays, then W3's); it
-// is not read otherwise.
+// Kernel A and its reduces: dv2 [E, P, IF], dw3 [128, IF, O], db3 [IF, O].
+// work holds splits x (128*IF*O + IF*O) floats; every split must own at
+// least one 64-edge tile. With more than one CTA along O, dv2_work holds
+// that many [E, P, IF] float partials; it is not read otherwise. h, w3 and
+// g start on 16 bytes. With float32 h/w3, split holds 2 * (E*128 +
+// 128*IF*O) bf16 (h's hi and lo arrays, then W3's); it is not read
+// otherwise.
 extern "C" int se3_pairwise_bwd_a(const void* h, const void* w3, const void* b3,
-                                  const void* v2, const void* g, void* dv2, void* work,
-                                  void* split, void* dw3, void* db3, int E, int IF, int P,
-                                  int splits, int h_is_bf16, void* stream) {
-  if (E <= 0 || IF <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+                                  const void* v2, const void* g, void* dv2, void* dv2_work,
+                                  void* work, void* split, void* dw3, void* db3, int E, int IF,
+                                  int O, int P, int splits, int h_is_bf16, void* stream) {
+  if (E <= 0 || IF <= 0 || splits <= 0 || O <= 0 || O % BO)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SE3_A(PP)                                                                   \
-  if (P == PP)                                                                      \
-    return (int)(h_is_bf16 ? launch_a<false, PP>(h, w3, b3, v2, g, dv2, work, split, \
-                                                 dw3, db3, E, IF, splits, s) \
-                           : launch_a<true, PP>(h, w3, b3, v2, g, dv2, work, split,  \
-                                                dw3, db3, E, IF, splits, s));
+#define SE3_A(PP)                                                                        \
+  if (P == PP)                                                                           \
+    return (int)(h_is_bf16 ? launch_a<false, PP>(h, w3, b3, v2, g, dv2, dv2_work, work,  \
+                                                 split, dw3, db3, E, IF, O, splits, s)   \
+                           : launch_a<true, PP>(h, w3, b3, v2, g, dv2, dv2_work, work,   \
+                                                split, dw3, db3, E, IF, O, splits, s));
   SE3_A(1) SE3_A(3) SE3_A(5) SE3_A(7)
 #undef SE3_A
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel B: dh [E, 128]. With more than one split (ceil(IF / i_per_split))
-// work holds that many [E, 128] float partials; it is not read otherwise.
-// w3 and g start on 16 bytes. With float32 w3, split holds 2 * 128*IF*64
-// bf16 (W3's hi and lo arrays); it is not read otherwise.
+// Kernel B: dh [E, 128]. With more than one partial (ceil(IF / i_per_split)
+// i splits times the CTAs along O) work holds that many [E, 128] float
+// partials; it is not read otherwise. w3 and g start on 16 bytes. With
+// float32 w3, split holds 2 * 128*IF*O bf16 (W3's hi and lo arrays); it is
+// not read otherwise.
 extern "C" int se3_pairwise_bwd_b(const void* w3, const void* v2, const void* g, void* dh,
-                                  void* work, void* split, int E, int IF, int P,
+                                  void* work, void* split, int E, int IF, int O, int P,
                                   int i_per_split, int w3_is_bf16, void* stream) {
-  if (E <= 0 || IF <= 0 || i_per_split <= 0) return (int)cudaErrorInvalidValue;
+  if (E <= 0 || IF <= 0 || i_per_split <= 0 || O <= 0 || O % BO)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SE3_B(PP)                                                                       \
-  if (P == PP)                                                                          \
-    return (int)(w3_is_bf16                                                             \
-                     ? launch_b<false, PP>(w3, v2, g, dh, work, split, E, IF, i_per_split, s) \
-                     : launch_b<true, PP>(w3, v2, g, dh, work, split, E, IF, i_per_split, s));
+#define SE3_B(PP)                                                                         \
+  if (P == PP)                                                                            \
+    return (int)(w3_is_bf16 ? launch_b<false, PP>(w3, v2, g, dh, work, split, E, IF, O,   \
+                                                  i_per_split, s)                         \
+                            : launch_b<true, PP>(w3, v2, g, dh, work, split, E, IF, O,    \
+                                                 i_per_split, s));
   SE3_B(1) SE3_B(3) SE3_B(5) SE3_B(7)
 #undef SE3_B
   return (int)cudaErrorInvalidValue;

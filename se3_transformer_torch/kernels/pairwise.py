@@ -24,10 +24,11 @@ csrc/pairwise_bwd.cu) or raises; nothing falls back.
 `pairwise_limit` is the kernels' fits predicate: from the widths alone it
 says whether a built kernel takes a call; the wrappers' checks are built on
 it. Past a forward kernel's limits on a card, the conv layer (ops/conv.py)
-sends the call to the plain version itself; past kernels A and B's (O = 64
-only), the ops' backward takes the plain backward. Both ask
-routing.route, which counts the call in the wrapper's `.routed` and
-warns once per (kernel, shape).
+sends the call to the plain version itself: it asks routing.route, which
+counts the call in the wrapper's `.routed` and warns once per (kernel,
+shape), and the call's backward is the plain version's autograd. Kernels
+A and B take every width the forwards take, so the ops' backward (of a
+call that launched) runs them.
 
 `pairwise_contract`, `pairwise_contract_bxf` and `pairwise_contract_bx`
 are the differentiable forms (the ports of
@@ -45,8 +46,6 @@ import functools
 from typing import Optional
 
 import torch
-
-from . import routing
 
 MID = 128          # the radial hidden width the kernel is built for
 O_TILE = 64        # output channels per CTA: O must be a multiple
@@ -70,10 +69,7 @@ def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
         return f'h dtype {dtype} exceeds the built dtypes (bfloat16, float32)'
     if mid != MID:
         return f'mid = {mid} exceeds the built mid = {MID}'
-    if kernel == 'bwd':
-        if O != O_TILE:
-            return f'O = {O} exceeds the built O = {O_TILE}'
-    elif O <= 0 or O % O_TILE:
+    if O <= 0 or O % O_TILE:
         return f'O = {O} exceeds the built O: a multiple of {O_TILE}'
     if P not in ORDERS:
         return f'P = {P} exceeds the built orders {ORDERS} (degree <= 3)'
@@ -399,6 +395,7 @@ def fused_pairwise_conv_bwd_plain(h: torch.Tensor, w3: torch.Tensor,
 
 
 def _check_bwd(h, w3, v2, g, b3):
+    """What kernels A and B take; returns (E, IF, O, P)."""
     dev = h.device
     for name, t in (('w3', w3), ('v2', v2), ('g', g), ('b3', b3)):
         if t.device != dev:
@@ -418,34 +415,32 @@ def _check_bwd(h, w3, v2, g, b3):
         raise ValueError(limit)
     E = h.shape[0]
     if w3.shape[0] != MID or w3.shape[1] == 0:
-        raise ValueError(f'w3 must be [{MID}, IF, {O_TILE}], got '
-                         f'{tuple(w3.shape)}')
-    IF = w3.shape[1]
+        raise ValueError(f'w3 must be [{MID}, IF, O], got {tuple(w3.shape)}')
+    _, IF, O = w3.shape
     if v2.shape[0] != E or v2.shape[2] != IF:
         raise ValueError(f'v2 must be [{E}, P, {IF}], got {tuple(v2.shape)}')
     P = v2.shape[1]
-    if tuple(g.shape) != (E, P, O_TILE):
-        raise ValueError(f'g must be [{E}, {P}, {O_TILE}], got '
-                         f'{tuple(g.shape)}')
-    if tuple(b3.shape) != (IF, O_TILE):
-        raise ValueError(f'b3 must be [{IF}, {O_TILE}], got '
-                         f'{tuple(b3.shape)}')
+    if tuple(g.shape) != (E, P, O):
+        raise ValueError(f'g must be [{E}, {P}, {O}], got {tuple(g.shape)}')
+    if tuple(b3.shape) != (IF, O):
+        raise ValueError(f'b3 must be [{IF}, {O}], got {tuple(b3.shape)}')
     for name, t in (('h', h), ('w3', w3), ('v2', v2), ('g', g), ('b3', b3)):
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-    return E, IF, P
+    return E, IF, O, P
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_splits(E: int, IF: int) -> int:
+def bwd_splits(E: int, IF: int, O: int = O_TILE) -> int:
     """How many edge ranges kernel A splits E into: the count that finishes
     soonest with one CTA per SM of an H100 (whole waves of equal ranges,
     each split's partial dW3 written and reduced at about IF/128 tiles'
-    time), each range at least one 64-edge tile. A function of the shapes
-    only, so the partial sums and their reduce order (and so dW3 and dB3,
-    bit for bit) are the same on every run."""
+    time), each range at least one 64-edge tile; O's 64-wide tiles share
+    the grid. A function of the shapes only, so the partial
+    sums and their reduce order (and so dW3 and dB3, bit for bit) are the
+    same on every run."""
     n_tiles = -(-E // EDGE_TILE)
-    groups = -(-IF // BWD_I_CHUNK)
+    groups = -(-IF // BWD_I_CHUNK) * (O // O_TILE)
 
     def cost(s):
         return (-(-groups * s // SPLIT_TARGET_CTAS) * -(-n_tiles // s)
@@ -465,29 +460,32 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch_bwd_a(h, w3, v2, g, b3, E, IF, P):
-    """Kernel A and its edge reduce on operands that passed _check_bwd,
-    E > 0 -> (dw3, dv2, db3); counts one kernel-A launch."""
+def _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P):
+    """Kernel A and its reduces on operands that passed _check_bwd,
+    E > 0 -> (dw3, dv2, db3); counts one kernel-A launch. Each 64-wide O
+    tile is a CTA of its own: past one, their dV2 partials go to dv2_work
+    and are summed in tile order."""
     f32 = dict(dtype=torch.float32, device=h.device)
     h, w3, g = _aligned(h), _aligned(w3), _aligned(g)
     dv2 = torch.empty(E, P, IF, **f32)
-    dw3 = torch.empty(MID, IF, O_TILE, **f32)
-    db3 = torch.empty(IF, O_TILE, **f32)
-    splits = bwd_splits(E, IF)
-    work = torch.empty(splits * (MID + 1) * IF * O_TILE, **f32)
+    dw3 = torch.empty(MID, IF, O, **f32)
+    db3 = torch.empty(IF, O, **f32)
+    slots = O // O_TILE
+    splits = bwd_splits(E, IF, O)
+    work = torch.empty(splits * (MID + 1) * IF * O, **f32)
+    dv2_work = dv2 if slots == 1 else torch.empty(slots * E * P * IF, **f32)
     # float32 h and w3 are split into bf16 hi and lo arrays by the kernel's
     # own split pass, into this scratch
     bf16 = h.dtype == torch.bfloat16
     split = work if bf16 else torch.empty(
-        2 * (E * MID + MID * IF * O_TILE), dtype=torch.bfloat16,
-        device=h.device)
+        2 * (E * MID + MID * IF * O), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
     with torch.cuda.device(h.device):
         rc = load_library().se3_pairwise_bwd_a(
             h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
-            g.data_ptr(), dv2.data_ptr(), work.data_ptr(), split.data_ptr(),
-            dw3.data_ptr(), db3.data_ptr(), E, IF, P, splits, int(bf16),
-            _stream(h))
+            g.data_ptr(), dv2.data_ptr(), dv2_work.data_ptr(),
+            work.data_ptr(), split.data_ptr(), dw3.data_ptr(),
+            db3.data_ptr(), E, IF, O, P, splits, int(bf16), _stream(h))
     if rc != 0:
         raise RuntimeError(f'se3_pairwise_bwd_a launch failed: CUDA error '
                            f'{rc}')
@@ -495,16 +493,16 @@ def _launch_bwd_a(h, w3, v2, g, b3, E, IF, P):
     return dw3, dv2, db3
 
 
-def _launch_bwd_b(w3, v2, g, E, IF, P):
-    """Kernel B (and, with its i range split, the partials' reduce) on
-    operands that passed _check_bwd, E > 0 -> dh; counts one kernel-B
-    launch."""
+def _launch_bwd_b(w3, v2, g, E, IF, O, P):
+    """Kernel B (and, with its i range split or more than one 64-wide O
+    tile, the partials' reduce) on operands that passed _check_bwd, E > 0
+    -> dh; counts one kernel-B launch."""
     dh = torch.empty(E, MID, dtype=torch.float32, device=w3.device)
     w3, g = _aligned(w3), _aligned(g)
-    per = i_per_split(E, IF)
-    splits = -(-IF // per)
-    work = dh if splits == 1 else torch.empty(
-        splits * E * MID, dtype=torch.float32, device=w3.device)
+    per = i_per_split(E, IF, O)
+    partials = -(-IF // per) * (O // O_TILE)
+    work = dh if partials == 1 else torch.empty(
+        partials * E * MID, dtype=torch.float32, device=w3.device)
     # float32 w3 is split into bf16 hi and lo arrays by the kernel's own
     # split pass, into this scratch
     bf16 = w3.dtype == torch.bfloat16
@@ -514,7 +512,7 @@ def _launch_bwd_b(w3, v2, g, E, IF, P):
     with torch.cuda.device(w3.device):
         rc = load_library().se3_pairwise_bwd_b(
             w3.data_ptr(), v2.data_ptr(), g.data_ptr(), dh.data_ptr(),
-            work.data_ptr(), split.data_ptr(), E, IF, P, per, int(bf16),
+            work.data_ptr(), split.data_ptr(), E, IF, O, P, per, int(bf16),
             _stream(w3))
     if rc != 0:
         raise RuntimeError(f'se3_pairwise_bwd_b launch failed: CUDA error '
@@ -531,37 +529,25 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
     [IF, O] (zeros when None) -> (dh [E, mid], dw3 [mid, IF, O], dv2 [E, P,
     IF], db3 [IF, O]), all
     float32. On a card: kernel A (dV2, dW3, dB3, with its deterministic
-    edge reduce) then kernel B (dH); mid = 128 and O = 64 there."""
+    edge reduce) then kernel B (dH); mid = 128 and O a multiple of 64
+    there."""
     if b3 is None:
         b3 = torch.zeros(w3.shape[1:], dtype=torch.float32, device=h.device)
     if h.device.type == 'cpu':
         return fused_pairwise_conv_bwd_plain(h, w3, v2, g, b3)
     if h.device.type != 'cuda':
         raise ValueError(f'no kernel for device {h.device}')
-    E, IF, P = _check_bwd(h, w3, v2, g, b3)
+    E, IF, O, P = _check_bwd(h, w3, v2, g, b3)
     if E == 0:
         f32 = dict(dtype=torch.float32, device=h.device)
-        return (torch.empty(0, MID, **f32), torch.zeros(MID, IF, O_TILE, **f32),
-                torch.empty(0, P, IF, **f32), torch.zeros(IF, O_TILE, **f32))
-    dw3, dv2, db3 = _launch_bwd_a(h, w3, v2, g, b3, E, IF, P)
-    return _launch_bwd_b(w3, v2, g, E, IF, P), dw3, dv2, db3
+        return (torch.empty(0, MID, **f32), torch.zeros(MID, IF, O, **f32),
+                torch.empty(0, P, IF, **f32), torch.zeros(IF, O, **f32))
+    dw3, dv2, db3 = _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P)
+    return _launch_bwd_b(w3, v2, g, E, IF, O, P), dw3, dv2, db3
 
 
 fused_pairwise_conv_bwd.launches_a = 0
 fused_pairwise_conv_bwd.launches_b = 0
-fused_pairwise_conv_bwd.routed = 0
-
-
-def _contract_bwd(h, w3, v2, g, b3):
-    """The ops' backward: kernels A and B, or on a card past their limits
-    (O = 64 only, where the forwards take any multiple of 64) the plain
-    backward, decided from the widths before any launch."""
-    limit = pairwise_limit('bwd', h.shape[1], w3.shape[2], v2.shape[1],
-                           dtype=h.dtype)
-    if routing.route(fused_pairwise_conv_bwd, h.device.type, limit,
-                     (h.shape[1], w3.shape[1], w3.shape[2], v2.shape[1])):
-        return fused_pairwise_conv_bwd_plain(h, w3, v2, g, b3)
-    return fused_pairwise_conv_bwd(h, w3, v2, g, b3)
 
 
 # ---------------------------------------------------------------------- #
@@ -596,7 +582,7 @@ def _pc_backward(ctx, g):
     b4 = basis_flat.float().reshape(E, P, F, Q)
     x32 = x.float()
     v2 = torch.einsum('epfq,ecq->epcf', b4, x32).reshape(E, P, C * F)
-    dh, dw3, dv2, db3 = _contract_bwd(h, w3, v2, g.contiguous(), b3)
+    dh, dw3, dv2, db3 = fused_pairwise_conv_bwd(h, w3, v2, g.contiguous(), b3)
     dv2 = dv2.reshape(E, P, C, F)
     dbasis = dx = None
     if ctx.needs_input_grad[3]:
@@ -632,7 +618,7 @@ def _contract_backward(ctx, g):
     operands; dh and dw3 in the dtypes of h and w3, dv2 to V2, whose own
     einsum carries it on to the basis and the features under autograd."""
     h, w3, b3, v2 = ctx.saved_tensors
-    dh, dw3, dv2, db3 = _contract_bwd(h, w3, v2, g.contiguous(), b3)
+    dh, dw3, dv2, db3 = fused_pairwise_conv_bwd(h, w3, v2, g.contiguous(), b3)
     return dh.to(h.dtype), dw3.to(w3.dtype), db3.to(b3.dtype), dv2.to(v2.dtype)
 
 
@@ -661,7 +647,7 @@ def _contract_bx_backward(ctx, g):
     C = x.shape[1]
     b32, x32 = basis.float(), x.float()
     v2 = torch.einsum('epqf,ecq->epcf', b32, x32).reshape(E, P, C * F)
-    dh, dw3, dv2, db3 = _contract_bwd(h, w3, v2, g.contiguous(), b3)
+    dh, dw3, dv2, db3 = fused_pairwise_conv_bwd(h, w3, v2, g.contiguous(), b3)
     dv2 = dv2.reshape(E, P, C, F)
     dbasis = dx = None
     if ctx.needs_input_grad[3]:

@@ -1,15 +1,25 @@
 """SE3TransformerModule: the port of se3_transformer_tpu/models/se3_transformer.py
-restricted to the fields the `flagship_fast` and `flagship` recipes and the
-assembly model (attention_mode='global') use.
+restricted to the fields its recipes (`flagship_fast`, `flagship`,
+`af2_refinement`), the assembly model (attention_mode='global') and the
+JAX default model surface use.
 
-The forward is the JAX module's kNN path, step for step: self-excluded
-pairwise geometry -> fixed-K neighbor selection -> the basis (the flat
-'pfq_flat' layout with fuse_basis, the structured 'pqf' one without, as
-the JAX module picks it on the kernel path) -> conv_in -> trunk ->
-conv_out -> norm_out (on with reversible) -> linear_out (reduce_dim_out)
--> the degree-1 Cartesian permutation -> the output of `return_type`, with
-the JAX conventions. edge_chunks streams every ConvSE3's contraction over
-that many node chunks. pallas_attention=True runs every unfused attention
+The fibers are resolved as the JAX `_resolved`: fiber_in from
+input_degrees and dim_in (an int or a tuple per degree; dim without it),
+the hidden fiber from hidden_fiber_dict or (num_degrees, dim) (num_degrees
+None takes hidden_fiber_dict's top degree + 1), fiber_out from
+out_fiber_dict or (output_degrees, dim_out or dim).
+
+The forward is the JAX module's kNN path, step for step: the input (a
+[b, n, dim] tensor, or a dict of degrees {'0': [b, n, c, 1], '1': [b, n,
+c, 3], ...} whose degree 1 is permuted Cartesian -> irrep) ->
+self-excluded pairwise geometry -> fixed-K neighbor selection -> the basis
+(the flat 'pfq_flat' layout with fuse_basis, the structured 'pqf' one
+without, as the JAX module picks it on the kernel path; differentiable
+with differentiable_coors) -> conv_in -> num_conv_layers x (preconv_norm,
+preconv) -> trunk -> conv_out -> norm_out (on with reversible) ->
+linear_out (reduce_dim_out) -> the degree-1 Cartesian permutation -> the
+output of `return_type`, with the JAX conventions. edge_chunks streams
+every ConvSE3's contraction over that many node chunks. pallas_attention=True runs every unfused attention
 block's core through the fused attention kernel; fuse_pairwise (a bool, or
 first-match-wins (pattern, 'flash' | 'xla') rules on 'attn_block{i}')
 routes the chosen blocks through the streaming attention kernel, which
@@ -25,10 +35,7 @@ with reversible, as in JAX); use_null_kv adds the null kv slot of the
 global blocks.
 
 Every other JAX field is accepted only at its JAX default: any other value
-raises NotImplementedError, so nothing is silently ignored. The branches
-the port does not implement (shared_radial_hidden=False,
-attend_self=False, input_degrees other than 1, output_degrees other than
-1 or 2) raise likewise.
+raises NotImplementedError, so nothing is silently ignored.
 """
 from __future__ import annotations
 
@@ -46,22 +53,20 @@ from ..ops.core import LinearSE3, NormSE3
 from ..ops.fiber import Fiber
 from ..ops.neighbors import exclude_self_indices, remove_self, select_neighbors
 from ..ops.trunk import SequentialTrunk
-from ..utils.helpers import resolve_device
+from ..utils.helpers import cast_tuple, resolve_device
 
 # JAX SE3TransformerModule fields this port does not implement, with the
 # JAX defaults they must keep
 _JAX_ONLY_DEFAULTS = dict(
     num_positions=None, num_edge_tokens=None, edge_dim=None,
-    differentiable_coors=False, fourier_encode_dist=False,
-    rel_dist_num_fourier_features=4, attend_sparse_neighbors=False,
+    attend_sparse_neighbors=False,
     num_adj_degrees=None, adj_dim=0, max_sparse_neighbors=float('inf'),
-    dim_in=None, dim_out=None, num_conv_layers=0,
     causal=False,
     global_feats_dim=None, linear_proj_keys=False,
     one_headed_key_values=False, tie_key_values=False,
     rotary_position=False, rotary_rel_dist=False, norm_gated_scale=False,
     use_egnn=False, egnn_hidden_dim=32, egnn_weights_clamp_value=None,
-    egnn_feedforward=False, hidden_fiber_dict=None, out_fiber_dict=None,
+    egnn_feedforward=False,
     conv_backend='dense', flash_interpret=False,
     pallas=None, conv_bf16=False, pallas_interpret=False,
     pallas_attention_interpret=False,
@@ -110,8 +115,28 @@ def resolve_fused_attention(spec, depth: int) -> tuple:
 
 
 # degree-1 features are in the irrep order (y, z, x) of the real spherical
-# harmonics; the output is permuted back to Cartesian (x, y, z)
+# harmonics; a degree-1 input is permuted from Cartesian (x, y, z) on the
+# way in and the output back to Cartesian
+_CART_TO_IRREP = (1, 2, 0)
 _IRREP_TO_CART = (2, 0, 1)
+
+
+def _permute_degree1(features: dict, perm) -> dict:
+    """features with degree 1's last axis permuted (slices, not an index
+    list: that would be copied to the device)."""
+    if '1' not in features:
+        return features
+    t = features['1']
+    return {**features, '1': torch.stack([t[..., k] for k in perm], -1)}
+
+
+def _fiber_structure(value):
+    """A fiber dict field ({degree: channels} or (degree, channels) pairs)
+    as sorted pairs, as the JAX module normalizes it."""
+    if value is None:
+        return None
+    items = value.items() if hasattr(value, 'items') else value
+    return tuple(sorted((int(d), int(c)) for d, c in items))
 
 
 def _truncated_normal_(t: torch.Tensor, std: float,
@@ -144,7 +169,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 # flax nn.Embed: normal of variance 1 / features
                 p.copy_(torch.randn(p.shape, generator=generator)
                         * p.shape[1] ** -0.5)
-            elif leaf.startswith('w3_'):
+            elif leaf.startswith('w3_') or (
+                    leaf == 'w3' and re.fullmatch(r'pair_\d+_\d+', parent)):
                 _truncated_normal_(p, (1 / p.shape[0]) ** 0.5 / _TRUNC_STD,
                                    generator)
             elif re.fullmatch(r'w\d+', leaf):
@@ -152,20 +178,25 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                         * p.shape[0] ** -0.5)
             elif leaf == 'weight' or leaf.startswith('scale'):
                 p.fill_(1.)
-            elif leaf == 'bias' or leaf.startswith(('b3_', 'null_')):
+            elif leaf in ('bias', 'b3') or leaf.startswith(('b3_', 'null_')):
                 p.zero_()
             else:
                 raise ValueError(f'no initializer for parameter {name}')
 
 
 class SE3TransformerModule(nn.Module):
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 24,
+    def __init__(self, dim, heads: int = 8, dim_head: int = 24,
                  depth: int = 2, input_degrees: int = 1,
                  num_degrees: Optional[int] = None, output_degrees: int = 1,
                  valid_radius: float = 1e5, reversible: bool = False,
                  remat_policy: Optional[str] = None,
                  attend_self: bool = True,
-                 num_neighbors=float('inf'),
+                 differentiable_coors: bool = False,
+                 fourier_encode_dist: bool = False,
+                 rel_dist_num_fourier_features: int = 4,
+                 num_neighbors=float('inf'), dim_in=None,
+                 dim_out: Optional[int] = None, num_conv_layers: int = 0,
+                 hidden_fiber_dict=None, out_fiber_dict=None,
                  shared_radial_hidden: bool = False, fuse_basis: bool = False,
                  radial_bf16: bool = False, reduce_dim_out: bool = False,
                  edge_chunks: Optional[int] = None,
@@ -181,11 +212,18 @@ class SE3TransformerModule(nn.Module):
             raise ValueError(f"unknown attention_mode {attention_mode!r} "
                              f"(want 'knn' or 'global')")
         self.attention_mode = attention_mode
+        hidden_fiber_dict = _fiber_structure(hidden_fiber_dict)
+        out_fiber_dict = _fiber_structure(out_fiber_dict)
+        if num_degrees is None and hidden_fiber_dict is None:
+            raise ValueError('either num_degrees or hidden_fiber_dict must be '
+                             'specified')
         if attention_mode == 'global':
+            fields = dict(jax_fields, fourier_encode_dist=fourier_encode_dist,
+                          num_conv_layers=num_conv_layers)
             for key, allowed, why in _NOT_WITH_GLOBAL:
-                if jax_fields.get(key, allowed) != allowed:
+                if fields.get(key, allowed) != allowed:
                     raise ValueError(f"attention_mode='global' does not "
-                                     f"take {key}={jax_fields[key]!r}: {why}")
+                                     f"take {key}={fields[key]!r}: {why}")
             if resolve_fused_attention(fuse_pairwise, depth) != \
                     (False,) * depth:
                 raise ValueError("fuse_pairwise is subsumed by "
@@ -197,10 +235,6 @@ class SE3TransformerModule(nn.Module):
             if reversible and jax_fields.get('global_feats_dim') is not None:
                 raise ValueError('reversibility and global features are '
                                  'not compatible')
-            if num_degrees is not None and output_degrees > num_degrees:
-                raise ValueError('global mode projects out with a '
-                                 'LinearSE3, so every output degree must '
-                                 'exist in the hidden fiber')
         elif use_null_kv:
             raise NotImplementedError("use_null_kv is ported for "
                                       "attention_mode='global' only")
@@ -226,50 +260,67 @@ class SE3TransformerModule(nn.Module):
                                         edge_chunks < 1):
             raise ValueError(f'edge_chunks must be None or a positive int, '
                              f'got {edge_chunks!r}')
-        # the global convs are always grouped (JAX forces the shared trunk)
-        shared = shared_radial_hidden or attention_mode == 'global'
-        for ok, what in ((shared, 'shared_radial_hidden=False'),
-                         (attend_self, 'attend_self=False'),
-                         (input_degrees == 1, f'input_degrees={input_degrees}'),
-                         (output_degrees in (1, 2),
-                          f'output_degrees={output_degrees}'),
-                         (num_degrees is not None, 'num_degrees=None')):
-            if not ok:
-                raise NotImplementedError(f'{what} is not ported')
+
+        # the fibers, as the JAX _resolved builds them
+        if num_degrees is None:
+            num_degrees = max(d for d, _ in hidden_fiber_dict) + 1
+        dim_in = dim if dim_in is None else dim_in
+        fiber_in = Fiber.create(input_degrees,
+                                cast_tuple(dim_in, input_degrees))
+        fiber_hidden = Fiber(hidden_fiber_dict) if hidden_fiber_dict \
+            is not None else Fiber.create(num_degrees, dim)
+        if out_fiber_dict is not None:
+            fiber_out = Fiber(out_fiber_dict)
+            output_degrees = max(d for d, _ in out_fiber_dict) + 1
+        else:
+            fiber_out = Fiber.create(output_degrees,
+                                     dim if dim_out is None else dim_out)
+        if attention_mode == 'global' and \
+                not all(d in fiber_hidden for d, _ in fiber_out):
+            raise ValueError('global mode projects out with a LinearSE3, so '
+                             'every output degree must exist in the hidden '
+                             'fiber')
+        self.input_degrees = input_degrees
         self.num_degrees = num_degrees
         self.output_degrees = output_degrees
-        # always False: differentiable_coors=True is refused above
-        self.differentiable_coors = jax_fields.get('differentiable_coors',
-                                                   False)
+        self.fiber_in, self.fiber_hidden = fiber_in, fiber_hidden
+        self.differentiable_coors = differentiable_coors
         self.valid_radius = valid_radius
         self.num_neighbors = num_neighbors
+        self.num_conv_layers = num_conv_layers
         # reversible blocks imply the output norm (JAX _body)
         self.apply_norm_out = norm_out or reversible
         # the basis layout the convs take (the JAX module's choice on the
         # kernel path)
         self.basis_layout = 'pfq_flat' if fuse_basis else 'pqf'
 
-        fiber_in = Fiber.create(1, dim)
-        self.fiber_hidden = fiber_hidden = Fiber.create(num_degrees, dim)
-        fiber_out = Fiber.create(output_degrees, dim)
         if num_tokens is not None:
-            self.token_emb = nn.Embedding(num_tokens, dim)
-        conv_kwargs = dict(radial_bf16=radial_bf16, fuse_basis=fuse_basis,
-                           edge_chunks=edge_chunks)
+            self.token_emb = nn.Embedding(num_tokens, fiber_in[0])
+        conv_kwargs = dict(fourier_encode_dist=fourier_encode_dist,
+                           num_fourier_features=rel_dist_num_fourier_features,
+                           shared_radial_hidden=shared_radial_hidden,
+                           edge_chunks=edge_chunks, fuse_basis=fuse_basis,
+                           radial_bf16=radial_bf16)
         if attention_mode == 'global':
             self.lift_in = LinearSE3(fiber_in, fiber_hidden)
         else:
             self.conv_in = ConvSE3(fiber_in, fiber_hidden, **conv_kwargs)
-        self.trunk = SequentialTrunk(fiber_hidden, depth=depth, heads=heads,
-                                     dim_head=dim_head,
-                                     reversible=reversible,
-                                     remat_policy=remat_policy,
-                                     pallas_attention=pallas_attention,
-                                     fused_attention=self.fused_attention,
-                                     attention_mode=attention_mode,
-                                     global_materialize=global_materialize,
-                                     use_null_kv=use_null_kv,
-                                     **conv_kwargs)
+        for i in range(num_conv_layers):
+            self.add_module(f'preconv_norm{i}', NormSE3(fiber_hidden))
+            self.add_module(f'preconv{i}', ConvSE3(fiber_hidden, fiber_hidden,
+                                                   **conv_kwargs))
+        self.trunk = SequentialTrunk(
+            fiber_hidden, depth=depth, heads=heads, dim_head=dim_head,
+            attend_self=attend_self, use_null_kv=use_null_kv,
+            fourier_encode_dist=fourier_encode_dist,
+            rel_dist_num_fourier_features=rel_dist_num_fourier_features,
+            reversible=reversible, remat_policy=remat_policy,
+            pallas_attention=pallas_attention,
+            shared_radial_hidden=shared_radial_hidden,
+            edge_chunks=edge_chunks, fuse_basis=fuse_basis,
+            radial_bf16=radial_bf16, fused_attention=self.fused_attention,
+            attention_mode=attention_mode,
+            global_materialize=global_materialize)
         if attention_mode == 'global':
             self.lift_out = LinearSE3(fiber_hidden, fiber_out)
         else:
@@ -283,22 +334,33 @@ class SE3TransformerModule(nn.Module):
         init_parameters(self, generator)
         self.to(device)
 
-    def forward(self, feats: torch.Tensor, coors: torch.Tensor,
+    def forward(self, feats, coors: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 return_type: Optional[int] = None):
-        """feats [b, n, dim] (integer tokens [b, n] with num_tokens),
-        coors [b, n, 3], mask [b, n] bool -> the output of degree
-        `return_type`, or the dict of every output degree when it is None;
-        output_degrees == 1 forces return_type 0. Degree 0 is [b, n, dim]
-        ([b, n] with reduce_dim_out); degree 1 is [b, n, dim, 3] ([b, n,
-        3] with reduce_dim_out), in Cartesian order."""
+        """feats [b, n, dim] (integer tokens [b, n] with num_tokens), or a
+        dict of the input degrees {'0': [b, n, c0, 1], '1': [b, n, c1, 3],
+        ...} with degree 1 in Cartesian order; coors [b, n, 3], mask [b, n]
+        bool -> the output of degree `return_type`, or the dict of every
+        output degree when it is None; one output degree forces
+        return_type 0. Degree 0 is [b, n, c] ([b, n] with reduce_dim_out);
+        degree 1 is [b, n, c, 3] ([b, n, 3] with reduce_dim_out), in
+        Cartesian order."""
         if self.output_degrees == 1:
             return_type = 0
         if hasattr(self, 'token_emb'):
             feats = self.token_emb(feats)
+        if not isinstance(feats, dict):
+            feats = {'0': feats[..., None]}
+        feats = _permute_degree1(feats, _CART_TO_IRREP)
+        if feats['0'].shape[2] != self.fiber_in[0]:
+            raise ValueError(f"feature dim {feats['0'].shape[2]} != "
+                             f"configured {self.fiber_in[0]}")
+        if set(map(int, feats)) != set(range(self.input_degrees)):
+            raise ValueError(f'input must have degrees 0..'
+                             f'{self.input_degrees - 1}')
         if self.attention_mode == 'global':
             return self._global_forward(feats, coors, mask, return_type)
-        b, n = feats.shape[0], feats.shape[1]
+        b, n = feats['0'].shape[0], feats['0'].shape[1]
         num_neighbors = int(min(self.num_neighbors, n - 1))
         if num_neighbors <= 0:
             raise ValueError('must fetch at least 1 neighbor')
@@ -319,12 +381,16 @@ class SE3TransformerModule(nn.Module):
                           differentiable=self.differentiable_coors,
                           layout=self.basis_layout)
         if any(self.fused_attention):
-            basis['flash_sh'] = flash_sh_payload(hood.rel_pos,
-                                                 self.num_degrees - 1)
+            basis['flash_sh'] = flash_sh_payload(
+                hood.rel_pos, self.num_degrees - 1,
+                differentiable=self.differentiable_coors)
         edge_info = (hood.indices, hood.mask)
 
-        x = {'0': feats[..., None]}
-        x = self.conv_in(x, edge_info, hood.rel_dist, basis)
+        x = self.conv_in(feats, edge_info, hood.rel_dist, basis)
+        for i in range(self.num_conv_layers):
+            x = getattr(self, f'preconv_norm{i}')(x)
+            x = getattr(self, f'preconv{i}')(x, edge_info, hood.rel_dist,
+                                             basis)
         x = self.trunk(x, edge_info, hood.rel_dist, basis)
         x = self.conv_out(x, edge_info, hood.rel_dist, basis)
         return self._output(x, return_type)
@@ -333,15 +399,16 @@ class SE3TransformerModule(nn.Module):
         """attention_mode='global' (the JAX _global_forward): lift in, the
         global trunk with the coordinates (and the mask) as its only
         basis, lift out, then the output tail."""
-        b, n = feats.shape[0], feats.shape[1]
-        # coordinates take no gradient (differentiable_coors=False)
-        basis = {'global_coords': coors.detach()}
+        b, n = feats['0'].shape[0], feats['0'].shape[1]
+        basis = {'global_coords': coors if self.differentiable_coors
+                 else coors.detach()}
         if mask is not None:
             basis['global_mask'] = mask
-        x = dict(self.lift_in({'0': feats[..., None]}))
+        x = dict(self.lift_in(feats))
         for degree, c in self.fiber_hidden:
             if str(degree) not in x:
-                x[str(degree)] = feats.new_zeros(b, n, c, 2 * degree + 1)
+                x[str(degree)] = feats['0'].new_zeros(b, n, c,
+                                                      2 * degree + 1)
         x = self.trunk(x, (None, None), None, basis)
         return self._output(self.lift_out(x), return_type)
 
@@ -353,10 +420,9 @@ class SE3TransformerModule(nn.Module):
             x = self.norm_out(x)
         if self.linear_out is not None:
             x = {d: t[..., 0, :] for d, t in self.linear_out(x).items()}
-        if '1' in x:
-            # slices, not an index list: that would be copied to the device
-            x['1'] = torch.stack([x['1'][..., k] for k in _IRREP_TO_CART], -1)
-        x['0'] = x['0'][..., 0]
+        x = _permute_degree1(x, _IRREP_TO_CART)
+        if '0' in x:
+            x['0'] = x['0'][..., 0]
         if return_type is not None:
             return x[str(return_type)]
         return x

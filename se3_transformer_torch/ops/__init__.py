@@ -1,5 +1,5 @@
 from .attention import AttentionBlockSE3, AttentionSE3
-from .conv import ConvSE3
+from .conv import ConvSE3, PairwiseConvSE3
 from .core import (
     FeedForwardBlockSE3, FeedForwardSE3, LinearSE3, NormSE3, residual_se3,
 )

@@ -2,10 +2,14 @@
 se3_transformer_tpu/ops/attention.py's kNN paths and its kNN-free global
 mode (AttentionSE3 with kv_heads == heads, and AttentionBlockSE3).
 
-KV slot order along the neighbor axis is [self, neighbors]; the neighbor
-mask is left-padded with True over the self slot, and masked logits are
-filled with the finite float32 minimum. Three attention cores, one
-function:
+KV slot order along the neighbor axis is [self, neighbors], the self slot
+(the to_self_k / to_self_v projections) only with attend_self; the
+neighbor mask is left-padded with True over the self slot, and masked
+logits are filled with the finite float32 minimum. The layers' defaults
+are JAX's: attend_self=False and shared_radial_hidden=False (the kv convs'
+per-pair radial trunks; fuse_pairwise and the global mode take the shared
+one, as in JAX); fourier_encode_dist reaches the kv convs' edge features.
+Three attention cores, one function:
 
   * the einsums (the JAX default, pallas_attention None or False);
   * pallas_attention=True: kernels.attention.fused_attention per degree,
@@ -22,8 +26,8 @@ kernels.flash.flash_global_attention per degree, the kv convs in
 global_radial program mode, the pair payload rebuilt from the coordinates
 in basis['global_coords'] (columns masked by basis['global_mask']). The
 always-valid prefix slots are [null, self] with use_null_kv (the null_k{d}
-/ null_v{d} parameters, zeros at init), else [self]. Global features are
-not ported.
+/ null_v{d} parameters, zeros at init) and attend_self, each only with its
+field. Global features are not ported.
 """
 from __future__ import annotations
 
@@ -48,12 +52,15 @@ Features = Dict[str, torch.Tensor]
 
 class AttentionSE3(nn.Module):
     def __init__(self, fiber: Fiber, dim_head: int = 64, heads: int = 8,
-                 radial_bf16: bool = False, fuse_basis: bool = False,
-                 edge_chunks: Optional[int] = None,
+                 attend_self: bool = False, fourier_encode_dist: bool = False,
+                 rel_dist_num_fourier_features: int = 4,
+                 use_null_kv: bool = False,
                  pallas_attention: Optional[bool] = None,
-                 fuse_pairwise: bool = False, attention_mode: str = 'knn',
-                 global_materialize: bool = False,
-                 use_null_kv: bool = False):
+                 shared_radial_hidden: bool = False,
+                 edge_chunks: Optional[int] = None, fuse_basis: bool = False,
+                 radial_bf16: bool = False, fuse_pairwise: bool = False,
+                 attention_mode: str = 'knn',
+                 global_materialize: bool = False):
         super().__init__()
         if attention_mode not in ('knn', 'global'):
             raise ValueError(f"unknown attention_mode {attention_mode!r} "
@@ -67,20 +74,29 @@ class AttentionSE3(nn.Module):
         self.attention_mode = attention_mode
         self.global_materialize = global_materialize
         self.use_null_kv = use_null_kv
+        self.attend_self = attend_self
         hidden_fiber = fiber.to(dim_head * heads)
         self.to_q = LinearSE3(fiber, hidden_fiber)
         conv_kwargs = dict(pool=False, self_interaction=False,
                            radial_bf16=radial_bf16)
         if attention_mode == 'global':
-            conv_kwargs.update(global_radial=True)
+            conv_kwargs.update(global_radial=True, shared_radial_hidden=True)
         elif fuse_pairwise:
-            conv_kwargs.update(fuse_pairwise=True)
+            conv_kwargs.update(fuse_pairwise=True, shared_radial_hidden=True)
         else:
-            conv_kwargs.update(fuse_basis=fuse_basis, edge_chunks=edge_chunks)
+            conv_kwargs.update(fuse_basis=fuse_basis, edge_chunks=edge_chunks,
+                               shared_radial_hidden=shared_radial_hidden)
+        if attention_mode != 'global':
+            conv_kwargs.update(
+                fourier_encode_dist=fourier_encode_dist,
+                num_fourier_features=rel_dist_num_fourier_features)
+        elif fourier_encode_dist:
+            raise ValueError('global attention consumes raw distances only')
         self.to_v = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         self.to_k = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
-        self.to_self_k = LinearSE3(fiber, hidden_fiber)
-        self.to_self_v = LinearSE3(fiber, hidden_fiber)
+        if attend_self:
+            self.to_self_k = LinearSE3(fiber, hidden_fiber)
+            self.to_self_v = LinearSE3(fiber, hidden_fiber)
         if use_null_kv:
             for degree, _ in fiber:
                 for name in ('null_k', 'null_v'):
@@ -110,8 +126,7 @@ class AttentionSE3(nn.Module):
         queries = self.to_q(features)
         values = self.to_v(features, edge_info, rel_dist, basis)
         keys = self.to_k(features, edge_info, rel_dist, basis)
-        self_keys = self.to_self_k(features)
-        self_values = self.to_self_v(features)
+        self_keys, self_values = self._self_kv(features)
 
         outputs = {}
         for degree in features.keys():
@@ -123,11 +138,12 @@ class AttentionSE3(nn.Module):
             k, v = [t.reshape(b, n, t.shape[2], h, dh, m)
                     .permute(0, 3, 1, 2, 4, 5)
                     for t in (keys[degree], values[degree])]
-            s_k, s_v = [t.reshape(b, n, h, dh, m).permute(0, 2, 1, 3, 4)
-                        [:, :, :, None]
-                        for t in (self_keys[degree], self_values[degree])]
-            k = torch.cat((s_k, k), dim=3)
-            v = torch.cat((s_v, v), dim=3)
+            if self.attend_self:
+                s_k, s_v = [t.reshape(b, n, h, dh, m).permute(0, 2, 1, 3, 4)
+                            [:, :, :, None]
+                            for t in (self_keys[degree], self_values[degree])]
+                k = torch.cat((s_k, k), dim=3)
+                v = torch.cat((s_v, v), dim=3)
             J = k.shape[3]
             padded = None
             if neighbor_mask is not None:
@@ -159,19 +175,30 @@ class AttentionSE3(nn.Module):
                 b, n, h * dh, m)
         return outputs
 
-    def _prefix_slots(self, degree: str, self_keys: Features,
-                      self_values: Features):
+    def _self_kv(self, features: Features):
+        """The self slot's keys and values (None, None without
+        attend_self)."""
+        if not self.attend_self:
+            return None, None
+        return self.to_self_k(features), self.to_self_v(features)
+
+    def _prefix_slots(self, degree: str, b: int, n: int,
+                      self_keys: Optional[Features],
+                      self_values: Optional[Features]):
         """The always-valid kv slots left of the neighbor axis
         (pallas_flash's prefix_k/prefix_v [b, n, S0, kv_h * Dh]) in the
-        unfused concat order: [null, self] with use_null_kv, else [self]."""
-        b, n = self_keys[degree].shape[:2]
+        unfused concat order [null, self], each with its field; (None,
+        None) with neither."""
         pre_k, pre_v = [], []
         if self.use_null_kv:
             for name, dst in (('null_k', pre_k), ('null_v', pre_v)):
                 t = getattr(self, f'{name}{degree}')
                 dst.append(t.reshape(1, 1, 1, -1).expand(b, n, 1, -1))
-        for t, dst in ((self_keys, pre_k), (self_values, pre_v)):
-            dst.append(t[degree].reshape(b, n, 1, -1))
+        if self_keys is not None:
+            for t, dst in ((self_keys, pre_k), (self_values, pre_v)):
+                dst.append(t[degree].reshape(b, n, 1, -1))
+        if not pre_k:
+            return None, None
         return torch.cat(pre_k, dim=2), torch.cat(pre_v, dim=2)
 
     def _global_call(self, features, basis) -> Features:
@@ -186,16 +213,16 @@ class AttentionSE3(nn.Module):
         queries = self.to_q(features)
         v_prog = self.to_v(features, None, None, basis)
         k_prog = self.to_k(features, None, None, basis)
-        self_keys = self.to_self_k(features)
-        self_values = self.to_self_v(features)
+        self_keys, self_values = self._self_kv(features)
 
         outputs = {}
         for degree in features.keys():
             m = to_order(int(degree))
             Dh = self.dim_head * m
             b, n = features[degree].shape[:2]
-            prefix_k, prefix_v = self._prefix_slots(degree, self_keys,
+            prefix_k, prefix_v = self._prefix_slots(degree, b, n, self_keys,
                                                     self_values)
+            S0 = 0 if prefix_k is None else prefix_k.shape[2]
             args = (queries[degree].reshape(b, n, h, Dh),
                     tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
                     coords, v_prog['rp'], v_prog['w3'][degree],
@@ -207,7 +234,7 @@ class AttentionSE3(nn.Module):
                           node_mask=node_mask, prefix_k=prefix_k,
                           prefix_v=prefix_v, exclude_self=True)
             limit = kf.global_limit(v_prog['pairs'], int(degree), h, h,
-                                    self.dim_head, prefix_k.shape[2])
+                                    self.dim_head, S0)
             # materialize runs the plain stream as one chunk anyway
             if not self.global_materialize and routing.route(
                     kf.flash_global_attention_fwd, coords.device.type, limit,
@@ -229,16 +256,16 @@ class AttentionSE3(nn.Module):
         queries = self.to_q(features)
         v_prog = self.to_v(features, edge_info, rel_dist, basis)
         k_prog = self.to_k(features, edge_info, rel_dist, basis)
-        self_keys = self.to_self_k(features)
-        self_values = self.to_self_v(features)
+        self_keys, self_values = self._self_kv(features)
 
         outputs = {}
         for degree in features.keys():
             m = to_order(int(degree))
             Dh = self.dim_head * m
             b, n = features[degree].shape[:2]
-            prefix_k, prefix_v = self._prefix_slots(degree, self_keys,
+            prefix_k, prefix_v = self._prefix_slots(degree, b, n, self_keys,
                                                     self_values)
+            S0 = 0 if prefix_k is None else prefix_k.shape[2]
             h_v, K = v_prog['h'], neighbor_indices.shape[-1]
             args = (queries[degree].reshape(b, n, h, Dh),
                     tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
@@ -251,7 +278,7 @@ class AttentionSE3(nn.Module):
                           bk=k_prog['b3'][degree], sh=basis['flash_sh'],
                           prefix_k=prefix_k, prefix_v=prefix_v)
             limit = kf.flash_limit(v_prog['pairs'], int(degree), h, h,
-                                   self.dim_head, K, prefix_k.shape[2],
+                                   self.dim_head, K, S0,
                                    h_v.shape[-1], h_v.dtype)
             if routing.route(kf.flash_attention_fwd, h_v.device.type, limit,
                              (v_prog['pairs'], int(degree), h,
@@ -268,23 +295,27 @@ class AttentionBlockSE3(nn.Module):
     """Prenorm + attention + residual."""
 
     def __init__(self, fiber: Fiber, dim_head: int = 24, heads: int = 8,
-                 radial_bf16: bool = False, fuse_basis: bool = False,
-                 edge_chunks: Optional[int] = None,
+                 attend_self: bool = False, use_null_kv: bool = False,
+                 fourier_encode_dist: bool = False,
+                 rel_dist_num_fourier_features: int = 4,
                  pallas_attention: Optional[bool] = None,
-                 fuse_pairwise: bool = False, attention_mode: str = 'knn',
-                 global_materialize: bool = False,
-                 use_null_kv: bool = False):
+                 shared_radial_hidden: bool = False,
+                 edge_chunks: Optional[int] = None, fuse_basis: bool = False,
+                 radial_bf16: bool = False, fuse_pairwise: bool = False,
+                 attention_mode: str = 'knn',
+                 global_materialize: bool = False):
         super().__init__()
         self.prenorm = NormSE3(fiber)
-        self.attn = AttentionSE3(fiber, dim_head=dim_head, heads=heads,
-                                 radial_bf16=radial_bf16,
-                                 fuse_basis=fuse_basis,
-                                 edge_chunks=edge_chunks,
-                                 pallas_attention=pallas_attention,
-                                 fuse_pairwise=fuse_pairwise,
-                                 attention_mode=attention_mode,
-                                 global_materialize=global_materialize,
-                                 use_null_kv=use_null_kv)
+        self.attn = AttentionSE3(
+            fiber, dim_head=dim_head, heads=heads, attend_self=attend_self,
+            fourier_encode_dist=fourier_encode_dist,
+            rel_dist_num_fourier_features=rel_dist_num_fourier_features,
+            use_null_kv=use_null_kv, pallas_attention=pallas_attention,
+            shared_radial_hidden=shared_radial_hidden or fuse_pairwise,
+            edge_chunks=edge_chunks, fuse_basis=fuse_basis,
+            radial_bf16=radial_bf16, fuse_pairwise=fuse_pairwise,
+            attention_mode=attention_mode,
+            global_materialize=global_materialize)
 
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]

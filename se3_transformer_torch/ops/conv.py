@@ -1,9 +1,21 @@
 """Tensor-field-network convolution: the port of se3_transformer_tpu/ops/conv.py
-on its `shared_radial_hidden=True` branches.
+(its dense contraction backend).
 
-One radial trunk (Dense -> LayerNorm -> GELU, twice) is shared by every
-(d_in, d_out) pair of a ConvSE3, each pair with its own grouped parameters
-w3_{d_in}_{d_out} [mid, c_in*F, c_out] and b3_{d_in}_{d_out} [c_in*F, c_out].
+The radial trunk (Dense -> LayerNorm -> GELU, twice) reads the edge
+features: the distance, or with fourier_encode_dist its sin/cos features at
+num_fourier_features dyadic scales and the distance itself
+(utils.helpers.fourier_encode).
+
+shared_radial_hidden=False (the JAX default): each (d_in, d_out) pair is a
+PairwiseConvSE3 `pair_{d_in}_{d_out}` with its own trunk, w3 [mid, c_in*F,
+c_out] and b3 [c_in*F, c_out], and one contraction of its own:
+_radial_contract on V2 = basis . x (kernel #3), or with fuse_basis
+_radial_contract_bx (kernel #1 with the flat basis, #2 with the structured
+one).
+
+shared_radial_hidden=True: one trunk is shared by every pair of the
+ConvSE3, each pair with its own grouped parameters w3_{d_in}_{d_out} and
+b3_{d_in}_{d_out}:
 
   * fuse_basis=True: one basis-fused call per pair, contracting the basis
     with the gathered neighbor features inside the kernel:
@@ -28,10 +40,12 @@ w3_{d_in}_{d_out} [mid, c_in*F, c_out] and b3_{d_in}_{d_out} [c_in*F, c_out].
     of kernels.flash's global mode, which rebuilds distances, the trunk
     and the harmonics per tile from coordinates.
 
+Both program modes take the shared trunk only, as JAX asserts.
+
 edge_chunks streams the node axis through either contraction in that many
 chunks, zero-padding it to a multiple (_stream_node_chunks). Under
 autograd the backward runs the fused backward kernels; gradients reach w3
-through its cast to the radial dtype, b3, the shared radial trunk and the
+through its cast to the radial dtype, b3, the radial trunk and the
 gathered features.
 
 On a CUDA tensor each contraction launches its kernel, unless its widths
@@ -39,9 +53,9 @@ are past what the kernel is built for (kernels.pairwise.pairwise_limit):
 such a call runs the kernel's plain version under autograd instead, warns
 once per (kernel, widths) and counts in the wrapper's `.routed`
 (kernels.routing.route). The decision is made here, from the widths alone,
-before any launch; the backward of a call that launched decides for
-kernels A and B in the same way (kernels.pairwise._contract_bwd). The
-flagship recipes' widths never route.
+before any launch; the backward of a call that launched runs kernels A
+and B, which take every width the forwards take. The flagship recipes'
+widths never route.
 
 radial_bf16 runs the trunk and the radial operands (h, w3) in bfloat16; the
 bias and every accumulation stay float32, and LayerNorm statistics are
@@ -60,7 +74,9 @@ from ..kernels import routing
 from ..kernels.pairwise import (
     pairwise_contract, pairwise_contract_bx, pairwise_contract_bxf,
 )
-from ..utils.helpers import batched_index_select, masked_mean, to_order
+from ..utils.helpers import (
+    batched_index_select, fourier_encode, masked_mean, to_order,
+)
 from .core import LinearSE3, gelu, residual_se3
 from .fiber import Fiber
 
@@ -204,14 +220,74 @@ def _radial_contract_bx(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     return _stream_node_chunks(contract, (h, basis, x), edge_chunks)
 
 
+def add_radial_trunk(module: nn.Module, in_dim: int,
+                     mid: int = DEFAULT_MID_DIM) -> None:
+    """The radial trunk's layers on `module`, under the flax names."""
+    module.Dense_0 = nn.Linear(in_dim, mid)
+    module.LayerNorm_0 = nn.LayerNorm(mid, eps=1e-6)
+    module.Dense_1 = nn.Linear(mid, mid)
+    module.LayerNorm_1 = nn.LayerNorm(mid, eps=1e-6)
+
+
+def radial_hidden(module: nn.Module, x: torch.Tensor,
+                  dtype=None) -> torch.Tensor:
+    """Dense -> LayerNorm -> GELU, twice, in `dtype` (None: x's), with the
+    layers add_radial_trunk put on `module`."""
+    x = gelu(layer_norm(dense(x, module.Dense_0, dtype), module.LayerNorm_0))
+    return gelu(layer_norm(dense(x, module.Dense_1, dtype),
+                           module.LayerNorm_1))
+
+
+class PairwiseConvSE3(nn.Module):
+    """One (d_in -> d_out) pair with its own radial trunk, w3 and b3: the
+    port of JAX PairwiseConvSE3 (fused=True, the dense backend)."""
+
+    def __init__(self, degree_in: int, nc_in: int, degree_out: int,
+                 nc_out: int, edge_dim: int = 1, radial_bf16: bool = False,
+                 fuse_basis: bool = False,
+                 edge_chunks: Optional[int] = None):
+        super().__init__()
+        self.pqf = (to_order(degree_out), to_order(degree_in),
+                    to_order(min(degree_in, degree_out)))
+        self.radial_dtype = torch.bfloat16 if radial_bf16 else None
+        self.fuse_basis = fuse_basis
+        self.edge_chunks = edge_chunks
+        add_radial_trunk(self, edge_dim)
+        IF = nc_in * self.pqf[2]
+        self.w3 = nn.Parameter(torch.zeros(DEFAULT_MID_DIM, IF, nc_out))
+        self.b3 = nn.Parameter(torch.zeros(IF, nc_out))
+
+    def forward(self, edge_feats: torch.Tensor, basis: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+        """edge_feats [b, n, k, e]; the pair's basis [b, n, k, P*F*Q]
+        ('pfq_flat') or [b, n, k, P, Q, F] ('pqf'); x [b, n, k, c_in, Q]
+        -> [b, n, k, c_out, P]."""
+        P, Q, F = self.pqf
+        h = radial_hidden(self, edge_feats, self.radial_dtype)
+        if self.fuse_basis:
+            out = _radial_contract_bx(h, self.w3, self.b3, basis, x,
+                                      self.pqf, self.edge_chunks)
+        else:
+            if _basis_is_flat(basis, x):
+                basis = unflatten_basis(basis, P, Q, F)
+            v2 = torch.einsum('...pqf,...cq->...pcf', basis, x)
+            out = _radial_contract(h, self.w3, self.b3,
+                                   v2.reshape(*v2.shape[:-2], -1),
+                                   self.edge_chunks)
+        return out.transpose(-1, -2)
+
+
 class ConvSE3(nn.Module):
     """Graph TFN convolution over precomputed neighborhoods."""
 
     def __init__(self, fiber_in: Fiber, fiber_out: Fiber,
                  self_interaction: bool = True, pool: bool = True,
-                 radial_bf16: bool = False, fuse_basis: bool = False,
+                 fourier_encode_dist: bool = False,
+                 num_fourier_features: int = 4,
                  edge_chunks: Optional[int] = None,
-                 fuse_pairwise: bool = False, global_radial: bool = False):
+                 shared_radial_hidden: bool = False, fuse_basis: bool = False,
+                 radial_bf16: bool = False, fuse_pairwise: bool = False,
+                 global_radial: bool = False):
         super().__init__()
         if self_interaction and not pool:
             raise ValueError('must pool edges if followed with self '
@@ -219,21 +295,35 @@ class ConvSE3(nn.Module):
         if (fuse_pairwise or global_radial) and pool:
             raise ValueError('fuse_pairwise and global_radial serve the '
                              'attention kv path (pool=False)')
+        if (fuse_pairwise or global_radial) and not shared_radial_hidden:
+            raise ValueError('fuse_pairwise and global_radial require '
+                             'shared_radial_hidden=True (their kernels take '
+                             'the grouped w3/b3 layout)')
+        if global_radial and fourier_encode_dist:
+            raise ValueError('global_radial consumes raw distances only')
         self.fiber_in, self.fiber_out = fiber_in, fiber_out
         self.pool = pool
+        self.fourier_features = num_fourier_features \
+            if fourier_encode_dist else None
         self.radial_dtype = torch.bfloat16 if radial_bf16 else None
+        self.shared_radial_hidden = shared_radial_hidden
         self.fuse_basis = fuse_basis
         self.edge_chunks = edge_chunks
         self.fuse_pairwise = fuse_pairwise
         self.global_radial = global_radial
         mid = DEFAULT_MID_DIM
-        # the shared radial trunk, under the flax module's names
-        self.Dense_0 = nn.Linear(1, mid)
-        self.LayerNorm_0 = nn.LayerNorm(mid, eps=1e-6)
-        self.Dense_1 = nn.Linear(mid, mid)
-        self.LayerNorm_1 = nn.LayerNorm(mid, eps=1e-6)
+        edge_dim = 1 if not fourier_encode_dist \
+            else 2 * num_fourier_features + 1
+        if shared_radial_hidden:
+            add_radial_trunk(self, edge_dim, mid)
         for d_out, m_out in fiber_out:
             for d_in, m_in in fiber_in:
+                if not shared_radial_hidden:
+                    self.add_module(f'pair_{d_in}_{d_out}', PairwiseConvSE3(
+                        d_in, m_in, d_out, m_out, edge_dim=edge_dim,
+                        radial_bf16=radial_bf16, fuse_basis=fuse_basis,
+                        edge_chunks=edge_chunks))
+                    continue
                 F = to_order(min(d_in, d_out))
                 self.register_parameter(
                     f'w3_{d_in}_{d_out}',
@@ -244,11 +334,17 @@ class ConvSE3(nn.Module):
         self.self_interact = LinearSE3(fiber_in, fiber_out) \
             if self_interaction else None
 
+    def edge_features(self, rel_dist: torch.Tensor) -> torch.Tensor:
+        """The trunk's input: [b, n, k] distances -> [b, n, k, 1], or with
+        fourier_encode_dist [b, n, k, 2 * num_fourier_features + 1]."""
+        feats = rel_dist[..., None]
+        if self.fourier_features is not None:
+            feats = fourier_encode(feats, num_encodings=self.fourier_features)
+        return feats
+
     def radial_hidden(self, x: torch.Tensor) -> torch.Tensor:
-        """Dense -> LayerNorm -> GELU, twice, in the radial dtype."""
-        dt = self.radial_dtype
-        x = gelu(layer_norm(dense(x, self.Dense_0, dt), self.LayerNorm_0))
-        return gelu(layer_norm(dense(x, self.Dense_1, dt), self.LayerNorm_1))
+        """The shared trunk in the radial dtype."""
+        return radial_hidden(self, x, self.radial_dtype)
 
     def _grouped(self):
         """Per output degree, the pairs' w3 [mid, IF, c_out] and b3 [IF,
@@ -265,7 +361,7 @@ class ConvSE3(nn.Module):
         """The pairwise program of JAX ConvSE3(fuse_pairwise=True): the
         radial hidden [b, n, k, mid] and the grouped w3/b3."""
         w3s, b3s = self._grouped()
-        return dict(h=self.radial_hidden(rel_dist[..., None]),
+        return dict(h=self.radial_hidden(self.edge_features(rel_dist)),
                     pairs=tuple((d, c) for d, c in self.fiber_in),
                     arm='dense', w3=w3s, b3=b3s)
 
@@ -298,7 +394,21 @@ class ConvSE3(nn.Module):
         gathered = {str(d): batched_index_select(inp[str(d)],
                                                  neighbor_indices, dim=1)
                     for d, _ in self.fiber_in}       # [b, n, k, c_in, Q]
-        hidden = self.radial_hidden(rel_dist[..., None])   # [b, n, k, mid]
+        edge_feats = self.edge_features(rel_dist)
+        if not self.shared_radial_hidden:
+            outputs = {}
+            for d_out, _ in self.fiber_out:
+                acc = None
+                for d_in, _ in self.fiber_in:
+                    y = getattr(self, f'pair_{d_in}_{d_out}')(
+                        edge_feats, basis[f'{d_in},{d_out}'],
+                        gathered[str(d_in)])          # [b, n, k, c_out, P]
+                    acc = y if acc is None else acc + y
+                if self.pool:
+                    acc = masked_mean(acc, neighbor_mask, dim=2)
+                outputs[str(d_out)] = acc
+            return self._self_interact(inp, outputs)
+        hidden = self.radial_hidden(edge_feats)            # [b, n, k, mid]
 
         outputs = {}
         for d_out, m_out in self.fiber_out:
@@ -331,7 +441,9 @@ class ConvSE3(nn.Module):
             if self.pool:
                 acc = masked_mean(acc, neighbor_mask, dim=2)
             outputs[str(d_out)] = acc
+        return self._self_interact(inp, outputs)
 
-        if self.self_interact is not None:
-            outputs = residual_se3(outputs, self.self_interact(inp))
-        return outputs
+    def _self_interact(self, inp: Features, outputs: Features) -> Features:
+        if self.self_interact is None:
+            return outputs
+        return residual_se3(outputs, self.self_interact(inp))

@@ -13,8 +13,11 @@ kernels.flash.flash_attention) are recomputed, as JAX's policy saves
 neither. remat_policy=None replays everything. Neither changes the forward,
 and without autograd (serving) the blocks run as a plain loop.
 
-`pallas_attention` reaches every attention block; `fused_attention` holds
-one fuse_pairwise flag per block (the model resolves its rules).
+The attention fields (attend_self, use_null_kv, fourier_encode_dist,
+rel_dist_num_fourier_features, shared_radial_hidden, with the JAX
+defaults) and `pallas_attention` reach every attention block;
+`fused_attention` holds one fuse_pairwise flag per block (the model
+resolves its rules).
 attention_mode='global' makes every block the kNN-free global attention
 (with `global_materialize` and `use_null_kv`); its blocks get no
 rel_dist.
@@ -59,16 +62,18 @@ def _resolve_remat_policy(name: Optional[str]):
 
 class SequentialTrunk(nn.Module):
     def __init__(self, fiber: Fiber, depth: int, heads: int = 8,
-                 dim_head: int = 24, radial_bf16: bool = False,
+                 dim_head: int = 24, attend_self: bool = False,
+                 use_null_kv: bool = False, fourier_encode_dist: bool = False,
+                 rel_dist_num_fourier_features: int = 4,
                  reversible: bool = False,
                  remat_policy: Optional[str] = None,
-                 fuse_basis: bool = False,
-                 edge_chunks: Optional[int] = None,
                  pallas_attention: Optional[bool] = None,
+                 shared_radial_hidden: bool = False,
+                 edge_chunks: Optional[int] = None, fuse_basis: bool = False,
+                 radial_bf16: bool = False,
                  fused_attention: Optional[Sequence[bool]] = None,
                  attention_mode: str = 'knn',
-                 global_materialize: bool = False,
-                 use_null_kv: bool = False):
+                 global_materialize: bool = False):
         super().__init__()
         if remat_policy is not None and not reversible:
             raise ValueError(f'remat_policy={remat_policy!r} requires '
@@ -80,12 +85,16 @@ class SequentialTrunk(nn.Module):
         for i in range(depth):
             self.add_module(f'attn_block{i}', AttentionBlockSE3(
                 fiber, dim_head=dim_head, heads=heads,
-                radial_bf16=radial_bf16, fuse_basis=fuse_basis,
-                edge_chunks=edge_chunks, pallas_attention=pallas_attention,
+                attend_self=attend_self, use_null_kv=use_null_kv,
+                fourier_encode_dist=fourier_encode_dist,
+                rel_dist_num_fourier_features=rel_dist_num_fourier_features,
+                pallas_attention=pallas_attention,
+                shared_radial_hidden=shared_radial_hidden,
+                edge_chunks=edge_chunks, fuse_basis=fuse_basis,
+                radial_bf16=radial_bf16,
                 fuse_pairwise=bool(fused_attention and fused_attention[i]),
                 attention_mode=attention_mode,
-                global_materialize=global_materialize,
-                use_null_kv=use_null_kv))
+                global_materialize=global_materialize))
             self.add_module(f'ff_block{i}', FeedForwardBlockSE3(fiber))
 
     def _run(self, block: nn.Module, *args):

@@ -1,2 +1,2 @@
 from .denoise import DenoiseTrainer, denoise_loss, flagship_batch
-from .recipes import flagship, flagship_fast
+from .recipes import af2_refinement, flagship, flagship_fast

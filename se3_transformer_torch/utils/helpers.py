@@ -1,5 +1,5 @@
 """Generic tensor helpers: the port of se3_transformer_tpu/utils/helpers.py
-restricted to what the serving forward uses."""
+restricted to what the model uses."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +8,29 @@ import torch
 def to_order(degree: int) -> int:
     """Dimension of the degree-l irrep of SO(3): 2l + 1."""
     return 2 * degree + 1
+
+
+def cast_tuple(val, depth: int) -> tuple:
+    """val itself when it is a tuple, else val repeated `depth` times."""
+    return val if isinstance(val, tuple) else (val,) * depth
+
+
+def fourier_encode(x: torch.Tensor, num_encodings: int = 4,
+                   include_self: bool = True,
+                   flatten: bool = True) -> torch.Tensor:
+    """Sin/cos features of x at the dyadic scales 2**0 .. 2**(E-1), then x
+    itself: [..., d] -> [..., d, 2E (+1)], flattened over the trailing
+    axes after the first three as the JAX function does."""
+    x = x[..., None]
+    orig_x = x
+    scales = 2 ** torch.arange(num_encodings, dtype=x.dtype, device=x.device)
+    x = x / scales
+    x = torch.cat([torch.sin(x), torch.cos(x)], dim=-1)
+    if include_self:
+        x = torch.cat((x, orig_x), dim=-1)
+    if flatten:
+        x = x.reshape(*x.shape[:3], -1)
+    return x
 
 
 def resolve_device(device) -> torch.device:

@@ -115,19 +115,20 @@ def test_cuda_kernel_matches_plain(cuda_card, di, do, e, c, dtype):
     assert torch.equal(out, kp.fused_pairwise_conv_bxf(*args))
 
 
-def _bwd_args(di=1, do=2, e=96, c=5, dtype=torch.bfloat16, seed=4):
-    """Backward operands at the kernels' widths (mid 128, O 64)."""
+def _bwd_args(di=1, do=2, e=96, c=5, dtype=torch.bfloat16, seed=4,
+              o=kp.O_TILE):
+    """Backward operands at the kernels' widths (mid 128, O 64 unless
+    given)."""
     rng = np.random.RandomState(seed)
     P, F = 2 * do + 1, 2 * min(di, do) + 1
     IF = c * F
     h = torch.from_numpy(rng.normal(size=(e, kp.MID)).astype(np.float32))
-    w3 = torch.from_numpy((rng.normal(size=(kp.MID, IF, kp.O_TILE))
+    w3 = torch.from_numpy((rng.normal(size=(kp.MID, IF, o))
                            / np.sqrt(kp.MID)).astype(np.float32))
     return [h.to(dtype), w3.to(dtype),
             torch.from_numpy(rng.normal(size=(e, P, IF)).astype(np.float32)),
-            torch.from_numpy(rng.normal(size=(e, P, kp.O_TILE))
-                             .astype(np.float32)),
-            torch.from_numpy(0.1 * rng.normal(size=(IF, kp.O_TILE))
+            torch.from_numpy(rng.normal(size=(e, P, o)).astype(np.float32)),
+            torch.from_numpy(0.1 * rng.normal(size=(IF, o))
                              .astype(np.float32))]
 
 
@@ -147,7 +148,7 @@ def test_cpu_backward_never_counts_a_launch():
     'b3_shape', 'noncontig_g'])
 def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(bad):
     args = _bwd_args()
-    assert kp._check_bwd(*args) == (96, 15, 5)
+    assert kp._check_bwd(*args) == (96, 15, kp.O_TILE, 5)
     if bad == 'h_dtype':
         args[0] = args[0].half()
     elif bad == 'mixed_hw3':
@@ -223,6 +224,32 @@ def test_cuda_backward_a_even_if_matches_plain(cuda_card, di, do, e, dtype):
     refs = kp.fused_pairwise_conv_bwd_a_plain(*args)
     for name, out, ref in zip(('dw3', 'dv2', 'db3'), outs, refs):
         assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('di,do,e,c,o', [
+    (0, 0, 77, 32, 192), (1, 1, 1000, 32, 192), (0, 1, 300, 5, 128),
+    (3, 3, 130, 4, 192)])
+def test_cuda_backward_kernels_take_o_tiles(cuda_card, di, do, e, c, o, dtype):
+    """Kernels A and B at O = 128 and 192 (two and three 64-wide O tiles,
+    one CTA each, their partials reduced in tile order): within 1e-4 of
+    the plain versions, and the same bits on a second run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() for a in _bwd_args(di, do, e, c=c, dtype=dtype, o=o)]
+    shape = kp._check_bwd(*args)
+    outs = (kp._launch_bwd_b(*args[1:4], *shape),
+            *kp._launch_bwd_a(*args, *shape))
+    again = (kp._launch_bwd_b(*args[1:4], *shape),
+             *kp._launch_bwd_a(*args, *shape))
+    torch.cuda.synchronize()
+    refs = (kp.fused_pairwise_conv_bwd_b_plain(*args[1:4]),
+            *kp.fused_pairwise_conv_bwd_a_plain(*args))
+    for name, out, ref, out2 in zip(('dh', 'dw3', 'dv2', 'db3'), outs, refs,
+                                    again):
+        assert out.shape == ref.shape, name
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+        assert torch.equal(out, out2), name
 
 
 @pytest.mark.cuda
@@ -851,10 +878,10 @@ def test_pairwise_fits_at_each_limit(kernel, widths, fits):
 
 
 @pytest.mark.parametrize('kernel,fits', [('bxf', True), ('bx', True),
-                                         ('fwd', True), ('bwd', False)])
+                                         ('fwd', True), ('bwd', True)])
 def test_pairwise_fits_wider_o_in_the_forwards_only(kernel, fits):
-    """O = 128 is two O tiles of the forwards; kernels A and B are built
-    for O = 64 alone."""
+    """O = 128 is two O tiles of the forwards and, now that they take any
+    multiple of 64, of kernels A and B too."""
     assert (kp.pairwise_limit(kernel, 128, 128, 3, 3, F32) is None) is fits
 
 
@@ -965,24 +992,14 @@ def test_route_counts_and_warns_once_per_shape(monkeypatch):
                         'the plain path')
 
 
-def _force_cuda_route(monkeypatch):
-    """Take every route decision as for a CUDA tensor, so that the CPU
-    runs the routed branch; fresh warnings and counts."""
-    real = routing.route
-    monkeypatch.setattr(routing, 'route', lambda wrapper, device_type, limit,
-                        shape: real(wrapper, 'cuda', limit, shape))
-    monkeypatch.setattr(routing, '_WARNED', set())
-    monkeypatch.setattr(kp.fused_pairwise_conv_bwd, 'routed', 0)
-
-
 @pytest.mark.parametrize('op', ['fwd', 'bxf', 'bx'])
-@pytest.mark.parametrize('O,routed', [(64, 0), (128, 1)])
-def test_contract_backward_routes_past_kernels_a_and_b(monkeypatch, op, O,
-                                                       routed):
-    """The ops' backward decides for kernels A and B (O = 64 only) by the
-    widths, as on a card: O = 128, which the forwards take, runs the plain
-    backward, counted once in fused_pairwise_conv_bwd.routed; either way
-    the gradients are the plain version's under autograd."""
+@pytest.mark.parametrize('O', [32, 64, 128, 192])
+def test_contract_backward_runs_the_fused_backward(monkeypatch, op, O):
+    """Each op's backward calls fused_pairwise_conv_bwd (kernels A and B
+    on a card; here its plain version) once, at any O, with no route
+    decision of its own (a call past the kernels' limits was routed by its
+    layer before the forward); its gradients are the plain forward's
+    under autograd."""
     di, do, e = 1, 2, 40
     a = _operands(di, do, seed=5, e=e, mid=kp.MID, c=3, o=O)
     P, Q, F = a['pqf']
@@ -1016,10 +1033,13 @@ def test_contract_backward_routes_past_kernels_a_and_b(monkeypatch, op, O,
         bx=lambda h, w3, b3, bb, x: kp.fused_pairwise_conv_bx_plain(
             h, w3, bb, x, b3))[op]
     ref = run(plain)
-    _force_cuda_route(monkeypatch)
+    calls = []
+    real = kp.fused_pairwise_conv_bwd_plain
+    monkeypatch.setattr(kp, 'fused_pairwise_conv_bwd_plain',
+                        lambda *args: calls.append(1) or real(*args))
     got = run(dict(fwd=kp.pairwise_contract, bxf=kp.pairwise_contract_bxf,
                    bx=kp.pairwise_contract_bx)[op])
-    assert kp.fused_pairwise_conv_bwd.routed == routed
+    assert len(calls) == 1
     for g, r in zip(got, ref):
         assert (g - r).abs().max() <= 1e-5 * r.abs().max()
 
@@ -1028,10 +1048,11 @@ def test_contract_backward_routes_past_kernels_a_and_b(monkeypatch, op, O,
 @pytest.mark.parametrize('fuse_basis', [True, False])
 def test_cuda_wide_conv_launches_forward_and_routes_backward(cuda_card,
                                                              fuse_basis):
-    """A ConvSE3 of 128 channels (O = 128: two O tiles of #1 and #3, past
+    """A ConvSE3 of 128 channels (O = 128: two O tiles of #1 and #3, and of
     kernels A and B) on the card: without grad it launches its forward
     kernel and routes nothing; with grad the forward still launches and
-    the backward routes to the plain backward, within 1e-4 of the CPU."""
+    the backward launches kernels A and B, routing nothing, within 1e-4 of
+    the CPU."""
     from se3_transformer_torch import ConvSE3, Fiber, get_basis
     from se3_transformer_torch.models.se3_transformer import init_parameters
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1044,7 +1065,8 @@ def test_cuda_wide_conv_launches_forward_and_routes_backward(cuda_card,
     idx = torch.randint(0, n, (1, n, k), generator=gen)
     mask = torch.ones(1, n, k, dtype=torch.bool)
     rel = torch.randn(1, n, k, 3, generator=gen) * 3.0
-    conv = ConvSE3(fiber, fiber, fuse_basis=fuse_basis)
+    conv = ConvSE3(fiber, fiber, fuse_basis=fuse_basis,
+                   shared_radial_hidden=True)
     init_parameters(conv, torch.Generator().manual_seed(0))
     results = {}
     for device in ('cpu', 'cuda'):
@@ -1054,21 +1076,91 @@ def test_cuda_wide_conv_launches_forward_and_routes_backward(cuda_card,
         basis = get_basis(r, 1, layout='pfq_flat' if fuse_basis else 'pqf')
         args = (xs, (idx.to(device), mask.to(device)), r.norm(dim=-1), basis)
         launches, fwd_routes = fwd.launches, fwd.routed
-        routes = kp.fused_pairwise_conv_bwd.routed
+        bwd_launches = kp.fused_pairwise_conv_bwd.launches_a
         with torch.no_grad():
             c(*args)
         torch.cuda.synchronize()
         if device == 'cuda':
             assert fwd.launches > launches
             assert fwd.routed == fwd_routes
-            assert kp.fused_pairwise_conv_bwd.routed == routes
         out = c(*args)
         loss = sum((o ** 2).sum() for o in out.values())
         grads = torch.autograd.grad(loss, [xs['0'], xs['1']]
                                     + list(c.parameters()))
         if device == 'cuda':
-            assert kp.fused_pairwise_conv_bwd.routed > routes
+            torch.cuda.synchronize()
+            assert fwd.routed == fwd_routes
+            assert kp.fused_pairwise_conv_bwd.launches_a > bwd_launches
         results[device] = [o.detach().cpu() for o in out.values()] + \
             [g.cpu() for g in grads]
     for got, ref in zip(results['cuda'], results['cpu']):
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+# the five configurations of tests/test_equivariance.py that the JAX
+# default surface makes buildable: name -> (model fields, batch, input
+# dims per degree, return type), as the reference tests build them
+EQUIVARIANCE_CONFIGS = {
+    'test_transformer': (dict(dim=64, depth=1, num_degrees=2,
+                              num_neighbors=4, valid_radius=10), 1, (64,), 0),
+    'test_different_input_dimensions_for_types': (
+        dict(dim_in=(4, 2), dim=4, depth=1, input_degrees=2, num_degrees=2,
+             output_degrees=2, reduce_dim_out=True), 2, (4, 2), 1),
+    'test_equivariance': (dict(dim=64, depth=1, attend_self=True,
+                               num_neighbors=4, num_degrees=2,
+                               output_degrees=2, fourier_encode_dist=True),
+                          1, (64,), 1),
+    'test_equivariance_with_reversible_network': (
+        dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
+             num_degrees=2, output_degrees=2, reversible=True), 1, (64,), 1),
+    'test_equivariance_with_type_one_input': (
+        dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
+             num_degrees=2, input_degrees=2, output_degrees=2), 1, (64, 64),
+        1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(EQUIVARIANCE_CONFIGS))
+def test_cuda_equivariance_configs_match_cpu(cuda_card, case):
+    """Each configuration built on the card (its kv convs' O = 192 on #3
+    and, under grad, kernels A and B; O not a multiple of 64 routed): the
+    output within 1e-4 of the same weights on the CPU, and equivariant on
+    the card within the reference's 1e-4."""
+    from se3_transformer_torch import SE3TransformerModule
+    from se3_transformer_torch.so3 import rot
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fields, b, dims, return_type = EQUIVARIANCE_CONFIGS[case]
+    rng = np.random.RandomState(0)
+    n = 32
+    if len(dims) == 1:
+        feats = rng.normal(size=(b, n, dims[0])).astype(np.float32)
+    else:
+        feats = {str(d): rng.normal(size=(b, n, c, 2 * d + 1))
+                 .astype(np.float32) for d, c in enumerate(dims)}
+    coors = rng.normal(size=(b, n, 3)).astype(np.float32)
+    R = rot(15, 0, 45)
+
+    def rotate(x):
+        return (np.asarray(x, np.float64) @ R).astype(np.float32)
+
+    def run(model, device, f, c):
+        f = {k: torch.from_numpy(v).to(device) for k, v in f.items()} \
+            if isinstance(f, dict) else torch.from_numpy(f).to(device)
+        with torch.no_grad():
+            return model(f, torch.from_numpy(c).to(device),
+                         torch.ones(b, n, dtype=torch.bool, device=device),
+                         return_type=return_type).cpu().numpy()
+    outs = {}
+    for device in ('cpu', 'cuda'):
+        model = SE3TransformerModule(
+            **fields, device=device,
+            generator=torch.Generator().manual_seed(0))
+        outs[device] = run(model, device, feats, coors)
+    assert np.abs(outs['cuda'] - outs['cpu']).max() <= \
+        1e-4 * np.abs(outs['cpu']).max()
+    feats_r = {k: (rotate(v) if k == '1' else v) for k, v in feats.items()} \
+        if isinstance(feats, dict) else feats
+    out_r = run(model, 'cuda', feats_r, rotate(coors))
+    expected = rotate(outs['cuda']) if return_type else outs['cuda']
+    assert np.abs(out_r - expected).max() < 1e-4

@@ -96,7 +96,8 @@ def test_conv_matches_jax(deg_in, deg_out, pool):
     jmod = JConv(JFiber.create(deg_in, 3), JFiber.create(deg_out, 5),
                  shared_radial_hidden=True, fuse_basis=True, **kw)
     ref, out = run_both(jmod, ConvSE3, dict(fiber_in=fin, fiber_out=fout,
-                                            fuse_basis=True, **kw),
+                                            fuse_basis=True,
+                                            shared_radial_hidden=True, **kw),
                         fin, max(deg_in, deg_out) - 1, seed=deg_in + deg_out)
     assert set(out) == set(ref)
     scale = max(np.abs(v).max() for v in ref.values())
@@ -112,6 +113,7 @@ def test_attention_block_matches_jax():
                       fuse_basis=True)
     ref, out = run_both(jmod, AttentionBlockSE3,
                         dict(fiber=fiber, dim_head=4, heads=2,
+                             attend_self=True, shared_radial_hidden=True,
                              fuse_basis=True), fiber, 3, seed=5)
     scale = max(np.abs(v).max() for v in ref.values())
     for d in ref:
@@ -125,7 +127,7 @@ def test_conv_is_equivariant():
     package's equivariance bound)."""
     torch.manual_seed(0)
     fiber = Fiber.create(4, 3)
-    conv = ConvSE3(fiber, fiber, fuse_basis=True)
+    conv = ConvSE3(fiber, fiber, fuse_basis=True, shared_radial_hidden=True)
     with torch.no_grad():
         for p in conv.parameters():
             p.copy_(torch.randn(p.shape) * 0.3)
@@ -164,7 +166,8 @@ def test_grouped_conv_matches_jax(deg_in, deg_out, pool, edge_chunks):
     jmod = JConv(JFiber.create(deg_in, 3), JFiber.create(deg_out, 5),
                  shared_radial_hidden=True, fuse_basis=False, **kw)
     ref, out = run_both(jmod, ConvSE3, dict(fiber_in=fin, fiber_out=fout,
-                                            fuse_basis=False, **kw),
+                                            fuse_basis=False,
+                                            shared_radial_hidden=True, **kw),
                         fin, max(deg_in, deg_out) - 1, seed=deg_in + deg_out,
                         layout='pqf')
     assert set(out) == set(ref)
@@ -184,6 +187,7 @@ def test_grouped_attention_block_matches_jax(edge_chunks):
                       fuse_basis=False, edge_chunks=edge_chunks)
     ref, out = run_both(jmod, AttentionBlockSE3,
                         dict(fiber=fiber, dim_head=4, heads=2,
+                             attend_self=True, shared_radial_hidden=True,
                              edge_chunks=edge_chunks), fiber, 3, seed=6)
     scale = max(np.abs(v).max() for v in ref.values())
     for d in ref:
@@ -211,7 +215,7 @@ def test_fused_branch_refuses_the_structured_basis():
     basis's output."""
     fiber = Fiber.create(2, 3)
     feats, idx, mask, rel_pos = graph_inputs(fiber, seed=1)
-    conv = ConvSE3(fiber, fiber, fuse_basis=True)
+    conv = ConvSE3(fiber, fiber, fuse_basis=True, shared_radial_hidden=True)
     with torch.no_grad():
         for i, p in enumerate(conv.parameters()):
             p.copy_(torch.from_numpy(np.random.RandomState(i).normal(
@@ -237,7 +241,7 @@ def test_edge_chunks_leave_the_conv_and_its_gradients_unchanged(fuse_basis):
     results = []
     for chunks in (None, 4):
         conv = ConvSE3(fiber, fiber, fuse_basis=fuse_basis,
-                       edge_chunks=chunks)
+                       edge_chunks=chunks, shared_radial_hidden=True)
         with torch.no_grad():
             for i, p in enumerate(conv.parameters()):
                 p.copy_(torch.from_numpy(np.random.RandomState(i).normal(
@@ -266,9 +270,10 @@ def test_conv_route_decision_is_a_function_of_widths(monkeypatch,
                                                      device_type):
     """On 'cuda' the flagship widths (mid 128, O 64, degrees <= 3, either
     dtype) take the kernels and the DenoiseConfig widths (O 8 or 16) route;
-    O = 128 takes the forward kernels and routes only the backward (kernels
-    A and B are built for O = 64). Any other device never routes (its
-    tensors take the plain versions)."""
+    O = 128 and 192 take every forward kernel. Any other device never
+    routes (its tensors take the plain versions). Kernels A and B take
+    exactly the widths the forwards take, so the backward of a call that
+    launched never needs a decision of its own."""
     monkeypatch.setattr(routing, '_WARNED', set())
     on_card = device_type == 'cuda'
 
@@ -277,17 +282,20 @@ def test_conv_route_decision_is_a_function_of_widths(monkeypatch,
                              kp.pairwise_limit(kernel, *widths), widths)
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
-        for kernel in ('bxf', 'bx', 'fwd', 'bwd'):
+        for kernel in ('bxf', 'bx', 'fwd'):
             for P in (1, 3, 5, 7):
                 for dtype in (F32, BF16):
                     assert not routes(kernel, 128, 64, P, 7, dtype)
-            for O in (8, 16):
+                    assert kp.pairwise_limit('bwd', 128, 64, P, 7,
+                                             dtype) is None
+            for O in (8, 16, 32):
                 assert routes(kernel, 128, O, 3, 3) is on_card
-                assert kp.pairwise_limit(kernel, 128, O, 3, 3) == (
-                    f'O = {O} exceeds the built O = 64' if kernel == 'bwd'
-                    else f'O = {O} exceeds the built O: a multiple of 64')
-            assert routes(kernel, 128, 128, 3, 3) is (on_card
-                                                      and kernel == 'bwd')
+                for k in (kernel, 'bwd'):
+                    assert kp.pairwise_limit(k, 128, O, 3, 3) == \
+                        f'O = {O} exceeds the built O: a multiple of 64'
+            for O in (128, 192):
+                assert not routes(kernel, 128, O, 3, 3)
+                assert kp.pairwise_limit('bwd', 128, O, 3, 3) is None
 
 
 def _kernel_widths(model):
@@ -336,7 +344,7 @@ def _on_a_card(monkeypatch):
 
 
 ROUTED = dict(bxf=kp.fused_pairwise_conv_bxf, bx=kp.fused_pairwise_conv_bx,
-              fwd=kp.fused_pairwise_conv, bwd=kp.fused_pairwise_conv_bwd,
+              fwd=kp.fused_pairwise_conv,
               attn=ka.fused_attention_fwd,
               flash=kf.flash_attention_fwd,
               glob=kf.flash_global_attention_fwd)
@@ -361,10 +369,9 @@ DENOISE = dict(dim=8, heads=2, dim_head=8, depth=1, num_degrees=2,
     (dict(fuse_basis=True), dict(bxf=12)),
     (dict(fuse_basis=False, edge_chunks=2), dict(fwd=(2 + 2 * 2 + 1) * 2)),
     # D = 64 * 5 = 320 features at degree 2 exceed #5's 256; degrees 0 and
-    # 1 fit it; the kv convs' O = 128 takes #1 but exceeds kernels A and B,
-    # so their 2 x 9 pairs route in the backward alone
+    # 1 fit it; the kv convs' O = 128 takes #1 and kernels A and B
     (dict(fuse_basis=True, num_degrees=3, dim_head=64,
-          pallas_attention=True), dict(bxf=3 + 3, attn=1, bwd=2 * 9)),
+          pallas_attention=True), dict(bxf=3 + 3, attn=1)),
     (dict(fuse_basis=True, fuse_pairwise=True), dict(bxf=4, flash=2)),
     (dict(num_tokens=5, attention_mode='global', use_null_kv=True,
           dim_head=16), dict(glob=2))])
@@ -413,7 +420,8 @@ def test_routed_conv_runs_the_plain_body(monkeypatch, fuse_basis, layout,
     results = []
     for routed in (False, True):
         torch.manual_seed(0)
-        conv = ConvSE3(fiber, fiber, fuse_basis=fuse_basis)
+        conv = ConvSE3(fiber, fiber, fuse_basis=fuse_basis,
+                       shared_radial_hidden=True)
         with torch.no_grad():
             for p in conv.parameters():
                 p.normal_(0, 0.3)

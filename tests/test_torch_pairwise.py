@@ -530,7 +530,7 @@ def test_conv_takes_the_structured_basis_as_jax_does(deg_in, deg_out, pool):
         .astype(np.float32), shapes)
     ref = jmod.apply({'params': params}, *j_args)
     conv = ConvSE3(fin, fout, fuse_basis=True, pool=pool,
-                   self_interaction=pool)
+                   self_interaction=pool, shared_radial_hidden=True)
     conv.load_state_dict(convert_flax_params(params, conv))
     with torch.no_grad():
         out = conv({d: torch.from_numpy(v) for d, v in feats.items()},

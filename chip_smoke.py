@@ -22,7 +22,11 @@ failure:
               and af2_refinement's (O = 192: three O tiles, each O-tile
               design held and timed), time each (and the autograd backward
               of the same einsum, timed only), and require dW3/dB3 to be
-              bit-identical across two runs.
+              bit-identical across two runs. molecular: #3, A and B at
+              molecular_edges' kv-conv pairs (C 32, O 192, float32) at
+              E = 768 (n 128, K 6) and 762 (a ragged last edge tile),
+              held and timed; the plain version's time at the four
+              routed O = 32 contractions of its forward.
   5. attention  the fused attention kernels (#5 forward, #6 backward)
               against their plain versions at the flagship's four per-degree
               shapes (B*h 8, n 1024, J 33, D 8..56, masked), the backward's
@@ -58,6 +62,13 @@ failure:
               a radial trunk per pair) on requests of 32 features: 16 fwd
               and exactly 6 routed (conv_in's and conv_out's O = 32 pairs)
               per request, equivariance of its vector output.
+              molecular_edges (dim 32, depth 2, edge tokens, the 2-hop
+              chain adjacency, bonded neighbors only, K 6) called with
+              adj_mat and edges at n = 128: three forwards (all atoms;
+              the last 28 masked; rotated in float64 on the host), 16
+              launches of #3 and exactly 4 routed (conv_in's and
+              conv_out's O = 32 pairs) each, invariance of its scalar
+              output, a profiled forward.
   7. train    the denoise training step (the vector head: output_degrees=2,
               reduce_dim_out=True) at n=1024 with Adam, for flagship_fast,
               flagship_fast(pallas_attention=True) and flagship: finite
@@ -68,7 +79,9 @@ failure:
               checkpoint replay recomputes them) and 24 backwards;
               flagship, no policy: 816 forward, 424 + 424 backward, 432
               forward under save_conv_outputs; af2_refinement: 16 fwd, 16 +
-              16 backward, exactly 6 routed), step time, nodes*steps/s, peak
+              16 backward, exactly 6 routed; molecular_edges:
+              property_loss on its pooled scalar head, 16 fwd, 16 + 16
+              backward, exactly 4 routed), step time, nodes*steps/s, peak
               memory and a profile.
   route       C1's repair: models past the kernels' limits (the JAX
               DenoiseConfig widths, dim 8, heads 2, dim_head 8, two
@@ -80,9 +93,11 @@ failure:
               128 channels (O = 128, two O tiles): without grad it launches
               #1 / #3, with grad kernels A and B too, routing nothing; card
               vs CPU. Every main path above and below shows .routed == 0
-              but af2_refinement's, which routes exactly its O = 32 pairs.
+              but af2_refinement's and molecular_edges', which route
+              exactly their O = 32 pairs.
   8. reference  small models of both flagship recipes, both attention knobs
-              and af2_refinement's fields on the card (kernel path) against
+              and af2_refinement's fields, and molecular_edges at depth 1
+              (n 40, 6 atoms masked), on the card (kernel path) against
               the same weights on the CPU
               (plain path): the forward, and one training step's loss and
               every gradient (the fuse_pairwise step runs the streaming
@@ -182,6 +197,21 @@ NO_ROUTES = (0,) * len(ROUTE_NAMES)
 AF2_DIM, AF2_O, AF2_E = 32, 8 * 24, 1024 * 12
 AF2_LAUNCHES = 2 * 2 * 4
 AF2_ROUTED = 2 + 4
+# molecular_edges (edge tokens, the 2-hop chain adjacency, bonded
+# neighbors only) at its full width and depth: dim 32, depth 2, degrees 0
+# and 1, 8 heads of 24, at n = 128 atoms. num_neighbors = 0 and at most 6
+# bonded a row make K = 6 slots (2 to 4 of them bonded, the rest invalid),
+# E = 128 * 6. A forward launches #3 once per pair of every kv conv (2
+# blocks x to_k, to_v x 4 pairs, O = 192); conv_in's two pairs and
+# conv_out's two (the scalar head) have O = 32 and route. A training step
+# (property_loss on the pooled scalar head, which every kv pair reaches)
+# runs kernels A and B once per launched pair.
+MOL_N, MOL_DIM, MOL_K = 128, 32, 6
+MOL_E = MOL_N * MOL_K
+MOL_LAUNCHES = 2 * 2 * 4
+MOL_ROUTED = 2 + 2
+# atoms masked in the second served request
+MOL_MASKED = 28
 
 # published dense peaks by card (NVIDIA data sheets): bf16 tensor core,
 # float32 CUDA core (FLOP/s), device memory bandwidth (bytes/s)
@@ -452,57 +482,10 @@ def phase_fwd(kp, peaks):
     degrees of a hidden ConvSE3 (IF = 256, 640, 896, 1024; P = 1..7), at
     the flagship's per-chunk E = 4096 and unchunked E = 32768, in float32
     (the recipe's dtype) and bf16, and bit-identity across two runs."""
-    gen = torch.Generator(device='cuda').manual_seed(8)
-    dev = 'cuda'
-    mid, O = 128, 64
-    rows, worst = [], 0.0
-    for E in (4096, 32768):
-        for hdt in (torch.float32, torch.bfloat16):
-            for do in range(4):
-                P, IF = 2 * do + 1, grouped_if(do)
-                h = torch.randn(E, mid, device=dev, generator=gen).to(hdt)
-                w3 = (torch.randn(mid, IF, O, device=dev, generator=gen)
-                      * mid ** -0.5).to(hdt)
-                v2 = torch.randn(E, P, IF, device=dev, generator=gen)
-                b3 = torch.randn(IF, O, device=dev, generator=gen) * 0.1
-                args = (h, w3, v2, b3)
-                out = kp.fused_pairwise_conv(*args)
-                again = kp.fused_pairwise_conv(*args)
-                torch.cuda.synchronize()
-                if not torch.equal(out, again):
-                    raise AssertionError(f'fused_pairwise_conv d_out={do} '
-                                         f'E={E} {hdt}: two runs differ')
-                ref = kp.fused_pairwise_conv_plain(*args)
-                err = float((out - ref).abs().max())
-                scale = float(ref.abs().max())
-                if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
-                    raise AssertionError(
-                        f'fused_pairwise_conv d_out={do} E={E} {hdt}: '
-                        f'max_abs_err {err} > {KERNEL_RTOL} * max|plain| '
-                        f'{scale}')
-                worst = max(worst, err)
-                del out, again, ref
-                ms = cuda_ms(lambda: kp.fused_pairwise_conv(*args), reps=10)
-                plain_ms = cuda_ms(lambda: kp.fused_pairwise_conv_plain(*args),
-                                   reps=3)
-                lib = (*radial_library(h, w3, b3), v2)
-                library_ms = cuda_ms(lambda: library_conv(*lib), reps=3)
-                del lib
-                bound_ms, bound_by, flops, bound_ms_fma = fwd_cost(
-                    E, mid, IF, O, P, 2 if hdt == torch.bfloat16 else 4,
-                    peaks)
-                row = dict(d_out=do, P=P, IF=IF, E=E,
-                           h_dtype=str(hdt).split('.')[-1],
-                           i_per_split=kp.i_per_split(E, IF, O),
-                           max_abs_err=err, max_abs_plain=scale, ms=ms,
-                           plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           bound_ms_fma=bound_ms_fma,
-                           tflops=flops / ms / 1e9)
-                rows.append(row)
-                log('fwd', json.dumps(row))
-                del args, h, w3, v2, b3
-                torch.cuda.empty_cache()
+    cases = [(dict(d_out=do), E, 2 * do + 1, grouped_if(do), hdt, 64)
+             for E in (4096, 32768) for hdt in (torch.float32, torch.bfloat16)
+             for do in range(4)]
+    rows, worst = check_fwd(kp, peaks, cases, seed=8)
     for E in (4096, 32768):
         for dtype in ('float32', 'bfloat16'):
             conv = [r for r in rows if r['E'] == E and r['h_dtype'] == dtype]
@@ -511,6 +494,59 @@ def phase_fwd(kp, peaks):
                 **{k: sum(r[k] for r in conv) for k in (
                     'ms', 'plain_ms', 'library_ms', 'bound_ms',
                     'bound_ms_fma')})))
+    return rows, worst
+
+
+def check_fwd(kp, peaks, cases, seed):
+    """Each case (label, E, P, IF, h dtype, O): kernel #3 against its plain
+    version, bit-identical across two runs, and the times: kernel, plain
+    version, and the library yardstick (the einsum that computes the same
+    conv from V2)."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    dev = 'cuda'
+    mid = 128
+    rows, worst = [], 0.0
+    for label, E, P, IF, hdt, O in cases:
+        h = torch.randn(E, mid, device=dev, generator=gen).to(hdt)
+        w3 = (torch.randn(mid, IF, O, device=dev, generator=gen)
+              * mid ** -0.5).to(hdt)
+        v2 = torch.randn(E, P, IF, device=dev, generator=gen)
+        b3 = torch.randn(IF, O, device=dev, generator=gen) * 0.1
+        args = (h, w3, v2, b3)
+        out = kp.fused_pairwise_conv(*args)
+        again = kp.fused_pairwise_conv(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f'fused_pairwise_conv {label} E={E} {hdt}: '
+                                 f'two runs differ')
+        ref = kp.fused_pairwise_conv_plain(*args)
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
+            raise AssertionError(
+                f'fused_pairwise_conv {label} E={E} {hdt}: max_abs_err '
+                f'{err} > {KERNEL_RTOL} * max|plain| {scale}')
+        worst = max(worst, err)
+        del out, again, ref
+        ms = cuda_ms(lambda: kp.fused_pairwise_conv(*args), reps=10)
+        plain_ms = cuda_ms(lambda: kp.fused_pairwise_conv_plain(*args),
+                           reps=3)
+        lib = (*radial_library(h, w3, b3), v2)
+        library_ms = cuda_ms(lambda: library_conv(*lib), reps=3)
+        del lib
+        bound_ms, bound_by, flops, bound_ms_fma = fwd_cost(
+            E, mid, IF, O, P, 2 if hdt == torch.bfloat16 else 4, peaks)
+        row = dict(label, P=P, IF=IF, O=O, E=E,
+                   h_dtype=str(hdt).split('.')[-1],
+                   i_per_split=kp.i_per_split(E, IF, O),
+                   max_abs_err=err, max_abs_plain=scale, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_ms_fma=bound_ms_fma, tflops=flops / ms / 1e9)
+        rows.append(row)
+        log('fwd', json.dumps(row))
+        del args, h, w3, v2, b3
+        torch.cuda.empty_cache()
     return rows, worst
 
 
@@ -584,6 +620,42 @@ def phase_backward_af2(kp, peaks):
               2 * do + 1, AF2_DIM * (2 * min(di, do) + 1), torch.float32,
               AF2_O) for di in range(2) for do in range(2)]
     return check_backward(kp, peaks, cases, seed=23)
+
+
+def phase_backward_molecular(kp, peaks):
+    """Kernel #3 and kernels A and B at molecular_edges' shapes: the four
+    (d_in, d_out) pairs of a kv conv (C = 32, so IF = 32 or 96; P = 1 or 3;
+    O = 192, three O tiles; float32 h and W3) at E = 768 (n = 128, K = 6)
+    and E = 762 (n = 127, a ragged last edge tile), each against its plain
+    version and timed; and the plain version's time at the four routed
+    O = 32 contractions of a forward (conv_in's and conv_out's pairs,
+    IF = 32), the price of the route. Returns (#3's rows, its worst error,
+    A's and B's rows, their worst errors, the routed rows)."""
+    cases = [(dict(pair=[di, do], recipe='molecular_edges'), E, 2 * do + 1,
+              MOL_DIM * (2 * min(di, do) + 1), torch.float32, AF2_O)
+             for E in (MOL_E, MOL_E - 6) for di in range(2)
+             for do in range(2)]
+    fwd_rows, fwd_worst = check_fwd(kp, peaks, cases, seed=25)
+    bwd_rows, bwd_worst = check_backward(kp, peaks, cases, seed=26)
+    # the routed O = 32 contractions of one forward, on the plain version
+    gen = torch.Generator(device='cuda').manual_seed(27)
+    routed_rows = []
+    for layer, (di, do) in (('conv_in', (0, 0)), ('conv_in', (0, 1)),
+                            ('conv_out', (0, 0)), ('conv_out', (1, 0))):
+        P = 2 * do + 1
+        args = (torch.randn(MOL_E, 128, device='cuda', generator=gen),
+                torch.randn(128, MOL_DIM, MOL_DIM, device='cuda',
+                            generator=gen) * 128 ** -0.5,
+                torch.randn(MOL_E, P, MOL_DIM, device='cuda', generator=gen),
+                torch.randn(MOL_DIM, MOL_DIM, device='cuda', generator=gen))
+        routed_rows.append(dict(layer=layer, pair=[di, do], E=MOL_E, P=P,
+                                IF=MOL_DIM, O=MOL_DIM, plain_ms=cuda_ms(
+                                    lambda: kp.fused_pairwise_conv_plain(
+                                        *args), reps=10)))
+    log('molecular_routed', json.dumps(dict(
+        rows=routed_rows,
+        plain_ms_per_forward=sum(r['plain_ms'] for r in routed_rows))))
+    return fwd_rows, fwd_worst, bwd_rows, bwd_worst, routed_rows
 
 
 def check_backward(kp, peaks, cases, seed):
@@ -951,7 +1023,7 @@ def phase_bx(st, peaks):
 
     def forward(b):
         with torch.inference_mode():
-            return conv(feats, (idx, mask), rel_dist, b)
+            return conv(feats, (idx, mask, None), rel_dist, b)
     reset_counts()
     out = forward(basis)
     torch.cuda.synchronize()
@@ -1506,16 +1578,36 @@ def per_launch_us(events):
     return out
 
 
-def profile_request(engine, request):
-    """Device time by op for one request (torch.profiler, CUDA activity):
-    the top ops, the pairwise and attention kernels' totals, the device's
-    busy time and the request's wall time, in ms."""
+def profile_call(fn):
+    """One call of fn() under torch.profiler (CPU and CUDA activity),
+    ended by a device synchronize: (the profile, the call's wall ms)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.predict(*request)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def top_device_ops(events):
+    return [dict(op=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3)
+            for e in events[:12]]
+
+
+def kernels_ms(events, names):
+    """Device ms of the profile's kernels whose names hold one of
+    `names`."""
+    return sum(dev_us(e) for e in events
+               if any(n in e.key for n in names)) / 1e3
+
+
+def profile_request(engine, request):
+    """Device time by op for one request (torch.profiler, CUDA activity):
+    the top ops, the pairwise and attention kernels' totals, the device's
+    busy time and the request's wall time, in ms."""
+    prof, wall_ms = profile_call(lambda: engine.predict(*request))
     # the forward alone: predict() copies to and from the host and ends in
     # a synchronize of its own
     from se3_transformer_torch.inference import pad_to_bucket
@@ -1529,12 +1621,8 @@ def profile_request(engine, request):
 
     events = device_events(prof)
     device_ms = sum(dev_us(e) for e in events) / 1e3
-    kernel_ms, attn_ms = (sum(dev_us(e) for e in events
-                              if any(k in e.key for k in names)) / 1e3
-                          for names in (FORWARD_KERNELS, ATTENTION_KERNELS))
-    top = [dict(op=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3)
-           for e in events[:12]]
-    return top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, \
+    return top_device_ops(events), kernels_ms(events, FORWARD_KERNELS), \
+        kernels_ms(events, ATTENTION_KERNELS), device_ms, wall_ms, syncs, \
         per_launch_us(events)
 
 
@@ -1542,34 +1630,24 @@ def profile_step(trainer, batch, noise):
     """Device time by op for one training step (torch.profiler, CUDA
     activity): the top ops, the forward kernel's and kernels A's and B's
     totals, the device's busy time and the step's wall time, in ms."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(batch, noise=noise)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = profile_call(lambda: trainer.train_step(batch,
+                                                            noise=noise))
     syncs = count_host_syncs(lambda: trainer.train_step(batch, noise=noise))
 
     events = device_events(prof)
-
-    def kernel_ms(*names):
-        return sum(dev_us(e) for e in events
-                   if any(n in e.key for n in names)) / 1e3
     from torch.autograd import DeviceType
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     return dict(step_wall_ms=wall_ms, host_syncs_per_step=syncs,
                 device_busy_ms=sum(dev_us(e) for e in events) / 1e3,
-                forward_kernel_ms=kernel_ms(*FORWARD_KERNELS),
-                attention_kernel_ms=kernel_ms(*ATTENTION_KERNELS),
+                forward_kernel_ms=kernels_ms(events, FORWARD_KERNELS),
+                attention_kernel_ms=kernels_ms(events, ATTENTION_KERNELS),
                 attention_us_per_launch=per_launch_us(events),
-                kernel_a_ms=kernel_ms('bwd_a_kernel', 'bwd_reduce_kernel'),
-                kernel_b_ms=kernel_ms('bwd_b_'),
-                top_device_ops=[dict(op=e.key[:90], calls=e.count,
-                                     ms=dev_us(e) / 1e3)
-                                for e in events[:12]],
+                kernel_a_ms=kernels_ms(events, ('bwd_a_kernel',
+                                                'bwd_reduce_kernel')),
+                kernel_b_ms=kernels_ms(events, ('bwd_b_',)),
+                top_device_ops=top_device_ops(events),
                 host_op_ms=sum(e.self_cpu_time_total for e in host) / 1e3,
                 top_host_ops=[dict(op=e.key[:60], calls=e.count,
                                    ms=e.self_cpu_time_total / 1e3)
@@ -1725,8 +1803,8 @@ def phase_route_wide(st):
             r = rel.to(device)
             basis = st.get_basis(r, 1, layout='pfq_flat' if fuse_basis
                                  else 'pqf')
-            args = (xs, (idx.to(device), mask.to(device)), r.norm(dim=-1),
-                    basis)
+            args = (xs, (idx.to(device), mask.to(device), None),
+                    r.norm(dim=-1), basis)
             reset_counts()
             with torch.no_grad():
                 conv(*args)
@@ -1872,6 +1950,209 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
     return launches
 
 
+def molecular_inputs(st, seed, n=MOL_N, device='cuda'):
+    """molecular_batch's draw (atom tokens, a chain skeleton, symmetric
+    bond tokens, the chain adjacency, the invariant target) as tensors on
+    `device`."""
+    batch = st.molecular_batch(np.random.RandomState(seed), 1, n, 28, 4)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def phase_molecular_serve(st, want, want_routed):
+    """molecular_edges at its full width and depth (seeded weights,
+    conditioned) called with adj_mat and edges at n = 128: three timed
+    forwards (all atoms real; the last MOL_MASKED masked; the coordinates
+    rotated in float64 on the host), each with exactly `want` launches
+    (COUNT_NAMES order) and `want_routed` routed calls (ROUTE_NAMES
+    order), finite outputs, the scalar output invariant under the rotation
+    within ROTATION_RTOL; a profiled forward. Returns the phase's
+    launches."""
+    from se3_transformer_torch.so3 import rot
+    model = condition_weights(st.molecular_edges(
+        generator=torch.Generator().manual_seed(24))).eval()
+    t = molecular_inputs(st, 24)
+    masked = t['masks'].clone()
+    masked[0, -MOL_MASKED:] = False
+    R = rot(-0.42, 0.93, 1.71)
+    coords_r = torch.as_tensor(
+        (t['coords'].cpu().numpy().astype(np.float64) @ R.T)
+        .astype(np.float32), device='cuda')
+
+    def forward(coords=t['coords'], mask=t['masks']):
+        with torch.inference_mode():
+            out = model(t['tokens'], coords, mask, adj_mat=t['adj_mat'],
+                        edges=t['edges'])
+        torch.cuda.synchronize()
+        return out
+
+    reset_counts()
+    forward()                       # warm-up: allocator, cuBLAS handles
+    forwards = 1
+    outs = {}
+    for label, coords, mask in (('full', t['coords'], t['masks']),
+                                ('masked', t['coords'], masked),
+                                ('rotated', coords_r, t['masks'])):
+        before, routed_before = counts(), routed()
+        t0 = time.perf_counter()
+        out = forward(coords, mask)
+        dt = time.perf_counter() - t0
+        forwards += 1
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        routes_ = tuple(a - b for a, b in zip(routed(), routed_before))
+        out = out.float().cpu().numpy()
+        if out.shape != (1, MOL_N, MOL_DIM) or not np.isfinite(out).all():
+            raise AssertionError(f'molecular_edges {label}: shape '
+                                 f'{out.shape} or non-finite output')
+        if launched != want or routes_ != want_routed:
+            raise AssertionError(f'molecular_edges {label}: launches '
+                                 f'{COUNT_NAMES} = {launched}, want {want}; '
+                                 f'routed {ROUTE_NAMES} = {routes_}, want '
+                                 f'{want_routed}')
+        outs[label] = out
+        log('serve', json.dumps(dict(
+            recipe='molecular_edges', request=label, n=MOL_N, E=MOL_E,
+            real_atoms=int(mask.sum()), latency_ms=dt * 1e3,
+            launches=launched, routed=routes_)))
+    inv = float(np.abs(outs['rotated'] - outs['full']).max())
+    scale = float(np.abs(outs['full']).max())
+    prof, wall_ms = profile_call(forward)
+    syncs = count_host_syncs(forward)
+    forwards += 2
+    events = device_events(prof)
+    device_ms = sum(dev_us(e) for e in events) / 1e3
+    log('profile', json.dumps(dict(
+        recipe='molecular_edges', request_wall_ms=wall_ms,
+        device_busy_ms=device_ms, idle_share=1 - device_ms / wall_ms,
+        pairwise_kernel_ms=kernels_ms(events, FORWARD_KERNELS),
+        host_syncs_per_forward=syncs, top_device_ops=top_device_ops(events))))
+    launches = counts()
+    if launches != tuple(w * forwards for w in want):
+        raise AssertionError(f'molecular_edges: launches {launches} for '
+                             f'{forwards} forwards')
+    routed_exactly('molecular_edges serve',
+                   tuple(w * forwards for w in want_routed))
+    log('serve', json.dumps(dict(recipe='molecular_edges',
+                                 rotation_max_abs_diff=inv, max_abs_out=scale,
+                                 rtol=ROTATION_RTOL, forwards=forwards,
+                                 launches=launches)))
+    if inv > ROTATION_RTOL * scale:
+        raise AssertionError(f'molecular_edges: rotation invariance {inv} > '
+                             f'{ROTATION_RTOL} * max|out| {scale}')
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_molecular_train(st, want, want_routed):
+    """molecular_edges' property regression (property_loss on the pooled
+    scalar head against molecular_batch's invariant target) at n = 128
+    with Adam 1e-4: one warm-up step, then TRAIN_STEPS timed ones, each
+    with exactly `want` launches and `want_routed` routed calls; finite
+    decreasing losses, finite gradients, step time, nodes*steps/s, peak
+    memory and a profiled step. Returns the launches of the steps."""
+    model = condition_weights(st.molecular_edges(
+        generator=torch.Generator().manual_seed(27)))
+    trainer = st.DenoiseTrainer(model, lr=1e-4, loss_fn=st.property_loss)
+    batch = molecular_inputs(st, 27)
+    reset_counts()
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(1 + TRAIN_STEPS):
+        before, routed_before = counts(), routed()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        routes_ = tuple(a - b for a, b in zip(routed(), routed_before))
+        losses.append(float(loss))
+        if launched != want or routes_ != want_routed:
+            raise AssertionError(f'molecular_edges train step {step}: '
+                                 f'launches {COUNT_NAMES} = {launched}, want '
+                                 f'{want}; routed {ROUTE_NAMES} = {routes_}, '
+                                 f'want {want_routed}')
+        if step:
+            step_ms.append(dt * 1e3)
+        log('train', json.dumps(dict(recipe='molecular_edges', step=step,
+                                     warmup=step == 0, loss=losses[-1],
+                                     step_ms=dt * 1e3, launches=launched,
+                                     routed=routes_)))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts()
+    routed_exactly('molecular_edges train',
+                   tuple(w * (1 + TRAIN_STEPS) for w in want_routed))
+    bad = [name for name, p in model.named_parameters()
+           if p.grad is not None and not torch.isfinite(p.grad).all()]
+    if not np.isfinite(losses).all() or losses[-1] >= losses[0] or bad:
+        raise AssertionError(f'molecular_edges train: losses {losses}, '
+                             f'non-finite gradients in {bad}')
+    log('train', json.dumps(dict(
+        recipe='molecular_edges', n=MOL_N, steps=TRAIN_STEPS,
+        step_ms_median=float(np.median(step_ms)), step_ms=step_ms,
+        nodes_steps_per_s=MOL_N * TRAIN_STEPS / (sum(step_ms) / 1e3),
+        max_memory_allocated_gb=peak_gb, first_loss=losses[0],
+        last_loss=losses[-1], launches=launches)))
+    log('train_profile', json.dumps(dict(
+        recipe='molecular_edges', **profile_step(trainer, batch, None))))
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def molecular_reference(st, train):
+    """molecular_edges at depth 1 (n = 40, the last 6 atoms masked) on the
+    card (#3, A and B at O = 192) and on the CPU from the same weights:
+    the forward (REF_RTOL_F32), or with `train` one property_loss step's
+    loss and every gradient (REF_GRAD_RTOL_F32)."""
+    results = []
+    for device in ('cuda', 'cpu'):
+        model = st.molecular_edges(depth=1, device=device,
+                                   generator=torch.Generator().manual_seed(28))
+        batch = molecular_inputs(st, 29, n=40, device=device)
+        batch['masks'][0, -6:] = False
+        if train:
+            trainer = st.DenoiseTrainer(model, lr=1e-4, device=device,
+                                        loss_fn=st.property_loss)
+            loss = float(trainer.train_step(batch))
+            results.append((loss, {k: p.grad.float().cpu() for k, p in
+                                   model.named_parameters()
+                                   if p.grad is not None}))
+            continue
+        with torch.inference_mode():
+            results.append(model.eval()(
+                batch['tokens'], batch['coords'], batch['masks'],
+                adj_mat=batch['adj_mat'], edges=batch['edges'])
+                .float().cpu().numpy())
+    if not train:
+        err = float(np.abs(results[0] - results[1]).max())
+        scale = float(np.abs(results[1]).max())
+        log('reference', json.dumps(dict(recipe='molecular_edges',
+                                         max_abs_err=err, max_abs_cpu=scale,
+                                         rtol=REF_RTOL_F32)))
+        if not (np.isfinite(results[0]).all() and err <= REF_RTOL_F32 * scale):
+            raise AssertionError(f'card vs CPU (molecular_edges): {err} > '
+                                 f'{REF_RTOL_F32} * {scale}')
+        return
+    (loss_c, grads_c), (loss_h, grads_h) = results
+    if set(grads_c) != set(grads_h):
+        raise AssertionError('molecular_edges: card and CPU differ in which '
+                             'parameters have gradients')
+    rel = {k: float((grads_c[k] - g).abs().max())
+           / max(float(g.abs().max()), 1e-30) for k, g in grads_h.items()}
+    worst_key = max(rel, key=rel.get)
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    log('train_reference', json.dumps(dict(
+        recipe='molecular_edges', loss_card=loss_c, loss_cpu=loss_h,
+        loss_rel_err=loss_rel, worst_grad_rel_err=rel[worst_key],
+        worst_grad=worst_key, leaves=len(grads_h), rtol=REF_GRAD_RTOL_F32)))
+    if not all(np.isfinite(list(rel.values()))) or \
+            loss_rel > REF_GRAD_RTOL_F32 or rel[worst_key] > REF_GRAD_RTOL_F32:
+        raise AssertionError(f'train card vs CPU (molecular_edges): loss '
+                             f'{loss_rel}, gradient {worst_key} '
+                             f'{rel[worst_key]} > {REF_GRAD_RTOL_F32}')
+
+
 # the small models that the reference phases run on the card and the CPU:
 # flagship_fast's fields (float32 and bf16 radial trunk; with the fused
 # attention; with the streaming attention in float32 and bf16) and
@@ -1944,6 +2225,7 @@ def phase_train_reference(st):
                                  f'radial_bf16={bf16}): '
                                  f'loss {loss_rel}, gradient {worst_key} '
                                  f'{worst} > {tol}')
+    molecular_reference(st, train=True)
 
 
 def phase_reference(st):
@@ -1973,6 +2255,7 @@ def phase_reference(st):
         if not (np.isfinite(outs[0]).all() and err <= tol * scale):
             raise AssertionError(f'card vs CPU ({recipe}, radial_bf16='
                                  f'{bf16}): {err} > {tol} * {scale}')
+    molecular_reference(st, train=False)
 
 
 def main() -> int:
@@ -2017,6 +2300,7 @@ def main() -> int:
     bwd_rows, bwd_worst = phase_backward(kp, peaks)
     grouped_rows, grouped_worst = phase_backward_grouped(kp, peaks)
     af2_rows, af2_worst = phase_backward_af2(kp, peaks)
+    _, mol_fwd_worst, _, mol_worst, _ = phase_backward_molecular(kp, peaks)
 
     # 5. the attention kernels vs plain, with the library yardstick
     attn_rows, attn_worst = phase_attention(peaks)
@@ -2074,7 +2358,13 @@ def main() -> int:
         phase_train(st, 'af2_refinement',
                     launches(fwd=AF2_LAUNCHES, a=AF2_LAUNCHES,
                              b=AF2_LAUNCHES), None, None, dim=AF2_DIM,
-                    depth=2, want_routed=routes(fwd=AF2_ROUTED))]
+                    depth=2, want_routed=routes(fwd=AF2_ROUTED)),
+        # molecular_edges: likewise exactly its 4 O = 32 pairs
+        phase_molecular_serve(st, launches(fwd=MOL_LAUNCHES),
+                              routes(fwd=MOL_ROUTED)),
+        phase_molecular_train(st, launches(fwd=MOL_LAUNCHES, a=MOL_LAUNCHES,
+                                           b=MOL_LAUNCHES),
+                              routes(fwd=MOL_ROUTED))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
 
@@ -2120,12 +2410,14 @@ def main() -> int:
         entry('fused_pairwise_conv_bxf', 'pairwise_bxf.cu', pallas + '593',
               total[0], worst, unchunked(rows, 'bfloat16')),
         entry('fused_pairwise_conv', 'pairwise_fwd.cu', pallas + '254',
-              total[1], fwd_worst, unchunked(fwd_rows, 'float32'))]
+              total[1], max(fwd_worst, mol_fwd_worst),
+              unchunked(fwd_rows, 'float32'))]
     for i, (k, line) in enumerate((('a', 861), ('b', 907))):
         kernels.append(entry(
             f'fused_pairwise_conv_bwd_{k}', 'pairwise_bwd.cu',
             f'{pallas}{line}', total[2 + i],
-            max(bwd_worst[k], grouped_worst[k], af2_worst[k]), bwd,
+            max(bwd_worst[k], grouped_worst[k], af2_worst[k],
+                mol_worst[k]), bwd,
             f'_{k}'))
     kernels += [
         entry('fused_attention_fwd', 'attention.cu',

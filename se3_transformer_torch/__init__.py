@@ -22,5 +22,7 @@ from .ops import (
 )
 from .training import (
     DenoiseTrainer, af2_refinement, denoise_loss, flagship, flagship_batch,
-    flagship_fast,
+    flagship_fast, molecular_batch, molecular_edges, property_loss,
+    toy_denoise,
 )
+from .utils.graph import chain_adjacency

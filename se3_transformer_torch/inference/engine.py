@@ -4,8 +4,11 @@ se3_transformer_tpu/inference/engine.py's serving surface.
 Requests are padded to fixed bucket lengths (so a deployment sees a small,
 known set of shapes), parameters are placed on the device once at
 construction, and every call ends in a device synchronize so the recorded
-latencies are the device's. Ahead-of-time capture, quantization, meshes and
-telemetry are not ported yet.
+latencies are the device's. With with_chain_adjacency (the default, as in
+the JAX engine) every call passes its bucket's chain adjacency (i and j
+bonded iff |i - j| == 1) as adj_mat, which a model without adjacency
+fields ignores; requests carry no edges. Ahead-of-time capture,
+quantization, meshes and telemetry are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.graph import chain_adjacency
 from ..utils.helpers import resolve_device
 
 
@@ -61,7 +65,8 @@ class InferenceEngine:
 
     def __init__(self, module: torch.nn.Module, *,
                  buckets: Sequence[int] = (64, 128, 256, 512),
-                 batch_size: int = 1, return_type: int = 1, device='cuda'):
+                 batch_size: int = 1, return_type: int = 1,
+                 with_chain_adjacency: bool = True, device='cuda'):
         self.device = resolve_device(device)
         self.return_type = return_type
         self.module = module.to(self.device).eval()
@@ -69,6 +74,10 @@ class InferenceEngine:
         if not self.buckets:
             raise ValueError('no buckets')
         self.batch_size = int(batch_size)
+        self.adjacency = {b: torch.as_tensor(chain_adjacency(b),
+                                             device=self.device)
+                          for b in self.buckets} \
+            if with_chain_adjacency else None
         self.batches_served = {b: 0 for b in self.buckets}
         self.rows_served = {b: 0 for b in self.buckets}
         # the most recent latencies per bucket (bounded for long runs)
@@ -97,8 +106,9 @@ class InferenceEngine:
             if tuple(t.shape[:2]) != expect:
                 raise ValueError(f'{name} has shape {tuple(t.shape)}; the '
                                  f'bucket takes {expect}')
+        adj_mat = None if self.adjacency is None else self.adjacency[bucket]
         with torch.inference_mode():
-            out = self.module(feats, coords, mask,
+            out = self.module(feats, coords, mask, adj_mat=adj_mat,
                               return_type=self.return_type)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)

@@ -1,7 +1,7 @@
 """SE3TransformerModule: the port of se3_transformer_tpu/models/se3_transformer.py
 restricted to the fields its recipes (`flagship_fast`, `flagship`,
-`af2_refinement`), the assembly model (attention_mode='global') and the
-JAX default model surface use.
+`af2_refinement`, `molecular_edges`, `toy_denoise`), the assembly model
+(attention_mode='global') and the JAX default model surface use.
 
 The fibers are resolved as the JAX `_resolved`: fiber_in from
 input_degrees and dim_in (an int or a tuple per degree; dim without it),
@@ -11,14 +11,23 @@ out_fiber_dict or (output_degrees, dim_out or dim).
 
 The forward is the JAX module's kNN path, step for step: the input (a
 [b, n, dim] tensor, or a dict of degrees {'0': [b, n, c, 1], '1': [b, n,
-c, 3], ...} whose degree 1 is permuted Cartesian -> irrep) ->
-self-excluded pairwise geometry -> fixed-K neighbor selection -> the basis
+c, 3], ...} whose degree 1 is permuted Cartesian -> irrep; integer tokens
+through `token_emb`, plus `pos_emb` of the positions with num_positions)
+-> self-excluded pairwise geometry -> the adjacency predicates (adj_mat
+grown to num_adj_degrees hops with ring labels; with
+attend_sparse_neighbors up to max_sparse_neighbors bonded pairs a row,
+picked by a jittered top-k) -> the edges (token edges through `edge_emb`,
+the ring labels' `adj_emb` concatenated) -> fixed-K neighbor selection
+(bonded pairs first, user-masked and, with causal, future pairs last;
+num_neighbors + the bonded budget slots, only bonded ones valid when
+num_neighbors is 0) -> the edges gathered at the selected slots -> the basis
 (the flat 'pfq_flat' layout with fuse_basis, the structured 'pqf' one
 without, as the JAX module picks it on the kernel path; differentiable
 with differentiable_coors) -> conv_in -> num_conv_layers x (preconv_norm,
 preconv) -> trunk -> conv_out -> norm_out (on with reversible) ->
 linear_out (reduce_dim_out) -> the degree-1 Cartesian permutation -> the
-output of `return_type`, with the JAX conventions. edge_chunks streams
+output of `return_type` (with return_pooled, its masked mean over the
+nodes), with the JAX conventions. edge_chunks streams
 every ConvSE3's contraction over that many node chunks. pallas_attention=True runs every unfused attention
 block's core through the fused attention kernel; fuse_pairwise (a bool, or
 first-match-wins (pattern, 'flash' | 'xla') rules on 'attn_block{i}')
@@ -51,17 +60,18 @@ from ..kernels.flash import flash_sh_payload
 from ..ops.conv import ConvSE3
 from ..ops.core import LinearSE3, NormSE3
 from ..ops.fiber import Fiber
-from ..ops.neighbors import exclude_self_indices, remove_self, select_neighbors
+from ..ops.neighbors import (
+    exclude_self_indices, expand_adjacency, remove_self, select_neighbors,
+    sparse_neighbor_mask,
+)
 from ..ops.trunk import SequentialTrunk
-from ..utils.helpers import cast_tuple, resolve_device
+from ..utils.helpers import (
+    batched_index_select, cast_tuple, masked_mean, resolve_device,
+)
 
 # JAX SE3TransformerModule fields this port does not implement, with the
 # JAX defaults they must keep
 _JAX_ONLY_DEFAULTS = dict(
-    num_positions=None, num_edge_tokens=None, edge_dim=None,
-    attend_sparse_neighbors=False,
-    num_adj_degrees=None, adj_dim=0, max_sparse_neighbors=float('inf'),
-    causal=False,
     global_feats_dim=None, linear_proj_keys=False,
     one_headed_key_values=False, tie_key_values=False,
     rotary_position=False, rotary_rel_dist=False, norm_gated_scale=False,
@@ -165,8 +175,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             if re.fullmatch(r'Dense_\d+', parent) and leaf == 'weight':
                 _truncated_normal_(p, (1 / p.shape[1]) ** 0.5 / _TRUNC_STD,
                                    generator)
-            elif name == 'token_emb.weight':
-                # flax nn.Embed: normal of variance 1 / features
+            elif parent.endswith('_emb') and leaf == 'weight':
+                # token_emb, pos_emb, edge_emb, adj_emb; flax nn.Embed:
+                # normal of variance 1 / features
                 p.copy_(torch.randn(p.shape, generator=generator)
                         * p.shape[1] ** -0.5)
             elif leaf.startswith('w3_') or (
@@ -204,8 +215,15 @@ class SE3TransformerModule(nn.Module):
                  fuse_pairwise=False, num_tokens: Optional[int] = None,
                  use_null_kv: bool = False, norm_out: bool = False,
                  attention_mode: str = 'knn',
-                 global_materialize: bool = False, *, device='cuda',
-                 generator: Optional[torch.Generator] = None, **jax_fields):
+                 global_materialize: bool = False,
+                 num_positions: Optional[int] = None,
+                 num_edge_tokens: Optional[int] = None,
+                 edge_dim: Optional[int] = None,
+                 attend_sparse_neighbors: bool = False,
+                 num_adj_degrees: Optional[int] = None, adj_dim: int = 0,
+                 max_sparse_neighbors=float('inf'), causal: bool = False, *,
+                 device='cuda', generator: Optional[torch.Generator] = None,
+                 **jax_fields):
         super().__init__()
         device = resolve_device(device)
         if attention_mode not in ('knn', 'global'):
@@ -217,9 +235,20 @@ class SE3TransformerModule(nn.Module):
         if num_degrees is None and hidden_fiber_dict is None:
             raise ValueError('either num_degrees or hidden_fiber_dict must be '
                              'specified')
+        if causal and not attend_self:
+            raise ValueError('attend_self must be on in causal '
+                             '(autoregressive) mode')
+        if num_adj_degrees is not None and num_adj_degrees < 1:
+            raise ValueError('num_adj_degrees must be at least 1')
+        if num_edge_tokens is not None and edge_dim is None:
+            raise ValueError('num_edge_tokens embeds edges into edge_dim '
+                             'features; set edge_dim')
         if attention_mode == 'global':
             fields = dict(jax_fields, fourier_encode_dist=fourier_encode_dist,
-                          num_conv_layers=num_conv_layers)
+                          num_conv_layers=num_conv_layers,
+                          attend_sparse_neighbors=attend_sparse_neighbors,
+                          causal=causal, num_adj_degrees=num_adj_degrees,
+                          edge_dim=edge_dim)
             for key, allowed, why in _NOT_WITH_GLOBAL:
                 if fields.get(key, allowed) != allowed:
                     raise ValueError(f"attention_mode='global' does not "
@@ -288,6 +317,17 @@ class SE3TransformerModule(nn.Module):
         self.valid_radius = valid_radius
         self.num_neighbors = num_neighbors
         self.num_conv_layers = num_conv_layers
+        self.num_positions = num_positions
+        self.edge_dim = edge_dim
+        self.attend_sparse_neighbors = attend_sparse_neighbors
+        self.num_adj_degrees = num_adj_degrees
+        self.max_sparse_neighbors = max_sparse_neighbors
+        self.causal = causal
+        # the convs' edge width: the edges, then the ring labels' embedding
+        # (the JAX module reads it off the edges at trace time)
+        embed_adjacency = num_adj_degrees is not None and adj_dim > 0
+        self.edge_width = (edge_dim or 0) + (adj_dim if embed_adjacency
+                                             else 0)
         # reversible blocks imply the output norm (JAX _body)
         self.apply_norm_out = norm_out or reversible
         # the basis layout the convs take (the JAX module's choice on the
@@ -296,7 +336,14 @@ class SE3TransformerModule(nn.Module):
 
         if num_tokens is not None:
             self.token_emb = nn.Embedding(num_tokens, fiber_in[0])
+        if num_positions is not None:
+            self.pos_emb = nn.Embedding(num_positions, fiber_in[0])
+        if num_edge_tokens is not None:
+            self.edge_emb = nn.Embedding(num_edge_tokens, edge_dim)
+        if embed_adjacency:
+            self.adj_emb = nn.Embedding(num_adj_degrees + 1, adj_dim)
         conv_kwargs = dict(fourier_encode_dist=fourier_encode_dist,
+                           edge_dim=self.edge_width,
                            num_fourier_features=rel_dist_num_fourier_features,
                            shared_radial_hidden=shared_radial_hidden,
                            edge_chunks=edge_chunks, fuse_basis=fuse_basis,
@@ -320,7 +367,7 @@ class SE3TransformerModule(nn.Module):
             edge_chunks=edge_chunks, fuse_basis=fuse_basis,
             radial_bf16=radial_bf16, fused_attention=self.fused_attention,
             attention_mode=attention_mode,
-            global_materialize=global_materialize)
+            global_materialize=global_materialize, edge_dim=self.edge_width)
         if attention_mode == 'global':
             self.lift_out = LinearSE3(fiber_hidden, fiber_out)
         else:
@@ -335,20 +382,52 @@ class SE3TransformerModule(nn.Module):
         self.to(device)
 
     def forward(self, feats, coors: torch.Tensor,
-                mask: Optional[torch.Tensor] = None,
-                return_type: Optional[int] = None):
+                mask: Optional[torch.Tensor] = None, adj_mat=None,
+                edges: Optional[torch.Tensor] = None,
+                return_type: Optional[int] = None,
+                return_pooled: bool = False,
+                neighbor_mask: Optional[torch.Tensor] = None, *,
+                neighbor_noise: Optional[torch.Generator] = None):
         """feats [b, n, dim] (integer tokens [b, n] with num_tokens), or a
         dict of the input degrees {'0': [b, n, c0, 1], '1': [b, n, c1, 3],
         ...} with degree 1 in Cartesian order; coors [b, n, 3], mask [b, n]
-        bool -> the output of degree `return_type`, or the dict of every
-        output degree when it is None; one output degree forces
-        return_type 0. Degree 0 is [b, n, c] ([b, n] with reduce_dim_out);
-        degree 1 is [b, n, c, 3] ([b, n, 3] with reduce_dim_out), in
-        Cartesian order."""
+        bool; adj_mat [b, n, n] or [n, n] bool (nonzero = bonded) for
+        num_adj_degrees and attend_sparse_neighbors (ignored without
+        them); edges [b, n, n] integer tokens with num_edge_tokens, else
+        [b, n, n, edge_dim] features; neighbor_mask [b, n, n] bool, False
+        keeping a pair out of the selection -> the output of degree
+        `return_type`, or the dict of every output degree when it is None;
+        one output degree forces return_type 0. Degree 0 is [b, n, c]
+        ([b, n] with reduce_dim_out); degree 1 is [b, n, c, 3] ([b, n, 3]
+        with reduce_dim_out), in Cartesian order. return_pooled takes the
+        mean over the nodes (the real ones, with mask): [b, c] and [b, c,
+        3].
+
+        neighbor_noise is a torch.Generator on the input's device that the
+        bonded top-k's tie-breaking jitter U(-0.01, 0.01) is drawn from,
+        the counterpart of the JAX module's rngs={'neighbor_noise': key};
+        without one each forward draws it from a fresh generator seeded 0,
+        so that plain inference is reproducible, as JAX's PRNGKey(0)
+        default is. Its bits differ from JAX's, which matters only in a
+        row with more bonds than max_sparse_neighbors."""
+        if self.attend_sparse_neighbors and adj_mat is None:
+            raise ValueError('adjacency matrix must be passed in when '
+                             'attending to sparse neighbors')
+        if (self.edge_dim or 0) > 0 and edges is None:
+            raise ValueError('edge tokens/features must be supplied when '
+                             'edge_dim is set')
+        if edges is not None and not self.edge_dim:
+            raise ValueError('edges were given but edge_dim is not set')
         if self.output_degrees == 1:
             return_type = 0
         if hasattr(self, 'token_emb'):
             feats = self.token_emb(feats)
+        if hasattr(self, 'pos_emb'):
+            if isinstance(feats, dict):
+                raise ValueError('num_positions embeds a [b, n, dim] input')
+            if feats.shape[1] > self.num_positions:
+                raise ValueError('sequence length exceeds num_positions')
+            feats = feats + self.pos_emb.weight[:feats.shape[1]][None]
         if not isinstance(feats, dict):
             feats = {'0': feats[..., None]}
         feats = _permute_degree1(feats, _CART_TO_IRREP)
@@ -359,13 +438,17 @@ class SE3TransformerModule(nn.Module):
             raise ValueError(f'input must have degrees 0..'
                              f'{self.input_degrees - 1}')
         if self.attention_mode == 'global':
-            return self._global_forward(feats, coors, mask, return_type)
+            return self._global_forward(feats, coors, mask, return_type,
+                                        return_pooled)
+        if not self.attend_sparse_neighbors and self.num_neighbors <= 0:
+            raise ValueError('either attend to sparse neighbors or use '
+                             'num_neighbors > 0')
         b, n = feats['0'].shape[0], feats['0'].shape[1]
         num_neighbors = int(min(self.num_neighbors, n - 1))
-        if num_neighbors <= 0:
-            raise ValueError('must fetch at least 1 neighbor')
 
         self_excl = exclude_self_indices(n, device=coors.device)
+        adj_indices, sparse_mask, num_sparse = self._adjacency_predicates(
+            adj_mat, b, n, self_excl, neighbor_noise)
         rel_pos = remove_self(coors[:, :, None, :] - coors[:, None, :, :],
                               self_excl)                   # [b, n, n-1, 3]
         indices = self_excl[None].expand(b, n, n - 1)
@@ -373,8 +456,28 @@ class SE3TransformerModule(nn.Module):
         if mask is not None:
             pair_mask = remove_self(mask[:, :, None] & mask[:, None, :],
                                     self_excl)
-        hood, _ = select_neighbors(rel_pos, indices, num_neighbors,
-                                   self.valid_radius, pair_mask=pair_mask)
+        if edges is not None:
+            if hasattr(self, 'edge_emb'):
+                edges = self.edge_emb(edges)
+            edges = remove_self(edges, self_excl)
+        if hasattr(self, 'adj_emb'):
+            adj_emb = self.adj_emb(adj_indices)
+            edges = adj_emb if edges is None else \
+                torch.cat((edges, adj_emb), dim=-1)
+        if neighbor_mask is not None:
+            neighbor_mask = remove_self(neighbor_mask, self_excl)
+
+        # with no kNN budget only the bonded slots (rank 0) are valid
+        valid_radius = self.valid_radius if num_neighbors > 0 else 0.
+        total_neighbors = int(min(num_neighbors + num_sparse, n - 1))
+        if total_neighbors <= 0:
+            raise ValueError('must fetch at least 1 neighbor')
+        hood, nearest = select_neighbors(
+            rel_pos, indices, total_neighbors, valid_radius,
+            pair_mask=pair_mask, neighbor_mask=neighbor_mask,
+            sparse_mask=sparse_mask, causal=self.causal)
+        if edges is not None:
+            edges = batched_index_select(edges, nearest, dim=2)
         # conv_in and conv_out always take the per-pair basis; the fused
         # attention blocks take the SH stack
         basis = get_basis(hood.rel_pos, self.num_degrees - 1,
@@ -384,7 +487,7 @@ class SE3TransformerModule(nn.Module):
             basis['flash_sh'] = flash_sh_payload(
                 hood.rel_pos, self.num_degrees - 1,
                 differentiable=self.differentiable_coors)
-        edge_info = (hood.indices, hood.mask)
+        edge_info = (hood.indices, hood.mask, edges)
 
         x = self.conv_in(feats, edge_info, hood.rel_dist, basis)
         for i in range(self.num_conv_layers):
@@ -393,9 +496,44 @@ class SE3TransformerModule(nn.Module):
                                              basis)
         x = self.trunk(x, edge_info, hood.rel_dist, basis)
         x = self.conv_out(x, edge_info, hood.rel_dist, basis)
-        return self._output(x, return_type)
+        return self._output(x, return_type, return_pooled, mask)
 
-    def _global_forward(self, feats, coors, mask, return_type):
+    def _adjacency_predicates(self, adj_mat, b, n, self_excl, generator):
+        """The JAX _adjacency_predicates on the self-excluded layout: (the
+        ring labels [b, n, n-1] with num_adj_degrees, the bonded mask [b,
+        n, n-1] with attend_sparse_neighbors, the bonded budget). adj_mat
+        is grown to num_adj_degrees hops with its diagonal in; the bonded
+        top-k runs over the full-width layout with the diagonal removed
+        and the jitter scattered off it."""
+        if self.num_adj_degrees is None and not self.attend_sparse_neighbors:
+            return None, None, 0
+        if adj_mat is None:
+            raise ValueError('num_adj_degrees needs an adjacency matrix')
+        device = self_excl.device
+        adj_mat = torch.as_tensor(adj_mat, device=device).bool()
+        if adj_mat.ndim == 2:
+            adj_mat = adj_mat[None].expand(b, n, n)
+        adj_indices = None
+        if self.num_adj_degrees is not None:
+            adj_mat, adj_ind_full = expand_adjacency(adj_mat,
+                                                     self.num_adj_degrees)
+            adj_indices = remove_self(adj_ind_full, self_excl)
+        if not self.attend_sparse_neighbors:
+            return adj_indices, None, 0
+        num_sparse = int(min(self.max_sparse_neighbors, n - 1))
+        if generator is None:
+            generator = torch.Generator(device).manual_seed(0)
+        noise = torch.rand((b, n, n - 1), generator=generator,
+                           device=device) * 0.02 - 0.01
+        noise_full = noise.new_zeros(b, n, n).scatter(
+            2, self_excl[None].expand(b, n, n - 1), noise)
+        eye = torch.eye(n, dtype=torch.bool, device=device)
+        sparse_full = sparse_neighbor_mask(adj_mat & ~eye, num_sparse,
+                                           noise_full)
+        return adj_indices, remove_self(sparse_full, self_excl), num_sparse
+
+    def _global_forward(self, feats, coors, mask, return_type,
+                        return_pooled):
         """attention_mode='global' (the JAX _global_forward): lift in, the
         global trunk with the coordinates (and the mask) as its only
         basis, lift out, then the output tail."""
@@ -409,18 +547,22 @@ class SE3TransformerModule(nn.Module):
             if str(degree) not in x:
                 x[str(degree)] = feats['0'].new_zeros(b, n, c,
                                                       2 * degree + 1)
-        x = self.trunk(x, (None, None), None, basis)
-        return self._output(self.lift_out(x), return_type)
+        x = self.trunk(x, (None, None, None), None, basis)
+        return self._output(self.lift_out(x), return_type, return_pooled,
+                            mask)
 
-    def _output(self, x, return_type):
+    def _output(self, x, return_type, return_pooled, mask):
         """The output tail shared by both modes: norm_out, linear_out
-        (reduce_dim_out), the degree-1 Cartesian permutation, the
-        conventions of `forward`."""
+        (reduce_dim_out), the degree-1 Cartesian permutation, the mean over
+        the (real) nodes with return_pooled, the conventions of
+        `forward`."""
         if self.apply_norm_out:
             x = self.norm_out(x)
         if self.linear_out is not None:
             x = {d: t[..., 0, :] for d, t in self.linear_out(x).items()}
         x = _permute_degree1(x, _IRREP_TO_CART)
+        if return_pooled:
+            x = {d: masked_mean(t, mask, dim=1) for d, t in x.items()}
         if '0' in x:
             x['0'] = x['0'][..., 0]
         if return_type is not None:

@@ -4,5 +4,8 @@ from .core import (
     FeedForwardBlockSE3, FeedForwardSE3, LinearSE3, NormSE3, residual_se3,
 )
 from .fiber import Fiber
-from .neighbors import exclude_self_indices, remove_self, select_neighbors
+from .neighbors import (
+    exclude_self_indices, expand_adjacency, remove_self, select_neighbors,
+    sparse_neighbor_mask,
+)
 from .trunk import SequentialTrunk

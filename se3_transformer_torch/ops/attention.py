@@ -8,7 +8,8 @@ neighbor mask is left-padded with True over the self slot, and masked
 logits are filled with the finite float32 minimum. The layers' defaults
 are JAX's: attend_self=False and shared_radial_hidden=False (the kv convs'
 per-pair radial trunks; fuse_pairwise and the global mode take the shared
-one, as in JAX); fourier_encode_dist reaches the kv convs' edge features.
+one, as in JAX); fourier_encode_dist and edge_dim (the width of
+edge_info's edges) reach the kv convs' edge features.
 Three attention cores, one function:
 
   * the einsums (the JAX default, pallas_attention None or False);
@@ -60,7 +61,7 @@ class AttentionSE3(nn.Module):
                  edge_chunks: Optional[int] = None, fuse_basis: bool = False,
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
                  attention_mode: str = 'knn',
-                 global_materialize: bool = False):
+                 global_materialize: bool = False, edge_dim: int = 0):
         super().__init__()
         if attention_mode not in ('knn', 'global'):
             raise ValueError(f"unknown attention_mode {attention_mode!r} "
@@ -89,9 +90,11 @@ class AttentionSE3(nn.Module):
         if attention_mode != 'global':
             conv_kwargs.update(
                 fourier_encode_dist=fourier_encode_dist,
-                num_fourier_features=rel_dist_num_fourier_features)
-        elif fourier_encode_dist:
-            raise ValueError('global attention consumes raw distances only')
+                num_fourier_features=rel_dist_num_fourier_features,
+                edge_dim=edge_dim)
+        elif fourier_encode_dist or edge_dim:
+            raise ValueError('global attention consumes raw distances only '
+                             '(no fourier or edge features)')
         self.to_v = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         self.to_k = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
         if attend_self:
@@ -252,7 +255,7 @@ class AttentionSE3(nn.Module):
         return their radial hidden and grouped w3/b3, and the kernel builds
         k and v per edge from the node features and the SH stack."""
         h = self.heads
-        neighbor_indices, neighbor_mask = edge_info
+        neighbor_indices, neighbor_mask, _ = edge_info
         queries = self.to_q(features)
         v_prog = self.to_v(features, edge_info, rel_dist, basis)
         k_prog = self.to_k(features, edge_info, rel_dist, basis)
@@ -303,7 +306,7 @@ class AttentionBlockSE3(nn.Module):
                  edge_chunks: Optional[int] = None, fuse_basis: bool = False,
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
                  attention_mode: str = 'knn',
-                 global_materialize: bool = False):
+                 global_materialize: bool = False, edge_dim: int = 0):
         super().__init__()
         self.prenorm = NormSE3(fiber)
         self.attn = AttentionSE3(
@@ -315,7 +318,7 @@ class AttentionBlockSE3(nn.Module):
             edge_chunks=edge_chunks, fuse_basis=fuse_basis,
             radial_bf16=radial_bf16, fuse_pairwise=fuse_pairwise,
             attention_mode=attention_mode,
-            global_materialize=global_materialize)
+            global_materialize=global_materialize, edge_dim=edge_dim)
 
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]

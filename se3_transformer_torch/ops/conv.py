@@ -4,7 +4,10 @@
 The radial trunk (Dense -> LayerNorm -> GELU, twice) reads the edge
 features: the distance, or with fourier_encode_dist its sin/cos features at
 num_fourier_features dyadic scales and the distance itself
-(utils.helpers.fourier_encode).
+(utils.helpers.fourier_encode), then the gathered edges [b, n, k, edge_dim]
+of edge_info when edge_dim > 0 (the model's edge and adjacency
+embeddings). The edges widen the trunk's input only: the kernels take h
+after the trunk.
 
 shared_radial_hidden=False (the JAX default): each (d_in, d_out) pair is a
 PairwiseConvSE3 `pair_{d_in}_{d_out}` with its own trunk, w3 [mid, c_in*F,
@@ -81,8 +84,10 @@ from .core import LinearSE3, gelu, residual_se3
 from .fiber import Fiber
 
 Features = Dict[str, torch.Tensor]
-# edge_info = (neighbor_indices [b,n,k], neighbor_mask [b,n,k] | None)
-EdgeInfo = Tuple[torch.Tensor, Optional[torch.Tensor]]
+# edge_info = (neighbor_indices [b,n,k], neighbor_mask [b,n,k] | None,
+#              edges [b,n,k,edge_dim] | None)
+EdgeInfo = Tuple[torch.Tensor, Optional[torch.Tensor],
+                 Optional[torch.Tensor]]
 
 # radial-MLP hidden width (the JAX package's DEFAULT_MID_DIM)
 DEFAULT_MID_DIM = 128
@@ -287,7 +292,7 @@ class ConvSE3(nn.Module):
                  edge_chunks: Optional[int] = None,
                  shared_radial_hidden: bool = False, fuse_basis: bool = False,
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
-                 global_radial: bool = False):
+                 global_radial: bool = False, edge_dim: int = 0):
         super().__init__()
         if self_interaction and not pool:
             raise ValueError('must pool edges if followed with self '
@@ -299,8 +304,9 @@ class ConvSE3(nn.Module):
             raise ValueError('fuse_pairwise and global_radial require '
                              'shared_radial_hidden=True (their kernels take '
                              'the grouped w3/b3 layout)')
-        if global_radial and fourier_encode_dist:
-            raise ValueError('global_radial consumes raw distances only')
+        if global_radial and (fourier_encode_dist or edge_dim):
+            raise ValueError('global_radial consumes raw distances only (no '
+                             'fourier or edge features)')
         self.fiber_in, self.fiber_out = fiber_in, fiber_out
         self.pool = pool
         self.fourier_features = num_fourier_features \
@@ -311,16 +317,18 @@ class ConvSE3(nn.Module):
         self.edge_chunks = edge_chunks
         self.fuse_pairwise = fuse_pairwise
         self.global_radial = global_radial
+        self.edge_dim = edge_dim
         mid = DEFAULT_MID_DIM
-        edge_dim = 1 if not fourier_encode_dist \
-            else 2 * num_fourier_features + 1
+        # the trunk's input: the distance features, then the edges
+        in_dim = edge_dim + (1 if not fourier_encode_dist
+                             else 2 * num_fourier_features + 1)
         if shared_radial_hidden:
-            add_radial_trunk(self, edge_dim, mid)
+            add_radial_trunk(self, in_dim, mid)
         for d_out, m_out in fiber_out:
             for d_in, m_in in fiber_in:
                 if not shared_radial_hidden:
                     self.add_module(f'pair_{d_in}_{d_out}', PairwiseConvSE3(
-                        d_in, m_in, d_out, m_out, edge_dim=edge_dim,
+                        d_in, m_in, d_out, m_out, edge_dim=in_dim,
                         radial_bf16=radial_bf16, fuse_basis=fuse_basis,
                         edge_chunks=edge_chunks))
                     continue
@@ -334,12 +342,20 @@ class ConvSE3(nn.Module):
         self.self_interact = LinearSE3(fiber_in, fiber_out) \
             if self_interaction else None
 
-    def edge_features(self, rel_dist: torch.Tensor) -> torch.Tensor:
+    def edge_features(self, rel_dist: torch.Tensor,
+                      edges: Optional[torch.Tensor]) -> torch.Tensor:
         """The trunk's input: [b, n, k] distances -> [b, n, k, 1], or with
-        fourier_encode_dist [b, n, k, 2 * num_fourier_features + 1]."""
+        fourier_encode_dist [b, n, k, 2 * num_fourier_features + 1], then
+        the edges [b, n, k, edge_dim] concatenated after them."""
+        if (edges is None) != (self.edge_dim == 0) or (
+                edges is not None and edges.shape[-1] != self.edge_dim):
+            raise ValueError(f'the conv takes edges of width {self.edge_dim}, '
+                             f'got {None if edges is None else edges.shape}')
         feats = rel_dist[..., None]
         if self.fourier_features is not None:
             feats = fourier_encode(feats, num_encodings=self.fourier_features)
+        if edges is not None:
+            feats = torch.cat((feats, edges.to(feats.dtype)), dim=-1)
         return feats
 
     def radial_hidden(self, x: torch.Tensor) -> torch.Tensor:
@@ -357,11 +373,13 @@ class ConvSE3(nn.Module):
                                          for d_in, _ in self.fiber_in], dim=0)
         return w3s, b3s
 
-    def _program(self, rel_dist: torch.Tensor) -> dict:
+    def _program(self, rel_dist: torch.Tensor,
+                 edges: Optional[torch.Tensor]) -> dict:
         """The pairwise program of JAX ConvSE3(fuse_pairwise=True): the
-        radial hidden [b, n, k, mid] and the grouped w3/b3."""
+        radial hidden [b, n, k, mid] (of the distances and the edges) and
+        the grouped w3/b3."""
         w3s, b3s = self._grouped()
-        return dict(h=self.radial_hidden(self.edge_features(rel_dist)),
+        return dict(h=self.radial_hidden(self.edge_features(rel_dist, edges)),
                     pairs=tuple((d, c) for d, c in self.fiber_in),
                     arm='dense', w3=w3s, b3=b3s)
 
@@ -388,13 +406,13 @@ class ConvSE3(nn.Module):
         docstring; global_radial reads none of the arguments)."""
         if self.global_radial:
             return self._global_program()
+        neighbor_indices, neighbor_mask, edges = edge_info
         if self.fuse_pairwise:
-            return self._program(rel_dist)
-        neighbor_indices, neighbor_mask = edge_info
+            return self._program(rel_dist, edges)
         gathered = {str(d): batched_index_select(inp[str(d)],
                                                  neighbor_indices, dim=1)
                     for d, _ in self.fiber_in}       # [b, n, k, c_in, Q]
-        edge_feats = self.edge_features(rel_dist)
+        edge_feats = self.edge_features(rel_dist, edges)
         if not self.shared_radial_hidden:
             outputs = {}
             for d_out, _ in self.fiber_out:

@@ -14,8 +14,8 @@ neither. remat_policy=None replays everything. Neither changes the forward,
 and without autograd (serving) the blocks run as a plain loop.
 
 The attention fields (attend_self, use_null_kv, fourier_encode_dist,
-rel_dist_num_fourier_features, shared_radial_hidden, with the JAX
-defaults) and `pallas_attention` reach every attention block;
+rel_dist_num_fourier_features, shared_radial_hidden, edge_dim, with the
+JAX defaults) and `pallas_attention` reach every attention block;
 `fused_attention` holds one fuse_pairwise flag per block (the model
 resolves its rules).
 attention_mode='global' makes every block the kNN-free global attention
@@ -73,7 +73,7 @@ class SequentialTrunk(nn.Module):
                  radial_bf16: bool = False,
                  fused_attention: Optional[Sequence[bool]] = None,
                  attention_mode: str = 'knn',
-                 global_materialize: bool = False):
+                 global_materialize: bool = False, edge_dim: int = 0):
         super().__init__()
         if remat_policy is not None and not reversible:
             raise ValueError(f'remat_policy={remat_policy!r} requires '
@@ -94,7 +94,7 @@ class SequentialTrunk(nn.Module):
                 radial_bf16=radial_bf16,
                 fuse_pairwise=bool(fused_attention and fused_attention[i]),
                 attention_mode=attention_mode,
-                global_materialize=global_materialize))
+                global_materialize=global_materialize, edge_dim=edge_dim))
             self.add_module(f'ff_block{i}', FeedForwardBlockSE3(fiber))
 
     def _run(self, block: nn.Module, *args):

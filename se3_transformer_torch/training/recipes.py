@@ -1,5 +1,6 @@
 """Model recipes: the port of se3_transformer_tpu/training/recipes.py's
-`flagship`, `flagship_fast` and `af2_refinement`, with the same defaults."""
+`flagship`, `flagship_fast`, `af2_refinement`, `molecular_edges` and
+`toy_denoise`, with the same defaults."""
 from __future__ import annotations
 
 from ..models.se3_transformer import SE3TransformerModule
@@ -47,18 +48,50 @@ def flagship_fast(dim: int = 64, num_neighbors: int = 32,
         **overrides)
 
 
+def _recipe(fields: dict, overrides: dict) -> SE3TransformerModule:
+    """SE3TransformerModule of a recipe's fields, `overrides` replacing or
+    adding fields (the recipe's own included, e.g. `depth`; `device`
+    defaults to 'cuda', which raises without CUDA, and `generator` draws
+    the random weights)."""
+    return SE3TransformerModule(**dict(fields, **overrides))
+
+
 def af2_refinement(dim: int = 32, **overrides) -> SE3TransformerModule:
     """AlphaFold2-style coordinate refinement: a depth-2 kNN (k=12)
     SE(3)-transformer over degrees 0 and 1 with a vector head
     (output_degrees=2, reduce_dim_out) and coordinate gradients
     (differentiable_coors), on the JAX default model surface: a radial
     trunk per degree pair (no shared trunk), float32, V2 by einsum
-    contracted once per pair (kernel #3), 8 heads of 24. `overrides`
-    replace or add SE3TransformerModule fields (the recipe's own included,
-    e.g. `depth`); `device` defaults to 'cuda' (which raises without CUDA)
-    and `generator` draws the random weights."""
-    fields = dict(depth=2, input_degrees=1, num_degrees=2, output_degrees=2,
-                  differentiable_coors=True, reduce_dim_out=True,
-                  attend_self=True, num_neighbors=12)
-    fields.update(overrides)
-    return SE3TransformerModule(dim=dim, **fields)
+    contracted once per pair (kernel #3), 8 heads of 24."""
+    return _recipe(dict(dim=dim, depth=2, input_degrees=1, num_degrees=2,
+                        output_degrees=2, differentiable_coors=True,
+                        reduce_dim_out=True, attend_self=True,
+                        num_neighbors=12), overrides)
+
+
+def molecular_edges(dim: int = 32, **overrides) -> SE3TransformerModule:
+    """Edge-conditioned small molecules: atom tokens (28), bond-type edge
+    tokens (4) embedded into 4 edge features, the chain adjacency grown to
+    2 hops with 4-wide ring embeddings, and attention over the bonded
+    neighbors only (num_neighbors=0, up to 6 bonded a row); depth 2,
+    degrees 0 and 1, a scalar head, 8 heads of 24, on the JAX default
+    model surface. Call it with adj_mat and edges."""
+    return _recipe(dict(num_tokens=28, num_edge_tokens=4, edge_dim=4,
+                        dim=dim, depth=2, num_degrees=2, attend_self=True,
+                        num_neighbors=0, attend_sparse_neighbors=True,
+                        max_sparse_neighbors=6, num_adj_degrees=2,
+                        adj_dim=4, output_degrees=1), overrides)
+
+
+def toy_denoise(**overrides) -> SE3TransformerModule:
+    """denoise.py's toy point cloud model: tokens (24), dim 8, 2 heads of
+    8, depth 2, degrees 0 and 1 with a vector head, bonded attention only
+    (num_neighbors=0, up to 8 bonded a row, 2-hop adjacency with 4-wide
+    ring embeddings)."""
+    return _recipe(dict(num_tokens=24, dim=8, dim_head=8, heads=2, depth=2,
+                        attend_self=True, input_degrees=1, num_degrees=2,
+                        output_degrees=2, reduce_dim_out=True,
+                        differentiable_coors=True, num_neighbors=0,
+                        attend_sparse_neighbors=True,
+                        max_sparse_neighbors=8, num_adj_degrees=2,
+                        adj_dim=4), overrides)

@@ -1074,7 +1074,8 @@ def test_cuda_wide_conv_launches_forward_and_routes_backward(cuda_card,
         xs = {d: v.to(device).requires_grad_() for d, v in feats.items()}
         r = rel.to(device)
         basis = get_basis(r, 1, layout='pfq_flat' if fuse_basis else 'pqf')
-        args = (xs, (idx.to(device), mask.to(device)), r.norm(dim=-1), basis)
+        args = (xs, (idx.to(device), mask.to(device), None),
+                r.norm(dim=-1), basis)
         launches, fwd_routes = fwd.launches, fwd.routed
         bwd_launches = kp.fused_pairwise_conv_bwd.launches_a
         with torch.no_grad():
@@ -1097,27 +1098,61 @@ def test_cuda_wide_conv_launches_forward_and_routes_backward(cuda_card,
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-# the five configurations of tests/test_equivariance.py that the JAX
-# default surface makes buildable: name -> (model fields, batch, input
-# dims per degree, return type), as the reference tests build them
+# the nine configurations of tests/test_equivariance.py that the port
+# builds: name -> (model fields, batch, input dims per degree, return
+# type, the extra inputs), as the reference tests build them
 EQUIVARIANCE_CONFIGS = {
     'test_transformer': (dict(dim=64, depth=1, num_degrees=2,
-                              num_neighbors=4, valid_radius=10), 1, (64,), 0),
+                              num_neighbors=4, valid_radius=10), 1, (64,), 0,
+                         None),
+    'test_causal_se3_transformer': (
+        dict(dim=64, depth=1, num_degrees=2, num_neighbors=4,
+             valid_radius=10, causal=True), 1, (64,), 0, None),
+    'test_transformer_with_edges': (
+        dict(dim=64, depth=1, num_degrees=2, num_neighbors=4, edge_dim=4,
+             num_edge_tokens=4), 1, (64,), 0, 'edge_tokens'),
+    'test_transformer_with_continuous_edges': (
+        dict(dim=64, depth=1, attend_self=True, num_degrees=2,
+             output_degrees=2, edge_dim=34), 1, (64,), 1,
+        'continuous_edges'),
     'test_different_input_dimensions_for_types': (
         dict(dim_in=(4, 2), dim=4, depth=1, input_degrees=2, num_degrees=2,
-             output_degrees=2, reduce_dim_out=True), 2, (4, 2), 1),
+             output_degrees=2, reduce_dim_out=True), 2, (4, 2), 1, None),
     'test_equivariance': (dict(dim=64, depth=1, attend_self=True,
                                num_neighbors=4, num_degrees=2,
                                output_degrees=2, fourier_encode_dist=True),
-                          1, (64,), 1),
+                          1, (64,), 1, None),
+    'test_equivariance_only_sparse_neighbors': (
+        dict(dim=64, depth=1, attend_self=True, num_degrees=2,
+             output_degrees=2, num_neighbors=0, attend_sparse_neighbors=True,
+             num_adj_degrees=2, adj_dim=4), 1, (64,), 1, 'band_adjacency'),
     'test_equivariance_with_reversible_network': (
         dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
-             num_degrees=2, output_degrees=2, reversible=True), 1, (64,), 1),
+             num_degrees=2, output_degrees=2, reversible=True), 1, (64,), 1,
+        None),
     'test_equivariance_with_type_one_input': (
         dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
              num_degrees=2, input_degrees=2, output_degrees=2), 1, (64, 64),
-        1),
+        1, None),
 }
+
+
+def _extra_inputs(kind, b, n, rng):
+    """The reference tests' edge and adjacency inputs as tensors: edge
+    tokens constant along a row, Fourier features of random integer pairs
+    (34 wide), the band |i - j| <= 1 with the diagonal set."""
+    from se3_transformer_torch.utils.helpers import fourier_encode
+    if kind == 'edge_tokens':
+        tokens = torch.from_numpy(rng.randint(0, 4, (b, n)))
+        return dict(edges=tokens[:, :, None].expand(b, n, n))
+    if kind == 'continuous_edges':
+        values = rng.randint(0, 4, (b, n, n, 2)).astype(np.float32)
+        return dict(edges=fourier_encode(torch.from_numpy(values),
+                                         num_encodings=8))
+    if kind == 'band_adjacency':
+        seq = torch.arange(n)
+        return dict(adj_mat=(seq[:, None] - seq[None, :]).abs() <= 1)
+    return {}
 
 
 @pytest.mark.cuda
@@ -1130,7 +1165,7 @@ def test_cuda_equivariance_configs_match_cpu(cuda_card, case):
     from se3_transformer_torch import SE3TransformerModule
     from se3_transformer_torch.so3 import rot
     torch.backends.cuda.matmul.allow_tf32 = False
-    fields, b, dims, return_type = EQUIVARIANCE_CONFIGS[case]
+    fields, b, dims, return_type, kind = EQUIVARIANCE_CONFIGS[case]
     rng = np.random.RandomState(0)
     n = 32
     if len(dims) == 1:
@@ -1139,6 +1174,7 @@ def test_cuda_equivariance_configs_match_cpu(cuda_card, case):
         feats = {str(d): rng.normal(size=(b, n, c, 2 * d + 1))
                  .astype(np.float32) for d, c in enumerate(dims)}
     coors = rng.normal(size=(b, n, 3)).astype(np.float32)
+    extra = _extra_inputs(kind, b, n, rng)
     R = rot(15, 0, 45)
 
     def rotate(x):
@@ -1150,7 +1186,9 @@ def test_cuda_equivariance_configs_match_cpu(cuda_card, case):
         with torch.no_grad():
             return model(f, torch.from_numpy(c).to(device),
                          torch.ones(b, n, dtype=torch.bool, device=device),
-                         return_type=return_type).cpu().numpy()
+                         return_type=return_type,
+                         **{k: v.to(device) for k, v in extra.items()}
+                         ).cpu().numpy()
     outs = {}
     for device in ('cpu', 'cuda'):
         model = SE3TransformerModule(

@@ -241,10 +241,11 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize('field,value', [
-    ('causal', True), ('num_positions', 4), ('conv_bf16', True),
-    ('use_null_kv', True), ('edge_dim', 4), ('rotary_position', True),
-    ('attend_sparse_neighbors', True), ('global_feats_dim', 16),
-    ('one_headed_key_values', True), ('use_egnn', True)])
+    ('tie_key_values', True), ('linear_proj_keys', True),
+    ('conv_bf16', True), ('use_null_kv', True), ('rotary_rel_dist', True),
+    ('rotary_position', True), ('norm_gated_scale', True),
+    ('global_feats_dim', 16), ('one_headed_key_values', True),
+    ('use_egnn', True)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError):
         SE3TransformerModule(**dict(TWIN, **{field: value}), device='cpu')

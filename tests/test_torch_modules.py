@@ -80,7 +80,7 @@ def run_both(jax_mod, torch_cls, torch_kwargs, fiber_in, max_degree, seed,
     mod.load_state_dict(convert_flax_params(params, mod))
     with torch.no_grad():
         out = mod({k: torch.from_numpy(v) for k, v in feats.items()},
-                  (torch.from_numpy(idx).long(), torch.from_numpy(mask)),
+                  (torch.from_numpy(idx).long(), torch.from_numpy(mask), None),
                   torch.from_numpy(rel_dist),
                   get_basis(torch.from_numpy(rel_pos), max_degree,
                             layout=layout))
@@ -140,7 +140,8 @@ def test_conv_is_equivariant():
         with torch.no_grad():
             out = conv({k: torch.from_numpy(v.astype(np.float32))
                         for k, v in feats.items()},
-                       (torch.from_numpy(idx).long(), torch.from_numpy(mask)),
+                       (torch.from_numpy(idx).long(),
+                        torch.from_numpy(mask), None),
                        rel.norm(dim=-1), get_basis(rel, 3, layout='pfq_flat'))
         return {k: v.double().numpy() for k, v in out.items()}
 
@@ -222,7 +223,7 @@ def test_fused_branch_refuses_the_structured_basis():
                 size=tuple(p.shape)).astype(np.float32)) * 0.3)
     rel = torch.from_numpy(rel_pos)
     outs = [conv({k: torch.from_numpy(v) for k, v in feats.items()},
-                 (torch.from_numpy(idx).long(), torch.from_numpy(mask)),
+                 (torch.from_numpy(idx).long(), torch.from_numpy(mask), None),
                  rel.norm(dim=-1), get_basis(rel, 1, layout=layout))
             for layout in ('pqf', 'pfq_flat')]
     for d in outs[1]:
@@ -247,7 +248,8 @@ def test_edge_chunks_leave_the_conv_and_its_gradients_unchanged(fuse_basis):
                 p.copy_(torch.from_numpy(np.random.RandomState(i).normal(
                     size=tuple(p.shape)).astype(np.float32)) * 0.3)
         x = {k: torch.from_numpy(v).requires_grad_() for k, v in feats.items()}
-        out = conv(x, (torch.from_numpy(idx).long(), torch.from_numpy(mask)),
+        out = conv(x, (torch.from_numpy(idx).long(),
+                       torch.from_numpy(mask), None),
                    rel.norm(dim=-1), basis)
         sum((v * v).sum() for v in out.values()).backward()
         results.append(({k: v.detach() for k, v in out.items()},
@@ -430,7 +432,8 @@ def test_routed_conv_runs_the_plain_body(monkeypatch, fuse_basis, layout,
         xs = {k: torch.from_numpy(v).requires_grad_() for k, v in
               feats.items()}
         out = conv(xs, (torch.from_numpy(idx).long(),
-                        torch.from_numpy(mask)), rel.norm(dim=-1), basis)
+                        torch.from_numpy(mask), None), rel.norm(dim=-1),
+                   basis)
         sum((o ** 2).sum() for o in out.values()).backward()
         results.append(([out[k].detach() for k in sorted(out)],
                         [xs[k].grad for k in sorted(xs)]

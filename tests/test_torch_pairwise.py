@@ -534,7 +534,8 @@ def test_conv_takes_the_structured_basis_as_jax_does(deg_in, deg_out, pool):
     conv.load_state_dict(convert_flax_params(params, conv))
     with torch.no_grad():
         out = conv({d: torch.from_numpy(v) for d, v in feats.items()},
-                   (torch.from_numpy(idx).long(), torch.from_numpy(mask)),
+                   (torch.from_numpy(idx).long(),
+                    torch.from_numpy(mask), None),
                    torch.from_numpy(rel_dist),
                    get_basis(torch.from_numpy(rel_pos), max_degree,
                              layout='pqf'))

@@ -3,10 +3,11 @@
 above 1 and the fiber fields. A reduced af2_refinement twin against the JAX
 SE3TransformerModule on converted parameters (output, loss, every gradient
 and the coordinate gradient, with the flat and the structured basis); the
-five configurations of tests/test_equivariance.py that this surface makes
-buildable (equivariant at their own widths, JAX parity at reduced widths);
-the per-pair basis-fused conv; the fiber fields; the backward's plain
-versions at O = 192; the converter on per-pair trees. Parameters and
+nine configurations of tests/test_equivariance.py that the port builds
+(equivariant at their own widths, JAX parity at reduced widths; those
+with edges, an adjacency or causal masking on the reference tests' own
+inputs); the per-pair basis-fused conv; the fiber fields; the backward's
+plain versions at O = 192; the converter on per-pair trees. Parameters and
 inputs are made from a seed with numpy."""
 import jax
 import jax.numpy as jnp
@@ -74,23 +75,26 @@ def _jax_feats(feats):
     return feats
 
 
-def _twins(cfg, feats, coors, mask, return_type, seed=1):
+def _twins(cfg, feats, coors, mask, return_type, seed=1, **extra):
     """(JAX output, port output, params) of one configuration on shared
-    random parameters."""
+    random parameters; `extra` are more forward inputs (numpy arrays:
+    edges, adj_mat)."""
     jm = JaxModule(**cfg)
     jf = _jax_feats(feats)
     shapes = jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), jf, coors, mask=mask,
-        return_type=return_type))['params']
+        return_type=return_type, **extra))['params']
     params = _random_params(shapes, seed)
     ref = jax.jit(lambda p: jm.apply({'params': p}, jf, coors, mask=mask,
-                                     return_type=return_type))(params)
+                                     return_type=return_type,
+                                     **extra))(params)
     tm = SE3TransformerModule(**cfg, device='cpu')
     tm.load_state_dict(convert_flax_params(params, tm))
     with torch.no_grad():
         out = tm(_torch_feats(feats), torch.from_numpy(coors),
                  None if mask is None else torch.from_numpy(mask),
-                 return_type=return_type)
+                 return_type=return_type,
+                 **{k: torch.from_numpy(v) for k, v in extra.items()})
     return jax.tree_util.tree_map(np.asarray, ref), out, params
 
 
@@ -274,31 +278,66 @@ def test_differentiable_coors_reaches_the_basis():
 # the equivariance gate: the configurations of tests/test_equivariance.py
 # that this surface makes buildable
 # ---------------------------------------------------------------------- #
-# name -> (model fields, batch, input dims per degree, return type), as
-# the reference tests build them
+# name -> (model fields, batch, input dims per degree, return type, the
+# extra inputs), as the reference tests build them
 EQUIVARIANCE_CASES = {
     'test_transformer': (dict(dim=64, depth=1, num_degrees=2,
-                              num_neighbors=4, valid_radius=10), 1, (64,), 0),
+                              num_neighbors=4, valid_radius=10), 1, (64,), 0,
+                         None),
+    'test_causal_se3_transformer': (
+        dict(dim=64, depth=1, num_degrees=2, num_neighbors=4,
+             valid_radius=10, causal=True), 1, (64,), 0, None),
+    'test_transformer_with_edges': (
+        dict(dim=64, depth=1, num_degrees=2, num_neighbors=4, edge_dim=4,
+             num_edge_tokens=4), 1, (64,), 0, 'edge_tokens'),
+    'test_transformer_with_continuous_edges': (
+        dict(dim=64, depth=1, attend_self=True, num_degrees=2,
+             output_degrees=2, edge_dim=34), 1, (64,), 1,
+        'continuous_edges'),
     'test_different_input_dimensions_for_types': (
         dict(dim_in=(4, 2), dim=4, depth=1, input_degrees=2, num_degrees=2,
-             output_degrees=2, reduce_dim_out=True), 2, (4, 2), 1),
+             output_degrees=2, reduce_dim_out=True), 2, (4, 2), 1, None),
     'test_equivariance': (dict(dim=64, depth=1, attend_self=True,
                                num_neighbors=4, num_degrees=2,
                                output_degrees=2, fourier_encode_dist=True),
-                          1, (64,), 1),
+                          1, (64,), 1, None),
+    'test_equivariance_only_sparse_neighbors': (
+        dict(dim=64, depth=1, attend_self=True, num_degrees=2,
+             output_degrees=2, num_neighbors=0, attend_sparse_neighbors=True,
+             num_adj_degrees=2, adj_dim=4), 1, (64,), 1, 'band_adjacency'),
     'test_equivariance_with_reversible_network': (
         dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
-             num_degrees=2, output_degrees=2, reversible=True), 1, (64,), 1),
+             num_degrees=2, output_degrees=2, reversible=True), 1, (64,), 1,
+        None),
     'test_equivariance_with_type_one_input': (
         dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
              num_degrees=2, input_degrees=2, output_degrees=2), 1, (64, 64),
-        1),
+        1, None),
 }
 
 
-def _equivariance_inputs(b, dims, n, seed=0):
+def _extra_inputs(kind, b, n, rng):
+    """The reference tests' edge and adjacency inputs (invariant under a
+    rotation): edge tokens constant along a row, Fourier features of
+    random integer pairs (8 scales and the values, 34 wide), the band
+    |i - j| <= 1 with the diagonal set."""
+    if kind == 'edge_tokens':
+        tokens = rng.randint(0, 4, (b, n))
+        return dict(edges=np.broadcast_to(tokens[:, :, None],
+                                          (b, n, n)).copy())
+    if kind == 'continuous_edges':
+        values = rng.randint(0, 4, (b, n, n, 2)).astype(np.float32)
+        return dict(edges=fourier_encode(torch.from_numpy(values),
+                                         num_encodings=8).numpy())
+    if kind == 'band_adjacency':
+        seq = np.arange(n)
+        return dict(adj_mat=np.abs(seq[:, None] - seq[None, :]) <= 1)
+    return {}
+
+
+def _equivariance_inputs(b, dims, n, seed=0, extra=None):
     """feats (a [b, n, d] array, or the degrees' dict with degree 1 in
-    Cartesian order), coordinates, mask."""
+    Cartesian order), coordinates, mask, the extra inputs."""
     rng = np.random.RandomState(seed)
     if len(dims) == 1:
         feats = rng.normal(size=(b, n, dims[0])).astype(np.float32)
@@ -306,7 +345,8 @@ def _equivariance_inputs(b, dims, n, seed=0):
         feats = {str(d): rng.normal(size=(b, n, c, 2 * d + 1))
                  .astype(np.float32) for d, c in enumerate(dims)}
     coors = rng.normal(size=(b, n, 3)).astype(np.float32)
-    return feats, coors, np.ones((b, n), bool)
+    return feats, coors, np.ones((b, n), bool), \
+        _extra_inputs(extra, b, n, rng)
 
 
 def _rotate(x, R):
@@ -319,10 +359,12 @@ def test_equivariance_config_is_equivariant(case):
     """At the reference test's own widths (n 32): the vector output rotates
     with the coordinates (and the degree-1 input), the scalar one does not
     move, within the reference's 1e-4."""
-    fields, b, dims, return_type = EQUIVARIANCE_CASES[case]
+    fields, b, dims, return_type, kind = EQUIVARIANCE_CASES[case]
     model = SE3TransformerModule(**fields, device='cpu',
                                  generator=torch.Generator().manual_seed(0))
-    feats, coors, mask = _equivariance_inputs(b, dims, 32)
+    feats, coors, mask, extra = _equivariance_inputs(b, dims, 32,
+                                                     extra=kind)
+    extra = {k: torch.from_numpy(v) for k, v in extra.items()}
     R = rot(15, 0, 45)
     feats_r = {k: (_rotate(v, R) if k == '1' else v)
                for k, v in feats.items()} if isinstance(feats, dict) \
@@ -330,7 +372,7 @@ def test_equivariance_config_is_equivariant(case):
     with torch.no_grad():
         out, out_r = (model(_torch_feats(f), torch.from_numpy(c),
                             torch.from_numpy(mask),
-                            return_type=return_type).numpy()
+                            return_type=return_type, **extra).numpy()
                       for f, c in ((feats, coors),
                                    (feats_r, _rotate(coors, R))))
     want_shape = (b, 32) + ((64,) if not fields.get('reduce_dim_out')
@@ -344,13 +386,14 @@ def test_equivariance_config_is_equivariant(case):
 def test_equivariance_config_matches_jax(case):
     """The same configuration at reduced widths (dim 8, 2 heads of 8, n
     12) against the JAX module on converted parameters."""
-    fields, b, dims, return_type = EQUIVARIANCE_CASES[case]
+    fields, b, dims, return_type, kind = EQUIVARIANCE_CASES[case]
     fields = dict(fields, heads=2, dim_head=8)
     if fields['dim'] == 64:
         fields['dim'] = 8
         dims = tuple(8 for _ in dims)
-    feats, coors, mask = _equivariance_inputs(b, dims, 12, seed=1)
-    ref, out, _ = _twins(fields, feats, coors, mask, return_type)
+    feats, coors, mask, extra = _equivariance_inputs(b, dims, 12, seed=1,
+                                                     extra=kind)
+    ref, out, _ = _twins(fields, feats, coors, mask, return_type, **extra)
     assert out.shape == ref.shape
     assert _rel_err(out.numpy(), ref) <= RTOL_F32
 
@@ -389,7 +432,8 @@ def test_per_pair_fuse_basis_conv_matches_jax(pool, fourier, edge_chunks):
     conv.load_state_dict(convert_flax_params(params, conv))
     with torch.no_grad():
         out = conv({d: torch.from_numpy(v) for d, v in feats.items()},
-                   (torch.from_numpy(idx).long(), torch.from_numpy(mask)),
+                   (torch.from_numpy(idx).long(),
+                    torch.from_numpy(mask), None),
                    torch.from_numpy(rel_dist),
                    get_basis(torch.from_numpy(rel_pos), 2,
                              layout='pfq_flat'))

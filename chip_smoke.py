@@ -39,25 +39,33 @@ failure:
               its plain version at the four flagship_fast output degrees;
               the global attention kernel (7g) against its plain stream at
               the assembly model's served shapes (n 4096, the last 57
-              nodes masked, two prefix slots, d_out 0 and 1).
+              nodes masked, two prefix slots, d_out 0 and 1). The tied
+              variants (tie_key_values: one conv pass, or one trunk and one
+              radial product, a tile) of #7 at the four flagship_fast
+              degrees with the [null, self] prefix and of 7g at the
+              assembly shapes, each against its tied plain stream and
+              timed beside the untied kernel on the same operands.
   bx          kernel #2's path: a hidden ConvSE3 of flagship_fast given
               the structured basis at E = 32768, exactly 16 launches of #2;
               the conv against the flat basis through #1 (the same bits),
               its 16 pair contractions and one backward against their
               plain versions.
   global serve  the assembly model (attention_mode='global', seeded and
-              conditioned weights) served by InferenceEngine at bucket
-              4096 with return_type=1 on requests of 4096, 4039 and 3000
-              nodes: per request latency, device busy and idle share, host
-              syncs, peak memory, exactly 2 launches of 7g and none of any
-              other kernel; rotation equivariance of the vector output.
+              conditioned weights), untied and with tie_key_values, served
+              by InferenceEngine at bucket 4096 with return_type=1 on
+              requests of 4096, 4039 and 3000 nodes: per request latency,
+              device busy and idle share, host syncs, peak memory, exactly
+              2 launches of 7g and none of any other kernel; rotation
+              equivariance of the vector output.
   6. serve    each path's forward (dim=64, depth=DEPTH, 4 degrees, 8
               heads, k=32, random seeded weights) served by InferenceEngine
               at bucket 1024: finite outputs, exactly the counted kernel
               launches per request (flagship_fast: 200 bxf; with
               pallas_attention=True also 24 fused-attention forwards; with
-              fuse_pairwise=True 8 bxf and 24 streaming attentions;
-              flagship: 424 fwd, no bxf), rotation invariance of the scalar
+              fuse_pairwise=True 8 bxf and 24 streaming attentions, and as
+              many with tie_key_values and use_null_kv (#7's tied variant,
+              the [null, self] prefix); flagship: 424 fwd, no bxf),
+              rotation invariance of the scalar
               output; af2_refinement (dim 32, depth 2, degrees 0 and 1, k 12,
               a radial trunk per pair) on requests of 32 features: 16 fwd
               and exactly 6 routed (conv_in's and conv_out's O = 32 pairs)
@@ -76,18 +84,21 @@ failure:
               launches per step (flagship_fast, save_conv_outputs: 204
               forward, 200 + 200 backward, 396 forward under remat_policy
               None, and with pallas_attention 48 attention forwards (the
-              checkpoint replay recomputes them) and 24 backwards;
-              flagship, no policy: 816 forward, 424 + 424 backward, 432
-              forward under save_conv_outputs; af2_refinement: 16 fwd, 16 +
+              checkpoint replay recomputes them) and 24 backwards; with
+              tie_key_values (no to_k convs) 108 forward, 104 + 104
+              backward; flagship, no policy: 816 forward, 424 + 424
+              backward, 432 forward under save_conv_outputs;
+              af2_refinement: 16 fwd, 16 +
               16 backward, exactly 6 routed; molecular_edges:
               property_loss on its pooled scalar head, 16 fwd, 16 + 16
               backward, exactly 4 routed), step time, nodes*steps/s, peak
               memory and a profile.
   route       C1's repair: models past the kernels' limits (the JAX
               DenoiseConfig widths, dim 8, heads 2, dim_head 8, two
-              degrees; and with fuse_pairwise, heads * dim_head = 16)
-              served on the card: every pairwise (and streaming attention)
-              call routed to its plain version, counted in the wrappers'
+              degrees; and with fuse_pairwise, heads * dim_head = 16,
+              also with one kv head) served on the card: every pairwise
+              (and streaming attention) call routed to its plain version,
+              counted in the wrappers'
               .routed, warned, no kernel launched, and the output within
               REF_RTOL_F32 of the same model on the CPU. A ConvSE3 of
               128 channels (O = 128, two O tiles): without grad it launches
@@ -96,14 +107,16 @@ failure:
               but af2_refinement's and molecular_edges', which route
               exactly their O = 32 pairs.
   8. reference  small models of both flagship recipes, both attention knobs
-              and af2_refinement's fields, and molecular_edges at depth 1
+              (fuse_pairwise also tied with the null slot; pallas_attention
+              also with one kv head and the null slot) and af2_refinement's
+              fields, and molecular_edges at depth 1
               (n 40, 6 atoms masked), on the card (kernel path) against
               the same weights on the CPU
               (plain path): the forward, and one training step's loss and
               every gradient (the fuse_pairwise step runs the streaming
               attention's recompute backward on the card); the assembly
-              model at n 64 on the card against the CPU, forward and one
-              backward through the replay.
+              model, untied and tied, at n 64 on the card against the CPU,
+              forward and one backward through the replay.
 
 Prints per-shape, per-request and per-step lines, then the nvidia-smi line,
 a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}.
@@ -176,6 +189,15 @@ FLAGSHIP_BWD_LAUNCHES = FLAGSHIP_SERVE_LAUNCHES
 # block: bxf runs only for conv_in (1 x 4 pairs) and conv_out (4 x 1).
 ATTN_LAUNCHES = DEPTH * 4
 FLASH_BXF_LAUNCHES = 4 + 4
+# flagship_fast with tie_key_values: no to_k conv, so each block's pairs are
+# to_v's 16 alone. A training step: conv_in 4, DEPTH x 16, conv_out 4 x 2
+# forward (save_conv_outputs), kernels A and B on conv_in's, to_v's and
+# conv_out's degree-1 head (4 + DEPTH x 16 + 4). Served with fuse_pairwise
+# (and the null slot), the kv convs are programs either way: 8 bxf and 24
+# streaming attentions a request, as untied.
+TIE_REPLAY_LAUNCHES = DEPTH * 16
+TIE_TRAIN_LAUNCHES = 4 + TIE_REPLAY_LAUNCHES + 8
+TIE_BWD_LAUNCHES = 4 + TIE_REPLAY_LAUNCHES + 4
 
 # the launch counters, in the order of every launch tuple below
 COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
@@ -873,7 +895,8 @@ def phase_attention(peaks):
     return rows, worst
 
 
-def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks):
+def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks,
+               convs=2):
     """(bound_ms, bound_by, flops, bound_ms_fma) of one flash_attention
     call: each input read once (q, the node features, idx, the mask, h_k
     and h_v, both convs' w3 and b3, the SH stack, the prefix slots), the
@@ -883,7 +906,8 @@ def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks):
     h_lo.W_hi]), beside the float32 work on the CUDA cores (the basis and
     V2 once, the applies of k and v, the attention); the operations take
     the longer of the two pipes. bound_ms_fma is the bound with all of it
-    on fp32 FMAs (what the kernel's earlier version ran)."""
+    on fp32 FMAs (what the kernel's earlier version ran). convs=1 is the
+    tied call: one h, one w3 and b3, one radial product and apply."""
     bf16_peak, f32_peak, mem = peaks
     E, mid, O, P = n * K, 128, 64, 2 * d_out + 1
     IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
@@ -893,14 +917,15 @@ def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks):
         for J in range(lo, d + d_out + 1):
             basis += 2.0 * E * P * Q * (2 * J + 1)
             v2 += 2.0 * E * P * c * Q
-    radial = 2 * 2.0 * E * mid * IF * O
-    apply = 2 * 2.0 * E * P * IF * O
+    radial = convs * 2.0 * E * mid * IF * O
+    apply = convs * 2.0 * E * P * IF * O
     attn = 4.0 * n * heads * (S0 + K) * Dh
     flops = basis + v2 + radial + apply + attn
     passes = 2 if h_bytes == 2 else 3
     nbytes = (2 * n * heads * Dh * 4 + sum(n * c * (2 * d + 1) * 4
                                            for d, c in pairs)
-              + E * 8 + E + 2 * E * mid * h_bytes + 2 * (mid + 1) * IF * O * 4
+              + E * 8 + E + convs * E * mid * h_bytes
+              + convs * (mid + 1) * IF * O * 4
               + E * S * 4 + 2 * n * S0 * heads * Dh * 4)
     ops_s = max(passes * radial / bf16_peak,
                 (basis + v2 + apply + attn) / f32_peak)
@@ -987,6 +1012,69 @@ def phase_flash(peaks):
             rows.append(row)
         log('flash', json.dumps(row))
         del ops
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def tied(cfg, ops, names=('h_k', 'wk', 'bk')):
+    """A kernel call's (cfg, ops) with the keys tied to the values: the
+    same operands without the keys' own."""
+    return cfg._replace(tie=True), dict(ops, **{k: None for k in names})
+
+
+def phase_flash_tie(peaks):
+    """Kernel #7's tied variant (tie_key_values: one conv pass a tile, read
+    as k and as v) against the tied plain stream at the four
+    flagship_fast output degrees with the [null, self] prefix (n 1024, K
+    32, heads 8 of 8, four input degrees of 64 channels, bf16 h): within
+    KERNEL_RTOL of max|plain|, the same bits on a repeat; its time beside
+    the untied kernel's on the same operands (untied, tied, tied, untied:
+    one cuda_ms each), the tied and untied bounds. Returns the rows and
+    the worst error."""
+    from se3_transformer_torch.kernels import flash as kf
+    gen = torch.Generator(device='cuda').manual_seed(21)
+    rows, worst = [], 0.0
+    for d_out in range(4):
+        n, K, prefix = 1024, 32, 2
+        ucfg, uops = flash_operands(gen, n, K, d_out, torch.bfloat16, prefix)
+        cfg, ops = tied(ucfg, uops)
+        label = f'flash tie d_out={d_out}'
+        out = kf.flash_attention_fwd(cfg, ops)
+        again = kf.flash_attention_fwd(cfg, ops)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f'{label}: two runs differ')
+        ref = kf.flash_attention_plain(cfg, ops)
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
+            raise AssertionError(f'{label}: max_abs_err {err} > '
+                                 f'{KERNEL_RTOL} * max|plain| {scale}')
+        worst = max(worst, err)
+        del out, again, ref
+        untied_ms = [cuda_ms(lambda: kf.flash_attention_fwd(ucfg, uops),
+                             reps=5)]
+        ms = [cuda_ms(lambda: kf.flash_attention_fwd(cfg, ops), reps=5)
+              for _ in range(2)]
+        untied_ms.append(cuda_ms(lambda: kf.flash_attention_fwd(ucfg, uops),
+                                 reps=5))
+        plain_ms = cuda_ms(lambda: kf.flash_attention_plain(cfg, ops), reps=2)
+        P, Dh = 2 * d_out + 1, 8 * (2 * d_out + 1)
+        cost = (n, K, cfg.pairs, d_out, cfg.heads, Dh, ops['sh'].shape[-1],
+                prefix, 2, peaks)
+        bound_ms, bound_by, flops, _ = flash_cost(*cost, convs=1)
+        untied_bound_ms = flash_cost(*cost)[0]
+        row = dict(d_out=d_out, P=P, IF=ops['wv'].shape[1], n=n, K=K,
+                   prefix=prefix, h_dtype='bfloat16', tie=True,
+                   max_abs_err=err, max_abs_plain=scale, rel_err=err / scale,
+                   ms=float(np.mean(ms)), ms_runs=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   untied_ms=float(np.mean(untied_ms)),
+                   untied_ms_runs=untied_ms, untied_bound_ms=untied_bound_ms,
+                   tflops=flops / np.mean(ms) / 1e9)
+        rows.append(row)
+        log('flash_tie', json.dumps(row))
+        del ops, uops
         torch.cuda.empty_cache()
     return rows, worst
 
@@ -1137,7 +1225,7 @@ LN_GELU_OPS = 16
 
 
 def global_cost(n, pairs, d_out, heads, dim_head, S0, peaks, nodes=8,
-                cluster=2):
+                cluster=2, trunks=2):
     """(bound_ms, bound_by, flops, bound_ms_fma, w_l2_gb) of one
     flash_global_attention call over all n^2 pairs: each input read once
     (q, the node features, the coordinates and mask, both trunks'
@@ -1156,36 +1244,38 @@ def global_cost(n, pairs, d_out, heads, dim_head, S0, peaks, nodes=8,
     trunks, bf16 hi + lo, W3's i padded to 4 a stage) and b3 that the
     kernel reads from L2: once per block of 16 kv nodes for each cluster
     of `cluster` CTAs of `nodes` query nodes (a tile of 128 pairs a CTA,
-    each stage multicast to the cluster)."""
+    each stage multicast to the cluster). trunks=1 is the tied call: one
+    trunk, one w3 and b3, one radial product and apply."""
     bf16_peak, f32_peak, mem = peaks
     mid, P = 128, 2 * d_out + 1
     O = heads * dim_head
     IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
-    dense1 = 2 * 2.0 * mid * mid
-    radial = 2 * 2.0 * mid * IF * O
+    dense1 = trunks * 2.0 * mid * mid
+    radial = trunks * 2.0 * mid * IF * O
     basis_v2 = 0.0
     for d, c in pairs:
         Q, lo = 2 * d + 1, abs(d - d_out)
         for J in range(lo, d + d_out + 1):
             basis_v2 += 2.0 * P * Q * (2 * J + 1) + 2.0 * P * c * Q
-    apply = 2 * 2.0 * P * IF * O
+    apply = trunks * 2.0 * P * IF * O
     attn = 4.0 * O * P
-    trunk = 2 * 2.0 * mid + 2 * 2 * mid * LN_GELU_OPS
+    trunk = trunks * (2.0 * mid + 2 * mid * LN_GELU_OPS)
     pairs_n = float(n) * n
     fma_flops = (dense1 + basis_v2 + radial + apply + attn) * pairs_n
     flops = fma_flops + trunk * pairs_n
     Dh = dim_head * P
     nbytes = 4 * (2 * n * heads * Dh + sum(n * c * (2 * d + 1)
                                            for d, c in pairs)
-                  + 3 * n + 2 * (7 * mid + mid * mid)
-                  + 2 * (mid + 1) * IF * O + 2 * n * S0 * heads * Dh) + n
+                  + 3 * n + trunks * (7 * mid + mid * mid)
+                  + trunks * (mid + 1) * IF * O + 2 * n * S0 * heads * Dh) + n
     bytes_s = nbytes / mem
     ops_s = max(3 * (dense1 + radial) * pairs_n / bf16_peak,
                 (basis_v2 + apply + attn + trunk) * pairs_n / f32_peak)
     fma_s = max(fma_flops / f32_peak, bytes_s)
     IF4 = -(-IF // 4) * 4
     tiles = -(-n // (nodes * cluster)) * -(-n // 16)
-    w_l2_gb = tiles * (2 * 2 * mid * (mid + IF4 * O) * 2 + 2 * IF4 * O * 4) / 1e9
+    w_l2_gb = tiles * trunks * (2 * mid * (mid + IF4 * O) * 2
+                                + IF4 * O * 4) / 1e9
     return max(ops_s, bytes_s) * 1e3, \
         'operations' if ops_s >= bytes_s else 'bytes', flops, fma_s * 1e3, \
         w_l2_gb
@@ -1264,8 +1354,90 @@ def phase_flash_global(peaks):
     return rows, worst
 
 
-def phase_global_serve(st, want):
-    """The assembly model (seeded weights, conditioned) served through
+def phase_global_tie(peaks):
+    """Kernel 7g's tied variant (one trunk and one radial product a tile)
+    against the tied plain stream at the assembly model's served shapes
+    (n 4096, the last 57 nodes masked, the [null, self] prefix, two input
+    degrees of 8 channels, d_out 0 and 1): within F32_RTOL, the same bits
+    on a repeat; its time beside the untied kernel's on the same operands
+    (untied, tied, tied, untied), the tied and untied bounds. Returns the
+    rows and the worst error."""
+    from se3_transformer_torch.kernels import flash as kf
+    gen = torch.Generator(device='cuda').manual_seed(22)
+    n, heads, dim_head, mid, pad = GLOBAL_BUCKET, 2, 8, 128, 57
+
+    def rand(*shape, s=1.0):
+        return torch.randn(*shape, device='cuda', generator=gen) * s
+
+    def trunk():
+        return (rand(1, mid), rand(1, mid, s=0.1), 1 + rand(1, mid, s=0.1),
+                rand(1, mid, s=0.1), rand(mid, mid, s=mid ** -0.5),
+                rand(1, mid, s=0.1), 1 + rand(1, mid, s=0.1),
+                rand(1, mid, s=0.1))
+    coords = torch.cumsum(rand(1, n, 3), dim=1)
+    coords[:, n - pad:] = 0.
+    node_mask = (torch.arange(n, device='cuda') < n - pad)[None]
+    xs = tuple(rand(1, n, c, 2 * d + 1) for d, c in GLOBAL_PAIRS)
+    rp_v, rp_k = trunk(), trunk()
+    rows, worst = [], 0.0
+    for d_out in (0, 1):
+        P, O = 2 * d_out + 1, heads * dim_head
+        IF = sum(c * (2 * min(d, d_out) + 1) for d, c in GLOBAL_PAIRS)
+        w = (mid * IF) ** -0.5
+        uops = dict(q=rand(1, n, heads, dim_head * P), xs=xs, coords=coords,
+                    rp_v=rp_v, rp_k=rp_k, wv=rand(mid, IF, O, s=w),
+                    bv=rand(IF, O, s=0.1), wk=rand(mid, IF, O, s=w),
+                    bk=rand(IF, O, s=0.1), node_mask=node_mask,
+                    prefix_k=rand(1, n, 2, O * P),
+                    prefix_v=rand(1, n, 2, O * P))
+        ucfg = kf.FlashConfig(pairs=GLOBAL_PAIRS, d_out=d_out, heads=heads,
+                              kv_heads=heads, scale=dim_head ** -0.5,
+                              prefix=2, mode='global', exclude_self=True)
+        cfg, ops = tied(ucfg, uops, ('wk', 'bk'))
+        ops['rp_k'] = ()
+        label = f'flash_global tie d_out={d_out}'
+        out = kf.flash_global_attention_fwd(cfg, ops)
+        again = kf.flash_global_attention_fwd(cfg, ops)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f'{label}: two runs differ')
+        t0 = time.perf_counter()
+        ref = kf.flash_global_plain(cfg, ops)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (torch.isfinite(out).all() and err <= F32_RTOL * scale):
+            raise AssertionError(f'{label}: max_abs_err {err} > {F32_RTOL} '
+                                 f'* max|plain| {scale}')
+        worst = max(worst, err)
+        del out, again, ref
+        untied_ms = [cuda_ms(lambda: kf.flash_global_attention_fwd(
+            ucfg, uops), reps=3)]
+        ms = [cuda_ms(lambda: kf.flash_global_attention_fwd(cfg, ops),
+                      reps=3) for _ in range(2)]
+        untied_ms.append(cuda_ms(lambda: kf.flash_global_attention_fwd(
+            ucfg, uops), reps=3))
+        cost = (n, GLOBAL_PAIRS, d_out, heads, dim_head, 2, peaks)
+        bound_ms, bound_by, flops, _, w_l2_gb = global_cost(*cost, trunks=1)
+        untied_bound_ms = global_cost(*cost)[0]
+        row = dict(d_out=d_out, P=P, IF=IF, n=n, masked=pad, tie=True,
+                   max_abs_err=err, max_abs_plain=scale, rel_err=err / scale,
+                   ms=float(np.mean(ms)), ms_runs=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   untied_ms=float(np.mean(untied_ms)),
+                   untied_ms_runs=untied_ms, untied_bound_ms=untied_bound_ms,
+                   w_l2_gb=w_l2_gb, tflops=flops / np.mean(ms) / 1e9)
+        rows.append(row)
+        log('flash_global_tie', json.dumps(row))
+        del ops, uops
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_global_serve(st, want, label='assembly', **fields):
+    """The assembly model (seeded weights, conditioned; `fields` change
+    its fields, `label` names it in the lines) served through
     InferenceEngine(buckets=(4096,)) with return_type=1 on requests of
     4096, 4039 and 3000 nodes (token sequences on random-walk chains):
     per request the latency, exactly `want` launches (COUNT_NAMES order),
@@ -1275,7 +1447,8 @@ def phase_global_serve(st, want):
     from se3_transformer_torch.so3 import rot
     rng = np.random.RandomState(15)
     model = condition_weights(st.SE3TransformerModule(
-        **ASSEMBLY, generator=torch.Generator().manual_seed(15)))
+        **dict(ASSEMBLY, **fields),
+        generator=torch.Generator().manual_seed(15)))
     engine = st.InferenceEngine(model, buckets=(GLOBAL_BUCKET,),
                                 return_type=1)
     requests = [(rng.randint(0, 24, n), chain_coords(rng, n))
@@ -1296,13 +1469,13 @@ def phase_global_serve(st, want):
         launched = tuple(a - b for a, b in zip(counts(), before))
         n = len(tokens)
         if out.shape != (n, 3) or not np.isfinite(out).all():
-            raise AssertionError(f'global request {i}: shape {out.shape} or '
-                                 f'non-finite output')
+            raise AssertionError(f'{label} request {i}: shape {out.shape} '
+                                 f'or non-finite output')
         if launched != want:
-            raise AssertionError(f'global request {i}: launches '
+            raise AssertionError(f'{label} request {i}: launches '
                                  f'{COUNT_NAMES} = {launched}, want {want}')
         outs.append(out)
-        rows.append(dict(request=i, n=n, bucket=GLOBAL_BUCKET,
+        rows.append(dict(model=label, request=i, n=n, bucket=GLOBAL_BUCKET,
                          latency_ms=dt * 1e3, nodes_per_s=n / dt,
                          launches=launched, max_memory_allocated_gb=peak_gb))
     # where the time goes: each request once more under the profiler,
@@ -1333,13 +1506,14 @@ def phase_global_serve(st, want):
     scale = float(np.abs(outs[1]).max())
     launches = counts()
     if launches != tuple(w * forwards for w in want):
-        raise AssertionError(f'global serve: launches {launches} for '
+        raise AssertionError(f'{label} serve: launches {launches} for '
                              f'{forwards} forwards')
     log('global_serve', json.dumps(dict(
-        equivariance_l2=err, max_abs_out=scale, rtol=ROTATION_RTOL,
+        model=label, equivariance_l2=err, max_abs_out=scale,
+        rtol=ROTATION_RTOL,
         latency_ms_after_profiler=settle_ms, forwards=forwards, launches=launches, stats=engine.stats())))
     if not err <= ROTATION_RTOL * scale:
-        raise AssertionError(f'global serve: equivariance {err} > '
+        raise AssertionError(f'{label} serve: equivariance {err} > '
                              f'{ROTATION_RTOL} * max|out| {scale}')
     del engine, model
     torch.cuda.empty_cache()
@@ -1347,10 +1521,18 @@ def phase_global_serve(st, want):
 
 
 def phase_global_reference(st):
-    """The assembly model at n = 64 (5 padded) on the card (kernel 7g)
-    and on the CPU (the plain stream) from the same weights: the vector
-    output, then one backward (the replay of the plain stream, on the
-    card's cuBLAS) and every parameter's gradient."""
+    """The assembly model at n = 64 (5 padded), and with tied keys and
+    values, on the card (kernel 7g) and on the CPU (the plain stream)
+    from the same weights."""
+    for fields in (dict(), dict(tie_key_values=True)):
+        global_reference(st, **fields)
+
+
+def global_reference(st, **fields):
+    """One assembly model (`fields` changed) at n = 64 (5 padded) on the
+    card and on the CPU from the same weights: the vector output, then
+    one backward (the replay of the plain stream, on the card's cuBLAS)
+    and every parameter's gradient."""
     rng = np.random.RandomState(16)
     n = 64
     tokens = rng.randint(0, 24, (1, n))
@@ -1360,7 +1542,7 @@ def phase_global_reference(st):
     results = []
     for device in ('cuda', 'cpu'):
         model = condition_weights(st.SE3TransformerModule(
-            **ASSEMBLY, device=device,
+            **dict(ASSEMBLY, **fields), device=device,
             generator=torch.Generator().manual_seed(17)))
         args = [torch.as_tensor(a, device=device)
                 for a in (tokens, coords, mask)]
@@ -1384,7 +1566,8 @@ def phase_global_reference(st):
         if rel > worst:
             worst, worst_key = rel, key
     log('global_reference', json.dumps(dict(
-        n=n, max_abs_err=err, max_abs_cpu=scale, rtol=REF_RTOL_F32,
+        n=n, fields=fields, max_abs_err=err, max_abs_cpu=scale,
+        rtol=REF_RTOL_F32,
         worst_grad_rel_err=worst, worst_grad=worst_key, leaves=len(grads_h),
         grad_rtol=REF_GRAD_RTOL_F32)))
     if not (np.isfinite(out_c).all() and err <= REF_RTOL_F32 * scale):
@@ -1726,6 +1909,10 @@ ROUTE_MODEL = dict(dim=8, heads=2, dim_head=8, depth=1, num_degrees=2,
                    num_neighbors=16, output_degrees=2, reduce_dim_out=True)
 ROUTE_CASES = (('denoise widths', dict(), ('bxf',)),
                ('denoise widths + fuse_pairwise', dict(fuse_pairwise=True),
+                ('bxf', 'flash')),
+               # one kv head: kernel #7 is built for heads == kv_heads
+               ('denoise widths + fuse_pairwise + one-headed kv',
+                dict(fuse_pairwise=True, one_headed_key_values=True),
                 ('bxf', 'flash')))
 
 
@@ -2170,6 +2357,15 @@ SMALL_CASES = (
      dict(SMALL_FAST, radial_bf16=False, fuse_pairwise=True), False),
     ('flagship_fast+fuse_pairwise',
      dict(SMALL_FAST, radial_bf16=True, fuse_pairwise=True), True),
+    # the attention variants: tied keys and values with the null slot
+    # through #7's tied variant; one kv head and the null slot through
+    # #5 and #6 (a group of 8 query heads over one kv head)
+    ('flagship_fast+fuse_pairwise+tie',
+     dict(SMALL_FAST, radial_bf16=False, fuse_pairwise=True,
+          tie_key_values=True, use_null_kv=True), False),
+    ('flagship_fast+pallas_attention+one_headed',
+     dict(SMALL_FAST, radial_bf16=False, pallas_attention=True,
+          one_headed_key_values=True, use_null_kv=True), False),
     ('flagship', dict(SMALL, edge_chunks=3), False),
     # af2_refinement's fields (a radial trunk per pair, coordinate
     # gradients) at dim 64: the kv convs' O = 192 takes #3 and kernels A
@@ -2305,7 +2501,9 @@ def main() -> int:
     # 5. the attention kernels vs plain, with the library yardstick
     attn_rows, attn_worst = phase_attention(peaks)
     flash_rows, flash_worst = phase_flash(peaks)
+    tie_rows, tie_worst = phase_flash_tie(peaks)
     gflash_rows, gflash_worst = phase_flash_global(peaks)
+    gtie_rows, gtie_worst = phase_global_tie(peaks)
     log(f'phase: kernels done at {time.perf_counter() - t_start:.0f} s')
 
     # 6-7. the main paths, each with the counts reset just before and read
@@ -2317,8 +2515,12 @@ def main() -> int:
     bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
     paths = [
         not_routed('bx', bx_launches),
-        # the assembly model: one 7g launch per output degree (2)
+        # the assembly model: one 7g launch per output degree (2), untied
+        # and tied
         not_routed('global serve', phase_global_serve(st, launches(glob=2))),
+        not_routed('global serve tie', phase_global_serve(
+            st, launches(glob=2), label='assembly+tie',
+            tie_key_values=True)),
         not_routed('flagship_fast serve', phase_serve(
             st, 'flagship_fast', launches(bxf=4 + REPLAY_LAUNCHES + 4))),
         not_routed('flagship_fast train', phase_train(
@@ -2341,6 +2543,17 @@ def main() -> int:
             st, 'flagship_fast',
             launches(bxf=FLASH_BXF_LAUNCHES, flash=ATTN_LAUNCHES),
             label='flagship_fast+fuse_pairwise', fuse_pairwise=True)),
+        # tied keys and values with the null slot: #7's tied variant
+        not_routed('flagship_fast+fuse_pairwise+tie serve', phase_serve(
+            st, 'flagship_fast',
+            launches(bxf=FLASH_BXF_LAUNCHES, flash=ATTN_LAUNCHES),
+            label='flagship_fast+fuse_pairwise+tie', fuse_pairwise=True,
+            tie_key_values=True, use_null_kv=True)),
+        not_routed('flagship_fast+tie train', phase_train(
+            st, 'flagship_fast',
+            launches(bxf=TIE_TRAIN_LAUNCHES, a=TIE_BWD_LAUNCHES,
+                     b=TIE_BWD_LAUNCHES), None, None,
+            label='flagship_fast+tie', tie_key_values=True)),
         not_routed('flagship serve', phase_serve(
             st, 'flagship', launches(fwd=FLAGSHIP_SERVE_LAUNCHES))),
         not_routed('flagship train', phase_train(
@@ -2389,18 +2602,26 @@ def main() -> int:
                   if r[f'bound_by{key}'] == 'operations')
         return 'operations' if ops * 2 >= total_ms else 'bytes'
 
-    def entry(name, source, replaces, launched, err, table, key=''):
+    def entry(name, source, replaces, launched, err, table, key='',
+              tie=None):
         """One kernel's line: times and bounds summed over the table's rows
         (one hidden ConvSE3's launches at E = 32768, or one attention
-        block's four degrees)."""
+        block's four degrees); with `tie`, the tied variant's rows, summed
+        into tie_* keys (its untied time on the same operands beside)."""
         library = [r.get(f'library_ms{key}') for r in table]
-        return dict(name=name, route='cuda', source=src + source,
+        line = dict(name=name, route='cuda', source=src + source,
                     replaces=replaces, launches=launched, max_abs_err=err,
                     ms=sum(r[f'ms{key}'] for r in table),
                     plain_ms=sum(r[f'plain_ms{key}'] for r in table),
                     bound_ms=sum(r[f'bound_ms{key}'] for r in table),
                     bound_by=bound_by(table, key),
                     library_ms=None if None in library else sum(library))
+        if tie:
+            line.update({f'tie_{k}': sum(r[k] for r in tie)
+                         for k in ('ms', 'plain_ms', 'bound_ms', 'untied_ms',
+                                   'untied_bound_ms')})
+            line['tie_bound_by'] = bound_by(tie, '')
+        return line
 
     src = 'se3_transformer_torch/kernels/csrc/'
     tpu = 'se3_transformer_tpu/kernels/'
@@ -2427,13 +2648,14 @@ def main() -> int:
               tpu + 'pallas_attention.py:267', total[5], attn_worst['bwd'],
               attn_rows, '_bwd'),
         entry('flash_attention', 'flash_fwd.cu', tpu + 'pallas_flash.py:699',
-              total[6], flash_worst, flash_rows),
+              total[6], max(flash_worst, tie_worst), flash_rows,
+              tie=tie_rows),
         entry('fused_pairwise_conv_bx', 'pairwise_bxf.cu', pallas + '794',
               total[7], bx_worst, [r for r in bx_rows
                                    if r['h_dtype'] == 'bfloat16']),
         entry('flash_global_attention', 'flash_global.cu',
-              tpu + 'pallas_flash.py:1073', total[8], gflash_worst,
-              gflash_rows)]
+              tpu + 'pallas_flash.py:1073', total[8],
+              max(gflash_worst, gtie_worst), gflash_rows, tie=gtie_rows)]
     missing = [k['name'] for k in kernels if not k['launches']]
     if missing:
         raise AssertionError(f'kernels never launched on a main path: '

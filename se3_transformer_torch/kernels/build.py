@@ -138,13 +138,13 @@ def load_library() -> ctypes.CDLL:
             # (q, x0..x3, idx, nmask, h_v, h_k, wv, wk, bv, bk, sh,
             #  prefix_k, prefix_v, cg, out, w_split, pair_d[4], pair_c[4],
             #  cg_off[4], n_pairs, B, n, K, S, S0, heads, IF, P, h_is_bf16,
-            #  scale, stream)
-            lib.se3_flash_fwd.argtypes = [vp] * 19 + [ci] * 22 + [cf, vp]
+            #  tie, scale, stream)
+            lib.se3_flash_fwd.argtypes = [vp] * 19 + [ci] * 23 + [cf, vp]
             # (q, x0..x3, coords, nodemask, rp, wk, wv, bk, bv, prefix_k,
             #  prefix_v, cg, shk, out, w_split, pair_d[4], pair_c[4],
             #  cg_off[4], n_pairs, B, n, S0, heads, IF, P, L, exclude_self,
-            #  scale, stream)
-            lib.se3_flash_global.argtypes = [vp] * 18 + [ci] * 21 + [cf, vp]
+            #  tie, scale, stream)
+            lib.se3_flash_global.argtypes = [vp] * 18 + [ci] * 22 + [cf, vp]
             for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx,
                        lib.se3_flash_global, lib.se3_pairwise_fwd,
                        lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_b,

@@ -9,7 +9,9 @@
 //
 // for the keys (h_k, wk, bk) and the values (h_v, wv, bv); then, per head,
 // attention of q over [prefix slots, neighbor slots]: masked slots at the
-// finite float32 minimum, slots past K with no weight at all.
+// finite float32 minimum, slots past K with no weight at all. With tied
+// keys and values (tie_key_values; the build's kTie variant) one conv by
+// (h_v, wv, bv) makes the tile that serves as both k and v.
 //
 // Replaces se3_transformer_tpu/kernels/pallas_flash.py::_flash_kernel_body
 // (driven by _flash_fwd_impl) in kNN mode with the dense arm (_kv_block's
@@ -400,7 +402,9 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
   __syncthreads();
 }
 
-template <typename T, int P>
+// kTie: the keys are the values (one conv pass, its tile read as k and as
+// v); a compile-time variant, so that the untied build is unchanged.
+template <typename T, int P, bool kTie>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const Args a, const Pairs pairs) {
   using S = Smem<P>;
@@ -435,8 +439,9 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
   }
   __syncthreads();
 
-  // keys: the tile, then the scores against q (prefix slots first)
-  conv_pass<T, P>(a, pairs, 0, b, node0, smem);
+  // keys: the tile (tied: the values' tile, which stays for the weighted
+  // sum), then the scores against q (prefix slots first)
+  conv_pass<T, P>(a, pairs, kTie ? 1 : 0, b, node0, smem);
   for (int k = tid; k < NODES * H * (S0 + SLOTS); k += NTHREADS) {
     const int nl = k / (H * (S0 + SLOTS)), rest = k - nl * H * (S0 + SLOTS);
     const int hd = rest / (S0 + SLOTS), j = rest - hd * (S0 + SLOTS);
@@ -477,8 +482,8 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
   }
   __syncthreads();
 
-  // values: the tile, then the weighted sum
-  conv_pass<T, P>(a, pairs, 1, b, node0, smem);
+  // values: the tile (tied: the keys' tile as it is), then the weighted sum
+  if constexpr (!kTie) conv_pass<T, P>(a, pairs, 1, b, node0, smem);
   for (int k = tid; k < NODES * H * Dh; k += NTHREADS) {
     const int nl = k / (H * Dh), rest = k - nl * H * Dh;
     const int hd = rest / Dh, d = rest - hd * Dh;
@@ -497,10 +502,10 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
   }
 }
 
-template <typename T, int P>
+template <typename T, int P, bool kTie>
 cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream) {
   constexpr size_t smem = Smem<P>::BYTES;
-  auto kern = flash_fwd_kernel<T, P>;
+  auto kern = flash_fwd_kernel<T, P, kTie>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -522,7 +527,9 @@ cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream
 // float32; bv, bk [IF, 64]; sh [B, n, K, S], S <= 49; prefix_k, prefix_v
 // [B, n, S0, H * Dh] (S0 <= 4; null when S0 = 0); cg the Q_J constants,
 // pair k's from cg_off_k; out [B, n, H, Dh]; w_split scratch of 4 * 128 *
-// IF * 64 bf16 (W_k's hi and lo arrays, then W_v's).
+// IF * 64 bf16 (W_k's hi and lo arrays, then W_v's). tie: the keys are the
+// values; h_k, wk and bk are not read (null), and w_split holds W_v's two
+// arrays only (2 * 128 * IF * 64 bf16).
 extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, const void* x2,
                              const void* x3, const void* idx, const void* nmask,
                              const void* h_v, const void* h_k, const void* wv, const void* wk,
@@ -531,7 +538,7 @@ extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, cons
                              void* out, void* w_split, int d0, int d1, int d2, int d3, int c0,
                              int c1, int c2, int c3, int off0, int off1, int off2, int off3,
                              int n_pairs, int B, int n, int K, int S, int S0, int H, int IF,
-                             int P, int h_is_bf16, float scale, void* stream) {
+                             int P, int h_is_bf16, int tie, float scale, void* stream) {
   if (B <= 0 || n <= 0) return 0;
   if (n_pairs < 1 || n_pairs > MAX_PAIRS || K < 1 || K > SLOTS || S < 1 || S > MAX_S ||
       S0 < 0 || S0 > MAX_PREFIX || H < 1 || H > MAX_HEADS || BO % H || IF < 1)
@@ -551,15 +558,16 @@ extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, cons
   pairs.count = n_pairs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // W_k and W_v [MID, IF, BO] float32 (a whole number of float4s) into
-  // their bf16 hi and lo arrays
+  // their bf16 hi and lo arrays (tied: W_v's only)
   const size_t nw = (size_t)MID * IF * BO;
   const size_t need = (nw / 4 + NTHREADS - 1) / NTHREADS;
   const unsigned blocks = (unsigned)(need < 4096 ? need : 4096);
   bf16* ws = static_cast<bf16*>(w_split);
   const void* w3s[2] = {wk, wv};
   Args a;
-  for (int cv = 0; cv < 2; ++cv) {
-    bf16* hi = ws + 2 * cv * nw;
+  a.whi[0] = a.wlo[0] = nullptr;
+  for (int cv = tie ? 1 : 0; cv < 2; ++cv) {
+    bf16* hi = ws + 2 * (tie ? 0 : cv) * nw;
     split_bf16_kernel<<<blocks, NTHREADS, 0, s>>>(static_cast<const float4*>(w3s[cv]), nw / 4,
                                                   reinterpret_cast<uint2*>(hi),
                                                   reinterpret_cast<uint2*>(hi + nw));
@@ -589,8 +597,10 @@ extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, cons
   a.scale = scale;
 #define SE3_P(PP)                                                                      \
   if (P == PP)                                                                         \
-    return (int)(h_is_bf16 ? launch<bf16, PP>(a, pairs, B, s)                          \
-                           : launch<float, PP>(a, pairs, B, s));
+    return (int)(tie ? (h_is_bf16 ? launch<bf16, PP, true>(a, pairs, B, s)             \
+                                  : launch<float, PP, true>(a, pairs, B, s))           \
+                     : (h_is_bf16 ? launch<bf16, PP, false>(a, pairs, B, s)            \
+                                  : launch<float, PP, false>(a, pairs, B, s)));
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
 #undef SE3_P
   return (int)cudaErrorInvalidValue;

@@ -15,7 +15,9 @@
 // minimum: the node mask, and j == i with exclude_self) and an online
 // softmax over the kv blocks, seeded with the prefix slots; LN is the
 // two-pass LayerNorm with eps 1e-6 and GELU the tanh approximation, as in
-// the JAX trunk.
+// the JAX trunk. With tied keys and values (tie_key_values; the build's
+// kTie variant) there is one trunk and one radial product, by the values'
+// parameters, and the tile serves as both k and v.
 //
 // Replaces se3_transformer_tpu/kernels/pallas_flash.py::_flash_kernel_body
 // in global mode (driven by flash_global_attention -> _flash_core ->
@@ -130,9 +132,9 @@ struct Args {
   const float* q;             // [B, n, H, Dh]
   const float* coords;        // [B, n, 3]
   const uint8_t* nodemask;    // [B, n] or null
-  const float* rp;            // [2][RP_STRIDE]: keys' trunk, values' trunk
+  const float* rp;            // [TR][RP_STRIDE]: keys' trunk, values' trunk (tied: values')
   const bf16* wpack;          // the weight stream's stages (pack_stream_kernel)
-  const float* b3pack;        // [2][NC][WN]: b3 of each W3 stage, zeros past IF
+  const float* b3pack;        // [TR][NC][WN]: b3 of each W3 stage, zeros past IF
   const float* prefix[2];     // prefix_k, prefix_v [B, n, S0, H * Dh] or null
   const float* cg;            // Q_J constants
   const float* shk;           // SH normalization K_lm [7 * 7]
@@ -253,17 +255,18 @@ __device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src, ui
 }
 
 // The weight stream in device memory as the ring holds it: stage u of a
-// tile's T = 2 (2 + NC) stages is, for trunk tr = u / (2 + NC) and v = u %
+// tile's T = TR (2 + NC) stages is, for trunk tr = u / (2 + NC) and v = u %
 // (2 + NC), W2's columns 64 v .. (v < 2) or W3 for i = IW (v - 2) .. + IW -
 // 1 (zeros past IF), as a bf16 hi tile and a bf16 lo tile [MID][WN] in the
 // swizzled layout (hi = bf16(w), lo = bf16(w - hi)); then b3 of every W3
-// stage, [2][NC][WN] floats.
+// stage, [TR][NC][WN] floats. TR = 2 trunks (keys, then values: wk and bk,
+// then wv and bv) or, tied, 1 (the caller passes the values' as wk and bk).
 __global__ void pack_stream_kernel(const float* __restrict__ rp, const float* __restrict__ wk,
                                    const float* __restrict__ wv, const float* __restrict__ bk,
                                    const float* __restrict__ bv, bf16* __restrict__ wpack,
-                                   float* __restrict__ b3pack, int IF, int NC) {
-  const int HALF = 2 + NC, T = 2 * HALF, chunks = T * MID * 8;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < chunks + 2 * NC * WN;
+                                   float* __restrict__ b3pack, int IF, int NC, int TR) {
+  const int HALF = 2 + NC, T = TR * HALF, chunks = T * MID * 8;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < chunks + TR * NC * WN;
        k += gridDim.x * blockDim.x) {
     if (k >= chunks) {
       const int q = k - chunks, tr = q / (NC * WN), col = q % WN;
@@ -491,10 +494,14 @@ __device__ __forceinline__ void build_v2(float* sV2, const float* sY, int S,
   }
 }
 
-template <int P, int WG>
+// kTie: the keys are the values (one trunk and one radial product a tile,
+// the tile read as k and as v); a compile-time variant, so that the untied
+// build is unchanged.
+template <int P, int WG, bool kTie>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(GTile<WG>::NT, 1)
 flash_global_kernel(const Args a, const Pairs pairs) {
   constexpr int NT = GTile<WG>::NT, BN = GTile<WG>::BN, ET = GTile<WG>::ET;
+  constexpr int TR = kTie ? 1 : 2;  // trunks (and radial products) a tile
   extern __shared__ __align__(1024) unsigned char smem[];
   const Layout<P, WG> lay(a.IF, a.L);
   bf16* sW = reinterpret_cast<bf16*>(smem);
@@ -521,11 +528,12 @@ flash_global_kernel(const Args a, const Pairs pairs) {
   const int dim_head = OW / H, Dh = dim_head * P, HD = OW * P;
 
   // The weight stream: per tile T stages, the keys' trunk (W2's two
-  // halves, then W3's NC chunks of IW values of i), then the values'. The
+  // halves, then W3's NC chunks of IW values of i), then the values' (tied:
+  // the values' alone). The
   // two CTAs of a cluster run the same stages in the same order; each
   // stage's hi tile comes from CTA 0 and its lo tile and b3 from CTA 1, one
   // bulk copy each, multicast to both.
-  const int NC = (IF + IW - 1) / IW, HALF = 2 + NC, T = 2 * HALF;
+  const int NC = (IF + IW - 1) / IW, HALF = 2 + NC, T = TR * HALF;
   const int total = ((n + BJ - 1) / BJ) * T;
   uint32_t rank;
   asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
@@ -570,9 +578,9 @@ flash_global_kernel(const Args a, const Pairs pairs) {
   if (tid == 0)
     for (int k = 0; k < RING - 1; ++k) issue(k);
 
-  // both trunks' vectors, the query rows and the state after the prefix
+  // the trunks' vectors, the query rows and the state after the prefix
   // slots (_init_state)
-  for (int k = tid; k < 2 * NPAR * MID; k += NT) {
+  for (int k = tid; k < TR * NPAR * MID; k += NT) {
     const int tr = k / (NPAR * MID);
     sPar[k] = __ldg(a.rp + (size_t)tr * RP_STRIDE + (k - tr * NPAR * MID));
   }
@@ -657,8 +665,8 @@ flash_global_kernel(const Args a, const Pairs pairs) {
       off += C * min(P, 2 * pairs.d[pi] + 1);
     }
 
-    // the keys' pass (tr = 0), then the values' (tr = 1)
-    for (int tr = 0; tr < 2; ++tr) {
+    // the keys' pass (tr = 0), then the values' (tr = 1); tied, one pass
+    for (int tr = 0; tr < TR; ++tr) {
       const float* par = sPar + tr * NPAR * MID;
       uint32_t ahi[8][4], alo[8][4];
       {
@@ -753,8 +761,11 @@ flash_global_kernel(const Args a, const Pairs pairs) {
           }
         }
         // (the values' first stage barrier comes before sKV is rewritten)
-      } else {
-        // the weighted sum
+      }
+      if (tr == TR - 1) {
+        // the weighted sum (tied: of the keys' tile, once every score and
+        // weight is in)
+        if constexpr (kTie) __syncthreads();
         for (int k = tid; k < BN * HD; k += NT) {
           const int il = k / HD, rest = k - il * HD;
           const int hd = rest / Dh, d = rest - hd * Dh, dh = d / P, p = d - dh * P;
@@ -776,10 +787,10 @@ flash_global_kernel(const Args a, const Pairs pairs) {
   cluster_sync();  // the peer's last arrivals on this CTA's barriers are in
 }
 
-template <int P, int WG>
+template <int P, int WG, bool kTie>
 cudaError_t launch_tile(const Args& a, const Pairs& pairs, int B, size_t smem,
                         cudaStream_t stream) {
-  auto kern = flash_global_kernel<P, WG>;
+  auto kern = flash_global_kernel<P, WG, kTie>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -792,7 +803,7 @@ cudaError_t launch_tile(const Args& a, const Pairs& pairs, int B, size_t smem,
 }
 
 // the tile of 128 pairs where its shared memory fits, else of 64
-template <int P>
+template <int P, bool kTie>
 cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream) {
   int max_smem = 0, dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -800,8 +811,8 @@ cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   const size_t smem2 = Layout<P, 2>(a.IF, a.L).total, smem1 = Layout<P, 1>(a.IF, a.L).total;
-  if (smem2 <= (size_t)max_smem) return launch_tile<P, 2>(a, pairs, B, smem2, stream);
-  if (smem1 <= (size_t)max_smem) return launch_tile<P, 1>(a, pairs, B, smem1, stream);
+  if (smem2 <= (size_t)max_smem) return launch_tile<P, 2, kTie>(a, pairs, B, smem2, stream);
+  if (smem1 <= (size_t)max_smem) return launch_tile<P, 1, kTie>(a, pairs, B, smem1, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -820,7 +831,9 @@ cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream
 // null when S0 = 0); cg the Q_J constants, pair k's from cg_off_k; shk the
 // SH constants K_lm [7 * 7]; out [B, n, H, Dh]; w_split scratch of 2 (2 +
 // NC) * 32768 + 2 NC * 256 bytes, NC = ceil(IF / 4), on 16 bytes (the
-// weight stream, packed here); L the harmonics' degree (<= 6).
+// weight stream, packed here); L the harmonics' degree (<= 6). tie: the
+// keys are the values; rp holds the values' trunk alone, wk and bk are not
+// read (null), and w_split needs half the bytes.
 extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, const void* x2,
                                 const void* x3, const void* coords, const void* nodemask,
                                 const void* rp, const void* wk, const void* wv, const void* bk,
@@ -828,7 +841,7 @@ extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, c
                                 const void* cg, const void* shk, void* out, void* w_split,
                                 int d0, int d1, int d2, int d3, int c0, int c1, int c2, int c3,
                                 int off0, int off1, int off2, int off3, int n_pairs, int B, int n,
-                                int S0, int H, int IF, int P, int L, int exclude_self,
+                                int S0, int H, int IF, int P, int L, int exclude_self, int tie,
                                 float scale, void* stream) {
   if (B <= 0 || n <= 0) return 0;
   if (n_pairs < 1 || n_pairs > MAX_PAIRS || S0 < 0 || S0 > MAX_PREFIX || S0 > BJ || H < 1 ||
@@ -853,15 +866,18 @@ extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, c
   if (total_if != IF) return (int)cudaErrorInvalidValue;
   pairs.count = n_pairs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // both trunks' W2, W_k, W_v and b3 as the weight stream's stages
+  // both trunks' W2, W_k, W_v and b3 as the weight stream's stages (tied:
+  // the values' W2, W_v and b3)
   Args a;
-  const int NC = (IF + IW - 1) / IW, T = 2 * (2 + NC);
+  const int TR = tie ? 1 : 2;
+  const int NC = (IF + IW - 1) / IW, T = TR * (2 + NC);
   bf16* wpack = static_cast<bf16*>(w_split);
   float* b3pack = reinterpret_cast<float*>(wpack + (size_t)T * 2 * MID * WN);
-  const int work = T * MID * 8 + 2 * NC * WN;
+  const int work = T * MID * 8 + TR * NC * WN;
   pack_stream_kernel<<<(work + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(rp), static_cast<const float*>(wk), static_cast<const float*>(wv),
-      static_cast<const float*>(bk), static_cast<const float*>(bv), wpack, b3pack, IF, NC);
+      static_cast<const float*>(rp), static_cast<const float*>(tie ? wv : wk),
+      static_cast<const float*>(wv), static_cast<const float*>(tie ? bv : bk),
+      static_cast<const float*>(bv), wpack, b3pack, IF, NC, TR);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   a.wpack = wpack;
@@ -883,7 +899,7 @@ extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, c
   a.exclude_self = exclude_self;
   a.scale = scale;
 #define SE3_P(PP) \
-  if (P == PP) return (int)launch<PP>(a, pairs, B, s);
+  if (P == PP) return (int)(tie ? launch<PP, true>(a, pairs, B, s) : launch<PP, false>(a, pairs, B, s));
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
 #undef SE3_P
   return (int)cudaErrorInvalidValue;

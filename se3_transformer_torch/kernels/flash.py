@@ -12,7 +12,9 @@ i and neighbor slot s (j = idx[i, s]):
     kv[o, p]       = sum_i z[p, i] (h[i, s] . W3[:, i, o] + b3[i, o])
 
 for the keys (h_k, wk, bk) and the values (h_v, wv, bv), then attention of
-q over [prefix slots, neighbor slots] with the unfused path's semantics:
+q over [prefix slots, neighbor slots] with the unfused path's semantics
+(tied keys and values, tie_key_values: no wk, and the one kv block by
+(h_v, wv, bv) serves as both):
 masked slots take the finite float32 minimum (a fully masked row is the
 uniform average), the prefix slots (here the self slot) are always valid.
 The per-edge basis, the gathered features, k, v and the scores never exist
@@ -53,8 +55,12 @@ chunks, n // 16 of them; a CUDA tensor launches csrc/flash_global.cu
 `se3_torch::flash_global_attention` saves only its inputs and replays the
 plain stream in its backward.
 
-Not ported (NotImplementedError): the so2 arm, tied keys and values, the
-quantized `wv_scale`/`wk_scale` epilogue.
+Both kernels take tied keys and values (`FlashConfig.tie`, wk None) in a
+compile-time variant of their own: one radial contraction a tile, its
+result read as k and as v.
+
+Not ported (NotImplementedError): the so2 arm, the quantized
+`wv_scale`/`wk_scale` epilogue.
 """
 from __future__ import annotations
 
@@ -89,8 +95,8 @@ STREAM_ROWS = 16
 
 class FlashConfig(NamedTuple):
     """Static configuration of one call: kNN or global mode, dense arm,
-    untied keys and values (pallas_flash.py::FlashConfig's other fields
-    are not ported)."""
+    tied or untied keys and values (pallas_flash.py::FlashConfig's other
+    fields are not ported)."""
     pairs: Tuple[Tuple[int, int], ...]  # (d_in, channels) per input degree
     d_out: int
     heads: int
@@ -99,6 +105,7 @@ class FlashConfig(NamedTuple):
     prefix: int = 0                     # always-valid leading kv slots
     mode: str = 'knn'                   # 'knn' | 'global'
     exclude_self: bool = False          # global mode: mask the j == i slot
+    tie: bool = False                   # keys ARE values (tie_key_values)
 
 
 @lru_cache(maxsize=None)
@@ -211,6 +218,19 @@ def _row_attention(cfg: FlashConfig, q, kf, vf, mask_full):
     return out.reshape(q.shape)
 
 
+def _kv_pair(cfg: FlashConfig, xg, h_k, h_v, sh, full: dict, Dh: int):
+    """(k, v) [..., kv_heads, Dh] of one block by the dense arm: the
+    values' block, and the keys' by (h_k, wk, bk), or the same block when
+    cfg.tie (pallas_flash.py::_chunk_body)."""
+    def block(h, w3, b3):
+        t = _kv_block(cfg.pairs, cfg.d_out, xg, h, sh, w3, b3)
+        return t.reshape(*t.shape[:-2], cfg.kv_heads, Dh)
+    kv_v = block(h_v, full['wv'], full['bv'])
+    if cfg.tie:
+        return kv_v, kv_v
+    return block(h_k, full['wk'], full['bk']), kv_v
+
+
 # operands along the node axis (sliced into chunks) and node-level ones
 _CHUNKED = ('q', 'idx', 'nmask', 'h_v', 'h_k', 'sh', 'prefix_k', 'prefix_v')
 _FULL = ('xs', 'wv', 'bv', 'wk', 'bk')
@@ -224,12 +244,8 @@ def _chunk_body(cfg: FlashConfig, chunk: dict, full: dict) -> torch.Tensor:
     Dh, kv_h = q.shape[-1], cfg.kv_heads
     xg = tuple(batched_index_select(x, chunk['idx'], dim=1)
                for x in full['xs'])
-    kv = []
-    for h, w3, b3 in ((chunk['h_k'], full['wk'], full['bk']),
-                      (chunk['h_v'], full['wv'], full['bv'])):
-        t = _kv_block(cfg.pairs, cfg.d_out, xg, h, chunk['sh'], w3, b3)
-        kv.append(t.reshape(*t.shape[:-2], kv_h, Dh))
-    kv_k, kv_v = kv
+    kv_k, kv_v = _kv_pair(cfg, xg, chunk.get('h_k'), chunk['h_v'],
+                          chunk['sh'], full, Dh)
     nmask = chunk.get('nmask')
     if cfg.prefix:
         shape = (*q.shape[:-2], cfg.prefix, kv_h, Dh)
@@ -396,8 +412,13 @@ def _check(cfg: FlashConfig, ops: dict):
         raise ValueError(f'idx must be int64 [{B}, {n}, K], got {idx.dtype} '
                          f'{tuple(idx.shape)}')
     K = idx.shape[2]
-    h_v, h_k = ops['h_v'], ops['h_k']
-    if h_k.dtype != h_v.dtype:
+    h_v, h_k = ops['h_v'], ops.get('h_k')
+    kv_names = ('v',) if cfg.tie else ('k', 'v')
+    if cfg.tie != (ops.get('wk') is None) or (cfg.tie and any(
+            ops.get(k) is not None for k in ('h_k', 'bk'))):
+        raise ValueError('tied keys and values take no h_k, wk or bk; '
+                         'untied ones need wk and bk')
+    if h_k is not None and h_k.dtype != h_v.dtype:
         raise TypeError(f'h_v/h_k must have one dtype, got '
                         f'{h_v.dtype}/{h_k.dtype}')
     limit = flash_limit(cfg.pairs, cfg.d_out, cfg.heads, cfg.kv_heads,
@@ -410,11 +431,11 @@ def _check(cfg: FlashConfig, ops: dict):
                               or tuple(nmask.shape) != (B, n, K)):
         raise ValueError(f'nmask must be bool [{B}, {n}, {K}], got '
                          f'{nmask.dtype} {tuple(nmask.shape)}')
-    for name in ('h_v', 'h_k'):
+    for name in [f'h_{c}' for c in kv_names]:
         if tuple(ops[name].shape) != (B, n, K, MID):
             raise ValueError(f'{name} must be [{B}, {n}, {K}, {MID}], got '
                              f'{tuple(ops[name].shape)}')
-    for w, b in (('wv', 'bv'), ('wk', 'bk')):
+    for w, b in [(f'w{c}', f'b{c}') for c in kv_names]:
         if ops[w].dtype != torch.float32 or ops[b].dtype != torch.float32 \
                 or tuple(ops[w].shape) != (MID, IF, O_WIDTH) \
                 or tuple(ops[b].shape) != (IF, O_WIDTH):
@@ -429,8 +450,9 @@ def _check(cfg: FlashConfig, ops: dict):
         raise ValueError(f'sh must be float32 [{B}, {n}, {K}, S] with {need} '
                          f'<= S <= {MAX_SH}, got {sh.dtype} {tuple(sh.shape)}')
     _check_prefix(cfg, ops, B, n, H * Dh)
-    _check_placement([q, idx, h_v, h_k, sh, *ops['xs']]
-                     + [ops[k] for k in ('wv', 'bv', 'wk', 'bk')]
+    _check_placement([q, idx, sh, *ops['xs']]
+                     + [ops[f'{k}{c}'] for c in kv_names
+                        for k in ('h_', 'w', 'b')]
                      + [t for t in (nmask, ops.get('prefix_k'),
                                     ops.get('prefix_v')) if t is not None],
                      dev)
@@ -452,10 +474,12 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     cg, xs, ds, cs, offs = _pair_args(cfg, ops['xs'], q.device)
     # the kernel's 16-byte copies of h, W3 and b3
     ops = dict(ops, **{k: _aligned(ops[k])
-                       for k in ('h_v', 'h_k', 'wv', 'wk', 'bv', 'bk')})
-    # W_k's and W_v's bf16 hi and lo halves, split in the launch
-    w_split = torch.empty(4 * MID * IF * O_WIDTH, dtype=torch.bfloat16,
-                          device=q.device)
+                       for k in ('h_v', 'h_k', 'wv', 'wk', 'bv', 'bk')
+                       if ops.get(k) is not None})
+    # W_k's (untied) and W_v's bf16 hi and lo halves, split in the launch
+    convs = 1 if cfg.tie else 2
+    w_split = torch.empty(2 * convs * MID * IF * O_WIDTH,
+                          dtype=torch.bfloat16, device=q.device)
 
     ptr = _pointers(ops)
     from .build import load_library
@@ -465,7 +489,7 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
             ptr('h_k'), ptr('wv'), ptr('wk'), ptr('bv'), ptr('bk'), ptr('sh'),
             ptr('prefix_k'), ptr('prefix_v'), cg.data_ptr(), out.data_ptr(),
             w_split.data_ptr(), *ds, *cs, *offs, len(cfg.pairs), B, n, K, S,
-            S0, cfg.heads, IF, 2 * cfg.d_out + 1, int(bf16),
+            S0, cfg.heads, IF, 2 * cfg.d_out + 1, int(bf16), int(cfg.tie),
             float(cfg.scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f'se3_flash_fwd launch failed: CUDA error {rc}')
@@ -486,23 +510,23 @@ def _ops(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v):
                 prefix_v=prefix_v)
 
 
-def _config(pairs, d_out, heads, kv_heads, scale, prefix_k):
+def _config(pairs, d_out, heads, kv_heads, scale, prefix_k, tie=False):
     return FlashConfig(
         pairs=tuple((pairs[i], pairs[i + 1]) for i in range(0, len(pairs), 2)),
         d_out=d_out, heads=heads, kv_heads=kv_heads, scale=scale,
-        prefix=0 if prefix_k is None else prefix_k.shape[2])
+        prefix=0 if prefix_k is None else prefix_k.shape[2], tie=bool(tie))
 
 
 @torch.library.custom_op('se3_torch::flash_attention', mutates_args=(),
                          device_types='cpu')
 def _flash_op(q: torch.Tensor, xs: List[torch.Tensor], idx: torch.Tensor,
               nmask: Optional[torch.Tensor], h_v: torch.Tensor,
-              h_k: torch.Tensor, wv: torch.Tensor, bv: torch.Tensor,
-              wk: torch.Tensor, bk: torch.Tensor, sh: torch.Tensor,
-              prefix_k: Optional[torch.Tensor],
+              h_k: Optional[torch.Tensor], wv: torch.Tensor, bv: torch.Tensor,
+              wk: Optional[torch.Tensor], bk: Optional[torch.Tensor],
+              sh: torch.Tensor, prefix_k: Optional[torch.Tensor],
               prefix_v: Optional[torch.Tensor], pairs: List[int], d_out: int,
               heads: int, kv_heads: int, scale: float) -> torch.Tensor:
-    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k)
+    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k, wk is None)
     return flash_attention_plain(cfg, _ops(q, xs, idx, nmask, h_v, h_k, wv,
                                            bv, wk, bk, sh, prefix_k, prefix_v))
 
@@ -510,7 +534,7 @@ def _flash_op(q: torch.Tensor, xs: List[torch.Tensor], idx: torch.Tensor,
 @_flash_op.register_kernel('cuda')
 def _(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v,
       pairs, d_out, heads, kv_heads, scale):
-    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k)
+    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k, wk is None)
     return flash_attention_fwd(cfg, _ops(q, xs, idx, nmask, h_v, h_k, wv, bv,
                                          wk, bk, sh, prefix_k, prefix_v))
 
@@ -524,7 +548,8 @@ def _flash_setup(ctx, inputs, output):
      pairs, d_out, heads, kv_heads, scale) = inputs
     ctx.save_for_backward(q, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh,
                           prefix_k, prefix_v, *xs)
-    ctx.cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k)
+    ctx.cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k,
+                      wk is None)
 
 
 def _flash_backward(ctx, g):
@@ -547,7 +572,7 @@ def _flash_backward(ctx, g):
             if k == 'xs':
                 full[k] = tuple(x.detach().requires_grad_(w)
                                 for x, w in zip(ops[k], want))
-            else:
+            elif ops[k] is not None:
                 full[k] = ops[k].detach().requires_grad_(want)
         n = q.shape[1]
         rows = _chunk_rows(n)
@@ -600,9 +625,9 @@ def flash_operands(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
     if arm_v != 'dense' or arm_k != 'dense' or frames is not None:
         raise NotImplementedError(f'only the dense contraction arm is ported '
                                   f'(arm_v={arm_v!r}, arm_k={arm_k!r})')
-    if wk is None:
-        raise NotImplementedError('tied keys and values (no wk) are not '
-                                  'ported')
+    tie = wk is None
+    if tie and bk is not None:
+        raise ValueError('tied keys and values (no wk) take no bk')
     if wv_scale is not None or wk_scale is not None:
         raise NotImplementedError('the quantized w3_scale epilogue is not '
                                   'ported')
@@ -615,10 +640,12 @@ def flash_operands(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
         return None if t is None else t.contiguous()
     flat = [int(v) for pair in pairs for v in pair]
     cfg = _config(flat, int(d_out), int(heads), int(kv_heads), float(scale),
-                  prefix_k)
+                  prefix_k, tie)
+    # untied keys without their own hidden take h_v's; tied keys none
+    h_k = None if tie else (h_v if h_k is None else h_k)
     return cfg, _ops(c(q), [c(x) for x in xs], c(idx), c(nmask), c(h_v),
-                     c(h_v if h_k is None else h_k), c(wv), c(bv), c(wk),
-                     c(bk), c(sh), c(prefix_k), c(prefix_v))
+                     c(h_k), c(wv), c(bv), c(wk), c(bk), c(sh), c(prefix_k),
+                     c(prefix_v))
 
 
 def flash_attention(q, xs, idx, nmask, h_v, wv, bv, **config) -> torch.Tensor:
@@ -626,7 +653,8 @@ def flash_attention(q, xs, idx, nmask, h_v, wv, bv, **config) -> torch.Tensor:
     signature of pallas_flash.py::flash_attention (operands in the module
     docstring, any strides; the keywords of flash_operands); differentiable
     in q, xs, h_v, h_k, wv, bv, wk, bk, sh and the prefix slots. h_k
-    defaults to h_v."""
+    defaults to h_v; without wk (and bk, h_k) the keys are tied to the
+    values."""
     cfg, ops = flash_operands(q, xs, idx, nmask, h_v, wv, bv, **config)
     return _flash_op(*(list(ops[k]) if k == 'xs' else ops[k]
                        for k in _TENSOR_ARGS),
@@ -684,10 +712,11 @@ def _sh_degree(cfg: FlashConfig) -> int:
 
 def _global_edge_payload(cfg: FlashConfig, rel, rp_v, rp_k):
     """The radial hiddens through the inlined trunk and the SH stack of a
-    [..., 3] rel block (pallas_flash.py::_global_edge_payload, dense arm)."""
+    [..., 3] rel block (pallas_flash.py::_global_edge_payload, dense arm);
+    h_k is None with tied keys and values."""
     ef = _safe_dist(rel)[..., None]
     h_v = _radial_apply(ef, rp_v)
-    h_k = _radial_apply(ef, rp_k)
+    h_k = None if cfg.tie else _radial_apply(ef, rp_k)
     sh = flash_sh_payload(rel, _sh_degree(cfg), differentiable=True)
     return h_v, h_k, sh
 
@@ -710,12 +739,7 @@ def _global_chunk_body(cfg: FlashConfig, rows: slice, ops: dict):
     h_v, h_k, sh = _global_edge_payload(cfg, rel, ops['rp_v'], ops['rp_k'])
     xg = tuple(x[:, None].expand(x.shape[0], q.shape[1], *x.shape[1:])
                for x in ops['xs'])
-    kv = []
-    for h, w3, b3 in ((h_k, ops['wk'], ops['bk']),
-                      (h_v, ops['wv'], ops['bv'])):
-        t = _kv_block(cfg.pairs, cfg.d_out, xg, h, sh, w3, b3)
-        kv.append(t.reshape(*t.shape[:-2], kv_h, Dh))
-    kv_k, kv_v = kv
+    kv_k, kv_v = _kv_pair(cfg, xg, h_k, h_v, sh, ops, Dh)
     nmask = None
     if ops.get('node_mask') is not None:
         nmask = ops['node_mask'][:, None, :]
@@ -743,8 +767,9 @@ def flash_global_plain(cfg: FlashConfig, ops: dict,
     query-row chunks (pallas_flash.py::_flash_stream in global mode, n //
     16 chunks), each chunk's [rows, n] pair tensors made and dropped in
     turn; rows = n is the materialized control arm. `ops` holds q, xs,
-    coords, rp_v, rp_k (8-tuples), wv, bv, wk, bk, node_mask, prefix_k and
-    prefix_v under the names of flash_global_attention."""
+    coords, rp_v, rp_k (8-tuples; rp_k empty when tied), wv, bv, wk, bk
+    (None when tied), node_mask, prefix_k and prefix_v under the names of
+    flash_global_attention."""
     n = ops['q'].shape[1]
     rows = rows or _chunk_rows(n)
     return torch.cat([_global_chunk_body(cfg, slice(s, min(s + rows, n)),
@@ -800,6 +825,11 @@ def _check_global(cfg: FlashConfig, ops: dict):
     if cfg.mode != 'global':
         raise ValueError(f'the global kernel runs global mode, not '
                          f'{cfg.mode!r}')
+    kv_names = ('v',) if cfg.tie else ('k', 'v')
+    if cfg.tie != (ops.get('wk') is None) or (cfg.tie and (
+            ops.get('bk') is not None or ops.get('rp_k'))):
+        raise ValueError('tied keys and values take no rp_k, wk or bk; '
+                         'untied ones need all three')
     limit = global_limit(cfg.pairs, cfg.d_out, cfg.heads, cfg.kv_heads,
                          Dh // P, cfg.prefix)
     if limit is not None:
@@ -810,14 +840,14 @@ def _check_global(cfg: FlashConfig, ops: dict):
         raise ValueError(f'coords must be float32 [{B}, {n}, 3], got '
                          f'{coords.dtype} {tuple(coords.shape)}')
     shapes = ((1, MID),) * 4 + ((MID, MID),) + ((1, MID),) * 3
-    for name in ('rp_v', 'rp_k'):
+    for name in [f'rp_{c}' for c in kv_names]:
         rp = ops[name]
         if len(rp) != 8 or any(t.dtype != torch.float32
                                or tuple(t.shape) != s
                                for t, s in zip(rp, shapes)):
             raise ValueError(f'{name} must be the 8-tuple of float32 trunk '
                              f'parameters of shapes {shapes}')
-    for w, b in (('wv', 'bv'), ('wk', 'bk')):
+    for w, b in [(f'w{c}', f'b{c}') for c in kv_names]:
         if ops[w].dtype != torch.float32 or ops[b].dtype != torch.float32 \
                 or tuple(ops[w].shape) != (MID, IF, GLOBAL_O_WIDTH) \
                 or tuple(ops[b].shape) != (IF, GLOBAL_O_WIDTH):
@@ -832,7 +862,7 @@ def _check_global(cfg: FlashConfig, ops: dict):
                          f'{node_mask.dtype} {tuple(node_mask.shape)}')
     _check_prefix(cfg, ops, B, n, H * Dh)
     _check_placement([q, coords, *ops['xs'], *ops['rp_v'], *ops['rp_k']]
-                     + [ops[k] for k in ('wv', 'bv', 'wk', 'bk')]
+                     + [ops[f'{k}{c}'] for c in kv_names for k in ('w', 'b')]
                      + [t for t in (node_mask, ops.get('prefix_k'),
                                     ops.get('prefix_v')) if t is not None],
                      q.device)
@@ -840,11 +870,13 @@ def _check_global(cfg: FlashConfig, ops: dict):
 
 
 def _pack_trunks(rp_k, rp_v) -> torch.Tensor:
-    """Both trunks' parameters as the kernel reads them: per trunk (keys,
-    then values) the seven [mid] vectors w1, b1, s1, o1, b2, s2, o2, then
-    w2 [mid, mid] (in, out), float32."""
+    """The trunks' parameters as the kernel reads them: per trunk (keys,
+    then values; the values' alone when rp_k is empty, tied) the seven
+    [mid] vectors w1, b1, s1, o1, b2, s2, o2, then w2 [mid, mid] (in,
+    out), float32."""
     parts = []
-    for w1, b1, s1, o1, w2, b2, s2, o2 in (rp_k, rp_v):
+    for w1, b1, s1, o1, w2, b2, s2, o2 in ((rp_k, rp_v) if rp_k
+                                            else (rp_v,)):
         parts += [w1, b1, s1, o1, b2, s2, o2, w2]
     return torch.cat([t.reshape(-1) for t in parts])
 
@@ -866,9 +898,10 @@ def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     rp = _pack_trunks(ops['rp_k'], ops['rp_v'])
     # the weight stream, packed in the launch: per stage one trunk's W2
     # half or 4 values of i of W_k or W_v, as bf16 hi + lo [128][64] tiles
-    # (32768 bytes); then b3 of each W3 stage (256 bytes)
-    nc = -(-IF // 4)
-    w_split = torch.empty(2 * (2 + nc) * 32768 + 2 * nc * 256,
+    # (32768 bytes); then b3 of each W3 stage (256 bytes); tied, the
+    # values' trunk alone
+    nc, trunks = -(-IF // 4), 1 if cfg.tie else 2
+    w_split = torch.empty(trunks * ((2 + nc) * 32768 + nc * 256),
                           dtype=torch.uint8, device=q.device)
 
     ptr = _pointers(ops)
@@ -881,7 +914,7 @@ def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
             out.data_ptr(), w_split.data_ptr(), *ds, *cs, *offs,
             len(cfg.pairs), B, n, S0,
             cfg.heads, IF, 2 * cfg.d_out + 1, 2 * _sh_degree(cfg),
-            int(cfg.exclude_self), float(cfg.scale), _stream(q))
+            int(cfg.exclude_self), int(cfg.tie), float(cfg.scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f'se3_flash_global launch failed: CUDA error {rc}')
     flash_global_attention_fwd.launches += 1
@@ -900,23 +933,24 @@ def _global_ops(q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask,
 
 
 def _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                   exclude_self):
-    return _config(pairs, d_out, heads, kv_heads, scale, prefix_k)._replace(
-        mode='global', exclude_self=bool(exclude_self))
+                   exclude_self, tie=False):
+    return _config(pairs, d_out, heads, kv_heads, scale, prefix_k,
+                   tie)._replace(mode='global',
+                                 exclude_self=bool(exclude_self))
 
 
 @torch.library.custom_op('se3_torch::flash_global_attention', mutates_args=(),
                          device_types='cpu')
 def _global_op(q: torch.Tensor, xs: List[torch.Tensor], coords: torch.Tensor,
                rp_v: List[torch.Tensor], wv: torch.Tensor, bv: torch.Tensor,
-               rp_k: List[torch.Tensor], wk: torch.Tensor, bk: torch.Tensor,
-               node_mask: Optional[torch.Tensor],
+               rp_k: List[torch.Tensor], wk: Optional[torch.Tensor],
+               bk: Optional[torch.Tensor], node_mask: Optional[torch.Tensor],
                prefix_k: Optional[torch.Tensor],
                prefix_v: Optional[torch.Tensor], pairs: List[int],
                d_out: int, heads: int, kv_heads: int, scale: float,
                exclude_self: bool) -> torch.Tensor:
     cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                         exclude_self)
+                         exclude_self, wk is None)
     return flash_global_plain(cfg, _global_ops(
         q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
         prefix_v))
@@ -926,7 +960,7 @@ def _global_op(q: torch.Tensor, xs: List[torch.Tensor], coords: torch.Tensor,
 def _(q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
       prefix_v, pairs, d_out, heads, kv_heads, scale, exclude_self):
     cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                         exclude_self)
+                         exclude_self, wk is None)
     return flash_global_attention_fwd(cfg, _global_ops(
         q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
         prefix_v))
@@ -939,7 +973,7 @@ def _global_setup(ctx, inputs, output):
                           prefix_v, *xs, *rp_v, *rp_k)
     ctx.n_xs = len(xs)
     ctx.cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                             exclude_self)
+                             exclude_self, wk is None)
 
 
 def _global_backward(ctx, g):
@@ -995,17 +1029,18 @@ def flash_global_operands(q, xs, coords, rp_v, wv, bv, *, pairs, d_out,
                           prefix_v=None, exclude_self=True):
     """flash_global_attention's arguments as the plain stream and the
     kernel take them: (FlashConfig, ops), every operand contiguous, the
-    trunks' 1-D leaves as [1, mid]; the so2 arm and tied keys (no wk) raise
-    NotImplementedError. flash_global_plain(*flash_global_operands(...))
-    is the plain stream in its row chunks under autograd, the route of a
-    configuration past global_limit."""
+    trunks' 1-D leaves as [1, mid]; without wk (and rp_k, bk) the keys are
+    tied to the values; the so2 arm raises NotImplementedError.
+    flash_global_plain(*flash_global_operands(...)) is the plain stream in
+    its row chunks under autograd, the route of a configuration past
+    global_limit."""
     if arm != 'dense':
         raise NotImplementedError(f'only the dense contraction arm is ported '
                                   f'(arm={arm!r})')
-    if wk is None:
-        raise NotImplementedError('tied keys and values (no wk) are not '
-                                  'ported')
-    if rp_k is None:
+    tie = wk is None
+    if tie and (bk is not None or rp_k is not None):
+        raise ValueError('tied keys and values (no wk) take no rp_k or bk')
+    if not tie and rp_k is None:
         raise ValueError('untied keys need their radial params')
     if (prefix_k is None) != (prefix_v is None):
         raise ValueError('prefix_k and prefix_v come together')
@@ -1017,9 +1052,9 @@ def flash_global_operands(q, xs, coords, rp_v, wv, bv, *, pairs, d_out,
         return [c(p.reshape(1, -1) if p.ndim == 1 else p) for p in rp]
     flat = [int(v) for pair in pairs for v in pair]
     cfg = _global_config(flat, int(d_out), int(heads), int(kv_heads),
-                         float(scale), prefix_k, exclude_self)
+                         float(scale), prefix_k, exclude_self, tie)
     return cfg, _global_ops(c(q), [c(x) for x in xs], c(coords), trunk(rp_v),
-                            c(wv), c(bv), trunk(rp_k), c(wk), c(bk),
+                            c(wv), c(bv), trunk(rp_k or ()), c(wk), c(bk),
                             c(node_mask), c(prefix_k), c(prefix_v))
 
 

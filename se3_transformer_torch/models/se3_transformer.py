@@ -43,6 +43,15 @@ then the same output tail. num_tokens embeds integer tokens first
 with reversible, as in JAX); use_null_kv adds the null kv slot of the
 global blocks.
 
+The attention variants, in either mode but where JAX refuses them:
+global_feats_dim (the forward's global_feats [b, num_global,
+global_feats_dim] become degree-0 kv slots of every block),
+one_headed_key_values (one kv head), tie_key_values (keys are the
+values), linear_proj_keys (kNN, unfused blocks only), use_null_kv (a null
+kv slot), rotary_position and
+rotary_rel_dist (rotary phases of the degree-0 q, k and v from the slots'
+sequence positions and distances; kNN, unfused blocks only).
+
 Every other JAX field is accepted only at its JAX default: any other value
 raises NotImplementedError, so nothing is silently ignored.
 """
@@ -53,6 +62,7 @@ import re
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..basis import get_basis
@@ -64,6 +74,7 @@ from ..ops.neighbors import (
     exclude_self_indices, expand_adjacency, remove_self, select_neighbors,
     sparse_neighbor_mask,
 )
+from ..ops.rotary import sinusoidal_embeddings
 from ..ops.trunk import SequentialTrunk
 from ..utils.helpers import (
     batched_index_select, cast_tuple, masked_mean, resolve_device,
@@ -72,9 +83,7 @@ from ..utils.helpers import (
 # JAX SE3TransformerModule fields this port does not implement, with the
 # JAX defaults they must keep
 _JAX_ONLY_DEFAULTS = dict(
-    global_feats_dim=None, linear_proj_keys=False,
-    one_headed_key_values=False, tie_key_values=False,
-    rotary_position=False, rotary_rel_dist=False, norm_gated_scale=False,
+    norm_gated_scale=False,
     use_egnn=False, egnn_hidden_dim=32, egnn_weights_clamp_value=None,
     egnn_feedforward=False,
     conv_backend='dense', flash_interpret=False,
@@ -102,9 +111,18 @@ _NOT_WITH_GLOBAL = (
     ('num_conv_layers', 0, 'global mode has no per-edge convs'))
 
 
-# fields the JAX module refuses beside fuse_pairwise (its _forward asserts)
-_NOT_WITH_FUSE_PAIRWISE = ('sequence_parallel', 'rotary_position',
-                           'rotary_rel_dist', 'linear_proj_keys', 'conv_bf16')
+# what the JAX module refuses beside fuse_pairwise (its _forward asserts),
+# as _NOT_WITH_GLOBAL
+_NOT_WITH_FUSE_PAIRWISE = (
+    ('sequence_parallel', None, 'fuse_pairwise streams its own gathers and '
+     'does not compose with the sequence-parallel ring exchange yet'),
+    ('rotary_position', False, 'fuse_pairwise does not support rotary '
+     'embeddings'),
+    ('rotary_rel_dist', False, 'fuse_pairwise does not support rotary '
+     'embeddings'),
+    ('linear_proj_keys', False, 'fuse_pairwise needs conv keys '
+     '(linear_proj_keys is the gathered node-projection variant)'),
+    ('conv_bf16', False, 'fuse_pairwise does not apply conv_bf16'))
 
 
 def resolve_fused_attention(spec, depth: int) -> tuple:
@@ -221,7 +239,13 @@ class SE3TransformerModule(nn.Module):
                  edge_dim: Optional[int] = None,
                  attend_sparse_neighbors: bool = False,
                  num_adj_degrees: Optional[int] = None, adj_dim: int = 0,
-                 max_sparse_neighbors=float('inf'), causal: bool = False, *,
+                 max_sparse_neighbors=float('inf'), causal: bool = False,
+                 global_feats_dim: Optional[int] = None,
+                 linear_proj_keys: bool = False,
+                 one_headed_key_values: bool = False,
+                 tie_key_values: bool = False,
+                 rotary_position: bool = False,
+                 rotary_rel_dist: bool = False, *,
                  device='cuda', generator: Optional[torch.Generator] = None,
                  **jax_fields):
         super().__init__()
@@ -243,12 +267,17 @@ class SE3TransformerModule(nn.Module):
         if num_edge_tokens is not None and edge_dim is None:
             raise ValueError('num_edge_tokens embeds edges into edge_dim '
                              'features; set edge_dim')
+        if reversible and global_feats_dim is not None:
+            raise ValueError('reversibility and global features are not '
+                             'compatible')
+        fields = dict(jax_fields, fourier_encode_dist=fourier_encode_dist,
+                      num_conv_layers=num_conv_layers,
+                      attend_sparse_neighbors=attend_sparse_neighbors,
+                      causal=causal, num_adj_degrees=num_adj_degrees,
+                      edge_dim=edge_dim, rotary_position=rotary_position,
+                      rotary_rel_dist=rotary_rel_dist,
+                      linear_proj_keys=linear_proj_keys)
         if attention_mode == 'global':
-            fields = dict(jax_fields, fourier_encode_dist=fourier_encode_dist,
-                          num_conv_layers=num_conv_layers,
-                          attend_sparse_neighbors=attend_sparse_neighbors,
-                          causal=causal, num_adj_degrees=num_adj_degrees,
-                          edge_dim=edge_dim)
             for key, allowed, why in _NOT_WITH_GLOBAL:
                 if fields.get(key, allowed) != allowed:
                     raise ValueError(f"attention_mode='global' does not "
@@ -261,22 +290,15 @@ class SE3TransformerModule(nn.Module):
                 raise ValueError(f'remat_policy={remat_policy!r} tags conv '
                                  f'outputs, which the global trunk never '
                                  f'materializes')
-            if reversible and jax_fields.get('global_feats_dim') is not None:
-                raise ValueError('reversibility and global features are '
-                                 'not compatible')
-        elif use_null_kv:
-            raise NotImplementedError("use_null_kv is ported for "
-                                      "attention_mode='global' only")
         if pallas_attention not in (None, False, True):
             raise ValueError(f'pallas_attention must be None, False or True, '
                              f'got {pallas_attention!r}')
         self.fused_attention = resolve_fused_attention(fuse_pairwise, depth)
         if any(self.fused_attention):
-            for key in _NOT_WITH_FUSE_PAIRWISE:
-                if jax_fields.get(key, _JAX_ONLY_DEFAULTS[key]) != \
-                        _JAX_ONLY_DEFAULTS[key]:
+            for key, allowed, why in _NOT_WITH_FUSE_PAIRWISE:
+                if fields.get(key, allowed) != allowed:
                     raise ValueError(f'fuse_pairwise does not compose with '
-                                     f'{key}={jax_fields[key]!r}')
+                                     f'{key}={fields[key]!r}: {why}')
         for key, value in jax_fields.items():
             if key not in _JAX_ONLY_DEFAULTS:
                 raise TypeError(f'unknown field {key!r}')
@@ -323,6 +345,10 @@ class SE3TransformerModule(nn.Module):
         self.num_adj_degrees = num_adj_degrees
         self.max_sparse_neighbors = max_sparse_neighbors
         self.causal = causal
+        self.global_feats_dim = global_feats_dim
+        self.rotary_position, self.rotary_rel_dist = \
+            rotary_position, rotary_rel_dist
+        self.dim_head = dim_head
         # the convs' edge width: the edges, then the ring labels' embedding
         # (the JAX module reads it off the edges at trace time)
         embed_adjacency = num_adj_degrees is not None and adj_dim > 0
@@ -361,6 +387,9 @@ class SE3TransformerModule(nn.Module):
             attend_self=attend_self, use_null_kv=use_null_kv,
             fourier_encode_dist=fourier_encode_dist,
             rel_dist_num_fourier_features=rel_dist_num_fourier_features,
+            global_feats_dim=global_feats_dim,
+            linear_proj_keys=linear_proj_keys, tie_key_values=tie_key_values,
+            one_headed_key_values=one_headed_key_values,
             reversible=reversible, remat_policy=remat_policy,
             pallas_attention=pallas_attention,
             shared_radial_hidden=shared_radial_hidden,
@@ -386,7 +415,8 @@ class SE3TransformerModule(nn.Module):
                 edges: Optional[torch.Tensor] = None,
                 return_type: Optional[int] = None,
                 return_pooled: bool = False,
-                neighbor_mask: Optional[torch.Tensor] = None, *,
+                neighbor_mask: Optional[torch.Tensor] = None,
+                global_feats=None, *,
                 neighbor_noise: Optional[torch.Generator] = None):
         """feats [b, n, dim] (integer tokens [b, n] with num_tokens), or a
         dict of the input degrees {'0': [b, n, c0, 1], '1': [b, n, c1, 3],
@@ -401,7 +431,9 @@ class SE3TransformerModule(nn.Module):
         ([b, n] with reduce_dim_out); degree 1 is [b, n, c, 3] ([b, n, 3]
         with reduce_dim_out), in Cartesian order. return_pooled takes the
         mean over the nodes (the real ones, with mask): [b, c] and [b, c,
-        3].
+        3]. global_feats [b, num_global, global_feats_dim] (or {'0': [b,
+        num_global, global_feats_dim, 1]}) is passed iff global_feats_dim
+        is set.
 
         neighbor_noise is a torch.Generator on the input's device that the
         bonded top-k's tie-breaking jitter U(-0.01, 0.01) is drawn from,
@@ -410,6 +442,11 @@ class SE3TransformerModule(nn.Module):
         so that plain inference is reproducible, as JAX's PRNGKey(0)
         default is. Its bits differ from JAX's, which matters only in a
         row with more bonds than max_sparse_neighbors."""
+        if (self.global_feats_dim is not None) != (global_feats is not None):
+            raise ValueError('global features must be passed iff '
+                             'global_feats_dim is set')
+        if global_feats is not None and not isinstance(global_feats, dict):
+            global_feats = {'0': global_feats[..., None]}
         if self.attend_sparse_neighbors and adj_mat is None:
             raise ValueError('adjacency matrix must be passed in when '
                              'attending to sparse neighbors')
@@ -439,7 +476,7 @@ class SE3TransformerModule(nn.Module):
                              f'{self.input_degrees - 1}')
         if self.attention_mode == 'global':
             return self._global_forward(feats, coors, mask, return_type,
-                                        return_pooled)
+                                        return_pooled, global_feats)
         if not self.attend_sparse_neighbors and self.num_neighbors <= 0:
             raise ValueError('either attend to sparse neighbors or use '
                              'num_neighbors > 0')
@@ -494,7 +531,8 @@ class SE3TransformerModule(nn.Module):
             x = getattr(self, f'preconv_norm{i}')(x)
             x = getattr(self, f'preconv{i}')(x, edge_info, hood.rel_dist,
                                              basis)
-        x = self.trunk(x, edge_info, hood.rel_dist, basis)
+        x = self.trunk(x, edge_info, hood.rel_dist, basis, global_feats,
+                       self._rotary_embeddings(b, n, hood))
         x = self.conv_out(x, edge_info, hood.rel_dist, basis)
         return self._output(x, return_type, return_pooled, mask)
 
@@ -532,8 +570,37 @@ class SE3TransformerModule(nn.Module):
                                            noise_full)
         return adj_indices, remove_self(sparse_full, self_excl), num_sparse
 
+    def _rotary_embeddings(self, b, n, hood):
+        """The rotary phases (JAX _rotary_embeddings): (query [b, n, r],
+        key [b, n, 1 + K, r]) over the [self, neighbors] slots, from the
+        sequence positions and/or the distances x 1e2 (zero for the query
+        and the self slot), rot_dim = dim_head // their count per kind;
+        None without either."""
+        if not (self.rotary_position or self.rotary_rel_dist):
+            return None
+        rot_dim = self.dim_head // (int(self.rotary_position)
+                                    + int(self.rotary_rel_dist))
+        device = hood.rel_dist.device
+        query, key = [], []
+        if self.rotary_position:
+            seq_emb = sinusoidal_embeddings(torch.arange(n, device=device),
+                                            rot_dim)           # [n, r]
+            idx_with_self = torch.cat(
+                (torch.arange(n, device=device)[None, :, None]
+                 .expand(b, n, 1).to(hood.indices.dtype), hood.indices),
+                dim=2)
+            key.append(seq_emb[idx_with_self])          # [b, n, 1 + K, r]
+            query.append(seq_emb[None].expand(b, n, rot_dim))
+        if self.rotary_rel_dist:
+            dist_with_self = F.pad(hood.rel_dist, (1, 0)) * 1e2
+            key.append(sinusoidal_embeddings(dist_with_self, rot_dim))
+            q_emb = sinusoidal_embeddings(
+                torch.zeros(n, device=device), rot_dim)
+            query.append(q_emb[None].expand(b, n, rot_dim))
+        return torch.cat(query, dim=-1), torch.cat(key, dim=-1)
+
     def _global_forward(self, feats, coors, mask, return_type,
-                        return_pooled):
+                        return_pooled, global_feats):
         """attention_mode='global' (the JAX _global_forward): lift in, the
         global trunk with the coordinates (and the mask) as its only
         basis, lift out, then the output tail."""
@@ -547,7 +614,7 @@ class SE3TransformerModule(nn.Module):
             if str(degree) not in x:
                 x[str(degree)] = feats['0'].new_zeros(b, n, c,
                                                       2 * degree + 1)
-        x = self.trunk(x, (None, None, None), None, basis)
+        x = self.trunk(x, (None, None, None), None, basis, global_feats)
         return self._output(self.lift_out(x), return_type, return_pooled,
                             mask)
 

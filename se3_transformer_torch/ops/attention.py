@@ -1,34 +1,43 @@
 """Multi-degree SE(3)-equivariant attention: the port of
 se3_transformer_tpu/ops/attention.py's kNN paths and its kNN-free global
-mode (AttentionSE3 with kv_heads == heads, and AttentionBlockSE3).
+mode (AttentionSE3, its one-headed kv variant, and AttentionBlockSE3).
 
-KV slot order along the neighbor axis is [self, neighbors], the self slot
-(the to_self_k / to_self_v projections) only with attend_self; the
-neighbor mask is left-padded with True over the self slot, and masked
-logits are filled with the finite float32 minimum. The layers' defaults
-are JAX's: attend_self=False and shared_radial_hidden=False (the kv convs'
-per-pair radial trunks; fuse_pairwise and the global mode take the shared
-one, as in JAX); fourier_encode_dist and edge_dim (the width of
-edge_info's edges) reach the kv convs' edge features.
-Three attention cores, one function:
+KV slot order along the neighbor axis is [global, null, self, neighbors]:
+the global slots (to_global_k / to_global_v of the global features, degree
+0 only) with global features, the null slot (the null_k{d} / null_v{d}
+parameters, zeros at init) with use_null_kv, the self slot (to_self_k /
+to_self_v) with attend_self; the neighbor mask is left-padded with True
+over them, and masked logits are filled with the finite float32 minimum.
+Rotary embeddings (pos_emb) rotate the degree-0 q, k and v before the null
+and global slots are prepended. The layers' defaults are JAX's:
+attend_self=False and shared_radial_hidden=False (the kv convs' per-pair
+radial trunks; fuse_pairwise and the global mode take the shared one, as in
+JAX); fourier_encode_dist and edge_dim (the width of edge_info's edges)
+reach the kv convs' edge features.
+
+kv_heads (None: heads; 1: one kv head shared by every query head, the
+multi-query variant that one_headed_key_values selects) sets the kv
+fiber, dim_head * kv_heads. linear_proj_keys makes the keys a LinearSE3
+of the node features gathered at the neighbors; tie_key_values makes them
+the values themselves (no to_k). Three attention cores, one function:
 
   * the einsums (the JAX default, pallas_attention None or False);
   * pallas_attention=True: kernels.attention.fused_attention per degree,
-    (dim_head, m) flattened into one feature axis and the heads folded into
-    the batch;
+    (dim_head, m) flattened into one feature axis, the query heads folded
+    into the batch over their kv heads;
   * fuse_pairwise=True: the kv convs in program mode and
     kernels.flash.flash_attention per degree (the JAX `_flash_call`): the
     per-edge basis, the gathered features, k, v and the scores stay inside
-    the kernel. Same parameters as the unfused path.
+    the kernel; the always-valid slots are its prefix. Same parameters as
+    the unfused path.
 
 attention_mode='global' (the JAX `_global_call`) takes no neighborhoods:
 every node attends to every other node through
 kernels.flash.flash_global_attention per degree, the kv convs in
 global_radial program mode, the pair payload rebuilt from the coordinates
-in basis['global_coords'] (columns masked by basis['global_mask']). The
-always-valid prefix slots are [null, self] with use_null_kv (the null_k{d}
-/ null_v{d} parameters, zeros at init) and attend_self, each only with its
-field. Global features are not ported.
+in basis['global_coords'] (columns masked by basis['global_mask']), the
+[global, null, self] slots as its prefix. Rotary embeddings and
+linear_proj_keys are refused there and with fuse_pairwise, as JAX does.
 """
 from __future__ import annotations
 
@@ -43,19 +52,24 @@ from ..kernels import flash as kf
 from ..kernels import routing
 from ..kernels.attention import fused_attention
 from ..kernels.flash import flash_attention, flash_global_attention
-from ..utils.helpers import to_order
+from ..utils.helpers import batched_index_select, to_order
 from .conv import ConvSE3, EdgeInfo
 from .core import LinearSE3, NormSE3, residual_se3
 from .fiber import Fiber
+from .rotary import apply_rotary_pos_emb
 
 Features = Dict[str, torch.Tensor]
 
 
 class AttentionSE3(nn.Module):
     def __init__(self, fiber: Fiber, dim_head: int = 64, heads: int = 8,
-                 attend_self: bool = False, fourier_encode_dist: bool = False,
+                 kv_heads: Optional[int] = None, attend_self: bool = False,
+                 fourier_encode_dist: bool = False,
                  rel_dist_num_fourier_features: int = 4,
                  use_null_kv: bool = False,
+                 global_feats_dim: Optional[int] = None,
+                 linear_proj_keys: bool = False,
+                 tie_key_values: bool = False,
                  pallas_attention: Optional[bool] = None,
                  shared_radial_hidden: bool = False,
                  edge_chunks: Optional[int] = None, fuse_basis: bool = False,
@@ -66,17 +80,32 @@ class AttentionSE3(nn.Module):
         if attention_mode not in ('knn', 'global'):
             raise ValueError(f"unknown attention_mode {attention_mode!r} "
                              f"(want 'knn' or 'global')")
-        if use_null_kv and attention_mode != 'global':
-            raise NotImplementedError("use_null_kv is ported for "
-                                      "attention_mode='global' only")
+        kv_h = heads if kv_heads is None else kv_heads
+        if kv_h not in (1, heads):
+            raise ValueError(f'kv_heads must be None, 1 or heads ({heads}), '
+                             f'got {kv_heads}')
+        if linear_proj_keys and tie_key_values:
+            raise ValueError('cannot do linear projection of keys and tied '
+                             'key/values together')
+        if linear_proj_keys and attention_mode == 'global':
+            raise ValueError('global attention needs conv keys '
+                             '(linear_proj_keys gathers node-projected keys, '
+                             'which presumes a neighbor list)')
+        if linear_proj_keys and fuse_pairwise:
+            raise ValueError('fuse_pairwise needs conv keys (linear_proj_keys '
+                             'gathers node-projected keys instead)')
         self.fiber, self.dim_head, self.heads = fiber, dim_head, heads
+        self.kv_heads = kv_h
         self.pallas_attention = bool(pallas_attention)
         self.fuse_pairwise = fuse_pairwise
         self.attention_mode = attention_mode
         self.global_materialize = global_materialize
         self.use_null_kv = use_null_kv
         self.attend_self = attend_self
+        self.linear_proj_keys = linear_proj_keys
+        self.tie_key_values = tie_key_values
         hidden_fiber = fiber.to(dim_head * heads)
+        kv_fiber = fiber.to(dim_head * kv_h)
         self.to_q = LinearSE3(fiber, hidden_fiber)
         conv_kwargs = dict(pool=False, self_interaction=False,
                            radial_bf16=radial_bf16)
@@ -95,58 +124,116 @@ class AttentionSE3(nn.Module):
         elif fourier_encode_dist or edge_dim:
             raise ValueError('global attention consumes raw distances only '
                              '(no fourier or edge features)')
-        self.to_v = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
-        self.to_k = ConvSE3(fiber, hidden_fiber, **conv_kwargs)
+        self.to_v = ConvSE3(fiber, kv_fiber, **conv_kwargs)
+        if linear_proj_keys:
+            self.to_k = LinearSE3(fiber, kv_fiber)
+        elif not tie_key_values:
+            self.to_k = ConvSE3(fiber, kv_fiber, **conv_kwargs)
         if attend_self:
-            self.to_self_k = LinearSE3(fiber, hidden_fiber)
-            self.to_self_v = LinearSE3(fiber, hidden_fiber)
+            self.to_self_k = LinearSE3(fiber, kv_fiber)
+            self.to_self_v = LinearSE3(fiber, kv_fiber)
         if use_null_kv:
             for degree, _ in fiber:
                 for name in ('null_k', 'null_v'):
                     self.register_parameter(
                         f'{name}{degree}', nn.Parameter(torch.zeros(
-                            heads, dim_head, 2 * degree + 1)))
+                            kv_h, dim_head, 2 * degree + 1)))
+        if global_feats_dim is not None:
+            g_in = Fiber.create(1, global_feats_dim)
+            g_out = Fiber.create(1, dim_head * kv_h)
+            self.to_global_k = LinearSE3(g_in, g_out)
+            self.to_global_v = LinearSE3(g_in, g_out)
         project_out = not (heads == 1 and len(fiber.dims) == 1
                            and dim_head == fiber.dims[0])
         self.to_out = LinearSE3(hidden_fiber, fiber) if project_out else None
 
     def forward(self, features: Features, edge_info: EdgeInfo,
-                rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
-                ) -> Features:
+                rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor],
+                global_feats: Optional[Features] = None,
+                pos_emb=None) -> Features:
+        """global_feats {'0': [b, num_global, global_feats_dim, 1]} adds
+        the global slots; pos_emb (query [b, n, r], key [b, n, 1 + K, r])
+        the rotary phases of the degree-0 q, k and v (kNN cores only)."""
+        if global_feats is not None and not hasattr(self, 'to_global_k'):
+            raise ValueError('global features were given but '
+                             'global_feats_dim is not set')
+        if pos_emb is not None and self.attention_mode == 'global':
+            raise ValueError('global attention does not support rotary '
+                             'embeddings')
+        if pos_emb is not None and self.fuse_pairwise:
+            raise ValueError('fuse_pairwise does not support rotary '
+                             'embeddings (they rewrite k/v per slot before '
+                             'the null/global prepends)')
+        global_kv = (None, None) if global_feats is None else \
+            (self.to_global_k(global_feats), self.to_global_v(global_feats))
         if self.attention_mode == 'global':
-            outputs = self._global_call(features, basis)
+            outputs = self._global_call(features, basis, global_kv)
         elif self.fuse_pairwise:
-            outputs = self._flash_call(features, edge_info, rel_dist, basis)
+            outputs = self._flash_call(features, edge_info, rel_dist, basis,
+                                       global_kv)
         else:
-            outputs = self._unfused_call(features, edge_info, rel_dist, basis)
+            outputs = self._unfused_call(features, edge_info, rel_dist, basis,
+                                         global_kv, pos_emb)
         if self.to_out is not None:
             outputs = self.to_out(outputs)
         return outputs
 
-    def _unfused_call(self, features, edge_info, rel_dist, basis) -> Features:
-        h, dh = self.heads, self.dim_head
+    def _keys(self, features, values, edge_info, rel_dist, basis):
+        """The neighbor keys: the to_k conv, the to_k LinearSE3 gathered at
+        the neighbors (linear_proj_keys), or the values (tie_key_values)."""
+        if self.linear_proj_keys:
+            return {d: batched_index_select(t, edge_info[0], dim=1)
+                    for d, t in self.to_k(features).items()}
+        if self.tie_key_values:
+            return values
+        return self.to_k(features, edge_info, rel_dist, basis)
+
+    def _unfused_call(self, features, edge_info, rel_dist, basis, global_kv,
+                      pos_emb) -> Features:
+        h, kv_h, dh = self.heads, self.kv_heads, self.dim_head
         neighbor_mask = edge_info[1]
         queries = self.to_q(features)
         values = self.to_v(features, edge_info, rel_dist, basis)
-        keys = self.to_k(features, edge_info, rel_dist, basis)
+        keys = self._keys(features, values, edge_info, rel_dist, basis)
         self_keys, self_values = self._self_kv(features)
+        global_keys, global_values = global_kv
 
         outputs = {}
         for degree in features.keys():
             m = to_order(int(degree))
             q = queries[degree]
             b, n = q.shape[0], q.shape[1]
-            # q [b, h, n, d, m]; k/v [b, h, n, j, d, m]
+            # q [b, h, n, d, m]; k/v [b, kv_h, n, j, d, m]
             q = q.reshape(b, n, h, dh, m).permute(0, 2, 1, 3, 4)
-            k, v = [t.reshape(b, n, t.shape[2], h, dh, m)
+            k, v = [t.reshape(b, n, t.shape[2], kv_h, dh, m)
                     .permute(0, 3, 1, 2, 4, 5)
                     for t in (keys[degree], values[degree])]
             if self.attend_self:
-                s_k, s_v = [t.reshape(b, n, h, dh, m).permute(0, 2, 1, 3, 4)
+                s_k, s_v = [t.reshape(b, n, kv_h, dh, m).permute(0, 2, 1, 3, 4)
                             [:, :, :, None]
                             for t in (self_keys[degree], self_values[degree])]
                 k = torch.cat((s_k, k), dim=3)
                 v = torch.cat((s_v, v), dim=3)
+            if pos_emb is not None and degree == '0':
+                query_pos_emb, key_pos_emb = pos_emb
+                q = apply_rotary_pos_emb(q, query_pos_emb[:, None])
+                k = apply_rotary_pos_emb(k, key_pos_emb[:, None])
+                v = apply_rotary_pos_emb(v, key_pos_emb[:, None])
+            if self.use_null_kv:
+                null_k, null_v = [
+                    getattr(self, f'{name}{degree}')[None, :, None, None]
+                    .expand(b, kv_h, n, 1, dh, m)
+                    for name in ('null_k', 'null_v')]
+                k = torch.cat((null_k, k), dim=3)
+                v = torch.cat((null_v, v), dim=3)
+            if global_keys is not None and degree == '0':
+                num_g = global_keys['0'].shape[1]
+                g_k, g_v = [t['0'].reshape(b, num_g, kv_h, dh, m)
+                            .permute(0, 2, 1, 3, 4)[:, :, None]
+                            .expand(b, kv_h, n, num_g, dh, m)
+                            for t in (global_keys, global_values)]
+                k = torch.cat((g_k, k), dim=3)
+                v = torch.cat((g_v, v), dim=3)
             J = k.shape[3]
             padded = None
             if neighbor_mask is not None:
@@ -155,11 +242,12 @@ class AttentionSE3(nn.Module):
 
             if self.pallas_attention:
                 # (dim_head, m) flattened into one feature axis (the logits
-                # reduce over both), the heads folded into the batch; past
-                # the kernels' limits on a card, their plain version
+                # reduce over both), the query heads folded into the batch
+                # over their kv heads; past the kernels' limits on a card,
+                # their plain version
                 args = (q.reshape(b * h, n, dh * m),
-                        k.reshape(b * h, n, J, dh * m),
-                        v.reshape(b * h, n, J, dh * m), padded, h,
+                        k.reshape(b * kv_h, n, J, dh * m),
+                        v.reshape(b * kv_h, n, J, dh * m), padded, h,
                         dh ** -0.5)
                 if routing.route(ka.fused_attention_fwd, q.device.type,
                                  ka.attention_limit(J, dh * m), (J, dh * m)):
@@ -168,12 +256,19 @@ class AttentionSE3(nn.Module):
                     out = fused_attention(*args)
                 out = out.reshape(b, h, n, dh, m)
             else:
-                sim = torch.einsum('bhidm,bhijdm->bhij', q, k) * dh ** -0.5
+                if kv_h == 1:
+                    sim = torch.einsum('bhidm,bijdm->bhij', q, k[:, 0])
+                else:
+                    sim = torch.einsum('bhidm,bhijdm->bhij', q, k)
+                sim = sim * dh ** -0.5
                 if padded is not None:
                     sim = sim.masked_fill(~padded[:, None],
                                           torch.finfo(sim.dtype).min)
                 attn = sim.softmax(dim=-1)
-                out = torch.einsum('bhij,bhijdm->bhidm', attn, v)
+                if kv_h == 1:
+                    out = torch.einsum('bhij,bijdm->bhidm', attn, v[:, 0])
+                else:
+                    out = torch.einsum('bhij,bhijdm->bhidm', attn, v)
             outputs[degree] = out.permute(0, 2, 1, 3, 4).reshape(
                 b, n, h * dh, m)
         return outputs
@@ -185,14 +280,20 @@ class AttentionSE3(nn.Module):
             return None, None
         return self.to_self_k(features), self.to_self_v(features)
 
-    def _prefix_slots(self, degree: str, b: int, n: int,
+    def _prefix_slots(self, degree: str, b: int, n: int, global_kv,
                       self_keys: Optional[Features],
                       self_values: Optional[Features]):
         """The always-valid kv slots left of the neighbor axis
-        (pallas_flash's prefix_k/prefix_v [b, n, S0, kv_h * Dh]) in the
-        unfused concat order [null, self], each with its field; (None,
-        None) with neither."""
+        (pallas_flash's prefix_k/prefix_v [b, n, S0, kv_heads * Dh]) in the
+        unfused concat order [global (degree 0), null, self], each with its
+        field; (None, None) with none."""
         pre_k, pre_v = [], []
+        global_keys, global_values = global_kv
+        if global_keys is not None and degree == '0':
+            num_g = global_keys['0'].shape[1]
+            for t, dst in ((global_keys, pre_k), (global_values, pre_v)):
+                dst.append(t['0'].reshape(b, 1, num_g, -1)
+                           .expand(b, n, num_g, -1))
         if self.use_null_kv:
             for name, dst in (('null_k', pre_k), ('null_v', pre_v)):
                 t = getattr(self, f'{name}{degree}')
@@ -204,18 +305,19 @@ class AttentionSE3(nn.Module):
             return None, None
         return torch.cat(pre_k, dim=2), torch.cat(pre_v, dim=2)
 
-    def _global_call(self, features, basis) -> Features:
+    def _global_call(self, features, basis, global_kv) -> Features:
         """The kNN-free path (JAX AttentionSE3._global_call): the same
         parameters as the kNN paths, the kv convs returning their trunk's
-        raw parameters and grouped w3/b3, and no edge_info, rel_dist or
-        per-pair basis: the kernel rebuilds the pair payload from the
-        coordinates per tile."""
-        h = self.heads
+        raw parameters and grouped w3/b3 (the values' alone when tied), and
+        no edge_info, rel_dist or per-pair basis: the kernel rebuilds the
+        pair payload from the coordinates per tile."""
+        h, kv_h = self.heads, self.kv_heads
         coords = basis['global_coords']
         node_mask = basis.get('global_mask')
         queries = self.to_q(features)
         v_prog = self.to_v(features, None, None, basis)
-        k_prog = self.to_k(features, None, None, basis)
+        k_prog = None if self.tie_key_values else \
+            self.to_k(features, None, None, basis)
         self_keys, self_values = self._self_kv(features)
 
         outputs = {}
@@ -223,25 +325,27 @@ class AttentionSE3(nn.Module):
             m = to_order(int(degree))
             Dh = self.dim_head * m
             b, n = features[degree].shape[:2]
-            prefix_k, prefix_v = self._prefix_slots(degree, b, n, self_keys,
-                                                    self_values)
+            prefix_k, prefix_v = self._prefix_slots(degree, b, n, global_kv,
+                                                    self_keys, self_values)
             S0 = 0 if prefix_k is None else prefix_k.shape[2]
             args = (queries[degree].reshape(b, n, h, Dh),
                     tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
                     coords, v_prog['rp'], v_prog['w3'][degree],
                     v_prog['b3'][degree])
             config = dict(pairs=v_prog['pairs'], d_out=int(degree), heads=h,
-                          kv_heads=h, scale=self.dim_head ** -0.5,
-                          arm=v_prog['arm'], rp_k=k_prog['rp'],
-                          wk=k_prog['w3'][degree], bk=k_prog['b3'][degree],
-                          node_mask=node_mask, prefix_k=prefix_k,
-                          prefix_v=prefix_v, exclude_self=True)
-            limit = kf.global_limit(v_prog['pairs'], int(degree), h, h,
+                          kv_heads=kv_h, scale=self.dim_head ** -0.5,
+                          arm=v_prog['arm'], node_mask=node_mask,
+                          prefix_k=prefix_k, prefix_v=prefix_v,
+                          exclude_self=True)
+            if k_prog is not None:
+                config.update(rp_k=k_prog['rp'], wk=k_prog['w3'][degree],
+                              bk=k_prog['b3'][degree])
+            limit = kf.global_limit(v_prog['pairs'], int(degree), h, kv_h,
                                     self.dim_head, S0)
             # materialize runs the plain stream as one chunk anyway
             if not self.global_materialize and routing.route(
                     kf.flash_global_attention_fwd, coords.device.type, limit,
-                    (v_prog['pairs'], int(degree), h, self.dim_head)):
+                    (v_prog['pairs'], int(degree), h, kv_h, self.dim_head)):
                 out = kf.flash_global_plain(
                     *kf.flash_global_operands(*args, **config))
             else:
@@ -250,15 +354,18 @@ class AttentionSE3(nn.Module):
             outputs[degree] = out.reshape(b, n, h * self.dim_head, m)
         return outputs
 
-    def _flash_call(self, features, edge_info, rel_dist, basis) -> Features:
+    def _flash_call(self, features, edge_info, rel_dist, basis,
+                    global_kv) -> Features:
         """The streaming path (JAX AttentionSE3._flash_call): the kv convs
-        return their radial hidden and grouped w3/b3, and the kernel builds
-        k and v per edge from the node features and the SH stack."""
-        h = self.heads
+        return their radial hidden and grouped w3/b3 (the values' alone
+        when tied), and the kernel builds k and v per edge from the node
+        features and the SH stack."""
+        h, kv_h = self.heads, self.kv_heads
         neighbor_indices, neighbor_mask, _ = edge_info
         queries = self.to_q(features)
         v_prog = self.to_v(features, edge_info, rel_dist, basis)
-        k_prog = self.to_k(features, edge_info, rel_dist, basis)
+        k_prog = None if self.tie_key_values else \
+            self.to_k(features, edge_info, rel_dist, basis)
         self_keys, self_values = self._self_kv(features)
 
         outputs = {}
@@ -266,8 +373,8 @@ class AttentionSE3(nn.Module):
             m = to_order(int(degree))
             Dh = self.dim_head * m
             b, n = features[degree].shape[:2]
-            prefix_k, prefix_v = self._prefix_slots(degree, b, n, self_keys,
-                                                    self_values)
+            prefix_k, prefix_v = self._prefix_slots(degree, b, n, global_kv,
+                                                    self_keys, self_values)
             S0 = 0 if prefix_k is None else prefix_k.shape[2]
             h_v, K = v_prog['h'], neighbor_indices.shape[-1]
             args = (queries[degree].reshape(b, n, h, Dh),
@@ -275,16 +382,18 @@ class AttentionSE3(nn.Module):
                     neighbor_indices, neighbor_mask, h_v,
                     v_prog['w3'][degree], v_prog['b3'][degree])
             config = dict(pairs=v_prog['pairs'], d_out=int(degree), heads=h,
-                          kv_heads=h, scale=self.dim_head ** -0.5,
-                          arm_v=v_prog['arm'], arm_k=k_prog['arm'],
-                          h_k=k_prog['h'], wk=k_prog['w3'][degree],
-                          bk=k_prog['b3'][degree], sh=basis['flash_sh'],
+                          kv_heads=kv_h, scale=self.dim_head ** -0.5,
+                          arm_v=v_prog['arm'], sh=basis['flash_sh'],
                           prefix_k=prefix_k, prefix_v=prefix_v)
-            limit = kf.flash_limit(v_prog['pairs'], int(degree), h, h,
+            if k_prog is not None:
+                config.update(arm_k=k_prog['arm'], h_k=k_prog['h'],
+                              wk=k_prog['w3'][degree],
+                              bk=k_prog['b3'][degree])
+            limit = kf.flash_limit(v_prog['pairs'], int(degree), h, kv_h,
                                    self.dim_head, K, S0,
                                    h_v.shape[-1], h_v.dtype)
             if routing.route(kf.flash_attention_fwd, h_v.device.type, limit,
-                             (v_prog['pairs'], int(degree), h,
+                             (v_prog['pairs'], int(degree), h, kv_h,
                               self.dim_head, K)):
                 out = kf.flash_attention_plain(
                     *kf.flash_operands(*args, **config))
@@ -295,12 +404,17 @@ class AttentionSE3(nn.Module):
 
 
 class AttentionBlockSE3(nn.Module):
-    """Prenorm + attention + residual."""
+    """Prenorm + attention + residual; one_headed_key_values gives the
+    attention one kv head (kv_heads=1)."""
 
     def __init__(self, fiber: Fiber, dim_head: int = 24, heads: int = 8,
                  attend_self: bool = False, use_null_kv: bool = False,
                  fourier_encode_dist: bool = False,
                  rel_dist_num_fourier_features: int = 4,
+                 global_feats_dim: Optional[int] = None,
+                 linear_proj_keys: bool = False,
+                 tie_key_values: bool = False,
+                 one_headed_key_values: bool = False,
                  pallas_attention: Optional[bool] = None,
                  shared_radial_hidden: bool = False,
                  edge_chunks: Optional[int] = None, fuse_basis: bool = False,
@@ -310,10 +424,13 @@ class AttentionBlockSE3(nn.Module):
         super().__init__()
         self.prenorm = NormSE3(fiber)
         self.attn = AttentionSE3(
-            fiber, dim_head=dim_head, heads=heads, attend_self=attend_self,
-            fourier_encode_dist=fourier_encode_dist,
+            fiber, dim_head=dim_head, heads=heads,
+            kv_heads=1 if one_headed_key_values else None,
+            attend_self=attend_self, fourier_encode_dist=fourier_encode_dist,
             rel_dist_num_fourier_features=rel_dist_num_fourier_features,
-            use_null_kv=use_null_kv, pallas_attention=pallas_attention,
+            use_null_kv=use_null_kv, global_feats_dim=global_feats_dim,
+            linear_proj_keys=linear_proj_keys, tie_key_values=tie_key_values,
+            pallas_attention=pallas_attention,
             shared_radial_hidden=shared_radial_hidden or fuse_pairwise,
             edge_chunks=edge_chunks, fuse_basis=fuse_basis,
             radial_bf16=radial_bf16, fuse_pairwise=fuse_pairwise,
@@ -321,7 +438,9 @@ class AttentionBlockSE3(nn.Module):
             global_materialize=global_materialize, edge_dim=edge_dim)
 
     def forward(self, features: Features, edge_info: EdgeInfo,
-                rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
-                ) -> Features:
-        out = self.attn(self.prenorm(features), edge_info, rel_dist, basis)
+                rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor],
+                global_feats: Optional[Features] = None,
+                pos_emb=None) -> Features:
+        out = self.attn(self.prenorm(features), edge_info, rel_dist, basis,
+                        global_feats, pos_emb)
         return residual_se3(out, features)

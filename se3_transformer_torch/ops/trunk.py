@@ -14,8 +14,11 @@ neither. remat_policy=None replays everything. Neither changes the forward,
 and without autograd (serving) the blocks run as a plain loop.
 
 The attention fields (attend_self, use_null_kv, fourier_encode_dist,
-rel_dist_num_fourier_features, shared_radial_hidden, edge_dim, with the
-JAX defaults) and `pallas_attention` reach every attention block;
+rel_dist_num_fourier_features, global_feats_dim, linear_proj_keys,
+tie_key_values, one_headed_key_values, shared_radial_hidden, edge_dim,
+with the JAX defaults) and `pallas_attention` reach every attention block,
+and the forward's global_feats and pos_emb (the rotary phases) every
+block's call;
 `fused_attention` holds one fuse_pairwise flag per block (the model
 resolves its rules).
 attention_mode='global' makes every block the kNN-free global attention
@@ -65,6 +68,9 @@ class SequentialTrunk(nn.Module):
                  dim_head: int = 24, attend_self: bool = False,
                  use_null_kv: bool = False, fourier_encode_dist: bool = False,
                  rel_dist_num_fourier_features: int = 4,
+                 global_feats_dim: Optional[int] = None,
+                 linear_proj_keys: bool = False, tie_key_values: bool = False,
+                 one_headed_key_values: bool = False,
                  reversible: bool = False,
                  remat_policy: Optional[str] = None,
                  pallas_attention: Optional[bool] = None,
@@ -88,6 +94,10 @@ class SequentialTrunk(nn.Module):
                 attend_self=attend_self, use_null_kv=use_null_kv,
                 fourier_encode_dist=fourier_encode_dist,
                 rel_dist_num_fourier_features=rel_dist_num_fourier_features,
+                global_feats_dim=global_feats_dim,
+                linear_proj_keys=linear_proj_keys,
+                tie_key_values=tie_key_values,
+                one_headed_key_values=one_headed_key_values,
                 pallas_attention=pallas_attention,
                 shared_radial_hidden=shared_radial_hidden,
                 edge_chunks=edge_chunks, fuse_basis=fuse_basis,
@@ -105,12 +115,13 @@ class SequentialTrunk(nn.Module):
         return checkpoint(block, *args, use_reentrant=False, **kwargs)
 
     def forward(self, x: Features, edge_info: EdgeInfo,
-                rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
-                ) -> Features:
+                rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor],
+                global_feats: Optional[Features] = None,
+                pos_emb=None) -> Features:
         if self.attention_mode == 'global':
             rel_dist = None
         for i in range(self.depth):
             x = self._run(getattr(self, f'attn_block{i}'), x, edge_info,
-                          rel_dist, basis)
+                          rel_dist, basis, global_feats, pos_emb)
             x = self._run(getattr(self, f'ff_block{i}'), x)
         return x

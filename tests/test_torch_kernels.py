@@ -672,6 +672,55 @@ def test_cuda_flash_kernel_matches_plain(cuda_card, h_dtype, d_out, n, K,
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
+def _tied(cfg, ops, names=('h_k', 'wk', 'bk')):
+    """A case with its keys tied to its values: no key operands."""
+    return cfg._replace(tie=True), dict(ops, **{k: None for k in names})
+
+
+def test_flash_check_takes_tied_operands_only_with_tie():
+    """The wrapper's check takes a tied call without h_k, wk and bk, and
+    refuses key operands beside tie or a missing wk without it."""
+    cfg, ops = _flash_case()
+    tcfg, tops = _tied(cfg, ops)
+    assert kf._check(tcfg, tops)[:5] == (1, 13, 6, 49, 1)
+    for bad_cfg, bad_ops in ((tcfg, dict(tops, wk=ops['wk'])),
+                             (tcfg, dict(tops, h_k=ops['h_k'])),
+                             (cfg, dict(ops, wk=None))):
+        with pytest.raises(ValueError, match='tied'):
+            kf._check(bad_cfg, bad_ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('d_out,n,K,prefix,masked,wide', [
+    (0, 13, 6, 1, True, False), (2, 37, 30, 0, True, True),
+    (3, 33, 32, 2, False, False), (0, 1024, 32, 2, True, True),
+    (1, 1024, 32, 2, True, True), (2, 1024, 32, 2, True, True),
+    (3, 1024, 32, 2, True, True)])
+def test_cuda_flash_tie_kernel_matches_plain(cuda_card, h_dtype, d_out, n, K,
+                                             prefix, masked, wide):
+    """Kernel #7's tied variant (one conv pass, its tile read as k and as
+    v) against the tied plain stream, at ragged shapes and at
+    flagship_fast's (n 1024, K 32, the [null, self] prefix, 64 channels a
+    degree), and the same bits from a repeated launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pairs = FLAGSHIP_PAIRS if wide else ((0, 5), (1, 3), (2, 4), (3, 2))
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    cfg, ops = _tied(*_flash_case(
+        d_out, n, K, prefix, masked, h_dtype, pairs=pairs,
+        w_scale=(kf.MID * IF) ** -0.5 if wide else None))
+    ops = {k: (tuple(x.cuda() for x in v) if k == 'xs' else
+               None if v is None else v.cuda()) for k, v in ops.items()}
+    before = kf.flash_attention_fwd.launches
+    out = kf.flash_attention_fwd(cfg, ops)
+    again = kf.flash_attention_fwd(cfg, ops)
+    torch.cuda.synchronize()
+    assert kf.flash_attention_fwd.launches == before + 2
+    assert torch.equal(out, again)
+    ref = kf.flash_attention_plain(cfg, ops)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
 # ---------------------------------------------------------------------- #
 # kernel #2: the basis-fused forward with the structured basis
 # ---------------------------------------------------------------------- #
@@ -837,6 +886,45 @@ def test_cuda_flash_global_kernel_matches_plain(cuda_card, case):
     three bf16 passes, in other orders; the same bits on a repeat."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, ops = _global_case(**case)
+    ops = {k: (tuple(x.cuda() for x in v) if isinstance(v, tuple) else
+               None if v is None else v.cuda()) for k, v in ops.items()}
+    before = kf.flash_global_attention_fwd.launches
+    out = kf.flash_global_attention_fwd(cfg, ops)
+    again = kf.flash_global_attention_fwd(cfg, ops)
+    torch.cuda.synchronize()
+    assert kf.flash_global_attention_fwd.launches == before + 2
+    assert torch.equal(out, again)
+    ref = kf.flash_global_plain(cfg, ops)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_flash_global_check_takes_tied_operands_only_with_tie():
+    """The global wrapper's check takes a tied call without rp_k, wk and
+    bk, and refuses key operands beside tie."""
+    cfg, ops = _global_case()
+    tcfg, tops = _tied(cfg, ops, ('wk', 'bk'))
+    tops['rp_k'] = ()
+    assert kf._check_global(tcfg, tops) == (1, 37, 2, 32)
+    for bad in (dict(tops, wk=ops['wk']), dict(tops, rp_k=ops['rp_k'])):
+        with pytest.raises(ValueError, match='tied'):
+            kf._check_global(tcfg, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', [
+    dict(d_out=0), dict(d_out=1, n=131, prefix=1),
+    dict(d_out=3, n=19, pairs=((3, 2), (1, 3)), heads=1),
+    dict(d_out=0, n=70, pairs=((0, 128), (1, 128))),
+    dict(d_out=0, n=4096), dict(d_out=1, n=4096)])
+def test_cuda_flash_global_tie_kernel_matches_plain(cuda_card, case):
+    """Kernel 7g's tied variant (one trunk and one radial product a tile)
+    against the tied plain stream, at ragged shapes, the 64-pair tile and
+    the assembly model's bucket (n 4096), and the same bits on a
+    repeat."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ops = _tied(*_global_case(**case), ('wk', 'bk'))
+    ops['rp_k'] = ()
     ops = {k: (tuple(x.cuda() for x in v) if isinstance(v, tuple) else
                None if v is None else v.cuda()) for k, v in ops.items()}
     before = kf.flash_global_attention_fwd.launches
@@ -1098,9 +1186,10 @@ def test_cuda_wide_conv_launches_forward_and_routes_backward(cuda_card,
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-# the nine configurations of tests/test_equivariance.py that the port
-# builds: name -> (model fields, batch, input dims per degree, return
-# type, the extra inputs), as the reference tests build them
+# the thirteen configurations of tests/test_equivariance.py that the port
+# builds (all but the EGNN one): name -> (model fields, batch, input dims
+# per degree, return type, the extra inputs), as the reference tests build
+# them
 EQUIVARIANCE_CONFIGS = {
     'test_transformer': (dict(dim=64, depth=1, num_degrees=2,
                               num_neighbors=4, valid_radius=10), 1, (64,), 0,
@@ -1134,13 +1223,30 @@ EQUIVARIANCE_CONFIGS = {
         dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
              num_degrees=2, input_degrees=2, output_degrees=2), 1, (64, 64),
         1, None),
+    'test_se3_transformer_with_global_nodes': (
+        dict(dim=64, depth=1, num_degrees=2, num_neighbors=4,
+             valid_radius=10, global_feats_dim=16), 1, (64,), 0,
+        'global_feats'),
+    'test_one_headed_key_values_se3_transformer_with_global_nodes': (
+        dict(dim=64, depth=1, num_degrees=2, num_neighbors=4,
+             valid_radius=10, global_feats_dim=16,
+             one_headed_key_values=True), 1, (64,), 0, 'global_feats'),
+    'test_rotary': (
+        dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
+             num_degrees=2, output_degrees=2, fourier_encode_dist=True,
+             rotary_position=True, rotary_rel_dist=True), 1, (64,), 1, None),
+    'test_equivariance_linear_proj_keys': (
+        dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
+             num_degrees=2, output_degrees=2, fourier_encode_dist=True,
+             linear_proj_keys=True), 1, (64,), 1, None),
 }
 
 
 def _extra_inputs(kind, b, n, rng):
-    """The reference tests' edge and adjacency inputs as tensors: edge
-    tokens constant along a row, Fourier features of random integer pairs
-    (34 wide), the band |i - j| <= 1 with the diagonal set."""
+    """The reference tests' edge, adjacency and global inputs as tensors:
+    edge tokens constant along a row, Fourier features of random integer
+    pairs (34 wide), the band |i - j| <= 1 with the diagonal set, two
+    global nodes of 16 features."""
     from se3_transformer_torch.utils.helpers import fourier_encode
     if kind == 'edge_tokens':
         tokens = torch.from_numpy(rng.randint(0, 4, (b, n)))
@@ -1152,6 +1258,9 @@ def _extra_inputs(kind, b, n, rng):
     if kind == 'band_adjacency':
         seq = torch.arange(n)
         return dict(adj_mat=(seq[:, None] - seq[None, :]).abs() <= 1)
+    if kind == 'global_feats':
+        return dict(global_feats=torch.from_numpy(
+            rng.normal(size=(b, 2, 16)).astype(np.float32)))
     return {}
 
 

@@ -241,10 +241,10 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize('field,value', [
-    ('tie_key_values', True), ('linear_proj_keys', True),
-    ('conv_bf16', True), ('use_null_kv', True), ('rotary_rel_dist', True),
-    ('rotary_position', True), ('norm_gated_scale', True),
-    ('global_feats_dim', 16), ('one_headed_key_values', True),
+    ('egnn_feedforward', True), ('conv_backend', 'so2'),
+    ('conv_bf16', True), ('pallas', True), ('sequence_parallel', 'ring'),
+    ('matmul_precision', 'highest'), ('norm_gated_scale', True),
+    ('egnn_hidden_dim', 16), ('pallas_interpret', True),
     ('use_egnn', True)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError):

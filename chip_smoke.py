@@ -168,7 +168,7 @@ TRUNK_CONVS = 2 * DEPTH
 REPLAY_LAUNCHES = TRUNK_CONVS * 16
 TRAIN_LAUNCHES = 4 + REPLAY_LAUNCHES + 8
 TRAIN_BWD_LAUNCHES = 4 + REPLAY_LAUNCHES + 4
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3
 # the conservative flagship: one fused_pairwise_conv launch per output
 # degree of each ConvSE3, per node chunk (edge_chunks=8). Serving: conv_in
 # 4 degrees, DEPTH blocks x 2 convs x 4, conv_out 1, each x 8. The
@@ -198,10 +198,21 @@ FLASH_BXF_LAUNCHES = 4 + 4
 TIE_REPLAY_LAUNCHES = DEPTH * 16
 TIE_TRAIN_LAUNCHES = 4 + TIE_REPLAY_LAUNCHES + 8
 TIE_BWD_LAUNCHES = 4 + TIE_REPLAY_LAUNCHES + 4
+# flagship_fast with conv_backend='so2': fuse_basis does not apply (as in
+# JAX), and every grouped so2 conv runs kernel #3 once per output degree on
+# the band z padded to P. A request: conv_in 4, DEPTH blocks x (to_v 4 +
+# to_k 4), conv_out 1. A training step's forward has conv_out's 2 degrees
+# (save_conv_outputs: no replay), kernels A and B on all but conv_out's
+# degree-0 head. With fuse_pairwise the kv convs are programs: #3 runs for
+# conv_in and conv_out only, the so2 arm of #7 once per block and degree.
+SO2_SERVE_LAUNCHES = 4 + DEPTH * 8 + 1
+SO2_TRAIN_LAUNCHES = 4 + DEPTH * 8 + 2
+SO2_BWD_LAUNCHES = 4 + DEPTH * 8 + 1
+SO2_FLASH_FWD_LAUNCHES = 4 + 1
 
 # the launch counters, in the order of every launch tuple below
 COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
-               'global')
+               'global', 'flash_so2', 'global_so2')
 # the wrappers' counts of calls routed past the kernel to its plain
 # version, by the layer that calls them (kernels A and B take every width
 # the pairwise forwards take, so the backward of a launched call runs
@@ -252,6 +263,16 @@ ATTENTION_KERNELS = ('attention_fwd_kernel', 'attention_bwd_kernel',
                      'flash_fwd_kernel', 'flash_global_kernel')
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+# when main() started, for the phase lines
+_T0 = []
+
+
+def tick(label):
+    """One `phase:` line: the seconds since main() started."""
+    if _T0:
+        log(f'phase: {label} done at {time.perf_counter() - _T0[0]:.0f} s')
 
 
 def log(*args):
@@ -895,8 +916,36 @@ def phase_attention(peaks):
     return rows, worst
 
 
+def so2_rotation_ops(l):
+    """Operations of one factored Wigner rotation of degree l (common.cuh,
+    so2_rotate_in / so2_rotate_out): two J_l matvecs (2 N^2 each) and two
+    Dz passes (4 N each), N = 2 l + 1; none at l = 0."""
+    N = 2 * l + 1
+    return 0.0 if l == 0 else 4.0 * N * N + 8.0 * N
+
+
+def so2_basis_ops(d_in, d_out):
+    """Operations of the so2 arm's basis of one pair at one edge
+    (common.cuh, so2_basis_row, per output row p): a rotation in at d_out,
+    then per frequency the band (1 + 6 M) and a rotation out at d_in."""
+    P, M = 2 * d_out + 1, min(d_in, d_out)
+    F = 2 * M + 1
+    return P * (so2_rotation_ops(d_out)
+                + F * (1.0 + 6.0 * M + so2_rotation_ops(d_in)))
+
+
+def basis_ops(d_in, d_out, arm):
+    """Operations of one pair's basis at one edge: the dense arm's SH x
+    Q_J contraction, or the so2 arm's rotations and band."""
+    if arm == 'so2':
+        return so2_basis_ops(d_in, d_out)
+    P, Q = 2 * d_out + 1, 2 * d_in + 1
+    return sum(2.0 * P * Q * (2 * J + 1)
+               for J in range(abs(d_in - d_out), d_in + d_out + 1))
+
+
 def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks,
-               convs=2):
+               convs=2, arm='dense'):
     """(bound_ms, bound_by, flops, bound_ms_fma) of one flash_attention
     call: each input read once (q, the node features, idx, the mask, h_k
     and h_v, both convs' w3 and b3, the SH stack, the prefix slots), the
@@ -907,16 +956,17 @@ def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks,
     V2 once, the applies of k and v, the attention); the operations take
     the longer of the two pipes. bound_ms_fma is the bound with all of it
     on fp32 FMAs (what the kernel's earlier version ran). convs=1 is the
-    tied call: one h, one w3 and b3, one radial product and apply."""
+    tied call: one h, one w3 and b3, one radial product and apply.
+    arm='so2': the basis by the so2 arm's rotations (so2_basis_ops) from
+    the frames (S = 4 L1 floats an edge) in place of the SH stack's."""
     bf16_peak, f32_peak, mem = peaks
     E, mid, O, P = n * K, 128, 64, 2 * d_out + 1
     IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
     basis = v2 = 0.0
     for d, c in pairs:
-        Q, lo = 2 * d + 1, abs(d - d_out)
-        for J in range(lo, d + d_out + 1):
-            basis += 2.0 * E * P * Q * (2 * J + 1)
-            v2 += 2.0 * E * P * c * Q
+        F = 2 * min(d, d_out) + 1
+        basis += E * basis_ops(d, d_out, arm)
+        v2 += 2.0 * E * P * c * F * (2 * d + 1)
     radial = convs * 2.0 * E * mid * IF * O
     apply = convs * 2.0 * E * P * IF * O
     attn = 4.0 * n * heads * (S0 + K) * Dh
@@ -1079,6 +1129,90 @@ def phase_flash_tie(peaks):
     return rows, worst
 
 
+def so2_frames(gen, n, K):
+    """Packed so2 frames [1, n, K, 16] (degree 3) of random offsets, slot 0
+    of every node on the +z pole and slot 1 at zero length (the identity
+    frame of a padded edge)."""
+    from se3_transformer_torch.kernels import flash as kf
+    from se3_transformer_torch.so2.frames import edge_frames
+    rel = torch.randn(1, n, K, 3, device='cuda', generator=gen)
+    rel[0, :, 0] = torch.tensor([0., 0., 1.5], device='cuda')
+    rel[0, :, 1] = 0.
+    return kf.pack_frames(edge_frames(rel, 3)).contiguous()
+
+
+def check_twice(label, run, plain, rtol):
+    """A kernel call against its plain version: the same bits on a repeat,
+    finite, within rtol of max|plain|. Returns (error, max|plain|)."""
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f'{label}: two runs differ')
+    ref = plain()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not (torch.isfinite(out).all() and err <= rtol * scale):
+        raise AssertionError(f'{label}: max_abs_err {err} > {rtol} * '
+                             f'max|plain| {scale}')
+    return err, scale
+
+
+def phase_flash_so2(peaks):
+    """Kernel #7's so2 arm (conv_backend='so2': each edge's basis from its
+    frame) against the so2 plain stream at the four flagship_fast output
+    degrees with the [null, self] prefix (n 1024, K 32, heads 8 of 8, four
+    input degrees of 64 channels, bf16 h; a pole and a zero-length slot a
+    node): within KERNEL_RTOL of max|plain|, the same bits on a repeat;
+    its time beside the dense arm's on the same operands (dense, so2, so2,
+    dense: one cuda_ms each), the so2 and dense bounds. Then the tied so2
+    variant at d_out 3, logged. Returns the untied rows and the worst
+    error."""
+    from se3_transformer_torch.kernels import flash as kf
+    gen = torch.Generator(device='cuda').manual_seed(23)
+    n, K, prefix = 1024, 32, 2
+    rows, worst = [], 0.0
+    for d_out, tie in [(d, False) for d in range(4)] + [(3, True)]:
+        dcfg, dops = flash_operands(gen, n, K, d_out, torch.bfloat16, prefix)
+        cfg = dcfg._replace(arm_v='so2', arm_k='so2')
+        ops = dict(dops, sh=None, fr=so2_frames(gen, n, K))
+        if tie:
+            (cfg, ops), (dcfg, dops) = tied(cfg, ops), tied(dcfg, dops)
+        label = f'flash so2 d_out={d_out}{" tie" if tie else ""}'
+        err, scale = check_twice(
+            label, lambda: kf.flash_attention_fwd(cfg, ops),
+            lambda: kf.flash_attention_plain(cfg, ops), KERNEL_RTOL)
+        worst = max(worst, err)
+        dense_ms = [cuda_ms(lambda: kf.flash_attention_fwd(dcfg, dops),
+                            reps=5)]
+        ms = [cuda_ms(lambda: kf.flash_attention_fwd(cfg, ops), reps=5)
+              for _ in range(2)]
+        dense_ms.append(cuda_ms(lambda: kf.flash_attention_fwd(dcfg, dops),
+                                reps=5))
+        plain_ms = cuda_ms(lambda: kf.flash_attention_plain(cfg, ops), reps=2)
+        P, Dh = 2 * d_out + 1, 8 * (2 * d_out + 1)
+        convs = 1 if tie else 2
+        bound_ms, bound_by, flops, _ = flash_cost(
+            n, K, cfg.pairs, d_out, cfg.heads, Dh, ops['fr'].shape[-1],
+            prefix, 2, peaks, convs=convs, arm='so2')
+        dense_bound_ms = flash_cost(
+            n, K, cfg.pairs, d_out, cfg.heads, Dh, dops['sh'].shape[-1],
+            prefix, 2, peaks, convs=convs)[0]
+        row = dict(d_out=d_out, P=P, IF=ops['wv'].shape[1], n=n, K=K,
+                   prefix=prefix, h_dtype='bfloat16', arm='so2', tie=tie,
+                   max_abs_err=err, max_abs_plain=scale, rel_err=err / scale,
+                   ms=float(np.mean(ms)), ms_runs=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   dense_ms=float(np.mean(dense_ms)), dense_ms_runs=dense_ms,
+                   dense_bound_ms=dense_bound_ms,
+                   tflops=flops / np.mean(ms) / 1e9)
+        if not tie:
+            rows.append(row)
+        log('flash_so2', json.dumps(row))
+        del ops, dops
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def phase_bx(st, peaks):
     """Kernel #2 on its path: one hidden ConvSE3 of flagship_fast (4
     degrees of 64 channels, bf16 radial trunk, fuse_basis, conditioned
@@ -1224,8 +1358,14 @@ GLOBAL_PAIRS = ((0, 8), (1, 8))
 LN_GELU_OPS = 16
 
 
+# a pair's frame from its offset on the CUDA cores (common.cuh,
+# so2_edge_frame): the normalization and rho (~20) and the two angle
+# recursions (6 a step, to degree 3)
+SO2_FRAME_OPS = 20 + 2 * 6 * 3
+
+
 def global_cost(n, pairs, d_out, heads, dim_head, S0, peaks, nodes=8,
-                cluster=2, trunks=2):
+                cluster=2, trunks=2, arm='dense'):
     """(bound_ms, bound_by, flops, bound_ms_fma, w_l2_gb) of one
     flash_global_attention call over all n^2 pairs: each input read once
     (q, the node features, the coordinates and mask, both trunks'
@@ -1245,18 +1385,19 @@ def global_cost(n, pairs, d_out, heads, dim_head, S0, peaks, nodes=8,
     kernel reads from L2: once per block of 16 kv nodes for each cluster
     of `cluster` CTAs of `nodes` query nodes (a tile of 128 pairs a CTA,
     each stage multicast to the cluster). trunks=1 is the tied call: one
-    trunk, one w3 and b3, one radial product and apply."""
+    trunk, one w3 and b3, one radial product and apply. arm='so2': each
+    pair's frame and the so2 arm's basis (so2_basis_ops) in place of the
+    harmonics' basis."""
     bf16_peak, f32_peak, mem = peaks
     mid, P = 128, 2 * d_out + 1
     O = heads * dim_head
     IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
     dense1 = trunks * 2.0 * mid * mid
     radial = trunks * 2.0 * mid * IF * O
-    basis_v2 = 0.0
+    basis_v2 = SO2_FRAME_OPS if arm == 'so2' else 0.0
     for d, c in pairs:
-        Q, lo = 2 * d + 1, abs(d - d_out)
-        for J in range(lo, d + d_out + 1):
-            basis_v2 += 2.0 * P * Q * (2 * J + 1) + 2.0 * P * c * Q
+        F = 2 * min(d, d_out) + 1
+        basis_v2 += basis_ops(d, d_out, arm) + 2.0 * P * c * F * (2 * d + 1)
     apply = trunks * 2.0 * P * IF * O
     attn = 4.0 * O * P
     trunk = trunks * (2.0 * mid + 2 * mid * LN_GELU_OPS)
@@ -1435,6 +1576,89 @@ def phase_global_tie(peaks):
     return rows, worst
 
 
+def phase_global_so2(peaks):
+    """Kernel 7g's so2 arm (each pair's frame from its offset, the
+    diagonal and the padded nodes' pairs at zero length on the identity
+    frame) against the so2 plain stream at the assembly model's served
+    shapes (n 4096, the last 57 nodes padded at the origin and masked, the
+    [null, self] prefix, two input degrees of 8 channels, d_out 0 and 1):
+    within F32_RTOL, the same bits on a repeat; its time beside the dense
+    arm's on the same operands (dense, so2, so2, dense), the so2 and dense
+    bounds. Then the tied so2 variant at d_out 1, logged. Returns the
+    untied rows and the worst error."""
+    from se3_transformer_torch.kernels import flash as kf
+    gen = torch.Generator(device='cuda').manual_seed(24)
+    n, heads, dim_head, mid, pad = GLOBAL_BUCKET, 2, 8, 128, 57
+
+    def rand(*shape, s=1.0):
+        return torch.randn(*shape, device='cuda', generator=gen) * s
+
+    def trunk():
+        return (rand(1, mid), rand(1, mid, s=0.1), 1 + rand(1, mid, s=0.1),
+                rand(1, mid, s=0.1), rand(mid, mid, s=mid ** -0.5),
+                rand(1, mid, s=0.1), 1 + rand(1, mid, s=0.1),
+                rand(1, mid, s=0.1))
+    coords = torch.cumsum(rand(1, n, 3), dim=1)
+    coords[:, n - pad:] = 0.
+    node_mask = (torch.arange(n, device='cuda') < n - pad)[None]
+    xs = tuple(rand(1, n, c, 2 * d + 1) for d, c in GLOBAL_PAIRS)
+    rp_v, rp_k = trunk(), trunk()
+    rows, worst = [], 0.0
+    for d_out, tie in ((0, False), (1, False), (1, True)):
+        P, O = 2 * d_out + 1, heads * dim_head
+        IF = sum(c * (2 * min(d, d_out) + 1) for d, c in GLOBAL_PAIRS)
+        w = (mid * IF) ** -0.5
+        dops = dict(q=rand(1, n, heads, dim_head * P), xs=xs, coords=coords,
+                    rp_v=rp_v, rp_k=rp_k, wv=rand(mid, IF, O, s=w),
+                    bv=rand(IF, O, s=0.1), wk=rand(mid, IF, O, s=w),
+                    bk=rand(IF, O, s=0.1), node_mask=node_mask,
+                    prefix_k=rand(1, n, 2, O * P),
+                    prefix_v=rand(1, n, 2, O * P))
+        dcfg = kf.FlashConfig(pairs=GLOBAL_PAIRS, d_out=d_out, heads=heads,
+                              kv_heads=heads, scale=dim_head ** -0.5,
+                              prefix=2, mode='global', exclude_self=True)
+        if tie:
+            dcfg, dops = tied(dcfg, dops, ('wk', 'bk'))
+            dops['rp_k'] = ()
+        cfg, ops = dcfg._replace(arm_v='so2', arm_k='so2'), dops
+        label = f'flash_global so2 d_out={d_out}{" tie" if tie else ""}'
+        t0 = time.perf_counter()
+        err, scale = check_twice(
+            label, lambda: kf.flash_global_attention_fwd(cfg, ops),
+            lambda: kf.flash_global_plain(cfg, ops), F32_RTOL)
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        worst = max(worst, err)
+        t0 = time.perf_counter()
+        kf.flash_global_plain(cfg, ops)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        dense_ms = [cuda_ms(lambda: kf.flash_global_attention_fwd(
+            dcfg, dops), reps=3)]
+        ms = [cuda_ms(lambda: kf.flash_global_attention_fwd(cfg, ops),
+                      reps=3) for _ in range(2)]
+        dense_ms.append(cuda_ms(lambda: kf.flash_global_attention_fwd(
+            dcfg, dops), reps=3))
+        cost = (n, GLOBAL_PAIRS, d_out, heads, dim_head, 2, peaks)
+        trunks = 1 if tie else 2
+        bound_ms, bound_by, flops, _, w_l2_gb = global_cost(
+            *cost, trunks=trunks, arm='so2')
+        dense_bound_ms = global_cost(*cost, trunks=trunks)[0]
+        row = dict(d_out=d_out, P=P, IF=IF, n=n, masked=pad, arm='so2',
+                   tie=tie, max_abs_err=err, max_abs_plain=scale,
+                   rel_err=err / scale, ms=float(np.mean(ms)), ms_runs=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   dense_ms=float(np.mean(dense_ms)), dense_ms_runs=dense_ms,
+                   dense_bound_ms=dense_bound_ms, w_l2_gb=w_l2_gb,
+                   check_s=check_s, tflops=flops / np.mean(ms) / 1e9)
+        if not tie:
+            rows.append(row)
+        log('flash_global_so2', json.dumps(row))
+        del ops, dops
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def phase_global_serve(st, want, label='assembly', **fields):
     """The assembly model (seeded weights, conditioned; `fields` change
     its fields, `label` names it in the lines) served through
@@ -1521,10 +1745,11 @@ def phase_global_serve(st, want, label='assembly', **fields):
 
 
 def phase_global_reference(st):
-    """The assembly model at n = 64 (5 padded), and with tied keys and
-    values, on the card (kernel 7g) and on the CPU (the plain stream)
-    from the same weights."""
-    for fields in (dict(), dict(tie_key_values=True)):
+    """The assembly model at n = 64 (5 padded), with tied keys and values,
+    and with conv_backend='so2', on the card (kernel 7g) and on the CPU
+    (the plain stream) from the same weights."""
+    for fields in (dict(), dict(tie_key_values=True),
+                   dict(conv_backend='so2')):
         global_reference(st, **fields)
 
 
@@ -1841,7 +2066,9 @@ def counters():
     """(wrapper, attribute) of every launch counter, in COUNT_NAMES order:
     the pairwise forwards bxf and fwd, backward kernels A and B, the fused
     attention forward and backward, the streaming attention, the
-    structured-basis forward bx, the global attention."""
+    structured-basis forward bx, the global attention; then the so2 arm's
+    launches of the streaming and the global attention (counted in their
+    totals too)."""
     from se3_transformer_torch.kernels import attention as ka
     from se3_transformer_torch.kernels import flash as kf
     from se3_transformer_torch.kernels import pairwise as kp
@@ -1853,7 +2080,9 @@ def counters():
             (ka.fused_attention_bwd, 'launches'),
             (kf.flash_attention_fwd, 'launches'),
             (kp.fused_pairwise_conv_bx, 'launches'),
-            (kf.flash_global_attention_fwd, 'launches'))
+            (kf.flash_global_attention_fwd, 'launches'),
+            (kf.flash_attention_fwd, 'so2_launches'),
+            (kf.flash_global_attention_fwd, 'so2_launches'))
 
 
 def counts():
@@ -1894,7 +2123,8 @@ def not_routed(label, launches):
 
 def routed_exactly(label, want):
     """Check that exactly `want` calls (ROUTE_NAMES order) were routed past
-    a kernel since the counts were last reset."""
+    a kernel since the counts were last reset; a phase line."""
+    tick(label)
     if routed() != tuple(want):
         raise AssertionError(f'{label}: routed calls {ROUTE_NAMES} = '
                              f'{routed()}, want {tuple(want)}')
@@ -2367,6 +2597,15 @@ SMALL_CASES = (
      dict(SMALL_FAST, radial_bf16=False, pallas_attention=True,
           one_headed_key_values=True, use_null_kv=True), False),
     ('flagship', dict(SMALL, edge_chunks=3), False),
+    # conv_backend='so2': grouped (#3 on the band z), per pair (#3 on the
+    # band rows of each pair), and through #7's so2 arm
+    ('flagship_fast+so2', dict(SMALL_FAST, radial_bf16=False,
+                               conv_backend='so2'), False),
+    ('per-pair+so2', dict(SMALL, shared_radial_hidden=False, reversible=False,
+                          conv_backend='so2'), False),
+    ('flagship_fast+so2+fuse_pairwise',
+     dict(SMALL_FAST, radial_bf16=False, fuse_pairwise=True,
+          conv_backend='so2'), False),
     # af2_refinement's fields (a radial trunk per pair, coordinate
     # gradients) at dim 64: the kv convs' O = 192 takes #3 and kernels A
     # and B with three O tiles
@@ -2477,6 +2716,7 @@ def main() -> int:
 
     # 2. build
     t_start = t0 = time.perf_counter()
+    _T0.append(t_start)
     lib = build.library_path()
     build.load_library()
     log(f'build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, HERE)}')
@@ -2490,27 +2730,37 @@ def main() -> int:
     # 3. forward kernels vs plain: bxf at the flagship_fast pairs, fwd at
     # the flagship's grouped output degrees
     rows, worst = phase_kernels(st, peaks)
+    tick('bxf')
     fwd_rows, fwd_worst = phase_fwd(kp, peaks)
+    tick('fwd')
 
     # 4. backward kernels vs plain, at both recipes' shapes
     bwd_rows, bwd_worst = phase_backward(kp, peaks)
     grouped_rows, grouped_worst = phase_backward_grouped(kp, peaks)
     af2_rows, af2_worst = phase_backward_af2(kp, peaks)
     _, mol_fwd_worst, _, mol_worst, _ = phase_backward_molecular(kp, peaks)
+    tick('backward')
 
     # 5. the attention kernels vs plain, with the library yardstick
     attn_rows, attn_worst = phase_attention(peaks)
+    tick('attention')
     flash_rows, flash_worst = phase_flash(peaks)
     tie_rows, tie_worst = phase_flash_tie(peaks)
+    so2_rows, so2_worst = phase_flash_so2(peaks)
+    tick('flash')
     gflash_rows, gflash_worst = phase_flash_global(peaks)
     gtie_rows, gtie_worst = phase_global_tie(peaks)
+    gso2_rows, gso2_worst = phase_global_so2(peaks)
+    tick('flash_global')
     log(f'phase: kernels done at {time.perf_counter() - t_start:.0f} s')
 
     # 6-7. the main paths, each with the counts reset just before and read
     # just after; launch tuples in COUNT_NAMES order
     def launches(bxf=0, fwd=0, a=0, b=0, attn_fwd=0, attn_bwd=0, flash=0,
-                 bx=0, glob=0):
-        return (bxf, fwd, a, b, attn_fwd, attn_bwd, flash, bx, glob)
+                 bx=0, glob=0, flash_so2=0, glob_so2=0):
+        # the so2 arm's launches count in flash and glob as well
+        return (bxf, fwd, a, b, attn_fwd, attn_bwd, flash + flash_so2, bx,
+                glob + glob_so2, flash_so2, glob_so2)
     fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
     bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
     paths = [
@@ -2577,7 +2827,24 @@ def main() -> int:
                               routes(fwd=MOL_ROUTED)),
         phase_molecular_train(st, launches(fwd=MOL_LAUNCHES, a=MOL_LAUNCHES,
                                            b=MOL_LAUNCHES),
-                              routes(fwd=MOL_ROUTED))]
+                              routes(fwd=MOL_ROUTED)),
+        # conv_backend='so2' (the so2 arms of #7 and 7g, #3 on the band z)
+        not_routed('flagship_fast+so2 serve', phase_serve(
+            st, 'flagship_fast', launches(fwd=SO2_SERVE_LAUNCHES),
+            label='flagship_fast+so2', conv_backend='so2')),
+        not_routed('flagship_fast+so2+fuse_pairwise serve', phase_serve(
+            st, 'flagship_fast', launches(fwd=SO2_FLASH_FWD_LAUNCHES,
+                                          flash_so2=ATTN_LAUNCHES),
+            label='flagship_fast+so2+fuse_pairwise', fuse_pairwise=True,
+            conv_backend='so2')),
+        not_routed('global serve so2', phase_global_serve(
+            st, launches(glob_so2=2), label='assembly+so2',
+            conv_backend='so2')),
+        not_routed('flagship_fast+so2 train', phase_train(
+            st, 'flagship_fast',
+            launches(fwd=SO2_TRAIN_LAUNCHES, a=SO2_BWD_LAUNCHES,
+                     b=SO2_BWD_LAUNCHES), None, None,
+            label='flagship_fast+so2', conv_backend='so2'))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
 
@@ -2588,7 +2855,9 @@ def main() -> int:
 
     # 8. references on small inputs
     phase_reference(st)
+    tick('reference')
     phase_train_reference(st)
+    tick('train_reference')
     phase_global_reference(st)
     log(f'phase: references done at {time.perf_counter() - t_start:.0f} s')
 
@@ -2603,11 +2872,13 @@ def main() -> int:
         return 'operations' if ops * 2 >= total_ms else 'bytes'
 
     def entry(name, source, replaces, launched, err, table, key='',
-              tie=None):
+              tie=None, dense=False):
         """One kernel's line: times and bounds summed over the table's rows
         (one hidden ConvSE3's launches at E = 32768, or one attention
         block's four degrees); with `tie`, the tied variant's rows, summed
-        into tie_* keys (its untied time on the same operands beside)."""
+        into tie_* keys (its untied time on the same operands beside); with
+        `dense` (an so2 arm's rows), the dense arm's time and bound on the
+        same operands as dense_ms and dense_bound_ms."""
         library = [r.get(f'library_ms{key}') for r in table]
         line = dict(name=name, route='cuda', source=src + source,
                     replaces=replaces, launches=launched, max_abs_err=err,
@@ -2616,6 +2887,9 @@ def main() -> int:
                     bound_ms=sum(r[f'bound_ms{key}'] for r in table),
                     bound_by=bound_by(table, key),
                     library_ms=None if None in library else sum(library))
+        if dense:
+            line.update({k: sum(r[k] for r in table)
+                         for k in ('dense_ms', 'dense_bound_ms')})
         if tie:
             line.update({f'tie_{k}': sum(r[k] for r in tie)
                          for k in ('ms', 'plain_ms', 'bound_ms', 'untied_ms',
@@ -2648,14 +2922,20 @@ def main() -> int:
               tpu + 'pallas_attention.py:267', total[5], attn_worst['bwd'],
               attn_rows, '_bwd'),
         entry('flash_attention', 'flash_fwd.cu', tpu + 'pallas_flash.py:699',
-              total[6], max(flash_worst, tie_worst), flash_rows,
+              total[6] - total[9], max(flash_worst, tie_worst), flash_rows,
               tie=tie_rows),
+        entry('flash_attention_so2', 'flash_fwd.cu',
+              tpu + 'pallas_flash.py:289', total[9], so2_worst, so2_rows,
+              dense=True),
         entry('fused_pairwise_conv_bx', 'pairwise_bxf.cu', pallas + '794',
               total[7], bx_worst, [r for r in bx_rows
                                    if r['h_dtype'] == 'bfloat16']),
         entry('flash_global_attention', 'flash_global.cu',
-              tpu + 'pallas_flash.py:1073', total[8],
-              max(gflash_worst, gtie_worst), gflash_rows, tie=gtie_rows)]
+              tpu + 'pallas_flash.py:1073', total[8] - total[10],
+              max(gflash_worst, gtie_worst), gflash_rows, tie=gtie_rows),
+        entry('flash_global_attention_so2', 'flash_global.cu',
+              tpu + 'pallas_flash.py:289', total[10], gso2_worst, gso2_rows,
+              dense=True)]
     missing = [k['name'] for k in kernels if not k['launches']]
     if missing:
         raise AssertionError(f'kernels never launched on a main path: '

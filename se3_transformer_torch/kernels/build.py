@@ -4,7 +4,9 @@ Each source under `csrc/` (`pairwise_bxf.cu` and `pairwise_fwd.cu`, the
 pairwise forwards; `pairwise_bwd.cu`, their backward; `attention.cu`, the
 fused attention and its backward; `flash_fwd.cu`, the streaming kNN
 attention; `flash_global.cu`, the global attention) is compiled by its own `nvcc -c` for
-Hopper (`sm_90a`), all started together, and the objects are linked into
+Hopper (`sm_90a`), all started together (the two flash sources twice, once
+per contraction arm, `-DSE3_SO2=0` and `=1`: each object holds one arm's
+instantiations and entry point), and the objects are linked into
 one shared library with a plain C interface that `ctypes` loads. The build
 happens at first use, never at import, into `kernels/build/` beside this
 file (listed in .gitignore). The library's file name carries a hash of
@@ -28,6 +30,11 @@ SOURCES = tuple(os.path.join(CSRC_DIR, f)
                           'pairwise_bwd.cu', 'attention.cu', 'flash_fwd.cu',
                           'flash_global.cu'))
 HEADERS = (os.path.join(CSRC_DIR, 'common.cuh'),)
+# the compilation units, (source, its extra nvcc flags): each flash source
+# once per contraction arm
+UNITS = tuple(unit for src in SOURCES for unit in (
+    [(src, (f'-DSE3_SO2={arm}',)) for arm in (0, 1)]
+    if os.path.basename(src).startswith('flash') else [(src, ())]))
 BUILD_DIR = os.path.join(_HERE, 'build')
 
 COMPILE_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -41,7 +48,8 @@ build_log = ''
 
 
 def _fingerprint() -> str:
-    digest = hashlib.sha1(' '.join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    digest = hashlib.sha1(' '.join(COMPILE_FLAGS + LINK_FLAGS + tuple(
+        f for _, flags in UNITS for f in flags)).encode())
     for path in SOURCES + HEADERS:
         with open(path, 'rb') as fh:
             digest.update(fh.read())
@@ -93,11 +101,12 @@ def library_path() -> str:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc, tag = find_nvcc(), f'{os.getpid()}.tmp'
-    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f'.{tag}.o')
-            for src in SOURCES]
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src)
+                         + ''.join(flags) + f'.{tag}.o')
+            for src, flags in UNITS]
     try:
-        log = _run_all([[nvcc, *COMPILE_FLAGS, '-c', src, '-o', obj]
-                        for src, obj in zip(SOURCES, objs)])
+        log = _run_all([[nvcc, *COMPILE_FLAGS, *flags, '-c', src, '-o', obj]
+                        for (src, flags), obj in zip(UNITS, objs)])
         tmp = f'{lib}.{tag}'
         log += _run_all([[nvcc, *LINK_FLAGS, *objs, '-o', tmp]])
     finally:
@@ -138,18 +147,23 @@ def load_library() -> ctypes.CDLL:
             # (q, x0..x3, idx, nmask, h_v, h_k, wv, wk, bv, bk, sh,
             #  prefix_k, prefix_v, cg, out, w_split, pair_d[4], pair_c[4],
             #  cg_off[4], n_pairs, B, n, K, S, S0, heads, IF, P, h_is_bf16,
-            #  tie, scale, stream)
-            lib.se3_flash_fwd.argtypes = [vp] * 19 + [ci] * 23 + [cf, vp]
+            #  tie, so2, scale, stream)
+            # (se3_flash_fwd_so2: the same, the so2 arm)
+            for fn in (lib.se3_flash_fwd, lib.se3_flash_fwd_so2):
+                fn.argtypes = [vp] * 19 + [ci] * 24 + [cf, vp]
             # (q, x0..x3, coords, nodemask, rp, wk, wv, bk, bv, prefix_k,
             #  prefix_v, cg, shk, out, w_split, pair_d[4], pair_c[4],
             #  cg_off[4], n_pairs, B, n, S0, heads, IF, P, L, exclude_self,
-            #  tie, scale, stream)
-            lib.se3_flash_global.argtypes = [vp] * 18 + [ci] * 22 + [cf, vp]
+            #  tie, so2, scale, stream)
+            # (se3_flash_global_so2: the same, the so2 arm)
+            for fn in (lib.se3_flash_global, lib.se3_flash_global_so2):
+                fn.argtypes = [vp] * 18 + [ci] * 23 + [cf, vp]
             for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx,
                        lib.se3_flash_global, lib.se3_pairwise_fwd,
                        lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_b,
                        lib.se3_attention_fwd, lib.se3_attention_bwd,
-                       lib.se3_flash_fwd):
+                       lib.se3_flash_fwd, lib.se3_flash_fwd_so2,
+                       lib.se3_flash_global_so2):
                 fn.restype = ci
             _lib = lib
         return _lib

@@ -315,4 +315,145 @@ static __global__ void split_bf16_kernel(const float4* __restrict__ x, size_t n4
   }
 }
 
+// ---------------------------------------------------------------------
+// The so2 arm (conv_backend='so2') of flash_fwd.cu and flash_global.cu.
+//
+// An edge's frame is (cos, sin)(m alpha) and (cos, sin)(m beta) for m = 0 ..
+// L1 - 1, stored [cos_a | sin_a | cos_b | sin_b], L1 floats each
+// (so2/frames.py::edge_frames). D_l(R_e) = Dz(alpha) J_l Dz(beta) J_l^T,
+// Dz a 2x2 block over each (-m, +m) pair, J_l a constant (so2c + so2_j_off).
+// The plain arm (kernels/flash.py::_kv_block) rotates x in, takes the band
+// z = Kc_f xr, runs the radial product and rotates the result out. Here the
+// two rotations are folded into the basis the dense arm's V2 build reads:
+// the rotation out acts on p and the radial product on (c, f) -> o, so they
+// commute, and
+//
+//   basis[p, q, f] = (D_out Kc_f D_in^T)[p, q]
+//                  = rotate_out_{d_in}(Kc_f^T rotate_in_{d_out}(e_p))[q],
+//
+// per (edge, p): one rotation in at d_out, the band (two terms a row), and
+// a rotation out at d_in per f. Everything after the basis is the dense
+// arm's tile, unchanged.
+// ---------------------------------------------------------------------
+
+// offset of J_l (l = 1..3) in the so2 constants (kernels/flash.py::_J_OFFSETS)
+__device__ __forceinline__ constexpr int so2_j_off(int l) { return l == 1 ? 0 : l == 2 ? 9 : 34; }
+
+// v <- Dz_L(sign * t) v: v[q] = cos(|m| t) v[q] + sign s_q sin(|m| t)
+// v[2L - q], m = q - L, s_q = +1 / 0 / -1 for m < 0 / = 0 / > 0
+template <int L>
+__device__ __forceinline__ void so2_dz(float (&v)[2 * L + 1], const float* cs, const float* sn,
+                                       float sign) {
+  float y[2 * L + 1];
+#pragma unroll
+  for (int q = 0; q <= 2 * L; ++q) {
+    const int m = q - L, ma = m < 0 ? -m : m;
+    const float s = m < 0 ? sign : (m > 0 ? -sign : 0.f);
+    y[q] = cs[ma] * v[q] + s * sn[ma] * v[2 * L - q];
+  }
+#pragma unroll
+  for (int q = 0; q <= 2 * L; ++q) v[q] = y[q];
+}
+
+// v <- J_L v, or J_L^T v with kT
+template <int L, bool kT>
+__device__ __forceinline__ void so2_j(float (&v)[2 * L + 1], const float* __restrict__ J) {
+  constexpr int N = 2 * L + 1;
+  float y[N];
+#pragma unroll
+  for (int p = 0; p < N; ++p) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < N; ++q) s = fmaf(__ldg(J + (kT ? q * N + p : p * N + q)), v[q], s);
+    y[p] = s;
+  }
+#pragma unroll
+  for (int p = 0; p < N; ++p) v[p] = y[p];
+}
+
+// v <- D_L(R_e)^T v (so2/frames.py::rotate_in): Dz(-alpha), J^T, Dz(-beta), J
+template <int L>
+__device__ __forceinline__ void so2_rotate_in(float (&v)[2 * L + 1], const float* fr, int L1,
+                                              const float* __restrict__ so2c) {
+  if constexpr (L > 0) {
+    const float* J = so2c + so2_j_off(L);
+    so2_dz<L>(v, fr, fr + L1, -1.f);
+    so2_j<L, true>(v, J);
+    so2_dz<L>(v, fr + 2 * L1, fr + 3 * L1, -1.f);
+    so2_j<L, false>(v, J);
+  }
+}
+
+// v <- D_L(R_e) v (so2/frames.py::rotate_out): J^T, Dz(+beta), J, Dz(+alpha)
+template <int L>
+__device__ __forceinline__ void so2_rotate_out(float (&v)[2 * L + 1], const float* fr, int L1,
+                                               const float* __restrict__ so2c) {
+  if constexpr (L > 0) {
+    const float* J = so2c + so2_j_off(L);
+    so2_j<L, true>(v, J);
+    so2_dz<L>(v, fr + 2 * L1, fr + 3 * L1, 1.f);
+    so2_j<L, false>(v, J);
+    so2_dz<L>(v, fr, fr + L1, 1.f);
+  }
+}
+
+// Row p of one pair's so2 basis at one edge: store(f, q, basis[p, q, f])
+// for every f and q. ab: the pair's canonical blocks a [F][M + 1], then b
+// [F][M + 1] (M = min(d_in, d_out); so2/canonical.py::canonical_blocks).
+template <int P, int Q, typename Store>
+__device__ __forceinline__ void so2_basis_row(const float* fr, int L1, int p,
+                                              const float* __restrict__ so2c,
+                                              const float* __restrict__ ab, Store store) {
+  constexpr int DI = (Q - 1) / 2, DO = (P - 1) / 2;
+  constexpr int F = P < Q ? P : Q, M = (F - 1) / 2;
+  float u[P];  // row p of D_out
+#pragma unroll
+  for (int k = 0; k < P; ++k) u[k] = k == p ? 1.f : 0.f;
+  so2_rotate_in<DO>(u, fr, L1, so2c);
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    float w[Q];  // Kc_f^T u: the band's two terms a row
+#pragma unroll
+    for (int q = 0; q < Q; ++q) w[q] = 0.f;
+    const float* af = ab + f * (M + 1);
+    const float* bf = ab + (F + f) * (M + 1);
+    w[DI] = __ldg(af) * u[DO];
+#pragma unroll
+    for (int m = 1; m <= M; ++m) {
+      const float am = __ldg(af + m), bm = __ldg(bf + m);
+      w[DI - m] = am * u[DO - m] - bm * u[DO + m];
+      w[DI + m] = am * u[DO + m] + bm * u[DO - m];
+    }
+    so2_rotate_out<DI>(w, fr, L1, so2c);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) store(f, q, w[q]);
+  }
+}
+
+// An edge's frame from its offset (so2/frames.py::edge_frames, float32): on
+// the z axis alpha = 0, at zero length the identity rotation; sin(beta) is
+// the clamped rho. L: the frame's degree (L1 = L + 1).
+__device__ __forceinline__ void so2_edge_frame(float rx, float ry, float rz, int L, float* fr) {
+  const float eps2 = 1e-16f;
+  const float norm = sqrtf(fmaxf(rx * rx + ry * ry + rz * rz, eps2));
+  const float x = rx / norm, y = ry / norm, z = rz / norm;
+  const float rho_sq = x * x + y * y;
+  const float rho = sqrtf(fmaxf(rho_sq, eps2));
+  const bool on_axis = rho_sq <= eps2, degenerate = norm <= 1e-8f;
+  const float c[2] = {on_axis ? 1.f : x / rho, degenerate ? 1.f : z};
+  const float s[2] = {on_axis ? 0.f : y / rho, degenerate ? 0.f : rho};
+  const int L1 = L + 1;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {  // alpha, then beta
+    float* cs = fr + 2 * k * L1;
+    float* sn = cs + L1;
+    cs[0] = 1.f;
+    sn[0] = 0.f;
+    for (int m = 1; m <= L; ++m) {
+      cs[m] = cs[m - 1] * c[k] - sn[m - 1] * s[k];
+      sn[m] = sn[m - 1] * c[k] + cs[m - 1] * s[k];
+    }
+  }
+}
+
 }  // namespace se3

@@ -123,9 +123,9 @@ struct Args {
   const bf16* whi[2];         // W_k, W_v [MID, IF, BO]: bf16 hi
   const bf16* wlo[2];         //   and lo halves
   const float* b3[2];         // bk, bv [IF, BO]
-  const float* sh;            // [B, n, K, S]
+  const float* sh;            // [B, n, K, S]: the SH stack, or the so2 arm's frames
   const float* prefix[2];     // prefix_k, prefix_v [B, n, S0, H * Dh] or null
-  const float* cg;            // Q_J constants
+  const float* cg;            // Q_J constants, or the so2 arm's J_l and canonical blocks
   float* out;                 // [B, n, H, Dh]
   int n, K, S, S0, H, IF;
   float scale;
@@ -229,9 +229,27 @@ __device__ __forceinline__ void build_stage(int d_in, float* sV, const float* sX
 #undef SE3_Q
 }
 
+// The so2 arm's basis of one pair (input degree (Q - 1) / 2), the dense
+// arm's sB layout: a thread per (edge, p) builds the row's F x Q values from
+// the edge's frame (sY, S = 4 L1 floats a row) and the constants
+// (common.cuh, so2_basis_row).
+template <int P, int Q>
+__device__ __forceinline__ void so2_stage_basis(float* sB, const float* sY, int L1,
+                                                const float* __restrict__ so2c,
+                                                const float* __restrict__ ab, int tid) {
+  constexpr int F = P < Q ? P : Q, PFQ = P * F * Q;
+  for (int k = tid; k < BE * P; k += NTHREADS) {
+    const int e = k / P, p = k - e * P;
+    float* dst = sB + e * PFQ + p * F * Q;
+    so2_basis_row<P, Q>(sY + e * MAX_S, L1, p, so2c, ab,
+                        [&](int f, int q, float v) { dst[f * Q + q] = v; });
+  }
+}
+
 // One radial contraction (cv = 0: keys, 1: values) of the CTA's 64 edges
-// into the k / v tile sKV[e][p][o] in shared memory.
-template <typename T, int P>
+// into the k / v tile sKV[e][p][o] in shared memory; kSo2: the so2 arm's
+// basis in place of the dense arm's.
+template <typename T, int P, bool kSo2>
 __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int cv, int b,
                                           int node0, unsigned char* smem) {
   using S = Smem<P>;
@@ -287,8 +305,20 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
         sX[r * XS + j] = 0.f;
     }
   };
-  // pair pi's basis, (p, f, q)-ordered rows: sum over m of Y_J Q_J
+  // pair pi's basis, (p, f, q)-ordered rows: sum over m of Y_J Q_J (the
+  // so2 arm: from the frames)
   auto build_basis = [&](int pi) {
+    if constexpr (kSo2) {
+      const float* ab = a.cg + pairs.cg_off[pi];
+      const int L1 = a.S / 4;
+      switch (pairs.d[pi]) {
+        case 0: so2_stage_basis<P, 1>(sB, sY, L1, a.cg, ab, tid); break;
+        case 1: so2_stage_basis<P, 3>(sB, sY, L1, a.cg, ab, tid); break;
+        case 2: so2_stage_basis<P, 5>(sB, sY, L1, a.cg, ab, tid); break;
+        default: so2_stage_basis<P, 7>(sB, sY, L1, a.cg, ab, tid); break;
+      }
+      return;
+    }
     const int d_in = pairs.d[pi], Q = 2 * d_in + 1;
     const int F = P < Q ? P : Q, PFQ = P * F * Q;
     const int lo = d_in > d_out ? d_in - d_out : d_out - d_in;
@@ -403,8 +433,9 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
 }
 
 // kTie: the keys are the values (one conv pass, its tile read as k and as
-// v); a compile-time variant, so that the untied build is unchanged.
-template <typename T, int P, bool kTie>
+// v); kSo2: both passes by the so2 arm, from the frames in a.sh. Each a
+// compile-time variant, so that the dense untied build is unchanged.
+template <typename T, int P, bool kTie, bool kSo2>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const Args a, const Pairs pairs) {
   using S = Smem<P>;
@@ -422,7 +453,8 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
   const int n = a.n, K = a.K, S0 = a.S0, H = a.H;
   const int dim_head = BO / H, Dh = dim_head * P;
 
-  // the edge rows: source node (-1: no edge), neighbor mask, SH rows
+  // the edge rows: source node (-1: no edge), neighbor mask, SH (so2:
+  // frame) rows
   for (int e = tid; e < BE; e += NTHREADS) {
     const int node = node0 + e / SLOTS, s = e % SLOTS;
     const bool edge = node < n && s < K;
@@ -441,7 +473,7 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
 
   // keys: the tile (tied: the values' tile, which stays for the weighted
   // sum), then the scores against q (prefix slots first)
-  conv_pass<T, P>(a, pairs, kTie ? 1 : 0, b, node0, smem);
+  conv_pass<T, P, kSo2>(a, pairs, kTie ? 1 : 0, b, node0, smem);
   for (int k = tid; k < NODES * H * (S0 + SLOTS); k += NTHREADS) {
     const int nl = k / (H * (S0 + SLOTS)), rest = k - nl * H * (S0 + SLOTS);
     const int hd = rest / (S0 + SLOTS), j = rest - hd * (S0 + SLOTS);
@@ -483,7 +515,7 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
   __syncthreads();
 
   // values: the tile (tied: the keys' tile as it is), then the weighted sum
-  if constexpr (!kTie) conv_pass<T, P>(a, pairs, 1, b, node0, smem);
+  if constexpr (!kTie) conv_pass<T, P, kSo2>(a, pairs, 1, b, node0, smem);
   for (int k = tid; k < NODES * H * Dh; k += NTHREADS) {
     const int nl = k / (H * Dh), rest = k - nl * H * Dh;
     const int hd = rest / Dh, d = rest - hd * Dh;
@@ -502,10 +534,10 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
   }
 }
 
-template <typename T, int P, bool kTie>
+template <typename T, int P, bool kTie, bool kSo2>
 cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream) {
   constexpr size_t smem = Smem<P>::BYTES;
-  auto kern = flash_fwd_kernel<T, P, kTie>;
+  auto kern = flash_fwd_kernel<T, P, kTie, kSo2>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -524,13 +556,28 @@ cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream
 // features [B, n, C_k, 2 d_k + 1] of the n_pairs input degrees (d_k <= 3);
 // idx int64 [B, n, K], K <= 32; nmask bool [B, n, K] or null; h_v, h_k [B,
 // n, K, 128] (bf16 when h_is_bf16, else float32); wv, wk [128, IF, 64]
-// float32; bv, bk [IF, 64]; sh [B, n, K, S], S <= 49; prefix_k, prefix_v
+// float32; bv, bk [IF, 64]; sh [B, n, K, S], S <= 49 (so2: the packed
+// frames, S = 4 L1, L1 above every degree); prefix_k, prefix_v
 // [B, n, S0, H * Dh] (S0 <= 4; null when S0 = 0); cg the Q_J constants,
-// pair k's from cg_off_k; out [B, n, H, Dh]; w_split scratch of 4 * 128 *
+// pair k's from cg_off_k (so2: J_1..J_3, then pair k's canonical blocks
+// from cg_off_k); out [B, n, H, Dh]; w_split scratch of 4 * 128 *
 // IF * 64 bf16 (W_k's hi and lo arrays, then W_v's). tie: the keys are the
 // values; h_k, wk and bk are not read (null), and w_split holds W_v's two
-// arrays only (2 * 128 * IF * 64 bf16).
-extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, const void* x2,
+// arrays only (2 * 128 * IF * 64 bf16). so2: both passes by the so2 arm.
+//
+// The build compiles this source twice, once per arm (SE3_SO2 0 and 1), so
+// that the two arms' instantiations compile in parallel: se3_flash_fwd
+// launches the dense arm, se3_flash_fwd_so2 the so2 arm; each refuses the
+// other's `so2`.
+#ifndef SE3_SO2
+#define SE3_SO2 0
+#endif
+#if SE3_SO2
+#define SE3_FLASH_FWD_ENTRY se3_flash_fwd_so2
+#else
+#define SE3_FLASH_FWD_ENTRY se3_flash_fwd
+#endif
+extern "C" int SE3_FLASH_FWD_ENTRY(const void* q, const void* x0, const void* x1, const void* x2,
                              const void* x3, const void* idx, const void* nmask,
                              const void* h_v, const void* h_k, const void* wv, const void* wk,
                              const void* bv, const void* bk, const void* sh,
@@ -538,9 +585,11 @@ extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, cons
                              void* out, void* w_split, int d0, int d1, int d2, int d3, int c0,
                              int c1, int c2, int c3, int off0, int off1, int off2, int off3,
                              int n_pairs, int B, int n, int K, int S, int S0, int H, int IF,
-                             int P, int h_is_bf16, int tie, float scale, void* stream) {
+                             int P, int h_is_bf16, int tie, int so2, float scale,
+                             void* stream) {
   if (B <= 0 || n <= 0) return 0;
-  if (n_pairs < 1 || n_pairs > MAX_PAIRS || K < 1 || K > SLOTS || S < 1 || S > MAX_S ||
+  if (so2 != SE3_SO2 || n_pairs < 1 || n_pairs > MAX_PAIRS || K < 1 || K > SLOTS || S < 1 ||
+      S > MAX_S || (so2 && (S % 4 || 2 * (S / 4) - 1 < P)) ||
       S0 < 0 || S0 > MAX_PREFIX || H < 1 || H > MAX_HEADS || BO % H || IF < 1)
     return (int)cudaErrorInvalidValue;
   Pairs pairs;
@@ -548,7 +597,8 @@ extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, cons
   const int ds[MAX_PAIRS] = {d0, d1, d2, d3}, cs[MAX_PAIRS] = {c0, c1, c2, c3};
   const int offs[MAX_PAIRS] = {off0, off1, off2, off3};
   for (int k = 0; k < MAX_PAIRS; ++k) {
-    if (k < n_pairs && (ds[k] < 0 || 2 * ds[k] + 1 > QMAX || cs[k] < 1))
+    if (k < n_pairs &&
+        (ds[k] < 0 || 2 * ds[k] + 1 > QMAX || cs[k] < 1 || (so2 && ds[k] >= S / 4)))
       return (int)cudaErrorInvalidValue;
     pairs.x[k] = static_cast<const float*>(xs[k]);
     pairs.d[k] = ds[k];
@@ -595,13 +645,13 @@ extern "C" int se3_flash_fwd(const void* q, const void* x0, const void* x1, cons
   a.H = H;
   a.IF = IF;
   a.scale = scale;
-#define SE3_P(PP)                                                                      \
-  if (P == PP)                                                                         \
-    return (int)(tie ? (h_is_bf16 ? launch<bf16, PP, true>(a, pairs, B, s)             \
-                                  : launch<float, PP, true>(a, pairs, B, s))           \
-                     : (h_is_bf16 ? launch<bf16, PP, false>(a, pairs, B, s)            \
-                                  : launch<float, PP, false>(a, pairs, B, s)));
+#define SE3_V(PP, TIE, SO2)                                                   \
+  (h_is_bf16 ? launch<bf16, PP, TIE, SO2>(a, pairs, B, s)                     \
+             : launch<float, PP, TIE, SO2>(a, pairs, B, s))
+#define SE3_P(PP) \
+  if (P == PP) return (int)(tie ? SE3_V(PP, true, SE3_SO2 != 0) : SE3_V(PP, false, SE3_SO2 != 0));
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
 #undef SE3_P
+#undef SE3_V
   return (int)cudaErrorInvalidValue;
 }

@@ -136,10 +136,10 @@ struct Args {
   const bf16* wpack;          // the weight stream's stages (pack_stream_kernel)
   const float* b3pack;        // [TR][NC][WN]: b3 of each W3 stage, zeros past IF
   const float* prefix[2];     // prefix_k, prefix_v [B, n, S0, H * Dh] or null
-  const float* cg;            // Q_J constants
+  const float* cg;            // Q_J constants, or the so2 arm's J_l and canonical blocks
   const float* shk;           // SH normalization K_lm [7 * 7]
   float* out;                 // [B, n, H, Dh]
-  int n, S0, H, IF, L, exclude_self;
+  int n, S0, H, IF, L, exclude_self;  // L: the harmonics' (so2: the frames') degree
   float scale;
 };
 
@@ -151,20 +151,19 @@ struct GTile {
   static constexpr int ET = 64 * WG;   // pairs
 };
 
-// Shared memory in bytes (P, IF and L per launch); the ring starts it, at
-// 1024 bytes, as wgmma's swizzle wants.
+// Shared memory in bytes (P, IF and the payload's S floats a pair per
+// launch); the ring starts it, at 1024 bytes, as wgmma's swizzle wants.
 template <int P, int WG>
 struct Layout {
   static constexpr int BN = GTile<WG>::BN, ET = GTile<WG>::ET;
   static constexpr size_t STAGE = 2ull * MID * WN * sizeof(bf16);  // hi + lo tiles
   size_t b3, par, v2, kv, y, q, s, acc, m, l, alpha, dist, ok, bar, total;
-  __host__ __device__ Layout(int IF, int L) {
-    const int S = (L + 1) * (L + 1);
+  __host__ __device__ Layout(int IF, int S) {
     b3 = RING * STAGE;                          // [RING][IW][OW]
     par = b3 + 4ull * RING * WN;                // [2][NPAR][MID] trunk vectors
     v2 = par + 4ull * 2 * NPAR * MID;           // [IF][P][ET]
     kv = v2 + 4ull * IF * P * ET;               // [ET][P][OW]: the k or v tile
-    y = kv + 4ull * ET * P * OW;                // [ET][S]: the harmonics
+    y = kv + 4ull * ET * P * OW;                // [ET][S]: the harmonics (so2: the frames)
     q = y + 4ull * ET * S;                      // [BN][OW * P]
     s = q + 4ull * BN * OW * P;                 // [BN][MAX_HEADS][BJ]: scores, then weights
     acc = s + 4ull * BN * MAX_HEADS * BJ;       // [BN][OW * P]
@@ -450,11 +449,14 @@ __device__ __forceinline__ void second_layer(uint32_t (&ahi)[8][4], uint32_t (&a
 // V2 of one degree pair (input degree (Q - 1) / 2, its i from off) into
 // sV2 [i][p][pair]: a thread takes one (pair row, p), builds its F x Q
 // basis values once from the harmonics and the pair's Q_J constants (J =
-// lo + f known at compile time), and contracts them with the C channels'
-// x rows of the pair's kv node (zeros past n).
-template <int P, int Q, int ET, int NT>
+// lo + f known at compile time), or with kSo2 from the pair's frame, the
+// J_l (so2c) and the pair's canonical blocks (cg; common.cuh,
+// so2_basis_row), and contracts them with the C channels' x rows of the
+// pair's kv node (zeros past n).
+template <int P, int Q, int ET, int NT, bool kSo2>
 __device__ __forceinline__ void build_v2(float* sV2, const float* sY, int S,
                                          const float* __restrict__ cg,
+                                         const float* __restrict__ so2c,
                                          const float* __restrict__ x, int C, int off, int j0,
                                          int n, int b, int tid) {
   constexpr int F = P < Q ? P : Q;
@@ -465,6 +467,9 @@ __device__ __forceinline__ void build_v2(float* sV2, const float* sY, int S,
     const int j = j0 + e % BJ;
     const float* y = sY + e * S;
     float bs[F][Q];
+    if constexpr (kSo2) {
+      so2_basis_row<P, Q>(y, S / 4, p, so2c, cg, [&](int f, int q, float v) { bs[f][q] = v; });
+    } else {
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       const int J = lo + f, M = 2 * J + 1;
@@ -476,6 +481,7 @@ __device__ __forceinline__ void build_v2(float* sV2, const float* sY, int S,
         for (int m = 0; m < M; ++m) v = fmaf(y[J * J + m], __ldg(qj + q * M + m), v);
         bs[f][q] = v;
       }
+    }
     }
     const float* xr = x + ((size_t)b * n + (j < n ? j : 0)) * C * Q;
     float* dst = sV2 + ((size_t)off * P + p) * ET + e;
@@ -495,15 +501,18 @@ __device__ __forceinline__ void build_v2(float* sV2, const float* sY, int S,
 }
 
 // kTie: the keys are the values (one trunk and one radial product a tile,
-// the tile read as k and as v); a compile-time variant, so that the untied
-// build is unchanged.
-template <int P, int WG, bool kTie>
+// the tile read as k and as v); kSo2: the so2 arm, the pairs' frames in
+// place of their harmonics (a pair at distance zero takes the identity
+// frame). Each a compile-time variant, so that the dense untied build is
+// unchanged.
+template <int P, int WG, bool kTie, bool kSo2>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(GTile<WG>::NT, 1)
 flash_global_kernel(const Args a, const Pairs pairs) {
   constexpr int NT = GTile<WG>::NT, BN = GTile<WG>::BN, ET = GTile<WG>::ET;
   constexpr int TR = kTie ? 1 : 2;  // trunks (and radial products) a tile
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Layout<P, WG> lay(a.IF, a.L);
+  const int S = kSo2 ? 4 * (a.L + 1) : (a.L + 1) * (a.L + 1);
+  const Layout<P, WG> lay(a.IF, S);
   bf16* sW = reinterpret_cast<bf16*>(smem);
   float* sB3 = reinterpret_cast<float*>(smem + lay.b3);
   float* sPar = reinterpret_cast<float*>(smem + lay.par);
@@ -524,7 +533,6 @@ flash_global_kernel(const Args a, const Pairs pairs) {
   const int e0 = warp * 16 + g;  // the thread's pair rows e0 and e0 + 8
   const int b = blockIdx.y, node0 = blockIdx.x * BN;
   const int n = a.n, S0 = a.S0, H = a.H, IF = a.IF;
-  const int S = (a.L + 1) * (a.L + 1);
   const int dim_head = OW / H, Dh = dim_head * P, HD = OW * P;
 
   // The weight stream: per tile T stages, the keys' trunk (W2's two
@@ -620,8 +628,8 @@ flash_global_kernel(const Args a, const Pairs pairs) {
   }
 
   for (int j0 = 0; j0 < n; j0 += BJ) {
-    // the pairs: distance, unit vector, harmonics, column mask (every
-    // reader of the last tile's has passed a barrier since)
+    // the pairs: distance, unit vector, harmonics (so2: frame), column mask
+    // (every reader of the last tile's has passed a barrier since)
     for (int e = tid; e < ET; e += NT) {
       const int il = e / BJ, jl = e - il * BJ;
       const int i = node0 + il, j = j0 + jl;
@@ -640,7 +648,10 @@ flash_global_kernel(const Args a, const Pairs pairs) {
       }
       const float den = sqrtf(fmaxf(rx * rx + ry * ry + rz * rz, 1e-16f));
       sDist[e] = den;
-      spherical_harmonics(rx / den, ry / den, rz / den, a.L, a.shk, sY + e * S);
+      if constexpr (kSo2)
+        so2_edge_frame(rx, ry, rz, a.L, sY + e * S);
+      else
+        spherical_harmonics(rx / den, ry / den, rz / den, a.L, a.shk, sY + e * S);
       int ok = -1;
       if (j < n)
         ok = (a.nodemask == nullptr || a.nodemask[(size_t)b * n + j]) &&
@@ -654,7 +665,7 @@ flash_global_kernel(const Args a, const Pairs pairs) {
       const int C = pairs.c[pi];
       const float* cg = a.cg + pairs.cg_off[pi];
 #define SE3_Q(QQ) \
-  build_v2<P, QQ, ET, NT>(sV2, sY, S, cg, pairs.x[pi], C, off, j0, n, b, tid)
+  build_v2<P, QQ, ET, NT, kSo2>(sV2, sY, S, cg, a.cg, pairs.x[pi], C, off, j0, n, b, tid)
       switch (pairs.d[pi]) {
         case 0: SE3_Q(1); break;
         case 1: SE3_Q(3); break;
@@ -787,10 +798,10 @@ flash_global_kernel(const Args a, const Pairs pairs) {
   cluster_sync();  // the peer's last arrivals on this CTA's barriers are in
 }
 
-template <int P, int WG, bool kTie>
+template <int P, int WG, bool kTie, bool kSo2>
 cudaError_t launch_tile(const Args& a, const Pairs& pairs, int B, size_t smem,
                         cudaStream_t stream) {
-  auto kern = flash_global_kernel<P, WG, kTie>;
+  auto kern = flash_global_kernel<P, WG, kTie, kSo2>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -803,16 +814,19 @@ cudaError_t launch_tile(const Args& a, const Pairs& pairs, int B, size_t smem,
 }
 
 // the tile of 128 pairs where its shared memory fits, else of 64
-template <int P, bool kTie>
+template <int P, bool kTie, bool kSo2>
 cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream) {
   int max_smem = 0, dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const size_t smem2 = Layout<P, 2>(a.IF, a.L).total, smem1 = Layout<P, 1>(a.IF, a.L).total;
-  if (smem2 <= (size_t)max_smem) return launch_tile<P, 2, kTie>(a, pairs, B, smem2, stream);
-  if (smem1 <= (size_t)max_smem) return launch_tile<P, 1, kTie>(a, pairs, B, smem1, stream);
+  const int S = kSo2 ? 4 * (a.L + 1) : (a.L + 1) * (a.L + 1);
+  const size_t smem2 = Layout<P, 2>(a.IF, S).total, smem1 = Layout<P, 1>(a.IF, S).total;
+  if (smem2 <= (size_t)max_smem)
+    return launch_tile<P, 2, kTie, kSo2>(a, pairs, B, smem2, stream);
+  if (smem1 <= (size_t)max_smem)
+    return launch_tile<P, 1, kTie, kSo2>(a, pairs, B, smem1, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -833,8 +847,24 @@ cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream
 // NC) * 32768 + 2 NC * 256 bytes, NC = ceil(IF / 4), on 16 bytes (the
 // weight stream, packed here); L the harmonics' degree (<= 6). tie: the
 // keys are the values; rp holds the values' trunk alone, wk and bk are not
-// read (null), and w_split needs half the bytes.
-extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, const void* x2,
+// read (null), and w_split needs half the bytes. so2: the so2 arm for keys
+// and values; cg holds J_1..J_3, then pair k's canonical blocks from
+// cg_off_k, shk is not read, and L is the frames' degree (every d_k and
+// d_out, <= 3).
+//
+// The build compiles this source twice, once per arm (SE3_SO2 0 and 1), so
+// that the two arms' instantiations compile in parallel: se3_flash_global
+// launches the dense arm, se3_flash_global_so2 the so2 arm; each refuses
+// the other's `so2`.
+#ifndef SE3_SO2
+#define SE3_SO2 0
+#endif
+#if SE3_SO2
+#define SE3_FLASH_GLOBAL_ENTRY se3_flash_global_so2
+#else
+#define SE3_FLASH_GLOBAL_ENTRY se3_flash_global
+#endif
+extern "C" int SE3_FLASH_GLOBAL_ENTRY(const void* q, const void* x0, const void* x1, const void* x2,
                                 const void* x3, const void* coords, const void* nodemask,
                                 const void* rp, const void* wk, const void* wv, const void* bk,
                                 const void* bv, const void* prefix_k, const void* prefix_v,
@@ -842,10 +872,12 @@ extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, c
                                 int d0, int d1, int d2, int d3, int c0, int c1, int c2, int c3,
                                 int off0, int off1, int off2, int off3, int n_pairs, int B, int n,
                                 int S0, int H, int IF, int P, int L, int exclude_self, int tie,
-                                float scale, void* stream) {
+                                int so2, float scale, void* stream) {
   if (B <= 0 || n <= 0) return 0;
-  if (n_pairs < 1 || n_pairs > MAX_PAIRS || S0 < 0 || S0 > MAX_PREFIX || S0 > BJ || H < 1 ||
-      H > MAX_HEADS || OW % H || IF < 1 || L < 0 || L > MAX_L)
+  if (so2 != SE3_SO2 || n_pairs < 1 || n_pairs > MAX_PAIRS || S0 < 0 || S0 > MAX_PREFIX ||
+      S0 > BJ || H < 1 ||
+      H > MAX_HEADS || OW % H || IF < 1 || L < 0 || L > (so2 ? (QMAX - 1) / 2 : MAX_L) ||
+      (so2 && 2 * L + 1 < P))
     return (int)cudaErrorInvalidValue;
   Pairs pairs;
   const void* xs[MAX_PAIRS] = {x0, x1, x2, x3};
@@ -854,7 +886,8 @@ extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, c
   int total_if = 0;
   for (int k = 0; k < MAX_PAIRS; ++k) {
     if (k < n_pairs) {
-      if (ds[k] < 0 || 2 * ds[k] + 1 > QMAX || cs[k] < 1) return (int)cudaErrorInvalidValue;
+      if (ds[k] < 0 || 2 * ds[k] + 1 > QMAX || cs[k] < 1 || (so2 && ds[k] > L))
+        return (int)cudaErrorInvalidValue;
       const int d_out = (P - 1) / 2;
       total_if += cs[k] * (2 * (ds[k] < d_out ? ds[k] : d_out) + 1);
     }
@@ -898,8 +931,10 @@ extern "C" int se3_flash_global(const void* q, const void* x0, const void* x1, c
   a.L = L;
   a.exclude_self = exclude_self;
   a.scale = scale;
-#define SE3_P(PP) \
-  if (P == PP) return (int)(tie ? launch<PP, true>(a, pairs, B, s) : launch<PP, false>(a, pairs, B, s));
+#define SE3_P(PP)                                                     \
+  if (P == PP)                                                        \
+    return (int)(tie ? launch<PP, true, SE3_SO2 != 0>(a, pairs, B, s) \
+                     : launch<PP, false, SE3_SO2 != 0>(a, pairs, B, s));
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
 #undef SE3_P
   return (int)cudaErrorInvalidValue;

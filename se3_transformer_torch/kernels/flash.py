@@ -3,13 +3,18 @@ contraction rebuilt per edge: plain version, wrapper, and the
 differentiable op.
 
 Port of se3_transformer_tpu/kernels/pallas_flash.py::flash_attention in kNN
-mode with the dense contraction arm. For one output degree d_out, per node
-i and neighbor slot s (j = idx[i, s]):
+mode with both contraction arms. For one output degree d_out, per node i
+and neighbor slot s (j = idx[i, s]), the dense arm is
 
     basis[p, q, f] = sum_m Y_J[i, s, m] Q_J[(p, q), m]      (J = |d_in - d_out| + f)
     z[p, (c, f)]   = sum_q basis[p, q, f] x_{d_in}[j, c, q]  (every input degree,
                                                            concatenated along i)
     kv[o, p]       = sum_i z[p, i] (h[i, s] . W3[:, i, o] + b3[i, o])
+
+and the so2 arm (conv_backend='so2', from the edge frames of so2.frames)
+
+    xr = D_{d_in}(R_e)^T x_{d_in}[j]        z = banded_z(xr) padded to P
+    kv = D_{d_out}(R_e) (sum_i z[p, i] (h . W3[:, i, o] + b3[i, o]))
 
 for the keys (h_k, wk, bk) and the values (h_v, wv, bv), then attention of
 q over [prefix slots, neighbor slots] with the unfused path's semantics
@@ -25,7 +30,8 @@ Layouts as in JAX: q [B, n, h, Dh] (Dh = dim_head * (2 d_out + 1),
 `pairs` order); idx [B, n, K]; nmask [B, n, K] bool or None; h_v, h_k
 [B, n, K, mid] (bf16 with the bf16 radial trunk); wv, wk [mid, IF, O] and
 bv, bk [IF, O] float32, O = kv_heads * dim_head; sh the flash_sh_payload
-stack [B, n, K, S]; prefix_k, prefix_v [B, n, S0, kv_heads * Dh] or None
+stack [B, n, K, S] (dense arm); fr the packed frames [B, n, K, 4 L1]
+(pack_frames, so2 arm); prefix_k, prefix_v [B, n, S0, kv_heads * Dh] or None
 -> out [B, n, h, Dh] float32. The radial product is float32: bf16-valued h
 times float32 W3, as the JAX einsum promotes it.
 
@@ -45,22 +51,23 @@ replays the plain chunked stream under autograd, one node chunk at a time
 (the port of `_flash_core_bwd`, which JAX runs in XLA too).
 
 Global mode (`flash_global_attention`, the port of pallas_flash.py::
-flash_global_attention with the dense arm): no neighbor list; every node
-attends to the prefix slots and to every other node, the pair payload
-(distance, the inlined radial trunk of `_radial_apply`, the SH stack)
-rebuilt from the coordinates [B, n, 3]. The plain version
+flash_global_attention, one arm for keys and values): no neighbor list;
+every node attends to the prefix slots and to every other node, the pair
+payload (distance, the inlined radial trunk of `_radial_apply`, the SH stack
+or the frames) rebuilt from the coordinates [B, n, 3]. The plain version
 (`flash_global_plain`, the JAX XLA stream in global mode) streams query-row
 chunks, n // 16 of them; a CUDA tensor launches csrc/flash_global.cu
 (`flash_global_attention_fwd`, with its own `.launches`). Its custom op
 `se3_torch::flash_global_attention` saves only its inputs and replays the
 plain stream in its backward.
 
-Both kernels take tied keys and values (`FlashConfig.tie`, wk None) in a
-compile-time variant of their own: one radial contraction a tile, its
-result read as k and as v.
+Both kernels take tied keys and values (`FlashConfig.tie`, wk None) and
+the so2 arm in compile-time variants of their own. Kernel #7 builds one arm
+for the keys and the values: mixed arms (to_k dense, to_v so2) are past
+flash_limit and route to the plain stream.
 
-Not ported (NotImplementedError): the so2 arm, the quantized
-`wv_scale`/`wk_scale` epilogue.
+Not ported (NotImplementedError): the quantized `wv_scale`/`wk_scale`
+epilogue.
 """
 from __future__ import annotations
 
@@ -72,6 +79,10 @@ import numpy as np
 import torch
 
 from ..basis import basis_transformation_Q_J, safe_normalize
+from ..so2.canonical import canonical_blocks
+from ..so2.contract import banded_z
+from ..so2.frames import FRAME_KEYS, edge_frames, j_matrix, rotate_in, \
+    rotate_out
 from ..so3.spherical_harmonics import real_spherical_harmonics_all
 from ..utils.helpers import batched_index_select
 from .pairwise import _aligned, _stream
@@ -93,10 +104,14 @@ MAX_SH = (2 * 2 * MAX_DEGREE + 1) ** 2
 STREAM_ROWS = 16
 
 
+# the contraction arms (pallas_flash.py::ARMS)
+ARMS = ('dense', 'so2')
+
+
 class FlashConfig(NamedTuple):
-    """Static configuration of one call: kNN or global mode, dense arm,
-    tied or untied keys and values (pallas_flash.py::FlashConfig's other
-    fields are not ported)."""
+    """Static configuration of one call: kNN or global mode, the keys' and
+    the values' contraction arms, tied or untied keys and values
+    (pallas_flash.py::FlashConfig's other fields are not ported)."""
     pairs: Tuple[Tuple[int, int], ...]  # (d_in, channels) per input degree
     d_out: int
     heads: int
@@ -106,6 +121,8 @@ class FlashConfig(NamedTuple):
     mode: str = 'knn'                   # 'knn' | 'global'
     exclude_self: bool = False          # global mode: mask the j == i slot
     tie: bool = False                   # keys ARE values (tie_key_values)
+    arm_v: str = 'dense'                # 'dense' | 'so2'
+    arm_k: str = 'dense'                # the keys' (tied: arm_v)
 
 
 @lru_cache(maxsize=None)
@@ -147,9 +164,33 @@ def flash_sh_payload(rel_pos: torch.Tensor, max_degree: int,
     return out if differentiable else out.detach()
 
 
+def pack_frames(frames: dict) -> torch.Tensor:
+    """so2 frames dict -> one [..., 4 * L1] tensor in FRAME_KEYS order (the
+    kernel's layout, pallas_flash.py::pack_frames)."""
+    return torch.cat([frames[k] for k in FRAME_KEYS], dim=-1)
+
+
+def unpack_frames(packed: torch.Tensor) -> dict:
+    L1 = packed.shape[-1] // 4
+    return {k: packed[..., i * L1:(i + 1) * L1]
+            for i, k in enumerate(FRAME_KEYS)}
+
+
+def _arms(cfg: FlashConfig) -> set:
+    """The arms a call runs: the values', and the keys' unless tied."""
+    return {cfg.arm_v} | (set() if cfg.tie else {cfg.arm_k})
+
+
 # --------------------------------------------------------------------- #
 # the plain version (the JAX XLA stream)
 # --------------------------------------------------------------------- #
+def _contract_z(z, h, w3, b3) -> torch.Tensor:
+    """The radial product of one slot block: z [..., P, IF], h [..., mid]
+    -> [..., O, P], R = h . W3 + b3 in float32."""
+    R = torch.einsum('...m,mio->...io', h.float(), w3) + b3
+    return torch.einsum('...pi,...io->...po', z, R).transpose(-1, -2)
+
+
 def _kv_block(pairs, d_out: int, xg, h, sh, w3, b3) -> torch.Tensor:
     """One slot block's keyed features by the dense arm
     (pallas_flash.py::_kv_block): xg one gathered [..., C, Q] per input
@@ -164,9 +205,16 @@ def _kv_block(pairs, d_out: int, xg, h, sh, w3, b3) -> torch.Tensor:
         basis = torch.einsum('...s,spqf->...pqf', y, T)
         v2 = torch.einsum('...pqf,...cq->...pcf', basis, x)
         segs.append(v2.reshape(*v2.shape[:-2], -1))
-    z = torch.cat(segs, dim=-1)
-    R = torch.einsum('...m,mio->...io', h.float(), w3) + b3
-    return torch.einsum('...pi,...io->...po', z, R).transpose(-1, -2)
+    return _contract_z(torch.cat(segs, dim=-1), h, w3, b3)
+
+
+def _kv_block_so2(pairs, d_out: int, xg, h, fr, w3, b3) -> torch.Tensor:
+    """The so2 arm of _kv_block: each input degree rotated into the edge
+    frames `fr`, the band z padded to P, the radial product, the result
+    rotated out -> [..., O, P]."""
+    z = torch.cat([banded_z(rotate_in(x, fr, d_in), d_in, d_out)
+                   for (d_in, _), x in zip(pairs, xg)], dim=-1)
+    return rotate_out(_contract_z(z, h, w3, b3), fr, d_out)
 
 
 def _attend_block(qr, kblk, vblk, maskblk, m, l, acc, scale, inbounds=None):
@@ -218,34 +266,39 @@ def _row_attention(cfg: FlashConfig, q, kf, vf, mask_full):
     return out.reshape(q.shape)
 
 
-def _kv_pair(cfg: FlashConfig, xg, h_k, h_v, sh, full: dict, Dh: int):
-    """(k, v) [..., kv_heads, Dh] of one block by the dense arm: the
-    values' block, and the keys' by (h_k, wk, bk), or the same block when
-    cfg.tie (pallas_flash.py::_chunk_body)."""
-    def block(h, w3, b3):
-        t = _kv_block(cfg.pairs, cfg.d_out, xg, h, sh, w3, b3)
+def _kv_pair(cfg: FlashConfig, xg, h_k, h_v, sh, fr, full: dict, Dh: int):
+    """(k, v) [..., kv_heads, Dh] of one block: the values' block by
+    cfg.arm_v, and the keys' by (h_k, wk, bk) and cfg.arm_k, or the same
+    block when cfg.tie (pallas_flash.py::_chunk_body)."""
+    def block(arm, h, w3, b3):
+        if arm == 'so2':
+            t = _kv_block_so2(cfg.pairs, cfg.d_out, xg, h, fr, w3, b3)
+        else:
+            t = _kv_block(cfg.pairs, cfg.d_out, xg, h, sh, w3, b3)
         return t.reshape(*t.shape[:-2], cfg.kv_heads, Dh)
-    kv_v = block(h_v, full['wv'], full['bv'])
+    kv_v = block(cfg.arm_v, h_v, full['wv'], full['bv'])
     if cfg.tie:
         return kv_v, kv_v
-    return block(h_k, full['wk'], full['bk']), kv_v
+    return block(cfg.arm_k, h_k, full['wk'], full['bk']), kv_v
 
 
 # operands along the node axis (sliced into chunks) and node-level ones
-_CHUNKED = ('q', 'idx', 'nmask', 'h_v', 'h_k', 'sh', 'prefix_k', 'prefix_v')
+_CHUNKED = ('q', 'idx', 'nmask', 'h_v', 'h_k', 'sh', 'fr', 'prefix_k',
+            'prefix_v')
 _FULL = ('xs', 'wv', 'bv', 'wk', 'bk')
 
 
 def _chunk_body(cfg: FlashConfig, chunk: dict, full: dict) -> torch.Tensor:
     """One node chunk of the stream (pallas_flash.py::_chunk_body, kNN
-    mode): gather, k and v by the dense arm, the prefix slots first, the
-    row attention."""
+    mode): gather, k and v by their arms, the prefix slots first, the row
+    attention."""
     q = chunk['q']                                    # [B, nc, h, Dh]
     Dh, kv_h = q.shape[-1], cfg.kv_heads
     xg = tuple(batched_index_select(x, chunk['idx'], dim=1)
                for x in full['xs'])
+    fr = unpack_frames(chunk['fr']) if chunk.get('fr') is not None else None
     kv_k, kv_v = _kv_pair(cfg, xg, chunk.get('h_k'), chunk['h_v'],
-                          chunk['sh'], full, Dh)
+                          chunk.get('sh'), fr, full, Dh)
     nmask = chunk.get('nmask')
     if cfg.prefix:
         shape = (*q.shape[:-2], cfg.prefix, kv_h, Dh)
@@ -301,6 +354,30 @@ def _cg_buffer(d_ins: Tuple[int, ...], d_out: int, device: torch.device):
     return buf, tuple(offsets)
 
 
+# J_l (l = 1..MAX_DEGREE) at the head of the so2 arm's constants buffer
+_J_OFFSETS = tuple(sum((2 * k + 1) ** 2 for k in range(1, l))
+                   for l in range(1, MAX_DEGREE + 2))
+
+
+@lru_cache(maxsize=None)
+def _so2_buffer(d_ins: Tuple[int, ...], d_out: int, device: torch.device):
+    """The so2 arm's constants for the pairs into d_out: J_1 .. J_3
+    row-major (J_l at _J_OFFSETS[l - 1]), then per pair its canonical
+    blocks a and b [F, min(d_in, d_out) + 1] row-major; and each pair's
+    offset of its a."""
+    blocks = [j_matrix(l).ravel() for l in range(1, MAX_DEGREE + 1)]
+    offsets, total = [], _J_OFFSETS[-1]
+    for d_in in d_ins:
+        offsets.append(total)
+        for t in canonical_blocks(d_in, d_out):
+            blocks.append(t.ravel())
+            total += t.size
+    with torch.inference_mode(False):
+        buf = torch.as_tensor(np.concatenate(blocks), dtype=torch.float32,
+                              device=device)
+    return buf, tuple(offsets)
+
+
 def _pairs_limit(pairs, d_out: int, prefix: int) -> Optional[str]:
     """The limits both kernels share: 1 to MAX_PAIRS input degrees, every
     degree <= MAX_DEGREE, at most MAX_PREFIX prefix slots."""
@@ -318,13 +395,18 @@ def _pairs_limit(pairs, d_out: int, prefix: int) -> Optional[str]:
 
 def flash_limit(pairs, d_out: int, heads: int, kv_heads: int, dim_head: int,
                 K: int, prefix: int, mid: int = MID,
-                h_dtype: torch.dtype = torch.float32) -> Optional[str]:
+                h_dtype: torch.dtype = torch.float32,
+                arms: Tuple[str, str] = ('dense', 'dense')) -> Optional[str]:
     """None when kernel #7 (csrc/flash_fwd.cu) takes a kNN call of this
     configuration, else the limit it exceeds: `pairs` (d_in, channels),
-    K neighbor slots, the radial width mid and dtype of h."""
+    K neighbor slots, the radial width mid and dtype of h, the keys' and
+    the values' arms (the kernel builds one arm for both)."""
     limit = _pairs_limit(pairs, d_out, prefix)
     if limit is not None:
         return limit
+    if arms[0] != arms[1]:
+        return (f'mixed contraction arms (keys {arms[0]}, values {arms[1]}) '
+                f'exceed the kernel, built with one arm for both')
     if heads != kv_heads or heads > MAX_HEADS \
             or heads * dim_head != O_WIDTH:
         return (f'heads {heads}, kv_heads {kv_heads}, dim_head {dim_head} '
@@ -383,11 +465,12 @@ def _pointers(ops: dict):
 
 
 def _pair_args(cfg: FlashConfig, xs, device: torch.device):
-    """The pairs as the kernels' C interfaces take them: the Q_J constants
-    buffer, then the x pointers, degrees, channels and constant offsets,
+    """The pairs as the kernels' C interfaces take them: the arm's
+    constants buffer (the Q_J constants, or the so2 arm's J_l and canonical
+    blocks), then the x pointers, degrees, channels and constant offsets,
     each padded to MAX_PAIRS."""
-    cg, offsets = _cg_buffer(tuple(d for d, _ in cfg.pairs), cfg.d_out,
-                             device)
+    make = _so2_buffer if cfg.arm_v == 'so2' else _cg_buffer
+    cg, offsets = make(tuple(d for d, _ in cfg.pairs), cfg.d_out, device)
     pad = MAX_PAIRS - len(cfg.pairs)
     return (cg, [x.data_ptr() for x in xs] + [None] * pad,
             [d for d, _ in cfg.pairs] + [0] * pad,
@@ -422,7 +505,8 @@ def _check(cfg: FlashConfig, ops: dict):
         raise TypeError(f'h_v/h_k must have one dtype, got '
                         f'{h_v.dtype}/{h_k.dtype}')
     limit = flash_limit(cfg.pairs, cfg.d_out, cfg.heads, cfg.kv_heads,
-                        Dh // P, K, cfg.prefix, h_v.shape[-1], h_v.dtype)
+                        Dh // P, K, cfg.prefix, h_v.shape[-1], h_v.dtype,
+                        (cfg.arm_v if cfg.tie else cfg.arm_k, cfg.arm_v))
     if limit is not None:
         raise ValueError(limit)
     IF = _check_xs(cfg, ops['xs'], B, n)
@@ -442,13 +526,23 @@ def _check(cfg: FlashConfig, ops: dict):
             raise ValueError(f'{w}/{b} must be float32 [{MID}, {IF}, '
                              f'{O_WIDTH}] / [{IF}, {O_WIDTH}], got '
                              f'{tuple(ops[w].shape)} / {tuple(ops[b].shape)}')
-    sh = ops['sh']
+    # the arm's per-edge payload: the SH stack, or the packed frames
+    degree = max([d for d, _ in cfg.pairs] + [cfg.d_out])
+    if cfg.arm_v == 'so2':
+        name, sh = 'fr', ops.get('fr')
+        need, cap = 4 * (degree + 1), 4 * (MAX_DEGREE + 1)
+        ok = sh is not None and sh.shape[-1] % 4 == 0
+    else:
+        name, sh = 'sh', ops.get('sh')
+        need = (max(d for d, _ in cfg.pairs) + cfg.d_out + 1) ** 2
+        cap, ok = MAX_SH, sh is not None
+    if not ok or sh.dtype != torch.float32 or sh.ndim != 4 \
+            or tuple(sh.shape[:3]) != (B, n, K) \
+            or not need <= sh.shape[-1] <= max(cap, need):
+        raise ValueError(f'{name} must be float32 [{B}, {n}, {K}, S] with '
+                         f'{need} <= S, got '
+                         f'{None if sh is None else (sh.dtype, sh.shape)}')
     S = sh.shape[-1]
-    need = (max(d for d, _ in cfg.pairs) + cfg.d_out + 1) ** 2
-    if sh.dtype != torch.float32 or tuple(sh.shape[:3]) != (B, n, K) \
-            or sh.ndim != 4 or not need <= S <= MAX_SH:
-        raise ValueError(f'sh must be float32 [{B}, {n}, {K}, S] with {need} '
-                         f'<= S <= {MAX_SH}, got {sh.dtype} {tuple(sh.shape)}')
     _check_prefix(cfg, ops, B, n, H * Dh)
     _check_placement([q, idx, sh, *ops['xs']]
                      + [ops[f'{k}{c}'] for c in kv_names
@@ -468,6 +562,7 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     if q.device.type != 'cuda':
         raise ValueError(f'no kernel for device {q.device}')
     B, n, K, S, S0, IF, bf16 = _check(cfg, ops)
+    so2 = cfg.arm_v == 'so2'
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -484,37 +579,45 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     ptr = _pointers(ops)
     from .build import load_library
     with torch.cuda.device(q.device):
-        rc = load_library().se3_flash_fwd(
+        lib = load_library()
+        rc = (lib.se3_flash_fwd_so2 if so2 else lib.se3_flash_fwd)(
             q.data_ptr(), *xs, ptr('idx'), ptr('nmask'), ptr('h_v'),
-            ptr('h_k'), ptr('wv'), ptr('wk'), ptr('bv'), ptr('bk'), ptr('sh'),
-            ptr('prefix_k'), ptr('prefix_v'), cg.data_ptr(), out.data_ptr(),
-            w_split.data_ptr(), *ds, *cs, *offs, len(cfg.pairs), B, n, K, S,
-            S0, cfg.heads, IF, 2 * cfg.d_out + 1, int(bf16), int(cfg.tie),
+            ptr('h_k'), ptr('wv'), ptr('wk'), ptr('bv'), ptr('bk'),
+            ptr('fr' if so2 else 'sh'), ptr('prefix_k'), ptr('prefix_v'),
+            cg.data_ptr(), out.data_ptr(), w_split.data_ptr(), *ds, *cs,
+            *offs, len(cfg.pairs), B, n, K, S, S0, cfg.heads, IF,
+            2 * cfg.d_out + 1, int(bf16), int(cfg.tie), int(so2),
             float(cfg.scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f'se3_flash_fwd launch failed: CUDA error {rc}')
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.so2_launches += so2
     return out
 
 
+# every launch counts in .launches, the so2 arm's in .so2_launches too
 flash_attention_fwd.launches = 0
+flash_attention_fwd.so2_launches = 0
 flash_attention_fwd.routed = 0
 
 
 # --------------------------------------------------------------------- #
 # the differentiable op
 # --------------------------------------------------------------------- #
-def _ops(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v):
+def _ops(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, fr, prefix_k,
+         prefix_v):
     return dict(q=q, xs=tuple(xs), idx=idx, nmask=nmask, h_v=h_v, h_k=h_k,
-                wv=wv, bv=bv, wk=wk, bk=bk, sh=sh, prefix_k=prefix_k,
+                wv=wv, bv=bv, wk=wk, bk=bk, sh=sh, fr=fr, prefix_k=prefix_k,
                 prefix_v=prefix_v)
 
 
-def _config(pairs, d_out, heads, kv_heads, scale, prefix_k, tie=False):
+def _config(pairs, d_out, heads, kv_heads, scale, prefix_k, tie=False,
+            arm_v='dense', arm_k='dense'):
     return FlashConfig(
         pairs=tuple((pairs[i], pairs[i + 1]) for i in range(0, len(pairs), 2)),
         d_out=d_out, heads=heads, kv_heads=kv_heads, scale=scale,
-        prefix=0 if prefix_k is None else prefix_k.shape[2], tie=bool(tie))
+        prefix=0 if prefix_k is None else prefix_k.shape[2], tie=bool(tie),
+        arm_v=arm_v, arm_k=arm_v if tie else arm_k)
 
 
 @torch.library.custom_op('se3_torch::flash_attention', mutates_args=(),
@@ -523,33 +626,38 @@ def _flash_op(q: torch.Tensor, xs: List[torch.Tensor], idx: torch.Tensor,
               nmask: Optional[torch.Tensor], h_v: torch.Tensor,
               h_k: Optional[torch.Tensor], wv: torch.Tensor, bv: torch.Tensor,
               wk: Optional[torch.Tensor], bk: Optional[torch.Tensor],
-              sh: torch.Tensor, prefix_k: Optional[torch.Tensor],
+              sh: Optional[torch.Tensor], fr: Optional[torch.Tensor],
+              prefix_k: Optional[torch.Tensor],
               prefix_v: Optional[torch.Tensor], pairs: List[int], d_out: int,
-              heads: int, kv_heads: int, scale: float) -> torch.Tensor:
-    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k, wk is None)
+              heads: int, kv_heads: int, scale: float, arm_v: str,
+              arm_k: str) -> torch.Tensor:
+    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k, wk is None,
+                  arm_v, arm_k)
     return flash_attention_plain(cfg, _ops(q, xs, idx, nmask, h_v, h_k, wv,
-                                           bv, wk, bk, sh, prefix_k, prefix_v))
+                                           bv, wk, bk, sh, fr, prefix_k,
+                                           prefix_v))
 
 
 @_flash_op.register_kernel('cuda')
-def _(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v,
-      pairs, d_out, heads, kv_heads, scale):
-    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k, wk is None)
+def _(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, fr, prefix_k,
+      prefix_v, pairs, d_out, heads, kv_heads, scale, arm_v, arm_k):
+    cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k, wk is None,
+                  arm_v, arm_k)
     return flash_attention_fwd(cfg, _ops(q, xs, idx, nmask, h_v, h_k, wv, bv,
-                                         wk, bk, sh, prefix_k, prefix_v))
+                                         wk, bk, sh, fr, prefix_k, prefix_v))
 
 
 _TENSOR_ARGS = ('q', 'xs', 'idx', 'nmask', 'h_v', 'h_k', 'wv', 'bv', 'wk',
-                'bk', 'sh', 'prefix_k', 'prefix_v')
+                'bk', 'sh', 'fr', 'prefix_k', 'prefix_v')
 
 
 def _flash_setup(ctx, inputs, output):
-    (q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v,
-     pairs, d_out, heads, kv_heads, scale) = inputs
-    ctx.save_for_backward(q, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh,
+    (q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, fr, prefix_k, prefix_v,
+     pairs, d_out, heads, kv_heads, scale, arm_v, arm_k) = inputs
+    ctx.save_for_backward(q, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, fr,
                           prefix_k, prefix_v, *xs)
     ctx.cfg = _config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                      wk is None)
+                      wk is None, arm_v, arm_k)
 
 
 def _flash_backward(ctx, g):
@@ -558,9 +666,9 @@ def _flash_backward(ctx, g):
     one chunk's per-edge tensors exist at once; the chunk cotangents land
     in their slices, the node-level operands' are summed over the chunks
     in order."""
-    (q, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k, prefix_v,
+    (q, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, fr, prefix_k, prefix_v,
      *xs) = ctx.saved_tensors
-    ops = _ops(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, prefix_k,
+    ops = _ops(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, fr, prefix_k,
                prefix_v)
     needs = dict(zip(_TENSOR_ARGS, ctx.needs_input_grad))
     g = g.contiguous()
@@ -605,8 +713,8 @@ def _flash_backward(ctx, g):
     return (grads.get('q'), dxs, None, None, grads.get('h_v'),
             grads.get('h_k'), grads.get('wv'), grads.get('bv'),
             grads.get('wk'), grads.get('bk'), grads.get('sh'),
-            grads.get('prefix_k'), grads.get('prefix_v'),
-            None, None, None, None, None)
+            grads.get('fr'), grads.get('prefix_k'), grads.get('prefix_v'),
+            None, None, None, None, None, None, None)
 
 
 _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
@@ -617,22 +725,26 @@ def flash_operands(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
                    wk=None, bk=None, sh=None, frames=None, prefix_k=None,
                    prefix_v=None, wv_scale=None, wk_scale=None):
     """flash_attention's arguments as the plain stream and the kernel take
-    them: (FlashConfig, ops), every operand contiguous; the JAX options
-    this port does not take raise NotImplementedError.
-    flash_attention_plain(*flash_operands(...)) is the plain stream under
-    autograd, the route of a configuration past flash_limit."""
+    them: (FlashConfig, ops), every operand contiguous, the so2 frames
+    packed (pack_frames); the JAX options this port does not take raise
+    NotImplementedError. flash_attention_plain(*flash_operands(...)) is the
+    plain stream under autograd, the route of a configuration past
+    flash_limit."""
     arm_k = arm_v if arm_k is None else arm_k
-    if arm_v != 'dense' or arm_k != 'dense' or frames is not None:
-        raise NotImplementedError(f'only the dense contraction arm is ported '
-                                  f'(arm_v={arm_v!r}, arm_k={arm_k!r})')
     tie = wk is None
     if tie and bk is not None:
         raise ValueError('tied keys and values (no wk) take no bk')
+    arms = {arm_v} | (set() if tie else {arm_k})
+    if not arms <= set(ARMS):
+        raise ValueError(f'unknown contraction arm in {sorted(arms)} (known: '
+                         f'{ARMS})')
     if wv_scale is not None or wk_scale is not None:
         raise NotImplementedError('the quantized w3_scale epilogue is not '
                                   'ported')
-    if sh is None:
+    if 'dense' in arms and sh is None:
         raise ValueError('the dense arm needs the sh payload')
+    if 'so2' in arms and frames is None:
+        raise ValueError('the so2 arm needs the edge frames')
     if (prefix_k is None) != (prefix_v is None):
         raise ValueError('prefix_k and prefix_v come together')
 
@@ -640,26 +752,29 @@ def flash_operands(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
         return None if t is None else t.contiguous()
     flat = [int(v) for pair in pairs for v in pair]
     cfg = _config(flat, int(d_out), int(heads), int(kv_heads), float(scale),
-                  prefix_k, tie)
+                  prefix_k, tie, arm_v, arm_k)
     # untied keys without their own hidden take h_v's; tied keys none
     h_k = None if tie else (h_v if h_k is None else h_k)
+    fr = pack_frames(frames).contiguous() if 'so2' in arms else None
     return cfg, _ops(c(q), [c(x) for x in xs], c(idx), c(nmask), c(h_v),
-                     c(h_k), c(wv), c(bv), c(wk), c(bk), c(sh), c(prefix_k),
+                     c(h_k), c(wv), c(bv), c(wk), c(bk),
+                     c(sh) if 'dense' in arms else None, fr, c(prefix_k),
                      c(prefix_v))
 
 
 def flash_attention(q, xs, idx, nmask, h_v, wv, bv, **config) -> torch.Tensor:
     """Streaming kNN equivariant attention for ONE output degree, with the
     signature of pallas_flash.py::flash_attention (operands in the module
-    docstring, any strides; the keywords of flash_operands); differentiable
-    in q, xs, h_v, h_k, wv, bv, wk, bk, sh and the prefix slots. h_k
-    defaults to h_v; without wk (and bk, h_k) the keys are tied to the
-    values."""
+    docstring, any strides; the keywords of flash_operands: arm_v and arm_k
+    'dense' with the SH stack sh, 'so2' with the edge frames dict frames);
+    differentiable in q, xs, h_v, h_k, wv, bv, wk, bk, sh, frames and the
+    prefix slots. h_k defaults to h_v; without wk (and bk, h_k) the keys
+    are tied to the values."""
     cfg, ops = flash_operands(q, xs, idx, nmask, h_v, wv, bv, **config)
     return _flash_op(*(list(ops[k]) if k == 'xs' else ops[k]
                        for k in _TENSOR_ARGS),
                      [v for pair in cfg.pairs for v in pair], cfg.d_out,
-                     cfg.heads, cfg.kv_heads, cfg.scale)
+                     cfg.heads, cfg.kv_heads, cfg.scale, cfg.arm_v, cfg.arm_k)
 
 
 # --------------------------------------------------------------------- #
@@ -710,15 +825,27 @@ def _sh_degree(cfg: FlashConfig) -> int:
     return (max_j + 1) // 2
 
 
+def _frame_degree(cfg: FlashConfig) -> int:
+    """The frames' degree: every input degree and d_out
+    (pallas_flash.py::_frame_degree)."""
+    return max([cfg.d_out] + [d for d, _ in cfg.pairs])
+
+
 def _global_edge_payload(cfg: FlashConfig, rel, rp_v, rp_k):
-    """The radial hiddens through the inlined trunk and the SH stack of a
-    [..., 3] rel block (pallas_flash.py::_global_edge_payload, dense arm);
-    h_k is None with tied keys and values."""
+    """The radial hiddens through the inlined trunk and the payload of the
+    active arms of a [..., 3] rel block (pallas_flash.py::
+    _global_edge_payload): the SH stack for the dense arm, the frames for
+    the so2 arm (a pair at distance zero takes the identity frame); h_k is
+    None with tied keys and values."""
     ef = _safe_dist(rel)[..., None]
     h_v = _radial_apply(ef, rp_v)
     h_k = None if cfg.tie else _radial_apply(ef, rp_k)
-    sh = flash_sh_payload(rel, _sh_degree(cfg), differentiable=True)
-    return h_v, h_k, sh
+    arms = _arms(cfg)
+    sh = flash_sh_payload(rel, _sh_degree(cfg), differentiable=True) \
+        if 'dense' in arms else None
+    fr = edge_frames(rel, _frame_degree(cfg), differentiable=True) \
+        if 'so2' in arms else None
+    return h_v, h_k, sh, fr
 
 
 # operands of the global stream along the query axis (sliced into chunks)
@@ -728,7 +855,7 @@ _GLOBAL_CHUNKED = ('q', 'prefix_k', 'prefix_v')
 def _global_chunk_body(cfg: FlashConfig, rows: slice, ops: dict):
     """The query rows `rows` of the global stream (pallas_flash.py::
     _chunk_body, global branch): rel from the coordinates, the payload, k
-    and v by the dense arm against every node, the column mask (node mask,
+    and v by their arm against every node, the column mask (node mask,
     and i != j by absolute ids), the prefix slots first, the row
     attention."""
     q = ops['q'][:, rows]                             # [B, nc, h, Dh]
@@ -736,10 +863,11 @@ def _global_chunk_body(cfg: FlashConfig, rows: slice, ops: dict):
     coords = ops['coords']                            # [B, n, 3]
     n = coords.shape[1]
     rel = coords[:, rows, None, :] - coords[:, None, :, :]
-    h_v, h_k, sh = _global_edge_payload(cfg, rel, ops['rp_v'], ops['rp_k'])
+    h_v, h_k, sh, fr = _global_edge_payload(cfg, rel, ops['rp_v'],
+                                            ops['rp_k'])
     xg = tuple(x[:, None].expand(x.shape[0], q.shape[1], *x.shape[1:])
                for x in ops['xs'])
-    kv_k, kv_v = _kv_pair(cfg, xg, h_k, h_v, sh, ops, Dh)
+    kv_k, kv_v = _kv_pair(cfg, xg, h_k, h_v, sh, fr, ops, Dh)
     nmask = None
     if ops.get('node_mask') is not None:
         nmask = ops['node_mask'][:, None, :]
@@ -895,6 +1023,7 @@ def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     if out.numel() == 0:
         return out
     cg, xs, ds, cs, offs = _pair_args(cfg, ops['xs'], q.device)
+    so2 = cfg.arm_v == 'so2'
     rp = _pack_trunks(ops['rp_k'], ops['rp_v'])
     # the weight stream, packed in the launch: per stage one trunk's W2
     # half or 4 values of i of W_k or W_v, as bf16 hi + lo [128][64] tiles
@@ -907,21 +1036,27 @@ def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     ptr = _pointers(ops)
     from .build import load_library
     with torch.cuda.device(q.device):
-        rc = load_library().se3_flash_global(
+        lib = load_library()
+        rc = (lib.se3_flash_global_so2 if so2 else lib.se3_flash_global)(
             q.data_ptr(), *xs, ptr('coords'), ptr('node_mask'), rp.data_ptr(),
             ptr('wk'), ptr('wv'), ptr('bk'), ptr('bv'), ptr('prefix_k'),
             ptr('prefix_v'), cg.data_ptr(), _sh_norm_table(q.device).data_ptr(),
             out.data_ptr(), w_split.data_ptr(), *ds, *cs, *offs,
             len(cfg.pairs), B, n, S0,
-            cfg.heads, IF, 2 * cfg.d_out + 1, 2 * _sh_degree(cfg),
-            int(cfg.exclude_self), int(cfg.tie), float(cfg.scale), _stream(q))
+            cfg.heads, IF, 2 * cfg.d_out + 1,
+            _frame_degree(cfg) if so2 else 2 * _sh_degree(cfg),
+            int(cfg.exclude_self), int(cfg.tie), int(so2), float(cfg.scale),
+            _stream(q))
     if rc != 0:
         raise RuntimeError(f'se3_flash_global launch failed: CUDA error {rc}')
     flash_global_attention_fwd.launches += 1
+    flash_global_attention_fwd.so2_launches += so2
     return out
 
 
+# every launch counts in .launches, the so2 arm's in .so2_launches too
 flash_global_attention_fwd.launches = 0
+flash_global_attention_fwd.so2_launches = 0
 flash_global_attention_fwd.routed = 0
 
 
@@ -933,10 +1068,12 @@ def _global_ops(q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask,
 
 
 def _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                   exclude_self, tie=False):
+                   exclude_self, tie=False, arm='dense'):
+    """Global mode runs one arm for the keys and the values (the JAX
+    flash_global_attention's `arm`)."""
     return _config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                   tie)._replace(mode='global',
-                                 exclude_self=bool(exclude_self))
+                   tie, arm, arm)._replace(mode='global',
+                                           exclude_self=bool(exclude_self))
 
 
 @torch.library.custom_op('se3_torch::flash_global_attention', mutates_args=(),
@@ -948,9 +1085,9 @@ def _global_op(q: torch.Tensor, xs: List[torch.Tensor], coords: torch.Tensor,
                prefix_k: Optional[torch.Tensor],
                prefix_v: Optional[torch.Tensor], pairs: List[int],
                d_out: int, heads: int, kv_heads: int, scale: float,
-               exclude_self: bool) -> torch.Tensor:
+               exclude_self: bool, arm: str) -> torch.Tensor:
     cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                         exclude_self, wk is None)
+                         exclude_self, wk is None, arm)
     return flash_global_plain(cfg, _global_ops(
         q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
         prefix_v))
@@ -958,9 +1095,9 @@ def _global_op(q: torch.Tensor, xs: List[torch.Tensor], coords: torch.Tensor,
 
 @_global_op.register_kernel('cuda')
 def _(q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
-      prefix_v, pairs, d_out, heads, kv_heads, scale, exclude_self):
+      prefix_v, pairs, d_out, heads, kv_heads, scale, exclude_self, arm):
     cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                         exclude_self, wk is None)
+                         exclude_self, wk is None, arm)
     return flash_global_attention_fwd(cfg, _global_ops(
         q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
         prefix_v))
@@ -968,12 +1105,13 @@ def _(q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
 
 def _global_setup(ctx, inputs, output):
     (q, xs, coords, rp_v, wv, bv, rp_k, wk, bk, node_mask, prefix_k,
-     prefix_v, pairs, d_out, heads, kv_heads, scale, exclude_self) = inputs
+     prefix_v, pairs, d_out, heads, kv_heads, scale, exclude_self,
+     arm) = inputs
     ctx.save_for_backward(q, coords, wv, bv, wk, bk, node_mask, prefix_k,
                           prefix_v, *xs, *rp_v, *rp_k)
     ctx.n_xs = len(xs)
     ctx.cfg = _global_config(pairs, d_out, heads, kv_heads, scale, prefix_k,
-                             exclude_self, wk is None)
+                             exclude_self, wk is None, arm)
 
 
 def _global_backward(ctx, g):
@@ -1017,7 +1155,7 @@ def _global_backward(ctx, g):
             grad(ops['wv']), grad(ops['bv']),
             [grad(t) for t in ops['rp_k']], grad(ops['wk']),
             grad(ops['bk']), None, grad(ops['prefix_k']),
-            grad(ops['prefix_v']), None, None, None, None, None, None)
+            grad(ops['prefix_v']), None, None, None, None, None, None, None)
 
 
 _global_op.register_autograd(_global_backward, setup_context=_global_setup)
@@ -1030,13 +1168,12 @@ def flash_global_operands(q, xs, coords, rp_v, wv, bv, *, pairs, d_out,
     """flash_global_attention's arguments as the plain stream and the
     kernel take them: (FlashConfig, ops), every operand contiguous, the
     trunks' 1-D leaves as [1, mid]; without wk (and rp_k, bk) the keys are
-    tied to the values; the so2 arm raises NotImplementedError.
-    flash_global_plain(*flash_global_operands(...)) is the plain stream in
-    its row chunks under autograd, the route of a configuration past
-    global_limit."""
-    if arm != 'dense':
-        raise NotImplementedError(f'only the dense contraction arm is ported '
-                                  f'(arm={arm!r})')
+    tied to the values; `arm` ('dense' or 'so2') serves the keys and the
+    values. flash_global_plain(*flash_global_operands(...)) is the plain
+    stream in its row chunks under autograd, the route of a configuration
+    past global_limit."""
+    if arm not in ARMS:
+        raise ValueError(f'unknown contraction arm {arm!r} (known: {ARMS})')
     tie = wk is None
     if tie and (bk is not None or rp_k is not None):
         raise ValueError('tied keys and values (no wk) take no rp_k or bk')
@@ -1052,7 +1189,7 @@ def flash_global_operands(q, xs, coords, rp_v, wv, bv, *, pairs, d_out,
         return [c(p.reshape(1, -1) if p.ndim == 1 else p) for p in rp]
     flat = [int(v) for pair in pairs for v in pair]
     cfg = _global_config(flat, int(d_out), int(heads), int(kv_heads),
-                         float(scale), prefix_k, exclude_self, tie)
+                         float(scale), prefix_k, exclude_self, tie, arm)
     return cfg, _global_ops(c(q), [c(x) for x in xs], c(coords), trunk(rp_v),
                             c(wv), c(bv), trunk(rp_k or ()), c(wk), c(bk),
                             c(node_mask), c(prefix_k), c(prefix_v))
@@ -1081,4 +1218,5 @@ def flash_global_attention(q, xs, coords, rp_v, wv, bv,
     return _global_op(*(list(v) if isinstance(v, tuple) else v
                         for v in ops.values()),
                       [v for pair in cfg.pairs for v in pair], cfg.d_out,
-                      cfg.heads, cfg.kv_heads, cfg.scale, cfg.exclude_self)
+                      cfg.heads, cfg.kv_heads, cfg.scale, cfg.exclude_self,
+                      cfg.arm_v)

@@ -52,6 +52,13 @@ kv slot), rotary_position and
 rotary_rel_dist (rotary phases of the degree-0 q, k and v from the slots'
 sequence positions and distances; kNN, unfused blocks only).
 
+conv_backend (the JAX field): 'dense', 'so2', or first-match-wins
+(layer regex, backend) pairs on 'conv_in', 'preconv{i}',
+'attn_block{i}/to_v', 'attn_block{i}/to_k' and 'conv_out'; each layer
+gets its backend, and the forward builds only the payloads its layers
+read (_payloads: the per-pair basis, the SH stack of the dense fused
+blocks, the so2 edge frames).
+
 Every other JAX field is accepted only at its JAX default: any other value
 raises NotImplementedError, so nothing is silently ignored.
 """
@@ -67,7 +74,7 @@ from torch import nn
 
 from ..basis import get_basis
 from ..kernels.flash import flash_sh_payload
-from ..ops.conv import ConvSE3
+from ..ops.conv import ConvSE3, resolve_conv_backend
 from ..ops.core import LinearSE3, NormSE3
 from ..ops.fiber import Fiber
 from ..ops.neighbors import (
@@ -76,6 +83,7 @@ from ..ops.neighbors import (
 )
 from ..ops.rotary import sinusoidal_embeddings
 from ..ops.trunk import SequentialTrunk
+from ..so2.frames import edge_frames
 from ..utils.helpers import (
     batched_index_select, cast_tuple, masked_mean, resolve_device,
 )
@@ -86,7 +94,7 @@ _JAX_ONLY_DEFAULTS = dict(
     norm_gated_scale=False,
     use_egnn=False, egnn_hidden_dim=32, egnn_weights_clamp_value=None,
     egnn_feedforward=False,
-    conv_backend='dense', flash_interpret=False,
+    flash_interpret=False,
     pallas=None, conv_bf16=False, pallas_interpret=False,
     pallas_attention_interpret=False,
     matmul_precision=None, sequence_parallel=None,
@@ -140,6 +148,16 @@ def resolve_fused_attention(spec, depth: int) -> tuple:
                              f'xla)')
         out.append(val == 'flash')
     return tuple(out)
+
+
+def _backend_spec(spec):
+    """conv_backend as a string, or as an order-preserving tuple of
+    (pattern, backend) pairs from a dict or a list of pairs (first match
+    wins, so never sorted)."""
+    if isinstance(spec, str):
+        return spec
+    items = spec.items() if hasattr(spec, 'items') else spec
+    return tuple((str(p), str(b)) for p, b in items)
 
 
 # degree-1 features are in the irrep order (y, z, x) of the real spherical
@@ -245,7 +263,7 @@ class SE3TransformerModule(nn.Module):
                  one_headed_key_values: bool = False,
                  tie_key_values: bool = False,
                  rotary_position: bool = False,
-                 rotary_rel_dist: bool = False, *,
+                 rotary_rel_dist: bool = False, conv_backend='dense', *,
                  device='cuda', generator: Optional[torch.Generator] = None,
                  **jax_fields):
         super().__init__()
@@ -294,6 +312,7 @@ class SE3TransformerModule(nn.Module):
             raise ValueError(f'pallas_attention must be None, False or True, '
                              f'got {pallas_attention!r}')
         self.fused_attention = resolve_fused_attention(fuse_pairwise, depth)
+        self.conv_backend = _backend_spec(conv_backend)
         if any(self.fused_attention):
             for key, allowed, why in _NOT_WITH_FUSE_PAIRWISE:
                 if fields.get(key, allowed) != allowed:
@@ -374,14 +393,27 @@ class SE3TransformerModule(nn.Module):
                            shared_radial_hidden=shared_radial_hidden,
                            edge_chunks=edge_chunks, fuse_basis=fuse_basis,
                            radial_bf16=radial_bf16)
+        # the conv layers' backends by name (the JAX _layer_backends)
+        names = ['conv_in'] + [f'preconv{i}' for i in range(num_conv_layers)]
+        for i in range(depth):
+            names.append(f'attn_block{i}/to_v')
+            if not (linear_proj_keys or tie_key_values):
+                names.append(f'attn_block{i}/to_k')
+        if attention_mode != 'global':
+            names.append('conv_out')
+        self.backends = {name: resolve_conv_backend(self.conv_backend, name)
+                         for name in names}
         if attention_mode == 'global':
             self.lift_in = LinearSE3(fiber_in, fiber_hidden)
         else:
-            self.conv_in = ConvSE3(fiber_in, fiber_hidden, **conv_kwargs)
+            self.conv_in = ConvSE3(fiber_in, fiber_hidden,
+                                   backend=self.backends['conv_in'],
+                                   **conv_kwargs)
         for i in range(num_conv_layers):
             self.add_module(f'preconv_norm{i}', NormSE3(fiber_hidden))
-            self.add_module(f'preconv{i}', ConvSE3(fiber_hidden, fiber_hidden,
-                                                   **conv_kwargs))
+            self.add_module(f'preconv{i}', ConvSE3(
+                fiber_hidden, fiber_hidden,
+                backend=self.backends[f'preconv{i}'], **conv_kwargs))
         self.trunk = SequentialTrunk(
             fiber_hidden, depth=depth, heads=heads, dim_head=dim_head,
             attend_self=attend_self, use_null_kv=use_null_kv,
@@ -396,11 +428,18 @@ class SE3TransformerModule(nn.Module):
             edge_chunks=edge_chunks, fuse_basis=fuse_basis,
             radial_bf16=radial_bf16, fused_attention=self.fused_attention,
             attention_mode=attention_mode,
-            global_materialize=global_materialize, edge_dim=self.edge_width)
+            global_materialize=global_materialize, edge_dim=self.edge_width,
+            value_backends=tuple(self.backends[f'attn_block{i}/to_v']
+                                 for i in range(depth)),
+            key_backends=tuple(self.backends.get(f'attn_block{i}/to_k',
+                                                 'dense')
+                               for i in range(depth)))
         if attention_mode == 'global':
             self.lift_out = LinearSE3(fiber_hidden, fiber_out)
         else:
-            self.conv_out = ConvSE3(fiber_hidden, fiber_out, **conv_kwargs)
+            self.conv_out = ConvSE3(fiber_hidden, fiber_out,
+                                    backend=self.backends['conv_out'],
+                                    **conv_kwargs)
         if self.apply_norm_out:
             self.norm_out = NormSE3(fiber_out, nonlin=lambda t: t)
         self.linear_out = LinearSE3(fiber_out, fiber_out.to(1)) \
@@ -515,15 +554,7 @@ class SE3TransformerModule(nn.Module):
             sparse_mask=sparse_mask, causal=self.causal)
         if edges is not None:
             edges = batched_index_select(edges, nearest, dim=2)
-        # conv_in and conv_out always take the per-pair basis; the fused
-        # attention blocks take the SH stack
-        basis = get_basis(hood.rel_pos, self.num_degrees - 1,
-                          differentiable=self.differentiable_coors,
-                          layout=self.basis_layout)
-        if any(self.fused_attention):
-            basis['flash_sh'] = flash_sh_payload(
-                hood.rel_pos, self.num_degrees - 1,
-                differentiable=self.differentiable_coors)
+        basis = self._payloads(hood.rel_pos)
         edge_info = (hood.indices, hood.mask, edges)
 
         x = self.conv_in(feats, edge_info, hood.rel_dist, basis)
@@ -535,6 +566,30 @@ class SE3TransformerModule(nn.Module):
                        self._rotary_embeddings(b, n, hood))
         x = self.conv_out(x, edge_info, hood.rel_dist, basis)
         return self._output(x, return_type, return_pooled, mask)
+
+    def _payloads(self, rel_pos: torch.Tensor) -> dict:
+        """The per-edge payloads the conv layers read (the JAX _body): the
+        per-pair basis for dense layers outside fused blocks, the SH stack
+        'flash_sh' for dense kv convs of fused blocks, the edge frames
+        'so2' for so2 layers; an all-so2 model builds no basis."""
+        fused = {f'attn_block{i}/{kv}'
+                 for i, on in enumerate(self.fused_attention) if on
+                 for kv in ('to_v', 'to_k')}
+        dense = [name for name, backend in self.backends.items()
+                 if backend == 'dense']
+        degree = self.num_degrees - 1
+        basis = {}
+        if any(name not in fused for name in dense):
+            basis = get_basis(rel_pos, degree,
+                              differentiable=self.differentiable_coors,
+                              layout=self.basis_layout)
+        if any(name in fused for name in dense):
+            basis['flash_sh'] = flash_sh_payload(
+                rel_pos, degree, differentiable=self.differentiable_coors)
+        if 'so2' in self.backends.values():
+            basis['so2'] = edge_frames(
+                rel_pos, degree, differentiable=self.differentiable_coors)
+        return basis
 
     def _adjacency_predicates(self, adj_mat, b, n, self_excl, generator):
         """The JAX _adjacency_predicates on the self-excluded layout: (the

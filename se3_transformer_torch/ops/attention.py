@@ -29,7 +29,9 @@ the values themselves (no to_k). Three attention cores, one function:
     kernels.flash.flash_attention per degree (the JAX `_flash_call`): the
     per-edge basis, the gathered features, k, v and the scores stay inside
     the kernel; the always-valid slots are its prefix. Same parameters as
-    the unfused path.
+    the unfused path. Each kv conv's backend (backend_v, backend_k) is its
+    arm: the dense one reads basis['flash_sh'], the so2 one the edge
+    frames basis['so2'].
 
 attention_mode='global' (the JAX `_global_call`) takes no neighborhoods:
 every node attends to every other node through
@@ -75,7 +77,8 @@ class AttentionSE3(nn.Module):
                  edge_chunks: Optional[int] = None, fuse_basis: bool = False,
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
                  attention_mode: str = 'knn',
-                 global_materialize: bool = False, edge_dim: int = 0):
+                 global_materialize: bool = False, edge_dim: int = 0,
+                 backend_v: str = 'dense', backend_k: str = 'dense'):
         super().__init__()
         if attention_mode not in ('knn', 'global'):
             raise ValueError(f"unknown attention_mode {attention_mode!r} "
@@ -124,11 +127,12 @@ class AttentionSE3(nn.Module):
         elif fourier_encode_dist or edge_dim:
             raise ValueError('global attention consumes raw distances only '
                              '(no fourier or edge features)')
-        self.to_v = ConvSE3(fiber, kv_fiber, **conv_kwargs)
+        self.to_v = ConvSE3(fiber, kv_fiber, backend=backend_v, **conv_kwargs)
         if linear_proj_keys:
             self.to_k = LinearSE3(fiber, kv_fiber)
         elif not tie_key_values:
-            self.to_k = ConvSE3(fiber, kv_fiber, **conv_kwargs)
+            self.to_k = ConvSE3(fiber, kv_fiber, backend=backend_k,
+                                **conv_kwargs)
         if attend_self:
             self.to_self_k = LinearSE3(fiber, kv_fiber)
             self.to_self_v = LinearSE3(fiber, kv_fiber)
@@ -383,15 +387,18 @@ class AttentionSE3(nn.Module):
                     v_prog['w3'][degree], v_prog['b3'][degree])
             config = dict(pairs=v_prog['pairs'], d_out=int(degree), heads=h,
                           kv_heads=kv_h, scale=self.dim_head ** -0.5,
-                          arm_v=v_prog['arm'], sh=basis['flash_sh'],
-                          prefix_k=prefix_k, prefix_v=prefix_v)
+                          arm_v=v_prog['arm'], sh=basis.get('flash_sh'),
+                          frames=basis.get('so2'), prefix_k=prefix_k,
+                          prefix_v=prefix_v)
             if k_prog is not None:
                 config.update(arm_k=k_prog['arm'], h_k=k_prog['h'],
                               wk=k_prog['w3'][degree],
                               bk=k_prog['b3'][degree])
             limit = kf.flash_limit(v_prog['pairs'], int(degree), h, kv_h,
                                    self.dim_head, K, S0,
-                                   h_v.shape[-1], h_v.dtype)
+                                   h_v.shape[-1], h_v.dtype,
+                                   arms=(config.get('arm_k', v_prog['arm']),
+                                         v_prog['arm']))
             if routing.route(kf.flash_attention_fwd, h_v.device.type, limit,
                              (v_prog['pairs'], int(degree), h, kv_h,
                               self.dim_head, K)):
@@ -420,7 +427,8 @@ class AttentionBlockSE3(nn.Module):
                  edge_chunks: Optional[int] = None, fuse_basis: bool = False,
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
                  attention_mode: str = 'knn',
-                 global_materialize: bool = False, edge_dim: int = 0):
+                 global_materialize: bool = False, edge_dim: int = 0,
+                 backend_v: str = 'dense', backend_k: str = 'dense'):
         super().__init__()
         self.prenorm = NormSE3(fiber)
         self.attn = AttentionSE3(
@@ -435,7 +443,8 @@ class AttentionBlockSE3(nn.Module):
             edge_chunks=edge_chunks, fuse_basis=fuse_basis,
             radial_bf16=radial_bf16, fuse_pairwise=fuse_pairwise,
             attention_mode=attention_mode,
-            global_materialize=global_materialize, edge_dim=edge_dim)
+            global_materialize=global_materialize, edge_dim=edge_dim,
+            backend_v=backend_v, backend_k=backend_k)
 
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor],

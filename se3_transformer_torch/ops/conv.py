@@ -1,5 +1,5 @@
 """Tensor-field-network convolution: the port of se3_transformer_tpu/ops/conv.py
-(its dense contraction backend).
+(its dense contraction backend, and the registry that adds the so2 one).
 
 The radial trunk (Dense -> LayerNorm -> GELU, twice) reads the edge
 features: the distance, or with fourier_encode_dist its sin/cos features at
@@ -45,6 +45,16 @@ b3_{d_in}_{d_out}:
 
 Both program modes take the shared trunk only, as JAX asserts.
 
+backend='so2' (se3_transformer_torch/so2, JAX's conv_backend): the same
+parameters; the layer reads the edge frames basis['so2'] in place of the
+per-pair basis, rotates each input degree into the frames once, and per
+pair takes the band z = banded_z(xr) in place of V2 (grouped: the pairs of
+an output degree concatenated into one _radial_contract, as the dense V2s;
+per pair: so2_pair_contract on the band rows alone), then rotates each
+output degree back once. fuse_basis does not apply to it, as in JAX. In the
+program modes the arm rides in the program ('arm') to the streaming
+kernels.
+
 edge_chunks streams the node axis through either contraction in that many
 chunks, zero-padding it to a multiple (_stream_node_chunks). Under
 autograd the backward runs the fused backward kernels; gradients reach w3
@@ -66,7 +76,9 @@ float32 as in flax.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import importlib
+import re
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F_
@@ -77,6 +89,8 @@ from ..kernels import routing
 from ..kernels.pairwise import (
     pairwise_contract, pairwise_contract_bx, pairwise_contract_bxf,
 )
+from ..so2.contract import banded_z
+from ..so2.frames import rotate_in, rotate_out
 from ..utils.helpers import (
     batched_index_select, fourier_encode, masked_mean, to_order,
 )
@@ -91,6 +105,52 @@ EdgeInfo = Tuple[torch.Tensor, Optional[torch.Tensor],
 
 # radial-MLP hidden width (the JAX package's DEFAULT_MID_DIM)
 DEFAULT_MID_DIM = 128
+
+# The contraction backends (the JAX package's CONV_BACKENDS). 'dense' is the
+# Clebsch-Gordan path of this file; another backend registers a pairwise
+# contract callable
+#     impl(h, w3, b3, payload, x, *, d_in, d_out, edge_chunks,
+#          edge_frame_io=False) -> [..., c_out, P]
+# with the dense path's parameters, `payload` being what the model puts
+# under the backend's name in the basis dict (the so2 backend's edge frames
+# under basis['so2']). 'so2' registers itself on first use.
+CONV_BACKENDS: Dict[str, Optional[Callable]] = {'dense': None}
+_LAZY_BACKENDS = {'so2': 'se3_transformer_torch.so2.contract'}
+
+# one backend for every layer, or first-match-wins (layer regex, backend)
+# pairs
+BackendSpec = Union[str, Tuple[Tuple[str, str], ...]]
+
+
+def register_conv_backend(name: str, impl: Callable) -> None:
+    """Register a pairwise-contraction backend; the latest registration of
+    a name wins."""
+    CONV_BACKENDS[name] = impl
+
+
+def get_conv_backend(name: str) -> Optional[Callable]:
+    """The contract callable of backend `name` (None for 'dense', whose
+    path is inline here); KeyError for an unknown name."""
+    if name not in CONV_BACKENDS and name in _LAZY_BACKENDS:
+        module = importlib.import_module(_LAZY_BACKENDS[name])
+        register_conv_backend(name, module.so2_pair_contract)
+    if name not in CONV_BACKENDS:
+        raise KeyError(f'unknown conv backend {name!r} (registered: '
+                       f'{sorted(set(CONV_BACKENDS) | set(_LAZY_BACKENDS))})')
+    return CONV_BACKENDS[name]
+
+
+def resolve_conv_backend(spec: BackendSpec, layer_name: str) -> str:
+    """The backend of one conv layer ('conv_in', 'preconv{i}',
+    'attn_block{i}/to_v', 'attn_block{i}/to_k', 'conv_out'): a string
+    applies to every layer; (pattern, backend) pairs match first-match-wins
+    by re.search, with an implicit ('.*', 'dense') tail."""
+    if isinstance(spec, str):
+        return spec
+    for pattern, backend in spec:
+        if re.search(pattern, layer_name):
+            return backend
+    return 'dense'
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype=None) -> torch.Tensor:
@@ -245,18 +305,28 @@ def radial_hidden(module: nn.Module, x: torch.Tensor,
 
 class PairwiseConvSE3(nn.Module):
     """One (d_in -> d_out) pair with its own radial trunk, w3 and b3: the
-    port of JAX PairwiseConvSE3 (fused=True, the dense backend)."""
+    port of JAX PairwiseConvSE3 (fused=True). backend: 'dense', or a
+    registered backend (get_conv_backend) that takes the backend's payload
+    in place of the pair's basis and ignores fuse_basis, as in JAX;
+    so2_edge_frame_io: x arrives in the edge frame and the output stays
+    there (ConvSE3's rotation hoist). The parameters are the same for every
+    backend."""
 
     def __init__(self, degree_in: int, nc_in: int, degree_out: int,
                  nc_out: int, edge_dim: int = 1, radial_bf16: bool = False,
                  fuse_basis: bool = False,
-                 edge_chunks: Optional[int] = None):
+                 edge_chunks: Optional[int] = None, backend: str = 'dense',
+                 so2_edge_frame_io: bool = False):
         super().__init__()
         self.pqf = (to_order(degree_out), to_order(degree_in),
                     to_order(min(degree_in, degree_out)))
+        self.degrees = (degree_in, degree_out)
         self.radial_dtype = torch.bfloat16 if radial_bf16 else None
         self.fuse_basis = fuse_basis
         self.edge_chunks = edge_chunks
+        self.backend = backend
+        self.backend_impl = get_conv_backend(backend)
+        self.so2_edge_frame_io = so2_edge_frame_io
         add_radial_trunk(self, edge_dim)
         IF = nc_in * self.pqf[2]
         self.w3 = nn.Parameter(torch.zeros(DEFAULT_MID_DIM, IF, nc_out))
@@ -265,10 +335,17 @@ class PairwiseConvSE3(nn.Module):
     def forward(self, edge_feats: torch.Tensor, basis: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
         """edge_feats [b, n, k, e]; the pair's basis [b, n, k, P*F*Q]
-        ('pfq_flat') or [b, n, k, P, Q, F] ('pqf'); x [b, n, k, c_in, Q]
-        -> [b, n, k, c_out, P]."""
+        ('pfq_flat') or [b, n, k, P, Q, F] ('pqf'), or the backend's
+        payload; x [b, n, k, c_in, Q] -> [b, n, k, c_out, P]."""
         P, Q, F = self.pqf
         h = radial_hidden(self, edge_feats, self.radial_dtype)
+        if self.backend_impl is not None:
+            extra = dict(edge_frame_io=True) if self.so2_edge_frame_io \
+                else {}
+            return self.backend_impl(h, self.w3, self.b3, basis, x,
+                                     d_in=self.degrees[0],
+                                     d_out=self.degrees[1],
+                                     edge_chunks=self.edge_chunks, **extra)
         if self.fuse_basis:
             out = _radial_contract_bx(h, self.w3, self.b3, basis, x,
                                       self.pqf, self.edge_chunks)
@@ -292,8 +369,15 @@ class ConvSE3(nn.Module):
                  edge_chunks: Optional[int] = None,
                  shared_radial_hidden: bool = False, fuse_basis: bool = False,
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
-                 global_radial: bool = False, edge_dim: int = 0):
+                 global_radial: bool = False, edge_dim: int = 0,
+                 backend: str = 'dense'):
         super().__init__()
+        backend_impl = get_conv_backend(backend)
+        if backend not in ('dense', 'so2') and (
+                shared_radial_hidden or fuse_pairwise or global_radial):
+            raise NotImplementedError(
+                f'backend {backend!r} runs per pair only: the shared trunk '
+                f'and the program modes take the dense and so2 arms')
         if self_interaction and not pool:
             raise ValueError('must pool edges if followed with self '
                              'interaction')
@@ -318,6 +402,8 @@ class ConvSE3(nn.Module):
         self.fuse_pairwise = fuse_pairwise
         self.global_radial = global_radial
         self.edge_dim = edge_dim
+        self.backend = backend
+        self.backend_impl = backend_impl
         mid = DEFAULT_MID_DIM
         # the trunk's input: the distance features, then the edges
         in_dim = edge_dim + (1 if not fourier_encode_dist
@@ -330,7 +416,8 @@ class ConvSE3(nn.Module):
                     self.add_module(f'pair_{d_in}_{d_out}', PairwiseConvSE3(
                         d_in, m_in, d_out, m_out, edge_dim=in_dim,
                         radial_bf16=radial_bf16, fuse_basis=fuse_basis,
-                        edge_chunks=edge_chunks))
+                        edge_chunks=edge_chunks, backend=backend,
+                        so2_edge_frame_io=backend == 'so2'))
                     continue
                 F = to_order(min(d_in, d_out))
                 self.register_parameter(
@@ -381,7 +468,7 @@ class ConvSE3(nn.Module):
         w3s, b3s = self._grouped()
         return dict(h=self.radial_hidden(self.edge_features(rel_dist, edges)),
                     pairs=tuple((d, c) for d, c in self.fiber_in),
-                    arm='dense', w3=w3s, b3=b3s)
+                    arm=self.backend, w3=w3s, b3=b3s)
 
     def _global_program(self) -> dict:
         """The program of JAX ConvSE3(global_radial=True): the trunk's raw
@@ -393,16 +480,17 @@ class ConvSE3(nn.Module):
               self.Dense_1.weight.t(), self.Dense_1.bias,
               self.LayerNorm_1.weight, self.LayerNorm_1.bias)
         return dict(rp=rp, pairs=tuple((d, c) for d, c in self.fiber_in),
-                    arm='dense', w3=w3s, b3=b3s)
+                    arm=self.backend, w3=w3s, b3=b3s)
 
     def forward(self, inp: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor]
                 ) -> Features:
         """inp {d: [b, n, c, 2d+1]}; rel_dist [b, n, k]; basis
         {'d_in,d_out': [b, n, k, P*F*Q] (layout 'pfq_flat') or [b, n, k,
-        P, Q, F] ('pqf')}, either with fuse_basis or without.
-        Pooled: {d: [b, n, c_out, 2d+1]}; else [b, n, k, c_out, 2d+1];
-        with fuse_pairwise or global_radial the program dict (module
+        P, Q, F] ('pqf')}, either with fuse_basis or without; a non-dense
+        backend reads its payload basis[backend] instead (the so2 edge
+        frames). Pooled: {d: [b, n, c_out, 2d+1]}; else [b, n, k, c_out,
+        2d+1]; with fuse_pairwise or global_radial the program dict (module
         docstring; global_radial reads none of the arguments)."""
         if self.global_radial:
             return self._global_program()
@@ -413,15 +501,29 @@ class ConvSE3(nn.Module):
                                                  neighbor_indices, dim=1)
                     for d, _ in self.fiber_in}       # [b, n, k, c_in, Q]
         edge_feats = self.edge_features(rel_dist, edges)
+        so2 = self.backend == 'so2'
+        if so2:
+            # the rotation hoist: every input degree rotated into the edge
+            # frames once, every output degree rotated back once after the
+            # sum over input degrees (parameter-free, so the parameters are
+            # those of the unhoisted path)
+            frames = basis['so2']
+            gathered = {str(d): rotate_in(gathered[str(d)], frames, d)
+                        for d, _ in self.fiber_in}
         if not self.shared_radial_hidden:
             outputs = {}
             for d_out, _ in self.fiber_out:
                 acc = None
                 for d_in, _ in self.fiber_in:
+                    payload = basis[self.backend] \
+                        if self.backend_impl is not None \
+                        else basis[f'{d_in},{d_out}']
                     y = getattr(self, f'pair_{d_in}_{d_out}')(
-                        edge_feats, basis[f'{d_in},{d_out}'],
+                        edge_feats, payload,
                         gathered[str(d_in)])          # [b, n, k, c_out, P]
                     acc = y if acc is None else acc + y
+                if so2:
+                    acc = rotate_out(acc, frames, d_out)
                 if self.pool:
                     acc = masked_mean(acc, neighbor_mask, dim=2)
                 outputs[str(d_out)] = acc
@@ -437,6 +539,12 @@ class ConvSE3(nn.Module):
                 w3 = getattr(self, f'w3_{d_in}_{d_out}')
                 b3 = getattr(self, f'b3_{d_in}_{d_out}')
                 x = gathered[str(d_in)]
+                w3s.append(w3)
+                b3s.append(b3)
+                if so2:
+                    # the edge-frame band z [b, n, k, P, C*F] in place of V2
+                    v2s.append(banded_z(x, d_in, d_out))
+                    continue
                 basis_pair = basis[f'{d_in},{d_out}']
                 if self.fuse_basis:
                     y = _radial_contract_bx(hidden, w3, b3, basis_pair, x,
@@ -448,14 +556,14 @@ class ConvSE3(nn.Module):
                 # V2[..., p, (c, f)] = sum_q B[..., p, q, f] x[..., c, q]
                 v2 = torch.einsum('...pqf,...cq->...pcf', basis_pair, x)
                 v2s.append(v2.reshape(*v2.shape[:-2], m_in * F))
-                w3s.append(w3)
-                b3s.append(b3)
-            if not self.fuse_basis:
+            if v2s:
                 acc = _radial_contract(hidden, torch.cat(w3s, dim=1),
                                        torch.cat(b3s, dim=0),
                                        torch.cat(v2s, dim=-1),
                                        self.edge_chunks)
             acc = acc.transpose(-1, -2)               # [b, n, k, c_out, P]
+            if so2:
+                acc = rotate_out(acc, frames, d_out)
             if self.pool:
                 acc = masked_mean(acc, neighbor_mask, dim=2)
             outputs[str(d_out)] = acc

@@ -79,7 +79,9 @@ class SequentialTrunk(nn.Module):
                  radial_bf16: bool = False,
                  fused_attention: Optional[Sequence[bool]] = None,
                  attention_mode: str = 'knn',
-                 global_materialize: bool = False, edge_dim: int = 0):
+                 global_materialize: bool = False, edge_dim: int = 0,
+                 value_backends: Optional[Sequence[str]] = None,
+                 key_backends: Optional[Sequence[str]] = None):
         super().__init__()
         if remat_policy is not None and not reversible:
             raise ValueError(f'remat_policy={remat_policy!r} requires '
@@ -104,7 +106,9 @@ class SequentialTrunk(nn.Module):
                 radial_bf16=radial_bf16,
                 fuse_pairwise=bool(fused_attention and fused_attention[i]),
                 attention_mode=attention_mode,
-                global_materialize=global_materialize, edge_dim=edge_dim))
+                global_materialize=global_materialize, edge_dim=edge_dim,
+                backend_v=value_backends[i] if value_backends else 'dense',
+                backend_k=key_backends[i] if key_backends else 'dense'))
             self.add_module(f'ff_block{i}', FeedForwardBlockSE3(fiber))
 
     def _run(self, block: nn.Module, *args):

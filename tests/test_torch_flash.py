@@ -272,8 +272,8 @@ def test_recompute_backward_matches_jax_grad():
         _close(leaf.grad, want)
 
 
-@pytest.mark.parametrize('over', [dict(arm_v='so2'), dict(wk_scale=1.0),
-                                  dict(wv_scale=1.0)])
+@pytest.mark.parametrize('over', [dict(arm_v='so2', wv_scale=1.0),
+                                  dict(wk_scale=1.0), dict(wv_scale=1.0)])
 def test_unported_options_raise(over):
     t = _torch_ops(_inputs())
     with pytest.raises(NotImplementedError):

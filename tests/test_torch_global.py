@@ -229,10 +229,11 @@ def test_one_bf16_pass_misses_the_float32_stream(monkeypatch):
 
 
 def test_unported_options_raise():
-    """The so2 arm is not ported; tied keys (no wk) take no rp_k."""
+    """An unknown contraction arm refuses; tied keys (no wk) take no
+    rp_k."""
     t = _torch(_inputs(0))
-    with pytest.raises(NotImplementedError):
-        _run_port(t, 0, arm='so2')
+    with pytest.raises(ValueError, match='unknown contraction arm'):
+        _run_port(t, 0, arm='banded')
     with pytest.raises(ValueError, match='tied'):
         kf.flash_global_attention(t['q'], t['xs'], t['coords'], t['rp_v'],
                                   t['wv'], t['bv'], rp_k=t['rp_k'],

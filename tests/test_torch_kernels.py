@@ -939,6 +939,130 @@ def test_cuda_flash_global_tie_kernel_matches_plain(cuda_card, case):
 
 
 # ---------------------------------------------------------------------- #
+# the so2 arm of #7 and 7g (conv_backend='so2')
+# ---------------------------------------------------------------------- #
+from se3_transformer_torch.so2.frames import edge_frames  # noqa: E402
+
+
+def _so2(cfg, ops, seed=9, degree=3):
+    """A kNN (cfg, ops) on the so2 arm: the packed frames of random
+    offsets (slot 0 on the +z pole, slot 1 at zero length) in place of
+    the SH stack."""
+    rng = np.random.RandomState(seed)
+    B, n, K = ops['idx'].shape
+    rel = rng.normal(size=(B, n, K, 3)).astype(np.float32)
+    rel[:, :, 0] = [0., 0., 1.2]
+    rel[:, :, 1:2] = 0.
+    fr = kf.pack_frames(edge_frames(torch.from_numpy(rel), degree))
+    return cfg._replace(arm_v='so2', arm_k='so2'), \
+        dict(ops, sh=None, fr=fr.contiguous())
+
+
+def _on_card(ops):
+    return {k: (tuple(x.cuda() for x in v) if isinstance(v, tuple) else
+                None if v is None else v.cuda()) for k, v in ops.items()}
+
+
+def test_cpu_flash_so2_never_counts_a_launch():
+    cfg, ops = _so2(*_flash_case())
+    before = (kf.flash_attention_fwd.launches,
+              kf.flash_attention_fwd.so2_launches)
+    out = kf.flash_attention_fwd(cfg, ops)
+    assert out.shape == ops['q'].shape and torch.isfinite(out).all()
+    assert (kf.flash_attention_fwd.launches,
+            kf.flash_attention_fwd.so2_launches) == before
+
+
+def test_flash_check_takes_so2_frames():
+    """The wrapper's check takes the packed frames (S = 4 L1) on the so2
+    arm, and refuses frames narrower than the degrees and mixed arms."""
+    cfg, ops = _so2(*_flash_case())
+    assert kf._check(cfg, ops)[3] == 16
+    _, narrow = _so2(cfg, ops, degree=2)
+    with pytest.raises(ValueError, match='fr must be'):
+        kf._check(cfg, narrow)
+    with pytest.raises(ValueError, match='mixed contraction arms'):
+        kf._check(cfg._replace(arm_k='dense'), dict(ops, sh=ops['fr']))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('d_out,n,K,prefix,masked,wide,tie', [
+    (0, 13, 6, 1, True, False, False), (1, 40, 32, 2, True, False, False),
+    (2, 13, 6, 0, True, False, True), (3, 33, 32, 2, False, False, False),
+    (0, 40, 32, 1, True, True, False), (1, 40, 32, 2, True, True, True),
+    (2, 37, 30, 0, True, True, False), (3, 40, 32, 2, True, True, False)])
+def test_cuda_flash_so2_kernel_matches_plain(cuda_card, h_dtype, d_out, n, K,
+                                             prefix, masked, wide, tie):
+    """Kernel #7's so2 arm (tied and untied) against the so2 plain stream,
+    at small widths and at the flagship's, each counted in .launches and
+    .so2_launches, and the same bits from a repeated launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pairs = FLAGSHIP_PAIRS if wide else ((0, 5), (1, 3), (2, 4), (3, 2))
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    cfg, ops = _so2(*_flash_case(
+        d_out, n, K, prefix, masked, h_dtype, pairs=pairs,
+        w_scale=(kf.MID * IF) ** -0.5 if wide else None))
+    if tie:
+        cfg, ops = _tied(cfg, ops)
+    ops = _on_card(ops)
+    before = (kf.flash_attention_fwd.launches,
+              kf.flash_attention_fwd.so2_launches)
+    out = kf.flash_attention_fwd(cfg, ops)
+    again = kf.flash_attention_fwd(cfg, ops)
+    torch.cuda.synchronize()
+    assert (kf.flash_attention_fwd.launches,
+            kf.flash_attention_fwd.so2_launches) == (before[0] + 2,
+                                                     before[1] + 2)
+    assert torch.equal(out, again)
+    ref = kf.flash_attention_plain(cfg, ops)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_cpu_flash_global_so2_never_counts_a_launch():
+    cfg, ops = _global_case()
+    cfg = cfg._replace(arm_v='so2', arm_k='so2')
+    before = (kf.flash_global_attention_fwd.launches,
+              kf.flash_global_attention_fwd.so2_launches)
+    out = kf.flash_global_attention_fwd(cfg, ops)
+    assert out.shape == ops['q'].shape and torch.isfinite(out).all()
+    assert (kf.flash_global_attention_fwd.launches,
+            kf.flash_global_attention_fwd.so2_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tie', [False, True])
+@pytest.mark.parametrize('case', [
+    dict(d_out=0), dict(d_out=1), dict(d_out=1, n=131, prefix=1),
+    dict(d_out=1, masked=False, exclude_self=False, heads=4),
+    dict(d_out=2, n=21, pairs=((0, 4), (1, 4), (2, 4)), prefix=1),
+    dict(d_out=3, n=45, pairs=((3, 3), (1, 4)), heads=2),
+    dict(d_out=0, n=70, pairs=((0, 128), (1, 128)))])
+def test_cuda_flash_global_so2_kernel_matches_plain(cuda_card, case, tie):
+    """Kernel 7g's so2 arm (frames from the in-tile offsets; the padded
+    nodes' pairs and, without exclude_self, the diagonal at zero length)
+    against the so2 plain stream, tied and untied, ragged tiles, the
+    64-pair tile and P = 7; counted in .so2_launches; the same bits on a
+    repeat."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ops = _global_case(**case)
+    cfg = cfg._replace(arm_v='so2', arm_k='so2')
+    if tie:
+        cfg, ops = _tied(cfg, ops, ('wk', 'bk'))
+        ops['rp_k'] = ()
+    ops = _on_card(ops)
+    before = kf.flash_global_attention_fwd.so2_launches
+    out = kf.flash_global_attention_fwd(cfg, ops)
+    again = kf.flash_global_attention_fwd(cfg, ops)
+    torch.cuda.synchronize()
+    assert kf.flash_global_attention_fwd.so2_launches == before + 2
+    assert torch.equal(out, again)
+    ref = kf.flash_global_plain(cfg, ops)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# ---------------------------------------------------------------------- #
 # the fits predicates: at, just inside and just past every limit
 # ---------------------------------------------------------------------- #
 F32, BF16 = torch.float32, torch.bfloat16

@@ -241,7 +241,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize('field,value', [
-    ('egnn_feedforward', True), ('conv_backend', 'so2'),
+    ('egnn_feedforward', True), ('flash_interpret', True),
     ('conv_bf16', True), ('pallas', True), ('sequence_parallel', 'ring'),
     ('matmul_precision', 'highest'), ('norm_gated_scale', True),
     ('egnn_hidden_dim', 16), ('pallas_interpret', True),

@@ -45,6 +45,12 @@ failure:
               degrees with the [null, self] prefix and of 7g at the
               assembly shapes, each against its tied plain stream and
               timed beside the untied kernel on the same operands.
+              The scaled arms (quantized serving): #3's at the flagship
+              unit (int8 and fp8 with float32 h, int8 with bf16 h) and
+              #7's at the flagship_fast block (int8 and fp8, dense and
+              so2, untied and tied), each within QUANT_RTOL of its plain
+              version, timed beside the float arm on the dequantized
+              weights (`fwd_q`, `flash_q` lines).
   bx          kernel #2's path: a hidden ConvSE3 of flagship_fast given
               the structured basis at E = 32768, exactly 16 launches of #2;
               the conv against the flat basis through #1 (the same bits),
@@ -70,6 +76,14 @@ failure:
               a radial trunk per pair) on requests of 32 features: 16 fwd
               and exactly 6 routed (conv_in's and conv_out's O = 32 pairs)
               per request, equivariance of its vector output.
+              Quantized: flagship(precision='int8_mix') (424 #3 launches
+              a request, all by the scaled arm) and
+              flagship_fast(fuse_pairwise=True, precision='fp8_mix') (24
+              scaled #7, 8 #1 on the transient dequant), each built on
+              the host and quantized by the engine before it is placed:
+              the device parameter bytes against the same weights in
+              float32 (at most QUANT_MAX_BYTES_RATIO; `quant_placed`),
+              and a `quant_serve` line.
               molecular_edges (dim 32, depth 2, edge tokens, the 2-hop
               chain adjacency, bonded neighbors only, K 6) called with
               adj_mat and edges at n = 128: three forwards (all atoms;
@@ -116,7 +130,9 @@ failure:
               every gradient (the fuse_pairwise step runs the streaming
               attention's recompute backward on the card); the assembly
               model, untied and tied, at n 64 on the card against the CPU,
-              forward and one backward through the replay.
+              forward and one backward through the replay; small
+              quantized models (QUANT_CASES, int8_mix and fp8_mix) on
+              the card against the same quantized weights on the CPU.
 
 Prints per-shape, per-request and per-step lines, then the nvidia-smi line,
 a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}.
@@ -210,9 +226,10 @@ SO2_TRAIN_LAUNCHES = 4 + DEPTH * 8 + 2
 SO2_BWD_LAUNCHES = 4 + DEPTH * 8 + 1
 SO2_FLASH_FWD_LAUNCHES = 4 + 1
 
-# the launch counters, in the order of every launch tuple below
+# the launch counters, in the order of every launch tuple below; the so2
+# arms' and the scaled arms' launches count in their kernel's total too
 COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
-               'global', 'flash_so2', 'global_so2')
+               'global', 'flash_so2', 'global_so2', 'fwd_q', 'flash_q')
 # the wrappers' counts of calls routed past the kernel to its plain
 # version, by the layer that calls them (kernels A and B take every width
 # the pairwise forwards take, so the backward of a launched call runs
@@ -245,6 +262,15 @@ MOL_LAUNCHES = 2 * 2 * 4
 MOL_ROUTED = 2 + 2
 # atoms masked in the second served request
 MOL_MASKED = 28
+
+# quantized serving (se3_transformer_torch.quant): the device parameter
+# bytes of a quantized model against the same weights in float32 stay
+# under the JAX package's quant-smoke ceiling
+QUANT_MAX_BYTES_RATIO = 0.6
+# the scaled arms against their plain versions, relative to max|plain|:
+# the same exact products (int8 and e4m3 exact in bf16; float32 h as bf16
+# hi + lo, each product exact) summed in float32 in other orders
+QUANT_RTOL = 1e-5
 
 # published dense peaks by card (NVIDIA data sheets): bf16 tensor core,
 # float32 CUDA core (FLOP/s), device memory bandwidth (bytes/s)
@@ -590,6 +616,95 @@ def check_fwd(kp, peaks, cases, seed):
         log('fwd', json.dumps(row))
         del args, h, w3, v2, b3
         torch.cuda.empty_cache()
+    return rows, worst
+
+
+def fwd_q_cost(E, mid, IF, O, P, h_bytes, peaks):
+    """(bound_ms, bound_by) of one call of #3's scaled arm: W3 read at one
+    byte a value and its float32 scale beside b3, each input read once and
+    the output written once; the radial product as the passes the arm
+    needs (q is exact in bf16: two with float32 h, h_hi.q and h_lo.q, one
+    with bf16 h) on the tensor cores, beside the apply and the scale's
+    multiply on the CUDA cores."""
+    bf16_peak, f32_peak, mem = peaks
+    radial = 2.0 * E * mid * IF * O
+    apply = 2.0 * E * P * IF * O + E * IF * O
+    passes = 1 if h_bytes == 2 else 2
+    ops_s = max(passes * radial / bf16_peak, apply / f32_peak)
+    nbytes = (E * mid * h_bytes + mid * IF * O + 2 * IF * O * 4
+              + E * P * IF * 4 + E * P * O * 4)
+    bytes_s = nbytes / mem
+    return max(ops_s, bytes_s) * 1e3, \
+        'operations' if ops_s >= bytes_s else 'bytes'
+
+
+def quantized(w, storage):
+    """(q, scale) on the card of a float32 weight [mid, IF, O] quantized
+    on the host by quant.quantize (per output channel, contracted axis 0),
+    as quant.quantize_params stores it."""
+    from se3_transformer_torch import quant
+    qt = quant.quantize(w.cpu(), (0,), storage)
+    return qt.q.cuda(), qt.scale.cuda()
+
+
+def phase_fwd_q(kp, peaks):
+    """#3's scaled arm (quantized serving, w3_scale) against its plain
+    version at the flagship unit (the four output degrees of a hidden
+    conv: IF 256..1024, O 64, E = 32768): int8 and fp8 storage with
+    float32 h (flagship's trunk), and int8 with bf16 h. Each within
+    QUANT_RTOL of max|plain| and the same bits on a repeat; its time, its
+    bound, its plain version's, the float arm's on the same operands
+    (the dequantized weight in h's dtype), and the library einsum's on the
+    dequantized weight. Returns the rows and the worst error."""
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    E, mid, O = 32768, 128, 64
+    rows, worst = [], 0.0
+    for storage, hdt in (('int8', torch.float32), ('fp8_e4m3', torch.float32),
+                         ('int8', torch.bfloat16)):
+        for d_out in range(4):
+            P, IF = 2 * d_out + 1, grouped_if(d_out)
+            h = torch.randn(E, mid, device='cuda', generator=gen).to(hdt)
+            q, sc = quantized(torch.randn(mid, IF, O, device='cuda',
+                                          generator=gen) * mid ** -0.5,
+                              storage)
+            v2 = torch.randn(E, P, IF, device='cuda', generator=gen)
+            b3 = torch.randn(IF, O, device='cuda', generator=gen) * 0.1
+            label = f'fwd_q {storage} {str(hdt)[6:]} d_out={d_out}'
+
+            def run():
+                return kp.fused_pairwise_conv(h, q, v2, b3, w3_scale=sc)
+
+            def plain():
+                return kp.fused_pairwise_conv_plain(h, q, v2, b3, w3_scale=sc)
+            err, scale = check_twice(label, run, plain, QUANT_RTOL)
+            worst = max(worst, err)
+            w_float = (q.float() * sc).to(hdt)
+            ms = cuda_ms(run, reps=5)
+            unscaled_ms = cuda_ms(lambda: kp.fused_pairwise_conv(
+                h, w_float, v2, b3), reps=5)
+            plain_ms = cuda_ms(plain, reps=1, warmup=0)
+            # the library yardstick on the dequantized weight: the same
+            # function up to rounding, v2 . ((h . q) * s + b3)
+            lib = (*radial_library(h, q.float() * sc, b3), v2)
+            library_ms = cuda_ms(lambda: library_conv(*lib), reps=3)
+            del lib
+            bound_ms, bound_by = fwd_q_cost(E, mid, IF, O, P,
+                                            h.element_size(), peaks)
+            row = dict(storage=storage, h_dtype=str(hdt)[6:], d_out=d_out,
+                       P=P, IF=IF, O=O, E=E, max_abs_err=err,
+                       max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
+                       unscaled_ms=unscaled_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)
+            rows.append(row)
+            log('fwd_q', json.dumps(row))
+            del h, q, sc, v2, b3, w_float
+            torch.cuda.empty_cache()
+        unit = [r for r in rows if (r['storage'], r['h_dtype'])
+                == (storage, str(hdt)[6:])]
+        log('fwd_q', json.dumps(dict(
+            conv='hidden 4x64 -> 4x64, four launches', E=E, storage=storage,
+            h_dtype=str(hdt)[6:], **{k: sum(r[k] for r in unit) for k in (
+                'ms', 'plain_ms', 'unscaled_ms', 'bound_ms', 'library_ms')})))
     return rows, worst
 
 
@@ -945,7 +1060,7 @@ def basis_ops(d_in, d_out, arm):
 
 
 def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks,
-               convs=2, arm='dense'):
+               convs=2, arm='dense', scaled=False):
     """(bound_ms, bound_by, flops, bound_ms_fma) of one flash_attention
     call: each input read once (q, the node features, idx, the mask, h_k
     and h_v, both convs' w3 and b3, the SH stack, the prefix slots), the
@@ -958,7 +1073,10 @@ def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks,
     on fp32 FMAs (what the kernel's earlier version ran). convs=1 is the
     tied call: one h, one w3 and b3, one radial product and apply.
     arm='so2': the basis by the so2 arm's rotations (so2_basis_ops) from
-    the frames (S = 4 L1 floats an edge) in place of the SH stack's."""
+    the frames (S = 4 L1 floats an edge) in place of the SH stack's.
+    scaled: the scaled arm (quantized W3: one byte a value, and a float32
+    scale beside b3; no lo half, so one bf16 pass with bf16 h, two with
+    float32 h, and the scale's multiply on the CUDA cores)."""
     bf16_peak, f32_peak, mem = peaks
     E, mid, O, P = n * K, 128, 64, 2 * d_out + 1
     IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
@@ -968,14 +1086,16 @@ def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks,
         basis += E * basis_ops(d, d_out, arm)
         v2 += 2.0 * E * P * c * F * (2 * d + 1)
     radial = convs * 2.0 * E * mid * IF * O
-    apply = convs * 2.0 * E * P * IF * O
+    apply = convs * (2.0 * E * P * IF * O + (E * IF * O if scaled else 0))
     attn = 4.0 * n * heads * (S0 + K) * Dh
     flops = basis + v2 + radial + apply + attn
-    passes = 2 if h_bytes == 2 else 3
+    passes = (2 if h_bytes == 2 else 3) - scaled
+    # W3 (1 or 4 bytes a value), b3 and the scale (4 bytes each)
+    w3_bytes = convs * ((mid + 8) * IF * O if scaled
+                        else (mid + 1) * IF * O * 4)
     nbytes = (2 * n * heads * Dh * 4 + sum(n * c * (2 * d + 1) * 4
                                            for d, c in pairs)
-              + E * 8 + E + convs * E * mid * h_bytes
-              + convs * (mid + 1) * IF * O * 4
+              + E * 8 + E + convs * E * mid * h_bytes + w3_bytes
               + E * S * 4 + 2 * n * S0 * heads * Dh * 4)
     ops_s = max(passes * radial / bf16_peak,
                 (basis + v2 + apply + attn) / f32_peak)
@@ -1211,6 +1331,75 @@ def phase_flash_so2(peaks):
         del ops, dops
         torch.cuda.empty_cache()
     return rows, worst
+
+
+def phase_flash_q(peaks):
+    """#7's scaled arm (quantized serving: wv_scale, wk_scale) against its
+    plain stream at the four flagship_fast output degrees (n 1024, K 32,
+    bf16 h; the self slot, or [null, self] when tied), int8 and fp8, dense
+    and so2, untied and tied: each within QUANT_RTOL of max|plain| and the
+    same bits on a repeat; its time, its bound, its plain stream's, and the
+    float arm's on the same operands (the dequantized weights). Returns the
+    rows of the served variant (fp8, dense, untied) for the kernels line,
+    all rows, and the worst error."""
+    from se3_transformer_torch.kernels import flash as kf
+    gen = torch.Generator(device='cuda').manual_seed(33)
+    n, K = 1024, 32
+    rows, worst = [], 0.0
+    for storage in ('int8', 'fp8_e4m3'):
+        for arm in ('dense', 'so2'):
+            for tie in (False, True):
+                for d_out in range(4):
+                    prefix = 2 if tie else 1
+                    cfg, ops = flash_operands(gen, n, K, d_out,
+                                              torch.bfloat16, prefix)
+                    if arm == 'so2':
+                        cfg = cfg._replace(arm_v='so2', arm_k='so2')
+                        ops = dict(ops, sh=None, fr=so2_frames(gen, n, K))
+                    if tie:
+                        cfg, ops = tied(cfg, ops)
+                    float_ops = dict(ops)
+                    for c in ('v',) if tie else ('k', 'v'):
+                        q, sc = quantized(ops[f'w{c}'], storage)
+                        ops[f'w{c}'], ops[f'w{c}_scale'] = q, sc
+                        float_ops[f'w{c}'] = q.float() * sc
+                    label = (f'flash_q {storage} {arm} '
+                             f'{"tie " if tie else ""}d_out={d_out}')
+
+                    def run():
+                        return kf.flash_attention_fwd(cfg, ops)
+
+                    def plain():
+                        return kf.flash_attention_plain(cfg, ops)
+                    err, scale = check_twice(label, run, plain, QUANT_RTOL)
+                    worst = max(worst, err)
+                    ms = cuda_ms(run, reps=3)
+                    unscaled_ms = cuda_ms(
+                        lambda: kf.flash_attention_fwd(cfg, float_ops), reps=3)
+                    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+                    payload = ops['fr' if arm == 'so2' else 'sh']
+                    bound_ms, bound_by, _, _ = flash_cost(
+                        n, K, cfg.pairs, d_out, cfg.heads, 8 * (2 * d_out + 1),
+                        payload.shape[-1], prefix, 2, peaks,
+                        convs=1 if tie else 2, arm=arm, scaled=True)
+                    row = dict(storage=storage, arm=arm, tie=tie, d_out=d_out,
+                               n=n, K=K, prefix=prefix, h_dtype='bfloat16',
+                               max_abs_err=err, max_abs_plain=scale, ms=ms,
+                               plain_ms=plain_ms, unscaled_ms=unscaled_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=None)
+                    rows.append(row)
+                    log('flash_q', json.dumps(row))
+                    del ops, float_ops
+                    torch.cuda.empty_cache()
+                block = rows[-4:]
+                log('flash_q', json.dumps(dict(
+                    block='four output degrees', storage=storage, arm=arm,
+                    tie=tie, **{k: sum(r[k] for r in block) for k in (
+                        'ms', 'plain_ms', 'unscaled_ms', 'bound_ms')})))
+    served = [r for r in rows if (r['storage'], r['arm'], r['tie'])
+              == ('fp8_e4m3', 'dense', False)]
+    return served, rows, worst
 
 
 def phase_bx(st, peaks):
@@ -1847,8 +2036,17 @@ def condition_weights(model, power=-0.5):
     return model
 
 
+def weight_bytes(module, device=None):
+    """Bytes of a module's parameters and buffers (its QuantTensors' q and
+    scale included), those on `device` alone when it is given."""
+    return sum(t.numel() * t.element_size()
+               for t in (*module.parameters(), *module.buffers())
+               if device is None or t.device.type == device)
+
+
 def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
-                want_routed=None, vector=False, bonds=(3.8,), **fields):
+                want_routed=None, vector=False, bonds=(3.8,), precision=None,
+                **fields):
     """A recipe's forward at full size (dim=64, depth=6, 4 degrees, 8 heads,
     k=32 for the flagship recipes; `dim`, `depth` and `fields` set or add
     model fields; random seeded weights, conditioned) served by
@@ -1857,15 +2055,37 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     launches (COUNT_NAMES order) and `want_routed` routed calls
     (ROUTE_NAMES order; none by default) per request, rotation invariance
     of the scalar output (with `vector`, equivariance of the vector
-    output), a profile. Returns the launches of the whole phase."""
+    output), a profile. With `precision` (a quant mix) the model is built
+    on the host and the engine quantizes it before placing it: its
+    parameter bytes on the device against the same weights in float32
+    (at most QUANT_MAX_BYTES_RATIO), and a `quant_serve` line with the
+    requests, busy, top kernels, idle share and peak memory. Returns the
+    launches of the whole phase."""
     from se3_transformer_torch.so3 import rot
     recipe, name = label or recipe, recipe
     want_routed = want_routed or NO_ROUTES
     rng = np.random.RandomState(0)
+    build = dict(device='cpu') if precision else {}
     model = condition_weights(getattr(st, name)(
         dim=dim, depth=depth, generator=torch.Generator().manual_seed(0),
-        **fields))
-    engine = st.InferenceEngine(model, buckets=(1024,))
+        **build, **fields))
+    fp32_bytes = weight_bytes(model)
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    engine = st.InferenceEngine(model, buckets=(1024,), precision=precision)
+    if precision:
+        quant_bytes = weight_bytes(engine.module, 'cuda')
+        placed = dict(
+            recipe=recipe, precision=precision,
+            param_bytes_device=quant_bytes, param_bytes_fp32=fp32_bytes,
+            ratio=quant_bytes / fp32_bytes,
+            allocated_bytes=torch.cuda.memory_allocated() - allocated,
+            report=engine.quant_report)
+        log('quant_placed', json.dumps(placed))
+        if weight_bytes(engine.module, 'cpu') or \
+                placed['ratio'] > QUANT_MAX_BYTES_RATIO:
+            raise AssertionError(f'{recipe}: quantized parameter bytes on '
+                                 f'the device {placed}')
     requests = [(rng.normal(size=(n, dim)).astype(np.float32),
                  chain_coords(rng, n, bonds)) for n in (1024, 1000, 700)]
     R = rot(0.31, -1.2, 0.7)
@@ -1918,15 +2138,27 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
         pairwise_kernel_ms=kernel_ms, attention_kernel_ms=attn_ms,
         attention_us_per_launch=us, host_syncs_per_forward=syncs,
         top_device_ops=top)))
-    # the flax-scheme weights (conditioning undone): chaotic at depth 6,
-    # reported, not asserted
-    condition_weights(model, power=0.5)
-    raw, raw_r = (engine.predict(feats, c) for c in (coords, coords_r))
-    forwards += 2
-    log('serve', json.dumps(dict(
-        recipe=recipe, flax_scheme_weights=True,
-        max_abs_out=float(np.abs(raw).max()),
-        rotation_max_abs_diff=float(np.abs(raw_r - rotated(raw)).max()))))
+    if precision:
+        log('quant_serve', json.dumps(dict(
+            recipe=recipe, precision=precision,
+            request_ms=[r['latency_ms'] for _, r in results],
+            request_wall_ms=wall_ms, device_busy_ms=device_ms,
+            idle_share=1 - device_ms / wall_ms,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            param_bytes_device=placed['param_bytes_device'],
+            param_bytes_fp32=fp32_bytes, bytes_ratio=placed['ratio'],
+            rotation_max_abs_diff=inv, max_abs_out=scale,
+            host_syncs=syncs, sync_ops=LAST_SYNCS, top_device_ops=top[:6])))
+    else:
+        # the flax-scheme weights (conditioning undone): chaotic at depth
+        # 6, reported, not asserted
+        condition_weights(model, power=0.5)
+        raw, raw_r = (engine.predict(feats, c) for c in (coords, coords_r))
+        forwards += 2
+        log('serve', json.dumps(dict(
+            recipe=recipe, flax_scheme_weights=True,
+            max_abs_out=float(np.abs(raw).max()),
+            rotation_max_abs_diff=float(np.abs(raw_r - rotated(raw)).max()))))
     launches = counts()
     if launches != tuple(w * forwards for w in want):
         raise AssertionError(f'{recipe}: launches {launches} for {forwards} '
@@ -1944,10 +2176,14 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     return launches
 
 
+# the messages of the last count_host_syncs call's synchronizing ops
+LAST_SYNCS = []
+
+
 def count_host_syncs(fn):
     """Run fn() and count the operations that made the host wait for the
     device (torch.cuda's sync debug mode): each leaves the device idle
-    while the host catches up."""
+    while the host catches up. Their messages go to LAST_SYNCS."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
@@ -1955,7 +2191,9 @@ def count_host_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum('synchronizing' in str(w.message) for w in caught)
+    LAST_SYNCS[:] = [f'{w.filename}:{w.lineno}: {w.message}'[-200:]
+                     for w in caught if 'synchronizing' in str(w.message)]
+    return len(LAST_SYNCS)
 
 
 def dev_us(e):
@@ -2067,8 +2305,8 @@ def counters():
     the pairwise forwards bxf and fwd, backward kernels A and B, the fused
     attention forward and backward, the streaming attention, the
     structured-basis forward bx, the global attention; then the so2 arm's
-    launches of the streaming and the global attention (counted in their
-    totals too)."""
+    launches of the streaming and the global attention, and the scaled
+    arm's of #3 and #7 (each counted in its kernel's total too)."""
     from se3_transformer_torch.kernels import attention as ka
     from se3_transformer_torch.kernels import flash as kf
     from se3_transformer_torch.kernels import pairwise as kp
@@ -2082,7 +2320,9 @@ def counters():
             (kp.fused_pairwise_conv_bx, 'launches'),
             (kf.flash_global_attention_fwd, 'launches'),
             (kf.flash_attention_fwd, 'so2_launches'),
-            (kf.flash_global_attention_fwd, 'so2_launches'))
+            (kf.flash_global_attention_fwd, 'so2_launches'),
+            (kp.fused_pairwise_conv, 'scaled_launches'),
+            (kf.flash_attention_fwd, 'scaled_launches'))
 
 
 def counts():
@@ -2693,6 +2933,70 @@ def phase_reference(st):
     molecular_reference(st, train=False)
 
 
+# small quantized models for the card-vs-CPU check: the grouped #3
+# (flagship), #7 untied and tied (fuse_pairwise, float32 h), and so2 (#3
+# per pair, and #7's so2 arm)
+QUANT_CASES = (
+    ('flagship', dict(SMALL, edge_chunks=3)),
+    ('flagship_fast+fuse_pairwise',
+     dict(SMALL_FAST, radial_bf16=False, fuse_pairwise=True)),
+    ('flagship_fast+fuse_pairwise+tie',
+     dict(SMALL_FAST, radial_bf16=False, fuse_pairwise=True,
+          tie_key_values=True, use_null_kv=True)),
+    ('per-pair+so2', dict(SMALL, shared_radial_hidden=False, reversible=False,
+                          conv_backend='so2')),
+    ('flagship_fast+so2+fuse_pairwise',
+     dict(SMALL_FAST, radial_bf16=False, fuse_pairwise=True,
+          conv_backend='so2')))
+
+
+def phase_quant_reference(st):
+    """Small quantized models (QUANT_CASES, int8_mix and fp8_mix) on the
+    card (the scaled arms) against the same quantized weights on the CPU
+    (their plain versions): the forward within REF_RTOL_F32, and the
+    scaled arms launched on the card."""
+    import copy
+    from se3_transformer_torch import quant
+    rng = np.random.RandomState(3)
+    n = 64
+    feats = rng.normal(size=(1, n, 64)).astype(np.float32)
+    coords = chain_coords(rng, n)[None]
+    mask = np.ones((1, n), bool)
+    mask[0, -5:] = False
+    for recipe, cfg in QUANT_CASES:
+        for mix in ('int8_mix', 'fp8_mix'):
+            host = st.SE3TransformerModule(
+                **cfg, device='cpu',
+                generator=torch.Generator().manual_seed(4)).eval()
+            quant.quantize_params(host, mix)
+            card = copy.deepcopy(host).to('cuda')
+            outs = []
+            reset_counts()
+            for model, device in ((card, 'cuda'), (host, 'cpu')):
+                with torch.inference_mode():
+                    args = [torch.as_tensor(a, device=device)
+                            for a in (feats, coords, mask)]
+                    outs.append(model(*args).float().cpu().numpy())
+            launched = dict(zip(COUNT_NAMES, counts()))
+            err = float(np.abs(outs[0] - outs[1]).max())
+            scale = float(np.abs(outs[1]).max())
+            log('quant_reference', json.dumps(dict(
+                recipe=recipe, precision=mix, max_abs_err=err,
+                max_abs_cpu=scale, rtol=REF_RTOL_F32,
+                scaled_launches={k: launched[k]
+                                 for k in ('fwd_q', 'flash_q')})))
+            if not launched['fwd_q'] + launched['flash_q']:
+                raise AssertionError(f'quant reference {recipe} {mix}: no '
+                                     f'scaled arm launched')
+            if not (np.isfinite(outs[0]).all()
+                    and err <= REF_RTOL_F32 * scale):
+                raise AssertionError(f'quantized card vs CPU ({recipe}, '
+                                     f'{mix}): {err} > {REF_RTOL_F32} * '
+                                     f'{scale}')
+            del card, host
+    reset_counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False', file=sys.stderr)
@@ -2732,6 +3036,7 @@ def main() -> int:
     rows, worst = phase_kernels(st, peaks)
     tick('bxf')
     fwd_rows, fwd_worst = phase_fwd(kp, peaks)
+    fwd_q_rows, fwd_q_worst = phase_fwd_q(kp, peaks)
     tick('fwd')
 
     # 4. backward kernels vs plain, at both recipes' shapes
@@ -2747,6 +3052,7 @@ def main() -> int:
     flash_rows, flash_worst = phase_flash(peaks)
     tie_rows, tie_worst = phase_flash_tie(peaks)
     so2_rows, so2_worst = phase_flash_so2(peaks)
+    flash_q_rows, flash_q_all, flash_q_worst = phase_flash_q(peaks)
     tick('flash')
     gflash_rows, gflash_worst = phase_flash_global(peaks)
     gtie_rows, gtie_worst = phase_global_tie(peaks)
@@ -2757,10 +3063,12 @@ def main() -> int:
     # 6-7. the main paths, each with the counts reset just before and read
     # just after; launch tuples in COUNT_NAMES order
     def launches(bxf=0, fwd=0, a=0, b=0, attn_fwd=0, attn_bwd=0, flash=0,
-                 bx=0, glob=0, flash_so2=0, glob_so2=0):
-        # the so2 arm's launches count in flash and glob as well
-        return (bxf, fwd, a, b, attn_fwd, attn_bwd, flash + flash_so2, bx,
-                glob + glob_so2, flash_so2, glob_so2)
+                 bx=0, glob=0, flash_so2=0, glob_so2=0, fwd_q=0, flash_q=0):
+        # the so2 arm's launches count in flash and glob as well, the
+        # scaled arms' (of the dense arm) in fwd and flash
+        return (bxf, fwd + fwd_q, a, b, attn_fwd, attn_bwd,
+                flash + flash_so2 + flash_q, bx, glob + glob_so2, flash_so2,
+                glob_so2, fwd_q, flash_q)
     fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
     bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
     paths = [
@@ -2844,7 +3152,19 @@ def main() -> int:
             st, 'flagship_fast',
             launches(fwd=SO2_TRAIN_LAUNCHES, a=SO2_BWD_LAUNCHES,
                      b=SO2_BWD_LAUNCHES), None, None,
-            label='flagship_fast+so2', conv_backend='so2'))]
+            label='flagship_fast+so2', conv_backend='so2')),
+        # quantized serving: every #3 launch of flagship(int8_mix) takes
+        # the scaled arm (float32 h); flagship_fast(fuse_pairwise,
+        # fp8_mix) runs #7's scaled arm (bf16 h) and #1 on the transient
+        # dequant of conv_in's and conv_out's w3
+        not_routed('flagship+int8_mix serve', phase_serve(
+            st, 'flagship', launches(fwd_q=FLAGSHIP_SERVE_LAUNCHES),
+            label='flagship+int8_mix', precision='int8_mix')),
+        not_routed('flagship_fast+fuse_pairwise+fp8_mix serve', phase_serve(
+            st, 'flagship_fast',
+            launches(bxf=FLASH_BXF_LAUNCHES, flash_q=ATTN_LAUNCHES),
+            label='flagship_fast+fuse_pairwise+fp8_mix', fuse_pairwise=True,
+            precision='fp8_mix'))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
 
@@ -2859,6 +3179,7 @@ def main() -> int:
     phase_train_reference(st)
     tick('train_reference')
     phase_global_reference(st)
+    phase_quant_reference(st)
     log(f'phase: references done at {time.perf_counter() - t_start:.0f} s')
 
     def unchunked(table, dtype):
@@ -2905,7 +3226,7 @@ def main() -> int:
         entry('fused_pairwise_conv_bxf', 'pairwise_bxf.cu', pallas + '593',
               total[0], worst, unchunked(rows, 'bfloat16')),
         entry('fused_pairwise_conv', 'pairwise_fwd.cu', pallas + '254',
-              total[1], max(fwd_worst, mol_fwd_worst),
+              total[1] - total[11], max(fwd_worst, mol_fwd_worst),
               unchunked(fwd_rows, 'float32'))]
     for i, (k, line) in enumerate((('a', 861), ('b', 907))):
         kernels.append(entry(
@@ -2922,8 +3243,8 @@ def main() -> int:
               tpu + 'pallas_attention.py:267', total[5], attn_worst['bwd'],
               attn_rows, '_bwd'),
         entry('flash_attention', 'flash_fwd.cu', tpu + 'pallas_flash.py:699',
-              total[6] - total[9], max(flash_worst, tie_worst), flash_rows,
-              tie=tie_rows),
+              total[6] - total[9] - total[12], max(flash_worst, tie_worst),
+              flash_rows, tie=tie_rows),
         entry('flash_attention_so2', 'flash_fwd.cu',
               tpu + 'pallas_flash.py:289', total[9], so2_worst, so2_rows,
               dense=True),
@@ -2936,6 +3257,32 @@ def main() -> int:
         entry('flash_global_attention_so2', 'flash_global.cu',
               tpu + 'pallas_flash.py:289', total[10], gso2_worst, gso2_rows,
               dense=True)]
+    # the scaled arms: #3's at the served form (int8, float32 h), #7's at
+    # the served form (fp8, dense, untied); the float arm's time on the
+    # same operands beside, and every measured variant's sums
+    def variants(table, keys, fields=('ms', 'unscaled_ms', 'plain_ms',
+                                      'bound_ms')):
+        out = {}
+        for r in table:
+            v = out.setdefault('/'.join(str(r[k]) for k in keys),
+                               dict.fromkeys(fields, 0.0))
+            for k in v:
+                v[k] += r[k]
+        return out
+    served_fwd_q = [r for r in fwd_q_rows
+                    if (r['storage'], r['h_dtype']) == ('int8', 'float32')]
+    kernels += [
+        dict(entry('fused_pairwise_conv_scaled', 'pairwise_fwd.cu',
+                   pallas + '254', total[11], fwd_q_worst, served_fwd_q),
+             unscaled_ms=sum(r['unscaled_ms'] for r in served_fwd_q),
+             variants=variants(fwd_q_rows, ('storage', 'h_dtype'),
+                               ('ms', 'unscaled_ms', 'plain_ms', 'bound_ms',
+                                'library_ms'))),
+        dict(entry('flash_attention_scaled', 'flash_fwd.cu',
+                   tpu + 'pallas_flash.py:298', total[12], flash_q_worst,
+                   flash_q_rows),
+             unscaled_ms=sum(r['unscaled_ms'] for r in flash_q_rows),
+             variants=variants(flash_q_all, ('storage', 'arm', 'tie')))]
     missing = [k['name'] for k in kernels if not k['launches']]
     if missing:
         raise AssertionError(f'kernels never launched on a main path: '

@@ -7,8 +7,16 @@ construction, and every call ends in a device synchronize so the recorded
 latencies are the device's. With with_chain_adjacency (the default, as in
 the JAX engine) every call passes its bucket's chain adjacency (i and j
 bonded iff |i - j| == 1) as adj_mat, which a model without adjacency
-fields ignores; requests carry no edges. Ahead-of-time capture,
-quantization, meshes and telemetry are not ported yet.
+fields ignores; requests carry no edges.
+
+Quantized serving: `precision='int8_mix'` (or 'fp8_mix', 'bf16', 'fp32',
+or an explicit quant.rules rule list) quantizes the module's parameters on
+the host (quant.quantize_params) before it is moved to the device, so a
+module built on the CPU never has its float32 weights in device memory;
+`precision_name` and `quant_report` keep the mix and its report. A module
+that is already quantized is served as it is, with `precision_name`
+'prequantized' and no report. Ahead-of-time capture,
+weight swaps, meshes and telemetry are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..quant import is_quantized, mix_name, quantize_params, resolve_mix
 from ..utils.graph import chain_adjacency
 from ..utils.helpers import resolve_device
 
@@ -60,15 +69,29 @@ class InferenceEngine:
     feats are float features [n, d], or integer tokens [n] for a
     num_tokens model. `return_type` is the output degree the module
     returns (1 by default, as in the JAX engine; a module with one output
-    degree returns degree 0 whatever it is).
+    degree returns degree 0 whatever it is). `precision` (None: the module
+    as it is) is a quant mix name or rule list: the module is quantized in
+    place on the host before it is placed (module docstring); an unknown
+    mix raises here.
     """
 
     def __init__(self, module: torch.nn.Module, *,
                  buckets: Sequence[int] = (64, 128, 256, 512),
                  batch_size: int = 1, return_type: int = 1,
-                 with_chain_adjacency: bool = True, device='cuda'):
+                 with_chain_adjacency: bool = True, device='cuda',
+                 precision=None):
         self.device = resolve_device(device)
         self.return_type = return_type
+        self.precision_name = None
+        self.quant_report = None
+        if precision is not None:
+            resolve_mix(precision)
+        if is_quantized(module):
+            # served as it is: its mix is not known here
+            self.precision_name = 'prequantized'
+        elif precision is not None:
+            self.precision_name = mix_name(precision)
+            module, self.quant_report = quantize_params(module, precision)
         self.module = module.to(self.device).eval()
         self.buckets = tuple(sorted(int(b) for b in buckets))
         if not self.buckets:
@@ -136,7 +159,8 @@ class InferenceEngine:
                 else None
         return dict(
             device=str(self.device), buckets=list(self.buckets),
-            batch_size=self.batch_size,
+            batch_size=self.batch_size, precision=self.precision_name,
+            quant=self.quant_report,
             batches_served={str(b): n for b, n in self.batches_served.items()
                             if n},
             rows_served={str(b): n for b, n in self.rows_served.items() if n},

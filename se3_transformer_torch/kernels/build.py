@@ -6,7 +6,8 @@ fused attention and its backward; `flash_fwd.cu`, the streaming kNN
 attention; `flash_global.cu`, the global attention) is compiled by its own `nvcc -c` for
 Hopper (`sm_90a`), all started together (the two flash sources twice, once
 per contraction arm, `-DSE3_SO2=0` and `=1`: each object holds one arm's
-instantiations and entry point), and the objects are linked into
+instantiations and entry point; `flash_fwd.cu` twice more for its scaled
+arm, `-DSE3_QUANT=1`), and the objects are linked into
 one shared library with a plain C interface that `ctypes` loads. The build
 happens at first use, never at import, into `kernels/build/` beside this
 file (listed in .gitignore). The library's file name carries a hash of
@@ -31,10 +32,16 @@ SOURCES = tuple(os.path.join(CSRC_DIR, f)
                           'flash_global.cu'))
 HEADERS = (os.path.join(CSRC_DIR, 'common.cuh'),)
 # the compilation units, (source, its extra nvcc flags): each flash source
-# once per contraction arm
-UNITS = tuple(unit for src in SOURCES for unit in (
-    [(src, (f'-DSE3_SO2={arm}',)) for arm in (0, 1)]
-    if os.path.basename(src).startswith('flash') else [(src, ())]))
+# once per contraction arm, flash_fwd.cu also once per W3 form (float, or
+# the scaled arm's quantized storage)
+UNITS = tuple(
+    (src, (f'-DSE3_SO2={arm}',) + quant)
+    for src in SOURCES for arm in (0, 1)
+    for quant in ((), ('-DSE3_QUANT=1',))
+    if os.path.basename(src).startswith('flash') and (
+        not quant or os.path.basename(src) == 'flash_fwd.cu')) + tuple(
+    (src, ()) for src in SOURCES
+    if not os.path.basename(src).startswith('flash'))
 BUILD_DIR = os.path.join(_HERE, 'build')
 
 COMPILE_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -133,6 +140,9 @@ def load_library() -> ctypes.CDLL:
             # (h, w3, b3, v2, out, work, w3_split, E, IF, O, P,
             #  i_per_split, h_is_bf16, stream)
             lib.se3_pairwise_fwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+            # the scaled arm: (h, q, scale, b3, v2, out, work, E, IF, O, P,
+            #  i_per_split, h_is_bf16, fp8, stream)
+            lib.se3_pairwise_fwd_q.argtypes = [vp] * 7 + [ci] * 7 + [vp]
             # (h, w3, b3, v2, g, dv2, dv2_work, work, split, dw3, db3, E,
             #  IF, O, P, splits, h_is_bf16, stream)
             lib.se3_pairwise_bwd_a.argtypes = [vp] * 11 + [ci] * 6 + [vp]
@@ -151,6 +161,11 @@ def load_library() -> ctypes.CDLL:
             # (se3_flash_fwd_so2: the same, the so2 arm)
             for fn in (lib.se3_flash_fwd, lib.se3_flash_fwd_so2):
                 fn.argtypes = [vp] * 19 + [ci] * 24 + [cf, vp]
+            # the scaled arm (se3_flash_fwd_q, se3_flash_fwd_so2_q): the
+            # same with (wv_scale, wk_scale) in place of w_split and fp8
+            # after so2
+            for fn in (lib.se3_flash_fwd_q, lib.se3_flash_fwd_so2_q):
+                fn.argtypes = [vp] * 20 + [ci] * 25 + [cf, vp]
             # (q, x0..x3, coords, nodemask, rp, wk, wv, bk, bv, prefix_k,
             #  prefix_v, cg, shk, out, w_split, pair_d[4], pair_c[4],
             #  cg_off[4], n_pairs, B, n, S0, heads, IF, P, L, exclude_self,
@@ -163,7 +178,8 @@ def load_library() -> ctypes.CDLL:
                        lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_b,
                        lib.se3_attention_fwd, lib.se3_attention_bwd,
                        lib.se3_flash_fwd, lib.se3_flash_fwd_so2,
-                       lib.se3_flash_global_so2):
+                       lib.se3_flash_global_so2, lib.se3_pairwise_fwd_q,
+                       lib.se3_flash_fwd_q, lib.se3_flash_fwd_so2_q):
                 fn.restype = ci
             _lib = lib
         return _lib

@@ -13,8 +13,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace se3 {
 
@@ -294,6 +297,30 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
 // the async proxy's later ones (a bulk copy that overwrites what was read)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The quantized-serving storage of W3 (int8, or fp8 e4m3: `Q` is int8_t or
+// __nv_fp8_e4m3) upcast to bf16, which holds every value of either
+// exactly: one 16-byte chunk of 16 values into two 16-byte chunks of bf16.
+template <typename Q>
+__device__ __forceinline__ void q16_to_bf16(const uint4 raw, uint4& lo, uint4& hi) {
+  uint32_t o[8];
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t pair = (w[k / 2] >> (16 * (k % 2))) & 0xFFFFu;
+    float2 f;
+    if constexpr (std::is_same<Q, int8_t>::value) {
+      f = make_float2((float)(int8_t)(pair & 0xFF), (float)(int8_t)(pair >> 8));
+    } else {
+      const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)pair, __NV_E4M3);
+      f = __half22float2(__half2(hr));
+    }
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+    o[k] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
 // float32 -> its bf16 hi and lo arrays (hi = bf16(x), lo = bf16(x - hi));

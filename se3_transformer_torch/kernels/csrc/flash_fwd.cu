@@ -84,10 +84,33 @@
 // spills at P = 7).
 // Left for later: W3 shared by two edge tiles (a cluster) to halve its L2
 // reads; V2 built once for both passes.
+//
+// The scaled arm (kQ, quantized serving: se3_flash_fwd_q and
+// se3_flash_fwd_so2_q, built as units of their own with -DSE3_QUANT=1):
+// W_k and W_v arrive as int8 or fp8 e4m3 storage q with a float32 scale
+// per (i, o), and R = (h . q[:, i, :]) * scale[i] + b3[i] (JAX's _kv_block:
+// the scale before the bias), in both arms and tied or not. An int8 or
+// e4m3 value is exact in bf16, so q needs no lo half: bf16 h takes one
+// wgmma pass (h.q) and float32 h two (h_hi.q, h_lo.q), and W3's bytes fall
+// from 4 a value to 1. Each i's [128 x 64] slice of q, with b3[i] and
+// scale[i], goes by 16-byte cp.async into a ring of QSTAGES 1-byte landing
+// slots, issued QSTAGES - 1 chunks ahead, and is upcast to bf16 one chunk
+// ahead of its product into one of two 128-byte-swizzled tiles that wgmma
+// reads (fenced to the async proxy at the next chunk's barrier), so the
+// upcast costs no barrier of its own. No dequantized W3 reaches device
+// memory, and no split pass runs. Everything after R is the float arm's.
 
 #include <float.h>
 
 #include "common.cuh"
+
+// the unit's arm and W3 form (the build sets both; see the entry points)
+#ifndef SE3_SO2
+#define SE3_SO2 0
+#endif
+#ifndef SE3_QUANT
+#define SE3_QUANT 0
+#endif
 
 namespace {
 
@@ -122,6 +145,9 @@ struct Args {
   const void* h[2];           // h_k, h_v [B, n, K, MID]
   const bf16* whi[2];         // W_k, W_v [MID, IF, BO]: bf16 hi
   const bf16* wlo[2];         //   and lo halves
+  const uint8_t* wq[2];       // the scaled arm: W_k, W_v storage [MID, IF, BO]
+  const float* wsc[2];        //   and their scales [IF, BO]
+  int fp8;                    //   e4m3 storage (else int8)
   const float* b3[2];         // bk, bv [IF, BO]
   const float* sh;            // [B, n, K, S]: the SH stack, or the so2 arm's frames
   const float* prefix[2];     // prefix_k, prefix_v [B, n, S0, H * Dh] or null
@@ -141,8 +167,14 @@ struct PairCfg {
   static constexpr int PFQ = P * F * Q;  // sB row stride
 };
 
+constexpr int QSTAGES = 4;        // the scaled arm's landing slots
+constexpr int Q_SLICE = MID * BO;  // one landing slot: [MID][BO] bytes
+
 // Shared memory by P, as byte offsets; the k / v tile [BE][P][BO] reuses
-// the ring and basis region once a pass's products are done.
+// the ring and basis region once a pass's products are done. The scaled
+// arm lays its ring out in the W region: two bf16 tiles (QT), QSTAGES
+// landing slots (QL), then QSTAGES x [BO] floats of b3 (QB) and of the
+// scale (QS).
 template <int P>
 struct Smem {
   static constexpr int PP = P == 1 ? 1 : (P + 3) / 4 * 4;  // V2 values per (row, i)
@@ -164,6 +196,11 @@ struct Smem {
   static constexpr size_t OK = SRC + 4ull * BE;
   static constexpr size_t BYTES = OK + 4ull * BE;
   static_assert(BYTES <= 232448, "the tile fits one SM's shared memory");
+  static constexpr size_t QT = W;
+  static constexpr size_t QL = QT + 2 * WT;
+  static constexpr size_t QB = QL + (size_t)QSTAGES * Q_SLICE;
+  static constexpr size_t QS = QB + 4ull * QSTAGES * BO;
+  static_assert(QS + 4ull * QSTAGES * BO <= B3, "the scaled ring fits the W region");
 };
 
 // The radial products on wgmma: a warpgroup (warps 4 wo .. 4 wo + 3)
@@ -212,6 +249,42 @@ __device__ __forceinline__ void radial_wgmma(float (&r)[4][4], const uint32_t (&
   fence_acc(r);
 }
 
+// The scaled arm's R: h.q[:, i, the warpgroup's 32 channels] from the
+// upcast tile sw, with float32 h (kLo) h_lo.q after h_hi.q per k-step;
+// synchronous.
+template <bool kLo>
+__device__ __forceinline__ void radial_wgmma_q(float (&r)[4][4],
+                                               const uint32_t (&ahi)[MID / 16][4],
+                                               const uint32_t (&alo)[kLo ? MID / 16 : 1][4],
+                                               const bf16* sw) {
+  const uint64_t d = sw128_desc(sw);
+  fence_acc(r);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < MID / 16; ++kk) {
+    const uint64_t step = kk * 16 * BO * sizeof(bf16) / 16;  // 16 rows, in 16-byte units
+    wgmma_k16(r, ahi[kk], d + step);
+    if constexpr (kLo) wgmma_k16(r, alo[kk], d + step);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(r);
+}
+
+// A landing slot [MID][BO] of storage Q upcast to bf16 into a swizzled
+// tile (swz): each 16-byte chunk of 16 values into two 8-column chunks.
+template <typename Q>
+__device__ __forceinline__ void convert_swz(bf16* tile, const uint8_t* slot, int tid) {
+  constexpr int CHUNKS = BO / 16;
+  for (int f = tid; f < MID * CHUNKS; f += NTHREADS) {
+    const int m = f / CHUNKS, c = (f % CHUNKS) * 16;
+    uint4 lo, hi;
+    q16_to_bf16<Q>(*reinterpret_cast<const uint4*>(slot + m * BO + c), lo, hi);
+    *reinterpret_cast<uint4*>(tile + swz(m, c)) = lo;
+    *reinterpret_cast<uint4*>(tile + swz(m, c + 8)) = hi;
+  }
+}
+
 // V2 of the stage staged in sX (pair degree d_in) into sV.
 template <int P>
 __device__ __forceinline__ void build_stage(int d_in, float* sV, const float* sX,
@@ -248,14 +321,20 @@ __device__ __forceinline__ void so2_stage_basis(float* sB, const float* sY, int 
 
 // One radial contraction (cv = 0: keys, 1: values) of the CTA's 64 edges
 // into the k / v tile sKV[e][p][o] in shared memory; kSo2: the so2 arm's
-// basis in place of the dense arm's.
-template <typename T, int P, bool kSo2>
+// basis in place of the dense arm's; kQ: the scaled arm's W3.
+template <typename T, int P, bool kSo2, bool kQ>
 __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int cv, int b,
                                           int node0, unsigned char* smem) {
   using S = Smem<P>;
-  constexpr bool kLo = sizeof(T) == 4;  // float32 h: the third pass h_lo.W_hi
+  constexpr bool kLo = sizeof(T) == 4;  // float32 h: the pass h_lo.W_hi (kQ: h_lo.q)
+  // chunks ahead that a W3 slice's copies are issued
+  constexpr int AHEAD = kQ ? QSTAGES - 1 : 2;
   bf16* sW = reinterpret_cast<bf16*>(smem + S::W);
   float* sb3 = reinterpret_cast<float*>(smem + S::B3);
+  bf16* sQT = reinterpret_cast<bf16*>(smem + S::QT);
+  uint8_t* sQL = smem + S::QL;
+  float* sQB = reinterpret_cast<float*>(smem + S::QB);
+  float* sQS = reinterpret_cast<float*>(smem + S::QS);
   float* sB = reinterpret_cast<float*>(smem + S::BS);
   const float* sY = reinterpret_cast<const float*>(smem + S::Y);
   float* sX = reinterpret_cast<float*>(smem + S::X);
@@ -272,6 +351,8 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
   const T* h = static_cast<const T*>(a.h[cv]);
   const bf16* whi = a.whi[cv];
   const bf16* wlo = a.wlo[cv];
+  const uint8_t* wq = a.wq[cv];
+  const float* wsc = a.wsc[cv];
   const float* b3 = a.b3[cv];
 
   // i's W3 hi and lo tiles and b3[i] into ring stage i % RING, in one burst
@@ -286,6 +367,35 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
                  (half ? wlo : whi) + ((size_t)m * IF + i) * BO + ch * 8);
     }
     if (tid < BO / 4) cp_async16(sb3 + kb * BO + tid * 4, b3 + (size_t)i * BO + tid * 4);
+  };
+  // the scaled arm: i's q slice, b3[i] and scale[i] into landing slot i %
+  // QSTAGES (16-byte cp.async, 2 a thread for q)
+  auto stage_q = [&](int i) {
+    const int kb = i % QSTAGES;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int f = tid + r * NTHREADS, m = f >> 2, ch = f & 3;
+      cp_async16(sQL + kb * Q_SLICE + m * BO + ch * 16, wq + ((size_t)m * IF + i) * BO + ch * 16);
+    }
+    if (tid < BO / 4)
+      cp_async16(sQB + kb * BO + tid * 4, b3 + (size_t)i * BO + tid * 4);
+    else if (tid < BO / 2)
+      cp_async16(sQS + kb * BO + (tid - BO / 4) * 4, wsc + (size_t)i * BO + (tid - BO / 4) * 4);
+  };
+  auto issue = [&](int i) {
+    if constexpr (kQ)
+      stage_q(i);
+    else
+      stage_w(i);
+  };
+  // the scaled arm: i's landing slot upcast into tile i % 2
+  auto convert = [&](int i) {
+    bf16* tile = sQT + (i & 1) * MID * BO;
+    const uint8_t* slot = sQL + (i % QSTAGES) * Q_SLICE;
+    if (a.fp8)
+      convert_swz<__nv_fp8_e4m3>(tile, slot, tid);
+    else
+      convert_swz<int8_t>(tile, slot, tid);
   };
   auto stage_c = [&](int pi) {  // channels per V2 stage of pair pi
     return min(P, 2 * pairs.d[pi] + 1) == 1 ? 3 : 1;
@@ -335,13 +445,16 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
     }
   };
 
-  // prologue, two cp.async groups: i = 0's W3 and b3 with pair 0's first x
-  // stage; i = 1's W3 and b3
-  stage_w(0);
+  // prologue, AHEAD cp.async groups: i = 0's W3 and b3 with pair 0's first
+  // x stage; i = 1's (kQ: and i = 2's) W3 and b3
+  issue(0);
   stage_x(0, 0);
   cp_async_commit();
-  if (IF > 1) stage_w(1);
-  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < AHEAD; ++s) {
+    if (IF > s) issue(s);
+    cp_async_commit();
+  }
 
   // h's A fragments straight from device memory while the copies fly;
   // zeros where no edge
@@ -353,9 +466,10 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
   load_afrag_global<T>(ahi, alo, h_row(e_lo), h_row(e_lo + 8), t);
 
   build_basis(0);
-  cp_async_wait<1>();
+  cp_async_wait<AHEAD - 1>();
   __syncthreads();
   build_stage<P>(pairs.d[0], sV, sX, sB, tid);
+  if constexpr (kQ) convert(0);
 
   float acc[P][4][4];
 #pragma unroll
@@ -369,7 +483,10 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
   // have landed, and every warp is done with i - 1, whose ring stage
   // i + 2's copies now refill. At a stage's first chunk the stage's V2 is
   // built first (at a pair's first chunk after the pair's basis), behind a
-  // barrier each, and the next stage's x is issued.
+  // barrier each, and the next stage's x is issued. kQ: i + 1's slice has
+  // landed and i's tile is written (the fence below orders the upcast's
+  // writes before wgmma's reads); i + 3's copies refill the landing slot
+  // of i - 1, and i + 1's slice is upcast into the tile i - 1 used.
   int pi = 0, c0 = 0, kin = 0;
   int slen = min(stage_c(0), pairs.c[0]) * min(P, 2 * pairs.d[0] + 1);
   for (int i = 0; i < IF; ++i) {
@@ -393,18 +510,36 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
       if (nc0 >= pairs.c[pi]) ++npi, nc0 = 0;
       if (npi < pairs.count) stage_x(npi, nc0);
     }
-    if (i + 2 < IF) stage_w(i + 2);
+    if (i + AHEAD < IF) issue(i + AHEAD);
     cp_async_commit();
+    if constexpr (kQ)
+      if (i + 1 < IF) convert(i + 1);
 
     float r[4][4];
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
       for (int v = 0; v < 4; ++v) r[nb][v] = 0.f;
-    radial_wgmma<kLo>(r, ahi, alo, sW + (size_t)(i % RING) * 2 * MID * BO + wo * 32);
-    // epilogue: acc[p] += V2[e, p, i] * (R + b3)
-    apply_v2<P, S::PP, S::RS>(acc, r, sV + e_lo * S::RS + kin * S::PP,
-                              sb3 + (i % RING) * BO + col0);
+    if constexpr (kQ) {
+      radial_wgmma_q<kLo>(r, ahi, alo, sQT + (size_t)(i & 1) * MID * BO + wo * 32);
+      // the dequant epilogue: (h . q) * scale, before b3
+      const float* sc = sQS + (i % QSTAGES) * BO + col0;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const float2 s2 = *reinterpret_cast<const float2*>(sc + nb * 8);
+        r[nb][0] *= s2.x;
+        r[nb][1] *= s2.y;
+        r[nb][2] *= s2.x;
+        r[nb][3] *= s2.y;
+      }
+      apply_v2<P, S::PP, S::RS>(acc, r, sV + e_lo * S::RS + kin * S::PP,
+                                sQB + (i % QSTAGES) * BO + col0);
+    } else {
+      radial_wgmma<kLo>(r, ahi, alo, sW + (size_t)(i % RING) * 2 * MID * BO + wo * 32);
+      // epilogue: acc[p] += V2[e, p, i] * (R + b3)
+      apply_v2<P, S::PP, S::RS>(acc, r, sV + e_lo * S::RS + kin * S::PP,
+                                sb3 + (i % RING) * BO + col0);
+    }
 
     if (++kin == slen) {
       kin = 0;
@@ -433,9 +568,10 @@ __device__ __forceinline__ void conv_pass(const Args& a, const Pairs& pairs, int
 }
 
 // kTie: the keys are the values (one conv pass, its tile read as k and as
-// v); kSo2: both passes by the so2 arm, from the frames in a.sh. Each a
-// compile-time variant, so that the dense untied build is unchanged.
-template <typename T, int P, bool kTie, bool kSo2>
+// v); kSo2: both passes by the so2 arm, from the frames in a.sh; kQ: the
+// scaled arm's W3. Each a compile-time variant, so that the dense untied
+// build is unchanged.
+template <typename T, int P, bool kTie, bool kSo2, bool kQ>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const Args a, const Pairs pairs) {
   using S = Smem<P>;
@@ -473,7 +609,7 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
 
   // keys: the tile (tied: the values' tile, which stays for the weighted
   // sum), then the scores against q (prefix slots first)
-  conv_pass<T, P, kSo2>(a, pairs, kTie ? 1 : 0, b, node0, smem);
+  conv_pass<T, P, kSo2, kQ>(a, pairs, kTie ? 1 : 0, b, node0, smem);
   for (int k = tid; k < NODES * H * (S0 + SLOTS); k += NTHREADS) {
     const int nl = k / (H * (S0 + SLOTS)), rest = k - nl * H * (S0 + SLOTS);
     const int hd = rest / (S0 + SLOTS), j = rest - hd * (S0 + SLOTS);
@@ -515,7 +651,7 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
   __syncthreads();
 
   // values: the tile (tied: the keys' tile as it is), then the weighted sum
-  if constexpr (!kTie) conv_pass<T, P, kSo2>(a, pairs, 1, b, node0, smem);
+  if constexpr (!kTie) conv_pass<T, P, kSo2, kQ>(a, pairs, 1, b, node0, smem);
   for (int k = tid; k < NODES * H * Dh; k += NTHREADS) {
     const int nl = k / (H * Dh), rest = k - nl * H * Dh;
     const int hd = rest / Dh, d = rest - hd * Dh;
@@ -534,10 +670,10 @@ flash_fwd_kernel(const Args a, const Pairs pairs) {
   }
 }
 
-template <typename T, int P, bool kTie, bool kSo2>
+template <typename T, int P, bool kTie, bool kSo2, bool kQ>
 cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream) {
   constexpr size_t smem = Smem<P>::BYTES;
-  auto kern = flash_fwd_kernel<T, P, kTie, kSo2>;
+  auto kern = flash_fwd_kernel<T, P, kTie, kSo2, kQ>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -546,56 +682,24 @@ cudaError_t launch(const Args& a, const Pairs& pairs, int B, cudaStream_t stream
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes). Returns the launch status
-// (cudaGetLastError() right after the launches); 0 is success. Pointers are
-// device pointers to contiguous tensors (the caller, kernels/flash.py,
-// checks every shape; h, wv, wk, bv and bk start on 16 bytes): q [B, n, H,
-// Dh] with H * dim_head = 64 and Dh = dim_head * P; x0..x3 the node
-// features [B, n, C_k, 2 d_k + 1] of the n_pairs input degrees (d_k <= 3);
-// idx int64 [B, n, K], K <= 32; nmask bool [B, n, K] or null; h_v, h_k [B,
-// n, K, 128] (bf16 when h_is_bf16, else float32); wv, wk [128, IF, 64]
-// float32; bv, bk [IF, 64]; sh [B, n, K, S], S <= 49 (so2: the packed
-// frames, S = 4 L1, L1 above every degree); prefix_k, prefix_v
-// [B, n, S0, H * Dh] (S0 <= 4; null when S0 = 0); cg the Q_J constants,
-// pair k's from cg_off_k (so2: J_1..J_3, then pair k's canonical blocks
-// from cg_off_k); out [B, n, H, Dh]; w_split scratch of 4 * 128 *
-// IF * 64 bf16 (W_k's hi and lo arrays, then W_v's). tie: the keys are the
-// values; h_k, wk and bk are not read (null), and w_split holds W_v's two
-// arrays only (2 * 128 * IF * 64 bf16). so2: both passes by the so2 arm.
-//
-// The build compiles this source twice, once per arm (SE3_SO2 0 and 1), so
-// that the two arms' instantiations compile in parallel: se3_flash_fwd
-// launches the dense arm, se3_flash_fwd_so2 the so2 arm; each refuses the
-// other's `so2`.
-#ifndef SE3_SO2
-#define SE3_SO2 0
-#endif
-#if SE3_SO2
-#define SE3_FLASH_FWD_ENTRY se3_flash_fwd_so2
-#else
-#define SE3_FLASH_FWD_ENTRY se3_flash_fwd
-#endif
-extern "C" int SE3_FLASH_FWD_ENTRY(const void* q, const void* x0, const void* x1, const void* x2,
-                             const void* x3, const void* idx, const void* nmask,
-                             const void* h_v, const void* h_k, const void* wv, const void* wk,
-                             const void* bv, const void* bk, const void* sh,
-                             const void* prefix_k, const void* prefix_v, const void* cg,
-                             void* out, void* w_split, int d0, int d1, int d2, int d3, int c0,
-                             int c1, int c2, int c3, int off0, int off1, int off2, int off3,
-                             int n_pairs, int B, int n, int K, int S, int S0, int H, int IF,
-                             int P, int h_is_bf16, int tie, int so2, float scale,
-                             void* stream) {
+// The entry points' body: the checks, the pairs, W_k's and W_v's split
+// (the float arm) or storage and scales (kQ), and the launch of this
+// unit's arm (SE3_SO2) by P, h's type and tie.
+template <bool kQ>
+int flash_entry(const void* q, const void* const* xs, const void* idx, const void* nmask,
+                const void* h_v, const void* h_k, const void* wv, const void* wk,
+                const void* bv, const void* bk, const void* sh, const void* prefix_k,
+                const void* prefix_v, const void* cg, void* out, void* w_split,
+                const void* wv_scale, const void* wk_scale, const int* ds, const int* cs,
+                const int* offs, int n_pairs, int B, int n, int K, int S, int S0, int H,
+                int IF, int P, int h_is_bf16, int tie, int so2, int fp8, float scale,
+                void* stream) {
   if (B <= 0 || n <= 0) return 0;
   if (so2 != SE3_SO2 || n_pairs < 1 || n_pairs > MAX_PAIRS || K < 1 || K > SLOTS || S < 1 ||
       S > MAX_S || (so2 && (S % 4 || 2 * (S / 4) - 1 < P)) ||
       S0 < 0 || S0 > MAX_PREFIX || H < 1 || H > MAX_HEADS || BO % H || IF < 1)
     return (int)cudaErrorInvalidValue;
   Pairs pairs;
-  const void* xs[MAX_PAIRS] = {x0, x1, x2, x3};
-  const int ds[MAX_PAIRS] = {d0, d1, d2, d3}, cs[MAX_PAIRS] = {c0, c1, c2, c3};
-  const int offs[MAX_PAIRS] = {off0, off1, off2, off3};
   for (int k = 0; k < MAX_PAIRS; ++k) {
     if (k < n_pairs &&
         (ds[k] < 0 || 2 * ds[k] + 1 > QMAX || cs[k] < 1 || (so2 && ds[k] >= S / 4)))
@@ -607,24 +711,36 @@ extern "C" int SE3_FLASH_FWD_ENTRY(const void* q, const void* x0, const void* x1
   }
   pairs.count = n_pairs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // W_k and W_v [MID, IF, BO] float32 (a whole number of float4s) into
-  // their bf16 hi and lo arrays (tied: W_v's only)
-  const size_t nw = (size_t)MID * IF * BO;
-  const size_t need = (nw / 4 + NTHREADS - 1) / NTHREADS;
-  const unsigned blocks = (unsigned)(need < 4096 ? need : 4096);
-  bf16* ws = static_cast<bf16*>(w_split);
-  const void* w3s[2] = {wk, wv};
   Args a;
-  a.whi[0] = a.wlo[0] = nullptr;
-  for (int cv = tie ? 1 : 0; cv < 2; ++cv) {
-    bf16* hi = ws + 2 * (tie ? 0 : cv) * nw;
-    split_bf16_kernel<<<blocks, NTHREADS, 0, s>>>(static_cast<const float4*>(w3s[cv]), nw / 4,
-                                                  reinterpret_cast<uint2*>(hi),
-                                                  reinterpret_cast<uint2*>(hi + nw));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    a.whi[cv] = hi;
-    a.wlo[cv] = hi + nw;
+  a.whi[0] = a.wlo[0] = a.whi[1] = a.wlo[1] = nullptr;
+  a.wq[0] = a.wq[1] = nullptr;
+  a.wsc[0] = a.wsc[1] = nullptr;
+  a.fp8 = fp8;
+  const void* w3s[2] = {wk, wv};
+  if constexpr (kQ) {
+    // the storage as it is: no split, no dequantized copy
+    const void* scs[2] = {wk_scale, wv_scale};
+    for (int cv = tie ? 1 : 0; cv < 2; ++cv) {
+      a.wq[cv] = static_cast<const uint8_t*>(w3s[cv]);
+      a.wsc[cv] = static_cast<const float*>(scs[cv]);
+    }
+  } else {
+    // W_k and W_v [MID, IF, BO] float32 (a whole number of float4s) into
+    // their bf16 hi and lo arrays (tied: W_v's only)
+    const size_t nw = (size_t)MID * IF * BO;
+    const size_t need = (nw / 4 + NTHREADS - 1) / NTHREADS;
+    const unsigned blocks = (unsigned)(need < 4096 ? need : 4096);
+    bf16* ws = static_cast<bf16*>(w_split);
+    for (int cv = tie ? 1 : 0; cv < 2; ++cv) {
+      bf16* hi = ws + 2 * (tie ? 0 : cv) * nw;
+      split_bf16_kernel<<<blocks, NTHREADS, 0, s>>>(static_cast<const float4*>(w3s[cv]),
+                                                    nw / 4, reinterpret_cast<uint2*>(hi),
+                                                    reinterpret_cast<uint2*>(hi + nw));
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      a.whi[cv] = hi;
+      a.wlo[cv] = hi + nw;
+    }
   }
   a.q = static_cast<const float*>(q);
   a.idx = static_cast<const long long*>(idx);
@@ -646,8 +762,8 @@ extern "C" int SE3_FLASH_FWD_ENTRY(const void* q, const void* x0, const void* x1
   a.IF = IF;
   a.scale = scale;
 #define SE3_V(PP, TIE, SO2)                                                   \
-  (h_is_bf16 ? launch<bf16, PP, TIE, SO2>(a, pairs, B, s)                     \
-             : launch<float, PP, TIE, SO2>(a, pairs, B, s))
+  (h_is_bf16 ? launch<bf16, PP, TIE, SO2, kQ>(a, pairs, B, s)                 \
+             : launch<float, PP, TIE, SO2, kQ>(a, pairs, B, s))
 #define SE3_P(PP) \
   if (P == PP) return (int)(tie ? SE3_V(PP, true, SE3_SO2 != 0) : SE3_V(PP, false, SE3_SO2 != 0));
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
@@ -655,3 +771,80 @@ extern "C" int SE3_FLASH_FWD_ENTRY(const void* q, const void* x0, const void* x1
 #undef SE3_V
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each returns the launch status
+// (cudaGetLastError() right after the launches); 0 is success. Pointers are
+// device pointers to contiguous tensors (the caller, kernels/flash.py,
+// checks every shape; h, wv, wk, bv and bk start on 16 bytes): q [B, n, H,
+// Dh] with H * dim_head = 64 and Dh = dim_head * P; x0..x3 the node
+// features [B, n, C_k, 2 d_k + 1] of the n_pairs input degrees (d_k <= 3);
+// idx int64 [B, n, K], K <= 32; nmask bool [B, n, K] or null; h_v, h_k [B,
+// n, K, 128] (bf16 when h_is_bf16, else float32); wv, wk [128, IF, 64]
+// float32; bv, bk [IF, 64]; sh [B, n, K, S], S <= 49 (so2: the packed
+// frames, S = 4 L1, L1 above every degree); prefix_k, prefix_v
+// [B, n, S0, H * Dh] (S0 <= 4; null when S0 = 0); cg the Q_J constants,
+// pair k's from cg_off_k (so2: J_1..J_3, then pair k's canonical blocks
+// from cg_off_k); out [B, n, H, Dh]; w_split scratch of 4 * 128 *
+// IF * 64 bf16 (W_k's hi and lo arrays, then W_v's). tie: the keys are the
+// values; h_k, wk and bk are not read (null), and w_split holds W_v's two
+// arrays only (2 * 128 * IF * 64 bf16). so2: both passes by the so2 arm.
+//
+// The scaled arm's entry (se3_flash_fwd_q, se3_flash_fwd_so2_q) takes, in
+// place of w_split, wv_scale and wk_scale [IF, 64] float32 (wk_scale null
+// when tied), with wv and wk the int8 storage [128, IF, 64], or fp8 e4m3
+// with fp8 != 0.
+//
+// The build compiles this source four times, once per arm (SE3_SO2 0 and
+// 1) and per W3 form (SE3_QUANT 0 and 1), so that the instantiations
+// compile in parallel: se3_flash_fwd launches the dense arm,
+// se3_flash_fwd_so2 the so2 arm, each with an _q entry for the scaled arm;
+// each refuses the other arm's `so2`.
+#if SE3_SO2 && SE3_QUANT
+#define SE3_FLASH_FWD_ENTRY se3_flash_fwd_so2_q
+#elif SE3_SO2
+#define SE3_FLASH_FWD_ENTRY se3_flash_fwd_so2
+#elif SE3_QUANT
+#define SE3_FLASH_FWD_ENTRY se3_flash_fwd_q
+#else
+#define SE3_FLASH_FWD_ENTRY se3_flash_fwd
+#endif
+#if SE3_QUANT
+extern "C" int SE3_FLASH_FWD_ENTRY(const void* q, const void* x0, const void* x1, const void* x2,
+                                   const void* x3, const void* idx, const void* nmask,
+                                   const void* h_v, const void* h_k, const void* wv,
+                                   const void* wk, const void* bv, const void* bk, const void* sh,
+                                   const void* prefix_k, const void* prefix_v, const void* cg,
+                                   void* out, const void* wv_scale, const void* wk_scale, int d0,
+                                   int d1, int d2, int d3, int c0, int c1, int c2, int c3,
+                                   int off0, int off1, int off2, int off3, int n_pairs, int B,
+                                   int n, int K, int S, int S0, int H, int IF, int P,
+                                   int h_is_bf16, int tie, int so2, int fp8, float scale,
+                                   void* stream) {
+  const void* xs[MAX_PAIRS] = {x0, x1, x2, x3};
+  const int ds[MAX_PAIRS] = {d0, d1, d2, d3}, cs[MAX_PAIRS] = {c0, c1, c2, c3};
+  const int offs[MAX_PAIRS] = {off0, off1, off2, off3};
+  return flash_entry<true>(q, xs, idx, nmask, h_v, h_k, wv, wk, bv, bk, sh, prefix_k, prefix_v,
+                           cg, out, nullptr, wv_scale, wk_scale, ds, cs, offs, n_pairs, B, n, K,
+                           S, S0, H, IF, P, h_is_bf16, tie, so2, fp8, scale, stream);
+}
+#else
+extern "C" int SE3_FLASH_FWD_ENTRY(const void* q, const void* x0, const void* x1, const void* x2,
+                                   const void* x3, const void* idx, const void* nmask,
+                                   const void* h_v, const void* h_k, const void* wv,
+                                   const void* wk, const void* bv, const void* bk, const void* sh,
+                                   const void* prefix_k, const void* prefix_v, const void* cg,
+                                   void* out, void* w_split, int d0, int d1, int d2, int d3,
+                                   int c0, int c1, int c2, int c3, int off0, int off1, int off2,
+                                   int off3, int n_pairs, int B, int n, int K, int S, int S0,
+                                   int H, int IF, int P, int h_is_bf16, int tie, int so2,
+                                   float scale, void* stream) {
+  const void* xs[MAX_PAIRS] = {x0, x1, x2, x3};
+  const int ds[MAX_PAIRS] = {d0, d1, d2, d3}, cs[MAX_PAIRS] = {c0, c1, c2, c3};
+  const int offs[MAX_PAIRS] = {off0, off1, off2, off3};
+  return flash_entry<false>(q, xs, idx, nmask, h_v, h_k, wv, wk, bv, bk, sh, prefix_k,
+                            prefix_v, cg, out, w_split, nullptr, nullptr, ds, cs, offs, n_pairs,
+                            B, n, K, S, S0, H, IF, P, h_is_bf16, tie, so2, 0, scale, stream);
+}
+#endif

@@ -4,9 +4,9 @@
 //   R[e, i, o]   = sum_m h[e, m] * W3[m, i, o] + b3[i, o]
 //
 // Replaces se3_transformer_tpu/kernels/pallas_pairwise.py::_fwd_kernel
-// (driven by fused_pairwise_conv) on its floating-point path; the int8/fp8
-// w3_scale epilogue is not ported. As there, R is never written to device
-// memory. V2 = basis . x is built outside the kernel (an einsum), and the
+// (driven by fused_pairwise_conv) on its floating-point path and its
+// quantized-serving path (the w3_scale epilogue, below). As there, R is
+// never written to device memory. V2 = basis . x is built outside the kernel (an einsum), and the
 // degree pairs of one output degree arrive concatenated along i, so one
 // launch covers every input degree: IF = sum over d_in of C * F runs to
 // 1024 at the flagship shape (C = 64, four degrees).
@@ -75,6 +75,21 @@
 // memory by the hardware once per warpgroup, TMA (and a cluster
 // multicast) for the W3 ring, and an epilogue that does not keep the
 // P-deep accumulator beside two sets of A fragments.
+//
+// The scaled arm (kQ; se3_pairwise_fwd_q): quantized serving hands W3 as
+// int8 or fp8 e4m3 storage with a float32 scale per (i, o), and
+//     R[e, i, o] = (sum_m h[e, m] q[m, i, o]) * scale[i, o] + b3[i, o],
+// JAX's `rt * st + b3`. Every int8 and e4m3 value is exact in bf16, so q
+// needs no lo half: float32 h runs two bf16 passes (h_hi.q, h_lo.q, in that
+// order per kk and column group) and bf16 h one, where the float32 arm
+// runs three. W3's bytes fall from 4 a value (hi + lo) to 1. Each i's
+// [128 x 64] slice of q goes by 16-byte cp.async (16 values a copy) into a
+// ring of QSTAGES 8 KB landing slots, and is upcast to bf16 one position
+// ahead of its product into one of two [MID][WS] tiles that the mma.sync
+// B fragments read (ldmatrix), so the conversion costs no barrier of its
+// own; no dequantized W3 is written to device memory. The scale multiplies
+// the pass sum before b3 is added; the V2 epilogue, the i splits and their
+// ordered reduce are the float arm's.
 
 #include "common.cuh"
 
@@ -86,20 +101,25 @@ using bf16 = __nv_bfloat16;
 constexpr int KI = 16;  // i values of V2 staged per chunk
 constexpr int HS = Tile<bf16>::HS, WS = Tile<bf16>::WS;
 constexpr int W_SLICE = MID * WS;  // one staged [MID][BO] bf16 slice
+constexpr int QSTAGES = 4;         // the scaled arm's landing slots
+constexpr int Q_SLICE = MID * BO;  // one landing slot: [MID][BO] bytes
 
-// The tile's shape by h's type T and P. BLOCKS CTAs share an SM where
-// the P-deep accumulator leaves room: at most 128 registers a thread and
-// ~113 KB of shared memory each (their barriers and fetch latencies then
-// overlap). The ring holds STAGES x (hi, lo) W3 slices for float32,
-// STAGES x hi for bf16.
-template <typename T, int P>
+// The tile's shape by h's type T and P (kQ: the scaled arm). BLOCKS CTAs
+// share an SM where the P-deep accumulator leaves room: at most 128
+// registers a thread and ~113 KB of shared memory each (their barriers and
+// fetch latencies then overlap). The ring holds STAGES x (hi, lo) W3
+// slices for float32, STAGES x hi for bf16; the scaled arm's, two bf16
+// tiles and QSTAGES landing slots.
+template <typename T, int P, bool kQ = false>
 struct Cfg {
   static constexpr bool kSplit = sizeof(T) == 4;
   static constexpr int BLOCKS = (P == 1 || (!kSplit && P == 3)) ? 2 : 1;
   static constexpr int STAGES = BLOCKS == 2 ? (kSplit ? 2 : 3) : (kSplit ? 3 : 6);
   static constexpr int SLICES = kSplit ? 2 : 1;
-  static constexpr size_t SMEM = sizeof(bf16) * (size_t)STAGES * SLICES * W_SLICE +
-                                 sizeof(float) * (size_t)2 * BE * (P * KI + 4);
+  // bytes of the W3 ring (the scaled arm: the tiles, then the landing slots)
+  static constexpr size_t RING = kQ ? sizeof(bf16) * 2 * W_SLICE + (size_t)QSTAGES * Q_SLICE
+                                    : sizeof(bf16) * (size_t)STAGES * SLICES * W_SLICE;
+  static constexpr size_t SMEM = RING + sizeof(float) * (size_t)2 * BE * (P * KI + 4);
 };
 
 // V2[e0 .. e0+BE, :, c0 .. c0+nk] -> a [BE][P*KI + 4] float tile (the row
@@ -185,6 +205,55 @@ __device__ __forceinline__ void radial_tile_split(float (&rs)[4][4], const uint3
   }
 }
 
+// The scaled arm's R tile of one warp for one i: h_hi.q, and with float32
+// h (kLo) h_lo.q, per kk and column group in that order; q upcast to bf16.
+template <bool kLo>
+__device__ __forceinline__ void radial_tile_q(float (&rs)[4][4], const uint32_t (&ahi)[8][4],
+                                              const uint32_t (&alo)[8][4], const bf16* sw,
+                                              int wo, int lane) {
+  const int j = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < MID / 16; ++kk) {
+#pragma unroll
+    for (int nb2 = 0; nb2 < 2; ++nb2) {
+      const int off = (kk * 16 + (j & 1) * 8 + rr) * WS + wo * 32 + nb2 * 16 + (j >> 1) * 8;
+      uint32_t bq[4];
+      ldmatrix_x4_trans(bq, sw + off);
+      mma_bf16(rs[nb2 * 2 + 0], ahi[kk], bq[0], bq[1]);
+      mma_bf16(rs[nb2 * 2 + 1], ahi[kk], bq[2], bq[3]);
+      if constexpr (kLo) {
+        mma_bf16(rs[nb2 * 2 + 0], alo[kk], bq[0], bq[1]);
+        mma_bf16(rs[nb2 * 2 + 1], alo[kk], bq[2], bq[3]);
+      }
+    }
+  }
+}
+
+// Slice i of the quantized W3 [MID, IF, O] (columns o0 .. o0 + BO) into a
+// landing slot [MID][BO] bytes: 16-byte cp.async, 16 values each.
+__device__ __forceinline__ void load_q(uint8_t* slot, const uint8_t* __restrict__ q, int i,
+                                       int IF, int O, int o0, int tid) {
+  constexpr int CHUNKS = BO / 16;
+  for (int idx = tid; idx < MID * CHUNKS; idx += NTHREADS) {
+    const int m = idx / CHUNKS, ch = idx % CHUNKS;
+    cp_async16(slot + m * BO + ch * 16, q + ((size_t)m * IF + i) * O + o0 + ch * 16);
+  }
+}
+
+// A landing slot upcast to bf16 into a [MID][WS] tile (the layout that
+// radial_tile_q's ldmatrix reads).
+template <typename Q>
+__device__ __forceinline__ void convert_q(bf16* tile, const uint8_t* slot, int tid) {
+  constexpr int CHUNKS = BO / 16;
+  for (int idx = tid; idx < MID * CHUNKS; idx += NTHREADS) {
+    const int m = idx / CHUNKS, c = (idx % CHUNKS) * 16;
+    uint4 lo, hi;
+    q16_to_bf16<Q>(*reinterpret_cast<const uint4*>(slot + m * BO + c), lo, hi);
+    *reinterpret_cast<uint4*>(tile + m * WS + c) = lo;
+    *reinterpret_cast<uint4*>(tile + m * WS + c + 8) = hi;
+  }
+}
+
 // Stage slice i of the (hi[, lo]) W3 arrays into one ring stage.
 template <bool kSplit>
 __device__ __forceinline__ void load_slices(bf16* stage, const bf16* __restrict__ whi,
@@ -195,22 +264,28 @@ __device__ __forceinline__ void load_slices(bf16* stage, const bf16* __restrict_
 }
 
 // T is h's type: float (split into hi/lo here, W3 given as its split
-// arrays) or bf16 (W3 given as itself; wlo is unused).
-template <typename T, int P>
+// arrays) or bf16 (W3 given as itself; wlo is unused). kQ: the scaled arm,
+// W3 as the storage wq (fp8 e4m3 with `fp8`, else int8) with wscale [IF,
+// O]; whi and wlo are unused.
+template <typename T, int P, bool kQ>
 __global__ void __launch_bounds__(NTHREADS, (Cfg<T, P>::BLOCKS))
 pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
-                    const bf16* __restrict__ wlo, const float* __restrict__ b3,
+                    const bf16* __restrict__ wlo, const uint8_t* __restrict__ wq,
+                    const float* __restrict__ wscale, const float* __restrict__ b3,
                     const float* __restrict__ v2, float* __restrict__ out, int E, int IF,
-                    int O, int i_per_split, bool vec) {
+                    int O, int i_per_split, bool vec, bool fp8) {
   constexpr bool kSplit = Cfg<T, P>::kSplit;
   constexpr int STAGES = Cfg<T, P>::STAGES;
   constexpr int STAGE = Cfg<T, P>::SLICES * W_SLICE;
   constexpr int VS = P * KI + 4;
-  static_assert((kSplit ? 2 : 1) * BE * HS <= STAGES * STAGE, "h tiles fit the ring");
+  static_assert((kSplit ? 2 : 1) * BE * HS <= (kQ ? 2 * W_SLICE : STAGES * STAGE),
+                "h tiles fit the ring");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);                   // STAGES x STAGE
-  float* sV = reinterpret_cast<float*>(sW + STAGES * STAGE);  // 2 x [BE][VS]
+  bf16* sW = reinterpret_cast<bf16*>(smem);  // STAGES x STAGE (kQ: 2 tiles)
+  // kQ: the landing slots after the two tiles
+  uint8_t* sL = smem + sizeof(bf16) * 2 * W_SLICE;
+  float* sV = reinterpret_cast<float*>(smem + Cfg<T, P, kQ>::RING);  // 2 x [BE][VS]
   // the h tiles [BE][HS] (hi, and lo when split) take the ring's space
   // until their fragments are in registers
   bf16* sHh = sW;
@@ -255,11 +330,33 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
     const int c = chunk_of(0);
     load_v<P>(sV, v2, e0, rows, IF, i_lo + c * KI, min(KI, n_i - c * KI), vec, tid);
   }
+  auto valid = [&](int pos) { return pos < n_pos && local_i(pos) < n_i; };
+  // kQ: slice pos's landing slot upcast into tile pos % 2
+  auto convert = [&](int pos) {
+    bf16* tile = sW + (pos & 1) * W_SLICE;
+    const uint8_t* slot = sL + (pos % QSTAGES) * Q_SLICE;
+    if (fp8)
+      convert_q<__nv_fp8_e4m3>(tile, slot, tid);
+    else
+      convert_q<int8_t>(tile, slot, tid);
+  };
+  if constexpr (kQ) {
+    // QSTAGES landing slots, one group each; slice 0 upcast before the loop
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_pos && local_i(s) < n_i)
-      load_slices<kSplit>(sW + s * STAGE, whi, wlo, i_lo + local_i(s), IF, O, o0, tid);
-    cp_async_commit();
+    for (int s = 0; s < QSTAGES; ++s) {
+      if (valid(s)) load_q(sL + s * Q_SLICE, wq, i_lo + local_i(s), IF, O, o0, tid);
+      cp_async_commit();
+    }
+    cp_async_wait<QSTAGES - 1>();
+    __syncthreads();
+    if (valid(0)) convert(0);
+  } else {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_pos && local_i(s) < n_i)
+        load_slices<kSplit>(sW + s * STAGE, whi, wlo, i_lo + local_i(s), IF, O, o0, tid);
+      cp_async_commit();
+    }
   }
 
   float acc[P][4][4];
@@ -276,31 +373,59 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
     const int j = n / KI, k = n - j * KI;
     const int il = local_i(n);
     // slice n has landed (each iteration commits one group), and every
-    // thread is done with iteration n - 1's stage and V2 buffer
-    cp_async_wait<STAGES - 2>();
+    // thread is done with iteration n - 1's stage and V2 buffer. kQ: slice
+    // n + 1 has landed, and slice n's tile (upcast in iteration n - 1) is
+    // written
+    if constexpr (kQ)
+      cp_async_wait<QSTAGES - 2>();
+    else
+      cp_async_wait<STAGES - 2>();
     __syncthreads();
     // refill the stage freed by iteration n - 1 and, at a chunk's first
-    // position, the V2 buffer freed by the previous chunk
-    const int nxt = n + STAGES - 1;
-    if (nxt < n_pos && local_i(nxt) < n_i)
-      load_slices<kSplit>(sW + (nxt % STAGES) * STAGE, whi, wlo, i_lo + local_i(nxt), IF, O,
-                          o0, tid);
+    // position, the V2 buffer freed by the previous chunk (kQ: the landing
+    // slot of slice n, upcast in iteration n - 1)
+    if constexpr (kQ) {
+      if (valid(n + QSTAGES))
+        load_q(sL + (n % QSTAGES) * Q_SLICE, wq, i_lo + local_i(n + QSTAGES), IF, O, o0, tid);
+    } else {
+      const int nxt = n + STAGES - 1;
+      if (nxt < n_pos && local_i(nxt) < n_i)
+        load_slices<kSplit>(sW + (nxt % STAGES) * STAGE, whi, wlo, i_lo + local_i(nxt), IF, O,
+                            o0, tid);
+    }
     if (k == 0 && j + 1 < n_ch) {
       const int c = chunk_of(j + 1);
       load_v<P>(sV + ((j + 1) & 1) * BE * VS, v2, e0, rows, IF, i_lo + c * KI,
                 min(KI, n_i - c * KI), vec, tid);
     }
     cp_async_commit();
+    // kQ: slice n + 1 into the other tile, read after the next barrier
+    if constexpr (kQ)
+      if (valid(n + 1)) convert(n + 1);
     if (il >= n_i) continue;
     const int i = i_lo + il;
 
-    const bf16* sw = sW + (n % STAGES) * STAGE;
     float r[4][4];
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
       for (int v = 0; v < 4; ++v) r[nb][v] = 0.f;
-    radial_tile_split<kSplit>(r, ahi, alo, sw, sw + W_SLICE, wo, lane);
+    if constexpr (kQ) {
+      radial_tile_q<kSplit>(r, ahi, alo, sW + (n & 1) * W_SLICE, wo, lane);
+      // the dequant epilogue: (h . q) * scale, before b3
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int col = o0 + wo * 32 + nb * 8 + 2 * t;
+        const float2 sc = __ldg(reinterpret_cast<const float2*>(wscale + (size_t)i * O + col));
+        r[nb][0] *= sc.x;
+        r[nb][1] *= sc.y;
+        r[nb][2] *= sc.x;
+        r[nb][3] *= sc.y;
+      }
+    } else {
+      const bf16* sw = sW + (n % STAGES) * STAGE;
+      radial_tile_split<kSplit>(r, ahi, alo, sw, sw + W_SLICE, wo, lane);
+    }
 
     // epilogue: acc[p] += V2[e, p, i] * (R + b3)
     const float* sv = sV + (j & 1) * BE * VS + k;
@@ -383,15 +508,17 @@ unsigned grid_for(size_t n4) {
   return (unsigned)(blocks > 4096 ? 4096 : blocks);
 }
 
-template <typename T, int P>
-cudaError_t launch(const void* h, const void* w3, const void* b3, const void* v2, void* out,
-                   void* work, void* w3_split, int E, int IF, int O, int i_per_split,
-                   cudaStream_t stream) {
+// kQ: w3 is the quantized storage (fp8 e4m3 with `fp8`, else int8) and
+// wscale its scales; w3_split is unused.
+template <typename T, int P, bool kQ>
+cudaError_t launch(const void* h, const void* w3, const void* wscale, const void* b3,
+                   const void* v2, void* out, void* work, void* w3_split, int E, int IF,
+                   int O, int i_per_split, bool fp8, cudaStream_t stream) {
   constexpr bool kSplit = Cfg<T, P>::kSplit;
-  constexpr size_t smem = Cfg<T, P>::SMEM;
+  constexpr size_t smem = Cfg<T, P, kQ>::SMEM;
   const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
   cudaError_t err;
-  if constexpr (kSplit) {
+  if constexpr (kSplit && !kQ) {
     // W3 [MID, IF, O] is a whole number of float4s (O % 64 == 0)
     const size_t n4 = (size_t)MID * IF * O / 4;
     uint2* hi = static_cast<uint2*>(w3_split);
@@ -401,7 +528,7 @@ cudaError_t launch(const void* h, const void* w3, const void* b3, const void* v2
     whi = static_cast<const bf16*>(w3_split);
     wlo = whi + (size_t)MID * IF * O;
   }
-  auto kern = pairwise_fwd_kernel<T, P>;
+  auto kern = pairwise_fwd_kernel<T, P, kQ>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -413,9 +540,10 @@ cudaError_t launch(const void* h, const void* w3, const void* b3, const void* v2
                    reinterpret_cast<uintptr_t>(v2) % 16 == 0;
   dim3 grid((E + BE - 1) / BE, O / BO, splits);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(h), whi, wlo, static_cast<const float*>(b3),
-      static_cast<const float*>(v2), static_cast<float*>(splits > 1 ? work : out), E, IF, O,
-      i_per_split, vec);
+      static_cast<const T*>(h), kQ ? nullptr : whi, wlo,
+      kQ ? static_cast<const uint8_t*>(w3) : nullptr, static_cast<const float*>(wscale),
+      static_cast<const float*>(b3), static_cast<const float*>(v2),
+      static_cast<float*>(splits > 1 ? work : out), E, IF, O, i_per_split, vec, fp8);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t n4 = (size_t)E * P * O / 4;  // O is a multiple of 64
@@ -441,12 +569,38 @@ extern "C" int se3_pairwise_fwd(const void* h, const void* w3, const void* b3, c
   if (E <= 0) return 0;
   if (O <= 0 || O % BO != 0 || IF <= 0 || i_per_split <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SE3_F(PP)                                                                      \
-  if (P == PP)                                                                         \
-    return (int)(h_is_bf16 ? launch<bf16, PP>(h, w3, b3, v2, out, work, w3_split, E,   \
-                                              IF, O, i_per_split, s)                   \
-                           : launch<float, PP>(h, w3, b3, v2, out, work, w3_split, E,  \
-                                               IF, O, i_per_split, s));
+#define SE3_F(PP)                                                                          \
+  if (P == PP)                                                                             \
+    return (int)(h_is_bf16 ? launch<bf16, PP, false>(h, w3, nullptr, b3, v2, out, work,    \
+                                                     w3_split, E, IF, O, i_per_split,      \
+                                                     false, s)                             \
+                           : launch<float, PP, false>(h, w3, nullptr, b3, v2, out, work,   \
+                                                      w3_split, E, IF, O, i_per_split,     \
+                                                      false, s));
+  SE3_F(1) SE3_F(3) SE3_F(5) SE3_F(7)
+#undef SE3_F
+  return (int)cudaErrorInvalidValue;
+}
+
+// The scaled arm (quantized serving). q [128, IF, O] int8, or fp8 e4m3
+// with fp8 != 0 (starting on 16 bytes); scale [IF, O] float32 (the [1, IF,
+// O] keepdims array); the rest as se3_pairwise_fwd. No W3 split, no
+// dequantized copy: the kernel reads q as it is.
+extern "C" int se3_pairwise_fwd_q(const void* h, const void* q, const void* scale,
+                                  const void* b3, const void* v2, void* out, void* work, int E,
+                                  int IF, int O, int P, int i_per_split, int h_is_bf16, int fp8,
+                                  void* stream) {
+  if (E <= 0) return 0;
+  if (O <= 0 || O % BO != 0 || IF <= 0 || i_per_split <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SE3_F(PP)                                                                          \
+  if (P == PP)                                                                             \
+    return (int)(h_is_bf16 ? launch<bf16, PP, true>(h, q, scale, b3, v2, out, work,        \
+                                                    nullptr, E, IF, O, i_per_split,        \
+                                                    fp8 != 0, s)                           \
+                           : launch<float, PP, true>(h, q, scale, b3, v2, out, work,       \
+                                                     nullptr, E, IF, O, i_per_split,       \
+                                                     fp8 != 0, s));
   SE3_F(1) SE3_F(3) SE3_F(5) SE3_F(7)
 #undef SE3_F
   return (int)cudaErrorInvalidValue;

@@ -63,11 +63,20 @@ plain stream in its backward.
 
 Both kernels take tied keys and values (`FlashConfig.tie`, wk None) and
 the so2 arm in compile-time variants of their own. Kernel #7 builds one arm
-for the keys and the values: mixed arms (to_k dense, to_v so2) are past
-flash_limit and route to the plain stream.
+and one W3 storage for the keys and the values: mixed arms (to_k dense,
+to_v so2) and mixed storage (one W3 quantized and one not, or int8 beside
+fp8) are past flash_limit and route to the plain stream.
 
-Not ported (NotImplementedError): the quantized `wv_scale`/`wk_scale`
-epilogue.
+Quantized serving (se3_transformer_torch.quant): with `wv_scale` (and,
+untied, `wk_scale`) float32 [1, IF, O], wv (wk) is int8 or float8_e4m3fn
+storage and R = (h . w) * scale + b3, JAX's `_kv_block` epilogue, in both
+arms, tied or not. The plain stream computes it in float32; on a card it
+is kernel #7's scaled arm (csrc/flash_fwd.cu, se3_flash_fwd_q and
+se3_flash_fwd_so2_q), which reads the 1-byte storage into its tile and
+writes no dequantized W3; each of its launches counts in
+`flash_attention_fwd.launches` and `.scaled_launches`. The arm serves only:
+flash_attention with a scale calls the forward directly, and refuses
+inputs that need a gradient.
 """
 from __future__ import annotations
 
@@ -85,7 +94,7 @@ from ..so2.frames import FRAME_KEYS, edge_frames, j_matrix, rotate_in, \
     rotate_out
 from ..so3.spherical_harmonics import real_spherical_harmonics_all
 from ..utils.helpers import batched_index_select
-from .pairwise import _aligned, _stream
+from .pairwise import QUANT_DTYPES, _aligned, _stream, serving_only
 
 # the finite float32 minimum (pallas_flash.py::NEG_INF)
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -184,14 +193,20 @@ def _arms(cfg: FlashConfig) -> set:
 # --------------------------------------------------------------------- #
 # the plain version (the JAX XLA stream)
 # --------------------------------------------------------------------- #
-def _contract_z(z, h, w3, b3) -> torch.Tensor:
+def _contract_z(z, h, w3, b3, w3_scale=None) -> torch.Tensor:
     """The radial product of one slot block: z [..., P, IF], h [..., mid]
-    -> [..., O, P], R = h . W3 + b3 in float32."""
-    R = torch.einsum('...m,mio->...io', h.float(), w3) + b3
+    -> [..., O, P], R = h . W3 + b3 in float32; with w3_scale [1, IF, O],
+    W3 is quantized storage and R = (h . W3) * w3_scale + b3."""
+    if w3_scale is None:
+        R = torch.einsum('...m,mio->...io', h.float(), w3) + b3
+    else:
+        R = torch.einsum('...m,mio->...io', h.float(), w3.float()) \
+            * w3_scale[0] + b3
     return torch.einsum('...pi,...io->...po', z, R).transpose(-1, -2)
 
 
-def _kv_block(pairs, d_out: int, xg, h, sh, w3, b3) -> torch.Tensor:
+def _kv_block(pairs, d_out: int, xg, h, sh, w3, b3,
+              w3_scale=None) -> torch.Tensor:
     """One slot block's keyed features by the dense arm
     (pallas_flash.py::_kv_block): xg one gathered [..., C, Q] per input
     degree, h [..., mid], sh [..., S], w3 [mid, IF, O], b3 [IF, O] ->
@@ -205,16 +220,17 @@ def _kv_block(pairs, d_out: int, xg, h, sh, w3, b3) -> torch.Tensor:
         basis = torch.einsum('...s,spqf->...pqf', y, T)
         v2 = torch.einsum('...pqf,...cq->...pcf', basis, x)
         segs.append(v2.reshape(*v2.shape[:-2], -1))
-    return _contract_z(torch.cat(segs, dim=-1), h, w3, b3)
+    return _contract_z(torch.cat(segs, dim=-1), h, w3, b3, w3_scale)
 
 
-def _kv_block_so2(pairs, d_out: int, xg, h, fr, w3, b3) -> torch.Tensor:
+def _kv_block_so2(pairs, d_out: int, xg, h, fr, w3, b3,
+                  w3_scale=None) -> torch.Tensor:
     """The so2 arm of _kv_block: each input degree rotated into the edge
     frames `fr`, the band z padded to P, the radial product, the result
     rotated out -> [..., O, P]."""
     z = torch.cat([banded_z(rotate_in(x, fr, d_in), d_in, d_out)
                    for (d_in, _), x in zip(pairs, xg)], dim=-1)
-    return rotate_out(_contract_z(z, h, w3, b3), fr, d_out)
+    return rotate_out(_contract_z(z, h, w3, b3, w3_scale), fr, d_out)
 
 
 def _attend_block(qr, kblk, vblk, maskblk, m, l, acc, scale, inbounds=None):
@@ -270,22 +286,25 @@ def _kv_pair(cfg: FlashConfig, xg, h_k, h_v, sh, fr, full: dict, Dh: int):
     """(k, v) [..., kv_heads, Dh] of one block: the values' block by
     cfg.arm_v, and the keys' by (h_k, wk, bk) and cfg.arm_k, or the same
     block when cfg.tie (pallas_flash.py::_chunk_body)."""
-    def block(arm, h, w3, b3):
+    def block(arm, h, c):
+        # the scale rides only when the weights are quantized
+        w = (full[f'w{c}'], full[f'b{c}']) + tuple(
+            s for s in (full.get(f'w{c}_scale'),) if s is not None)
         if arm == 'so2':
-            t = _kv_block_so2(cfg.pairs, cfg.d_out, xg, h, fr, w3, b3)
+            t = _kv_block_so2(cfg.pairs, cfg.d_out, xg, h, fr, *w)
         else:
-            t = _kv_block(cfg.pairs, cfg.d_out, xg, h, sh, w3, b3)
+            t = _kv_block(cfg.pairs, cfg.d_out, xg, h, sh, *w)
         return t.reshape(*t.shape[:-2], cfg.kv_heads, Dh)
-    kv_v = block(cfg.arm_v, h_v, full['wv'], full['bv'])
+    kv_v = block(cfg.arm_v, h_v, 'v')
     if cfg.tie:
         return kv_v, kv_v
-    return block(cfg.arm_k, h_k, full['wk'], full['bk']), kv_v
+    return block(cfg.arm_k, h_k, 'k'), kv_v
 
 
 # operands along the node axis (sliced into chunks) and node-level ones
 _CHUNKED = ('q', 'idx', 'nmask', 'h_v', 'h_k', 'sh', 'fr', 'prefix_k',
             'prefix_v')
-_FULL = ('xs', 'wv', 'bv', 'wk', 'bk')
+_FULL = ('xs', 'wv', 'bv', 'wk', 'bk', 'wv_scale', 'wk_scale')
 
 
 def _chunk_body(cfg: FlashConfig, chunk: dict, full: dict) -> torch.Tensor:
@@ -328,7 +347,7 @@ def flash_attention_plain(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     module docstring."""
     n = ops['q'].shape[1]
     rows = _chunk_rows(n)
-    full = {k: ops[k] for k in _FULL}
+    full = {k: ops.get(k) for k in _FULL}
     return torch.cat([_chunk_body(cfg, _slice(ops, s, min(s + rows, n)), full)
                       for s in range(0, n, rows)], dim=1)
 
@@ -396,17 +415,24 @@ def _pairs_limit(pairs, d_out: int, prefix: int) -> Optional[str]:
 def flash_limit(pairs, d_out: int, heads: int, kv_heads: int, dim_head: int,
                 K: int, prefix: int, mid: int = MID,
                 h_dtype: torch.dtype = torch.float32,
-                arms: Tuple[str, str] = ('dense', 'dense')) -> Optional[str]:
+                arms: Tuple[str, str] = ('dense', 'dense'),
+                storages: Tuple[torch.dtype, torch.dtype] = (
+                    torch.float32, torch.float32)) -> Optional[str]:
     """None when kernel #7 (csrc/flash_fwd.cu) takes a kNN call of this
     configuration, else the limit it exceeds: `pairs` (d_in, channels),
     K neighbor slots, the radial width mid and dtype of h, the keys' and
-    the values' arms (the kernel builds one arm for both)."""
+    the values' arms and W3 storage dtypes (the kernel builds one arm and
+    one storage for both)."""
     limit = _pairs_limit(pairs, d_out, prefix)
     if limit is not None:
         return limit
     if arms[0] != arms[1]:
         return (f'mixed contraction arms (keys {arms[0]}, values {arms[1]}) '
                 f'exceed the kernel, built with one arm for both')
+    if storages[0] != storages[1]:
+        return (f'mixed W3 storage (keys {storages[0]}, values '
+                f'{storages[1]}) exceeds the kernel, built with one storage '
+                f'for both')
     if heads != kv_heads or heads > MAX_HEADS \
             or heads * dim_head != O_WIDTH:
         return (f'heads {heads}, kv_heads {kv_heads}, dim_head {dim_head} '
@@ -504,9 +530,11 @@ def _check(cfg: FlashConfig, ops: dict):
     if h_k is not None and h_k.dtype != h_v.dtype:
         raise TypeError(f'h_v/h_k must have one dtype, got '
                         f'{h_v.dtype}/{h_k.dtype}')
+    w_k = ops['wv'] if cfg.tie else ops['wk']
     limit = flash_limit(cfg.pairs, cfg.d_out, cfg.heads, cfg.kv_heads,
                         Dh // P, K, cfg.prefix, h_v.shape[-1], h_v.dtype,
-                        (cfg.arm_v if cfg.tie else cfg.arm_k, cfg.arm_v))
+                        (cfg.arm_v if cfg.tie else cfg.arm_k, cfg.arm_v),
+                        (w_k.dtype, ops['wv'].dtype))
     if limit is not None:
         raise ValueError(limit)
     IF = _check_xs(cfg, ops['xs'], B, n)
@@ -519,13 +547,27 @@ def _check(cfg: FlashConfig, ops: dict):
         if tuple(ops[name].shape) != (B, n, K, MID):
             raise ValueError(f'{name} must be [{B}, {n}, {K}, {MID}], got '
                              f'{tuple(ops[name].shape)}')
+    scaled = [ops.get(f'w{c}_scale') is not None for c in kv_names]
+    if any(scaled) and not all(scaled):
+        raise ValueError('the kernel takes the keys\' and the values\' W3 '
+                         'both quantized or both float32')
+    storage = ops['wv'].dtype
     for w, b in [(f'w{c}', f'b{c}') for c in kv_names]:
-        if ops[w].dtype != torch.float32 or ops[b].dtype != torch.float32 \
+        want = QUANT_DTYPES if scaled[0] else (torch.float32,)
+        if ops[w].dtype not in want or ops[w].dtype != storage \
+                or ops[b].dtype != torch.float32 \
                 or tuple(ops[w].shape) != (MID, IF, O_WIDTH) \
                 or tuple(ops[b].shape) != (IF, O_WIDTH):
-            raise ValueError(f'{w}/{b} must be float32 [{MID}, {IF}, '
-                             f'{O_WIDTH}] / [{IF}, {O_WIDTH}], got '
-                             f'{tuple(ops[w].shape)} / {tuple(ops[b].shape)}')
+            raise ValueError(f'{w}/{b} must be one of {want} [{MID}, {IF}, '
+                             f'{O_WIDTH}] / float32 [{IF}, {O_WIDTH}], got '
+                             f'{ops[w].dtype} {tuple(ops[w].shape)} / '
+                             f'{tuple(ops[b].shape)}')
+        sc = ops.get(f'{w}_scale')
+        if sc is not None and (sc.dtype != torch.float32
+                               or sc.numel() != IF * O_WIDTH
+                               or tuple(sc.shape[-2:]) != (IF, O_WIDTH)):
+            raise ValueError(f'{w}_scale must be float32 [1, {IF}, '
+                             f'{O_WIDTH}], got {sc.dtype} {tuple(sc.shape)}')
     # the arm's per-edge payload: the SH stack, or the packed frames
     degree = max([d for d, _ in cfg.pairs] + [cfg.d_out])
     if cfg.arm_v == 'so2':
@@ -548,7 +590,8 @@ def _check(cfg: FlashConfig, ops: dict):
                      + [ops[f'{k}{c}'] for c in kv_names
                         for k in ('h_', 'w', 'b')]
                      + [t for t in (nmask, ops.get('prefix_k'),
-                                    ops.get('prefix_v')) if t is not None],
+                                    ops.get('prefix_v'), ops.get('wv_scale'),
+                                    ops.get('wk_scale')) if t is not None],
                      dev)
     return B, n, K, S, cfg.prefix, IF, h_v.dtype == torch.bfloat16
 
@@ -567,37 +610,50 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     if out.numel() == 0:
         return out
     cg, xs, ds, cs, offs = _pair_args(cfg, ops['xs'], q.device)
-    # the kernel's 16-byte copies of h, W3 and b3
+    # the kernel's 16-byte copies of h, W3 and b3 (and the scales)
     ops = dict(ops, **{k: _aligned(ops[k])
-                       for k in ('h_v', 'h_k', 'wv', 'wk', 'bv', 'bk')
+                       for k in ('h_v', 'h_k', 'wv', 'wk', 'bv', 'bk',
+                                 'wv_scale', 'wk_scale')
                        if ops.get(k) is not None})
-    # W_k's (untied) and W_v's bf16 hi and lo halves, split in the launch
-    convs = 1 if cfg.tie else 2
-    w_split = torch.empty(2 * convs * MID * IF * O_WIDTH,
-                          dtype=torch.bfloat16, device=q.device)
-
+    scaled = ops.get('wv_scale') is not None
     ptr = _pointers(ops)
+    head = (q.data_ptr(), *xs, ptr('idx'), ptr('nmask'), ptr('h_v'),
+            ptr('h_k'), ptr('wv'), ptr('wk'), ptr('bv'), ptr('bk'),
+            ptr('fr' if so2 else 'sh'), ptr('prefix_k'), ptr('prefix_v'),
+            cg.data_ptr(), out.data_ptr())
+    ints = (*ds, *cs, *offs, len(cfg.pairs), B, n, K, S, S0, cfg.heads, IF,
+            2 * cfg.d_out + 1, int(bf16), int(cfg.tie), int(so2))
     from .build import load_library
     with torch.cuda.device(q.device):
         lib = load_library()
-        rc = (lib.se3_flash_fwd_so2 if so2 else lib.se3_flash_fwd)(
-            q.data_ptr(), *xs, ptr('idx'), ptr('nmask'), ptr('h_v'),
-            ptr('h_k'), ptr('wv'), ptr('wk'), ptr('bv'), ptr('bk'),
-            ptr('fr' if so2 else 'sh'), ptr('prefix_k'), ptr('prefix_v'),
-            cg.data_ptr(), out.data_ptr(), w_split.data_ptr(), *ds, *cs,
-            *offs, len(cfg.pairs), B, n, K, S, S0, cfg.heads, IF,
-            2 * cfg.d_out + 1, int(bf16), int(cfg.tie), int(so2),
-            float(cfg.scale), _stream(q))
+        if scaled:
+            # the 1-byte storage and its scales as they are: no split
+            rc = (lib.se3_flash_fwd_so2_q if so2 else lib.se3_flash_fwd_q)(
+                *head, ptr('wv_scale'), ptr('wk_scale'), *ints,
+                int(ops['wv'].dtype == torch.float8_e4m3fn),
+                float(cfg.scale), _stream(q))
+        else:
+            # W_k's (untied) and W_v's bf16 hi and lo halves, split in the
+            # launch
+            convs = 1 if cfg.tie else 2
+            w_split = torch.empty(2 * convs * MID * IF * O_WIDTH,
+                                  dtype=torch.bfloat16, device=q.device)
+            rc = (lib.se3_flash_fwd_so2 if so2 else lib.se3_flash_fwd)(
+                *head, w_split.data_ptr(), *ints, float(cfg.scale),
+                _stream(q))
     if rc != 0:
         raise RuntimeError(f'se3_flash_fwd launch failed: CUDA error {rc}')
     flash_attention_fwd.launches += 1
     flash_attention_fwd.so2_launches += so2
+    flash_attention_fwd.scaled_launches += scaled
     return out
 
 
-# every launch counts in .launches, the so2 arm's in .so2_launches too
+# every launch counts in .launches, the so2 arm's in .so2_launches too, the
+# scaled arm's in .scaled_launches
 flash_attention_fwd.launches = 0
 flash_attention_fwd.so2_launches = 0
+flash_attention_fwd.scaled_launches = 0
 flash_attention_fwd.routed = 0
 
 
@@ -605,10 +661,10 @@ flash_attention_fwd.routed = 0
 # the differentiable op
 # --------------------------------------------------------------------- #
 def _ops(q, xs, idx, nmask, h_v, h_k, wv, bv, wk, bk, sh, fr, prefix_k,
-         prefix_v):
+         prefix_v, wv_scale=None, wk_scale=None):
     return dict(q=q, xs=tuple(xs), idx=idx, nmask=nmask, h_v=h_v, h_k=h_k,
                 wv=wv, bv=bv, wk=wk, bk=bk, sh=sh, fr=fr, prefix_k=prefix_k,
-                prefix_v=prefix_v)
+                prefix_v=prefix_v, wv_scale=wv_scale, wk_scale=wk_scale)
 
 
 def _config(pairs, d_out, heads, kv_heads, scale, prefix_k, tie=False,
@@ -676,7 +732,7 @@ def _flash_backward(ctx, g):
     with torch.enable_grad():
         full = {}
         for k in _FULL:
-            want = needs[k] if k != 'xs' else list(needs['xs'])
+            want = needs.get(k) if k != 'xs' else list(needs['xs'])
             if k == 'xs':
                 full[k] = tuple(x.detach().requires_grad_(w)
                                 for x, w in zip(ops[k], want))
@@ -726,10 +782,10 @@ def flash_operands(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
                    prefix_v=None, wv_scale=None, wk_scale=None):
     """flash_attention's arguments as the plain stream and the kernel take
     them: (FlashConfig, ops), every operand contiguous, the so2 frames
-    packed (pack_frames); the JAX options this port does not take raise
-    NotImplementedError. flash_attention_plain(*flash_operands(...)) is the
-    plain stream under autograd, the route of a configuration past
-    flash_limit."""
+    packed (pack_frames); wv_scale / wk_scale make wv / wk quantized
+    storage (the module docstring). flash_attention_plain(
+    *flash_operands(...)) is the plain stream under autograd, the route of
+    a configuration past flash_limit."""
     arm_k = arm_v if arm_k is None else arm_k
     tie = wk is None
     if tie and bk is not None:
@@ -738,9 +794,12 @@ def flash_operands(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
     if not arms <= set(ARMS):
         raise ValueError(f'unknown contraction arm in {sorted(arms)} (known: '
                          f'{ARMS})')
-    if wv_scale is not None or wk_scale is not None:
-        raise NotImplementedError('the quantized w3_scale epilogue is not '
-                                  'ported')
+    for name, sc in (('wv_scale', wv_scale), ('wk_scale', wk_scale)):
+        if sc is not None and not isinstance(sc, torch.Tensor):
+            raise TypeError(f'{name} must be a float32 tensor [1, IF, O], '
+                            f'got {type(sc).__name__}')
+    if tie and wk_scale is not None:
+        raise ValueError('tied keys and values (no wk) take no wk_scale')
     if 'dense' in arms and sh is None:
         raise ValueError('the dense arm needs the sh payload')
     if 'so2' in arms and frames is None:
@@ -759,7 +818,7 @@ def flash_operands(q, xs, idx, nmask, h_v, wv, bv, *, pairs, d_out, heads,
     return cfg, _ops(c(q), [c(x) for x in xs], c(idx), c(nmask), c(h_v),
                      c(h_k), c(wv), c(bv), c(wk), c(bk),
                      c(sh) if 'dense' in arms else None, fr, c(prefix_k),
-                     c(prefix_v))
+                     c(prefix_v), c(wv_scale), c(wk_scale))
 
 
 def flash_attention(q, xs, idx, nmask, h_v, wv, bv, **config) -> torch.Tensor:
@@ -769,8 +828,14 @@ def flash_attention(q, xs, idx, nmask, h_v, wv, bv, **config) -> torch.Tensor:
     'dense' with the SH stack sh, 'so2' with the edge frames dict frames);
     differentiable in q, xs, h_v, h_k, wv, bv, wk, bk, sh, frames and the
     prefix slots. h_k defaults to h_v; without wk (and bk, h_k) the keys
-    are tied to the values."""
+    are tied to the values. With wv_scale (wk_scale) the scaled arm on
+    quantized storage: serving only, no gradient."""
     cfg, ops = flash_operands(q, xs, idx, nmask, h_v, wv, bv, **config)
+    if ops['wv_scale'] is not None or ops['wk_scale'] is not None:
+        serving_only('the quantized wv_scale / wk_scale arm',
+                     *(ops[k] for k in _TENSOR_ARGS if k != 'xs'),
+                     *ops['xs'])
+        return flash_attention_fwd(cfg, ops)
     return _flash_op(*(list(ops[k]) if k == 'xs' else ops[k]
                        for k in _TENSOR_ARGS),
                      [v for pair in cfg.pairs for v in pair], cfg.d_out,

@@ -36,8 +36,16 @@ se3_transformer_tpu/ops/conv.py::_pairwise_contract_pallas,
 ::_pairwise_contract_pallas_bxf and ::_pairwise_contract_pallas_bx with
 their custom_vjps): torch.library
 custom ops, so that a selective activation checkpoint policy sees each
-forward as one op and can save its output. The int8/fp8 `w3_scale`
-epilogue of the JAX fused_pairwise_conv (quantized serving) is not ported.
+forward as one op and can save its output.
+
+Quantized serving (se3_transformer_torch.quant): fused_pairwise_conv
+takes `w3_scale` [1, IF, O] (or [IF, O]) float32 with w3 in int8 or
+float8_e4m3fn storage, the JAX `w3_scale` epilogue: out = v2 . ((h @ w3) *
+scale + b3), h float32 or bf16. On a card this is kernel #3's scaled arm
+(csrc/pairwise_fwd.cu, se3_pairwise_fwd_q), which reads the 1-byte storage
+into its tile and writes no dequantized W3; each of its launches counts in
+`fused_pairwise_conv.launches` and `.scaled_launches`. The arm has no
+backward: a call whose inputs need a gradient raises.
 """
 from __future__ import annotations
 
@@ -56,6 +64,9 @@ SPLIT_TARGET_CTAS = 132  # one CTA per SM of an H100 (both run one per SM)
 SPLIT_MIN_I = 64         # the fewest i values a split takes
 FWD_I_CHUNK = 16         # V2's i chunk in csrc/pairwise_fwd.cu: splits start on one
 DTYPES = (torch.bfloat16, torch.float32)   # h and w3 types the kernels take
+# the quantized storage of w3 that kernel #3's scaled arm takes (and its
+# flag in the C interface: 0 int8, 1 float8_e4m3fn)
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
@@ -256,27 +267,54 @@ fused_pairwise_conv_bx.routed = 0
 # the forward with V2 given
 # ---------------------------------------------------------------------- #
 def fused_pairwise_conv_plain(h: torch.Tensor, w3: torch.Tensor,
-                              v2: torch.Tensor,
-                              b3: torch.Tensor = None) -> torch.Tensor:
-    """The same function in plain PyTorch: R = h.W3 + b3 with float32
-    accumulation (bf16 products are exact in float32), then the per-edge
-    apply. Materializes R [E, IF, O]."""
+                              v2: torch.Tensor, b3: torch.Tensor = None,
+                              w3_scale: torch.Tensor = None) -> torch.Tensor:
+    """The same function in plain PyTorch: R = h.W3 (* w3_scale) + b3 with
+    float32 accumulation (bf16 products, and int8 or fp8 storage upcast,
+    are exact in float32), then the per-edge apply. Materializes R [E, IF,
+    O]."""
     E, mid = h.shape
     _, IF, O = w3.shape
+    if w3_scale is not None:
+        serving_only('the quantized w3_scale arm', h, v2, b3)
     R = torch.matmul(h.float(), w3.float().reshape(mid, IF * O))
     R = R.reshape(E, IF, O)
+    if w3_scale is not None:
+        R = R * w3_scale.reshape(IF, O)
     if b3 is not None:
         R = R + b3.float()
     return torch.bmm(v2.float(), R)
 
 
-def _check_fwd(h, w3, v2, b3):
+def serving_only(what: str, *tensors) -> None:
+    """Refuse a call of a quantized arm whose inputs need a gradient: the
+    int8/fp8 storage is a serving artifact, with no backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f'{what} serves only: no gradient flows through '
+                           f'int8/fp8 storage (run under torch.no_grad or '
+                           f'inference_mode; train the float32 model)')
+
+
+def _check_fwd(h, w3, v2, b3, w3_scale=None):
     dev = h.device
-    for name, t in (('w3', w3), ('v2', v2), ('b3', b3)):
-        if t.device != dev:
+    for name, t in (('w3', w3), ('v2', v2), ('b3', b3),
+                    ('w3_scale', w3_scale)):
+        if t is not None and t.device != dev:
             raise ValueError(f'{name} is on {t.device}, h on {dev}')
-    if w3.dtype != h.dtype:
+    if w3_scale is None and w3.dtype != h.dtype:
         raise TypeError(f'h/w3 must have one dtype, got {h.dtype}/{w3.dtype}')
+    if w3_scale is not None:
+        if w3.dtype not in QUANT_DTYPES or h.dtype not in DTYPES:
+            raise TypeError(f'the scaled arm takes w3 in {QUANT_DTYPES} and '
+                            f'h in {DTYPES}, got {w3.dtype}/{h.dtype}')
+        if w3_scale.dtype != torch.float32 or w3.ndim != 3 or tuple(
+                w3_scale.shape[-2:]) != tuple(w3.shape[1:]) \
+                or w3_scale.numel() != w3.shape[1] * w3.shape[2] \
+                or not w3_scale.is_contiguous():
+            raise ValueError(f'w3_scale must be contiguous float32 [1, IF, O] '
+                             f'for w3 {tuple(w3.shape)}, got {w3_scale.dtype} '
+                             f'{tuple(w3_scale.shape)}')
     for name, t in (('v2', v2), ('b3', b3)):
         if t.dtype != torch.float32:
             raise TypeError(f'{name} must be float32, got {t.dtype}')
@@ -319,16 +357,19 @@ def i_per_split(E: int, IF: int, O: int = O_TILE) -> int:
 
 
 def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
-                        b3: torch.Tensor = None) -> torch.Tensor:
+                        b3: torch.Tensor = None,
+                        w3_scale: torch.Tensor = None) -> torch.Tensor:
     """h [E, mid], w3 [mid, IF, O], v2 [E, P, IF], b3 [IF, O] (zeros when
-    None) -> out [E, P, O] float32: out = v2 . (h@w3 + b3)."""
+    None) -> out [E, P, O] float32: out = v2 . (h@w3 + b3). With w3_scale
+    (float32 [1, IF, O]) w3 is int8 or float8_e4m3fn storage and out =
+    v2 . ((h@w3) * w3_scale + b3): kernel #3's scaled arm, serving only."""
     if h.device.type == 'cpu':
-        return fused_pairwise_conv_plain(h, w3, v2, b3)
+        return fused_pairwise_conv_plain(h, w3, v2, b3, w3_scale=w3_scale)
     if h.device.type != 'cuda':
         raise ValueError(f'no kernel for device {h.device}')
     if b3 is None:
         b3 = torch.zeros(w3.shape[1:], dtype=torch.float32, device=h.device)
-    E, IF, O, P = _check_fwd(h, w3, v2, b3)
+    E, IF, O, P = _check_fwd(h, w3, v2, b3, w3_scale)
     out = torch.empty(E, P, O, dtype=torch.float32, device=h.device)
     if E == 0:
         return out
@@ -336,9 +377,27 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
     splits = -(-IF // per)
     work = out if splits == 1 else torch.empty(
         splits * E * P * O, dtype=torch.float32, device=h.device)
+    bf16 = h.dtype == torch.bfloat16
+    if w3_scale is not None:
+        serving_only('the quantized w3_scale arm', h, v2, b3)
+        # the 1-byte storage goes to the kernel as it is: no split, no
+        # dequantized copy
+        w3 = _aligned(w3)
+        from .build import load_library
+        with torch.cuda.device(h.device):
+            rc = load_library().se3_pairwise_fwd_q(
+                h.data_ptr(), w3.data_ptr(), w3_scale.data_ptr(),
+                b3.data_ptr(), v2.data_ptr(), out.data_ptr(),
+                work.data_ptr(), E, IF, O, P, per, int(bf16),
+                int(w3.dtype == torch.float8_e4m3fn), _stream(h))
+        if rc != 0:
+            raise RuntimeError(f'se3_pairwise_fwd_q launch failed: CUDA '
+                               f'error {rc}')
+        fused_pairwise_conv.launches += 1
+        fused_pairwise_conv.scaled_launches += 1
+        return out
     # float32 w3 is split into its bf16 hi and lo arrays by the kernel's
     # own split pass, into this scratch
-    bf16 = h.dtype == torch.bfloat16
     w3_split = w3 if bf16 else torch.empty(
         2 * w3.numel(), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
@@ -353,7 +412,9 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
     return out
 
 
+# every launch counts in .launches, the scaled arm's in .scaled_launches too
 fused_pairwise_conv.launches = 0
+fused_pairwise_conv.scaled_launches = 0
 fused_pairwise_conv.routed = 0
 
 

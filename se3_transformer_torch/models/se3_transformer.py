@@ -59,6 +59,12 @@ gets its backend, and the forward builds only the payloads its layers
 read (_payloads: the per-pair basis, the SH stack of the dense fused
 blocks, the so2 edge frames).
 
+Quantized serving (se3_transformer_torch.quant.quantize_params, or
+InferenceEngine(precision=...)): a model holding int8/fp8 weights serves
+only. Its forward refuses to run with autograd enabled (a training step
+included), as the JAX package refuses a gradient through the quantized
+tree: no weight is silently dequantized to train.
+
 Every other JAX field is accepted only at its JAX default: any other value
 raises NotImplementedError, so nothing is silently ignored.
 """
@@ -83,6 +89,7 @@ from ..ops.neighbors import (
 )
 from ..ops.rotary import sinusoidal_embeddings
 from ..ops.trunk import SequentialTrunk
+from ..quant.qtensor import is_quantized
 from ..so2.frames import edge_frames
 from ..utils.helpers import (
     batched_index_select, cast_tuple, masked_mean, resolve_device,
@@ -481,6 +488,11 @@ class SE3TransformerModule(nn.Module):
         so that plain inference is reproducible, as JAX's PRNGKey(0)
         default is. Its bits differ from JAX's, which matters only in a
         row with more bonds than max_sparse_neighbors."""
+        if torch.is_grad_enabled() and is_quantized(self):
+            raise RuntimeError(
+                'a quantized model serves only: run it under torch.no_grad() '
+                'or torch.inference_mode(); no gradient flows through int8/'
+                'fp8 weights (train the float32 model, then quantize it)')
         if (self.global_feats_dim is not None) != (global_feats is not None):
             raise ValueError('global features must be passed iff '
                              'global_feats_dim is set')

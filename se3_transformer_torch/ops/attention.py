@@ -54,6 +54,7 @@ from ..kernels import flash as kf
 from ..kernels import routing
 from ..kernels.attention import fused_attention
 from ..kernels.flash import flash_attention, flash_global_attention
+from ..quant.qtensor import weight_or_none
 from ..utils.helpers import batched_index_select, to_order
 from .conv import ConvSE3, EdgeInfo
 from .core import LinearSE3, NormSE3, residual_se3
@@ -61,6 +62,14 @@ from .fiber import Fiber
 from .rotary import apply_rotary_pos_emb
 
 Features = Dict[str, torch.Tensor]
+
+
+def _kernel_weight(w):
+    """(storage, scale) of a grouped w3 for kernel #7: a QuantTensor's q and
+    scale, else the weight as float32 and None (JAX's weight_or_none, with
+    a bf16 cast upcast exactly)."""
+    q, scale = weight_or_none(w)
+    return (q, scale) if scale is not None else (q.float(), None)
 
 
 class AttentionSE3(nn.Module):
@@ -381,24 +390,29 @@ class AttentionSE3(nn.Module):
                                                     self_keys, self_values)
             S0 = 0 if prefix_k is None else prefix_k.shape[2]
             h_v, K = v_prog['h'], neighbor_indices.shape[-1]
+            # quantized grouped w3: the storage and its scale go to the
+            # kernel's scaled arm as they are; a bf16 cast is upcast
+            wv, wv_scale = _kernel_weight(v_prog['w3'][degree])
             args = (queries[degree].reshape(b, n, h, Dh),
                     tuple(features[str(d_in)] for d_in, _ in v_prog['pairs']),
-                    neighbor_indices, neighbor_mask, h_v,
-                    v_prog['w3'][degree], v_prog['b3'][degree])
+                    neighbor_indices, neighbor_mask, h_v, wv,
+                    v_prog['b3'][degree])
             config = dict(pairs=v_prog['pairs'], d_out=int(degree), heads=h,
                           kv_heads=kv_h, scale=self.dim_head ** -0.5,
                           arm_v=v_prog['arm'], sh=basis.get('flash_sh'),
                           frames=basis.get('so2'), prefix_k=prefix_k,
-                          prefix_v=prefix_v)
+                          prefix_v=prefix_v, wv_scale=wv_scale)
             if k_prog is not None:
-                config.update(arm_k=k_prog['arm'], h_k=k_prog['h'],
-                              wk=k_prog['w3'][degree],
-                              bk=k_prog['b3'][degree])
+                wk, wk_scale = _kernel_weight(k_prog['w3'][degree])
+                config.update(arm_k=k_prog['arm'], h_k=k_prog['h'], wk=wk,
+                              bk=k_prog['b3'][degree], wk_scale=wk_scale)
             limit = kf.flash_limit(v_prog['pairs'], int(degree), h, kv_h,
                                    self.dim_head, K, S0,
                                    h_v.shape[-1], h_v.dtype,
                                    arms=(config.get('arm_k', v_prog['arm']),
-                                         v_prog['arm']))
+                                         v_prog['arm']),
+                                   storages=(config.get('wk', wv).dtype,
+                                             wv.dtype))
             if routing.route(kf.flash_attention_fwd, h_v.device.type, limit,
                              (v_prog['pairs'], int(degree), h, kv_h,
                               self.dim_head, K)):

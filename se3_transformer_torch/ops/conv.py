@@ -89,6 +89,9 @@ from ..kernels import routing
 from ..kernels.pairwise import (
     pairwise_contract, pairwise_contract_bx, pairwise_contract_bxf,
 )
+from ..quant.qtensor import (
+    QuantTensor, concat_weights, float_weight, weight_or_none,
+)
 from ..so2.contract import banded_z
 from ..so2.frames import rotate_in, rotate_out
 from ..utils.helpers import (
@@ -155,20 +158,28 @@ def resolve_conv_backend(spec: BackendSpec, layer_name: str) -> str:
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype=None) -> torch.Tensor:
     """flax nn.Dense(dtype=...): input, kernel and bias cast to `dtype`,
-    the product rounded to it, then the bias added in it."""
+    the product rounded to it, then the bias added in it. A quantized
+    kernel (a QuantTensor weight [out, in], scale [out, 1]) is the JAX
+    _QuantDense: the storage contracts in float32, the scale multiplies
+    the product, the float32 bias is added, and the result is float32."""
+    if isinstance(layer.weight, QuantTensor):
+        y = torch.matmul(x.float(), layer.weight.q.float().t())
+        return y * layer.weight.scale.t() + layer.bias
     dtype = dtype or x.dtype
     y = torch.matmul(x.to(dtype), layer.weight.to(dtype).t())
     return y + layer.bias.to(dtype)
 
 
-def layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
-    """flax nn.LayerNorm: float32 statistics with the one-pass variance
-    E[x^2] - E[x]^2 (clipped at 0), result cast back to x's dtype."""
+def layer_norm(x: torch.Tensor, layer: nn.LayerNorm,
+               dtype=None) -> torch.Tensor:
+    """flax nn.LayerNorm(dtype=...): float32 statistics with the one-pass
+    variance E[x^2] - E[x]^2 (clipped at 0), result cast to `dtype` (None:
+    x's dtype)."""
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
     var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp(min=0.)
     mul = torch.rsqrt(var + layer.eps) * layer.weight
-    return ((x32 - mean) * mul + layer.bias).to(x.dtype)
+    return ((x32 - mean) * mul + layer.bias).to(dtype or x.dtype)
 
 
 def unflatten_basis(basis_flat: torch.Tensor, P: int, Q: int,
@@ -223,10 +234,13 @@ def _radial_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     """h [b,n,k,mid], w3 [mid,IF,O], b3 [IF,O], v2 [b,n,k,P,IF] ->
     [b,n,k,P,O] through pairwise_contract (or, past the kernels' limits on
     a card, its plain version), optionally streaming the node axis in
-    `edge_chunks` chunks."""
+    `edge_chunks` chunks. A QuantTensor w3 takes kernel #3's scaled arm
+    (fused_pairwise_conv with w3_scale): serving only, no backward."""
     P, IF = v2.shape[-2:]
     mid, O = h.shape[-1], w3.shape[-1]
-    w3c = w3.to(h.dtype)
+    w3c, w3_scale = weight_or_none(w3)
+    if w3_scale is None:
+        w3c = w3c.to(h.dtype)
     limit = kp.pairwise_limit('fwd', mid, O, P, dtype=h.dtype)
 
     def contract(h_c, v2_c):
@@ -236,7 +250,11 @@ def _radial_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
         v2_2 = v2_c.reshape(E, P, IF).contiguous()
         if routing.route(kp.fused_pairwise_conv, h2.device.type, limit,
                          (mid, IF, O, P)):
-            out = kp.fused_pairwise_conv_plain(h2, w3c, v2_2, b3)
+            out = kp.fused_pairwise_conv_plain(h2, w3c, v2_2, b3,
+                                               w3_scale=w3_scale)
+        elif w3_scale is not None:
+            out = kp.fused_pairwise_conv(h2, w3c, v2_2, b3,
+                                         w3_scale=w3_scale)
         else:
             out = pairwise_contract(h2, w3c, b3, v2_2)
         return out.reshape(*lead, P, O)
@@ -251,10 +269,12 @@ def _radial_contract_bx(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     """Basis-fused: h [b,n,k,mid], w3 [mid,C*F,O], b3 [C*F,O], the flat
     basis [b,n,k,P*F*Q] (through pairwise_contract_bxf) or the structured
     one [b,n,k,P,Q,F] (through pairwise_contract_bx), x [b,n,k,C,Q] ->
-    [b,n,k,P,O], optionally streaming the node axis."""
+    [b,n,k,P,O], optionally streaming the node axis. A QuantTensor w3 is
+    dequantized as a transient (kernels #1 and #2 take no scale epilogue,
+    as in JAX)."""
     P, Q, F = pqf
     C, O, mid = x.shape[-2], w3.shape[-1], h.shape[-1]
-    w3c = w3.to(h.dtype)
+    w3c = float_weight(w3).to(h.dtype)
     flat = _basis_is_flat(basis, x)
     limit = kp.pairwise_limit('bxf' if flat else 'bx', mid, O, P, Q, h.dtype)
 
@@ -298,9 +318,10 @@ def radial_hidden(module: nn.Module, x: torch.Tensor,
                   dtype=None) -> torch.Tensor:
     """Dense -> LayerNorm -> GELU, twice, in `dtype` (None: x's), with the
     layers add_radial_trunk put on `module`."""
-    x = gelu(layer_norm(dense(x, module.Dense_0, dtype), module.LayerNorm_0))
+    x = gelu(layer_norm(dense(x, module.Dense_0, dtype), module.LayerNorm_0,
+                        dtype))
     return gelu(layer_norm(dense(x, module.Dense_1, dtype),
-                           module.LayerNorm_1))
+                           module.LayerNorm_1, dtype))
 
 
 class PairwiseConvSE3(nn.Module):
@@ -451,11 +472,13 @@ class ConvSE3(nn.Module):
 
     def _grouped(self):
         """Per output degree, the pairs' w3 [mid, IF, c_out] and b3 [IF,
-        c_out] concatenated along IF in fiber_in order."""
+        c_out] concatenated along IF in fiber_in order (quantized w3 as
+        one QuantTensor)."""
         w3s, b3s = {}, {}
         for d_out, _ in self.fiber_out:
-            w3s[str(d_out)] = torch.cat([getattr(self, f'w3_{d_in}_{d_out}')
-                                         for d_in, _ in self.fiber_in], dim=1)
+            w3s[str(d_out)] = concat_weights(
+                [getattr(self, f'w3_{d_in}_{d_out}')
+                 for d_in, _ in self.fiber_in], axis=1)
             b3s[str(d_out)] = torch.cat([getattr(self, f'b3_{d_in}_{d_out}')
                                          for d_in, _ in self.fiber_in], dim=0)
         return w3s, b3s
@@ -473,11 +496,14 @@ class ConvSE3(nn.Module):
     def _global_program(self) -> dict:
         """The program of JAX ConvSE3(global_radial=True): the trunk's raw
         parameters in flax orientation (Dense kernels [in, out]) and the
-        grouped w3/b3."""
+        grouped w3/b3, float32: quantized weights dequantized as a
+        transient (the global kernel takes no scale epilogue, as in
+        JAX)."""
         w3s, b3s = self._grouped()
-        rp = (self.Dense_0.weight.t(), self.Dense_0.bias,
+        w3s = {d: float_weight(w) for d, w in w3s.items()}
+        rp = (float_weight(self.Dense_0.weight).t(), self.Dense_0.bias,
               self.LayerNorm_0.weight, self.LayerNorm_0.bias,
-              self.Dense_1.weight.t(), self.Dense_1.bias,
+              float_weight(self.Dense_1.weight).t(), self.Dense_1.bias,
               self.LayerNorm_1.weight, self.LayerNorm_1.bias)
         return dict(rp=rp, pairs=tuple((d, c) for d, c in self.fiber_in),
                     arm=self.backend, w3=w3s, b3=b3s)
@@ -557,7 +583,7 @@ class ConvSE3(nn.Module):
                 v2 = torch.einsum('...pqf,...cq->...pcf', basis_pair, x)
                 v2s.append(v2.reshape(*v2.shape[:-2], m_in * F))
             if v2s:
-                acc = _radial_contract(hidden, torch.cat(w3s, dim=1),
+                acc = _radial_contract(hidden, concat_weights(w3s, axis=1),
                                        torch.cat(b3s, dim=0),
                                        torch.cat(v2s, dim=-1),
                                        self.edge_chunks)

@@ -14,6 +14,7 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
+from ..quant.qtensor import QuantTensor
 from ..utils.helpers import safe_norm
 from .fiber import Fiber
 
@@ -34,6 +35,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
+def channel_mix(x: torch.Tensor, w) -> torch.Tensor:
+    """The per-degree channel contraction x [..., c, m] @ w [c, e] ->
+    [..., e, m] (the JAX channel_mix). A QuantTensor contracts in its
+    storage form, upcast, and its per-output-channel scale multiplies the
+    product: the float32 weight never exists. A bf16 weight is upcast, as
+    the JAX einsum promotes it."""
+    if isinstance(w, QuantTensor):
+        out = torch.einsum('...cm,ce->...em', x.float(), w.q.float())
+        return out * w.scale[0][:, None]
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum('...cm,ce->...em', x.to(dtype), w.to(dtype))
+
+
 def residual_se3(x: Features, res: Features) -> Features:
     """Degree-wise residual add; keys may differ."""
     return {d: t + res[d] if d in res else t for d, t in x.items()}
@@ -41,7 +55,8 @@ def residual_se3(x: Features, res: Features) -> Features:
 
 class LinearSE3(nn.Module):
     """Per-degree channel-mixing linear map over the degrees present in
-    both fibers; w{d} is [dim_in, dim_out] as in flax."""
+    both fibers; w{d} is [dim_in, dim_out] as in flax (or its QuantTensor,
+    or a bf16 cast, after quant.quantize_params)."""
 
     def __init__(self, fiber_in: Fiber, fiber_out: Fiber):
         super().__init__()
@@ -51,8 +66,7 @@ class LinearSE3(nn.Module):
                 f'w{degree}', nn.Parameter(torch.zeros(dim_in, dim_out)))
 
     def forward(self, x: Features) -> Features:
-        return {str(d): torch.einsum('...cm,ce->...em', x[str(d)],
-                                     getattr(self, f'w{d}'))
+        return {str(d): channel_mix(x[str(d)], getattr(self, f'w{d}'))
                 for d, _, _ in self.pairs}
 
 

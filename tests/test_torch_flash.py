@@ -275,8 +275,11 @@ def test_recompute_backward_matches_jax_grad():
 @pytest.mark.parametrize('over', [dict(arm_v='so2', wv_scale=1.0),
                                   dict(wk_scale=1.0), dict(wv_scale=1.0)])
 def test_unported_options_raise(over):
+    """The quantized scales are ported (tests/test_torch_quant.py); a scale
+    that is not a float32 [1, IF, O] tensor is refused before any arm or
+    operand check."""
     t = _torch_ops(_inputs())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match='_scale must be a float32 tensor'):
         _run_port(t, **over)
 
 

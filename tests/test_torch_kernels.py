@@ -1435,3 +1435,204 @@ def test_cuda_equivariance_configs_match_cpu(cuda_card, case):
     out_r = run(model, 'cuda', feats_r, rotate(coors))
     expected = rotate(outs['cuda']) if return_type else outs['cuda']
     assert np.abs(out_r - expected).max() < 1e-4
+
+
+# ---------------------------------------------------------------------- #
+# the scaled arms of #3 and #7 (quantized serving, se3_transformer_torch
+# .quant): W3 as int8 or fp8 storage with a float32 scale per (i, o)
+# ---------------------------------------------------------------------- #
+from se3_transformer_torch import quant  # noqa: E402
+
+QUANT_STORAGES = ('int8', 'fp8_e4m3')
+# the scaled arms against their plain versions, relative to max|plain|:
+# the same exact products (int8 and e4m3 are exact in bf16) summed in
+# float32 in other orders
+QUANT_RTOL = 1e-5
+
+
+def _quantized(w, storage):
+    qt = quant.quantize(w, (0,), storage)
+    return qt.q, qt.scale
+
+
+def _fwd_q_args(P=5, IF=70, e=96, dtype=torch.bfloat16, storage='int8',
+                seed=5):
+    """_fwd_args with W3 quantized: (h, q, v2, b3, scale)."""
+    h, w3, v2, b3 = _fwd_args(P, IF, e, torch.float32, seed)
+    q, scale = _quantized(w3, storage)
+    return [h.to(dtype), q, v2, b3, scale]
+
+
+def test_cpu_scaled_forward_never_counts_a_launch():
+    h, q, v2, b3, scale = _fwd_q_args(e=70)
+    before = (kp.fused_pairwise_conv.launches,
+              kp.fused_pairwise_conv.scaled_launches)
+    out = kp.fused_pairwise_conv(h, q, v2, b3, w3_scale=scale)
+    assert tuple(out.shape) == (70, 5, kp.O_TILE)
+    assert (kp.fused_pairwise_conv.launches,
+            kp.fused_pairwise_conv.scaled_launches) == before
+    ref = kp.fused_pairwise_conv_plain(
+        h, q.float() * scale, v2, b3)
+    assert (out - ref).abs().max() <= QUANT_RTOL * ref.abs().max()
+
+
+@pytest.mark.parametrize('bad', ['float_w3', 'scale_dtype', 'scale_shape',
+                                 'h_dtype', 'noncontig_scale'])
+def test_scaled_fwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    h, q, v2, b3, scale = _fwd_q_args()
+    assert kp._check_fwd(h, q, v2, b3, scale) == (96, 70, kp.O_TILE, 5)
+    if bad == 'float_w3':
+        q = q.float()
+    elif bad == 'scale_dtype':
+        scale = scale.double()
+    elif bad == 'scale_shape':
+        scale = scale[..., :-1].contiguous()
+    elif bad == 'h_dtype':
+        h = h.half()
+    elif bad == 'noncontig_scale':
+        scale = scale.expand(2, -1, -1)[:1].transpose(1, 2).contiguous() \
+            .transpose(1, 2)
+    with pytest.raises((TypeError, ValueError)):
+        kp._check_fwd(h, q, v2, b3, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('storage', QUANT_STORAGES)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('P,IF,e', [(1, 20, 64), (3, 35, 200), (5, 70, 1000),
+                                    (7, 80, 77), (7, 1024, 4096),
+                                    (3, 640, 4133), (7, 1001, 300)])
+def test_cuda_scaled_fwd_matches_plain(cuda_card, storage, dtype, P, IF, e):
+    """#3's scaled arm against its plain version: int8 and fp8, float32
+    and bf16 h, ragged E, IF off the 16-wide chunk, i splits; each launch
+    counted in .launches and .scaled_launches, the same bits on a
+    repeat."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() for a in _fwd_q_args(P, IF, e, dtype, storage)]
+    h, q, v2, b3, scale = args
+    before = (kp.fused_pairwise_conv.launches,
+              kp.fused_pairwise_conv.scaled_launches)
+    out = kp.fused_pairwise_conv(h, q, v2, b3, w3_scale=scale)
+    again = kp.fused_pairwise_conv(h, q, v2, b3, w3_scale=scale)
+    torch.cuda.synchronize()
+    assert (kp.fused_pairwise_conv.launches,
+            kp.fused_pairwise_conv.scaled_launches) == (before[0] + 2,
+                                                        before[1] + 2)
+    assert torch.equal(out, again)
+    ref = kp.fused_pairwise_conv_plain(h, q, v2, b3, w3_scale=scale)
+    assert (out - ref).abs().max() <= QUANT_RTOL * ref.abs().max()
+
+
+def _flash_q(cfg, ops, storage):
+    """A kNN (cfg, ops) with W_v (and, untied, W_k) quantized."""
+    ops = dict(ops)
+    for c in ('v',) if cfg.tie else ('k', 'v'):
+        ops[f'w{c}'], ops[f'w{c}_scale'] = _quantized(ops[f'w{c}'], storage)
+    return cfg, ops
+
+
+def test_flash_check_takes_scaled_weights():
+    """The wrapper's check takes int8 / fp8 W3 with float32 scales, and
+    refuses a float32 W3 beside a scale, a scale on one conv alone, and a
+    mis-shaped scale."""
+    cfg, ops = _flash_q(*_flash_case(), 'int8')
+    assert kf._check(cfg, ops)[:5] == (1, 13, 6, 49, 1)
+    plain_cfg, plain_ops = _flash_case()
+    for bad in (dict(ops, wv=plain_ops['wv']), dict(ops, wk_scale=None),
+                dict(ops, wv_scale=ops['wv_scale'][..., :-1].contiguous())):
+        with pytest.raises((TypeError, ValueError)):
+            kf._check(cfg, bad)
+
+
+def test_cpu_flash_scaled_never_counts_a_launch():
+    cfg, ops = _flash_q(*_flash_case(), 'fp8_e4m3')
+    before = (kf.flash_attention_fwd.launches,
+              kf.flash_attention_fwd.scaled_launches)
+    out = kf.flash_attention_fwd(cfg, ops)
+    assert out.shape == ops['q'].shape
+    assert (kf.flash_attention_fwd.launches,
+            kf.flash_attention_fwd.scaled_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('storage', QUANT_STORAGES)
+@pytest.mark.parametrize('arm', ['dense', 'so2'])
+@pytest.mark.parametrize('tie', [False, True])
+@pytest.mark.parametrize('h_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('d_out,n,K,prefix,wide', [
+    (0, 13, 6, 1, False), (2, 37, 30, 0, True), (3, 40, 32, 2, True)])
+def test_cuda_flash_scaled_matches_plain(cuda_card, storage, arm, tie,
+                                         h_dtype, d_out, n, K, prefix, wide):
+    """#7's scaled arm against its plain stream: int8 and fp8, dense and
+    so2, untied and tied, bf16 and float32 h, ragged n and K; each launch
+    counted in .launches and .scaled_launches, the same bits on a
+    repeat."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pairs = FLAGSHIP_PAIRS if wide else ((0, 5), (1, 3), (2, 4), (3, 2))
+    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
+    cfg, ops = _flash_case(d_out, n, K, prefix, True, h_dtype, pairs=pairs,
+                           w_scale=(kf.MID * IF) ** -0.5 if wide else None)
+    if arm == 'so2':
+        cfg, ops = _so2(cfg, ops)
+    if tie:
+        cfg, ops = _tied(cfg, ops)
+    cfg, ops = _flash_q(cfg, ops, storage)
+    ops = _on_card(ops)
+    before = (kf.flash_attention_fwd.launches,
+              kf.flash_attention_fwd.scaled_launches)
+    out = kf.flash_attention_fwd(cfg, ops)
+    again = kf.flash_attention_fwd(cfg, ops)
+    torch.cuda.synchronize()
+    assert (kf.flash_attention_fwd.launches,
+            kf.flash_attention_fwd.scaled_launches) == (before[0] + 2,
+                                                        before[1] + 2)
+    assert torch.equal(out, again)
+    ref = kf.flash_attention_plain(cfg, ops)
+    assert (out - ref).abs().max() <= QUANT_RTOL * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rules', [
+    ((r'to_v/w3_\d+_\d+$', 'int8', 3), (r'.*', 'fp32')),
+    ((r'to_k/w3_\d+_\d+$', 'int8', 3), (r'to_v/w3_\d+_\d+$', 'fp8_e4m3', 3),
+     (r'.*', 'fp32'))], ids=['values_int8', 'keys_int8_values_fp8'])
+def test_cuda_mixed_kv_storage_routes_to_the_plain_stream(
+        cuda_card, monkeypatch, rules):
+    """A rule list that gives the keys' and the values' W3 different
+    storage: kernel #7 (one storage for both) is past flash_limit, so each
+    streaming call routes to the plain stream (.routed, no #7 launch) and
+    the output matches the same weights on the CPU within 1e-4."""
+    import copy
+    from se3_transformer_torch import SE3TransformerModule
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # flagship_fast's widths at depth 1 with a float32 trunk
+    host = SE3TransformerModule(
+        dim=64, depth=1, num_degrees=4, heads=8, dim_head=8,
+        attend_self=True, num_neighbors=16, shared_radial_hidden=True,
+        fuse_basis=True, fuse_pairwise=True, device='cpu',
+        generator=torch.Generator().manual_seed(4)).eval()
+    quant.quantize_params(host, rules)
+    card = copy.deepcopy(host).to('cuda')
+    rng = np.random.RandomState(3)
+    n = 48
+    inputs = (rng.normal(size=(1, n, 64)).astype(np.float32),
+              np.cumsum(rng.normal(size=(1, n, 3)), 1).astype(np.float32),
+              np.ones((1, n), bool))
+    monkeypatch.setattr(kf.flash_attention_fwd, 'routed', 0)
+    monkeypatch.setattr(routing, '_WARNED', set())
+    launches = kf.flash_attention_fwd.launches
+    outs = {}
+    for model, device in ((card, 'cuda'), (host, 'cpu')):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter('always')
+            with torch.inference_mode():
+                outs[device] = model(*(torch.from_numpy(a).to(device)
+                                       for a in inputs)).cpu().numpy()
+        if device == 'cuda':
+            assert any('mixed W3 storage' in str(w.message) for w in seen)
+    # one streaming block, one call per output degree
+    assert kf.flash_attention_fwd.routed == 4
+    assert kf.flash_attention_fwd.launches == launches
+    assert np.isfinite(outs['cuda']).all()
+    assert np.abs(outs['cuda'] - outs['cpu']).max() <= \
+        1e-4 * np.abs(outs['cpu']).max()

@@ -51,6 +51,17 @@ failure:
               so2, untied and tied), each within QUANT_RTOL of its plain
               version, timed beside the float arm on the dequantized
               weights (`fwd_q`, `flash_q` lines).
+  conv_bf16   the bf16-storage arms (conv_bf16: the equivariant operand
+              stored bf16, upcast exactly where it is used): #1's at the 16
+              flagship_fast pairs (E = 32768, bf16 h; #2's structured basis
+              the same bits), #3's at the flagship's four output degrees
+              and A's and B's at its grouped training shapes (float32 h, E
+              = 4096 and 32768), each within KERNEL_RTOL of its plain
+              version on the same bf16 operands and the same bits on a
+              repeat, timed beside the float32 arm on the upcast operands,
+              its bound counting 2-byte operands, the plain version's and
+              the library einsum's times (`kernel_v16`, `fwd_v16`,
+              `backward_v16` lines).
   bx          kernel #2's path: a hidden ConvSE3 of flagship_fast given
               the structured basis at E = 32768, exactly 16 launches of #2;
               the conv against the flat basis through #1 (the same bits),
@@ -91,6 +102,14 @@ failure:
               launches of #3 and exactly 4 routed (conv_in's and
               conv_out's O = 32 pairs) each, invariance of its scalar
               output, a profiled forward.
+              conv_bf16: flagship_fast(conv_bf16=True) (200 #1 a request,
+              all by the bf16 basis/x arm) and flagship(conv_bf16=True)
+              (424 #3, all by the bf16-V2 arm), invariance within
+              ROTATION_RTOL. egnn_stress (the EGNN backbone,
+              dim 16, depth 12, k 16) at bucket EGNN_N = 512, return_type 1
+              ([n, 16, 3]): no launch, exactly 2 routed calls a forward
+              (conv_in's O = 16 pairs), equivariance, busy, idle share and
+              peak memory (`egnn_serve`).
   7. train    the denoise training step (the vector head: output_degrees=2,
               reduce_dim_out=True) at n=1024 with Adam, for flagship_fast,
               flagship_fast(pallas_attention=True) and flagship: finite
@@ -105,8 +124,13 @@ failure:
               af2_refinement: 16 fwd, 16 +
               16 backward, exactly 6 routed; molecular_edges:
               property_loss on its pooled scalar head, 16 fwd, 16 + 16
-              backward, exactly 4 routed), step time, nodes*steps/s, peak
-              memory and a profile.
+              backward, exactly 4 routed; flagship_fast(conv_bf16): 204
+              #1 by the bf16 arm, 200 + 200 A and B by the float32 arm;
+              flagship(conv_bf16): 816 #3, 424 + 424 A and B, all by the
+              bf16-V2 arm; egnn_stress at n = 512 on
+              scripts/run_baselines.py's objective, the mean square of its
+              degree-1 output: no launch, 2 routed), step time,
+              nodes*steps/s, peak memory and a profile.
   route       C1's repair: models past the kernels' limits (the JAX
               DenoiseConfig widths, dim 8, heads 2, dim_head 8, two
               degrees; and with fuse_pairwise, heads * dim_head = 16,
@@ -132,7 +156,12 @@ failure:
               model, untied and tied, at n 64 on the card against the CPU,
               forward and one backward through the replay; small
               quantized models (QUANT_CASES, int8_mix and fp8_mix) on
-              the card against the same quantized weights on the CPU.
+              the card against the same quantized weights on the CPU; the
+              rest of the model surface (FIELD_CASES: conv_bf16 under
+              both recipes, norm_gated_scale, the EGNN trunk plain and with
+              adjacency edges, pallas=False, which launches and routes
+              nothing, precomputed neighbor lists), the vector output and
+              one step's loss and every gradient.
 
 Prints per-shape, per-request and per-step lines, then the nvidia-smi line,
 a {"kernels": [...]} JSON line and, last, {"ok": true, "device": {...}}.
@@ -226,10 +255,27 @@ SO2_TRAIN_LAUNCHES = 4 + DEPTH * 8 + 2
 SO2_BWD_LAUNCHES = 4 + DEPTH * 8 + 1
 SO2_FLASH_FWD_LAUNCHES = 4 + 1
 
+# conv_bf16 (the bf16 storage of V2, or of the basis and x): served as
+# flagship_fast, a request launches #1 as the float32 model does, every
+# launch by its bf16-storage arm; a step's backward rebuilds V2 in float32
+# from the upcast residuals, so A and B run their float32 arm. flagship's
+# #3, A and B launches (its replay's included) all take the bf16-V2 arm.
+# The rounding of rotating tensors to bf16 costs equivariance, in the JAX
+# package as here, but the served scalar output stays invariant within
+# ROTATION_RTOL of max|out| as every other path's does.
+# egnn_stress (dim 16, depth 12 EGNN layers and feedforwards, k = 16) at
+# scripts/run_baselines.py's n = 512: its only convolution is conv_in, a
+# radial trunk per pair (0 -> 0, 0 -> 1) of O = 16, which no kernel takes
+# (O tiles of 64): 2 routed contractions a forward, no launch
+EGNN_N = 512
+EGNN_ROUTED = 2
+
 # the launch counters, in the order of every launch tuple below; the so2
-# arms' and the scaled arms' launches count in their kernel's total too
+# arms', the scaled arms' and the conv_bf16 arms' launches count in their
+# kernel's total too
 COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
-               'global', 'flash_so2', 'global_so2', 'fwd_q', 'flash_q')
+               'global', 'flash_so2', 'global_so2', 'fwd_q', 'flash_q',
+               'bxf_v16', 'fwd_v16', 'A_v16', 'B_v16')
 # the wrappers' counts of calls routed past the kernel to its plain
 # version, by the layer that calls them (kernels A and B take every width
 # the pairwise forwards take, so the backward of a launched call runs
@@ -395,9 +441,10 @@ def library_conv(h_aug, w3_aug, v2):
     return torch.einsum('em,mio,epi->epo', h_aug, w3_aug, v2)
 
 
-def pairwise_cost(E, mid, C, O, P, Q, F, h_bytes, peaks):
+def pairwise_cost(E, mid, C, O, P, Q, F, h_bytes, peaks, v_bytes=4):
     """(bound_ms, bound_by, flops, bound_ms_fma) of one
-    fused_pairwise_conv_bxf call: each input read once, the output written
+    fused_pairwise_conv_bxf call: each input read once (the basis and x at
+    v_bytes a value: 2 for conv_bf16's storage), the output written
     once. The V2 build and apply run at the float32 CUDA-core rate, beside
     the radial product on the tensor cores, so the operations take the
     longer of the two pipes: one bf16 pass, or with float32 h three (the
@@ -410,7 +457,7 @@ def pairwise_cost(E, mid, C, O, P, Q, F, h_bytes, peaks):
     passes = 1 if h_bytes == 2 else 3
     ops_s = max(passes * radial / bf16_peak, apply / f32_peak)
     nbytes = (E * mid * h_bytes + mid * C * F * O * h_bytes + C * F * O * 4
-              + E * P * F * Q * 4 + E * C * Q * 4 + E * P * O * 4)
+              + (E * P * F * Q + E * C * Q) * v_bytes + E * P * O * 4)
     bytes_s = nbytes / mem
     bound_by = 'operations' if ops_s >= bytes_s else 'bytes'
     fma_s = max((radial + apply) / f32_peak, bytes_s)
@@ -522,10 +569,11 @@ def grouped_if(d_out, C=64, degrees=4):
     return C * sum(2 * min(d_in, d_out) + 1 for d_in in range(degrees))
 
 
-def fwd_cost(E, mid, IF, O, P, h_bytes, peaks):
+def fwd_cost(E, mid, IF, O, P, h_bytes, peaks, v_bytes=4):
     """(bound_ms, bound_by, flops, bound_ms_fma) of one fused_pairwise_conv
-    call (V2 given) as the kernel does the work: each input read once, the
-    output written once. The radial product runs on the tensor cores, one
+    call (V2 given) as the kernel does the work: each input read once (V2
+    at v_bytes a value: 2 for conv_bf16's storage), the output written
+    once. The radial product runs on the tensor cores, one
     bf16 pass for bf16 h/w3 and three (hi.hi, hi.lo, lo.hi of the operands
     split into bf16 hi + lo) for float32, while the apply runs on the
     float32 CUDA cores at the same time: the operations take the longer of
@@ -539,7 +587,7 @@ def fwd_cost(E, mid, IF, O, P, h_bytes, peaks):
     ops_s = max(passes * radial / bf16_peak, apply / f32_peak)
     fma_s = ops_s if h_bytes == 2 else (radial + apply) / f32_peak
     nbytes = (E * mid * h_bytes + mid * IF * O * h_bytes + IF * O * 4
-              + E * P * IF * 4 + E * P * O * 4)
+              + E * P * IF * v_bytes + E * P * O * 4)
     bytes_s = nbytes / mem
     return max(ops_s, bytes_s) * 1e3, \
         'operations' if ops_s >= bytes_s else 'bytes', radial + apply, \
@@ -566,11 +614,14 @@ def phase_fwd(kp, peaks):
     return rows, worst
 
 
-def check_fwd(kp, peaks, cases, seed):
+def check_fwd(kp, peaks, cases, seed, v16=False):
     """Each case (label, E, P, IF, h dtype, O): kernel #3 against its plain
     version, bit-identical across two runs, and the times: kernel, plain
     version, and the library yardstick (the einsum that computes the same
-    conv from V2)."""
+    conv from V2). With `v16` V2 is stored bf16 (conv_bf16): the arm's
+    launches, its plain version on the same bf16 V2, the bound with 2-byte
+    V2, and beside them the float32 arm's time on the upcast V2
+    (float_ms)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
     mid = 128
@@ -580,6 +631,8 @@ def check_fwd(kp, peaks, cases, seed):
         w3 = (torch.randn(mid, IF, O, device=dev, generator=gen)
               * mid ** -0.5).to(hdt)
         v2 = torch.randn(E, P, IF, device=dev, generator=gen)
+        if v16:
+            v2 = v2.to(torch.bfloat16)
         b3 = torch.randn(IF, O, device=dev, generator=gen) * 0.1
         args = (h, w3, v2, b3)
         out = kp.fused_pairwise_conv(*args)
@@ -598,13 +651,17 @@ def check_fwd(kp, peaks, cases, seed):
         worst = max(worst, err)
         del out, again, ref
         ms = cuda_ms(lambda: kp.fused_pairwise_conv(*args), reps=10)
+        float_args = (h, w3, v2.float(), b3)
+        float_ms = cuda_ms(lambda: kp.fused_pairwise_conv(*float_args),
+                           reps=10) if v16 else None
         plain_ms = cuda_ms(lambda: kp.fused_pairwise_conv_plain(*args),
                            reps=3)
-        lib = (*radial_library(h, w3, b3), v2)
+        lib = (*radial_library(h, w3, b3), v2.float())
         library_ms = cuda_ms(lambda: library_conv(*lib), reps=3)
-        del lib
+        del lib, float_args
         bound_ms, bound_by, flops, bound_ms_fma = fwd_cost(
-            E, mid, IF, O, P, 2 if hdt == torch.bfloat16 else 4, peaks)
+            E, mid, IF, O, P, 2 if hdt == torch.bfloat16 else 4, peaks,
+            v2.element_size())
         row = dict(label, P=P, IF=IF, O=O, E=E,
                    h_dtype=str(hdt).split('.')[-1],
                    i_per_split=kp.i_per_split(E, IF, O),
@@ -612,8 +669,10 @@ def check_fwd(kp, peaks, cases, seed):
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    bound_ms_fma=bound_ms_fma, tflops=flops / ms / 1e9)
+        if v16:
+            row.update(v2_dtype='bfloat16', float_ms=float_ms)
         rows.append(row)
-        log('fwd', json.dumps(row))
+        log('fwd_v16' if v16 else 'fwd', json.dumps(row))
         del args, h, w3, v2, b3
         torch.cuda.empty_cache()
     return rows, worst
@@ -708,10 +767,11 @@ def phase_fwd_q(kp, peaks):
     return rows, worst
 
 
-def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks):
+def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks, v_bytes=4):
     """(bound_ms, bound_by, bound_ms_fma) of backward kernel 'a' (R
     recompute, dV2, dR, dW3, dB3) or 'b' (dR, dH) as the kernels do the
-    work: each input read once, each output written once. The products run
+    work: each input read once (V2 at v_bytes a value: 2 for conv_bf16's
+    storage; dV2 is written float32), each output written once. The products run
     on the tensor cores at the bf16 rate while the P-contractions and dB3
     run on the float32 CUDA cores at the same time: the operations take the
     longer of the two pipes. Kernel A: with bf16 h/w3 the R recompute is
@@ -730,14 +790,14 @@ def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks):
         cuda = 2 * pcontract + E * IF * O
         fma_ops = radial * 2 + cuda
         nbytes = (E * mid * h_bytes + mid * IF * O * h_bytes + IF * O * 4
-                  + 2 * E * P * IF * 4 + E * P * O * 4 + mid * IF * O * 4
-                  + IF * O * 4)
+                  + E * P * IF * (v_bytes + 4) + E * P * O * 4
+                  + mid * IF * O * 4 + IF * O * 4)
     else:
         passes = 2 if h_bytes == 2 else 3
         cuda = pcontract
         fma_ops = radial + pcontract
-        nbytes = (mid * IF * O * h_bytes + E * P * IF * 4 + E * P * O * 4
-                  + E * mid * 4)
+        nbytes = (mid * IF * O * h_bytes + E * P * IF * v_bytes
+                  + E * P * O * 4 + E * mid * 4)
     ops_s = max(passes * radial / bf16_peak, cuda / f32_peak)
     bytes_s = nbytes / mem
     return max(ops_s, bytes_s) * 1e3, \
@@ -816,12 +876,108 @@ def phase_backward_molecular(kp, peaks):
     return fwd_rows, fwd_worst, bwd_rows, bwd_worst, routed_rows
 
 
-def check_backward(kp, peaks, cases, seed):
+def phase_conv_bf16_bxf(st, kp, peaks):
+    """conv_bf16's arm of kernels #1 and #2 (the basis and x stored bf16,
+    upcast where V2 is built) at the flagship_fast unit: the 16 pairs of a
+    hidden ConvSE3 at E = 32768 (and a ragged E for one pair), bf16 h. Each
+    within KERNEL_RTOL of its plain version on the same bf16 operands, the
+    same bits on a repeat, and #2 (the structured bf16 basis) the same bits
+    as #1; its time, its bound (2-byte basis and x), its plain version's,
+    the float32 arm's on the upcast operands (float_ms) and the library
+    einsum's on the upcast V2. Returns the rows and the worst error."""
+    gen = torch.Generator(device='cuda').manual_seed(33)
+    E, mid, C, O = 32768, 128, 64, 64
+    bf16 = torch.bfloat16
+    rel = torch.randn(E, 3, device='cuda', generator=gen) * 4.0
+    flat, pqf = (st.get_basis(rel, 3, layout=lay)
+                 for lay in ('pfq_flat', 'pqf'))
+    cases = [(di, do, E) for di in range(4) for do in range(4)]
+    cases.append((2, 1, E - 37))
+    rows, worst = [], 0.0
+    for di, do, e in cases:
+        P, Q, F = 2 * do + 1, 2 * di + 1, 2 * min(di, do) + 1
+        h = torch.randn(e, mid, device='cuda', generator=gen).to(bf16)
+        w3 = (torch.randn(mid, C * F, O, device='cuda', generator=gen)
+              * mid ** -0.5).to(bf16)
+        b3 = torch.randn(C * F, O, device='cuda', generator=gen) * 0.1
+        b16 = flat[f'{di},{do}'][:e].to(bf16).contiguous()
+        s16 = pqf[f'{di},{do}'][:e].to(bf16).contiguous()
+        x16 = torch.randn(e, C, Q, device='cuda', generator=gen).to(bf16)
+        args = (h, w3, b16, x16, (P, Q, F), b3)
+        label = f'#1 conv_bf16 ({di},{do}) E={e}'
+        err, scale = check_twice(
+            label, lambda: kp.fused_pairwise_conv_bxf(*args),
+            lambda: kp.fused_pairwise_conv_bxf_plain(*args), KERNEL_RTOL)
+        if not torch.equal(kp.fused_pairwise_conv_bx(h, w3, s16, x16, b3),
+                           kp.fused_pairwise_conv_bxf(*args)):
+            raise AssertionError(f'{label}: #2 differs from #1')
+        worst = max(worst, err)
+        float_args = (h, w3, b16.float(), x16.float(), (P, Q, F), b3)
+        ms = cuda_ms(lambda: kp.fused_pairwise_conv_bxf(*args), reps=10)
+        float_ms = cuda_ms(lambda: kp.fused_pairwise_conv_bxf(*float_args),
+                           reps=10)
+        plain_ms = cuda_ms(lambda: kp.fused_pairwise_conv_bxf_plain(*args),
+                           reps=3)
+        v2 = torch.einsum('epfq,ecq->epcf', float_args[2].reshape(
+            e, P, F, Q), float_args[3]).reshape(e, P, C * F)
+        lib = (*radial_library(h, w3, b3), v2)
+        library_ms = cuda_ms(lambda: library_conv(*lib), reps=3)
+        del v2, lib, float_args
+        bound_ms, bound_by, flops, _ = pairwise_cost(
+            e, mid, C, O, P, Q, F, 2, peaks, v_bytes=2)
+        row = dict(pair=[di, do], E=e, h_dtype='bfloat16',
+                   operand_dtype='bfloat16', max_abs_err=err,
+                   max_abs_plain=scale, ms=ms, float_ms=float_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        log('kernel_v16', json.dumps(row))
+        del args, h, w3, b3, b16, s16, x16
+        torch.cuda.empty_cache()
+    unit = [r for r in rows if r['E'] == E]
+    log('kernel_v16', json.dumps(dict(
+        conv='hidden 4x64 -> 4x64, 16 pairs, bf16 basis and x', E=E,
+        **{k: sum(r[k] for r in unit) for k in (
+            'ms', 'float_ms', 'plain_ms', 'library_ms', 'bound_ms')})))
+    return rows, worst
+
+
+def phase_conv_bf16_fwd(kp, peaks):
+    """conv_bf16's arm of kernel #3 (V2 stored bf16, upcast on the staged
+    tile) at the flagship unit: the four output degrees of a hidden
+    ConvSE3, float32 h (the recipe's trunk), at the per-chunk E = 4096 of
+    its path and unchunked E = 32768 (check_fwd with v16)."""
+    cases = [(dict(d_out=do), E, 2 * do + 1, grouped_if(do), torch.float32,
+              64) for E in (4096, 32768) for do in range(4)]
+    rows, worst = check_fwd(kp, peaks, cases, seed=34, v16=True)
+    for E in (4096, 32768):
+        conv = [r for r in rows if r['E'] == E]
+        log('fwd_v16', json.dumps(dict(
+            conv='hidden 4x64 -> 4x64, four launches, bf16 V2', E=E,
+            h_dtype='float32', **{k: sum(r[k] for r in conv) for k in (
+                'ms', 'float_ms', 'plain_ms', 'library_ms', 'bound_ms')})))
+    return rows, worst
+
+
+def phase_conv_bf16_backward(kp, peaks):
+    """conv_bf16's arm of kernels A and B (V2 stored bf16) at the flagship
+    training shapes: the four output degrees of a hidden ConvSE3, float32,
+    at E = 4096 and 32768 (check_backward with v16)."""
+    cases = [(dict(d_out=do), E, 2 * do + 1, grouped_if(do), torch.float32,
+              64) for E in (4096, 32768) for do in range(4)]
+    return check_backward(kp, peaks, cases, seed=35, v16=True)
+
+
+def check_backward(kp, peaks, cases, seed, v16=False):
     """Each case (label, E, P, IF, h dtype, O): kernels A and B against
     their plain versions, dW3/dB3 and dH bit-identical across two runs (E =
     4096 splits kernel B's i range: its partials' reduce), and the times:
     kernel, plain version, and the library yardstick (torch.autograd.grad
-    of the einsum that computes the forward)."""
+    of the einsum that computes the forward). With `v16` V2 is stored bf16
+    (conv_bf16): the arms' launches, their plain versions on the same bf16
+    V2, the bounds with 2-byte V2, and beside them the float32 arms' times
+    on the upcast V2 (float_ms_a, float_ms_b)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
     mid = 128
@@ -831,6 +987,8 @@ def check_backward(kp, peaks, cases, seed):
         w3 = (torch.randn(mid, IF, O, device=dev, generator=gen)
               * mid ** -0.5).to(hdt)
         v2 = torch.randn(e, P, IF, device=dev, generator=gen)
+        if v16:
+            v2 = v2.to(torch.bfloat16)
         g = torch.randn(e, P, O, device=dev, generator=gen)
         b3 = torch.randn(IF, O, device=dev, generator=gen) * 0.1
         shape = kp._check_bwd(h, w3, v2, g, b3)
@@ -869,7 +1027,7 @@ def check_backward(kp, peaks, cases, seed):
         # outputs are the gradients of W3 (with its b3 row) and V2, kernel
         # B's that of h
         leaves = [t.detach().requires_grad_()
-                  for t in (*radial_library(h, w3, b3), v2)]
+                  for t in (*radial_library(h, w3, b3), v2.float())]
         graph = library_conv(*leaves)
         library = {k: cuda_ms(lambda: torch.autograd.grad(
             graph, wrt, g, retain_graph=True), reps=3)
@@ -890,12 +1048,19 @@ def check_backward(kp, peaks, cases, seed):
                    plain_ms_b=cuda_ms(lambda: kp.fused_pairwise_conv_bwd_b_plain(
                        w3, v2, g), reps=3),
                    library_ms_a=library['a'], library_ms_b=library['b'])
+        if v16:
+            v2f = v2.float()
+            row.update(v2_dtype='bfloat16', float_ms_a=cuda_ms(
+                lambda: kp._launch_bwd_a(h, w3, v2f, g, b3, *shape), reps=5),
+                float_ms_b=cuda_ms(
+                    lambda: kp._launch_bwd_b(w3, v2f, g, *shape), reps=5))
+            del v2f
         for k in ('a', 'b'):
             (row[f'bound_ms_{k}'], row[f'bound_by_{k}'],
              row[f'bound_ms_fma_{k}']) = pairwise_bwd_cost(
-                k, e, mid, IF, O, P, hb, peaks)
+                k, e, mid, IF, O, P, hb, peaks, v2.element_size())
         rows.append(row)
-        log('backward', json.dumps(row))
+        log('backward_v16' if v16 else 'backward', json.dumps(row))
         del h, w3, v2, g, b3, dw3, dv2, db3, dh
         torch.cuda.empty_cache()
     return rows, worst
@@ -2059,8 +2224,9 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     on the host and the engine quantizes it before placing it: its
     parameter bytes on the device against the same weights in float32
     (at most QUANT_MAX_BYTES_RATIO), and a `quant_serve` line with the
-    requests, busy, top kernels, idle share and peak memory. Returns the
-    launches of the whole phase."""
+    requests, busy, top kernels, idle share and peak memory. The rotation
+    check holds to ROTATION_RTOL of max|out|. Returns the launches of the
+    whole phase."""
     from se3_transformer_torch.so3 import rot
     recipe, name = label or recipe, recipe
     want_routed = want_routed or NO_ROUTES
@@ -2170,7 +2336,8 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     log('serve', json.dumps(dict(recipe=recipe, rotation_max_abs_diff=inv,
                                  max_abs_out=scale, forwards=forwards,
                                  launches=launches,
-                                 stats=engine.stats())))
+                                 peak_gb=torch.cuda.max_memory_allocated()
+                                 / 1e9, stats=engine.stats())))
     del engine, model
     torch.cuda.empty_cache()
     return launches
@@ -2305,8 +2472,9 @@ def counters():
     the pairwise forwards bxf and fwd, backward kernels A and B, the fused
     attention forward and backward, the streaming attention, the
     structured-basis forward bx, the global attention; then the so2 arm's
-    launches of the streaming and the global attention, and the scaled
-    arm's of #3 and #7 (each counted in its kernel's total too)."""
+    launches of the streaming and the global attention, the scaled arm's
+    of #3 and #7, and the conv_bf16 arm's of #1, #3, A and B (each counted
+    in its kernel's total too)."""
     from se3_transformer_torch.kernels import attention as ka
     from se3_transformer_torch.kernels import flash as kf
     from se3_transformer_torch.kernels import pairwise as kp
@@ -2322,7 +2490,11 @@ def counters():
             (kf.flash_attention_fwd, 'so2_launches'),
             (kf.flash_global_attention_fwd, 'so2_launches'),
             (kp.fused_pairwise_conv, 'scaled_launches'),
-            (kf.flash_attention_fwd, 'scaled_launches'))
+            (kf.flash_attention_fwd, 'scaled_launches'),
+            (kp.fused_pairwise_conv_bxf, 'conv_bf16_launches'),
+            (kp.fused_pairwise_conv, 'conv_bf16_launches'),
+            (kp.fused_pairwise_conv_bwd, 'conv_bf16_launches_a'),
+            (kp.fused_pairwise_conv_bwd, 'conv_bf16_launches_b'))
 
 
 def counts():
@@ -2515,10 +2687,12 @@ def phase_route_wide(st):
 
 
 def phase_train(st, recipe, want, other_policy, want_other, label=None,
-                dim=64, depth=DEPTH, want_routed=None, **fields):
+                dim=64, depth=DEPTH, want_routed=None, n=1024, loss_fn=None,
+                **fields):
     """A recipe's denoise step (the vector head: output_degrees=2,
     reduce_dim_out=True; `dim`, `depth` and `fields` set or add model
-    fields) at n=1024 with Adam: one warm-up step, then TRAIN_STEPS timed
+    fields) at n nodes (1024) with Adam; with `loss_fn` (the trainer's
+    loss) the recipe's own head: one warm-up step, then TRAIN_STEPS timed
     ones, each with exactly `want` launches (COUNT_NAMES order) and
     `want_routed` routed calls (ROUTE_NAMES order; none by default); one
     profiled step; unless `want_other` is None, one step under
@@ -2526,11 +2700,12 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
     warm-up and timed steps."""
     recipe, name = label or recipe, recipe
     want_routed = want_routed or NO_ROUTES
-    n = 1024
+    head = {} if loss_fn else dict(output_degrees=2, reduce_dim_out=True)
     model = condition_weights(getattr(st, name)(
-        dim=dim, depth=depth, output_degrees=2, reduce_dim_out=True,
-        generator=torch.Generator().manual_seed(4), **fields))
-    trainer = st.DenoiseTrainer(model, lr=1e-4)
+        dim=dim, depth=depth, generator=torch.Generator().manual_seed(4),
+        **head, **fields))
+    trainer = st.DenoiseTrainer(model, lr=1e-4, **(
+        dict(loss_fn=loss_fn) if loss_fn else {}))
     batch = trainer.to_device(st.flagship_batch(np.random.RandomState(0), 1,
                                                 n, dim))
     noise = torch.randn(batch['coords'].shape, device='cuda',
@@ -2603,6 +2778,87 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
         raise AssertionError(f'{recipe} remat_policy={other_policy} step: '
                              f'launches {launched}, want {want_other}')
     del other
+    torch.cuda.empty_cache()
+    return launches
+
+
+def egnn_loss(model, batch, noise):
+    """scripts/run_baselines.py's objective for an EGNN model: the mean
+    square of its degree-1 output (the hidden fiber's, [b, n, dim, 3]) on
+    the noised coordinates."""
+    out = model(batch['feats'], batch['coords'] + noise,
+                mask=batch['masks'], return_type=1)
+    return (out ** 2).mean()
+
+
+def phase_egnn_serve(st, want, want_routed):
+    """egnn_stress (the JAX recipe: dim 16, depth 12 EGNN layers with
+    feedforward blocks, clamp 2, k = 16, reversible; seeded flax-scheme
+    weights, conv_in conditioned) served by InferenceEngine at bucket
+    EGNN_N with return_type=1 on requests of EGNN_N, EGNN_N - 12 and
+    EGNN_N * 2 // 3 nodes of an N/CA/C backbone: outputs [n, 16, 3], finite;
+    exactly `want` launches and `want_routed` routed calls per forward
+    (conv_in's two O = 16 pairs: no kernel takes O = 16); equivariance of
+    the vector output; a profile (device busy, idle share) and the peak
+    memory. Returns the launches of the phase."""
+    from se3_transformer_torch.so3 import rot
+    rng = np.random.RandomState(40)
+    model = condition_weights(st.egnn_stress(
+        generator=torch.Generator().manual_seed(40)))
+    dim = model.fiber_in[0]
+    torch.cuda.reset_peak_memory_stats()
+    engine = st.InferenceEngine(model, buckets=(EGNN_N,), return_type=1)
+    requests = [(rng.normal(size=(n, dim)).astype(np.float32),
+                 chain_coords(rng, n, BACKBONE_BONDS))
+                for n in (EGNN_N, EGNN_N - 12, EGNN_N * 2 // 3)]
+    reset_counts()
+    engine.predict(*requests[0])    # warm-up
+    forwards, latencies = 1, []
+    for i, (feats, coords) in enumerate(requests):
+        before, routed_before = counts(), routed()
+        t0 = time.perf_counter()
+        out = engine.predict(feats, coords)
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        forwards += 1
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        routes = tuple(a - b for a, b in zip(routed(), routed_before))
+        if out.shape != (len(feats), dim, 3) or not np.isfinite(out).all():
+            raise AssertionError(f'egnn_stress request {i}: shape '
+                                 f'{out.shape} or non-finite output')
+        if launched != want or routes != want_routed:
+            raise AssertionError(f'egnn_stress request {i}: launches '
+                                 f'{launched}, want {want}; routed {routes}, '
+                                 f'want {want_routed}')
+        log('serve', json.dumps(dict(recipe='egnn_stress', request=i,
+                                     n=len(feats), bucket=EGNN_N,
+                                     latency_ms=latencies[-1],
+                                     launches=launched, routed=routes)))
+    R = rot(0.31, -1.2, 0.7)
+    feats, coords = requests[0]
+    out = engine.predict(feats, coords)
+    out_r = engine.predict(feats, (coords.astype(np.float64) @ R.T)
+                           .astype(np.float32))
+    forwards += 2
+    equi = float(np.abs(out_r - out.astype(np.float64) @ R.T).max())
+    scale = float(np.abs(out).max())
+    top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, _ = \
+        profile_request(engine, requests[0])
+    forwards += 2
+    log('egnn_serve', json.dumps(dict(
+        recipe='egnn_stress', request_ms=latencies, request_wall_ms=wall_ms,
+        device_busy_ms=device_ms, idle_share=1 - device_ms / wall_ms,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        rotation_max_abs_diff=equi, max_abs_out=scale,
+        host_syncs_per_forward=syncs, top_device_ops=top[:8])))
+    if equi > ROTATION_RTOL * scale:
+        raise AssertionError(f'egnn_stress: equivariance {equi} > '
+                             f'{ROTATION_RTOL} * max|out| {scale}')
+    launches = counts()
+    if launches != tuple(w * forwards for w in want):
+        raise AssertionError(f'egnn_stress: launches {launches} for '
+                             f'{forwards} forwards')
+    routed_exactly('egnn_stress', tuple(w * forwards for w in want_routed))
+    del engine, model
     torch.cuda.empty_cache()
     return launches
 
@@ -2933,6 +3189,173 @@ def phase_reference(st):
     molecular_reference(st, train=False)
 
 
+# the rest of the model surface on small models, card against CPU: each
+# case (label, fields, bf16 tolerances, the forward's extra input). The
+# conv_bf16 ones round V2 (or the basis and x) to bf16 from float32 values
+# that differ in their last bits between the card's kernels and the CPU's
+# plain versions, as the bf16 radial trunk rounds its own: the bf16
+# tolerances. EGNN cases train at flax's init (its Dense kernels
+# normal(1e-3)), where the self slot's cancellation (tests/test_torch_egnn.py)
+# stays ~1e-5 of the gradients; at that init every EGNN update is ~1e-6 of
+# the features, so their forward is also compared with the EGNN layers'
+# Dense kernels redrawn at normal / sqrt(fan in) (redraw_egnn_dense).
+FIELD_CASES = (
+    ('flagship+conv_bf16', dict(SMALL, edge_chunks=3, conv_bf16=True), True,
+     None),
+    ('flagship_fast+conv_bf16', dict(SMALL_FAST, radial_bf16=True,
+                                     conv_bf16=True), True, None),
+    ('flagship+norm_gated_scale', dict(SMALL, edge_chunks=3,
+                                       norm_gated_scale=True), False, None),
+    ('egnn', dict(dim=16, depth=2, num_degrees=2, num_neighbors=16,
+                  use_egnn=True, egnn_hidden_dim=16,
+                  egnn_weights_clamp_value=2.0, egnn_feedforward=True),
+     False, None),
+    ('egnn+adjacency_edges', dict(dim=16, depth=2, num_degrees=2,
+                                  num_neighbors=0, use_egnn=True,
+                                  attend_sparse_neighbors=True,
+                                  max_sparse_neighbors=4, num_adj_degrees=2,
+                                  adj_dim=4), False, 'adj_mat'),
+    ('flagship_fast+pallas_false', dict(SMALL_FAST, radial_bf16=False,
+                                        pallas=False), False, None),
+    ('flagship_fast+neighbors', dict(SMALL_FAST, radial_bf16=False), False,
+     'neighbors'))
+
+
+def knn_lists(coords, mask, k):
+    """Each node's k nearest real nodes but itself (host numpy): the
+    precomputed neighbor lists a graph builder hands the forward, [1, n,
+    k] indices and their validity."""
+    d = np.linalg.norm(coords[0][:, None] - coords[0][None], axis=-1)
+    d[~mask[0]] = np.inf
+    d[:, ~mask[0]] = np.inf
+    np.fill_diagonal(d, np.inf)
+    idx = np.argsort(d, axis=1, kind='stable')[:, :k]
+    return idx[None].astype(np.int64), \
+        np.isfinite(np.take_along_axis(d, idx, 1))[None]
+
+
+def redraw_egnn_dense(model, seed):
+    """Every EGNN layer's Dense kernel redrawn in place at normal / sqrt(fan
+    in) (0.10-0.25 at these widths) from a CPU generator, the scale the CPU
+    tests draw them at, so that a wrong update term shows in the output."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, layer in model.egnn_net.named_modules():
+            if name.startswith('egnn') and isinstance(layer, torch.nn.Linear):
+                w = torch.randn(layer.weight.shape, generator=gen)
+                layer.weight.copy_(w / layer.weight.shape[1] ** 0.5)
+
+
+def phase_fields_reference(st):
+    """FIELD_CASES on the card (kernels; conv_bf16 through the bf16-storage
+    arms) against the same weights on the CPU: the vector output
+    (return_type=1) and one Adam step of the mean square of it on noised
+    coordinates (scripts/run_baselines.py's objective), its loss and every
+    gradient; an EGNN case's vector output also with redraw_egnn_dense's
+    kernels. pallas=False launches nothing and routes nothing on the
+    card."""
+    from se3_transformer_torch.utils.graph import chain_adjacency
+    rng = np.random.RandomState(9)
+    n = 40
+    feats = rng.normal(size=(1, n, 64)).astype(np.float32)
+    coords = chain_coords(rng, n, BACKBONE_BONDS)[None]
+    mask = np.ones((1, n), bool)
+    mask[0, -4:] = False
+    noise = rng.normal(size=(1, n, 3)).astype(np.float32)
+    extras = dict(adj_mat=chain_adjacency(n),
+                  neighbors=knn_lists(coords, mask, 16))
+    for label, fields, bf16, extra in FIELD_CASES:
+        cfg = dict(fields)
+        if not cfg.get('use_egnn'):
+            cfg.update(output_degrees=2, reduce_dim_out=True)
+        dim = cfg['dim']
+        tol = REF_RTOL_BF16 if bf16 else REF_RTOL_F32
+        grad_tol = REF_GRAD_RTOL_BF16 if bf16 else REF_GRAD_RTOL_F32
+        results, redrawn = [], []
+        reset_counts()
+        for device in ('cuda', 'cpu'):
+            model = st.SE3TransformerModule(
+                **cfg, device=device,
+                generator=torch.Generator().manual_seed(10))
+            kw = {}
+            if extra:
+                value = extras[extra]
+                kw[extra] = tuple(torch.as_tensor(v, device=device)
+                                  for v in value) \
+                    if isinstance(value, tuple) else \
+                    torch.as_tensor(value, device=device)
+            args = [torch.as_tensor(a, device=device)
+                    for a in (feats[..., :dim], coords, mask)]
+            with torch.inference_mode():
+                out = model.eval()(*args, return_type=1, **kw)
+            model.train()
+
+            def loss_fn(m, batch, eps, kw=kw):
+                return (m(batch['feats'], batch['coords'] + eps,
+                          mask=batch['masks'], return_type=1, **kw)
+                        ** 2).mean()
+            trainer = st.DenoiseTrainer(model, lr=1e-4, device=device,
+                                        loss_fn=loss_fn)
+            loss = float(trainer.train_step(
+                dict(feats=feats[..., :dim], coords=coords, masks=mask),
+                noise=noise))
+            results.append((out.float().cpu().numpy(), loss,
+                            {k: p.grad.float().cpu() for k, p in
+                             model.named_parameters() if p.grad is not None}))
+            if device == 'cuda':
+                launched = dict(zip(COUNT_NAMES, counts()))
+                card_routed = routed()
+            if cfg.get('use_egnn'):
+                redraw_egnn_dense(model, 11)
+                with torch.inference_mode():
+                    redrawn.append(model.eval()(*args, return_type=1, **kw)
+                                   .float().cpu().numpy())
+        (out_c, loss_c, grads_c), (out_h, loss_h, grads_h) = results
+        err = float(np.abs(out_c - out_h).max())
+        scale = float(np.abs(out_h).max())
+        if set(grads_c) != set(grads_h):
+            raise AssertionError(f'{label}: card and CPU differ in which '
+                                 f'parameters have gradients')
+        rel = {k: float((grads_c[k] - g).abs().max())
+               / max(float(g.abs().max()), 1e-30) for k, g in grads_h.items()}
+        worst_key = max(rel, key=rel.get)
+        loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+        log('fields_reference', json.dumps(dict(
+            recipe=label, max_abs_err=err, max_abs_cpu=scale, rtol=tol,
+            loss_card=loss_c, loss_cpu=loss_h, loss_rel_err=loss_rel,
+            worst_grad_rel_err=rel[worst_key], worst_grad=worst_key,
+            leaves=len(grads_h), grad_rtol=grad_tol,
+            launches={k: v for k, v in launched.items() if v},
+            routed=card_routed)))
+        if not (np.isfinite(out_c).all() and err <= tol * scale):
+            raise AssertionError(f'card vs CPU ({label}): {err} > {tol} * '
+                                 f'{scale}')
+        if redrawn:
+            err_w = float(np.abs(redrawn[0] - redrawn[1]).max())
+            scale_w = float(np.abs(redrawn[1]).max())
+            log('fields_reference', json.dumps(dict(
+                recipe=label + '+redrawn_egnn_dense', max_abs_err=err_w,
+                max_abs_cpu=scale_w, rtol=tol)))
+            if not (np.isfinite(redrawn[0]).all()
+                    and err_w <= tol * scale_w):
+                raise AssertionError(f'card vs CPU ({label}, redrawn EGNN '
+                                     f'kernels): {err_w} > {tol} * '
+                                     f'{scale_w}')
+        if not all(np.isfinite(list(rel.values()))) or \
+                loss_rel > grad_tol or rel[worst_key] > grad_tol:
+            raise AssertionError(f'train card vs CPU ({label}): loss '
+                                 f'{loss_rel}, gradient {worst_key} '
+                                 f'{rel[worst_key]} > {grad_tol}')
+        if cfg.get('pallas') is False and (any(launched.values())
+                                           or any(card_routed)):
+            raise AssertionError(f'{label}: pallas=False launched '
+                                 f'{launched} and routed {card_routed}')
+        if cfg.get('conv_bf16') and not (launched['bxf_v16']
+                                         + launched['fwd_v16']):
+            raise AssertionError(f'{label}: no conv_bf16 arm launched')
+    reset_counts()
+
+
 # small quantized models for the card-vs-CPU check: the grouped #3
 # (flagship), #7 untied and tied (fuse_pairwise, float32 h), and so2 (#3
 # per pair, and #7's so2 arm)
@@ -3045,6 +3468,11 @@ def main() -> int:
     af2_rows, af2_worst = phase_backward_af2(kp, peaks)
     _, mol_fwd_worst, _, mol_worst, _ = phase_backward_molecular(kp, peaks)
     tick('backward')
+    # conv_bf16's bf16-storage arms of #1, #3, A and B
+    v16_bxf_rows, v16_bxf_worst = phase_conv_bf16_bxf(st, kp, peaks)
+    v16_fwd_rows, v16_fwd_worst = phase_conv_bf16_fwd(kp, peaks)
+    v16_bwd_rows, v16_bwd_worst = phase_conv_bf16_backward(kp, peaks)
+    tick('conv_bf16')
 
     # 5. the attention kernels vs plain, with the library yardstick
     attn_rows, attn_worst = phase_attention(peaks)
@@ -3063,12 +3491,15 @@ def main() -> int:
     # 6-7. the main paths, each with the counts reset just before and read
     # just after; launch tuples in COUNT_NAMES order
     def launches(bxf=0, fwd=0, a=0, b=0, attn_fwd=0, attn_bwd=0, flash=0,
-                 bx=0, glob=0, flash_so2=0, glob_so2=0, fwd_q=0, flash_q=0):
+                 bx=0, glob=0, flash_so2=0, glob_so2=0, fwd_q=0, flash_q=0,
+                 bxf_v16=0, fwd_v16=0, a_v16=0, b_v16=0):
         # the so2 arm's launches count in flash and glob as well, the
-        # scaled arms' (of the dense arm) in fwd and flash
-        return (bxf, fwd + fwd_q, a, b, attn_fwd, attn_bwd,
-                flash + flash_so2 + flash_q, bx, glob + glob_so2, flash_so2,
-                glob_so2, fwd_q, flash_q)
+        # scaled arms' (of the dense arm) in fwd and flash, the conv_bf16
+        # arms' in bxf, fwd, A and B
+        return (bxf + bxf_v16, fwd + fwd_q + fwd_v16, a + a_v16, b + b_v16,
+                attn_fwd, attn_bwd, flash + flash_so2 + flash_q, bx,
+                glob + glob_so2, flash_so2, glob_so2, fwd_q, flash_q,
+                bxf_v16, fwd_v16, a_v16, b_v16)
     fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
     bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
     paths = [
@@ -3164,7 +3595,29 @@ def main() -> int:
             st, 'flagship_fast',
             launches(bxf=FLASH_BXF_LAUNCHES, flash_q=ATTN_LAUNCHES),
             label='flagship_fast+fuse_pairwise+fp8_mix', fuse_pairwise=True,
-            precision='fp8_mix'))]
+            precision='fp8_mix')),
+        # conv_bf16: flagship_fast's #1 launches all by the bf16 basis/x
+        # arm, its backward's A and B by the float32 arm; flagship's #3, A
+        # and B all by the bf16-V2 arm
+        not_routed('flagship_fast+conv_bf16 serve', phase_serve(
+            st, 'flagship_fast', launches(bxf_v16=4 + REPLAY_LAUNCHES + 4),
+            label='flagship_fast+conv_bf16', conv_bf16=True)),
+        not_routed('flagship_fast+conv_bf16 train', phase_train(
+            st, 'flagship_fast', launches(bxf_v16=TRAIN_LAUNCHES, **fast_bwd),
+            None, None, label='flagship_fast+conv_bf16', conv_bf16=True)),
+        not_routed('flagship+conv_bf16 serve', phase_serve(
+            st, 'flagship', launches(fwd_v16=FLAGSHIP_SERVE_LAUNCHES),
+            label='flagship+conv_bf16', conv_bf16=True)),
+        not_routed('flagship+conv_bf16 train', phase_train(
+            st, 'flagship', launches(
+                fwd_v16=FLAGSHIP_TRAIN_LAUNCHES + FLAGSHIP_REPLAY_LAUNCHES,
+                a_v16=FLAGSHIP_BWD_LAUNCHES, b_v16=FLAGSHIP_BWD_LAUNCHES),
+            None, None, label='flagship+conv_bf16', conv_bf16=True)),
+        # egnn_stress: no kernel, exactly conv_in's two O = 16 pairs routed
+        phase_egnn_serve(st, launches(), routes(fwd=EGNN_ROUTED)),
+        phase_train(st, 'egnn_stress', launches(), None, None, dim=16,
+                    depth=12, n=EGNN_N, loss_fn=egnn_loss,
+                    want_routed=routes(fwd=EGNN_ROUTED))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
 
@@ -3180,6 +3633,7 @@ def main() -> int:
     tick('train_reference')
     phase_global_reference(st)
     phase_quant_reference(st)
+    phase_fields_reference(st)
     log(f'phase: references done at {time.perf_counter() - t_start:.0f} s')
 
     def unchunked(table, dtype):
@@ -3224,17 +3678,36 @@ def main() -> int:
     bwd = unchunked(bwd_rows, 'bfloat16')
     kernels = [
         entry('fused_pairwise_conv_bxf', 'pairwise_bxf.cu', pallas + '593',
-              total[0], worst, unchunked(rows, 'bfloat16')),
+              total[0] - total[13], worst, unchunked(rows, 'bfloat16')),
         entry('fused_pairwise_conv', 'pairwise_fwd.cu', pallas + '254',
-              total[1] - total[11], max(fwd_worst, mol_fwd_worst),
+              total[1] - total[11] - total[14], max(fwd_worst, mol_fwd_worst),
               unchunked(fwd_rows, 'float32'))]
     for i, (k, line) in enumerate((('a', 861), ('b', 907))):
         kernels.append(entry(
             f'fused_pairwise_conv_bwd_{k}', 'pairwise_bwd.cu',
-            f'{pallas}{line}', total[2 + i],
+            f'{pallas}{line}', total[2 + i] - total[15 + i],
             max(bwd_worst[k], grouped_worst[k], af2_worst[k],
                 mol_worst[k]), bwd,
             f'_{k}'))
+    # the conv_bf16 arms at their units (E = 32768): #1's at the 16
+    # flagship_fast pairs (bf16 h), #3's, A's and B's at the flagship's four
+    # output degrees (float32 h); the float32 arm's time on the upcast
+    # operands beside
+    v16_unit = [r for r in v16_bxf_rows if r['E'] == 32768]
+    v16_fwd = [r for r in v16_fwd_rows if r['E'] == 32768]
+    v16_bwd = [r for r in v16_bwd_rows if r['E'] == 32768]
+    kernels += [
+        dict(entry('fused_pairwise_conv_bxf_conv_bf16', 'pairwise_bxf.cu',
+                   pallas + '611', total[13], v16_bxf_worst, v16_unit),
+             float_ms=sum(r['float_ms'] for r in v16_unit)),
+        dict(entry('fused_pairwise_conv_conv_bf16', 'pairwise_fwd.cu',
+                   pallas + '286', total[14], v16_fwd_worst, v16_fwd),
+             float_ms=sum(r['float_ms'] for r in v16_fwd))]
+    for i, (k, line) in enumerate((('a', 880), ('b', 917))):
+        kernels.append(dict(entry(
+            f'fused_pairwise_conv_bwd_{k}_conv_bf16', 'pairwise_bwd.cu',
+            f'{pallas}{line}', total[15 + i], v16_bwd_worst[k], v16_bwd,
+            f'_{k}'), float_ms=sum(r[f'float_ms_{k}'] for r in v16_bwd)))
     kernels += [
         entry('fused_attention_fwd', 'attention.cu',
               tpu + 'pallas_attention.py:74', total[4], attn_worst['fwd'],

@@ -17,12 +17,13 @@ from .kernels.pairwise import (
 )
 from .models import SE3TransformerModule
 from .ops import (
-    AttentionBlockSE3, AttentionSE3, ConvSE3, FeedForwardBlockSE3,
-    FeedForwardSE3, Fiber, LinearSE3, NormSE3, PairwiseConvSE3,
+    EGNN, AttentionBlockSE3, AttentionSE3, ConvSE3, EGnnNetwork,
+    FeedForwardBlockSE3, FeedForwardSE3, Fiber, HtypesNorm, LinearSE3,
+    NormSE3, PairwiseConvSE3,
 )
 from .training import (
-    DenoiseTrainer, af2_refinement, denoise_loss, flagship, flagship_batch,
-    flagship_fast, molecular_batch, molecular_edges, property_loss,
-    toy_denoise,
+    RECIPES, DenoiseTrainer, af2_refinement, denoise_loss, egnn_stress,
+    flagship, flagship_batch, flagship_fast, molecular_batch,
+    molecular_edges, property_loss, toy_denoise,
 )
 from .utils.graph import chain_adjacency

@@ -4,11 +4,15 @@ The port's modules name their parameters after the flax ones, so a flax
 path maps to a state_dict key by joining with '.', except for the three
 layer kinds whose torch holders differ:
 
-    <path>/Dense_k/kernel [in, out]  ->  <path>.Dense_k.weight [out, in]
-    <path>/Dense_k/bias              ->  <path>.Dense_k.bias
+    <path>/<dense>/kernel [in, out]  ->  <path>.<dense>.weight [out, in]
+    <path>/<dense>/bias              ->  <path>.<dense>.bias
     <path>/LayerNorm_k/scale         ->  <path>.LayerNorm_k.weight
     <path>/LayerNorm_k/bias          ->  <path>.LayerNorm_k.bias
     <path>/embedding (nn.Embed)      ->  <path>.weight (nn.Embedding)
+
+where <dense> is any nn.Dense (the auto-named Dense_k, the EGNN's named
+edge_mlp0, node_mlp1, htype_gate1, ...: every flax `kernel` is a Dense's)
+and the EGNN's LayerNorm `node_norm` maps as LayerNorm_k does.
 
 A quantized tree (the JAX package's quant.quantize_params) converts too:
 a QuantTensor leaf (any leaf with `q` and `scale` arrays) becomes the
@@ -45,9 +49,9 @@ def _torch_key(path) -> Tuple[str, bool]:
     """A flax path -> (state_dict key, whether the array is transposed)."""
     *head, layer, name = path if len(path) > 1 else ('',) + tuple(path)
     transposed = False
-    if re.fullmatch(r'Dense_\d+', layer) and name == 'kernel':
+    if name == 'kernel':
         name, transposed = 'weight', True
-    elif re.fullmatch(r'LayerNorm_\d+', layer) and name == 'scale':
+    elif re.fullmatch(r'LayerNorm_\d+|node_norm', layer) and name == 'scale':
         name = 'weight'
     elif name == 'embedding':
         name = 'weight'
@@ -59,11 +63,10 @@ def flax_path(owner_name: str, owner: nn.Module, name: str
     """The flax path of parameter `name` of the module `owner` (named
     `owner_name` in the model) -> ('/'-joined path, whether the flax array
     is the torch one transposed); the inverse of the table above."""
-    layer = owner_name.rsplit('.', 1)[-1]
     transposed = False
-    if re.fullmatch(r'Dense_\d+', layer) and name == 'weight':
+    if isinstance(owner, nn.Linear) and name == 'weight':
         name, transposed = 'kernel', True
-    elif re.fullmatch(r'LayerNorm_\d+', layer) and name == 'weight':
+    elif isinstance(owner, nn.LayerNorm) and name == 'weight':
         name = 'scale'
     elif isinstance(owner, nn.Embedding) and name == 'weight':
         name = 'embedding'

@@ -7,7 +7,9 @@ attention; `flash_global.cu`, the global attention) is compiled by its own `nvcc
 Hopper (`sm_90a`), all started together (the two flash sources twice, once
 per contraction arm, `-DSE3_SO2=0` and `=1`: each object holds one arm's
 instantiations and entry point; `flash_fwd.cu` twice more for its scaled
-arm, `-DSE3_QUANT=1`), and the objects are linked into
+arm, `-DSE3_QUANT=1`; each pairwise source twice, its float32 arm and,
+with `-DSE3_V16=1`, its conv_bf16 arm, the bf16-stored V2, basis and x),
+and the objects are linked into
 one shared library with a plain C interface that `ctypes` loads. The build
 happens at first use, never at import, into `kernels/build/` beside this
 file (listed in .gitignore). The library's file name carries a hash of
@@ -33,15 +35,19 @@ SOURCES = tuple(os.path.join(CSRC_DIR, f)
 HEADERS = (os.path.join(CSRC_DIR, 'common.cuh'),)
 # the compilation units, (source, its extra nvcc flags): each flash source
 # once per contraction arm, flash_fwd.cu also once per W3 form (float, or
-# the scaled arm's quantized storage)
+# the scaled arm's quantized storage); each pairwise source once per storage
+# of its equivariant operand (float32, or conv_bf16's bf16)
 UNITS = tuple(
     (src, (f'-DSE3_SO2={arm}',) + quant)
     for src in SOURCES for arm in (0, 1)
     for quant in ((), ('-DSE3_QUANT=1',))
     if os.path.basename(src).startswith('flash') and (
         not quant or os.path.basename(src) == 'flash_fwd.cu')) + tuple(
+    (src, v16) for src in SOURCES
+    if os.path.basename(src).startswith('pairwise')
+    for v16 in ((), ('-DSE3_V16=1',))) + tuple(
     (src, ()) for src in SOURCES
-    if not os.path.basename(src).startswith('flash'))
+    if os.path.basename(src) == 'attention.cu')
 BUILD_DIR = os.path.join(_HERE, 'build')
 
 COMPILE_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -135,20 +141,26 @@ def load_library() -> ctypes.CDLL:
             # (h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk,
             #  stage_c, h_is_bf16, stream), the flat basis (bxf) or the
             #  structured one (bx)
-            for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx):
+            # (the _v16 entries: the conv_bf16 arm, the same arguments with
+            #  the equivariant operand bf16)
+            for fn in (lib.se3_pairwise_bxf, lib.se3_pairwise_bx,
+                       lib.se3_pairwise_bxf_v16, lib.se3_pairwise_bx_v16):
                 fn.argtypes = [vp] * 7 + [ci] * 8 + [vp]
             # (h, w3, b3, v2, out, work, w3_split, E, IF, O, P,
             #  i_per_split, h_is_bf16, stream)
-            lib.se3_pairwise_fwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+            for fn in (lib.se3_pairwise_fwd, lib.se3_pairwise_fwd_v16):
+                fn.argtypes = [vp] * 7 + [ci] * 6 + [vp]
             # the scaled arm: (h, q, scale, b3, v2, out, work, E, IF, O, P,
             #  i_per_split, h_is_bf16, fp8, stream)
             lib.se3_pairwise_fwd_q.argtypes = [vp] * 7 + [ci] * 7 + [vp]
             # (h, w3, b3, v2, g, dv2, dv2_work, work, split, dw3, db3, E,
             #  IF, O, P, splits, h_is_bf16, stream)
-            lib.se3_pairwise_bwd_a.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+            for fn in (lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_a_v16):
+                fn.argtypes = [vp] * 11 + [ci] * 6 + [vp]
             # (w3, v2, g, dh, work, split, E, IF, O, P, i_per_split,
             #  w3_is_bf16, stream)
-            lib.se3_pairwise_bwd_b.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+            for fn in (lib.se3_pairwise_bwd_b, lib.se3_pairwise_bwd_b_v16):
+                fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
             # (q, k, v, mask, out, BH, BKV, n, J, D, heads, scale, stream)
             lib.se3_attention_fwd.argtypes = [vp] * 5 + [ci] * 6 + [cf, vp]
             # (q, k, v, mask, g, dq, dk, dv, BH, BKV, n, J, D, heads, scale,
@@ -179,7 +191,10 @@ def load_library() -> ctypes.CDLL:
                        lib.se3_attention_fwd, lib.se3_attention_bwd,
                        lib.se3_flash_fwd, lib.se3_flash_fwd_so2,
                        lib.se3_flash_global_so2, lib.se3_pairwise_fwd_q,
-                       lib.se3_flash_fwd_q, lib.se3_flash_fwd_so2_q):
+                       lib.se3_flash_fwd_q, lib.se3_flash_fwd_so2_q,
+                       lib.se3_pairwise_bxf_v16, lib.se3_pairwise_bx_v16,
+                       lib.se3_pairwise_fwd_v16, lib.se3_pairwise_bwd_a_v16,
+                       lib.se3_pairwise_bwd_b_v16):
                 fn.restype = ci
             _lib = lib
         return _lib

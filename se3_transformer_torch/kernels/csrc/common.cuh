@@ -194,29 +194,37 @@ __device__ __forceinline__ void apply_v2(float (&acc)[P][4][4], const float (&r)
   }
 }
 
+// A staged value as float32: float itself, or a bf16 (the conv_bf16
+// storage of the equivariant operands) upcast exactly.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // V2 of one stage of GC channels into sV, as [row][cc * F + f][p] (row
 // stride RS): thread (row tid / 4, tid % 4) takes every 4th (p, f), reads
 // its Q basis values once (sB row stride PFQ: (p, f, q)-ordered, or (p, q,
 // f) with kPQF) and contracts them with the GC staged x rows (sX row
-// stride XS, a row's GC Q values contiguous).
-template <int P, int Q, int GC, int PP, int RS, int XS, int PFQ, bool kPQF>
-__device__ __forceinline__ void build_v2(float* sV, const float* sX, const float* sB, int tid) {
+// stride XS, a row's GC Q values contiguous). TS is the staged basis' and
+// x's type: float, or bf16 (conv_bf16), upcast here where V2 is built.
+template <int P, int Q, int GC, int PP, int RS, int XS, int PFQ, bool kPQF,
+          typename TS = float>
+__device__ __forceinline__ void build_v2(float* sV, const TS* sX, const TS* sB, int tid) {
   constexpr int F = P < Q ? P : Q;
   const int r = tid >> 2;
-  const float* xr = sX + r * XS;
+  const TS* xr = sX + r * XS;
   float xv[GC][Q];
 #pragma unroll
   for (int cc = 0; cc < GC; ++cc)
 #pragma unroll
-    for (int q = 0; q < Q; ++q) xv[cc][q] = xr[cc * Q + q];
-  const float* br = sB + r * PFQ;
+    for (int q = 0; q < Q; ++q) xv[cc][q] = to_float(xr[cc * Q + q]);
+  const TS* br = sB + r * PFQ;
   float* vr = sV + r * RS;
 #pragma unroll
   for (int pf = tid & 3; pf < P * F; pf += 4) {
     const int p = pf / F, f = pf - p * F;
     float b[Q];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) b[q] = kPQF ? br[(p * Q + q) * F + f] : br[pf * Q + q];
+    for (int q = 0; q < Q; ++q)
+      b[q] = to_float(kPQF ? br[(p * Q + q) * F + f] : br[pf * Q + q]);
 #pragma unroll
     for (int cc = 0; cc < GC; ++cc) {
       float v = 0.f;

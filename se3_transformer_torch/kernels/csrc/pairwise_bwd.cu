@@ -125,8 +125,23 @@
 // whose peak is about twice the rate mma.sync reaches here and which reads
 // W3 from shared memory once per warpgroup; W3 re-read from L2 by every
 // 64-edge tile (64 KB per float32 chunk; a cluster could multicast it).
+//
+// The conv_bf16 arm (TV = bf16; entry points se3_pairwise_bwd_a_v16 and
+// se3_pairwise_bwd_b_v16, compiled as a unit of their own with
+// -DSE3_V16=1 so that the float32 instantiations are the code they were):
+// V2 arrives stored bf16, as JAX's _bwd_a_kernel and _bwd_b_kernel take
+// it, and is staged at 2 bytes a value (A: a row's 2 values by one 4-byte
+// cp.async; B: a row's 4 values of a stage by one 8-byte cp.async; plain
+// loads where IF does not allow them). Each staged pair is upcast exactly
+// to float32 where it is read (JAX upcasts the V2 row right after its
+// load); everything after is the float arm's. dV2 stays a float32 output,
+// as JAX's out_shape is.
 
 #include "common.cuh"
+
+#ifndef SE3_V16
+#define SE3_V16 0
+#endif
 
 namespace {
 
@@ -142,10 +157,19 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
+// Two consecutive staged V2 values as float32: a float2, or a bf16 pair
+// (conv_bf16) upcast exactly.
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // Kernel A's shared memory by h's kind (bf16, or float32 given as bf16 hi +
 // lo halves) and P, as byte offsets. The g ring is as deep as what is left
 // allows: 6 stages for bf16, 2 for float32, whose h and W3 take two halves.
-template <bool kSplit, int P>
+template <bool kSplit, int P, typename TV = float>
 struct ACfg {
   static constexpr int NS = kSplit ? 2 : 1;  // bf16 halves of h and W3
   static constexpr int STAGES = kSplit ? 2 : 6;
@@ -154,8 +178,8 @@ struct ACfg {
   static constexpr size_t H = W + 2ull * BI * NS * MID * WS;       // [2][NS][BE][HS] bf16
   static constexpr size_t DR = H + 2ull * 2 * NS * BE * HS;        // [BI][hi, lo][BE][DSB] bf16
   static constexpr size_t G = DR + 2ull * BI * 2 * BE * DSB;       // [STAGES][8 warps][WG] float
-  static constexpr size_t V = G + 4ull * STAGES * 8 * WG;          // [2][BE][P][BI] float
-  static constexpr size_t PP = V + 4ull * 2 * BE * P * BI;         // [BI][2][BE][P] float
+  static constexpr size_t V = G + 4ull * STAGES * 8 * WG;          // [2][BE][P][BI] TV
+  static constexpr size_t PP = V + sizeof(TV) * 2 * BE * P * BI;   // [BI][2][BE][P] float
   static constexpr size_t SMEM = PP + 4ull * BI * 2 * BE * P;
   static_assert(SMEM <= 232448, "kernel A's tile fits one SM's shared memory");
   static_assert(4ull * 4 * BI * BO <= G - DR, "dB3's reduction fits the dR tiles");
@@ -166,14 +190,15 @@ struct ACfg {
 // g[tile, p, :], each read once by the CTA for all of its i; each warp
 // loads and reads only its own 16 x 32 block of a slice, so a slice needs
 // no barrier of the whole CTA.
-template <bool kSplit, int P, bool kWide>
+// TV is V2's type: float, or bf16 (the conv_bf16 arm).
+template <bool kSplit, int P, bool kWide, typename TV>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
              const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
-             const float* __restrict__ b3, const float* __restrict__ v2,
+             const float* __restrict__ b3, const TV* __restrict__ v2,
              const float* __restrict__ g, float* __restrict__ dv2,
              float* __restrict__ part, int E, int IF, int O, int tiles_per_split, int v2_pairs) {
-  using C = ACfg<kSplit, P>;
+  using C = ACfg<kSplit, P, TV>;
   constexpr int S = C::STAGES, NS = C::NS, WS = C::WS, HS = C::HS;
   static_assert(BI == 2, "a row's BI values of V2 and dV2 move as one float2");
   // O is the constant BO, and the O tile the first, unless the kernel is
@@ -187,7 +212,7 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
   bf16* sH = reinterpret_cast<bf16*>(smem + C::H);
   bf16* sDR = reinterpret_cast<bf16*>(smem + C::DR);
   float* sG = reinterpret_cast<float*>(smem + C::G);
-  float* sV = reinterpret_cast<float*>(smem + C::V);
+  TV* sV = reinterpret_cast<TV*>(smem + C::V);
   float* sP = reinterpret_cast<float*>(smem + C::PP);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -229,20 +254,26 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
 #pragma unroll
     for (int half = 0; half < NS; ++half)
       load_h(sH + (buf * NS + half) * BE * HS, half ? hlo : hhi, e0, rows, tid);
-    float* sv = sV + buf * BE * P * BI;
+    TV* sv = sV + buf * BE * P * BI;
     for (int idx = tid; idx < BE * P; idx += NTHREADS) {
       const int e = idx / P;
-      float* dst = sv + idx * BI;
-      const float* src = v2 + ((size_t)e0 * P + idx) * IF + i0;
+      TV* dst = sv + idx * BI;
+      const TV* src = v2 + ((size_t)e0 * P + idx) * IF + i0;
       if (e < rows && v2_pairs) {
-        cp_async8(dst, src);
+        if constexpr (sizeof(TV) == 2)
+          cp_async4(dst, src);
+        else
+          cp_async8(dst, src);
       } else {
 #pragma unroll
-        for (int ii = 0; ii < BI; ++ii)
-          if (e < rows && ii < nI)
+        for (int ii = 0; ii < BI; ++ii) {
+          if constexpr (sizeof(TV) == 2)
+            dst[ii] = e < rows && ii < nI ? src[ii] : __float2bfloat16(0.f);
+          else if (e < rows && ii < nI)
             cp_async4(dst + ii, src + ii);
           else
             dst[ii] = 0.f;
+        }
       }
     }
   };
@@ -351,7 +382,7 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
         for (int v = 0; v < 4; ++v) dr[ii][nb][v] = 0.f;
-    const float* sv = sV + buf * BE * P * BI;
+    const TV* sv = sV + buf * BE * P * BI;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int n = it * P + p;
@@ -365,8 +396,8 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
       cp_async_commit();
       const float* sg = sGw + (n % S) * 8 * WG;
       const int gr = lane >> 2, sw = (gr & 3) << 1;
-      const float2 vl = *reinterpret_cast<const float2*>(sv + (e_lo * P + p) * BI);
-      const float2 vh = *reinterpret_cast<const float2*>(sv + (e_hi * P + p) * BI);
+      const float2 vl = load_pair(sv + (e_lo * P + p) * BI);
+      const float2 vh = load_pair(sv + (e_hi * P + p) * BI);
       const float vlo[BI] = {vl.x, vl.y}, vhi[BI] = {vh.x, vh.y};
       float sl[BI], su[BI];
 #pragma unroll
@@ -564,17 +595,17 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ part, int splits,
 // + lo halves) and P, as byte offsets. Every tile is bf16 with 64-element
 // (128-byte) rows whose 16-byte chunks sit at chunk ^ (row % 8): ldmatrix
 // and the 16-byte stores of dR hit 8 distinct chunks of each 8 rows.
-template <bool kSplit, int P>
+template <bool kSplit, int P, typename TV = float>
 struct BCfg {
   static constexpr int NS = kSplit ? 2 : 1;  // bf16 halves of W3
   static constexpr int CI = 2;               // i values per chunk: K = 128 per barrier
-  static constexpr int VI = 2 * CI;          // i values per V2 stage: 16 bytes a row
+  static constexpr int VI = 2 * CI;          // i values per V2 stage: 16 (bf16: 8) bytes a row
   static constexpr size_t WSL = 2ull * MID * BO;   // bytes of one W3[:, i, :] half
   static constexpr size_t DSL = 2ull * BE * BO;    // bytes of one dR[tile, i, :] half
   static constexpr size_t W = 0;                   // [2 stages][CI][NS][MID][BO] bf16
   static constexpr size_t DR = W + 2 * CI * NS * WSL;  // [2 buffers][CI][hi, lo][BE][BO] bf16
-  static constexpr size_t V = DR + 2 * CI * 2 * DSL;   // [2 stages][BE][P][VI] float
-  static constexpr size_t SMEM = V + 4ull * 2 * BE * P * VI;
+  static constexpr size_t V = DR + 2 * CI * 2 * DSL;   // [2 stages][BE][P][VI] TV
+  static constexpr size_t SMEM = V + sizeof(TV) * 2 * BE * P * VI;
   static_assert(SMEM <= 232448, "kernel B's tile fits one SM's shared memory");
 };
 
@@ -585,12 +616,13 @@ struct BCfg {
 // k - 1 on the tensor cores (8 warps: 2 along edges x 4 along mid, 32 x 32
 // each) while chunk k's W3 is issued behind it (cp.async), then chunk k's
 // dR is rebuilt into the other dR buffer; V2 is issued two chunks at a time.
-template <bool kSplit, int P, bool kWide>
+// TV is V2's type: float, or bf16 (the conv_bf16 arm).
+template <bool kSplit, int P, bool kWide, typename TV>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
-             const float* __restrict__ v2, const float* __restrict__ g,
+             const TV* __restrict__ v2, const float* __restrict__ g,
              float* __restrict__ dh, int E, int IF, int O, int i_per_split, int v2_quads) {
-  using C = BCfg<kSplit, P>;
+  using C = BCfg<kSplit, P, TV>;
   constexpr int CI = C::CI, NS = C::NS;
   constexpr int VI = C::VI;
   static_assert(CI == 2, "a row's CI values of V2 are read as one float2");
@@ -598,7 +630,7 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sW = reinterpret_cast<bf16*>(smem + C::W);
   bf16* sDR = reinterpret_cast<bf16*>(smem + C::DR);
-  float* sV = reinterpret_cast<float*>(smem + C::V);
+  TV* sV = reinterpret_cast<TV*>(smem + C::V);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int e0 = blockIdx.x * BE, rows = min(BE, E - e0);
@@ -628,20 +660,26 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
   auto stage_v = [&](int s) {
     const int i0 = i_lo + s * VI;
     if (i0 >= i_hi) return;
-    float* dst = sV + (s & 1) * BE * P * VI;
+    TV* dst = sV + (s & 1) * BE * P * VI;
     for (int idx = tid; idx < BE * P; idx += NTHREADS) {
       const int e = idx / P;
-      const float* src = v2 + ((size_t)e0 * P + idx) * IF + i0;
-      float* d = dst + idx * VI;
+      const TV* src = v2 + ((size_t)e0 * P + idx) * IF + i0;
+      TV* d = dst + idx * VI;
       if (e < rows && v2_quads) {
-        cp_async16(d, src);
+        if constexpr (sizeof(TV) == 2)
+          cp_async8(d, src);
+        else
+          cp_async16(d, src);
       } else {
 #pragma unroll
-        for (int ii = 0; ii < VI; ++ii)
-          if (e < rows && i0 + ii < i_hi)
+        for (int ii = 0; ii < VI; ++ii) {
+          if constexpr (sizeof(TV) == 2)
+            d[ii] = e < rows && i0 + ii < i_hi ? src[ii] : __float2bfloat16(0.f);
+          else if (e < rows && i0 + ii < i_hi)
             cp_async4(d + ii, src + ii);
           else
             d[ii] = 0.f;
+        }
       }
     }
   };
@@ -670,11 +708,11 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
   // dR[re, i, 16q ..] = sum_p V2[re, p, i] g[re, p, ..] for the chunk's i,
   // as bf16 hi + lo into dR buffer c % 2
   auto rebuild = [&](int c) {
-    const float* sv = sV + ((c >> 1) & 1) * BE * P * VI + re * P * VI + (c & 1) * CI;
+    const TV* sv = sV + ((c >> 1) & 1) * BE * P * VI + re * P * VI + (c & 1) * CI;
     bf16* sd = sDR + (size_t)(c & 1) * CI * 2 * BE * BO;
     float2 vv[P];
 #pragma unroll
-    for (int p = 0; p < P; ++p) vv[p] = *reinterpret_cast<const float2*>(sv + p * VI);
+    for (int p = 0; p < P; ++p) vv[p] = load_pair(sv + p * VI);
 #pragma unroll
     for (int ii = 0; ii < CI; ++ii) {
       float d[16];
@@ -817,12 +855,12 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
     }
 }
 
-template <bool kSplit, int P>
+template <bool kSplit, int P, typename TV>
 cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* v2,
                      const void* g, void* dv2, void* dv2_work, void* work, void* split,
                      void* dw3, void* db3, int E, int IF, int O, int splits,
                      cudaStream_t stream) {
-  using C = ACfg<kSplit, P>;
+  using C = ACfg<kSplit, P, TV>;
   const int groups = (IF + BI - 1) / BI;
   const int slots = O / BO;  // CTAs along O, each with its dV2 slot
   const bf16 *hhi = static_cast<const bf16*>(h), *whi = static_cast<const bf16*>(w3);
@@ -845,17 +883,19 @@ cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* 
     whi = sp + 2 * nh;
     wlo = sp + 2 * nh + nw;
   }
-  auto kern = O > BO ? bwd_a_kernel<kSplit, P, true> : bwd_a_kernel<kSplit, P, false>;
+  auto kern = O > BO ? bwd_a_kernel<kSplit, P, true, TV> : bwd_a_kernel<kSplit, P, false, TV>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int n_tiles = (E + BE - 1) / BE;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   float* dv2_out = static_cast<float*>(slots > 1 ? dv2_work : dv2);
-  // a row's two V2 (and dV2) values move as one 8-byte copy when IF is even
-  const int v2_pairs = IF % 2 == 0 && reinterpret_cast<uintptr_t>(v2) % 8 == 0 &&
+  // a row's two V2 values move as one copy (8 bytes, bf16 4) and its two
+  // dV2 values as one 8-byte store when IF is even
+  const int v2_pairs = IF % 2 == 0 &&
+                       reinterpret_cast<uintptr_t>(v2) % (2 * sizeof(TV)) == 0 &&
                        reinterpret_cast<uintptr_t>(dv2_out) % 8 == 0;
   kern<<<dim3(groups, splits, slots), NTHREADS, C::SMEM, stream>>>(
-      hhi, hlo, whi, wlo, static_cast<const float*>(b3), static_cast<const float*>(v2),
+      hhi, hlo, whi, wlo, static_cast<const float*>(b3), static_cast<const TV*>(v2),
       static_cast<const float*>(g), dv2_out, static_cast<float*>(work), E, IF, O,
       tiles_per_split, v2_pairs);
   err = cudaGetLastError();
@@ -872,11 +912,11 @@ cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* 
   return cudaGetLastError();
 }
 
-template <bool kSplit, int P>
+template <bool kSplit, int P, typename TV>
 cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, void* work,
                      void* split, int E, int IF, int O, int i_per_split,
                      cudaStream_t stream) {
-  using C = BCfg<kSplit, P>;
+  using C = BCfg<kSplit, P, TV>;
   const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
   cudaError_t err;
   if constexpr (kSplit) {
@@ -891,18 +931,18 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
     whi = sp;
     wlo = sp + nw;
   }
-  auto kern = O > BO ? bwd_b_kernel<kSplit, P, true> : bwd_b_kernel<kSplit, P, false>;
+  auto kern = O > BO ? bwd_b_kernel<kSplit, P, true, TV> : bwd_b_kernel<kSplit, P, false, TV>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int splits = (IF + i_per_split - 1) / i_per_split;
   const int slots = O / BO;  // CTAs along O
   const int partials = splits * slots;
-  // a row's VI values of V2 move as one 16-byte copy when every stage is
-  // whole and starts on 16 bytes
+  // a row's VI values of V2 move as one copy (16 bytes, bf16 8) when every
+  // stage is whole and starts on the copy's size
   const int v2_quads = IF % C::VI == 0 && i_per_split % C::VI == 0 &&
-                       reinterpret_cast<uintptr_t>(v2) % 16 == 0;
+                       reinterpret_cast<uintptr_t>(v2) % (C::VI * sizeof(TV)) == 0;
   kern<<<dim3((E + BE - 1) / BE, splits, slots), NTHREADS, C::SMEM, stream>>>(
-      whi, wlo, static_cast<const float*>(v2), static_cast<const float*>(g),
+      whi, wlo, static_cast<const TV*>(v2), static_cast<const float*>(g),
       static_cast<float*>(partials > 1 ? work : dh), E, IF, O, i_per_split, v2_quads);
   err = cudaGetLastError();
   if (err != cudaSuccess || partials == 1) return err;
@@ -927,20 +967,31 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
 // that many [E, P, IF] float partials; it is not read otherwise. h, w3 and
 // g start on 16 bytes. With float32 h/w3, split holds 2 * (E*128 +
 // 128*IF*O) bf16 (h's hi and lo arrays, then W3's); it is not read
-// otherwise.
-extern "C" int se3_pairwise_bwd_a(const void* h, const void* w3, const void* b3,
-                                  const void* v2, const void* g, void* dv2, void* dv2_work,
-                                  void* work, void* split, void* dw3, void* db3, int E, int IF,
-                                  int O, int P, int splits, int h_is_bf16, void* stream) {
+// otherwise. The _v16 entry points (this file compiled with -DSE3_V16=1)
+// take v2 bf16, starting on 2 bytes.
+#if SE3_V16
+#define SE3_ENTRY(name) name##_v16
+using TVU = bf16;
+#else
+#define SE3_ENTRY(name) name
+using TVU = float;
+#endif
+extern "C" int SE3_ENTRY(se3_pairwise_bwd_a)(const void* h, const void* w3, const void* b3,
+                                             const void* v2, const void* g, void* dv2,
+                                             void* dv2_work, void* work, void* split,
+                                             void* dw3, void* db3, int E, int IF, int O,
+                                             int P, int splits, int h_is_bf16, void* stream) {
   if (E <= 0 || IF <= 0 || splits <= 0 || O <= 0 || O % BO)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SE3_A(PP)                                                                        \
   if (P == PP)                                                                           \
-    return (int)(h_is_bf16 ? launch_a<false, PP>(h, w3, b3, v2, g, dv2, dv2_work, work,  \
-                                                 split, dw3, db3, E, IF, O, splits, s)   \
-                           : launch_a<true, PP>(h, w3, b3, v2, g, dv2, dv2_work, work,   \
-                                                split, dw3, db3, E, IF, O, splits, s));
+    return (int)(h_is_bf16 ? launch_a<false, PP, TVU>(h, w3, b3, v2, g, dv2, dv2_work,   \
+                                                      work, split, dw3, db3, E, IF, O,   \
+                                                      splits, s)                         \
+                           : launch_a<true, PP, TVU>(h, w3, b3, v2, g, dv2, dv2_work,    \
+                                                     work, split, dw3, db3, E, IF, O,    \
+                                                     splits, s));
   SE3_A(1) SE3_A(3) SE3_A(5) SE3_A(7)
 #undef SE3_A
   return (int)cudaErrorInvalidValue;
@@ -951,18 +1002,19 @@ extern "C" int se3_pairwise_bwd_a(const void* h, const void* w3, const void* b3,
 // partials; it is not read otherwise. w3 and g start on 16 bytes. With
 // float32 w3, split holds 2 * 128*IF*O bf16 (W3's hi and lo arrays); it is
 // not read otherwise.
-extern "C" int se3_pairwise_bwd_b(const void* w3, const void* v2, const void* g, void* dh,
-                                  void* work, void* split, int E, int IF, int O, int P,
-                                  int i_per_split, int w3_is_bf16, void* stream) {
+extern "C" int SE3_ENTRY(se3_pairwise_bwd_b)(const void* w3, const void* v2, const void* g,
+                                             void* dh, void* work, void* split, int E, int IF,
+                                             int O, int P, int i_per_split, int w3_is_bf16,
+                                             void* stream) {
   if (E <= 0 || IF <= 0 || i_per_split <= 0 || O <= 0 || O % BO)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SE3_B(PP)                                                                         \
   if (P == PP)                                                                            \
-    return (int)(w3_is_bf16 ? launch_b<false, PP>(w3, v2, g, dh, work, split, E, IF, O,   \
-                                                  i_per_split, s)                         \
-                            : launch_b<true, PP>(w3, v2, g, dh, work, split, E, IF, O,    \
-                                                 i_per_split, s));
+    return (int)(w3_is_bf16 ? launch_b<false, PP, TVU>(w3, v2, g, dh, work, split, E, IF,  \
+                                                       O, i_per_split, s)                 \
+                            : launch_b<true, PP, TVU>(w3, v2, g, dh, work, split, E, IF,   \
+                                                      O, i_per_split, s));
   SE3_B(1) SE3_B(3) SE3_B(5) SE3_B(7)
 #undef SE3_B
   return (int)cudaErrorInvalidValue;

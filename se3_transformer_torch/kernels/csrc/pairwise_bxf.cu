@@ -77,8 +77,24 @@
 // Left for later: W3 shared by two edge tiles (a cluster multicast, or a
 // 128-edge tile where P <= 3 leaves registers) to halve its L2 traffic;
 // wgmma with a swizzled W3 layout and a wider N.
+//
+// The conv_bf16 arm (TV = bf16; entry points se3_pairwise_bxf_v16 and
+// se3_pairwise_bx_v16, compiled as a unit of its own with -DSE3_V16=1 so
+// that the float32 instantiations are the code they were): the basis and x
+// arrive stored bf16, as JAX's _fwd_bx_kernel takes them, and are staged
+// at 2 bytes a value. The tile's basis rows go by 16-byte cp.async, 8
+// values a copy, into a bf16 sB; x has no 4-byte alignment per row (C * Q
+// values of 2 bytes), so a stage's x values are loaded into registers when
+// the float arm would issue their copies and stored to a bf16 sX after the
+// chunk's products, a stage ahead of their build as before. build_v2 upcasts
+// both exactly to float32 where it builds V2 (JAX upcasts at the same
+// place); everything after is the float arm's math.
 
 #include "common.cuh"
+
+#ifndef SE3_V16
+#define SE3_V16 0
+#endif
 
 namespace {
 
@@ -88,7 +104,7 @@ using bf16 = __nv_bfloat16;
 
 // The tile's shape by W3's kind (bf16, or float32 given as bf16 hi + lo)
 // and (P, Q): the chunk and stage sizes, and shared memory as byte offsets.
-template <bool kSplit, int P, int Q>
+template <bool kSplit, int P, int Q, bool kV16 = false>
 struct BxfCfg {
   static constexpr int F = P < Q ? P : Q;
   static constexpr int NS = kSplit ? 2 : 1;  // bf16 halves of W3
@@ -107,24 +123,30 @@ struct BxfCfg {
   static constexpr size_t WSL = 2ull * MID * BO;        // bytes of one W3 slice (bf16)
   static constexpr size_t W = 0;                        // [RING][CI][NS] W3 slices
   static constexpr size_t B3 = W + RING * CI * NS * WSL;  // [RING][CI][BO] float
-  static constexpr size_t BS = B3 + 4ull * RING * CI * BO;  // [BE][PFQ] float: the basis rows
-  static constexpr size_t X = BS + 4ull * BE * PFQ;      // [BE][XS] float
-  static constexpr size_t V = X + 4ull * BE * XS;        // [BE][RS] float
+  static constexpr size_t TSB = kV16 ? 2 : 4;  // bytes of a staged basis or x value
+  static constexpr size_t BS = B3 + 4ull * RING * CI * BO;  // [BE][PFQ]: the basis rows
+  static constexpr size_t X = BS + TSB * BE * PFQ;       // [BE][XS]
+  static constexpr size_t V = X + TSB * BE * XS;         // [BE][RS] float
+  // the conv_bf16 arm: a stage's x values held by each thread between
+  // their load and their store to sX
+  static constexpr int XPT = (BE * GC * Q + NTHREADS - 1) / NTHREADS;
   static constexpr size_t SMEM = V + 4ull * BE * RS;
   static_assert(SI % CI == 0 && CPS >= 3, "a V2 stage is at least 3 whole chunks");
   static_assert(SMEM <= 232448, "the tile fits one SM's shared memory");
 };
 
 // T is h's type: bf16, or float (split into bf16 hi + lo here; W3 given as
-// its split arrays whi and wlo).
-template <typename T, int P, int Q, bool kPQF>
+// its split arrays whi and wlo). TV is the basis' and x's: float, or bf16
+// (the conv_bf16 arm).
+template <typename T, typename TV, int P, int Q, bool kPQF>
 __global__ void __launch_bounds__(NTHREADS, 1)
 pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
                     const bf16* __restrict__ wlo, const float* __restrict__ b3,
-                    const float* __restrict__ basis, const float* __restrict__ x,
+                    const TV* __restrict__ basis, const TV* __restrict__ x,
                     float* __restrict__ out, int E, int C, int O, int basis_quads) {
   constexpr bool kSplit = sizeof(T) == 4;
-  using Cfg = BxfCfg<kSplit, P, Q>;
+  constexpr bool kV16 = sizeof(TV) == 2;
+  using Cfg = BxfCfg<kSplit, P, Q, kV16>;
   constexpr int F = Cfg::F, NS = Cfg::NS, CI = Cfg::CI, GC = Cfg::GC, CPS = Cfg::CPS;
   constexpr int RING = Cfg::RING;
   constexpr int PP = Cfg::PP, RS = Cfg::RS, XS = Cfg::XS, PFQ = Cfg::PFQ;
@@ -132,8 +154,8 @@ pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sW = reinterpret_cast<bf16*>(smem + Cfg::W);
   float* sb3 = reinterpret_cast<float*>(smem + Cfg::B3);
-  float* sB = reinterpret_cast<float*>(smem + Cfg::BS);
-  float* sX = reinterpret_cast<float*>(smem + Cfg::X);
+  TV* sB = reinterpret_cast<TV*>(smem + Cfg::BS);
+  TV* sX = reinterpret_cast<TV*>(smem + Cfg::X);
   float* sV = reinterpret_cast<float*>(smem + Cfg::V);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -167,40 +189,76 @@ pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
   // x[tile, the GC channels of stage s, :] into sX (zeros past E and past
   // C); a row's GC Q values are contiguous in memory
   auto stage_x = [&](int s) {
-    float* dst = sX;
+    if constexpr (!kV16) {
+      float* dst = sX;
+      const int c0 = s * GC;
+      for (int idx = tid; idx < BE * GC * Q; idx += NTHREADS) {
+        const int r = idx / (GC * Q), j = idx - r * (GC * Q);
+        if (r < rows && c0 * Q + j < C * Q)
+          cp_async4(dst + r * XS + j, x + ((size_t)(e0 + r) * C + c0) * Q + j);
+        else
+          dst[r * XS + j] = 0.f;
+      }
+    }
+  };
+  // the conv_bf16 arm's x: stage s's values into this thread's registers
+  // (zeros past E and past C), then, once the loads have had a chunk's
+  // products to land, into sX
+  unsigned short xs[kV16 ? Cfg::XPT : 1];
+  auto load_x = [&](int s) {
+    const unsigned short* x16 = reinterpret_cast<const unsigned short*>(x);
     const int c0 = s * GC;
-    for (int idx = tid; idx < BE * GC * Q; idx += NTHREADS) {
+#pragma unroll
+    for (int u = 0; u < Cfg::XPT; ++u) {
+      const int idx = tid + u * NTHREADS;
       const int r = idx / (GC * Q), j = idx - r * (GC * Q);
-      if (r < rows && c0 * Q + j < C * Q)
-        cp_async4(dst + r * XS + j, x + ((size_t)(e0 + r) * C + c0) * Q + j);
-      else
-        dst[r * XS + j] = 0.f;
+      xs[u] = idx < BE * GC * Q && r < rows && c0 * Q + j < C * Q
+                  ? __ldg(x16 + ((size_t)(e0 + r) * C + c0) * Q + j)
+                  : (unsigned short)0;
+    }
+  };
+  auto store_x = [&]() {
+    unsigned short* dst = reinterpret_cast<unsigned short*>(sX);
+#pragma unroll
+    for (int u = 0; u < Cfg::XPT; ++u) {
+      const int idx = tid + u * NTHREADS;
+      const int r = idx / (GC * Q), j = idx - r * (GC * Q);
+      if (idx < BE * GC * Q) dst[r * XS + j] = xs[u];
     }
   };
   // V2 of the staged x's stage into sV, as [row][i - stage start][p]
-  auto build = [&]() { build_v2<P, Q, GC, PP, RS, XS, PFQ, kPQF>(sV, sX, sB, tid); };
+  auto build = [&]() { build_v2<P, Q, GC, PP, RS, XS, PFQ, kPQF, TV>(sV, sX, sB, tid); };
 
   // prologue, two cp.async groups: chunk 0's W3 and b3, the tile's basis
   // rows (contiguous in either layout) and stage 0's x; chunk 1's W3 and b3
   stage_w(0);
   {
-    const float* src = basis + (size_t)e0 * PFQ;
+    const TV* src = basis + (size_t)e0 * PFQ;
     const int n = rows * PFQ;
-    for (int idx = tid; idx < BE * PFQ / 4; idx += NTHREADS) {
-      const int j = idx * 4;
-      if (basis_quads && j + 4 <= n) {
+    // 16-byte copies: 4 float values, or 8 bf16 (BE * PFQ is a multiple of 8)
+    constexpr int VEC = 16 / sizeof(TV);
+    for (int idx = tid; idx < BE * PFQ / VEC; idx += NTHREADS) {
+      const int j = idx * VEC;
+      if (basis_quads && j + VEC <= n) {
         cp_async16(sB + j, src + j);
       } else {
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (j + u < n)
+        for (int u = 0; u < VEC; ++u) {
+          if constexpr (kV16)
+            sB[j + u] = j + u < n ? src[j + u] : __float2bfloat16(0.f);
+          else if (j + u < n)
             cp_async4(sB + j + u, src + j + u);
           else
             sB[j + u] = 0.f;
+        }
       }
     }
   }
   stage_x(0);
+  if constexpr (kV16) {
+    load_x(0);
+    store_x();
+  }
   cp_async_commit();
   if (n_chunks > 1) stage_w(1);
   cp_async_commit();
@@ -239,7 +297,13 @@ pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
       build();
       __syncthreads();
     }
-    if (kin == 0 && s + 1 < n_stages) stage_x(s + 1);
+    const bool next_x = kin == 0 && s + 1 < n_stages;
+    if (next_x) {
+      if constexpr (kV16)
+        load_x(s + 1);
+      else
+        stage_x(s + 1);
+    }
     if (k + 2 < n_chunks) stage_w(k + 2);
     cp_async_commit();
 
@@ -282,6 +346,9 @@ pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
     for (int ii = 0; ii < CI; ++ii)
       apply_v2<P, PP, RS>(acc, r[ii], sV + e_lo * RS + (kin * CI + ii) * PP,
                           sbb + ii * BO);
+    // conv_bf16: the next stage's x, read by its build after a barrier
+    if constexpr (kV16)
+      if (next_x) store_x();
   }
   cp_async_wait<0>();
 
@@ -299,12 +366,12 @@ pairwise_bxf_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
     }
 }
 
-template <typename T, int P, int Q, bool kPQF>
+template <typename T, typename TV, int P, int Q, bool kPQF>
 cudaError_t launch(const void* h, const void* w3, const void* b3, const void* basis,
                    const void* x, void* out, void* w3_split, int E, int C, int O, int chunk,
                    int stage_c, cudaStream_t stream) {
   constexpr bool kSplit = sizeof(T) == 4;
-  using Cfg = BxfCfg<kSplit, P, Q>;
+  using Cfg = BxfCfg<kSplit, P, Q, sizeof(TV) == 2>;
   // the caller's chunk and stage sizes (kernels/pairwise.py::bxf_tiles)
   // must be the tile's own
   if (chunk != Cfg::CI || stage_c != Cfg::GC) return cudaErrorInvalidValue;
@@ -323,7 +390,7 @@ cudaError_t launch(const void* h, const void* w3, const void* b3, const void* ba
     whi = static_cast<const bf16*>(w3_split);
     wlo = whi + 4 * n4;
   }
-  auto kern = pairwise_bxf_kernel<T, P, Q, kPQF>;
+  auto kern = pairwise_bxf_kernel<T, TV, P, Q, kPQF>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
   if (err != cudaSuccess) return err;
   // 16-byte basis copies need the tile's rows to start on 16 bytes (a
@@ -332,19 +399,19 @@ cudaError_t launch(const void* h, const void* w3, const void* b3, const void* ba
   dim3 grid((E + BE - 1) / BE, O / BO);
   kern<<<grid, NTHREADS, Cfg::SMEM, stream>>>(
       static_cast<const T*>(h), whi, wlo, static_cast<const float*>(b3),
-      static_cast<const float*>(basis), static_cast<const float*>(x),
+      static_cast<const TV*>(basis), static_cast<const TV*>(x),
       static_cast<float*>(out), E, C, O, basis_quads);
   return cudaGetLastError();
 }
 
-template <typename T, bool kPQF>
+template <typename T, typename TV, bool kPQF>
 cudaError_t dispatch(int P, int Q, const void* h, const void* w3, const void* b3,
                      const void* basis, const void* x, void* out, void* w3_split, int E,
                      int C, int O, int chunk, int stage_c, cudaStream_t s) {
 #define SE3_PQ(PP, QQ)                                                                    \
   if (P == PP && Q == QQ)                                                                 \
-    return launch<T, PP, QQ, kPQF>(h, w3, b3, basis, x, out, w3_split, E, C, O, chunk,   \
-                                   stage_c, s);
+    return launch<T, TV, PP, QQ, kPQF>(h, w3, b3, basis, x, out, w3_split, E, C, O,     \
+                                       chunk, stage_c, s);
 #define SE3_P(PP) SE3_PQ(PP, 1) SE3_PQ(PP, 3) SE3_PQ(PP, 5) SE3_PQ(PP, 7)
   SE3_P(1) SE3_P(3) SE3_P(5) SE3_P(7)
 #undef SE3_P
@@ -352,7 +419,7 @@ cudaError_t dispatch(int P, int Q, const void* h, const void* w3, const void* b3
   return cudaErrorInvalidValue;
 }
 
-template <bool kPQF>
+template <typename TV, bool kPQF>
 int entry(const void* h, const void* w3, const void* b3, const void* basis, const void* x,
           void* out, void* w3_split, int E, int C, int O, int P, int Q, int chunk,
           int stage_c, int h_is_bf16, void* stream) {
@@ -360,10 +427,10 @@ int entry(const void* h, const void* w3, const void* b3, const void* basis, cons
   if (O <= 0 || O % BO != 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      h_is_bf16 ? dispatch<bf16, kPQF>(P, Q, h, w3, b3, basis, x, out, w3_split, E, C, O, chunk,
-                                       stage_c, s)
-                : dispatch<float, kPQF>(P, Q, h, w3, b3, basis, x, out, w3_split, E, C, O,
-                                        chunk, stage_c, s);
+      h_is_bf16 ? dispatch<bf16, TV, kPQF>(P, Q, h, w3, b3, basis, x, out, w3_split, E, C, O,
+                                           chunk, stage_c, s)
+                : dispatch<float, TV, kPQF>(P, Q, h, w3, b3, basis, x, out, w3_split, E, C, O,
+                                            chunk, stage_c, s);
   return (int)err;
 }
 
@@ -377,19 +444,39 @@ int entry(const void* h, const void* w3, const void* b3, const void* basis, cons
 // [E, P*F*Q] in (p, f, q) order, se3_pairwise_bx the structured basis
 // [E, P, Q, F]. chunk and stage_c are bxf_tiles' (checked). With float32
 // h/w3, w3_split holds 2 * 128 * C*F * O bf16 (W3's hi array, then its lo
-// array); it is not read otherwise.
+// array); it is not read otherwise. The _v16 entry points (the conv_bf16
+// arm, this file compiled with -DSE3_V16=1) take the basis and x bf16, the
+// basis starting on 2 bytes (16 for its 16-byte copies) and x on 2.
+#if SE3_V16
+extern "C" int se3_pairwise_bxf_v16(const void* h, const void* w3, const void* b3,
+                                    const void* basis, const void* x, void* out,
+                                    void* w3_split, int E, int C, int O, int P, int Q,
+                                    int chunk, int stage_c, int h_is_bf16, void* stream) {
+  return entry<bf16, false>(h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk, stage_c,
+                            h_is_bf16, stream);
+}
+
+extern "C" int se3_pairwise_bx_v16(const void* h, const void* w3, const void* b3,
+                                   const void* basis, const void* x, void* out, void* w3_split,
+                                   int E, int C, int O, int P, int Q, int chunk, int stage_c,
+                                   int h_is_bf16, void* stream) {
+  return entry<bf16, true>(h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk, stage_c,
+                           h_is_bf16, stream);
+}
+#else
 extern "C" int se3_pairwise_bxf(const void* h, const void* w3, const void* b3,
                                 const void* basis, const void* x, void* out, void* w3_split,
                                 int E, int C, int O, int P, int Q, int chunk, int stage_c,
                                 int h_is_bf16, void* stream) {
-  return entry<false>(h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk, stage_c,
-                      h_is_bf16, stream);
+  return entry<float, false>(h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk,
+                             stage_c, h_is_bf16, stream);
 }
 
 extern "C" int se3_pairwise_bx(const void* h, const void* w3, const void* b3,
                                const void* basis, const void* x, void* out, void* w3_split,
                                int E, int C, int O, int P, int Q, int chunk, int stage_c,
                                int h_is_bf16, void* stream) {
-  return entry<true>(h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk, stage_c,
-                     h_is_bf16, stream);
+  return entry<float, true>(h, w3, b3, basis, x, out, w3_split, E, C, O, P, Q, chunk,
+                            stage_c, h_is_bf16, stream);
 }
+#endif

@@ -90,8 +90,23 @@
 // own; no dequantized W3 is written to device memory. The scale multiplies
 // the pass sum before b3 is added; the V2 epilogue, the i splits and their
 // ordered reduce are the float arm's.
+//
+// The conv_bf16 arm (TV = bf16; entry point se3_pairwise_fwd_v16, compiled
+// as a unit of its own with -DSE3_V16=1 so that the float32 instantiations
+// are the code they were): V2 arrives stored bf16, as JAX's _fwd_kernel
+// takes it, and is staged at 2 bytes a value, 16-byte cp.async of 8 values
+// (a [BE][P*KI + 8] bf16 tile: 16 bytes of pad a row, which keeps the 8
+// rows a warp's epilogue reads on distinct banks), or plain loads when IF
+// is not a multiple of 8. The epilogue upcasts each staged value exactly
+// to float32 as it reads it (JAX upcasts the V2 row right after its load);
+// everything after is the float arm's, with float32 or bf16 h. No scaled
+// arm: a quantized W3 beside bf16 V2 takes the plain version.
 
 #include "common.cuh"
+
+#ifndef SE3_V16
+#define SE3_V16 0
+#endif
 
 namespace {
 
@@ -110,7 +125,7 @@ constexpr int Q_SLICE = MID * BO;  // one landing slot: [MID][BO] bytes
 // fetch latencies then overlap). The ring holds STAGES x (hi, lo) W3
 // slices for float32, STAGES x hi for bf16; the scaled arm's, two bf16
 // tiles and QSTAGES landing slots.
-template <typename T, int P, bool kQ = false>
+template <typename T, int P, bool kQ = false, typename TV = float>
 struct Cfg {
   static constexpr bool kSplit = sizeof(T) == 4;
   static constexpr int BLOCKS = (P == 1 || (!kSplit && P == 3)) ? 2 : 1;
@@ -119,37 +134,65 @@ struct Cfg {
   // bytes of the W3 ring (the scaled arm: the tiles, then the landing slots)
   static constexpr size_t RING = kQ ? sizeof(bf16) * 2 * W_SLICE + (size_t)QSTAGES * Q_SLICE
                                     : sizeof(bf16) * (size_t)STAGES * SLICES * W_SLICE;
-  static constexpr size_t SMEM = RING + sizeof(float) * (size_t)2 * BE * (P * KI + 4);
+  // V2's row stride in the staged tile (values): 16 bytes of pad
+  static constexpr int VS = P * KI + 16 / (int)sizeof(TV);
+  static constexpr size_t SMEM = RING + sizeof(TV) * (size_t)2 * BE * VS;
 };
 
 // V2[e0 .. e0+BE, :, c0 .. c0+nk] -> a [BE][P*KI + 4] float tile (the row
 // stride puts the 8 rows that a warp's epilogue reads on distinct banks);
 // zeros past the tile's rows and past nk.
-template <int P>
-__device__ __forceinline__ void load_v(float* sv, const float* __restrict__ v2, int e0,
+// conv_bf16 (TV = bf16): a [BE][P*KI + 8] bf16 tile, 16-byte copies of 8
+// values where IF allows, else plain loads.
+template <int P, typename TV>
+__device__ __forceinline__ void load_v(TV* sv, const TV* __restrict__ v2, int e0,
                                        int rows, int IF, int c0, int nk, bool vec,
                                        int tid) {
-  constexpr int VS = P * KI + 4;
-  if (vec) {  // IF % 4 == 0, c0 % 4 == 0 and nk % 4 == 0: 16-byte copies
-    constexpr int Q4 = KI / 4;
-    for (int idx = tid; idx < BE * P * Q4; idx += NTHREADS) {
-      const int r = idx / (P * Q4), rest = idx - r * (P * Q4);
-      const int p = rest / Q4, k = (rest - p * Q4) * 4;
-      float* dst = sv + r * VS + p * KI + k;
-      if (r < rows && k < nk)
-        cp_async16(dst, v2 + ((size_t)(e0 + r) * P + p) * IF + c0 + k);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (sizeof(TV) == 2) {
+    constexpr int VS = P * KI + 8;
+    if (vec) {  // IF % 8 == 0, c0 % 8 == 0 and nk % 8 == 0: 16-byte copies
+      constexpr int Q8 = KI / 8;
+      for (int idx = tid; idx < BE * P * Q8; idx += NTHREADS) {
+        const int r = idx / (P * Q8), rest = idx - r * (P * Q8);
+        const int p = rest / Q8, k = (rest - p * Q8) * 8;
+        TV* dst = sv + r * VS + p * KI + k;
+        if (r < rows && k < nk)
+          cp_async16(dst, v2 + ((size_t)(e0 + r) * P + p) * IF + c0 + k);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      for (int idx = tid; idx < BE * P * KI; idx += NTHREADS) {
+        const int r = idx / (P * KI), rest = idx - r * (P * KI);
+        const int p = rest / KI, k = rest - p * KI;
+        sv[r * VS + p * KI + k] = r < rows && k < nk
+                                      ? v2[((size_t)(e0 + r) * P + p) * IF + c0 + k]
+                                      : __float2bfloat16(0.f);
+      }
     }
   } else {
-    for (int idx = tid; idx < BE * P * KI; idx += NTHREADS) {
-      const int r = idx / (P * KI), rest = idx - r * (P * KI);
-      const int p = rest / KI, k = rest - p * KI;
-      float* dst = sv + r * VS + p * KI + k;
-      if (r < rows && k < nk)
-        cp_async4(dst, v2 + ((size_t)(e0 + r) * P + p) * IF + c0 + k);
-      else
-        *dst = 0.f;
+    constexpr int VS = P * KI + 4;
+    if (vec) {  // IF % 4 == 0, c0 % 4 == 0 and nk % 4 == 0: 16-byte copies
+      constexpr int Q4 = KI / 4;
+      for (int idx = tid; idx < BE * P * Q4; idx += NTHREADS) {
+        const int r = idx / (P * Q4), rest = idx - r * (P * Q4);
+        const int p = rest / Q4, k = (rest - p * Q4) * 4;
+        float* dst = sv + r * VS + p * KI + k;
+        if (r < rows && k < nk)
+          cp_async16(dst, v2 + ((size_t)(e0 + r) * P + p) * IF + c0 + k);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int idx = tid; idx < BE * P * KI; idx += NTHREADS) {
+        const int r = idx / (P * KI), rest = idx - r * (P * KI);
+        const int p = rest / KI, k = rest - p * KI;
+        float* dst = sv + r * VS + p * KI + k;
+        if (r < rows && k < nk)
+          cp_async4(dst, v2 + ((size_t)(e0 + r) * P + p) * IF + c0 + k);
+        else
+          *dst = 0.f;
+      }
     }
   }
 }
@@ -266,18 +309,19 @@ __device__ __forceinline__ void load_slices(bf16* stage, const bf16* __restrict_
 // T is h's type: float (split into hi/lo here, W3 given as its split
 // arrays) or bf16 (W3 given as itself; wlo is unused). kQ: the scaled arm,
 // W3 as the storage wq (fp8 e4m3 with `fp8`, else int8) with wscale [IF,
-// O]; whi and wlo are unused.
-template <typename T, int P, bool kQ>
+// O]; whi and wlo are unused. TV is V2's type: float, or bf16 (the
+// conv_bf16 arm).
+template <typename T, int P, bool kQ, typename TV>
 __global__ void __launch_bounds__(NTHREADS, (Cfg<T, P>::BLOCKS))
 pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
                     const bf16* __restrict__ wlo, const uint8_t* __restrict__ wq,
                     const float* __restrict__ wscale, const float* __restrict__ b3,
-                    const float* __restrict__ v2, float* __restrict__ out, int E, int IF,
+                    const TV* __restrict__ v2, float* __restrict__ out, int E, int IF,
                     int O, int i_per_split, bool vec, bool fp8) {
   constexpr bool kSplit = Cfg<T, P>::kSplit;
   constexpr int STAGES = Cfg<T, P>::STAGES;
   constexpr int STAGE = Cfg<T, P>::SLICES * W_SLICE;
-  constexpr int VS = P * KI + 4;
+  constexpr int VS = Cfg<T, P, kQ, TV>::VS;
   static_assert((kSplit ? 2 : 1) * BE * HS <= (kQ ? 2 * W_SLICE : STAGES * STAGE),
                 "h tiles fit the ring");
 
@@ -285,7 +329,7 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
   bf16* sW = reinterpret_cast<bf16*>(smem);  // STAGES x STAGE (kQ: 2 tiles)
   // kQ: the landing slots after the two tiles
   uint8_t* sL = smem + sizeof(bf16) * 2 * W_SLICE;
-  float* sV = reinterpret_cast<float*>(smem + Cfg<T, P, kQ>::RING);  // 2 x [BE][VS]
+  TV* sV = reinterpret_cast<TV*>(smem + Cfg<T, P, kQ>::RING);  // 2 x [BE][VS]
   // the h tiles [BE][HS] (hi, and lo when split) take the ring's space
   // until their fragments are in registers
   bf16* sHh = sW;
@@ -428,12 +472,12 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
     }
 
     // epilogue: acc[p] += V2[e, p, i] * (R + b3)
-    const float* sv = sV + (j & 1) * BE * VS + k;
+    const TV* sv = sV + (j & 1) * BE * VS + k;
     float vl[P], vh[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      vl[p] = sv[e_lo * VS + p * KI];
-      vh[p] = sv[e_hi * VS + p * KI];
+      vl[p] = to_float(sv[e_lo * VS + p * KI]);
+      vh[p] = to_float(sv[e_hi * VS + p * KI]);
     }
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb) {
@@ -509,13 +553,13 @@ unsigned grid_for(size_t n4) {
 }
 
 // kQ: w3 is the quantized storage (fp8 e4m3 with `fp8`, else int8) and
-// wscale its scales; w3_split is unused.
-template <typename T, int P, bool kQ>
+// wscale its scales; w3_split is unused. TV: V2's type.
+template <typename T, int P, bool kQ, typename TV = float>
 cudaError_t launch(const void* h, const void* w3, const void* wscale, const void* b3,
                    const void* v2, void* out, void* work, void* w3_split, int E, int IF,
                    int O, int i_per_split, bool fp8, cudaStream_t stream) {
   constexpr bool kSplit = Cfg<T, P>::kSplit;
-  constexpr size_t smem = Cfg<T, P, kQ>::SMEM;
+  constexpr size_t smem = Cfg<T, P, kQ, TV>::SMEM;
   const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
   cudaError_t err;
   if constexpr (kSplit && !kQ) {
@@ -528,21 +572,23 @@ cudaError_t launch(const void* h, const void* w3, const void* wscale, const void
     whi = static_cast<const bf16*>(w3_split);
     wlo = whi + (size_t)MID * IF * O;
   }
-  auto kern = pairwise_fwd_kernel<T, P, kQ>;
+  auto kern = pairwise_fwd_kernel<T, P, kQ, TV>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const int splits = (IF + i_per_split - 1) / i_per_split;
-  // 16-byte V2 copies need every row and chunk start on 16 bytes
-  const bool vec = IF % 4 == 0 && i_per_split % 4 == 0 &&
+  // 16-byte V2 copies (4 float values or 8 bf16) need every row and chunk
+  // start on 16 bytes
+  constexpr int VEC = 16 / sizeof(TV);
+  const bool vec = IF % VEC == 0 && i_per_split % VEC == 0 &&
                    reinterpret_cast<uintptr_t>(v2) % 16 == 0;
   dim3 grid((E + BE - 1) / BE, O / BO, splits);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(h), kQ ? nullptr : whi, wlo,
       kQ ? static_cast<const uint8_t*>(w3) : nullptr, static_cast<const float*>(wscale),
-      static_cast<const float*>(b3), static_cast<const float*>(v2),
+      static_cast<const float*>(b3), static_cast<const TV*>(v2),
       static_cast<float*>(splits > 1 ? work : out), E, IF, O, i_per_split, vec, fp8);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -563,6 +609,7 @@ cudaError_t launch(const void* h, const void* w3, const void* wscale, const void
 // [E, P, O] float partials; it is not read otherwise. With float32 h/w3,
 // w3_split holds 2 * 128 * IF * O bf16 (W3's hi array, then its lo array);
 // it is not read otherwise.
+#if !SE3_V16
 extern "C" int se3_pairwise_fwd(const void* h, const void* w3, const void* b3, const void* v2,
                                 void* out, void* work, void* w3_split, int E, int IF, int O,
                                 int P, int i_per_split, int h_is_bf16, void* stream) {
@@ -605,3 +652,26 @@ extern "C" int se3_pairwise_fwd_q(const void* h, const void* q, const void* scal
 #undef SE3_F
   return (int)cudaErrorInvalidValue;
 }
+#else
+// The conv_bf16 arm: se3_pairwise_fwd's arguments with v2 [E, P, IF] bf16
+// (starting on 2 bytes; 16 for its 16-byte copies).
+extern "C" int se3_pairwise_fwd_v16(const void* h, const void* w3, const void* b3,
+                                    const void* v2, void* out, void* work, void* w3_split,
+                                    int E, int IF, int O, int P, int i_per_split, int h_is_bf16,
+                                    void* stream) {
+  if (E <= 0) return 0;
+  if (O <= 0 || O % BO != 0 || IF <= 0 || i_per_split <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SE3_F(PP)                                                                          \
+  if (P == PP)                                                                             \
+    return (int)(h_is_bf16 ? launch<bf16, PP, false, bf16>(h, w3, nullptr, b3, v2, out,    \
+                                                           work, w3_split, E, IF, O,       \
+                                                           i_per_split, false, s)          \
+                           : launch<float, PP, false, bf16>(h, w3, nullptr, b3, v2, out,   \
+                                                            work, w3_split, E, IF, O,      \
+                                                            i_per_split, false, s));
+  SE3_F(1) SE3_F(3) SE3_F(5) SE3_F(7)
+#undef SE3_F
+  return (int)cudaErrorInvalidValue;
+}
+#endif

@@ -46,6 +46,17 @@ scale + b3), h float32 or bf16. On a card this is kernel #3's scaled arm
 into its tile and writes no dequantized W3; each of its launches counts in
 `fused_pairwise_conv.launches` and `.scaled_launches`. The arm has no
 backward: a call whose inputs need a gradient raises.
+
+conv_bf16 (the JAX field): the equivariant operand stored bf16, V2 for
+fused_pairwise_conv and the backward, the basis and x (both) for the
+basis-fused forms. Each is upcast exactly to float32 where it is used and
+the math after is the float32 arm's; h and w3 keep their dtypes. On a card
+each kernel has a bf16-storage arm (the `_v16` C entry points, compiled as
+units of their own) that stages the operand at 2 bytes a value; each of
+its launches counts in the wrapper's `.launches` (`.launches_a` /
+`.launches_b`) and in `.conv_bf16_launches` (`.conv_bf16_launches_a` /
+`_b`). dV2 stays float32, as in JAX. The scaled arm of #3 takes float32 V2
+only: pairwise_limit routes a quantized w3 beside bf16 V2.
 """
 from __future__ import annotations
 
@@ -64,20 +75,33 @@ SPLIT_TARGET_CTAS = 132  # one CTA per SM of an H100 (both run one per SM)
 SPLIT_MIN_I = 64         # the fewest i values a split takes
 FWD_I_CHUNK = 16         # V2's i chunk in csrc/pairwise_fwd.cu: splits start on one
 DTYPES = (torch.bfloat16, torch.float32)   # h and w3 types the kernels take
+# the storage of the equivariant operand (V2, or the basis and x) the
+# kernels take: float32, or bf16 (conv_bf16)
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 # the quantized storage of w3 that kernel #3's scaled arm takes (and its
 # flag in the C interface: 0 int8, 1 float8_e4m3fn)
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
-                   dtype: torch.dtype = torch.float32) -> Optional[str]:
+                   dtype: torch.dtype = torch.float32,
+                   operand_dtype: torch.dtype = torch.float32,
+                   scaled: bool = False) -> Optional[str]:
     """None when the built `kernel` takes a call of these widths, else the
     limit the call exceeds. `kernel` is 'bxf' or 'bx' (#1 and #2, which
     also read Q), 'fwd' (#3) or 'bwd' (kernels A and B); `dtype` is h's
-    (and w3's). A function of widths and dtype alone, the counterpart of
-    the JAX package's fused_attention_fits: the kernels' fits predicate."""
+    (and w3's), `operand_dtype` the storage of V2 (or of the basis and x),
+    `scaled` a quantized w3 (#3's scaled arm). A function of widths and
+    dtypes alone, the counterpart of the JAX package's
+    fused_attention_fits: the kernels' fits predicate."""
     if dtype not in DTYPES:
         return f'h dtype {dtype} exceeds the built dtypes (bfloat16, float32)'
+    if operand_dtype not in OPERAND_DTYPES:
+        return (f'operand dtype {operand_dtype} exceeds the built storages '
+                f'(float32, bfloat16)')
+    if scaled and operand_dtype != torch.float32:
+        return ('a quantized w3 beside bf16 V2 exceeds the scaled arm (built '
+                'for float32 V2)')
     if mid != MID:
         return f'mid = {mid} exceeds the built mid = {MID}'
     if O <= 0 or O % O_TILE:
@@ -119,15 +143,18 @@ def _check(h, w3, basis_flat, x, pqf, b3, structured=False):
             raise ValueError(f'{name} is on {t.device}, h on {dev}')
     if w3.dtype != h.dtype:
         raise TypeError(f'h/w3 must have one dtype, got {h.dtype}/{w3.dtype}')
-    for name, t in (('basis_flat', basis_flat), ('x', x), ('b3', b3)):
-        if t.dtype != torch.float32:
-            raise TypeError(f'{name} must be float32, got {t.dtype}')
+    if b3.dtype != torch.float32:
+        raise TypeError(f'b3 must be float32, got {b3.dtype}')
+    if basis_flat.dtype != x.dtype:
+        raise TypeError(f'the basis and x must have one dtype (float32, or '
+                        f'bfloat16 for conv_bf16), got {basis_flat.dtype}/'
+                        f'{x.dtype}')
     if h.ndim != 2 or w3.ndim != 3 or x.ndim != 3:
         raise ValueError(f'h, w3 and x must be [E, mid], [mid, C*F, O] and '
                          f'[E, C, Q], got {tuple(h.shape)}, '
                          f'{tuple(w3.shape)}, {tuple(x.shape)}')
     limit = pairwise_limit('bx' if structured else 'bxf', h.shape[1],
-                           w3.shape[2], P, Q, h.dtype)
+                           w3.shape[2], P, Q, h.dtype, x.dtype)
     if limit is not None:
         raise ValueError(limit)
     if F != min(P, Q):
@@ -165,9 +192,10 @@ def bxf_tiles(P: int, Q: int, dtype: torch.dtype):
 
 
 def _launch_bxf(fn, h, w3, b3, basis, x, P, Q, C, O):
-    """Launch kernel #1 (fn = se3_pairwise_bxf) or #2 (se3_pairwise_bx);
-    float32 w3 is split into its bf16 hi and lo arrays by the launch's own
-    split pass, into scratch allocated here."""
+    """Launch kernel #1 (fn = se3_pairwise_bxf) or #2 (se3_pairwise_bx), or
+    their conv_bf16 arms (the _v16 entries); float32 w3 is split into its
+    bf16 hi and lo arrays by the launch's own split pass, into scratch
+    allocated here."""
     E = h.shape[0]
     out = torch.empty(E, P, O, dtype=torch.float32, device=h.device)
     if E == 0:
@@ -198,14 +226,20 @@ def fused_pairwise_conv_bxf(h: torch.Tensor, w3: torch.Tensor,
         raise ValueError(f'no kernel for device {h.device}')
     E, C, O = _check(h, w3, basis_flat, x, pqf, b3)
     from .build import load_library
-    out = _launch_bxf(load_library().se3_pairwise_bxf, h, w3, b3, basis_flat,
-                      x, pqf[0], pqf[1], C, O)
+    v16 = x.dtype == torch.bfloat16
+    lib = load_library()
+    out = _launch_bxf(lib.se3_pairwise_bxf_v16 if v16 else lib.se3_pairwise_bxf,
+                      h, w3, b3, basis_flat, x, pqf[0], pqf[1], C, O)
     if E:
         fused_pairwise_conv_bxf.launches += 1
+        fused_pairwise_conv_bxf.conv_bf16_launches += v16
     return out
 
 
+# every launch counts in .launches, the conv_bf16 arm's in
+# .conv_bf16_launches too
 fused_pairwise_conv_bxf.launches = 0
+fused_pairwise_conv_bxf.conv_bf16_launches = 0
 fused_pairwise_conv_bxf.routed = 0
 
 
@@ -252,14 +286,18 @@ def fused_pairwise_conv_bx(h: torch.Tensor, w3: torch.Tensor,
         raise ValueError(f'no kernel for device {h.device}')
     E, C, O, (P, Q, _) = _check_bx(h, w3, basis, x, b3)
     from .build import load_library
-    out = _launch_bxf(load_library().se3_pairwise_bx, h, w3, b3, basis, x, P,
-                      Q, C, O)
+    v16 = x.dtype == torch.bfloat16
+    lib = load_library()
+    out = _launch_bxf(lib.se3_pairwise_bx_v16 if v16 else lib.se3_pairwise_bx,
+                      h, w3, b3, basis, x, P, Q, C, O)
     if E:
         fused_pairwise_conv_bx.launches += 1
+        fused_pairwise_conv_bx.conv_bf16_launches += v16
     return out
 
 
 fused_pairwise_conv_bx.launches = 0
+fused_pairwise_conv_bx.conv_bf16_launches = 0
 fused_pairwise_conv_bx.routed = 0
 
 
@@ -315,15 +353,15 @@ def _check_fwd(h, w3, v2, b3, w3_scale=None):
             raise ValueError(f'w3_scale must be contiguous float32 [1, IF, O] '
                              f'for w3 {tuple(w3.shape)}, got {w3_scale.dtype} '
                              f'{tuple(w3_scale.shape)}')
-    for name, t in (('v2', v2), ('b3', b3)):
-        if t.dtype != torch.float32:
-            raise TypeError(f'{name} must be float32, got {t.dtype}')
+    if b3.dtype != torch.float32:
+        raise TypeError(f'b3 must be float32, got {b3.dtype}')
     if h.ndim != 2 or w3.ndim != 3 or v2.ndim != 3:
         raise ValueError(f'h, w3 and v2 must be [E, mid], [mid, IF, O] and '
                          f'[E, P, IF], got {tuple(h.shape)}, '
                          f'{tuple(w3.shape)}, {tuple(v2.shape)}')
     limit = pairwise_limit('fwd', h.shape[1], w3.shape[2], v2.shape[1],
-                           dtype=h.dtype)
+                           dtype=h.dtype, operand_dtype=v2.dtype,
+                           scaled=w3_scale is not None)
     if limit is not None:
         raise ValueError(limit)
     E = h.shape[0]
@@ -359,10 +397,11 @@ def i_per_split(E: int, IF: int, O: int = O_TILE) -> int:
 def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
                         b3: torch.Tensor = None,
                         w3_scale: torch.Tensor = None) -> torch.Tensor:
-    """h [E, mid], w3 [mid, IF, O], v2 [E, P, IF], b3 [IF, O] (zeros when
-    None) -> out [E, P, O] float32: out = v2 . (h@w3 + b3). With w3_scale
-    (float32 [1, IF, O]) w3 is int8 or float8_e4m3fn storage and out =
-    v2 . ((h@w3) * w3_scale + b3): kernel #3's scaled arm, serving only."""
+    """h [E, mid], w3 [mid, IF, O], v2 [E, P, IF] (float32, or bf16:
+    conv_bf16), b3 [IF, O] (zeros when None) -> out [E, P, O] float32: out
+    = v2 . (h@w3 + b3). With w3_scale (float32 [1, IF, O]) w3 is int8 or
+    float8_e4m3fn storage and out = v2 . ((h@w3) * w3_scale + b3): kernel
+    #3's scaled arm, serving only (float32 v2)."""
     if h.device.type == 'cpu':
         return fused_pairwise_conv_plain(h, w3, v2, b3, w3_scale=w3_scale)
     if h.device.type != 'cuda':
@@ -401,20 +440,25 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
     w3_split = w3 if bf16 else torch.empty(
         2 * w3.numel(), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
+    v16 = v2.dtype == torch.bfloat16
+    lib = load_library()
+    fn = lib.se3_pairwise_fwd_v16 if v16 else lib.se3_pairwise_fwd
     with torch.cuda.device(h.device):
-        rc = load_library().se3_pairwise_fwd(
-            h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
-            out.data_ptr(), work.data_ptr(), w3_split.data_ptr(), E, IF, O,
-            P, per, int(bf16), _stream(h))
+        rc = fn(h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
+                out.data_ptr(), work.data_ptr(), w3_split.data_ptr(), E, IF, O,
+                P, per, int(bf16), _stream(h))
     if rc != 0:
-        raise RuntimeError(f'se3_pairwise_fwd launch failed: CUDA error {rc}')
+        raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {rc}')
     fused_pairwise_conv.launches += 1
+    fused_pairwise_conv.conv_bf16_launches += v16
     return out
 
 
-# every launch counts in .launches, the scaled arm's in .scaled_launches too
+# every launch counts in .launches, the scaled arm's in .scaled_launches
+# too, the conv_bf16 arm's in .conv_bf16_launches
 fused_pairwise_conv.launches = 0
 fused_pairwise_conv.scaled_launches = 0
+fused_pairwise_conv.conv_bf16_launches = 0
 fused_pairwise_conv.routed = 0
 
 
@@ -463,7 +507,7 @@ def _check_bwd(h, w3, v2, g, b3):
             raise ValueError(f'{name} is on {t.device}, h on {dev}')
     if w3.dtype != h.dtype:
         raise TypeError(f'h/w3 must have one dtype, got {h.dtype}/{w3.dtype}')
-    for name, t in (('v2', v2), ('g', g), ('b3', b3)):
+    for name, t in (('g', g), ('b3', b3)):
         if t.dtype != torch.float32:
             raise TypeError(f'{name} must be float32, got {t.dtype}')
     if h.ndim != 2 or w3.ndim != 3 or v2.ndim != 3:
@@ -471,7 +515,7 @@ def _check_bwd(h, w3, v2, g, b3):
                          f'[E, P, IF], got {tuple(h.shape)}, '
                          f'{tuple(w3.shape)}, {tuple(v2.shape)}')
     limit = pairwise_limit('bwd', h.shape[1], w3.shape[2], v2.shape[1],
-                           dtype=h.dtype)
+                           dtype=h.dtype, operand_dtype=v2.dtype)
     if limit is not None:
         raise ValueError(limit)
     E = h.shape[0]
@@ -541,16 +585,18 @@ def _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P):
     split = work if bf16 else torch.empty(
         2 * (E * MID + MID * IF * O), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
+    v16 = v2.dtype == torch.bfloat16
+    lib = load_library()
+    fn = lib.se3_pairwise_bwd_a_v16 if v16 else lib.se3_pairwise_bwd_a
     with torch.cuda.device(h.device):
-        rc = load_library().se3_pairwise_bwd_a(
-            h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
-            g.data_ptr(), dv2.data_ptr(), dv2_work.data_ptr(),
-            work.data_ptr(), split.data_ptr(), dw3.data_ptr(),
-            db3.data_ptr(), E, IF, O, P, splits, int(bf16), _stream(h))
+        rc = fn(h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
+                g.data_ptr(), dv2.data_ptr(), dv2_work.data_ptr(),
+                work.data_ptr(), split.data_ptr(), dw3.data_ptr(),
+                db3.data_ptr(), E, IF, O, P, splits, int(bf16), _stream(h))
     if rc != 0:
-        raise RuntimeError(f'se3_pairwise_bwd_a launch failed: CUDA error '
-                           f'{rc}')
+        raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {rc}')
     fused_pairwise_conv_bwd.launches_a += 1
+    fused_pairwise_conv_bwd.conv_bf16_launches_a += v16
     return dw3, dv2, db3
 
 
@@ -570,15 +616,17 @@ def _launch_bwd_b(w3, v2, g, E, IF, O, P):
     split = dh if bf16 else torch.empty(
         2 * w3.numel(), dtype=torch.bfloat16, device=w3.device)
     from .build import load_library
+    v16 = v2.dtype == torch.bfloat16
+    lib = load_library()
+    fn = lib.se3_pairwise_bwd_b_v16 if v16 else lib.se3_pairwise_bwd_b
     with torch.cuda.device(w3.device):
-        rc = load_library().se3_pairwise_bwd_b(
-            w3.data_ptr(), v2.data_ptr(), g.data_ptr(), dh.data_ptr(),
-            work.data_ptr(), split.data_ptr(), E, IF, O, P, per, int(bf16),
-            _stream(w3))
+        rc = fn(w3.data_ptr(), v2.data_ptr(), g.data_ptr(), dh.data_ptr(),
+                work.data_ptr(), split.data_ptr(), E, IF, O, P, per,
+                int(bf16), _stream(w3))
     if rc != 0:
-        raise RuntimeError(f'se3_pairwise_bwd_b launch failed: CUDA error '
-                           f'{rc}')
+        raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {rc}')
     fused_pairwise_conv_bwd.launches_b += 1
+    fused_pairwise_conv_bwd.conv_bf16_launches_b += v16
     return dh
 
 
@@ -586,10 +634,9 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
                             v2: torch.Tensor, g: torch.Tensor,
                             b3: torch.Tensor = None):
     """Backward of fused_pairwise_conv and fused_pairwise_conv_bxf (V2
-    given): h [E, mid], w3 [mid, IF, O], v2 [E, P, IF], g [E, P, O], b3
-    [IF, O] (zeros when None) -> (dh [E, mid], dw3 [mid, IF, O], dv2 [E, P,
-    IF], db3 [IF, O]), all
-    float32. On a card: kernel A (dV2, dW3, dB3, with its deterministic
+    given): h [E, mid], w3 [mid, IF, O], v2 [E, P, IF] (float32, or bf16:
+    conv_bf16), g [E, P, O], b3 [IF, O] (zeros when None) -> (dh [E, mid],
+    dw3 [mid, IF, O], dv2 [E, P, IF], db3 [IF, O]), all float32. On a card: kernel A (dV2, dW3, dB3, with its deterministic
     edge reduce) then kernel B (dH); mid = 128 and O a multiple of 64
     there."""
     if b3 is None:
@@ -607,8 +654,12 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
     return _launch_bwd_b(w3, v2, g, E, IF, O, P), dw3, dv2, db3
 
 
+# every launch counts in .launches_a / .launches_b, the conv_bf16 arm's in
+# .conv_bf16_launches_a / _b too
 fused_pairwise_conv_bwd.launches_a = 0
 fused_pairwise_conv_bwd.launches_b = 0
+fused_pairwise_conv_bwd.conv_bf16_launches_a = 0
+fused_pairwise_conv_bwd.conv_bf16_launches_b = 0
 
 
 # ---------------------------------------------------------------------- #

@@ -59,6 +59,28 @@ gets its backend, and the forward builds only the payloads its layers
 read (_payloads: the per-pair basis, the SH stack of the dense fused
 blocks, the so2 edge frames).
 
+use_egnn (egnn_hidden_dim, egnn_weights_clamp_value, egnn_feedforward)
+makes the trunk the EGNN backbone (ops.egnn.EGnnNetwork), as JAX does: no
+attention blocks and no conv_out (output_degrees becomes None: the output
+is the hidden fiber's degrees, through linear_out with reduce_dim_out),
+remat_policy refused, fuse_pairwise and the kv convs' backends not read.
+norm_gated_scale gives every NormSE3 (the blocks' prenorms, preconv_norm,
+norm_out) a gating matrix w_gate{d} in place of scale{d}. conv_bf16 stores
+every contraction's equivariant operand bf16 (ops.conv; the basis-fused
+contraction's basis once for all convs, in _payloads), refused with
+fuse_pairwise and in global mode as JAX's attention refuses it. pallas
+(None / True: the kernels on a card; False: the plain versions on every
+device, no basis-fused contraction and the 'pqf' basis layout, as JAX's
+XLA path) reaches every conv and attention block.
+
+The forward's `neighbors=(indices [b, n, k], mask [b, n, k] or None)` takes
+precomputed neighbor lists (the JAX argument, for a host-side graph
+builder) in place of the kNN selection: plain kNN semantics only (no
+sparse or causal attention, no adjacency, no edges, no neighbor_mask); the
+indices are clamped to [0, n), and a slot is valid when its node is within
+valid_radius, is not the node itself (a self-inclusive list) and, with
+them, where the given mask and both nodes' mask allow.
+
 Quantized serving (se3_transformer_torch.quant.quantize_params, or
 InferenceEngine(precision=...)): a model holding int8/fp8 weights serves
 only. Its forward refuses to run with autograd enabled (a training step
@@ -81,28 +103,28 @@ from torch import nn
 from ..basis import get_basis
 from ..kernels.flash import flash_sh_payload
 from ..ops.conv import ConvSE3, resolve_conv_backend
+from ..ops.attention import FUSED_CONV_BF16, GLOBAL_CONV_BF16
 from ..ops.core import LinearSE3, NormSE3
+from ..ops.egnn import EGnnNetwork
 from ..ops.fiber import Fiber
 from ..ops.neighbors import (
-    exclude_self_indices, expand_adjacency, remove_self, select_neighbors,
-    sparse_neighbor_mask,
+    Neighborhood, exclude_self_indices, expand_adjacency, remove_self,
+    select_neighbors, sparse_neighbor_mask,
 )
 from ..ops.rotary import sinusoidal_embeddings
 from ..ops.trunk import SequentialTrunk
 from ..quant.qtensor import is_quantized
 from ..so2.frames import edge_frames
 from ..utils.helpers import (
-    batched_index_select, cast_tuple, masked_mean, resolve_device,
+    batched_index_select, cast_tuple, masked_mean, resolve_device, safe_norm,
 )
 
 # JAX SE3TransformerModule fields this port does not implement, with the
-# JAX defaults they must keep
+# JAX defaults they must keep: the TPU interpreter flags (tests of the
+# Pallas kernels in interpret mode), the matmul precision policy (the
+# port's matmuls are IEEE float32) and the parallel fields
 _JAX_ONLY_DEFAULTS = dict(
-    norm_gated_scale=False,
-    use_egnn=False, egnn_hidden_dim=32, egnn_weights_clamp_value=None,
-    egnn_feedforward=False,
-    flash_interpret=False,
-    pallas=None, conv_bf16=False, pallas_interpret=False,
+    flash_interpret=False, pallas_interpret=False,
     pallas_attention_interpret=False,
     matmul_precision=None, sequence_parallel=None,
     mesh=None, ring_overlap=True, ring_exchange=True)
@@ -116,6 +138,7 @@ _NOT_WITH_GLOBAL = (
     ('num_adj_degrees', None, 'adjacency presumes a neighbor list'),
     ('edge_dim', None, 'edge features presume a neighbor list'),
     ('use_egnn', False, 'egnn blocks presume a neighbor list'),
+    ('conv_bf16', False, GLOBAL_CONV_BF16),
     ('rotary_position', False, 'global attention does not support rotary '
      'embeddings'),
     ('rotary_rel_dist', False, 'global attention does not support rotary '
@@ -137,7 +160,7 @@ _NOT_WITH_FUSE_PAIRWISE = (
      'embeddings'),
     ('linear_proj_keys', False, 'fuse_pairwise needs conv keys '
      '(linear_proj_keys is the gathered node-projection variant)'),
-    ('conv_bf16', False, 'fuse_pairwise does not apply conv_bf16'))
+    ('conv_bf16', False, FUSED_CONV_BF16))
 
 
 def resolve_fused_attention(spec, depth: int) -> tuple:
@@ -210,12 +233,22 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter from `generator` the way the flax module
     initializes its counterpart: variance-scaling truncated normals for
     Dense kernels and w3, normal(dim_in**-0.5) for LinearSE3, ones for
-    scales, zeros for biases."""
+    scales, zeros for biases; the EGNN's Dense kernels normal(1e-3), its
+    HtypesNorm constants 1e-2 and NormSE3's w_gate uniform(+-1e-3)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             parts = name.split('.')
             leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else '')
-            if re.fullmatch(r'Dense_\d+', parent) and leaf == 'weight':
+            egnn_dense = re.fullmatch(
+                r'(edge|htypes|node)_mlp\d|htype_gate\d+', parent)
+            if egnn_dense and leaf == 'weight':
+                p.copy_(torch.randn(p.shape, generator=generator) * 1e-3)
+            elif re.fullmatch(r'htype_norm\d+', parent):
+                p.fill_(1e-2)
+            elif re.fullmatch(r'w_gate\d+', leaf):
+                p.copy_(torch.rand(p.shape, generator=generator) * 2e-3
+                        - 1e-3)
+            elif re.fullmatch(r'Dense_\d+', parent) and leaf == 'weight':
                 _truncated_normal_(p, (1 / p.shape[1]) ** 0.5 / _TRUNC_STD,
                                    generator)
             elif parent.endswith('_emb') and leaf == 'weight':
@@ -270,7 +303,12 @@ class SE3TransformerModule(nn.Module):
                  one_headed_key_values: bool = False,
                  tie_key_values: bool = False,
                  rotary_position: bool = False,
-                 rotary_rel_dist: bool = False, conv_backend='dense', *,
+                 rotary_rel_dist: bool = False, conv_backend='dense',
+                 norm_gated_scale: bool = False, use_egnn: bool = False,
+                 egnn_hidden_dim: int = 32,
+                 egnn_weights_clamp_value: Optional[float] = None,
+                 egnn_feedforward: bool = False, conv_bf16: bool = False,
+                 pallas: Optional[bool] = None, *,
                  device='cuda', generator: Optional[torch.Generator] = None,
                  **jax_fields):
         super().__init__()
@@ -295,13 +333,20 @@ class SE3TransformerModule(nn.Module):
         if reversible and global_feats_dim is not None:
             raise ValueError('reversibility and global features are not '
                              'compatible')
+        if use_egnn and remat_policy is not None:
+            raise ValueError('remat_policy applies to the conv-attention '
+                             'trunk only')
+        if pallas not in (None, False, True):
+            raise ValueError(f'pallas must be None, False or True, got '
+                             f'{pallas!r}')
         fields = dict(jax_fields, fourier_encode_dist=fourier_encode_dist,
                       num_conv_layers=num_conv_layers,
                       attend_sparse_neighbors=attend_sparse_neighbors,
                       causal=causal, num_adj_degrees=num_adj_degrees,
                       edge_dim=edge_dim, rotary_position=rotary_position,
                       rotary_rel_dist=rotary_rel_dist,
-                      linear_proj_keys=linear_proj_keys)
+                      linear_proj_keys=linear_proj_keys, use_egnn=use_egnn,
+                      conv_bf16=conv_bf16)
         if attention_mode == 'global':
             for key, allowed, why in _NOT_WITH_GLOBAL:
                 if fields.get(key, allowed) != allowed:
@@ -318,7 +363,10 @@ class SE3TransformerModule(nn.Module):
         if pallas_attention not in (None, False, True):
             raise ValueError(f'pallas_attention must be None, False or True, '
                              f'got {pallas_attention!r}')
-        self.fused_attention = resolve_fused_attention(fuse_pairwise, depth)
+        # an EGNN trunk has no attention blocks to fuse (JAX
+        # _attention_fused)
+        self.fused_attention = () if use_egnn else \
+            resolve_fused_attention(fuse_pairwise, depth)
         self.conv_backend = _backend_spec(conv_backend)
         if any(self.fused_attention):
             for key, allowed, why in _NOT_WITH_FUSE_PAIRWISE:
@@ -346,12 +394,18 @@ class SE3TransformerModule(nn.Module):
                                 cast_tuple(dim_in, input_degrees))
         fiber_hidden = Fiber(hidden_fiber_dict) if hidden_fiber_dict \
             is not None else Fiber.create(num_degrees, dim)
+        # the EGNN trunk's output is the hidden fiber: no conv_out (JAX
+        # _resolved)
+        if use_egnn:
+            output_degrees = None
         if out_fiber_dict is not None:
             fiber_out = Fiber(out_fiber_dict)
             output_degrees = max(d for d, _ in out_fiber_dict) + 1
-        else:
+        elif output_degrees is not None:
             fiber_out = Fiber.create(output_degrees,
                                      dim if dim_out is None else dim_out)
+        else:
+            fiber_out = None
         if attention_mode == 'global' and \
                 not all(d in fiber_hidden for d, _ in fiber_out):
             raise ValueError('global mode projects out with a LinearSE3, so '
@@ -375,16 +429,22 @@ class SE3TransformerModule(nn.Module):
         self.rotary_position, self.rotary_rel_dist = \
             rotary_position, rotary_rel_dist
         self.dim_head = dim_head
+        self.use_egnn = use_egnn
+        self.fiber_out = fiber_out
         # the convs' edge width: the edges, then the ring labels' embedding
         # (the JAX module reads it off the edges at trace time)
         embed_adjacency = num_adj_degrees is not None and adj_dim > 0
         self.edge_width = (edge_dim or 0) + (adj_dim if embed_adjacency
                                              else 0)
-        # reversible blocks imply the output norm (JAX _body)
-        self.apply_norm_out = norm_out or reversible
-        # the basis layout the convs take (the JAX module's choice on the
-        # kernel path)
-        self.basis_layout = 'pfq_flat' if fuse_basis else 'pqf'
+        # reversible blocks imply the output norm (JAX _body); there is
+        # none without an output fiber (the EGNN trunk)
+        self.apply_norm_out = (norm_out or reversible) and \
+            fiber_out is not None
+        # the basis layout the convs take (the JAX module's choice: the
+        # flat one on the kernel path of the basis-fused contraction)
+        self.basis_layout = 'pfq_flat' if fuse_basis and pallas is not False \
+            else 'pqf'
+        self.conv_bf16 = conv_bf16
 
         if num_tokens is not None:
             self.token_emb = nn.Embedding(num_tokens, fiber_in[0])
@@ -399,14 +459,15 @@ class SE3TransformerModule(nn.Module):
                            num_fourier_features=rel_dist_num_fourier_features,
                            shared_radial_hidden=shared_radial_hidden,
                            edge_chunks=edge_chunks, fuse_basis=fuse_basis,
-                           radial_bf16=radial_bf16)
+                           radial_bf16=radial_bf16, conv_bf16=conv_bf16,
+                           pallas=pallas)
         # the conv layers' backends by name (the JAX _layer_backends)
         names = ['conv_in'] + [f'preconv{i}' for i in range(num_conv_layers)]
-        for i in range(depth):
+        for i in range(0 if use_egnn else depth):
             names.append(f'attn_block{i}/to_v')
             if not (linear_proj_keys or tie_key_values):
                 names.append(f'attn_block{i}/to_k')
-        if attention_mode != 'global':
+        if attention_mode != 'global' and fiber_out is not None:
             names.append('conv_out')
         self.backends = {name: resolve_conv_backend(self.conv_backend, name)
                          for name in names}
@@ -417,39 +478,54 @@ class SE3TransformerModule(nn.Module):
                                    backend=self.backends['conv_in'],
                                    **conv_kwargs)
         for i in range(num_conv_layers):
-            self.add_module(f'preconv_norm{i}', NormSE3(fiber_hidden))
+            self.add_module(f'preconv_norm{i}', NormSE3(
+                fiber_hidden, gated_scale=norm_gated_scale))
             self.add_module(f'preconv{i}', ConvSE3(
                 fiber_hidden, fiber_hidden,
                 backend=self.backends[f'preconv{i}'], **conv_kwargs))
-        self.trunk = SequentialTrunk(
-            fiber_hidden, depth=depth, heads=heads, dim_head=dim_head,
-            attend_self=attend_self, use_null_kv=use_null_kv,
-            fourier_encode_dist=fourier_encode_dist,
-            rel_dist_num_fourier_features=rel_dist_num_fourier_features,
-            global_feats_dim=global_feats_dim,
-            linear_proj_keys=linear_proj_keys, tie_key_values=tie_key_values,
-            one_headed_key_values=one_headed_key_values,
-            reversible=reversible, remat_policy=remat_policy,
-            pallas_attention=pallas_attention,
-            shared_radial_hidden=shared_radial_hidden,
-            edge_chunks=edge_chunks, fuse_basis=fuse_basis,
-            radial_bf16=radial_bf16, fused_attention=self.fused_attention,
-            attention_mode=attention_mode,
-            global_materialize=global_materialize, edge_dim=self.edge_width,
-            value_backends=tuple(self.backends[f'attn_block{i}/to_v']
-                                 for i in range(depth)),
-            key_backends=tuple(self.backends.get(f'attn_block{i}/to_k',
-                                                 'dense')
-                               for i in range(depth)))
+        if use_egnn:
+            self.egnn_net = EGnnNetwork(
+                fiber_hidden, depth=depth, edge_dim=self.edge_width,
+                hidden_dim=egnn_hidden_dim,
+                coor_weights_clamp_value=egnn_weights_clamp_value,
+                feedforward=egnn_feedforward, reversible=reversible)
+        else:
+            self.trunk = SequentialTrunk(
+                fiber_hidden, depth=depth, heads=heads, dim_head=dim_head,
+                attend_self=attend_self, use_null_kv=use_null_kv,
+                fourier_encode_dist=fourier_encode_dist,
+                rel_dist_num_fourier_features=rel_dist_num_fourier_features,
+                global_feats_dim=global_feats_dim,
+                linear_proj_keys=linear_proj_keys,
+                tie_key_values=tie_key_values,
+                one_headed_key_values=one_headed_key_values,
+                reversible=reversible, remat_policy=remat_policy,
+                pallas_attention=pallas_attention,
+                shared_radial_hidden=shared_radial_hidden,
+                edge_chunks=edge_chunks, fuse_basis=fuse_basis,
+                radial_bf16=radial_bf16,
+                fused_attention=self.fused_attention,
+                attention_mode=attention_mode,
+                global_materialize=global_materialize,
+                edge_dim=self.edge_width,
+                value_backends=tuple(self.backends[f'attn_block{i}/to_v']
+                                     for i in range(depth)),
+                key_backends=tuple(self.backends.get(f'attn_block{i}/to_k',
+                                                     'dense')
+                                   for i in range(depth)),
+                norm_gated_scale=norm_gated_scale, conv_bf16=conv_bf16,
+                pallas=pallas)
         if attention_mode == 'global':
             self.lift_out = LinearSE3(fiber_hidden, fiber_out)
-        else:
+        elif fiber_out is not None:
             self.conv_out = ConvSE3(fiber_hidden, fiber_out,
                                     backend=self.backends['conv_out'],
                                     **conv_kwargs)
         if self.apply_norm_out:
-            self.norm_out = NormSE3(fiber_out, nonlin=lambda t: t)
-        self.linear_out = LinearSE3(fiber_out, fiber_out.to(1)) \
+            self.norm_out = NormSE3(fiber_out, nonlin=lambda t: t,
+                                    gated_scale=norm_gated_scale)
+        final_fiber = fiber_hidden if fiber_out is None else fiber_out
+        self.linear_out = LinearSE3(final_fiber, final_fiber.to(1)) \
             if reduce_dim_out else None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -462,7 +538,7 @@ class SE3TransformerModule(nn.Module):
                 return_type: Optional[int] = None,
                 return_pooled: bool = False,
                 neighbor_mask: Optional[torch.Tensor] = None,
-                global_feats=None, *,
+                global_feats=None, neighbors=None, *,
                 neighbor_noise: Optional[torch.Generator] = None):
         """feats [b, n, dim] (integer tokens [b, n] with num_tokens), or a
         dict of the input degrees {'0': [b, n, c0, 1], '1': [b, n, c1, 3],
@@ -479,7 +555,9 @@ class SE3TransformerModule(nn.Module):
         mean over the nodes (the real ones, with mask): [b, c] and [b, c,
         3]. global_feats [b, num_global, global_feats_dim] (or {'0': [b,
         num_global, global_feats_dim, 1]}) is passed iff global_feats_dim
-        is set.
+        is set. neighbors=(indices [b, n, k], mask [b, n, k] or None) are
+        precomputed neighbor lists (module docstring). With use_egnn the
+        output is the hidden fiber's (return_type picks a degree).
 
         neighbor_noise is a torch.Generator on the input's device that the
         bonded top-k's tie-breaking jitter U(-0.01, 0.01) is drawn from,
@@ -528,10 +606,21 @@ class SE3TransformerModule(nn.Module):
         if self.attention_mode == 'global':
             return self._global_forward(feats, coors, mask, return_type,
                                         return_pooled, global_feats)
-        if not self.attend_sparse_neighbors and self.num_neighbors <= 0:
+        if not self.attend_sparse_neighbors and self.num_neighbors <= 0 \
+                and neighbors is None:
             raise ValueError('either attend to sparse neighbors or use '
                              'num_neighbors > 0')
         b, n = feats['0'].shape[0], feats['0'].shape[1]
+        if neighbors is not None:
+            if (self.attend_sparse_neighbors or self.causal
+                    or neighbor_mask is not None
+                    or self.num_adj_degrees is not None
+                    or edges is not None):
+                raise ValueError('precomputed neighbors support plain kNN '
+                                 'semantics only')
+            return self._body(feats, self._given_neighbors(
+                neighbors, coors, mask, n), None, global_feats, return_type,
+                return_pooled, mask, b, n)
         num_neighbors = int(min(self.num_neighbors, n - 1))
 
         self_excl = exclude_self_indices(n, device=coors.device)
@@ -566,6 +655,36 @@ class SE3TransformerModule(nn.Module):
             sparse_mask=sparse_mask, causal=self.causal)
         if edges is not None:
             edges = batched_index_select(edges, nearest, dim=2)
+        return self._body(feats, hood, edges, global_feats, return_type,
+                          return_pooled, mask, b, n)
+
+    def _given_neighbors(self, neighbors, coors, mask, n) -> Neighborhood:
+        """The neighborhood of precomputed lists (the JAX module's
+        precomputed branch): indices clamped to [0, n), slots valid within
+        valid_radius, not the node itself (self-inclusive lists, and
+        sentinels the clamp mapped onto a real node), where the given mask
+        and both nodes' mask allow."""
+        nbr_idx, nbr_mask = neighbors
+        nbr_idx = torch.as_tensor(nbr_idx, device=coors.device).long()
+        nbr_idx = nbr_idx.clamp(0, n - 1)
+        rel_pos = coors[:, :, None, :] - batched_index_select(coors, nbr_idx,
+                                                              dim=1)
+        rel_dist = safe_norm(rel_pos, dim=-1)
+        valid = (rel_dist <= self.valid_radius) & (
+            nbr_idx != torch.arange(n, device=coors.device)[None, :, None])
+        if nbr_mask is not None:
+            valid = valid & torch.as_tensor(nbr_mask,
+                                            device=coors.device).bool()
+        if mask is not None:
+            valid = valid & batched_index_select(mask, nbr_idx, dim=1) \
+                & mask[:, :, None]
+        return Neighborhood(nbr_idx, valid, rel_pos, rel_dist)
+
+    def _body(self, feats, hood, edges, global_feats, return_type,
+              return_pooled, mask, b, n):
+        """The JAX _body from the neighborhood on: the payloads, conv_in,
+        the preconvs, the trunk (attention blocks or the EGNN), conv_out
+        and the output tail."""
         basis = self._payloads(hood.rel_pos)
         edge_info = (hood.indices, hood.mask, edges)
 
@@ -574,9 +693,11 @@ class SE3TransformerModule(nn.Module):
             x = getattr(self, f'preconv_norm{i}')(x)
             x = getattr(self, f'preconv{i}')(x, edge_info, hood.rel_dist,
                                              basis)
-        x = self.trunk(x, edge_info, hood.rel_dist, basis, global_feats,
-                       self._rotary_embeddings(b, n, hood))
-        x = self.conv_out(x, edge_info, hood.rel_dist, basis)
+        trunk = self.egnn_net if self.use_egnn else self.trunk
+        x = trunk(x, edge_info, hood.rel_dist, basis, global_feats,
+                  self._rotary_embeddings(b, n, hood))
+        if self.fiber_out is not None:
+            x = self.conv_out(x, edge_info, hood.rel_dist, basis)
         return self._output(x, return_type, return_pooled, mask)
 
     def _payloads(self, rel_pos: torch.Tensor) -> dict:
@@ -595,6 +716,14 @@ class SE3TransformerModule(nn.Module):
             basis = get_basis(rel_pos, degree,
                               differentiable=self.differentiable_coors,
                               layout=self.basis_layout)
+            if self.conv_bf16 and self.basis_layout == 'pfq_flat':
+                # every conv stores the basis bf16 for the basis-fused
+                # contraction: cast once, so that the convs share one bf16
+                # copy (and residual) and the float32 basis is freed. A
+                # basis that carries gradients stays float32, so that each
+                # conv's bf16 gradient is summed in float32, as in JAX.
+                basis = {key: b if b.requires_grad else b.to(torch.bfloat16)
+                         for key, b in basis.items()}
         if any(name in fused for name in dense):
             basis['flash_sh'] = flash_sh_payload(
                 rel_pos, degree, differentiable=self.differentiable_coors)

@@ -39,7 +39,15 @@ kernels.flash.flash_global_attention per degree, the kv convs in
 global_radial program mode, the pair payload rebuilt from the coordinates
 in basis['global_coords'] (columns masked by basis['global_mask']), the
 [global, null, self] slots as its prefix. Rotary embeddings and
-linear_proj_keys are refused there and with fuse_pairwise, as JAX does.
+linear_proj_keys are refused there and with fuse_pairwise, as JAX does;
+so is conv_bf16 (the stored-bf16 conv operands), which neither streaming
+path materializes.
+
+pallas=False (the JAX field) runs the kv convs' contractions, the
+streaming kernel #7 and the global kernel 7g on their plain versions on
+every device, with no launch and nothing counted in `.routed`; None and
+True take the kernels on a card. pallas_attention keeps its own choice of
+core.
 """
 from __future__ import annotations
 
@@ -62,6 +70,15 @@ from .fiber import Fiber
 from .rotary import apply_rotary_pos_emb
 
 Features = Dict[str, torch.Tensor]
+
+
+# the JAX package's refusals of conv_bf16 where no conv operand is
+# materialized (its ops/attention.py, the flash and global calls)
+FUSED_CONV_BF16 = ('fuse_pairwise does not apply conv_bf16 (there is no '
+                   'materialized V2/basis/gathered operand to store bf16 — '
+                   'the knob would silently do nothing on this path)')
+GLOBAL_CONV_BF16 = ('global attention has no materialized conv operand to '
+                    'store bf16')
 
 
 def _kernel_weight(w):
@@ -87,11 +104,16 @@ class AttentionSE3(nn.Module):
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
                  attention_mode: str = 'knn',
                  global_materialize: bool = False, edge_dim: int = 0,
-                 backend_v: str = 'dense', backend_k: str = 'dense'):
+                 backend_v: str = 'dense', backend_k: str = 'dense',
+                 conv_bf16: bool = False, pallas: Optional[bool] = None):
         super().__init__()
         if attention_mode not in ('knn', 'global'):
             raise ValueError(f"unknown attention_mode {attention_mode!r} "
                              f"(want 'knn' or 'global')")
+        if conv_bf16 and attention_mode == 'global':
+            raise ValueError(GLOBAL_CONV_BF16)
+        if conv_bf16 and fuse_pairwise:
+            raise ValueError(FUSED_CONV_BF16)
         kv_h = heads if kv_heads is None else kv_heads
         if kv_h not in (1, heads):
             raise ValueError(f'kv_heads must be None, 1 or heads ({heads}), '
@@ -116,11 +138,13 @@ class AttentionSE3(nn.Module):
         self.attend_self = attend_self
         self.linear_proj_keys = linear_proj_keys
         self.tie_key_values = tie_key_values
+        self.pallas = pallas
         hidden_fiber = fiber.to(dim_head * heads)
         kv_fiber = fiber.to(dim_head * kv_h)
         self.to_q = LinearSE3(fiber, hidden_fiber)
         conv_kwargs = dict(pool=False, self_interaction=False,
-                           radial_bf16=radial_bf16)
+                           radial_bf16=radial_bf16, conv_bf16=conv_bf16,
+                           pallas=pallas)
         if attention_mode == 'global':
             conv_kwargs.update(global_radial=True, shared_radial_hidden=True)
         elif fuse_pairwise:
@@ -355,10 +379,13 @@ class AttentionSE3(nn.Module):
                               bk=k_prog['b3'][degree])
             limit = kf.global_limit(v_prog['pairs'], int(degree), h, kv_h,
                                     self.dim_head, S0)
-            # materialize runs the plain stream as one chunk anyway
-            if not self.global_materialize and routing.route(
-                    kf.flash_global_attention_fwd, coords.device.type, limit,
-                    (v_prog['pairs'], int(degree), h, kv_h, self.dim_head)):
+            # materialize runs the plain stream as one chunk anyway;
+            # pallas=False the plain stream, uncounted
+            if not self.global_materialize and (
+                    self.pallas is False or routing.route(
+                        kf.flash_global_attention_fwd, coords.device.type,
+                        limit, (v_prog['pairs'], int(degree), h, kv_h,
+                                self.dim_head))):
                 out = kf.flash_global_plain(
                     *kf.flash_global_operands(*args, **config))
             else:
@@ -413,9 +440,10 @@ class AttentionSE3(nn.Module):
                                          v_prog['arm']),
                                    storages=(config.get('wk', wv).dtype,
                                              wv.dtype))
-            if routing.route(kf.flash_attention_fwd, h_v.device.type, limit,
-                             (v_prog['pairs'], int(degree), h, kv_h,
-                              self.dim_head, K)):
+            if self.pallas is False or routing.route(
+                    kf.flash_attention_fwd, h_v.device.type, limit,
+                    (v_prog['pairs'], int(degree), h, kv_h, self.dim_head,
+                     K)):
                 out = kf.flash_attention_plain(
                     *kf.flash_operands(*args, **config))
             else:
@@ -442,9 +470,11 @@ class AttentionBlockSE3(nn.Module):
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
                  attention_mode: str = 'knn',
                  global_materialize: bool = False, edge_dim: int = 0,
-                 backend_v: str = 'dense', backend_k: str = 'dense'):
+                 backend_v: str = 'dense', backend_k: str = 'dense',
+                 norm_gated_scale: bool = False, conv_bf16: bool = False,
+                 pallas: Optional[bool] = None):
         super().__init__()
-        self.prenorm = NormSE3(fiber)
+        self.prenorm = NormSE3(fiber, gated_scale=norm_gated_scale)
         self.attn = AttentionSE3(
             fiber, dim_head=dim_head, heads=heads,
             kv_heads=1 if one_headed_key_values else None,
@@ -458,7 +488,8 @@ class AttentionBlockSE3(nn.Module):
             radial_bf16=radial_bf16, fuse_pairwise=fuse_pairwise,
             attention_mode=attention_mode,
             global_materialize=global_materialize, edge_dim=edge_dim,
-            backend_v=backend_v, backend_k=backend_k)
+            backend_v=backend_v, backend_k=backend_k, conv_bf16=conv_bf16,
+            pallas=pallas)
 
     def forward(self, features: Features, edge_info: EdgeInfo,
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor],

@@ -73,6 +73,29 @@ widths never route.
 radial_bf16 runs the trunk and the radial operands (h, w3) in bfloat16; the
 bias and every accumulation stay float32, and LayerNorm statistics are
 float32 as in flax.
+
+conv_bf16 (the JAX field) stores the equivariant operands of each
+contraction bf16: V2 (or the so2 band z) in _radial_contract, the basis and
+the gathered features in _radial_contract_bx, cast before the node-chunk
+split so that every chunk and every saved residual is half-width. The math
+stays float32 on the exactly upcast values: on a card the kernels' bf16
+storage arms (kernels.pairwise), on the CPU the plain versions. The
+basis-fused backward rebuilds V2 in float32 from the upcast residuals (so
+kernels A and B run their float32 arm there) and returns the basis' and
+x's gradients bf16; the V2-given backward runs A and B on the bf16 V2 and
+returns dV2 bf16, as JAX's custom VJPs do.
+
+pallas (the JAX field): None or True runs the kernels on a card and their
+plain versions on the CPU; False runs the plain versions on every device,
+with no launch and nothing counted in `.routed` (a choice, not a route),
+and, as JAX's XLA path, no basis-fused contraction: V2 = basis . x by
+einsum, one _radial_contract a pair or an output degree.
+
+PairwiseConvSE3(fused=False) is JAX's RadialFunc formulation, the numerics
+oracle of the fused path that no model reaches: a radial MLP `radial`
+(the trunk, then Dense_2 [mid -> F * c_in * c_out]) gives each edge's
+kernel R [c_out, c_in, F], contracted in the reference order (R with x,
+then with the basis); dense backend only.
 """
 from __future__ import annotations
 
@@ -112,8 +135,8 @@ DEFAULT_MID_DIM = 128
 # The contraction backends (the JAX package's CONV_BACKENDS). 'dense' is the
 # Clebsch-Gordan path of this file; another backend registers a pairwise
 # contract callable
-#     impl(h, w3, b3, payload, x, *, d_in, d_out, edge_chunks,
-#          edge_frame_io=False) -> [..., c_out, P]
+#     impl(h, w3, b3, payload, x, *, d_in, d_out, edge_chunks, conv_bf16,
+#          pallas, edge_frame_io=False) -> [..., c_out, P]
 # with the dense path's parameters, `payload` being what the model puts
 # under the backend's name in the basis dict (the so2 backend's edge frames
 # under basis['so2']). 'so2' registers itself on first use.
@@ -229,27 +252,35 @@ def _stream_node_chunks(contract: Callable, operands: Sequence[torch.Tensor],
 
 
 def _radial_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
-                     v2: torch.Tensor,
-                     edge_chunks: Optional[int]) -> torch.Tensor:
+                     v2: torch.Tensor, edge_chunks: Optional[int],
+                     conv_bf16: bool = False,
+                     pallas: Optional[bool] = None) -> torch.Tensor:
     """h [b,n,k,mid], w3 [mid,IF,O], b3 [IF,O], v2 [b,n,k,P,IF] ->
     [b,n,k,P,O] through pairwise_contract (or, past the kernels' limits on
-    a card, its plain version), optionally streaming the node axis in
-    `edge_chunks` chunks. A QuantTensor w3 takes kernel #3's scaled arm
-    (fused_pairwise_conv with w3_scale): serving only, no backward."""
+    a card, or with pallas=False, its plain version), optionally streaming
+    the node axis in `edge_chunks` chunks; conv_bf16 stores v2 bf16 first.
+    A QuantTensor w3 takes kernel #3's scaled arm (fused_pairwise_conv
+    with w3_scale): serving only, no backward."""
     P, IF = v2.shape[-2:]
     mid, O = h.shape[-1], w3.shape[-1]
+    if conv_bf16:
+        # before the chunk split: every chunk and saved residual half-width
+        v2 = v2.to(torch.bfloat16)
     w3c, w3_scale = weight_or_none(w3)
     if w3_scale is None:
         w3c = w3c.to(h.dtype)
-    limit = kp.pairwise_limit('fwd', mid, O, P, dtype=h.dtype)
+    limit = kp.pairwise_limit('fwd', mid, O, P, dtype=h.dtype,
+                              operand_dtype=v2.dtype,
+                              scaled=w3_scale is not None)
 
     def contract(h_c, v2_c):
         lead = h_c.shape[:-1]
         E = lead.numel()
         h2 = h_c.reshape(E, mid).contiguous()
         v2_2 = v2_c.reshape(E, P, IF).contiguous()
-        if routing.route(kp.fused_pairwise_conv, h2.device.type, limit,
-                         (mid, IF, O, P)):
+        if pallas is False or routing.route(
+                kp.fused_pairwise_conv, h2.device.type, limit,
+                (mid, IF, O, P)):
             out = kp.fused_pairwise_conv_plain(h2, w3c, v2_2, b3,
                                                w3_scale=w3_scale)
         elif w3_scale is not None:
@@ -265,18 +296,24 @@ def _radial_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
 def _radial_contract_bx(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
                         basis: torch.Tensor, x: torch.Tensor,
                         pqf: Tuple[int, int, int],
-                        edge_chunks: Optional[int]) -> torch.Tensor:
+                        edge_chunks: Optional[int],
+                        conv_bf16: bool = False) -> torch.Tensor:
     """Basis-fused: h [b,n,k,mid], w3 [mid,C*F,O], b3 [C*F,O], the flat
     basis [b,n,k,P*F*Q] (through pairwise_contract_bxf) or the structured
     one [b,n,k,P,Q,F] (through pairwise_contract_bx), x [b,n,k,C,Q] ->
-    [b,n,k,P,O], optionally streaming the node axis. A QuantTensor w3 is
-    dequantized as a transient (kernels #1 and #2 take no scale epilogue,
-    as in JAX)."""
+    [b,n,k,P,O], optionally streaming the node axis; conv_bf16 stores the
+    basis and x bf16 first. A QuantTensor w3 is dequantized as a transient
+    (kernels #1 and #2 take no scale epilogue, as in JAX)."""
     P, Q, F = pqf
     C, O, mid = x.shape[-2], w3.shape[-1], h.shape[-1]
+    if conv_bf16:
+        # before the chunk split, as _radial_contract's v2 (the model's
+        # basis arrives bf16 already: it casts it once, in its payloads)
+        basis, x = basis.to(torch.bfloat16), x.to(torch.bfloat16)
     w3c = float_weight(w3).to(h.dtype)
     flat = _basis_is_flat(basis, x)
-    limit = kp.pairwise_limit('bxf' if flat else 'bx', mid, O, P, Q, h.dtype)
+    limit = kp.pairwise_limit('bxf' if flat else 'bx', mid, O, P, Q, h.dtype,
+                              operand_dtype=x.dtype)
 
     def contract(h_c, basis_c, x_c):
         lead = h_c.shape[:-1]
@@ -324,30 +361,69 @@ def radial_hidden(module: nn.Module, x: torch.Tensor,
                            module.LayerNorm_1, dtype))
 
 
+class RadialFunc(nn.Module):
+    """JAX RadialFunc: the radial trunk (float32), then Dense_2 to each
+    edge's kernel R [..., c_out, c_in, F] (the unfused formulation)."""
+
+    def __init__(self, num_freq: int, in_dim: int, out_dim: int,
+                 edge_dim: int, mid: int = DEFAULT_MID_DIM):
+        super().__init__()
+        self.shape = (out_dim, in_dim, num_freq)
+        add_radial_trunk(self, edge_dim, mid)
+        self.Dense_2 = nn.Linear(mid, num_freq * in_dim * out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = dense(radial_hidden(self, x), self.Dense_2)
+        return x.reshape(*x.shape[:-1], *self.shape)
+
+
+def pairwise_conv_contract(R: torch.Tensor, B: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """The reference-ordered contraction of one pair (JAX
+    pairwise_conv_contract): R [..., c_out, c_in, F], the structured basis
+    B [..., P, Q, F], x [..., c_in, Q] -> [..., c_out, P]."""
+    W = torch.einsum('...oif,...iq->...oqf', R, x)
+    return torch.einsum('...oqf,...pqf->...op', W, B)
+
+
 class PairwiseConvSE3(nn.Module):
     """One (d_in -> d_out) pair with its own radial trunk, w3 and b3: the
-    port of JAX PairwiseConvSE3 (fused=True). backend: 'dense', or a
-    registered backend (get_conv_backend) that takes the backend's payload
-    in place of the pair's basis and ignores fuse_basis, as in JAX;
-    so2_edge_frame_io: x arrives in the edge frame and the output stays
-    there (ConvSE3's rotation hoist). The parameters are the same for every
-    backend."""
+    port of JAX PairwiseConvSE3. backend: 'dense', or a registered backend
+    (get_conv_backend) that takes the backend's payload in place of the
+    pair's basis and ignores fuse_basis, as in JAX; so2_edge_frame_io: x
+    arrives in the edge frame and the output stays there (ConvSE3's
+    rotation hoist). The parameters are the same for every backend.
+    fused=False is the RadialFunc oracle (module docstring): its own
+    parameters under `radial`, the dense backend only."""
 
     def __init__(self, degree_in: int, nc_in: int, degree_out: int,
                  nc_out: int, edge_dim: int = 1, radial_bf16: bool = False,
                  fuse_basis: bool = False,
                  edge_chunks: Optional[int] = None, backend: str = 'dense',
-                 so2_edge_frame_io: bool = False):
+                 so2_edge_frame_io: bool = False, conv_bf16: bool = False,
+                 pallas: Optional[bool] = None, fused: bool = True):
         super().__init__()
+        if not fused and backend != 'dense':
+            raise ValueError(f'backend {backend!r} requires the fused '
+                             f'parameterization (fused=False is the '
+                             f'dense-path oracle)')
         self.pqf = (to_order(degree_out), to_order(degree_in),
                     to_order(min(degree_in, degree_out)))
         self.degrees = (degree_in, degree_out)
         self.radial_dtype = torch.bfloat16 if radial_bf16 else None
-        self.fuse_basis = fuse_basis
+        # the basis-fused contraction takes the kernel path (JAX's
+        # fuse_basis with the Pallas kernel)
+        self.fuse_basis = fuse_basis and pallas is not False
         self.edge_chunks = edge_chunks
         self.backend = backend
         self.backend_impl = get_conv_backend(backend)
         self.so2_edge_frame_io = so2_edge_frame_io
+        self.conv_bf16 = conv_bf16
+        self.pallas = pallas
+        self.fused = fused
+        if not fused:
+            self.radial = RadialFunc(self.pqf[2], nc_in, nc_out, edge_dim)
+            return
         add_radial_trunk(self, edge_dim)
         IF = nc_in * self.pqf[2]
         self.w3 = nn.Parameter(torch.zeros(DEFAULT_MID_DIM, IF, nc_out))
@@ -359,6 +435,10 @@ class PairwiseConvSE3(nn.Module):
         ('pfq_flat') or [b, n, k, P, Q, F] ('pqf'), or the backend's
         payload; x [b, n, k, c_in, Q] -> [b, n, k, c_out, P]."""
         P, Q, F = self.pqf
+        if not self.fused:
+            if _basis_is_flat(basis, x):
+                basis = unflatten_basis(basis, P, Q, F)
+            return pairwise_conv_contract(self.radial(edge_feats), basis, x)
         h = radial_hidden(self, edge_feats, self.radial_dtype)
         if self.backend_impl is not None:
             extra = dict(edge_frame_io=True) if self.so2_edge_frame_io \
@@ -366,17 +446,21 @@ class PairwiseConvSE3(nn.Module):
             return self.backend_impl(h, self.w3, self.b3, basis, x,
                                      d_in=self.degrees[0],
                                      d_out=self.degrees[1],
-                                     edge_chunks=self.edge_chunks, **extra)
+                                     edge_chunks=self.edge_chunks,
+                                     conv_bf16=self.conv_bf16,
+                                     pallas=self.pallas, **extra)
         if self.fuse_basis:
             out = _radial_contract_bx(h, self.w3, self.b3, basis, x,
-                                      self.pqf, self.edge_chunks)
+                                      self.pqf, self.edge_chunks,
+                                      self.conv_bf16)
         else:
             if _basis_is_flat(basis, x):
                 basis = unflatten_basis(basis, P, Q, F)
             v2 = torch.einsum('...pqf,...cq->...pcf', basis, x)
             out = _radial_contract(h, self.w3, self.b3,
                                    v2.reshape(*v2.shape[:-2], -1),
-                                   self.edge_chunks)
+                                   self.edge_chunks, self.conv_bf16,
+                                   self.pallas)
         return out.transpose(-1, -2)
 
 
@@ -391,7 +475,8 @@ class ConvSE3(nn.Module):
                  shared_radial_hidden: bool = False, fuse_basis: bool = False,
                  radial_bf16: bool = False, fuse_pairwise: bool = False,
                  global_radial: bool = False, edge_dim: int = 0,
-                 backend: str = 'dense'):
+                 backend: str = 'dense', conv_bf16: bool = False,
+                 pallas: Optional[bool] = None):
         super().__init__()
         backend_impl = get_conv_backend(backend)
         if backend not in ('dense', 'so2') and (
@@ -418,8 +503,12 @@ class ConvSE3(nn.Module):
             if fourier_encode_dist else None
         self.radial_dtype = torch.bfloat16 if radial_bf16 else None
         self.shared_radial_hidden = shared_radial_hidden
-        self.fuse_basis = fuse_basis
+        # the basis-fused contraction takes the kernel path (module
+        # docstring: pallas=False contracts V2 by einsum, as JAX's XLA path)
+        self.fuse_basis = fuse_basis and pallas is not False
         self.edge_chunks = edge_chunks
+        self.conv_bf16 = conv_bf16
+        self.pallas = pallas
         self.fuse_pairwise = fuse_pairwise
         self.global_radial = global_radial
         self.edge_dim = edge_dim
@@ -438,7 +527,8 @@ class ConvSE3(nn.Module):
                         d_in, m_in, d_out, m_out, edge_dim=in_dim,
                         radial_bf16=radial_bf16, fuse_basis=fuse_basis,
                         edge_chunks=edge_chunks, backend=backend,
-                        so2_edge_frame_io=backend == 'so2'))
+                        so2_edge_frame_io=backend == 'so2',
+                        conv_bf16=conv_bf16, pallas=pallas))
                     continue
                 F = to_order(min(d_in, d_out))
                 self.register_parameter(
@@ -574,7 +664,8 @@ class ConvSE3(nn.Module):
                 basis_pair = basis[f'{d_in},{d_out}']
                 if self.fuse_basis:
                     y = _radial_contract_bx(hidden, w3, b3, basis_pair, x,
-                                            (P, Q, F), self.edge_chunks)
+                                            (P, Q, F), self.edge_chunks,
+                                            self.conv_bf16)
                     acc = y if acc is None else acc + y
                     continue
                 if _basis_is_flat(basis_pair, x):
@@ -586,7 +677,8 @@ class ConvSE3(nn.Module):
                 acc = _radial_contract(hidden, concat_weights(w3s, axis=1),
                                        torch.cat(b3s, dim=0),
                                        torch.cat(v2s, dim=-1),
-                                       self.edge_chunks)
+                                       self.edge_chunks, self.conv_bf16,
+                                       self.pallas)
             acc = acc.transpose(-1, -2)               # [b, n, k, c_out, P]
             if so2:
                 acc = rotate_out(acc, frames, d_out)

@@ -2,7 +2,8 @@
 
 Port of se3_transformer_tpu/ops/core.py. Feature dicts are
 {str(degree): [..., channels, 2*degree+1]}. Parameter names follow the flax
-module's (`w{degree}`, `scale{degree}`) so that a converted flax tree
+module's (`w{degree}`, `scale{degree}`, `w_gate{degree}`) so that a
+converted flax tree
 (convert.convert_flax_params) loads key for key. Parameters are created
 with placeholder values; models.se3_transformer.init_parameters draws them.
 """
@@ -72,16 +73,23 @@ class LinearSE3(nn.Module):
 
 class NormSE3(nn.Module):
     """Norm-gated equivariant nonlinearity: the invariant norm goes through
-    a learned per-channel scale and `nonlin`, the direction is kept."""
+    a learned per-channel scale `scale{d}` (or, with gated_scale, a channel
+    mixing matrix `w_gate{d}` [c, c]) and `nonlin`, the direction is
+    kept."""
 
     def __init__(self, fiber: Fiber, nonlin: Callable = gelu,
-                 eps: float = 1e-12):
+                 gated_scale: bool = False, eps: float = 1e-12):
         super().__init__()
         self.nonlin = nonlin
+        self.gated_scale = gated_scale
         self.eps = eps
         for degree, chan in fiber:
-            self.register_parameter(
-                f'scale{degree}', nn.Parameter(torch.ones(1, 1, chan)))
+            if gated_scale:
+                self.register_parameter(
+                    f'w_gate{degree}', nn.Parameter(torch.zeros(chan, chan)))
+            else:
+                self.register_parameter(
+                    f'scale{degree}', nn.Parameter(torch.ones(1, 1, chan)))
 
     def forward(self, features: Features) -> Features:
         out = {}
@@ -89,8 +97,12 @@ class NormSE3(nn.Module):
             norm = safe_norm(t, dim=-1, keepdim=True).clamp(min=self.eps)
             phase = t / norm
             scalars = norm[..., 0]                       # [..., c]
-            scale = getattr(self, f'scale{degree}')
-            scaled = scalars * scale.reshape(scale.shape[-1])
+            if self.gated_scale:
+                scaled = torch.einsum('...c,ce->...e', scalars,
+                                      getattr(self, f'w_gate{degree}'))
+            else:
+                scale = getattr(self, f'scale{degree}')
+                scaled = scalars * scale.reshape(scale.shape[-1])
             out[degree] = self.nonlin(scaled)[..., None] * phase
         return out
 
@@ -110,11 +122,11 @@ class FeedForwardSE3(nn.Module):
 
 
 class FeedForwardBlockSE3(nn.Module):
-    """Prenorm + feedforward + residual."""
+    """Prenorm (gated with norm_gated_scale) + feedforward + residual."""
 
-    def __init__(self, fiber: Fiber):
+    def __init__(self, fiber: Fiber, norm_gated_scale: bool = False):
         super().__init__()
-        self.prenorm = NormSE3(fiber)
+        self.prenorm = NormSE3(fiber, gated_scale=norm_gated_scale)
         self.feedforward = FeedForwardSE3(fiber)
 
     def forward(self, features: Features) -> Features:

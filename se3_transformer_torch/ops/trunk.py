@@ -16,7 +16,8 @@ and without autograd (serving) the blocks run as a plain loop.
 The attention fields (attend_self, use_null_kv, fourier_encode_dist,
 rel_dist_num_fourier_features, global_feats_dim, linear_proj_keys,
 tie_key_values, one_headed_key_values, shared_radial_hidden, edge_dim,
-with the JAX defaults) and `pallas_attention` reach every attention block,
+with the JAX defaults), `pallas_attention`, `pallas`, `conv_bf16` and
+`norm_gated_scale` (every block's prenorms) reach every attention block,
 and the forward's global_feats and pos_emb (the rotary phases) every
 block's call;
 `fused_attention` holds one fuse_pairwise flag per block (the model
@@ -81,7 +82,9 @@ class SequentialTrunk(nn.Module):
                  attention_mode: str = 'knn',
                  global_materialize: bool = False, edge_dim: int = 0,
                  value_backends: Optional[Sequence[str]] = None,
-                 key_backends: Optional[Sequence[str]] = None):
+                 key_backends: Optional[Sequence[str]] = None,
+                 norm_gated_scale: bool = False, conv_bf16: bool = False,
+                 pallas: Optional[bool] = None):
         super().__init__()
         if remat_policy is not None and not reversible:
             raise ValueError(f'remat_policy={remat_policy!r} requires '
@@ -108,8 +111,11 @@ class SequentialTrunk(nn.Module):
                 attention_mode=attention_mode,
                 global_materialize=global_materialize, edge_dim=edge_dim,
                 backend_v=value_backends[i] if value_backends else 'dense',
-                backend_k=key_backends[i] if key_backends else 'dense'))
-            self.add_module(f'ff_block{i}', FeedForwardBlockSE3(fiber))
+                backend_k=key_backends[i] if key_backends else 'dense',
+                norm_gated_scale=norm_gated_scale, conv_bf16=conv_bf16,
+                pallas=pallas))
+            self.add_module(f'ff_block{i}', FeedForwardBlockSE3(
+                fiber, norm_gated_scale=norm_gated_scale))
 
     def _run(self, block: nn.Module, *args):
         if not (self.reversible and torch.is_grad_enabled()):

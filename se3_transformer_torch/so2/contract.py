@@ -62,12 +62,14 @@ def banded_z(xr: torch.Tensor, d_in: int, d_out: int,
 def so2_pair_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
                       frames: Frames, x: torch.Tensor, *, d_in: int,
                       d_out: int, edge_chunks: Optional[int] = None,
-                      edge_frame_io: bool = False) -> torch.Tensor:
+                      edge_frame_io: bool = False, conv_bf16: bool = False,
+                      pallas: Optional[bool] = None) -> torch.Tensor:
     """One (d_in -> d_out) pair by the SO(2) reduction: h [b, n, k, mid],
     w3 [mid, C*F, O], b3 [C*F, O], x [b, n, k, C, Q] -> [b, n, k, O, P].
     Only the band rows go through the radial product, padded to P after.
     edge_frame_io: x is already in the edge frame and the output stays
-    there (ConvSE3 rotates once per degree instead of once per pair)."""
+    there (ConvSE3 rotates once per degree instead of once per pair).
+    conv_bf16 and pallas as ops.conv._radial_contract takes them."""
     from ..ops.conv import _radial_contract, _stream_node_chunks
     mmin = min(d_in, d_out)
 
@@ -75,7 +77,8 @@ def so2_pair_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
         fr = dict(zip(FRAME_KEYS, frame_arrays))
         xr = x_c if edge_frame_io else rotate_in(x_c, fr, d_in)
         z = banded_z(xr, d_in, d_out, pad_rows=False)
-        out = _radial_contract(h_c, w3, b3, z, None).transpose(-1, -2)
+        out = _radial_contract(h_c, w3, b3, z, None, conv_bf16,
+                               pallas).transpose(-1, -2)
         if d_out > mmin:                               # [..., O, B] -> P
             out = F_.pad(out, (d_out - mmin, d_out - mmin))
         return out if edge_frame_io else rotate_out(out, fr, d_out)

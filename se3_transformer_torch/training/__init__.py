@@ -3,5 +3,6 @@ from .denoise import (
     property_loss,
 )
 from .recipes import (
-    af2_refinement, flagship, flagship_fast, molecular_edges, toy_denoise,
+    RECIPES, af2_refinement, egnn_stress, flagship, flagship_fast,
+    molecular_edges, toy_denoise,
 )

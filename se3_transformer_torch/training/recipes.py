@@ -1,6 +1,7 @@
 """Model recipes: the port of se3_transformer_tpu/training/recipes.py's
-`flagship`, `flagship_fast`, `af2_refinement`, `molecular_edges` and
-`toy_denoise`, with the same defaults."""
+`flagship`, `flagship_fast`, `af2_refinement`, `molecular_edges`,
+`toy_denoise` and `egnn_stress`, with the same defaults, and its
+`RECIPES` table."""
 from __future__ import annotations
 
 from ..models.se3_transformer import SE3TransformerModule
@@ -95,3 +96,25 @@ def toy_denoise(**overrides) -> SE3TransformerModule:
                         attend_sparse_neighbors=True,
                         max_sparse_neighbors=8, num_adj_degrees=2,
                         adj_dim=4), overrides)
+
+
+def egnn_stress(dim: int = 16, depth: int = 12,
+                **overrides) -> SE3TransformerModule:
+    """The EGNN backbone at depth: degrees 0 and 1 of width 16, 12 EGNN
+    layers each followed by a feedforward block, the higher-degree weights
+    clamped to +-2, kNN k = 16, each layer and feedforward checkpointed
+    (reversible). No conv_out: the output is the hidden fiber's
+    (return_type 1: [b, n, dim, 3])."""
+    return _recipe(dict(dim=dim, depth=depth, num_degrees=2, use_egnn=True,
+                        egnn_feedforward=True, egnn_weights_clamp_value=2.0,
+                        num_neighbors=16, reversible=True), overrides)
+
+
+RECIPES = {
+    'toy_denoise': toy_denoise,
+    'flagship': flagship,
+    'flagship_fast': flagship_fast,
+    'af2_refinement': af2_refinement,
+    'molecular_edges': molecular_edges,
+    'egnn_stress': egnn_stress,
+}

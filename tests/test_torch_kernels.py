@@ -1636,3 +1636,172 @@ def test_cuda_mixed_kv_storage_routes_to_the_plain_stream(
     assert np.isfinite(outs['cuda']).all()
     assert np.abs(outs['cuda'] - outs['cpu']).max() <= \
         1e-4 * np.abs(outs['cpu']).max()
+
+
+# ---------------------------------------------------------------------- #
+# conv_bf16: the bf16-storage arms of #1/#2, #3, A and B
+# ---------------------------------------------------------------------- #
+def _bf16(t):
+    """The bf16 storage of an operand, as conv_bf16 casts it."""
+    return t.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize('kernel,Q', [('bxf', 5), ('bx', 5), ('fwd', 1),
+                                      ('bwd', 1)])
+@pytest.mark.parametrize('operand,scaled,fits', [
+    (F32, False, True), (BF16, False, True), (torch.float16, False, False),
+    (torch.float64, False, False), (F32, True, True), (BF16, True, False)])
+def test_pairwise_fits_the_operand_storage(kernel, Q, operand, scaled, fits):
+    """Every pairwise kernel takes its equivariant operand float32 or bf16
+    (conv_bf16); #3's scaled arm takes float32 V2 only."""
+    limit = kp.pairwise_limit(kernel, 128, 64, 3, Q, F32,
+                              operand_dtype=operand, scaled=scaled)
+    assert (limit is None) is fits
+    if not fits:
+        assert 'exceeds' in limit
+
+
+def test_wrappers_check_bf16_operands():
+    """The checks take bf16 V2 and a bf16 basis with bf16 x, and refuse a
+    basis and x of different storage and a scaled call with bf16 V2."""
+    args = _kernel_args()
+    args[2], args[3] = _bf16(args[2]), _bf16(args[3])
+    assert kp._check(*args) == (args[0].shape[0], args[3].shape[1],
+                                kp.O_TILE)
+    bx, _ = _bx_args()
+    bx[2], bx[3] = _bf16(bx[2]), _bf16(bx[3])
+    assert kp._check_bx(*bx)[:3] == (96, 5, kp.O_TILE)
+    args[3] = args[3].float()
+    with pytest.raises(TypeError, match='one dtype'):
+        kp._check(*args)
+    fwd = _fwd_args()
+    fwd[2] = _bf16(fwd[2])
+    assert kp._check_fwd(*fwd) == (96, 70, kp.O_TILE, 5)
+    bwd = _bwd_args()
+    bwd[2] = _bf16(bwd[2])
+    assert kp._check_bwd(*bwd) == (96, 15, kp.O_TILE, 5)
+    q = fwd[1].float().to(torch.int8)
+    with pytest.raises(ValueError, match='scaled arm'):
+        kp._check_fwd(fwd[0].float(), q, fwd[2], fwd[3],
+                      torch.ones(1, 70, kp.O_TILE))
+
+
+def test_plain_versions_upcast_bf16_operands_exactly():
+    """Each plain version given bf16 storage computes what it computes on
+    the same values upcast to float32, bit for bit (the upcast is exact);
+    no launch is counted on the CPU."""
+    counts = (kp.fused_pairwise_conv_bxf.conv_bf16_launches,
+              kp.fused_pairwise_conv.conv_bf16_launches,
+              kp.fused_pairwise_conv_bwd.conv_bf16_launches_a)
+    args = _kernel_args(2, 3, e=70, dtype=F32)
+    b16, x16 = _bf16(args[2]), _bf16(args[3])
+    assert torch.equal(
+        kp.fused_pairwise_conv_bxf(args[0], args[1], b16, x16, args[4],
+                                   args[5]),
+        kp.fused_pairwise_conv_bxf(args[0], args[1], b16.float(),
+                                   x16.float(), args[4], args[5]))
+    bx, _ = _bx_args(e=70, dtype=F32)
+    s16, xs16 = _bf16(bx[2]), _bf16(bx[3])
+    assert torch.equal(
+        kp.fused_pairwise_conv_bx(bx[0], bx[1], s16, xs16, bx[4]),
+        kp.fused_pairwise_conv_bx(bx[0], bx[1], s16.float(), xs16.float(),
+                                  bx[4]))
+    h, w3, v2, b3 = _fwd_args(e=70, dtype=F32)
+    v16 = _bf16(v2)
+    assert torch.equal(kp.fused_pairwise_conv(h, w3, v16, b3),
+                       kp.fused_pairwise_conv(h, w3, v16.float(), b3))
+    h, w3, v2, g, b3 = _bwd_args(e=70, dtype=F32)
+    v16 = _bf16(v2)
+    for a, b in zip(kp.fused_pairwise_conv_bwd(h, w3, v16, g, b3),
+                    kp.fused_pairwise_conv_bwd(h, w3, v16.float(), g, b3)):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    assert counts == (kp.fused_pairwise_conv_bxf.conv_bf16_launches,
+                      kp.fused_pairwise_conv.conv_bf16_launches,
+                      kp.fused_pairwise_conv_bwd.conv_bf16_launches_a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('di,do,e,c', BXF_CASES)
+def test_cuda_conv_bf16_bxf_and_bx_match_plain(cuda_card, di, do, e, c,
+                                               dtype):
+    """The bf16-storage arm of kernels #1 and #2 (basis and x bf16, h bf16
+    or float32): within 1e-4 of max|plain| on the same bf16 operands, the
+    same bits on a repeat and between the two basis layouts, one launch
+    each counted in .conv_bf16_launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a
+            for a in _kernel_args(di, do, e, dtype, c)]
+    args[2], args[3] = _bf16(args[2]), _bf16(args[3])
+    P, Q, F = args[4]
+    structured = args[2].reshape(e, P, F, Q).transpose(2, 3).contiguous()
+    before = (kp.fused_pairwise_conv_bxf.conv_bf16_launches,
+              kp.fused_pairwise_conv_bx.conv_bf16_launches)
+    out = kp.fused_pairwise_conv_bxf(*args)
+    out_bx = kp.fused_pairwise_conv_bx(args[0], args[1], structured, args[3],
+                                       args[5])
+    torch.cuda.synchronize()
+    assert (kp.fused_pairwise_conv_bxf.conv_bf16_launches,
+            kp.fused_pairwise_conv_bx.conv_bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = kp.fused_pairwise_conv_bxf_plain(*args)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(out, kp.fused_pairwise_conv_bxf(*args))
+    assert torch.equal(out, out_bx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('P,IF,e', [(1, 20, 64), (3, 35, 200), (5, 70, 1000),
+                                    (7, 80, 77), (7, 1024, 4096),
+                                    (3, 640, 4133), (7, 1001, 300),
+                                    (5, 1024, 4095), (1, 37, 64)])
+def test_cuda_conv_bf16_fwd_matches_plain(cuda_card, P, IF, e, dtype):
+    """The bf16-V2 arm of kernel #3: 16-byte copies of 8 values (IF a
+    multiple of 8), plain loads (odd IF), i splits, ragged E: within 1e-4
+    of max|plain| on the same bf16 V2 and the same bits on a repeat."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w3, v2, b3 = (a.cuda() for a in _fwd_args(P, IF, e, dtype))
+    v2 = _bf16(v2)
+    before = (kp.fused_pairwise_conv.launches,
+              kp.fused_pairwise_conv.conv_bf16_launches)
+    out = kp.fused_pairwise_conv(h, w3, v2, b3)
+    torch.cuda.synchronize()
+    assert (kp.fused_pairwise_conv.launches,
+            kp.fused_pairwise_conv.conv_bf16_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    ref = kp.fused_pairwise_conv_plain(h, w3, v2, b3)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(out, kp.fused_pairwise_conv(h, w3, v2, b3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('di,do,e,c,o', [
+    (0, 0, 64, 5, 64), (3, 3, 200, 5, 64), (2, 1, 1000, 5, 64),
+    (3, 2, 5000, 5, 64), (1, 1, 1000, 4, 64), (3, 3, 4096, 64, 64),
+    (2, 3, 4133, 64, 64), (0, 0, 77, 32, 192), (1, 1, 1000, 32, 192),
+    (3, 3, 130, 4, 192), (2, 1, 300, 5, 64)])
+def test_cuda_conv_bf16_backward_matches_plain(cuda_card, di, do, e, c, o,
+                                               dtype):
+    """The bf16-V2 arm of kernels A and B (even and odd IF: 4- and 8-byte
+    copies or plain loads; i splits; O tiles; ragged E): every output
+    within 1e-4 of max|plain| on the same bf16 V2, dV2 float32, the same
+    bits on a second run, one launch each counted in
+    .conv_bf16_launches_a / _b."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() for a in _bwd_args(di, do, e, c=c, dtype=dtype, o=o)]
+    args[2] = _bf16(args[2])
+    bwd = kp.fused_pairwise_conv_bwd
+    before = (bwd.conv_bf16_launches_a, bwd.conv_bf16_launches_b)
+    outs = bwd(*args)
+    again = bwd(*args)
+    torch.cuda.synchronize()
+    assert (bwd.conv_bf16_launches_a, bwd.conv_bf16_launches_b) == (
+        before[0] + 2, before[1] + 2)
+    refs = kp.fused_pairwise_conv_bwd_plain(*args)
+    for name, out, ref, out2 in zip(('dh', 'dw3', 'dv2', 'db3'), outs, refs,
+                                    again):
+        assert out.dtype == torch.float32 and out.shape == ref.shape, name
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+        assert torch.equal(out, out2), name

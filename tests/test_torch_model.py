@@ -241,11 +241,11 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize('field,value', [
-    ('egnn_feedforward', True), ('flash_interpret', True),
-    ('conv_bf16', True), ('pallas', True), ('sequence_parallel', 'ring'),
-    ('matmul_precision', 'highest'), ('norm_gated_scale', True),
-    ('egnn_hidden_dim', 16), ('pallas_interpret', True),
-    ('use_egnn', True)])
+    ('pallas_attention_interpret', True), ('flash_interpret', True),
+    ('mesh', 'a mesh'), ('ring_overlap', False),
+    ('sequence_parallel', 'ring'), ('matmul_precision', 'highest'),
+    ('ring_exchange', False), ('matmul_precision', 'float32'),
+    ('pallas_interpret', True), ('matmul_precision', 'bfloat16')])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError):
         SE3TransformerModule(**dict(TWIN, **{field: value}), device='cpu')

@@ -75,11 +75,13 @@ def _jax_feats(feats):
     return feats
 
 
-def _twins(cfg, feats, coors, mask, return_type, seed=1, **extra):
+def _twins(cfg, feats, coors, mask, return_type, seed=1, jax_cfg=None,
+           **extra):
     """(JAX output, port output, params) of one configuration on shared
-    random parameters; `extra` are more forward inputs (numpy arrays:
-    edges, adj_mat)."""
-    jm = JaxModule(**cfg)
+    random parameters; `jax_cfg` are more fields of the JAX module only
+    (pallas_interpret), `extra` more forward inputs (numpy arrays: edges,
+    adj_mat)."""
+    jm = JaxModule(**cfg, **(jax_cfg or {}))
     jf = _jax_feats(feats)
     shapes = jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), jf, coors, mask=mask,
@@ -313,6 +315,11 @@ EQUIVARIANCE_CASES = {
         dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
              num_degrees=2, input_degrees=2, output_degrees=2), 1, (64, 64),
         1, None),
+    # the EGNN trunk: no conv_out, the output is the hidden fiber's
+    'test_equivariance_with_egnn_backbone': (
+        dict(dim=64, depth=1, attend_self=True, num_neighbors=4,
+             num_degrees=2, output_degrees=2, fourier_encode_dist=True,
+             use_egnn=True), 1, (64,), 1, None),
 }
 
 

@@ -25,8 +25,18 @@ failure:
               bit-identical across two runs. molecular: #3, A and B at
               molecular_edges' kv-conv pairs (C 32, O 192, float32) at
               E = 768 (n 128, K 6) and 762 (a ragged last edge tile),
-              held and timed; the plain version's time at the four
-              routed O = 32 contractions of its forward.
+              held and timed.
+  narrow      the narrow-O arms of #3, A and B (csrc/pairwise_narrow.cuh:
+              O = 8, 16, 32) at the DenoiseConfig trainer's six shapes (E =
+              768, IF 8 or 24) and at af2_refinement's and molecular_edges'
+              O = 32 pairs, each against its plain version within
+              NARROW_RTOL and the same bits on a repeat; at the six shapes
+              and af2's largest pair timed by run_ms beside the plain
+              version, the library einsum (and its autograd), the bound
+              (the radial product on the tensor cores) and the bound of
+              every product on float32 FMAs (`narrow` lines; a
+              `narrow_step` line weighs the six shapes by one step's
+              launches).
   5. attention  the fused attention kernels (#5 forward, #6 backward)
               against their plain versions at the flagship's four per-degree
               shapes (B*h 8, n 1024, J 33, D 8..56, masked), the backward's
@@ -85,8 +95,9 @@ failure:
               rotation invariance of the scalar
               output; af2_refinement (dim 32, depth 2, degrees 0 and 1, k 12,
               a radial trunk per pair) on requests of 32 features: 16 fwd
-              and exactly 6 routed (conv_in's and conv_out's O = 32 pairs)
-              per request, equivariance of its vector output.
+              and 6 by #3's narrow-O arm (conv_in's and conv_out's O = 32
+              pairs) per request, nothing routed, equivariance of its
+              vector output.
               Quantized: flagship(precision='int8_mix') (424 #3 launches
               a request, all by the scaled arm) and
               flagship_fast(fuse_pairwise=True, precision='fp8_mix') (24
@@ -99,7 +110,7 @@ failure:
               chain adjacency, bonded neighbors only, K 6) called with
               adj_mat and edges at n = 128: three forwards (all atoms;
               the last 28 masked; rotated in float64 on the host), 16
-              launches of #3 and exactly 4 routed (conv_in's and
+              launches of #3 and 4 of its narrow-O arm (conv_in's and
               conv_out's O = 32 pairs) each, invariance of its scalar
               output, a profiled forward.
               conv_bf16: flagship_fast(conv_bf16=True) (200 #1 a request,
@@ -107,7 +118,7 @@ failure:
               (424 #3, all by the bf16-V2 arm), invariance within
               ROTATION_RTOL. egnn_stress (the EGNN backbone,
               dim 16, depth 12, k 16) at bucket EGNN_N = 512, return_type 1
-              ([n, 16, 3]): no launch, exactly 2 routed calls a forward
+              ([n, 16, 3]): 2 launches of #3's narrow-O arm a forward
               (conv_in's O = 16 pairs), equivariance, busy, idle share and
               peak memory (`egnn_serve`).
   7. train    the denoise training step (the vector head: output_degrees=2,
@@ -121,16 +132,32 @@ failure:
               tie_key_values (no to_k convs) 108 forward, 104 + 104
               backward; flagship, no policy: 816 forward, 424 + 424
               backward, 432 forward under save_conv_outputs;
-              af2_refinement: 16 fwd, 16 +
-              16 backward, exactly 6 routed; molecular_edges:
-              property_loss on its pooled scalar head, 16 fwd, 16 + 16
-              backward, exactly 4 routed; flagship_fast(conv_bf16): 204
+              af2_refinement: 16 + 6 narrow fwd, 16 + 4 narrow A and as
+              many B; molecular_edges: property_loss on its pooled scalar
+              head, 16 + 4 narrow fwd, 16 + 4 narrow A and B;
+              flagship_fast(conv_bf16): 204
               #1 by the bf16 arm, 200 + 200 A and B by the float32 arm;
               flagship(conv_bf16): 816 #3, 424 + 424 A and B, all by the
               bf16-V2 arm; egnn_stress at n = 512 on
               scripts/run_baselines.py's objective, the mean square of its
-              degree-1 output: no launch, 2 routed), step time,
-              nodes*steps/s, peak memory and a profile.
+              degree-1 output: 2 narrow fwd, 2 + 2 narrow A and B), step
+              time, nodes*steps/s, peak memory and a profile. After the
+              flagship_fast steps, a checkpoint round trip of its state
+              (`checkpoint`: save_async, an in-place step while it writes,
+              the saved state bit for bit, a fresh trainer restored from it
+              taking that step to the same loss).
+  denoise     the JAX trainer's path: DenoiseTrainer(DenoiseConfig(
+              accum_steps=16)) (96 nodes, batch 1, 2 degrees) for
+              DENOISE_STEPS steps, every contraction on the narrow-O arms
+              (352 #3, 320 + 320 A and B a step, nothing routed), a
+              save_async checkpoint after step 5 restored into a fresh
+              trainer whose next loss is the uninterrupted run's, median
+              step time, nodes*steps/s, busy and idle share
+              (`denoise_train`); then the sidechainnet fixture converted
+              and trained from through dataset_batch_source, the
+              BatchProducer and device_prefetch for 5 steps with async
+              checkpoints, the PipelineStats snapshot
+              (`denoise_pipelined`).
   route       C1's repair: models past the kernels' limits (the JAX
               DenoiseConfig widths, dim 8, heads 2, dim_head 8, two
               degrees; and with fuse_pairwise, heads * dim_head = 16,
@@ -141,9 +168,7 @@ failure:
               REF_RTOL_F32 of the same model on the CPU. A ConvSE3 of
               128 channels (O = 128, two O tiles): without grad it launches
               #1 / #3, with grad kernels A and B too, routing nothing; card
-              vs CPU. Every main path above and below shows .routed == 0
-              but af2_refinement's and molecular_edges', which route
-              exactly their O = 32 pairs.
+              vs CPU. Every main path above and below shows .routed == 0.
   8. reference  small models of both flagship recipes, both attention knobs
               (fuse_pairwise also tied with the null slot; pallas_attention
               also with one kv head and the null slot) and af2_refinement's
@@ -169,6 +194,7 @@ Exits non-zero, printing no result, without CUDA or without the package.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -265,17 +291,17 @@ SO2_FLASH_FWD_LAUNCHES = 4 + 1
 # ROTATION_RTOL of max|out| as every other path's does.
 # egnn_stress (dim 16, depth 12 EGNN layers and feedforwards, k = 16) at
 # scripts/run_baselines.py's n = 512: its only convolution is conv_in, a
-# radial trunk per pair (0 -> 0, 0 -> 1) of O = 16, which no kernel takes
-# (O tiles of 64): 2 routed contractions a forward, no launch
+# radial trunk per pair (0 -> 0, 0 -> 1) of O = 16: 2 launches of #3's
+# narrow-O arm a forward, and of A's and B's a training step
 EGNN_N = 512
-EGNN_ROUTED = 2
+EGNN_NARROW = 2
 
 # the launch counters, in the order of every launch tuple below; the so2
-# arms', the scaled arms' and the conv_bf16 arms' launches count in their
-# kernel's total too
+# arms', the scaled arms', the conv_bf16 arms' and the narrow-O arms'
+# launches count in their kernel's total too
 COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
                'global', 'flash_so2', 'global_so2', 'fwd_q', 'flash_q',
-               'bxf_v16', 'fwd_v16', 'A_v16', 'B_v16')
+               'bxf_v16', 'fwd_v16', 'A_v16', 'B_v16', 'fwd_n', 'A_n', 'B_n')
 # the wrappers' counts of calls routed past the kernel to its plain
 # version, by the layer that calls them (kernels A and B take every width
 # the pairwise forwards take, so the backward of a launched call runs
@@ -286,28 +312,72 @@ NO_ROUTES = (0,) * len(ROUTE_NAMES)
 # pair, float32) at its full width and depth: dim 32, depth 2, degrees 0
 # and 1, k = 12, 8 heads of 24. A request launches #3 once per pair of
 # every kv conv (2 blocks x to_k, to_v x 4 pairs, O = 192); conv_in (2
-# pairs) and conv_out (4) have O = 32, which #3 does not take: they route
-# to its plain version. A training step runs the same forward, and
-# kernels A and B once per launched pair; a routed pair's backward is its
-# plain version's autograd, so nothing routes in the backward.
+# pairs) and conv_out (4) have O = 32, which #3's narrow-O arm takes. A
+# training step runs the same forward, and kernels A and B once per pair
+# the loss reaches: conv_out's pairs into the degree-0 head get no
+# cotangent.
 AF2_DIM, AF2_O, AF2_E = 32, 8 * 24, 1024 * 12
 AF2_LAUNCHES = 2 * 2 * 4
-AF2_ROUTED = 2 + 4
+AF2_NARROW = 2 + 4
+AF2_NARROW_BWD = 2 + 2
 # molecular_edges (edge tokens, the 2-hop chain adjacency, bonded
 # neighbors only) at its full width and depth: dim 32, depth 2, degrees 0
 # and 1, 8 heads of 24, at n = 128 atoms. num_neighbors = 0 and at most 6
 # bonded a row make K = 6 slots (2 to 4 of them bonded, the rest invalid),
 # E = 128 * 6. A forward launches #3 once per pair of every kv conv (2
 # blocks x to_k, to_v x 4 pairs, O = 192); conv_in's two pairs and
-# conv_out's two (the scalar head) have O = 32 and route. A training step
-# (property_loss on the pooled scalar head, which every kv pair reaches)
-# runs kernels A and B once per launched pair.
+# conv_out's two (the scalar head) have O = 32: #3's narrow-O arm. A
+# training step (property_loss on the pooled scalar head, which every pair
+# reaches) runs kernels A and B once per launched pair.
 MOL_N, MOL_DIM, MOL_K = 128, 32, 6
 MOL_E = MOL_N * MOL_K
 MOL_LAUNCHES = 2 * 2 * 4
-MOL_ROUTED = 2 + 2
+MOL_NARROW = 2 + 2
 # atoms masked in the second served request
 MOL_MASKED = 28
+
+# the JAX trainer's path: DenoiseTrainer(DenoiseConfig(accum_steps=16)),
+# the CLI's defaults (denoise.py: 96 nodes, batch 1, 2 degrees, 16
+# micro-batches a step). Its model (dim 8, 2 heads of 8, bonded attention
+# over max_sparse_neighbors = 8 slots: E = 96 * 8 a micro-batch) runs
+# every pairwise contraction on the narrow-O arms: per micro-batch #3 at
+# these (P, IF, O) shapes so many times, A and B at the same shapes (the
+# conv_out pairs into the degree-0 head, which the loss does not read,
+# excepted): 22 forward and 20 + 20 backward launches.
+DENOISE_ACCUM = 16
+DENOISE_E = 96 * 8
+DENOISE_SHAPES = {(1, 8, 8): (3, 1), (3, 8, 8): (2, 2), (1, 8, 16): (8, 8),
+                  (3, 8, 16): (4, 4), (3, 24, 8): (1, 1), (3, 24, 16): (4, 4)}
+DENOISE_FWD = sum(f for f, _ in DENOISE_SHAPES.values()) * DENOISE_ACCUM
+DENOISE_BWD = sum(b for _, b in DENOISE_SHAPES.values()) * DENOISE_ACCUM
+DENOISE_STEPS = 10
+DENOISE_RESUME_AT = 5
+DENOISE_PIPELINED_STEPS = 5
+# a restored trainer's next loss against the uninterrupted run's, relative:
+# the same forward on the same bits, the same batch and noise; equal but
+# for any float32 sum whose order the card does not fix (the run-to-run
+# spread of the same step is printed beside)
+RESUME_RTOL = 1e-6
+# the narrow-O arms (csrc/pairwise_narrow.cuh) at the DenoiseConfig shapes
+# and at the O = 32 pairs of af2_refinement (E = 12288) and
+# molecular_edges (E = 768): conv_in's (0, 0) and (0, 1), conv_out's
+# (0, 0), (1, 0), (0, 1) and (1, 1); float32 h and W3, as the models run
+NARROW_CASES = tuple(
+    [(dict(model='DenoiseConfig'), DENOISE_E, P, IF, O)
+     for P, IF, O in DENOISE_SHAPES]
+    + [(dict(model=recipe, pair=[di, do]), E, 2 * do + 1,
+        32 * (2 * min(di, do) + 1), 32)
+       for recipe, E in (('af2_refinement', AF2_E),
+                         ('molecular_edges', MOL_E))
+       for di in range(2) for do in range(2)])
+# the narrow cases that are timed as well as held: the DenoiseConfig
+# shapes and af2_refinement's largest pair (conv_out's (1, 1), IF 96)
+NARROW_TIMED = (dict(model='af2_refinement', pair=[1, 1]),)
+# the narrow arms against their plain versions, relative to max|plain|:
+# the wide arms' KERNEL_RTOL, for their arithmetic is the wide arms' (three
+# bf16 passes for float32 operands, each product within 2^-17 of
+# float32's; up to ~1.5e-5 of max|plain| at af2's largest pair)
+NARROW_RTOL = KERNEL_RTOL
 
 # quantized serving (se3_transformer_torch.quant): the device parameter
 # bytes of a quantized model against the same weights in float32 stay
@@ -327,9 +397,10 @@ PEAKS = {
 }
 
 # the forward kernels' names in a profile (kernel #3's W3 split and
-# i-split reduce included)
+# i-split reduce and its narrow-O arm included)
 FORWARD_KERNELS = ('pairwise_bxf_kernel', 'pairwise_fwd_kernel',
-                   'fwd_reduce_kernel', 'fwd_w3_split_kernel')
+                   'fwd_reduce_kernel', 'fwd_w3_split_kernel',
+                   'se3n::fwd_kernel')
 # the attention kernels' names in a profile
 ATTENTION_KERNELS = ('attention_fwd_kernel', 'attention_bwd_kernel',
                      'flash_fwd_kernel', 'flash_global_kernel')
@@ -845,35 +916,134 @@ def phase_backward_molecular(kp, peaks):
     (d_in, d_out) pairs of a kv conv (C = 32, so IF = 32 or 96; P = 1 or 3;
     O = 192, three O tiles; float32 h and W3) at E = 768 (n = 128, K = 6)
     and E = 762 (n = 127, a ragged last edge tile), each against its plain
-    version and timed; and the plain version's time at the four routed
-    O = 32 contractions of a forward (conv_in's and conv_out's pairs,
-    IF = 32), the price of the route. Returns (#3's rows, its worst error,
-    A's and B's rows, their worst errors, the routed rows)."""
+    version and timed (its O = 32 pairs, conv_in's and conv_out's, are
+    phase_pairwise_narrow's). Returns (#3's rows, its worst error, A's and
+    B's rows, their worst errors)."""
     cases = [(dict(pair=[di, do], recipe='molecular_edges'), E, 2 * do + 1,
               MOL_DIM * (2 * min(di, do) + 1), torch.float32, AF2_O)
              for E in (MOL_E, MOL_E - 6) for di in range(2)
              for do in range(2)]
     fwd_rows, fwd_worst = check_fwd(kp, peaks, cases, seed=25)
     bwd_rows, bwd_worst = check_backward(kp, peaks, cases, seed=26)
-    # the routed O = 32 contractions of one forward, on the plain version
-    gen = torch.Generator(device='cuda').manual_seed(27)
-    routed_rows = []
-    for layer, (di, do) in (('conv_in', (0, 0)), ('conv_in', (0, 1)),
-                            ('conv_out', (0, 0)), ('conv_out', (1, 0))):
-        P = 2 * do + 1
-        args = (torch.randn(MOL_E, 128, device='cuda', generator=gen),
-                torch.randn(128, MOL_DIM, MOL_DIM, device='cuda',
-                            generator=gen) * 128 ** -0.5,
-                torch.randn(MOL_E, P, MOL_DIM, device='cuda', generator=gen),
-                torch.randn(MOL_DIM, MOL_DIM, device='cuda', generator=gen))
-        routed_rows.append(dict(layer=layer, pair=[di, do], E=MOL_E, P=P,
-                                IF=MOL_DIM, O=MOL_DIM, plain_ms=cuda_ms(
-                                    lambda: kp.fused_pairwise_conv_plain(
-                                        *args), reps=10)))
-    log('molecular_routed', json.dumps(dict(
-        rows=routed_rows,
-        plain_ms_per_forward=sum(r['plain_ms'] for r in routed_rows))))
-    return fwd_rows, fwd_worst, bwd_rows, bwd_worst, routed_rows
+    return fwd_rows, fwd_worst, bwd_rows, bwd_worst
+
+
+def phase_pairwise_narrow(kp, peaks):
+    """The narrow-O arms of #3, A and B (O = 8, 16, 32) at NARROW_CASES,
+    float32 h and W3: each output against its plain version within
+    NARROW_RTOL of max|plain|, the same bits on a repeat; device time per
+    call, at the DenoiseConfig shapes and NARROW_TIMED, by run_ms over
+    operand sets that exceed L2 (the kernel, its plain
+    version, and the library yardstick: the einsum that computes the
+    forward from V2 and, for A and B, autograd of it), beside the bounds
+    of fwd_cost and pairwise_bwd_cost. Returns the rows and the worst
+    errors by kernel."""
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    mid = 128
+    rows, worst = [], dict(fwd=0.0, a=0.0, b=0.0)
+    for label, E, P, IF, O in NARROW_CASES:
+        timed = label['model'] == 'DenoiseConfig' or label in NARROW_TIMED
+        per_set = 4 * (E * mid + E * P * (IF + O) + mid * IF * O)
+        sets = []
+        for _ in range(max(2, int(COLD_BYTES // per_set) + 1) if timed
+                       else 1):
+            sets.append((
+                torch.randn(E, mid, device='cuda', generator=gen),
+                torch.randn(mid, IF, O, device='cuda', generator=gen)
+                * mid ** -0.5,
+                torch.randn(E, P, IF, device='cuda', generator=gen),
+                torch.randn(E, P, O, device='cuda', generator=gen),
+                torch.randn(IF, O, device='cuda', generator=gen) * 0.1))
+        h, w3, v2, g, b3 = sets[0]
+        shape = kp._check_bwd(h, w3, v2, g, b3)
+        out = kp.fused_pairwise_conv(h, w3, v2, b3)
+        dw3, dv2, db3 = kp._launch_bwd_a(h, w3, v2, g, b3, *shape)
+        dh = kp._launch_bwd_b(w3, v2, g, *shape)
+        again = (kp.fused_pairwise_conv(h, w3, v2, b3),
+                 *kp._launch_bwd_a(h, w3, v2, g, b3, *shape),
+                 kp._launch_bwd_b(w3, v2, g, *shape))
+        torch.cuda.synchronize()
+        refs = (kp.fused_pairwise_conv_plain(h, w3, v2, b3),
+                *kp.fused_pairwise_conv_bwd_a_plain(h, w3, v2, g, b3),
+                kp.fused_pairwise_conv_bwd_b_plain(w3, v2, g))
+        errs = {}
+        for name, kernel, got, rep_, ref in zip(
+                ('out', 'dw3', 'dv2', 'db3', 'dh'),
+                ('fwd', 'a', 'a', 'a', 'b'), (out, dw3, dv2, db3, dh), again,
+                refs):
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not (np.isfinite(err) and err <= NARROW_RTOL * scale):
+                raise AssertionError(
+                    f'narrow {label} E={E} P={P} IF={IF} O={O} {name}: '
+                    f'max_abs_err {err} > {NARROW_RTOL} * max|plain| {scale}')
+            if not torch.equal(got, rep_):
+                raise AssertionError(f'narrow {label} O={O} {name}: two '
+                                     f'runs differ')
+            errs[name] = err
+            worst[kernel] = max(worst[kernel], err)
+        del out, dw3, dv2, db3, dh, again, refs
+        row = dict(label, E=E, P=P, IF=IF, O=O, o_tile=kp.o_tile(O),
+                   h_dtype='float32', i_per_split=kp.i_per_split(E, IF, O),
+                   a_splits=kp.bwd_splits(E, IF, O), max_abs_err=errs)
+        if not timed:
+            log('narrow', json.dumps(row))
+            continue
+        libs = [(*radial_library(h, w3, b3), v2) for h, w3, v2, _, b3 in sets]
+        graphs = []
+        for lib, (*_, g, _) in zip(libs, sets):
+            leaves = [t.detach().requires_grad_() for t in lib]
+            graphs.append((leaves, library_conv(*leaves), g))
+        row.update(ms=run_ms([lambda s=s: kp.fused_pairwise_conv(
+                       s[0], s[1], s[2], s[4]) for s in sets]),
+                   plain_ms=run_ms([lambda s=s: kp.fused_pairwise_conv_plain(
+                       s[0], s[1], s[2], s[4]) for s in sets], RUN_CALLS),
+                   library_ms=run_ms([lambda x=x: library_conv(*x)
+                                      for x in libs], RUN_CALLS),
+                   ms_a=run_ms([lambda s=s: kp._launch_bwd_a(
+                       *s[:4], s[4], *shape) for s in sets]),
+                   plain_ms_a=run_ms([
+                       lambda s=s: kp.fused_pairwise_conv_bwd_a_plain(
+                           *s[:4], s[4]) for s in sets], RUN_CALLS),
+                   library_ms_a=run_ms([lambda x=x: torch.autograd.grad(
+                       x[1], x[0][1:], x[2], retain_graph=True)
+                       for x in graphs], RUN_CALLS),
+                   ms_b=run_ms([lambda s=s: kp._launch_bwd_b(
+                       s[1], s[2], s[3], *shape) for s in sets]),
+                   plain_ms_b=run_ms([
+                       lambda s=s: kp.fused_pairwise_conv_bwd_b_plain(
+                           s[1], s[2], s[3]) for s in sets], RUN_CALLS),
+                   library_ms_b=run_ms([lambda x=x: torch.autograd.grad(
+                       x[1], x[0][:1], x[2], retain_graph=True)
+                       for x in graphs], RUN_CALLS))
+        # the bounds of the wide arms' cost models at this call's own O:
+        # the products on the tensor cores (three bf16 passes for float32
+        # operands), the rest on the float32 CUDA cores, as the arms do the
+        # work; beside them the bound of every product on float32 FMAs
+        (row['bound_ms'], row['bound_by'], _,
+         row['bound_ms_fma']) = fwd_cost(E, mid, IF, O, P, 4, peaks)
+        for kernel in ('a', 'b'):
+            (row[f'bound_ms_{kernel}'], row[f'bound_by_{kernel}'],
+             row[f'bound_ms_fma_{kernel}']) = pairwise_bwd_cost(
+                 kernel, E, mid, IF, O, P, 4, peaks)
+        rows.append(row)
+        log('narrow', json.dumps(row))
+        del sets, libs, graphs
+        torch.cuda.empty_cache()
+    # one DenoiseConfig training step's narrow launches at these times
+    step = dict.fromkeys(('ms', 'bound_ms', 'bound_ms_fma', 'ms_a',
+                          'bound_ms_a', 'bound_ms_fma_a', 'ms_b',
+                          'bound_ms_b', 'bound_ms_fma_b'), 0.0)
+    for r in rows:
+        if r['model'] != 'DenoiseConfig':
+            continue
+        fwd_n, bwd_n = DENOISE_SHAPES[(r['P'], r['IF'], r['O'])]
+        for k in step:
+            step[k] += DENOISE_ACCUM * r[k] * (
+                bwd_n if k.endswith(('_a', '_b')) else fwd_n)
+    log('narrow_step', json.dumps(dict(model='DenoiseConfig',
+                                       accum_steps=DENOISE_ACCUM, **step)))
+    return rows, worst
 
 
 def phase_conv_bf16_bxf(st, kp, peaks):
@@ -2210,15 +2380,14 @@ def weight_bytes(module, device=None):
 
 
 def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
-                want_routed=None, vector=False, bonds=(3.8,), precision=None,
-                **fields):
+                vector=False, bonds=(3.8,), precision=None, **fields):
     """A recipe's forward at full size (dim=64, depth=6, 4 degrees, 8 heads,
     k=32 for the flagship recipes; `dim`, `depth` and `fields` set or add
     model fields; random seeded weights, conditioned) served by
     InferenceEngine at bucket 1024 on chain_coords of `bonds`: finite
     outputs, exactly `want`
-    launches (COUNT_NAMES order) and `want_routed` routed calls
-    (ROUTE_NAMES order; none by default) per request, rotation invariance
+    launches (COUNT_NAMES order) and no routed call per request, rotation
+    invariance
     of the scalar output (with `vector`, equivariance of the vector
     output), a profile. With `precision` (a quant mix) the model is built
     on the host and the engine quantizes it before placing it: its
@@ -2229,7 +2398,6 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     whole phase."""
     from se3_transformer_torch.so3 import rot
     recipe, name = label or recipe, recipe
-    want_routed = want_routed or NO_ROUTES
     rng = np.random.RandomState(0)
     build = dict(device='cpu') if precision else {}
     model = condition_weights(getattr(st, name)(
@@ -2276,11 +2444,10 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
                 not np.isfinite(out).all():
             raise AssertionError(f'{recipe} request {i}: shape {out.shape} '
                                  f'or non-finite output')
-        if launched != want or routes != want_routed:
+        if launched != want or routes != NO_ROUTES:
             raise AssertionError(f'{recipe} request {i}: launches '
                                  f'{COUNT_NAMES} = {launched}, want {want}; '
-                                 f'routed {ROUTE_NAMES} = {routes}, want '
-                                 f'{want_routed}')
+                                 f'routed {ROUTE_NAMES} = {routes}')
         row = dict(recipe=recipe, request=i, n=n, bucket=1024,
                    latency_ms=dt * 1e3, nodes_per_s=n / dt,
                    launches=launched, routed=routes)
@@ -2329,7 +2496,7 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     if launches != tuple(w * forwards for w in want):
         raise AssertionError(f'{recipe}: launches {launches} for {forwards} '
                              f'forwards')
-    routed_exactly(recipe, tuple(w * forwards for w in want_routed))
+    routed_exactly(recipe, NO_ROUTES)
     if inv > ROTATION_RTOL * scale:
         raise AssertionError(f'{recipe}: rotation invariance {inv} > '
                              f'{ROTATION_RTOL} * max|out| {scale}')
@@ -2473,8 +2640,8 @@ def counters():
     attention forward and backward, the streaming attention, the
     structured-basis forward bx, the global attention; then the so2 arm's
     launches of the streaming and the global attention, the scaled arm's
-    of #3 and #7, and the conv_bf16 arm's of #1, #3, A and B (each counted
-    in its kernel's total too)."""
+    of #3 and #7, the conv_bf16 arm's of #1, #3, A and B, and the narrow-O
+    arm's of #3, A and B (each counted in its kernel's total too)."""
     from se3_transformer_torch.kernels import attention as ka
     from se3_transformer_torch.kernels import flash as kf
     from se3_transformer_torch.kernels import pairwise as kp
@@ -2494,7 +2661,10 @@ def counters():
             (kp.fused_pairwise_conv_bxf, 'conv_bf16_launches'),
             (kp.fused_pairwise_conv, 'conv_bf16_launches'),
             (kp.fused_pairwise_conv_bwd, 'conv_bf16_launches_a'),
-            (kp.fused_pairwise_conv_bwd, 'conv_bf16_launches_b'))
+            (kp.fused_pairwise_conv_bwd, 'conv_bf16_launches_b'),
+            (kp.fused_pairwise_conv, 'narrow_launches'),
+            (kp.fused_pairwise_conv_bwd, 'narrow_launches_a'),
+            (kp.fused_pairwise_conv_bwd, 'narrow_launches_b'))
 
 
 def counts():
@@ -2512,11 +2682,6 @@ def route_counters():
 def routed():
     """Routed calls so far, in ROUTE_NAMES order."""
     return tuple(fn.routed for fn in route_counters())
-
-
-def routes(**kw):
-    """A routed-calls tuple in ROUTE_NAMES order."""
-    return tuple(kw.get(name, 0) for name in ROUTE_NAMES)
 
 
 def reset_counts():
@@ -2687,19 +2852,20 @@ def phase_route_wide(st):
 
 
 def phase_train(st, recipe, want, other_policy, want_other, label=None,
-                dim=64, depth=DEPTH, want_routed=None, n=1024, loss_fn=None,
-                **fields):
+                dim=64, depth=DEPTH, n=1024, loss_fn=None,
+                round_trip=False, **fields):
     """A recipe's denoise step (the vector head: output_degrees=2,
     reduce_dim_out=True; `dim`, `depth` and `fields` set or add model
     fields) at n nodes (1024) with Adam; with `loss_fn` (the trainer's
     loss) the recipe's own head: one warm-up step, then TRAIN_STEPS timed
-    ones, each with exactly `want` launches (COUNT_NAMES order) and
-    `want_routed` routed calls (ROUTE_NAMES order; none by default); one
-    profiled step; unless `want_other` is None, one step under
-    `other_policy` with `want_other` launches. Returns the launches of the
-    warm-up and timed steps."""
+    ones, each with exactly `want` launches (COUNT_NAMES order) and no
+    routed call; one
+    profiled step; with `round_trip`, checkpoint_round_trip of the
+    trainer's state into a fresh trainer of the same model (a denoise
+    loss); unless
+    `want_other` is None, one step under `other_policy` with `want_other`
+    launches. Returns the launches of the warm-up and timed steps."""
     recipe, name = label or recipe, recipe
-    want_routed = want_routed or NO_ROUTES
     head = {} if loss_fn else dict(output_degrees=2, reduce_dim_out=True)
     model = condition_weights(getattr(st, name)(
         dim=dim, depth=depth, generator=torch.Generator().manual_seed(4),
@@ -2724,11 +2890,10 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
         launched = tuple(a - b for a, b in zip(counts(), before))
         routes = tuple(a - b for a, b in zip(routed(), routed_before))
         losses.append(float(loss))
-        if launched != want or routes != want_routed:
+        if launched != want or routes != NO_ROUTES:
             raise AssertionError(f'{recipe} train step {step}: launches '
                                  f'{COUNT_NAMES} = {launched}, want '
-                                 f'{want}; routed {ROUTE_NAMES} = {routes}, '
-                                 f'want {want_routed}')
+                                 f'{want}; routed {ROUTE_NAMES} = {routes}')
         if step:
             step_ms.append(dt * 1e3)
         log('train', json.dumps(dict(recipe=recipe, step=step,
@@ -2737,7 +2902,7 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
                                      routed=routes)))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = counts()
-    routed_exactly(recipe, tuple(w * (1 + TRAIN_STEPS) for w in want_routed))
+    routed_exactly(recipe, NO_ROUTES)
     bad = [name for name, p in model.named_parameters()
            if p.grad is not None and not torch.isfinite(p.grad).all()]
     if not np.isfinite(losses).all() or losses[-1] >= losses[0] or bad:
@@ -2752,6 +2917,16 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
         last_loss=losses[-1], launches=launches)))
     log('train_profile', json.dumps(dict(
         recipe=recipe, **profile_step(trainer, batch, noise))))
+    if round_trip:
+        # the fresh trainer's model: a copy with every parameter zeroed, so
+        # that only the restore can give it the trainer's weights
+        fresh = copy.deepcopy(model)
+        with torch.no_grad():
+            for p in fresh.parameters():
+                p.zero_()
+        checkpoint_round_trip(recipe, trainer, st.DenoiseTrainer(
+            fresh, lr=1e-4), batch, noise)
+        del fresh
     if want_other is None:
         del trainer, model
         torch.cuda.empty_cache()
@@ -2782,6 +2957,216 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
     return launches
 
 
+def check_step(label, step, before, want):
+    """The launches and routed calls of one step since `before` (counts,
+    routed): exactly `want` and none routed."""
+    launched = tuple(a - b for a, b in zip(counts(), before[0]))
+    routes_ = tuple(a - b for a, b in zip(routed(), before[1]))
+    if launched != want or routes_ != NO_ROUTES:
+        raise AssertionError(f'{label} step {step}: launches {COUNT_NAMES} = '
+                             f'{launched}, want {want}; routed {routes_}')
+    return launched
+
+
+def phase_denoise_train(st, want):
+    """The JAX trainer's path: DenoiseTrainer(DenoiseConfig(accum_steps=
+    DENOISE_ACCUM)) on the card for DENOISE_STEPS steps on its own
+    synthetic batches (np_rng) and seeded noise, each with exactly `want`
+    launches and nothing routed; after step DENOISE_RESUME_AT a checkpoint
+    by save_async, written while the next step updates the weights in
+    place; the checkpoint holding that step's weights bit for bit; a fresh
+    trainer restored from it taking the next step on the same batch and
+    noise to the uninterrupted run's loss within RESUME_RTOL (and the same
+    step again, for the run-to-run spread); finite losses; the median step
+    time, nodes*steps/s, and the device busy time and idle share of one
+    profiled micro-batch (a step is DENOISE_ACCUM of them and one Adam
+    update; a whole step's ~10^5 events take the profiler ~50 s to
+    summarize). Returns the launches of the uninterrupted run."""
+    import tempfile
+    from se3_transformer_torch.training import CheckpointManager
+    cfg = st.DenoiseConfig(accum_steps=DENOISE_ACCUM)
+    trainer = st.DenoiseTrainer(cfg)
+    rng = np.random.RandomState(41)
+    shape = (cfg.accum_steps, cfg.batch_size, cfg.num_nodes, 3)
+    losses, step_ms = [], []
+    with tempfile.TemporaryDirectory() as d, CheckpointManager(d) as cm:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(1, DENOISE_STEPS + 1):
+            batch = trainer.micro_batches()
+            noise = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                    device='cuda')
+            before = counts(), routed()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.train_step(batch, noise=noise)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_step('denoise train', step, before, want)
+            losses.append(float(loss))
+            if step == DENOISE_RESUME_AT:
+                t0 = time.perf_counter()
+                cm.save_async(step, (trainer.params, trainer.opt_state,
+                                     trainer.step_count))
+                save_async_ms = (time.perf_counter() - t0) * 1e3
+                saved = {k: v.clone() for k, v in trainer.params.items()}
+            elif step == DENOISE_RESUME_AT + 1:
+                resume = (batch, noise, losses[-1])
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cm.wait_until_finished()
+        fresh = st.DenoiseTrainer(cfg)
+        fresh.init()
+        like = (fresh.params, fresh.opt_state, 0)
+        state = cm.restore(step=DENOISE_RESUME_AT, like=like)
+        stale = [k for k, v in saved.items()
+                 if not torch.equal(state[0][k].to(v.device), v)]
+        if stale or state[2] != DENOISE_RESUME_AT:
+            raise AssertionError(f'denoise checkpoint of step '
+                                 f'{DENOISE_RESUME_AT} does not hold its '
+                                 f'weights: {stale[:5]}, step {state[2]}')
+        fresh.restore(state)
+        batch, noise, want_loss = resume
+        got = float(fresh.train_step(batch, noise=noise))
+        fresh.restore(cm.restore(step=DENOISE_RESUME_AT, like=like))
+        again = float(fresh.train_step(batch, noise=noise))
+    rel = abs(got - want_loss) / abs(want_loss)
+    if not (np.isfinite(losses).all() and rel <= RESUME_RTOL):
+        raise AssertionError(f'denoise train: losses {losses}; resumed step '
+                             f'{DENOISE_RESUME_AT + 1} loss {got} vs '
+                             f'{want_loss} ({rel} > {RESUME_RTOL})')
+    micro = {k: v[0] for k, v in batch.items()}
+    prof, micro_ms = profile_call(lambda: trainer.loss_fn(
+        trainer.model, micro, noise[0]).backward())
+    events = device_events(prof)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    ms = float(np.median(step_ms[1:]))
+    nodes = cfg.batch_size * cfg.num_nodes * cfg.accum_steps
+    log('denoise_train', json.dumps(dict(
+        config='DenoiseConfig(accum_steps=16)', nodes=cfg.num_nodes,
+        accum_steps=cfg.accum_steps, steps=DENOISE_STEPS, losses=losses,
+        step_ms=step_ms, step_ms_median=ms, nodes_steps_per_s=nodes / ms * 1e3,
+        launches_per_step=dict(zip(COUNT_NAMES, want)),
+        resume=dict(step=DENOISE_RESUME_AT + 1, loss=got,
+                    uninterrupted_loss=want_loss, rel_err=rel,
+                    rerun_rel_spread=abs(again - got) / abs(got),
+                    save_async_ms=save_async_ms),
+        micro_batch_profile=dict(
+            wall_ms=micro_ms, device_busy_ms=busy_ms,
+            idle_share=1 - busy_ms / micro_ms,
+            narrow_kernel_ms=kernels_ms(events, ('se3n::',)),
+            top_device_ops=top_device_ops(events)[:8]),
+        max_memory_allocated_gb=peak_gb)))
+    del trainer, fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_denoise_pipelined(st, want):
+    """The fixture sidechainnet export (tests/fixtures/mini_sidechainnet.pkl,
+    every split) converted to a PointCloudDataset, and
+    DenoiseTrainer(DenoiseConfig(accum_steps=DENOISE_ACCUM,
+    pipeline=True)).train_pipelined on it through dataset_batch_source
+    (bucket 96:
+    the proteins of at most 32 residues; the longer ones dropped, as the
+    dataset counts them), a BatchProducer thread and device_prefetch, for
+    DENOISE_PIPELINED_STEPS steps with a save_async checkpoint every 2:
+    exactly `want` launches a step and nothing routed, finite losses, the
+    newest checkpoint restorable, and the PipelineStats snapshot. Returns
+    the launches."""
+    import tempfile
+    from se3_transformer_torch.training import (
+        CheckpointManager, PointCloudDataset, convert_sidechainnet,
+        dataset_batch_source,
+    )
+    steps = DENOISE_PIPELINED_STEPS
+    cfg = st.DenoiseConfig(accum_steps=DENOISE_ACCUM, pipeline=True)
+    trainer = st.DenoiseTrainer(cfg)
+    with tempfile.TemporaryDirectory() as d, CheckpointManager(d) as cm:
+        path = convert_sidechainnet(
+            os.path.join(HERE, 'tests', 'fixtures', 'mini_sidechainnet.pkl'),
+            os.path.join(d, 'scn.npz'), splits=('train', 'valid-10', 'test'))
+        dataset = PointCloudDataset.load(path)
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            history = trainer.train_pipelined(
+                steps, batch_source=dataset_batch_source(
+                    dataset, cfg.batch_size, cfg.num_nodes,
+                    accum_steps=cfg.accum_steps, num_steps=steps),
+                log=lambda msg: None, checkpoint_manager=cm,
+                checkpoint_every=2)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = counts()
+        restored = cm.restore()
+        kept = cm.all_steps()
+    records, pipeline = history[:-1], history[-1]
+    losses = [r['loss'] for r in records]
+    want_total = tuple(w * steps for w in want)
+    if (launches != want_total or routed() != NO_ROUTES
+            or len(records) != steps or not np.isfinite(losses).all()
+            or pipeline['steps'] != steps or kept != [2, 4]
+            or restored[2] != 4):
+        raise AssertionError(f'denoise pipelined: launches {launches}, want '
+                             f'{want_total}; routed {routed()}; losses '
+                             f'{losses}; pipeline {pipeline}; checkpoints '
+                             f'{kept}')
+    log('denoise_pipelined', json.dumps(dict(
+        dataset=dict(sequences=len(dataset), dropped=dataset.last_dropped,
+                     warnings=sorted({str(w.message)[:120] for w in caught})),
+        steps=steps, losses=losses, wall_s=wall_s,
+        nodes_steps_per_s=(cfg.num_nodes * cfg.accum_steps * steps / wall_s),
+        checkpoints=kept, pipeline=pipeline)))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def checkpoint_round_trip(recipe, trainer, fresh, batch, noise):
+    """The checkpoint manager at full width: save_async of the trainer's
+    (params, opt_state, step), one in-place step while the write may run,
+    the checkpoint holding the saved state bit for bit (weights and Adam's
+    moments), and `fresh` restored from it taking that step to the same
+    loss within RESUME_RTOL."""
+    import tempfile
+    from se3_transformer_torch.training import CheckpointManager
+    params = {k: v.clone() for k, v in trainer.params.items()}
+    moments = {i: v['exp_avg'].clone()
+               for i, v in trainer.optimizer.state_dict()['state'].items()}
+    step = trainer.step_count
+    with tempfile.TemporaryDirectory() as d, CheckpointManager(d) as cm:
+        t0 = time.perf_counter()
+        cm.save_async(step, (trainer.params, trainer.opt_state, step))
+        save_async_ms = (time.perf_counter() - t0) * 1e3
+        want = float(trainer.train_step(batch, noise=noise))
+        t0 = time.perf_counter()
+        cm.wait_until_finished()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))
+        t0 = time.perf_counter()
+        state = cm.restore(like=(fresh.params, fresh.opt_state, 0))
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    stale = [k for k, v in params.items()
+             if not torch.equal(state[0][k].to(v.device), v)]
+    stale += [i for i, v in moments.items()
+              if not torch.equal(state[1]['state'][i]['exp_avg'].to(v.device),
+                                 v)]
+    fresh.restore(state)
+    got = float(fresh.train_step(batch, noise=noise))
+    rel = abs(got - want) / abs(want)
+    log('checkpoint', json.dumps(dict(
+        recipe=recipe, step=step, bytes=nbytes, save_async_ms=save_async_ms,
+        wait_ms=wait_ms, restore_ms=restore_ms, next_loss=got,
+        uninterrupted_loss=want, rel_err=rel)))
+    if stale or state[2] != step or rel > RESUME_RTOL:
+        raise AssertionError(f'{recipe} checkpoint round trip: stale '
+                             f'{stale[:5]}, step {state[2]}, next loss {got} '
+                             f'vs {want}')
+
+
 def egnn_loss(model, batch, noise):
     """scripts/run_baselines.py's objective for an EGNN model: the mean
     square of its degree-1 output (the hidden fiber's, [b, n, dim, 3]) on
@@ -2791,14 +3176,14 @@ def egnn_loss(model, batch, noise):
     return (out ** 2).mean()
 
 
-def phase_egnn_serve(st, want, want_routed):
+def phase_egnn_serve(st, want):
     """egnn_stress (the JAX recipe: dim 16, depth 12 EGNN layers with
     feedforward blocks, clamp 2, k = 16, reversible; seeded flax-scheme
     weights, conv_in conditioned) served by InferenceEngine at bucket
     EGNN_N with return_type=1 on requests of EGNN_N, EGNN_N - 12 and
     EGNN_N * 2 // 3 nodes of an N/CA/C backbone: outputs [n, 16, 3], finite;
-    exactly `want` launches and `want_routed` routed calls per forward
-    (conv_in's two O = 16 pairs: no kernel takes O = 16); equivariance of
+    exactly `want` launches (conv_in's two O = 16 pairs, #3's narrow-O
+    arm) and no routed call per forward; equivariance of
     the vector output; a profile (device busy, idle share) and the peak
     memory. Returns the launches of the phase."""
     from se3_transformer_torch.so3 import rot
@@ -2825,10 +3210,9 @@ def phase_egnn_serve(st, want, want_routed):
         if out.shape != (len(feats), dim, 3) or not np.isfinite(out).all():
             raise AssertionError(f'egnn_stress request {i}: shape '
                                  f'{out.shape} or non-finite output')
-        if launched != want or routes != want_routed:
+        if launched != want or routes != NO_ROUTES:
             raise AssertionError(f'egnn_stress request {i}: launches '
-                                 f'{launched}, want {want}; routed {routes}, '
-                                 f'want {want_routed}')
+                                 f'{launched}, want {want}; routed {routes}')
         log('serve', json.dumps(dict(recipe='egnn_stress', request=i,
                                      n=len(feats), bucket=EGNN_N,
                                      latency_ms=latencies[-1],
@@ -2857,7 +3241,7 @@ def phase_egnn_serve(st, want, want_routed):
     if launches != tuple(w * forwards for w in want):
         raise AssertionError(f'egnn_stress: launches {launches} for '
                              f'{forwards} forwards')
-    routed_exactly('egnn_stress', tuple(w * forwards for w in want_routed))
+    routed_exactly('egnn_stress', NO_ROUTES)
     del engine, model
     torch.cuda.empty_cache()
     return launches
@@ -2871,15 +3255,14 @@ def molecular_inputs(st, seed, n=MOL_N, device='cuda'):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def phase_molecular_serve(st, want, want_routed):
+def phase_molecular_serve(st, want):
     """molecular_edges at its full width and depth (seeded weights,
     conditioned) called with adj_mat and edges at n = 128: three timed
     forwards (all atoms real; the last MOL_MASKED masked; the coordinates
     rotated in float64 on the host), each with exactly `want` launches
-    (COUNT_NAMES order) and `want_routed` routed calls (ROUTE_NAMES
-    order), finite outputs, the scalar output invariant under the rotation
-    within ROTATION_RTOL; a profiled forward. Returns the phase's
-    launches."""
+    (COUNT_NAMES order) and no routed call, finite outputs, the scalar
+    output invariant under the rotation within ROTATION_RTOL; a profiled
+    forward. Returns the phase's launches."""
     from se3_transformer_torch.so3 import rot
     model = condition_weights(st.molecular_edges(
         generator=torch.Generator().manual_seed(24))).eval()
@@ -2916,11 +3299,10 @@ def phase_molecular_serve(st, want, want_routed):
         if out.shape != (1, MOL_N, MOL_DIM) or not np.isfinite(out).all():
             raise AssertionError(f'molecular_edges {label}: shape '
                                  f'{out.shape} or non-finite output')
-        if launched != want or routes_ != want_routed:
+        if launched != want or routes_ != NO_ROUTES:
             raise AssertionError(f'molecular_edges {label}: launches '
                                  f'{COUNT_NAMES} = {launched}, want {want}; '
-                                 f'routed {ROUTE_NAMES} = {routes_}, want '
-                                 f'{want_routed}')
+                                 f'routed {ROUTE_NAMES} = {routes_}')
         outs[label] = out
         log('serve', json.dumps(dict(
             recipe='molecular_edges', request=label, n=MOL_N, E=MOL_E,
@@ -2942,8 +3324,7 @@ def phase_molecular_serve(st, want, want_routed):
     if launches != tuple(w * forwards for w in want):
         raise AssertionError(f'molecular_edges: launches {launches} for '
                              f'{forwards} forwards')
-    routed_exactly('molecular_edges serve',
-                   tuple(w * forwards for w in want_routed))
+    routed_exactly('molecular_edges serve', NO_ROUTES)
     log('serve', json.dumps(dict(recipe='molecular_edges',
                                  rotation_max_abs_diff=inv, max_abs_out=scale,
                                  rtol=ROTATION_RTOL, forwards=forwards,
@@ -2956,11 +3337,11 @@ def phase_molecular_serve(st, want, want_routed):
     return launches
 
 
-def phase_molecular_train(st, want, want_routed):
+def phase_molecular_train(st, want):
     """molecular_edges' property regression (property_loss on the pooled
     scalar head against molecular_batch's invariant target) at n = 128
     with Adam 1e-4: one warm-up step, then TRAIN_STEPS timed ones, each
-    with exactly `want` launches and `want_routed` routed calls; finite
+    with exactly `want` launches and no routed call; finite
     decreasing losses, finite gradients, step time, nodes*steps/s, peak
     memory and a profiled step. Returns the launches of the steps."""
     model = condition_weights(st.molecular_edges(
@@ -2980,11 +3361,10 @@ def phase_molecular_train(st, want, want_routed):
         launched = tuple(a - b for a, b in zip(counts(), before))
         routes_ = tuple(a - b for a, b in zip(routed(), routed_before))
         losses.append(float(loss))
-        if launched != want or routes_ != want_routed:
+        if launched != want or routes_ != NO_ROUTES:
             raise AssertionError(f'molecular_edges train step {step}: '
                                  f'launches {COUNT_NAMES} = {launched}, want '
-                                 f'{want}; routed {ROUTE_NAMES} = {routes_}, '
-                                 f'want {want_routed}')
+                                 f'{want}; routed {ROUTE_NAMES} = {routes_}')
         if step:
             step_ms.append(dt * 1e3)
         log('train', json.dumps(dict(recipe='molecular_edges', step=step,
@@ -2993,8 +3373,7 @@ def phase_molecular_train(st, want, want_routed):
                                      routed=routes_)))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = counts()
-    routed_exactly('molecular_edges train',
-                   tuple(w * (1 + TRAIN_STEPS) for w in want_routed))
+    routed_exactly('molecular_edges train', NO_ROUTES)
     bad = [name for name, p in model.named_parameters()
            if p.grad is not None and not torch.isfinite(p.grad).all()]
     if not np.isfinite(losses).all() or losses[-1] >= losses[0] or bad:
@@ -3466,8 +3845,11 @@ def main() -> int:
     bwd_rows, bwd_worst = phase_backward(kp, peaks)
     grouped_rows, grouped_worst = phase_backward_grouped(kp, peaks)
     af2_rows, af2_worst = phase_backward_af2(kp, peaks)
-    _, mol_fwd_worst, _, mol_worst, _ = phase_backward_molecular(kp, peaks)
+    _, mol_fwd_worst, _, mol_worst = phase_backward_molecular(kp, peaks)
     tick('backward')
+    # the narrow-O arms of #3, A and B
+    narrow_rows, narrow_worst = phase_pairwise_narrow(kp, peaks)
+    tick('pairwise_narrow')
     # conv_bf16's bf16-storage arms of #1, #3, A and B
     v16_bxf_rows, v16_bxf_worst = phase_conv_bf16_bxf(st, kp, peaks)
     v16_fwd_rows, v16_fwd_worst = phase_conv_bf16_fwd(kp, peaks)
@@ -3492,14 +3874,16 @@ def main() -> int:
     # just after; launch tuples in COUNT_NAMES order
     def launches(bxf=0, fwd=0, a=0, b=0, attn_fwd=0, attn_bwd=0, flash=0,
                  bx=0, glob=0, flash_so2=0, glob_so2=0, fwd_q=0, flash_q=0,
-                 bxf_v16=0, fwd_v16=0, a_v16=0, b_v16=0):
+                 bxf_v16=0, fwd_v16=0, a_v16=0, b_v16=0, fwd_n=0, a_n=0,
+                 b_n=0):
         # the so2 arm's launches count in flash and glob as well, the
         # scaled arms' (of the dense arm) in fwd and flash, the conv_bf16
-        # arms' in bxf, fwd, A and B
-        return (bxf + bxf_v16, fwd + fwd_q + fwd_v16, a + a_v16, b + b_v16,
-                attn_fwd, attn_bwd, flash + flash_so2 + flash_q, bx,
-                glob + glob_so2, flash_so2, glob_so2, fwd_q, flash_q,
-                bxf_v16, fwd_v16, a_v16, b_v16)
+        # arms' and the narrow-O arms' in bxf, fwd, A and B
+        return (bxf + bxf_v16, fwd + fwd_q + fwd_v16 + fwd_n, a + a_v16 + a_n,
+                b + b_v16 + b_n, attn_fwd, attn_bwd,
+                flash + flash_so2 + flash_q, bx, glob + glob_so2, flash_so2,
+                glob_so2, fwd_q, flash_q, bxf_v16, fwd_v16, a_v16, b_v16,
+                fwd_n, a_n, b_n)
     fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
     bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
     paths = [
@@ -3512,10 +3896,11 @@ def main() -> int:
             tie_key_values=True)),
         not_routed('flagship_fast serve', phase_serve(
             st, 'flagship_fast', launches(bxf=4 + REPLAY_LAUNCHES + 4))),
+        # with a checkpoint round trip of the trainer's state
         not_routed('flagship_fast train', phase_train(
             st, 'flagship_fast', launches(bxf=TRAIN_LAUNCHES, **fast_bwd),
             None, launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
-                           **fast_bwd))),
+                           **fast_bwd), round_trip=True)),
         not_routed('flagship_fast+pallas_attention serve', phase_serve(
             st, 'flagship_fast', launches(bxf=4 + REPLAY_LAUNCHES + 4,
                                           attn_fwd=ATTN_LAUNCHES),
@@ -3552,21 +3937,22 @@ def main() -> int:
             'save_conv_outputs',
             launches(fwd=FLAGSHIP_TRAIN_LAUNCHES, a=FLAGSHIP_BWD_LAUNCHES,
                      b=FLAGSHIP_BWD_LAUNCHES))),
-        # af2_refinement: each phase holds its routed calls to exactly the
-        # O = 32 pairs of conv_in and conv_out, per request and per step
-        phase_serve(st, 'af2_refinement', launches(fwd=AF2_LAUNCHES),
-                    dim=AF2_DIM, depth=2, want_routed=routes(fwd=AF2_ROUTED),
-                    vector=True, bonds=BACKBONE_BONDS),
-        phase_train(st, 'af2_refinement',
-                    launches(fwd=AF2_LAUNCHES, a=AF2_LAUNCHES,
-                             b=AF2_LAUNCHES), None, None, dim=AF2_DIM,
-                    depth=2, want_routed=routes(fwd=AF2_ROUTED)),
-        # molecular_edges: likewise exactly its 4 O = 32 pairs
-        phase_molecular_serve(st, launches(fwd=MOL_LAUNCHES),
-                              routes(fwd=MOL_ROUTED)),
-        phase_molecular_train(st, launches(fwd=MOL_LAUNCHES, a=MOL_LAUNCHES,
-                                           b=MOL_LAUNCHES),
-                              routes(fwd=MOL_ROUTED)),
+        # af2_refinement: the O = 32 pairs of conv_in and conv_out on the
+        # narrow-O arms, nothing routed
+        not_routed('af2_refinement serve', phase_serve(
+            st, 'af2_refinement', launches(fwd=AF2_LAUNCHES, fwd_n=AF2_NARROW),
+            dim=AF2_DIM, depth=2, vector=True, bonds=BACKBONE_BONDS)),
+        not_routed('af2_refinement train', phase_train(
+            st, 'af2_refinement', launches(
+                fwd=AF2_LAUNCHES, fwd_n=AF2_NARROW, a=AF2_LAUNCHES,
+                a_n=AF2_NARROW_BWD, b=AF2_LAUNCHES, b_n=AF2_NARROW_BWD),
+            None, None, dim=AF2_DIM, depth=2)),
+        # molecular_edges: likewise its 4 O = 32 pairs
+        phase_molecular_serve(st, launches(fwd=MOL_LAUNCHES,
+                                           fwd_n=MOL_NARROW)),
+        phase_molecular_train(st, launches(
+            fwd=MOL_LAUNCHES, fwd_n=MOL_NARROW, a=MOL_LAUNCHES,
+            a_n=MOL_NARROW, b=MOL_LAUNCHES, b_n=MOL_NARROW)),
         # conv_backend='so2' (the so2 arms of #7 and 7g, #3 on the band z)
         not_routed('flagship_fast+so2 serve', phase_serve(
             st, 'flagship_fast', launches(fwd=SO2_SERVE_LAUNCHES),
@@ -3613,11 +3999,20 @@ def main() -> int:
                 fwd_v16=FLAGSHIP_TRAIN_LAUNCHES + FLAGSHIP_REPLAY_LAUNCHES,
                 a_v16=FLAGSHIP_BWD_LAUNCHES, b_v16=FLAGSHIP_BWD_LAUNCHES),
             None, None, label='flagship+conv_bf16', conv_bf16=True)),
-        # egnn_stress: no kernel, exactly conv_in's two O = 16 pairs routed
-        phase_egnn_serve(st, launches(), routes(fwd=EGNN_ROUTED)),
-        phase_train(st, 'egnn_stress', launches(), None, None, dim=16,
-                    depth=12, n=EGNN_N, loss_fn=egnn_loss,
-                    want_routed=routes(fwd=EGNN_ROUTED))]
+        # egnn_stress: conv_in's two O = 16 pairs on the narrow-O arms
+        phase_egnn_serve(st, launches(fwd_n=EGNN_NARROW)),
+        not_routed('egnn_stress train', phase_train(
+            st, 'egnn_stress', launches(fwd_n=EGNN_NARROW, a_n=EGNN_NARROW,
+                                        b_n=EGNN_NARROW), None, None,
+            dim=16, depth=12, n=EGNN_N, loss_fn=egnn_loss)),
+        # the JAX trainer (DenoiseConfig): every contraction on the
+        # narrow-O arms; synthetic batches with a checkpoint and a resume,
+        # then the converted sidechainnet fixture through the pipeline
+        not_routed('denoise train', phase_denoise_train(st, launches(
+            fwd_n=DENOISE_FWD, a_n=DENOISE_BWD, b_n=DENOISE_BWD))),
+        not_routed('denoise pipelined', phase_denoise_pipelined(
+            st, launches(fwd_n=DENOISE_FWD, a_n=DENOISE_BWD,
+                         b_n=DENOISE_BWD)))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
 
@@ -3680,15 +4075,29 @@ def main() -> int:
         entry('fused_pairwise_conv_bxf', 'pairwise_bxf.cu', pallas + '593',
               total[0] - total[13], worst, unchunked(rows, 'bfloat16')),
         entry('fused_pairwise_conv', 'pairwise_fwd.cu', pallas + '254',
-              total[1] - total[11] - total[14], max(fwd_worst, mol_fwd_worst),
-              unchunked(fwd_rows, 'float32'))]
+              total[1] - total[11] - total[14] - total[17],
+              max(fwd_worst, mol_fwd_worst), unchunked(fwd_rows, 'float32'))]
     for i, (k, line) in enumerate((('a', 861), ('b', 907))):
         kernels.append(entry(
             f'fused_pairwise_conv_bwd_{k}', 'pairwise_bwd.cu',
-            f'{pallas}{line}', total[2 + i] - total[15 + i],
+            f'{pallas}{line}', total[2 + i] - total[15 + i] - total[18 + i],
             max(bwd_worst[k], grouped_worst[k], af2_worst[k],
                 mol_worst[k]), bwd,
             f'_{k}'))
+    # the narrow-O arms at the DenoiseConfig trainer's six shapes (each
+    # once); narrow_step lines weigh them by a step's launches
+    # (bound_ms_fma beside: every product on float32 FMAs, as they run)
+    narrow = [r for r in narrow_rows if r['model'] == 'DenoiseConfig']
+    kernels += [dict(
+        entry('fused_pairwise_conv_narrow', 'pairwise_narrow.cuh',
+              pallas + '254', total[17], narrow_worst['fwd'], narrow),
+        bound_ms_fma=sum(r['bound_ms_fma'] for r in narrow))]
+    for i, (k, line) in enumerate((('a', 861), ('b', 907))):
+        kernels.append(dict(entry(
+            f'fused_pairwise_conv_bwd_{k}_narrow', 'pairwise_narrow.cuh',
+            f'{pallas}{line}', total[18 + i], narrow_worst[k], narrow,
+            f'_{k}'), bound_ms_fma=sum(r[f'bound_ms_fma_{k}']
+                                       for r in narrow)))
     # the conv_bf16 arms at their units (E = 32768): #1's at the 16
     # flagship_fast pairs (bf16 h), #3's, A's and B's at the flagship's four
     # output degrees (float32 h); the float32 arm's time on the upcast

@@ -22,8 +22,11 @@ from .ops import (
     NormSE3, PairwiseConvSE3,
 )
 from .training import (
-    RECIPES, DenoiseTrainer, af2_refinement, denoise_loss, egnn_stress,
-    flagship, flagship_batch, flagship_fast, molecular_batch,
-    molecular_edges, property_loss, toy_denoise,
+    RECIPES, BatchProducer, CheckpointManager, DenoiseConfig, DenoiseTrainer,
+    ModelFamilyMismatch, PipelineStats, PointCloudDataset, af2_refinement,
+    convert_sidechainnet, dataset_batch_source, denoise_loss,
+    denoise_loss_fn, device_prefetch, egnn_stress, flagship, flagship_batch,
+    flagship_fast, molecular_batch, molecular_edges, property_loss,
+    synthetic_protein_batch, synthetic_protein_batch_host, toy_denoise,
 )
 from .utils.graph import chain_adjacency

@@ -13,7 +13,9 @@ Quantized serving: `precision='int8_mix'` (or 'fp8_mix', 'bf16', 'fp32',
 or an explicit quant.rules rule list) quantizes the module's parameters on
 the host (quant.quantize_params) before it is moved to the device, so a
 module built on the CPU never has its float32 weights in device memory;
-`precision_name` and `quant_report` keep the mix and its report. A module
+`precision_name` and `quant_report` keep the mix and its report; None and
+'fp32' serve the module as it is (`precision_name` 'fp32', no report). A
+module
 that is already quantized is served as it is, with `precision_name`
 'prequantized' and no report. Ahead-of-time capture,
 weight swaps, meshes and telemetry are not ported yet.
@@ -82,8 +84,12 @@ class InferenceEngine:
                  precision=None):
         self.device = resolve_device(device)
         self.return_type = return_type
-        self.precision_name = None
+        # None and 'fp32' serve the module as it is, as in JAX: precision
+        # 'fp32', no quant_report
+        self.precision_name = 'fp32'
         self.quant_report = None
+        if precision == 'fp32':
+            precision = None
         if precision is not None:
             resolve_mix(precision)
         if is_quantized(module):

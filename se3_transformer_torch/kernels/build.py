@@ -1,14 +1,17 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source under `csrc/` (`pairwise_bxf.cu` and `pairwise_fwd.cu`, the
-pairwise forwards; `pairwise_bwd.cu`, their backward; `attention.cu`, the
-fused attention and its backward; `flash_fwd.cu`, the streaming kNN
-attention; `flash_global.cu`, the global attention) is compiled by its own `nvcc -c` for
-Hopper (`sm_90a`), all started together (the two flash sources twice, once
-per contraction arm, `-DSE3_SO2=0` and `=1`: each object holds one arm's
+pairwise forwards; `pairwise_bwd.cu`, their backward; `pairwise_narrow.cu`,
+the narrow-O arms of #3, A and B, which the float32 pairwise units'
+entry points call; `attention.cu`, the fused attention and its backward;
+`flash_fwd.cu`, the streaming kNN attention; `flash_global.cu`, the
+global attention) is compiled by its
+own `nvcc -c` for Hopper (`sm_90a`), all started together (the two flash
+sources twice, once per contraction arm, `-DSE3_SO2=0` and `=1`: each object holds one arm's
 instantiations and entry point; `flash_fwd.cu` twice more for its scaled
-arm, `-DSE3_QUANT=1`; each pairwise source twice, its float32 arm and,
-with `-DSE3_V16=1`, its conv_bf16 arm, the bf16-stored V2, basis and x),
+arm, `-DSE3_QUANT=1`; each 64-wide pairwise source twice, its float32
+arm and, with `-DSE3_V16=1`, its conv_bf16 arm, the bf16-stored V2, basis
+and x),
 and the objects are linked into
 one shared library with a plain C interface that `ctypes` loads. The build
 happens at first use, never at import, into `kernels/build/` beside this
@@ -30,13 +33,17 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, 'csrc')
 SOURCES = tuple(os.path.join(CSRC_DIR, f)
                 for f in ('pairwise_bxf.cu', 'pairwise_fwd.cu',
-                          'pairwise_bwd.cu', 'attention.cu', 'flash_fwd.cu',
-                          'flash_global.cu'))
-HEADERS = (os.path.join(CSRC_DIR, 'common.cuh'),)
+                          'pairwise_bwd.cu', 'pairwise_narrow.cu',
+                          'attention.cu', 'flash_fwd.cu', 'flash_global.cu'))
+HEADERS = tuple(os.path.join(CSRC_DIR, f)
+                for f in ('common.cuh', 'pairwise_narrow.cuh',
+                          'pairwise_narrow.h'))
 # the compilation units, (source, its extra nvcc flags): each flash source
 # once per contraction arm, flash_fwd.cu also once per W3 form (float, or
 # the scaled arm's quantized storage); each pairwise source once per storage
-# of its equivariant operand (float32, or conv_bf16's bf16)
+# of its equivariant operand (float32, or conv_bf16's bf16); the narrow
+# arms and the attention once
+ONCE = ('pairwise_narrow.cu', 'attention.cu')
 UNITS = tuple(
     (src, (f'-DSE3_SO2={arm}',) + quant)
     for src in SOURCES for arm in (0, 1)
@@ -45,9 +52,9 @@ UNITS = tuple(
         not quant or os.path.basename(src) == 'flash_fwd.cu')) + tuple(
     (src, v16) for src in SOURCES
     if os.path.basename(src).startswith('pairwise')
+    and os.path.basename(src) not in ONCE
     for v16 in ((), ('-DSE3_V16=1',))) + tuple(
-    (src, ()) for src in SOURCES
-    if os.path.basename(src) == 'attention.cu')
+    (src, ()) for src in SOURCES if os.path.basename(src) in ONCE)
 BUILD_DIR = os.path.join(_HERE, 'build')
 
 COMPILE_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',

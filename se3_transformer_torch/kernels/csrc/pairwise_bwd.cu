@@ -142,6 +142,11 @@
 #ifndef SE3_V16
 #define SE3_V16 0
 #endif
+#if !SE3_V16
+// the narrow-O arms (O = 8, 16 or 32) of kernels A and B, a unit of their
+// own
+#include "pairwise_narrow.h"
+#endif
 
 namespace {
 
@@ -952,12 +957,15 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
   return cudaGetLastError();
 }
 
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns the launch status
 // (cudaGetLastError() right after its launches); 0 is success. Pointers are
 // device pointers to contiguous tensors; the caller checks shapes: mid ==
-// 128, O a multiple of 64, P in {1, 3, 5, 7}, h/w3 bf16 or f32, the rest
+// 128, O a multiple of 64 (or, in this float32-V2 unit, 8, 16 or 32: the
+// narrow arms of pairwise_narrow.cu, one O tile, which read neither split
+// nor dv2_work), P in {1, 3, 5, 7}, h/w3 bf16 or f32, the rest
 // f32. Each 64-wide O tile is one CTA along the grid's z; their dV2
 // (kernel A) and dH (kernel B) partials are summed in order by the reduce.
 
@@ -981,6 +989,21 @@ extern "C" int SE3_ENTRY(se3_pairwise_bwd_a)(const void* h, const void* w3, cons
                                              void* dv2_work, void* work, void* split,
                                              void* dw3, void* db3, int E, int IF, int O,
                                              int P, int splits, int h_is_bf16, void* stream) {
+#if !SE3_V16
+  if (E > 0 && IF > 0 && splits > 0 && se3n::narrow(O)) {
+    // one O tile, dV2 written whole; the edge splits' dW3 and dB3 partials
+    // summed in split order
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err =
+        se3n::launch_bwd_a(h_is_bf16 != 0, h, w3, b3, v2, g, dv2, work, E, IF, O, P, splits, s);
+    if (err != cudaSuccess) return (int)err;
+    const size_t n_w = (size_t)MID * IF * O, n_b = (size_t)IF * O;
+    bwd_reduce_kernel<<<grid_for(n_w + n_b), NTHREADS, 0, s>>>(
+        static_cast<const float*>(work), splits, n_w, n_b, static_cast<float*>(dw3),
+        static_cast<float*>(db3));
+    return (int)cudaGetLastError();
+  }
+#endif
   if (E <= 0 || IF <= 0 || splits <= 0 || O <= 0 || O % BO)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1006,6 +1029,20 @@ extern "C" int SE3_ENTRY(se3_pairwise_bwd_b)(const void* w3, const void* v2, con
                                              void* dh, void* work, void* split, int E, int IF,
                                              int O, int P, int i_per_split, int w3_is_bf16,
                                              void* stream) {
+#if !SE3_V16
+  if (E > 0 && IF > 0 && i_per_split > 0 && se3n::narrow(O)) {
+    // one O tile; the i splits' dH partials summed in split order
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int parts = (IF + i_per_split - 1) / i_per_split;
+    cudaError_t err = se3n::launch_bwd_b(w3_is_bf16 != 0, w3, v2, g, parts > 1 ? work : dh, E,
+                                         IF, O, P, i_per_split, s);
+    if (err != cudaSuccess || parts == 1) return (int)err;
+    const size_t n = (size_t)E * MID;
+    bwd_reduce_kernel<<<grid_for(n), NTHREADS, 0, s>>>(
+        static_cast<const float*>(work), parts, n, 0, static_cast<float*>(dh), nullptr);
+    return (int)cudaGetLastError();
+  }
+#endif
   if (E <= 0 || IF <= 0 || i_per_split <= 0 || O <= 0 || O % BO)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -107,6 +107,10 @@
 #ifndef SE3_V16
 #define SE3_V16 0
 #endif
+#if !SE3_V16
+// the narrow-O arm (O = 8, 16 or 32) of se3_pairwise_fwd, a unit of its own
+#include "pairwise_narrow.h"
+#endif
 
 namespace {
 
@@ -603,8 +607,10 @@ cudaError_t launch(const void* h, const void* w3, const void* wscale, const void
 // Plain C entry point (bound with ctypes). Returns the launch status
 // (cudaGetLastError() right after the launches); 0 is success. Pointers are
 // device pointers to contiguous tensors; the caller checks shapes: h [E,
-// 128], w3 [128, IF, O] with O % 64 == 0, b3 [IF, O], v2 [E, P, IF] with P
-// in {1, 3, 5, 7}, out [E, P, O]; h/w3 bf16 or f32, the rest f32. With
+// 128], w3 [128, IF, O] with O % 64 == 0 or O in {8, 16, 32} (the narrow
+// arm, pairwise_narrow.cu, which does not read w3_split), b3 [IF, O], v2
+// [E, P, IF] with P in {1, 3, 5, 7}, out [E, P, O]; h/w3 bf16 or f32, the
+// rest f32. With
 // more than one split (ceil(IF / i_per_split)) work holds that many
 // [E, P, O] float partials; it is not read otherwise. With float32 h/w3,
 // w3_split holds 2 * 128 * IF * O bf16 (W3's hi array, then its lo array);
@@ -614,8 +620,20 @@ extern "C" int se3_pairwise_fwd(const void* h, const void* w3, const void* b3, c
                                 void* out, void* work, void* w3_split, int E, int IF, int O,
                                 int P, int i_per_split, int h_is_bf16, void* stream) {
   if (E <= 0) return 0;
-  if (O <= 0 || O % BO != 0 || IF <= 0 || i_per_split <= 0) return (int)cudaErrorInvalidValue;
+  if (O <= 0 || (O % BO != 0 && !se3n::narrow(O)) || IF <= 0 || i_per_split <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (se3n::narrow(O)) {
+    // one O tile; the i splits' partials summed in split order
+    const int splits = (IF + i_per_split - 1) / i_per_split;
+    cudaError_t err = se3n::launch_fwd(h_is_bf16 != 0, h, w3, b3, v2, splits > 1 ? work : out,
+                                       E, IF, O, P, i_per_split, s);
+    if (err != cudaSuccess || splits == 1) return (int)err;
+    const size_t n4 = (size_t)E * P * O / 4;  // O is a multiple of 8
+    fwd_reduce_kernel<<<grid_for(n4), NTHREADS, 0, s>>>(
+        static_cast<const float4*>(work), splits, n4, static_cast<float4*>(out));
+    return (int)cudaGetLastError();
+  }
 #define SE3_F(PP)                                                                          \
   if (P == PP)                                                                             \
     return (int)(h_is_bf16 ? launch<bf16, PP, false>(h, w3, nullptr, b3, v2, out, work,    \

@@ -16,10 +16,13 @@ takes v2 and g [E, P, O].
 
 A CPU tensor takes the plain PyTorch version. A CUDA tensor launches the
 hand-written Hopper kernels (csrc/pairwise_fwd.cu, csrc/pairwise_bxf.cu,
-csrc/pairwise_bwd.cu) or raises; nothing falls back.
+csrc/pairwise_bwd.cu; the narrow-O arms of #3, A and B, O = 8, 16 or 32,
+in csrc/pairwise_narrow.cuh) or raises; nothing falls back.
 `fused_pairwise_conv.launches`, `fused_pairwise_conv_bxf.launches`,
 `fused_pairwise_conv_bx.launches` and `fused_pairwise_conv_bwd.launches_a`
-/ `.launches_b` count kernel launches.
+/ `.launches_b` count kernel launches (the narrow-O arm's also in
+`fused_pairwise_conv.narrow_launches` and
+`fused_pairwise_conv_bwd.narrow_launches_a` / `_b`).
 
 `pairwise_limit` is the kernels' fits predicate: from the widths alone it
 says whether a built kernel takes a call; the wrappers' checks are built on
@@ -67,7 +70,11 @@ from typing import Optional
 import torch
 
 MID = 128          # the radial hidden width the kernel is built for
-O_TILE = 64        # output channels per CTA: O must be a multiple
+O_TILE = 64        # output channels per CTA of the wide tiles: O a multiple
+# the O values of the narrow-O arms of #3, A and B (csrc/pairwise_narrow.cuh):
+# one tile of 16 columns (O = 8, 16) or 32, the columns past O masked
+NARROW_O = (8, 16, 32)
+NARROW_I_CHUNK = 4  # the narrow arms' i chunk (a kernel-A CTA's i values)
 EDGE_TILE = 64     # edges per CTA
 ORDERS = (1, 3, 5, 7)   # P and Q the kernel is instantiated for (degree <= 3)
 # the i-range split of the V2-given forward kernel and of backward kernel B
@@ -91,9 +98,11 @@ def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
     limit the call exceeds. `kernel` is 'bxf' or 'bx' (#1 and #2, which
     also read Q), 'fwd' (#3) or 'bwd' (kernels A and B); `dtype` is h's
     (and w3's), `operand_dtype` the storage of V2 (or of the basis and x),
-    `scaled` a quantized w3 (#3's scaled arm). A function of widths and
-    dtypes alone, the counterpart of the JAX package's
-    fused_attention_fits: the kernels' fits predicate."""
+    `scaled` a quantized w3 (#3's scaled arm). #3, A and B also take O in
+    NARROW_O (their narrow-O arms) with float32 V2 and a float w3; #1 and
+    #2, the scaled arm and the conv_bf16 arms take O a multiple of 64
+    only. A function of widths and dtypes alone, the counterpart of the JAX
+    package's fused_attention_fits: the kernels' fits predicate."""
     if dtype not in DTYPES:
         return f'h dtype {dtype} exceeds the built dtypes (bfloat16, float32)'
     if operand_dtype not in OPERAND_DTYPES:
@@ -104,8 +113,17 @@ def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
                 'for float32 V2)')
     if mid != MID:
         return f'mid = {mid} exceeds the built mid = {MID}'
-    if O <= 0 or O % O_TILE:
-        return f'O = {O} exceeds the built O: a multiple of {O_TILE}'
+    if O in NARROW_O and kernel in ('fwd', 'bwd'):
+        if scaled:
+            return (f'O = {O} with a quantized w3 exceeds the scaled arm '
+                    f'(built for O a multiple of {O_TILE})')
+        if operand_dtype != torch.float32:
+            return (f'O = {O} with bf16 V2 exceeds the conv_bf16 arms (built '
+                    f'for O a multiple of {O_TILE})')
+    elif O <= 0 or O % O_TILE:
+        built = ('8, 16, 32 or a multiple of 64' if kernel in ('fwd', 'bwd')
+                 else f'a multiple of {O_TILE}')
+        return f'O = {O} exceeds the built O: {built}'
     if P not in ORDERS:
         return f'P = {P} exceeds the built orders {ORDERS} (degree <= 3)'
     if kernel in ('bxf', 'bx') and Q not in ORDERS:
@@ -378,15 +396,37 @@ def _check_fwd(h, w3, v2, b3, w3_scale=None):
     return E, IF, O, v2.shape[1]
 
 
+def o_tile(O: int) -> int:
+    """The O tile of the kernels that take a call with O output channels:
+    the narrow arms' 16 (O = 8, 16) or 32, else the wide tiles' 64."""
+    if O in NARROW_O:
+        return 16 if O <= 16 else 32
+    return O_TILE
+
+
+def o_slots(O: int) -> int:
+    """CTAs along O: O's tiles, the columns past O of a narrow tile masked."""
+    return -(-O // o_tile(O))
+
+
 def i_per_split(E: int, IF: int, O: int = O_TILE) -> int:
     """How many i values each CTA of the forward kernel (csrc/pairwise_fwd.cu,
     one CTA per SM) or of backward kernel B contracts: the whole of IF when
-    the edge and O tiles alone fill the card, else IF split so that they do
-    (each split at least SPLIT_MIN_I values, and a multiple of FWD_I_CHUNK
-    so that every split starts on one of the forward's 16-byte V2 chunks).
-    A function of the shapes only, so the partial sums and their reduce
-    order (and so the output, bit for bit) are the same on every run."""
-    tiles = -(-E // EDGE_TILE) * (O // O_TILE)
+    the edge and O tiles (the call's tile, o_tile) alone fill the card, else
+    IF split so that they do (each split at least SPLIT_MIN_I values, and a
+    multiple of FWD_I_CHUNK so that every split starts on one of the
+    forward's 16-byte V2 chunks). The narrow arms stage their h tile once
+    and walk i in NARROW_I_CHUNK values: their splits are whole chunks,
+    as many as fill the card (at a DenoiseConfig micro-batch's 12 edge
+    tiles one CTA each left 120 SMs idle). A function of the shapes only,
+    so the partial sums and their reduce order (and so the output, bit
+    for bit) are the same on every run."""
+    tiles = -(-E // EDGE_TILE) * o_slots(O)
+    if O in NARROW_O:
+        splits = max(1, min(SPLIT_TARGET_CTAS // tiles,
+                            -(-IF // NARROW_I_CHUNK)))
+        per = -(-IF // splits)
+        return -(-per // NARROW_I_CHUNK) * NARROW_I_CHUNK
     splits = max(1, min(SPLIT_TARGET_CTAS // tiles, -(-IF // SPLIT_MIN_I)))
     if splits == 1:
         return IF
@@ -436,8 +476,9 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
         fused_pairwise_conv.scaled_launches += 1
         return out
     # float32 w3 is split into its bf16 hi and lo arrays by the kernel's
-    # own split pass, into this scratch
-    w3_split = w3 if bf16 else torch.empty(
+    # own split pass, into this scratch (the narrow arm splits each chunk
+    # as it stages it)
+    w3_split = w3 if bf16 or O in NARROW_O else torch.empty(
         2 * w3.numel(), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
     v16 = v2.dtype == torch.bfloat16
@@ -451,14 +492,17 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
         raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {rc}')
     fused_pairwise_conv.launches += 1
     fused_pairwise_conv.conv_bf16_launches += v16
+    fused_pairwise_conv.narrow_launches += O in NARROW_O
     return out
 
 
 # every launch counts in .launches, the scaled arm's in .scaled_launches
-# too, the conv_bf16 arm's in .conv_bf16_launches
+# too, the conv_bf16 arm's in .conv_bf16_launches, the narrow-O arm's in
+# .narrow_launches
 fused_pairwise_conv.launches = 0
 fused_pairwise_conv.scaled_launches = 0
 fused_pairwise_conv.conv_bf16_launches = 0
+fused_pairwise_conv.narrow_launches = 0
 fused_pairwise_conv.routed = 0
 
 
@@ -540,16 +584,21 @@ def bwd_splits(E: int, IF: int, O: int = O_TILE) -> int:
     """How many edge ranges kernel A splits E into: the count that finishes
     soonest with one CTA per SM of an H100 (whole waves of equal ranges,
     each split's partial dW3 written and reduced at about IF/128 tiles'
-    time), each range at least one 64-edge tile; O's 64-wide tiles share
-    the grid. A function of the shapes only, so the partial
-    sums and their reduce order (and so dW3 and dB3, bit for bit) are the
-    same on every run."""
+    time), each range at least one 64-edge tile; O's tiles share the grid
+    (a narrow O is one tile, its CTAs NARROW_I_CHUNK values of i). A
+    function of the shapes only, so the partial sums and their reduce order
+    (and so dW3 and dB3, bit for bit) are the same on every run."""
     n_tiles = -(-E // EDGE_TILE)
-    groups = -(-IF // BWD_I_CHUNK) * (O // O_TILE)
+    chunk = NARROW_I_CHUNK if O in NARROW_O else BWD_I_CHUNK
+    groups = -(-IF // chunk) * o_slots(O)
+
+    # a split's partial dW3 is written and reduced at about IF/128 tiles'
+    # time at a wide O tile, in proportion to IF * O at a narrow one
+    partial = IF * O / (128 * O_TILE) if O in NARROW_O else IF / 128
 
     def cost(s):
         return (-(-groups * s // SPLIT_TARGET_CTAS) * -(-n_tiles // s)
-                + s * IF / 128)
+                + s * partial)
     splits = min(range(1, min(n_tiles, 64) + 1), key=cost)
     per_split = -(-n_tiles // splits)
     return -(-n_tiles // per_split)
@@ -569,20 +618,21 @@ def _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P):
     """Kernel A and its reduces on operands that passed _check_bwd,
     E > 0 -> (dw3, dv2, db3); counts one kernel-A launch. Each 64-wide O
     tile is a CTA of its own: past one, their dV2 partials go to dv2_work
-    and are summed in tile order."""
+    and are summed in tile order. A narrow O (the narrow arm) is one tile
+    and takes no split scratch."""
     f32 = dict(dtype=torch.float32, device=h.device)
     h, w3, g = _aligned(h), _aligned(w3), _aligned(g)
     dv2 = torch.empty(E, P, IF, **f32)
     dw3 = torch.empty(MID, IF, O, **f32)
     db3 = torch.empty(IF, O, **f32)
-    slots = O // O_TILE
+    slots = o_slots(O)
     splits = bwd_splits(E, IF, O)
     work = torch.empty(splits * (MID + 1) * IF * O, **f32)
     dv2_work = dv2 if slots == 1 else torch.empty(slots * E * P * IF, **f32)
     # float32 h and w3 are split into bf16 hi and lo arrays by the kernel's
     # own split pass, into this scratch
     bf16 = h.dtype == torch.bfloat16
-    split = work if bf16 else torch.empty(
+    split = work if bf16 or O in NARROW_O else torch.empty(
         2 * (E * MID + MID * IF * O), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
     v16 = v2.dtype == torch.bfloat16
@@ -597,23 +647,25 @@ def _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P):
         raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {rc}')
     fused_pairwise_conv_bwd.launches_a += 1
     fused_pairwise_conv_bwd.conv_bf16_launches_a += v16
+    fused_pairwise_conv_bwd.narrow_launches_a += O in NARROW_O
     return dw3, dv2, db3
 
 
 def _launch_bwd_b(w3, v2, g, E, IF, O, P):
     """Kernel B (and, with its i range split or more than one 64-wide O
     tile, the partials' reduce) on operands that passed _check_bwd, E > 0
-    -> dh; counts one kernel-B launch."""
+    -> dh; counts one kernel-B launch. A narrow O is one tile and takes no
+    split scratch."""
     dh = torch.empty(E, MID, dtype=torch.float32, device=w3.device)
     w3, g = _aligned(w3), _aligned(g)
     per = i_per_split(E, IF, O)
-    partials = -(-IF // per) * (O // O_TILE)
+    partials = -(-IF // per) * o_slots(O)
     work = dh if partials == 1 else torch.empty(
         partials * E * MID, dtype=torch.float32, device=w3.device)
     # float32 w3 is split into bf16 hi and lo arrays by the kernel's own
     # split pass, into this scratch
     bf16 = w3.dtype == torch.bfloat16
-    split = dh if bf16 else torch.empty(
+    split = dh if bf16 or O in NARROW_O else torch.empty(
         2 * w3.numel(), dtype=torch.bfloat16, device=w3.device)
     from .build import load_library
     v16 = v2.dtype == torch.bfloat16
@@ -627,6 +679,7 @@ def _launch_bwd_b(w3, v2, g, E, IF, O, P):
         raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {rc}')
     fused_pairwise_conv_bwd.launches_b += 1
     fused_pairwise_conv_bwd.conv_bf16_launches_b += v16
+    fused_pairwise_conv_bwd.narrow_launches_b += O in NARROW_O
     return dh
 
 
@@ -636,9 +689,10 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
     """Backward of fused_pairwise_conv and fused_pairwise_conv_bxf (V2
     given): h [E, mid], w3 [mid, IF, O], v2 [E, P, IF] (float32, or bf16:
     conv_bf16), g [E, P, O], b3 [IF, O] (zeros when None) -> (dh [E, mid],
-    dw3 [mid, IF, O], dv2 [E, P, IF], db3 [IF, O]), all float32. On a card: kernel A (dV2, dW3, dB3, with its deterministic
-    edge reduce) then kernel B (dH); mid = 128 and O a multiple of 64
-    there."""
+    dw3 [mid, IF, O], dv2 [E, P, IF], db3 [IF, O]), all float32. On a
+    card: kernel A (dV2, dW3, dB3, with its deterministic edge reduce) then
+    kernel B (dH); mid = 128 and O a multiple of 64, or O in NARROW_O with
+    float32 V2 (the narrow arms), there."""
     if b3 is None:
         b3 = torch.zeros(w3.shape[1:], dtype=torch.float32, device=h.device)
     if h.device.type == 'cpu':
@@ -655,11 +709,14 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
 
 
 # every launch counts in .launches_a / .launches_b, the conv_bf16 arm's in
-# .conv_bf16_launches_a / _b too
+# .conv_bf16_launches_a / _b too, the narrow-O arm's in .narrow_launches_a
+# / _b
 fused_pairwise_conv_bwd.launches_a = 0
 fused_pairwise_conv_bwd.launches_b = 0
 fused_pairwise_conv_bwd.conv_bf16_launches_a = 0
 fused_pairwise_conv_bwd.conv_bf16_launches_b = 0
+fused_pairwise_conv_bwd.narrow_launches_a = 0
+fused_pairwise_conv_bwd.narrow_launches_b = 0
 
 
 # ---------------------------------------------------------------------- #

@@ -158,9 +158,10 @@ def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(bad):
     elif bad == 'mid':
         args[0] = args[0][:, :64].contiguous()
     elif bad == 'o':
-        args[1] = args[1][..., :32].contiguous()
-        args[3] = args[3][..., :32].contiguous()
-        args[4] = args[4][:, :32].contiguous()
+        # 32 is a narrow arm's O; 24 is neither narrow nor a 64 multiple
+        args[1] = args[1][..., :24].contiguous()
+        args[3] = args[3][..., :24].contiguous()
+        args[4] = args[4][:, :24].contiguous()
     elif bad == 'p':
         args[2] = args[2][:, :4].contiguous()
         args[3] = args[3][:, :4].contiguous()
@@ -305,8 +306,9 @@ def test_fwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == 'mid':
         args[0] = args[0][:, :64].contiguous()
     elif bad == 'o_tile':
-        args[1] = args[1][..., :32].contiguous()
-        args[3] = args[3][:, :32].contiguous()
+        # 32 is a narrow arm's O; 24 is neither narrow nor a 64 multiple
+        args[1] = args[1][..., :24].contiguous()
+        args[3] = args[3][:, :24].contiguous()
     elif bad == 'p':
         args[2] = args[2][:, :4].contiguous()
     elif bad == 'v2_if':
@@ -1098,7 +1100,8 @@ def test_pairwise_fits_wider_o_in_the_forwards_only(kernel, fits):
 
 
 @pytest.mark.parametrize('O,P,ok', [(64, 7, True), (128, 1, True),
-                                    (32, 3, False), (64, 9, False)])
+                                    (32, 3, True), (24, 3, False),
+                                    (64, 9, False)])
 def test_pairwise_checks_follow_the_predicates(O, P, ok):
     """The forward wrapper's check raises exactly where pairwise_limit
     finds a limit, and raises that limit's text."""
@@ -1113,6 +1116,121 @@ def test_pairwise_checks_follow_the_predicates(O, P, ok):
     else:
         with pytest.raises(ValueError, match=limit.split(' exceeds')[0]):
             kp._check_fwd(h, w3, v2, b3)
+
+
+@pytest.mark.parametrize('kernel,O,kw,fits', [
+    ('fwd', 8, dict(), True), ('fwd', 16, dict(), True),
+    ('fwd', 32, dict(), True), ('bwd', 8, dict(), True),
+    ('bwd', 16, dict(), True), ('bwd', 32, dict(dtype=BF16), True),
+    ('fwd', 8, dict(dtype=BF16), True),
+    ('fwd', 24, dict(), False), ('bwd', 48, dict(), False),
+    ('fwd', 4, dict(), False), ('bxf', 8, dict(), False),
+    ('bx', 32, dict(), False),
+    ('fwd', 16, dict(scaled=True), False),
+    ('fwd', 16, dict(operand_dtype=BF16), False),
+    ('bwd', 32, dict(operand_dtype=BF16), False)])
+def test_pairwise_fits_narrow_o(kernel, O, kw, fits):
+    """#3, A and B take O = 8, 16 and 32 (their narrow arms) with float32
+    V2 and a float w3, h in either dtype; #1 and #2, the scaled arm and the
+    conv_bf16 arms refuse a narrow O, and the message names the arm."""
+    limit = kp.pairwise_limit(kernel, 128, O, 3, 3, **kw)
+    assert (limit is None) is fits
+    if not fits:
+        assert limit.startswith(f'O = {O} ')
+        if kw.get('scaled'):
+            assert 'scaled arm' in limit
+        elif kw.get('operand_dtype') is BF16:
+            assert 'conv_bf16' in limit
+
+
+@pytest.mark.parametrize('O,tile,slots', [(8, 16, 1), (16, 16, 1),
+                                          (32, 32, 1), (64, 64, 1),
+                                          (192, 64, 3)])
+def test_the_o_tile_follows_from_o(O, tile, slots):
+    """The narrow arms' tile is 16 (O = 8, 16) or 32; the wide tiles' 64
+    otherwise. The splits of #3/B and of A take the call's tile: a narrow O
+    is one tile. A DenoiseConfig micro-batch (E = 96 x 8 edges: 12 tiles;
+    IF 8 or 24) splits i into whole 4-value chunks, as many as fill the
+    card; af2's 192 tiles fill it unsplit; A gives every edge split a
+    tile."""
+    assert (kp.o_tile(O), kp.o_slots(O)) == (tile, slots)
+    if O in kp.NARROW_O:
+        for IF in (8, 24):
+            per = kp.i_per_split(768, IF, O)
+            assert per == kp.NARROW_I_CHUNK
+            assert 12 * -(-IF // per) <= kp.SPLIT_TARGET_CTAS
+            splits = kp.bwd_splits(768, IF, O)
+            per = -(-12 // splits)
+            assert 1 <= splits <= 12 and -(-12 // per) == splits
+        assert kp.i_per_split(12288, 96, O) == 96
+
+
+def test_cpu_narrow_o_takes_the_plain_versions():
+    """A narrow O on the CPU runs the plain versions and counts nothing."""
+    h, _, v2, _ = _fwd_args(P=3, IF=24, e=70, dtype=torch.float32)
+    rng = np.random.RandomState(9)
+    w3 = torch.from_numpy(rng.normal(size=(kp.MID, 24, 8)).astype(np.float32))
+    b3 = torch.from_numpy(rng.normal(size=(24, 8)).astype(np.float32))
+    before = (kp.fused_pairwise_conv.launches,
+              kp.fused_pairwise_conv_bwd.launches_a)
+    out = kp.fused_pairwise_conv(h, w3, v2, b3)
+    assert torch.equal(out, kp.fused_pairwise_conv_plain(h, w3, v2, b3))
+    g = torch.from_numpy(rng.normal(size=(70, 3, 8)).astype(np.float32))
+    grads = kp.fused_pairwise_conv_bwd(h, w3, v2, g, b3)
+    for got, ref in zip(grads, kp.fused_pairwise_conv_bwd_plain(h, w3, v2, g,
+                                                                b3)):
+        assert torch.equal(got, ref)
+    assert (kp.fused_pairwise_conv.launches,
+            kp.fused_pairwise_conv_bwd.launches_a) == before
+
+
+# the narrow arms on the card: the DenoiseConfig widths (O 8 and 16, C 8:
+# IF 8 and 24), af2's O = 32 pairs (C 32), ragged E, odd IF, i and edge
+# splits
+NARROW_CASES = [(0, 0, 768, 8, 8), (1, 1, 768, 8, 16), (0, 1, 768, 8, 16),
+                (1, 0, 770, 8, 8), (0, 0, 4096, 32, 32), (1, 1, 32768, 32, 32),
+                (2, 3, 200, 5, 32), (3, 3, 77, 3, 16), (1, 1, 4133, 64, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('di,do,e,c,o', NARROW_CASES)
+def test_cuda_narrow_fwd_matches_plain(cuda_card, di, do, e, c, o, dtype):
+    """#3's narrow-O arm within 1e-4 of max|plain| (the wide arms' bound:
+    the same three-pass bf16 product on the tensor cores), the same bits on
+    a repeat, one launch counted."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w3, v2, _, b3 = (a.cuda() for a in _bwd_args(di, do, e, c=c,
+                                                     dtype=dtype, o=o))
+    before = kp.fused_pairwise_conv.launches
+    out = kp.fused_pairwise_conv(h, w3, v2, b3)
+    torch.cuda.synchronize()
+    assert kp.fused_pairwise_conv.launches == before + 1
+    ref = kp.fused_pairwise_conv_plain(h, w3, v2, b3)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(out, kp.fused_pairwise_conv(h, w3, v2, b3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('di,do,e,c,o', NARROW_CASES)
+def test_cuda_narrow_backward_matches_plain(cuda_card, di, do, e, c, o,
+                                            dtype):
+    """Kernels A and B's narrow-O arms: every output within 1e-4 of
+    max|plain| (the wide arms' bound: their three-pass bf16 products), the
+    same bits on a repeat, one launch of each counted."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.cuda() for a in _bwd_args(di, do, e, c=c, dtype=dtype, o=o)]
+    bwd = kp.fused_pairwise_conv_bwd
+    before = (bwd.launches_a, bwd.launches_b)
+    outs = bwd(*args)
+    torch.cuda.synchronize()
+    assert (bwd.launches_a, bwd.launches_b) == (before[0] + 1, before[1] + 1)
+    refs = kp.fused_pairwise_conv_bwd_plain(*args)
+    for name, out, ref in zip(('dh', 'dw3', 'dv2', 'db3'), outs, refs):
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+    for a, b in zip(outs, bwd(*args)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('J,D,fits', [
@@ -1192,16 +1310,16 @@ def test_route_counts_and_warns_once_per_shape(monkeypatch):
     names the kernel and the limit, worded as the JAX fallbacks are."""
     monkeypatch.setattr(routing, '_WARNED', set())
     monkeypatch.setattr(kp.fused_pairwise_conv, 'routed', 0)
-    limit = kp.pairwise_limit('fwd', 128, 16, 3)
+    limit = kp.pairwise_limit('fwd', 128, 24, 3)
     with pytest.warns(UserWarning) as caught:
-        for shape in ((128, 24, 16, 3), (128, 24, 16, 3), (128, 48, 16, 3)):
+        for shape in ((128, 24, 24, 3), (128, 24, 24, 3), (128, 48, 24, 3)):
             assert routing.route(kp.fused_pairwise_conv, 'cuda', limit, shape)
     assert kp.fused_pairwise_conv.routed == 3
     texts = [str(w.message) for w in caught]
     assert len(texts) == 2
-    assert texts[0] == ('fused_pairwise_conv kernel: O = 16 exceeds the built '
-                        'O: a multiple of 64 (shape (128, 24, 16, 3)); using '
-                        'the plain path')
+    assert texts[0] == ('fused_pairwise_conv kernel: O = 24 exceeds the built '
+                        'O: 8, 16, 32 or a multiple of 64 (shape (128, 24, 24, '
+                        '3)); using the plain path')
 
 
 @pytest.mark.parametrize('op', ['fwd', 'bxf', 'bx'])

@@ -271,11 +271,13 @@ F32, BF16 = torch.float32, torch.bfloat16
 def test_conv_route_decision_is_a_function_of_widths(monkeypatch,
                                                      device_type):
     """On 'cuda' the flagship widths (mid 128, O 64, degrees <= 3, either
-    dtype) take the kernels and the DenoiseConfig widths (O 8 or 16) route;
-    O = 128 and 192 take every forward kernel. Any other device never
-    routes (its tensors take the plain versions). Kernels A and B take
-    exactly the widths the forwards take, so the backward of a call that
-    launched never needs a decision of its own."""
+    dtype) take the kernels; the DenoiseConfig widths (O 8 or 16) and O =
+    32 take #3 and kernels A and B (their narrow arms) and route past #1
+    and #2, and past #3 with bf16 V2 (conv_bf16); O = 128 and 192 take
+    every forward kernel. Any other device never routes (its tensors take
+    the plain versions). Kernels A and B take exactly the widths #3 takes,
+    so the backward of a call that launched never needs a decision of its
+    own."""
     monkeypatch.setattr(routing, '_WARNED', set())
     on_card = device_type == 'cuda'
 
@@ -291,10 +293,17 @@ def test_conv_route_decision_is_a_function_of_widths(monkeypatch,
                     assert kp.pairwise_limit('bwd', 128, 64, P, 7,
                                              dtype) is None
             for O in (8, 16, 32):
-                assert routes(kernel, 128, O, 3, 3) is on_card
-                for k in (kernel, 'bwd'):
-                    assert kp.pairwise_limit(k, 128, O, 3, 3) == \
+                narrow = kernel == 'fwd'
+                assert routes(kernel, 128, O, 3, 3) is (on_card
+                                                        and not narrow)
+                assert kp.pairwise_limit('bwd', 128, O, 3, 3) is None
+                if not narrow:
+                    assert kp.pairwise_limit(kernel, 128, O, 3, 3) == \
                         f'O = {O} exceeds the built O: a multiple of 64'
+                for k in ('fwd', 'bwd'):
+                    assert 'conv_bf16' in kp.pairwise_limit(
+                        k, 128, O, 3, 3, operand_dtype=BF16)
+                assert routes('fwd', 128, O, 3, 3, F32, BF16) is on_card
             for O in (128, 192):
                 assert not routes(kernel, 128, O, 3, 3)
                 assert kp.pairwise_limit('bwd', 128, O, 3, 3) is None
@@ -367,9 +376,11 @@ DENOISE = dict(dim=8, heads=2, dim_head=8, depth=1, num_degrees=2,
 
 @pytest.mark.parametrize('fields,routed', [
     # conv_in 2 pairs, the kv convs 2 x 4, conv_out 2; grouped: one call
-    # per output degree and node chunk
+    # per output degree and node chunk (#3's narrow arms take float32 V2 at
+    # these widths; bf16 V2 routes past them)
     (dict(fuse_basis=True), dict(bxf=12)),
-    (dict(fuse_basis=False, edge_chunks=2), dict(fwd=(2 + 2 * 2 + 1) * 2)),
+    (dict(fuse_basis=False, edge_chunks=2, conv_bf16=True),
+     dict(fwd=(2 + 2 * 2 + 1) * 2)),
     # D = 64 * 5 = 320 features at degree 2 exceed #5's 256; degrees 0 and
     # 1 fit it; the kv convs' O = 128 takes #1 and kernels A and B
     (dict(fuse_basis=True, num_degrees=3, dim_head=64,
@@ -414,7 +425,8 @@ def test_routed_conv_runs_the_plain_body(monkeypatch, fuse_basis, layout,
                                          kernel):
     """One ConvSE3 (8 channels, degrees 0..2) routed past its kernel: the
     plain body's output and gradients, one .routed per pair (or per output
-    degree on the grouped branch)."""
+    degree on the grouped branch, with bf16 V2: #3's narrow arm takes
+    float32 V2 at O = 8)."""
     fiber = Fiber.create(3, 8)
     feats, idx, mask, rel_pos = graph_inputs(fiber, seed=3)
     rel = torch.from_numpy(rel_pos)
@@ -423,7 +435,7 @@ def test_routed_conv_runs_the_plain_body(monkeypatch, fuse_basis, layout,
     for routed in (False, True):
         torch.manual_seed(0)
         conv = ConvSE3(fiber, fiber, fuse_basis=fuse_basis,
-                       shared_radial_hidden=True)
+                       shared_radial_hidden=True, conv_bf16=not fuse_basis)
         with torch.no_grad():
             for p in conv.parameters():
                 p.normal_(0, 0.3)

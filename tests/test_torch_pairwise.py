@@ -46,6 +46,14 @@ E, MID, C, O = 70, 16, 3, 4
 RTOL = 1e-5
 
 
+# the narrow-O arms of #3, A and B (O = 8, 16, 32) at the kernels' mid and
+# the DenoiseConfig's C = 8 (IF 8 and 24); ids keep the (di, do) cases' own
+NARROW = [(0, 0, 8), (1, 1, 16), (0, 1, 32)]
+PAIRS_O = ([pytest.param(di, do, None, id=f'{di}-{do}') for di, do in PAIRS]
+           + [pytest.param(di, do, o, id=f'{di}-{do}-o{o}')
+              for di, do, o in NARROW])
+
+
 def _operands(di, do, seed, e=E, mid=MID, c=C, o=O):
     rng = np.random.RandomState(seed)
     P, Q, F = 2 * do + 1, 2 * di + 1, 2 * min(di, do) + 1
@@ -59,8 +67,27 @@ def _operands(di, do, seed, e=E, mid=MID, c=C, o=O):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('di,do', PAIRS)
-def test_plain_matches_jax_interpret_kernel(di, do, dtype):
+@pytest.mark.parametrize('di,do,o', PAIRS_O)
+def test_plain_matches_jax_interpret_kernel(di, do, o, dtype):
+    """The basis-fused forward's plain version against the Pallas kernel;
+    with a narrow `o`, the V2-given forward's (fused_pairwise_conv, the
+    function of #3's narrow arm) at mid 128 and C 8."""
+    if o is not None:
+        a = _operands(di, do, seed=10 * di + do + o, mid=kp.MID, c=8, o=o)
+        P, Q, F = a['pqf']
+        v2 = np.einsum('epfq,ecq->epcf', a['basis'].reshape(E, P, F, Q),
+                       a['x']).reshape(E, P, -1).astype(np.float32)
+        ref = np.asarray(jax_fwd(jnp.asarray(a['h'], dtype),
+                                 jnp.asarray(a['w3'], dtype), v2,
+                                 b3=a['b3'], interpret=True))
+        tdt = getattr(torch, dtype)
+        out = kp.fused_pairwise_conv(
+            torch.from_numpy(a['h']).to(tdt),
+            torch.from_numpy(a['w3']).to(tdt), torch.from_numpy(v2),
+            torch.from_numpy(a['b3'])).numpy()
+        assert out.shape == ref.shape == (E, P, o)
+        assert np.abs(out - ref).max() <= RTOL * np.abs(ref).max()
+        return
     a = _operands(di, do, seed=10 * di + do)
     h_j = jnp.asarray(a['h'], dtype)
     w3_j = jnp.asarray(a['w3'], dtype)
@@ -75,28 +102,31 @@ def test_plain_matches_jax_interpret_kernel(di, do, dtype):
     assert np.abs(out - ref).max() <= RTOL * np.abs(ref).max()
 
 
-def _bwd_operands(di, do, seed):
+def _bwd_operands(di, do, seed, mid=MID, c=C, o=O):
     rng = np.random.RandomState(seed)
     P, F = 2 * do + 1, 2 * min(di, do) + 1
-    IF = C * F
+    IF = c * F
     return dict(
-        h=rng.normal(size=(E, MID)).astype(np.float32),
-        w3=(rng.normal(size=(MID, IF, O)) / np.sqrt(MID)).astype(np.float32),
+        h=rng.normal(size=(E, mid)).astype(np.float32),
+        w3=(rng.normal(size=(mid, IF, o)) / np.sqrt(mid)).astype(np.float32),
         v2=rng.normal(size=(E, P, IF)).astype(np.float32),
-        g=rng.normal(size=(E, P, O)).astype(np.float32),
-        b3=rng.normal(size=(IF, O)).astype(np.float32))
+        g=rng.normal(size=(E, P, o)).astype(np.float32),
+        b3=rng.normal(size=(IF, o)).astype(np.float32))
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('di,do', PAIRS)
-def test_plain_backward_matches_jax_interpret_kernels(di, do, dtype):
+@pytest.mark.parametrize('di,do,o', PAIRS_O)
+def test_plain_backward_matches_jax_interpret_kernels(di, do, o, dtype):
     """fused_pairwise_conv_bwd_plain against the two Pallas backward
     kernels (A: dV2, dW3, dB3; B: dH). The JAX implementation upcasts bf16
     h/w3 to float32 before anything else (pallas_pairwise.py:944), so its
     bf16 result is its float32 result on the rounded values: it is fed
     those, which keeps one interpret-mode compile per pair shape. The port
-    gets the bf16 tensors themselves."""
-    a = _bwd_operands(di, do, seed=100 + 10 * di + do)
+    gets the bf16 tensors themselves. A narrow `o`: the widths of kernels
+    A and B's narrow arms (mid 128, C 8)."""
+    a = _bwd_operands(di, do, seed=100 + 10 * di + do) if o is None else \
+        _bwd_operands(di, do, seed=100 + 10 * di + do + o, mid=kp.MID, c=8,
+                      o=o)
     tdt = getattr(torch, dtype)
     h_t, w3_t = (torch.from_numpy(a[k]).to(tdt) for k in ('h', 'w3'))
     refs = jax_bwd(h_t.float().numpy(), w3_t.float().numpy(), a['v2'],

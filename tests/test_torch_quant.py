@@ -517,6 +517,32 @@ def test_engine_quantizes_before_placing_and_serves():
                         buckets=(16,), device='cpu', precision='int4_mix')
 
 
+@pytest.mark.parametrize('precision', [None, 'fp32'])
+def test_engine_fp32_passes_through_as_jax_does(precision):
+    """ROADMAP C2: an unquantized engine reports 'fp32' (precision_name and
+    stats()['precision']), as JAX's does for None and 'fp32', and
+    precision='fp32' serves the module as it is: no quant_report, no
+    QuantTensor, the same parameters and answers."""
+    cfg = dict(SHARED, fuse_pairwise=True)
+    tm = SE3TransformerModule(**cfg, device='cpu',
+                              generator=torch.Generator().manual_seed(7))
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    engine = InferenceEngine(tm, buckets=(16,), device='cpu',
+                             precision=precision)
+    assert engine.precision_name == 'fp32'
+    assert engine.stats()['precision'] == 'fp32'
+    assert engine.quant_report is None and engine.module is tm
+    assert not any(isinstance(m, QuantTensor) for m in tm.modules())
+    for key, value in tm.state_dict().items():
+        assert torch.equal(value, before[key]), key
+    feats, coords, _ = _batch(cfg)
+    out = engine.predict(feats[0, :12], coords[0, :12])
+    padded = pad_to_bucket([feats[0, :12]], [coords[0, :12]], 16)
+    with torch.no_grad():
+        direct = tm(*(torch.from_numpy(a) for a in padded), return_type=1)
+    assert np.array_equal(out, direct[0, :12].numpy())
+
+
 def test_engine_fp8_mix():
     cfg = dict(SHARED, fuse_pairwise=True)
     tm = SE3TransformerModule(**cfg, device='cpu',

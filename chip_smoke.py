@@ -77,6 +77,28 @@ failure:
               the conv against the flat basis through #1 (the same bits),
               its 16 pair contractions and one backward against their
               plain versions.
+  serve_stream  the serving stack (AdmissionController -> MicroBatcher ->
+              InferenceEngine.run under ServeTelemetry and a MetricLogger
+              writing JSONL) over STREAM_REQUESTS requests whose lengths
+              cycle across the buckets and one oversize request, which
+              must be rejected: flagship_fast (dim 64, DEPTH, seeded and
+              conditioned weights) at buckets (512, 1024), batch 1, with a
+              weight swap to a second seeded state after half the stream;
+              af2_refinement (dim 32, depth 2) on an N/CA/C backbone at
+              buckets (256, 512, 1024), batch 2. Every admitted request
+              answered and equal to the same request served alone by
+              predict; post_warmup_compiles 0; the stream valid under the
+              port's schema; exactly the per-request launch counts of the
+              serve paths per batch, nothing routed; after the swap the
+              answers of a fresh engine on that state, bit for bit, and
+              peak memory growth under half the parameter bytes. Prints
+              warmup seconds and measured peak bytes per bucket,
+              p50/p95/p99 per bucket, queue wait, batch fill, launches per
+              batch and per request, a profiled batch's busy and idle
+              share (`serve_stream` lines).
+  serve_cli   `python -m se3_transformer_torch.inference.serve` at its
+              defaults in a subprocess: exit 0, a schema-valid stream, no
+              one-time work after warmup (`serve_cli` line).
   global serve  the assembly model (attention_mode='global', seeded and
               conditioned weights), untied and with tie_key_values, served
               by InferenceEngine at bucket 4096 with return_type=1 on
@@ -85,22 +107,25 @@ failure:
               2 launches of 7g and none of any other kernel; rotation
               equivariance of the vector output.
   6. serve    each path's forward (dim=64, depth=DEPTH, 4 degrees, 8
-              heads, k=32, random seeded weights) served by InferenceEngine
+              heads, k=32, random seeded weights; the tie, so2, quant and
+              conv_bf16 variants at VARIANT_DEPTH) served by InferenceEngine
               at bucket 1024: finite outputs, exactly the counted kernel
               launches per request (flagship_fast: 200 bxf; with
               pallas_attention=True also 24 fused-attention forwards; with
-              fuse_pairwise=True 8 bxf and 24 streaming attentions, and as
-              many with tie_key_values and use_null_kv (#7's tied variant,
-              the [null, self] prefix); flagship: 424 fwd, no bxf),
+              fuse_pairwise=True 8 bxf and 24 streaming attentions, and 8
+              bxf and 8 tied ones with tie_key_values and use_null_kv at
+              VARIANT_DEPTH 2 (#7's tied variant, the [null, self]
+              prefix); flagship: 424 fwd, no bxf),
               rotation invariance of the scalar
               output; af2_refinement (dim 32, depth 2, degrees 0 and 1, k 12,
               a radial trunk per pair) on requests of 32 features: 16 fwd
               and 6 by #3's narrow-O arm (conv_in's and conv_out's O = 32
               pairs) per request, nothing routed, equivariance of its
               vector output.
-              Quantized: flagship(precision='int8_mix') (424 #3 launches
-              a request, all by the scaled arm) and
-              flagship_fast(fuse_pairwise=True, precision='fp8_mix') (24
+              Quantized, at VARIANT_DEPTH 2:
+              flagship(precision='int8_mix') (168 #3 launches a request,
+              all by the scaled arm) and
+              flagship_fast(fuse_pairwise=True, precision='fp8_mix') (8
               scaled #7, 8 #1 on the transient dequant), each built on
               the host and quantized by the engine before it is placed:
               the device parameter bytes against the same weights in
@@ -113,9 +138,10 @@ failure:
               launches of #3 and 4 of its narrow-O arm (conv_in's and
               conv_out's O = 32 pairs) each, invariance of its scalar
               output, a profiled forward.
-              conv_bf16: flagship_fast(conv_bf16=True) (200 #1 a request,
+              conv_bf16, at VARIANT_DEPTH 2: flagship_fast(conv_bf16=True)
+              (72 #1 a request,
               all by the bf16 basis/x arm) and flagship(conv_bf16=True)
-              (424 #3, all by the bf16-V2 arm), invariance within
+              (168 #3, all by the bf16-V2 arm), invariance within
               ROTATION_RTOL. egnn_stress (the EGNN backbone,
               dim 16, depth 12, k 16) at bucket EGNN_N = 512, return_type 1
               ([n, 16, 3]): 2 launches of #3's narrow-O arm a forward
@@ -129,15 +155,16 @@ failure:
               forward, 200 + 200 backward, 396 forward under remat_policy
               None, and with pallas_attention 48 attention forwards (the
               checkpoint replay recomputes them) and 24 backwards; with
-              tie_key_values (no to_k convs) 108 forward, 104 + 104
-              backward; flagship, no policy: 816 forward, 424 + 424
-              backward, 432 forward under save_conv_outputs;
+              tie_key_values (no to_k convs, at VARIANT_DEPTH 2) 44
+              forward, 40 + 40 backward; flagship, no policy: 816
+              forward, 424 + 424 backward, 432 forward under
+              save_conv_outputs;
               af2_refinement: 16 + 6 narrow fwd, 16 + 4 narrow A and as
               many B; molecular_edges: property_loss on its pooled scalar
               head, 16 + 4 narrow fwd, 16 + 4 narrow A and B;
-              flagship_fast(conv_bf16): 204
-              #1 by the bf16 arm, 200 + 200 A and B by the float32 arm;
-              flagship(conv_bf16): 816 #3, 424 + 424 A and B, all by the
+              at VARIANT_DEPTH 2, flagship_fast(conv_bf16): 76
+              #1 by the bf16 arm, 72 + 72 A and B by the float32 arm;
+              flagship(conv_bf16): 304 #3, 168 + 168 A and B, all by the
               bf16-V2 arm; egnn_stress at n = 512 on
               scripts/run_baselines.py's objective, the mean square of its
               degree-1 output: 2 narrow fwd, 2 + 2 narrow A and B), step
@@ -280,6 +307,27 @@ SO2_SERVE_LAUNCHES = 4 + DEPTH * 8 + 1
 SO2_TRAIN_LAUNCHES = 4 + DEPTH * 8 + 2
 SO2_BWD_LAUNCHES = 4 + DEPTH * 8 + 1
 SO2_FLASH_FWD_LAUNCHES = 4 + 1
+# the variant paths (tie, so2, quant, conv_bf16) run at VARIANT_DEPTH, so
+# that the smoke keeps to its time limit with the serving phases: the
+# kernel phases hold their kernels at full width either way, and the
+# flagship_fast and flagship paths stay at DEPTH. variant_counts() gives
+# the counts above at that depth.
+VARIANT_DEPTH = 2
+
+
+def variant_counts(depth=VARIANT_DEPTH):
+    """The launch counts above (REPLAY_LAUNCHES ... SO2_BWD_LAUNCHES) for a
+    model of `depth` blocks."""
+    replay = 2 * depth * 16
+    flagship_replay = 2 * depth * 4 * CHUNKS
+    flagship_serve = 4 * CHUNKS + flagship_replay + CHUNKS
+    return dict(
+        replay=replay, train=4 + replay + 8, train_bwd=4 + replay + 4,
+        flagship_replay=flagship_replay, flagship_serve=flagship_serve,
+        flagship_train=flagship_serve + CHUNKS, flagship_bwd=flagship_serve,
+        attn=depth * 4, tie_train=4 + depth * 16 + 8,
+        tie_bwd=4 + depth * 16 + 4, so2_serve=4 + depth * 8 + 1,
+        so2_train=4 + depth * 8 + 2, so2_bwd=4 + depth * 8 + 1)
 
 # conv_bf16 (the bf16 storage of V2, or of the basis and x): served as
 # flagship_fast, a request launches #1 as the float32 model does, every
@@ -2510,6 +2558,260 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     return launches
 
 
+# serve_stream: the serving stack (AdmissionController -> MicroBatcher ->
+# InferenceEngine.run under ServeTelemetry and a MetricLogger) over a
+# mixed-length stream: flagship_fast at buckets (512, 1024), batch 1, with
+# one weight swap mid-stream; af2_refinement on an N/CA/C backbone at
+# buckets (256, 512, 1024), batch 2
+STREAM_MODELS = (
+    dict(label='flagship_fast', recipe='flagship_fast', buckets=(512, 1024),
+         batch=1, dim=64, depth=DEPTH, bonds=(3.8,), swap=True),
+    dict(label='af2_refinement', recipe='af2_refinement',
+         buckets=(256, 512, 1024), batch=2, dim=AF2_DIM, depth=2,
+         bonds=BACKBONE_BONDS, swap=False))
+STREAM_REQUESTS = 12
+STREAM_WAIT_MS = 20.0
+
+
+def stream_lengths(rng, buckets, count=STREAM_REQUESTS):
+    """Lengths cycling across the buckets (each in its own bucket), and one
+    oversize request in the middle."""
+    lows = [1] + [b + 1 for b in buckets[:-1]]
+    lengths = [int(rng.randint(lows[i % len(buckets)],
+                               buckets[i % len(buckets)] + 1))
+               for i in range(count)]
+    lengths.insert(count // 2 - 1, buckets[-1] + 7)
+    return lengths
+
+
+def phase_serve_stream(st, want_by_label):
+    """Each STREAM_MODELS model (seeded weights, conditioned) served through
+    AdmissionController -> MicroBatcher -> InferenceEngine.run under
+    ServeTelemetry and a MetricLogger writing JSONL to a temporary
+    directory: STREAM_REQUESTS requests whose lengths cycle across the
+    buckets and one oversize request, which must be rejected. Checks: every
+    admitted request answered; each answer equal to the request served
+    alone by predict within REF_RTOL_F32 of max|out|; post_warmup_compiles
+    0 (and no one-time work for the rest of the phase); the stream valid
+    under the port's schema; exactly `want_by_label[label]` launches a
+    batch (COUNT_NAMES order) and nothing routed. flagship_fast swaps to a
+    second seeded state after half the stream: its later answers equal a
+    fresh engine's on that state bit for bit, and the swap's peak memory
+    growth stays under half the parameter bytes. Prints warmup seconds and
+    measured peak bytes per bucket, p50/p95/p99 per bucket, queue wait,
+    batch fill, launches per batch and per request, and a profiled batch's
+    device busy and idle share (after the timed requests). Returns the
+    launches of the whole phase."""
+    import tempfile
+    from se3_transformer_torch import inference as inf
+    from se3_transformer_torch.observability import MetricLogger
+    from se3_transformer_torch.observability.schema import validate_stream
+    from se3_transformer_torch.utils.helpers import ONE_TIME_WORK
+    tmp = tempfile.TemporaryDirectory(prefix='serve_stream')
+    reset_counts()
+    for spec in STREAM_MODELS:
+        label, buckets, dim = spec['label'], spec['buckets'], spec['dim']
+        rng = np.random.RandomState(22)
+        model = condition_weights(getattr(st, spec['recipe'])(
+            dim=dim, depth=spec['depth'],
+            generator=torch.Generator().manual_seed(0)))
+        state1 = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+        events0 = ONE_TIME_WORK[0]
+        engine = st.InferenceEngine(model, buckets=buckets,
+                                    batch_size=spec['batch'])
+        warmup_events = ONE_TIME_WORK[0] - events0
+        param_bytes = weight_bytes(engine.module, 'cuda')
+        # the runner, timed at its start: queue wait = batch start - submit
+        starts = []
+
+        def runner(bucket, *batch):
+            starts.append(time.monotonic())
+            return engine.run(bucket, *batch)
+
+        admission = inf.AdmissionController(max_len=engine.max_len,
+                                            max_queue_depth=64)
+        batcher = inf.MicroBatcher(runner, buckets=buckets,
+                                   batch_size=spec['batch'],
+                                   max_wait_ms=STREAM_WAIT_MS,
+                                   admission=admission)
+        path = os.path.join(tmp.name, f'{label}.jsonl')
+        logger = MetricLogger(path, mirror=None, run_meta=dict(
+            mode='serve_stream', model=label, buckets=list(buckets),
+            batch_size=spec['batch']))
+        tele = inf.ServeTelemetry(engine, batcher, admission, logger)
+        tele.arm()
+        lengths = stream_lengths(rng, buckets)
+        requests = [(rng.normal(size=(n, dim)).astype(np.float32),
+                     chain_coords(rng, n, spec['bonds'])) for n in lengths]
+        before, routed_before = counts(), routed()
+        pending, rejected, swap, flushed_at = [], [], None, 0
+        t_stream = time.perf_counter()
+        for i, (feats, coords) in enumerate(requests):
+            if spec['swap'] and i == len(requests) // 2:
+                batcher.drain()
+                model2 = condition_weights(getattr(st, spec['recipe'])(
+                    dim=dim, depth=spec['depth'], device='cpu',
+                    generator=torch.Generator().manual_seed(1)))
+                state2 = {k: v.clone() for k, v in model2.state_dict().items()}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                allocated = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                engine.params = state2
+                torch.cuda.synchronize()
+                swap = dict(seconds=time.perf_counter() - t0,
+                            peak_growth_bytes=torch.cuda.max_memory_allocated()
+                            - allocated, param_bytes=param_bytes,
+                            after_request=len(pending))
+            try:
+                pending.append((batcher.submit(feats, coords), i))
+            except inf.RequestRejected as e:
+                rejected.append(e.to_record())
+                logger.log_record('step', mirror=False, step=i,
+                                  rejected=e.to_record())
+            batcher.pump()
+            if batcher.batches_dispatched - flushed_at >= 2:
+                tele.flush()
+                flushed_at = batcher.batches_dispatched
+        while batcher.queue_depth:
+            time.sleep(batcher.next_deadline() or 0)
+            batcher.pump()
+        stream_s = time.perf_counter() - t_stream
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        routes = tuple(a - b for a, b in zip(routed(), routed_before))
+        batches = batcher.batches_dispatched
+        tele.flush()
+        summary = tele.close()
+        logger.close()
+        info = validate_stream(path)
+        waits = [max(s for s in starts if s <= p.completed_at)
+                 - p.submitted_at for p, _ in pending]
+        answered = [p for p, _ in pending if p.ok]
+        want = want_by_label[label]
+        # each answer against the request served alone (pre-swap requests
+        # on the first state, swapped back), and after a swap against a
+        # fresh engine on the second state, bit for bit
+        worst = 0.0
+        fresh_equal = None
+        if swap:
+            later = [(p, i) for p, i in pending
+                     if p.request_id >= swap['after_request']]
+            fresh = st.InferenceEngine(model2, buckets=buckets,
+                                       batch_size=spec['batch'])
+            fresh_equal = all(np.array_equal(
+                fresh.predict(*requests[i]), p.result) for p, i in later)
+            del fresh, model2
+        groups = [(pending, None)] if not swap else [
+            ([(p, i) for p, i in pending
+              if p.request_id >= swap['after_request']], None),
+            ([(p, i) for p, i in pending
+              if p.request_id < swap['after_request']], state1)]
+        for group, state in groups:
+            if state is not None:
+                engine.params = state
+            for p, i in group:
+                alone = engine.predict(*requests[i])
+                worst = max(worst, float(np.abs(alone - p.result).max())
+                            / max(float(np.abs(alone).max()), 1e-30))
+        # where the time goes: one batch of the largest bucket under the
+        # profiler, after the timed requests
+        big = [requests[i] for p, i in pending
+               if p.bucket == buckets[-1]][:spec['batch']]
+        padded = inf.pad_to_bucket([f for f, _ in big], [c for _, c in big],
+                                   buckets[-1], batch_size=spec['batch'])
+        engine.run(buckets[-1], *padded)
+        prof, wall_ms = profile_call(lambda: engine.run(buckets[-1],
+                                                        *padded))
+        busy_ms = sum(dev_us(e) for e in device_events(prof)) / 1e3
+        late = tele.watchdog.check()['compile_events_delta']
+        stats = engine.stats()
+        line = dict(
+            model=label, buckets=list(buckets), batch_size=spec['batch'],
+            requests=len(requests), admitted=admission.admitted,
+            answered=len(answered), rejected=rejected, batches=batches,
+            stream_s=stream_s, warmup_s=stats['compile_seconds'],
+            warmup_one_time_events=warmup_events,
+            peak_bytes_by_bucket=stats['peak_hbm_by_bucket'],
+            cost={str(k[0]): v['memory'] for k, v in
+                  engine.cost_payloads.items()},
+            latency_by_bucket={k: {q: v[q] for q in
+                                   ('count', 'p50_ms', 'p95_ms', 'p99_ms',
+                                    'max_ms')}
+                               for k, v in summary['timing'].items()},
+            request_latency_ms=summary['metrics']['request_latency_ms'],
+            queue_wait_ms=dict(mean=1e3 * float(np.mean(waits)),
+                               max=1e3 * float(np.max(waits))),
+            batch_fill=summary['metrics']['batch_fill'],
+            launches_per_batch=tuple(n // max(batches, 1) for n in launched),
+            launches_per_request=tuple(n / max(len(answered), 1)
+                                       for n in launched),
+            routed=routes, post_warmup_compiles=tele.post_warmup_compiles,
+            one_time_events_after_stream=late, schema=info['kinds'],
+            max_rel_err_vs_alone=worst, rtol=REF_RTOL_F32,
+            profiled_batch=dict(bucket=buckets[-1], wall_ms=wall_ms,
+                                device_busy_ms=busy_ms,
+                                idle_share=1 - busy_ms / wall_ms),
+            swap=swap, swap_equals_fresh_engine=fresh_equal,
+            param_bytes=param_bytes)
+        log('serve_stream', json.dumps(line))
+        if len(rejected) != 1 or rejected[0]['code'] != 'oversize' or \
+                len(answered) != len(pending) or \
+                len(pending) != len(requests) - 1:
+            raise AssertionError(f'serve_stream {label}: {len(answered)} of '
+                                 f'{len(pending)} admitted answered, '
+                                 f'rejected {rejected}')
+        if launched != tuple(w * batches for w in want) or \
+                routes != NO_ROUTES:
+            raise AssertionError(f'serve_stream {label}: launches '
+                                 f'{launched} for {batches} batches of '
+                                 f'{want}; routed {routes}')
+        if tele.post_warmup_compiles or late:
+            raise AssertionError(f'serve_stream {label}: one-time work '
+                                 f'after warmup ({tele.post_warmup_compiles}'
+                                 f', then {late})')
+        if not worst <= REF_RTOL_F32:
+            raise AssertionError(f'serve_stream {label}: batched vs alone '
+                                 f'{worst} > {REF_RTOL_F32}')
+        if swap and (not fresh_equal or
+                     swap['peak_growth_bytes'] >= param_bytes / 2):
+            raise AssertionError(f'serve_stream {label}: swap {swap}, equal '
+                                 f'to a fresh engine: {fresh_equal}')
+        del engine, model
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    return counts()
+
+
+def phase_serve_cli():
+    """The serve entry point at its defaults on the card, as a subprocess:
+    `python -m se3_transformer_torch.inference.serve --metrics ... --out
+    ...` exits 0 with a schema-valid stream and no one-time work after
+    warmup."""
+    import tempfile
+    from se3_transformer_torch.observability.schema import validate_stream
+    with tempfile.TemporaryDirectory(prefix='serve_cli') as tmp:
+        metrics, out = (os.path.join(tmp, f) for f in ('serve.jsonl',
+                                                       'report.json'))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'se3_transformer_torch.inference.serve',
+             '--metrics', metrics, '--out', out], cwd=HERE,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f'serve entry point exited '
+                                 f'{proc.returncode}:\n{proc.stdout[-3000:]}'
+                                 f'\n{proc.stderr[-3000:]}')
+        with open(out) as f:
+            report = json.load(f)
+        info = validate_stream(metrics)
+    log('serve_cli', json.dumps(dict(
+        wall_s=wall, schema=info['kinds'], **report)))
+    if not report['ok'] or report['post_warmup_compiles']:
+        raise AssertionError(f'serve entry point: {report}')
+
+
 # the messages of the last count_host_syncs call's synchronizing ops
 LAST_SYNCS = []
 
@@ -2739,8 +3041,9 @@ def phase_route(st):
             model = st.SE3TransformerModule(
                 **ROUTE_MODEL, **fields, device=device,
                 generator=torch.Generator().manual_seed(19))
+            # warmed lazily: the first request's routing warning is read
             engine = st.InferenceEngine(model, buckets=(64,), device=device,
-                                        return_type=1)
+                                        return_type=1, precompile=False)
             reset_counts()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter('always')
@@ -3885,9 +4188,17 @@ def main() -> int:
                 glob_so2, fwd_q, flash_q, bxf_v16, fwd_v16, a_v16, b_v16,
                 fwd_n, a_n, b_n)
     fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
+    var = variant_counts()
+    vd = dict(depth=VARIANT_DEPTH)
     bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
-    paths = [
-        not_routed('bx', bx_launches),
+    paths = [not_routed('bx', bx_launches)]
+    # the serving stack over mixed-length streams, then its entry point
+    paths.append(not_routed('serve_stream', phase_serve_stream(st, {
+        'flagship_fast': launches(bxf=4 + REPLAY_LAUNCHES + 4),
+        'af2_refinement': launches(fwd=AF2_LAUNCHES, fwd_n=AF2_NARROW)})))
+    phase_serve_cli()
+    tick('serve_cli')
+    paths += [
         # the assembly model: one 7g launch per output degree (2), untied
         # and tied
         not_routed('global serve', phase_global_serve(st, launches(glob=2))),
@@ -3920,14 +4231,14 @@ def main() -> int:
         # tied keys and values with the null slot: #7's tied variant
         not_routed('flagship_fast+fuse_pairwise+tie serve', phase_serve(
             st, 'flagship_fast',
-            launches(bxf=FLASH_BXF_LAUNCHES, flash=ATTN_LAUNCHES),
+            launches(bxf=FLASH_BXF_LAUNCHES, flash=var['attn']),
             label='flagship_fast+fuse_pairwise+tie', fuse_pairwise=True,
-            tie_key_values=True, use_null_kv=True)),
+            tie_key_values=True, use_null_kv=True, **vd)),
         not_routed('flagship_fast+tie train', phase_train(
             st, 'flagship_fast',
-            launches(bxf=TIE_TRAIN_LAUNCHES, a=TIE_BWD_LAUNCHES,
-                     b=TIE_BWD_LAUNCHES), None, None,
-            label='flagship_fast+tie', tie_key_values=True)),
+            launches(bxf=var['tie_train'], a=var['tie_bwd'],
+                     b=var['tie_bwd']), None, None,
+            label='flagship_fast+tie', tie_key_values=True, **vd)),
         not_routed('flagship serve', phase_serve(
             st, 'flagship', launches(fwd=FLAGSHIP_SERVE_LAUNCHES))),
         not_routed('flagship train', phase_train(
@@ -3955,50 +4266,54 @@ def main() -> int:
             a_n=MOL_NARROW, b=MOL_LAUNCHES, b_n=MOL_NARROW)),
         # conv_backend='so2' (the so2 arms of #7 and 7g, #3 on the band z)
         not_routed('flagship_fast+so2 serve', phase_serve(
-            st, 'flagship_fast', launches(fwd=SO2_SERVE_LAUNCHES),
-            label='flagship_fast+so2', conv_backend='so2')),
+            st, 'flagship_fast', launches(fwd=var['so2_serve']),
+            label='flagship_fast+so2', conv_backend='so2', **vd)),
         not_routed('flagship_fast+so2+fuse_pairwise serve', phase_serve(
             st, 'flagship_fast', launches(fwd=SO2_FLASH_FWD_LAUNCHES,
-                                          flash_so2=ATTN_LAUNCHES),
+                                          flash_so2=var['attn']),
             label='flagship_fast+so2+fuse_pairwise', fuse_pairwise=True,
-            conv_backend='so2')),
+            conv_backend='so2', **vd)),
         not_routed('global serve so2', phase_global_serve(
             st, launches(glob_so2=2), label='assembly+so2',
             conv_backend='so2')),
         not_routed('flagship_fast+so2 train', phase_train(
             st, 'flagship_fast',
-            launches(fwd=SO2_TRAIN_LAUNCHES, a=SO2_BWD_LAUNCHES,
-                     b=SO2_BWD_LAUNCHES), None, None,
-            label='flagship_fast+so2', conv_backend='so2')),
+            launches(fwd=var['so2_train'], a=var['so2_bwd'],
+                     b=var['so2_bwd']), None, None,
+            label='flagship_fast+so2', conv_backend='so2', **vd)),
         # quantized serving: every #3 launch of flagship(int8_mix) takes
         # the scaled arm (float32 h); flagship_fast(fuse_pairwise,
         # fp8_mix) runs #7's scaled arm (bf16 h) and #1 on the transient
         # dequant of conv_in's and conv_out's w3
         not_routed('flagship+int8_mix serve', phase_serve(
-            st, 'flagship', launches(fwd_q=FLAGSHIP_SERVE_LAUNCHES),
-            label='flagship+int8_mix', precision='int8_mix')),
+            st, 'flagship', launches(fwd_q=var['flagship_serve']),
+            label='flagship+int8_mix', precision='int8_mix', **vd)),
         not_routed('flagship_fast+fuse_pairwise+fp8_mix serve', phase_serve(
             st, 'flagship_fast',
-            launches(bxf=FLASH_BXF_LAUNCHES, flash_q=ATTN_LAUNCHES),
+            launches(bxf=FLASH_BXF_LAUNCHES, flash_q=var['attn']),
             label='flagship_fast+fuse_pairwise+fp8_mix', fuse_pairwise=True,
-            precision='fp8_mix')),
+            precision='fp8_mix', **vd)),
         # conv_bf16: flagship_fast's #1 launches all by the bf16 basis/x
         # arm, its backward's A and B by the float32 arm; flagship's #3, A
         # and B all by the bf16-V2 arm
         not_routed('flagship_fast+conv_bf16 serve', phase_serve(
-            st, 'flagship_fast', launches(bxf_v16=4 + REPLAY_LAUNCHES + 4),
-            label='flagship_fast+conv_bf16', conv_bf16=True)),
+            st, 'flagship_fast',
+            launches(bxf_v16=4 + var['replay'] + 4),
+            label='flagship_fast+conv_bf16', conv_bf16=True, **vd)),
         not_routed('flagship_fast+conv_bf16 train', phase_train(
-            st, 'flagship_fast', launches(bxf_v16=TRAIN_LAUNCHES, **fast_bwd),
-            None, None, label='flagship_fast+conv_bf16', conv_bf16=True)),
+            st, 'flagship_fast', launches(bxf_v16=var['train'],
+                                          a=var['train_bwd'],
+                                          b=var['train_bwd']),
+            None, None, label='flagship_fast+conv_bf16', conv_bf16=True,
+            **vd)),
         not_routed('flagship+conv_bf16 serve', phase_serve(
-            st, 'flagship', launches(fwd_v16=FLAGSHIP_SERVE_LAUNCHES),
-            label='flagship+conv_bf16', conv_bf16=True)),
+            st, 'flagship', launches(fwd_v16=var['flagship_serve']),
+            label='flagship+conv_bf16', conv_bf16=True, **vd)),
         not_routed('flagship+conv_bf16 train', phase_train(
             st, 'flagship', launches(
-                fwd_v16=FLAGSHIP_TRAIN_LAUNCHES + FLAGSHIP_REPLAY_LAUNCHES,
-                a_v16=FLAGSHIP_BWD_LAUNCHES, b_v16=FLAGSHIP_BWD_LAUNCHES),
-            None, None, label='flagship+conv_bf16', conv_bf16=True)),
+                fwd_v16=var['flagship_train'] + var['flagship_replay'],
+                a_v16=var['flagship_bwd'], b_v16=var['flagship_bwd']),
+            None, None, label='flagship+conv_bf16', conv_bf16=True, **vd)),
         # egnn_stress: conv_in's two O = 16 pairs on the narrow-O arms
         phase_egnn_serve(st, launches(fwd_n=EGNN_NARROW)),
         not_routed('egnn_stress train', phase_train(

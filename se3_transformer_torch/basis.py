@@ -20,6 +20,7 @@ import torch
 
 from .so3.spherical_harmonics import real_spherical_harmonics_all
 from .so3.wigner import rot, wigner_d_from_rotation
+from .utils.helpers import device_constant
 
 # the fixed, well-conditioned rotations of the Sylvester system
 # (se3_transformer_tpu/basis.py::_RANDOM_ANGLES, value for value)
@@ -132,7 +133,7 @@ def _store_cached_qj(J, d_in, d_out, Q):
         pass  # best effort: a miss only costs a recompute
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _qj_tensor(J: int, d_in: int, d_out: int, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     """Q_J as a tensor on `device`, made once: a copy per forward would

@@ -29,6 +29,8 @@ import subprocess
 import threading
 from typing import Optional
 
+from ..utils.helpers import ONE_TIME_WORK
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, 'csrc')
 SOURCES = tuple(os.path.join(CSRC_DIR, f)
@@ -204,4 +206,5 @@ def load_library() -> ctypes.CDLL:
                        lib.se3_pairwise_bwd_b_v16):
                 fn.restype = ci
             _lib = lib
+            ONE_TIME_WORK[0] += 1
         return _lib

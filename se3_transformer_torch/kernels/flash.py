@@ -93,7 +93,7 @@ from ..so2.contract import banded_z
 from ..so2.frames import FRAME_KEYS, edge_frames, j_matrix, rotate_in, \
     rotate_out
 from ..so3.spherical_harmonics import real_spherical_harmonics_all
-from ..utils.helpers import batched_index_select
+from ..utils.helpers import batched_index_select, device_constant
 from .pairwise import QUANT_DTYPES, _aligned, _stream, serving_only
 
 # the finite float32 minimum (pallas_flash.py::NEG_INF)
@@ -152,7 +152,7 @@ def _pair_cg(d_in: int, d_out: int) -> np.ndarray:
     return T
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _pair_cg_tensor(d_in: int, d_out: int,
                     device: torch.device) -> torch.Tensor:
     """_pair_cg as a float32 tensor on `device`, made once (outside
@@ -355,7 +355,7 @@ def flash_attention_plain(cfg: FlashConfig, ops: dict) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # the kernel wrapper
 # --------------------------------------------------------------------- #
-@lru_cache(maxsize=None)
+@device_constant
 def _cg_buffer(d_ins: Tuple[int, ...], d_out: int, device: torch.device):
     """The kernel's basis constants for the pairs into d_out: for each pair
     and each J = lo..hi, Q_J [(P*Q), 2J+1] row-major, concatenated; and
@@ -378,7 +378,7 @@ _J_OFFSETS = tuple(sum((2 * k + 1) ** 2 for k in range(1, l))
                    for l in range(1, MAX_DEGREE + 2))
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _so2_buffer(d_ins: Tuple[int, ...], d_out: int, device: torch.device):
     """The so2 arm's constants for the pairs into d_out: J_1 .. J_3
     row-major (J_l at _J_OFFSETS[l - 1]), then per pair its canonical
@@ -970,7 +970,7 @@ def flash_global_plain(cfg: FlashConfig, ops: dict,
                       for s in range(0, n, rows)], dim=1)
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _sh_norm_table(device: torch.device) -> torch.Tensor:
     """The real SH normalization constants K_lm (l, m <= 6, sqrt(2) in for
     m > 0) as float32 [7 * 7], l-major, for the kernel's in-tile SH."""

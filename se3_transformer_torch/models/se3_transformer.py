@@ -272,6 +272,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class SE3TransformerModule(nn.Module):
+    # the family stamp checkpoints carry (training.checkpoint), as the JAX
+    # module's: a checkpoint of another family refuses to restore into it
+    model_family = 'se3_v1'
+
     def __init__(self, dim, heads: int = 8, dim_head: int = 24,
                  depth: int = 2, input_degrees: int = 1,
                  num_degrees: Optional[int] = None, output_degrees: int = 1,

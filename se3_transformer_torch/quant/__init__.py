@@ -19,12 +19,12 @@ from .qtensor import (
 )
 from .rules import (
     MIXES, PRECISIONS, EquivariantPrecisionError, mix_name,
-    quantize_params, resolve_mix, resolve_precision,
+    quantize_params, quantize_state, resolve_mix, resolve_precision,
 )
 
 __all__ = [
     'MIXES', 'PRECISIONS', 'EquivariantPrecisionError', 'QuantTensor',
     'concat_weights', 'dequantize', 'float_weight', 'is_quantized',
-    'mix_name', 'quantize', 'quantize_params', 'resolve_mix',
-    'resolve_precision', 'weight_or_none',
+    'mix_name', 'quantize', 'quantize_params', 'quantize_state',
+    'resolve_mix', 'resolve_precision', 'weight_or_none',
 ]

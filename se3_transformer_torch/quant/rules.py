@@ -173,3 +173,37 @@ def quantize_params(model: nn.Module, mix: MixSpec = 'int8_mix'):
         bytes_ratio=round(bytes_after / max(bytes_before, 1), 4),
     )
     return model, report
+
+
+_STORAGES = {torch.int8: 'int8', torch.float8_e4m3fn: 'fp8_e4m3'}
+
+
+def quantize_state(model: nn.Module, state) -> dict:
+    """`state` (a state dict) in the form `model`, already quantized,
+    holds: the float32 value of each of model's QuantTensors (key
+    `<owner>.<name>`) quantized on the host at that QuantTensor's storage
+    into `<owner>.<name>.q` and `.scale`, bit for bit as quantize_params
+    makes them, and a float32 value where model holds bf16 cast to bf16.
+    Entries already in model's form pass through. The weight-swap half of
+    quantize_params: the engine re-quantizes a float32 state at its own
+    mix."""
+    state = dict(state)
+    for owner_name, owner in model.named_modules():
+        for name, qt in owner.named_children():
+            key = f'{owner_name}.{name}' if owner_name else name
+            if not isinstance(qt, QuantTensor) or key not in state:
+                continue
+            _, transposed = flax_path(owner_name, owner, name)
+            w = state.pop(key).detach().cpu()
+            new = quantize(w.t() if transposed else w, (0,),
+                           _STORAGES[qt.q.dtype])
+            if transposed:
+                new = QuantTensor(new.q.t().contiguous(),
+                                  new.scale.t().contiguous())
+            state[f'{key}.q'], state[f'{key}.scale'] = new.q, new.scale
+    for key, value in model.state_dict().items():
+        given = state.get(key)
+        if value.dtype == torch.bfloat16 and isinstance(given, torch.Tensor) \
+                and given.dtype == torch.float32:
+            state[key] = given.detach().to(torch.bfloat16)
+    return state

@@ -18,17 +18,17 @@ unchunked, the JAX heuristic's answer.
 """
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Optional
 
 import torch
 import torch.nn.functional as F_
 
+from ..utils.helpers import device_constant
 from .canonical import canonical_blocks
 from .frames import FRAME_KEYS, Frames, rotate_in, rotate_out
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _blocks(d_in: int, d_out: int, dtype: torch.dtype, device: torch.device):
     """canonical_blocks as tensors on `device`, made once."""
     a, b = canonical_blocks(d_in, d_out)

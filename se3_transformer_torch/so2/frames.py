@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..so3.wigner import wigner_d_from_rotation
+from ..utils.helpers import device_constant
 
 Frames = Dict[str, torch.Tensor]
 
@@ -46,7 +47,7 @@ def j_matrix(l: int) -> np.ndarray:
     return wigner_d_from_rotation(l, rx)
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _j_tensor(l: int, dtype: torch.dtype, device: torch.device
               ) -> torch.Tensor:
     with torch.inference_mode(False):
@@ -88,7 +89,7 @@ def edge_frames(rel_pos: torch.Tensor, max_degree: int,
     return out
 
 
-@lru_cache(maxsize=None)
+@device_constant
 def _dz_tables(l: int, dtype: torch.dtype, device: torch.device):
     """|m_q| for q = 0..2l and the block signs s_q = sign(-m_q), made once
     per device."""

@@ -7,6 +7,7 @@ from .denoise import (
     flagship_batch, molecular_batch, property_loss, synthetic_protein_batch,
     synthetic_protein_batch_host,
 )
+from .guardian import PreemptionGuard
 from .pipeline import (
     BatchProducer, BatchProducerError, PipelineStats, dataset_batch_source,
     device_prefetch,

@@ -2,7 +2,26 @@
 restricted to what the model uses."""
 from __future__ import annotations
 
+import functools
+
 import torch
+
+# One-time host work that a forward can set off: each build of a cached
+# device constant (a blocking host-to-device copy) and the load of the
+# kernels' library. observability.runtime reads the count: after an
+# engine's warmup, a request that adds to it paid that work in its latency.
+ONE_TIME_WORK = [0]
+
+
+def device_constant(fn):
+    """functools.lru_cache(maxsize=None) over fn, each miss (each build of
+    the constant) counted in ONE_TIME_WORK; cache_info and cache_clear are
+    lru_cache's."""
+    @functools.wraps(fn)
+    def build(*args):
+        ONE_TIME_WORK[0] += 1
+        return fn(*args)
+    return functools.lru_cache(maxsize=None)(build)
 
 
 def to_order(degree: int) -> int:

@@ -445,9 +445,14 @@ def test_engine_chain_adjacency_matches_jax():
     out = engine.predict(tokens, coords)
     assert out.shape == ref.shape == (n, 3)
     assert _rel_err(out, ref) <= RTOL_F32
-    # without the adjacency the bonded model cannot run
+    # without the adjacency the bonded model cannot run: the warmup raises
+    # out of the constructor, and an engine warmed lazily raises at its
+    # first request
+    with pytest.raises(ValueError, match='adjacency'):
+        InferenceEngine(model, buckets=(bucket,), device='cpu',
+                        with_chain_adjacency=False)
     bare = InferenceEngine(model, buckets=(bucket,), device='cpu',
-                           with_chain_adjacency=False)
+                           with_chain_adjacency=False, precompile=False)
     with pytest.raises(ValueError, match='adjacency'):
         bare.predict(tokens, coords)
 

@@ -285,7 +285,10 @@ def test_import_leaves_jax_out():
     code = ('import sys, se3_transformer_torch, se3_transformer_torch.kernels.'
             'build, se3_transformer_torch.kernels.attention, '
             'se3_transformer_torch.kernels.flash, '
-            'se3_transformer_torch.kernels.routing; bad = [m for m in '
+            'se3_transformer_torch.kernels.routing, '
+            'se3_transformer_torch.inference.serve, '
+            'se3_transformer_torch.observability, '
+            'se3_transformer_torch.training.guardian; bad = [m for m in '
             'sys.modules if m.split(".")[0] in ("jax", "flax", '
             '"se3_transformer_tpu")]; assert not bad, bad')
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,

@@ -184,7 +184,21 @@ failure:
               and trained from through dataset_batch_source, the
               BatchProducer and device_prefetch for 5 steps with async
               checkpoints, the PipelineStats snapshot
-              (`denoise_pipelined`).
+              (`denoise_pipelined`); then the guarded loop
+              (training.guardian) over DenoiseConfig(accum_steps=4,
+              telemetry=True, flush_every=2, pipeline=True), 8 steps an
+              arm: two uninterrupted controls; a weakened arm (no
+              rollback, a NaN batch) that must exit 1; a chaos arm in a
+              subprocess (`chip_smoke.py --guarded-worker DIR`: a NaN
+              batch and a failing dispatch, each rolled back and
+              replayed) sent SIGTERM mid-run, which must exit 75; the CLI
+              (`--guarded`) resuming it to exit 0 on the control's
+              parameters (bit for bit, or within twice the controls'
+              spread), a cumulative guard record, a valid stream, no
+              one-time work after its first step; 88 #3, 80 + 80 A and B
+              narrow launches a step, the poisoned and replayed steps
+              too; no host sync in a clean telemetry step, one in a
+              flush (`denoise_guarded`).
   route       C1's repair: models past the kernels' limits (the JAX
               DenoiseConfig widths, dim 8, heads 2, dim_head 8, two
               degrees; and with fuse_pairwise, heads * dim_head = 16,
@@ -401,6 +415,23 @@ DENOISE_BWD = sum(b for _, b in DENOISE_SHAPES.values()) * DENOISE_ACCUM
 DENOISE_STEPS = 10
 DENOISE_RESUME_AT = 5
 DENOISE_PIPELINED_STEPS = 5
+# the guarded loop (training.guardian) over DenoiseConfig(accum_steps=
+# GUARDED_ACCUM, telemetry=True, flush_every=GUARDED_WINDOW, pipeline=True):
+# GUARDED_STEPS steps an arm; the chaos arm's injector poisons build
+# GUARDED_NAN_AT (step index 2) with NaN and fails step_dispatch call
+# GUARDED_FAIL_AT (step index 4's first attempt, after the NaN window's
+# replay), and the parent sends it SIGTERM once it reports step >=
+# GUARDED_KILL_AT
+GUARDED_ACCUM = 4
+GUARDED_STEPS = 8
+GUARDED_WINDOW = 2
+GUARDED_NAN_AT = 3
+GUARDED_FAIL_AT = 7
+GUARDED_KILL_AT = 5
+GUARDED_FWD = DENOISE_FWD // DENOISE_ACCUM * GUARDED_ACCUM
+GUARDED_BWD = DENOISE_BWD // DENOISE_ACCUM * GUARDED_ACCUM
+# the chaos and resume subprocesses' time limit
+GUARDED_SUBPROCESS_S = 300
 # a restored trainer's next loss against the uninterrupted run's, relative:
 # the same forward on the same bits, the same batch and noise; equal but
 # for any float32 sum whose order the card does not fix (the run-to-run
@@ -2827,8 +2858,11 @@ def count_host_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
+    # the mode's own notice ("... does not yet detect all synchronizing
+    # operations", once a process) is not a synchronizing call
     LAST_SYNCS[:] = [f'{w.filename}:{w.lineno}: {w.message}'[-200:]
-                     for w in caught if 'synchronizing' in str(w.message)]
+                     for w in caught
+                     if 'called a synchronizing' in str(w.message)]
     return len(LAST_SYNCS)
 
 
@@ -3424,6 +3458,378 @@ def phase_denoise_pipelined(st, want):
         checkpoints=kept, pipeline=pipeline)))
     del trainer
     torch.cuda.empty_cache()
+    return launches
+
+
+def guarded_config(st, **over):
+    """The guarded phase's DenoiseConfig: the CLI's defaults (96 nodes,
+    batch 1, 2 degrees) at --accum GUARDED_ACCUM --flush-every
+    GUARDED_WINDOW --pipelined --guarded."""
+    return st.DenoiseConfig(accum_steps=GUARDED_ACCUM, telemetry=True,
+                            flush_every=GUARDED_WINDOW, pipeline=True,
+                            **over)
+
+
+class StepLaunches:
+    """A guarded loop's step_hook: each step's launches and routed calls
+    (the counts since the previous hook: a step that raised launched
+    nothing) and, with `sync`, the wall ms since the previous hook, ended
+    by a synchronize; with `progress`, the step count published in that
+    file for a parent process."""
+
+    def __init__(self, sync=False, progress=None):
+        self.sync, self.progress = sync, progress
+        self.steps, self.launches, self.routes, self.ms = [], [], [], []
+        self._last = (counts(), routed())
+        self._t = time.perf_counter()
+
+    def __call__(self, step):
+        if self.sync:
+            torch.cuda.synchronize()
+        now, t = (counts(), routed()), time.perf_counter()
+        self.steps.append(step)
+        self.launches.append(tuple(a - b for a, b in zip(now[0],
+                                                         self._last[0])))
+        self.routes.append(tuple(a - b for a, b in zip(now[1],
+                                                       self._last[1])))
+        self.ms.append((t - self._t) * 1e3)
+        self._last, self._t = now, t
+        if self.progress:
+            tmp = self.progress + '.tmp'
+            with open(tmp, 'w') as f:
+                f.write(str(step))
+            os.replace(tmp, self.progress)
+
+    def step_ms(self):
+        """The intervals that hold one step and no window end: those that
+        follow a step inside a window (fetch, dispatch, the step)."""
+        return [ms for prev, ms in zip(self.steps, self.ms[1:])
+                if prev % GUARDED_WINDOW]
+
+
+def check_guarded_steps(label, steps, launches, routes, want):
+    bad = [(s, l, r) for s, l, r in zip(steps, launches, routes)
+           if tuple(l) != tuple(want) or tuple(r) != NO_ROUTES]
+    if bad or not steps:
+        raise AssertionError(f'{label}: steps whose launches {COUNT_NAMES} '
+                             f'or routed calls {ROUTE_NAMES} are not {want}: '
+                             f'{bad[:3]} (of {len(steps)} steps)')
+
+
+def timed_calls(obj, name, sink, sync=False):
+    """Shadow obj.name with a wrapper that appends each call's ms to sink
+    (ended by a synchronize with `sync`)."""
+    inner = getattr(obj, name)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(obj, name, call)
+
+
+def params_max_abs_diff(a, b):
+    """The largest |a - b| over two state dicts' tensors (0 when every one
+    is equal bit for bit; inf where a NaN stands)."""
+    worst = 0.0
+    for key, value in a.items():
+        other = b[key].to(value.device)
+        if torch.equal(value, other):
+            continue
+        diff = (value.double() - other.double()).abs()
+        worst = max(worst, float('inf') if diff.isnan().any()
+                    else float(diff.max()))
+    return worst
+
+
+def guarded_worker(workdir):
+    """The chaos arm of phase_denoise_guarded, run by `chip_smoke.py
+    --guarded-worker DIR` in a process of its own: the guarded loop
+    (train_guarded) with an injector that poisons build GUARDED_NAN_AT
+    with NaN and fails step_dispatch call GUARDED_FAIL_AT, its progress
+    published in DIR/progress for the parent's SIGTERM, checkpoints in
+    DIR/ckpt, its records in DIR/chaos.jsonl; writes DIR/chaos.json
+    (result, counters, each step's launches and routed calls, the flushed
+    windows, the injector's log, the ms of the rollback's restores, the
+    emergency save and the async saves) and exits with the result's exit
+    code (RESUMABLE_RC when preempted)."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is False',
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import se3_transformer_torch as st
+    from se3_transformer_torch.faults import FaultInjector
+    from se3_transformer_torch.observability import MetricLogger
+    from se3_transformer_torch.training import CheckpointManager
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer = st.DenoiseTrainer(guarded_config(st))
+    inj = FaultInjector(seed=0)
+    inj.plan('step_batch', 'nan', at=(GUARDED_NAN_AT,))
+    inj.plan('step_dispatch', 'exception', at=(GUARDED_FAIL_AT,))
+    hook = StepLaunches(progress=os.path.join(workdir, 'progress'))
+    ms = dict(restore_load=[], restore_adopt=[], emergency_save=[],
+              save_async=[])
+    with CheckpointManager(os.path.join(workdir, 'ckpt')) as mgr, \
+            MetricLogger(os.path.join(workdir, 'chaos.jsonl'),
+                         mirror=None) as logger:
+        timed_calls(mgr, 'restore', ms['restore_load'])
+        timed_calls(trainer, 'restore', ms['restore_adopt'], sync=True)
+        timed_calls(mgr, 'save', ms['emergency_save'])
+        timed_calls(mgr, 'save_async', ms['save_async'])
+        res = trainer.train_guarded(GUARDED_STEPS, mgr, injector=inj,
+                                    metric_logger=logger, step_hook=hook)
+    report = dict(
+        exit_code=res.exit_code, steps=res.steps, preempted=res.preempted,
+        counters=res.counters, hook_steps=hook.steps,
+        launches=hook.launches, routes=hook.routes, injected=inj.injected,
+        windows=[dict(step=h['step'], loss=h['window']['loss'])
+                 for h in res.history if h.get('kind') == 'flush'],
+        ms=ms)
+    with open(os.path.join(workdir, 'chaos.json'), 'w') as f:
+        json.dump(report, f)
+    return res.exit_code
+
+
+def phase_denoise_guarded(st, want):
+    """The guarded training loop (training.guardian) on the card: the port
+    of scripts/train_chaos_smoke.py over guarded_config (every contraction
+    on the narrow-O arms). Arms, GUARDED_STEPS steps each:
+      * control, twice in this process, no injector: the parity oracle and
+        its run-to-run spread;
+      * weakened, in this process: GuardConfig(rollback=False), NaN at
+        build GUARDED_NAN_AT: it must end diverged with exit code 1;
+      * chaos, a subprocess (guarded_worker): NaN at build GUARDED_NAN_AT
+        and a failing dispatch; SIGTERM once it reports step >=
+        GUARDED_KILL_AT: exit RESUMABLE_RC;
+      * resume, the CLI itself (`-m se3_transformer_torch.training.cli
+        --guarded` on the chaos arm's checkpoints): exit 0.
+    Checks: every guarded step of the in-process arms and of the chaos arm
+    (the poisoned one and the replays too) launches exactly `want` and
+    routes nothing; the poisoned window's loss is non-finite and the
+    replayed windows' finite; the resumed run's final parameters equal the
+    control's bit for bit (or, when the two controls differ, within twice
+    their max-abs difference); the CLI's stream validates, its cumulative
+    guard record has rollbacks and injections_total >= 1, preemptions and
+    restarts 1, diverged false, and the resumed process did no one-time
+    host work after its first step; a clean telemetry train_step makes no
+    host sync and telemetry_flush exactly one. Prints the arms' exit codes
+    and walls, the guarded step against an unguarded one, the flush,
+    restore, emergency-save and save_async ms (`denoise_guarded`). Returns
+    the launches of the in-process arms."""
+    import signal
+    import tempfile
+    from se3_transformer_torch.observability import validate_stream
+    from se3_transformer_torch.training import CheckpointManager
+    from se3_transformer_torch.training.guardian import (
+        RESUMABLE_RC, GuardConfig, StepGuard,
+    )
+    from se3_transformer_torch.faults import FaultInjector
+    t_phase = time.perf_counter()
+    cfg = guarded_config(st)
+    quiet = lambda msg: None  # noqa: E731
+    reset_counts()
+    walls, controls, flush_ms = {}, [], []
+    with tempfile.TemporaryDirectory(prefix='guarded') as d:
+        for i in range(2):
+            trainer = st.DenoiseTrainer(cfg)
+            hook = StepLaunches(sync=i == 0)
+            if i == 0:
+                timed_calls(trainer, 'telemetry_flush', flush_ms)
+            t0 = time.perf_counter()
+            with CheckpointManager(os.path.join(d, f'control{i}')) as mgr:
+                res = trainer.train_guarded(GUARDED_STEPS, mgr,
+                                            step_hook=hook, log=quiet)
+            walls[f'control{i}'] = time.perf_counter() - t0
+            check_guarded_steps(f'guarded control {i}', hook.steps,
+                                hook.launches, hook.routes, want)
+            if res.exit_code or any(res.counters.values()) \
+                    or res.steps != GUARDED_STEPS:
+                raise AssertionError(f'guarded control {i}: {res.counters}, '
+                                     f'rc {res.exit_code}')
+            controls.append({k: v.detach().clone()
+                             for k, v in trainer.params.items()})
+            if i == 0:
+                guarded_step_ms = hook.step_ms()
+                summary = [h for h in res.history if 'label' in h][-1]
+            del trainer
+        spread = params_max_abs_diff(controls[0], controls[1])
+
+        weak = st.DenoiseTrainer(cfg)
+        inj = FaultInjector(seed=0)
+        inj.plan('step_batch', 'nan', at=(GUARDED_NAN_AT,))
+        hook = StepLaunches()
+        t0 = time.perf_counter()
+        with CheckpointManager(os.path.join(d, 'weak')) as mgr, \
+                warnings.catch_warnings(record=True):
+            warnings.simplefilter('always')
+            weak_res = weak.train_guarded(
+                GUARDED_STEPS, mgr, injector=inj, step_hook=hook, log=quiet,
+                guard=StepGuard(GuardConfig(rollback=False)))
+        walls['weakened'] = time.perf_counter() - t0
+        check_guarded_steps('guarded weakened', hook.steps, hook.launches,
+                            hook.routes, want)
+        if not (weak_res.diverged and weak_res.exit_code == 1
+                and weak_res.counters['rollbacks'] == 0):
+            raise AssertionError(f'guarded weakened arm: rc '
+                                 f'{weak_res.exit_code}, {weak_res.counters}')
+        del weak
+
+        work = os.path.join(d, 'chaos')
+        os.makedirs(work)
+        progress = os.path.join(work, 'progress')
+        t0 = time.perf_counter()
+        with open(os.path.join(work, 'chaos.out'), 'w') as out:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 '--guarded-worker', work], cwd=HERE, stdout=out,
+                stderr=subprocess.STDOUT)
+            try:
+                reached = 0
+                while proc.poll() is None and \
+                        time.perf_counter() - t0 < GUARDED_SUBPROCESS_S:
+                    try:
+                        with open(progress) as f:
+                            reached = int(f.read() or 0)
+                    except (OSError, ValueError):
+                        pass
+                    if reached >= GUARDED_KILL_AT:
+                        break
+                    time.sleep(0.05)
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+                chaos_rc = proc.wait(timeout=GUARDED_SUBPROCESS_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        walls['chaos'] = time.perf_counter() - t0
+        with open(os.path.join(work, 'chaos.out')) as f:
+            chaos_out = f.read()[-3000:]
+        if chaos_rc != RESUMABLE_RC or reached < GUARDED_KILL_AT:
+            raise AssertionError(f'guarded chaos arm: rc {chaos_rc} (want '
+                                 f'{RESUMABLE_RC}) at step {reached}:\n'
+                                 f'{chaos_out}')
+        with open(os.path.join(work, 'chaos.json')) as f:
+            chaos = json.load(f)
+        check_guarded_steps('guarded chaos', chaos['hook_steps'],
+                            chaos['launches'], chaos['routes'], want)
+        means = [w['loss']['mean'] for w in chaos['windows']
+                 if w['loss']['count']]
+        poisoned = [i for i, m in enumerate(means) if not np.isfinite(m)]
+        if poisoned != [1] or not np.isfinite(means[2:]).all():
+            raise AssertionError(f'guarded chaos arm: window loss means '
+                                 f'{means} (the poisoned window second, the '
+                                 f'replays finite)')
+
+        metrics = os.path.join(d, 'resume.jsonl')
+        ckpt = os.path.join(work, 'ckpt')
+        t0 = time.perf_counter()
+        resume = subprocess.run(
+            [sys.executable, '-m', 'se3_transformer_torch.training.cli',
+             '--guarded', '--ckpt-dir', ckpt, '--steps', str(GUARDED_STEPS),
+             '--accum', str(GUARDED_ACCUM), '--flush-every',
+             str(GUARDED_WINDOW), '--pipelined', '--metrics', metrics],
+            cwd=HERE, capture_output=True, text=True,
+            timeout=GUARDED_SUBPROCESS_S)
+        walls['resume'] = time.perf_counter() - t0
+        if resume.returncode != 0:
+            raise AssertionError(f'guarded resume (the CLI): rc '
+                                 f'{resume.returncode}\n'
+                                 f'{(resume.stdout + resume.stderr)[-3000:]}')
+        info = validate_stream(metrics)
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        guard = [r for r in records if r['kind'] == 'guard'][-1]
+        summary_cli = [r for r in records if r['kind'] == 'summary'][-1]
+        post_first = sum(r['runtime']['compile_events_delta']
+                         for r in records if r['kind'] == 'flush')
+        state = CheckpointManager(ckpt).restore()
+        final_diff = params_max_abs_diff(controls[0], state[0])
+    if not ({'flush', 'pipeline', 'guard', 'summary'} <= set(info['kinds'])
+            and guard['rollbacks'] >= 1 and guard['injections_total'] >= 1
+            and guard['preemptions'] == 1 and guard['restarts'] == 1
+            and guard['diverged'] is False and state[2] == GUARDED_STEPS
+            and summary_cli['retrace_warnings_total'] == 0
+            and post_first == 0):
+        raise AssertionError(f'guarded resume: kinds {info["kinds"]}, guard '
+                             f'{guard}, final step {state[2]}, retrace '
+                             f'warnings {summary_cli["retrace_warnings_total"]}'
+                             f', one-time work after the first step '
+                             f'{post_first}')
+    if final_diff > 2 * spread:
+        raise AssertionError(f'guarded resume: final parameters differ from '
+                             f'the control by {final_diff} (two controls '
+                             f'differ by {spread})')
+
+    # a clean telemetry step against an unguarded one (no telemetry) on the
+    # same device batch and noise, in turns; the host syncs of each
+    tele = st.DenoiseTrainer(cfg)
+    plain = st.DenoiseTrainer(st.DenoiseConfig(accum_steps=GUARDED_ACCUM))
+    batch = tele.to_device(tele.micro_batches_host())
+    noise = torch.randn(batch['coords'].shape, device='cuda',
+                        generator=torch.Generator('cuda').manual_seed(5))
+    step_ms = {'telemetry': [], 'plain': []}
+    for name in ('telemetry', 'plain') + ('telemetry', 'plain', 'plain',
+                                         'telemetry') * 2:
+        trainer = tele if name == 'telemetry' else plain
+        before = counts(), routed()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, noise=noise)
+        torch.cuda.synchronize()
+        step_ms[name].append((time.perf_counter() - t0) * 1e3)
+        check_step(f'guarded {name}', len(step_ms[name]), before, want)
+    before = counts(), routed()
+    step_syncs = count_host_syncs(lambda: tele.train_step(batch,
+                                                          noise=noise))
+    step_sync_msgs = list(LAST_SYNCS)
+    check_step('guarded sync count', 0, before, want)
+    flush_syncs = count_host_syncs(tele.telemetry_flush)
+    if step_syncs != 0 or flush_syncs != 1:
+        raise AssertionError(f'guarded: {step_syncs} host syncs in a clean '
+                             f'telemetry step (want 0: {step_sync_msgs[:3]}),'
+                             f' {flush_syncs} in a flush (want 1: '
+                             f'{LAST_SYNCS[:3]})')
+    launches = counts()
+    del tele, plain
+    torch.cuda.empty_cache()
+    tel = float(np.median(step_ms['telemetry'][1:]))
+    pl = float(np.median(step_ms['plain'][1:]))
+    ms = chaos['ms']
+    log('denoise_guarded', json.dumps(dict(
+        config=f'DenoiseConfig(accum_steps={GUARDED_ACCUM}, telemetry=True, '
+               f'flush_every={GUARDED_WINDOW}, pipeline=True)',
+        steps=GUARDED_STEPS,
+        rc=dict(control=0, weakened=weak_res.exit_code, chaos=chaos_rc,
+                resume=resume.returncode),
+        wall_s=walls, phase_s=time.perf_counter() - t_phase,
+        launches_per_step=dict(zip(COUNT_NAMES, want)),
+        chaos=dict(counters=chaos['counters'], steps=chaos['steps'],
+                   killed_at=reached, window_loss_means=means,
+                   injected=chaos['injected']),
+        guard=guard, control_spread=spread, final_max_abs_diff=final_diff,
+        bit_exact=final_diff == 0.0,
+        guarded_step_ms=guarded_step_ms,
+        guarded_step_ms_median=float(np.median(guarded_step_ms)),
+        telemetry_step_ms=step_ms['telemetry'], plain_step_ms=step_ms['plain'],
+        telemetry_step_ms_median=tel, plain_step_ms_median=pl,
+        telemetry_overhead=tel / pl - 1,
+        host_syncs=dict(telemetry_step=step_syncs, flush=flush_syncs),
+        flush_ms=flush_ms, restore_load_ms=ms['restore_load'],
+        restore_adopt_ms=ms['restore_adopt'],
+        emergency_save_ms=ms['emergency_save'], save_async_ms=ms['save_async'],
+        control_summary=dict(nodes_steps_per_sec=summary.get(
+            'nodes_steps_per_sec'), loss_first=summary.get('loss_first'),
+            loss_last=summary.get('loss_last')),
+        resume_summary=dict(nodes_steps_per_sec=summary_cli.get(
+            'nodes_steps_per_sec'), retrace_warnings_total=summary_cli[
+            'retrace_warnings_total']),
+        stream=info['kinds'])))
     return launches
 
 
@@ -4327,7 +4733,11 @@ def main() -> int:
             fwd_n=DENOISE_FWD, a_n=DENOISE_BWD, b_n=DENOISE_BWD))),
         not_routed('denoise pipelined', phase_denoise_pipelined(
             st, launches(fwd_n=DENOISE_FWD, a_n=DENOISE_BWD,
-                         b_n=DENOISE_BWD)))]
+                         b_n=DENOISE_BWD))),
+        # the guarded loop: rollback, kill and resume, the weakened arm
+        not_routed('denoise guarded', phase_denoise_guarded(
+            st, launches(fwd_n=GUARDED_FWD, a_n=GUARDED_BWD,
+                         b_n=GUARDED_BWD)))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
 
@@ -4493,4 +4903,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--guarded-worker']:
+        sys.exit(guarded_worker(sys.argv[2]))
     sys.exit(main())

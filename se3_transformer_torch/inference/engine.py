@@ -44,8 +44,9 @@ without adjacency fields ignores; requests carry no edges.
     through `CheckpointManager.restore_params`, with its model-family
     check.
 
-`mesh` and `partition_rules` (ROADMAP A7) and `fault_injector` (ROADMAP
-A8) refuse any value but None. `donate_buffers` is accepted and does
+`fault_injector` (faults.FaultInjector) fires the `engine_run` site at the
+top of every `run()` (ctx: bucket), as JAX's engine does. `mesh` and
+`partition_rules` (ROADMAP A7) refuse any value but None. `donate_buffers` is accepted and does
 nothing: JAX donates the coordinates' device buffer to XLA for reuse;
 eagerly, the caching allocator reuses a request's memory as soon as it is
 released. `stats()['kernel_tuning']` stays empty until the tuning table
@@ -69,8 +70,7 @@ from .admission import fit_bucket, oversize_error
 
 # the arguments of the JAX engine that belong to a later ROADMAP item
 _UNPORTED = {'mesh': 'ROADMAP A7 (parallelism)',
-             'partition_rules': 'ROADMAP A7 (parallelism)',
-             'fault_injector': 'ROADMAP A8 (fleet and observability)'}
+             'partition_rules': 'ROADMAP A7 (parallelism)'}
 
 
 def bucket_phase(bucket: int) -> str:
@@ -139,8 +139,7 @@ class InferenceEngine:
                  precompile: bool = True, fault_injector=None,
                  device='cuda'):
         for name, value in (('mesh', mesh),
-                            ('partition_rules', partition_rules),
-                            ('fault_injector', fault_injector)):
+                            ('partition_rules', partition_rules)):
             if value is not None:
                 raise ValueError(f'InferenceEngine({name}=...): its '
                                  f'machinery is not ported '
@@ -149,6 +148,7 @@ class InferenceEngine:
             raise ValueError(f'activation_dtype {activation_dtype} is not '
                              f'float32 or bfloat16')
         self.device = resolve_device(device)
+        self.fault_injector = fault_injector
         self.model_family = getattr(module, 'model_family', 'se3_v1')
         self.return_type = return_type
         self.activation_dtype = None if activation_dtype == torch.float32 \
@@ -360,7 +360,10 @@ class InferenceEngine:
         coords [B, bucket, 3], mask [B, bucket] -> the module's output of
         degree `return_type` on the engine's device, float32. Returns after
         the device has finished; the bucket's phase times the forward and
-        that synchronize (the inputs are placed before it)."""
+        that synchronize (the inputs are placed before it). The
+        fault injector's `engine_run` site fires first."""
+        if self.fault_injector is not None:
+            self.fault_injector.fire('engine_run', bucket=int(bucket))
         if bucket not in self.buckets:
             raise ValueError(f'{bucket} is not a configured bucket')
         if self._key(bucket) not in self._executables:

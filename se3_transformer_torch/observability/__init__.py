@@ -1,8 +1,10 @@
-"""Telemetry of the serve path: the port of se3_transformer_tpu/observability.
+"""Telemetry of the serve and training paths: the port of
+se3_transformer_tpu/observability.
 
-  * `metrics`: `MetricLogger`, the schema'd JSONL stream behind a
-    `run_meta` header (host, code, card name and power limit), and
-    `merge_windows`.
+  * `metrics`: `MetricAccumulator` (a training step's loss and gradient
+    norm summed on the device, one device-to-host copy a flush),
+    `MetricLogger`, the schema'd JSONL stream behind a `run_meta` header
+    (host, code, card name and power limit), and `merge_windows`.
   * `runtime`: `RetraceWatchdog`, the count of one-time host work (device
     constants built, the kernel library loaded) that must stay 0 after an
     engine's warmup, and `device_memory_stats`.
@@ -13,12 +15,12 @@
   * `costs`: the `cost` record body of one warmed bucket.
   * `slo`: mergeable fixed-boundary latency histograms.
 
-What JAX's package has beyond this (`MetricAccumulator`, report,
-profiling, tracing, the SLO aggregator) comes with ROADMAP A2.5 and A8.
+What JAX's package has beyond this (report, profiling, tracing, the SLO
+aggregator) comes with ROADMAP A8.
 """
 from .costs import cost_payload  # noqa: F401
 from .metrics import (  # noqa: F401
-    MetricLogger, collect_run_meta, merge_windows,
+    MetricAccumulator, MetricLogger, collect_run_meta, merge_windows,
 )
 from .runtime import (  # noqa: F401
     RetraceWarning, RetraceWatchdog, device_memory_stats,

@@ -1,12 +1,14 @@
-"""The schema'd JSONL metric stream: the port of
-se3_transformer_tpu/observability/metrics.py's host half.
+"""On-device metric accumulation and the schema'd JSONL metric stream: the
+port of se3_transformer_tpu/observability/metrics.py.
 
-`MetricLogger` writes one JSON record per line, each with `kind` and
-`run_id`, behind a `run_meta` header that names the host, the code and
-the card (its name and power limit: a time means little without them).
-`merge_windows` folds flushed {count, mean, min, max} windows into a
-run's cumulative view. The on-device `MetricAccumulator` of the training
-step comes with ROADMAP A2.5.
+`MetricAccumulator` is the hot-path half: running (sum, count, min, max)
+per metric as float32 tensors on the trainer's device, updated by a few
+tensor ops a step and no host sync. `flush()` fetches the whole window
+with one device-to-host copy. `MetricLogger` writes one JSON record per
+line, each with `kind` and `run_id`, behind a `run_meta` header that
+names the host, the code and the card (its name and power limit: a time
+means little without them). `merge_windows` folds flushed {count, mean,
+min, max} windows into a run's cumulative view.
 """
 from __future__ import annotations
 
@@ -16,11 +18,104 @@ import subprocess
 import threading
 import time
 import uuid
-from typing import Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 
 from .schema import SCHEMA_VERSION
+
+_STAT_FIELDS = ('sum', 'count', 'min', 'max')
+
+
+def _host_fetch(stats: Dict[str, Dict[str, torch.Tensor]]) -> dict:
+    """The one device-to-host copy of a flush: every statistic stacked on
+    the device, copied once, split on the host. Module-level so that tests
+    can count its calls."""
+    names = sorted(stats)
+    flat = torch.stack([stats[n][f] for n in names for f in _STAT_FIELDS])
+    values = iter(flat.cpu().tolist())
+    return {n: {f: next(values) for f in _STAT_FIELDS} for n in names}
+
+
+class MetricAccumulator:
+    """Running sum/count/min/max per metric, on the device.
+
+        acc = MetricAccumulator.zero(('loss', 'grad_norm'), device)
+        acc = acc.update(loss=losses, grad_norm=gnorm)   # no host sync
+        window, acc = acc.flush()      # one device-to-host copy
+
+    `update` takes scalars or tensors; a tensor counts element-wise (its
+    size adds to the count), so a per-micro-batch loss vector folds in
+    with honest min and max. Each statistic is a float32 0-d tensor on
+    `device`; `update` and `merge` return a new accumulator and leave
+    this one as it was, as JAX's pytree does.
+    """
+
+    __slots__ = ('stats', 'device')
+
+    def __init__(self, stats: Dict[str, Dict[str, torch.Tensor]],
+                 device='cpu'):
+        self.stats = stats
+        self.device = torch.device(device)
+
+    @classmethod
+    def zero(cls, names: Iterable[str], device='cpu') -> 'MetricAccumulator':
+        def full(v):
+            return torch.full((), v, dtype=torch.float32, device=device)
+        return cls({str(n): dict(sum=full(0.0), count=full(0.0),
+                                 min=full(float('inf')),
+                                 max=full(float('-inf')))
+                    for n in names}, device)
+
+    @property
+    def names(self):
+        return tuple(sorted(self.stats))
+
+    def update(self, **metrics) -> 'MetricAccumulator':
+        unknown = set(metrics) - set(self.stats)
+        if unknown:
+            raise KeyError(f'metrics {sorted(unknown)} were not declared at '
+                           f'zero() time; declared: {sorted(self.stats)}')
+        new = {}
+        for name, st in self.stats.items():
+            if name not in metrics:
+                new[name] = dict(st)
+                continue
+            v = torch.as_tensor(metrics[name], dtype=torch.float32,
+                                device=self.device).detach()
+            new[name] = dict(sum=st['sum'] + v.sum(),
+                             count=st['count'] + float(v.numel()),
+                             min=torch.minimum(st['min'], v.min()),
+                             max=torch.maximum(st['max'], v.max()))
+        return MetricAccumulator(new, self.device)
+
+    def merge(self, other: 'MetricAccumulator') -> 'MetricAccumulator':
+        if set(self.stats) != set(other.stats):
+            raise ValueError('metric sets differ')
+        return MetricAccumulator({
+            n: dict(sum=a['sum'] + b['sum'], count=a['count'] + b['count'],
+                    min=torch.minimum(a['min'], b['min']),
+                    max=torch.maximum(a['max'], b['max']))
+            for n, (a, b) in
+            ((n, (self.stats[n], other.stats[n])) for n in self.stats)},
+            self.device)
+
+    def flush(self):
+        """Fetch the window to the host (one copy) and reset.
+
+        Returns (window, fresh): window maps each metric to {count, mean,
+        min, max} (None statistics where the window saw no update), fresh
+        is a zeroed accumulator of the same names on the same device."""
+        host = _host_fetch(self.stats)
+        window = {}
+        for name, st in host.items():
+            c = st['count']
+            window[name] = dict(
+                count=int(c),
+                mean=(st['sum'] / c) if c else None,
+                min=st['min'] if c else None,
+                max=st['max'] if c else None)
+        return window, MetricAccumulator.zero(self.stats, self.device)
 
 
 def merge_windows(cum: Optional[dict], window: dict) -> dict:

@@ -1,35 +1,62 @@
-"""The telemetry-stream record contract of the serve path: the port's copy
-of se3_transformer_tpu/observability/schema.py for the record kinds the
-port writes (pure Python: validating a stream touches no device).
+"""The telemetry-stream record contract of the serve and training paths: the
+port's copy of se3_transformer_tpu/observability/schema.py for the record
+kinds the port writes (pure Python: validating a stream touches no
+device).
 
 A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
 
-  run_meta  stream header: schema_version, backend, code_rev, host
-            {hostname, pid, python, torch}, device metadata. MUST be the
-            first record of a stream.
-  step      per-step fields: step, t, free-form fields (the serve loop
-            writes one per rejected request).
-  serve     one per serving flush interval: requests {admitted, served,
-            rejected}, buckets (per-bucket latency {count, p50_ms,
-            p95_ms, p99_ms, max_ms}: p99 is REQUIRED here), queue_depth,
-            runtime (watchdog snapshot), post_warmup_compiles (REQUIRED:
-            the zero one-time-work-after-warmup contract rides this
-            field), optional latency_hist (mergeable per-bucket
-            histograms, validated when present).
-  cost      one per warmed bucket (observability.costs.cost_payload):
-            label, flops / bytes_accessed with the load-bearing `source`
-            (cost_analysis / hlo_estimate / unavailable), memory split
-            {argument_bytes, output_bytes, temp_bytes}, peak_bytes, and
-            the per-class collective {count, bytes} ledger.
-  summary   end-of-run cumulative record (steps, metrics, timing).
+  run_meta         stream header: schema_version, backend, code_rev, host
+                   {hostname, pid, python, torch}, device metadata. MUST
+                   be the first record of a stream.
+  step             per-step fields: step, t, free-form fields (the serve
+                   loop writes one per rejected request).
+  flush            one per training flush interval: step, window
+                   (per-metric {count, mean, min, max} from the on-device
+                   MetricAccumulator), timing (per-phase {count, p50_ms,
+                   p95_ms, max_ms, mean_ms}), runtime (the watchdog
+                   snapshot: compile_events, retraced, memory), optional
+                   nodes_steps_per_sec.
+  retrace_warning  one-time host work after the first step (the loud copy
+                   of the flush's `retraced` payload).
+  pipeline         one per flush interval (and one at close) of a
+                   pipelined training run: steps delivered, queue
+                   {capacity, depth_mean}, prefetch {depth, hits, stalls,
+                   hit_rate, host_wait_ms, place_ms}, a producer_bound /
+                   device_bound / balanced verdict, and the optional
+                   source {retries, skipped} of the BatchProducer.
+  serve            one per serving flush interval: requests {admitted,
+                   served, rejected}, buckets (per-bucket latency {count,
+                   p50_ms, p95_ms, p99_ms, max_ms}: p99 is REQUIRED
+                   here), queue_depth, runtime (watchdog snapshot),
+                   post_warmup_compiles (REQUIRED: the zero
+                   one-time-work-after-warmup contract rides this field),
+                   optional latency_hist (mergeable per-bucket histograms,
+                   validated when present).
+  cost             one per warmed bucket (observability.costs.cost_payload):
+                   label, flops / bytes_accessed with the load-bearing
+                   `source` (cost_analysis / hlo_estimate / unavailable),
+                   memory split {argument_bytes, output_bytes,
+                   temp_bytes}, peak_bytes, and the per-class collective
+                   {count, bytes} ledger.
+  guard            one per guarded training run (training.guardian): the
+                   counters {trips, rollbacks, restarts, skipped_batches,
+                   preemptions, injections_total}, cumulative across
+                   process restarts (the guardian's sidecar carries them
+                   over a kill), and the load-bearing `diverged` bit
+                   (final parameters non-finite, or a trip the rollback
+                   policy never paid down).
+  summary          end-of-run cumulative record (steps, metrics, timing);
+                   a training run's (DenoiseTrainer.telemetry_close) also
+                   carries label, retrace_warnings_total,
+                   nodes_steps_per_sec, loss_first, loss_last and
+                   loss_decreased.
 
 Every record the port writes validates under the JAX package's schema as
 well (SCHEMA_VERSION is the same). The other kinds of the JAX contract
-come with the slices that write them: flush, retrace_warning, pipeline
-and guard with ROADMAP A2.5; tune with A6; comm and mesh_sweep with A7;
-profile, fault, fleet, trace, slo, transport and the serve record's
-multi-replica fields with A8; flash, so2_sweep, v2_sweep, quant_ab and
-assembly with the benchmark's A/B records.
+come with the slices that write them: tune with ROADMAP A6; comm and
+mesh_sweep with A7; profile, fault, fleet, trace, slo, transport and the
+serve record's multi-replica fields with A8; flash, so2_sweep, v2_sweep,
+quant_ab and assembly with the benchmark's A/B records.
 """
 from __future__ import annotations
 
@@ -39,11 +66,17 @@ from typing import Iterable, Union
 
 SCHEMA_VERSION = 1
 
-KNOWN_KINDS = ('run_meta', 'step', 'serve', 'cost', 'summary')
+KNOWN_KINDS = ('run_meta', 'step', 'flush', 'retrace_warning', 'pipeline',
+               'serve', 'cost', 'guard', 'summary')
 
 _REQUIRED = {
     'run_meta': ('run_id', 'schema_version', 'backend', 'code_rev', 'host'),
     'step': ('run_id', 'step', 't'),
+    'flush': ('run_id', 'step', 'window', 'timing', 'runtime'),
+    'retrace_warning': ('run_id', 'retraced'),
+    # the verdict is the load-bearing field: a pipeline record that cannot
+    # say who waited on whom proves nothing
+    'pipeline': ('run_id', 'steps', 'queue', 'prefetch', 'verdict'),
     # post_warmup_compiles is the load-bearing field of the serving
     # contract (must be 0): a serve record without it is invalid
     'serve': ('run_id', 'requests', 'buckets', 'runtime', 'queue_depth',
@@ -52,6 +85,13 @@ _REQUIRED = {
     # cannot say where its numbers came from proves nothing
     'cost': ('run_id', 'label', 'source', 'flops', 'bytes_accessed',
              'memory', 'peak_bytes', 'collectives'),
+    # diverged is the load-bearing field of the training fault domain: a
+    # guard record that cannot say whether the run ended on finite,
+    # policy-clean parameters proves nothing (and injections_total 0
+    # proves nothing was exercised)
+    'guard': ('run_id', 'step', 'trips', 'rollbacks', 'restarts',
+              'skipped_batches', 'preemptions', 'injections_total',
+              'diverged'),
     'summary': ('run_id', 'steps', 'metrics', 'timing'),
 }
 
@@ -62,6 +102,10 @@ _TIMING_REQUIRED = ('count', 'p50_ms', 'p95_ms', 'max_ms')
 # serving SLOs are quoted at p99: a serve record without it is invalid
 _SERVE_TIMING_REQUIRED = _TIMING_REQUIRED + ('p99_ms',)
 _WINDOW_REQUIRED = ('count', 'mean', 'min', 'max')
+_PIPELINE_PREFETCH_REQUIRED = ('depth', 'hits', 'stalls')
+_PIPELINE_VERDICTS = ('producer_bound', 'device_bound', 'balanced')
+_GUARD_COUNTERS = ('trips', 'rollbacks', 'restarts', 'skipped_batches',
+                   'preemptions', 'injections_total')
 
 
 class SchemaError(ValueError):
@@ -154,7 +198,44 @@ def _validate_cost(rec, index):
             _fail(index, f'cost.collectives[{cls!r}] missing {missing}')
 
 
-def _validate_summary(rec, index):
+def _validate_pipeline(rec, index):
+    prefetch = rec['prefetch']
+    missing = [k for k in _PIPELINE_PREFETCH_REQUIRED
+               if not isinstance(prefetch, dict) or k not in prefetch]
+    if missing:
+        _fail(index, f'pipeline.prefetch missing {missing} '
+                     f'(hit/stall counts are the whole point)')
+    if not isinstance(rec['queue'], dict) or 'capacity' not in rec['queue']:
+        _fail(index, 'pipeline.queue must carry capacity')
+    if rec['verdict'] not in _PIPELINE_VERDICTS:
+        _fail(index, f'pipeline.verdict {rec["verdict"]!r} not in '
+                     f'{_PIPELINE_VERDICTS}')
+    # the BatchProducer's retry/skip counters are optional, validated
+    # when present
+    if 'source' in rec:
+        src = rec['source']
+        if not isinstance(src, dict):
+            _fail(index, 'pipeline.source must be an object')
+        for field in ('retries', 'skipped'):
+            val = src.get(field)
+            if not isinstance(val, int) or isinstance(val, bool) or val < 0:
+                _fail(index, f'pipeline.source.{field} must be a '
+                             f'non-negative int, got {val!r}')
+
+
+def _validate_guard(rec, index):
+    for field in _GUARD_COUNTERS + ('step',):
+        val = rec[field]
+        if not isinstance(val, int) or isinstance(val, bool) or val < 0:
+            _fail(index, f'guard.{field} must be a non-negative int, got '
+                         f'{val!r}')
+    if not isinstance(rec['diverged'], bool):
+        _fail(index, f'guard.diverged must be a bool, got '
+                     f'{rec["diverged"]!r}')
+
+
+def _validate_timing_and_window(rec, index):
+    """flush and summary: per-phase timing and the metric window."""
     timing = rec['timing']
     if not isinstance(timing, dict):
         _fail(index, 'timing must be an object')
@@ -164,7 +245,7 @@ def _validate_summary(rec, index):
         if missing:
             _fail(index, f'timing[{phase!r}] missing {missing} '
                          f'(per-phase p50/p95 are load-bearing)')
-    window = rec['metrics']
+    window = rec.get('window') if rec['kind'] == 'flush' else rec['metrics']
     if not isinstance(window, dict):
         _fail(index, 'metric window must be an object')
     for name, st in window.items():
@@ -195,8 +276,12 @@ def validate_record(rec: dict, index=None) -> dict:
         _validate_serve(rec, index)
     elif kind == 'cost':
         _validate_cost(rec, index)
-    elif kind == 'summary':
-        _validate_summary(rec, index)
+    elif kind == 'pipeline':
+        _validate_pipeline(rec, index)
+    elif kind == 'guard':
+        _validate_guard(rec, index)
+    elif kind in ('flush', 'summary'):
+        _validate_timing_and_window(rec, index)
     return rec
 
 

@@ -7,7 +7,10 @@ from .denoise import (
     flagship_batch, molecular_batch, property_loss, synthetic_protein_batch,
     synthetic_protein_batch_host,
 )
-from .guardian import PreemptionGuard
+from .guardian import (
+    RESUMABLE_RC, GuardConfig, GuardResult, PreemptionGuard, SpikeDetector,
+    StepGuard, TrainingFailed, resume_trainer, run_guarded,
+)
 from .pipeline import (
     BatchProducer, BatchProducerError, PipelineStats, dataset_batch_source,
     device_prefetch,

@@ -30,6 +30,12 @@ to load they warn and fall back to the next-newest step that does (an
 explicitly named `step=` fails hard). `last_restored_step` says which step
 answered. Retention is torn-step-aware: keep-last-k GC never deletes the
 newest step that restores (`verify_step`).
+
+Fault injection (faults.FaultInjector, `fault_injector=`): the
+`checkpoint_write` site fires before the durable write (ctx: step;
+exception and latency plans: a dying or slow writer), `checkpoint_written`
+after it (ctx: step, path; a `corrupt` plan tears the entry just written,
+so that the fallback above runs on demand).
 """
 from __future__ import annotations
 
@@ -120,10 +126,12 @@ class CheckpointManager:
     in-flight write and re-raises its failure."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 writer_timeout_s: float = 300.0,
+                 fault_injector=None, writer_timeout_s: float = 300.0,
                  model_family: Optional[str] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        # the checkpoint_write / checkpoint_written sites (module docstring)
+        self.fault_injector = fault_injector
         # the family guard: when set, every save stamps a step_<n>.meta.json
         # sidecar and every restore checks it; None = unguarded
         self.model_family = model_family
@@ -186,6 +194,8 @@ class CheckpointManager:
         file under a temporary name, then os.replace."""
         # rewriting a step voids its earlier integrity proof
         self._verified.discard(int(step))
+        if self.fault_injector is not None:
+            self.fault_injector.fire('checkpoint_write', step=int(step))
         path = self._path(step)
         tmp = path + '.tmp'
         torch.save(state, tmp)
@@ -193,6 +203,9 @@ class CheckpointManager:
         # the stamp after the entry: a crash between the two leaves an
         # unstamped but valid step, never a stamped but missing one
         self._write_meta(int(step))
+        if self.fault_injector is not None:
+            self.fault_injector.fire('checkpoint_written', step=int(step),
+                                     path=path)
 
     def save(self, step: int, state: Any):
         self.wait_until_finished()

@@ -1,7 +1,8 @@
 """The coordinate-denoising trainer: the port of
 se3_transformer_tpu/training/denoise.py (DenoiseConfig, the synthetic
-protein batches, denoise_loss_fn, DenoiseTrainer with train and
-train_pipelined) and of the step bench.py times
+protein batches, denoise_loss_fn, DenoiseTrainer with train,
+train_pipelined, its telemetry and train_guarded) and of the step bench.py
+times
 (parallel/sharding.py::make_sharded_train_step with optax.adam, and its
 grad-accumulation variant make_accumulating_train_step).
 
@@ -17,12 +18,23 @@ pipelined loop, checkpoints through training.checkpoint) or a built model
 molecular_edges, egnn_stress) with any loss of the trainer's signature
 (the counterpart of make_sharded_train_step(loss_fn)): `property_loss` is
 the molecular property regression of examples/molecular_property.py, on
-batches drawn by `molecular_batch`. Meshes, FSDP, telemetry and the
-guarded loop are not ported (ROADMAP A7, A8 and A2.5): their config fields
-refuse any value but their defaults.
+batches drawn by `molecular_batch`.
+
+With cfg.telemetry the step folds its loss (per micro-batch) and the global
+L2 norm of the gradients it applies into an on-device MetricAccumulator
+(no host sync), a PhaseTimer bills the process's first step to `warmup`
+and the rest to `step` (and times `data` and `checkpoint`), a
+RetraceWatchdog counts the one-time host work after the first step, and
+`train` / `train_pipelined` write one schema'd `flush` record every
+cfg.flush_every steps (one device-to-host copy each) and a `summary` at the
+end. `train_guarded` is training.guardian's self-healing loop. Meshes and
+FSDP (ROADMAP A7) and the `cost` record (ROADMAP A8) are not ported: their
+config fields refuse any value but their defaults.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import functools
 import itertools
@@ -114,8 +126,6 @@ UNPORTED_FIELDS = {
     'tensor_parallel': 'ROADMAP A7 (parallelism)',
     'fsdp': 'ROADMAP A7 (parallelism)',
     'composed': 'ROADMAP A7 (parallelism)',
-    'telemetry': 'ROADMAP A8 (fleet and observability)',
-    'flush_every': 'ROADMAP A8 (fleet and observability)',
     'cost_record': 'ROADMAP A8 (fleet and observability)',
 }
 
@@ -128,16 +138,17 @@ class DenoiseConfig:
     2, degrees 0 and 1 with a vector head, bonded attention over the 2-hop
     chain adjacency), the data (batch_size x num_nodes nodes, 96 = 32
     residues x 3 backbone atoms), Adam at learning_rate with accum_steps
-    micro-batches an update (the CLI's default is 16), the seed, and the
+    micro-batches an update (the CLI's default is 16), the seed, the
+    trainer telemetry (telemetry, flush_every: see DenoiseTrainer) and the
     pipelined data path (pipeline, prefetch_depth, producer_capacity).
     noise_scale is carried as JAX carries it: neither package's loss reads
     it (the coordinate noise is standard normal).
 
-    use_mesh, tensor_parallel, fsdp and composed (ROADMAP A7), telemetry,
-    flush_every and cost_record (ROADMAP A8) refuse any value but their
-    defaults. donate_batch is accepted and changes nothing: JAX donates the
-    batch's device buffers to the jitted step so that XLA may reuse them;
-    the port's step holds no reference to a batch past the call, so the
+    use_mesh, tensor_parallel, fsdp and composed (ROADMAP A7) and
+    cost_record (ROADMAP A8) refuse any value but their defaults.
+    donate_batch is accepted and changes nothing: JAX donates the batch's
+    device buffers to the jitted step so that XLA may reuse them; the
+    port's step holds no reference to a batch past the call, so the
     caching allocator reuses its memory as soon as the caller drops it,
     and there is nothing to donate."""
     num_tokens: int = 24
@@ -268,6 +279,12 @@ class DenoiseTrainer:
     checkpoint. torch's Adam updates them in place: a checkpoint must be
     taken as a snapshot (training.checkpoint does).
 
+    With cfg.telemetry the trainer keeps `metric_acc` (MetricAccumulator
+    of 'loss' and 'grad_norm' on its device), `phase_timer` and `watchdog`
+    (RetraceWatchdog, armed after the process's first step);
+    `telemetry_flush` and `telemetry_close` write the `flush` and `summary`
+    records (module docstring).
+
     Given a model, `lr`, `accum_steps` and `generator` (seeded 0 when
     None) are the arguments'."""
 
@@ -303,6 +320,26 @@ class DenoiseTrainer:
         # the config form initializes at its first step (or init()), as
         # JAX's trainer does
         self._initialized = self.cfg is None
+        self.metric_acc = None
+        self.phase_timer = None
+        self.watchdog = None
+        if self.cfg is not None and self.cfg.telemetry:
+            from ..observability import (
+                MetricAccumulator, PhaseTimer, RetraceWatchdog,
+            )
+            self.metric_acc = MetricAccumulator.zero(('loss', 'grad_norm'),
+                                                     self.device)
+            self.phase_timer = PhaseTimer()
+            self.watchdog = RetraceWatchdog(device=self.device)
+            self._cum_metrics = None     # the host-side merge of windows
+            self._flush_count = 0
+            self._last_flush_step = 0
+            self._first_loss = None      # device tensors, synced at close
+            self._last_loss = None
+            # the first step of this process (not of the run: a resumed
+            # trainer has step_count > 0) builds the device constants and
+            # loads the kernel library: billed to 'warmup'
+            self._warmed_up = False
 
     def _adam(self) -> torch.optim.Adam:
         return torch.optim.Adam(self.model.parameters(), lr=self.lr,
@@ -337,10 +374,13 @@ class DenoiseTrainer:
 
     def restore(self, state) -> None:
         """Adopt a (params, opt_state, step_count) checkpoint tuple (state
-        dicts on any device: each is copied onto the trainer's)."""
+        dicts on any device). Every tensor is copied onto the trainer's:
+        Adam updates its state in place, and the optimizer would adopt a
+        tensor already on its device and dtype as it is, so the trainer
+        shares no storage with `state`."""
         params, opt_state, step_count = state
         self.model.load_state_dict(params)
-        self.optimizer.load_state_dict(opt_state)
+        self.optimizer.load_state_dict(copy.deepcopy(opt_state))
         self.step_count = int(step_count)
         self._initialized = True
 
@@ -353,13 +393,32 @@ class DenoiseTrainer:
         """One optimizer step. `noise` (shaped like batch['coords']) is
         drawn from the trainer's generator when None. Returns the loss (the
         mean over micro-batches) as a device tensor, without a host
-        sync."""
+        sync. With cfg.telemetry the step is timed ('warmup' for the
+        process's first, 'step' after: dispatch time, no synchronize) and
+        its losses and gradient norm fold into `metric_acc`."""
         batch = self.to_device(batch)
-        single = self.accum_steps == 1
         if not self._initialized:
-            self.init(batch if single else {k: v[0] for k, v in batch.items()})
+            self.init(batch if self.accum_steps == 1
+                      else {k: v[0] for k, v in batch.items()})
         if noise is not None:
             noise = torch.as_tensor(noise, device=self.device)
+        if self.metric_acc is None:
+            return self._step(batch, noise)
+        with self.phase_timer.phase('step' if self._warmed_up
+                                    else 'warmup'):
+            loss = self._step(batch, noise)
+        if not self._warmed_up:
+            # one-time host work after this step is a regression
+            self._warmed_up = True
+            self.watchdog.arm()
+        if self._first_loss is None:
+            self._first_loss = loss
+        self._last_loss = loss
+        return loss
+
+    def _step(self, batch: Batch, noise: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+        single = self.accum_steps == 1
         self.optimizer.zero_grad(set_to_none=True)
         losses = []
         for j in range(self.accum_steps):
@@ -370,6 +429,15 @@ class DenoiseTrainer:
             (loss / self.accum_steps).backward()
             losses.append(loss.detach())
         micro_losses = torch.stack(losses)
+        if self.metric_acc is not None:
+            # the global L2 norm of the (averaged) gradients Adam applies,
+            # on the device: one norm per tensor, then the norm of those
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            self.metric_acc = self.metric_acc.update(loss=micro_losses,
+                                                     grad_norm=grad_norm)
         self.optimizer.step()
         self.last_micro_losses = None if single else micro_losses
         self.step_count += 1
@@ -420,42 +488,148 @@ class DenoiseTrainer:
     def _state(self):
         return (self.params, self.opt_state, self.step_count)
 
+    # ------------------------------------------------------------------ #
+    # telemetry: the flush cadence is the host's
+    # ------------------------------------------------------------------ #
+    def _telemetry(self):
+        if self.metric_acc is None:
+            raise RuntimeError('trainer telemetry needs '
+                               'DenoiseConfig(telemetry=True)')
+
+    def _phase(self, name: str):
+        """The phase timer's `name` phase, or nothing without telemetry."""
+        return self.phase_timer.phase(name) if self.phase_timer is not None \
+            else contextlib.nullcontext()
+
+    def _telemetry_label(self) -> str:
+        c = self.cfg
+        return (f'denoise,dim={c.dim},depth={c.depth},n={c.num_nodes},'
+                f'deg={c.num_degrees},accum={self.accum_steps}')
+
+    def telemetry_flush(self, metric_logger=None) -> dict:
+        """Flush the window: one device-to-host copy (the accumulator), the
+        phase percentiles and the watchdog's snapshot, as one schema'd
+        `flush` record (through `metric_logger` when given; a
+        `retrace_warning` record beside it when one-time host work ran
+        since the last check). Returns the record fields."""
+        from ..observability import merge_windows
+        self._telemetry()
+        window, self.metric_acc = self.metric_acc.flush()
+        timing = self.phase_timer.window_summary()
+        runtime = self.watchdog.check()
+        self._cum_metrics = merge_windows(self._cum_metrics, window)
+        self._flush_count += 1
+        fields = dict(step=self.step_count, window=window, timing=timing,
+                      runtime=runtime)
+        self._last_flush_step = self.step_count
+        step_t = timing.get('step')
+        if step_t and step_t['mean_ms'] > 0:
+            # the rate over the steps this window timed (the warmup step
+            # is billed to its own phase)
+            fields['nodes_steps_per_sec'] = round(
+                self._nodes_per_step() / (step_t['mean_ms'] / 1e3), 2)
+        if runtime['retraced'] and metric_logger is not None:
+            metric_logger.log_record('retrace_warning',
+                                     step=self.step_count,
+                                     retraced=runtime['retraced'])
+        if metric_logger is not None:
+            return metric_logger.log_record('flush', **fields)
+        return fields
+
+    def telemetry_close(self, metric_logger=None) -> dict:
+        """The residual window's flush and the cumulative `summary` record:
+        run-wide phase percentiles, the merged metric windows, throughput,
+        the first and last loss (the run's only other host syncs) and the
+        retrace warnings in all."""
+        self._telemetry()
+        if self.step_count > self._last_flush_step:
+            self.telemetry_flush(metric_logger)
+        steps = self.phase_timer.total_count('step')
+        total_step_s = self.phase_timer.total_seconds('step')
+        fields = dict(
+            steps=self.step_count,
+            label=self._telemetry_label(),
+            metrics=self._cum_metrics or {},
+            timing=self.phase_timer.cumulative_summary(),
+            retrace_warnings_total=self.watchdog.warnings_total)
+        if steps and total_step_s > 0:
+            fields['nodes_steps_per_sec'] = round(
+                self._nodes_per_step() * steps / total_step_s, 2)
+        if self._first_loss is not None:
+            first = float(self._first_loss)
+            last = float(self._last_loss)
+            fields.update(loss_first=round(first, 4),
+                          loss_last=round(last, 4),
+                          loss_decreased=bool(last < first)
+                          and bool(np.isfinite(first))
+                          and bool(np.isfinite(last)))
+        if metric_logger is not None:
+            return metric_logger.log_record('summary', **fields)
+        return fields
+
+    def _pipeline_record(self, stats, metric_logger=None) -> dict:
+        """One schema'd `pipeline` record of the prefetch stats."""
+        fields = dict(stats.snapshot(), step=self.step_count)
+        if metric_logger is not None:
+            return metric_logger.log_record('pipeline', **fields)
+        fields['kind'] = 'pipeline'
+        return fields
+
+    # ------------------------------------------------------------------ #
+    # the loops
+    # ------------------------------------------------------------------ #
     def train(self, num_steps: int, log=print, checkpoint_manager=None,
-              checkpoint_every: int = 0):
+              checkpoint_every: int = 0, metric_logger=None):
         """JAX's train loop: micro_batches() a step, a checkpoint every
         `checkpoint_every` steps through `checkpoint_manager`, a log record
-        every cfg.log_every steps (the only host syncs). With cfg.pipeline
-        it is train_pipelined. Returns the log records."""
+        every cfg.log_every steps (the only host syncs). With cfg.telemetry
+        the log records give way to a `flush` record every
+        cfg.flush_every steps and a `summary` at the end (through
+        `metric_logger` when given). With cfg.pipeline it is
+        train_pipelined. Returns the records."""
         cfg = self._config()
         if cfg.pipeline:
             return self.train_pipelined(
                 num_steps, log=log, checkpoint_manager=checkpoint_manager,
-                checkpoint_every=checkpoint_every)
+                checkpoint_every=checkpoint_every,
+                metric_logger=metric_logger)
+        telemetry = self.metric_acc is not None
         history = []
         t0 = time.time()
         for i in range(num_steps):
-            loss = self.train_step(self.micro_batches())
+            with self._phase('data'):
+                batch = self.micro_batches()
+            loss = self.train_step(batch)
             if (checkpoint_manager is not None and checkpoint_every > 0
                     and self.step_count % checkpoint_every == 0):
-                checkpoint_manager.save(self.step_count, self._state())
-            if (i + 1) % cfg.log_every == 0:
+                with self._phase('checkpoint'):
+                    checkpoint_manager.save(self.step_count, self._state())
+            if telemetry:
+                if (i + 1) % cfg.flush_every == 0:
+                    history.append(self.telemetry_flush(metric_logger))
+            elif (i + 1) % cfg.log_every == 0:
                 history.append(self._log_record(loss, i, t0, log))
+        if telemetry:
+            history.append(self.telemetry_close(metric_logger))
         return history
 
     def train_pipelined(self, num_steps: int, batch_source=None, log=print,
                         checkpoint_manager=None, checkpoint_every: int = 0,
-                        async_checkpoint: bool = True):
+                        metric_logger=None, async_checkpoint: bool = True):
         """`train` with the host off the critical path: batches built on a
         BatchProducer thread (default source: micro_batches_host; any
         iterator of host batch dicts, e.g. pipeline.dataset_batch_source,
         trains from files), placed cfg.prefetch_depth steps ahead by
         device_prefetch, and checkpoints written by save_async (whose
         snapshot is taken before it returns). Source exhaustion ends
-        training early; a source exception propagates. The last record
-        is the PipelineStats snapshot (hits, stalls, host wait,
-        verdict)."""
+        training early; a source exception propagates. With cfg.telemetry
+        the flush records gain `host_wait` and `prefetch` phases and every
+        flush writes a `pipeline` record too. The last record is the
+        PipelineStats snapshot (hits, stalls, host wait, verdict) as a
+        `pipeline` record."""
         from .pipeline import BatchProducer, PipelineStats, device_prefetch
         cfg = self._config()
+        telemetry = self.metric_acc is not None
         if batch_source is None:
             batch_source = (self.micro_batches_host()
                             for _ in range(num_steps))
@@ -467,30 +641,48 @@ class DenoiseTrainer:
                            capacity=cfg.producer_capacity) as producer:
             stats.bind_source(producer)
             batches = device_prefetch(producer, depth=cfg.prefetch_depth,
-                                      device=self.device, stats=stats)
+                                      device=self.device, stats=stats,
+                                      phase_timer=self.phase_timer)
             for i, batch in enumerate(itertools.islice(batches, num_steps)):
                 loss = self.train_step(batch)
                 if (checkpoint_manager is not None and checkpoint_every > 0
                         and self.step_count % checkpoint_every == 0):
-                    if async_checkpoint:
-                        checkpoint_manager.save_async(self.step_count,
-                                                      self._state())
-                    else:
-                        checkpoint_manager.save(self.step_count,
-                                                self._state())
-                if (i + 1) % cfg.log_every == 0:
+                    with self._phase('checkpoint'):
+                        if async_checkpoint:
+                            checkpoint_manager.save_async(self.step_count,
+                                                          self._state())
+                        else:
+                            checkpoint_manager.save(self.step_count,
+                                                    self._state())
+                if telemetry:
+                    if (i + 1) % cfg.flush_every == 0:
+                        history.append(self.telemetry_flush(metric_logger))
+                        history.append(self._pipeline_record(
+                            stats, metric_logger))
+                elif (i + 1) % cfg.log_every == 0:
                     history.append(self._log_record(
                         loss, i, t0, log, f' [pipelined: {stats.hits} hits '
                         f'{stats.stalls} stalls]'))
         if checkpoint_manager is not None:
             checkpoint_manager.wait_until_finished()
-        history.append(dict(stats.snapshot(), kind='pipeline',
-                            step=self.step_count))
+        if telemetry:
+            history.append(self.telemetry_close(metric_logger))
+        history.append(self._pipeline_record(stats, metric_logger))
         return history
 
-    def train_guarded(self, *args, **kwargs):
-        """JAX's self-healing loop (training/guardian.py) is not ported."""
-        raise NotImplementedError(
-            'train_guarded: the guarded training loop (training/guardian.py:'
-            ' NaN/spike rollback, preemption-safe saves) is not ported: '
-            'ROADMAP A2.5')
+    def train_guarded(self, num_steps: int, checkpoint_manager, guard=None,
+                      injector=None, metric_logger=None,
+                      restart: bool = False, step_hook=None, log=print):
+        """`train` inside the training fault domain (training.guardian's
+        run_guarded): window-level non-finite and spike detection off the
+        telemetry accumulator (no extra host sync on clean steps), bounded
+        rollback to the newest restorable checkpoint with deterministic
+        replay, SIGTERM/SIGINT -> one synchronous emergency save and a
+        resumable exit, and a schema'd `guard` record. Needs
+        cfg.telemetry; honours cfg.pipeline. Returns a GuardResult
+        (`.exit_code`: 0 clean, 1 diverged, 75 preempted and
+        resumable)."""
+        from .guardian import run_guarded
+        return run_guarded(self, num_steps, checkpoint_manager, guard=guard,
+                           injector=injector, metric_logger=metric_logger,
+                           restart=restart, step_hook=step_hook, log=log)

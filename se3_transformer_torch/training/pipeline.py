@@ -80,14 +80,17 @@ class BatchProducer:
     ``source`` section) and move on. Only a spent skip budget raises
     `BatchProducerError`. Retry can re-pull a ``build_fn`` source at
     the same index; a plain generator is DEAD after it raises (a
-    re-next would silently end the stream), so an iterator source's
-    error fails loud at once.
+    re-next would silently end the stream), so for an iterator source
+    retry applies only to faults raised BEFORE the pull: the
+    ``fault_injector``'s ``fault_site`` (default ``batch_source``, ctx:
+    index), fired once per pull on the producer thread.
     """
 
     def __init__(self, source: Union[Iterable, Callable[[int], Any]],
                  capacity: int = 4, name: str = 'batch-producer',
                  max_retries: int = 0, retry_backoff_s: float = 0.05,
-                 retry_backoff_max_s: float = 2.0, max_skips: int = 0):
+                 retry_backoff_max_s: float = 2.0, max_skips: int = 0,
+                 fault_injector=None, fault_site: str = 'batch_source'):
         if capacity < 1:
             raise ValueError(f'capacity must be >= 1, got {capacity}')
         self._build_fn = None
@@ -102,6 +105,8 @@ class BatchProducer:
         self.retry_backoff_s = float(retry_backoff_s)
         self.retry_backoff_max_s = float(retry_backoff_max_s)
         self.max_skips = int(max_skips)
+        self.fault_injector = fault_injector
+        self.fault_site = fault_site
         self._q: queue.Queue = queue.Queue(maxsize=capacity)
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
@@ -110,6 +115,7 @@ class BatchProducer:
         self.gets = 0            # batches the consumer received
         self.retries = 0         # transient source errors retried away
         self.skipped = 0         # poison batches dropped after retries
+        self._restartable = True  # the last pull's failure may retry/skip
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name=name)
         self._thread.start()
@@ -142,14 +148,30 @@ class BatchProducer:
         """One source pull with the transient-retry policy. Raises
         StopIteration on exhaustion; re-raises the source error once the
         retry budget is spent (the skip policy is the caller's). Only a
-        `build_fn` error retries: the same index can be pulled again. A
-        plain generator is dead once it raises (a re-next would return
+        restartable failure retries: an injected fault (raised before the
+        pull) or a `build_fn` error (the same index can be pulled again).
+        A plain generator is dead once it raises (a re-next would return
         StopIteration and truncate the stream as clean exhaustion), so an
         iterator source's error fails loud at once."""
-        if self._build_fn is None:
-            return next(self._it)
         attempts = 0
+        self._restartable = True
         while True:
+            if self.fault_injector is not None:
+                try:
+                    self.fault_injector.fire(self.fault_site,
+                                             index=int(index))
+                except Exception:
+                    attempts = self._backoff_or_raise(attempts)
+                    continue
+            if self._build_fn is None:
+                try:
+                    return next(self._it)
+                except StopIteration:
+                    raise
+                except Exception:
+                    # the generator is dead: no retry, and no skip either
+                    self._restartable = False
+                    raise
             try:
                 return self._build_fn(index)
             except StopIteration:
@@ -170,6 +192,7 @@ class BatchProducer:
                     # build_fn source maps indices to items (a dead
                     # generator has no next item to move on to)
                     if self._build_fn is not None \
+                            and self._restartable \
                             and self.skipped < self.max_skips:
                         self.skipped += 1
                         index += 1
@@ -389,7 +412,8 @@ def _place_on(device: torch.device, stream) -> Callable[[Any], Any]:
 
 def device_prefetch(iterator: Iterable, depth: int = 2, device='cuda',
                     stats: Optional[PipelineStats] = None,
-                    stall_threshold_s: float = 1e-3) -> Iterator:
+                    stall_threshold_s: float = 1e-3,
+                    phase_timer=None) -> Iterator:
     """Keep `depth` batches on `device` ahead of the consumer.
 
     The host-to-device copies of batch N+k are issued from pinned memory
@@ -404,7 +428,9 @@ def device_prefetch(iterator: Iterable, depth: int = 2, device='cuda',
     loop yields tensors (copies of the numpy leaves).
 
     `stats` (PipelineStats) accumulates the hits, stalls, host wait and
-    placement time. Yields every batch of `iterator` in order; terminates
+    placement time; `phase_timer` (observability.PhaseTimer) gets a
+    `host_wait` sample for every pull and a `prefetch` sample for every
+    placement (host time: the copies are queued, not waited for). Yields every batch of `iterator` in order; terminates
     when the source is exhausted; source exceptions propagate to the
     consumer."""
     if depth < 1:
@@ -420,13 +446,18 @@ def device_prefetch(iterator: Iterable, depth: int = 2, device='cuda',
         t0 = time.perf_counter()
         item = next(it)                      # may raise StopIteration
         waited = time.perf_counter() - t0
+        if phase_timer is not None:
+            phase_timer.record('host_wait', waited)
         if stats is not None:
             stats.record_pull(
                 waited, size_probe() if size_probe is not None else None)
         t1 = time.perf_counter()
         placed = place(item)
+        dt = time.perf_counter() - t1
+        if phase_timer is not None:
+            phase_timer.record('prefetch', dt)
         if stats is not None:
-            stats.place_s += time.perf_counter() - t1
+            stats.place_s += dt
         return placed
 
     def hand_over(placed):

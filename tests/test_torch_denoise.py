@@ -41,8 +41,19 @@ def test_config_fields_and_defaults_are_jax_s():
     ('telemetry', True, 'A8'), ('flush_every', 5, 'A8'),
     ('cost_record', True, 'A8')])
 def test_unported_fields_refuse_with_their_roadmap_item(field, value, item):
-    with pytest.raises(ValueError, match=f'ROADMAP {item}'):
-        tden.DenoiseConfig(**{field: value})
+    """The fields whose machinery is not ported refuse with their ROADMAP
+    item; telemetry and flush_every, ported with the guarded loop, are
+    accepted and give the trainer its telemetry."""
+    if field in tden.UNPORTED_FIELDS:
+        with pytest.raises(ValueError, match=f'ROADMAP {item}'):
+            tden.DenoiseConfig(**{field: value})
+    else:
+        cfg = tden.DenoiseConfig(num_nodes=12, **{field: value})
+        assert getattr(cfg, field) == value
+        trainer = tden.DenoiseTrainer(cfg, device='cpu')
+        assert (trainer.metric_acc is not None) == cfg.telemetry
+    assert set(tden.UNPORTED_FIELDS) == {'use_mesh', 'tensor_parallel',
+                                         'fsdp', 'composed', 'cost_record'}
     # donate_batch has no torch counterpart and is accepted
     assert tden.DenoiseConfig(donate_batch=True).donate_batch
 
@@ -167,7 +178,8 @@ def test_trainer_three_steps_match_jax():
 def test_trainer_surface_and_refusals():
     tr = tden.DenoiseTrainer(tden.DenoiseConfig(num_nodes=12, accum_steps=2),
                              device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP A2.5'):
+    # the guarded loop rides the telemetry accumulator
+    with pytest.raises(ValueError, match='telemetry=True'):
         tr.train_guarded(1, None)
     host = tr.micro_batches_host()
     assert host['seqs'].shape == (2, 1, 12) and host['adj_mat'].shape == \
@@ -195,6 +207,18 @@ def test_trainer_surface_and_refusals():
 @pytest.mark.parametrize('flag', ['--mesh', '--telemetry', '--guarded',
                                   '--metrics'])
 def test_cli_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        cli.parse_args([flag])
-    assert 'ROADMAP A' in capsys.readouterr().err
+    """--mesh is still refused with its ROADMAP item; --telemetry,
+    --guarded (with its --ckpt-dir) and --metrics, ported with the guarded
+    loop, parse as denoise.py's."""
+    if flag in cli.UNPORTED_FLAGS:
+        with pytest.raises(SystemExit):
+            cli.parse_args([flag])
+        assert 'ROADMAP A' in capsys.readouterr().err
+        return
+    argv = {'--telemetry': ['--telemetry'],
+            '--guarded': ['--guarded', '--ckpt-dir', 'd'],
+            '--metrics': ['--metrics', 'm.jsonl']}[flag]
+    args = cli.parse_args(argv)
+    assert args.telemetry == (flag != '--metrics')
+    assert args.guarded == (flag == '--guarded')
+    assert args.metrics == ('m.jsonl' if flag == '--metrics' else None)

@@ -1,11 +1,13 @@
 """The port's observability primitives (se3_transformer_torch.observability,
 and training.guardian's PreemptionGuard) against the JAX package's on the
 CPU: the record schema accepts and refuses the same records (the records
-of tests/test_inference.py::test_serve_record_schema_requires_p99 and
-broken ones), the latency histograms, PhaseTimer summaries and
-merge_windows give the same numbers on the same samples, the logger's
-stream and the cost record body validate under JAX's schema, the
-one-time-work watchdog, and the preemption guard."""
+of tests/test_inference.py::test_serve_record_schema_requires_p99, the
+training kinds flush, retrace_warning, pipeline and guard, and broken
+ones), the latency histograms, PhaseTimer summaries and merge_windows give
+the same numbers on the same samples, MetricAccumulator gives JAX's
+windows over the same values and fetches once a flush (never in a step),
+the logger's stream and the cost record body validate under JAX's schema,
+the one-time-work watchdog, and the preemption guard."""
 import json
 import signal
 import threading
@@ -20,6 +22,7 @@ from se3_transformer_tpu.observability import slo as jslo
 from se3_transformer_tpu.observability import timing as jtiming
 from se3_transformer_tpu.training.guardian import PreemptionGuard as JGuard
 from se3_transformer_torch import observability as obs
+from se3_transformer_torch.observability import metrics as tmetrics
 from se3_transformer_torch.observability import schema as tschema
 from se3_transformer_torch.training.guardian import PreemptionGuard
 from se3_transformer_torch.utils.helpers import ONE_TIME_WORK, device_constant
@@ -66,7 +69,72 @@ def _summary(**over):
     return rec
 
 
+def _flush(**over):
+    rec = dict(kind='flush', run_id='r', step=4,
+               window=dict(loss=dict(count=4, mean=1.0, min=0.5, max=1.5),
+                           grad_norm=dict(count=0, mean=None, min=None,
+                                          max=None)),
+               timing={'step': dict(count=2, p50_ms=1.0, p95_ms=2.0,
+                                    max_ms=3.0, mean_ms=1.5)},
+               runtime=dict(compile_events=3, compile_events_delta=0,
+                            retraced=[], memory=None))
+    rec.update(over)
+    return rec
+
+
+def _pipeline(**over):
+    rec = dict(kind='pipeline', run_id='r', steps=4, step=4,
+               queue=dict(capacity=4, depth_mean=1.5),
+               prefetch=dict(depth=2, hits=3, stalls=1, hit_rate=0.75,
+                             host_wait_ms=1.0, place_ms=0.5),
+               verdict='balanced', source=dict(retries=1, skipped=0))
+    rec.update(over)
+    return rec
+
+
+def _guard(**over):
+    rec = dict(kind='guard', run_id='r', step=8, trips=2, rollbacks=2,
+               restarts=1, skipped_batches=0, preemptions=1,
+               injections_total=2, diverged=False,
+               injections_by_site={'step_batch:nan': 1})
+    rec.update(over)
+    return rec
+
+
 RECORDS = {
+    'flush': _flush(),
+    'flush_window_missing': {k: v for k, v in _flush().items()
+                             if k != 'window'},
+    'flush_window_without_mean': _flush(window=dict(loss=dict(
+        count=1, min=1.0, max=1.0))),
+    'flush_timing_without_p95': _flush(timing={'step': dict(
+        count=1, p50_ms=1.0, max_ms=1.0)}),
+    'flush_runtime_missing': {k: v for k, v in _flush().items()
+                              if k != 'runtime'},
+    'retrace_warning': dict(kind='retrace_warning', run_id='r', step=3,
+                            retraced=[dict(events=1)]),
+    'retrace_warning_empty': dict(kind='retrace_warning', run_id='r'),
+    'pipeline': _pipeline(),
+    'pipeline_no_source': {k: v for k, v in _pipeline().items()
+                           if k != 'source'},
+    'pipeline_bad_verdict': _pipeline(verdict='host_bound'),
+    'pipeline_prefetch_without_stalls': _pipeline(prefetch=dict(depth=2,
+                                                                hits=3)),
+    'pipeline_queue_without_capacity': _pipeline(queue=dict(depth_mean=1)),
+    'pipeline_source_negative': _pipeline(source=dict(retries=-1,
+                                                      skipped=0)),
+    'pipeline_source_bool': _pipeline(source=dict(retries=True,
+                                                  skipped=0)),
+    'guard': _guard(),
+    'guard_diverged_int': _guard(diverged=0),
+    'guard_float_counter': _guard(rollbacks=2.0),
+    'guard_negative_step': _guard(step=-1),
+    'guard_without_injections': {k: v for k, v in _guard().items()
+                                 if k != 'injections_total'},
+    'summary_training': _summary(
+        label='denoise,dim=8', retrace_warnings_total=0,
+        nodes_steps_per_sec=12.5, loss_first=3.1, loss_last=2.2,
+        loss_decreased=True),
     'serve': _serve(),
     'serve_p99_missing': _serve(buckets={'64': dict(
         count=2, p50_ms=1.0, p95_ms=2.0, max_ms=3.0)}),
@@ -115,7 +183,10 @@ def test_schema_accepts_and_refuses_as_jax_does(name):
     refused = _refused(jschema.validate_record, rec)
     assert _refused(tschema.validate_record, rec) == refused
     assert refused == (name not in ('serve', 'serve_latency_hist', 'cost',
-                                    'summary', 'step'))
+                                    'summary', 'step', 'flush',
+                                    'retrace_warning', 'pipeline',
+                                    'pipeline_no_source', 'guard',
+                                    'summary_training'))
 
 
 def test_stream_rules_and_logger_stream_match_jax(tmp_path):
@@ -258,3 +329,97 @@ def test_preemption_guard_matches_jax():
         guard = cls()
         guard.request_stop('drill')
         assert guard.stop_requested and guard.signame == 'drill'
+
+
+# ---------------------------------------------------------------------- #
+# MetricAccumulator
+# ---------------------------------------------------------------------- #
+def _updates(seed):
+    rng = np.random.RandomState(seed)
+    return [dict(loss=rng.normal(size=4).astype(np.float32),
+                 grad_norm=np.float32(rng.exponential())),
+            dict(loss=np.float32(rng.normal())),
+            dict(grad_norm=rng.exponential(size=(2, 3)).astype(np.float32)),
+            dict(loss=np.array([np.inf, -2.5, 0.5], np.float32))]
+
+
+@pytest.mark.parametrize('case', ['scalars_and_vectors', 'merge', 'empty',
+                                  'exact'])
+def test_metric_accumulator_windows_match_jax(case):
+    """The same updates through the port's accumulator and JAX's: the same
+    {count, mean, min, max} windows (count, min and max exactly; the mean
+    within float32's rounding of the sum, whose order may differ; exactly
+    where the sums are exact), and a zeroed accumulator after each
+    flush."""
+    names = ('loss', 'grad_norm')
+    ours = obs.MetricAccumulator.zero(names)
+    ref = jmetrics.MetricAccumulator.zero(names)
+    if case == 'exact':
+        ups = [dict(loss=np.array([0.5, 1.25, -2.0], np.float32),
+                    grad_norm=np.float32(3.0)),
+               dict(loss=np.float32(0.25))]
+    else:
+        ups = [] if case == 'empty' else _updates(3)
+    for up in ups:
+        ours = ours.update(**{k: torch.from_numpy(np.array(v))
+                              for k, v in up.items()})
+        ref = ref.update(**up)
+    if case == 'merge':
+        other, jother = obs.MetricAccumulator.zero(names), \
+            jmetrics.MetricAccumulator.zero(names)
+        for up in _updates(4):
+            other = other.update(**up)
+            jother = jother.update(**up)
+        ours, ref = ours.merge(other), ref.merge(jother)
+    got, ours = ours.flush()
+    want, ref = ref.flush()
+    assert sorted(got) == sorted(want)
+    for name in want:
+        for key in ('count', 'min', 'max'):
+            assert got[name][key] == want[name][key], (name, key)
+        if case in ('empty', 'exact') or want[name]['mean'] is None \
+                or not np.isfinite(want[name]['mean']):
+            assert got[name]['mean'] == want[name]['mean'] or (
+                np.isnan(got[name]['mean']) and np.isnan(want[name]['mean']))
+        else:
+            assert abs(got[name]['mean'] - want[name]['mean']) <= \
+                1e-6 * abs(want[name]['mean']) * got[name]['count']
+    assert ours.flush()[0] == ref.flush()[0] == {
+        n: dict(count=0, mean=None, min=None, max=None) for n in names}
+    with pytest.raises(KeyError, match='not declared'):
+        ours.update(lr=1.0)
+
+
+def test_telemetry_step_fetches_nothing_and_a_flush_fetches_once(
+        monkeypatch):
+    """The CPU half of the no-sync contract: a telemetry train_step never
+    reaches the accumulator's host fetch, and telemetry_flush reaches it
+    exactly once (on a card, chip_smoke's denoise_guarded phase counts the
+    synchronizing calls themselves)."""
+    from se3_transformer_torch.training import denoise as tden
+    calls = []
+    inner = tmetrics._host_fetch
+
+    def counted(stats):
+        calls.append(len(stats))
+        return inner(stats)
+    monkeypatch.setattr(tmetrics, '_host_fetch', counted)
+    trainer = tden.DenoiseTrainer(tden.DenoiseConfig(
+        num_nodes=12, accum_steps=2, telemetry=True, flush_every=2),
+        device='cpu')
+    for _ in range(2):
+        trainer.train_step(trainer.micro_batches_host())
+    assert calls == []
+    rec = trainer.telemetry_flush()
+    assert calls == [2]
+    assert rec['window']['loss']['count'] == 4
+    assert rec['window']['grad_norm']['count'] == 2
+    assert set(rec['timing']) == {'warmup', 'step'}
+    assert rec['runtime']['compile_events_delta'] == 0
+    summary = trainer.telemetry_close()
+    assert calls == [2]       # nothing left to flush
+    assert summary['steps'] == 2 and summary['retrace_warnings_total'] == 0
+    assert np.isfinite(summary['loss_first'])
+    for kind, fields in (('flush', rec), ('summary', summary)):
+        for schema in (tschema, jschema):
+            schema.validate_record(dict(fields, kind=kind, run_id='r'))

@@ -35,6 +35,7 @@ from se3_transformer_torch import CheckpointManager, ModelFamilyMismatch
 from se3_transformer_torch import convert_flax_params
 from se3_transformer_torch import inference as tinf
 from se3_transformer_torch.basis import _qj_tensor
+from se3_transformer_torch.faults import FaultInjector, InjectedFault
 from se3_transformer_torch.inference import admission as tadmission
 from se3_transformer_torch.inference import serve as tserve
 from se3_transformer_torch.inference import stats as tstats
@@ -364,11 +365,20 @@ def test_engine_surface_matches_jax(jax_engine, port_engine):
         port_engine.predict(*_requests(5, (25,))[0])
     assert e.value.to_record() == jadmission.oversize_error(25, 24) \
         .to_record()
-    for field, value in (('mesh', object()), ('partition_rules', 'tp'),
-                         ('fault_injector', object())):
-        with pytest.raises(ValueError, match='ROADMAP A[78]'):
+    for field, value in (('mesh', object()), ('partition_rules', 'tp')):
+        with pytest.raises(ValueError, match='ROADMAP A7'):
             tinf.InferenceEngine(_port_module(), device='cpu',
                                  precompile=False, **{field: value})
+    # fault_injector is ported: JAX's engine_run site, first thing in run()
+    inj = FaultInjector(seed=0)
+    inj.plan('engine_run', 'exception', at=(1,))
+    engine = tinf.InferenceEngine(_port_module(), device='cpu',
+                                  precompile=False, fault_injector=inj)
+    toks, crds = zip(*_requests(5, (20,)))
+    with pytest.raises(InjectedFault, match='engine_run'):
+        engine.run(24, *tinf.pad_to_bucket(list(toks), list(crds), 24))
+    assert inj.injected == [dict(site='engine_run', kind='exception',
+                                 call=1, bucket=24)]
 
 
 @pytest.mark.parametrize('mode', ['bf16', 'int8_mix'])

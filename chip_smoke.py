@@ -110,12 +110,13 @@ failure:
               heads, k=32, random seeded weights; the tie, so2, quant and
               conv_bf16 variants at VARIANT_DEPTH) served by InferenceEngine
               at bucket 1024: finite outputs, exactly the counted kernel
-              launches per request (flagship_fast: 200 bxf; with
-              pallas_attention=True also 24 fused-attention forwards; with
-              fuse_pairwise=True 8 bxf and 24 streaming attentions, and 8
-              bxf and 8 tied ones with tie_key_values and use_null_kv at
-              VARIANT_DEPTH 2 (#7's tied variant, the [null, self]
-              prefix); flagship: 424 fwd, no bxf),
+              launches per request (at DEPTH 4: flagship_fast: 136 bxf;
+              with pallas_attention=True, at VARIANT_DEPTH 2, 72 bxf and 8
+              fused-attention forwards; with fuse_pairwise=True 8 bxf and
+              16 streaming attentions, and 8 bxf and 8 tied ones with
+              tie_key_values and use_null_kv at VARIANT_DEPTH 2 (#7's
+              tied variant, the [null, self] prefix); flagship: 296 fwd,
+              no bxf),
               rotation invariance of the scalar
               output; af2_refinement (dim 32, depth 2, degrees 0 and 1, k 12,
               a radial trunk per pair) on requests of 32 features: 16 fwd
@@ -151,13 +152,14 @@ failure:
               reduce_dim_out=True) at n=1024 with Adam, for flagship_fast,
               flagship_fast(pallas_attention=True) and flagship: finite
               decreasing losses, finite gradients, exactly the counted
-              launches per step (flagship_fast, save_conv_outputs: 204
-              forward, 200 + 200 backward, 396 forward under remat_policy
-              None, and with pallas_attention 48 attention forwards (the
-              checkpoint replay recomputes them) and 24 backwards; with
-              tie_key_values (no to_k convs, at VARIANT_DEPTH 2) 44
-              forward, 40 + 40 backward; flagship, no policy: 816
-              forward, 424 + 424 backward, 432 forward under
+              launches per step (at DEPTH 4: flagship_fast,
+              save_conv_outputs: 140 forward, 136 + 136 backward, 268
+              forward under remat_policy None; with pallas_attention, at
+              VARIANT_DEPTH 2, 76 forward, 72 + 72 backward, 16 attention
+              forwards (the checkpoint replay recomputes them) and 8
+              backwards; with tie_key_values (no to_k convs, at
+              VARIANT_DEPTH 2) 44 forward, 40 + 40 backward; flagship, no
+              policy: 560 forward, 296 + 296 backward, 304 forward under
               save_conv_outputs;
               af2_refinement: 16 + 6 narrow fwd, 16 + 4 narrow A and as
               many B; molecular_edges: property_loss on its pooled scalar
@@ -210,6 +212,21 @@ failure:
               128 channels (O = 128, two O tiles): without grad it launches
               #1 / #3, with grad kernels A and B too, routing nothing; card
               vs CPU. Every main path above and below shows .routed == 0.
+  v2          the SE3TransformerV2 family (se3_transformer_torch.v2) on the
+              mid-32, two-row arms of #3, A and B: each arm against its
+              plain version (KERNEL_RTOL) and timed beside the library
+              einsum and its bound at the hidden V2ConvSE3's seven
+              distinct (P, IF) shapes (E = 32768, O = 64, float32 h; two
+              with bf16 h), conv_in's, and the JAX sweep's shapes on the
+              narrow arms (O = 8, E = 1536); `v2_unit` lines weigh the
+              hidden shapes by the block's 28 launches. Then the model
+              (dim 64, depth 2, degree 6, k 32, mid 32, the S2 grid
+              nonlinearity, float32; flagship_fast's graph and widths)
+              served at bucket 1024 (requests of 1024, 1000, 700 nodes;
+              exactly v2_counts()'s launches, all by the mid-32 arm,
+              nothing routed; equivariance of the vector output within
+              V2_EQUIVARIANCE_RTOL; a profiled request) and trained for 1
+              + 3 steps (vector head, Adam 1e-4, n 1024; a profiled step).
   8. reference  small models of both flagship recipes, both attention knobs
               (fuse_pairwise also tied with the null slot; pallas_attention
               also with one kv head and the null slot) and af2_refinement's
@@ -268,8 +285,10 @@ REF_RTOL_BF16 = 1e-3
 # which the backward passes through every bf16 op of the radial trunk)
 REF_GRAD_RTOL_F32 = 1e-3
 REF_GRAD_RTOL_BF16 = 5e-2
-# both recipes at full width and depth (dim 64, DEPTH blocks of 2 convs)
-DEPTH = 6
+# both recipes at full width (dim 64) and DEPTH blocks of 2 convs: 6 before
+# the V2 phases came, cut to 4 (and the pallas_attention paths to
+# VARIANT_DEPTH) to keep the smoke inside its time limit with them
+DEPTH = 4
 TRUNK_CONVS = 2 * DEPTH
 # forward launches of one flagship_fast(output_degrees=2) forward: conv_in
 # 1x4 pairs, DEPTH blocks x 2 convs x 4x4 pairs, conv_out 4x2 pairs. The
@@ -357,13 +376,64 @@ def variant_counts(depth=VARIANT_DEPTH):
 # narrow-O arm a forward, and of A's and B's a training step
 EGNN_N = 512
 EGNN_NARROW = 2
+# the SE3TransformerV2 family (ROADMAP A5) at flagship_fast's graph and
+# widths (n 1024, k 32, dim 64) and degree 6, the degree the family exists
+# for (PERF_BUDGETS.json: v2_sweep), depth 2 (the module's default and the
+# JAX sweep's, bench.py): mid 32, the full band, the S2 grid nonlinearity,
+# float32. Every contraction is one launch of #3's mid-32 arm per (output
+# degree, m) of each V2ConvSE3 (v2_launch_shapes), O = 64: P = 1 at m = 0,
+# P = 2 (the -m, +m rows) past it.
+V2_DIM, V2_DEPTH, V2_N, V2_K = 64, 2, 1024, 32
+V2_MODEL = dict(num_degrees=7, num_neighbors=V2_K)
+V2_E = V2_N * V2_K
+# the JAX sweep's V2 shape (bench.py's v2 sweep: dim 8, n 128, k 12, degree
+# 6): every launch on the narrow arms (O = 8)
+V2_SWEEP_DIM, V2_SWEEP_E = 8, 128 * 12
+# equivariance of the served vector output, relative to max|out|: the
+# kernels' three-pass products (within 2^-17 of float32 each) through 4
+# convs and 3 activations. It is served on an N/CA/C backbone
+# (BACKBONE_BONDS): with one bond length a node's two chain neighbors tie,
+# and a rotation may flip which of them a k-nearest cut keeps.
+V2_EQUIVARIANCE_RTOL = 1e-4
+
+
+def v2_launch_shapes(dim=V2_DIM, depth=V2_DEPTH, num_degrees=7,
+                     output_degrees=2):
+    """(conv, d_out, P, IF) of every #3 launch of one V2 forward, in launch
+    order: per V2ConvSE3 and output degree, one per m = 0 .. M (M =
+    min(d_out, the top input degree)), IF the channels of every input
+    degree whose band reaches m (2 C a degree past m = 0)."""
+    hidden = [(d, dim) for d in range(num_degrees)]
+    convs = [('conv_in', [(0, dim)], hidden)]
+    convs += [(f'block{i}', hidden, hidden) for i in range(depth)]
+    convs += [('conv_out', hidden, [(d, dim) for d in range(output_degrees)])]
+    shapes = []
+    for name, fin, fout in convs:
+        top = max(d for d, _ in fin)
+        for d_out, _ in fout:
+            for m in range(min(d_out, top) + 1):
+                IF = sum(c * (1 if m == 0 else 2) for d, c in fin
+                         if min(d, d_out) >= m)
+                shapes.append((name, d_out, 1 if m == 0 else 2, IF))
+    return shapes
+
+
+def v2_counts(**fields):
+    """(forward, backward) launches of #3 and of each of A and B for one V2
+    request and one training step on the vector head: the backward runs
+    for every launch the loss reaches, all but conv_out's into the
+    degree-0 head."""
+    shapes = v2_launch_shapes(**fields)
+    return len(shapes), sum(1 for conv, d_out, _, _ in shapes
+                            if not (conv == 'conv_out' and d_out == 0))
 
 # the launch counters, in the order of every launch tuple below; the so2
 # arms', the scaled arms', the conv_bf16 arms' and the narrow-O arms'
 # launches count in their kernel's total too
 COUNT_NAMES = ('bxf', 'fwd', 'A', 'B', 'attn_fwd', 'attn_bwd', 'flash', 'bx',
                'global', 'flash_so2', 'global_so2', 'fwd_q', 'flash_q',
-               'bxf_v16', 'fwd_v16', 'A_v16', 'B_v16', 'fwd_n', 'A_n', 'B_n')
+               'bxf_v16', 'fwd_v16', 'A_v16', 'B_v16', 'fwd_n', 'A_n', 'B_n',
+               'fwd_m32', 'A_m32', 'B_m32')
 # the wrappers' counts of calls routed past the kernel to its plain
 # version, by the layer that calls them (kernels A and B take every width
 # the pairwise forwards take, so the backward of a launched call runs
@@ -764,17 +834,16 @@ def phase_fwd(kp, peaks):
     return rows, worst
 
 
-def check_fwd(kp, peaks, cases, seed, v16=False):
+def check_fwd(kp, peaks, cases, seed, v16=False, mid=128):
     """Each case (label, E, P, IF, h dtype, O): kernel #3 against its plain
     version, bit-identical across two runs, and the times: kernel, plain
     version, and the library yardstick (the einsum that computes the same
     conv from V2). With `v16` V2 is stored bf16 (conv_bf16): the arm's
     launches, its plain version on the same bf16 V2, the bound with 2-byte
     V2, and beside them the float32 arm's time on the upcast V2
-    (float_ms)."""
+    (float_ms). `mid`: the radial width (32: the V2 arms)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
-    mid = 128
     rows, worst = [], 0.0
     for label, E, P, IF, hdt, O in cases:
         h = torch.randn(E, mid, device=dev, generator=gen).to(hdt)
@@ -812,7 +881,7 @@ def check_fwd(kp, peaks, cases, seed, v16=False):
         bound_ms, bound_by, flops, bound_ms_fma = fwd_cost(
             E, mid, IF, O, P, 2 if hdt == torch.bfloat16 else 4, peaks,
             v2.element_size())
-        row = dict(label, P=P, IF=IF, O=O, E=E,
+        row = dict(label, P=P, IF=IF, O=O, E=E, mid=mid,
                    h_dtype=str(hdt).split('.')[-1],
                    i_per_split=kp.i_per_split(E, IF, O),
                    max_abs_err=err, max_abs_plain=scale, ms=ms,
@@ -1218,7 +1287,69 @@ def phase_conv_bf16_backward(kp, peaks):
     return check_backward(kp, peaks, cases, seed=35, v16=True)
 
 
-def check_backward(kp, peaks, cases, seed, v16=False):
+# the hidden V2ConvSE3's launches of the served V2 model, by (P, IF)
+def v2_unit_shapes():
+    """{(P, IF): launches} of one hidden V2ConvSE3 (block0) of the served
+    V2 model: 28 launches, seven distinct shapes."""
+    unit = {}
+    for conv, _, P, IF in v2_launch_shapes():
+        if conv == 'block0':
+            unit[P, IF] = unit.get((P, IF), 0) + 1
+    return unit
+
+
+def weighted(rows, keys):
+    """The rows' `keys` summed with each row's launches (its `mult`)."""
+    return {k: sum(r[k] * r['mult'] for r in rows) for k in keys}
+
+
+def phase_v2_kernels(kp, peaks):
+    """The mid-32, two-row arms of #3, A and B against their plain versions
+    and timed (check_fwd, check_backward at mid 32): the hidden
+    V2ConvSE3's seven distinct (P, IF) at E = V2_E, O = 64, float32 h (the
+    model's), the largest P = 1 and P = 2 of them with bf16 h
+    (radial_bf16), conv_in's (1, 64); the JAX sweep's distinct shapes (dim
+    8: O = 8, the narrow arms, E = 1536), float32. Prints `v2_unit` lines:
+    the float32 hidden shapes weighed by the block's launches (the unit of
+    PERF.md's rows 3v, 4Av, 4Bv). Returns (rows of #3, rows of A/B, the
+    worst errors)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    unit = v2_unit_shapes()
+    cases = [(dict(model='se3_v2', unit='block', mult=k), V2_E, P, IF, f32,
+              V2_DIM) for (P, IF), k in sorted(unit.items())]
+    cases += [(dict(model='se3_v2', unit='block', mult=0), V2_E, P, IF, bf16,
+               V2_DIM) for P, IF in ((1, 448), (2, 768))]
+    cases.append((dict(model='se3_v2', unit='conv_in', mult=0), V2_E, 1,
+                  V2_DIM, f32, V2_DIM))
+    sweep = sorted({(P, IF) for _, _, P, IF in v2_launch_shapes(
+        dim=V2_SWEEP_DIM)})
+    cases += [(dict(model='se3_v2 sweep', unit='sweep', mult=0), V2_SWEEP_E,
+               P, IF, f32, V2_SWEEP_DIM) for P, IF in sweep]
+    fwd_rows, fwd_worst = check_fwd(kp, peaks, cases, seed=24, mid=32)
+    bwd_rows, bwd_worst = check_backward(kp, peaks, cases, seed=25, mid=32)
+    log('v2_unit', json.dumps(dict(
+        kernel='fused_pairwise_conv (mid 32)', launches=sum(unit.values()),
+        E=V2_E, sum_IF=sum(IF * k for (_, IF), k in unit.items()),
+        **weighted([r for r in fwd_rows if r['mult']], (
+            'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_ms_fma')))))
+    for k in ('a', 'b'):
+        log('v2_unit', json.dumps(dict(
+            kernel=f'fused_pairwise_conv_bwd_{k} (mid 32)',
+            launches=sum(unit.values()), E=V2_E,
+            **weighted([r for r in bwd_rows if r['mult']],
+                       (f'ms_{k}', f'plain_ms_{k}', f'library_ms_{k}',
+                        f'bound_ms_{k}', f'bound_ms_fma_{k}')))))
+    return fwd_rows, bwd_rows, fwd_worst, bwd_worst
+
+
+def v2_module(**fields):
+    """The served and trained V2 model (V2_MODEL with the recipe
+    arguments phase_serve and phase_train give)."""
+    from se3_transformer_torch.v2 import SE3TransformerV2Module
+    return SE3TransformerV2Module(**V2_MODEL, **fields)
+
+
+def check_backward(kp, peaks, cases, seed, v16=False, mid=128):
     """Each case (label, E, P, IF, h dtype, O): kernels A and B against
     their plain versions, dW3/dB3 and dH bit-identical across two runs (E =
     4096 splits kernel B's i range: its partials' reduce), and the times:
@@ -1226,10 +1357,10 @@ def check_backward(kp, peaks, cases, seed, v16=False):
     of the einsum that computes the forward). With `v16` V2 is stored bf16
     (conv_bf16): the arms' launches, their plain versions on the same bf16
     V2, the bounds with 2-byte V2, and beside them the float32 arms' times
-    on the upcast V2 (float_ms_a, float_ms_b)."""
+    on the upcast V2 (float_ms_a, float_ms_b). `mid`: the radial width
+    (32: the V2 arms)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
-    mid = 128
     rows, worst = [], {'a': 0.0, 'b': 0.0}
     for label, e, P, IF, hdt, O in cases:
         h = torch.randn(e, mid, device=dev, generator=gen).to(hdt)
@@ -1283,7 +1414,7 @@ def check_backward(kp, peaks, cases, seed, v16=False):
             for k, wrt in (('a', leaves[1:]), ('b', leaves[:1]))}
         del graph, leaves
         torch.cuda.empty_cache()
-        row = dict(label, E=e, P=P, IF=IF, O=O,
+        row = dict(label, E=e, P=P, IF=IF, O=O, mid=mid,
                    h_dtype=str(hdt).split('.')[-1],
                    b_i_per_split=kp.i_per_split(e, IF, O),
                    max_abs_err={k: v[0] for k, v in errs.items()},
@@ -2432,11 +2563,21 @@ def condition_weights(model, power=-0.5):
     depth-6 model is chaotic (float32 rounding differences between two
     rotations of the input grow to ~10% of the output). Conditioned, the
     output stays O(1) and rotation invariance is measurable. power=+0.5
-    undoes it."""
+    undoes it. A V2ConvSE3's per-m blocks wm{m}_{d_in}_{d_out} are scaled
+    alike, by 1/sqrt of their (d_out, m) contraction's width."""
     from se3_transformer_torch.ops.conv import ConvSE3
     from se3_transformer_torch.utils.helpers import to_order
+    from se3_transformer_torch.v2 import V2ConvSE3
     with torch.no_grad():
         for conv in model.modules():
+            if isinstance(conv, V2ConvSE3):
+                for d_out, _ in conv.fiber_out:
+                    for m in range(conv.band_order(d_out) + 1):
+                        blocks = [getattr(conv, f'wm{m}_{d_in}_{d_out}')
+                                  for d_in, _ in conv._reaching(d_out, m)]
+                        fan = sum(w.shape[1] for w in blocks)
+                        for w in blocks:
+                            w.mul_(fan ** power)
             if not isinstance(conv, ConvSE3):
                 continue
             for d_out, _ in conv.fiber_out:
@@ -2459,7 +2600,8 @@ def weight_bytes(module, device=None):
 
 
 def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
-                vector=False, bonds=(3.8,), precision=None, **fields):
+                vector=False, bonds=(3.8,), precision=None, module=None,
+                rotation_rtol=ROTATION_RTOL, **fields):
     """A recipe's forward at full size (dim=64, depth=6, 4 degrees, 8 heads,
     k=32 for the flagship recipes; `dim`, `depth` and `fields` set or add
     model fields; random seeded weights, conditioned) served by
@@ -2473,13 +2615,14 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     parameter bytes on the device against the same weights in float32
     (at most QUANT_MAX_BYTES_RATIO), and a `quant_serve` line with the
     requests, busy, top kernels, idle share and peak memory. The rotation
-    check holds to ROTATION_RTOL of max|out|. Returns the launches of the
-    whole phase."""
+    check holds to `rotation_rtol` of max|out|. `module` builds a model
+    that is not a recipe (the V2 family), with the recipe's arguments.
+    Returns the launches of the whole phase."""
     from se3_transformer_torch.so3 import rot
     recipe, name = label or recipe, recipe
     rng = np.random.RandomState(0)
     build = dict(device='cpu') if precision else {}
-    model = condition_weights(getattr(st, name)(
+    model = condition_weights((module or getattr(st, name))(
         dim=dim, depth=depth, generator=torch.Generator().manual_seed(0),
         **build, **fields))
     fp32_bytes = weight_bytes(model)
@@ -2576,9 +2719,9 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
         raise AssertionError(f'{recipe}: launches {launches} for {forwards} '
                              f'forwards')
     routed_exactly(recipe, NO_ROUTES)
-    if inv > ROTATION_RTOL * scale:
+    if inv > rotation_rtol * scale:
         raise AssertionError(f'{recipe}: rotation invariance {inv} > '
-                             f'{ROTATION_RTOL} * max|out| {scale}')
+                             f'{rotation_rtol} * max|out| {scale}')
     log('serve', json.dumps(dict(recipe=recipe, rotation_max_abs_diff=inv,
                                  max_abs_out=scale, forwards=forwards,
                                  launches=launches,
@@ -2976,8 +3119,9 @@ def counters():
     attention forward and backward, the streaming attention, the
     structured-basis forward bx, the global attention; then the so2 arm's
     launches of the streaming and the global attention, the scaled arm's
-    of #3 and #7, the conv_bf16 arm's of #1, #3, A and B, and the narrow-O
-    arm's of #3, A and B (each counted in its kernel's total too)."""
+    of #3 and #7, the conv_bf16 arm's of #1, #3, A and B, the narrow-O
+    arm's of #3, A and B, and the mid-32 arm's of #3, A and B (each
+    counted in its kernel's total too)."""
     from se3_transformer_torch.kernels import attention as ka
     from se3_transformer_torch.kernels import flash as kf
     from se3_transformer_torch.kernels import pairwise as kp
@@ -3000,7 +3144,10 @@ def counters():
             (kp.fused_pairwise_conv_bwd, 'conv_bf16_launches_b'),
             (kp.fused_pairwise_conv, 'narrow_launches'),
             (kp.fused_pairwise_conv_bwd, 'narrow_launches_a'),
-            (kp.fused_pairwise_conv_bwd, 'narrow_launches_b'))
+            (kp.fused_pairwise_conv_bwd, 'narrow_launches_b'),
+            (kp.fused_pairwise_conv, 'mid32_launches'),
+            (kp.fused_pairwise_conv_bwd, 'mid32_launches_a'),
+            (kp.fused_pairwise_conv_bwd, 'mid32_launches_b'))
 
 
 def counts():
@@ -3190,7 +3337,7 @@ def phase_route_wide(st):
 
 def phase_train(st, recipe, want, other_policy, want_other, label=None,
                 dim=64, depth=DEPTH, n=1024, loss_fn=None,
-                round_trip=False, **fields):
+                round_trip=False, module=None, **fields):
     """A recipe's denoise step (the vector head: output_degrees=2,
     reduce_dim_out=True; `dim`, `depth` and `fields` set or add model
     fields) at n nodes (1024) with Adam; with `loss_fn` (the trainer's
@@ -3201,10 +3348,11 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
     trainer's state into a fresh trainer of the same model (a denoise
     loss); unless
     `want_other` is None, one step under `other_policy` with `want_other`
-    launches. Returns the launches of the warm-up and timed steps."""
+    launches. `module` builds a model that is not a recipe (the V2
+    family). Returns the launches of the warm-up and timed steps."""
     recipe, name = label or recipe, recipe
     head = {} if loss_fn else dict(output_degrees=2, reduce_dim_out=True)
-    model = condition_weights(getattr(st, name)(
+    model = condition_weights((module or getattr(st, name))(
         dim=dim, depth=depth, generator=torch.Generator().manual_seed(4),
         **head, **fields))
     trainer = st.DenoiseTrainer(model, lr=1e-4, **(
@@ -3269,7 +3417,7 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
         torch.cuda.empty_cache()
         return launches
 
-    other = st.DenoiseTrainer(condition_weights(getattr(st, name)(
+    other = st.DenoiseTrainer(condition_weights((module or getattr(st, name))(
         dim=dim, depth=depth, output_degrees=2, reduce_dim_out=True,
         remat_policy=other_policy,
         generator=torch.Generator().manual_seed(4), **fields)), lr=1e-4)
@@ -4564,6 +4712,10 @@ def main() -> int:
     v16_fwd_rows, v16_fwd_worst = phase_conv_bf16_fwd(kp, peaks)
     v16_bwd_rows, v16_bwd_worst = phase_conv_bf16_backward(kp, peaks)
     tick('conv_bf16')
+    # the V2 family's mid-32, two-row arms of #3, A and B
+    v2_fwd_rows, v2_bwd_rows, v2_fwd_worst, v2_bwd_worst = \
+        phase_v2_kernels(kp, peaks)
+    tick('v2_kernels')
 
     # 5. the attention kernels vs plain, with the library yardstick
     attn_rows, attn_worst = phase_attention(peaks)
@@ -4584,18 +4736,20 @@ def main() -> int:
     def launches(bxf=0, fwd=0, a=0, b=0, attn_fwd=0, attn_bwd=0, flash=0,
                  bx=0, glob=0, flash_so2=0, glob_so2=0, fwd_q=0, flash_q=0,
                  bxf_v16=0, fwd_v16=0, a_v16=0, b_v16=0, fwd_n=0, a_n=0,
-                 b_n=0):
+                 b_n=0, fwd_m32=0, a_m32=0, b_m32=0):
         # the so2 arm's launches count in flash and glob as well, the
         # scaled arms' (of the dense arm) in fwd and flash, the conv_bf16
-        # arms' and the narrow-O arms' in bxf, fwd, A and B
-        return (bxf + bxf_v16, fwd + fwd_q + fwd_v16 + fwd_n, a + a_v16 + a_n,
-                b + b_v16 + b_n, attn_fwd, attn_bwd,
-                flash + flash_so2 + flash_q, bx, glob + glob_so2, flash_so2,
-                glob_so2, fwd_q, flash_q, bxf_v16, fwd_v16, a_v16, b_v16,
-                fwd_n, a_n, b_n)
+        # arms', the narrow-O arms' and the (wide) mid-32 arms' in bxf,
+        # fwd, A and B
+        return (bxf + bxf_v16, fwd + fwd_q + fwd_v16 + fwd_n + fwd_m32,
+                a + a_v16 + a_n + a_m32, b + b_v16 + b_n + b_m32, attn_fwd,
+                attn_bwd, flash + flash_so2 + flash_q, bx, glob + glob_so2,
+                flash_so2, glob_so2, fwd_q, flash_q, bxf_v16, fwd_v16, a_v16,
+                b_v16, fwd_n, a_n, b_n, fwd_m32, a_m32, b_m32)
     fast_bwd = dict(a=TRAIN_BWD_LAUNCHES, b=TRAIN_BWD_LAUNCHES)
     var = variant_counts()
     vd = dict(depth=VARIANT_DEPTH)
+    v2_fwd, v2_bwd = v2_counts()
     bx_rows, bx_worst, bx_launches = phase_bx(st, peaks)
     paths = [not_routed('bx', bx_launches)]
     # the serving stack over mixed-length streams, then its entry point
@@ -4619,17 +4773,20 @@ def main() -> int:
             None, launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
                            **fast_bwd), round_trip=True)),
         not_routed('flagship_fast+pallas_attention serve', phase_serve(
-            st, 'flagship_fast', launches(bxf=4 + REPLAY_LAUNCHES + 4,
-                                          attn_fwd=ATTN_LAUNCHES),
-            label='flagship_fast+pallas_attention', pallas_attention=True)),
+            st, 'flagship_fast', launches(bxf=4 + var['replay'] + 4,
+                                          attn_fwd=var['attn']),
+            label='flagship_fast+pallas_attention', pallas_attention=True,
+            **vd)),
         not_routed('flagship_fast+pallas_attention train', phase_train(
             st, 'flagship_fast',
-            launches(bxf=TRAIN_LAUNCHES, attn_fwd=2 * ATTN_LAUNCHES,
-                     attn_bwd=ATTN_LAUNCHES, **fast_bwd), None,
-            launches(bxf=TRAIN_LAUNCHES + REPLAY_LAUNCHES,
-                     attn_fwd=2 * ATTN_LAUNCHES, attn_bwd=ATTN_LAUNCHES,
-                     **fast_bwd),
-            label='flagship_fast+pallas_attention', pallas_attention=True)),
+            launches(bxf=var['train'], attn_fwd=2 * var['attn'],
+                     attn_bwd=var['attn'], a=var['train_bwd'],
+                     b=var['train_bwd']), None,
+            launches(bxf=var['train'] + var['replay'],
+                     attn_fwd=2 * var['attn'], attn_bwd=var['attn'],
+                     a=var['train_bwd'], b=var['train_bwd']),
+            label='flagship_fast+pallas_attention', pallas_attention=True,
+            **vd)),
         not_routed('flagship_fast+fuse_pairwise serve', phase_serve(
             st, 'flagship_fast',
             launches(bxf=FLASH_BXF_LAUNCHES, flash=ATTN_LAUNCHES),
@@ -4737,7 +4894,17 @@ def main() -> int:
         # the guarded loop: rollback, kill and resume, the weakened arm
         not_routed('denoise guarded', phase_denoise_guarded(
             st, launches(fwd_n=GUARDED_FWD, a_n=GUARDED_BWD,
-                         b_n=GUARDED_BWD)))]
+                         b_n=GUARDED_BWD))),
+        # the V2 family: every contraction on the mid-32 arms, O = 64
+        not_routed('se3_v2 serve', phase_serve(
+            st, 'se3_v2', launches(fwd_m32=v2_fwd), dim=V2_DIM,
+            depth=V2_DEPTH, vector=True, bonds=BACKBONE_BONDS,
+            module=v2_module, rotation_rtol=V2_EQUIVARIANCE_RTOL,
+            output_degrees=2, reduce_dim_out=True)),
+        not_routed('se3_v2 train', phase_train(
+            st, 'se3_v2', launches(fwd_m32=v2_fwd, a_m32=v2_bwd,
+                                   b_m32=v2_bwd), None, None, dim=V2_DIM,
+            depth=V2_DEPTH, n=V2_N, module=v2_module))]
     total = [sum(p[i] for p in paths) for i in range(len(COUNT_NAMES))]
     log(f'phase: main paths done at {time.perf_counter() - t_start:.0f} s')
 
@@ -4800,12 +4967,13 @@ def main() -> int:
         entry('fused_pairwise_conv_bxf', 'pairwise_bxf.cu', pallas + '593',
               total[0] - total[13], worst, unchunked(rows, 'bfloat16')),
         entry('fused_pairwise_conv', 'pairwise_fwd.cu', pallas + '254',
-              total[1] - total[11] - total[14] - total[17],
+              total[1] - total[11] - total[14] - total[17] - total[20],
               max(fwd_worst, mol_fwd_worst), unchunked(fwd_rows, 'float32'))]
     for i, (k, line) in enumerate((('a', 861), ('b', 907))):
         kernels.append(entry(
             f'fused_pairwise_conv_bwd_{k}', 'pairwise_bwd.cu',
-            f'{pallas}{line}', total[2 + i] - total[15 + i] - total[18 + i],
+            f'{pallas}{line}',
+            total[2 + i] - total[15 + i] - total[18 + i] - total[21 + i],
             max(bwd_worst[k], grouped_worst[k], af2_worst[k],
                 mol_worst[k]), bwd,
             f'_{k}'))
@@ -4842,6 +5010,22 @@ def main() -> int:
             f'fused_pairwise_conv_bwd_{k}_conv_bf16', 'pairwise_bwd.cu',
             f'{pallas}{line}', total[15 + i], v16_bwd_worst[k], v16_bwd,
             f'_{k}'), float_ms=sum(r[f'float_ms_{k}'] for r in v16_bwd)))
+    # the mid-32 arms (the V2 family) at their unit: one hidden
+    # V2ConvSE3's 28 launches at E = 32768, float32 h, each shape's row
+    # weighed by its launches
+    def v2_unit(rows, key=''):
+        return [dict(weighted([r], (f'ms{key}', f'plain_ms{key}',
+                                    f'library_ms{key}', f'bound_ms{key}')),
+                     **{f'bound_by{key}': r[f'bound_by{key}']})
+                for r in rows if r['mult']]
+    kernels.append(entry('fused_pairwise_conv_mid32', 'pairwise_fwd.cu',
+                         pallas + '254', total[20], v2_fwd_worst,
+                         v2_unit(v2_fwd_rows)))
+    for i, (k, line) in enumerate((('a', 861), ('b', 907))):
+        kernels.append(entry(
+            f'fused_pairwise_conv_bwd_{k}_mid32', 'pairwise_bwd.cu',
+            f'{pallas}{line}', total[21 + i], v2_bwd_worst[k],
+            v2_unit(v2_bwd_rows, f'_{k}'), f'_{k}'))
     kernels += [
         entry('fused_attention_fwd', 'attention.cu',
               tpu + 'pallas_attention.py:74', total[4], attn_worst['fwd'],

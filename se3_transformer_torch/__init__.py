@@ -15,11 +15,11 @@ from .kernels.pairwise import (
     fused_pairwise_conv_bxf_plain, fused_pairwise_conv_plain,
     pairwise_contract, pairwise_contract_bxf,
 )
-from .models import SE3TransformerModule
+from .models import SE3Transformer, SE3TransformerModule
 from .ops import (
     EGNN, AttentionBlockSE3, AttentionSE3, ConvSE3, EGnnNetwork,
     FeedForwardBlockSE3, FeedForwardSE3, Fiber, HtypesNorm, LinearSE3,
-    NormSE3, PairwiseConvSE3,
+    NormSE3, OneHeadedKVAttentionSE3, PairwiseConvSE3,
 )
 from .training import (
     RECIPES, BatchProducer, CheckpointManager, DenoiseConfig, DenoiseTrainer,

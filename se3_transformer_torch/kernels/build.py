@@ -11,7 +11,9 @@ sources twice, once per contraction arm, `-DSE3_SO2=0` and `=1`: each object hol
 instantiations and entry point; `flash_fwd.cu` twice more for its scaled
 arm, `-DSE3_QUANT=1`; each 64-wide pairwise source twice, its float32
 arm and, with `-DSE3_V16=1`, its conv_bf16 arm, the bf16-stored V2, basis
-and x),
+and x; `pairwise_fwd.cu`, `pairwise_bwd.cu` and `pairwise_narrow.cu` once
+more with `-DSE3_M32=1`, the radial width 32 of kernels #3, A and B that
+the SE3TransformerV2 family runs),
 and the objects are linked into
 one shared library with a plain C interface that `ctypes` loads. The build
 happens at first use, never at import, into `kernels/build/` beside this
@@ -44,8 +46,10 @@ HEADERS = tuple(os.path.join(CSRC_DIR, f)
 # once per contraction arm, flash_fwd.cu also once per W3 form (float, or
 # the scaled arm's quantized storage); each pairwise source once per storage
 # of its equivariant operand (float32, or conv_bf16's bf16); the narrow
-# arms and the attention once
+# arms and the attention once; #3, A and B (pairwise_fwd.cu, pairwise_bwd.cu
+# and their narrow arms) once more at the radial width 32 (-DSE3_M32=1)
 ONCE = ('pairwise_narrow.cu', 'attention.cu')
+MID32 = ('pairwise_fwd.cu', 'pairwise_bwd.cu', 'pairwise_narrow.cu')
 UNITS = tuple(
     (src, (f'-DSE3_SO2={arm}',) + quant)
     for src in SOURCES for arm in (0, 1)
@@ -56,7 +60,9 @@ UNITS = tuple(
     if os.path.basename(src).startswith('pairwise')
     and os.path.basename(src) not in ONCE
     for v16 in ((), ('-DSE3_V16=1',))) + tuple(
-    (src, ()) for src in SOURCES if os.path.basename(src) in ONCE)
+    (src, ()) for src in SOURCES if os.path.basename(src) in ONCE) + tuple(
+    (src, ('-DSE3_M32=1',)) for src in SOURCES
+    if os.path.basename(src) in MID32)
 BUILD_DIR = os.path.join(_HERE, 'build')
 
 COMPILE_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -157,18 +163,22 @@ def load_library() -> ctypes.CDLL:
                 fn.argtypes = [vp] * 7 + [ci] * 8 + [vp]
             # (h, w3, b3, v2, out, work, w3_split, E, IF, O, P,
             #  i_per_split, h_is_bf16, stream)
-            for fn in (lib.se3_pairwise_fwd, lib.se3_pairwise_fwd_v16):
+            # (se3_pairwise_fwd_m32: the same at the radial width 32)
+            for fn in (lib.se3_pairwise_fwd, lib.se3_pairwise_fwd_v16,
+                       lib.se3_pairwise_fwd_m32):
                 fn.argtypes = [vp] * 7 + [ci] * 6 + [vp]
             # the scaled arm: (h, q, scale, b3, v2, out, work, E, IF, O, P,
             #  i_per_split, h_is_bf16, fp8, stream)
             lib.se3_pairwise_fwd_q.argtypes = [vp] * 7 + [ci] * 7 + [vp]
             # (h, w3, b3, v2, g, dv2, dv2_work, work, split, dw3, db3, E,
             #  IF, O, P, splits, h_is_bf16, stream)
-            for fn in (lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_a_v16):
+            for fn in (lib.se3_pairwise_bwd_a, lib.se3_pairwise_bwd_a_v16,
+                       lib.se3_pairwise_bwd_a_m32):
                 fn.argtypes = [vp] * 11 + [ci] * 6 + [vp]
             # (w3, v2, g, dh, work, split, E, IF, O, P, i_per_split,
             #  w3_is_bf16, stream)
-            for fn in (lib.se3_pairwise_bwd_b, lib.se3_pairwise_bwd_b_v16):
+            for fn in (lib.se3_pairwise_bwd_b, lib.se3_pairwise_bwd_b_v16,
+                       lib.se3_pairwise_bwd_b_m32):
                 fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
             # (q, k, v, mask, out, BH, BKV, n, J, D, heads, scale, stream)
             lib.se3_attention_fwd.argtypes = [vp] * 5 + [ci] * 6 + [cf, vp]
@@ -203,7 +213,8 @@ def load_library() -> ctypes.CDLL:
                        lib.se3_flash_fwd_q, lib.se3_flash_fwd_so2_q,
                        lib.se3_pairwise_bxf_v16, lib.se3_pairwise_bx_v16,
                        lib.se3_pairwise_fwd_v16, lib.se3_pairwise_bwd_a_v16,
-                       lib.se3_pairwise_bwd_b_v16):
+                       lib.se3_pairwise_bwd_b_v16, lib.se3_pairwise_fwd_m32,
+                       lib.se3_pairwise_bwd_a_m32, lib.se3_pairwise_bwd_b_m32):
                 fn.restype = ci
             _lib = lib
             ONE_TIME_WORK[0] += 1

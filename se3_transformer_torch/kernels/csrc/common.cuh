@@ -10,6 +10,11 @@
 // R = h . W3[:, i, O-tile] in the mma.sync m16n8k16 accumulator layout:
 // rows we*16 + {g, g+8}, columns wo*32 + nb*8 + 2t + {0, 1} for nb = 0..3
 // (g = lane / 4, t = lane % 4).
+//
+// MID is the radial hidden width of #1, #2, #7 and 7g. Kernels #3, A and B
+// (pairwise_fwd.cu, pairwise_bwd.cu, pairwise_narrow.cuh) take it as a
+// template parameter KM, built for 128 and for 32 (the SE3TransformerV2
+// family's trunk); the staging helpers below take KM with MID as default.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,17 +27,18 @@
 namespace se3 {
 
 constexpr int MID = 128;       // radial hidden width (K of the product)
+constexpr int MID32 = 32;      // the narrow trunk of #3, A and B (V2's mid_dim)
 constexpr int BE = 64;         // edges per CTA (M tile)
 constexpr int BO = 64;         // output channels per CTA (N tile)
 constexpr int NTHREADS = 256;  // 8 warps: 4 along edges x 2 along O
 
-template <typename T> struct Tile;
-template <> struct Tile<__nv_bfloat16> {
-  static constexpr int HS = MID + 8;  // h row stride: conflict-free ldmatrix
-  static constexpr int WS = BO + 8;   // W row stride: conflict-free ldmatrix
+template <typename T, int KM = MID> struct Tile;
+template <int KM> struct Tile<__nv_bfloat16, KM> {
+  static constexpr int HS = KM + 8;  // h row stride: conflict-free ldmatrix
+  static constexpr int WS = BO + 8;  // W row stride: conflict-free ldmatrix
 };
-template <> struct Tile<float> {
-  static constexpr int HS = MID + 4;
+template <int KM> struct Tile<float, KM> {
+  static constexpr int HS = KM + 4;
   static constexpr int WS = BO + 4;
 };
 
@@ -61,6 +67,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
+// two 8x8 tiles (lanes 0-15 give the rows): one 8-column block's mma.sync
+// B fragment, from [n][k] rows (x2) or from [k][n] rows (x2_trans)
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -75,42 +93,43 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage W3[:, i, o0:o0+BO] as a [MID][BO] row-major tile (16-byte cp.async).
-template <typename T>
+// Stage W3[:, i, o0:o0+BO] as a [KM][BO] row-major tile (16-byte cp.async).
+template <typename T, int KM = MID>
 __device__ __forceinline__ void load_w(T* sw, const T* __restrict__ w3, int i,
                                        int CF, int O, int o0, int tid) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = BO / VEC;
-  for (int idx = tid; idx < MID * CHUNKS; idx += NTHREADS) {
+  for (int idx = tid; idx < KM * CHUNKS; idx += NTHREADS) {
     const int m = idx / CHUNKS, ch = idx % CHUNKS;
     cp_async16(sw + m * Tile<T>::WS + ch * VEC,
                w3 + ((size_t)m * CF + i) * O + o0 + ch * VEC);
   }
 }
 
-// Stage the CTA's h rows [BE][MID] (zeros past E) with 16-byte cp.async.
-template <typename T>
+// Stage the CTA's h rows [BE][KM] (zeros past E) with 16-byte cp.async.
+template <typename T, int KM = MID>
 __device__ __forceinline__ void load_h(T* sh, const T* __restrict__ h, int e0,
                                        int rows, int tid) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = MID / VEC;
+  constexpr int CHUNKS = KM / VEC;
   for (int idx = tid; idx < BE * CHUNKS; idx += NTHREADS) {
     const int r = idx / CHUNKS, ch = idx % CHUNKS;
-    T* dst = sh + r * Tile<T>::HS + ch * VEC;
+    T* dst = sh + r * Tile<T, KM>::HS + ch * VEC;
     if (r < rows)
-      cp_async16(dst, h + (size_t)(e0 + r) * MID + ch * VEC);
+      cp_async16(dst, h + (size_t)(e0 + r) * KM + ch * VEC);
     else
       *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
   }
 }
 
-// h's A fragments of one warp (rows we*16 .. +16, all MID) from the staged tile.
-__device__ __forceinline__ void load_afrag(uint32_t (&a)[MID / 16][4],
+// h's A fragments of one warp (rows we*16 .. +16, all KM) from the staged tile.
+template <int KM = MID>
+__device__ __forceinline__ void load_afrag(uint32_t (&a)[KM / 16][4],
                                            const __nv_bfloat16* sh, int we, int lane) {
   const int j = lane >> 3, rr = lane & 7;
 #pragma unroll
-  for (int kk = 0; kk < MID / 16; ++kk)
-    ldmatrix_x4(a[kk], sh + (we * 16 + (j & 1) * 8 + rr) * Tile<__nv_bfloat16>::HS +
+  for (int kk = 0; kk < KM / 16; ++kk)
+    ldmatrix_x4(a[kk], sh + (we * 16 + (j & 1) * 8 + rr) * Tile<__nv_bfloat16, KM>::HS +
                            kk * 16 + (j >> 1) * 8);
 }
 
@@ -131,15 +150,16 @@ __device__ __forceinline__ int swz(int r, int c) {
 // h's A fragments (mma.sync m16n8k16 row-major A: rows e_lo, e_hi of the
 // warp, columns kk*16 + 2t (+1) and + 8) straight from device memory; a
 // null row is zeros. float32 h is split into bf16 hi (ahi) and lo (alo).
-template <typename T>
-__device__ __forceinline__ void load_afrag_global(uint32_t (&ahi)[MID / 16][4],
-                                                  uint32_t (&alo)[sizeof(T) == 4 ? MID / 16 : 1][4],
+// KM: the row's width.
+template <typename T, int KM = MID>
+__device__ __forceinline__ void load_afrag_global(uint32_t (&ahi)[KM / 16][4],
+                                                  uint32_t (&alo)[sizeof(T) == 4 ? KM / 16 : 1][4],
                                                   const T* row_lo, const T* row_hi, int t) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const T* row = half ? row_hi : row_lo;
 #pragma unroll
-    for (int kk = 0; kk < MID / 16; ++kk)
+    for (int kk = 0; kk < KM / 16; ++kk)
 #pragma unroll
       for (int hc = 0; hc < 2; ++hc) {
         const int col = kk * 16 + hc * 8 + 2 * t;

@@ -136,11 +136,37 @@
 // to float32 where it is read (JAX upcasts the V2 row right after its
 // load); everything after is the float arm's. dV2 stays a float32 output,
 // as JAX's out_shape is.
+//
+// The mid-32 arm (KM = 32; entry points se3_pairwise_bwd_a_m32 and
+// se3_pairwise_bwd_b_m32, compiled as a unit of their own with -DSE3_M32=1):
+// the backward of the SE3TransformerV2 family's per-m blocks (radial width
+// 32, P = 1 or 2; the TPU kernels are the same _bwd_a_kernel and
+// _bwd_b_kernel). h [E, 32], W3 [32, IF, O], dH [E, 32]: nothing is padded
+// to 128. The products that contract over mid (A's R) are two k-steps of
+// 16; the ones whose rows or columns run over m change their warp roles:
+// A's dW3 tile [32 m][64 o] is one warp row of 32 m by 8 warps of 8
+// columns (in place of 4 x 2 warps of 32 x 32), B's dH tile [64 e][32 m]
+// two warp rows of 32 edges by 4 warps of 8 columns of m (in place of 32),
+// read by ldmatrix .x2; a B chunk's W3 is 2 copies a thread a half (in
+// place of 8), issued at the first two k-steps of the product. What bounds
+// it: at mid 32 every product is a quarter of its mid-128 size while the
+// P-contractions (A's dV2 and dR, B's dR rebuild, on the CUDA cores) are
+// not, so those and the per-tile barriers bound both kernels, not the
+// tensor cores. Float V2 only, P = 1 and 2 only (V2's rows: no model makes
+// a mid-32 call of more), and built for runtime O (the kWide form) alone,
+// which halves the unit's instantiations.
+//
+// P = 2 (V2's -m/+m row pair) is built beside 1, 3, 5 and 7 at both
+// widths: both kernels walk P in loops of their own, with nothing that
+// groups the rows in fours or assumes P odd.
 
 #include "common.cuh"
 
 #ifndef SE3_V16
 #define SE3_V16 0
+#endif
+#ifndef SE3_M32
+#define SE3_M32 0
 #endif
 #if !SE3_V16
 // the narrow-O arms (O = 8, 16 or 32) of kernels A and B, a unit of their
@@ -154,6 +180,8 @@ using namespace se3;
 
 using bf16 = __nv_bfloat16;
 
+// the radial width this unit's float arm is built for
+constexpr int KMID = SE3_M32 ? MID32 : MID;
 constexpr int BI = 2;                      // i values per kernel-A CTA
 constexpr int DSB = BO + 8;                // row stride of a bf16 dR tile: conflict-free ldmatrix
 constexpr int WG = 16 * 32;                // one warp's g block per ring stage: 16 rows x 32 floats
@@ -172,15 +200,19 @@ __device__ __forceinline__ float2 load_pair(const bf16* p) {
 }
 
 // Kernel A's shared memory by h's kind (bf16, or float32 given as bf16 hi +
-// lo halves) and P, as byte offsets. The g ring is as deep as what is left
-// allows: 6 stages for bf16, 2 for float32, whose h and W3 take two halves.
-template <bool kSplit, int P, typename TV = float>
+// lo halves), P and the radial width KM, as byte offsets. The g ring is as
+// deep as what is left allows: 6 stages for bf16, 2 for float32, whose h
+// and W3 take two halves. dW3's warp roles: KM / 32 rows of 32 m, the rest
+// of the 8 warps along O, NC columns (NT 8-column blocks) each.
+template <bool kSplit, int P, typename TV = float, int KM = MID>
 struct ACfg {
   static constexpr int NS = kSplit ? 2 : 1;  // bf16 halves of h and W3
   static constexpr int STAGES = kSplit ? 2 : 6;
-  static constexpr int WS = Tile<bf16>::WS, HS = Tile<bf16>::HS;
-  static constexpr size_t W = 0;                                   // [BI][NS][MID][WS] bf16
-  static constexpr size_t H = W + 2ull * BI * NS * MID * WS;       // [2][NS][BE][HS] bf16
+  static constexpr int WS = Tile<bf16, KM>::WS, HS = Tile<bf16, KM>::HS;
+  static constexpr int WARPS_M = KM / 32, NC = BO * WARPS_M / 8, NT = NC / 8;
+  static_assert(KM % 32 == 0 && KM <= 128, "KM / 32 warp rows of dW3");
+  static constexpr size_t W = 0;                                   // [BI][NS][KM][WS] bf16
+  static constexpr size_t H = W + 2ull * BI * NS * KM * WS;        // [2][NS][BE][HS] bf16
   static constexpr size_t DR = H + 2ull * 2 * NS * BE * HS;        // [BI][hi, lo][BE][DSB] bf16
   static constexpr size_t G = DR + 2ull * BI * 2 * BE * DSB;       // [STAGES][8 warps][WG] float
   static constexpr size_t V = G + 4ull * STAGES * 8 * WG;          // [2][BE][P][BI] TV
@@ -195,16 +227,17 @@ struct ACfg {
 // g[tile, p, :], each read once by the CTA for all of its i; each warp
 // loads and reads only its own 16 x 32 block of a slice, so a slice needs
 // no barrier of the whole CTA.
-// TV is V2's type: float, or bf16 (the conv_bf16 arm).
-template <bool kSplit, int P, bool kWide, typename TV>
+// TV is V2's type: float, or bf16 (the conv_bf16 arm). KM: the radial width.
+template <bool kSplit, int P, bool kWide, typename TV, int KM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
              const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
              const float* __restrict__ b3, const TV* __restrict__ v2,
              const float* __restrict__ g, float* __restrict__ dv2,
              float* __restrict__ part, int E, int IF, int O, int tiles_per_split, int v2_pairs) {
-  using C = ACfg<kSplit, P, TV>;
+  using C = ACfg<kSplit, P, TV, KM>;
   constexpr int S = C::STAGES, NS = C::NS, WS = C::WS, HS = C::HS;
+  constexpr int NC = C::NC, NT = C::NT;
   static_assert(BI == 2, "a row's BI values of V2 and dV2 move as one float2");
   // O is the constant BO, and the O tile the first, unless the kernel is
   // built for wider O (kWide): with O and the tile runtime values the
@@ -258,7 +291,7 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
     const int e0 = tile * BE, rows = min(BE, E - e0);
 #pragma unroll
     for (int half = 0; half < NS; ++half)
-      load_h(sH + (buf * NS + half) * BE * HS, half ? hlo : hhi, e0, rows, tid);
+      load_h<bf16, KM>(sH + (buf * NS + half) * BE * HS, half ? hlo : hhi, e0, rows, tid);
     TV* sv = sV + buf * BE * P * BI;
     for (int idx = tid; idx < BE * P; idx += NTHREADS) {
       const int e = idx / P;
@@ -290,8 +323,8 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
   for (int ii = 0; ii < BI; ++ii)
 #pragma unroll
     for (int half = 0; half < NS; ++half)
-      load_w(sW + (ii * NS + half) * MID * WS, half ? wlo : whi, min(i0 + ii, IF - 1), IF, O,
-             o0, tid);
+      load_w<bf16, KM>(sW + (ii * NS + half) * KM * WS, half ? wlo : whi, min(i0 + ii, IF - 1),
+                       IF, O, o0, tid);
   if (tile_lo < tile_hi) stage_tile(tile_lo, 0);
   cp_async_commit();
 #pragma unroll
@@ -300,16 +333,16 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
     cp_async_commit();
   }
 
-  // dW3 accumulators, per i: the mma.sync layout of a 32 (m) x 32 (o)
-  // warp tile, m = (warp & 3)*32 + mt*16 + {g, g+8}, o = (warp >> 2)*32 +
-  // nt*8 + 2t + {0, 1} at [mt*4 + nt][..]
-  float acc[BI][8][4];
+  // dW3 accumulators, per i: the mma.sync layout of a 32 (m) x NC (o)
+  // warp tile, m = (warp % WARPS_M)*32 + mt*16 + {g, g+8}, o = (warp /
+  // WARPS_M)*NC + nt*8 + 2t + {0, 1} at [mt*NT + nt][..]
+  float acc[BI][2 * NT][4];
   // dB3: this thread's dR columns summed over its rows (both halves)
   float dbias[BI][4][2];
 #pragma unroll
   for (int ii = 0; ii < BI; ++ii) {
 #pragma unroll
-    for (int a = 0; a < 8; ++a)
+    for (int a = 0; a < 2 * NT; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[ii][a][c] = 0.f;
 #pragma unroll
@@ -339,14 +372,14 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
 #pragma unroll
         for (int v = 0; v < 4; ++v) r[ii][nb][v] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < MID / 16; ++kk) {
+    for (int kk = 0; kk < KM / 16; ++kk) {
       const int aoff = (we * 16 + (j & 1) * 8 + rr) * HS + kk * 16 + (j >> 1) * 8;
       uint32_t ah[4], al[4];
       ldmatrix_x4(ah, sh + aoff);
       if constexpr (kSplit) ldmatrix_x4(al, sh + BE * HS + aoff);
 #pragma unroll
       for (int ii = 0; ii < BI; ++ii) {
-        const bf16* sw = sW + ii * NS * MID * WS;
+        const bf16* sw = sW + ii * NS * KM * WS;
 #pragma unroll
         for (int nb2 = 0; nb2 < 2; ++nb2) {
           const int boff = (kk * 16 + (j & 1) * 8 + rr) * WS + wo * 32 + nb2 * 16 + (j >> 1) * 8;
@@ -356,7 +389,7 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
           mma_bf16(r[ii][nb2 * 2 + 1], ah, bh[2], bh[3]);
           if constexpr (kSplit) {
             uint32_t bl[4];
-            ldmatrix_x4_trans(bl, sw + MID * WS + boff);
+            ldmatrix_x4_trans(bl, sw + KM * WS + boff);
             mma_bf16(r[ii][nb2 * 2 + 0], ah, bl[0], bl[1]);
             mma_bf16(r[ii][nb2 * 2 + 1], ah, bl[2], bl[3]);
             mma_bf16(r[ii][nb2 * 2 + 0], al, bh[0], bh[1]);
@@ -484,12 +517,12 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
     // chain of ~16k edges its error grew to ~5e-5 of dW3; so each tile's
     // product is accumulated in a fresh register tile and added to the
     // running sum with ordinary float32 adds.
-    const int wm = warp & 3, wn = warp >> 2;
+    const int wm = warp % C::WARPS_M, wn = warp / C::WARPS_M;
 #pragma unroll
     for (int ii = 0; ii < BI; ++ii) {
-      float tacc[8][4];
+      float tacc[2 * NT][4];
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+      for (int a = 0; a < 2 * NT; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) tacc[a][c] = 0.f;
 #pragma unroll
@@ -504,25 +537,29 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const bf16* sd = sDR + (ii * 2 + half) * BE * DSB;
+          // pairs of 8-column blocks of dR (x4), or one (x2: NT = 1)
 #pragma unroll
-          for (int nb2 = 0; nb2 < 2; ++nb2) {
+          for (int nb2 = 0; nb2 < (NT + 1) / 2; ++nb2) {
             uint32_t b[4];
-            ldmatrix_x4_trans(b, sd + (kk * 16 + (j & 1) * 8 + rr) * DSB + wn * 32 + nb2 * 16 +
-                                     (j >> 1) * 8);
+            const bf16* src = sd + (kk * 16 + (j & 1) * 8 + rr) * DSB + wn * NC + nb2 * 16 +
+                              (j >> 1) * 8;
+            if constexpr (NT == 1)
+              ldmatrix_x2_trans(b, src);
+            else
+              ldmatrix_x4_trans(b, src);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              mma_bf16(tacc[mt * 4 + nb2 * 2 + 0], ah[mt], b[0], b[1]);
-              mma_bf16(tacc[mt * 4 + nb2 * 2 + 1], ah[mt], b[2], b[3]);
-              if (kSplit && half == 0) {
-                mma_bf16(tacc[mt * 4 + nb2 * 2 + 0], al[mt], b[0], b[1]);
-                mma_bf16(tacc[mt * 4 + nb2 * 2 + 1], al[mt], b[2], b[3]);
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int nb = 0; nb < (NT == 1 ? 1 : 2); ++nb) {
+                float(&d)[4] = tacc[mt * NT + nb2 * 2 + nb];
+                mma_bf16(d, ah[mt], b[2 * nb], b[2 * nb + 1]);
+                if (kSplit && half == 0) mma_bf16(d, al[mt], b[2 * nb], b[2 * nb + 1]);
               }
-            }
           }
         }
       }
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+      for (int a = 0; a < 2 * NT; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[ii][a][c] += tacc[a][c];
     }
@@ -547,16 +584,16 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
       }
   __syncthreads();
 
-  // this split's partial sums, the O tile's columns: [MID][IF][O] then
+  // this split's partial sums, the O tile's columns: [KM][IF][O] then
   // [IF][O]
-  float* pw = part + (size_t)blockIdx.y * ((size_t)MID * IF * O + (size_t)IF * O);
+  float* pw = part + (size_t)blockIdx.y * ((size_t)KM * IF * O + (size_t)IF * O);
   for (int idx = tid; idx < nI * BO; idx += NTHREADS) {
     const int ii = idx / BO, o = idx % BO;
-    pw[(size_t)MID * IF * O + (size_t)(i0 + ii) * O + o0 + o] =
+    pw[(size_t)KM * IF * O + (size_t)(i0 + ii) * O + o0 + o] =
         ((sB[(0 * BI + ii) * BO + o] + sB[(1 * BI + ii) * BO + o]) +
          sB[(2 * BI + ii) * BO + o]) + sB[(3 * BI + ii) * BO + o];
   }
-  const int wm = warp & 3, wn = warp >> 2, gq = lane >> 2;
+  const int wm = warp % C::WARPS_M, wn = warp / C::WARPS_M, gq = lane >> 2;
 #pragma unroll
   for (int ii = 0; ii < BI; ++ii) {
     if (ii >= nI) continue;
@@ -564,12 +601,12 @@ bwd_a_kernel(const bf16* __restrict__ hhi, const bf16* __restrict__ hlo,
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int m = wm * 32 + mt * 16 + gq, o = o0 + wn * 32 + nt * 8 + 2 * t;
+      for (int nt = 0; nt < NT; ++nt) {
+        const int m = wm * 32 + mt * 16 + gq, o = o0 + wn * NC + nt * 8 + 2 * t;
         *reinterpret_cast<float2*>(pw + ((size_t)m * IF + i) * O + o) =
-            make_float2(acc[ii][mt * 4 + nt][0], acc[ii][mt * 4 + nt][1]);
+            make_float2(acc[ii][mt * NT + nt][0], acc[ii][mt * NT + nt][1]);
         *reinterpret_cast<float2*>(pw + ((size_t)(m + 8) * IF + i) * O + o) =
-            make_float2(acc[ii][mt * 4 + nt][2], acc[ii][mt * 4 + nt][3]);
+            make_float2(acc[ii][mt * NT + nt][2], acc[ii][mt * NT + nt][3]);
       }
   }
 }
@@ -597,17 +634,24 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ part, int splits,
 }
 
 // Kernel B's shared memory by W3's kind (bf16, or float32 given as bf16 hi
-// + lo halves) and P, as byte offsets. Every tile is bf16 with 64-element
-// (128-byte) rows whose 16-byte chunks sit at chunk ^ (row % 8): ldmatrix
-// and the 16-byte stores of dR hit 8 distinct chunks of each 8 rows.
-template <bool kSplit, int P, typename TV = float>
+// + lo halves), P and the radial width KM, as byte offsets. Every tile is
+// bf16 with 64-element (128-byte) rows whose 16-byte chunks sit at chunk ^
+// (row % 8): ldmatrix and the 16-byte stores of dR hit 8 distinct chunks of
+// each 8 rows. The product's warps: 2 along edges x 4 along m, KM / 4
+// columns of m (NT 8-column blocks) each; a chunk's W3 half is COPIES
+// 16-byte copies a thread.
+template <bool kSplit, int P, typename TV = float, int KM = MID>
 struct BCfg {
   static constexpr int NS = kSplit ? 2 : 1;  // bf16 halves of W3
   static constexpr int CI = 2;               // i values per chunk: K = 128 per barrier
   static constexpr int VI = 2 * CI;          // i values per V2 stage: 16 (bf16: 8) bytes a row
-  static constexpr size_t WSL = 2ull * MID * BO;   // bytes of one W3[:, i, :] half
+  static constexpr int NT = KM / 32;         // 8-column blocks of m a warp
+  static constexpr int COPIES = KM * CI * 8 / NTHREADS;
+  static_assert(KM % 32 == 0 && KM * CI * 8 % NTHREADS == 0 && COPIES <= CI * BO / 16,
+                "a W3 half is whole copies a thread, at most one a k-step");
+  static constexpr size_t WSL = 2ull * KM * BO;    // bytes of one W3[:, i, :] half
   static constexpr size_t DSL = 2ull * BE * BO;    // bytes of one dR[tile, i, :] half
-  static constexpr size_t W = 0;                   // [2 stages][CI][NS][MID][BO] bf16
+  static constexpr size_t W = 0;                   // [2 stages][CI][NS][KM][BO] bf16
   static constexpr size_t DR = W + 2 * CI * NS * WSL;  // [2 buffers][CI][hi, lo][BE][BO] bf16
   static constexpr size_t V = DR + 2 * CI * 2 * DSL;   // [2 stages][BE][P][VI] TV
   static constexpr size_t SMEM = V + sizeof(TV) * 2 * BE * P * VI;
@@ -621,15 +665,16 @@ struct BCfg {
 // k - 1 on the tensor cores (8 warps: 2 along edges x 4 along mid, 32 x 32
 // each) while chunk k's W3 is issued behind it (cp.async), then chunk k's
 // dR is rebuilt into the other dR buffer; V2 is issued two chunks at a time.
-// TV is V2's type: float, or bf16 (the conv_bf16 arm).
-template <bool kSplit, int P, bool kWide, typename TV>
+// TV is V2's type: float, or bf16 (the conv_bf16 arm). KM: the radial width
+// (dH [E, KM]).
+template <bool kSplit, int P, bool kWide, typename TV, int KM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
              const TV* __restrict__ v2, const float* __restrict__ g,
              float* __restrict__ dh, int E, int IF, int O, int i_per_split, int v2_quads) {
-  using C = BCfg<kSplit, P, TV>;
+  using C = BCfg<kSplit, P, TV, KM>;
   constexpr int CI = C::CI, NS = C::NS;
-  constexpr int VI = C::VI;
+  constexpr int VI = C::VI, NT = C::NT, COPIES = C::COPIES;
   static_assert(CI == 2, "a row's CI values of V2 are read as one float2");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -648,15 +693,15 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
   if constexpr (!kWide) O = BO;
   const int o0 = kWide ? blockIdx.z * BO : 0;  // the CTA's O tile
 
-  // W3[:, chunk c, :] (hi[, lo]) goes into ring stage c % 2 as MID x CI x 8
-  // 16-byte cp.async per half, 8 a thread; this is the thread's r-th (r <
-  // 8 NS). i past IF's end reads the last i (its dR is 0).
-  static_assert(MID * CI * 8 == 8 * NTHREADS, "a W3 half is 8 copies a thread");
+  // W3[:, chunk c, :] (hi[, lo]) goes into ring stage c % 2 as KM x CI x 8
+  // 16-byte cp.async per half, COPIES a thread (8 at mid 128, 2 at 32);
+  // this is the thread's r-th (r < COPIES NS). i past IF's end reads the
+  // last i (its dR is 0).
   auto stage_w = [&](int c, int r) {
-    const int f = tid + (r & 7) * NTHREADS, half = r >> 3;
+    const int f = tid + (r % COPIES) * NTHREADS, half = r / COPIES;
     const int ch = f & 7, ii = (f >> 3) & (CI - 1), m = f >> 4;
     const int i = min(i_lo + c * CI + ii, IF - 1);
-    cp_async16(sW + ((size_t)((c & 1) * CI + ii) * NS + half) * MID * BO + swz(m, ch * 8),
+    cp_async16(sW + ((size_t)((c & 1) * CI + ii) * NS + half) * KM * BO + swz(m, ch * 8),
                (half ? wlo : whi) + ((size_t)m * IF + i) * O + o0 + ch * 8);
   };
   // V2[tile, :, VI i from i_lo + s VI] into stage s % 2 (chunks 2s and 2s +
@@ -750,15 +795,15 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
     }
   };
 
-  // dH accumulators: the mma.sync layout of a 32 (e) x 32 (m) warp tile,
-  // e = (warp & 1)*32 + mt*16 + {g, g+8}, m = (warp >> 1)*32 + nt*8 + 2t +
-  // {0, 1} at [mt][nt][..]
+  // dH accumulators: the mma.sync layout of a 32 (e) x KM / 4 (m) warp
+  // tile, e = (warp & 1)*32 + mt*16 + {g, g+8}, m = (warp >> 1)*KM/4 +
+  // nt*8 + 2t + {0, 1} at [mt][nt][..]
   const int we = warp & 1, wm = warp >> 1, j = lane >> 3, rr = lane & 7;
-  float acc[2][4][4];
+  float acc[2][NT][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
 
@@ -767,25 +812,26 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
   // not round-to-nearest; see kernel A). bf16 W3: dR_hi.W + dR_lo.W; float32
   // W3: dR_hi.W_hi + dR_lo.W_hi + dR_hi.W_lo.
   auto product = [&](int c, bool issue_next) {
-    const bf16* sw = sW + (size_t)(c & 1) * CI * NS * MID * BO;
+    const bf16* sw = sW + (size_t)(c & 1) * CI * NS * KM * BO;
     const bf16* sd = sDR + (size_t)(c & 1) * CI * 2 * BE * BO;
-    float tacc[2][4][4];
+    float tacc[2][NT][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int v = 0; v < 4; ++v) tacc[mt][nt][v] = 0.f;
 #pragma unroll
     for (int ii = 0; ii < CI; ++ii) {
 #pragma unroll
       for (int kk = 0; kk < BO / 16; ++kk) {
-        static_assert(CI * BO / 16 == 8, "one W3 copy per k-step");
-        // chunk c + 1's W3, one copy (each half) a k-step: the copies queue
-        // behind the products instead of stalling the warp in one burst
-        if (issue_next) {
+        // chunk c + 1's W3, one copy (each half) a k-step for the first
+        // COPIES k-steps: the copies queue behind the products instead of
+        // stalling the warp in one burst
+        const int step = ii * (BO / 16) + kk;
+        if (issue_next && step < COPIES) {
 #pragma unroll
-          for (int half = 0; half < NS; ++half) stage_w(c + 1, half * 8 + ii * 4 + kk);
+          for (int half = 0; half < NS; ++half) stage_w(c + 1, half * COPIES + step);
         }
         uint32_t ah[2][4], al[2][4];
 #pragma unroll
@@ -794,23 +840,38 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
           ldmatrix_x4(ah[mt], sd + (ii * 2 + 0) * BE * BO + off);
           ldmatrix_x4(al[mt], sd + (ii * 2 + 1) * BE * BO + off);
         }
+        // pairs of 8-column blocks of m (x4), or one (x2: NT = 1)
 #pragma unroll
-        for (int nb2 = 0; nb2 < 2; ++nb2) {
-          const int off = swz(wm * 32 + nb2 * 16 + (j >> 1) * 8 + rr, kk * 16 + (j & 1) * 8);
+        for (int nb2 = 0; nb2 < (NT + 1) / 2; ++nb2) {
+          const int off =
+              swz(wm * (KM / 4) + nb2 * 16 + (j >> 1) * 8 + rr, kk * 16 + (j & 1) * 8);
+          const bf16* wh = sw + (size_t)(ii * NS + 0) * KM * BO + off;
           uint32_t bh[4], bl[4];
-          ldmatrix_x4(bh, sw + (size_t)(ii * NS + 0) * MID * BO + off);
-          if constexpr (kSplit) ldmatrix_x4(bl, sw + (size_t)(ii * NS + 1) * MID * BO + off);
+          if constexpr (NT == 1) {
+            ldmatrix_x2(bh, wh);
+            if constexpr (kSplit) ldmatrix_x2(bl, wh + KM * BO);
+          } else {
+            ldmatrix_x4(bh, wh);
+            if constexpr (kSplit) ldmatrix_x4(bl, wh + KM * BO);
+          }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            float(&t0)[4] = tacc[mt][nb2 * 2 + 0];
-            float(&t1)[4] = tacc[mt][nb2 * 2 + 1];
-            mma_bf16(t0, ah[mt], bh[0], bh[1]);
-            mma_bf16(t1, ah[mt], bh[2], bh[3]);
-            mma_bf16(t0, al[mt], bh[0], bh[1]);
-            mma_bf16(t1, al[mt], bh[2], bh[3]);
-            if constexpr (kSplit) {
-              mma_bf16(t0, ah[mt], bl[0], bl[1]);
-              mma_bf16(t1, ah[mt], bl[2], bl[3]);
+            if constexpr (NT == 1) {
+              float(&t0)[4] = tacc[mt][0];
+              mma_bf16(t0, ah[mt], bh[0], bh[1]);
+              mma_bf16(t0, al[mt], bh[0], bh[1]);
+              if constexpr (kSplit) mma_bf16(t0, ah[mt], bl[0], bl[1]);
+            } else {
+              float(&t0)[4] = tacc[mt][nb2 * 2 + 0];
+              float(&t1)[4] = tacc[mt][nb2 * 2 + 1];
+              mma_bf16(t0, ah[mt], bh[0], bh[1]);
+              mma_bf16(t1, ah[mt], bh[2], bh[3]);
+              mma_bf16(t0, al[mt], bh[0], bh[1]);
+              mma_bf16(t1, al[mt], bh[2], bh[3]);
+              if constexpr (kSplit) {
+                mma_bf16(t0, ah[mt], bl[0], bl[1]);
+                mma_bf16(t1, ah[mt], bl[2], bl[3]);
+              }
             }
           }
         }
@@ -819,7 +880,7 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int v = 0; v < 4; ++v) acc[mt][nt][v] += tacc[mt][nt][v];
   };
@@ -835,7 +896,7 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
     if (k & 1) stage_v((k + 1) >> 1);
     if (k == 0) {
 #pragma unroll
-      for (int r = 0; r < 8 * NS; ++r) stage_w(0, r);
+      for (int r = 0; r < COPIES * NS; ++r) stage_w(0, r);
     } else {
       product(k - 1, k < n_chunks);
     }
@@ -845,36 +906,36 @@ bwd_b_kernel(const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
 
   const int gq = lane >> 2, t = lane & 3;
   // this (O tile, i range) slot's dH
-  float* dst = dh + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * E * MID;
+  float* dst = dh + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * E * KM;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int e = we * 32 + mt * 16 + gq, m = wm * 32 + nt * 8 + 2 * t;
+    for (int nt = 0; nt < NT; ++nt) {
+      const int e = we * 32 + mt * 16 + gq, m = wm * (KM / 4) + nt * 8 + 2 * t;
       if (e < rows)
-        *reinterpret_cast<float2*>(dst + (size_t)(e0 + e) * MID + m) =
+        *reinterpret_cast<float2*>(dst + (size_t)(e0 + e) * KM + m) =
             make_float2(acc[mt][nt][0], acc[mt][nt][1]);
       if (e + 8 < rows)
-        *reinterpret_cast<float2*>(dst + (size_t)(e0 + e + 8) * MID + m) =
+        *reinterpret_cast<float2*>(dst + (size_t)(e0 + e + 8) * KM + m) =
             make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
 }
 
-template <bool kSplit, int P, typename TV>
+template <bool kSplit, int P, typename TV, int KM>
 cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* v2,
                      const void* g, void* dv2, void* dv2_work, void* work, void* split,
                      void* dw3, void* db3, int E, int IF, int O, int splits,
                      cudaStream_t stream) {
-  using C = ACfg<kSplit, P, TV>;
+  using C = ACfg<kSplit, P, TV, KM>;
   const int groups = (IF + BI - 1) / BI;
   const int slots = O / BO;  // CTAs along O, each with its dV2 slot
   const bf16 *hhi = static_cast<const bf16*>(h), *whi = static_cast<const bf16*>(w3);
   const bf16 *hlo = nullptr, *wlo = nullptr;
   cudaError_t err;
   if constexpr (kSplit) {
-    // float32 h and W3 into their bf16 hi and lo arrays (h [E, MID] and W3
-    // [MID, IF, O] are whole numbers of float4s)
-    const size_t nh = (size_t)E * MID, nw = (size_t)MID * IF * O;
+    // float32 h and W3 into their bf16 hi and lo arrays (h [E, KM] and W3
+    // [KM, IF, O] are whole numbers of float4s)
+    const size_t nh = (size_t)E * KM, nw = (size_t)KM * IF * O;
     bf16* sp = static_cast<bf16*>(split);
     split_bf16_kernel<<<grid_for(nh / 4), NTHREADS, 0, stream>>>(
         static_cast<const float4*>(h), nh / 4, reinterpret_cast<uint2*>(sp),
@@ -888,7 +949,10 @@ cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* 
     whi = sp + 2 * nh;
     wlo = sp + 2 * nh + nw;
   }
-  auto kern = O > BO ? bwd_a_kernel<kSplit, P, true, TV> : bwd_a_kernel<kSplit, P, false, TV>;
+  // mid 32 is built for runtime O (kWide) alone
+  auto kern = bwd_a_kernel<kSplit, P, true, TV, KM>;
+  if constexpr (KM == MID)
+    if (O == BO) kern = bwd_a_kernel<kSplit, P, false, TV, KM>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int n_tiles = (E + BE - 1) / BE;
@@ -905,7 +969,7 @@ cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* 
       tiles_per_split, v2_pairs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t n_w = (size_t)MID * IF * O, n_b = (size_t)IF * O;
+  const size_t n_w = (size_t)KM * IF * O, n_b = (size_t)IF * O;
   bwd_reduce_kernel<<<grid_for(n_w + n_b), NTHREADS, 0, stream>>>(
       static_cast<const float*>(work), splits, n_w, n_b, static_cast<float*>(dw3),
       static_cast<float*>(db3));
@@ -917,17 +981,17 @@ cudaError_t launch_a(const void* h, const void* w3, const void* b3, const void* 
   return cudaGetLastError();
 }
 
-template <bool kSplit, int P, typename TV>
+template <bool kSplit, int P, typename TV, int KM>
 cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, void* work,
                      void* split, int E, int IF, int O, int i_per_split,
                      cudaStream_t stream) {
-  using C = BCfg<kSplit, P, TV>;
+  using C = BCfg<kSplit, P, TV, KM>;
   const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
   cudaError_t err;
   if constexpr (kSplit) {
-    // float32 W3 [MID, IF, O] (a whole number of float4s) into its bf16
+    // float32 W3 [KM, IF, O] (a whole number of float4s) into its bf16
     // hi and lo arrays
-    const size_t nw = (size_t)MID * IF * O;
+    const size_t nw = (size_t)KM * IF * O;
     bf16* sp = static_cast<bf16*>(split);
     split_bf16_kernel<<<grid_for(nw / 4), NTHREADS, 0, stream>>>(
         static_cast<const float4*>(w3), nw / 4, reinterpret_cast<uint2*>(sp),
@@ -936,7 +1000,10 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
     whi = sp;
     wlo = sp + nw;
   }
-  auto kern = O > BO ? bwd_b_kernel<kSplit, P, true, TV> : bwd_b_kernel<kSplit, P, false, TV>;
+  // mid 32 is built for runtime O (kWide) alone
+  auto kern = bwd_b_kernel<kSplit, P, true, TV, KM>;
+  if constexpr (KM == MID)
+    if (O == BO) kern = bwd_b_kernel<kSplit, P, false, TV, KM>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int splits = (IF + i_per_split - 1) / i_per_split;
@@ -951,7 +1018,7 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
       static_cast<float*>(partials > 1 ? work : dh), E, IF, O, i_per_split, v2_quads);
   err = cudaGetLastError();
   if (err != cudaSuccess || partials == 1) return err;
-  const size_t n = (size_t)E * MID;
+  const size_t n = (size_t)E * KM;
   bwd_reduce_kernel<<<grid_for(n), NTHREADS, 0, stream>>>(
       static_cast<const float*>(work), partials, n, 0, static_cast<float*>(dh), nullptr);
   return cudaGetLastError();
@@ -963,23 +1030,27 @@ cudaError_t launch_b(const void* w3, const void* v2, const void* g, void* dh, vo
 // Plain C entry points (bound with ctypes). Each returns the launch status
 // (cudaGetLastError() right after its launches); 0 is success. Pointers are
 // device pointers to contiguous tensors; the caller checks shapes: mid ==
-// 128, O a multiple of 64 (or, in this float32-V2 unit, 8, 16 or 32: the
-// narrow arms of pairwise_narrow.cu, one O tile, which read neither split
-// nor dv2_work), P in {1, 3, 5, 7}, h/w3 bf16 or f32, the rest
-// f32. Each 64-wide O tile is one CTA along the grid's z; their dV2
+// KM (128; 32 for the _m32 entry points, this file compiled with
+// -DSE3_M32=1), O a multiple of 64 (or, in the float32-V2 units, 8, 16 or
+// 32: the narrow arms of pairwise_narrow.cu, one O tile, which read neither
+// split nor dv2_work), P in {1, 2, 3, 5, 7} (the conv_bf16 arm: 1, 3, 5,
+// 7; mid 32: 1, 2), h/w3 bf16 or f32, the rest f32. Each 64-wide O tile is one CTA along the grid's z; their dV2
 // (kernel A) and dH (kernel B) partials are summed in order by the reduce.
 
-// Kernel A and its reduces: dv2 [E, P, IF], dw3 [128, IF, O], db3 [IF, O].
-// work holds splits x (128*IF*O + IF*O) floats; every split must own at
+// Kernel A and its reduces: dv2 [E, P, IF], dw3 [KM, IF, O], db3 [IF, O].
+// work holds splits x (KM*IF*O + IF*O) floats; every split must own at
 // least one 64-edge tile. With more than one CTA along O, dv2_work holds
 // that many [E, P, IF] float partials; it is not read otherwise. h, w3 and
-// g start on 16 bytes. With float32 h/w3, split holds 2 * (E*128 +
-// 128*IF*O) bf16 (h's hi and lo arrays, then W3's); it is not read
+// g start on 16 bytes. With float32 h/w3, split holds 2 * (E*KM +
+// KM*IF*O) bf16 (h's hi and lo arrays, then W3's); it is not read
 // otherwise. The _v16 entry points (this file compiled with -DSE3_V16=1)
 // take v2 bf16, starting on 2 bytes.
 #if SE3_V16
 #define SE3_ENTRY(name) name##_v16
 using TVU = bf16;
+#elif SE3_M32
+#define SE3_ENTRY(name) name##_m32
+using TVU = float;
 #else
 #define SE3_ENTRY(name) name
 using TVU = float;
@@ -990,14 +1061,14 @@ extern "C" int SE3_ENTRY(se3_pairwise_bwd_a)(const void* h, const void* w3, cons
                                              void* dw3, void* db3, int E, int IF, int O,
                                              int P, int splits, int h_is_bf16, void* stream) {
 #if !SE3_V16
-  if (E > 0 && IF > 0 && splits > 0 && se3n::narrow(O)) {
+  if (E > 0 && IF > 0 && splits > 0 && SE3N::narrow(O)) {
     // one O tile, dV2 written whole; the edge splits' dW3 and dB3 partials
     // summed in split order
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err =
-        se3n::launch_bwd_a(h_is_bf16 != 0, h, w3, b3, v2, g, dv2, work, E, IF, O, P, splits, s);
+        SE3N::launch_bwd_a(h_is_bf16 != 0, h, w3, b3, v2, g, dv2, work, E, IF, O, P, splits, s);
     if (err != cudaSuccess) return (int)err;
-    const size_t n_w = (size_t)MID * IF * O, n_b = (size_t)IF * O;
+    const size_t n_w = (size_t)KMID * IF * O, n_b = (size_t)IF * O;
     bwd_reduce_kernel<<<grid_for(n_w + n_b), NTHREADS, 0, s>>>(
         static_cast<const float*>(work), splits, n_w, n_b, static_cast<float*>(dw3),
         static_cast<float*>(db3));
@@ -1009,35 +1080,41 @@ extern "C" int SE3_ENTRY(se3_pairwise_bwd_a)(const void* h, const void* w3, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SE3_A(PP)                                                                        \
   if (P == PP)                                                                           \
-    return (int)(h_is_bf16 ? launch_a<false, PP, TVU>(h, w3, b3, v2, g, dv2, dv2_work,   \
-                                                      work, split, dw3, db3, E, IF, O,   \
-                                                      splits, s)                         \
-                           : launch_a<true, PP, TVU>(h, w3, b3, v2, g, dv2, dv2_work,    \
-                                                     work, split, dw3, db3, E, IF, O,    \
-                                                     splits, s));
-  SE3_A(1) SE3_A(3) SE3_A(5) SE3_A(7)
+    return (int)(h_is_bf16 ? launch_a<false, PP, TVU, KMID>(h, w3, b3, v2, g, dv2,       \
+                                                            dv2_work, work, split, dw3,  \
+                                                            db3, E, IF, O, splits, s)    \
+                           : launch_a<true, PP, TVU, KMID>(h, w3, b3, v2, g, dv2,        \
+                                                           dv2_work, work, split, dw3,   \
+                                                           db3, E, IF, O, splits, s));
+  SE3_A(1)
+#if !SE3_M32
+  SE3_A(3) SE3_A(5) SE3_A(7)
+#endif
+#if !SE3_V16
+  SE3_A(2)
+#endif
 #undef SE3_A
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel B: dh [E, 128]. With more than one partial (ceil(IF / i_per_split)
-// i splits times the CTAs along O) work holds that many [E, 128] float
+// Kernel B: dh [E, KM]. With more than one partial (ceil(IF / i_per_split)
+// i splits times the CTAs along O) work holds that many [E, KM] float
 // partials; it is not read otherwise. w3 and g start on 16 bytes. With
-// float32 w3, split holds 2 * 128*IF*O bf16 (W3's hi and lo arrays); it is
+// float32 w3, split holds 2 * KM*IF*O bf16 (W3's hi and lo arrays); it is
 // not read otherwise.
 extern "C" int SE3_ENTRY(se3_pairwise_bwd_b)(const void* w3, const void* v2, const void* g,
                                              void* dh, void* work, void* split, int E, int IF,
                                              int O, int P, int i_per_split, int w3_is_bf16,
                                              void* stream) {
 #if !SE3_V16
-  if (E > 0 && IF > 0 && i_per_split > 0 && se3n::narrow(O)) {
+  if (E > 0 && IF > 0 && i_per_split > 0 && SE3N::narrow(O)) {
     // one O tile; the i splits' dH partials summed in split order
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int parts = (IF + i_per_split - 1) / i_per_split;
-    cudaError_t err = se3n::launch_bwd_b(w3_is_bf16 != 0, w3, v2, g, parts > 1 ? work : dh, E,
+    cudaError_t err = SE3N::launch_bwd_b(w3_is_bf16 != 0, w3, v2, g, parts > 1 ? work : dh, E,
                                          IF, O, P, i_per_split, s);
     if (err != cudaSuccess || parts == 1) return (int)err;
-    const size_t n = (size_t)E * MID;
+    const size_t n = (size_t)E * KMID;
     bwd_reduce_kernel<<<grid_for(n), NTHREADS, 0, s>>>(
         static_cast<const float*>(work), parts, n, 0, static_cast<float*>(dh), nullptr);
     return (int)cudaGetLastError();
@@ -1048,11 +1125,17 @@ extern "C" int SE3_ENTRY(se3_pairwise_bwd_b)(const void* w3, const void* v2, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SE3_B(PP)                                                                         \
   if (P == PP)                                                                            \
-    return (int)(w3_is_bf16 ? launch_b<false, PP, TVU>(w3, v2, g, dh, work, split, E, IF,  \
-                                                       O, i_per_split, s)                 \
-                            : launch_b<true, PP, TVU>(w3, v2, g, dh, work, split, E, IF,   \
-                                                      O, i_per_split, s));
-  SE3_B(1) SE3_B(3) SE3_B(5) SE3_B(7)
+    return (int)(w3_is_bf16 ? launch_b<false, PP, TVU, KMID>(w3, v2, g, dh, work, split, E, \
+                                                             IF, O, i_per_split, s)       \
+                            : launch_b<true, PP, TVU, KMID>(w3, v2, g, dh, work, split, E,  \
+                                                            IF, O, i_per_split, s));
+  SE3_B(1)
+#if !SE3_M32
+  SE3_B(3) SE3_B(5) SE3_B(7)
+#endif
+#if !SE3_V16
+  SE3_B(2)
+#endif
 #undef SE3_B
   return (int)cudaErrorInvalidValue;
 }

@@ -101,11 +101,38 @@
 // to float32 as it reads it (JAX upcasts the V2 row right after its load);
 // everything after is the float arm's, with float32 or bf16 h. No scaled
 // arm: a quantized W3 beside bf16 V2 takes the plain version.
+//
+// The mid-32 arm (KM = 32; entry point se3_pairwise_fwd_m32, compiled as a
+// unit of its own with -DSE3_M32=1): the SE3TransformerV2 family's per-m
+// blocks (se3_transformer_tpu/v2/conv.py, through the same _fwd_kernel)
+// have a radial trunk of width 32, and P = 1 (m = 0) or 2 (the -m, +m
+// rows). h and W3 keep their width: no padding to 128, which would do the
+// product four times over. The tile is the same with K = 32, two k-steps
+// of 16 a value of i: each i's W3 slice is [32][64] (a quarter of the
+// mid-128 one) and h's A fragments 8 (float32: 16) registers. What bounds
+// it then: not the tensor cores. At V2's hidden block (E = 32768, O = 64,
+// 28 launches, sum of IF 14784) the three passes are ~6 ms at the bf16
+// peak, but a value of i carries only 24 mma.sync a warp (float32's three
+// passes; bf16 8) against one barrier, a W3 slice copy and the P-deep
+// epilogue; the per-i overhead of
+// the loop (barrier and copy latency) is what the arm pays, partly hidden
+// by two CTAs an SM where the accumulator leaves room (Cfg::BLOCKS). A
+// stage of several values of i per barrier is the next step. Float V2 and
+// a float W3 only (the scaled and conv_bf16 arms stay at mid 128), and P =
+// 1 and 2 only: V2's rows; no model makes a mid-32 call of more rows, and
+// each order is a kernel to build.
+//
+// P = 2 (V2's -m/+m row pair) is built beside 1, 3, 5 and 7 in the float
+// arm at both widths: the epilogue reads P values of V2 a row from the
+// staged tile one at a time, so nothing in it assumes P odd or P >= 3.
 
 #include "common.cuh"
 
 #ifndef SE3_V16
 #define SE3_V16 0
+#endif
+#ifndef SE3_M32
+#define SE3_M32 0
 #endif
 #if !SE3_V16
 // the narrow-O arm (O = 8, 16 or 32) of se3_pairwise_fwd, a unit of its own
@@ -118,26 +145,32 @@ using namespace se3;
 
 using bf16 = __nv_bfloat16;
 constexpr int KI = 16;  // i values of V2 staged per chunk
-constexpr int HS = Tile<bf16>::HS, WS = Tile<bf16>::WS;
-constexpr int W_SLICE = MID * WS;  // one staged [MID][BO] bf16 slice
+constexpr int WS = Tile<bf16>::WS;
+constexpr int W_SLICE = MID * WS;  // one staged [MID][BO] bf16 slice (the scaled arm's)
 constexpr int QSTAGES = 4;         // the scaled arm's landing slots
 constexpr int Q_SLICE = MID * BO;  // one landing slot: [MID][BO] bytes
+// the radial width this unit's float arm is built for
+constexpr int KMID = SE3_M32 ? MID32 : MID;
 
-// The tile's shape by h's type T and P (kQ: the scaled arm). BLOCKS CTAs
-// share an SM where the P-deep accumulator leaves room: at most 128
-// registers a thread and ~113 KB of shared memory each (their barriers and
-// fetch latencies then overlap). The ring holds STAGES x (hi, lo) W3
-// slices for float32, STAGES x hi for bf16; the scaled arm's, two bf16
-// tiles and QSTAGES landing slots.
-template <typename T, int P, bool kQ = false, typename TV = float>
+// The tile's shape by h's type T, P and the radial width KM (kQ: the
+// scaled arm). BLOCKS CTAs share an SM where the P-deep accumulator, h's A
+// fragments and R leave room for 128 registers a thread (at most 96 of
+// them, ~113 KB of shared memory each; their barriers and fetch latencies
+// then overlap): at mid 128, P = 1 and bf16 P = 3; at mid 32, P <= 3. The
+// ring holds STAGES x (hi, lo) W3 slices for float32, STAGES x hi for
+// bf16; the scaled arm's, two bf16 tiles and QSTAGES landing slots.
+template <typename T, int P, bool kQ = false, typename TV = float, int KM = MID>
 struct Cfg {
   static constexpr bool kSplit = sizeof(T) == 4;
-  static constexpr int BLOCKS = (P == 1 || (!kSplit && P == 3)) ? 2 : 1;
+  static constexpr int HS = Tile<bf16, KM>::HS;
+  static constexpr int SLICE = KM * WS;  // one staged [KM][BO] bf16 slice
+  static constexpr int REGS = 16 * P + (kSplit ? 2 : 1) * (KM / 16) * 4 + 16;
+  static constexpr int BLOCKS = REGS <= 96 ? 2 : 1;
   static constexpr int STAGES = BLOCKS == 2 ? (kSplit ? 2 : 3) : (kSplit ? 3 : 6);
   static constexpr int SLICES = kSplit ? 2 : 1;
   // bytes of the W3 ring (the scaled arm: the tiles, then the landing slots)
   static constexpr size_t RING = kQ ? sizeof(bf16) * 2 * W_SLICE + (size_t)QSTAGES * Q_SLICE
-                                    : sizeof(bf16) * (size_t)STAGES * SLICES * W_SLICE;
+                                    : sizeof(bf16) * (size_t)STAGES * SLICES * SLICE;
   // V2's row stride in the staged tile (values): 16 bytes of pad
   static constexpr int VS = P * KI + 16 / (int)sizeof(TV);
   static constexpr size_t SMEM = RING + sizeof(TV) * (size_t)2 * BE * VS;
@@ -201,15 +234,16 @@ __device__ __forceinline__ void load_v(TV* sv, const TV* __restrict__ v2, int e0
   }
 }
 
-// The CTA's float32 h rows split into bf16 hi and lo tiles [BE][HS]
-// (zeros past E); plain loads, once per CTA.
+// The CTA's float32 h rows [BE][KM] split into bf16 hi and lo tiles
+// [BE][HS] (zeros past E); plain loads, once per CTA.
+template <int KM>
 __device__ __forceinline__ void split_h(bf16* shi, bf16* slo, const float* __restrict__ h,
                                         int e0, int rows, int tid) {
-  constexpr int C4 = MID / 4;
+  constexpr int C4 = KM / 4, HS = Tile<bf16, KM>::HS;
   for (int idx = tid; idx < BE * C4; idx += NTHREADS) {
     const int r = idx / C4, c = (idx - r * C4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) x = __ldg(reinterpret_cast<const float4*>(h + (size_t)(e0 + r) * MID + c));
+    if (r < rows) x = __ldg(reinterpret_cast<const float4*>(h + (size_t)(e0 + r) * KM + c));
     const __nv_bfloat162 h01 = __floats2bfloat162_rn(x.x, x.y);
     const __nv_bfloat162 h23 = __floats2bfloat162_rn(x.z, x.w);
     const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
@@ -225,14 +259,16 @@ __device__ __forceinline__ void split_h(bf16* shi, bf16* slo, const float* __res
 }
 
 // R tile of one warp for one i: one bf16 pass, or the three split passes
-// (hi.hi, hi.lo, lo.hi per kk and column group, in that order).
-template <bool kSplit>
-__device__ __forceinline__ void radial_tile_split(float (&rs)[4][4], const uint32_t (&ahi)[8][4],
-                                                  const uint32_t (&alo)[8][4], const bf16* swh,
-                                                  const bf16* swl, int wo, int lane) {
+// (hi.hi, hi.lo, lo.hi per kk and column group, in that order); K = KM.
+template <bool kSplit, int KM>
+__device__ __forceinline__ void radial_tile_split(float (&rs)[4][4],
+                                                  const uint32_t (&ahi)[KM / 16][4],
+                                                  const uint32_t (&alo)[KM / 16][4],
+                                                  const bf16* swh, const bf16* swl, int wo,
+                                                  int lane) {
   const int j = lane >> 3, rr = lane & 7;
 #pragma unroll
-  for (int kk = 0; kk < MID / 16; ++kk) {
+  for (int kk = 0; kk < KM / 16; ++kk) {
 #pragma unroll
     for (int nb2 = 0; nb2 < 2; ++nb2) {
       const int off = (kk * 16 + (j & 1) * 8 + rr) * WS + wo * 32 + nb2 * 16 + (j >> 1) * 8;
@@ -301,31 +337,34 @@ __device__ __forceinline__ void convert_q(bf16* tile, const uint8_t* slot, int t
   }
 }
 
-// Stage slice i of the (hi[, lo]) W3 arrays into one ring stage.
-template <bool kSplit>
+// Stage slice i of the (hi[, lo]) W3 arrays [KM, IF, O] into one ring stage.
+template <bool kSplit, int KM>
 __device__ __forceinline__ void load_slices(bf16* stage, const bf16* __restrict__ whi,
                                             const bf16* __restrict__ wlo, int i, int IF,
                                             int O, int o0, int tid) {
-  load_w(stage, whi, i, IF, O, o0, tid);
-  if constexpr (kSplit) load_w(stage + W_SLICE, wlo, i, IF, O, o0, tid);
+  load_w<bf16, KM>(stage, whi, i, IF, O, o0, tid);
+  if constexpr (kSplit) load_w<bf16, KM>(stage + KM * WS, wlo, i, IF, O, o0, tid);
 }
 
 // T is h's type: float (split into hi/lo here, W3 given as its split
 // arrays) or bf16 (W3 given as itself; wlo is unused). kQ: the scaled arm,
 // W3 as the storage wq (fp8 e4m3 with `fp8`, else int8) with wscale [IF,
 // O]; whi and wlo are unused. TV is V2's type: float, or bf16 (the
-// conv_bf16 arm).
-template <typename T, int P, bool kQ, typename TV>
-__global__ void __launch_bounds__(NTHREADS, (Cfg<T, P>::BLOCKS))
+// conv_bf16 arm). KM: the radial width (h [E, KM], W3 [KM, IF, O]).
+template <typename T, int P, bool kQ, typename TV, int KM>
+__global__ void __launch_bounds__(NTHREADS, (Cfg<T, P, false, float, KM>::BLOCKS))
 pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
                     const bf16* __restrict__ wlo, const uint8_t* __restrict__ wq,
                     const float* __restrict__ wscale, const float* __restrict__ b3,
                     const TV* __restrict__ v2, float* __restrict__ out, int E, int IF,
                     int O, int i_per_split, bool vec, bool fp8) {
-  constexpr bool kSplit = Cfg<T, P>::kSplit;
-  constexpr int STAGES = Cfg<T, P>::STAGES;
-  constexpr int STAGE = Cfg<T, P>::SLICES * W_SLICE;
-  constexpr int VS = Cfg<T, P, kQ, TV>::VS;
+  using C = Cfg<T, P, false, float, KM>;
+  constexpr bool kSplit = C::kSplit;
+  constexpr int STAGES = C::STAGES;
+  constexpr int HS = C::HS, SLICE = C::SLICE;
+  constexpr int STAGE = C::SLICES * SLICE;
+  constexpr int VS = Cfg<T, P, kQ, TV, KM>::VS;
+  static_assert(!kQ || KM == MID, "the scaled arm is built for mid 128");
   static_assert((kSplit ? 2 : 1) * BE * HS <= (kQ ? 2 * W_SLICE : STAGES * STAGE),
                 "h tiles fit the ring");
 
@@ -333,7 +372,7 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
   bf16* sW = reinterpret_cast<bf16*>(smem);  // STAGES x STAGE (kQ: 2 tiles)
   // kQ: the landing slots after the two tiles
   uint8_t* sL = smem + sizeof(bf16) * 2 * W_SLICE;
-  TV* sV = reinterpret_cast<TV*>(smem + Cfg<T, P, kQ>::RING);  // 2 x [BE][VS]
+  TV* sV = reinterpret_cast<TV*>(smem + Cfg<T, P, kQ, float, KM>::RING);  // 2 x [BE][VS]
   // the h tiles [BE][HS] (hi, and lo when split) take the ring's space
   // until their fragments are in registers
   bf16* sHh = sW;
@@ -359,17 +398,17 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
 
   // h's A fragments, loaded once: from the float32 rows split into hi and
   // lo, or from the bf16 rows
-  uint32_t ahi[8][4], alo[8][4];
+  uint32_t ahi[KM / 16][4], alo[KM / 16][4];
   if constexpr (kSplit) {
-    split_h(sHh, sHl, h, e0, rows, tid);
+    split_h<KM>(sHh, sHl, h, e0, rows, tid);
   } else {
-    load_h(sHh, h, e0, rows, tid);
+    load_h<T, KM>(sHh, h, e0, rows, tid);
     cp_async_commit();
     cp_async_wait<0>();
   }
   __syncthreads();
-  load_afrag(ahi, sHh, we, lane);
-  if constexpr (kSplit) load_afrag(alo, sHl, we, lane);
+  load_afrag<KM>(ahi, sHh, we, lane);
+  if constexpr (kSplit) load_afrag<KM>(alo, sHl, we, lane);
   __syncthreads();  // the ring takes the h tiles' space from here
 
   // the ring's first STAGES - 1 slices, one cp.async group each; the
@@ -402,7 +441,7 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
       if (s < n_pos && local_i(s) < n_i)
-        load_slices<kSplit>(sW + s * STAGE, whi, wlo, i_lo + local_i(s), IF, O, o0, tid);
+        load_slices<kSplit, KM>(sW + s * STAGE, whi, wlo, i_lo + local_i(s), IF, O, o0, tid);
       cp_async_commit();
     }
   }
@@ -438,8 +477,8 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
     } else {
       const int nxt = n + STAGES - 1;
       if (nxt < n_pos && local_i(nxt) < n_i)
-        load_slices<kSplit>(sW + (nxt % STAGES) * STAGE, whi, wlo, i_lo + local_i(nxt), IF, O,
-                            o0, tid);
+        load_slices<kSplit, KM>(sW + (nxt % STAGES) * STAGE, whi, wlo, i_lo + local_i(nxt), IF,
+                                O, o0, tid);
     }
     if (k == 0 && j + 1 < n_ch) {
       const int c = chunk_of(j + 1);
@@ -472,7 +511,7 @@ pairwise_fwd_kernel(const T* __restrict__ h, const bf16* __restrict__ whi,
       }
     } else {
       const bf16* sw = sW + (n % STAGES) * STAGE;
-      radial_tile_split<kSplit>(r, ahi, alo, sw, sw + W_SLICE, wo, lane);
+      radial_tile_split<kSplit, KM>(r, ahi, alo, sw, sw + SLICE, wo, lane);
     }
 
     // epilogue: acc[p] += V2[e, p, i] * (R + b3)
@@ -557,26 +596,26 @@ unsigned grid_for(size_t n4) {
 }
 
 // kQ: w3 is the quantized storage (fp8 e4m3 with `fp8`, else int8) and
-// wscale its scales; w3_split is unused. TV: V2's type.
-template <typename T, int P, bool kQ, typename TV = float>
+// wscale its scales; w3_split is unused. TV: V2's type. KM: the radial width.
+template <typename T, int P, bool kQ, typename TV = float, int KM = MID>
 cudaError_t launch(const void* h, const void* w3, const void* wscale, const void* b3,
                    const void* v2, void* out, void* work, void* w3_split, int E, int IF,
                    int O, int i_per_split, bool fp8, cudaStream_t stream) {
   constexpr bool kSplit = Cfg<T, P>::kSplit;
-  constexpr size_t smem = Cfg<T, P, kQ, TV>::SMEM;
+  constexpr size_t smem = Cfg<T, P, kQ, TV, KM>::SMEM;
   const bf16 *whi = static_cast<const bf16*>(w3), *wlo = nullptr;
   cudaError_t err;
   if constexpr (kSplit && !kQ) {
-    // W3 [MID, IF, O] is a whole number of float4s (O % 64 == 0)
-    const size_t n4 = (size_t)MID * IF * O / 4;
+    // W3 [KM, IF, O] is a whole number of float4s (O % 64 == 0)
+    const size_t n4 = (size_t)KM * IF * O / 4;
     uint2* hi = static_cast<uint2*>(w3_split);
     fwd_w3_split_kernel<<<grid_for(n4), NTHREADS, 0, stream>>>(
         static_cast<const float4*>(w3), n4, hi, hi + n4);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     whi = static_cast<const bf16*>(w3_split);
-    wlo = whi + (size_t)MID * IF * O;
+    wlo = whi + (size_t)KM * IF * O;
   }
-  auto kern = pairwise_fwd_kernel<T, P, kQ, TV>;
+  auto kern = pairwise_fwd_kernel<T, P, kQ, TV, KM>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -607,26 +646,32 @@ cudaError_t launch(const void* h, const void* w3, const void* wscale, const void
 // Plain C entry point (bound with ctypes). Returns the launch status
 // (cudaGetLastError() right after the launches); 0 is success. Pointers are
 // device pointers to contiguous tensors; the caller checks shapes: h [E,
-// 128], w3 [128, IF, O] with O % 64 == 0 or O in {8, 16, 32} (the narrow
-// arm, pairwise_narrow.cu, which does not read w3_split), b3 [IF, O], v2
-// [E, P, IF] with P in {1, 3, 5, 7}, out [E, P, O]; h/w3 bf16 or f32, the
-// rest f32. With
+// KM], w3 [KM, IF, O] with KM = 128 (se3_pairwise_fwd) or 32
+// (se3_pairwise_fwd_m32, this file compiled with -DSE3_M32=1), O % 64 == 0
+// or O in {8, 16, 32} (the narrow arm, pairwise_narrow.cu, which does not
+// read w3_split), b3 [IF, O], v2 [E, P, IF] with P in {1, 2, 3, 5, 7} (at
+// mid 32: 1, 2), out [E, P, O]; h/w3 bf16 or f32, the rest f32. With
 // more than one split (ceil(IF / i_per_split)) work holds that many
 // [E, P, O] float partials; it is not read otherwise. With float32 h/w3,
-// w3_split holds 2 * 128 * IF * O bf16 (W3's hi array, then its lo array);
+// w3_split holds 2 * KM * IF * O bf16 (W3's hi array, then its lo array);
 // it is not read otherwise.
+#if SE3_M32
+#define SE3_FWD_ENTRY se3_pairwise_fwd_m32
+#else
+#define SE3_FWD_ENTRY se3_pairwise_fwd
+#endif
 #if !SE3_V16
-extern "C" int se3_pairwise_fwd(const void* h, const void* w3, const void* b3, const void* v2,
-                                void* out, void* work, void* w3_split, int E, int IF, int O,
-                                int P, int i_per_split, int h_is_bf16, void* stream) {
+extern "C" int SE3_FWD_ENTRY(const void* h, const void* w3, const void* b3, const void* v2,
+                             void* out, void* work, void* w3_split, int E, int IF, int O,
+                             int P, int i_per_split, int h_is_bf16, void* stream) {
   if (E <= 0) return 0;
-  if (O <= 0 || (O % BO != 0 && !se3n::narrow(O)) || IF <= 0 || i_per_split <= 0)
+  if (O <= 0 || (O % BO != 0 && !SE3N::narrow(O)) || IF <= 0 || i_per_split <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (se3n::narrow(O)) {
+  if (SE3N::narrow(O)) {
     // one O tile; the i splits' partials summed in split order
     const int splits = (IF + i_per_split - 1) / i_per_split;
-    cudaError_t err = se3n::launch_fwd(h_is_bf16 != 0, h, w3, b3, v2, splits > 1 ? work : out,
+    cudaError_t err = SE3N::launch_fwd(h_is_bf16 != 0, h, w3, b3, v2, splits > 1 ? work : out,
                                        E, IF, O, P, i_per_split, s);
     if (err != cudaSuccess || splits == 1) return (int)err;
     const size_t n4 = (size_t)E * P * O / 4;  // O is a multiple of 8
@@ -636,17 +681,22 @@ extern "C" int se3_pairwise_fwd(const void* h, const void* w3, const void* b3, c
   }
 #define SE3_F(PP)                                                                          \
   if (P == PP)                                                                             \
-    return (int)(h_is_bf16 ? launch<bf16, PP, false>(h, w3, nullptr, b3, v2, out, work,    \
-                                                     w3_split, E, IF, O, i_per_split,      \
-                                                     false, s)                             \
-                           : launch<float, PP, false>(h, w3, nullptr, b3, v2, out, work,   \
-                                                      w3_split, E, IF, O, i_per_split,     \
-                                                      false, s));
-  SE3_F(1) SE3_F(3) SE3_F(5) SE3_F(7)
+    return (int)(h_is_bf16 ? launch<bf16, PP, false, float, KMID>(                         \
+                                 h, w3, nullptr, b3, v2, out, work, w3_split, E, IF, O,    \
+                                 i_per_split, false, s)                                    \
+                           : launch<float, PP, false, float, KMID>(                        \
+                                 h, w3, nullptr, b3, v2, out, work, w3_split, E, IF, O,    \
+                                 i_per_split, false, s));
+  SE3_F(1) SE3_F(2)
+#if !SE3_M32
+  SE3_F(3) SE3_F(5) SE3_F(7)
+#endif
 #undef SE3_F
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
+#if !SE3_V16 && !SE3_M32
 // The scaled arm (quantized serving). q [128, IF, O] int8, or fp8 e4m3
 // with fp8 != 0 (starting on 16 bytes); scale [IF, O] float32 (the [1, IF,
 // O] keepdims array); the rest as se3_pairwise_fwd. No W3 split, no
@@ -670,7 +720,7 @@ extern "C" int se3_pairwise_fwd_q(const void* h, const void* q, const void* scal
 #undef SE3_F
   return (int)cudaErrorInvalidValue;
 }
-#else
+#elif SE3_V16
 // The conv_bf16 arm: se3_pairwise_fwd's arguments with v2 [E, P, IF] bf16
 // (starting on 2 bytes; 16 for its 16-byte copies).
 extern "C" int se3_pairwise_fwd_v16(const void* h, const void* w3, const void* b3,

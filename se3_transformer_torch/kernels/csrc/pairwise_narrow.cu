@@ -1,20 +1,22 @@
 // The narrow-O arms of kernels #3, A and B (pairwise_narrow.cuh), with
 // their launches (pairwise_narrow.h): one instance per h/W3 type, O tile
-// (16 or 32) and P (1, 3, 5, 7).
+// (16 or 32) and P (1, 2, 3, 5, 7), at the unit's radial width KMID (128;
+// 32 with -DSE3_M32=1, P 1 and 2 only: V2's rows).
 
 #include "pairwise_narrow.cuh"
 #include "pairwise_narrow.h"
 
-namespace se3n {
+namespace SE3N {
 namespace {
 
 using bf16 = __nv_bfloat16;
+constexpr int KMID = SE3_M32 ? se3::MID32 : MID;
 
 template <typename T, int P, int ON>
 cudaError_t fwd(const void* h, const void* w3, const void* b3, const void* v2, void* dst,
                 int E, int IF, int O, int i_per_split, cudaStream_t stream) {
-  constexpr size_t smem = NCfg<ON, P>::FWD;
-  auto kern = fwd_kernel<T, P, ON>;
+  constexpr size_t smem = NCfg<ON, P, KMID>::FWD;
+  auto kern = fwd_kernel<T, P, ON, KMID>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -30,8 +32,8 @@ template <typename T, int P, int ON>
 cudaError_t bwd_a(const void* h, const void* w3, const void* b3, const void* v2, const void* g,
                   void* dv2, void* work, int E, int IF, int O, int splits,
                   cudaStream_t stream) {
-  constexpr size_t smem = NCfg<ON, P>::A;
-  auto kern = bwd_a_kernel<T, P, ON>;
+  constexpr size_t smem = NCfg<ON, P, KMID>::A;
+  auto kern = bwd_a_kernel<T, P, ON, KMID>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -48,8 +50,8 @@ cudaError_t bwd_a(const void* h, const void* w3, const void* b3, const void* v2,
 template <typename T, int P, int ON>
 cudaError_t bwd_b(const void* w3, const void* v2, const void* g, void* dst, int E, int IF,
                   int O, int i_per_split, cudaStream_t stream) {
-  constexpr size_t smem = NCfg<ON, P>::B;
-  auto kern = bwd_b_kernel<T, P, ON>;
+  constexpr size_t smem = NCfg<ON, P, KMID>::B;
+  auto kern = bwd_b_kernel<T, P, ON, KMID>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -63,19 +65,27 @@ cudaError_t bwd_b(const void* w3, const void* v2, const void* g, void* dst, int 
 }  // namespace
 
 // The instance for the type, O's tile and P; an O or P the arms do not
-// take is refused.
+// take is refused (at mid 32, P past 2: V2's rows are 1 and 2).
+#if SE3_M32
+#define SE3N_ODD(BF, CALL)
+#else
+#define SE3N_ODD(BF, CALL)                                                                \
+    case 3: return BF ? (t16 ? CALL(bf16, 3, 16) : CALL(bf16, 3, 32))                    \
+                      : (t16 ? CALL(float, 3, 16) : CALL(float, 3, 32));                 \
+    case 5: return BF ? (t16 ? CALL(bf16, 5, 16) : CALL(bf16, 5, 32))                    \
+                      : (t16 ? CALL(float, 5, 16) : CALL(float, 5, 32));                 \
+    case 7: return BF ? (t16 ? CALL(bf16, 7, 16) : CALL(bf16, 7, 32))                    \
+                      : (t16 ? CALL(float, 7, 16) : CALL(float, 7, 32));
+#endif
 #define SE3N_DISPATCH(BF, CALL)                                                           \
   if (!narrow(O)) return cudaErrorInvalidValue;                                          \
   const bool t16 = tile_for(O) == 16;                                                    \
   switch (P) {                                                                           \
     case 1: return BF ? (t16 ? CALL(bf16, 1, 16) : CALL(bf16, 1, 32))                    \
                       : (t16 ? CALL(float, 1, 16) : CALL(float, 1, 32));                 \
-    case 3: return BF ? (t16 ? CALL(bf16, 3, 16) : CALL(bf16, 3, 32))                    \
-                      : (t16 ? CALL(float, 3, 16) : CALL(float, 3, 32));                 \
-    case 5: return BF ? (t16 ? CALL(bf16, 5, 16) : CALL(bf16, 5, 32))                    \
-                      : (t16 ? CALL(float, 5, 16) : CALL(float, 5, 32));                 \
-    case 7: return BF ? (t16 ? CALL(bf16, 7, 16) : CALL(bf16, 7, 32))                    \
-                      : (t16 ? CALL(float, 7, 16) : CALL(float, 7, 32));                 \
+    case 2: return BF ? (t16 ? CALL(bf16, 2, 16) : CALL(bf16, 2, 32))                    \
+                      : (t16 ? CALL(float, 2, 16) : CALL(float, 2, 32));                 \
+    SE3N_ODD(BF, CALL)                                                                   \
   }                                                                                      \
   return cudaErrorInvalidValue;
 
@@ -104,5 +114,6 @@ cudaError_t launch_bwd_b(bool w3_bf16, const void* w3, const void* v2, const voi
 }
 
 #undef SE3N_DISPATCH
+#undef SE3N_ODD
 
-}  // namespace se3n
+}  // namespace SE3N

@@ -78,12 +78,22 @@
 //    build ran it on float32 FMAs: 3.6x the plain version at af2's
 //    largest pair.)
 // No atomics: every output is the same bits on every run.
+//
+// The radial width KM is a template parameter: 128, or 32 (V2's per-m
+// blocks; the mid-32 unit, pairwise_narrow.cu with -DSE3_M32=1). At 32 the
+// products' K (#3's R, A's R) is two k-steps of 16, and the products whose
+// rows or columns run over m change their warp roles: A's dW3 takes its 32
+// rows in one warp row (8 warps along the chunk's columns, K / 8 each, in
+// place of 4 x 2), B's dH 16 columns of m a warp (in place of 64). What
+// bounds the arm at the JAX sweep's V2 shape (dim 8, n 128, k 12, degree 6:
+// E = 1536, IF = 8 to 96, P 1 or 2) is launch latency and the one wave of
+// CTAs, as at mid 128.
 #pragma once
 
 #include "common.cuh"
 #include "pairwise_narrow.h"
 
-namespace se3n {
+namespace SE3N {
 
 using se3::BE;
 using se3::MID;
@@ -93,30 +103,36 @@ using se3::to_float;
 constexpr int NI = 4;          // i values per chunk
 
 // the thread roles: (edge, i value) for dR; 8 warps, 4 along 16-row
-// edge tiles (or 32-row m tiles) x 2 along the columns, for the products
-static_assert(NI * BE == NTHREADS && NTHREADS == 8 * 32 && BE == 4 * 16 && MID == 4 * 32,
+// edge tiles x 2 along the columns (or KM / 32 along 32-row m tiles x the
+// rest along the columns), for the products
+static_assert(NI * BE == NTHREADS && NTHREADS == 8 * 32 && BE == 4 * 16,
               "the thread roles cover the CTA");
 
 // The narrow O tile for an O of 8, 16 or 32 (narrow(O), pairwise_narrow.h).
 inline int tile_for(int O) { return O <= 16 ? 16 : 32; }
 
-// Shared memory (bytes) of each kernel by the tile width ON and P; every
-// buffer starts on 16 bytes.
-template <int ON, int P>
+// Shared memory (bytes) of each kernel by the tile width ON, P and the
+// radial width KM; every buffer starts on 16 bytes.
+template <int ON, int P, int KM>
 struct NCfg {
+  static_assert(KM % 32 == 0 && KM <= 128, "KM / 32 warp rows of dW3");
   static constexpr int K = NI * ON;  // a chunk's (i, o) columns
   static constexpr int B3 = NI * ON, V = BE * P * NI;
-  // #3's bf16 W3 tile (hi, then lo): [NI][MID][WSN]
-  static constexpr int WSN = ON + 8, WB = NI * MID * WSN;
+  // #3's bf16 W3 tile (hi, then lo): [NI][KM][WSN]
+  static constexpr int WSN = ON + 8, WB = NI * KM * WSN;
   static constexpr size_t FWD = sizeof(__nv_bfloat16) * 2 * (size_t)WB +
                                 sizeof(float) * (size_t)(B3 + V);
-  // A's and B's bf16 tiles (hi, then lo): W3's chunk [MID][KP], dR [BE][KP]
+  // A's and B's bf16 tiles (hi, then lo): W3's chunk [KM][KP], dR [BE][KP]
   // and A's h [BE][HP]; A's float R + b3, then dR, [BE][RS]
-  static constexpr int KP = K + 8, HP = MID + 8, RS = K + 4;
-  static constexpr size_t A = sizeof(__nv_bfloat16) * 2 * (size_t)(MID * KP + BE * HP + BE * KP) +
+  static constexpr int KP = K + 8, HP = KM + 8, RS = K + 4;
+  static constexpr size_t A = sizeof(__nv_bfloat16) * 2 * (size_t)(KM * KP + BE * HP + BE * KP) +
                               sizeof(float) * (size_t)(BE * RS + B3 + V);
-  static constexpr size_t B = sizeof(__nv_bfloat16) * 2 * (size_t)(MID + BE) * KP +
+  static constexpr size_t B = sizeof(__nv_bfloat16) * 2 * (size_t)(KM + BE) * KP +
                               sizeof(float) * (size_t)V;
+  // A's dW3 roles: KM / 32 warp rows of 32 m, the rest of the 8 warps along
+  // the chunk's K columns, NC each (NBD 8-column blocks)
+  static constexpr int WARPS_M = KM / 32, WARPS_N = 8 / WARPS_M;
+  static constexpr int NC = K / WARPS_N, NBD = NC / 8;
   static_assert(B3 % 4 == 0 && V % 4 == 0 && WB % 8 == 0 && KP % 8 == 0 &&
                     (BE * RS) % 4 == 0,
                 "16-byte buffer starts");
@@ -180,25 +196,25 @@ __device__ __forceinline__ void store_split(__nv_bfloat16* hi, __nv_bfloat16* lo
   }
 }
 
-// The same slice as bf16 [NI][MID][ON + 8] for #3's mma.sync B operand:
-// whi its values rounded to bf16, and for float32 W3 wlo the rest (v - hi)
-// rounded to bf16 (wlo is not written for bf16 W3, which whi holds
-// exactly). A thread stages quads of o, 8 loads in flight at a time, in
-// a loop the compiler does not unroll: the A fragments the kernel keeps
+// The same slice [KM][NI][ON] as bf16 [NI][KM][ON + 8] for #3's mma.sync B
+// operand: whi its values rounded to bf16, and for float32 W3 wlo the rest
+// (v - hi) rounded to bf16 (wlo is not written for bf16 W3, which whi holds
+// exactly). A thread stages quads of o, up to 8 loads in flight at a time,
+// in a loop the compiler does not unroll: the A fragments the kernel keeps
 // for the whole call leave no registers for more.
-template <int ON, typename T>
+template <int ON, int KM, typename T>
 __device__ __forceinline__ void load_w_bf16(__nv_bfloat16* whi, __nv_bfloat16* wlo,
                                             const T* __restrict__ w3, int i0, int i_end,
                                             int IF, int O, int tid) {
-  constexpr int WSN = ON + 8, Q = ON / 4, N = NI * MID * Q / NTHREADS, B = 8;
-  static_assert(NI * MID * Q % NTHREADS == 0 && N % B == 0, "whole rounds of the CTA");
+  constexpr int WSN = ON + 8, Q = ON / 4, N = NI * KM * Q / NTHREADS, B = N < 8 ? N : 8;
+  static_assert(NI * KM * Q % NTHREADS == 0 && N % B == 0, "whole rounds of the CTA");
 #pragma unroll 1
   for (int k0 = 0; k0 < N; k0 += B) {
     float4 v[B];
 #pragma unroll
     for (int k = 0; k < B; ++k) {
       const int idx = tid + (k0 + k) * NTHREADS;
-      const int o = 4 * (idx % Q), m = (idx / Q) % MID, i = i0 + idx / (Q * MID);
+      const int o = 4 * (idx % Q), m = (idx / Q) % KM, i = i0 + idx / (Q * KM);
       v[k] = i < i_end && o < O ? load_quad(w3 + ((size_t)m * IF + i) * O + o)
                                 : make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -211,24 +227,16 @@ __device__ __forceinline__ void load_w_bf16(__nv_bfloat16* whi, __nv_bfloat16* w
   }
 }
 
-// ldmatrix of two transposed 8x8 bf16 tiles (lanes 0-15 give the rows):
-// the B fragment of one 8-column block of mma.sync m16n8k16.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(se3::smem_addr(p)));
-}
-
-// The same slice as bf16 [MID][KP] rows of m (a row's (i, o) columns
+// The same slice as bf16 [KM][KP] rows of m (a row's (i, o) columns
 // contiguous, KP = NI * ON + 8) for kernel B's mma.sync B operand: whi
-// and, for float32 W3, wlo as load_w_bf16 splits them. Quads of o, 8
-// loads in flight at a time.
-template <int ON, typename T>
+// and, for float32 W3, wlo as load_w_bf16 splits them. Quads of o, up to
+// 8 loads in flight at a time.
+template <int ON, int KM, typename T>
 __device__ __forceinline__ void load_wk_bf16(__nv_bfloat16* whi, __nv_bfloat16* wlo,
                                              const T* __restrict__ w3, int i0, int i_end,
                                              int IF, int O, int tid) {
-  constexpr int KP = NI * ON + 8, Q = ON / 4, N = NI * MID * Q / NTHREADS, B = 8;
-  static_assert(NI * MID * Q % NTHREADS == 0 && N % B == 0, "whole rounds of the CTA");
+  constexpr int KP = NI * ON + 8, Q = ON / 4, N = NI * KM * Q / NTHREADS, B = N < 8 ? N : 8;
+  static_assert(NI * KM * Q % NTHREADS == 0 && N % B == 0, "whole rounds of the CTA");
 #pragma unroll 1
   for (int k0 = 0; k0 < N; k0 += B) {
     float4 v[B];
@@ -248,20 +256,20 @@ __device__ __forceinline__ void load_wk_bf16(__nv_bfloat16* whi, __nv_bfloat16* 
   }
 }
 
-// h rows e0 .. e0 + BE as bf16 [BE][MID + 8] for kernel A's mma.sync
+// h rows e0 .. e0 + BE as bf16 [BE][KM + 8] for kernel A's mma.sync
 // operands: hhi and, for float32 h, hlo as load_w_bf16 splits them (zeros
-// past E). Quads of m, a thread's 8 loads in flight at once.
-template <typename T>
+// past E). Quads of m, a thread's loads (8 at KM = 128) in flight at once.
+template <int KM, typename T>
 __device__ __forceinline__ void load_h_bf16(__nv_bfloat16* hhi, __nv_bfloat16* hlo,
                                             const T* __restrict__ h, int e0, int rows,
                                             int tid) {
-  constexpr int HP = MID + 8, Q = MID / 4, N = BE * Q / NTHREADS;
+  constexpr int HP = KM + 8, Q = KM / 4, N = BE * Q / NTHREADS;
   static_assert(BE * Q % NTHREADS == 0, "whole rounds of the CTA");
   float4 v[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int idx = tid + k * NTHREADS, r = idx / Q;
-    v[k] = r < rows ? load_quad(h + (size_t)e0 * MID + 4 * idx) : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[k] = r < rows ? load_quad(h + (size_t)e0 * KM + 4 * idx) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -296,12 +304,12 @@ __device__ __forceinline__ void load_v(float* sv, const float* __restrict__ v2, 
 }
 
 // #3, narrow: out (or this split's partial) [E, P, O].
-template <typename T, int P, int ON>
+template <typename T, int P, int ON, int KM>
 __global__ void __launch_bounds__(NTHREADS)
 fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __restrict__ b3,
            const float* __restrict__ v2, float* __restrict__ out, int E, int IF, int O,
            int i_per_split) {
-  using C = NCfg<ON, P>;
+  using C = NCfg<ON, P, KM>;
   using bf16 = __nv_bfloat16;
   constexpr bool kSplit = sizeof(T) == 4;
   constexpr int WSN = C::WSN, NBW = ON / 16;  // NBW: 8-column blocks a warp owns
@@ -317,9 +325,9 @@ fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __res
   const int i_lo = blockIdx.z * i_per_split, i_end = min(IF, i_lo + i_per_split);
   const int e_lo = we * 16 + g, e_hi = e_lo + 8;
   // h's A fragments for the whole call; zeros past E
-  uint32_t ahi[MID / 16][4], alo[kSplit ? MID / 16 : 1][4];
-  se3::load_afrag_global<T>(ahi, alo, e_lo < rows ? h + (size_t)(e0 + e_lo) * MID : nullptr,
-                            e_hi < rows ? h + (size_t)(e0 + e_hi) * MID : nullptr, t);
+  uint32_t ahi[KM / 16][4], alo[kSplit ? KM / 16 : 1][4];
+  se3::load_afrag_global<T, KM>(ahi, alo, e_lo < rows ? h + (size_t)(e0 + e_lo) * KM : nullptr,
+                                e_hi < rows ? h + (size_t)(e0 + e_hi) * KM : nullptr, t);
   float acc[P][NBW][4];
 #pragma unroll
   for (int p = 0; p < P; ++p)
@@ -329,7 +337,7 @@ fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __res
       for (int v = 0; v < 4; ++v) acc[p][nb][v] = 0.f;
   for (int i0 = i_lo; i0 < i_end; i0 += NI) {
     __syncthreads();  // every warp is done with the last chunk's tiles
-    load_w_bf16<ON>(swh, swl, w3, i0, i_end, IF, O, tid);
+    load_w_bf16<ON, KM>(swh, swl, w3, i0, i_end, IF, O, tid);
     load_b<ON>(sb, b3, i0, i_end, O, tid);
     load_v<P>(sv, v2, e0, rows, i0, i_end, IF, tid);
     __syncthreads();
@@ -347,15 +355,15 @@ fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __res
 #pragma unroll
         for (int v = 0; v < 4; ++v) r[il][nb][v] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < MID / 16; ++kk)
+    for (int kk = 0; kk < KM / 16; ++kk)
 #pragma unroll
       for (int il = 0; il < NI; ++il) {
-        const int off = (il * MID + kk * 16 + (j8 & 1) * 8 + rr) * WSN + cw + (j8 >> 1) * 8;
+        const int off = (il * KM + kk * 16 + (j8 & 1) * 8 + rr) * WSN + cw + (j8 >> 1) * 8;
         uint32_t bh[4], bl[4];
         if constexpr (NBW == 2)
           se3::ldmatrix_x4_trans(bh, swh + off);
         else
-          ldmatrix_x2_trans(bh, swh + off);
+          se3::ldmatrix_x2_trans(bh, swh + off);
 #pragma unroll
         for (int nb = 0; nb < NBW; ++nb)
           se3::mma_bf16(r[il][nb], ahi[kk], bh[2 * nb], bh[2 * nb + 1]);
@@ -363,7 +371,7 @@ fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __res
           if constexpr (NBW == 2)
             se3::ldmatrix_x4_trans(bl, swl + off);
           else
-            ldmatrix_x2_trans(bl, swl + off);
+            se3::ldmatrix_x2_trans(bl, swl + off);
 #pragma unroll
           for (int nb = 0; nb < NBW; ++nb) {
             se3::mma_bf16(r[il][nb], ahi[kk], bl[2 * nb], bl[2 * nb + 1]);
@@ -412,23 +420,24 @@ fwd_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __res
   }
 }
 
-// Kernel A, narrow: dv2 [E, P, IF] and this split's partial dW3 [MID, IF,
+// Kernel A, narrow: dv2 [E, P, IF] and this split's partial dW3 [KM, IF,
 // O] then dB3 [IF, O] in work (bwd_reduce_kernel's layout).
-template <typename T, int P, int ON>
+template <typename T, int P, int ON, int KM>
 __global__ void __launch_bounds__(NTHREADS)
 bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __restrict__ b3,
              const float* __restrict__ v2, const float* __restrict__ g,
              float* __restrict__ dv2, float* __restrict__ work, int E, int IF, int O,
              int tiles_per_split) {
-  using C = NCfg<ON, P>;
+  using C = NCfg<ON, P, KM>;
   using bf16 = __nv_bfloat16;
   constexpr bool kSplitH = sizeof(T) == 4;
   constexpr int K = C::K, KP = C::KP, HP = C::HP, RS = C::RS;
   constexpr int NBW = K / 16;  // 8-column blocks of a warp's K / 2 columns
+  constexpr int NC = C::NC, NBD = C::NBD;  // dW3: a warp's columns, their blocks
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* swh = reinterpret_cast<bf16*>(smem);  // W3's chunk [MID][KP], hi then lo
-  bf16* swl = swh + MID * KP;
-  bf16* shh = swl + MID * KP;  // h [BE][HP], hi then lo
+  bf16* swh = reinterpret_cast<bf16*>(smem);  // W3's chunk [KM][KP], hi then lo
+  bf16* swl = swh + KM * KP;
+  bf16* shh = swl + KM * KP;  // h [BE][HP], hi then lo
   bf16* shl = shh + BE * HP;
   bf16* sdh = shl + BE * HP;  // dR [BE][KP], hi then lo
   bf16* sdl = sdh + BE * KP;
@@ -440,16 +449,18 @@ bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __r
   // the products' roles: rows (edges for R, m for dW3) by warp & 3, the
   // chunk's columns by halves
   const int wr = warp & 3, wn = (warp >> 2) * (K / 2);
+  // dW3's roles: rows wm * 32, columns wd .. wd + NC
+  const int wm = warp % C::WARPS_M, wd = (warp / C::WARPS_M) * NC;
   const int i0 = blockIdx.x * NI, i_end = min(IF, i0 + NI);
   // the dR role: edge e, i value il
   const int e = tid % BE, il = tid / BE, i = i0 + il;
-  load_wk_bf16<ON>(swh, swl, w3, i0, i_end, IF, O, tid);
+  load_wk_bf16<ON, KM>(swh, swl, w3, i0, i_end, IF, O, tid);
   load_b<ON>(sb, b3, i0, i_end, O, tid);
-  float dw[2][NBW][4];  // dW3 rows wr * 32 + mt * 16, the warp's columns
+  float dw[2][NBD][4];  // dW3 rows wm * 32 + mt * 16, the warp's columns
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nb = 0; nb < NBW; ++nb)
+    for (int nb = 0; nb < NBD; ++nb)
 #pragma unroll
       for (int v = 0; v < 4; ++v) dw[mt][nb][v] = 0.f;
   float db = 0.f;  // column tid of dB3, for tid < K
@@ -459,7 +470,7 @@ bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __r
   for (int tile = t_lo; tile < t_hi; ++tile) {
     const int e0 = tile * BE, rows = min(BE, E - e0);
     __syncthreads();  // every warp is done with the last tile's h, dR and sr
-    load_h_bf16(shh, shl, h, e0, rows, tid);
+    load_h_bf16<KM>(shh, shl, h, e0, rows, tid);
     load_v<P>(sv, v2, e0, rows, i0, i_end, IF, tid);
     __syncthreads();
     {
@@ -471,7 +482,7 @@ bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __r
 #pragma unroll
         for (int v = 0; v < 4; ++v) r[nb][v] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < MID / 16; ++kk) {
+      for (int kk = 0; kk < KM / 16; ++kk) {
         const int a_off = (wr * 16 + (j8 & 1) * 8 + rr) * HP + kk * 16 + (j8 >> 1) * 8;
         uint32_t ahi[4], alo[4];
         se3::ldmatrix_x4(ahi, shh + a_off);
@@ -553,37 +564,42 @@ bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __r
     for (int ks = 0; ks < BE / 16; ++ks) {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        const int a_off = (ks * 16 + (j8 >> 1) * 8 + rr) * HP + wr * 32 + mt * 16 + (j8 & 1) * 8;
+        const int a_off = (ks * 16 + (j8 >> 1) * 8 + rr) * HP + wm * 32 + mt * 16 + (j8 & 1) * 8;
         uint32_t ahi[4], alo[4];
         se3::ldmatrix_x4_trans(ahi, shh + a_off);
         if constexpr (kSplitH) se3::ldmatrix_x4_trans(alo, shl + a_off);
+        // one 8-column block (x2) or pairs of them (x4) of dR
 #pragma unroll
-        for (int nb2 = 0; nb2 < NBW / 2; ++nb2) {
-          const int b_off = (ks * 16 + (j8 & 1) * 8 + rr) * KP + wn + nb2 * 16 + (j8 >> 1) * 8;
+        for (int nb2 = 0; nb2 < (NBD + 1) / 2; ++nb2) {
+          const int b_off = (ks * 16 + (j8 & 1) * 8 + rr) * KP + wd + nb2 * 16 + (j8 >> 1) * 8;
           uint32_t bh[4], bl[4];
-          se3::ldmatrix_x4_trans(bh, sdh + b_off);
-          se3::ldmatrix_x4_trans(bl, sdl + b_off);
-          se3::mma_bf16(dw[mt][2 * nb2], ahi, bh[0], bh[1]);
-          se3::mma_bf16(dw[mt][2 * nb2 + 1], ahi, bh[2], bh[3]);
-          se3::mma_bf16(dw[mt][2 * nb2], ahi, bl[0], bl[1]);
-          se3::mma_bf16(dw[mt][2 * nb2 + 1], ahi, bl[2], bl[3]);
-          if constexpr (kSplitH) {
-            se3::mma_bf16(dw[mt][2 * nb2], alo, bh[0], bh[1]);
-            se3::mma_bf16(dw[mt][2 * nb2 + 1], alo, bh[2], bh[3]);
+          if constexpr (NBD == 1) {
+            se3::ldmatrix_x2_trans(bh, sdh + b_off);
+            se3::ldmatrix_x2_trans(bl, sdl + b_off);
+          } else {
+            se3::ldmatrix_x4_trans(bh, sdh + b_off);
+            se3::ldmatrix_x4_trans(bl, sdl + b_off);
+          }
+#pragma unroll
+          for (int nb = 0; nb < (NBD == 1 ? 1 : 2); ++nb) {
+            float(&d)[4] = dw[mt][2 * nb2 + nb];
+            se3::mma_bf16(d, ahi, bh[2 * nb], bh[2 * nb + 1]);
+            se3::mma_bf16(d, ahi, bl[2 * nb], bl[2 * nb + 1]);
+            if constexpr (kSplitH) se3::mma_bf16(d, alo, bh[2 * nb], bh[2 * nb + 1]);
           }
         }
       }
     }
   }
-  const size_t n_w = (size_t)MID * IF * O;
+  const size_t n_w = (size_t)KM * IF * O;
   float* part = work + (size_t)blockIdx.y * (n_w + (size_t)IF * O);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nb = 0; nb < NBW; ++nb) {
-      const int col = wn + nb * 8 + 2 * t, ic = i0 + col / ON, o = col % ON;
+    for (int nb = 0; nb < NBD; ++nb) {
+      const int col = wd + nb * 8 + 2 * t, ic = i0 + col / ON, o = col % ON;
       if (ic >= i_end || o >= O) continue;
-      const int m = wr * 32 + mt * 16 + g4;
+      const int m = wm * 32 + mt * 16 + g4;
       *reinterpret_cast<float2*>(part + ((size_t)m * IF + ic) * O + o) =
           make_float2(dw[mt][nb][0], dw[mt][nb][1]);
       *reinterpret_cast<float2*>(part + ((size_t)(m + 8) * IF + ic) * O + o) =
@@ -595,37 +611,38 @@ bwd_a_kernel(const T* __restrict__ h, const T* __restrict__ w3, const float* __r
   }
 }
 
-// Kernel B, narrow: dH (or this split's partial) [E, MID].
-template <typename T, int P, int ON>
+// Kernel B, narrow: dH (or this split's partial) [E, KM].
+template <typename T, int P, int ON, int KM>
 __global__ void __launch_bounds__(NTHREADS)
 bwd_b_kernel(const T* __restrict__ w3, const float* __restrict__ v2,
              const float* __restrict__ g, float* __restrict__ dh, int E, int IF, int O,
              int i_per_split) {
-  using C = NCfg<ON, P>;
+  using C = NCfg<ON, P, KM>;
   using bf16 = __nv_bfloat16;
   constexpr bool kSplitW = sizeof(T) == 4;
   constexpr int K = C::K, KP = C::KP;
+  constexpr int NM = KM / 16;  // 8-column blocks of a warp's KM / 2 columns of m
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* swh = reinterpret_cast<bf16*>(smem);  // W3's chunk [MID][KP], hi then lo
-  bf16* swl = swh + MID * KP;
-  bf16* sdh = swl + MID * KP;  // dR [BE][KP], hi then lo
+  bf16* swh = reinterpret_cast<bf16*>(smem);  // W3's chunk [KM][KP], hi then lo
+  bf16* swl = swh + KM * KP;
+  bf16* sdh = swl + KM * KP;  // dR [BE][KP], hi then lo
   bf16* sdl = sdh + BE * KP;
   float* sv = reinterpret_cast<float*>(sdl + BE * KP);  // V2 [BE][P][NI]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int e = tid % BE, q = tid / BE;  // the dR role: edge e, i value q
-  // the product role: warp rows we * 16, columns (m) wm * 64
-  const int we = warp & 3, wm = (warp >> 2) * 64;
+  // the product role: warp rows we * 16, columns (m) wm .. wm + KM / 2
+  const int we = warp & 3, wm = (warp >> 2) * (KM / 2);
   const int g4 = lane >> 2, t = lane & 3, j8 = lane >> 3, rr = lane & 7;
   const int e0 = blockIdx.x * BE, rows = min(BE, E - e0);
   const int i_lo = blockIdx.y * i_per_split, i_end = min(IF, i_lo + i_per_split);
-  float acc[8][4];
+  float acc[NM][4];
 #pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
+  for (int nb = 0; nb < NM; ++nb)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[nb][v] = 0.f;
   for (int i0 = i_lo; i0 < i_end; i0 += NI) {
     __syncthreads();  // every warp is done with the last chunk's tiles
-    load_wk_bf16<ON>(swh, swl, w3, i0, i_end, IF, O, tid);
+    load_wk_bf16<ON, KM>(swh, swl, w3, i0, i_end, IF, O, tid);
     load_v<P>(sv, v2, e0, rows, i0, i_end, IF, tid);
     __syncthreads();
     {
@@ -665,7 +682,7 @@ bwd_b_kernel(const T* __restrict__ w3, const float* __restrict__ v2,
       se3::ldmatrix_x4(ahi, sdh + a_off);
       se3::ldmatrix_x4(alo, sdl + a_off);
 #pragma unroll
-      for (int nb2 = 0; nb2 < 4; ++nb2) {
+      for (int nb2 = 0; nb2 < NM / 2; ++nb2) {
         const int b_off = (wm + nb2 * 16 + (j8 >> 1) * 8 + rr) * KP + kk * 16 + (j8 & 1) * 8;
         uint32_t bh[4];
         se3::ldmatrix_x4(bh, swh + b_off);
@@ -683,16 +700,16 @@ bwd_b_kernel(const T* __restrict__ w3, const float* __restrict__ v2,
     }
   }
   const int e_lo = we * 16 + g4, e_hi = e_lo + 8;
-  float* dst = dh + (size_t)blockIdx.y * E * MID + (size_t)e0 * MID + wm + 2 * t;
+  float* dst = dh + (size_t)blockIdx.y * E * KM + (size_t)e0 * KM + wm + 2 * t;
 #pragma unroll
-  for (int nb = 0; nb < 8; ++nb) {
+  for (int nb = 0; nb < NM; ++nb) {
     if (e_lo < rows)
-      *reinterpret_cast<float2*>(dst + (size_t)e_lo * MID + nb * 8) =
+      *reinterpret_cast<float2*>(dst + (size_t)e_lo * KM + nb * 8) =
           make_float2(acc[nb][0], acc[nb][1]);
     if (e_hi < rows)
-      *reinterpret_cast<float2*>(dst + (size_t)e_hi * MID + nb * 8) =
+      *reinterpret_cast<float2*>(dst + (size_t)e_hi * KM + nb * 8) =
           make_float2(acc[nb][2], acc[nb][3]);
   }
 }
 
-}  // namespace se3n
+}  // namespace SE3N

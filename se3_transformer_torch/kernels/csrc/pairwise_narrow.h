@@ -5,11 +5,25 @@
 // run the split reduces. Each returns cudaGetLastError() right after its
 // launch; pointers are device pointers to contiguous tensors, h and W3
 // float32 (h_bf16 == false) or bf16, the rest float32.
+//
+// The radial width KM is the unit's: 128, or 32 in the units compiled with
+// -DSE3_M32=1 (pairwise_narrow.cu's mid-32 unit defines these launches in
+// namespace se3n32, which the mid-32 units of pairwise_fwd.cu and
+// pairwise_bwd.cu call through SE3N).
 #pragma once
 
 #include <cuda_runtime.h>
 
-namespace se3n {
+#ifndef SE3_M32
+#define SE3_M32 0
+#endif
+#if SE3_M32
+#define SE3N se3n32
+#else
+#define SE3N se3n
+#endif
+
+namespace SE3N {
 
 // The O values the narrow arms take.
 inline bool narrow(int O) { return O == 8 || O == 16 || O == 32; }
@@ -21,15 +35,15 @@ cudaError_t launch_fwd(bool h_bf16, const void* h, const void* w3, const void* b
                        int i_per_split, cudaStream_t stream);
 
 // Kernel A: dv2 [E, P, IF] whole, and each of the `splits` edge splits'
-// partial dW3 [128, IF, O] then dB3 [IF, O] in turn at work.
+// partial dW3 [KM, IF, O] then dB3 [IF, O] in turn at work.
 cudaError_t launch_bwd_a(bool h_bf16, const void* h, const void* w3, const void* b3,
                          const void* v2, const void* g, void* dv2, void* work, int E, int IF,
                          int O, int P, int splits, cudaStream_t stream);
 
-// Kernel B: dh [E, 128], or with more than one i split each split's
-// partial [E, 128] in turn at dst.
+// Kernel B: dh [E, KM], or with more than one i split each split's
+// partial [E, KM] in turn at dst.
 cudaError_t launch_bwd_b(bool w3_bf16, const void* w3, const void* v2, const void* g,
                          void* dst, int E, int IF, int O, int P, int i_per_split,
                          cudaStream_t stream);
 
-}  // namespace se3n
+}  // namespace SE3N

@@ -60,6 +60,20 @@ its launches counts in the wrapper's `.launches` (`.launches_a` /
 `.launches_b`) and in `.conv_bf16_launches` (`.conv_bf16_launches_a` /
 `_b`). dV2 stays float32, as in JAX. The scaled arm of #3 takes float32 V2
 only: pairwise_limit routes a quantized w3 beside bf16 V2.
+
+The mid-32 arms (the SE3TransformerV2 family, se3_transformer_torch.v2:
+its per-m blocks have a radial trunk of width 32 and P = 1 or 2 rows):
+#3, A and B take mid = 32 beside 128 (MIDS) with P in MID32_ORDERS, wide
+and narrow O, float32 or bf16 h, float32 V2 and a float w3. On a card
+they are the _m32 C entry points (csrc/pairwise_fwd.cu,
+csrc/pairwise_bwd.cu and csrc/pairwise_narrow.cuh built with
+-DSE3_M32=1): h and w3 keep their width, nothing is padded to 128. Each
+of their launches counts in `.launches` (`.launches_a` / `.launches_b`)
+and in `fused_pairwise_conv.mid32_launches`
+(`fused_pairwise_conv_bwd.mid32_launches_a` / `_b`). P = 2 (V2's -m/+m
+row pair) is built beside 1, 3, 5 and 7 in #3, A and B at both widths;
+the scaled and conv_bf16 arms stay at mid 128 and odd P, and #1 and #2 at
+mid 128 with P and Q odd.
 """
 from __future__ import annotations
 
@@ -69,7 +83,9 @@ from typing import Optional
 
 import torch
 
-MID = 128          # the radial hidden width the kernel is built for
+MID = 128          # the radial hidden width #1 and #2 are built for
+MIDS = (128, 32)   # the radial widths #3, A and B take (32: V2's trunk)
+MID32_ORDERS = (1, 2)   # P of the mid-32 arms: V2's (m = 0) and (-m, +m) rows
 O_TILE = 64        # output channels per CTA of the wide tiles: O a multiple
 # the O values of the narrow-O arms of #3, A and B (csrc/pairwise_narrow.cuh):
 # one tile of 16 columns (O = 8, 16) or 32, the columns past O masked
@@ -77,6 +93,8 @@ NARROW_O = (8, 16, 32)
 NARROW_I_CHUNK = 4  # the narrow arms' i chunk (a kernel-A CTA's i values)
 EDGE_TILE = 64     # edges per CTA
 ORDERS = (1, 3, 5, 7)   # P and Q the kernel is instantiated for (degree <= 3)
+# P of #3, A and B's float arms: also V2's (-m, +m) row pairs
+PAIR_ORDERS = (1, 2, 3, 5, 7)
 # the i-range split of the V2-given forward kernel and of backward kernel B
 SPLIT_TARGET_CTAS = 132  # one CTA per SM of an H100 (both run one per SM)
 SPLIT_MIN_I = 64         # the fewest i values a split takes
@@ -101,7 +119,10 @@ def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
     `scaled` a quantized w3 (#3's scaled arm). #3, A and B also take O in
     NARROW_O (their narrow-O arms) with float32 V2 and a float w3; #1 and
     #2, the scaled arm and the conv_bf16 arms take O a multiple of 64
-    only. A function of widths and dtypes alone, the counterpart of the JAX
+    only. #3, A and B take mid 32 (with P 1 or 2, V2's rows) beside 128
+    and P = 2 beside the odd orders in their float arms; #1 and #2, the
+    scaled arm and the conv_bf16 arms take mid 128 and odd P only. A
+    function of widths and dtypes alone, the counterpart of the JAX
     package's fused_attention_fits: the kernels' fits predicate."""
     if dtype not in DTYPES:
         return f'h dtype {dtype} exceeds the built dtypes (bfloat16, float32)'
@@ -111,8 +132,20 @@ def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
     if scaled and operand_dtype != torch.float32:
         return ('a quantized w3 beside bf16 V2 exceeds the scaled arm (built '
                 'for float32 V2)')
-    if mid != MID:
-        return f'mid = {mid} exceeds the built mid = {MID}'
+    pairwise = kernel in ('fwd', 'bwd')
+    if pairwise and mid in MIDS and mid != MID:
+        if P not in MID32_ORDERS:
+            return (f'P = {P} at mid = {mid} exceeds the mid-{mid} arms '
+                    f'(built for the V2 rows, P in {MID32_ORDERS})')
+        if scaled:
+            return (f'mid = {mid} with a quantized w3 exceeds the scaled arm '
+                    f'(built for mid = {MID})')
+        if operand_dtype != torch.float32:
+            return (f'mid = {mid} with bf16 V2 exceeds the conv_bf16 arms '
+                    f'(built for mid = {MID})')
+    elif mid != MID:
+        built = f'mids {MIDS}' if pairwise else f'mid = {MID}'
+        return f'mid = {mid} exceeds the built {built}'
     if O in NARROW_O and kernel in ('fwd', 'bwd'):
         if scaled:
             return (f'O = {O} with a quantized w3 exceeds the scaled arm '
@@ -124,8 +157,16 @@ def pairwise_limit(kernel: str, mid: int, O: int, P: int, Q: int = 1,
         built = ('8, 16, 32 or a multiple of 64' if kernel in ('fwd', 'bwd')
                  else f'a multiple of {O_TILE}')
         return f'O = {O} exceeds the built O: {built}'
-    if P not in ORDERS:
-        return f'P = {P} exceeds the built orders {ORDERS} (degree <= 3)'
+    if pairwise and P in PAIR_ORDERS and P not in ORDERS:
+        if scaled:
+            return (f'P = {P} with a quantized w3 exceeds the scaled arm '
+                    f'(built for the orders {ORDERS})')
+        if operand_dtype != torch.float32:
+            return (f'P = {P} with bf16 V2 exceeds the conv_bf16 arms (built '
+                    f'for the orders {ORDERS})')
+    elif P not in ORDERS:
+        built = PAIR_ORDERS if pairwise else ORDERS
+        return f'P = {P} exceeds the built orders {built} (degree <= 3)'
     if kernel in ('bxf', 'bx') and Q not in ORDERS:
         return f'Q = {Q} exceeds the built orders {ORDERS} (degree <= 3)'
     return None
@@ -382,9 +423,9 @@ def _check_fwd(h, w3, v2, b3, w3_scale=None):
                            scaled=w3_scale is not None)
     if limit is not None:
         raise ValueError(limit)
-    E = h.shape[0]
-    if w3.shape[0] != MID or w3.shape[1] == 0:
-        raise ValueError(f'w3 must be [{MID}, IF, O], got {tuple(w3.shape)}')
+    E, mid = h.shape
+    if w3.shape[0] != mid or w3.shape[1] == 0:
+        raise ValueError(f'w3 must be [{mid}, IF, O], got {tuple(w3.shape)}')
     _, IF, O = w3.shape
     if v2.shape[0] != E or v2.shape[2] != IF:
         raise ValueError(f'v2 must be [{E}, P, {IF}], got {tuple(v2.shape)}')
@@ -482,8 +523,10 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
         2 * w3.numel(), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
     v16 = v2.dtype == torch.bfloat16
+    m32 = h.shape[1] != MID
     lib = load_library()
-    fn = lib.se3_pairwise_fwd_v16 if v16 else lib.se3_pairwise_fwd
+    fn = lib.se3_pairwise_fwd_v16 if v16 else (
+        lib.se3_pairwise_fwd_m32 if m32 else lib.se3_pairwise_fwd)
     with torch.cuda.device(h.device):
         rc = fn(h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
                 out.data_ptr(), work.data_ptr(), w3_split.data_ptr(), E, IF, O,
@@ -493,16 +536,18 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
     fused_pairwise_conv.launches += 1
     fused_pairwise_conv.conv_bf16_launches += v16
     fused_pairwise_conv.narrow_launches += O in NARROW_O
+    fused_pairwise_conv.mid32_launches += m32
     return out
 
 
 # every launch counts in .launches, the scaled arm's in .scaled_launches
 # too, the conv_bf16 arm's in .conv_bf16_launches, the narrow-O arm's in
-# .narrow_launches
+# .narrow_launches, the mid-32 arm's in .mid32_launches
 fused_pairwise_conv.launches = 0
 fused_pairwise_conv.scaled_launches = 0
 fused_pairwise_conv.conv_bf16_launches = 0
 fused_pairwise_conv.narrow_launches = 0
+fused_pairwise_conv.mid32_launches = 0
 fused_pairwise_conv.routed = 0
 
 
@@ -562,9 +607,9 @@ def _check_bwd(h, w3, v2, g, b3):
                            dtype=h.dtype, operand_dtype=v2.dtype)
     if limit is not None:
         raise ValueError(limit)
-    E = h.shape[0]
-    if w3.shape[0] != MID or w3.shape[1] == 0:
-        raise ValueError(f'w3 must be [{MID}, IF, O], got {tuple(w3.shape)}')
+    E, mid = h.shape
+    if w3.shape[0] != mid or w3.shape[1] == 0:
+        raise ValueError(f'w3 must be [{mid}, IF, O], got {tuple(w3.shape)}')
     _, IF, O = w3.shape
     if v2.shape[0] != E or v2.shape[2] != IF:
         raise ValueError(f'v2 must be [{E}, P, {IF}], got {tuple(v2.shape)}')
@@ -622,22 +667,25 @@ def _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P):
     and takes no split scratch."""
     f32 = dict(dtype=torch.float32, device=h.device)
     h, w3, g = _aligned(h), _aligned(w3), _aligned(g)
+    mid = h.shape[1]
     dv2 = torch.empty(E, P, IF, **f32)
-    dw3 = torch.empty(MID, IF, O, **f32)
+    dw3 = torch.empty(mid, IF, O, **f32)
     db3 = torch.empty(IF, O, **f32)
     slots = o_slots(O)
     splits = bwd_splits(E, IF, O)
-    work = torch.empty(splits * (MID + 1) * IF * O, **f32)
+    work = torch.empty(splits * (mid + 1) * IF * O, **f32)
     dv2_work = dv2 if slots == 1 else torch.empty(slots * E * P * IF, **f32)
     # float32 h and w3 are split into bf16 hi and lo arrays by the kernel's
     # own split pass, into this scratch
     bf16 = h.dtype == torch.bfloat16
     split = work if bf16 or O in NARROW_O else torch.empty(
-        2 * (E * MID + MID * IF * O), dtype=torch.bfloat16, device=h.device)
+        2 * (E * mid + mid * IF * O), dtype=torch.bfloat16, device=h.device)
     from .build import load_library
     v16 = v2.dtype == torch.bfloat16
+    m32 = mid != MID
     lib = load_library()
-    fn = lib.se3_pairwise_bwd_a_v16 if v16 else lib.se3_pairwise_bwd_a
+    fn = lib.se3_pairwise_bwd_a_v16 if v16 else (
+        lib.se3_pairwise_bwd_a_m32 if m32 else lib.se3_pairwise_bwd_a)
     with torch.cuda.device(h.device):
         rc = fn(h.data_ptr(), w3.data_ptr(), b3.data_ptr(), v2.data_ptr(),
                 g.data_ptr(), dv2.data_ptr(), dv2_work.data_ptr(),
@@ -648,6 +696,7 @@ def _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P):
     fused_pairwise_conv_bwd.launches_a += 1
     fused_pairwise_conv_bwd.conv_bf16_launches_a += v16
     fused_pairwise_conv_bwd.narrow_launches_a += O in NARROW_O
+    fused_pairwise_conv_bwd.mid32_launches_a += m32
     return dw3, dv2, db3
 
 
@@ -656,12 +705,13 @@ def _launch_bwd_b(w3, v2, g, E, IF, O, P):
     tile, the partials' reduce) on operands that passed _check_bwd, E > 0
     -> dh; counts one kernel-B launch. A narrow O is one tile and takes no
     split scratch."""
-    dh = torch.empty(E, MID, dtype=torch.float32, device=w3.device)
+    mid = w3.shape[0]
+    dh = torch.empty(E, mid, dtype=torch.float32, device=w3.device)
     w3, g = _aligned(w3), _aligned(g)
     per = i_per_split(E, IF, O)
     partials = -(-IF // per) * o_slots(O)
     work = dh if partials == 1 else torch.empty(
-        partials * E * MID, dtype=torch.float32, device=w3.device)
+        partials * E * mid, dtype=torch.float32, device=w3.device)
     # float32 w3 is split into bf16 hi and lo arrays by the kernel's own
     # split pass, into this scratch
     bf16 = w3.dtype == torch.bfloat16
@@ -669,8 +719,10 @@ def _launch_bwd_b(w3, v2, g, E, IF, O, P):
         2 * w3.numel(), dtype=torch.bfloat16, device=w3.device)
     from .build import load_library
     v16 = v2.dtype == torch.bfloat16
+    m32 = mid != MID
     lib = load_library()
-    fn = lib.se3_pairwise_bwd_b_v16 if v16 else lib.se3_pairwise_bwd_b
+    fn = lib.se3_pairwise_bwd_b_v16 if v16 else (
+        lib.se3_pairwise_bwd_b_m32 if m32 else lib.se3_pairwise_bwd_b)
     with torch.cuda.device(w3.device):
         rc = fn(w3.data_ptr(), v2.data_ptr(), g.data_ptr(), dh.data_ptr(),
                 work.data_ptr(), split.data_ptr(), E, IF, O, P, per,
@@ -680,6 +732,7 @@ def _launch_bwd_b(w3, v2, g, E, IF, O, P):
     fused_pairwise_conv_bwd.launches_b += 1
     fused_pairwise_conv_bwd.conv_bf16_launches_b += v16
     fused_pairwise_conv_bwd.narrow_launches_b += O in NARROW_O
+    fused_pairwise_conv_bwd.mid32_launches_b += m32
     return dh
 
 
@@ -691,7 +744,7 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
     conv_bf16), g [E, P, O], b3 [IF, O] (zeros when None) -> (dh [E, mid],
     dw3 [mid, IF, O], dv2 [E, P, IF], db3 [IF, O]), all float32. On a
     card: kernel A (dV2, dW3, dB3, with its deterministic edge reduce) then
-    kernel B (dH); mid = 128 and O a multiple of 64, or O in NARROW_O with
+    kernel B (dH); mid in MIDS and O a multiple of 64, or O in NARROW_O with
     float32 V2 (the narrow arms), there."""
     if b3 is None:
         b3 = torch.zeros(w3.shape[1:], dtype=torch.float32, device=h.device)
@@ -702,7 +755,8 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
     E, IF, O, P = _check_bwd(h, w3, v2, g, b3)
     if E == 0:
         f32 = dict(dtype=torch.float32, device=h.device)
-        return (torch.empty(0, MID, **f32), torch.zeros(MID, IF, O, **f32),
+        mid = h.shape[1]
+        return (torch.empty(0, mid, **f32), torch.zeros(mid, IF, O, **f32),
                 torch.empty(0, P, IF, **f32), torch.zeros(IF, O, **f32))
     dw3, dv2, db3 = _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P)
     return _launch_bwd_b(w3, v2, g, E, IF, O, P), dw3, dv2, db3
@@ -710,13 +764,15 @@ def fused_pairwise_conv_bwd(h: torch.Tensor, w3: torch.Tensor,
 
 # every launch counts in .launches_a / .launches_b, the conv_bf16 arm's in
 # .conv_bf16_launches_a / _b too, the narrow-O arm's in .narrow_launches_a
-# / _b
+# / _b, the mid-32 arm's in .mid32_launches_a / _b
 fused_pairwise_conv_bwd.launches_a = 0
 fused_pairwise_conv_bwd.launches_b = 0
 fused_pairwise_conv_bwd.conv_bf16_launches_a = 0
 fused_pairwise_conv_bwd.conv_bf16_launches_b = 0
 fused_pairwise_conv_bwd.narrow_launches_a = 0
 fused_pairwise_conv_bwd.narrow_launches_b = 0
+fused_pairwise_conv_bwd.mid32_launches_a = 0
+fused_pairwise_conv_bwd.mid32_launches_b = 0
 
 
 # ---------------------------------------------------------------------- #

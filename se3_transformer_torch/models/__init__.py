@@ -1,1 +1,3 @@
-from .se3_transformer import SE3TransformerModule, init_parameters
+from .se3_transformer import (
+    SE3Transformer, SE3TransformerModule, init_parameters,
+)

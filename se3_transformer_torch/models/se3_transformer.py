@@ -234,7 +234,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     initializes its counterpart: variance-scaling truncated normals for
     Dense kernels and w3, normal(dim_in**-0.5) for LinearSE3, ones for
     scales, zeros for biases; the EGNN's Dense kernels normal(1e-3), its
-    HtypesNorm constants 1e-2 and NormSE3's w_gate uniform(+-1e-3)."""
+    HtypesNorm constants 1e-2 and NormSE3's w_gate uniform(+-1e-3); the v2
+    family's gate{l} Dense kernels and per-m blocks wm{m}_{i}_{o} as Dense
+    kernels and w3, their bm as biases."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             parts = name.split('.')
@@ -248,7 +250,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             elif re.fullmatch(r'w_gate\d+', leaf):
                 p.copy_(torch.rand(p.shape, generator=generator) * 2e-3
                         - 1e-3)
-            elif re.fullmatch(r'Dense_\d+', parent) and leaf == 'weight':
+            elif re.fullmatch(r'Dense_\d+|gate\d+', parent) \
+                    and leaf == 'weight':
                 _truncated_normal_(p, (1 / p.shape[1]) ** 0.5 / _TRUNC_STD,
                                    generator)
             elif parent.endswith('_emb') and leaf == 'weight':
@@ -256,7 +259,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 # normal of variance 1 / features
                 p.copy_(torch.randn(p.shape, generator=generator)
                         * p.shape[1] ** -0.5)
-            elif leaf.startswith('w3_') or (
+            elif leaf.startswith('w3_') or re.fullmatch(r'wm\d+_\d+_\d+',
+                                                        leaf) or (
                     leaf == 'w3' and re.fullmatch(r'pair_\d+_\d+', parent)):
                 _truncated_normal_(p, (1 / p.shape[0]) ** 0.5 / _TRUNC_STD,
                                    generator)
@@ -265,7 +269,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                         * p.shape[0] ** -0.5)
             elif leaf == 'weight' or leaf.startswith('scale'):
                 p.fill_(1.)
-            elif leaf in ('bias', 'b3') or leaf.startswith(('b3_', 'null_')):
+            elif leaf in ('bias', 'b3') or leaf.startswith(('b3_', 'null_')) \
+                    or re.fullmatch(r'bm\d+_\d+_\d+', leaf):
                 p.zero_()
             else:
                 raise ValueError(f'no initializer for parameter {name}')
@@ -835,3 +840,42 @@ class SE3TransformerModule(nn.Module):
         if return_type is not None:
             return x[str(return_type)]
         return x
+
+
+class SE3Transformer:
+    """Eager convenience wrapper mirroring the JAX SE3Transformer's call
+    style:
+
+        model = SE3Transformer(dim=64, depth=2, num_degrees=2, device='cpu')
+        out = model(feats, coors, mask, return_type=0)
+
+    The module (`module_class` with the keyword fields given) is built, its
+    parameters drawn from a generator seeded `seed`, on the first call, or
+    by init(); `params` is its state dict (None before). For training and
+    serving use the module itself (training, inference): this wrapper is
+    for parity tests and interactive exploration."""
+
+    model_family = 'se3_v1'
+    module_class = SE3TransformerModule
+
+    def __init__(self, *, seed: int = 0, **kwargs):
+        self.kwargs = kwargs
+        self.seed = seed
+        self.module = None
+
+    @property
+    def params(self):
+        return None if self.module is None else self.module.state_dict()
+
+    def init(self, generator: Optional[torch.Generator] = None):
+        """Build the module with its parameters drawn from `generator`
+        (default: seeded `seed`); returns its state dict."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.seed)
+        self.module = self.module_class(**self.kwargs, generator=generator)
+        return self.params
+
+    def __call__(self, feats, coors, mask=None, **kwargs):
+        if self.module is None:
+            self.init()
+        return self.module(feats, coors, mask=mask, **kwargs)

@@ -452,6 +452,15 @@ class AttentionSE3(nn.Module):
         return outputs
 
 
+class OneHeadedKVAttentionSE3(AttentionSE3):
+    """Shazeer's multi-query attention: AttentionSE3 with one key/value head
+    shared by every query head (kv_heads=1), the JAX
+    OneHeadedKVAttentionSE3."""
+
+    def __init__(self, fiber: Fiber, kv_heads: Optional[int] = 1, **kwargs):
+        super().__init__(fiber, kv_heads=kv_heads, **kwargs)
+
+
 class AttentionBlockSE3(nn.Module):
     """Prenorm + attention + residual; one_headed_key_values gives the
     attention one kv head (kv_heads=1)."""

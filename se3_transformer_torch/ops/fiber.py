@@ -65,3 +65,6 @@ class Fiber:
         return Fiber([(d, dim) for d, _ in self.structure])
 
 
+def fiber_of(features) -> Fiber:
+    """The Fiber of a feature dict {str(degree): [..., channels, 2d+1]}."""
+    return Fiber({int(k): v.shape[-2] for k, v in features.items()})

@@ -83,3 +83,12 @@ def real_spherical_harmonics_all(l_max: int, xyz) -> list:
 def real_spherical_harmonics(l: int, xyz):
     """Real SH of a single degree l at unit vectors xyz[..., 3] -> [..., 2l+1]."""
     return real_spherical_harmonics_all(l, xyz)[l]
+
+
+def angles_to_xyz(theta, phi):
+    """Unit vectors [..., 3] from polar angles theta (from +z) and azimuths
+    phi (NumPy arrays, host float64; the S2 grids of v2.s2act)."""
+    theta, phi = np.asarray(theta), np.asarray(phi)
+    return np.stack([np.sin(theta) * np.cos(phi),
+                     np.sin(theta) * np.sin(phi),
+                     np.cos(theta)], axis=-1)

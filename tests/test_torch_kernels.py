@@ -1075,13 +1075,15 @@ F32, BF16 = torch.float32, torch.bfloat16
     (dict(), True),
     (dict(dtype=BF16), True), (dict(dtype=torch.float16), False),
     (dict(mid=127), False), (dict(mid=129), False),
+    (dict(mid=32, P=2), None), (dict(mid=32), False),
     (dict(O=63), False), (dict(O=65), False), (dict(O=0), False),
-    (dict(P=7), True), (dict(P=9), False), (dict(P=2), False),
+    (dict(P=7), True), (dict(P=9), False), (dict(P=2), None),
     (dict(Q=7), True), (dict(Q=9), None)])
 def test_pairwise_fits_at_each_limit(kernel, widths, fits):
-    """mid = 128, O a multiple of 64 (exactly 64 for kernels A and B),
-    P and Q in (1, 3, 5, 7), h in bf16 or float32; Q is read by the
-    basis-fused kernels only (fits None: True for 'fwd' and 'bwd')."""
+    """mid = 128, O a multiple of 64, P and Q in (1, 3, 5, 7), h in bf16 or
+    float32; Q is read by the basis-fused kernels only, and #3, A and B
+    also take P = 2, and mid = 32 with P 1 or 2 (their V2 arms; fits None:
+    True for 'fwd' and 'bwd' only)."""
     args = dict(dict(mid=128, O=64, P=3, Q=5, dtype=F32), **widths)
     if fits is None:
         fits = kernel in ('fwd', 'bwd')
@@ -1923,3 +1925,95 @@ def test_cuda_conv_bf16_backward_matches_plain(cuda_card, di, do, e, c, o,
         assert out.dtype == torch.float32 and out.shape == ref.shape, name
         assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
         assert torch.equal(out, out2), name
+
+
+# the mid-32 arms (the V2 family's per-m blocks: mid 32, P 1 or 2) and P =
+# 2 at mid 128 on the card: V2's hidden-block widths (O 64, IF 64 to 768),
+# a wider O, the JAX sweep's narrow O = 8 (C 8: IF 8 to 96), the other
+# narrow tiles, ragged E and odd IF
+MID32_CASES = [(32, 1, 448, 4133, 64), (32, 2, 768, 4096, 64),
+               (32, 2, 128, 1000, 128), (32, 1, 64, 777, 64),
+               (32, 2, 100, 300, 64), (32, 1, 46, 501, 64),
+               (32, 2, 24, 1536, 8), (32, 1, 8, 1536, 8),
+               (32, 2, 96, 200, 16), (32, 1, 40, 500, 32),
+               (128, 2, 128, 2000, 64), (128, 2, 24, 768, 8)]
+
+
+def _m32_args(mid, P, IF, e, o, dtype, seed=11):
+    rng = np.random.RandomState(seed)
+    f32 = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+        (scale * rng.normal(size=s)).astype(np.float32)).cuda()
+    return (f32(e, mid).to(dtype), f32(mid, IF, o, scale=mid ** -0.5).to(dtype),
+            f32(e, P, IF), f32(e, P, o), f32(IF, o, scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('mid,P,IF,e,o', MID32_CASES)
+def test_cuda_mid32_and_two_row_fwd_match_plain(cuda_card, mid, P, IF, e, o,
+                                                dtype):
+    """#3's mid-32 and P = 2 arms within 1e-4 of max|plain| (the three-pass
+    bf16 product's bound, as the other arms), the same bits on a repeat,
+    one launch counted (in .mid32_launches too at mid 32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w3, v2, _, b3 = _m32_args(mid, P, IF, e, o, dtype)
+    fn = kp.fused_pairwise_conv
+    before = (fn.launches, fn.mid32_launches)
+    out = fn(h, w3, v2, b3)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.mid32_launches) == (before[0] + 1,
+                                                before[1] + (mid == 32))
+    ref = kp.fused_pairwise_conv_plain(h, w3, v2, b3)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(out, fn(h, w3, v2, b3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('mid,P,IF,e,o', MID32_CASES)
+def test_cuda_mid32_and_two_row_backward_match_plain(cuda_card, mid, P, IF, e,
+                                                     o, dtype):
+    """Kernels A and B's mid-32 and P = 2 arms: every output within 1e-4 of
+    max|plain|, the same bits on a repeat, one launch of each counted (in
+    .mid32_launches_a / _b too at mid 32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w3, v2, g, b3 = _m32_args(mid, P, IF, e, o, dtype)
+    bwd = kp.fused_pairwise_conv_bwd
+    before = (bwd.launches_a, bwd.launches_b, bwd.mid32_launches_a,
+              bwd.mid32_launches_b)
+    outs = bwd(h, w3, v2, g, b3)
+    torch.cuda.synchronize()
+    m32 = int(mid == 32)
+    assert (bwd.launches_a, bwd.launches_b, bwd.mid32_launches_a,
+            bwd.mid32_launches_b) == (before[0] + 1, before[1] + 1,
+                                      before[2] + m32, before[3] + m32)
+    refs = kp.fused_pairwise_conv_bwd_plain(h, w3, v2, g, b3)
+    for name, out, ref in zip(('dh', 'dw3', 'dv2', 'db3'), outs, refs):
+        assert out.shape == ref.shape, name
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+    for a, b in zip(outs, bwd(h, w3, v2, g, b3)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('arm', ['scaled arm', 'conv_bf16'])
+def test_cuda_mid32_refused_arms_raise(cuda_card, arm):
+    """The scaled and conv_bf16 arms are built for mid 128: a mid-32 call
+    of either on a CUDA tensor raises its limit and launches nothing,
+    rather than falling back to the plain version."""
+    h, w3, v2, g, b3 = _m32_args(32, 2, 64, 256, 64, torch.float32)
+    before = (kp.fused_pairwise_conv.launches,
+              kp.fused_pairwise_conv_bwd.launches_a)
+    with pytest.raises(ValueError, match=arm):
+        if arm == 'scaled arm':
+            q = w3.to(torch.int8)
+            scale = torch.ones(1, 64, 64, device='cuda')
+            with torch.no_grad():
+                kp.fused_pairwise_conv(h, q, v2, b3, w3_scale=scale)
+        else:
+            kp.fused_pairwise_conv(h, w3, v2.to(torch.bfloat16), b3)
+    if arm == 'conv_bf16':
+        with pytest.raises(ValueError, match=arm):
+            kp.fused_pairwise_conv_bwd(h, w3, v2.to(torch.bfloat16), g, b3)
+    assert (kp.fused_pairwise_conv.launches,
+            kp.fused_pairwise_conv_bwd.launches_a) == before

@@ -290,7 +290,8 @@ def test_import_leaves_jax_out():
             'se3_transformer_torch.observability, '
             'se3_transformer_torch.training.guardian, '
             'se3_transformer_torch.training.cli, '
-            'se3_transformer_torch.faults; bad = [m for m in '
+            'se3_transformer_torch.faults, se3_transformer_torch.v2; '
+            'bad = [m for m in '
             'sys.modules if m.split(".")[0] in ("jax", "flax", '
             '"se3_transformer_tpu")]; assert not bad, bad')
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,

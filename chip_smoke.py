@@ -72,6 +72,26 @@ failure:
               its bound counting 2-byte operands, the plain version's and
               the library einsum's times (`kernel_v16`, `fwd_v16`,
               `backward_v16` lines).
+  tune        the block-config table's tuner (kernels/tune.py) in-process
+              over af2_refinement's step (n 1024) in a temporary
+              SE3_TORCH_CACHE_PATH: the step's #3 picks (wide O = 192 and
+              narrow O = 32), every admissible i split at each forced onto
+              a launch and held against the plain version (KERNEL_RTOL,
+              `tune_split` lines, timed alone); then the tuner once at
+              JAX's tune-smoke settings (margin -1, 1 target, 1 candidate,
+              1 pair of 2 steps; the measured candidate wins): schema-valid
+              `tune` records ending 'promoted', 'consulted', no table left
+              behind.
+  profile     per-scope device time (observability.profiling, device
+              events only) of one flagship_fast request at bucket 1024 and
+              one training step (n 1024, vector head), both at DEPTH:
+              `profile_record` lines (the MODEL_SCOPES shares, coverage,
+              the top unattributed ops, the roofline of utils.flops'
+              analytic FLOPs against the card's bf16 peak), the warm
+              trainer's `cost_record` line (training left as it was), a
+              schema-valid stream, the request's coverage at least
+              PROFILE_COVERAGE, the engine's kernel_tuning non-empty; a
+              `roofline` line with the card's name and power limit.
   bx          kernel #2's path: a hidden ConvSE3 of flagship_fast given
               the structured basis at E = 32768, exactly 16 launches of #2;
               the conv against the flat basis through #1 (the same bits),
@@ -263,9 +283,19 @@ import warnings
 import numpy as np
 import torch
 
+# the card's peaks and every kernel's cost model (each kernel's bound_ms)
+from se3_transformer_torch.utils.flops import (
+    attention_cost, flash_cost, fwd_cost, fwd_q_cost, global_cost,
+    pairwise_bwd_cost, pairwise_cost, peaks_for,
+)
+
 # per-kernel check tolerance: kernel and plain version sum the same exact
 # products in float32 and differ only in summation order
 KERNEL_RTOL = 1e-4
+
+# the share of a flagship_fast request's device time the model's profiler
+# scopes must account for (JAX's profile-smoke gate)
+PROFILE_COVERAGE = 0.8
 # float32 #2 (three bf16 passes: each product within 2^-17 of float32's,
 # measured at ~5e-6 of max|plain|) and 7g (the same float32 products in
 # other orders, its online softmax against the stream's row softmax)
@@ -537,14 +567,6 @@ QUANT_MAX_BYTES_RATIO = 0.6
 # hi + lo, each product exact) summed in float32 in other orders
 QUANT_RTOL = 1e-5
 
-# published dense peaks by card (NVIDIA data sheets): bf16 tensor core,
-# float32 CUDA core (FLOP/s), device memory bandwidth (bytes/s)
-PEAKS = {
-    'H100 PCIe': (756e12, 51e12, 2.0e12),
-    'H100': (989e12, 67e12, 3.35e12),
-    'H200': (989e12, 67e12, 4.8e12),
-}
-
 # the forward kernels' names in a profile (kernel #3's W3 split and
 # i-split reduce and its narrow-O arm included)
 FORWARD_KERNELS = ('pairwise_bxf_kernel', 'pairwise_fwd_kernel',
@@ -561,21 +583,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 _T0 = []
 
 
-def tick(label):
-    """One `phase:` line: the seconds since main() started."""
+def tick(label, since=None):
+    """One `phase:` line: the seconds since main() started (and, given the
+    perf_counter() at the phase's start, the phase's own seconds)."""
     if _T0:
-        log(f'phase: {label} done at {time.perf_counter() - _T0[0]:.0f} s')
+        now = time.perf_counter()
+        took = '' if since is None else f' (took {now - since:.1f} s)'
+        log(f'phase: {label} done at {now - _T0[0]:.0f} s{took}')
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def peaks_for(name: str):
-    for key in ('H100 PCIe', 'H200', 'H100'):
-        if key in name:
-            return key, PEAKS[key]
-    return 'H100 (assumed)', PEAKS['H100']
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -659,30 +677,6 @@ def radial_library(h, w3, b3):
 
 def library_conv(h_aug, w3_aug, v2):
     return torch.einsum('em,mio,epi->epo', h_aug, w3_aug, v2)
-
-
-def pairwise_cost(E, mid, C, O, P, Q, F, h_bytes, peaks, v_bytes=4):
-    """(bound_ms, bound_by, flops, bound_ms_fma) of one
-    fused_pairwise_conv_bxf call: each input read once (the basis and x at
-    v_bytes a value: 2 for conv_bf16's storage), the output written
-    once. The V2 build and apply run at the float32 CUDA-core rate, beside
-    the radial product on the tensor cores, so the operations take the
-    longer of the two pipes: one bf16 pass, or with float32 h three (the
-    kernel's h_hi.W_hi + h_hi.W_lo + h_lo.W_hi). bound_ms_fma is the bound
-    of the float32 work all on fp32 FMAs (what the kernel's earlier
-    float32 tile ran on)."""
-    bf16_peak, f32_peak, mem = peaks
-    radial = 2.0 * E * mid * C * F * O
-    apply = 2.0 * E * P * C * F * O + 2.0 * E * P * F * C * Q
-    passes = 1 if h_bytes == 2 else 3
-    ops_s = max(passes * radial / bf16_peak, apply / f32_peak)
-    nbytes = (E * mid * h_bytes + mid * C * F * O * h_bytes + C * F * O * 4
-              + (E * P * F * Q + E * C * Q) * v_bytes + E * P * O * 4)
-    bytes_s = nbytes / mem
-    bound_by = 'operations' if ops_s >= bytes_s else 'bytes'
-    fma_s = max((radial + apply) / f32_peak, bytes_s)
-    return (max(ops_s, bytes_s) * 1e3, bound_by, radial + apply,
-            fma_s * 1e3)
 
 
 def check_bxf(st, kp, gen, E, mid=128, C=64, O=64):
@@ -789,31 +783,6 @@ def grouped_if(d_out, C=64, degrees=4):
     return C * sum(2 * min(d_in, d_out) + 1 for d_in in range(degrees))
 
 
-def fwd_cost(E, mid, IF, O, P, h_bytes, peaks, v_bytes=4):
-    """(bound_ms, bound_by, flops, bound_ms_fma) of one fused_pairwise_conv
-    call (V2 given) as the kernel does the work: each input read once (V2
-    at v_bytes a value: 2 for conv_bf16's storage), the output written
-    once. The radial product runs on the tensor cores, one
-    bf16 pass for bf16 h/w3 and three (hi.hi, hi.lo, lo.hi of the operands
-    split into bf16 hi + lo) for float32, while the apply runs on the
-    float32 CUDA cores at the same time: the operations take the longer of
-    the two pipes. bound_ms_fma is the float32 bound of the FMA tile the
-    kernel replaced (product and apply both on the CUDA cores), for
-    comparison. flops counts the product once."""
-    bf16_peak, f32_peak, mem = peaks
-    radial = 2.0 * E * mid * IF * O
-    apply = 2.0 * E * P * IF * O
-    passes = 1 if h_bytes == 2 else 3
-    ops_s = max(passes * radial / bf16_peak, apply / f32_peak)
-    fma_s = ops_s if h_bytes == 2 else (radial + apply) / f32_peak
-    nbytes = (E * mid * h_bytes + mid * IF * O * h_bytes + IF * O * 4
-              + E * P * IF * v_bytes + E * P * O * 4)
-    bytes_s = nbytes / mem
-    return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes', radial + apply, \
-        max(fma_s, bytes_s) * 1e3
-
-
 def phase_fwd(kp, peaks):
     """fused_pairwise_conv against its plain version for the four output
     degrees of a hidden ConvSE3 (IF = 256, 640, 896, 1024; P = 1..7), at
@@ -897,25 +866,6 @@ def check_fwd(kp, peaks, cases, seed, v16=False, mid=128):
     return rows, worst
 
 
-def fwd_q_cost(E, mid, IF, O, P, h_bytes, peaks):
-    """(bound_ms, bound_by) of one call of #3's scaled arm: W3 read at one
-    byte a value and its float32 scale beside b3, each input read once and
-    the output written once; the radial product as the passes the arm
-    needs (q is exact in bf16: two with float32 h, h_hi.q and h_lo.q, one
-    with bf16 h) on the tensor cores, beside the apply and the scale's
-    multiply on the CUDA cores."""
-    bf16_peak, f32_peak, mem = peaks
-    radial = 2.0 * E * mid * IF * O
-    apply = 2.0 * E * P * IF * O + E * IF * O
-    passes = 1 if h_bytes == 2 else 2
-    ops_s = max(passes * radial / bf16_peak, apply / f32_peak)
-    nbytes = (E * mid * h_bytes + mid * IF * O + 2 * IF * O * 4
-              + E * P * IF * 4 + E * P * O * 4)
-    bytes_s = nbytes / mem
-    return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes'
-
-
 def quantized(w, storage):
     """(q, scale) on the card of a float32 weight [mid, IF, O] quantized
     on the host by quant.quantize (per output channel, contracted axis 0),
@@ -984,44 +934,6 @@ def phase_fwd_q(kp, peaks):
             h_dtype=str(hdt)[6:], **{k: sum(r[k] for r in unit) for k in (
                 'ms', 'plain_ms', 'unscaled_ms', 'bound_ms', 'library_ms')})))
     return rows, worst
-
-
-def pairwise_bwd_cost(kernel, E, mid, IF, O, P, h_bytes, peaks, v_bytes=4):
-    """(bound_ms, bound_by, bound_ms_fma) of backward kernel 'a' (R
-    recompute, dV2, dR, dW3, dB3) or 'b' (dR, dH) as the kernels do the
-    work: each input read once (V2 at v_bytes a value: 2 for conv_bf16's
-    storage; dV2 is written float32), each output written once. The products run
-    on the tensor cores at the bf16 rate while the P-contractions and dB3
-    run on the float32 CUDA cores at the same time: the operations take the
-    longer of the two pipes. Kernel A: with bf16 h/w3 the R recompute is
-    one pass and dW3 two (dR split into bf16 hi and lo); with float32 h/w3
-    both are three (hi.hi, hi.lo, lo.hi of the operands split into bf16 hi
-    + lo). Kernel B: dH is two passes with bf16 w3 (dR split into bf16 hi
-    and lo) and three with float32 w3 (dR_hi.W_hi, dR_lo.W_hi, dR_hi.W_lo).
-    bound_ms_fma is the bound of every product on fp32 FMAs beside the
-    P-contractions (the float32 kernels A and B as they first ran), for
-    comparison."""
-    bf16_peak, f32_peak, mem = peaks
-    radial = 2.0 * E * mid * IF * O
-    pcontract = 2.0 * E * P * IF * O
-    if kernel == 'a':
-        passes = 3 if h_bytes == 2 else 6
-        cuda = 2 * pcontract + E * IF * O
-        fma_ops = radial * 2 + cuda
-        nbytes = (E * mid * h_bytes + mid * IF * O * h_bytes + IF * O * 4
-                  + E * P * IF * (v_bytes + 4) + E * P * O * 4
-                  + mid * IF * O * 4 + IF * O * 4)
-    else:
-        passes = 2 if h_bytes == 2 else 3
-        cuda = pcontract
-        fma_ops = radial + pcontract
-        nbytes = (mid * IF * O * h_bytes + E * P * IF * v_bytes
-                  + E * P * O * 4 + E * mid * 4)
-    ops_s = max(passes * radial / bf16_peak, cuda / f32_peak)
-    bytes_s = nbytes / mem
-    return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes', \
-        max(fma_ops / f32_peak, bytes_s) * 1e3
 
 
 def phase_backward(kp, peaks):
@@ -1451,25 +1363,6 @@ def check_backward(kp, peaks, cases, seed, v16=False, mid=128):
 ATTN_SHAPES = tuple((8, 1024, 33, 8 * (2 * d + 1)) for d in range(4))
 
 
-def attention_cost(BH, n, J, D, bwd, peaks):
-    """(bound_ms, bound_by) of the fused attention forward or backward at
-    group 1 and batch 1: each input read once (q, k, v, the [1, n, J]
-    mask; g in the backward), each output written once (out; dq, dk, dv).
-    The operations (scores, softmax, weighted sum; their derivatives) run
-    at the float32 CUDA-core rate."""
-    _, f32_peak, mem = peaks
-    rows = BH * n
-    if bwd:
-        nbytes = 4 * rows * (3 * D + 4 * J * D) + n * J
-        ops = rows * (8 * J * D + 12 * J)
-    else:
-        nbytes = 4 * rows * (2 * D + 2 * J * D) + n * J
-        ops = rows * (4 * J * D + 5 * J)
-    ops_s, bytes_s = ops / f32_peak, nbytes / mem
-    return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes'
-
-
 # operand sets of the attention rows: k and v across the sets fill the
 # 50 MB L2 more than twice over, so that each launch of a run finds its k
 # and v cold, as the path does (the mask, [1, n, J], stays shared and hot,
@@ -1574,80 +1467,6 @@ def phase_attention(peaks):
         del graphs, flat, sets, out, grads, again, refs
         torch.cuda.empty_cache()
     return rows, worst
-
-
-def so2_rotation_ops(l):
-    """Operations of one factored Wigner rotation of degree l (common.cuh,
-    so2_rotate_in / so2_rotate_out): two J_l matvecs (2 N^2 each) and two
-    Dz passes (4 N each), N = 2 l + 1; none at l = 0."""
-    N = 2 * l + 1
-    return 0.0 if l == 0 else 4.0 * N * N + 8.0 * N
-
-
-def so2_basis_ops(d_in, d_out):
-    """Operations of the so2 arm's basis of one pair at one edge
-    (common.cuh, so2_basis_row, per output row p): a rotation in at d_out,
-    then per frequency the band (1 + 6 M) and a rotation out at d_in."""
-    P, M = 2 * d_out + 1, min(d_in, d_out)
-    F = 2 * M + 1
-    return P * (so2_rotation_ops(d_out)
-                + F * (1.0 + 6.0 * M + so2_rotation_ops(d_in)))
-
-
-def basis_ops(d_in, d_out, arm):
-    """Operations of one pair's basis at one edge: the dense arm's SH x
-    Q_J contraction, or the so2 arm's rotations and band."""
-    if arm == 'so2':
-        return so2_basis_ops(d_in, d_out)
-    P, Q = 2 * d_out + 1, 2 * d_in + 1
-    return sum(2.0 * P * Q * (2 * J + 1)
-               for J in range(abs(d_in - d_out), d_in + d_out + 1))
-
-
-def flash_cost(n, K, pairs, d_out, heads, Dh, S, S0, h_bytes, peaks,
-               convs=2, arm='dense', scaled=False):
-    """(bound_ms, bound_by, flops, bound_ms_fma) of one flash_attention
-    call: each input read once (q, the node features, idx, the mask, h_k
-    and h_v, both convs' w3 and b3, the SH stack, the prefix slots), the
-    output written once. The operations: the radial products of k and v on
-    the tensor cores as bf16 passes over W3 split into hi + lo (two with
-    bf16 h, three with float32 h: the kernel's h.W_hi + h.W_lo [+
-    h_lo.W_hi]), beside the float32 work on the CUDA cores (the basis and
-    V2 once, the applies of k and v, the attention); the operations take
-    the longer of the two pipes. bound_ms_fma is the bound with all of it
-    on fp32 FMAs (what the kernel's earlier version ran). convs=1 is the
-    tied call: one h, one w3 and b3, one radial product and apply.
-    arm='so2': the basis by the so2 arm's rotations (so2_basis_ops) from
-    the frames (S = 4 L1 floats an edge) in place of the SH stack's.
-    scaled: the scaled arm (quantized W3: one byte a value, and a float32
-    scale beside b3; no lo half, so one bf16 pass with bf16 h, two with
-    float32 h, and the scale's multiply on the CUDA cores)."""
-    bf16_peak, f32_peak, mem = peaks
-    E, mid, O, P = n * K, 128, 64, 2 * d_out + 1
-    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
-    basis = v2 = 0.0
-    for d, c in pairs:
-        F = 2 * min(d, d_out) + 1
-        basis += E * basis_ops(d, d_out, arm)
-        v2 += 2.0 * E * P * c * F * (2 * d + 1)
-    radial = convs * 2.0 * E * mid * IF * O
-    apply = convs * (2.0 * E * P * IF * O + (E * IF * O if scaled else 0))
-    attn = 4.0 * n * heads * (S0 + K) * Dh
-    flops = basis + v2 + radial + apply + attn
-    passes = (2 if h_bytes == 2 else 3) - scaled
-    # W3 (1 or 4 bytes a value), b3 and the scale (4 bytes each)
-    w3_bytes = convs * ((mid + 8) * IF * O if scaled
-                        else (mid + 1) * IF * O * 4)
-    nbytes = (2 * n * heads * Dh * 4 + sum(n * c * (2 * d + 1) * 4
-                                           for d, c in pairs)
-              + E * 8 + E + convs * E * mid * h_bytes + w3_bytes
-              + E * S * 4 + 2 * n * S0 * heads * Dh * 4)
-    ops_s = max(passes * radial / bf16_peak,
-                (basis + v2 + apply + attn) / f32_peak)
-    bytes_s = nbytes / mem
-    fma_s = max(flops / f32_peak, bytes_s)
-    return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes', flops, fma_s * 1e3
 
 
 def flash_operands(gen, n, K, d_out, h_dtype, prefix, heads=8, mid=128):
@@ -2086,76 +1905,6 @@ GLOBAL_BUCKET = 4096
 GLOBAL_PAIRS = ((0, 8), (1, 8))
 
 
-# the trunk's LayerNorm and GELU, counted per element on the CUDA cores:
-# LN 7 (the mean 1, the centered square 3, the normalization 3) and GELU 9
-# (its cubic and scale 5, tanh counted as 1, the product 3)
-LN_GELU_OPS = 16
-
-
-# a pair's frame from its offset on the CUDA cores (common.cuh,
-# so2_edge_frame): the normalization and rho (~20) and the two angle
-# recursions (6 a step, to degree 3)
-SO2_FRAME_OPS = 20 + 2 * 6 * 3
-
-
-def global_cost(n, pairs, d_out, heads, dim_head, S0, peaks, nodes=8,
-                cluster=2, trunks=2, arm='dense'):
-    """(bound_ms, bound_by, flops, bound_ms_fma, w_l2_gb) of one
-    flash_global_attention call over all n^2 pairs: each input read once
-    (q, the node features, the coordinates and mask, both trunks'
-    parameters, both convs' w3 and b3, the prefix slots), the output
-    written once. The operations run on two pipes and take the longer:
-    the tensor cores, both trunks' Dense_1 (2 * 2 * 128 * 128 per pair) and
-    the k and v radial products (2 * 2 * 128 * IF * O) as three bf16 passes
-    each over float32 operands split into hi + lo (the kernel's h_hi.W_hi
-    + h_hi.W_lo + h_lo.W_hi); the CUDA cores in float32, both trunks'
-    Dense_0 (2 * 2 * 128), LayerNorms and GELUs (2 * 2 * 128 elements at
-    LN_GELU_OPS each), the basis and V2, the k and v applies, the scores
-    and the weighted sum. flops counts every product once.
-    bound_ms_fma: the bound with Dense_1, the basis, V2, the radial
-    products, the applies and the attention all on fp32 FMAs (the
-    kernel's earlier version). w_l2_gb: the bytes of W2 and W3 (both
-    trunks, bf16 hi + lo, W3's i padded to 4 a stage) and b3 that the
-    kernel reads from L2: once per block of 16 kv nodes for each cluster
-    of `cluster` CTAs of `nodes` query nodes (a tile of 128 pairs a CTA,
-    each stage multicast to the cluster). trunks=1 is the tied call: one
-    trunk, one w3 and b3, one radial product and apply. arm='so2': each
-    pair's frame and the so2 arm's basis (so2_basis_ops) in place of the
-    harmonics' basis."""
-    bf16_peak, f32_peak, mem = peaks
-    mid, P = 128, 2 * d_out + 1
-    O = heads * dim_head
-    IF = sum(c * (2 * min(d, d_out) + 1) for d, c in pairs)
-    dense1 = trunks * 2.0 * mid * mid
-    radial = trunks * 2.0 * mid * IF * O
-    basis_v2 = SO2_FRAME_OPS if arm == 'so2' else 0.0
-    for d, c in pairs:
-        F = 2 * min(d, d_out) + 1
-        basis_v2 += basis_ops(d, d_out, arm) + 2.0 * P * c * F * (2 * d + 1)
-    apply = trunks * 2.0 * P * IF * O
-    attn = 4.0 * O * P
-    trunk = trunks * (2.0 * mid + 2 * mid * LN_GELU_OPS)
-    pairs_n = float(n) * n
-    fma_flops = (dense1 + basis_v2 + radial + apply + attn) * pairs_n
-    flops = fma_flops + trunk * pairs_n
-    Dh = dim_head * P
-    nbytes = 4 * (2 * n * heads * Dh + sum(n * c * (2 * d + 1)
-                                           for d, c in pairs)
-                  + 3 * n + trunks * (7 * mid + mid * mid)
-                  + trunks * (mid + 1) * IF * O + 2 * n * S0 * heads * Dh) + n
-    bytes_s = nbytes / mem
-    ops_s = max(3 * (dense1 + radial) * pairs_n / bf16_peak,
-                (basis_v2 + apply + attn + trunk) * pairs_n / f32_peak)
-    fma_s = max(fma_flops / f32_peak, bytes_s)
-    IF4 = -(-IF // 4) * 4
-    tiles = -(-n // (nodes * cluster)) * -(-n // 16)
-    w_l2_gb = tiles * trunks * (2 * mid * (mid + IF4 * O) * 2
-                                + IF4 * O * 4) / 1e9
-    return max(ops_s, bytes_s) * 1e3, \
-        'operations' if ops_s >= bytes_s else 'bytes', flops, fma_s * 1e3, \
-        w_l2_gb
-
-
 def phase_flash_global(peaks):
     """Kernel 7g against its plain version (the chunked stream) at the
     served shapes: n 4096 of random-walk coordinates, the last 57 nodes
@@ -2442,7 +2191,7 @@ def phase_global_serve(st, want, label='assembly', **fields):
     # request absorbs it before the next measurement.
     settle_ms = []
     for row, request in zip(rows, requests):
-        _, _, attn_ms, device_ms, wall_ms, syncs, _ = profile_request(
+        _, _, attn_ms, device_ms, wall_ms, syncs, _, _ = profile_request(
             engine, request)
         t0 = time.perf_counter()
         engine.predict(*request)
@@ -2685,7 +2434,7 @@ def phase_serve(st, recipe, want, label=None, dim=64, depth=DEPTH,
     inv = float(np.abs(out_r - rotated(out0)).max())
     scale = float(np.abs(out0).max())
     # where the time goes: one more request under the profiler
-    top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, us = \
+    top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, us, _ = \
         profile_request(engine, requests[0])
     forwards += 2
     log('profile', json.dumps(dict(
@@ -2895,9 +2644,8 @@ def phase_serve_stream(st, want_by_label):
         padded = inf.pad_to_bucket([f for f, _ in big], [c for _, c in big],
                                    buckets[-1], batch_size=spec['batch'])
         engine.run(buckets[-1], *padded)
-        prof, wall_ms = profile_call(lambda: engine.run(buckets[-1],
-                                                        *padded))
-        busy_ms = sum(dev_us(e) for e in device_events(prof)) / 1e3
+        prof = profile_call(lambda: engine.run(buckets[-1], *padded))
+        wall_ms, busy_ms = prof.wall_ms, prof_busy_ms(prof)
         late = tele.watchdog.check()['compile_events_delta']
         stats = engine.stats()
         line = dict(
@@ -3009,64 +2757,57 @@ def count_host_syncs(fn):
     return len(LAST_SYNCS)
 
 
-def dev_us(e):
-    return getattr(e, 'self_device_time_total',
-                   getattr(e, 'self_cuda_time_total', 0))
+def profile_call(fn):
+    """One call of fn() under torch.profiler (CPU and CUDA activity), ended
+    by a device synchronize: the package's StepProfile
+    (observability.profiling), its wall time in `wall_ms`."""
+    from se3_transformer_torch.observability import profiling
+    return profiling.capture_step_profile(fn, device='cuda')
 
 
-def device_events(prof):
-    """The profile's device-side events (kernels, copies, sets), largest
-    first. CPU ops are left out: one that launches a kernel from a ctypes
-    call (the pairwise custom op) is charged that kernel's time as its own
-    device time, which would count it twice."""
-    from torch.autograd import DeviceType
-    events = [e for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU and dev_us(e) > 0]
-    return sorted(events, key=dev_us, reverse=True)
-
-
-def per_launch_us(events):
+def per_launch_us(prof):
     """Device microseconds per launch of kernels #5 and #6 in a profile
     (None where the profile launched none): the in-path times."""
+    from se3_transformer_torch.observability import profiling
+    rows = profiling.device_time_by_op(prof)
     out = {}
     for key, name in (('attn_fwd', 'attention_fwd_kernel'),
                       ('attn_bwd', 'attention_bwd_kernel')):
-        hits = [e for e in events if name in e.key]
-        calls = sum(e.count for e in hits)
-        out[key] = sum(dev_us(e) for e in hits) / calls if calls else None
+        hits = [r for r in rows if name in r[0]]
+        calls = sum(r[1] for r in hits)
+        out[key] = sum(r[2] for r in hits) * 1e3 / calls if calls else None
     return out
 
 
-def profile_call(fn):
-    """One call of fn() under torch.profiler (CPU and CUDA activity),
-    ended by a device synchronize: (the profile, the call's wall ms)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return prof, wall_ms
+def top_device_ops(prof):
+    from se3_transformer_torch.observability import profiling
+    return [dict(op=name[:90], calls=n, ms=ms)
+            for name, n, ms in profiling.device_time_by_op(prof)[:12]]
 
 
-def top_device_ops(events):
-    return [dict(op=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3)
-            for e in events[:12]]
-
-
-def kernels_ms(events, names):
+def kernels_ms(prof, names):
     """Device ms of the profile's kernels whose names hold one of
     `names`."""
-    return sum(dev_us(e) for e in events
-               if any(n in e.key for n in names)) / 1e3
+    from se3_transformer_torch.observability import profiling
+    return profiling.kernels_ms(prof, names)
+
+
+def prof_busy_ms(prof):
+    """The profile's device time (exclusive, kernels, copies and sets):
+    device events only, never CPU time."""
+    from se3_transformer_torch.observability import profiling
+    selector = profiling.device_events(prof)[1]
+    if selector != 'device':
+        raise AssertionError(f'profile: the device time reads {selector}')
+    return sum(us for _, us in prof.pairs()) / 1e3
 
 
 def profile_request(engine, request):
-    """Device time by op for one request (torch.profiler, CUDA activity):
-    the top ops, the pairwise and attention kernels' totals, the device's
-    busy time and the request's wall time, in ms."""
-    prof, wall_ms = profile_call(lambda: engine.predict(*request))
+    """Device time by op for one request (observability.profiling): the top
+    ops, the pairwise and attention kernels' totals, the device's busy
+    time and the request's wall time, in ms, the host syncs of the
+    forward, #5's per-launch time; and the profile itself."""
+    prof = profile_call(lambda: engine.predict(*request))
     # the forward alone: predict() copies to and from the host and ends in
     # a synchronize of its own
     from se3_transformer_torch.inference import pad_to_bucket
@@ -3077,40 +2818,263 @@ def profile_request(engine, request):
         with torch.inference_mode():
             engine.module(*padded)
     syncs = count_host_syncs(forward)
-
-    events = device_events(prof)
-    device_ms = sum(dev_us(e) for e in events) / 1e3
-    return top_device_ops(events), kernels_ms(events, FORWARD_KERNELS), \
-        kernels_ms(events, ATTENTION_KERNELS), device_ms, wall_ms, syncs, \
-        per_launch_us(events)
+    return top_device_ops(prof), kernels_ms(prof, FORWARD_KERNELS), \
+        kernels_ms(prof, ATTENTION_KERNELS), prof_busy_ms(prof), \
+        prof.wall_ms, syncs, per_launch_us(prof), prof
 
 
 def profile_step(trainer, batch, noise):
-    """Device time by op for one training step (torch.profiler, CUDA
-    activity): the top ops, the forward kernel's and kernels A's and B's
-    totals, the device's busy time and the step's wall time, in ms."""
-    prof, wall_ms = profile_call(lambda: trainer.train_step(batch,
-                                                            noise=noise))
+    """Device time by op for one training step (observability.profiling):
+    the top ops, the forward kernel's and kernels A's and B's totals, the
+    device's busy time and the step's wall time, in ms; and the
+    profile itself (under `profile`, popped by the caller)."""
+    prof = profile_call(lambda: trainer.train_step(batch, noise=noise))
     syncs = count_host_syncs(lambda: trainer.train_step(batch, noise=noise))
-
-    events = device_events(prof)
     from torch.autograd import DeviceType
-    host = sorted((e for e in prof.key_averages()
+    host = sorted((e for e in prof.prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
-    return dict(step_wall_ms=wall_ms, host_syncs_per_step=syncs,
-                device_busy_ms=sum(dev_us(e) for e in events) / 1e3,
-                forward_kernel_ms=kernels_ms(events, FORWARD_KERNELS),
-                attention_kernel_ms=kernels_ms(events, ATTENTION_KERNELS),
-                attention_us_per_launch=per_launch_us(events),
-                kernel_a_ms=kernels_ms(events, ('bwd_a_kernel',
-                                                'bwd_reduce_kernel')),
-                kernel_b_ms=kernels_ms(events, ('bwd_b_',)),
-                top_device_ops=top_device_ops(events),
+    return dict(step_wall_ms=prof.wall_ms, host_syncs_per_step=syncs,
+                device_busy_ms=prof_busy_ms(prof),
+                forward_kernel_ms=kernels_ms(prof, FORWARD_KERNELS),
+                attention_kernel_ms=kernels_ms(prof, ATTENTION_KERNELS),
+                attention_us_per_launch=per_launch_us(prof),
+                kernel_a_ms=kernels_ms(prof, ('bwd_a_kernel',
+                                              'bwd_reduce_kernel')),
+                kernel_b_ms=kernels_ms(prof, ('bwd_b_',)),
+                top_device_ops=top_device_ops(prof),
                 host_op_ms=sum(e.self_cpu_time_total for e in host) / 1e3,
                 top_host_ops=[dict(op=e.key[:60], calls=e.count,
                                    ms=e.self_cpu_time_total / 1e3)
-                              for e in host[:10]])
+                              for e in host[:10]], profile=prof)
+
+
+# the tune phase: the tuner (kernels/tune.py) in-process over the
+# af2_refinement step, whose #3 launches take the wide (O = 192) and the
+# narrow (O = 32) tiles, at JAX's tune-smoke settings (Makefile
+# tune-smoke: one target, one candidate, one pair of 2 steps, margin -1,
+# so that the measured candidate wins and the promote and consult path
+# runs whatever the host's spread)
+TUNE_ARGS = ('--recipe', 'af2_refinement', '--nodes', '1024', '--kinds',
+             'plain', '--max-targets', '1', '--max-candidates', '1',
+             '--pairs', '1', '--steps', '2', '--margin', '-1')
+
+
+def check_splits(kp, shapes):
+    """Every admissible i split of kernel #3 (tuning.admissible_candidates
+    'plain') at each (shape, dtype) of `shapes`, forced onto the launch,
+    against the plain version (KERNEL_RTOL of max|plain|), timed alone
+    (`tune_split` lines): before any tuning, every split the tuner may
+    promote is held."""
+    from se3_transformer_torch.kernels import tuning
+    gen = torch.Generator(device='cuda').manual_seed(25)
+    worst, rows = 0.0, []
+    for shape, dtype in shapes:
+        E, IF, O, P, mid = shape
+        hdt = getattr(torch, dtype)
+        h = torch.randn(E, mid, device='cuda', generator=gen).to(hdt)
+        w3 = (torch.randn(mid, IF, O, device='cuda', generator=gen)
+              * mid ** -0.5).to(hdt)
+        v2 = torch.randn(E, P, IF, device='cuda', generator=gen)
+        b3 = torch.randn(IF, O, device='cuda', generator=gen) * 0.1
+        ref = kp.fused_pairwise_conv_plain(h, w3, v2, b3)
+        scale = float(ref.abs().max())
+        heuristic = kp.i_per_split(E, IF, O)
+        for cand in tuning.admissible_candidates('plain', shape):
+            with tuning.force('plain', cand, shape=shape, dtype=dtype):
+                per = kp.fwd_i_per_split(E, IF, O, P, mid, hdt, h.device)
+                before = kp.fused_pairwise_conv.launches
+                out = kp.fused_pairwise_conv(h, w3, v2, b3)
+                launched = kp.fused_pairwise_conv.launches - before
+                ms = cuda_ms(lambda: kp.fused_pairwise_conv(h, w3, v2, b3),
+                             reps=5)
+            err = float((out - ref).abs().max())
+            row = dict(shape=list(shape), dtype=dtype, i_per_split=per,
+                       splits=-(-IF // per), heuristic=per == heuristic,
+                       max_abs_err=err, max_abs_plain=scale, ms=ms)
+            rows.append(row)
+            log('tune_split', json.dumps(row))
+            if per != cand[0] or launched != 1:
+                raise AssertionError(f'tune {shape}: the forced split {cand} '
+                                     f'took {per}, {launched} launches')
+            if not (np.isfinite(err) and err <= KERNEL_RTOL * scale):
+                raise AssertionError(
+                    f'tune {shape} i_per_split {per}: max_abs_err {err} > '
+                    f'{KERNEL_RTOL} * max|plain| {scale}')
+            worst = max(worst, err)
+        del h, w3, v2, b3, ref
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_tune(kp):
+    """The tuner over af2_refinement's step (n 1024) in a temporary
+    SE3_TORCH_CACHE_PATH: the step's #3 shapes (the 'plain' picks it
+    resolves, both tiles), every admissible split at each held against the
+    plain version (check_splits), then `python -m
+    se3_transformer_torch.kernels.tune` in-process with TUNE_ARGS: every
+    `tune` record schema-valid (the tuner validates before it writes), the
+    last two 'promoted', then 'consulted'. Leaves no table behind."""
+    import shutil
+    import tempfile
+    from se3_transformer_torch.kernels import tune, tuning
+    default_table = tuning.cache_file()
+    had_table = os.path.exists(default_table)
+    workdir = tempfile.mkdtemp(prefix='se3_tune_')
+    saved = os.environ.get('SE3_TORCH_CACHE_PATH')
+    os.environ['SE3_TORCH_CACHE_PATH'] = os.path.join(workdir, 'cache')
+    try:
+        state = tune._build_step(tune.parse_args(TUNE_ARGS))
+        shapes = sorted({(tuple(c['shape']), c['dtype'])
+                         for c in tune._resolved(state)
+                         if c['kernel'] == 'plain'})
+        del state
+        arms = {tuning.target_arm('plain', shape) for shape, _ in shapes}
+        if arms != {'plain:wide', 'plain:narrow'}:
+            raise AssertionError(f'tune: af2 #3 picks {shapes} cover the arms '
+                                 f'{arms}, want the wide and the narrow')
+        split_rows, worst = check_splits(kp, shapes)
+        out = os.path.join(workdir, 'tune.jsonl')
+        rc = tune.main(list(TUNE_ARGS) + ['--out', out])
+        with open(out) as f:
+            records = [json.loads(line) for line in f]
+        tunes = [r for r in records if r['kind'] == 'tune']
+        if rc != 0 or not tunes:
+            raise AssertionError(f'tune: exit {rc}, records {records}')
+        if [r['verdict'] for r in tunes][-2:] != ['promoted', 'consulted']:
+            raise AssertionError(f'tune: the records end {tunes[-2:]}, '
+                                 f'want promoted, then consulted')
+    finally:
+        if saved is None:
+            os.environ.pop('SE3_TORCH_CACHE_PATH', None)
+        else:
+            os.environ['SE3_TORCH_CACHE_PATH'] = saved
+        shutil.rmtree(workdir, ignore_errors=True)
+        tuning.clear_kernel_caches()
+    if os.path.exists(default_table) != had_table or \
+            os.path.exists(workdir):
+        raise AssertionError('tune: a table was left behind')
+    tunes = [r for r in records if r['kind'] == 'tune']
+    log('tune', json.dumps(dict(
+        shapes=[list(s) + [d] for s, d in shapes],
+        splits_checked=len(split_rows), worst_max_abs_err=worst,
+        runs=sum(r['kind'] == 'run_meta' for r in records),
+        verdicts=[r['verdict'] for r in tunes])))
+    return split_rows, worst
+
+
+def phase_profile(st, device_name, smi):
+    """Per-scope device time (observability.profiling) of one flagship_fast
+    request at bucket 1024 and one flagship_fast training step (n 1024,
+    vector head), both at DEPTH with conditioned weights: their `profile`
+    records (coverage of MODEL_SCOPES; the analytic FLOPs of utils.flops
+    against the card's peaks), schema-valid in a stream written by
+    report.write_record_stream; the request's coverage at least
+    PROFILE_COVERAGE (JAX's profile-smoke gate); both read device events
+    only; the engine's stats()['kernel_tuning'] non-empty. The warm
+    trainer's `cost` record (check_cost_record) joins the stream. A
+    `roofline` line names the card and its power limit."""
+    import tempfile
+    from se3_transformer_torch.observability import (
+        profile_payload, validate_stream, write_record_stream,
+    )
+    from se3_transformer_torch.utils.flops import (
+        forward_flops_estimate, train_step_flops_estimate,
+    )
+    rng = np.random.RandomState(0)
+    model = condition_weights(st.flagship_fast(
+        dim=64, depth=DEPTH, generator=torch.Generator().manual_seed(0)))
+    engine = st.InferenceEngine(model, buckets=(1024,))
+    consults = engine.stats()['kernel_tuning']
+    if not consults:
+        raise AssertionError('profile: the engine resolved no kernel pick')
+    request = (rng.normal(size=(1024, 64)).astype(np.float32),
+               chain_coords(rng, 1024))
+    engine.predict(*request)
+    prof = profile_call(lambda: engine.predict(*request))
+    served = dict(kind='profile', **profile_payload(
+        prof, label=f'flagship_fast request, bucket 1024, depth {DEPTH}',
+        flops_per_step=forward_flops_estimate(model, 1024, 32),
+        device_name=device_name), kernel_tuning=consults)
+    del engine, model, prof
+    torch.cuda.empty_cache()
+    model = condition_weights(st.flagship_fast(
+        dim=64, depth=DEPTH, output_degrees=2, reduce_dim_out=True,
+        generator=torch.Generator().manual_seed(4)))
+    trainer = st.DenoiseTrainer(model, lr=1e-4)
+    batch = trainer.to_device(st.flagship_batch(rng, 1, 1024, 64))
+    trainer.train_step(batch)
+    prof = profile_call(lambda: trainer.train_step(batch))
+    step = dict(kind='profile', **profile_payload(
+        prof, label=f'flagship_fast train step, n 1024, depth {DEPTH}',
+        flops_per_step=train_step_flops_estimate(model, 1024, 32),
+        device_name=device_name))
+    cost = check_cost_record(trainer, batch)
+    del trainer, model, prof
+    torch.cuda.empty_cache()
+    for rec in (served, step):
+        log('profile_record', json.dumps(rec))
+        if rec['tracks']['selector'] != 'device' or 'roofline' not in rec:
+            raise AssertionError(f'profile: {rec["label"]} read '
+                                 f'{rec["tracks"]["selector"]}, roofline '
+                                 f'{rec.get("roofline")}')
+    log('cost_record', json.dumps(cost))
+    path = os.path.join(tempfile.mkdtemp(prefix='se3_profile_'),
+                        'profile.jsonl')
+    write_record_stream(path, 'chip-smoke-profile', [served, step, cost])
+    validate_stream(path)
+    os.remove(path)
+    os.rmdir(os.path.dirname(path))
+    log('roofline', json.dumps(dict(
+        device=device_name, nvidia_smi=smi, program=step['label'],
+        coverage=step['coverage'], device_time_ms=step['device_time_ms'],
+        wall_ms=step['wall_ms'], unattributed_top=step['unattributed_top'],
+        **step['roofline'])))
+    if served['coverage'] < PROFILE_COVERAGE:
+        raise AssertionError(f'profile: the request attributes '
+                             f'{served["coverage"]} of its device time to '
+                             f'the model scopes, want >= {PROFILE_COVERAGE}')
+    return served, step
+
+
+def check_cost_record(trainer, batch):
+    """DenoiseTrainer.cost_record on a warm trainer: its `cost` record (the
+    allocator's peak over one step on a snapshot) valid under the port's
+    schema, every parameter and Adam state tensor after it equal to before
+    it, and the next step's loss, on fixed noise, equal to the loss of the
+    same step on the same state without the record."""
+    from se3_transformer_torch.observability import validate_record
+    coords = batch['coords']
+    noise = torch.randn(coords.shape, dtype=coords.dtype,
+                        device=coords.device, generator=torch.Generator(
+                            coords.device).manual_seed(5))
+    params = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    opt_state = copy.deepcopy(trainer.optimizer.state_dict())
+    step_count = trainer.step_count
+    without = trainer.train_step(batch, noise=noise)
+    trainer.model.load_state_dict(params)
+    # load_state_dict keeps the tensors it is given: hand it a copy
+    trainer.optimizer.load_state_dict(copy.deepcopy(opt_state))
+    trainer.step_count = step_count
+    rec = trainer.cost_record(batch)
+    validate_record(dict(rec, run_id='chip-smoke-cost'))
+    kept = all(torch.equal(v, params[k])
+               for k, v in trainer.model.state_dict().items())
+    after = trainer.optimizer.state_dict()['state']
+    kept_opt = all(torch.equal(torch.as_tensor(v), torch.as_tensor(
+        after[key][name])) for key, st in opt_state['state'].items()
+        for name, v in st.items())
+    with_record = trainer.train_step(batch, noise=noise)
+    if not (kept and kept_opt and trainer.step_count == step_count + 1 and
+            torch.equal(without, with_record)):
+        raise AssertionError(
+            f'cost_record: parameters kept {kept}, Adam state kept '
+            f'{kept_opt}, step count {trainer.step_count} (want '
+            f'{step_count + 1}), next loss {float(with_record)} against '
+            f'{float(without)} without the record')
+    if not rec['peak_bytes'] > rec['memory']['argument_bytes'] > 0:
+        raise AssertionError(f'cost_record: {rec}')
+    return rec
 
 
 def counters():
@@ -3400,8 +3364,9 @@ def phase_train(st, recipe, want, other_policy, want_other, label=None,
         nodes_steps_per_s=n * TRAIN_STEPS / (sum(step_ms) / 1e3),
         max_memory_allocated_gb=peak_gb, first_loss=losses[0],
         last_loss=losses[-1], launches=launches)))
-    log('train_profile', json.dumps(dict(
-        recipe=recipe, **profile_step(trainer, batch, noise))))
+    profiled = profile_step(trainer, batch, noise)
+    profiled.pop('profile')
+    log('train_profile', json.dumps(dict(recipe=recipe, **profiled)))
     if round_trip:
         # the fresh trainer's model: a copy with every parameter zeroed, so
         # that only the restore can give it the trainer's weights
@@ -3521,10 +3486,9 @@ def phase_denoise_train(st, want):
                              f'{DENOISE_RESUME_AT + 1} loss {got} vs '
                              f'{want_loss} ({rel} > {RESUME_RTOL})')
     micro = {k: v[0] for k, v in batch.items()}
-    prof, micro_ms = profile_call(lambda: trainer.loss_fn(
+    prof = profile_call(lambda: trainer.loss_fn(
         trainer.model, micro, noise[0]).backward())
-    events = device_events(prof)
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    micro_ms, busy_ms = prof.wall_ms, prof_busy_ms(prof)
     ms = float(np.median(step_ms[1:]))
     nodes = cfg.batch_size * cfg.num_nodes * cfg.accum_steps
     log('denoise_train', json.dumps(dict(
@@ -3539,8 +3503,8 @@ def phase_denoise_train(st, want):
         micro_batch_profile=dict(
             wall_ms=micro_ms, device_busy_ms=busy_ms,
             idle_share=1 - busy_ms / micro_ms,
-            narrow_kernel_ms=kernels_ms(events, ('se3n::',)),
-            top_device_ops=top_device_ops(events)[:8]),
+            narrow_kernel_ms=kernels_ms(prof, ('se3n::',)),
+            top_device_ops=top_device_ops(prof)[:8]),
         max_memory_allocated_gb=peak_gb)))
     del trainer, fresh
     torch.cuda.empty_cache()
@@ -4082,7 +4046,7 @@ def phase_egnn_serve(st, want):
     forwards += 2
     equi = float(np.abs(out_r - out.astype(np.float64) @ R.T).max())
     scale = float(np.abs(out).max())
-    top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, _ = \
+    top, kernel_ms, attn_ms, device_ms, wall_ms, syncs, _, _ = \
         profile_request(engine, requests[0])
     forwards += 2
     log('egnn_serve', json.dumps(dict(
@@ -4167,16 +4131,15 @@ def phase_molecular_serve(st, want):
             launches=launched, routed=routes_)))
     inv = float(np.abs(outs['rotated'] - outs['full']).max())
     scale = float(np.abs(outs['full']).max())
-    prof, wall_ms = profile_call(forward)
+    prof = profile_call(forward)
     syncs = count_host_syncs(forward)
     forwards += 2
-    events = device_events(prof)
-    device_ms = sum(dev_us(e) for e in events) / 1e3
+    wall_ms, device_ms = prof.wall_ms, prof_busy_ms(prof)
     log('profile', json.dumps(dict(
         recipe='molecular_edges', request_wall_ms=wall_ms,
         device_busy_ms=device_ms, idle_share=1 - device_ms / wall_ms,
-        pairwise_kernel_ms=kernels_ms(events, FORWARD_KERNELS),
-        host_syncs_per_forward=syncs, top_device_ops=top_device_ops(events))))
+        pairwise_kernel_ms=kernels_ms(prof, FORWARD_KERNELS),
+        host_syncs_per_forward=syncs, top_device_ops=top_device_ops(prof))))
     launches = counts()
     if launches != tuple(w * forwards for w in want):
         raise AssertionError(f'molecular_edges: launches {launches} for '
@@ -4242,8 +4205,10 @@ def phase_molecular_train(st, want):
         nodes_steps_per_s=MOL_N * TRAIN_STEPS / (sum(step_ms) / 1e3),
         max_memory_allocated_gb=peak_gb, first_loss=losses[0],
         last_loss=losses[-1], launches=launches)))
-    log('train_profile', json.dumps(dict(
-        recipe='molecular_edges', **profile_step(trainer, batch, None))))
+    profiled = profile_step(trainer, batch, None)
+    profiled.pop('profile')
+    log('train_profile', json.dumps(dict(recipe='molecular_edges',
+                                         **profiled)))
     del trainer, model
     torch.cuda.empty_cache()
     return launches
@@ -4730,6 +4695,15 @@ def main() -> int:
     gso2_rows, gso2_worst = phase_global_so2(peaks)
     tick('flash_global')
     log(f'phase: kernels done at {time.perf_counter() - t_start:.0f} s')
+
+    # the block-config table's tuner, then the per-scope profile
+    t_phase = time.perf_counter()
+    phase_tune(kp)
+    tick('tune', t_phase)
+    t_phase = time.perf_counter()
+    phase_profile(st, name, smi)
+    tick('profile', t_phase)
+    reset_counts()
 
     # 6-7. the main paths, each with the counts reset just before and read
     # just after; launch tuples in COUNT_NAMES order

@@ -49,8 +49,14 @@ top of every `run()` (ctx: bucket), as JAX's engine does. `mesh` and
 `partition_rules` (ROADMAP A7) refuse any value but None. `donate_buffers` is accepted and does
 nothing: JAX donates the coordinates' device buffer to XLA for reuse;
 eagerly, the caching allocator reuses a request's memory as soon as it is
-released. `stats()['kernel_tuning']` stays empty until the tuning table
-(ROADMAP A6).
+released.
+
+The warmup records which kernel block picks the buckets resolved, from
+the block-config table or the heuristic (kernels.tuning): picks resolve
+once per shape, so a warmup that warms a bucket first drops the resolved
+picks, then keeps the consults since its snapshot in `tuning_consults`
+(`stats()['kernel_tuning']`); a re-warmup of warmed buckets keeps the
+consults of the warmup that built them.
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ import numpy as np
 import torch
 
 from ..observability import PhaseTimer, cost_payload
+from ..observability.costs import nbytes
 from ..quant import (
     is_quantized, mix_name, quantize_params, quantize_state, resolve_mix,
 )
@@ -103,10 +110,6 @@ def pad_to_bucket(feat_seqs, coord_seqs, bucket_len: int,
         coords[i, :len(c)] = c
         mask[i, :len(f)] = True
     return feats, coords, mask
-
-
-def _nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class InferenceEngine:
@@ -183,6 +186,7 @@ class InferenceEngine:
         self._executables: Set[Tuple[int, int, str]] = set()
         self.compile_seconds: Dict[Tuple[int, int, str], float] = {}
         self.cost_payloads: Dict[Tuple[int, int, str], dict] = {}
+        self.tuning_consults: list = []
         self.batches_served = {b: 0 for b in self.buckets}
         self.rows_served = {b: 0 for b in self.buckets}
         if precompile:
@@ -323,15 +327,15 @@ class InferenceEngine:
         self.compile_seconds[key] = round(time.perf_counter() - t0, 3)
         self._executables.add(key)
         if cuda:
-            state = _nbytes([*self.module.parameters(),
+            state = nbytes([*self.module.parameters(),
                              *self.module.buffers()])
-            args = state + _nbytes(inputs) + (
-                _nbytes([self.adjacency[bucket]]) if self.adjacency else 0)
+            args = state + nbytes(inputs) + (
+                nbytes([self.adjacency[bucket]]) if self.adjacency else 0)
             body = cost_payload(
                 label=f'bucket_{bucket},b={self.batch_size},'
                       f'dtype={self.dtype_name},'
                       f'precision={self.precision_name}',
-                argument_bytes=args, output_bytes=_nbytes([out]),
+                argument_bytes=args, output_bytes=nbytes([out]),
                 peak_bytes=torch.cuda.max_memory_allocated(self.device)
                 - base + state)
             body['precision_mix'] = self.precision_name
@@ -342,9 +346,31 @@ class InferenceEngine:
     def warmup(self) -> Dict[Tuple[int, int, str], float]:
         """Warm every bucket; returns each key's warmup seconds. Arm a
         RetraceWatchdog after it: a healthy engine then sets off no more
-        one-time work."""
+        one-time work. Records the kernel block picks the warmup resolved
+        (`tuning_consults`, the JAX warmup's)."""
+        from ..kernels import tuning
+        # picks resolve once per shape: a pick resolved earlier in the
+        # process (training, another engine) would warm these buckets
+        # without a consult
+        if any(self._key(b) not in self._executables
+               for b in self.buckets):
+            tuning.clear_kernel_caches()
+        snap = tuning.snapshot()
         for b in self.buckets:
             self.compile_bucket(b)
+        consults = tuning.consults_since(snap)
+        if consults or not self.tuning_consults:
+            # a re-warmup of warmed buckets records an empty delta: it
+            # must not wipe the consults of the warmup that warmed them
+            self.tuning_consults = consults
+        adopted = [c for c in self.tuning_consults
+                   if c['source'] != 'heuristic']
+        if adopted:
+            import sys
+            print('engine warmup: tuned kernel table entries in effect: '
+                  + '; '.join(f"{c['kernel']}{tuple(c['shape'])}->"
+                              f"{tuple(c['blocks'])} ({c['source']})"
+                              for c in adopted), file=sys.stderr)
         return dict(self.compile_seconds)
 
     # ------------------------------------------------------------------ #
@@ -409,4 +435,4 @@ class InferenceEngine:
             # measured on a card (observability.costs); empty on the CPU
             peak_hbm_by_bucket={str(k[0]): v['peak_bytes']
                                 for k, v in self.cost_payloads.items()},
-            kernel_tuning=[])
+            kernel_tuning=list(self.tuning_consults))

@@ -24,7 +24,10 @@ JAX module, warns and runs the plain version instead, counted in
 
 `fused_attention` is the differentiable form: the torch.library custom op
 `se3_torch::fused_attention`, whose autograd runs the backward kernel (the
-port of the JAX custom_vjp `_fa_fwd`/`_fa_bwd`).
+port of the JAX custom_vjp `_fa_fwd`/`_fa_bwd`), under the profiler scope
+'pallas_attention' (JAX's name; observability.timing.MODEL_SCOPES). Each
+launch records the 'attention' / 'attention_bwd' consult of its built tile
+(one kv row a warp) with kernels.tuning, keyed (n, J, D) and q's dtype.
 """
 from __future__ import annotations
 
@@ -143,6 +146,12 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _record_tile(kind, q, n, J, D):
+    from . import tuning
+    tuning.built_tile(kind, (n, J, D), str(q.dtype).replace('torch.', ''),
+                      tuning.BUILT_TILES[kind], q.device)
+
+
 def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor], heads: int,
                         scale: float) -> torch.Tensor:
@@ -153,6 +162,7 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != 'cuda':
         raise ValueError(f'no kernel for device {q.device}')
     BH, BKV, n, J, D = _check(q, k, v, mask, heads)
+    _record_tile('attention', q, n, J, D)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -184,6 +194,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != 'cuda':
         raise ValueError(f'no kernel for device {q.device}')
     BH, BKV, n, J, D = _check(q, k, v, mask, heads, g=g)
+    _record_tile('attention_bwd', q, n, J, D)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
@@ -239,6 +250,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Differentiable fused attention (the layouts of fused_attention_fwd,
     any strides); gradients flow to q, k and v."""
-    return _fused_attention_op(
-        q.contiguous(), k.contiguous(), v.contiguous(),
-        None if mask is None else mask.contiguous(), int(heads), float(scale))
+    from ..observability.timing import named_scope
+    with named_scope('pallas_attention'):
+        return _fused_attention_op(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            None if mask is None else mask.contiguous(), int(heads),
+            float(scale))

@@ -36,7 +36,9 @@ stack [B, n, K, S] (dense arm); fr the packed frames [B, n, K, 4 L1]
 times float32 W3, as the JAX einsum promotes it.
 
 A CPU tensor takes the plain PyTorch version (`flash_attention_plain`, the
-port of the JAX XLA stream `_flash_stream`: node chunks, n // 16 of them). A
+port of the JAX XLA stream `_flash_stream`: node chunks, n // 16 of them
+unless the 'flash_stream' pick of kernels.tuning says otherwise,
+`stream_rows`; the kernels record their built tiles' 'flash' consults). A
 CUDA tensor launches the hand-written Hopper kernel of csrc/flash_fwd.cu
 (`flash_attention_fwd`, whose `.launches` counts launches) or raises.
 `flash_limit` (and `global_limit` for the global kernel), the fits
@@ -108,8 +110,8 @@ MAX_PAIRS = 4        # input degrees
 MAX_DEGREE = 3       # d_in and d_out
 MAX_HEADS = 8
 MAX_SH = (2 * 2 * MAX_DEGREE + 1) ** 2
-# node rows per chunk of the plain stream (pallas_flash.py::_pick_stream_chunks
-# with no measured table: n // 16 chunks)
+# node rows per chunk of the plain stream with no table entry
+# (pallas_flash.py::_pick_stream_chunks' heuristic: n // 16 chunks)
 STREAM_ROWS = 16
 
 
@@ -330,10 +332,44 @@ def _chunk_body(cfg: FlashConfig, chunk: dict, full: dict) -> torch.Tensor:
     return _row_attention(cfg, q, kv_k, kv_v, nmask)
 
 
-def _chunk_rows(n: int) -> int:
-    """Node rows per chunk: n // 16 chunks of the node axis (at least one
-    row each), the last one ragged."""
-    return -(-n // max(1, n // STREAM_ROWS))
+def _shape_key(cfg: FlashConfig, ops: dict) -> Tuple[int, ...]:
+    """The block-config table's shape key of a call
+    (pallas_flash.py::_shape_key): (n, K (0 in global mode), prefix,
+    heads, kv_heads, Dh, mid, IF, 2 d_out + 1, the node features' row
+    footprint in 128-value tiles)."""
+    q = ops['q']
+    knn = cfg.mode == 'knn'
+    mid = ops['h_v'].shape[-1] if knn else ops['rp_v'][4].shape[0]
+    xres = sum(-(-c * (2 * d + 1) // 128) * 128 for d, c in cfg.pairs)
+    return (q.shape[1], ops['idx'].shape[-1] if knn else 0, cfg.prefix,
+            cfg.heads, cfg.kv_heads, q.shape[-1], mid, ops['wv'].shape[1],
+            2 * cfg.d_out + 1, xres)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace('torch.', '')
+
+
+def pick_stream_chunks(kind: str, shape, dtype: str, device=None) -> int:
+    """The plain stream's node-chunk count (pallas_flash.py::
+    _pick_stream_chunks): the 'flash_stream' (kNN) or 'flash_global' pick
+    of kernels.tuning, env SE3_TORCH_FLASH_CHUNKS > forced > table > the
+    heuristic's n // STREAM_ROWS chunks (at least one)."""
+    from . import tuning
+    n = int(shape[0])
+    return tuning.pick(kind, shape, dtype,
+                       lambda: (max(1, n // STREAM_ROWS),), device)[0]
+
+
+def stream_rows(cfg: FlashConfig, ops: dict) -> int:
+    """Node rows per chunk of the plain stream (pick_stream_chunks' count
+    of chunks), the last chunk ragged."""
+    q = ops['q']
+    n = q.shape[1]
+    chunks = pick_stream_chunks(
+        'flash_global' if cfg.mode == 'global' else 'flash_stream',
+        _shape_key(cfg, ops), _dtype_name(q), q.device)
+    return -(-n // max(1, min(chunks, n)))
 
 
 def _slice(ops: dict, s: int, e: int) -> dict:
@@ -346,7 +382,7 @@ def flash_attention_plain(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     and dropped in turn. `ops` holds the operands under the names of the
     module docstring."""
     n = ops['q'].shape[1]
-    rows = _chunk_rows(n)
+    rows = stream_rows(cfg, ops)
     full = {k: ops.get(k) for k in _FULL}
     return torch.cat([_chunk_body(cfg, _slice(ops, s, min(s + rows, n)), full)
                       for s in range(0, n, rows)], dim=1)
@@ -605,6 +641,9 @@ def flash_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     if q.device.type != 'cuda':
         raise ValueError(f'no kernel for device {q.device}')
     B, n, K, S, S0, IF, bf16 = _check(cfg, ops)
+    from . import tuning
+    tuning.built_tile('flash', _shape_key(cfg, ops), _dtype_name(q),
+                      tuning.BUILT_TILES['flash'], q.device)
     so2 = cfg.arm_v == 'so2'
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -739,7 +778,7 @@ def _flash_backward(ctx, g):
             elif ops[k] is not None:
                 full[k] = ops[k].detach().requires_grad_(want)
         n = q.shape[1]
-        rows = _chunk_rows(n)
+        rows = stream_rows(ctx.cfg, ops)
         for s in range(0, n, rows):
             e = min(s + rows, n)
             chunk = {k: t.detach().requires_grad_(
@@ -964,7 +1003,7 @@ def flash_global_plain(cfg: FlashConfig, ops: dict,
     (None when tied), node_mask, prefix_k and prefix_v under the names of
     flash_global_attention."""
     n = ops['q'].shape[1]
-    rows = rows or _chunk_rows(n)
+    rows = rows or stream_rows(cfg, ops)
     return torch.cat([_global_chunk_body(cfg, slice(s, min(s + rows, n)),
                                          ops)
                       for s in range(0, n, rows)], dim=1)
@@ -1084,6 +1123,9 @@ def flash_global_attention_fwd(cfg: FlashConfig, ops: dict) -> torch.Tensor:
     if q.device.type != 'cuda':
         raise ValueError(f'no kernel for device {q.device}')
     B, n, S0, IF = _check_global(cfg, ops)
+    from . import tuning
+    tuning.built_tile('flash', _shape_key(cfg, ops), _dtype_name(q),
+                      tuning.GLOBAL_TILE, q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -1205,7 +1247,7 @@ def _global_backward(ctx, g):
               if t is not None and t.requires_grad]
     g = g.contiguous()
     n = q.shape[1]
-    rows = _chunk_rows(n)
+    rows = stream_rows(ctx.cfg, ops)
     if leaves:
         with torch.enable_grad():
             for s in range(0, n, rows):

@@ -96,7 +96,9 @@ ORDERS = (1, 3, 5, 7)   # P and Q the kernel is instantiated for (degree <= 3)
 # P of #3, A and B's float arms: also V2's (-m, +m) row pairs
 PAIR_ORDERS = (1, 2, 3, 5, 7)
 # the i-range split of the V2-given forward kernel and of backward kernel B
-SPLIT_TARGET_CTAS = 132  # one CTA per SM of an H100 (both run one per SM)
+# fill the card's SMs (both run one CTA per SM): target_ctas() reads the
+# card's count; this is the count without a card (an H100 SXM's)
+SPLIT_TARGET_CTAS = 132
 SPLIT_MIN_I = 64         # the fewest i values a split takes
 FWD_I_CHUNK = 16         # V2's i chunk in csrc/pairwise_fwd.cu: splits start on one
 DTYPES = (torch.bfloat16, torch.float32)   # h and w3 types the kernels take
@@ -273,6 +275,17 @@ def _launch_bxf(fn, h, w3, b3, basis, x, P, Q, C, O):
     return out
 
 
+def _record_tile(kind, h, E, C, O, pqf):
+    """The 'bxf' / 'bx' consult of #1's and #2's built tile (EDGE_TILE
+    edges x O_TILE channels a CTA), JAX's shape key (E, C, O, P, Q, F,
+    mid)."""
+    from . import tuning
+    P, Q, F = pqf
+    tuning.built_tile(kind, (E, C, O, P, Q, F, h.shape[1]),
+                      str(h.dtype).replace('torch.', ''),
+                      tuning.BUILT_TILES[kind], h.device)
+
+
 def fused_pairwise_conv_bxf(h: torch.Tensor, w3: torch.Tensor,
                             basis_flat: torch.Tensor, x: torch.Tensor,
                             pqf, b3: torch.Tensor) -> torch.Tensor:
@@ -284,6 +297,7 @@ def fused_pairwise_conv_bxf(h: torch.Tensor, w3: torch.Tensor,
     if h.device.type != 'cuda':
         raise ValueError(f'no kernel for device {h.device}')
     E, C, O = _check(h, w3, basis_flat, x, pqf, b3)
+    _record_tile('bxf', h, E, C, O, pqf)
     from .build import load_library
     v16 = x.dtype == torch.bfloat16
     lib = load_library()
@@ -343,7 +357,9 @@ def fused_pairwise_conv_bx(h: torch.Tensor, w3: torch.Tensor,
         return fused_pairwise_conv_bx_plain(h, w3, basis, x, b3)
     if h.device.type != 'cuda':
         raise ValueError(f'no kernel for device {h.device}')
-    E, C, O, (P, Q, _) = _check_bx(h, w3, basis, x, b3)
+    E, C, O, pqf = _check_bx(h, w3, basis, x, b3)
+    P, Q, _ = pqf
+    _record_tile('bx', h, E, C, O, pqf)
     from .build import load_library
     v16 = x.dtype == torch.bfloat16
     lib = load_library()
@@ -450,29 +466,63 @@ def o_slots(O: int) -> int:
     return -(-O // o_tile(O))
 
 
-def i_per_split(E: int, IF: int, O: int = O_TILE) -> int:
-    """How many i values each CTA of the forward kernel (csrc/pairwise_fwd.cu,
-    one CTA per SM) or of backward kernel B contracts: the whole of IF when
+_SM_COUNTS = {}
+
+
+def target_ctas(device=None) -> int:
+    """The CTAs that fill the card: its SM count (multi_processor_count;
+    132 on an H100 SXM), SPLIT_TARGET_CTAS without a card."""
+    if not torch.cuda.is_available():
+        return SPLIT_TARGET_CTAS
+    index = torch.cuda.current_device() if device is None or \
+        torch.device(device).index is None else torch.device(device).index
+    count = _SM_COUNTS.get(index)
+    if count is None:
+        count = _SM_COUNTS[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return count
+
+
+def i_per_split(E: int, IF: int, O: int = O_TILE, ctas: int = None) -> int:
+    """The heuristic of how many i values each CTA of the forward kernel
+    (csrc/pairwise_fwd.cu, one CTA per SM; its resolved pick is
+    fwd_i_per_split) or of backward kernel B (which always takes this
+    heuristic) contracts, for a card of `ctas` SMs (target_ctas() when
+    None): the whole of IF when
     the edge and O tiles (the call's tile, o_tile) alone fill the card, else
     IF split so that they do (each split at least SPLIT_MIN_I values, and a
     multiple of FWD_I_CHUNK so that every split starts on one of the
     forward's 16-byte V2 chunks). The narrow arms stage their h tile once
     and walk i in NARROW_I_CHUNK values: their splits are whole chunks,
     as many as fill the card (at a DenoiseConfig micro-batch's 12 edge
-    tiles one CTA each left 120 SMs idle). A function of the shapes only,
+    tiles one CTA each left 120 SMs idle). A function of the shapes (and
+    the card's SM count) only,
     so the partial sums and their reduce order (and so the output, bit
     for bit) are the same on every run."""
+    ctas = target_ctas() if ctas is None else ctas
     tiles = -(-E // EDGE_TILE) * o_slots(O)
     if O in NARROW_O:
-        splits = max(1, min(SPLIT_TARGET_CTAS // tiles,
+        splits = max(1, min(ctas // tiles,
                             -(-IF // NARROW_I_CHUNK)))
         per = -(-IF // splits)
         return -(-per // NARROW_I_CHUNK) * NARROW_I_CHUNK
-    splits = max(1, min(SPLIT_TARGET_CTAS // tiles, -(-IF // SPLIT_MIN_I)))
+    splits = max(1, min(ctas // tiles, -(-IF // SPLIT_MIN_I)))
     if splits == 1:
         return IF
     per = -(-IF // splits)
     return -(-per // FWD_I_CHUNK) * FWD_I_CHUNK
+
+
+def fwd_i_per_split(E: int, IF: int, O: int, P: int, mid: int,
+                    dtype: torch.dtype, device=None) -> int:
+    """Kernel #3's i split: the 'plain' pick of the block-config table
+    (kernels.tuning: env SE3_TORCH_I_PER_SPLIT > forced > table >
+    i_per_split's heuristic), keyed (E, IF, O, P, mid) and h's dtype,
+    resolved once per key. Kernel B keeps the heuristic."""
+    from . import tuning
+    return tuning.pick(
+        'plain', (E, IF, O, P, mid), str(dtype).replace('torch.', ''),
+        lambda: (i_per_split(E, IF, O, target_ctas(device)),), device)[0]
 
 
 def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
@@ -493,7 +543,8 @@ def fused_pairwise_conv(h: torch.Tensor, w3: torch.Tensor, v2: torch.Tensor,
     out = torch.empty(E, P, O, dtype=torch.float32, device=h.device)
     if E == 0:
         return out
-    per = i_per_split(E, IF, O)
+    per = fwd_i_per_split(E, IF, O, v2.shape[1], h.shape[1], h.dtype,
+                          h.device)
     splits = -(-IF // per)
     work = out if splits == 1 else torch.empty(
         splits * E * P * O, dtype=torch.float32, device=h.device)
@@ -625,14 +676,17 @@ def _check_bwd(h, w3, v2, g, b3):
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_splits(E: int, IF: int, O: int = O_TILE) -> int:
+def bwd_splits(E: int, IF: int, O: int = O_TILE, ctas: int = None) -> int:
     """How many edge ranges kernel A splits E into: the count that finishes
-    soonest with one CTA per SM of an H100 (whole waves of equal ranges,
+    soonest with one CTA per SM of a card of `ctas` SMs (target_ctas()
+    when None; whole waves of equal ranges,
     each split's partial dW3 written and reduced at about IF/128 tiles'
     time), each range at least one 64-edge tile; O's tiles share the grid
     (a narrow O is one tile, its CTAs NARROW_I_CHUNK values of i). A
-    function of the shapes only, so the partial sums and their reduce order
+    function of the shapes (and the card's SM count) only, so the partial
+    sums and their reduce order
     (and so dW3 and dB3, bit for bit) are the same on every run."""
+    ctas = target_ctas() if ctas is None else ctas
     n_tiles = -(-E // EDGE_TILE)
     chunk = NARROW_I_CHUNK if O in NARROW_O else BWD_I_CHUNK
     groups = -(-IF // chunk) * o_slots(O)
@@ -642,7 +696,7 @@ def bwd_splits(E: int, IF: int, O: int = O_TILE) -> int:
     partial = IF * O / (128 * O_TILE) if O in NARROW_O else IF / 128
 
     def cost(s):
-        return (-(-groups * s // SPLIT_TARGET_CTAS) * -(-n_tiles // s)
+        return (-(-groups * s // ctas) * -(-n_tiles // s)
                 + s * partial)
     splits = min(range(1, min(n_tiles, 64) + 1), key=cost)
     per_split = -(-n_tiles // splits)
@@ -672,7 +726,7 @@ def _launch_bwd_a(h, w3, v2, g, b3, E, IF, O, P):
     dw3 = torch.empty(mid, IF, O, **f32)
     db3 = torch.empty(IF, O, **f32)
     slots = o_slots(O)
-    splits = bwd_splits(E, IF, O)
+    splits = bwd_splits(E, IF, O, target_ctas(h.device))
     work = torch.empty(splits * (mid + 1) * IF * O, **f32)
     dv2_work = dv2 if slots == 1 else torch.empty(slots * E * P * IF, **f32)
     # float32 h and w3 are split into bf16 hi and lo arrays by the kernel's
@@ -708,7 +762,7 @@ def _launch_bwd_b(w3, v2, g, E, IF, O, P):
     mid = w3.shape[0]
     dh = torch.empty(E, mid, dtype=torch.float32, device=w3.device)
     w3, g = _aligned(w3), _aligned(g)
-    per = i_per_split(E, IF, O)
+    per = i_per_split(E, IF, O, target_ctas(w3.device))
     partials = -(-IF // per) * o_slots(O)
     work = dh if partials == 1 else torch.empty(
         partials * E * mid, dtype=torch.float32, device=w3.device)

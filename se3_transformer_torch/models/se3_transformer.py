@@ -102,6 +102,7 @@ from torch import nn
 
 from ..basis import get_basis
 from ..kernels.flash import flash_sh_payload
+from ..observability.timing import named_scope
 from ..ops.conv import ConvSE3, resolve_conv_backend
 from ..ops.attention import FUSED_CONV_BF16, GLOBAL_CONV_BF16
 from ..ops.core import LinearSE3, NormSE3
@@ -439,6 +440,14 @@ class SE3TransformerModule(nn.Module):
             rotary_position, rotary_rel_dist
         self.dim_head = dim_head
         self.use_egnn = use_egnn
+        # the fields utils.flops reads beside the resolved ones above
+        self.dim, self.depth, self.heads = dim, depth, heads
+        self.attend_self, self.reversible = attend_self, reversible
+        self.shared_radial_hidden = shared_radial_hidden
+        self.tie_key_values = tie_key_values
+        self.linear_proj_keys = linear_proj_keys
+        self.hidden_fiber_dict = hidden_fiber_dict
+        self.out_fiber_dict = out_fiber_dict
         self.fiber_out = fiber_out
         # the convs' edge width: the edges, then the ring labels' embedding
         # (the JAX module reads it off the edges at trace time)
@@ -633,15 +642,19 @@ class SE3TransformerModule(nn.Module):
         num_neighbors = int(min(self.num_neighbors, n - 1))
 
         self_excl = exclude_self_indices(n, device=coors.device)
-        adj_indices, sparse_mask, num_sparse = self._adjacency_predicates(
-            adj_mat, b, n, self_excl, neighbor_noise)
-        rel_pos = remove_self(coors[:, :, None, :] - coors[:, None, :, :],
-                              self_excl)                   # [b, n, n-1, 3]
-        indices = self_excl[None].expand(b, n, n - 1)
-        pair_mask = None
-        if mask is not None:
-            pair_mask = remove_self(mask[:, :, None] & mask[:, None, :],
-                                    self_excl)
+        with named_scope('adjacency'):
+            adj_indices, sparse_mask, num_sparse = \
+                self._adjacency_predicates(adj_mat, b, n, self_excl,
+                                           neighbor_noise)
+        with named_scope('neighbors'):
+            rel_pos = remove_self(coors[:, :, None, :]
+                                  - coors[:, None, :, :],
+                                  self_excl)               # [b, n, n-1, 3]
+            indices = self_excl[None].expand(b, n, n - 1)
+            pair_mask = None
+            if mask is not None:
+                pair_mask = remove_self(mask[:, :, None] & mask[:, None, :],
+                                        self_excl)
         if edges is not None:
             if hasattr(self, 'edge_emb'):
                 edges = self.edge_emb(edges)
@@ -658,10 +671,11 @@ class SE3TransformerModule(nn.Module):
         total_neighbors = int(min(num_neighbors + num_sparse, n - 1))
         if total_neighbors <= 0:
             raise ValueError('must fetch at least 1 neighbor')
-        hood, nearest = select_neighbors(
-            rel_pos, indices, total_neighbors, valid_radius,
-            pair_mask=pair_mask, neighbor_mask=neighbor_mask,
-            sparse_mask=sparse_mask, causal=self.causal)
+        with named_scope('neighbors'):
+            hood, nearest = select_neighbors(
+                rel_pos, indices, total_neighbors, valid_radius,
+                pair_mask=pair_mask, neighbor_mask=neighbor_mask,
+                sparse_mask=sparse_mask, causal=self.causal)
         if edges is not None:
             edges = batched_index_select(edges, nearest, dim=2)
         return self._body(feats, hood, edges, global_feats, return_type,
@@ -694,19 +708,23 @@ class SE3TransformerModule(nn.Module):
         """The JAX _body from the neighborhood on: the payloads, conv_in,
         the preconvs, the trunk (attention blocks or the EGNN), conv_out
         and the output tail."""
-        basis = self._payloads(hood.rel_pos)
+        with named_scope('basis'):
+            basis = self._payloads(hood.rel_pos)
         edge_info = (hood.indices, hood.mask, edges)
 
-        x = self.conv_in(feats, edge_info, hood.rel_dist, basis)
+        with named_scope('conv_in'):
+            x = self.conv_in(feats, edge_info, hood.rel_dist, basis)
         for i in range(self.num_conv_layers):
             x = getattr(self, f'preconv_norm{i}')(x)
             x = getattr(self, f'preconv{i}')(x, edge_info, hood.rel_dist,
                                              basis)
         trunk = self.egnn_net if self.use_egnn else self.trunk
-        x = trunk(x, edge_info, hood.rel_dist, basis, global_feats,
-                  self._rotary_embeddings(b, n, hood))
+        with named_scope('trunk'):
+            x = trunk(x, edge_info, hood.rel_dist, basis, global_feats,
+                      self._rotary_embeddings(b, n, hood))
         if self.fiber_out is not None:
-            x = self.conv_out(x, edge_info, hood.rel_dist, basis)
+            with named_scope('conv_out'):
+                x = self.conv_out(x, edge_info, hood.rel_dist, basis)
         return self._output(x, return_type, return_pooled, mask)
 
     def _payloads(self, rel_pos: torch.Tensor) -> dict:
@@ -814,14 +832,17 @@ class SE3TransformerModule(nn.Module):
                  else coors.detach()}
         if mask is not None:
             basis['global_mask'] = mask
-        x = dict(self.lift_in(feats))
-        for degree, c in self.fiber_hidden:
-            if str(degree) not in x:
-                x[str(degree)] = feats['0'].new_zeros(b, n, c,
-                                                      2 * degree + 1)
-        x = self.trunk(x, (None, None, None), None, basis, global_feats)
-        return self._output(self.lift_out(x), return_type, return_pooled,
-                            mask)
+        with named_scope('conv_in'):
+            x = dict(self.lift_in(feats))
+            for degree, c in self.fiber_hidden:
+                if str(degree) not in x:
+                    x[str(degree)] = feats['0'].new_zeros(b, n, c,
+                                                          2 * degree + 1)
+        with named_scope('trunk'):
+            x = self.trunk(x, (None, None, None), None, basis, global_feats)
+        with named_scope('conv_out'):
+            x = self.lift_out(x)
+        return self._output(x, return_type, return_pooled, mask)
 
     def _output(self, x, return_type, return_pooled, mask):
         """The output tail shared by both modes: norm_out, linear_out

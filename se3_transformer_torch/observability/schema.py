@@ -38,6 +38,15 @@ A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
                    memory split {argument_bytes, output_bytes,
                    temp_bytes}, peak_bytes, and the per-class collective
                    {count, bytes} ledger.
+  tune             one per step of the kernel tuner (kernels/tune.py):
+                   kernel (the tuning kind), shape, candidate, blocks,
+                   the load-bearing verdict (admitted / promoted /
+                   rejected / consulted / error) and promoted (bool).
+  profile          one per profiled program (observability.profiling):
+                   label, scopes (per-scope {time_ms, share}),
+                   device_time_ms and the load-bearing coverage (the
+                   attributed share, in [0, 1]); optional roofline,
+                   unattributed_top, steps, tracks.
   guard            one per guarded training run (training.guardian): the
                    counters {trips, rollbacks, restarts, skipped_batches,
                    preemptions, injections_total}, cumulative across
@@ -53,9 +62,9 @@ A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
 
 Every record the port writes validates under the JAX package's schema as
 well (SCHEMA_VERSION is the same). The other kinds of the JAX contract
-come with the slices that write them: tune with ROADMAP A6; comm and
-mesh_sweep with A7; profile, fault, fleet, trace, slo, transport and the
-serve record's multi-replica fields with A8; flash, so2_sweep, v2_sweep,
+come with the slices that write them: comm and mesh_sweep with ROADMAP
+A7; fault, fleet, trace, slo, transport and the serve record's
+multi-replica fields with A8's fleet half; flash, so2_sweep, v2_sweep,
 quant_ab and assembly with the benchmark's A/B records.
 """
 from __future__ import annotations
@@ -67,7 +76,7 @@ from typing import Iterable, Union
 SCHEMA_VERSION = 1
 
 KNOWN_KINDS = ('run_meta', 'step', 'flush', 'retrace_warning', 'pipeline',
-               'serve', 'cost', 'guard', 'summary')
+               'serve', 'tune', 'cost', 'profile', 'guard', 'summary')
 
 _REQUIRED = {
     'run_meta': ('run_id', 'schema_version', 'backend', 'code_rev', 'host'),
@@ -81,6 +90,15 @@ _REQUIRED = {
     # contract (must be 0): a serve record without it is invalid
     'serve': ('run_id', 'requests', 'buckets', 'runtime', 'queue_depth',
               'post_warmup_compiles'),
+    # verdict and promoted are the load-bearing pair of the tuner: a tune
+    # record that cannot say what happened to the candidate (and whether
+    # the table changed) proves nothing
+    'tune': ('run_id', 'kernel', 'shape', 'candidate', 'blocks', 'verdict',
+             'promoted'),
+    # coverage is the load-bearing field of the attribution: a profile
+    # record that cannot say how much device time its scopes account for
+    # proves nothing about where the time went
+    'profile': ('run_id', 'label', 'scopes', 'device_time_ms', 'coverage'),
     # source is the load-bearing field of the cost ledger: a record that
     # cannot say where its numbers came from proves nothing
     'cost': ('run_id', 'label', 'source', 'flops', 'bytes_accessed',
@@ -95,7 +113,10 @@ _REQUIRED = {
     'summary': ('run_id', 'steps', 'metrics', 'timing'),
 }
 
+_TUNE_VERDICTS = ('admitted', 'promoted', 'rejected', 'consulted',
+                  'error')
 _COST_SOURCES = ('cost_analysis', 'hlo_estimate', 'unavailable')
+_PROFILE_SCOPE_REQUIRED = ('time_ms', 'share')
 _COST_MEMORY_REQUIRED = ('argument_bytes', 'output_bytes', 'temp_bytes')
 
 _TIMING_REQUIRED = ('count', 'p50_ms', 'p95_ms', 'max_ms')
@@ -198,6 +219,44 @@ def _validate_cost(rec, index):
             _fail(index, f'cost.collectives[{cls!r}] missing {missing}')
 
 
+def _validate_tune(rec, index):
+    if rec['verdict'] not in _TUNE_VERDICTS:
+        _fail(index, f'tune.verdict {rec["verdict"]!r} not in '
+                     f'{_TUNE_VERDICTS}')
+    if not isinstance(rec['promoted'], bool):
+        _fail(index, f'tune.promoted must be a bool, got '
+                     f'{rec["promoted"]!r}')
+    if rec['verdict'] == 'promoted' and not rec['promoted']:
+        _fail(index, 'tune verdict "promoted" requires promoted=true')
+    for field in ('candidate', 'blocks', 'shape'):
+        val = rec[field]
+        if not isinstance(val, (list, tuple)) or \
+                not all(isinstance(v, int) for v in val):
+            _fail(index, f'tune.{field} must be a list of ints, got '
+                         f'{val!r}')
+
+
+def _validate_profile(rec, index):
+    scopes = rec['scopes']
+    if not isinstance(scopes, dict):
+        _fail(index, 'profile.scopes must be an object')
+    for scope, st in scopes.items():
+        missing = [k for k in _PROFILE_SCOPE_REQUIRED
+                   if not isinstance(st, dict) or k not in st]
+        if missing:
+            _fail(index, f'profile.scopes[{scope!r}] missing {missing} '
+                         f'(per-scope time and share are the whole '
+                         f'attribution)')
+    cov = rec['coverage']
+    if not isinstance(cov, (int, float)) or not 0 <= cov <= 1:
+        _fail(index, f'profile.coverage must be a number in [0, 1], got '
+                     f'{cov!r}')
+    if not isinstance(rec['device_time_ms'], (int, float)) \
+            or rec['device_time_ms'] < 0:
+        _fail(index, f'profile.device_time_ms must be a non-negative '
+                     f'number, got {rec["device_time_ms"]!r}')
+
+
 def _validate_pipeline(rec, index):
     prefetch = rec['prefetch']
     missing = [k for k in _PIPELINE_PREFETCH_REQUIRED
@@ -274,6 +333,10 @@ def validate_record(rec: dict, index=None) -> dict:
         _fail(index, f'step must be an int, got {rec["step"]!r}')
     elif kind == 'serve':
         _validate_serve(rec, index)
+    elif kind == 'tune':
+        _validate_tune(rec, index)
+    elif kind == 'profile':
+        _validate_profile(rec, index)
     elif kind == 'cost':
         _validate_cost(rec, index)
     elif kind == 'pipeline':

@@ -6,16 +6,17 @@ se3_transformer_tpu/observability/timing.py.
     on a card passes `device=`: the phase then ends in a synchronize of
     that device, so the time recorded is the device's, as JAX's phases
     end in `block_until_ready`.
-  * `named_scope`: a `torch.profiler.record_function` label, the
-    counterpart of `jax.named_scope` (a region named in a profiler
-    trace).
-
-The model's own scope labels (JAX's MODEL_SCOPES) and `profile_trace`
-come with ROADMAP A8.
+  * `named_scope` / `profile_trace`: device attribution. A scope is a
+    `torch.profiler.record_function` label, the counterpart of
+    `jax.named_scope`; `MODEL_SCOPES` lists the labels the model emits
+    (models/se3_transformer.py, ops/attention.py, kernels/attention.py,
+    v2/model.py), and observability.profiling folds a profile's device
+    time onto them.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from typing import Dict
@@ -23,10 +24,50 @@ from typing import Dict
 import numpy as np
 import torch
 
+# every named_scope label the model emits, for trace readers (JAX's
+# MODEL_SCOPES; 'ring_knn', 'ici_wait' and 'exchange' are the parallel
+# package's, ROADMAP A7, and 'frames' the V2 family's edge frames)
+MODEL_SCOPES = (
+    'neighbors',          # models/se3_transformer.py: kNN selection
+    'adjacency',          # models/se3_transformer.py: adjacency expansion
+    #                       and the jittered bonded top-k
+    'basis',              # models/se3_transformer.py: the per-edge payloads
+    'conv_in',            # models/se3_transformer.py
+    'trunk',              # models/se3_transformer.py
+    'conv_out',           # models/se3_transformer.py
+    'attention',          # ops/attention.py: the whole attention call
+    'attn_qkv',           # ops/attention.py: q/k/v projections and convs
+    'attn_core',          # ops/attention.py: sim/softmax/weighted sum
+    'pallas_attention',   # kernels/attention.py: the fused kernel's op
+    'ring_knn',           # the parallel package (ROADMAP A7)
+    'ici_wait',
+    'exchange',
+    'frames',             # v2/model.py: the edge frames
+)
+
 
 def named_scope(name: str):
     """Label a region for torch.profiler (a record_function range)."""
     return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True):
+    """A torch.profiler session (CPU activity, and CUDA activity when a
+    card is present) whose trace lands in `log_dir` as a Chrome trace
+    (perfetto-compatible); yields the profiler (None when disabled)."""
+    if not enabled:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f'trace_{os.getpid()}_{time.time_ns()}.json'))
 
 
 def _percentiles(samples) -> dict:

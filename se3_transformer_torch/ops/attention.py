@@ -1,6 +1,8 @@
 """Multi-degree SE(3)-equivariant attention: the port of
 se3_transformer_tpu/ops/attention.py's kNN paths and its kNN-free global
-mode (AttentionSE3, its one-headed kv variant, and AttentionBlockSE3).
+mode (AttentionSE3, its one-headed kv variant, and AttentionBlockSE3),
+with JAX's profiler scopes: 'attention' (the block's call), 'attn_qkv' (the
+q/k/v projections and convs), 'attn_core' (the einsum core).
 
 KV slot order along the neighbor axis is [global, null, self, neighbors]:
 the global slots (to_global_k / to_global_v of the global features, degree
@@ -62,6 +64,7 @@ from ..kernels import flash as kf
 from ..kernels import routing
 from ..kernels.attention import fused_attention
 from ..kernels.flash import flash_attention, flash_global_attention
+from ..observability.timing import named_scope
 from ..quant.qtensor import weight_or_none
 from ..utils.helpers import batched_index_select, to_order
 from .conv import ConvSE3, EdgeInfo
@@ -87,6 +90,23 @@ def _kernel_weight(w):
     a bf16 cast upcast exactly)."""
     q, scale = weight_or_none(w)
     return (q, scale) if scale is not None else (q.float(), None)
+
+
+def _attention_core(q, k, v, padded, kv_h: int, dh: int) -> torch.Tensor:
+    """The unfused core of one degree: q [b, h, n, d, m], k/v [b, kv_h, n,
+    J, d, m] (one kv head shared by every query head when kv_h is 1),
+    padded [b, n, J] or None -> [b, h, n, d, m]."""
+    if kv_h == 1:
+        sim = torch.einsum('bhidm,bijdm->bhij', q, k[:, 0])
+    else:
+        sim = torch.einsum('bhidm,bhijdm->bhij', q, k)
+    sim = sim * dh ** -0.5
+    if padded is not None:
+        sim = sim.masked_fill(~padded[:, None], torch.finfo(sim.dtype).min)
+    attn = sim.softmax(dim=-1)
+    if kv_h == 1:
+        return torch.einsum('bhij,bijdm->bhidm', attn, v[:, 0])
+    return torch.einsum('bhij,bhijdm->bhidm', attn, v)
 
 
 class AttentionSE3(nn.Module):
@@ -229,10 +249,11 @@ class AttentionSE3(nn.Module):
                       pos_emb) -> Features:
         h, kv_h, dh = self.heads, self.kv_heads, self.dim_head
         neighbor_mask = edge_info[1]
-        queries = self.to_q(features)
-        values = self.to_v(features, edge_info, rel_dist, basis)
-        keys = self._keys(features, values, edge_info, rel_dist, basis)
-        self_keys, self_values = self._self_kv(features)
+        with named_scope('attn_qkv'):
+            queries = self.to_q(features)
+            values = self.to_v(features, edge_info, rel_dist, basis)
+            keys = self._keys(features, values, edge_info, rel_dist, basis)
+            self_keys, self_values = self._self_kv(features)
         global_keys, global_values = global_kv
 
         outputs = {}
@@ -293,19 +314,8 @@ class AttentionSE3(nn.Module):
                     out = fused_attention(*args)
                 out = out.reshape(b, h, n, dh, m)
             else:
-                if kv_h == 1:
-                    sim = torch.einsum('bhidm,bijdm->bhij', q, k[:, 0])
-                else:
-                    sim = torch.einsum('bhidm,bhijdm->bhij', q, k)
-                sim = sim * dh ** -0.5
-                if padded is not None:
-                    sim = sim.masked_fill(~padded[:, None],
-                                          torch.finfo(sim.dtype).min)
-                attn = sim.softmax(dim=-1)
-                if kv_h == 1:
-                    out = torch.einsum('bhij,bijdm->bhidm', attn, v[:, 0])
-                else:
-                    out = torch.einsum('bhij,bhijdm->bhidm', attn, v)
+                with named_scope('attn_core'):
+                    out = _attention_core(q, k, v, padded, kv_h, dh)
             outputs[degree] = out.permute(0, 2, 1, 3, 4).reshape(
                 b, n, h * dh, m)
         return outputs
@@ -351,11 +361,12 @@ class AttentionSE3(nn.Module):
         h, kv_h = self.heads, self.kv_heads
         coords = basis['global_coords']
         node_mask = basis.get('global_mask')
-        queries = self.to_q(features)
-        v_prog = self.to_v(features, None, None, basis)
-        k_prog = None if self.tie_key_values else \
-            self.to_k(features, None, None, basis)
-        self_keys, self_values = self._self_kv(features)
+        with named_scope('attn_qkv'):
+            queries = self.to_q(features)
+            v_prog = self.to_v(features, None, None, basis)
+            k_prog = None if self.tie_key_values else \
+                self.to_k(features, None, None, basis)
+            self_keys, self_values = self._self_kv(features)
 
         outputs = {}
         for degree in features.keys():
@@ -402,11 +413,12 @@ class AttentionSE3(nn.Module):
         features and the SH stack."""
         h, kv_h = self.heads, self.kv_heads
         neighbor_indices, neighbor_mask, _ = edge_info
-        queries = self.to_q(features)
-        v_prog = self.to_v(features, edge_info, rel_dist, basis)
-        k_prog = None if self.tie_key_values else \
-            self.to_k(features, edge_info, rel_dist, basis)
-        self_keys, self_values = self._self_kv(features)
+        with named_scope('attn_qkv'):
+            queries = self.to_q(features)
+            v_prog = self.to_v(features, edge_info, rel_dist, basis)
+            k_prog = None if self.tie_key_values else \
+                self.to_k(features, edge_info, rel_dist, basis)
+            self_keys, self_values = self._self_kv(features)
 
         outputs = {}
         for degree in features.keys():
@@ -504,6 +516,8 @@ class AttentionBlockSE3(nn.Module):
                 rel_dist: torch.Tensor, basis: Dict[str, torch.Tensor],
                 global_feats: Optional[Features] = None,
                 pos_emb=None) -> Features:
-        out = self.attn(self.prenorm(features), edge_info, rel_dist, basis,
-                        global_feats, pos_emb)
+        out = self.prenorm(features)
+        with named_scope('attention'):
+            out = self.attn(out, edge_info, rel_dist, basis, global_feats,
+                            pos_emb)
         return residual_se3(out, features)

@@ -12,9 +12,10 @@ blocks (so2.canonical), with the same parameters (w3 [mid, C*F, O], b3
                  card, as the dense path's V2, its backward kernels A and B
   4. rotate out  out = D_out(R_e) out_rot                 (frames.rotate_out)
 
-The JAX package's chunk tuning (_pick_so2_chunks, SE3_TPU_SO2_CHUNKS) is
-not ported: edge_chunks keeps the dense path's meaning, and None runs
-unchunked, the JAX heuristic's answer.
+edge_chunks keeps the dense path's meaning; with None the node-axis chunk
+count is the 'so2' pick of kernels.tuning (pick_so2_chunks, the port of
+_pick_so2_chunks: env SE3_TORCH_SO2_CHUNKS > forced > table > the
+heuristic's 1, unchunked).
 """
 from __future__ import annotations
 
@@ -59,6 +60,16 @@ def banded_z(xr: torch.Tensor, d_in: int, d_out: int,
     return band.reshape(*band.shape[:-2], C * band.shape[-1])
 
 
+def pick_so2_chunks(shape, dtype: str, device=None) -> int:
+    """The node-axis chunk count of an so2 contraction whose edge_chunks is
+    None (1 = unchunked, the heuristic: the banded working set is small;
+    chunking is the memory ceiling for huge channel counts and the
+    tuner's knob): the 'so2' pick of kernels.tuning, keyed as JAX keys it
+    ((n, C, O, P, Q, F) here, V2ConvSE3's own key there)."""
+    from ..kernels import tuning
+    return tuning.pick('so2', shape, dtype, lambda: (1,), device)[0]
+
+
 def so2_pair_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
                       frames: Frames, x: torch.Tensor, *, d_in: int,
                       d_out: int, edge_chunks: Optional[int] = None,
@@ -72,6 +83,13 @@ def so2_pair_contract(h: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     conv_bf16 and pallas as ops.conv._radial_contract takes them."""
     from ..ops.conv import _radial_contract, _stream_node_chunks
     mmin = min(d_in, d_out)
+    if edge_chunks is None:
+        C, Q = x.shape[-2], x.shape[-1]
+        shape = (x.shape[1], C, w3.shape[-1], 2 * d_out + 1, Q,
+                 2 * mmin + 1)
+        edge_chunks = pick_so2_chunks(
+            shape, str(x.dtype).replace('torch.', ''), x.device)
+        edge_chunks = None if edge_chunks <= 1 else edge_chunks
 
     def contract(h_c, x_c, *frame_arrays):
         fr = dict(zip(FRAME_KEYS, frame_arrays))

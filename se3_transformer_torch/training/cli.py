@@ -23,9 +23,13 @@ one emergency save, and the process exits with the GuardResult's code: 75
 preempted (run it again to resume), 1 diverged, 0 clean. A guarded resume
 goes through guardian.resume_trainer.
 
+--cost-record writes one `cost` record of a warm training step after the
+first step (DenoiseTrainer.cost_record: the allocator's peak, the
+argument bytes) into --metrics; it needs a card.
+
 The card is the default device; --cpu runs the plain PyTorch path. The
-flags of machinery the port has not (--mesh, --cost-record) are refused
-with the ROADMAP item that ports it.
+flag of machinery the port has not (--mesh) is refused with the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -38,7 +42,6 @@ import sys
 # that ports it
 UNPORTED_FLAGS = {
     '--mesh': 'ROADMAP A7 (parallelism)',
-    '--cost-record': 'ROADMAP A8 (fleet and observability)',
 }
 
 
@@ -80,6 +83,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument('--spike-zscore', type=float, default=8.0,
                     help='guarded: the EMA z-score above which a window\'s '
                          'loss mean is a spike')
+    ap.add_argument('--cost-record', action='store_true',
+                    help="one schema'd `cost` record of a warm training "
+                         'step after the first step (the allocator peak '
+                         'and argument bytes; pair with --metrics)')
     ap.add_argument('--cpu', action='store_true',
                     help='run on the CPU (the plain PyTorch path)')
     for flag, item in UNPORTED_FLAGS.items():
@@ -89,6 +96,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, flag[2:].replace('-', '_')) is not None:
             ap.error(f'{flag}: its machinery is not ported ({item})')
+    if args.cost_record and args.cpu:
+        ap.error('--cost-record needs a card: the record is the allocator '
+                 'peak of a training step, and the CPU has none')
     if args.guarded:
         if not args.ckpt_dir:
             ap.error('--guarded needs --ckpt-dir (the rollback target and '
@@ -116,12 +126,17 @@ def _train_dataset(trainer, args, ckpt, logger):
             args.steps, batch_source=stream, checkpoint_manager=ckpt,
             checkpoint_every=args.ckpt_every,
             log=lambda msg: logger.log(trainer.step_count, msg=msg),
-            metric_logger=logger if cfg.telemetry else None)
+            metric_logger=logger if (cfg.telemetry or cfg.cost_record)
+            else None)
     history = []
     for i in range(args.steps):
         with trainer._phase('data'):
             batch = next(stream)
         loss = trainer.train_step(batch)
+        if i == 0:
+            # this loop drives train_step itself: the trainer's first-step
+            # hook never runs
+            trainer._maybe_cost_record(batch, logger, history)
         if cfg.telemetry:
             # no per-step host sync: the metrics flush per interval
             if (i + 1) % cfg.flush_every == 0:
@@ -148,7 +163,8 @@ def main(argv=None):
                         telemetry=args.telemetry,
                         flush_every=args.flush_every,
                         pipeline=args.pipelined,
-                        prefetch_depth=args.prefetch_depth)
+                        prefetch_depth=args.prefetch_depth,
+                        cost_record=args.cost_record)
     trainer = DenoiseTrainer(cfg, device='cpu' if args.cpu else 'cuda')
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     run_meta = dict(tool='denoise', config=dataclasses.asdict(cfg))
@@ -177,7 +193,9 @@ def main(argv=None):
                                                trainer.opt_state,
                                                trainer.step_count)))
             print(f'resumed from step {trainer.step_count}')
-        metric_logger = logger if cfg.telemetry else None
+        # the cost record rides the stream too, telemetry or not
+        metric_logger = logger if (cfg.telemetry or cfg.cost_record) \
+            else None
         if args.dataset:
             history = _train_dataset(trainer, args, ckpt, logger)
         else:

@@ -126,7 +126,6 @@ UNPORTED_FIELDS = {
     'tensor_parallel': 'ROADMAP A7 (parallelism)',
     'fsdp': 'ROADMAP A7 (parallelism)',
     'composed': 'ROADMAP A7 (parallelism)',
-    'cost_record': 'ROADMAP A8 (fleet and observability)',
 }
 
 
@@ -144,8 +143,11 @@ class DenoiseConfig:
     noise_scale is carried as JAX carries it: neither package's loss reads
     it (the coordinate noise is standard normal).
 
-    use_mesh, tensor_parallel, fsdp and composed (ROADMAP A7) and
-    cost_record (ROADMAP A8) refuse any value but their defaults.
+    use_mesh, tensor_parallel, fsdp and composed (ROADMAP A7) refuse any
+    value but their defaults. cost_record writes one `cost` record of a
+    warm training step after the first step of train() / train_pipelined()
+    (DenoiseTrainer.cost_record; on a card only: the CPU has no allocator
+    peak, and a failed record warns and never stops the run).
     donate_batch is accepted and changes nothing: JAX donates the batch's
     device buffers to the jitted step so that XLA may reuse them; the
     port's step holds no reference to a batch past the call, so the
@@ -444,6 +446,64 @@ class DenoiseTrainer:
         return micro_losses.mean()
 
     # ------------------------------------------------------------------ #
+    # the cost ledger (observability.costs)
+    # ------------------------------------------------------------------ #
+    def cost_record(self, batch, metric_logger=None) -> dict:
+        """The `cost` record of one training step on `batch`: the
+        allocator's peak over one step, the argument bytes of the
+        parameters, the optimizer state and the batch (step_cost_payload).
+        The step runs on a snapshot: the parameters, the optimizer state,
+        the noise generator, the telemetry accumulator and the step count
+        are put back after it, so that training goes on as if it had not
+        run. Writes the record through `metric_logger` when given; returns
+        its fields either way. Needs a card."""
+        from ..observability.costs import step_cost_payload
+        batch = self.to_device(batch)
+        if not self._initialized:
+            self.init(batch if self.accum_steps == 1
+                      else {k: v[0] for k, v in batch.items()})
+
+        def host(tree):
+            return torch.utils._pytree.tree_map(
+                lambda t: t.detach().to('cpu', copy=True)
+                if isinstance(t, torch.Tensor) else t, tree)
+        params, opt_state = host(self.params), host(self.opt_state)
+        kept = (self.generator.get_state(), self.metric_acc,
+                self.step_count, self.last_micro_losses)
+        try:
+            fields = step_cost_payload(
+                lambda: self._step(batch, None),
+                label=self._telemetry_label()
+                if self.cfg is not None else 'denoise_step',
+                state=[*self.model.parameters(), *[
+                    t for st in self.optimizer.state.values()
+                    for t in st.values() if isinstance(t, torch.Tensor)]],
+                batch=batch.values(), device=self.device)
+        finally:
+            self.model.load_state_dict(params)
+            self.optimizer.load_state_dict(opt_state)
+            (state, self.metric_acc, self.step_count,
+             self.last_micro_losses) = kept
+            self.generator.set_state(state)
+        if metric_logger is not None:
+            return metric_logger.log_record('cost', mirror=False, **fields)
+        return dict(fields, kind='cost')
+
+    def _maybe_cost_record(self, batch, metric_logger, history):
+        """The first-step hook of train / train_pipelined (JAX's): with
+        cfg.cost_record, one cost_record of `batch` into `history`. A
+        failed record warns and never stops the run."""
+        if not self.cfg.cost_record:
+            return
+        try:
+            history.append(self.cost_record(batch, metric_logger))
+        except Exception as e:  # noqa: BLE001 - the ledger never costs the
+            # training run
+            import warnings
+            warnings.warn(f'cost record failed ({type(e).__name__}: {e})',
+                          stacklevel=2)
+
+    # ------------------------------------------------------------------ #
     # the DenoiseConfig form's batches and loops
     # ------------------------------------------------------------------ #
     def _config(self) -> DenoiseConfig:
@@ -600,6 +660,9 @@ class DenoiseTrainer:
             with self._phase('data'):
                 batch = self.micro_batches()
             loss = self.train_step(batch)
+            if i == 0:
+                # after the first step: the record's step is warm
+                self._maybe_cost_record(batch, metric_logger, history)
             if (checkpoint_manager is not None and checkpoint_every > 0
                     and self.step_count % checkpoint_every == 0):
                 with self._phase('checkpoint'):
@@ -645,6 +708,8 @@ class DenoiseTrainer:
                                       phase_timer=self.phase_timer)
             for i, batch in enumerate(itertools.islice(batches, num_steps)):
                 loss = self.train_step(batch)
+                if i == 0:
+                    self._maybe_cost_record(batch, metric_logger, history)
                 if (checkpoint_manager is not None and checkpoint_every > 0
                         and self.step_count % checkpoint_every == 0):
                     with self._phase('checkpoint'):

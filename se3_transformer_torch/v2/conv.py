@@ -24,8 +24,9 @@ or 2 (the -m, +m rows), the arms kernels.pairwise built for this family.
 The band is assembled as neg[::-1] + [center] + pos, zero-padded to 2
 d_out + 1 rows, and rotated out of the edge frame.
 
-With edge_chunks=None the layer runs unchunked: the JAX package asks its
-'so2' tuning kind, whose heuristic answers 1 here (so2/contract.py). The
+With edge_chunks=None the node-axis chunk count is the 'so2' pick of
+kernels.tuning (so2.contract.pick_so2_chunks, keyed as JAX's layer keys
+it), whose heuristic answers 1: unchunked. The
 JAX layer tags its outputs checkpoint_name(..., 'conv_out') for a remat
 trunk; V2 has no remat trunk, so nothing here needs the tag.
 """
@@ -40,6 +41,7 @@ from ..ops.conv import _radial_contract, add_radial_trunk, radial_hidden
 from ..ops.core import LinearSE3, residual_se3
 from ..ops.fiber import Fiber
 from ..quant.qtensor import concat_weights
+from ..so2.contract import pick_so2_chunks
 from ..so2.frames import Frames, rotate_in, rotate_out
 from ..utils.helpers import batched_index_select, masked_mean
 
@@ -135,6 +137,20 @@ class V2ConvSE3(nn.Module):
             inp[str(d)], neighbor_indices, dim=1), frames, d)
             for d, _ in self.fiber_in}                # [b, n, k, c, 2d+1]
 
+        # node-axis streaming rides _radial_contract's edge_chunks and
+        # shares the so2 pick (one tuner knob for both families)
+        chunks = self.edge_chunks
+        if chunks is None:
+            shape = (rel_dist.shape[1], max(c for _, c in self.fiber_in),
+                     max(c for _, c in self.fiber_out),
+                     max(d for d, _ in self.fiber_in),
+                     max(d for d, _ in self.fiber_out),
+                     -1 if self.max_m is None else int(self.max_m))
+            chunks = pick_so2_chunks(
+                shape, str(rel_dist.dtype).replace('torch.', ''),
+                rel_dist.device)
+            chunks = None if chunks <= 1 else chunks
+
         outputs = {}
         for d_out, _ in self.fiber_out:
             M = self.band_order(d_out)
@@ -156,7 +172,7 @@ class V2ConvSE3(nn.Module):
                                     (rows_neg, rows_pos) if r], dim=-2)
                 out_m = _radial_contract(
                     hidden, concat_weights(wms, axis=1), torch.cat(bms, dim=0),
-                    v2_m, self.edge_chunks, self.conv_bf16,
+                    v2_m, chunks, self.conv_bf16,
                     self.pallas)                       # [..., rows, O]
                 if m == 0:
                     center = out_m[..., 0, :]

@@ -393,7 +393,7 @@ def test_cli_guarded_exit_codes_and_stream(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('argv,message', [
-    (['--cost-record'], 'ROADMAP A8'), (['--mesh'], 'ROADMAP A7'),
+    (['--cost-record', '--cpu'], 'needs a card'), (['--mesh'], 'ROADMAP A7'),
     (['--guarded'], 'needs --ckpt-dir'),
     (['--guarded', '--ckpt-dir', 'd', '--dataset', 'x.npz'],
      'per-step-index')])

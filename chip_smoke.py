@@ -118,7 +118,32 @@ failure:
               share (`serve_stream` lines).
   serve_cli   `python -m se3_transformer_torch.inference.serve` at its
               defaults in a subprocess: exit 0, a schema-valid stream, no
-              one-time work after warmup (`serve_cli` line).
+              one-time work after warmup (`serve_cli` line); the same
+              entry with `--replicas 2 --async-dispatch --swap-at 4`
+              (exit 0, a swap on both replicas; `serve_cli_multi` line);
+              both arms of `python -m se3_transformer_torch.serving.chaos`
+              (the clean arm exits 0, `--weaken drop` exits 1; `chaos`
+              lines); these three run at once.
+  serve_multi  flagship_fast (dim 64, DEPTH, seeded and conditioned) at
+              buckets (512, 1024), batch 1, as replicas behind
+              serving.Router, each over its own copy of the module, one
+              shared PhaseTimer, RouterTelemetry writing JSONL: the same
+              MULTI_REQUESTS-request stream (and one oversize request)
+              through one replica, two sync replicas, two async replicas
+              (each on its own dispatch thread and CUDA stream), and two
+              async replicas with a rolling swap to a second seeded state
+              after MULTI_SWAP_AT admitted requests, as many requests in
+              flight as replicas. Every answer equal to the request alone
+              through one engine on the state in effect; no one-time work
+              after warmup; a schema-valid stream; the serve path's
+              launches per batch, nothing routed; each replica's swap
+              under half its parameter bytes of peak growth; replica 1's
+              weights bit for bit the old ones after replica 0's swap.
+              Prints requests/s, per-bucket p50/p95/p99 of the forward,
+              request latency, served rows per replica, warmup seconds and
+              peak bytes per replica, the swap's wall time and a profiled
+              async pair's device busy (union of the two streams) and idle
+              share (`serve_multi` lines).
   global serve  the assembly model (attention_mode='global', seeded and
               conditioned weights), untied and with tie_key_values, served
               by InferenceEngine at bucket 4096 with return_type=1 on
@@ -2715,16 +2740,12 @@ def phase_serve_cli():
     with tempfile.TemporaryDirectory(prefix='serve_cli') as tmp:
         metrics, out = (os.path.join(tmp, f) for f in ('serve.jsonl',
                                                        'report.json'))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, '-m', 'se3_transformer_torch.inference.serve',
-             '--metrics', metrics, '--out', out], cwd=HERE,
-            capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f'serve entry point exited '
-                                 f'{proc.returncode}:\n{proc.stdout[-3000:]}'
-                                 f'\n{proc.stderr[-3000:]}')
+        (rc, wall, stdout, stderr), = run_modules(
+            [['se3_transformer_torch.inference.serve', '--metrics', metrics,
+              '--out', out]], 600, tmp)
+        if rc != 0:
+            raise AssertionError(f'serve entry point exited {rc}:\n'
+                                 f'{stdout[-3000:]}\n{stderr[-3000:]}')
         with open(out) as f:
             report = json.load(f)
         info = validate_stream(metrics)
@@ -2732,6 +2753,355 @@ def phase_serve_cli():
         wall_s=wall, schema=info['kinds'], **report)))
     if not report['ok'] or report['post_warmup_compiles']:
         raise AssertionError(f'serve entry point: {report}')
+
+
+def run_modules(runs, timeout, tmp):
+    """`python -m <args>` from the checkout for each of `runs`, all started
+    at once, their output to files in `tmp`: a list of (exit code, wall
+    seconds, stdout, stderr). A run past `timeout` is killed, and every
+    process is gone when this returns."""
+    procs = []
+    try:
+        for k, args in enumerate(runs):
+            out = open(os.path.join(tmp, f'run{k}.out'), 'w+')
+            err = open(os.path.join(tmp, f'run{k}.err'), 'w+')
+            procs.append((subprocess.Popen(
+                [sys.executable, '-m', *args], cwd=HERE, stdout=out,
+                stderr=err, text=True), time.perf_counter(), out, err))
+        results = []
+        for proc, t0, out, err in procs:
+            rc = proc.wait(timeout=max(1.0, t0 + timeout
+                                       - time.perf_counter()))
+            wall = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            results.append((rc, wall, out.read(), err.read()))
+        return results
+    finally:
+        for proc, _, out, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+
+
+def phase_serve_multi_cli(smi):
+    """The multi-replica entry and the chaos harness on the card, as three
+    subprocesses run at once (gates, not timings): `python -m
+    se3_transformer_torch.inference.serve --replicas 2 --async-dispatch
+    --swap-at 4` exits 0 with a swap on both replicas and a schema-valid
+    stream; `python -m se3_transformer_torch.serving.chaos` exits 0 and
+    with `--weaken drop` exits 1."""
+    import tempfile
+    from se3_transformer_torch.observability.schema import validate_stream
+    with tempfile.TemporaryDirectory(prefix='serve_multi_cli') as tmp:
+        metrics, out = (os.path.join(tmp, f) for f in ('serve.jsonl',
+                                                       'report.json'))
+        arms = (('none', 0), ('drop', 1))
+        chaos = {weaken: (os.path.join(tmp, f'chaos_{weaken}.json'),
+                          os.path.join(tmp, f'chaos_{weaken}.jsonl'))
+                 for weaken, _ in arms}
+        results = run_modules(
+            [['se3_transformer_torch.inference.serve', '--replicas', '2',
+              '--async-dispatch', '--swap-at', '4', '--metrics', metrics,
+              '--out', out]]
+            + [['se3_transformer_torch.serving.chaos', '--weaken', weaken,
+                '--metrics', chaos[weaken][1], '--out', chaos[weaken][0]]
+               for weaken, _ in arms], 600, tmp)
+        rc, wall, stdout, stderr = results[0]
+        if rc != 0:
+            raise AssertionError(f'serve --replicas 2 exited {rc}:\n'
+                                 f'{stdout[-3000:]}\n{stderr[-3000:]}')
+        with open(out) as f:
+            report = json.load(f)
+        info = validate_stream(metrics)
+        log('serve_cli_multi', json.dumps(dict(
+            card=smi, wall_s=wall, schema=info['kinds'],
+            **{k: report[k] for k in (
+                'ok', 'replicas', 'async_dispatch', 'precision_mixes',
+                'requests', 'batches', 'continuous_admissions', 'swaps',
+                'post_warmup_compiles', 'per_replica', 'latency_by_bucket',
+                'request_latency_ms')})))
+        if not report['ok'] or report['swaps']['count'] != 2 or \
+                report['post_warmup_compiles']:
+            raise AssertionError(f'serve --replicas 2: {report}')
+        for (weaken, want), (rc, wall, stdout, stderr) in zip(
+                arms, results[1:]):
+            out, metrics = chaos[weaken]
+            report = {}
+            if os.path.exists(out):
+                with open(out) as f:
+                    report = json.load(f)
+            log('chaos', json.dumps(dict(
+                card=smi, weaken=weaken, rc=rc, wall_s=wall,
+                **{k: report.get(k) for k in (
+                    'device', 'requests', 'injections', 'recoveries',
+                    'retries', 'request_failures', 'timeouts', 'swap_tag',
+                    'post_warmup_compiles', 'batches',
+                    'request_latency_ms')})))
+            if rc != want or report.get('device', '').split(':')[0] != \
+                    'cuda':
+                raise AssertionError(f'chaos --weaken {weaken} exited {rc} '
+                                     f'(want {want}):\n{stdout[-3000:]}\n'
+                                     f'{stderr[-3000:]}')
+            if weaken == 'none':
+                validate_stream(metrics)
+
+
+# serve_multi: flagship_fast replicas behind the router on the one card
+MULTI_BUCKETS = (512, 1024)
+MULTI_REQUESTS = 24
+MULTI_SWAP_AT = 12
+MULTI_WAIT_MS = 20.0
+
+
+def union_busy_ms(prof):
+    """The device's busy time of a profile: the union of its device events'
+    intervals (two streams' overlapping kernels count once), and the plain
+    sum of their exclusive times."""
+    from se3_transformer_torch.observability import profiling
+    events, selector, _ = profiling.device_events(prof)
+    if selector != 'device':
+        raise AssertionError(f'profile: the device time reads {selector}')
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3, prof_busy_ms(prof)
+
+
+def phase_serve_multi(st, want, smi):
+    """flagship_fast replicas behind serving.Router on the one card (the
+    docstring's serve_multi). `want` is the serve path's launches per batch
+    (COUNT_NAMES order). Returns the launches of the whole phase."""
+    import copy
+    import tempfile
+    from se3_transformer_torch import inference as inf
+    from se3_transformer_torch.observability import MetricLogger, PhaseTimer
+    from se3_transformer_torch.observability.schema import validate_stream
+    from se3_transformer_torch.serving import (
+        ReplicaWorker, Router, RouterTelemetry,
+    )
+    from se3_transformer_torch.utils.helpers import ONE_TIME_WORK
+    tmp = tempfile.TemporaryDirectory(prefix='serve_multi')
+    reset_counts()
+
+    def host_model(seed):
+        return condition_weights(st.flagship_fast(
+            dim=64, depth=DEPTH, device='cpu',
+            generator=torch.Generator().manual_seed(seed)))
+    host = host_model(0)
+    state1 = {k: v.clone() for k, v in host.state_dict().items()}
+    state2 = {k: v.clone() for k, v in host_model(1).state_dict().items()}
+    timer = PhaseTimer()
+    engines, warm = [], []
+    for i in range(2):
+        # one after another, each over its own copy of the module
+        t0 = time.perf_counter()
+        engine = st.InferenceEngine(copy.deepcopy(host),
+                                    buckets=MULTI_BUCKETS, batch_size=1,
+                                    timer=timer)
+        stats = engine.stats()
+        warm.append(dict(replica=i, seconds=time.perf_counter() - t0,
+                         bucket_s=stats['compile_seconds'],
+                         peak_bytes=stats['peak_hbm_by_bucket']))
+        engines.append(engine)
+    reference = st.InferenceEngine(copy.deepcopy(host),
+                                   buckets=MULTI_BUCKETS, batch_size=1)
+    param_bytes = weight_bytes(engines[0].module, 'cuda')
+    rng = np.random.RandomState(26)
+    lengths = stream_lengths(rng, MULTI_BUCKETS, MULTI_REQUESTS)
+    requests = [(rng.normal(size=(n, 64)).astype(np.float32),
+                 chain_coords(rng, n)) for n in lengths]
+    in_range = [i for i, n in enumerate(lengths) if n <= MULTI_BUCKETS[-1]]
+    alone1 = {i: reference.predict(*requests[i]) for i in in_range}
+    reference.params = state2
+    alone2 = {i: reference.predict(*requests[i])
+              for i in in_range[MULTI_SWAP_AT:]}
+    del reference
+    events0 = ONE_TIME_WORK[0]
+
+    def rolling_swap(router, sink):
+        """Drain the router (so that the peak-memory reading is the swap's
+        own), then the rolling swap to state2, each replica's swap
+        measured; before replica 1's swap, its weights must still be
+        state1 bit for bit while replica 0's are state2."""
+        router.drain()
+        for w in router.workers:
+            orig = w.swap_weights
+
+            def measured(params, _w=w, _orig=orig):
+                sibling = {}
+                if _w.id == 1:
+                    sibling = dict(
+                        replica1_still_old=all(
+                            torch.equal(v.cpu(), state1[k])
+                            for k, v in _w.engine.params.items()),
+                        replica0_new=all(
+                            torch.equal(v.cpu(), state2[k])
+                            for k, v in router.workers[0].engine.params
+                            .items()))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                allocated = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                event = _orig(params)
+                torch.cuda.synchronize()
+                sink.append(dict(
+                    replica=_w.id, seconds=time.perf_counter() - t0,
+                    peak_growth_bytes=torch.cuda.max_memory_allocated()
+                    - allocated, **sibling))
+                return event
+            w.swap_weights = measured
+        t0 = time.perf_counter()
+        router.swap_weights(state2, tag='seed_1')
+        return time.perf_counter() - t0
+
+    lines, failures = [], []
+    runs = (('1 replica', 1, False, False), ('2 sync', 2, False, False),
+            ('2 async', 2, True, False), ('2 async + swap', 2, True, True))
+    for label, n, async_dispatch, swap in runs:
+        run_timer = PhaseTimer()
+        for e in engines:
+            e.timer = run_timer
+        workers = [ReplicaWorker(i, engines[i], max_wait_ms=MULTI_WAIT_MS,
+                                 async_dispatch=async_dispatch)
+                   for i in range(n)]
+        admission = inf.AdmissionController(max_len=MULTI_BUCKETS[-1],
+                                            max_queue_depth=64)
+        path = os.path.join(tmp.name, f'run{len(lines)}.jsonl')
+        logger = MetricLogger(path, mirror=None, run_meta=dict(
+            mode='serve_multi', run=label, replicas=n,
+            async_dispatch=async_dispatch, buckets=list(MULTI_BUCKETS),
+            batch_size=1))
+        before, routed_before = counts(), routed()
+        served_before = [w.served_rows for w in workers]
+        pending, rejected, swaps, swap_s = [], [], [], None
+        with Router(workers, admission=admission) as router:
+            tele = RouterTelemetry(router, admission, logger)
+            tele.arm()
+            t_stream = time.perf_counter()
+            for i, (feats, coords) in enumerate(requests):
+                if swap and len(pending) == MULTI_SWAP_AT and \
+                        swap_s is None:
+                    swap_s = rolling_swap(router, swaps)
+                # as many requests in flight as replicas
+                while router.queue_depth >= n:
+                    time.sleep(0.0002)
+                    router.pump()
+                try:
+                    pending.append((router.submit(feats, coords), i))
+                except inf.RequestRejected as e:
+                    rejected.append(e.to_record())
+                    logger.log_record('step', mirror=False, step=i,
+                                      rejected=e.to_record())
+                router.pump()
+            while router.queue_depth:
+                time.sleep(router.next_deadline() or 0.0002)
+                router.pump()
+            stream_s = time.perf_counter() - t_stream
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        routes = tuple(a - b for a, b in zip(routed(), routed_before))
+        batches = router.batches_dispatched
+        tele.flush()
+        summary = tele.close()
+        logger.close()
+        info = validate_stream(path)
+        worst = 0.0
+        for k, (p, i) in enumerate(pending):
+            ref = alone2[i] if swap and k >= MULTI_SWAP_AT else alone1[i]
+            if not p.ok:
+                worst = float('inf')
+                continue
+            worst = max(worst, float(np.abs(ref - p.result).max())
+                        / max(float(np.abs(ref).max()), 1e-30))
+        answered = [p for p, _ in pending if p.ok]
+        lat = [p.latency_s * 1e3 for p in answered]
+        line = dict(
+            card=smi, run=label, replicas=n, async_dispatch=async_dispatch,
+            requests=len(requests), admitted=admission.admitted,
+            answered=len(answered), rejected=rejected, batches=batches,
+            stream_s=stream_s, requests_per_s=len(answered) / stream_s,
+            forward_ms_by_bucket={
+                k: {q: v[q] for q in ('count', 'p50_ms', 'p95_ms',
+                                      'p99_ms', 'max_ms')}
+                for k, v in summary['timing'].items()},
+            request_latency_ms=dict(
+                p50=float(np.percentile(lat, 50)),
+                p95=float(np.percentile(lat, 95)),
+                p99=float(np.percentile(lat, 99)), max=max(lat)),
+            served_rows={str(w.id): w.served_rows - served_before[w.id]
+                         for w in router.workers},
+            batches_by_replica={str(w.id): w.batcher.batches_dispatched
+                                for w in router.workers},
+            continuous_admissions=router.continuous_admissions,
+            launches_per_batch=tuple(x // max(batches, 1) for x in launched),
+            routed=routes, post_warmup_compiles=tele.post_warmup_compiles,
+            schema=info['kinds'], max_rel_err_vs_alone=worst,
+            rtol=REF_RTOL_F32)
+        if swap:
+            line.update(swap_s=swap_s, swaps=swaps, param_bytes=param_bytes)
+        log('serve_multi', json.dumps(line))
+        lines.append(line)
+        if len(rejected) != 1 or rejected[0]['code'] != 'oversize' or \
+                len(answered) != len(pending) or \
+                len(pending) != len(requests) - 1:
+            failures.append(f'{label}: {len(answered)} of {len(pending)} '
+                            f'admitted answered, rejected {rejected}')
+        if launched != tuple(w * batches for w in want) or \
+                routes != NO_ROUTES:
+            failures.append(f'{label}: launches {launched} for {batches} '
+                            f'batches of {want}; routed {routes}')
+        if tele.post_warmup_compiles:
+            failures.append(f'{label}: one-time work after warmup')
+        if not worst <= REF_RTOL_F32:
+            failures.append(f'{label}: routed answers vs alone {worst}')
+        if swap and (len(swaps) != 2 or any(
+                x['peak_growth_bytes'] >= param_bytes / 2 for x in swaps)
+                or not swaps[1].get('replica1_still_old')
+                or not swaps[1].get('replica0_new')):
+            failures.append(f'{label}: swaps {swaps}, param bytes '
+                            f'{param_bytes}')
+    # where the async pair's time goes: one 1024 request on each replica
+    # at once, under the profiler
+    big = [requests[i] for i in in_range
+           if lengths[i] > MULTI_BUCKETS[0]][:2]
+    workers = [ReplicaWorker(i, engines[i], async_dispatch=True)
+               for i in range(2)]
+    with Router(workers) as router:
+        def pair():
+            for feats, coords in big:
+                router.submit(feats, coords)
+            router.drain()
+        pair()
+        prof = profile_call(pair)
+    union_ms, summed_ms = union_busy_ms(prof)
+    late = ONE_TIME_WORK[0] - events0
+    log('serve_multi', json.dumps(dict(
+        card=smi, warmup=warm, param_bytes=param_bytes,
+        profiled_async_pair=dict(
+            bucket=MULTI_BUCKETS[-1], wall_ms=prof.wall_ms,
+            device_busy_ms=union_ms, device_kernel_sum_ms=summed_ms,
+            idle_share=1 - union_ms / prof.wall_ms,
+            overlap=summed_ms / union_ms),
+        throughput_vs_one_replica={
+            x['run']: x['requests_per_s'] / lines[0]['requests_per_s']
+            for x in lines},
+        one_time_events_after_warmup=late)))
+    if late:
+        failures.append(f'one-time work after the warmups: {late}')
+    if failures:
+        raise AssertionError('serve_multi: ' + '; '.join(failures))
+    del engines
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    return counts()
 
 
 # the messages of the last count_host_syncs call's synchronizing ops
@@ -4731,7 +5101,11 @@ def main() -> int:
         'flagship_fast': launches(bxf=4 + REPLAY_LAUNCHES + 4),
         'af2_refinement': launches(fwd=AF2_LAUNCHES, fwd_n=AF2_NARROW)})))
     phase_serve_cli()
+    phase_serve_multi_cli(smi)
     tick('serve_cli')
+    # the router over flagship_fast replicas on the one card
+    paths.append(not_routed('serve_multi', phase_serve_multi(
+        st, launches(bxf=4 + REPLAY_LAUNCHES + 4), smi)))
     paths += [
         # the assembly model: one 7g launch per output degree (2), untied
         # and tied

@@ -21,10 +21,14 @@ these sites:
     (`BatchProducer(fault_injector=...)`: exception plans exercise the
     retry and skip path), and `emergency_save` fires on the preemption
     handler's save path (a dying emergency writer must still exit
-    resumable).
+    resumable);
+  * `replica_dispatch`: `serving.ReplicaWorker(fault_injector=...)` fires
+    it before every engine run of a replica's batch (ctx: replica,
+    bucket): an exception plan walks the path a real replica failure
+    walks (the router's health breaker, retry and redispatch).
 
-JAX's serving fleet fires `replica_dispatch` and `transport` too; the port
-has no fleet yet (ROADMAP A8), and a plan on any site name is accepted.
+JAX's cross-host fleet fires `transport` too; that comes with ROADMAP A8.2,
+and a plan on any site name is accepted.
 
 Fault kinds:
 

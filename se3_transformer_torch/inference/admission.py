@@ -20,8 +20,7 @@ engine, is at fault.
 
 `RequestFailed` is the terminal sibling for requests that were admitted
 but could not be answered (retry budget spent, or a deadline expired
-while queued); the multi-replica router that raises it comes with
-ROADMAP A8.
+while queued); the multi-replica router (serving.Router) raises it.
 """
 from __future__ import annotations
 

@@ -17,8 +17,14 @@ batcher is synchronous and single-threaded: `submit()` enqueues and
 returns a `PendingResult`, the serve loop calls `pump()` between accepts
 and `drain()` at the end; the clock is injectable. A request is
 integer tokens [n] (a num_tokens model) or features [n, d], with
-coordinates [n, 3]. The multi-replica router's hooks (retries, deadlines,
-request tracing) come with ROADMAP A8.
+coordinates [n, 3].
+
+`dispatch_batch` is the dispatch body that the `MicroBatcher` and the
+multi-replica `serving.ContinuousBatcher` share; its `on_success` /
+`on_failure` hooks and `PendingResult`'s `deadline` / `attempts` are what
+the router's health breakers, retries and deadlines ride on. JAX's
+request tracing (its `tracer` argument and `PendingResult.trace`) comes
+with ROADMAP A8.2.
 """
 from __future__ import annotations
 
@@ -35,14 +41,22 @@ from .stats import agg_update, agg_zero
 
 class PendingResult:
     """Future-lite: filled in by the flush that dispatches the request.
-    `done=True` with `error` set means the request failed: its batch's
-    runner raised (`ok` tells them apart)."""
+    `done=True` with `error` set means the request terminally failed: its
+    batch's runner raised (and any retry budget is spent), or its deadline
+    expired while queued (`ok` tells them apart; the error is the runner's
+    exception or a structured `RequestFailed`).
+
+    `deadline` (absolute, on the clock of `submitted_at`; None: no
+    timeout) carries the caller's `timeout_s` through every queue and
+    redispatch; `attempts` counts the dispatches that failed under this
+    request (the router's retry budget)."""
 
     __slots__ = ('request_id', 'length', 'bucket', 'result', 'done',
-                 'error', 'submitted_at', 'completed_at')
+                 'error', 'submitted_at', 'completed_at', 'deadline',
+                 'attempts')
 
     def __init__(self, request_id, length: int, bucket: int,
-                 submitted_at: float):
+                 submitted_at: float, deadline: Optional[float] = None):
         self.request_id = request_id
         self.length = length
         self.bucket = bucket
@@ -51,6 +65,8 @@ class PendingResult:
         self.error: Optional[BaseException] = None
         self.submitted_at = submitted_at
         self.completed_at: Optional[float] = None
+        self.deadline = deadline
+        self.attempts = 0
 
     @property
     def ok(self) -> bool:
@@ -61,6 +77,9 @@ class PendingResult:
         if self.completed_at is None:
             return None
         return self.completed_at - self.submitted_at
+
+    def expired(self, now: float) -> bool:
+        return self.deadline is not None and now >= self.deadline
 
 
 def _host(out) -> np.ndarray:
@@ -75,16 +94,30 @@ def dispatch_batch(runner, bucket: int, batch_size: int, tokens, coords,
                    pending: List[PendingResult],
                    completed: List[PendingResult],
                    completed_capacity: int,
-                   clock: Callable[[], float]) -> None:
+                   clock: Callable[[], float],
+                   on_success: Optional[Callable[[int], None]] = None,
+                   on_failure: Optional[Callable] = None) -> None:
     """Pad, run, resolve: pads with `pad_to_bucket`, slices each result
     back to its request's true rows, and on a raising runner resolves
     every request of the batch done-with-error (no submitter waits
-    forever) before re-raising."""
+    forever) before re-raising.
+
+    `on_success(rows)` and `on_failure(bucket, tokens, coords, pending,
+    exc) -> bool` are the router's hooks: a success feeds the replica's
+    health breaker; a failure handler that returns True takes ownership of
+    the batch's requests (the router's retry queue redispatches or fails
+    each one), and the function then neither resolves them nor re-raises.
+    The hooks get the original per-request arrays, not the padded batch,
+    so a redispatch pads again for its new slot."""
+    raw_tokens, raw_coords = list(tokens), list(coords)
     tokens, coords, mask = pad_to_bucket(tokens, coords, bucket,
                                          batch_size=batch_size)
     try:
         out = _host(runner(bucket, tokens, coords, mask))
     except Exception as e:
+        if on_failure is not None and \
+                on_failure(bucket, raw_tokens, raw_coords, pending, e):
+            return      # taken over by the retry path
         now = clock()
         for p in pending:
             p.error = e
@@ -104,6 +137,8 @@ def dispatch_batch(runner, bucket: int, batch_size: int, tokens, coords,
         completed.append(p)
     if len(completed) > completed_capacity:
         del completed[:-completed_capacity]
+    if on_success is not None:
+        on_success(len(pending))
 
 
 class _BucketQueue:

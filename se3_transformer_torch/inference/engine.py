@@ -60,6 +60,7 @@ consults of the warmup that built them.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional, Sequence, Set, Tuple
 
@@ -381,25 +382,37 @@ class InferenceEngine:
     def max_len(self) -> int:
         return self.buckets[-1]
 
-    def run(self, bucket: int, feats, coords, mask) -> torch.Tensor:
+    def run(self, bucket: int, feats, coords, mask,
+            stream: Optional['torch.cuda.Stream'] = None) -> torch.Tensor:
         """One padded batch: feats [B, bucket, d] (or tokens [B, bucket]),
         coords [B, bucket, 3], mask [B, bucket] -> the module's output of
         degree `return_type` on the engine's device, float32. Returns after
         the device has finished; the bucket's phase times the forward and
         that synchronize (the inputs are placed before it). The
-        fault injector's `engine_run` site fires first."""
+        fault injector's `engine_run` site fires first.
+
+        `stream` (a torch.cuda.Stream on the engine's card; a serving
+        replica's own) runs the placement and the forward on that stream
+        and ends the phase in that stream's synchronize alone, so that the
+        time recorded leaves out the work of replicas on other streams;
+        None runs on the caller's current stream and ends in a device
+        synchronize."""
         if self.fault_injector is not None:
             self.fault_injector.fire('engine_run', bucket=int(bucket))
         if bucket not in self.buckets:
             raise ValueError(f'{bucket} is not a configured bucket')
         if self._key(bucket) not in self._executables:
             self.compile_bucket(bucket)
-        inputs = self._place(bucket, feats, coords, mask)
-        with self.timer.phase(bucket_phase(bucket), device=self.device):
-            out = self._forward(bucket, *inputs)
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            inputs = self._place(bucket, feats, coords, mask)
+            with self.timer.phase(bucket_phase(bucket), device=self.device,
+                                  stream=stream):
+                out = self._forward(bucket, *inputs)
+            out = out.float()
         self.batches_served[bucket] += 1
         self.rows_served[bucket] += int(np.asarray(mask).any(-1).sum())
-        return out.float()
+        return out
 
     def predict(self, feats, coords) -> np.ndarray:
         """One request end to end: pad to the smallest fitting bucket, run,

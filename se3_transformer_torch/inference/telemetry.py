@@ -15,8 +15,8 @@ It composes the observability primitives:
     completed results) fold into mergeable per-bucket histograms and
     window-shaped metrics, batch fill into the end-of-run `summary`.
 
-`ServeTelemetryBase` holds the record assembly that JAX shares with its
-multi-replica router telemetry (ROADMAP A8).
+`ServeTelemetryBase` holds the record assembly that this emitter shares
+with the multi-replica router's (serving.RouterTelemetry).
 """
 from __future__ import annotations
 

@@ -23,8 +23,8 @@ se3_transformer_tpu/observability.
   * `slo`: mergeable fixed-boundary latency histograms.
 
 What JAX's package has beyond this (tracing, the SLO aggregator, the comm
-and fleet summaries) comes with the parallel package and the fleet
-(ROADMAP A7, A8).
+and fleet summaries) comes with the parallel package and the cross-host
+fleet (ROADMAP A7, A8.2).
 """
 from .costs import cost_payload, step_cost_payload  # noqa: F401
 from .metrics import (  # noqa: F401

@@ -13,7 +13,7 @@ Two input species, one output shape:
     beside it.
 
 The comm and fleet summaries come with the parallel package and the
-fleet (ROADMAP A7, A8). Pure Python: reading and summarizing touch no
+cross-host fleet (ROADMAP A7, A8.2). Pure Python: reading and summarizing touch no
 device; only write_record_stream reads the live process's metadata.
 """
 from __future__ import annotations

@@ -31,7 +31,12 @@ A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
                    post_warmup_compiles (REQUIRED: the zero
                    one-time-work-after-warmup contract rides this field),
                    optional latency_hist (mergeable per-bucket histograms,
-                   validated when present).
+                   validated when present). A router's records
+                   (serving.RouterTelemetry) add, validated when present:
+                   replicas (per replica id {depth, ...}), swaps {count,
+                   events}, continuous_admissions, model_families, the
+                   retries / request_failures / timeouts / deadline_sheds
+                   counters and health (per replica id {state, ...}).
   cost             one per warmed bucket (observability.costs.cost_payload):
                    label, flops / bytes_accessed with the load-bearing
                    `source` (cost_analysis / hlo_estimate / unavailable),
@@ -47,6 +52,16 @@ A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
                    device_time_ms and the load-bearing coverage (the
                    attributed share, in [0, 1]); optional roofline,
                    unattributed_top, steps, tracks.
+  fault            one per chaos or serving run of the router
+                   (serving.RouterTelemetry.fault_flush, exercised by
+                   serving/chaos.py): injections (the seeded
+                   FaultInjector's firing log) and injections_total,
+                   health_transitions (per-replica breaker moves) and
+                   recoveries (quarantine -> live), the retries /
+                   request_failures / timeouts / deadline_sheds counters,
+                   and the load-bearing verdict lost_requests (submits
+                   that resolved neither answered nor with a structured
+                   error: must be 0).
   guard            one per guarded training run (training.guardian): the
                    counters {trips, rollbacks, restarts, skipped_batches,
                    preemptions, injections_total}, cumulative across
@@ -63,8 +78,8 @@ A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
 Every record the port writes validates under the JAX package's schema as
 well (SCHEMA_VERSION is the same). The other kinds of the JAX contract
 come with the slices that write them: comm and mesh_sweep with ROADMAP
-A7; fault, fleet, trace, slo, transport and the serve record's
-multi-replica fields with A8's fleet half; flash, so2_sweep, v2_sweep,
+A7; fleet, trace, slo, transport and the serve record's transport
+section with A8.2; flash, so2_sweep, v2_sweep,
 quant_ab and assembly with the benchmark's A/B records.
 """
 from __future__ import annotations
@@ -76,7 +91,8 @@ from typing import Iterable, Union
 SCHEMA_VERSION = 1
 
 KNOWN_KINDS = ('run_meta', 'step', 'flush', 'retrace_warning', 'pipeline',
-               'serve', 'tune', 'cost', 'profile', 'guard', 'summary')
+               'serve', 'tune', 'cost', 'profile', 'fault', 'guard',
+               'summary')
 
 _REQUIRED = {
     'run_meta': ('run_id', 'schema_version', 'backend', 'code_rev', 'host'),
@@ -103,6 +119,13 @@ _REQUIRED = {
     # cannot say where its numbers came from proves nothing
     'cost': ('run_id', 'label', 'source', 'flops', 'bytes_accessed',
              'memory', 'peak_bytes', 'collectives'),
+    # lost_requests is the load-bearing field of the serving fault domain:
+    # a fault record that cannot say whether every submit resolved
+    # answered or with a structured error proves nothing (and
+    # injections_total 0 proves nothing was exercised)
+    'fault': ('run_id', 'label', 'injections', 'injections_total',
+              'health_transitions', 'recoveries', 'retries',
+              'request_failures', 'timeouts', 'lost_requests'),
     # diverged is the load-bearing field of the training fault domain: a
     # guard record that cannot say whether the run ended on finite,
     # policy-clean parameters proves nothing (and injections_total 0
@@ -125,6 +148,9 @@ _SERVE_TIMING_REQUIRED = _TIMING_REQUIRED + ('p99_ms',)
 _WINDOW_REQUIRED = ('count', 'mean', 'min', 'max')
 _PIPELINE_PREFETCH_REQUIRED = ('depth', 'hits', 'stalls')
 _PIPELINE_VERDICTS = ('producer_bound', 'device_bound', 'balanced')
+_FAULT_COUNTERS = ('injections_total', 'recoveries', 'retries',
+                   'request_failures', 'timeouts', 'lost_requests')
+_HEALTH_STATES = ('healthy', 'degraded', 'quarantined')
 _GUARD_COUNTERS = ('trips', 'rollbacks', 'restarts', 'skipped_batches',
                    'preemptions', 'injections_total')
 
@@ -182,8 +208,91 @@ def _validate_serve(rec, index):
         if missing:
             _fail(index, f'buckets[{bucket!r}] missing {missing} '
                          f'(per-bucket p50/p95/p99 are the SLO surface)')
+    _validate_router_fields(rec, index)
     if 'latency_hist' in rec:
         _validate_latency_hist(rec['latency_hist'], index, 'serve')
+
+
+def _non_negative_int(val) -> bool:
+    return isinstance(val, int) and not isinstance(val, bool) and val >= 0
+
+
+def _validate_model_families(val, index, where):
+    """A list of the model families served: non-empty, of non-empty
+    strings."""
+    if not isinstance(val, list) or not val or any(
+            not isinstance(f, str) or not f for f in val):
+        _fail(index, f'{where} must be a non-empty list of non-empty '
+                     f'strings (model families served), got {val!r}')
+
+
+def _validate_router_fields(rec, index):
+    """The serve record's multi-replica fields (serving.RouterTelemetry):
+    optional, validated when present."""
+    if 'continuous_admissions' in rec and \
+            not _non_negative_int(rec['continuous_admissions']):
+        _fail(index, f'serve.continuous_admissions must be a non-negative '
+                     f'int, got {rec["continuous_admissions"]!r}')
+    if 'replicas' in rec:
+        replicas = rec['replicas']
+        if not isinstance(replicas, dict):
+            _fail(index, 'serve.replicas must be an object (replica id -> '
+                         'snapshot)')
+        for rid, snap in replicas.items():
+            if not isinstance(snap, dict) or 'depth' not in snap:
+                _fail(index, f'replicas[{rid!r}] must carry depth '
+                             f'(per-replica depth is the load surface)')
+            if 'model_family' in snap and (
+                    not isinstance(snap['model_family'], str)
+                    or not snap['model_family']):
+                _fail(index, f'replicas[{rid!r}].model_family must be a '
+                             f'non-empty string, got '
+                             f'{snap["model_family"]!r}')
+    if 'model_families' in rec:
+        _validate_model_families(rec['model_families'], index,
+                                 'serve.model_families')
+    if 'swaps' in rec:
+        swaps = rec['swaps']
+        if not isinstance(swaps, dict) \
+                or not isinstance(swaps.get('count'), int) \
+                or not isinstance(swaps.get('events'), list):
+            _fail(index, f'serve.swaps must carry an int count and an '
+                         f'events list, got {swaps!r}')
+    for field in ('retries', 'request_failures', 'timeouts',
+                  'deadline_sheds'):
+        if field in rec and not _non_negative_int(rec[field]):
+            _fail(index, f'serve.{field} must be a non-negative int, got '
+                         f'{rec[field]!r}')
+    if 'health' in rec:
+        health = rec['health']
+        if not isinstance(health, dict):
+            _fail(index, 'serve.health must be an object (replica id -> '
+                         'breaker snapshot)')
+        for rid, snap in health.items():
+            if not isinstance(snap, dict) \
+                    or snap.get('state') not in _HEALTH_STATES:
+                _fail(index, f'serve.health[{rid!r}] must carry a state '
+                             f'in {_HEALTH_STATES}')
+
+
+def _validate_fault(rec, index):
+    for field in ('injections', 'health_transitions'):
+        if not isinstance(rec[field], list):
+            _fail(index, f'fault.{field} must be a list (the evidence '
+                         f'log, empty when clean)')
+    for field in _FAULT_COUNTERS:
+        if not _non_negative_int(rec[field]):
+            _fail(index, f'fault.{field} must be a non-negative int, got '
+                         f'{rec[field]!r}')
+    if rec['injections_total'] != len(rec['injections']):
+        _fail(index, f'fault.injections_total={rec["injections_total"]} '
+                     f'contradicts {len(rec["injections"])} logged '
+                     f'injections')
+    for e in rec['health_transitions']:
+        if not isinstance(e, dict) or 'from_state' not in e \
+                or 'to_state' not in e:
+            _fail(index, f'fault.health_transitions entries must carry '
+                         f'from_state/to_state, got {e!r}')
 
 
 def _validate_cost(rec, index):
@@ -341,6 +450,8 @@ def validate_record(rec: dict, index=None) -> dict:
         _validate_cost(rec, index)
     elif kind == 'pipeline':
         _validate_pipeline(rec, index)
+    elif kind == 'fault':
+        _validate_fault(rec, index)
     elif kind == 'guard':
         _validate_guard(rec, index)
     elif kind in ('flush', 'summary'):

@@ -7,7 +7,7 @@ snapshot is a plain JSON dict, merging is count addition, and a
 percentile read off a merged histogram is exactly the percentile of the
 pooled samples at bucket resolution. `ServeTelemetry` keeps one per
 bucket and writes their snapshots into each `serve` record. The fleet's
-SLO aggregation (`SLOAggregator`) comes with ROADMAP A8.
+SLO aggregation (`SLOAggregator`) comes with ROADMAP A8.2.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ se3_transformer_tpu/observability/timing.py.
   * `PhaseTimer`: host wall clock per phase ('bucket_1024', 'step', ...)
     with windowed and cumulative p50/p95/p99/max. A phase that times work
     on a card passes `device=`: the phase then ends in a synchronize of
-    that device, so the time recorded is the device's, as JAX's phases
-    end in `block_until_ready`.
+    that device (of one stream with `stream=`), so the time recorded is
+    the device's, as JAX's phases end in `block_until_ready`.
   * `named_scope` / `profile_trace`: device attribution. A scope is a
     `torch.profiler.record_function` label, the counterpart of
     `jax.named_scope`; `MODEL_SCOPES` lists the labels the model emits
@@ -104,14 +104,19 @@ class PhaseTimer:
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
-    def phase(self, name: str, device=None):
+    def phase(self, name: str, device=None, stream=None):
         """Time the block; with a CUDA `device`, the block's device work
-        is waited for before the clock stops."""
+        is waited for before the clock stops: the whole device's, or with
+        `stream` (a torch.cuda.Stream) that stream's alone, so that the
+        time of a replica on its own stream leaves out its siblings'
+        work."""
         sync = device is not None and torch.device(device).type == 'cuda'
         t0 = time.perf_counter()
         try:
             yield
-            if sync:
+            if stream is not None:
+                stream.synchronize()
+            elif sync:
                 torch.cuda.synchronize(device)
         finally:
             self.record(name, time.perf_counter() - t0)

@@ -28,8 +28,8 @@ RetraceWatchdog counts the one-time host work after the first step, and
 `train` / `train_pipelined` write one schema'd `flush` record every
 cfg.flush_every steps (one device-to-host copy each) and a `summary` at the
 end. `train_guarded` is training.guardian's self-healing loop. Meshes and
-FSDP (ROADMAP A7) and the `cost` record (ROADMAP A8) are not ported: their
-config fields refuse any value but their defaults.
+FSDP (ROADMAP A7) are not ported: their config fields refuse any value but
+their defaults.
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@ p=), tears files as corrupt_path does; the checkpoint manager's
 checkpoint_write / checkpoint_written sites (a torn entry falls back,
 kill-and-resume past it, a dying async writer surfaces at the barrier,
 torn-step-aware GC, loud writer joins); the producer's batch_source site
-(retry, skip, fail loud); and the engine's engine_run site. The replica,
-transport and orbax cases of tests/test_faults.py have no counterpart in
-the port (ROADMAP A8, and the port's torch.save format)."""
+(retry, skip, fail loud); and the engine's engine_run site. The replica's
+replica_dispatch site is held in tests/test_torch_fleet.py; the transport
+and orbax cases of tests/test_faults.py have no counterpart in the port
+(ROADMAP A8.2, and the port's torch.save format)."""
 import os
 import threading
 

@@ -621,10 +621,20 @@ def test_serve_cli_sigterm_drains_flushes_and_exits_zero(tmp_path):
     ['--transport', 'legacy'], ['--poison-step', '3'],
     ['--precision', 'fp32,int8_mix']])
 def test_serve_cli_refuses_the_fleet_flags(argv, capsys):
+    """The cross-host fleet's flags are refused with ROADMAP A8.2, and a
+    comma --precision list with one replica with the fleet's name; the
+    multi-replica router's flags are ported and parse."""
+    ported = {'--replicas': 2, '--swap-at': 4, '--async-dispatch': True,
+              '--timeout-s': 1.0, '--max-retries': 2}
+    if argv[0] in ported:
+        args = tserve.parse_args(argv)
+        assert getattr(args, argv[0][2:].replace('-', '_')) == \
+            ported[argv[0]]
+        return
     with pytest.raises(SystemExit):
         tserve.parse_args(argv)
     err = capsys.readouterr().err
-    assert 'ROADMAP A8' in err or 'fleet' in err
+    assert 'ROADMAP A8.2' in err or 'fleet' in err
 
 
 def test_engine_without_a_card_raises():

@@ -144,6 +144,35 @@ failure:
               peak bytes per replica, the swap's wall time and a profiled
               async pair's device busy (union of the two streams) and idle
               share (`serve_multi` lines).
+  serve_fleet  the cross-host tier on the one card: three `python -m
+              se3_transformer_torch.inference.serve --host` processes
+              (fresh interpreters, each with its own CUDA context and the
+              kernel library already built) serving flagship_fast (dim
+              64, DEPTH, conditioned weights from a checkpoint, batch 1,
+              the binary wire); hosts 0 and 1 at buckets (512, 1024),
+              host 2 at (512,) only. A FleetRouter (Tracer, SLOAggregator)
+              routes FLEET_REQUESTS in-range requests and one oversize,
+              FLEET_IN_FLIGHT (3) in flight; host 0 alone takes the same
+              stream first at the same load. Every answer, and every
+              answer after the clean rollout, equal bit for bit to the
+              request through a direct InferenceEngine.predict on the
+              same checkpoint; only hosts 0 and 1 serve the requests past
+              512;
+              each host's scraped stats: on cuda, #1 launched exactly the
+              serve path's count per request it served, `.routed` 0;
+              trace completeness 1.0, no orphan; the fleet, trace and slo
+              records schema-valid; every host exits 0 on SIGTERM. Then
+              `python -m se3_transformer_torch.serving.fleet_chaos` at
+              those widths (host 0 SIGKILLed and restarted, seeded
+              transport faults, a rollout whose poisoned canary rolls
+              back) must exit 0 and its `--weaken noexclude` arm (toy
+              model, on the card) exit 1; then the transport loadgen.
+              Prints requests/s and request p50/p99 of one host and of
+              the fleet, the RPC's overhead over the host's own time and
+              bytes a call, host start-up to READY, the restarted host's
+              READY and recovery, each swap of the rollout, the sum of
+              the hosts' own allocator peaks and each host's stats
+              snapshots and their ms a request (`serve_fleet` lines).
   global serve  the assembly model (attention_mode='global', seeded and
               conditioned weights), untied and with tie_key_values, served
               by InferenceEngine at bucket 4096 with return_type=1 on
@@ -2876,6 +2905,344 @@ def union_busy_ms(prof):
     return busy / 1e3, prof_busy_ms(prof)
 
 
+# serve_fleet: flagship_fast hosts as processes behind the FleetRouter
+FLEET_BUCKETS = (512, 1024)
+FLEET_SMALL_BUCKETS = (512,)     # host 2: a host of other capability
+FLEET_REQUESTS = 24
+FLEET_IN_FLIGHT = 3              # both runs: one host alone, three hosts
+FLEET_TIMEOUT_S = 600
+
+
+def fleet_host_kw(ckpt, **extra):
+    """inference.serve.spawn_host's keywords for a flagship_fast host at
+    the smoke's widths."""
+    return dict(model='flagship_fast', depth=DEPTH, batch_size=1,
+                max_wait_ms=MULTI_WAIT_MS, checkpoint=ckpt,
+                checkpoint_step=1, transport='binary', timeout_s=120.0,
+                **extra)
+
+
+def phase_serve_fleet(st, want, smi):
+    """The cross-host tier on the card (the docstring's serve_fleet).
+    `want` is the serve path's launches per request (COUNT_NAMES order);
+    the hosts count their own, read through their stats RPC. Returns the
+    hosts' launches over the phase's streams."""
+    import tempfile
+    from se3_transformer_torch import inference as inf
+    from se3_transformer_torch.inference.serve import (
+        spawn_host, stop_host, wait_host_ready,
+    )
+    from se3_transformer_torch.observability import (
+        MetricLogger, SLOAggregator, Tracer, trace_record_body,
+    )
+    from se3_transformer_torch.observability.schema import validate_stream
+    from se3_transformer_torch.serving import BinaryTransport, FleetRouter
+    from se3_transformer_torch.training.checkpoint import CheckpointManager
+    tmp = tempfile.TemporaryDirectory(prefix='serve_fleet')
+    reset_counts()
+    # step 1: the weights the hosts start on; step 2: a clean rollout's
+    models = {step: condition_weights(st.flagship_fast(
+        dim=64, depth=DEPTH, device='cpu',
+        generator=torch.Generator().manual_seed(26 + step)))
+        for step in (1, 2)}
+    ckpt = os.path.join(tmp.name, 'ckpt')
+    mgr = CheckpointManager(ckpt, model_family=models[1].model_family)
+    for step, model in models.items():
+        mgr.save(step, dict(params=model.state_dict()))
+    mgr.close()
+    t0 = time.perf_counter()
+    procs = [spawn_host(i, buckets=','.join(map(str, (
+        FLEET_SMALL_BUCKETS if i == 2 else FLEET_BUCKETS))),
+        **fleet_host_kw(ckpt)) for i in range(3)]
+    failures, line = [], dict(card=smi)
+    try:
+        ready = [wait_host_ready(p, timeout_s=FLEET_TIMEOUT_S)
+                 for p in procs]
+        line['hosts_ready_s'] = time.perf_counter() - t0
+        ports = [port for port, _, _ in ready]
+        line['devices'] = [device for _, device, _ in ready]
+        if any(not str(d).startswith('cuda') for d in line['devices']):
+            failures.append(f'hosts on {line["devices"]}')
+        # the reference: each step of the checkpoint through one engine
+        reference = st.InferenceEngine(
+            copy.deepcopy(models[1]), buckets=FLEET_BUCKETS, batch_size=1,
+            precompile=False)
+        restore = CheckpointManager(ckpt).restore_params
+        reference.params = restore(1)
+        reference.warmup()
+        rng = np.random.RandomState(27)
+        lengths = stream_lengths(rng, FLEET_BUCKETS, FLEET_REQUESTS)
+        requests = [(rng.normal(size=(n, 64)).astype(np.float32),
+                     chain_coords(rng, n)) for n in lengths]
+        in_range = [i for i, n in enumerate(lengths)
+                    if n <= FLEET_BUCKETS[-1]]
+        alone = {i: reference.predict(*requests[i]) for i in in_range}
+        reference.params = restore(2)
+        alone2 = {i: reference.predict(*requests[i]) for i in in_range[:3]}
+        del reference
+        transports = {i: BinaryTransport('127.0.0.1', port)
+                      for i, port in enumerate(ports)}
+
+        def scrape():
+            return {i: t.call('stats', timeout_s=30.0)['stats']
+                    for i, t in transports.items()}
+
+        def fleet_of(hosts, tracer=None, slo=None):
+            fleet = FleetRouter({i: transports[i] for i in hosts},
+                                max_retries=2, default_timeout_s=120.0,
+                                heartbeat_every_s=0.2, tracer=tracer,
+                                slo=slo)
+            while fleet.buckets is None or any(
+                    not h.stats for h in fleet.hosts.values()):
+                fleet.pump()
+                time.sleep(0.01)
+            return fleet
+
+        def stream(fleet):
+            """The requests, FLEET_IN_FLIGHT of them in flight whatever
+            the number of hosts (a request is in flight from its submit to
+            its answer), so that one host and three take the same load:
+            (pending with their request index, rejected, wall seconds)."""
+            pending, rejected = [], []
+            t_stream = time.perf_counter()
+            for i, (feats, coords) in enumerate(requests):
+                while sum(not p.done for p, _ in pending) >= \
+                        FLEET_IN_FLIGHT:
+                    time.sleep(0.0005)
+                try:
+                    pending.append((fleet.submit(feats, coords), i))
+                except inf.RequestRejected as e:
+                    rejected.append(e.to_record())
+                fleet.pump()
+            fleet.drain()
+            return pending, rejected, time.perf_counter() - t_stream
+
+        def compare(pending, want_by_index):
+            """(answers equal bit for bit to predict's, the worst error
+            relative to max|predict| where one is not): a host runs the
+            same kernels on the same card as the smoke's own engine, and
+            kernel #1's forward is deterministic across processes, so the
+            gate is equality."""
+            worst, exact = 0.0, 0
+            for p, i in pending:
+                if not p.ok:
+                    return float('inf'), exact
+                want_i = want_by_index[i]
+                exact += int(np.array_equal(want_i, p.result))
+                worst = max(worst, float(np.abs(want_i - p.result).max())
+                            / max(float(np.abs(want_i).max()), 1e-30))
+            return worst, exact
+
+        def summary(label, tracer, pending, rejected, wall):
+            answered = [p for p, _ in pending if p.ok]
+            lat = [p.latency_s * 1e3 for p in answered]
+            worst, exact = compare(pending, alone)
+            if len(rejected) != 1 or rejected[0]['code'] != 'oversize' or \
+                    len(answered) != len(requests) - 1:
+                failures.append(f'{label}: {len(answered)} answered, '
+                                f'rejected {rejected}')
+            if exact != len(answered):
+                failures.append(f'{label}: {exact} of {len(answered)} '
+                                f'answers equal to predict\'s, worst '
+                                f'{worst}')
+            return dict(run=label, answered=len(answered), wall_s=wall,
+                        requests_per_s=len(answered) / wall,
+                        request_latency_ms=dict(
+                            p50=float(np.percentile(lat, 50)),
+                            p99=float(np.percentile(lat, 99)),
+                            max=max(lat)),
+                        rpc_overhead_ms=rpc_overhead(tracer),
+                        in_flight=FLEET_IN_FLIGHT, bit_exact=exact,
+                        max_rel_err_vs_predict=worst)
+
+        before = scrape()
+        tracer1 = Tracer(origin='fleet')
+        with fleet_of([0], tracer1) as fleet:
+            one = summary('host 0 alone', tracer1, *stream(fleet))
+        mid = scrape()
+        tracer, slo = Tracer(origin='fleet'), SLOAggregator()
+        with fleet_of([0, 1, 2], tracer, slo) as fleet:
+            pending, rejected, wall = stream(fleet)
+            three = summary('3 hosts', tracer, pending, rejected, wall)
+            after = scrape()
+            fleet.scrape()
+            body = fleet.record_body([p for p, _ in pending],
+                                     label='serve_fleet')
+            # a clean rollout to step 2: the canary's gate passes and every
+            # host swaps; then a request pinned to each host answers as
+            # step 2 through one engine
+            event, probes = fleet.rollout(
+                dict(directory=ckpt, step=2), dict(directory=ckpt, step=1),
+                [requests[i] for i in in_range[:3]], canary=0)
+            pinned = [(fleet.submit(*requests[i], pin_host=h), i)
+                      for h, i in zip((0, 1, 2), in_range[:3])
+                      if h != 2 or lengths[i] <= FLEET_SMALL_BUCKETS[-1]]
+            fleet.drain()
+            rollout_worst, rollout_exact = compare(pinned, alone2)
+            swaps = fleet.record_body()['host_swaps']
+        rolled = {r['host'] for r in event.get('rolled', ())
+                  if r.get('tag', '').endswith('@2')}
+        if not event.get('passed') or rolled != {1, 2} or \
+                rollout_exact != len(pinned) or \
+                not all(p.ok for p in probes):
+            failures.append(f'clean rollout: {event}, answers after it '
+                            f'vs step 2 {rollout_worst}')
+        # each host's own kernel counts over the two streams: #1 exactly
+        # the serve path's count per request it served, nothing routed
+        host_lines, fleet_bxf = {}, 0
+        for i in transports:
+            served = after[i]['batches'] - before[i]['batches']
+            bxf = after[i]['launches']['bxf'] - before[i]['launches']['bxf']
+            fleet_bxf += bxf
+            host_lines[str(i)] = dict(
+                device=after[i]['device'], batches=served,
+                bxf_launches=bxf, launches_per_request=bxf / max(served, 1),
+                routed=after[i]['routed'],
+                peak_bytes=after[i].get('peak_bytes', 0),
+                served_by_fleet=after[i]['batches'] - mid[i]['batches'],
+                # the serve loop's stats snapshots over both streams
+                snapshots=after[i]['snapshots'] - before[i]['snapshots'],
+                snapshot_ms_per_request=(after[i]['snapshot_ms']
+                                         - before[i]['snapshot_ms'])
+                / max(served, 1))
+            if bxf != want[0] * served or any(after[i]['routed'].values()) \
+                    or not after[i]['device'].startswith('cuda'):
+                failures.append(f'host {i}: {host_lines[str(i)]}')
+        # the requests past 512 only on hosts 0 and 1
+        big = sum(1 for n in lengths
+                  if FLEET_SMALL_BUCKETS[-1] < n <= FLEET_BUCKETS[-1])
+        if host_lines['0']['served_by_fleet'] + \
+                host_lines['1']['served_by_fleet'] < big:
+            failures.append(f'requests past 512 misplaced: {host_lines}')
+        trace = trace_record_body(tracer, label='serve_fleet',
+                                  expected=len(pending) + len(probes)
+                                  + len(pinned))
+        if trace['orphan_spans'] or trace['completeness_total'] < 1.0:
+            failures.append(f'trace: {trace}')
+        # bytes on the wire of one call at the largest in-range request
+        probe = BinaryTransport('127.0.0.1', ports[0])
+        feats, coords = requests[max(in_range, key=lambda i: lengths[i])]
+        probe.call('infer', dict(tokens=feats, coords=coords,
+                                 timeout_s=60.0), timeout_s=120.0)
+        wire = probe.transport_stats()
+        probe.close()
+        path = os.path.join(tmp.name, 'fleet.jsonl')
+        logger = MetricLogger(path, mirror=None,
+                              run_meta=dict(mode='serve_fleet'))
+        logger.log_record('fleet', mirror=False, **body)
+        logger.log_record('trace', mirror=False, **trace)
+        logger.log_record('slo', mirror=False,
+                          **slo.record_body(label='serve_fleet'))
+        logger.close()
+        line.update(
+            runs=[one, three],
+            fleet_vs_one_host=three['requests_per_s']
+            / one['requests_per_s'],
+            wire_bytes_per_call=dict(
+                n=lengths[max(in_range, key=lambda i: lengths[i])],
+                bytes=wire['bytes_sent'] + wire['bytes_received']),
+            rollout=dict(passed=event.get('passed'), rolled=sorted(rolled),
+                         swaps=swaps, max_rel_err_after=rollout_worst),
+            hosts=host_lines,
+            hosts_peak_bytes=sum(h['peak_bytes']
+                                 for h in host_lines.values()),
+            trace={k: trace[k] for k in ('traces', 'complete_trees',
+                                         'orphan_spans',
+                                         'completeness_total',
+                                         'spans_by_name')},
+            schema=validate_stream(path)['kinds'])
+        for t in transports.values():
+            t.close()
+    finally:
+        rcs = [stop_host(p) for p in procs]
+    line['host_rcs'] = rcs
+    if any(rc != 0 for rc in rcs):
+        failures.append(f'host exit codes {rcs}')
+    log('serve_fleet', json.dumps(line, default=str))
+    if failures:
+        raise AssertionError('serve_fleet: ' + '; '.join(failures))
+    phase_fleet_chaos(smi, tmp.name)
+    tmp.cleanup()
+    routed_exactly('serve_fleet', NO_ROUTES)
+    return (fleet_bxf,) + (0,) * (len(COUNT_NAMES) - 1)
+
+
+def rpc_overhead(tracer):
+    """Per traced request answered in one attempt: the fleet's attempt
+    span less the host's own queue_wait and dispatch spans (the host's
+    inbox wait, the serve loop's turn and both wire legs); p50, p99 in
+    ms. Durations only: the two processes' clocks differ."""
+    from se3_transformer_torch.observability.tracing import span_trees
+    overhead = []
+    for spans in span_trees(tracer.spans).values():
+        by = {}
+        for sp in spans:
+            by.setdefault(sp['name'], []).append(sp['dur_ms'])
+        if len(by.get('attempt', ())) == 1 and 'dispatch' in by:
+            overhead.append(by['attempt'][0] - by['queue_wait'][0]
+                            - by['dispatch'][0])
+    return dict(p50=float(np.percentile(overhead, 50)),
+                p99=float(np.percentile(overhead, 99)), n=len(overhead))
+
+
+def phase_fleet_chaos(smi, tmp):
+    """`serving.fleet_chaos` at the fleet's widths on the card (exit 0)
+    and its weakened arm at the toy model's (exit 1), at once; then the
+    transport loadgen."""
+    from se3_transformer_torch.observability.schema import validate_stream
+    arms = (('none', 0, ['--model', 'flagship_fast', '--depth', str(DEPTH),
+                         '--buckets', ','.join(map(str, FLEET_BUCKETS)),
+                         '--batch-size', '1', '--max-wait-ms',
+                         str(MULTI_WAIT_MS), '--requests', '16',
+                         '--kill-at', '6', '--post-requests', '4',
+                         '--canary-requests', '4', '--restart-after-s',
+                         '0.5']),
+            ('noexclude', 1, []))
+    outs = {weaken: (os.path.join(tmp, f'chaos_{weaken}.json'),
+                     os.path.join(tmp, f'chaos_{weaken}.jsonl'))
+            for weaken, _, _ in arms}
+    results = run_modules(
+        [['se3_transformer_torch.serving.fleet_chaos', '--weaken', weaken,
+          '--out', outs[weaken][0], '--metrics', outs[weaken][1], *extra]
+         for weaken, _, extra in arms], FLEET_TIMEOUT_S, tmp)
+    for (weaken, want_rc, _), (rc, wall, stdout, stderr) in zip(arms,
+                                                                 results):
+        report = {}
+        if os.path.exists(outs[weaken][0]):
+            with open(outs[weaken][0]) as f:
+                report = json.load(f)
+        log('serve_fleet', json.dumps(dict(
+            card=smi, chaos=weaken, rc=rc, wall_s=wall,
+            **{k: report.get(k) for k in (
+                'requests', 'fleet', 'trace', 'injections', 'host_rcs',
+                'devices', 'ready_s', 'restart', 'host_swaps',
+                'host_stats', 'post_warmup_compiles')}), default=str))
+        if rc != want_rc or any(not str(d).startswith('cuda')
+                                for d in report.get('devices') or ['?']):
+            raise AssertionError(
+                f'fleet_chaos --weaken {weaken} exited {rc} (want '
+                f'{want_rc}):\n{stdout[-4000:]}\n{stderr[-3000:]}')
+        if weaken == 'none':
+            kinds = validate_stream(outs[weaken][1])['kinds']
+            if not kinds.get('fleet') or not kinds.get('trace'):
+                raise AssertionError(f'fleet_chaos records: {kinds}')
+    out = os.path.join(tmp, 'loadgen.json')
+    (rc, wall, stdout, stderr), = run_modules(
+        [['se3_transformer_torch.serving.loadgen', '--out', out]], 300, tmp)
+    if rc != 0:
+        raise AssertionError(f'loadgen exited {rc}:\n{stdout[-3000:]}\n'
+                             f'{stderr[-2000:]}')
+    with open(out) as f:
+        report = json.load(f)
+    log('serve_fleet', json.dumps(dict(
+        card=smi, loadgen={k: report[k] for k in (
+            'qps_binary_vs_legacy', 'p99_binary_vs_legacy',
+            'wire_bytes_binary_vs_legacy')},
+        arms={name: {k: arm[k] for k in ('requests', 'qps', 'p50_ms',
+                                         'p99_ms', 'bytes_per_call')}
+              for name, arm in report['arms'].items()})))
+
+
 def phase_serve_multi(st, want, smi):
     """flagship_fast replicas behind serving.Router on the one card (the
     docstring's serve_multi). `want` is the serve path's launches per batch
@@ -5106,6 +5473,10 @@ def main() -> int:
     # the router over flagship_fast replicas on the one card
     paths.append(not_routed('serve_multi', phase_serve_multi(
         st, launches(bxf=4 + REPLAY_LAUNCHES + 4), smi)))
+    # the cross-host tier: flagship_fast hosts as processes on the card
+    paths.append(phase_serve_fleet(
+        st, launches(bxf=4 + REPLAY_LAUNCHES + 4), smi))
+    tick('serve_fleet')
     paths += [
         # the assembly model: one 7g launch per output degree (2), untied
         # and tied

@@ -25,10 +25,16 @@ these sites:
   * `replica_dispatch`: `serving.ReplicaWorker(fault_injector=...)` fires
     it before every engine run of a replica's batch (ctx: replica,
     bucket): an exception plan walks the path a real replica failure
-    walks (the router's health breaker, retry and redispatch).
+    walks (the router's health breaker, retry and redispatch);
+  * `transport`: every transport of `serving.transport` fires it before a
+    call is sent (ctx: method, host). A `latency` plan sleeps (a slow
+    link), an `exception` plan is re-raised as `TransportError` (a reset
+    connection), and a `drop` plan is a partition: the transport raises
+    `TransportError` without sending. The fleet's transport threads fire
+    it at once; the plan counters are kept under the injector's lock, so
+    an `at=(5,)` plan fires on exactly one call whatever the interleaving.
 
-JAX's cross-host fleet fires `transport` too; that comes with ROADMAP A8.2,
-and a plan on any site name is accepted.
+A plan on any site name is accepted.
 
 Fault kinds:
 

@@ -22,9 +22,10 @@ coordinates [n, 3].
 `dispatch_batch` is the dispatch body that the `MicroBatcher` and the
 multi-replica `serving.ContinuousBatcher` share; its `on_success` /
 `on_failure` hooks and `PendingResult`'s `deadline` / `attempts` are what
-the router's health breakers, retries and deadlines ride on. JAX's
-request tracing (its `tracer` argument and `PendingResult.trace`) comes
-with ROADMAP A8.2.
+the router's health breakers, retries and deadlines ride on; its
+`tracer` argument and `PendingResult.trace` carry request tracing
+(observability.tracing): the queue_wait, dispatch and device_run spans of
+every traced request.
 """
 from __future__ import annotations
 
@@ -49,14 +50,18 @@ class PendingResult:
     `deadline` (absolute, on the clock of `submitted_at`; None: no
     timeout) carries the caller's `timeout_s` through every queue and
     redispatch; `attempts` counts the dispatches that failed under this
-    request (the router's retry budget)."""
+    request (the router's retry budget). `trace` is the request-tracing
+    context (observability.tracing): the trace id and the parent span id
+    the next tier hangs its spans under; None (the default) keeps every
+    tracing site free."""
 
     __slots__ = ('request_id', 'length', 'bucket', 'result', 'done',
                  'error', 'submitted_at', 'completed_at', 'deadline',
-                 'attempts')
+                 'attempts', 'trace')
 
     def __init__(self, request_id, length: int, bucket: int,
-                 submitted_at: float, deadline: Optional[float] = None):
+                 submitted_at: float, deadline: Optional[float] = None,
+                 trace: Optional[dict] = None):
         self.request_id = request_id
         self.length = length
         self.bucket = bucket
@@ -67,6 +72,7 @@ class PendingResult:
         self.completed_at: Optional[float] = None
         self.deadline = deadline
         self.attempts = 0
+        self.trace = trace
 
     @property
     def ok(self) -> bool:
@@ -96,7 +102,8 @@ def dispatch_batch(runner, bucket: int, batch_size: int, tokens, coords,
                    completed_capacity: int,
                    clock: Callable[[], float],
                    on_success: Optional[Callable[[int], None]] = None,
-                   on_failure: Optional[Callable] = None) -> None:
+                   on_failure: Optional[Callable] = None,
+                   tracer=None) -> None:
     """Pad, run, resolve: pads with `pad_to_bucket`, slices each result
     back to its request's true rows, and on a raising runner resolves
     every request of the batch done-with-error (no submitter waits
@@ -108,13 +115,25 @@ def dispatch_batch(runner, bucket: int, batch_size: int, tokens, coords,
     the batch's requests (the router's retry queue redispatches or fails
     each one), and the function then neither resolves them nor re-raises.
     The hooks get the original per-request arrays, not the padded batch,
-    so a redispatch pads again for its new slot."""
+    so a redispatch pads again for its new slot.
+
+    `tracer` (observability.tracing.Tracer, optional) records queue_wait,
+    dispatch and device_run spans for every request that carries a trace
+    context (`p.trace`); None keeps dispatch free of spans."""
     raw_tokens, raw_coords = list(tokens), list(coords)
+    t_start = clock()
     tokens, coords, mask = pad_to_bucket(tokens, coords, bucket,
                                          batch_size=batch_size)
+    t_run = clock()
     try:
+        # a CUDA launch returns before its work is done: device_run ends
+        # here, once _host has copied the answer to the host (its .cpu()
+        # waits for the card), so the span times the forward, not its
+        # launch
         out = _host(runner(bucket, tokens, coords, mask))
     except Exception as e:
+        _trace_batch(tracer, bucket, pending, t_start, t_run, clock(),
+                     error=type(e).__name__)
         if on_failure is not None and \
                 on_failure(bucket, raw_tokens, raw_coords, pending, e):
             return      # taken over by the retry path
@@ -128,6 +147,7 @@ def dispatch_batch(runner, bucket: int, batch_size: int, tokens, coords,
             del completed[:-completed_capacity]
         raise
     now = clock()
+    _trace_batch(tracer, bucket, pending, t_start, t_run, now)
     for row, p in enumerate(pending):
         # a copy: a view would keep the whole [B, L, ...] output alive for
         # as long as any one request's result is held
@@ -139,6 +159,32 @@ def dispatch_batch(runner, bucket: int, batch_size: int, tokens, coords,
         del completed[:-completed_capacity]
     if on_success is not None:
         on_success(len(pending))
+
+
+def _trace_batch(tracer, bucket, pending, t_start, t_run, t_done,
+                 error=None):
+    """queue_wait, dispatch and device_run spans for each traced request
+    of one dispatched batch. device_run nests under dispatch (dispatch's
+    exclusive time is the padding and the resolve); a failing runner
+    stamps its error class on the dispatch span, so that retried attempts
+    tell apart in the tree."""
+    if tracer is None:
+        return
+    for p in pending:
+        tr = getattr(p, 'trace', None)
+        if not tr:
+            continue
+        tracer.add(tr['ctx'], 'queue_wait', parent_id=tr['parent'],
+                   ts=p.submitted_at,
+                   dur_ms=(t_start - p.submitted_at) * 1e3)
+        meta = dict(bucket=int(bucket), fill=len(pending))
+        if error is not None:
+            meta['error'] = error
+        d = tracer.add(tr['ctx'], 'dispatch', parent_id=tr['parent'],
+                       ts=t_start, dur_ms=(t_done - t_start) * 1e3,
+                       **meta)
+        tracer.add(tr['ctx'], 'device_run', parent_id=d['span'],
+                   ts=t_run, dur_ms=(t_done - t_run) * 1e3)
 
 
 class _BucketQueue:
@@ -183,6 +229,7 @@ class MicroBatcher:
         self.clock = clock
         self._queues = {b: _BucketQueue(b) for b in self.buckets}
         self._next_id = 0
+        self.tracer = None             # observability.tracing.Tracer
         self.batches_dispatched = 0
         self.rows_dispatched = 0       # real (non-dummy) rows
         # real rows per dispatched batch: exact running stats forever, raw
@@ -277,7 +324,8 @@ class MicroBatcher:
         q.tokens, q.coords, q.pending = [], [], []
         dispatch_batch(self.runner, q.bucket, self.batch_size, tokens,
                        coords, pending, self.completed,
-                       self._completed_capacity, self.clock)
+                       self._completed_capacity, self.clock,
+                       tracer=self.tracer)
         self.batches_dispatched += 1
         self.rows_dispatched += len(pending)
         agg_update(self.fill_stats, [len(pending)])

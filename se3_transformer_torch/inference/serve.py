@@ -10,6 +10,9 @@ the counterpart of the repository's scripts/serve.py.
         [--pace-ms MS] [--cpu]
         [--replicas N [--swap-at K] [--async-dispatch] [--timeout-s T]
          [--max-retries R]]
+        [--fleet N | --host --port P --host-id K [--poison-step S]]
+        [--transport binary|legacy] [--model toy|flagship_fast
+         [--depth L]]
 
 Startup: the toy model (DenoiseConfig: 24 tokens, dim 8, 2 heads of 8,
 depth 2, 2 degrees, 4 sparse neighbors) with seeded weights, or its
@@ -44,25 +47,45 @@ replica.
 SIGTERM or SIGINT mid-stream stops admitting, drains what was accepted,
 flushes the telemetry and exits 0 (training.guardian.PreemptionGuard).
 
-The flags of the cross-host fleet (--fleet above 1, --host, --port,
---host-id, --transport, --poison-step) are refused with the ROADMAP item
-that ports them.
+`--host` runs this process as one fleet host: the replicas-and-router
+stack above behind `serving.fleet.HostServer` on a TCP port (`--transport
+binary`, the default: pooled, multiplexed, raw numpy frames; `legacy`:
+newline JSON, a connection a call). It prints `FLEET HOST READY host=K
+port=P transport=T device=D` once every bucket is warm and the socket
+listens (D is `cuda:N` unless --cpu was given: a host finds the card or
+fails, it never serves on the CPU instead), then serves until SIGTERM:
+it closes the socket, drains the router, writes its serve, fault and
+summary records and exits 0. `--poison-step S` is the chaos hook: once a
+swap RPC has restored step S, every dispatch on the host fails until a
+swap restores another step (the poisoned canary of the fleet chaos run).
+
+`--fleet N` (N above 1) is the cross-host front end: it starts N `--host`
+processes (fresh interpreters, never forks: each host gets a CUDA context
+of its own), routes the stream through a `serving.fleet.FleetRouter`
+(host breakers, cross-host redispatch, deadline propagation), writes the
+`fleet` record, and SIGTERMs the hosts on the way out (each must exit 0).
+It exits non-zero when a request is lost, an in-range request is not
+answered, the stream fails the schema, or a host exits non-zero.
+
+`--model flagship_fast` serves the flagship_fast recipe at its own width
+(features [n, 64]) and `--depth` blocks instead of the toy model on
+tokens; with `--checkpoint` every host restores the same weights.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
-
-FLEET = 'ROADMAP A8.2 (the cross-host fleet)'
-# scripts/serve.py's flags whose machinery is not ported
-UNPORTED_FLAGS = {flag: FLEET for flag in (
-    '--host', '--port', '--host-id', '--transport', '--poison-step')}
 
 # the toy serving model's vocab size: one constant for the module and the
 # request stream
 TOY_NUM_TOKENS = 24
+MODELS = ('toy', 'flagship_fast')
+# the checkout holding the package: hosts run `python -m` from here
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -122,19 +145,39 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="multi-replica only: redispatches of a failed "
                          "batch's requests onto sibling replicas before a "
                          'structured RequestFailed("retries_exhausted")')
+    ap.add_argument('--model', choices=MODELS, default='toy',
+                    help="'toy' (tokens) or the 'flagship_fast' recipe "
+                         '(features [n, 64])')
+    ap.add_argument('--depth', type=int, default=6,
+                    help='flagship_fast only: the number of blocks')
+    # ---- the cross-host fleet (serving.fleet) ------------------------ #
     ap.add_argument('--fleet', type=int, default=1,
-                    help=f'1 only; the cross-host fleet is not ported '
-                         f'({FLEET})')
-    for flag, item in UNPORTED_FLAGS.items():
-        ap.add_argument(flag, nargs='?', const=True, default=None,
-                        help=f'not ported ({item})')
+                    help='above 1: start N --host processes and route '
+                         'through the cross-host FleetRouter')
+    ap.add_argument('--host', action='store_true', dest='host_mode',
+                    help='run as one fleet host: the replicas and router '
+                         'behind serving.fleet.HostServer on a TCP port, '
+                         'until SIGTERM')
+    ap.add_argument('--host-id', type=int, default=0,
+                    help="--host only: this host's id in the fleet")
+    ap.add_argument('--port', type=int, default=0,
+                    help='--host only: the TCP port (0: the system picks; '
+                         'the READY line names it)')
+    ap.add_argument('--transport', choices=('binary', 'legacy'),
+                    default='binary',
+                    help='the fleet wire: "binary" (pooled connections, '
+                         'correlation-id multiplexing, raw numpy frames) '
+                         'or "legacy" (newline JSON, a connection a call)')
+    ap.add_argument('--poison-step', type=int, default=None,
+                    help='--host only (the chaos hook): once a swap RPC '
+                         'restores this step, every dispatch fails until '
+                         'another step is restored')
     args = ap.parse_args(argv)
-    if args.fleet > 1:
-        ap.error(f'--fleet {args.fleet}: the cross-host fleet is not '
-                 f'ported ({FLEET})')
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace('-', '_')) is not None:
-            ap.error(f'{flag}: its machinery is not ported ({item})')
+    if args.fleet < 1:
+        ap.error(f'--fleet {args.fleet}: at least one host')
+    if args.host_mode and args.fleet > 1:
+        ap.error('--host and --fleet exclude each other: a host is one '
+                 'process of a fleet')
     if args.replicas < 1:
         ap.error(f'--replicas {args.replicas}: at least one replica')
     if args.precision and ',' in args.precision and args.replicas <= 1:
@@ -153,9 +196,10 @@ def precision_mixes(args):
 
 
 def build_module_and_params(args, buckets, seed=None):
-    """The toy module on the host with seeded weights, and the restored
-    params (CheckpointManager.restore_params, params only) with
-    --checkpoint, else None."""
+    """The module on the host with seeded weights (the toy model, or
+    flagship_fast with --model flagship_fast), and the restored params
+    (CheckpointManager.restore_params, params only) with --checkpoint,
+    else None."""
     import torch
 
     from ..training.denoise import DenoiseConfig
@@ -164,8 +208,13 @@ def build_module_and_params(args, buckets, seed=None):
     cfg = DenoiseConfig(num_tokens=TOY_NUM_TOKENS, dim=8, dim_head=8,
                         heads=2, depth=2, num_degrees=2,
                         max_sparse_neighbors=4)
-    module = cfg.build_module(device='cpu',
-                              generator=torch.Generator().manual_seed(seed))
+    generator = torch.Generator().manual_seed(seed)
+    if getattr(args, 'model', 'toy') == 'flagship_fast':
+        from ..training.recipes import flagship_fast
+        module = flagship_fast(depth=args.depth, device='cpu',
+                               generator=generator)
+    else:
+        module = cfg.build_module(device='cpu', generator=generator)
     params = None
     if args.checkpoint:
         from ..training.checkpoint import CheckpointManager
@@ -178,6 +227,19 @@ def build_module_and_params(args, buckets, seed=None):
     else:
         print(f'no --checkpoint: initialized fresh params (seed {seed})')
     return cfg, module, params
+
+
+def make_request(args, rng, length):
+    """One request's (tokens or features, coords): toy tokens, or
+    flagship_fast's features [length, FLAGSHIP_FAST_DIM]."""
+    import numpy as np
+    if getattr(args, 'model', 'toy') == 'flagship_fast':
+        from ..training.recipes import FLAGSHIP_FAST_DIM
+        feats = rng.normal(size=(length, FLAGSHIP_FAST_DIM)).astype(
+            np.float32)
+    else:
+        feats = rng.randint(0, TOY_NUM_TOKENS, size=length)
+    return feats, rng.normal(size=(length, 3)).astype(np.float32)
 
 
 def request_lengths(args, buckets, max_len, rng):
@@ -195,6 +257,10 @@ def request_lengths(args, buckets, max_len, rng):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.host_mode:
+        return serve_host(args)
+    if args.fleet > 1:
+        return serve_fleet(args)
     if args.replicas > 1:
         return serve_multi(args)
     import numpy as np
@@ -256,8 +322,7 @@ def main(argv=None) -> int:
                       f'{batcher.queue_depth} queued requests, flushing '
                       f'telemetry', flush=True)
                 break
-            tokens = rng.randint(0, cfg.num_tokens, size=length)
-            coords = rng.normal(size=(length, 3)).astype(np.float32)
+            tokens, coords = make_request(args, rng, length)
             try:
                 pending.append(batcher.submit(tokens, coords))
             except RequestRejected as e:
@@ -430,8 +495,7 @@ def serve_multi(args) -> int:
                           f'{len(events)} replicas swapped, '
                           f'{sum(e["drained_batches"] for e in events)} '
                           f'partial batches drained')
-                tokens = rng.randint(0, cfg.num_tokens, size=length)
-                coords = rng.normal(size=(length, 3)).astype(np.float32)
+                tokens, coords = make_request(args, rng, length)
                 try:
                     pending.append(router.submit(tokens, coords))
                 except RequestRejected as e:
@@ -519,6 +583,348 @@ def serve_multi(args) -> int:
             if k.startswith('bucket_')},
         request_latency_ms=summary['metrics']['request_latency_ms'],
     )
+    print(json.dumps(report, indent=2))
+    if args.out:
+        with open(args.out, 'w') as f:
+            json.dump(report, f, indent=2)
+        print(f'report -> {args.out}')
+    return 0 if ok else 1
+
+
+def serve_host(args) -> int:
+    """One fleet host (`--host`): the serve_multi stack behind a TCP RPC
+    surface, serving until SIGTERM (drain, final records, exit 0)."""
+    from ..faults import FaultInjector
+    from ..observability import MetricLogger, PhaseTimer
+    from ..observability.schema import SchemaError, validate_stream
+    from ..serving import (
+        HostServer, ReplicaWorker, Router, RouterTelemetry, serve_binary,
+        serve_socket,
+    )
+    from ..training.guardian import PreemptionGuard
+    from . import AdmissionController
+
+    buckets = tuple(int(b) for b in args.buckets.split(','))
+    _, module, params = build_module_and_params(args, buckets)
+
+    t0 = time.perf_counter()
+    timer = PhaseTimer()
+    engines = build_replica_engines(args, module, params, buckets, timer)
+    device = engines[0].device
+    print(f'host {args.host_id}: warmed {len(engines)} replicas x '
+          f'{len(engines[0].executables)} buckets in '
+          f'{time.perf_counter() - t0:.1f}s on {device}', flush=True)
+    injector = FaultInjector(seed=args.seed)
+    workers = [ReplicaWorker(i, e, max_wait_ms=args.max_wait_ms,
+                             async_dispatch=args.async_dispatch,
+                             fault_injector=injector)
+               for i, e in enumerate(engines)]
+    admission = AdmissionController(max_len=buckets[-1],
+                                    max_queue_depth=args.max_queue_depth)
+
+    ok = True
+    with Router(workers, admission=admission,
+                max_retries=args.max_retries,
+                default_timeout_s=args.timeout_s) as router:
+        logger = MetricLogger(args.metrics, run_meta=dict(
+            mode='serve_host', host_id=args.host_id, backend=device.type,
+            replicas=len(engines), buckets=list(buckets),
+            batch_size=args.batch_size, seed=args.seed, model=args.model,
+            precision_mixes=[e.precision_name for e in engines]))
+        telemetry = RouterTelemetry(router, admission, logger)
+        telemetry.arm()
+
+        # the chaos hook: once a swap restores --poison-step, every
+        # dispatch fails (an every=1 plan) until another step is restored:
+        # "the new weights are bad on this host", which the fleet's canary
+        # gate must catch
+        poison_plans = []
+
+        def on_swap(payload, events):
+            if args.poison_step is None:
+                return
+            tag = (events[0].get('tag') or '') if events else ''
+            restored = tag.rsplit('@', 1)[-1]
+            if restored == str(args.poison_step):
+                poison_plans.append(injector.plan(
+                    'replica_dispatch', 'exception', every=1))
+                print(f'host {args.host_id}: poison armed: step '
+                      f'{restored} restored, every dispatch fails until '
+                      f'another step is swapped in', flush=True)
+            elif poison_plans:
+                for plan in poison_plans:
+                    plan.max_fires = plan.fires    # spent: disarmed
+                del poison_plans[:]
+                print(f'host {args.host_id}: poison disarmed (step '
+                      f'{restored} restored)', flush=True)
+
+        host_server = HostServer(router, host_id=args.host_id,
+                                 telemetry=telemetry,
+                                 flush_every_batches=args.flush_every,
+                                 on_swap=on_swap)
+        if args.transport == 'binary':
+            sock = serve_binary(host_server, port=args.port)
+            # every serve record carries the wire's own counters
+            telemetry.transport_source = sock.transport_stats
+        else:
+            sock = serve_socket(host_server, port=args.port)
+        print(f'FLEET HOST READY host={args.host_id} port={sock.port} '
+              f'transport={args.transport} device={device}', flush=True)
+        with PreemptionGuard() as guard:
+            while not guard.stop_requested:
+                time.sleep(0.05)
+        print(f'host {args.host_id}: {guard.signame}: graceful shutdown: '
+              f'close the socket, drain the router, flush the records',
+              flush=True)
+        sock.close()
+        host_server.stop(drain=True)
+    # leaving the block drained the router and shut the executors down
+    telemetry.flush()
+    telemetry.fault_flush(injector=injector, label=f'host_{args.host_id}')
+    telemetry.close()
+    logger.close()
+
+    if telemetry.post_warmup_compiles:
+        print(f'FAIL: host {args.host_id}: '
+              f'{telemetry.post_warmup_compiles} one-time host work events '
+              f'after warmup: a swap or the stream broke the warmed-bucket '
+              f'contract', flush=True)
+        ok = False
+    if args.metrics:
+        try:
+            info = validate_stream(args.metrics)
+            print(f'host {args.host_id}: schema ok ({info["records"]} '
+                  f'records {info["kinds"]})', flush=True)
+        except SchemaError as e:
+            print(f'FAIL: host {args.host_id}: telemetry stream invalid: '
+                  f'{e}', flush=True)
+            ok = False
+    print(f'host {args.host_id}: served '
+          f'{sum(w.served_rows for w in router.workers)} rows in '
+          f'{router.batches_dispatched} batches, '
+          f'{len(router.swap_events)} swaps, {router.request_failures} '
+          f'structured failures', flush=True)
+    return 0 if ok else 1
+
+
+# --------------------------------------------------------------------- #
+# fleet hosts as processes (shared with serving.fleet_chaos)
+# --------------------------------------------------------------------- #
+def host_command(host_id, *, port=0, buckets='8,16', batch_size=2,
+                 replicas=1, seed=0, max_wait_ms=10.0, timeout_s=None,
+                 max_retries=1, max_queue_depth=None, checkpoint=None,
+                 checkpoint_step=None, metrics=None, poison_step=None,
+                 bf16=False, async_dispatch=False, cpu=False,
+                 transport='binary', model='toy', depth=6,
+                 precision=None):
+    """The argv of one `--host` process (run from the checkout)."""
+    cmd = [sys.executable, '-m', 'se3_transformer_torch.inference.serve',
+           '--host', '--host-id', str(host_id), '--port', str(port),
+           '--buckets', str(buckets), '--batch-size', str(batch_size),
+           '--replicas', str(replicas), '--seed', str(seed),
+           '--max-wait-ms', str(max_wait_ms),
+           '--max-retries', str(max_retries),
+           '--transport', str(transport), '--model', str(model)]
+    if model == 'flagship_fast':
+        cmd += ['--depth', str(depth)]
+    for flag, on in (('--cpu', cpu), ('--bf16', bf16),
+                     ('--async-dispatch', async_dispatch)):
+        if on:
+            cmd.append(flag)
+    for flag, value in (('--timeout-s', timeout_s),
+                        ('--max-queue-depth', max_queue_depth),
+                        ('--checkpoint', checkpoint),
+                        ('--checkpoint-step', checkpoint_step),
+                        ('--metrics', metrics),
+                        ('--poison-step', poison_step),
+                        ('--precision', precision)):
+        if value is not None:
+            cmd += [flag, str(value)]
+    return cmd
+
+
+def spawn_host(host_id, **kw):
+    """Start one `--host` process: a fresh interpreter (never a fork of a
+    process whose CUDA is up), stdout piped; call `wait_host_ready`, which
+    also keeps the pipe drained (a full pipe would wedge the host)."""
+    import subprocess
+    return subprocess.Popen(host_command(host_id, **kw), cwd=_ROOT,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, bufsize=1)
+
+
+def wait_host_ready(proc, timeout_s=300.0):
+    """Wait for the host's READY line; returns `(port, device, sink)`,
+    `sink` being the list a daemon thread keeps appending the host's
+    output to (started at once, so that the pipe never fills, and the
+    deadline holds against a host that wedges without printing)."""
+    import threading
+    sink = []
+    eof = threading.Event()
+
+    def drain(p=proc, s=sink):
+        try:
+            for line in p.stdout:
+                s.append(line)
+        finally:
+            eof.set()
+
+    threading.Thread(target=drain, daemon=True).start()
+    deadline = time.monotonic() + timeout_s
+    scanned = 0
+    while time.monotonic() < deadline:
+        n = len(sink)
+        while scanned < n:
+            line = sink[scanned]
+            scanned += 1
+            if 'FLEET HOST READY' in line:
+                fields = dict(kv.split('=', 1) for kv in line.split()
+                              if '=' in kv)
+                return int(fields['port']), fields.get('device'), sink
+        if eof.is_set() and scanned >= len(sink):
+            raise RuntimeError(
+                f'fleet host died during warmup (rc={proc.poll()}):\n'
+                + ''.join(sink[-30:]))
+        time.sleep(0.05)
+    raise RuntimeError(f'fleet host not READY within {timeout_s}s:\n'
+                       + ''.join(sink[-30:]))
+
+
+def stop_host(proc, timeout_s=90.0):
+    """Graceful stop: SIGTERM, wait, SIGKILL only on a wedge. Returns the
+    exit code (0: the graceful-shutdown contract held)."""
+    import signal
+    import subprocess
+    if proc.poll() is None:
+        try:
+            proc.send_signal(signal.SIGTERM)
+        except OSError:
+            pass
+    try:
+        return proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10.0)
+        return proc.returncode
+
+
+def serve_fleet(args) -> int:
+    """The cross-host front end (`--fleet N`): start N `--host`
+    processes, route the stream through a FleetRouter, write the `fleet`
+    record, SIGTERM the hosts (each must exit 0)."""
+    import numpy as np
+
+    from ..observability import MetricLogger
+    from ..observability.schema import SchemaError, validate_stream
+    from ..serving import BinaryTransport, FleetRouter, SocketTransport
+    from ..training.guardian import PreemptionGuard
+    from .admission import RequestRejected
+
+    buckets = tuple(int(b) for b in args.buckets.split(','))
+    procs, ports, devices = [], [], []
+    print(f'starting {args.fleet} fleet hosts...', flush=True)
+    for i in range(args.fleet):
+        procs.append(spawn_host(
+            i, buckets=args.buckets, batch_size=args.batch_size,
+            replicas=args.replicas, seed=args.seed,
+            max_wait_ms=args.max_wait_ms, timeout_s=args.timeout_s,
+            max_retries=args.max_retries,
+            max_queue_depth=args.max_queue_depth,
+            checkpoint=args.checkpoint,
+            checkpoint_step=args.checkpoint_step, bf16=args.bf16,
+            async_dispatch=args.async_dispatch, cpu=args.cpu,
+            transport=args.transport, model=args.model,
+            depth=args.depth, precision=args.precision))
+    ok, lengths, pending, lost, unanswered = True, [], [], [], []
+    interrupted, body = None, {}
+    try:
+        for p in procs:
+            port, device, _ = wait_host_ready(p)
+            ports.append(port)
+            devices.append(device)
+        print(f'fleet up: {args.fleet} hosts on ports {ports} '
+              f'({devices})', flush=True)
+        transport_cls = (BinaryTransport if args.transport == 'binary'
+                         else SocketTransport)
+        transports = {i: transport_cls('127.0.0.1', port)
+                      for i, port in enumerate(ports)}
+        rng = np.random.RandomState(args.seed)
+        lengths = request_lengths(args, buckets, buckets[-1], rng)
+        logger = MetricLogger(args.metrics, run_meta=dict(
+            mode='serve_fleet', hosts=args.fleet, ports=ports,
+            devices=devices, buckets=list(buckets), model=args.model,
+            batch_size=args.batch_size, seed=args.seed))
+        with FleetRouter(transports, max_retries=args.max_retries,
+                         default_timeout_s=args.timeout_s) as fleet:
+            with PreemptionGuard() as guard:
+                for length in lengths:
+                    if guard.stop_requested:
+                        interrupted = guard.signame
+                        print(f'{interrupted}: graceful shutdown: '
+                              f'draining the fleet, flushing the records',
+                              flush=True)
+                        break
+                    tokens, coords = make_request(args, rng, length)
+                    try:
+                        pending.append(fleet.submit(tokens, coords))
+                    except RequestRejected as e:
+                        print(f'rejected: {e.code} {e.detail}')
+                        logger.log_record('step', mirror=False,
+                                          step=len(pending),
+                                          rejected=e.to_record())
+                    fleet.pump()
+                    if args.pace_ms:
+                        time.sleep(args.pace_ms / 1e3)
+                fleet.drain()
+            body = fleet.record_body(pending, label='serve_fleet')
+            logger.log_record('fleet', mirror=False, **body)
+        logger.close()
+        for t in transports.values():
+            if hasattr(t, 'close'):
+                t.close()
+
+        lost = [p.request_id for p in pending if not p.done]
+        # a host-side RequestRejected (an oversize request sent before the
+        # first scrape named the buckets) is a structured outcome
+        unanswered = [p.request_id for p in pending
+                      if not p.ok
+                      and not isinstance(p.error, RequestRejected)]
+        if lost:
+            print(f'FAIL: {len(lost)} requests lost fleet-wide')
+            ok = False
+        if unanswered:
+            print(f'FAIL: {len(unanswered)} in-range requests resolved '
+                  f'unanswered (a healthy fleet answers every one)')
+            ok = False
+        if not args.cpu and any(not str(d).startswith('cuda')
+                                for d in devices):
+            print(f'FAIL: hosts on {devices}: every host must serve on '
+                  f'the card')
+            ok = False
+        if args.metrics:
+            try:
+                info = validate_stream(args.metrics)
+                print(f'schema ok: {info["records"]} records '
+                      f'{info["kinds"]}')
+            except SchemaError as e:
+                print(f'FAIL: telemetry stream invalid: {e}')
+                ok = False
+    finally:
+        rcs = [stop_host(p) for p in procs]
+    print(f'fleet hosts stopped: rcs {rcs}')
+    if any(rc != 0 for rc in rcs):
+        print('FAIL: a fleet host exited non-zero on a graceful SIGTERM')
+        ok = False
+
+    report = dict(ok=ok, interrupted=interrupted, hosts=args.fleet,
+                  devices=devices, host_rcs=rcs,
+                  requests=dict(total=len(lengths),
+                                submitted=len(pending),
+                                answered=len(pending) - len(unanswered),
+                                lost=len(lost)),
+                  fleet={k: body.get(k) for k in (
+                      'answered', 'cross_host_retries',
+                      'request_failures', 'heartbeats')})
     print(json.dumps(report, indent=2))
     if args.out:
         with open(args.out, 'w') as f:

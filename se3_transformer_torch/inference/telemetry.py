@@ -132,6 +132,17 @@ class ServeTelemetryBase:
                 for b, h in sorted(self.latency_hist.items())}
         return fields
 
+    def slo_snapshot(self) -> dict:
+        """The cumulative answered and failed counts and the mergeable
+        histograms: a host's part of the fleet's `slo` record (its `stats`
+        RPC ships them)."""
+        self._drain_latencies()
+        return dict(
+            answered=self.answered_total,
+            failed=self.failed_total,
+            latency_hist={b: h.snapshot()
+                          for b, h in sorted(self.latency_hist.items())})
+
     def _emit(self, kind: str, fields: dict) -> dict:
         if kind == 'serve':
             self.flush_count += 1

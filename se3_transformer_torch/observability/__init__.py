@@ -20,11 +20,16 @@ se3_transformer_tpu/observability.
     or one training step (`step_cost_payload`).
   * `report`: run summaries of bench records and telemetry streams (the
     `tune`, `cost` and `profile` records beside), `write_record_stream`.
-  * `slo`: mergeable fixed-boundary latency histograms.
+  * `slo`: mergeable fixed-boundary latency histograms and the fleet's
+    `SLOAggregator` (the `slo` record).
+  * `tracing`: request tracing across hosts (`Tracer`, span trees, the
+    `trace` record's completeness invariant).
+  * `slo_report` and `trace_summary`: `python -m` entry points, the
+    fleet's SLO and tracing dashboard from a stream, and the top ops of a
+    torch.profiler Chrome trace.
 
-What JAX's package has beyond this (tracing, the SLO aggregator, the comm
-and fleet summaries) comes with the parallel package and the cross-host
-fleet (ROADMAP A7, A8.2).
+What JAX's package has beyond this (the comm summaries) comes with the
+parallel package (ROADMAP A7).
 """
 from .costs import cost_payload, step_cost_payload  # noqa: F401
 from .metrics import (  # noqa: F401
@@ -36,8 +41,8 @@ from .profiling import (  # noqa: F401
 )
 from .report import (  # noqa: F401
     load_jsonl, summarize, summarize_bench_records, summarize_cost_records,
-    summarize_profile_records, summarize_telemetry, summarize_tune_records,
-    write_record_stream,
+    summarize_fleet_records, summarize_profile_records, summarize_telemetry,
+    summarize_tune_records, write_record_stream,
 )
 from .runtime import (  # noqa: F401
     RetraceWarning, RetraceWatchdog, device_memory_stats,
@@ -46,8 +51,12 @@ from .schema import (  # noqa: F401
     SCHEMA_VERSION, SchemaError, validate_record, validate_stream,
 )
 from .slo import (  # noqa: F401
-    LatencyHistogram, histogram_percentiles, merge_histograms,
+    LatencyHistogram, SLOAggregator, histogram_percentiles, merge_histograms,
 )
 from .timing import (  # noqa: F401
     MODEL_SCOPES, PhaseTimer, named_scope, profile_trace,
+)
+from .tracing import (  # noqa: F401
+    Tracer, complete_request_trees, multi_host_traces, orphan_spans,
+    trace_record_body,
 )

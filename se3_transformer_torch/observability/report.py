@@ -12,9 +12,10 @@ Two input species, one output shape:
     count, and the run's `tune`, `cost` and `profile` records summarized
     beside it.
 
-The comm and fleet summaries come with the parallel package and the
-cross-host fleet (ROADMAP A7, A8.2). Pure Python: reading and summarizing touch no
-device; only write_record_stream reads the live process's metadata.
+`summarize_fleet_records` reduces a fleet run's `fleet` records to its
+surfaced view. The comm summaries come with the parallel package (ROADMAP
+A7). Pure Python: reading and summarizing touch no device; only
+write_record_stream reads the live process's metadata.
 """
 from __future__ import annotations
 
@@ -288,6 +289,36 @@ def summarize_profile_records(records: List[dict]) -> dict:
             row['roofline'] = r['roofline']
         programs.append(row)
     return dict(programs=len(programs), by_program=programs)
+
+
+def summarize_fleet_records(records: List[dict]) -> dict:
+    """Reduce `fleet` records (serving.fleet.FleetRouter.record_body) to
+    the surfaced view: the last record's per-host states, the transition
+    and recovery counts, cross-host retries, rollout and rollback
+    evidence, and the zero-lost verdict (the counters are cumulative, so
+    the last record tells the run)."""
+    fleets = [r for r in records if r.get('kind', 'fleet') == 'fleet']
+    if not fleets:
+        return dict(records=0)
+    last = fleets[-1]
+    hosts = last.get('hosts') or {}
+    return dict(
+        records=len(fleets),
+        label=last.get('label'),
+        hosts={hid: snap.get('state') for hid, snap in hosts.items()},
+        host_transitions=len(last.get('host_transitions') or []),
+        recoveries=last.get('recoveries'),
+        cross_host_retries=last.get('cross_host_retries'),
+        request_failures=last.get('request_failures'),
+        timeouts=last.get('timeouts'),
+        heartbeats=last.get('heartbeats'),
+        rollouts=(last.get('rollouts') or {}).get('count'),
+        rollbacks=last.get('rollbacks'),
+        submitted=last.get('submitted'),
+        answered=last.get('answered'),
+        lost_requests=last.get('lost_requests'),
+        zero_lost=last.get('lost_requests') == 0,
+    )
 
 
 def summarize(records: List[dict], anchor: Optional[float] = None,

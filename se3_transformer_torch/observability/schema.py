@@ -36,7 +36,10 @@ A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
                    replicas (per replica id {depth, ...}), swaps {count,
                    events}, continuous_admissions, model_families, the
                    retries / request_failures / timeouts / deadline_sheds
-                   counters and health (per replica id {state, ...}).
+                   counters and health (per replica id {state, ...});
+                   a fleet host's add transport (its wire's counters
+                   {connections_opened, reconnects, peak_in_flight,
+                   bytes_sent, bytes_received, frame_errors}).
   cost             one per warmed bucket (observability.costs.cost_payload):
                    label, flops / bytes_accessed with the load-bearing
                    `source` (cost_analysis / hlo_estimate / unavailable),
@@ -69,6 +72,36 @@ A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
                    over a kill), and the load-bearing `diverged` bit
                    (final parameters non-finite, or a trip the rollback
                    policy never paid down).
+  fleet            one per fleet run or phase (serving.fleet.FleetRouter.
+                   record_body): hosts (per host id {state, ...} and the
+                   scraped stats), host_transitions, recoveries,
+                   cross_host_retries, request_failures, timeouts,
+                   rollouts {count, events: [{canary, passed, ...}]},
+                   rollbacks, and the load-bearing lost_requests (must be
+                   0); optional transport (the hosts' wire counters).
+  trace            one per traced run (observability.tracing.
+                   trace_record_body): traces, complete_trees,
+                   spans_total, spans_by_name (per name {count, total_ms,
+                   exclusive_ms}), retry_hops and redispatch_hops (they
+                   reconcile with the routers' retry counters),
+                   multi_host_traces, and the load-bearing pair
+                   orphan_spans (must be 0) and completeness_total (the
+                   share of answered or structured-failed requests with
+                   exactly one single-root span tree: must be 1.0).
+  slo              one per fleet run (observability.slo.SLOAggregator.
+                   record_body): hosts folded, the load-bearing
+                   availability (answered / (answered + failures)),
+                   answered / request_failures / timeouts, buckets
+                   (per-bucket p50/p95/p99 off merged histograms),
+                   error_budget {target, budget, burn_rate},
+                   breaker_dwell (per host, seconds in each state) and
+                   rollouts {count, completed, rollbacks}.
+  transport        one per wire A/B (serving.loadgen): workload {requests,
+                   ...}, arms {legacy, binary} (each {requests, errors,
+                   qps, p50_ms, p99_ms, bytes_per_call}), the ratios
+                   qps_binary_vs_legacy, p99_binary_vs_legacy and
+                   wire_bytes_binary_vs_legacy, and the binary arm's
+                   transport counters.
   summary          end-of-run cumulative record (steps, metrics, timing);
                    a training run's (DenoiseTrainer.telemetry_close) also
                    carries label, retrace_warnings_total,
@@ -78,9 +111,8 @@ A stream is JSONL; every record carries `kind` and `run_id`. Kinds:
 Every record the port writes validates under the JAX package's schema as
 well (SCHEMA_VERSION is the same). The other kinds of the JAX contract
 come with the slices that write them: comm and mesh_sweep with ROADMAP
-A7; fleet, trace, slo, transport and the serve record's transport
-section with A8.2; flash, so2_sweep, v2_sweep,
-quant_ab and assembly with the benchmark's A/B records.
+A7; flash, so2_sweep, v2_sweep, quant_ab and assembly with the
+benchmark's A/B records.
 """
 from __future__ import annotations
 
@@ -92,7 +124,7 @@ SCHEMA_VERSION = 1
 
 KNOWN_KINDS = ('run_meta', 'step', 'flush', 'retrace_warning', 'pipeline',
                'serve', 'tune', 'cost', 'profile', 'fault', 'guard',
-               'summary')
+               'fleet', 'trace', 'slo', 'transport', 'summary')
 
 _REQUIRED = {
     'run_meta': ('run_id', 'schema_version', 'backend', 'code_rev', 'host'),
@@ -133,6 +165,31 @@ _REQUIRED = {
     'guard': ('run_id', 'step', 'trips', 'rollbacks', 'restarts',
               'skipped_batches', 'preemptions', 'injections_total',
               'diverged'),
+    # lost_requests is the load-bearing field of the cross-host fault
+    # domain: a fleet record that cannot say whether every submit
+    # resolved answered or structured across host deaths, redispatches
+    # and a canaried rollout proves nothing
+    'fleet': ('run_id', 'label', 'hosts', 'host_transitions',
+              'recoveries', 'cross_host_retries', 'request_failures',
+              'timeouts', 'rollouts', 'rollbacks', 'lost_requests'),
+    # orphan_spans and completeness_total are the load-bearing pair of
+    # tracing: a trace record that cannot say whether every resolved
+    # request produced exactly one single-root span tree proves nothing
+    'trace': ('run_id', 'label', 'traces', 'complete_trees',
+              'orphan_spans', 'spans_total', 'spans_by_name',
+              'retry_hops', 'redispatch_hops', 'multi_host_traces',
+              'completeness_total'),
+    # availability is the load-bearing field of the SLO record, and its
+    # bucket percentiles come from merged histograms, never averaged
+    'slo': ('run_id', 'label', 'hosts', 'availability', 'answered',
+            'request_failures', 'timeouts', 'buckets', 'error_budget',
+            'breaker_dwell', 'rollouts'),
+    # the binary-vs-legacy ratios are the load-bearing trio of the wire
+    # A/B: faster, no worse at the tail, lighter on the wire, on one
+    # seeded workload
+    'transport': ('run_id', 'label', 'workload', 'arms',
+                  'qps_binary_vs_legacy', 'p99_binary_vs_legacy',
+                  'wire_bytes_binary_vs_legacy', 'transport'),
     'summary': ('run_id', 'steps', 'metrics', 'timing'),
 }
 
@@ -153,6 +210,15 @@ _FAULT_COUNTERS = ('injections_total', 'recoveries', 'retries',
 _HEALTH_STATES = ('healthy', 'degraded', 'quarantined')
 _GUARD_COUNTERS = ('trips', 'rollbacks', 'restarts', 'skipped_batches',
                    'preemptions', 'injections_total')
+_FLEET_COUNTERS = ('recoveries', 'cross_host_retries', 'request_failures',
+                   'timeouts', 'rollbacks', 'lost_requests')
+# the wire's counters: the optional `transport` section of serve and fleet
+# records, and the required one of the transport record
+_TRANSPORT_COUNTERS = ('connections_opened', 'reconnects',
+                       'peak_in_flight', 'bytes_sent', 'bytes_received',
+                       'frame_errors')
+_TRANSPORT_ARM_REQUIRED = ('requests', 'errors', 'qps', 'p50_ms',
+                           'p99_ms', 'bytes_per_call')
 
 
 class SchemaError(ValueError):
@@ -209,12 +275,40 @@ def _validate_serve(rec, index):
             _fail(index, f'buckets[{bucket!r}] missing {missing} '
                          f'(per-bucket p50/p95/p99 are the SLO surface)')
     _validate_router_fields(rec, index)
+    if 'transport' in rec:
+        _validate_transport_section(rec['transport'], index,
+                                    'serve.transport')
     if 'latency_hist' in rec:
         _validate_latency_hist(rec['latency_hist'], index, 'serve')
 
 
 def _non_negative_int(val) -> bool:
     return isinstance(val, int) and not isinstance(val, bool) and val >= 0
+
+
+def _number(val) -> bool:
+    return isinstance(val, (int, float)) and not isinstance(val, bool)
+
+
+def _validate_transport_section(val, index, where):
+    """The wire's counter section: every counter present and a
+    non-negative int."""
+    if not isinstance(val, dict):
+        _fail(index, f'{where} must be an object, got '
+                     f'{type(val).__name__}')
+    for field in _TRANSPORT_COUNTERS:
+        if not _non_negative_int(val.get(field)):
+            _fail(index, f'{where}.{field} must be a non-negative int '
+                         f'(the transport counter contract), got '
+                         f'{val.get(field)!r}')
+
+
+def _validate_transitions(entries, index, where):
+    for e in entries:
+        if not isinstance(e, dict) or 'from_state' not in e \
+                or 'to_state' not in e:
+            _fail(index, f'{where} entries must carry from_state/to_state, '
+                         f'got {e!r}')
 
 
 def _validate_model_families(val, index, where):
@@ -288,11 +382,143 @@ def _validate_fault(rec, index):
         _fail(index, f'fault.injections_total={rec["injections_total"]} '
                      f'contradicts {len(rec["injections"])} logged '
                      f'injections')
-    for e in rec['health_transitions']:
-        if not isinstance(e, dict) or 'from_state' not in e \
-                or 'to_state' not in e:
-            _fail(index, f'fault.health_transitions entries must carry '
-                         f'from_state/to_state, got {e!r}')
+    _validate_transitions(rec['health_transitions'], index,
+                          'fault.health_transitions')
+
+
+def _validate_fleet(rec, index):
+    hosts = rec['hosts']
+    if not isinstance(hosts, dict) or not hosts:
+        _fail(index, 'fleet.hosts must be a non-empty object (host id -> '
+                     'breaker snapshot and scraped signals)')
+    for hid, snap in hosts.items():
+        if not isinstance(snap, dict) \
+                or snap.get('state') not in _HEALTH_STATES:
+            _fail(index, f'fleet.hosts[{hid!r}] must carry a state in '
+                         f'{_HEALTH_STATES}')
+        stats = snap.get('stats')
+        if isinstance(stats, dict) and 'model_families' in stats:
+            _validate_model_families(
+                stats['model_families'], index,
+                f'fleet.hosts[{hid!r}].stats.model_families')
+    if not isinstance(rec['host_transitions'], list):
+        _fail(index, 'fleet.host_transitions must be a list (the host '
+                     'breakers\' evidence log, empty when clean)')
+    _validate_transitions(rec['host_transitions'], index,
+                          'fleet.host_transitions')
+    for field in _FLEET_COUNTERS:
+        if not _non_negative_int(rec[field]):
+            _fail(index, f'fleet.{field} must be a non-negative int, got '
+                         f'{rec[field]!r}')
+    rollouts = rec['rollouts']
+    if not isinstance(rollouts, dict) \
+            or not isinstance(rollouts.get('count'), int) \
+            or not isinstance(rollouts.get('events'), list):
+        _fail(index, f'fleet.rollouts must carry an int count and an '
+                     f'events list, got {rollouts!r}')
+    for e in rollouts['events']:
+        if not isinstance(e, dict) or 'canary' not in e \
+                or 'passed' not in e:
+            _fail(index, f'fleet.rollouts.events entries must carry '
+                         f'canary/passed (the gate verdict is the '
+                         f'evidence), got {e!r}')
+    if 'transport' in rec:
+        _validate_transport_section(rec['transport'], index,
+                                    'fleet.transport')
+
+
+def _validate_trace(rec, index):
+    for field in ('traces', 'complete_trees', 'orphan_spans',
+                  'spans_total', 'retry_hops', 'redispatch_hops',
+                  'multi_host_traces'):
+        if not _non_negative_int(rec[field]):
+            _fail(index, f'trace.{field} must be a non-negative int, got '
+                         f'{rec[field]!r}')
+    comp = rec['completeness_total']
+    if not _number(comp) or not 0 <= comp <= 1:
+        _fail(index, f'trace.completeness_total must be a number in '
+                     f'[0, 1], got {comp!r}')
+    if rec['complete_trees'] > rec['traces']:
+        _fail(index, f'trace.complete_trees={rec["complete_trees"]} '
+                     f'exceeds traces={rec["traces"]}')
+    if rec['orphan_spans'] > 0 and rec['traces'] > 0 and comp >= 1.0:
+        _fail(index, f'trace.completeness_total={comp} contradicts '
+                     f'{rec["orphan_spans"]} orphan spans: an orphan '
+                     f'means some tree is incomplete')
+    by_name = rec['spans_by_name']
+    if not isinstance(by_name, dict):
+        _fail(index, 'trace.spans_by_name must be an object (span name -> '
+                     'exclusive-duration entry)')
+    for name, entry in by_name.items():
+        missing = [k for k in ('count', 'total_ms', 'exclusive_ms')
+                   if not isinstance(entry, dict) or k not in entry]
+        if missing:
+            _fail(index, f'trace.spans_by_name[{name!r}] missing '
+                         f'{missing}')
+
+
+def _validate_slo(rec, index):
+    for field in ('hosts', 'answered', 'request_failures', 'timeouts'):
+        if not _non_negative_int(rec[field]):
+            _fail(index, f'slo.{field} must be a non-negative int, got '
+                         f'{rec[field]!r}')
+    avail = rec['availability']
+    if not _number(avail) or not 0 <= avail <= 1:
+        _fail(index, f'slo.availability must be a number in [0, 1], got '
+                     f'{avail!r}')
+    buckets = rec['buckets']
+    if not isinstance(buckets, dict):
+        _fail(index, 'slo.buckets must be an object (bucket -> merged '
+                     'fleet percentiles)')
+    for bucket, st in buckets.items():
+        missing = [k for k in ('count', 'p50_ms', 'p95_ms', 'p99_ms')
+                   if not isinstance(st, dict) or k not in st]
+        if missing:
+            _fail(index, f'slo.buckets[{bucket!r}] missing {missing}')
+    budget = rec['error_budget']
+    if not isinstance(budget, dict) or 'target' not in budget \
+            or 'burn_rate' not in budget:
+        _fail(index, f'slo.error_budget must carry target and burn_rate, '
+                     f'got {budget!r}')
+    if not isinstance(rec['breaker_dwell'], dict):
+        _fail(index, 'slo.breaker_dwell must be an object (host -> '
+                     'per-state seconds)')
+    rollouts = rec['rollouts']
+    if not isinstance(rollouts, dict) \
+            or not isinstance(rollouts.get('count'), int) \
+            or not isinstance(rollouts.get('rollbacks'), int):
+        _fail(index, f'slo.rollouts must carry int count and rollbacks, '
+                     f'got {rollouts!r}')
+
+
+def _validate_transport(rec, index):
+    workload = rec['workload']
+    if not isinstance(workload, dict) \
+            or not _non_negative_int(workload.get('requests')) \
+            or workload['requests'] <= 0:
+        _fail(index, f'transport.workload must carry a positive int '
+                     f'requests count, got {workload!r}')
+    arms = rec['arms']
+    if not isinstance(arms, dict) or 'legacy' not in arms \
+            or 'binary' not in arms:
+        _fail(index, 'transport.arms must carry both the legacy and the '
+                     'binary arm (the A/B is the record)')
+    for name, arm in arms.items():
+        missing = [k for k in _TRANSPORT_ARM_REQUIRED
+                   if not isinstance(arm, dict) or k not in arm]
+        if missing:
+            _fail(index, f'transport.arms[{name!r}] missing {missing}')
+        for k in _TRANSPORT_ARM_REQUIRED:
+            if not _number(arm[k]) or arm[k] < 0:
+                _fail(index, f'transport.arms[{name!r}].{k} must be a '
+                             f'non-negative number, got {arm[k]!r}')
+    for field in ('qps_binary_vs_legacy', 'p99_binary_vs_legacy',
+                  'wire_bytes_binary_vs_legacy'):
+        if not _number(rec[field]) or rec[field] <= 0:
+            _fail(index, f'transport.{field} must be a positive number, '
+                         f'got {rec[field]!r}')
+    _validate_transport_section(rec['transport'], index,
+                                'transport.transport')
 
 
 def _validate_cost(rec, index):
@@ -454,6 +680,14 @@ def validate_record(rec: dict, index=None) -> dict:
         _validate_fault(rec, index)
     elif kind == 'guard':
         _validate_guard(rec, index)
+    elif kind == 'fleet':
+        _validate_fleet(rec, index)
+    elif kind == 'trace':
+        _validate_trace(rec, index)
+    elif kind == 'slo':
+        _validate_slo(rec, index)
+    elif kind == 'transport':
+        _validate_transport(rec, index)
     elif kind in ('flush', 'summary'):
         _validate_timing_and_window(rec, index)
     return rec

@@ -1,25 +1,33 @@
-"""Mergeable fixed-boundary latency histograms: the port of
-se3_transformer_tpu/observability/slo.py's histogram half.
+"""Mergeable latency histograms and the fleet's SLO aggregation: the
+port of se3_transformer_tpu/observability/slo.py.
 
 Percentiles do not merge (averaging two hosts' p99s is wrong), counts do:
 every histogram counts latencies into the same geometric boundaries, a
 snapshot is a plain JSON dict, merging is count addition, and a
 percentile read off a merged histogram is exactly the percentile of the
 pooled samples at bucket resolution. `ServeTelemetry` keeps one per
-bucket and writes their snapshots into each `serve` record. The fleet's
-SLO aggregation (`SLOAggregator`) comes with ROADMAP A8.2.
+bucket and writes their snapshots into each `serve` record;
+`HostServer`'s `stats` ships them, `FleetRouter`'s heartbeat folds them
+into an `SLOAggregator`, and its `record_body` renders the schema'd `slo`
+record: fleet availability, merged per-bucket p50/p95/p99, the error
+budget's burn rate, breaker-state dwell times, and the rollout and
+rollback history.
 """
 from __future__ import annotations
 
 import bisect
 import math
 import threading
-from typing import List
+import time
+from typing import Dict, List, Optional
 
 # fixed geometric boundaries (ms, ratio 2^(1/4)): ~0.1 ms .. ~88 s, JAX's.
 # Merging is exact only between histograms with identical boundaries
 # (merge_histograms enforces it).
 DEFAULT_BOUNDS = tuple(round(0.1 * 2 ** (i / 4), 6) for i in range(80))
+
+# the availability floor the SLO run's gate judges against
+AVAILABILITY_FLOOR = 0.97
 
 
 class LatencyHistogram:
@@ -115,3 +123,109 @@ def histogram_percentiles(snap: dict, qs=(50, 95, 99)) -> dict:
                 break
         out[key] = round(float(val), 6)
     return out
+
+
+class SLOAggregator:
+    """Fold per-host scraped stats into the fleet `slo` record.
+
+    `FleetRouter` calls `fold(host_id, stats)` on every successful
+    heartbeat / stats scrape (stats is the host's cumulative
+    `_stats_body`, so the LATEST snapshot per host is all that needs
+    keeping — no delta bookkeeping). `record_body(fleet)` then merges
+    the per-bucket histograms, computes availability off the fleet's
+    own answered/failure counters, and renders dwell times from the
+    host breaker's transition log.
+    """
+
+    def __init__(self, availability_target: float = 0.999,
+                 clock=time.monotonic):
+        self.target = float(availability_target)
+        self.clock = clock
+        self._t0 = clock()
+        self._lock = threading.Lock()
+        self._hosts: Dict[object, dict] = {}
+
+    def fold(self, host_id, stats) -> None:
+        if not isinstance(stats, dict) or not stats:
+            return
+        with self._lock:
+            self._hosts[host_id] = dict(stats)
+
+    @property
+    def hosts(self) -> dict:
+        with self._lock:
+            return dict(self._hosts)
+
+    def merged_buckets(self) -> dict:
+        """Per-bucket fleet percentiles off the merged histograms."""
+        per_bucket: Dict[str, List[dict]] = {}
+        for stats in self.hosts.values():
+            for b, snap in (stats.get('latency_hist') or {}).items():
+                per_bucket.setdefault(str(b), []).append(snap)
+        return {b: histogram_percentiles(merge_histograms(snaps))
+                for b, snaps in sorted(per_bucket.items())}
+
+    def _dwell(self, fleet, now: float) -> dict:
+        """Per-host seconds spent in each breaker state, integrated
+        over the host transition log (hosts with no transitions have
+        been healthy the whole observation window)."""
+        if fleet is None:
+            return {}
+        per: Dict[str, list] = {str(h): [] for h in fleet.hosts}
+        for tr in fleet.health.transitions:
+            per.setdefault(str(tr['replica']), []).append(tr)
+        out = {}
+        for host, trs in sorted(per.items()):
+            dwell: Dict[str, float] = {}
+            prev_t = self._t0
+            state = trs[0]['from_state'] if trs else 'healthy'
+            for tr in trs:
+                t = float(tr['t'])
+                dwell[state] = dwell.get(state, 0.0) + max(t - prev_t,
+                                                           0.0)
+                prev_t, state = t, tr['to_state']
+            dwell[state] = dwell.get(state, 0.0) + max(now - prev_t,
+                                                       0.0)
+            out[host] = {k: round(v, 4) for k, v in dwell.items()}
+        return out
+
+    def record_body(self, fleet=None, label: str = 'slo',
+                    now: Optional[float] = None) -> dict:
+        hosts = self.hosts
+        now = self.clock() if now is None else now
+        if fleet is not None:
+            answered = int(fleet.answered)
+            failures = int(fleet.request_failures)
+            timeouts = int(fleet.timeouts)
+        else:
+            answered = sum(int(s.get('answered') or 0)
+                           for s in hosts.values())
+            failures = sum(int(s.get('request_failures') or 0)
+                           for s in hosts.values())
+            timeouts = sum(int(s.get('timeouts') or 0)
+                           for s in hosts.values())
+        denom = answered + failures
+        availability = 1.0 if denom == 0 else answered / denom
+        budget = max(1.0 - self.target, 1e-12)
+        if fleet is not None:
+            rollouts = dict(count=len(fleet.rollout_events),
+                            completed=int(fleet.rollouts),
+                            rollbacks=int(fleet.rollbacks))
+        else:
+            rollouts = dict(count=0, completed=0, rollbacks=0)
+        return dict(
+            label=label,
+            hosts=len(hosts),
+            window_s=round(now - self._t0, 3),
+            availability=round(availability, 6),
+            answered=answered,
+            request_failures=failures,
+            timeouts=timeouts,
+            buckets=self.merged_buckets(),
+            error_budget=dict(target=self.target,
+                              budget=round(budget, 6),
+                              burn_rate=round(
+                                  (1.0 - availability) / budget, 4)),
+            breaker_dwell=self._dwell(fleet, now),
+            rollouts=rollouts,
+        )

@@ -52,6 +52,23 @@ import sys
 import tempfile
 import time
 
+from .health import QUARANTINED
+
+# the recovery walk needs at most one round per planned replica failure
+# left plus one for the probe (four); a round that cannot move the
+# breaker is a fault of the breaker, not of the host's speed
+RECOVERY_ROUNDS = 32
+
+
+def probe_wait(router) -> float:
+    """Seconds until the earliest quarantined replica's half-open probe
+    is due (0 when none is quarantined or one is due now)."""
+    now = router.clock()
+    waits = [r.next_probe_at - now
+             for r in (router.health[w.id] for w in router.workers)
+             if r.state == QUARANTINED and r.next_probe_at is not None]
+    return max(0.0, min(waits)) if waits else 0.0
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
@@ -209,14 +226,25 @@ def main(argv=None) -> int:
             if router.batches_dispatched - flushed_at >= args.flush_every:
                 telemetry.flush()
                 flushed_at = router.batches_dispatched
-        # probe until the quarantined replica recovered (bounded: the
-        # breaker must be seen closing)
-        probe_rounds = 0
-        while router.health.recoveries == 0 and probe_rounds < 200:
-            probe_rounds += 1
-            time.sleep(0.01)
-            guarded_submit(lengths[0])
-            router.pump()
+        # walk the breaker to its close, driven by events: how many of
+        # replica 0's planned failures the stream reached depends on its
+        # pacing (on a loaded host every request flushes alone, and a
+        # degraded replica ranks after idle healthy siblings, so it gets
+        # no more traffic). Each round places one request on every
+        # replica (least-outstanding spreads a burst of N over N idle
+        # replicas) and drains, so replica 0 takes a dispatch a round
+        # until it is quarantined; then the round waits out the
+        # breaker's own probe backoff and its burst carries the
+        # half-open probe. A round always moves the breaker, so the cap
+        # is reached only if the breaker never closes.
+        recovery_rounds = 0
+        while router.health.recoveries == 0 and \
+                recovery_rounds < RECOVERY_ROUNDS:
+            recovery_rounds += 1
+            time.sleep(probe_wait(router))
+            for _ in range(args.replicas):
+                guarded_submit(lengths[0])
+            router.drain()
         # deadline-drain the stragglers
         while router.queue_depth:
             wait = router.next_deadline()
@@ -294,6 +322,7 @@ def main(argv=None) -> int:
         health=router.health.snapshot(),
         health_transitions=router.health.transitions,
         recoveries=router.health.recoveries,
+        recovery_rounds=recovery_rounds,
         retries=router.retries,
         request_failures=router.request_failures,
         timeouts=router.timeouts,

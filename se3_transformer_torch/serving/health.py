@@ -30,8 +30,10 @@ that signal:
     `health_transitions`) and the `recoveries` count (the chaos harness
     gates on at least one quarantine -> recovery).
 
-The member ids are opaque ints (replica ids here; the cross-host tier of
-ROADMAP A8.2 drives a second monitor with host ids). Concurrent callers
+The member ids are opaque ints: the router's monitor is keyed by replica
+id, and `serving.fleet.FleetRouter` drives a second monitor one level up,
+keyed by host id, whose outcomes are RPC results and heartbeat staleness
+instead of dispatch results. Concurrent callers
 claim probes through `try_begin_probe` (the check and the begin under one
 lock): a separate probe_due() / begin_probe() pair could book the
 half-open slot twice. Clocks are injectable.

@@ -37,8 +37,10 @@ its stream:
     process-wide kernel-pick memo (kernels.tuning), which a sibling
     serving at the same time would see.
 
-JAX's request tracing (the batcher's `tracer`, its `batch_fill` span)
-comes with ROADMAP A8.2.
+Request tracing: the router's `attach_tracer` sets each batcher's
+`tracer`; a traced request that joins a slot already open records a
+`batch_fill` span, and every traced dispatch its queue_wait, dispatch and
+device_run spans (inference.batching.dispatch_batch).
 """
 from __future__ import annotations
 
@@ -122,6 +124,9 @@ class ContinuousBatcher:
         # it at its retry_after_hint), deadline failures carry the same
         # retry_after_s hint that overload sheds do
         self.retry_hint: Optional[Callable[[int], float]] = None
+        # request tracing (observability.tracing.Tracer; the router's
+        # attach_tracer sets it): batch_fill, and the dispatch spans
+        self.tracer = None
         # requests resolved with RequestFailed('deadline'): shed at
         # dispatch time (deadline_sheds) or expired in an open slot
         self.timeouts = 0
@@ -167,6 +172,14 @@ class ContinuousBatcher:
             slot = self._slots[bucket] = _Slot(bucket)
         elif slot.pending:
             self.continuous_admissions += 1
+            tr = getattr(pending, 'trace', None)
+            if self.tracer is not None and tr:
+                # the request joined a slot already open: the continuous
+                # batching event worth seeing in its trace
+                self.tracer.add(tr['ctx'], 'batch_fill',
+                                parent_id=tr['parent'],
+                                bucket=int(bucket),
+                                fill=len(slot.pending) + 1)
         slot.tokens.append(np.asarray(tokens))
         slot.coords.append(np.asarray(coords, np.float32).reshape(-1, 3))
         slot.pending.append(pending)
@@ -303,7 +316,8 @@ class ContinuousBatcher:
                                slot.tokens, slot.coords, pending,
                                done_local, self._completed_capacity,
                                self.clock, on_success=self.on_success,
-                               on_failure=self.on_failure)
+                               on_failure=self.on_failure,
+                               tracer=self.tracer)
             finally:
                 with self._completed_lock:
                     self.completed.extend(done_local)

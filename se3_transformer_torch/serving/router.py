@@ -45,7 +45,11 @@ and `swap_weights` wait per replica, and `close()` (or leaving the `with`
 block, error paths included) shuts the executors down.
 
 `id_prefix` names the request ids of a router whose records merge with
-other hosts' (ROADMAP A8.2, with request tracing's `attach_tracer`).
+other hosts' (serving.fleet.HostServer sets it); `attach_tracer` wires one
+span recorder (observability.tracing) through the router and every
+replica's batcher: `admit` and `retry` spans here, `batch_fill` and the
+dispatch spans below, for the requests whose `submit(..., trace=)`
+carries a context (an untraced request records nothing).
 """
 from __future__ import annotations
 
@@ -126,9 +130,13 @@ class Router:
         self.admission = admission
         self.clock = clock
         self._next_id = 0
-        # request-id namespace: ids are monotonic ints per router; a host
-        # whose records merge with others' sets a prefix (ROADMAP A8.2)
+        # request-id namespace: ids are monotonic ints per router and
+        # collide once several routers' streams merge; a host sets a prefix
+        # and ids become strings like 'h1-17'
         self.id_prefix: Optional[str] = None
+        # request tracing: attach_tracer hands it to every replica's
+        # batcher, so that one host records into one Tracer
+        self.tracer = None
         self.swap_events: List[dict] = []
         # ---- fault domain -------------------------------------------- #
         self.health = HealthMonitor([w.id for w in self.workers],
@@ -201,6 +209,14 @@ class Router:
 
     def bucket_for(self, length: int) -> Optional[int]:
         return fit_bucket(self.buckets, length)
+
+    def attach_tracer(self, tracer) -> None:
+        """Wire one span recorder through the router and every replica's
+        batcher, so that `pop_trace` can ship a request's whole host-side
+        story back in its RPC response."""
+        self.tracer = tracer
+        for w in self.workers:
+            w.batcher.tracer = tracer
 
     def retry_after_hint(self, queue_depth: int) -> float:
         """Backoff hint: queue depth x the per-request drain estimate (the
@@ -278,6 +294,13 @@ class Router:
             else:
                 self.retries += 1
                 worker = self._pick_worker(exclude=failed_on)
+                tr = getattr(p, 'trace', None)
+                if self.tracer is not None and tr:
+                    self.tracer.add(tr['ctx'], 'retry',
+                                    parent_id=tr['parent'],
+                                    failed_on=failed_on,
+                                    replica=worker.id,
+                                    attempt=p.attempts)
                 worker.admit(p.bucket, tokens, coords, p)
                 redispatched += 1
         return redispatched
@@ -320,14 +343,20 @@ class Router:
         return min(routable, key=rank)
 
     def submit(self, tokens, coords,
-               timeout_s: Optional[float] = None) -> PendingResult:
+               timeout_s: Optional[float] = None,
+               trace: Optional[dict] = None) -> PendingResult:
         """Admit and place one request; its slot dispatches when it fills.
 
         Raises RequestRejected (oversize / overloaded) before any engine
         runs; the bucket fit is checked before admission accounting (the
         MicroBatcher's contract). `timeout_s` (default: the router's
         `default_timeout_s`) stamps the request's deadline: it then either
-        answers in time or resolves with RequestFailed('deadline')."""
+        answers in time or resolves with RequestFailed('deadline').
+
+        `trace` is an incoming trace context (`{'trace': <id>, 'parent':
+        <span id>}`, the fleet RPC payload's `trace`): with a tracer
+        attached, an `admit` span lands under the caller's parent and every
+        later span of the request hangs under it."""
         tokens = np.asarray(tokens)
         length = len(tokens)
         bucket = self.bucket_for(length)
@@ -348,6 +377,14 @@ class Router:
         pending = PendingResult(rid, length, bucket,
                                 submitted_at, deadline=deadline)
         self._next_id += 1
+        if self.tracer is not None and trace and trace.get('trace'):
+            admit = self.tracer.add(trace['trace'], 'admit',
+                                    parent_id=trace.get('parent'),
+                                    ts=submitted_at, rid=rid,
+                                    bucket=int(bucket),
+                                    replica=worker.id)
+            pending.trace = dict(ctx=trace['trace'],
+                                 parent=admit['span'])
         worker.admit(bucket, tokens, coords, pending)
         return pending
 

@@ -17,12 +17,14 @@ record's `buckets` section is the cross-replica latency surface with no
 merging of percentiles. Per-replica skew shows in `replicas[i].depth` and
 `.served`.
 
-JAX's serve records of a fleet host carry a `transport` section; that
-comes with ROADMAP A8.2.
+A fleet host's serve records also carry its wire's counters: set
+`transport_source` to the socket server's `transport_stats` (the
+`--host` entry does) and every serve record gets a schema'd `transport`
+section.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 from ..inference.admission import AdmissionController
 from ..inference.stats import agg_stats
@@ -62,6 +64,10 @@ class RouterTelemetry(ServeTelemetryBase):
                          RetraceWatchdog(device=getattr(engine, 'device',
                                                         None)))
         self.router = router
+        # the host's wire counters (the `--host` entry points it at its
+        # socket server's transport_stats): every serve record then
+        # carries a `transport` section
+        self.transport_source: Optional[Callable[[], dict]] = None
 
     def _pop_completed(self):
         return self.router.pop_completed()
@@ -152,6 +158,8 @@ class RouterTelemetry(ServeTelemetryBase):
             **self._router_sections(),
         )
         fields.update(self._latency_sections())
+        if self.transport_source is not None:
+            fields['transport'] = dict(self.transport_source())
         return self._emit('serve', fields)
 
     def close(self) -> dict:

@@ -28,7 +28,11 @@ def flagship(dim: int = 64, num_neighbors: int = 32,
         shared_radial_hidden=True, **overrides)
 
 
-def flagship_fast(dim: int = 64, num_neighbors: int = 32,
+# flagship_fast's width: its features are [n, FLAGSHIP_FAST_DIM]
+FLAGSHIP_FAST_DIM = 64
+
+
+def flagship_fast(dim: int = FLAGSHIP_FAST_DIM, num_neighbors: int = 32,
                   valid_radius: float = 1e5, depth: int = 6,
                   **overrides) -> SE3TransformerModule:
     """n-node kNN (k=32) SE(3)-transformer, 4 degrees, 8 heads, with the

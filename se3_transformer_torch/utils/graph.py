@@ -1,5 +1,5 @@
 """Host-side graph helpers in NumPy: the port's own copy of what it needs
-from se3_transformer_tpu/native/loader.py's fallbacks. The engine, the
+of the fallbacks in se3_transformer_tpu/native/loader.py. The engine, the
 batch builders and the dataset call these; native/loader.py takes them as
 its fallbacks, so each exists once."""
 from __future__ import annotations

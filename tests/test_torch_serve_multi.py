@@ -238,9 +238,20 @@ def test_serve_cli_multi_replica_async_with_a_swap(tmp_path):
     ['--fleet', '3'], ['--host'], ['--port', '7000'], ['--host-id', '1'],
     ['--transport', 'legacy'], ['--poison-step', '3']])
 def test_serve_cli_refuses_the_cross_host_flags(argv, capsys):
-    with pytest.raises(SystemExit):
-        tserve.parse_args(['--replicas', '2', *argv])
-    assert 'ROADMAP A8.2' in capsys.readouterr().err
+    """The six cross-host flags were refused until the fleet tier was
+    ported; now parse_args takes each one, beside --replicas, and parses
+    its value."""
+    args = tserve.parse_args(['--replicas', '2', *argv])
+    assert args.replicas == 2
+    parsed = dict(fleet=args.fleet, host=args.host_mode, port=args.port,
+                  host_id=args.host_id, transport=args.transport,
+                  poison_step=args.poison_step)
+    want = {'--fleet': ('fleet', 3), '--host': ('host', True),
+            '--port': ('port', 7000), '--host-id': ('host_id', 1),
+            '--transport': ('transport', 'legacy'),
+            '--poison-step': ('poison_step', 3)}[argv[0]]
+    assert parsed[want[0]] == want[1]
+    assert 'ROADMAP' not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize('weaken,rc', [('none', 0), ('drop', 1)])
